@@ -1,0 +1,23 @@
+"""mpm_flip98a_tpu_torch — the PyTorch/CUDA port of `mpm_flip98a_tpu`.
+
+The JAX package stays the reference; this package follows its module
+layout and names, imports neither JAX nor the JAX package, and runs the
+2D single-device fast path (the dam break) on an NVIDIA H100 through two
+hand-written CUDA kernels:
+
+- `config`, `state`           — configuration and particle state
+- `models`                    — materials ids, scene, dam-break builder,
+                                the fast 2D solver (`models/fast2d.py`)
+- `ops`                       — row binning; `ops/cuda/transfer2d.py`
+                                wraps the P2G / G2P kernels in `csrc/`
+- `utils`                     — progress, timing, frame and VTK output
+- `driver`                    — the frame loop and CLI
+- `convert`                   — JAX-package state (as numpy) into this
+                                package's types, for the comparison tests
+- `_build`                    — builds `csrc/*.cu` with nvcc at first use
+"""
+
+__version__ = "0.1.0"
+
+from mpm_flip98a_tpu_torch import config as config
+from mpm_flip98a_tpu_torch import state as state

@@ -1,0 +1,76 @@
+"""Carry state from the JAX package into the port.
+
+The system has no learned weights; what crosses over is simulation state
+and static configuration.  Each function takes plain Python / numpy data
+(the JAX package's dataclasses as `dataclasses.asdict`, arrays as numpy),
+so this module imports neither JAX nor the JAX package:
+
+    particles_from_numpy({f.name: np.asarray(getattr(p, f.name)) ...})
+    buckets_from_numpy({f.name: np.asarray(getattr(b, f.name)) ...}, device)
+    scene_from_fields(dataclasses.asdict(scene))
+
+Arrays keep their dtype and bits; the tests use this to feed both
+packages the same state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from mpm_flip98a_tpu_torch.config import (
+    EOSKind, KernelKind, MPMConfig, Physics, TransferKind,
+)
+from mpm_flip98a_tpu_torch.models.fast2d import FluidBuckets
+from mpm_flip98a_tpu_torch.models.materials import MaterialParams
+from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
+from mpm_flip98a_tpu_torch.state import Particles
+
+
+def _tensor(a, device="cpu") -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _names(cls) -> list:
+    return [f.name for f in dataclasses.fields(cls)]
+
+
+def particles_from_numpy(fields: Mapping[str, np.ndarray]) -> Particles:
+    """The JAX `Particles` fields (numpy) -> the port's `Particles` (CPU)."""
+    return Particles(**{n: _tensor(fields[n]) for n in _names(Particles)})
+
+
+def buckets_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> FluidBuckets:
+    """The JAX `FluidBuckets` fields (numpy) -> the port's `FluidBuckets`."""
+    out = {n: _tensor(fields[n], device) for n in _names(FluidBuckets)}
+    out["overflow"] = out["overflow"].to(torch.int32).reshape(())
+    return FluidBuckets(**out)
+
+
+def _enum(cls, v):
+    return cls(getattr(v, "value", v))
+
+
+def scene_from_fields(fields: Mapping) -> Scene:
+    """`dataclasses.asdict` of a JAX `Scene` -> the port's `Scene`."""
+    if fields.get("colliders"):
+        raise NotImplementedError(
+            "colliders are not ported yet (ROADMAP queue 1, item 8)"
+        )
+    c = dict(fields["cfg"])
+    c["transfer"] = _enum(TransferKind, c["transfer"])
+    c["kernel"] = _enum(KernelKind, c["kernel"])
+    c["eos"] = _enum(EOSKind, c["eos"])
+    params = dict(fields["params"])
+    params["eos"] = _enum(EOSKind, params["eos"])
+    return Scene(
+        cfg=MPMConfig(**c),
+        physics=Physics(**fields["physics"]),
+        params=MaterialParams(**params),
+        materials_present=tuple(int(m) for m in fields["materials_present"]),
+        wall=WallBC(**fields["wall"]),
+        mass_floor=float(fields["mass_floor"]),
+    )

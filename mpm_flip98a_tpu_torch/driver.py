@@ -1,0 +1,319 @@
+"""Simulation driver of the port (counterpart of `mpm_flip98a_tpu/driver.py`).
+
+Reference: exec.py — the outer frame loop with 10,000 substeps per frame
+(exec.py:20-26), `progressBar` (:28), `post_process` writing frames + VTK
+(:29) and the end-of-run `Run Time` print (:31-32).
+
+This slice runs the 2D fast path on one device (`--device`, default
+`cuda`) for the `dam2d` and `dam2d_flip98` scenarios.  The general path,
+other scenarios, several devices and checkpoints raise
+NotImplementedError naming their ROADMAP item.
+
+CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
+          --frames 2 --substeps 100 --no-gif
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+from mpm_flip98a_tpu_torch.models import fast2d, scenes
+from mpm_flip98a_tpu_torch.utils import io_vtk, native_io, render
+from mpm_flip98a_tpu_torch.utils.progress import create_file_paths, progress_bar
+from mpm_flip98a_tpu_torch.utils.timing import Timers, ThroughputMeter
+
+
+def reference_scene(dtype=np.float64):
+    """The exact reference workload (config.py:24-46): 8,450 particles,
+    105^2 grid, dt = 1e-6, 10,000 substeps per 1e-2 s frame, 3 s total."""
+    return scenes.dam_break_2d(dtype=dtype)
+
+
+SCENARIOS = {
+    "dam2d": lambda: reference_scene(),
+    # FLIP blending pairs with the PIC (non-affine) scatter.
+    "dam2d_flip98": lambda: scenes.dam_break_2d(
+        dataclasses.replace(
+            MPMConfig(), flip_blend=0.98, transfer=TransferKind.PIC
+        )
+    ),
+}
+
+# Scenarios of the JAX package that this port does not run yet, with the
+# ROADMAP queue 1 item that ports them.
+UNPORTED_SCENARIOS = {
+    "elastic_drop": 8,
+    "dam3d": 9,
+    "dam2d_incompressible": 8,
+    "snow2d": 8,
+    "sand2d": 8,
+    "dam2d_obstacle": 8,
+    "plow2d": 8,
+    "dam3d_obstacle": 9,
+}
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+class Simulation:
+    """Frame-loop driver around a (particles, scene) pair on one device."""
+
+    def __init__(
+        self,
+        particles,
+        scene,
+        path: str = "fast",
+        out_dir: str = "out",
+        tag: Optional[str] = None,
+        render_res: int = 512,
+        io_async: bool = False,
+        device="cuda",
+    ):
+        if path != "fast":
+            raise _unported(f"--path {path}", 7)
+        fast2d.check_supported(scene)
+        self.scene = scene
+        self.cfg = scene.cfg
+        self.path = path
+        self.device = torch.device(device)
+        self.timers = Timers()
+        mix = "mixed" if self.cfg.pressure_mixing_ratio > 0 else "pointwise"
+        self.tag = tag or f"dt{self.cfg.dt:g}_{mix}"
+        self.frame_dir, self.vtk_dir = create_file_paths(self.tag, out_dir)
+        self.render_res = render_res
+        self.frames = []
+        self.io_async = io_async
+        self._io_pool = None
+        self._io_futures = []
+        self._host_cache = None
+        self.total_time = 0.0
+        self.frame_count = 0
+        self._last_respec_frame = 0
+        self.spec = fast2d.FastSpec.for_particles(self.cfg, particles)
+        self.state = fast2d.from_particles(particles, self.cfg, self.spec, self.device)
+        self.stats = fast2d.RunStats()
+        self.meter = ThroughputMeter(particles.n, self.cfg.stencil_size)
+
+    # -- state access ----------------------------------------------------
+
+    def _host_state(self) -> dict:
+        """Per-frame cached host pull of the bucket state (positions() and
+        material_colors() both need it every frame)."""
+        if self._host_cache is None or self._host_cache[0] != self.frame_count:
+            self._host_cache = (self.frame_count, fast2d.to_host(self.state))
+        return self._host_cache[1]
+
+    def positions(self) -> np.ndarray:
+        h = self._host_state()
+        return np.stack([h["x0"], h["x1"]], axis=-1)
+
+    def material_colors(self) -> np.ndarray:
+        """Per-particle RGB by material id (fluid blue, solids in the
+        reference's impact-block palette, mls-mpm88-explained.cpp:194,199)."""
+        mats = self._host_state()["mat"].astype(np.int64)
+        palette = np.array(
+            [
+                render._hex_rgb(c)
+                for c in (0x2986CC, 0xED553B, 0xF2B134, 0xEDEDF4, 0xC2A878)
+            ],
+            np.uint8,
+        )
+        return palette[np.clip(mats, 0, len(palette) - 1)]
+
+    # -- stepping --------------------------------------------------------
+
+    def step_frame(self, n_substeps: Optional[int] = None) -> None:
+        n = n_substeps or self.cfg.substeps_per_frame
+        t0 = time.perf_counter()
+        with self.timers.scope("substeps", sync=self.device):
+            self.state = fast2d.run(self.state, self.scene, self.spec, n, self.stats)
+        self.meter.update(n, time.perf_counter() - t0)
+        self.total_time += n * self.cfg.dt
+        self.frame_count += 1
+
+    def post_process(self, write_vtk: bool = True, keep_frame: bool = True) -> None:
+        """Render + export the current frame (exec.py:29 equivalent).
+
+        Frame dumps without GIF assembly (keep_frame=False) go through the
+        native rasterizer/PNG/binary-VTK library (utils/native_io.py) and,
+        when `io_async`, run on a writer thread so frame IO overlaps the
+        next frame's substeps.  The host pull stays on the main thread."""
+        with self.timers.scope("post_process"):
+            x2 = self.positions()
+            colors = self.material_colors()
+            png_path = f"{self.frame_dir}/{self.frame_count:05d}.png"
+            vtk_path = f"{self.vtk_dir}/{self.frame_count:05d}.vtk"
+            res, extent = self.render_res, self.cfg.domain_length
+
+            def write_frame():
+                if keep_frame or not native_io.frame_png(
+                    png_path, x2, colors, res, extent
+                ):
+                    img = render.rasterize(
+                        x2, res=res, extent=extent, colors=colors
+                    )
+                    render.write_png(img, png_path)
+                    return img
+                return None
+
+            def write_all():
+                img = write_frame()
+                if write_vtk and not native_io.vtk_particles(vtk_path, x2):
+                    io_vtk.write_vtk_particles(vtk_path, x2)
+                return img
+
+            if self.io_async and not keep_frame:
+                self._submit_io(write_all)
+            else:
+                img = write_all()
+                if keep_frame:
+                    self.frames.append(img)
+
+    def _maybe_respec(self) -> None:
+        """Adaptive bucket-capacity re-spec between frames (driver.py:301-375).
+
+        Per-row kernel work follows the bucket capacity, so as the dam
+        collapse spreads the fluid over more, sparser rows, re-bucketing
+        into a capacity sized from the current occupancy shrinks state and
+        rebucket cost.  Capacity grows at once when the occupancy-sized
+        capacity (headroom 1.15) exceeds the current one, so the in-run
+        rebucket never overflows; it shrinks for a >= 37.5% reduction at
+        most every 4 frames."""
+        h = self._host_state()
+        g = self.cfg.num_grids
+        row = np.floor(h["x0"] * self.cfg.inv_dx + fast2d.PAD - 0.5).astype(np.int64)
+        mx = int(np.bincount(np.clip(row, 0, g - 1), minlength=g).max())
+        want = fast2d.capacity_for(mx)
+        cap = self.spec.capacity
+        grow = fast2d.capacity_for(mx, 1.15) > cap
+        shrink = (
+            want <= int(cap * 0.625)
+            and self.frame_count - self._last_respec_frame >= 4
+        )
+        if not (shrink or grow) or want == cap:
+            return
+        new_spec = dataclasses.replace(self.spec, capacity=want)
+        self.state = fast2d.rebucket(self.state, self.cfg, new_spec)
+        self.spec = new_spec
+        self._last_respec_frame = self.frame_count
+        self._host_cache = None  # layout changed (values are identical)
+
+    def _submit_io(self, fn) -> None:
+        import concurrent.futures as cf
+
+        if self._io_pool is None:
+            self._io_pool = cf.ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="mpm-io"
+            )
+        # Bound the backlog and surface writer exceptions promptly.
+        pending = [f for f in self._io_futures if not f.done()]
+        if len(pending) >= 4:
+            cf.wait(pending, return_when=cf.FIRST_COMPLETED)
+        done = [f for f in self._io_futures if f.done()]
+        for f in done:
+            f.result()  # re-raise writer errors on the main thread
+            self._io_futures.remove(f)
+        self._io_futures.append(self._io_pool.submit(fn))
+
+    def drain_io(self) -> None:
+        """Block until every queued frame write has finished (and re-raise
+        any writer exception), then stop the writer threads."""
+        for f in self._io_futures:
+            f.result()
+        self._io_futures.clear()
+        if self._io_pool is not None:
+            self._io_pool.shutdown()
+            self._io_pool = None
+
+    def run(
+        self,
+        n_frames: Optional[int] = None,
+        substeps_per_frame: Optional[int] = None,
+        gif: bool = True,
+        verbose: bool = True,
+        write_frames: bool = True,
+    ) -> None:
+        """The reference outer loop (exec.py:20-29) + Run Time print (:31).
+        `write_frames=False` skips the per-frame PNG/VTK output."""
+        n_frames = n_frames or self.cfg.num_frames
+        t_begin = time.time()
+        sim_total = n_frames * (substeps_per_frame or self.cfg.substeps_per_frame) * self.cfg.dt
+        for _ in range(n_frames):
+            self.step_frame(substeps_per_frame)
+            if verbose:
+                progress_bar(
+                    self.total_time,
+                    sim_total,
+                    extra=f"{self.meter.substeps_per_sec:.0f} sub/s",
+                )
+            if write_frames:
+                self.post_process(keep_frame=gif)
+            self._maybe_respec()
+        with self.timers.scope("post_process"):
+            self.drain_io()  # async writes must land inside Run Time
+        if gif and self.frames:
+            render.write_gif(self.frames, f"{self.frame_dir}/output.gif")
+        if verbose:
+            print("Run Time:", time.time() - t_begin)  # exec.py:31-32
+            print(
+                f"substeps {self.stats.substeps}  rebuckets {self.stats.rebuckets}"
+                f"  host reads {self.stats.host_reads}"
+            )
+            print(self.timers.summary())
+
+
+def main(argv=None) -> Simulation:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="MPM driver (PyTorch/CUDA port)")
+    ap.add_argument(
+        "--scenario", default="dam2d_flip98",
+        choices=sorted({**SCENARIOS, **UNPORTED_SCENARIOS}),
+    )
+    ap.add_argument("--path", default="fast", choices=["general", "fast"])
+    ap.add_argument(
+        "--devices", default="1",
+        help="devices to shard over (only 1 is ported)",
+    )
+    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--substeps", type=int, default=None)
+    ap.add_argument("--out", default="out")
+    ap.add_argument("--resume", default=None, help="checkpoint to restore")
+    ap.add_argument("--checkpoint", default=None, help="write checkpoint at end")
+    ap.add_argument(
+        "--checkpoint-every", type=int, default=None, help="rolling restart every N frames"
+    )
+    ap.add_argument("--no-gif", action="store_true")
+    ap.add_argument(
+        "--sync-io", action="store_true",
+        help="write frames on the main thread (default: async writer "
+        "thread overlaps frame IO with the next frame's substeps)",
+    )
+    ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cuda:1")
+    args = ap.parse_args(argv)
+
+    if args.scenario in UNPORTED_SCENARIOS:
+        raise _unported(f"scenario {args.scenario!r}", UNPORTED_SCENARIOS[args.scenario])
+    if args.devices != "1":
+        raise _unported("--devices > 1", 10)
+    if args.resume or args.checkpoint or args.checkpoint_every:
+        raise _unported("checkpointing", 6)
+    p, scene = SCENARIOS[args.scenario]()
+    sim = Simulation(
+        p, scene, path=args.path, out_dir=args.out, io_async=not args.sync_io,
+        device=args.device,
+    )
+    sim.run(
+        n_frames=args.frames,
+        substeps_per_frame=args.substeps,
+        gif=not args.no_gif,
+    )
+    return sim

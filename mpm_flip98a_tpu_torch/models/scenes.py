@@ -1,0 +1,63 @@
+"""Scene builders (counterpart of `mpm_flip98a_tpu/models/scenes.py`).
+
+`dam_break_2d` is the reference's production scene: a 65 x 130 particle
+lattice filling a 0.057 x 0.114 m fluid column against the left wall of a
+0.4375 m box (reference: config.py:30-35), 105^2 grid with 4 padding
+cells (config.py:37-39).  The lattice is built in float64 numpy and cast
+to the requested dtype, exactly as the JAX builder does, so both packages
+start from the same bits.  The other scenes wait for the full switch
+matrix, 3D and colliders (ROADMAP queue 1, items 8 and 9).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from mpm_flip98a_tpu_torch.config import MPMConfig, Physics
+from mpm_flip98a_tpu_torch.models import materials as mat
+from mpm_flip98a_tpu_torch.models.stabilized import Scene
+from mpm_flip98a_tpu_torch.state import Particles
+
+
+def _lattice(counts, origin, size, dtype):
+    """counts particles per axis, cell-centered in a box [origin, origin+size)."""
+    axes = [
+        (np.arange(c, dtype=np.float64) + 0.5) * (s / c) + o
+        for c, s, o in zip(counts, size, origin)
+    ]
+    grids = np.meshgrid(*axes, indexing="ij")
+    return np.stack([g.reshape(-1) for g in grids], axis=-1).astype(dtype)
+
+
+def _floor_of(p: Particles) -> float:
+    """Absolute grid-mass floor for the scene: 1e-8 x the lightest particle."""
+    return 1e-8 * float(p.mass.min())
+
+
+def dam_break_2d(
+    cfg: Optional[MPMConfig] = None,
+    physics: Physics = Physics(),
+    dtype=np.float64,
+) -> Tuple[Particles, Scene]:
+    """The reference production scene (config.py:30-35): fluid column at the
+    left wall; particle mass/volume from the lattice (config.py:36)."""
+    cfg = cfg or MPMConfig(dtype=np.dtype(dtype).name)
+    x = _lattice(
+        (cfg.num_particles_x, cfg.num_particles_y),
+        (0.0, 0.0),
+        (cfg.fluid_width, cfg.fluid_height),
+        dtype,
+    )
+    p = Particles.init(
+        torch.from_numpy(x),
+        volume0=cfg.initial_particle_volume,
+        density=physics.particle_density,
+    )
+    scene = Scene(cfg=cfg, physics=physics, params=mat.MaterialParams(
+        bulk_modulus=physics.bulk_modulus,
+        dynamic_viscosity=physics.dynamic_viscosity,
+    ), mass_floor=_floor_of(p))
+    return p, scene

@@ -1,0 +1,83 @@
+"""Particle state of the port (counterpart of `mpm_flip98a_tpu/state.py`).
+
+A frozen dataclass of tensors, structure-of-arrays with the particle
+index leading and small per-particle matrices trailing (..., d, d).
+Scene builders make it on the host in the scene's dtype (float64 by
+default); the fast path casts to float32 and moves it to its device in
+`models/fast2d.from_particles`.  `Grid` and `MLS88Particles` belong to
+the general path and the validation model, not ported yet (ROADMAP
+queue 1, item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Particles:
+    """Full particle state of the stabilized solver
+    (reference: fields.py:4-21 ``ParticleFields``).
+
+      x, v          : (N, d)      position / velocity
+      C             : (N, d, d)   velocity gradient (APIC)
+      F             : (N, d, d)   deformation gradient
+      J             : (N,)        det(F)
+      stress        : (N, d, d)   Cauchy stress
+      material      : (N,) int32  material id
+      volume0, mass, density, pressure, div_v : (N,)
+      pou           : (N,)        partition-of-unity diagnostic
+      consistency   : (N, d)      linear-field reproduction diagnostic
+      Jp            : (N,)        plastic volume ratio (SNOW state)
+    """
+
+    x: torch.Tensor
+    v: torch.Tensor
+    C: torch.Tensor
+    F: torch.Tensor
+    J: torch.Tensor
+    stress: torch.Tensor
+    material: torch.Tensor
+    volume0: torch.Tensor
+    mass: torch.Tensor
+    density: torch.Tensor
+    pressure: torch.Tensor
+    div_v: torch.Tensor
+    pou: torch.Tensor
+    consistency: torch.Tensor
+    Jp: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.x.shape[1]
+
+    @staticmethod
+    def init(x: torch.Tensor, *, volume0, density) -> "Particles":
+        """Particles at rest with F = I, J = 1, material 0 (fluid)."""
+        n, d = x.shape
+        dt, dev = x.dtype, x.device
+        full = lambda val: torch.full((n,), float(val), dtype=dt, device=dev)
+        zeros = lambda *s: torch.zeros((n,) + s, dtype=dt, device=dev)
+        volume0, density = full(volume0), full(density)
+        return Particles(
+            x=x,
+            v=zeros(d),
+            C=zeros(d, d),
+            F=torch.eye(d, dtype=dt, device=dev).expand(n, d, d).clone(),
+            J=torch.ones((n,), dtype=dt, device=dev),
+            stress=zeros(d, d),
+            material=torch.zeros((n,), dtype=torch.int32, device=dev),
+            volume0=volume0,
+            mass=volume0 * density,
+            density=density,
+            pressure=zeros(),
+            div_v=zeros(),
+            pou=zeros(),
+            consistency=zeros(d),
+            Jp=torch.ones((n,), dtype=dt, device=dev),
+        )

@@ -1,0 +1,98 @@
+"""The port's entry points on the CPU: CLI, imports without JAX, no fallback."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mpm_flip98a_tpu_torch import driver
+from mpm_flip98a_tpu_torch.utils import io_vtk
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads only contend with XLA's."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _run_python(code_or_args, cwd=ROOT):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run(
+        [sys.executable, *code_or_args], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_cli_runs_one_frame_on_cpu(tmp_path):
+    sim = driver.main([
+        "--scenario", "dam2d_flip98", "--path", "fast", "--frames", "1",
+        "--substeps", "20", "--no-gif", "--sync-io", "--out", str(tmp_path),
+        "--device", "cpu",
+    ])
+    assert sim.stats.substeps == sim.stats.host_reads == 20
+    assert sim.frame_count == 1 and int(sim.state.overflow) == 0
+    x = sim.positions()
+    assert x.shape == (8450, 2) and np.isfinite(x).all()
+    assert os.path.exists(os.path.join(sim.frame_dir, "00001.png"))
+    pts = io_vtk.read_vtk_points(os.path.join(sim.vtk_dir, "00001.vtk"))
+    np.testing.assert_allclose(pts[:, :2], x, rtol=1e-6)
+    assert sim.meter.substeps == 20
+
+
+def test_unported_entry_points_raise(tmp_path):
+    out = ["--out", str(tmp_path), "--device", "cpu", "--frames", "1", "--substeps", "1"]
+    for extra, item in (
+        (["--scenario", "dam3d"], "item 9"),
+        (["--path", "general"], "item 7"),
+        (["--devices", "4"], "item 10"),
+        (["--checkpoint", str(tmp_path / "ck.npz")], "item 6"),
+    ):
+        with pytest.raises(NotImplementedError, match=item):
+            driver.main(out + extra)
+
+
+def test_cuda_device_without_a_card_raises(tmp_path):
+    """No CPU fallback: asking for the card without one is an error."""
+    assert not torch.cuda.is_available()
+    with pytest.raises((RuntimeError, AssertionError)):
+        driver.main(["--frames", "1", "--substeps", "1", "--out", str(tmp_path),
+                     "--device", "cuda"])
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpm_flip98a_tpu'] = None\n"
+        "import mpm_flip98a_tpu_torch as m\n"
+        "names = [i.name for i in pkgutil.walk_packages(m.__path__, m.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    if n != 'mpm_flip98a_tpu_torch.__main__':\n"
+        "        importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "assert not [k for k in sys.modules if k.startswith('jax') and sys.modules[k]]\n"
+        "print(len(names))\n"
+    )
+    r = _run_python(["-c", code])
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 15
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script_alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    cwd = ROOT
+    if alone:
+        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+        cwd = str(tmp_path)
+    r = _run_python(["chip_smoke.py"], cwd=cwd)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
