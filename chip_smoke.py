@@ -1,28 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--profile DIR]
 
 Run from the root of a checkout.  It imports nothing of JAX.  Phases:
 
-1. device   the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build    the transfer kernels, compiled by nvcc from
-            mpm_flip98a_tpu_torch/csrc for sm_90a;
-3. kernels  each kernel against its plain PyTorch version on the main
-            path's inputs at the bench scale (1M particles, 513^2 grid,
-            dt = 2e-6: bench.py:179-189) after 20 substeps, plus P2G's
-            partition of unity there and on a ragged synthetic case;
-4. main     the CLI on dam2d_flip98 (2 frames x 200 substeps), then the
-            same Simulation at the bench scale (2 frames x 100 substeps):
-            launch counters, finite state, no overflow, constant mass,
-            every particle in the box;
-5. timing   ms per substep and transfer ops/s (n * 9 * 2 * substeps /
-            seconds) for the kernel path and the plain path, median of 3
-            repeats of 100 substeps; each kernel against its plain version
-            by CUDA events.
+1. device      the card's name and power limit (nvidia-smi), torch, CUDA;
+2. build       the transfer kernels, one nvcc per mpm_flip98a_tpu_torch/
+               csrc/*.cu (all started together) for sm_90a, and ptxas's
+               register and spill report;
+3. kernels:2d  p2g_fused and g2p against their plain PyTorch versions on
+               the 2D main path's inputs at the bench scale (1M particles,
+               513^2 grid, dt = 2e-6: bench.py:179-189) after 20
+               substeps, plus P2G's partition of unity there and on a
+               ragged synthetic case;
+4. main:2d     the CLI on dam2d_flip98 (2 frames x 200 substeps), then
+               the same Simulation at the bench scale (2 frames x 100
+               substeps): launch counters, finite state, no overflow,
+               constant mass, every particle in the box;
+5. timing:2d   ms per substep and transfer ops/s (n * 9 * 2 * substeps /
+               seconds) for the kernel and plain paths, median of 3 x 100
+               substeps; each kernel against its plain version by CUDA
+               events;
+6. main:dam3d  the CLI on dam3d (64^3, 27,648 particles; 2 frames x 100
+               substeps): each 3D kernel launched once per substep, the
+               2D kernels never, and the host checks of phase 4;
+7. main:slab8M the 3D bench and BASELINE.json configs[3] slab (8.4M
+               particles, 256^3: bench.py:198-205) through Simulation,
+               2 frames x 25 substeps, then one forced rebucket: the host
+               checks and the peak device memory;
+8. kernels:3d  p2g3d_grid and g2p3d against their plain versions on that
+               state and on a ragged synthetic case: P2G's raw sums per
+               channel, its mass sum, the finished grid, G2P's outputs;
+9. timing:3d   ms per substep and transfer ops/s (n * 27 * 2 * substeps
+               / seconds), median of 3 x 20 substeps, for the kernel path
+               at 8M / 256^3 and at 1M / 128^3 and the plain path at
+               1M / 128^3; each 3D kernel and its plain version by CUDA
+               events at the 8M shapes; the per-substep margin read.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
-device it exits with code 2 before doing anything.  The last line is
+device it exits with code 2 before doing anything.  The line before the
+last lists every kernel with its launches, error, times and bound; the
+last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -41,9 +60,9 @@ import numpy as np
 import torch
 
 # Kernel-against-plain bound, per output channel, scaled by the channel's
-# max: both sides sum each node's ~40 fp32 terms in another order (shared
-# atomics in the P2G kernel, global atomics in the plain index_add_, FMA
-# contraction in the G2P kernel).
+# max: both sides sum each node's fp32 terms in another order (shared or
+# global atomics in the P2G kernels, atomics in the plain index_add_, FMA
+# contraction in the kernels).
 KERNEL_REL_TOL = 1e-5
 POU_REL_TOL = 1e-6           # P2G mass channel vs total particle mass
 BENCH = dict(                # bench.py:179-189, the 1M / 513^2 dam break
@@ -51,12 +70,22 @@ BENCH = dict(                # bench.py:179-189, the 1M / 513^2 dam break
     num_particles_y=500, fluid_width=0.430, fluid_height=0.215,
     flip_blend=0.98,
 )
+SLAB_8M = dict(num_grids=256, particles_per_axis=(512, 512, 32))   # bench.py:198-205
+SLAB_1M = dict(num_grids=128, particles_per_axis=(256, 256, 16))   # slab_3d()'s defaults
 TPU_KERNELS = {
     "p2g_fused": ("mpm_flip98a_tpu_torch/csrc/p2g_fused.cu",
                   "mpm_flip98a_tpu/ops/pallas/transfer2d.py:412"),
     "g2p": ("mpm_flip98a_tpu_torch/csrc/g2p.cu",
             "mpm_flip98a_tpu/ops/pallas/transfer2d.py:843"),
+    "p2g3d_grid": ("mpm_flip98a_tpu_torch/csrc/p2g3d_grid.cu",
+                   "mpm_flip98a_tpu/ops/pallas/transfer3d.py:622"),
+    "g2p3d": ("mpm_flip98a_tpu_torch/csrc/g2p3d.cu",
+              "mpm_flip98a_tpu/ops/pallas/transfer3d.py:930"),
 }
+# Published peaks of one H100 SXM (NVIDIA's H100 datasheet): device
+# memory rate and float32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def say(*parts) -> None:
@@ -99,9 +128,21 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, flops: float):
+    """(least ms on the card, what bounds it): the bytes the function must
+    move at the memory rate against its float32 operations at the peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ---------------------------------------------------------------------------
+# 2D
+# ---------------------------------------------------------------------------
+
+
 def compare_kernels(tag, sdata, pdata2, counts, grid4, args, dinv, card):
-    """Kernel vs plain for both transfers on one set of inputs; returns the
-    worst absolute errors.  Plain calls here do not touch the counters."""
+    """Kernel vs plain for both 2D transfers on one set of inputs; returns
+    the worst absolute errors.  Plain calls here do not touch the counters."""
     from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
 
     got = tk.p2g_fused(sdata, counts, **args)
@@ -161,12 +202,14 @@ def ragged_inputs(device, seed=0):
 
 def host_checks(tag, sim, n0, p0_mass, card):
     """Finite, no overflow, constant mass, every particle inside the box."""
-    from mpm_flip98a_tpu_torch.models import fast2d
+    from mpm_flip98a_tpu_torch.models import fast2d, fast3d
 
-    h = fast2d.to_host(sim.state)
-    x = np.stack([h["x0"], h["x1"]], -1)
+    dim = sim.cfg.dim
+    h = (fast3d if dim == 3 else fast2d).to_host(sim.state)
+    x = np.stack([h[f"x{a}"] for a in range(dim)], -1)
     cfg = sim.cfg
-    finite = all(np.isfinite(h[n]).all() for n in ("x0", "x1", "v0", "v1", "J"))
+    names = [f"x{a}" for a in range(dim)] + [f"v{a}" for a in range(dim)] + ["J"]
+    finite = all(np.isfinite(h[n]).all() for n in names)
     overflow = int(sim.state.overflow)
     mass = float(h["mass"].astype(np.float64).sum())
     inside = bool(((x > -cfg.dx) & (x < cfg.domain_length + cfg.dx)).all())
@@ -192,39 +235,185 @@ def frame_io_available() -> bool:
     return True
 
 
-def time_run(b, scene, spec, n_sub, plain):
+def time_run(mod, b, scene, spec, n_sub, plain):
     """Seconds for `run` of n_sub substeps (host clock around work that
     ends in a synchronise)."""
-    from mpm_flip98a_tpu_torch.models import fast2d
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fast2d.run(b, scene, spec, n_sub, plain=plain)
+    mod.run(b, scene, spec, n_sub, plain=plain)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
-def time_substeps_no_check(b, scene, n_sub, reps):
+def time_substeps_no_check(step, b, n_sub, reps):
     """The same substeps without the per-substep margin read (state is
-    discarded): the difference to `time_path` is the host read's cost."""
-    from mpm_flip98a_tpu_torch.models import fast2d
-
+    discarded): the difference to `time_run` is the host read's cost."""
     times = []
     for _ in range(reps):
         s = b
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_sub):
-            s = fast2d.substep(s, scene)
+            s = step(s)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return times
 
 
+def time_paths(label, mod, b, scene, spec, step, n_part, stencil, n_sub, reps, card,
+               plain=True):
+    """Kernel path (and plain path) by `run`, interleaved, then the kernel
+    path without the margin read; returns the kernel path's median."""
+    paths = (False, True) if plain else (False,)
+    runs = {p: [] for p in paths}
+    for p in paths:          # warm-up
+        time_run(mod, b, scene, spec, 3, p)
+    for _ in range(reps):    # interleaved: kernel, plain, kernel, plain ...
+        for p in paths:
+            runs[p].append(time_run(mod, b, scene, spec, n_sub, p))
+    no_check = time_substeps_no_check(step, b, n_sub, reps)
+    ops = n_part * stencil * 2 * n_sub
+    rows = [("kernel path", runs[False])]
+    if plain:
+        rows.append(("plain path", runs[True]))
+    rows.append(("kernel path, no margin read", no_check))
+    for name, ts in rows:
+        med = float(np.median(ts))
+        say(f"[timing:{label}] {name}: {1e3 * med / n_sub:.4f} ms/substep "
+            f"(median of {reps} x {n_sub}; runs {[round(1e3 * t / n_sub, 4) for t in ts]} "
+            f"ms/substep), {ops / med:.4e} transfer ops/s  [{card}]")
+    read_ms = 1e3 * (np.median(runs[False]) - np.median(no_check)) / n_sub
+    say(f"[timing:{label}] per-substep margin read costs {read_ms:.4f} ms/substep  [{card}]")
+    return float(np.median(runs[False])) / n_sub
+
+
+def profile_window(path, mod, b, scene, spec, n_sub, wall_ms, tag, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    mod.run(b, scene, spec, 2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mod.run(b, scene, spec, n_sub)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=40)
+    with open(path, "w") as f:
+        f.write(f"{card}\n{table}\n")
+    # Device busy time: the kernels' own time (device-side events only).
+    busy_ms = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in events
+        if str(e.device_type).endswith("CUDA")
+    ) / 1e3 / n_sub
+    say(f"[timing:{tag}] profile written to {path}: device busy "
+        f"{busy_ms:.4f} ms/substep against {wall_ms:.4f} ms/substep unprofiled "
+        f"(idle share {1.0 - busy_ms / wall_ms:.3f})  [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# 3D
+# ---------------------------------------------------------------------------
+
+
+def ragged_inputs3d(device, seed=0):
+    """Ragged pencils: empty, full and partly filled, live slots outside
+    the +-1 margin on both axes, z taps past both grid edges."""
+    rng = np.random.default_rng(seed)
+    r, k, g = 64, 256, 64
+    counts = rng.integers(0, k + 1, (r, r))
+    counts[::7, ::5] = 0
+    counts[3, 3] = k
+    rel0 = rng.choice([-1, 0, 0, 1, 2], size=(r, r, k))
+    rel1 = rng.choice([-1, 0, 0, 1, -2], size=(r, r, k))
+    gx0 = np.arange(r)[:, None, None] + rel0 + 0.5 + rng.random((r, r, k))
+    gx1 = np.arange(r)[None, :, None] + rel1 + 0.5 + rng.random((r, r, k))
+    gx2 = rng.uniform(-1.0, g + 1.0, (r, r, k))
+    live = np.arange(k) < counts[..., None]
+    v = rng.normal(0.0, 1.0, (3, r, r, k))
+    c = rng.normal(0.0, 5.0, (9, r, r, k))
+    j = np.where(live, rng.uniform(0.98, 1.02, (r, r, k)), 1.0)
+    mass = np.where(live, rng.uniform(1e-4, 2e-4, (r, r, k)), 0.0)
+    vol0 = mass / 997.5
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+    planes = tuple(t(a) for a in (gx0, gx1, gx2, *v, *c, j, mass, vol0))
+    dx = 0.4375 / (g - 5)
+    state = (*planes[3:6], planes[15], *((p - 2.0) * dx for p in planes[:3]))
+    counts = torch.as_tensor(counts.reshape(-1), dtype=torch.int32, device=device)
+    return planes, t(live), counts, state, g, dx
+
+
+def expected_mass3d(planes, counts, g):
+    """float64 mass the raw P2G sums must hold: the live in-margin slots'
+    mass times the share of their z taps inside [0, g)."""
+    r0, r1, k = planes[0].shape
+    dev = planes[0].device
+    gx0, gx1, gx2 = (p.double() for p in planes[:3])
+    live = torch.arange(k, device=dev) < counts.view(r0, r1, 1)
+    ok = (
+        ((torch.floor(gx0 - 0.5) - torch.arange(r0, device=dev)[:, None, None]).abs() <= 1)
+        & ((torch.floor(gx1 - 0.5) - torch.arange(r1, device=dev)[None, :, None]).abs() <= 1)
+        & live
+    )
+    base2 = torch.floor(gx2 - 0.5)
+    fx = gx2 - base2
+    share = torch.zeros_like(fx)
+    for j, w in enumerate((0.5 * (1.5 - fx) ** 2, 0.75 - (fx - 1) ** 2, 0.5 * (fx - 0.5) ** 2)):
+        share += w * ((base2 + j >= 0) & (base2 + j < g))
+    return float((planes[16].double() * share * ok).sum())
+
+
+def compare_kernels3d(tag, planes, counts, mask, state, kw, dinv, card):
+    """Kernel vs plain for both 3D transfers on one set of inputs; returns
+    the worst absolute errors of the two outputs (grid, G2P output)."""
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    r0, r1, _ = planes[0].shape
+    g2, dx = kw["g2"], kw["dx"]
+    args = {n: v for n, v in kw.items() if n != "alpha"}
+    scatter = {n: args[n] for n in ("apic", "stress", "kb", "mu", "gamma", "fa")}
+    raw = torch.empty((r0 + 4, r1 + 4, tk3.P2G_CH, g2), device=counts.device)
+    got = tk3.p2g3d_grid(planes, counts, r1, raw=raw, **args)
+    raw_plain = tk3.p2g3d_raw_plain(planes, counts, g2, dx, **scatter)
+    want = tk3.p2g3d_grid_plain(planes, counts, r1, **args)
+    err_r, rel_r = scaled_errors(raw, raw_plain, axis=2)
+    m_expect = expected_mass3d(planes, counts, g2)
+    pou = abs(float(raw[:, :, 6].double().sum()) - m_expect) / m_expect
+    # The finished grid's velocities are raw sums over the nodal mass: their
+    # error is weighted by that mass and scaled by the raw sum's max.
+    m = raw_plain[:, :, 6:7].double()
+    mom_err = ((got - want).double().abs() * m).amax(dim=(0, 1, 3))
+    mom_max = raw_plain[:, :, [3, 4, 5, 0, 1, 2]].double().abs().amax(dim=(0, 1, 3))
+    rel_m = (mom_err / mom_max.clamp(min=1e-30)).tolist()
+    err_grid = float((got - want).abs().max())
+    pads_zero = not bool(got[0].any()) and not bool(got[r0 + 1:].any())
+    say(f"[kernels:{tag}] p2g3d_grid raw sums max_abs_err per channel {err_r} "
+        f"scaled {['%.2e' % r for r in rel_r]} (tol {KERNEL_REL_TOL}); finished grid "
+        f"max_abs_err {err_grid:.3e}, mass-weighted scaled {['%.2e' % r for r in rel_m]} "
+        f"(tol {KERNEL_REL_TOL}); mass sum rel err {pou:.3e} (tol {POU_REL_TOL}); "
+        f"axis-0 pads zero {pads_zero}  [{card}]")
+    check(max(rel_r) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid raw sums disagree with plain")
+    check(max(rel_m) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid grid disagrees with plain")
+    check(pou <= POU_REL_TOL, f"{tag}: p2g3d_grid partition of unity")
+    check(pads_zero, f"{tag}: p2g3d_grid axis-0 pad rows not zero")
+
+    gxs = planes[:3]
+    g2p_args = (*gxs, mask, counts, got, dx, dinv, state, kw["alpha"], kw["dt"])
+    got_u = tk3.g2p3d(*g2p_args)
+    want_u = tk3.g2p3d_plain(*g2p_args)
+    # x and J at their scale, v per channel, C by one term's size.
+    c_unit = dinv * dx * float(got[:, :, :3].abs().max())
+    scale = want_u.abs().double().amax(dim=(0, 1, 3))
+    scale[6:15] = c_unit
+    scale[15] = max(float(scale[15]), 1.0)
+    err_u, rel_u = scaled_errors(got_u, want_u, axis=2, scale=scale)
+    say(f"[kernels:{tag}] g2p3d max_abs_err per channel {['%.2e' % e for e in err_u]} "
+        f"scaled {['%.2e' % r for r in rel_u]} (tol {KERNEL_REL_TOL})  [{card}]")
+    check(max(rel_u) <= KERNEL_REL_TOL, f"{tag}: g2p3d disagrees with its plain version")
+    return err_grid, max(err_u), got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
-                    help="write a torch.profiler table of 20 bench substeps here")
+                    help="write torch.profiler tables of the 2D bench and the 8M slab here")
     args = ap.parse_args(argv)
 
     # ---- 1. device --------------------------------------------------------
@@ -236,8 +425,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, root)
     from mpm_flip98a_tpu_torch import _build, driver
     from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
-    from mpm_flip98a_tpu_torch.models import fast2d, scenes
+    from mpm_flip98a_tpu_torch.models import fast2d, fast3d, scenes
     from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
 
     check("jax" not in sys.modules, "jax was imported")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -248,6 +438,9 @@ def main(argv=None) -> int:
     say(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices {torch.cuda.device_count()} "
         f"name {torch.cuda.get_device_name(0)} capability {torch.cuda.get_device_capability(0)}")
+    t_start = time.perf_counter()
+    reset_all = lambda: (tk.reset_launches(), tk3.reset_launches())
+    counts_now = lambda: {**tk.LAUNCHES, **tk3.LAUNCHES}
 
     # ---- 2. build ---------------------------------------------------------
     build = _build.load()
@@ -256,10 +449,10 @@ def main(argv=None) -> int:
         f"{[os.path.relpath(s, root) for s in _build.sources()]} "
         f"flags {' '.join(_build.NVCC_FLAGS)}")
     for line in build.log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "smem" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "smem", "spill", "== ")):
             say(f"[build] {line.strip()}")
 
-    # ---- 3. kernels against plain ----------------------------------------
+    # ---- 3. kernels:2d ----------------------------------------------------
     cfg = MPMConfig(**BENCH, transfer=TransferKind.PIC)
     t0 = time.perf_counter()
     p_big, scene_big = scenes.dam_break_2d(cfg, dtype=np.float32)
@@ -267,7 +460,7 @@ def main(argv=None) -> int:
     b = fast2d.from_particles(p_big, cfg, spec_big, dev)
     b = fast2d.run(b, scene_big, spec_big, 20)
     torch.cuda.synchronize()
-    say(f"[kernels] bench state: {p_big.n} particles, grid {cfg.num_grids}^2, "
+    say(f"[kernels:2d] bench state: {p_big.n} particles, grid {cfg.num_grids}^2, "
         f"buckets {tuple(b.shape)}, 20 substeps in {time.perf_counter() - t0:.2f} s")
     sdata, pdata2, counts = fast2d.transfer_inputs(b, cfg)
     p_args = fast2d.p2g_args(scene_big)
@@ -275,7 +468,8 @@ def main(argv=None) -> int:
     grid_bench = fast2d._grid_update2d(
         tk.fold_rows(tk.p2g_fused(sdata, counts, **p_args)), scene_big
     )
-    err_p2g, err_g2p = compare_kernels(
+    err = {}
+    err["p2g_fused"], err["g2p"] = compare_kernels(
         "bench", sdata, pdata2, counts, grid_bench, p_args, dinv, card
     )
     rs, rp, rc, rgrid, rg = ragged_inputs(dev)
@@ -288,16 +482,30 @@ def main(argv=None) -> int:
         "p2g_fused": cuda_ms(lambda: tk.p2g_fused_plain(sdata, counts, **p_args)),
         "g2p": cuda_ms(lambda: tk.g2p_plain(pdata2, counts, grid_bench, p_args["dx"], dinv)),
     }
-    for name in TPU_KERNELS:
-        say(f"[kernels] {name} at bench shapes: kernel {kernel_ms[name]:.4f} ms, "
-            f"plain {plain_ms[name]:.4f} ms (CUDA events, 20 calls)  [{card}]")
+    r2, _, k2 = sdata.shape
+    live2 = int(counts.sum())
+    g2d = cfg.num_grids
+    bounds = {
+        # live slots' 11 fields + counts in; (R, 5, 5, G) out; 9 taps x 5
+        # channels of multiply-adds per live slot.
+        "p2g_fused": bound(4 * (11 * live2 + r2 + r2 * 25 * g2d), live2 * 9 * 5 * 2),
+        # live slots' [gx0, gx1, mask] + counts + the grid in; every slot's
+        # 8 channels out; 9 taps x 8 sums of multiply-adds per live slot.
+        "g2p": bound(4 * (3 * live2 + r2 + r2 * 4 * g2d + r2 * 8 * k2), live2 * 9 * 8 * 2),
+    }
+    for name in ("p2g_fused", "g2p"):
+        say(f"[kernels:2d] {name} at bench shapes: kernel {kernel_ms[name]:.4f} ms, "
+            f"plain {plain_ms[name]:.4f} ms (CUDA events, 20 calls), bound "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
+    del b, sdata, pdata2, counts, grid_bench, rs, rp, rc, rgrid
 
-    # ---- 4. main path -----------------------------------------------------
+    # ---- 4. main:2d ---------------------------------------------------------
     io_ok = frame_io_available()
     if not io_ok:
         say("[main] frame IO unavailable (no native writer, no PIL): "
             "running with frame output off")
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    launches = {}
     try:
         n_frames, n_sub = 2, 200
         argv_cli = [
@@ -306,7 +514,7 @@ def main(argv=None) -> int:
         ]
         p_ref, _ = driver.SCENARIOS["dam2d_flip98"]()
         mass_ref = float(p_ref.mass.to(torch.float32).double().sum())
-        tk.reset_launches()
+        reset_all()
         if io_ok:
             sim = driver.main(argv_cli)
         else:
@@ -314,12 +522,14 @@ def main(argv=None) -> int:
             sim = driver.Simulation(p, scene, out_dir=out_dir, device=dev)
             sim.run(n_frames, n_sub, gif=False, write_frames=False)
         torch.cuda.synchronize()
-        launches = dict(tk.LAUNCHES)
+        got = counts_now()
         say(f"[main:dam2d_flip98] {'CLI ' + ' '.join(argv_cli) if io_ok else 'Simulation'}: "
-            f"launches {launches}, substeps {sim.stats.substeps}")
-        for name in TPU_KERNELS:
-            check(launches[name] == n_frames * n_sub == sim.stats.substeps,
-                  f"{name} launched {launches[name]} times for {n_frames * n_sub} substeps")
+            f"launches {got}, substeps {sim.stats.substeps}")
+        for name in ("p2g_fused", "g2p"):
+            check(got[name] == n_frames * n_sub == sim.stats.substeps,
+                  f"{name} launched {got[name]} times for {n_frames * n_sub} substeps")
+            launches[name] = got[name]
+        check(got["p2g3d_grid"] == got["g2p3d"] == 0, "a 3D kernel ran on the 2D path")
         host_checks("dam2d_flip98", sim, p_ref.n, mass_ref, card)
         if io_ok:
             frames = sorted(os.listdir(sim.frame_dir)), sorted(os.listdir(sim.vtk_dir))
@@ -328,69 +538,170 @@ def main(argv=None) -> int:
 
         mass_big = float(p_big.mass.to(torch.float32).double().sum())
         sim_big = driver.Simulation(p_big, scene_big, out_dir=out_dir, device=dev)
-        tk.reset_launches()
+        reset_all()
         t0 = time.perf_counter()
         sim_big.run(2, 100, gif=False, verbose=False, write_frames=io_ok)
         torch.cuda.synchronize()
-        launches_big = dict(tk.LAUNCHES)
+        launches_big = counts_now()
         say(f"[main:bench] Simulation 2 frames x 100 substeps in "
             f"{time.perf_counter() - t0:.2f} s, launches {launches_big}, "
             f"capacity {sim_big.spec.capacity}")
         say("[main:bench] timers\n" + sim_big.timers.summary())
-        for name in TPU_KERNELS:
+        for name in ("p2g_fused", "g2p"):
             check(launches_big[name] == 200, f"bench: {name} launched {launches_big[name]} times")
         host_checks("bench", sim_big, p_big.n, mass_big, card)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
-    # ---- 5. timing at the bench scale -------------------------------------
-    b = sim_big.state
-    spec = sim_big.spec
-    n_sub, reps = 100, 3
-    ops = p_big.n * cfg.stencil_size * 2 * n_sub
-    runs = {False: [], True: []}
-    for plain in (False, True):    # warm-up
-        time_run(b, scene_big, spec, 10, plain)
-    for _ in range(reps):          # interleaved: kernel, plain, kernel, plain ...
-        for plain in (False, True):
-            runs[plain].append(time_run(b, scene_big, spec, n_sub, plain))
-    no_check = time_substeps_no_check(b, scene_big, n_sub, reps)
-    for label, ts in (("kernel path", runs[False]), ("plain path", runs[True]),
-                      ("kernel path, no margin read", no_check)):
-        med = float(np.median(ts))
-        say(f"[timing] {label}: {1e3 * med / n_sub:.4f} ms/substep "
-            f"(median of {reps} x {n_sub}; runs {[round(1e3 * t / n_sub, 4) for t in ts]} "
-            f"ms/substep), {ops / med:.4e} transfer ops/s  [{card}]")
-    read_ms = 1e3 * (np.median(runs[False]) - np.median(no_check)) / n_sub
-    say(f"[timing] per-substep margin read costs {read_ms:.4f} ms/substep  [{card}]")
-
+    # ---- 5. timing:2d -------------------------------------------------------
+    b, spec = sim_big.state, sim_big.spec
+    step2d = lambda s: fast2d.substep(s, scene_big)
+    wall2d = time_paths("2d", fast2d, b, scene_big, spec, step2d, p_big.n,
+                        cfg.stencil_size, 100, 3, card)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
-        from torch.profiler import ProfilerActivity, profile
+        profile_window(os.path.join(args.profile, "profile_bench_20_substeps.txt"),
+                       fast2d, b, scene_big, spec, 20, 1e3 * wall2d, "2d", card)
+    del sim_big, b, p_big
+    torch.cuda.empty_cache()
+    say(f"[timing] 2D phases done at {time.perf_counter() - t_start:.1f} s")
 
-        fast2d.run(b, scene_big, spec, 5)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fast2d.run(b, scene_big, spec, 20)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        table = events.table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(args.profile, "profile_bench_20_substeps.txt"), "w") as f:
-            f.write(f"{card}\n{table}\n")
-        # Device busy time: the kernels' own time (device-side events only).
-        busy_ms = sum(
-            getattr(e, "self_device_time_total", 0.0) for e in events
-            if str(e.device_type).endswith("CUDA")
-        ) / 1e3 / 20
-        wall_ms = 1e3 * float(np.median(runs[False])) / n_sub
-        say(f"[timing] profile written to {args.profile}: device busy "
-            f"{busy_ms:.4f} ms/substep against {wall_ms:.4f} ms/substep unprofiled "
-            f"(idle share {1.0 - busy_ms / wall_ms:.3f})  [{card}]")
+    # ---- 6. main:dam3d ------------------------------------------------------
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        n_frames, n_sub = 2, 100
+        argv_cli = [
+            "--scenario", "dam3d", "--path", "fast", "--frames", str(n_frames),
+            "--substeps", str(n_sub), "--no-gif", "--out", out_dir, "--device", "cuda",
+        ]
+        p_ref, _ = driver.SCENARIOS["dam3d"]()
+        mass_ref = float(p_ref.mass.to(torch.float32).double().sum())
+        reset_all()
+        t0 = time.perf_counter()
+        if io_ok:
+            sim = driver.main(argv_cli)
+        else:
+            p, scene = driver.SCENARIOS["dam3d"]()
+            sim = driver.Simulation(p, scene, out_dir=out_dir, device=dev)
+            sim.run(n_frames, n_sub, gif=False, write_frames=False)
+        torch.cuda.synchronize()
+        got = counts_now()
+        say(f"[main:dam3d] {'CLI ' + ' '.join(argv_cli) if io_ok else 'Simulation'} in "
+            f"{time.perf_counter() - t0:.2f} s: launches {got}, substeps {sim.stats.substeps}, "
+            f"buckets {tuple(sim.state.shape)}")
+        for name in ("p2g3d_grid", "g2p3d"):
+            check(got[name] == n_frames * n_sub == sim.stats.substeps,
+                  f"{name} launched {got[name]} times for {n_frames * n_sub} substeps")
+            launches[name] = got[name]
+        check(got["p2g_fused"] == got["g2p"] == 0, "a 2D kernel ran on the 3D path")
+        host_checks("dam3d", sim, p_ref.n, mass_ref, card)
+        if io_ok:
+            frames = sorted(os.listdir(sim.frame_dir)), sorted(os.listdir(sim.vtk_dir))
+            say(f"[main:dam3d] frames {frames}")
+            check(len(frames[0]) == len(frames[1]) == n_frames, "frame files missing")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del sim
+
+    # ---- 7. main:slab8M -----------------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p8, scene8 = scenes.slab_3d(**SLAB_8M)
+    mass8 = float(p8.mass.to(torch.float32).double().sum())
+    sim8 = driver.Simulation(p8, scene8, out_dir=tempfile.gettempdir(), device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    reset_all()
+    t0 = time.perf_counter()
+    sim8.run(2, 25, gif=False, verbose=False, write_frames=False)
+    torch.cuda.synchronize()
+    got = counts_now()
+    say(f"[main:slab8M] {p8.n} particles, grid {scene8.cfg.num_grids}^3, buckets "
+        f"{tuple(sim8.state.shape)} (capacity {sim8.spec.capacity}); built in {t_build:.2f} s; "
+        f"Simulation 2 frames x 25 substeps in {time.perf_counter() - t0:.2f} s, "
+        f"launches {got}  [{card}]")
+    say("[main:slab8M] timers\n" + sim8.timers.summary())
+    for name in ("p2g3d_grid", "g2p3d"):
+        check(got[name] == 50, f"slab8M: {name} launched {got[name]} times")
+    host_checks("slab8M", sim8, p8.n, mass8, card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b8 = fast3d.rebucket(sim8.state, scene8.cfg, sim8.spec)
+    torch.cuda.synchronize()
+    t_reb = time.perf_counter() - t0
+    check(int(b8.overflow) == 0, "slab8M: forced rebucket overflowed")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[main:slab8M] one forced rebucket {1e3 * t_reb:.2f} ms; peak device memory "
+        f"(state build, 50 substeps, rebucket) {peak} bytes = {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)  [{card}]")
+    del b8
+
+    # ---- 8. kernels:3d --------------------------------------------------------
+    b = sim8.state
+    cfg8, spec8 = scene8.cfg, sim8.spec
+    planes, counts, mask, state = fast3d.transfer_inputs(b, spec8, cfg8)
+    kw3 = {**fast3d.p2g_args(scene8), "alpha": float(cfg8.flip_blend)}
+    dinv3 = float(4.0 * cfg8.inv_dx * cfg8.inv_dx)
+    err["p2g3d_grid"], err["g2p3d"], grid8 = compare_kernels3d(
+        "slab8M", planes, counts, mask, state, kw3, dinv3, card
+    )
+    rplanes, rmask, rcounts, rstate, rg, rdx = ragged_inputs3d(dev)
+    rkw = {**kw3, "g2": rg, "dx": rdx, "hi": rg - 3, "fa": -kw3["dt"] * 4.0 / rdx**2}
+    compare_kernels3d("ragged3d", rplanes, rcounts, rmask, rstate, rkw, 4.0 / rdx**2, card)
+    del rplanes, rmask, rcounts, rstate
+
+    args8 = {n: v for n, v in kw3.items() if n != "alpha"}
+    g2p_in = (*planes[:3], mask, counts, grid8, kw3["dx"], dinv3, state, kw3["alpha"], kw3["dt"])
+    kernel_ms["p2g3d_grid"] = cuda_ms(lambda: tk3.p2g3d_grid(planes, counts, spec8.rows1, **args8))
+    kernel_ms["g2p3d"] = cuda_ms(lambda: tk3.g2p3d(*g2p_in))
+    plain_ms["p2g3d_grid"] = cuda_ms(
+        lambda: tk3.p2g3d_grid_plain(planes, counts, spec8.rows1, **args8), reps=3, warm=1)
+    plain_ms["g2p3d"] = cuda_ms(lambda: tk3.g2p3d_plain(*g2p_in), reps=3, warm=1)
+    r0, r1, k3 = mask.shape
+    g3 = kw3["g2"]
+    live3 = int(counts.sum())
+    nodes = (r0 + 4) * (r1 + 4) * g3
+    bounds["p2g3d_grid"] = bound(
+        # live slots' 18 planes + counts in; the finished 6-channel grid out;
+        # 27 taps x 7 channels of multiply-adds per live slot.
+        4 * (18 * live3 + r0 * r1 + 6 * nodes), live3 * 27 * 7 * 2)
+    bounds["g2p3d"] = bound(
+        # live slots' 11 planes, dead slots' x (3) + counts + the grid in;
+        # every slot's 16 channels out; 27 taps x 15 sums per live slot.
+        4 * (11 * live3 + 3 * (r0 * r1 * k3 - live3) + r0 * r1 + 6 * nodes
+             + 16 * r0 * r1 * k3), live3 * 27 * 15 * 2)
+    for name in ("p2g3d_grid", "g2p3d"):
+        say(f"[kernels:3d] {name} at the 8M shapes (buckets {r0}x{r1}x{k3}, {live3} live): "
+            f"kernel {kernel_ms[name]:.4f} ms (CUDA events, 20 calls), plain "
+            f"{plain_ms[name]:.4f} ms (3 calls), bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})  [{card}]")
+    del planes, state, mask, counts, grid8, g2p_in
+
+    # ---- 9. timing:3d ---------------------------------------------------------
+    step8 = lambda s: fast3d.substep(s, scene8, spec8)
+    wall8 = time_paths("3d 8M/256^3", fast3d, b, scene8, spec8, step8, p8.n, 27, 20, 3,
+                       card, plain=False)
+    if args.profile:
+        profile_window(os.path.join(args.profile, "profile_slab8M_5_substeps.txt"),
+                       fast3d, b, scene8, spec8, 5, 1e3 * wall8, "3d 8M/256^3", card)
+    del sim8, b, p8
+    torch.cuda.empty_cache()
+    p1, scene1 = scenes.slab_3d(**SLAB_1M)
+    spec1 = fast3d.FastSpec3D.for_particles(scene1.cfg, p1)
+    b1 = fast3d.from_particles(p1, scene1.cfg, spec1, dev)
+    step1 = lambda s: fast3d.substep(s, scene1, spec1)
+    say(f"[timing:3d 1M/128^3] slab_3d(): {p1.n} particles, buckets {tuple(b1.shape)}")
+    time_paths("3d 1M/128^3", fast3d, b1, scene1, spec1, step1, p1.n, 27, 20, 3, card)
+    say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name],
-         "max_abs_err": {"p2g_fused": err_p2g, "g2p": err_g2p}[name],
-         "ms": kernel_ms[name], "plain_ms": plain_ms[name]}
+         "launches": launches[name], "max_abs_err": err[name],
+         "ms": kernel_ms[name], "plain_ms": plain_ms[name],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         # No single PyTorch call computes a B-spline P2G or G2P.
+         "library_ms": None}
         for name, (src, tpu) in TPU_KERNELS.items()
     ]
     say(card)

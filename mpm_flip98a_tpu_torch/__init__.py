@@ -2,14 +2,16 @@
 
 The JAX package stays the reference; this package follows its module
 layout and names, imports neither JAX nor the JAX package, and runs the
-2D single-device fast path (the dam break) on an NVIDIA H100 through two
-hand-written CUDA kernels:
+single-device fast path (the 2D and 3D dam breaks, the 3D slab) on an
+NVIDIA H100 through four hand-written CUDA kernels:
 
 - `config`, `state`           — configuration and particle state
-- `models`                    — materials ids, scene, dam-break builder,
-                                the fast 2D solver (`models/fast2d.py`)
-- `ops`                       — row binning; `ops/cuda/transfer2d.py`
-                                wraps the P2G / G2P kernels in `csrc/`
+- `models`                    — materials ids, scene, scene builders, the
+                                fast 2D and 3D solvers (`models/fast2d.py`,
+                                `models/fast3d.py`)
+- `ops`                       — row and pencil binning;
+                                `ops/cuda/transfer2d.py` and `transfer3d.py`
+                                wrap the P2G / G2P kernels in `csrc/`
 - `utils`                     — progress, timing, frame and VTK output
 - `driver`                    — the frame loop and CLI
 - `convert`                   — JAX-package state (as numpy) into this

@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels from `csrc/` and load them with ctypes.
 
-At first use, `load()` runs `nvcc` once on every `csrc/*.cu` into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), under `build/torch_kernels/<hash>/` beside the package,
-keyed by a hash of the sources and flags.  A later process with the same
+At first use, `load()` compiles every `csrc/*.cu` in its own `nvcc`
+process, all started together, and links the objects into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), under `build/torch_kernels/<hash>/` beside the package, keyed
+by a hash of the sources and flags.  A later process with the same
 sources loads the cached library.  Each C entry point returns
-`cudaGetLastError()` after its launch; the wrappers in
-`ops/cuda/transfer2d.py` raise when it is not 0.
+`cudaGetLastError()` after its launches; the wrappers in
+`ops/cuda/transfer2d.py` and `transfer3d.py` raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -39,6 +40,16 @@ SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _P,
     ),
     "mpm_g2p": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
+    # planes, pencil strides, counts, raw, out, R0, R1, K, G2, dx, apic,
+    # tait, kb, kb/gamma, gamma, 2 mu, fa, dt g (3), floor, lo, hi, wall,
+    # dt beta, stream
+    "mpm_p2g3d_grid": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F,
+        _F, _F, _F, _F, _I, _I, _I, _F, _P,
+    ),
+    # planes, pencil strides, counts, grid, out, R0, R1, K, G2, dx, dinv,
+    # alpha, 1 - alpha, dt, stream
+    "mpm_g2p3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
 }
 
 
@@ -82,6 +93,43 @@ def _key(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(srcs, lib_path: Path) -> str:
+    """One `nvcc -c` per source, run in parallel, then one link; returns
+    the compilers' output (the ptxas register report)."""
+    nvcc = _nvcc()
+    tag = f".{os.getpid()}"
+    cu = [s for s in srcs if s.suffix == ".cu"]
+    objs = [lib_path.with_name(f"{s.stem}{tag}.o") for s in cu]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for s, obj in zip(cu, objs)
+    ]
+    log, failed = "", []
+    for s, proc in zip(cu, procs):
+        out, _ = proc.communicate()
+        log += f"== {s.name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(s.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = lib_path.with_name(f"{tag}.{lib_path.name}")
+    link = subprocess.run(
+        [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+         "-o", str(tmp), *map(str, objs)],
+        capture_output=True, text=True,
+    )
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    for obj in objs:
+        obj.unlink()
+    os.replace(tmp, lib_path)  # atomic: concurrent builds race safely
+    return log
+
+
 def load() -> Build:
     """Build (or reuse) and load the kernel library; raises on failure."""
     global _loaded
@@ -95,15 +143,7 @@ def load() -> Build:
         cached = lib_path.exists()
         if not cached:
             lib_path.parent.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f".{os.getpid()}.{lib_path.name}")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-            cmd += [str(s) for s in srcs if s.suffix == ".cu"]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            log_path.write_text(log)
-            os.replace(tmp, lib_path)  # atomic: concurrent builds race safely
+            log_path.write_text(_compile_and_link(srcs, lib_path))
         log = log_path.read_text() if log_path.exists() else ""
         lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in SIGNATURES.items():

@@ -7,6 +7,7 @@ so this module imports neither JAX nor the JAX package:
 
     particles_from_numpy({f.name: np.asarray(getattr(p, f.name)) ...})
     buckets_from_numpy({f.name: np.asarray(getattr(b, f.name)) ...}, device)
+    buckets3d_from_numpy(... the same for a 3D FluidBuckets3D ...)
     scene_from_fields(dataclasses.asdict(scene))
 
 Arrays keep their dtype and bits; the tests use this to feed both
@@ -25,6 +26,7 @@ from mpm_flip98a_tpu_torch.config import (
     EOSKind, KernelKind, MPMConfig, Physics, TransferKind,
 )
 from mpm_flip98a_tpu_torch.models.fast2d import FluidBuckets
+from mpm_flip98a_tpu_torch.models.fast3d import FluidBuckets3D
 from mpm_flip98a_tpu_torch.models.materials import MaterialParams
 from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
 from mpm_flip98a_tpu_torch.state import Particles
@@ -48,6 +50,13 @@ def buckets_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> FluidB
     out = {n: _tensor(fields[n], device) for n in _names(FluidBuckets)}
     out["overflow"] = out["overflow"].to(torch.int32).reshape(())
     return FluidBuckets(**out)
+
+
+def buckets3d_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> FluidBuckets3D:
+    """The JAX `FluidBuckets3D` fields (numpy) -> the port's `FluidBuckets3D`."""
+    out = {n: _tensor(fields[n], device) for n in _names(FluidBuckets3D)}
+    out["overflow"] = out["overflow"].to(torch.int32).reshape(())
+    return FluidBuckets3D(**out)
 
 
 def _enum(cls, v):

@@ -1,0 +1,260 @@
+// Fused-stress 3D P2G + grid update over pencil-bucketed particles, for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `p2g3d_grid` in
+// mpm_flip98a_tpu/ops/pallas/transfer3d.py (def :622, pallas_call :709,
+// body _p2g3d_grid_kernel :428 -> _p2g3d_chunk :193) in its stress mode,
+// non-raw, without the extended channels, the tent kernel or colliders.
+// The TPU kernel scatters along z with one-hot MXU products and carries
+// target rows from one sequential grid step to the next in a rolling
+// 5-slot VMEM scratch; GPU blocks run in no order, so that design does
+// not carry over.
+//
+// Contract (same as the TPU kernel):
+//   planes  18 (R0, R1, K) f32 [gx0, gx1, gx2, v0, v1, v2, C00..C22, J,
+//           mass, vol0], each with its own pencil stride (unit along K)
+//   counts  (R0 * R1,) i32 packed pencil counts (active slots first)
+//   out     (R0 + 4, R1 + 4, 6, G2) f32 = [v_new (3), v_old (3)], plane /
+//           row j = target row j - 1 on both bucketed axes
+// A slot contributes only when its base row on both axes is within +-1 of
+// its pencil's; z taps outside [0, G2) are dropped.  Axis-0 target rows
+// outside [0, R0) come out zero (the TPU kernel's `interior` crop); the
+// axis-1 pad rows keep their sums, as in the TPU kernel.
+//
+// Design: two launches.
+//   1. scatter: one thread per slot, blocks of kThreads slots inside one
+//      pencil (a block past the pencil's count returns at once).  The
+//      thread computes the fluid stress in registers and adds its 27 taps
+//      x 7 channels [m v pure (3), m v forced (3), m] with float atomics
+//      into a zeroed raw buffer (R0 + 4, R1 + 4, 7, G2).  Every pencil
+//      scatters to 25 target pencils, so a block cannot own its output as
+//      the 2D kernel's does.
+//   2. update: one thread per node of the padded grid: mass floor,
+//      v_old = pure / m, v_new = forced / m + dt g (or the diagonal
+//      penalty solve), then slip clamps or the sticky zero on the wall
+//      bands of the three axes.
+// Float atomics add in a run-dependent order: the result is not bitwise
+// deterministic (the JAX kernel is); it agrees with the plain version to
+// fp32 rounding of each node's sum (the tolerance is stated where the two
+// are compared).  Offsets are 64-bit: R0 R1 K passes 2^31 at 256^3.
+//
+// What bounds it on the H100: the atomics and bytes, not flops.  A live
+// slot reads 72 bytes and issues 189 atomic adds (~30 flops per tap);
+// the update reads 7 and writes 6 floats per node of the padded grid.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kNT = 5;        // candidate target rows per bucketed axis
+constexpr int kRaw = 7;       // raw channels
+constexpr int kOut = 6;       // finished grid channels
+constexpr int kIn = 18;       // input planes
+constexpr int kThreads = 128; // slots per block (K is a multiple of 128)
+
+struct Planes {
+  const float* p[kIn];
+  long long stride[kIn];  // pencil stride of each plane, in floats
+};
+
+__device__ __forceinline__ float col_weight(float d) {
+  // 0.5 (1.5-|d|)+^2 - 1.5 (0.5-|d|)+^2: the quadratic B-spline as a
+  // function of the signed distance (transfer2d.py:147-159).
+  const float a = fabsf(d);
+  const float t1 = fmaxf(1.5f - a, 0.0f);
+  const float t2 = fmaxf(0.5f - a, 0.0f);
+  return 0.5f * t1 * t1 - 1.5f * t2 * t2;
+}
+
+__device__ __forceinline__ void axis_weights(float fx, float w[3]) {
+  w[0] = 0.5f * (1.5f - fx) * (1.5f - fx);
+  w[1] = 0.75f - (fx - 1.0f) * (fx - 1.0f);
+  w[2] = 0.5f * (fx - 0.5f) * (fx - 0.5f);
+}
+
+__global__ void __launch_bounds__(kThreads)
+p2g3d_scatter_kernel(Planes in, const int* __restrict__ counts,
+                     float* __restrict__ raw, int R1, int K, int kblocks,
+                     int G2, float dx, int apic, int tait, float kb,
+                     float kb_over_gamma, float gamma, float two_mu,
+                     float fa) {
+  const long long pencil = blockIdx.x / kblocks;
+  const int k = (blockIdx.x % kblocks) * kThreads + threadIdx.x;
+  if (k >= K || k >= counts[pencil]) return;
+  const int i0 = static_cast<int>(pencil / R1);
+  const int i1 = static_cast<int>(pencil % R1);
+  float f[kIn];
+#pragma unroll
+  for (int e = 0; e < kIn; ++e) f[e] = in.p[e][pencil * in.stride[e] + k];
+  const float gx0 = f[0], gx1 = f[1], gx2 = f[2];
+  const float base0 = floorf(gx0 - 0.5f), base1 = floorf(gx1 - 0.5f);
+  const float rel0 = base0 - static_cast<float>(i0);
+  const float rel1 = base1 - static_cast<float>(i1);
+  if (!(rel0 >= -1.0f && rel0 <= 1.0f && rel1 >= -1.0f && rel1 <= 1.0f)) return;
+
+  // Weakly-compressible fluid stress (transfer3d.py:208-236).
+  const float* c = f + 6;
+  const float jj = f[15], mass = f[16], vol0 = f[17];
+  float pressure;
+  if (tait) {
+    const float j_safe = fmaxf(jj, 1e-3f);
+    pressure = kb_over_gamma * (powf(1.0f / j_safe, gamma) - 1.0f);
+  } else {
+    pressure = -kb * (jj - 1.0f);
+  }
+  const float divc = c[0] + c[4] + c[8];
+  const float vj = vol0 * jj;
+  float p[9], q[9], mv[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    mv[a] = mass * f[3 + a];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      float dev = 0.5f * (c[3 * a + b] + c[3 * b + a]);
+      float tau;
+      if (a == b) {
+        dev -= divc / 3.0f;
+        tau = vj * (-pressure + two_mu * dev);
+      } else {
+        tau = vj * (two_mu * dev);
+      }
+      p[3 * a + b] = apic ? mass * c[3 * a + b] : 0.0f;
+      q[3 * a + b] = p[3 * a + b] + fa * tau;
+    }
+  }
+
+  float w0[3], w1[3];
+  axis_weights(gx0 - base0, w0);
+  axis_weights(gx1 - base1, w1);
+  const float base2 = floorf(gx2 - 0.5f);
+  float wz[3], cdz[3];
+  int z[3];
+#pragma unroll
+  for (int j2 = 0; j2 < 3; ++j2) {
+    const float cf = base2 + static_cast<float>(j2);
+    const float d = cf - gx2;
+    z[j2] = (cf >= 0.0f && cf < static_cast<float>(G2)) ? static_cast<int>(cf) : -1;
+    wz[j2] = col_weight(d);
+    cdz[j2] = d * dx;
+  }
+  const long long P1 = R1 + kNT - 1;
+  // Padded plane of tap j: bucket row + rel + j + 1 on each axis.
+  const long long q0 = i0 + static_cast<int>(rel0) + 1;
+  const long long q1 = i1 + static_cast<int>(rel1) + 1;
+#pragma unroll
+  for (int j0 = 0; j0 < 3; ++j0) {
+    const float rdp0 = (base0 + static_cast<float>(j0) - gx0) * dx;
+#pragma unroll
+    for (int j1 = 0; j1 < 3; ++j1) {
+      const float rdp1 = (base1 + static_cast<float>(j1) - gx1) * dx;
+      const float w01 = w0[j0] * w1[j1];
+      float pure[3], forced[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        pure[a] = mv[a] + p[3 * a] * rdp0 + p[3 * a + 1] * rdp1;
+        forced[a] = mv[a] + q[3 * a] * rdp0 + q[3 * a + 1] * rdp1;
+      }
+      float* node = raw + ((q0 + j0) * P1 + (q1 + j1)) * kRaw * G2;
+#pragma unroll
+      for (int j2 = 0; j2 < 3; ++j2) {
+        if (z[j2] < 0) continue;
+        const float w = w01 * wz[j2];
+        float* at = node + z[j2];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          atomicAdd(at + a * G2, w * (pure[a] + p[3 * a + 2] * cdz[j2]));
+          atomicAdd(at + (3 + a) * G2, w * (forced[a] + q[3 * a + 2] * cdz[j2]));
+        }
+        atomicAdd(at + 6 * G2, w * mass);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+p2g3d_update_kernel(const float* __restrict__ raw, float* __restrict__ out,
+                    long long nodes, int R0, int P1, int G2, float dtg0,
+                    float dtg1, float dtg2, float floor_m, int lo, int hi,
+                    int wall, float dt_beta) {
+  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (n >= nodes) return;
+  const int zc = static_cast<int>(n % G2);
+  const long long plane = n / G2;               // p0 * P1 + p1
+  const int t0 = static_cast<int>(plane / P1) - 1;   // target rows
+  const int t1 = static_cast<int>(plane % P1) - 1;
+  const float* r = raw + plane * kRaw * G2 + zc;
+  float* o = out + plane * kOut * G2 + zc;
+  const bool interior = t0 >= 0 && t0 < R0;
+  const float m = r[6 * G2];
+  const bool has = m > floor_m && interior;
+  const float safe = has ? m : 1.0f;
+  const bool lo0 = t0 <= lo && interior, hi0 = t0 >= hi;
+  const bool lo1 = t1 <= lo, hi1 = t1 >= hi;
+  const bool lo2 = zc <= lo, hi2 = zc >= hi;
+  const float dtg[3] = {dtg0, dtg1, dtg2};
+  float v[3];
+  if (wall == 2) {  // penalty: (m I + dt beta n(x)n) v = m v* + dt m g, diagonal
+    const bool band[3] = {lo0 || hi0, lo1 || hi1, lo2 || hi2};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float pen = band[a] ? 1.0f : 0.0f;
+      v[a] = has ? (r[(3 + a) * G2] + dtg[a] * m) / (m + dt_beta * pen) : 0.0f;
+    }
+  } else {
+    const float hasf = has ? 1.0f : 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) v[a] = (has ? r[(3 + a) * G2] / safe : 0.0f) + dtg[a] * hasf;
+    if (wall == 1) {  // sticky
+      if (lo0 || hi0 || lo1 || hi1 || lo2 || hi2) v[0] = v[1] = v[2] = 0.0f;
+    } else {          // slip: clamp the outgoing normal component per band
+      if (lo0) v[0] = fmaxf(v[0], 0.0f);
+      if (hi0) v[0] = fminf(v[0], 0.0f);
+      if (lo1) v[1] = fmaxf(v[1], 0.0f);
+      if (hi1) v[1] = fminf(v[1], 0.0f);
+      if (lo2) v[2] = fmaxf(v[2], 0.0f);
+      if (hi2) v[2] = fminf(v[2], 0.0f);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    o[a * G2] = v[a];
+    o[(3 + a) * G2] = has ? r[a * G2] / safe : 0.0f;
+  }
+}
+
+}  // namespace
+
+extern "C" int mpm_p2g3d_grid(const void* const* planes, const long long* strides,
+                              const int* counts, float* raw, float* out, int R0,
+                              int R1, int K, int G2, float dx, int apic, int tait,
+                              float kb, float kb_over_gamma, float gamma,
+                              float two_mu, float fa, float dtg0, float dtg1,
+                              float dtg2, float floor_m, int lo, int hi, int wall,
+                              float dt_beta, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Planes in;
+  for (int e = 0; e < kIn; ++e) {
+    in.p[e] = static_cast<const float*>(planes[e]);
+    in.stride[e] = strides[e];
+  }
+  const int P1 = R1 + kNT - 1;
+  const long long nodes = static_cast<long long>(R0 + kNT - 1) * P1 * G2;
+  cudaError_t err = cudaMemsetAsync(raw, 0, sizeof(float) * kRaw * nodes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int kblocks = (K + kThreads - 1) / kThreads;
+  const long long blocks = static_cast<long long>(R0) * R1 * kblocks;
+  if (blocks > 0) {
+    p2g3d_scatter_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        in, counts, raw, R1, K, kblocks, G2, dx, apic, tait, kb, kb_over_gamma,
+        gamma, two_mu, fa);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (nodes > 0) {
+    const long long ublocks = (nodes + 255) / 256;
+    p2g3d_update_kernel<<<static_cast<unsigned>(ublocks), 256, 0, s>>>(
+        raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2, floor_m, lo, hi, wall,
+        dt_beta);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

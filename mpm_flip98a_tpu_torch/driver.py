@@ -4,12 +4,15 @@ Reference: exec.py — the outer frame loop with 10,000 substeps per frame
 (exec.py:20-26), `progressBar` (:28), `post_process` writing frames + VTK
 (:29) and the end-of-run `Run Time` print (:31-32).
 
-This slice runs the 2D fast path on one device (`--device`, default
-`cuda`) for the `dam2d` and `dam2d_flip98` scenarios.  The general path,
-other scenarios, several devices and checkpoints raise
+The port runs the fast path on one device (`--device`, default `cuda`),
+routed by the scene's dimension as the JAX driver does: `models/fast2d`
+for `dam2d` and `dam2d_flip98`, `models/fast3d` for `dam3d`.  The general
+path, other scenarios, several devices and checkpoints raise
 NotImplementedError naming their ROADMAP item.
 
 CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
+          --frames 2 --substeps 100 --no-gif
+      python -m mpm_flip98a_tpu_torch --scenario dam3d --path fast \
           --frames 2 --substeps 100 --no-gif
 """
 
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
-from mpm_flip98a_tpu_torch.models import fast2d, scenes
+from mpm_flip98a_tpu_torch.models import fast2d, fast3d, scenes
 from mpm_flip98a_tpu_torch.utils import io_vtk, native_io, render
 from mpm_flip98a_tpu_torch.utils.progress import create_file_paths, progress_bar
 from mpm_flip98a_tpu_torch.utils.timing import Timers, ThroughputMeter
@@ -43,19 +46,19 @@ SCENARIOS = {
             MPMConfig(), flip_blend=0.98, transfer=TransferKind.PIC
         )
     ),
+    "dam3d": lambda: scenes.dam_break_3d(),
 }
 
 # Scenarios of the JAX package that this port does not run yet, with the
 # ROADMAP queue 1 item that ports them.
 UNPORTED_SCENARIOS = {
     "elastic_drop": 8,
-    "dam3d": 9,
     "dam2d_incompressible": 8,
     "snow2d": 8,
     "sand2d": 8,
     "dam2d_obstacle": 8,
     "plow2d": 8,
-    "dam3d_obstacle": 9,
+    "dam3d_obstacle": 8,
 }
 
 
@@ -79,7 +82,9 @@ class Simulation:
     ):
         if path != "fast":
             raise _unported(f"--path {path}", 7)
-        fast2d.check_supported(scene)
+        # Dimension routing: pencil buckets in 3D, row buckets in 2D.
+        self._fast = fast3d if scene.cfg.dim == 3 else fast2d
+        self._fast.check_supported(scene)
         self.scene = scene
         self.cfg = scene.cfg
         self.path = path
@@ -97,8 +102,9 @@ class Simulation:
         self.total_time = 0.0
         self.frame_count = 0
         self._last_respec_frame = 0
-        self.spec = fast2d.FastSpec.for_particles(self.cfg, particles)
-        self.state = fast2d.from_particles(particles, self.cfg, self.spec, self.device)
+        spec_cls = fast3d.FastSpec3D if self.cfg.dim == 3 else fast2d.FastSpec
+        self.spec = spec_cls.for_particles(self.cfg, particles)
+        self.state = self._fast.from_particles(particles, self.cfg, self.spec, self.device)
         self.stats = fast2d.RunStats()
         self.meter = ThroughputMeter(particles.n, self.cfg.stencil_size)
 
@@ -108,12 +114,12 @@ class Simulation:
         """Per-frame cached host pull of the bucket state (positions() and
         material_colors() both need it every frame)."""
         if self._host_cache is None or self._host_cache[0] != self.frame_count:
-            self._host_cache = (self.frame_count, fast2d.to_host(self.state))
+            self._host_cache = (self.frame_count, self._fast.to_host(self.state))
         return self._host_cache[1]
 
     def positions(self) -> np.ndarray:
         h = self._host_state()
-        return np.stack([h["x0"], h["x1"]], axis=-1)
+        return np.stack([h[f"x{a}"] for a in range(self.cfg.dim)], axis=-1)
 
     def material_colors(self) -> np.ndarray:
         """Per-particle RGB by material id (fluid blue, solids in the
@@ -134,7 +140,7 @@ class Simulation:
         n = n_substeps or self.cfg.substeps_per_frame
         t0 = time.perf_counter()
         with self.timers.scope("substeps", sync=self.device):
-            self.state = fast2d.run(self.state, self.scene, self.spec, n, self.stats)
+            self.state = self._fast.run(self.state, self.scene, self.spec, n, self.stats)
         self.meter.update(n, time.perf_counter() - t0)
         self.total_time += n * self.cfg.dt
         self.frame_count += 1
@@ -147,7 +153,10 @@ class Simulation:
         when `io_async`, run on a writer thread so frame IO overlaps the
         next frame's substeps.  The host pull stays on the main thread."""
         with self.timers.scope("post_process"):
-            x2 = self.positions()
+            x = self.positions()
+            # Keep the gravity axis (the last) vertical: (x0, x1) in 2D,
+            # the (x0, x2) side view in 3D.
+            x2 = x[:, [0, x.shape[1] - 1]]
             colors = self.material_colors()
             png_path = f"{self.frame_dir}/{self.frame_count:05d}.png"
             vtk_path = f"{self.vtk_dir}/{self.frame_count:05d}.vtk"
@@ -166,8 +175,8 @@ class Simulation:
 
             def write_all():
                 img = write_frame()
-                if write_vtk and not native_io.vtk_particles(vtk_path, x2):
-                    io_vtk.write_vtk_particles(vtk_path, x2)
+                if write_vtk and not native_io.vtk_particles(vtk_path, x):
+                    io_vtk.write_vtk_particles(vtk_path, x)
                 return img
 
             if self.io_async and not keep_frame:
@@ -189,11 +198,16 @@ class Simulation:
         most every 4 frames."""
         h = self._host_state()
         g = self.cfg.num_grids
-        row = np.floor(h["x0"] * self.cfg.inv_dx + fast2d.PAD - 0.5).astype(np.int64)
-        mx = int(np.bincount(np.clip(row, 0, g - 1), minlength=g).max())
-        want = fast2d.capacity_for(mx)
+        rows = [
+            np.clip(np.floor(h[f"x{a}"] * self.cfg.inv_dx + fast2d.PAD - 0.5), 0, g - 1)
+            .astype(np.int64)
+            for a in range(self.cfg.dim - 1)   # the bucketed axes
+        ]
+        key = rows[0] * g + rows[1] if self.cfg.dim == 3 else rows[0]
+        mx = int(np.bincount(key, minlength=g ** (self.cfg.dim - 1)).max())
+        want = self._fast.capacity_for(mx)
         cap = self.spec.capacity
-        grow = fast2d.capacity_for(mx, 1.15) > cap
+        grow = self._fast.capacity_for(mx, 1.15) > cap
         shrink = (
             want <= int(cap * 0.625)
             and self.frame_count - self._last_respec_frame >= 4
@@ -201,7 +215,7 @@ class Simulation:
         if not (shrink or grow) or want == cap:
             return
         new_spec = dataclasses.replace(self.spec, capacity=want)
-        self.state = fast2d.rebucket(self.state, self.cfg, new_spec)
+        self.state = self._fast.rebucket(self.state, self.cfg, new_spec)
         self.spec = new_spec
         self._last_respec_frame = self.frame_count
         self._host_cache = None  # layout changed (values are identical)

@@ -16,9 +16,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mpm_flip98a_tpu_torch.config import MPMConfig, Physics
+from mpm_flip98a_tpu_torch.config import MPMConfig, Physics, TransferKind
 from mpm_flip98a_tpu_torch.models import materials as mat
-from mpm_flip98a_tpu_torch.models.stabilized import Scene
+from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
 from mpm_flip98a_tpu_torch.state import Particles
 
 
@@ -61,3 +61,68 @@ def dam_break_2d(
         dynamic_viscosity=physics.dynamic_viscosity,
     ), mass_floor=_floor_of(p))
     return p, scene
+
+
+def _fluid_scene(cfg: MPMConfig, physics: Physics, p: Particles) -> Scene:
+    """One weakly-compressible fluid between slip walls."""
+    return Scene(
+        cfg=cfg,
+        physics=physics,
+        params=mat.MaterialParams(
+            bulk_modulus=physics.bulk_modulus,
+            dynamic_viscosity=physics.dynamic_viscosity,
+        ),
+        wall=WallBC("slip"),
+        mass_floor=_floor_of(p),
+    )
+
+
+def slab_3d(
+    num_grids: int = 128,
+    particles_per_axis: Tuple[int, int, int] = (256, 256, 16),
+    height_frac: float = 0.125,
+    physics: Physics = Physics(),
+    dtype=np.float32,
+    dt: float = 5e-6,
+    flip_blend: float = 0.98,
+) -> Tuple[Particles, Scene]:
+    """3D fluid slab covering the whole floor: the load-balanced 3D bench
+    workload (even pencil occupancy).  The defaults give 1M particles on
+    128^3; BASELINE.json configs[3] is num_grids=256, (512, 512, 32)."""
+    cfg = MPMConfig(
+        dim=3,
+        dtype=np.dtype(dtype).name,
+        num_grids=num_grids,
+        dt=dt,
+        flip_blend=flip_blend,
+        transfer=TransferKind.PIC if flip_blend > 0 else TransferKind.APIC,
+    )
+    l = cfg.domain_length
+    size = (0.98 * l, 0.98 * l, height_frac * l)
+    x = _lattice(particles_per_axis, (0.0, 0.0, 0.0), size, dtype)
+    vol = size[0] * size[1] * size[2] / len(x)
+    p = Particles.init(torch.from_numpy(x), volume0=vol, density=physics.particle_density)
+    return p, _fluid_scene(cfg, physics, p)
+
+
+def dam_break_3d(
+    num_grids: int = 64,
+    particles_per_axis: Tuple[int, int, int] = (24, 24, 48),
+    physics: Physics = Physics(),
+    dtype=np.float32,
+    dt: float = 1e-5,
+    **cfg_kwargs,
+) -> Tuple[Particles, Scene]:
+    """3D free-surface column collapse (the `dam3d` scenario): a column a
+    quarter of the box wide and half of it tall along the last axis, which
+    gravity acts on.  Extra kwargs go to MPMConfig."""
+    cfg = MPMConfig(
+        dim=3, dtype=np.dtype(dtype).name, num_grids=num_grids, dt=dt, **cfg_kwargs,
+    )
+    l = cfg.domain_length
+    w = 0.25 * l
+    h = 0.5 * l
+    x = _lattice(particles_per_axis, (0.0, 0.0, 0.0), (w, w, h), dtype)
+    vol = (w * h * w) / len(x)
+    p = Particles.init(torch.from_numpy(x), volume0=vol, density=physics.particle_density)
+    return p, _fluid_scene(cfg, physics, p)

@@ -1,1 +1,1 @@
-"""Row binning and the CUDA transfer kernels."""
+"""Row and pencil binning and the CUDA transfer kernels."""

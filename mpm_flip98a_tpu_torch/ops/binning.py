@@ -3,8 +3,10 @@
 Particles are bucketed by their stencil base row (grid axis 0), one
 fixed-capacity bucket of K slots per grid row, so the transfer kernels
 (ops/cuda/transfer2d.py) can give one grid row's particles to one block.
-The layout is the fast path's persistent state; `bucket_by_row` runs again
-only when some particle approaches the kernels' +-1-row margin.
+In 3D the "row" is a pencil, one (axis-0, axis-1) grid line
+(models/fast3d.py).  The layout is the fast path's persistent state;
+`bucket_by_row` runs again only when some particle approaches the
+kernels' +-1-row margin.
 
 Held bit-exact to the JAX version: a stable argsort, ranks within a row
 from one cumulative-max scan, an int32 permutation, and every field moved

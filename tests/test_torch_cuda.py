@@ -7,9 +7,12 @@ import no JAX, so on a machine without it run them as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: per output channel, 1e-5 of the channel's max.  Both sides sum
-each node's fp32 terms in another order (shared-memory atomics in the P2G
-kernel, atomics in the plain `index_add_` on the card, FMA contraction in
-the G2P kernel).
+each node's fp32 terms in another order (shared-memory atomics in the 2D
+P2G kernel, global atomics in the 3D one, atomics in the plain
+`index_add_` on the card, FMA contraction in the G2P kernels).  The 3D
+grid's velocities are sums divided by the nodal mass, so their error is
+weighted by that mass and scaled by the raw sum's max; G2P's C by one
+term's size, D^-1 dx |v|max, as its terms cancel.
 """
 
 import dataclasses
@@ -19,8 +22,9 @@ import pytest
 import torch
 
 from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
-from mpm_flip98a_tpu_torch.models import fast2d, scenes
+from mpm_flip98a_tpu_torch.models import fast2d, fast3d, scenes
 from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
 
 pytestmark = pytest.mark.cuda
 
@@ -125,4 +129,97 @@ def test_substeps_on_the_card_track_the_cpu(dev):
             np.testing.assert_allclose(
                 getattr(out, f.name).cpu().numpy(), getattr(ref, f.name).numpy(), atol=1e-5
             )
+    assert int(out.overflow) == 0
+
+
+def _inputs3d(r, k, g, seed, device):
+    """Ragged random pencils: empty, full and partly filled pencils, slots
+    outside the +-1 margin on both axes, z past both grid edges."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, k + 1, (r, r))
+    counts[::5, ::3] = 0
+    counts[1, 1] = k
+    rel0 = rng.choice([-1, 0, 0, 1, 2], size=(r, r, k))
+    rel1 = rng.choice([-1, 0, 0, 1, -2], size=(r, r, k))
+    gx0 = np.arange(r)[:, None, None] + rel0 + 0.5 + rng.random((r, r, k))
+    gx1 = np.arange(r)[None, :, None] + rel1 + 0.5 + rng.random((r, r, k))
+    gx2 = rng.uniform(-1.0, g + 1.0, (r, r, k))
+    live = np.arange(k) < counts[..., None]
+    v = rng.normal(0.0, 1.0, (3, r, r, k))
+    c = rng.normal(0.0, 5.0, (9, r, r, k))
+    j = np.where(live, rng.uniform(0.9, 1.1, (r, r, k)), 1.0)
+    mass = np.where(live, rng.uniform(0.5, 1.5, (r, r, k)), 0.0)
+    vol0 = np.where(live, rng.uniform(0.5e-3, 1.5e-3, (r, r, k)), 0.0)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+    planes = tuple(t(a) for a in (gx0, gx1, gx2, *v, *c, j, mass, vol0))
+    counts = torch.as_tensor(counts.reshape(-1), dtype=torch.int32, device=device)
+    return planes, t(live), counts
+
+
+def _p2g3d_args(g, wall):
+    dx = 0.4375 / (g - 5)
+    dinv = 4.0 / dx**2
+    return dict(
+        apic=wall == "sticky", stress="tait" if wall == "sticky" else "linear",
+        kb=KB, mu=MU, gamma=GAMMA, fa=-2e-5 * dinv, dt=2e-5, grav=(0.0, 0.0, -9.81),
+        floor=1e-8, lo=2, hi=g - 3, wall=wall,
+        beta=1e6 * 997.5 * dx**2 if wall == "penalty" else 0.0,
+    ), dx, dinv
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 16), (128, 128, 128)], ids=["small", "g128"])
+@pytest.mark.parametrize("wall", ["slip", "sticky", "penalty"])
+def test_p2g3d_grid_kernel_matches_plain(dev, shape, wall):
+    r, k, g = shape
+    planes, _, counts = _inputs3d(r, k, g, seed=r, device=dev)
+    kw, dx, _ = _p2g3d_args(g, wall)
+    raw = torch.empty((r + 4, r + 4, tk3.P2G_CH, g), device=dev)
+    n0 = tk3.LAUNCHES["p2g3d_grid"]
+    got = tk3.p2g3d_grid(planes, counts, r, g, dx, raw=raw, **kw)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["p2g3d_grid"] == n0 + 1
+    scatter = {n: kw[n] for n in ("apic", "stress", "kb", "mu", "gamma", "fa")}
+    raw_plain = tk3.p2g3d_raw_plain(planes, counts, g, dx, **scatter)
+    _close(raw, raw_plain, axis=2)
+    want = tk3.p2g3d_grid_plain(planes, counts, r, g, dx, **kw)
+    m = raw_plain[:, :, 6:7]
+    mom_err = ((got - want).abs() * m).double().amax(dim=(0, 1, 3))
+    mom_max = raw_plain[:, :, [3, 4, 5, 0, 1, 2]].abs().double().amax(dim=(0, 1, 3))
+    assert bool((mom_err <= REL * mom_max).all()), (mom_err / mom_max).tolist()
+    assert not got[0].any() and not got[r + 1 :].any()
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 16), (128, 128, 128)], ids=["small", "g128"])
+def test_g2p3d_kernel_matches_plain(dev, shape):
+    r, k, g = shape
+    planes, live, counts = _inputs3d(r, k, g, seed=r + 1, device=dev)
+    kw, dx, dinv = _p2g3d_args(g, "slip")
+    grid = tk3.p2g3d_grid_plain(planes, counts, r, g, dx, **kw)
+    x = tuple((p - 2.0) * dx for p in planes[:3])
+    state = (*planes[3:6], planes[15], *x)
+    args = (*planes[:3], live, counts, grid, dx, dinv, state, 0.98, 2e-5)
+    n0 = tk3.LAUNCHES["g2p3d"]
+    got = tk3.g2p3d(*args)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["g2p3d"] == n0 + 1
+    want = tk3.g2p3d_plain(*args)
+    c_unit = dinv * dx * float(grid[:, :, :3].abs().max())
+    err = (got - want).abs().double().amax(dim=(0, 1, 3))
+    scale = want.abs().double().amax(dim=(0, 1, 3))
+    scale[6:15] = c_unit
+    assert bool((err <= REL * scale).all()), (err / scale).tolist()
+
+
+def test_3d_substeps_on_the_card_track_the_cpu(dev):
+    p, scene = scenes.dam_break_3d(num_grids=16, particles_per_axis=(6, 6, 10), dt=2e-5)
+    spec = fast3d.FastSpec3D.for_particles(scene.cfg, p, headroom=2.0)
+    tk3.reset_launches()
+    stats = fast3d.RunStats()
+    out = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, dev), scene, spec, 20, stats)
+    assert tk3.LAUNCHES == {"p2g3d_grid": 20, "g2p3d": 20} and stats.substeps == 20
+    ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec), scene, spec, 20)
+    for a in range(3):
+        np.testing.assert_allclose(
+            getattr(out, f"x{a}").cpu().numpy(), getattr(ref, f"x{a}").numpy(), atol=1e-6
+        )
     assert int(out.overflow) == 0

@@ -48,10 +48,26 @@ def test_cli_runs_one_frame_on_cpu(tmp_path):
     assert sim.meter.substeps == 20
 
 
+def test_cli_runs_dam3d_on_cpu(tmp_path):
+    """The 3D scenario through the CLI: routed to fast3d by its dimension."""
+    assert "dam3d" in driver.SCENARIOS and "dam3d" not in driver.UNPORTED_SCENARIOS
+    sim = driver.main([
+        "--scenario", "dam3d", "--path", "fast", "--frames", "1", "--substeps", "2",
+        "--no-gif", "--sync-io", "--out", str(tmp_path), "--device", "cpu",
+    ])
+    assert sim.stats.substeps == sim.stats.host_reads == 2
+    assert sim.frame_count == 1 and int(sim.state.overflow) == 0
+    x = sim.positions()
+    assert x.shape == (24 * 24 * 48, 3) and np.isfinite(x).all()
+    assert os.path.exists(os.path.join(sim.frame_dir, "00001.png"))
+    pts = io_vtk.read_vtk_points(os.path.join(sim.vtk_dir, "00001.vtk"))
+    np.testing.assert_allclose(pts, x, rtol=1e-6)
+
+
 def test_unported_entry_points_raise(tmp_path):
     out = ["--out", str(tmp_path), "--device", "cpu", "--frames", "1", "--substeps", "1"]
     for extra, item in (
-        (["--scenario", "dam3d"], "item 9"),
+        (["--scenario", "dam3d_obstacle"], "item 8"),
         (["--path", "general"], "item 7"),
         (["--devices", "4"], "item 10"),
         (["--checkpoint", str(tmp_path / "ck.npz")], "item 6"),

@@ -1,0 +1,163 @@
+"""The port's fast 3D path against the JAX fast path, slice as a whole.
+
+Both packages build the same scene (bit for bit), bucket it identically,
+and are then compared slot by slot after one substep (the JAX kernels in
+Pallas interpret mode, once: seconds each) and, over 80 substeps across
+rebuckets, by ensemble against the JAX general path (plain XLA).
+Tolerances: the north star's 1e-7 on x and 1e-4 on v after one substep
+(tests/test_fast2d.py:56-57), 1e-6 on J, and tests/test_fast3d.py's 5e-4
+on the ensemble mean.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from mpm_flip98a_tpu.models import fast3d as fast3d_jax
+from mpm_flip98a_tpu.models import scenes as scenes_jax
+from mpm_flip98a_tpu.models.stabilized import run as run_ref_jax
+from mpm_flip98a_tpu_torch import convert
+from mpm_flip98a_tpu_torch.config import KernelKind
+from mpm_flip98a_tpu_torch.models import fast3d, scenes
+from mpm_flip98a_tpu_torch.models.fast2d import RunStats
+
+SMALL = dict(num_grids=16, particles_per_axis=(6, 6, 10), dt=2e-5, dtype=np.float32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: torch's intra-op threads only contend with XLA's."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _fields(b):
+    return {f.name: np.asarray(getattr(b, f.name)) for f in dataclasses.fields(b)}
+
+
+def _assert_bits_equal(got: dict, want: dict):
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_array_equal(
+            np.atleast_1d(g).view(np.uint8), np.atleast_1d(w).view(np.uint8), err_msg=name
+        )
+
+
+def _t(b):
+    return {f.name: getattr(b, f.name).numpy() for f in dataclasses.fields(b)}
+
+
+def _setup(v=None, **kw):
+    """JAX state and the port's copy of it, in identical bucket layouts."""
+    p, scene = scenes_jax.dam_break_3d(**{**SMALL, **kw})
+    if v is not None:
+        p = dataclasses.replace(p, v=p.v.at[:].set(v))
+    spec = fast3d_jax.FastSpec3D.for_particles(scene.cfg, p, headroom=2.0)
+    b = fast3d_jax.from_particles(p, scene.cfg, spec)
+    scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
+    spec_t = fast3d.FastSpec3D(spec.rows0, spec.rows1, spec.capacity)
+    return (p, scene, spec, b), (scene_t, spec_t, convert.buckets3d_from_numpy(_fields(b)))
+
+
+@pytest.mark.parametrize("scene", ["dam_break_3d", "slab_3d"])
+def test_3d_scenes_match_jax(scene):
+    """Each package builds the scene itself: same bits, same scene."""
+    kw = SMALL if scene == "dam_break_3d" else dict(
+        num_grids=16, particles_per_axis=(12, 12, 4), dtype=np.float32,
+    )
+    p_j, scene_j = getattr(scenes_jax, scene)(**kw)
+    p_t, scene_t = getattr(scenes, scene)(**kw)
+    _assert_bits_equal(_t(p_t), _fields(p_j))
+    assert scene_t == convert.scene_from_fields(dataclasses.asdict(scene_j))
+    assert scene_t.cfg.dim == 3
+
+
+@pytest.mark.parametrize("capacity", ["same", "grown"])
+def test_from_particles_and_rebucket_bit_exact(capacity):
+    """Bucketing and a rebucket after a shift that moves particles across
+    pencils on both bucketed axes, bit for bit (XLA only on the JAX side)."""
+    (p, scene, spec, b), (scene_t, spec_t, _) = _setup()
+    p_t, _ = scenes.dam_break_3d(**SMALL)
+    spec_t2 = fast3d.FastSpec3D.for_particles(scene_t.cfg, p_t, headroom=2.0)
+    assert spec_t2 == spec_t
+    b_t = fast3d.from_particles(p_t, scene_t.cfg, spec_t)
+    _assert_bits_equal(_t(b_t), _fields(b))
+    shift = np.float32(0.6 * scene.cfg.dx)
+    moved = dataclasses.replace(b, x0=b.x0 + shift, x1=b.x1 - shift)
+    moved_t = dataclasses.replace(b_t, x0=b_t.x0 + shift, x1=b_t.x1 - shift)
+    if capacity == "grown":
+        spec = dataclasses.replace(spec, capacity=spec.capacity + 128)
+        spec_t = dataclasses.replace(spec_t, capacity=spec_t.capacity + 128)
+    out = fast3d_jax.rebucket(moved, scene.cfg, spec)
+    out_t = fast3d.rebucket(moved_t, scene_t.cfg, spec_t)
+    _assert_bits_equal(_t(out_t), _fields(out))
+    assert int(out_t.overflow) == 0 and int((out_t.mask > 0).sum()) == p.n
+
+
+def test_single_substep_matches_jax():
+    rng = np.random.default_rng(3)
+    n = 6 * 6 * 10
+    v = rng.normal(0.0, 0.5, (n, 3)).astype(np.float32)
+    (_, scene, spec, b), (scene_t, spec_t, b_t) = _setup(v=v)
+    b1 = fast3d_jax.substep(b, scene, spec)
+    b1_t = fast3d.substep(b_t, scene_t, spec_t)
+    got, want = _t(b1_t), _fields(b1)
+    np.testing.assert_array_equal(got["mask"], want["mask"])
+    for name, atol in (("x", 1e-7), ("v", 1e-4)):
+        for a in range(3):
+            np.testing.assert_allclose(got[f"{name}{a}"], want[f"{name}{a}"], atol=atol)
+    np.testing.assert_allclose(got["J"], want["J"], atol=1e-6)
+    # Fields the fused substep does not write carry over untouched.
+    for name in ("F00", "mass", "vol0", "jbar_s"):
+        np.testing.assert_array_equal(got[name], want[name])
+
+
+def test_run_across_rebuckets_tracks_jax():
+    """80 substeps of a column thrown sideways on both bucketed axes and
+    down (tests/test_fast3d.py:131-158 throws it at 1.5 m/s along x only,
+    which drifts 0.6 cells in 80 substeps and never reaches the margin
+    trigger): rebuckets fire, and the ensemble tracks the JAX general
+    path within tests/test_fast3d.py's 5e-4."""
+    kw = dict(SMALL, dt=2e-4)
+    p, scene = scenes_jax.dam_break_3d(**kw)
+    p_t, scene_t = scenes.dam_break_3d(**kw)
+    v = np.zeros((p.n, 3), np.float32)
+    v[:, 0], v[:, 1], v[:, 2] = 3.0, 2.0, -1.0
+    p = dataclasses.replace(p, v=p.v.at[:].set(v))
+    p_t = dataclasses.replace(p_t, v=torch.from_numpy(v))
+    spec_t = fast3d.FastSpec3D.for_particles(scene_t.cfg, p_t, headroom=2.0)
+    stats = RunStats()
+    out = fast3d.run(fast3d.from_particles(p_t, scene_t.cfg, spec_t), scene_t, spec_t, 80, stats)
+    ref = np.asarray(run_ref_jax(p, scene, 80).x)
+    assert stats.rebuckets >= 1 and stats.substeps == stats.host_reads == 80
+    h = fast3d.to_host(out)
+    x = np.stack([h["x0"], h["x1"], h["x2"]], -1)
+    cfg = scene_t.cfg
+    assert x.shape == ref.shape and np.isfinite(x).all()
+    assert ((x > -cfg.dx) & (x < cfg.domain_length + cfg.dx)).all()
+    assert int(out.overflow) == 0
+    np.testing.assert_allclose(x.mean(axis=0), ref.mean(axis=0), atol=5e-4)
+    np.testing.assert_allclose(h["mass"].sum(), float(p_t.mass.sum()), rtol=1e-6)
+
+
+def test_unported_configs_raise():
+    (_, _, _, _), (scene_t, spec_t, b_t) = _setup()
+    cfg = scene_t.cfg
+    for change in (
+        dict(cfg=dataclasses.replace(cfg, use_fbar=True)),
+        dict(cfg=dataclasses.replace(cfg, pressure_mixing_ratio=0.5)),
+        dict(cfg=dataclasses.replace(cfg, kernel=KernelKind.TENT)),
+        dict(cfg=dataclasses.replace(cfg, surface_tension=0.07)),
+        dict(cfg=dataclasses.replace(cfg, incompressible=True)),
+        dict(cfg=dataclasses.replace(cfg, dim=2)),
+        dict(materials_present=(0, 1)),
+        dict(colliders=("sphere",)),
+        dict(mass_floor=0.0),
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fast3d.substep(b_t, dataclasses.replace(scene_t, **change), spec_t)
