@@ -22,17 +22,35 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                seconds) for the kernel and plain paths, median of 3 x 100
                substeps; each kernel against its plain version by CUDA
                events;
-6. main:dam3d  the CLI on dam3d (64^3, 27,648 particles; 2 frames x 100
+6. kernels:2dp the prepped-P2G branch at the bench scale: stab1M (the
+               stabilized switch set, F-bar + penalty + mixing 1.0, on
+               the bench dam break: 1M particles, buckets 513 x 4096) and
+               drop1M (elastic_drop_2d with that config: 1,059,536
+               particles with a 244^2 neo-Hookean block), each after 20
+               substeps; p2g against p2g_plain with 9 channels (stab1M),
+               6 channels (drop1M's state without F-bar and mixing) and
+               9 tent channels on a ragged case at G = 2049 (column
+               bands), with its mass sum; g2p with the 7-channel grid and
+               with tent taps against g2p_plain; CUDA-event times and
+               bounds of p2g and the 7-channel g2p at stab1M;
+7. main:elastic_drop  the CLI on elastic_drop (11,931 particles, 105^2;
+               2 frames x 200 substeps): p2g and g2p launched once per
+               substep, p2g_fused never, and the host checks of phase 4;
+8. main:stab1M, main:drop1M  Simulation runs of 2 frames x 100 substeps:
+               launches, the host checks, and stab1M's J range;
+9. timing:2dp  phase 5's timings for stab1M and drop1M (kernel and plain
+               paths, median of 3 x 100 substeps);
+10. main:dam3d the CLI on dam3d (64^3, 27,648 particles; 2 frames x 100
                substeps): each 3D kernel launched once per substep, the
                2D kernels never, and the host checks of phase 4;
-7. main:slab8M the 3D bench and BASELINE.json configs[3] slab (8.4M
+11. main:slab8M the 3D bench and BASELINE.json configs[3] slab (8.4M
                particles, 256^3: bench.py:198-205) through Simulation,
                2 frames x 25 substeps, then one forced rebucket: the host
                checks and the peak device memory;
-8. kernels:3d  p2g3d_grid and g2p3d against their plain versions on that
+12. kernels:3d p2g3d_grid and g2p3d against their plain versions on that
                state and on a ragged synthetic case: P2G's raw sums per
                channel, its mass sum, the finished grid, G2P's outputs;
-9. timing:3d   ms per substep and transfer ops/s (n * 27 * 2 * substeps
+13. timing:3d  ms per substep and transfer ops/s (n * 27 * 2 * substeps
                / seconds), median of 3 x 20 substeps, for the kernel path
                at 8M / 256^3 and at 1M / 128^3 and the plain path at
                1M / 128^3; each 3D kernel and its plain version by CUDA
@@ -40,14 +58,16 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
-last lists every kernel with its launches, error, times and bound; the
-last line is
+last lists every kernel with its launches, error, times and bound (g2p
+also with its 7-channel mode's under "ext_*", g2p and p2g with their tent
+modes' under "tent_*"); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -70,6 +90,9 @@ BENCH = dict(                # bench.py:179-189, the 1M / 513^2 dam break
     num_particles_y=500, fluid_width=0.430, fluid_height=0.215,
     flip_blend=0.98,
 )
+# The stabilized switch set (reference config.py:18-29: F-bar, penalty EBC,
+# pressure mixing 1.0), with BENCH's PIC transfer and FLIP blend.
+STAB = dict(use_fbar=True, use_penalty_ebc=True, pressure_mixing_ratio=1.0)
 SLAB_8M = dict(num_grids=256, particles_per_axis=(512, 512, 32))   # bench.py:198-205
 SLAB_1M = dict(num_grids=128, particles_per_axis=(256, 256, 16))   # slab_3d()'s defaults
 TPU_KERNELS = {
@@ -77,6 +100,8 @@ TPU_KERNELS = {
                   "mpm_flip98a_tpu/ops/pallas/transfer2d.py:412"),
     "g2p": ("mpm_flip98a_tpu_torch/csrc/g2p.cu",
             "mpm_flip98a_tpu/ops/pallas/transfer2d.py:843"),
+    "p2g": ("mpm_flip98a_tpu_torch/csrc/p2g.cu",
+            "mpm_flip98a_tpu/ops/pallas/transfer2d.py:304"),
     "p2g3d_grid": ("mpm_flip98a_tpu_torch/csrc/p2g3d_grid.cu",
                    "mpm_flip98a_tpu/ops/pallas/transfer3d.py:622"),
     "g2p3d": ("mpm_flip98a_tpu_torch/csrc/g2p3d.cu",
@@ -159,18 +184,33 @@ def compare_kernels(tag, sdata, pdata2, counts, grid4, args, dinv, card):
     check(max(rel_p) <= KERNEL_REL_TOL, f"{tag}: p2g_fused disagrees with its plain version")
     check(pou <= POU_REL_TOL, f"{tag}: p2g_fused partition of unity")
 
-    got = tk.g2p(pdata2, counts, grid4, args["dx"], dinv)
-    want = tk.g2p_plain(pdata2, counts, grid4, args["dx"], dinv)
+    return max(err_p), compare_g2p(f"kernels:{tag}", pdata2, counts, grid4, args["dx"], dinv,
+                                   False, card)
+
+
+def compare_g2p(label, pdata2, counts, grid, dx, dinv, tent, card):
+    """`g2p` against `g2p_plain` (4 or 7 grid channels, B-spline or tent);
+    returns the worst absolute error."""
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+
+    got = tk.g2p(pdata2, counts, grid, dx, dinv, tent)
+    want = tk.g2p_plain(pdata2, counts, grid, dx, dinv, tent)
     # C sums +-(x_node - x_p) terms that cancel where the velocity field is
-    # smooth, so its channels are scaled by one term's size, D^-1 dx |v|max.
-    vmax = grid4[:, :2].abs().amax(dim=(0, 2)).double()
-    c_unit = dinv * args["dx"] * vmax
-    scale = torch.cat([want[:, :4].abs().amax(dim=(0, 2)).double(), c_unit.repeat_interleave(2)])
+    # smooth, so its channels are scaled by one term's size, dinv dx |v|max.
+    vmax = grid[:, :2].abs().amax(dim=(0, 2)).double()
+    scale = torch.cat([
+        want[:, :4].abs().amax(dim=(0, 2)).double(),
+        (dinv * dx * vmax).repeat_interleave(2),
+        want[:, 8:].abs().amax(dim=(0, 2)).double(),
+    ])
     err_g, rel_g = scaled_errors(got, want, axis=1, scale=scale)
-    say(f"[kernels:{tag}] g2p max_abs_err per channel {err_g} "
-        f"scaled {['%.2e' % r for r in rel_g]} (tol {KERNEL_REL_TOL})  [{card}]")
-    check(max(rel_g) <= KERNEL_REL_TOL, f"{tag}: g2p disagrees with its plain version")
-    return max(err_p), max(err_g)
+    worst = int(np.argmax(rel_g))
+    say(f"[{label}] g2p {grid.shape[1]} grid channels, tent {tent}: max_abs_err per channel "
+        f"{['%.3e' % e for e in err_g]}; worst channel {worst}: {rel_g[worst]:.2e} of its "
+        f"scale (tol {KERNEL_REL_TOL})  [{card}]")
+    check(max(rel_g) <= KERNEL_REL_TOL,
+          f"{label}: g2p ({grid.shape[1]} channels, tent {tent}) disagrees with its plain version")
+    return max(err_g)
 
 
 def ragged_inputs(device, seed=0):
@@ -198,6 +238,56 @@ def ragged_inputs(device, seed=0):
     grid4 = rng.normal(0.0, 1.0, (r, 4, g)).astype(np.float32)
     t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device).contiguous()
     return t(sdata), t(pdata2), t(counts, torch.int32), t(grid4), g
+
+
+def compare_prepped(tag, pdata, pdata2, counts, grid, args, dinv, card):
+    """`p2g` against `p2g_plain` on prepped inputs (per channel, and its
+    mass sum against the live particles' mass: every tap of these inputs
+    lies inside the grid), then `g2p` on `grid` (7 channels and / or tent)
+    against `g2p_plain`; returns the worst absolute errors of the two."""
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+
+    nch = pdata.shape[1] - 8
+    got = tk.p2g(pdata, counts, **args)
+    want = tk.p2g_plain(pdata, counts, **args)
+    err_p, rel_p = scaled_errors(got, want, axis=2)
+    m_total = pdata[:, 12].double().sum().item()        # row 12: m, masked
+    pou = abs(got[:, :, 4].double().sum().item() - m_total) / m_total
+    worst = int(np.argmax(rel_p))
+    say(f"[kernels:2dp {tag}] p2g {nch} channels, tent {args['tent']}, apic {args['apic']}, "
+        f"G {args['g']}: max_abs_err per channel {['%.3e' % e for e in err_p]}; worst channel "
+        f"{worst}: {err_p[worst]:.3e} / its max = {rel_p[worst]:.2e} (tol {KERNEL_REL_TOL}); "
+        f"mass sum rel err {pou:.3e} (tol {POU_REL_TOL})  [{card}]")
+    check(max(rel_p) <= KERNEL_REL_TOL, f"{tag}: p2g disagrees with its plain version")
+    check(pou <= POU_REL_TOL, f"{tag}: p2g partition of unity")
+
+    return max(err_p), compare_g2p(f"kernels:2dp {tag}", pdata2, counts, grid, args["dx"],
+                                   dinv, args["tent"], card)
+
+
+def ragged_prepped(device, seed=1):
+    """Ragged 9-channel tent inputs at G = 2049, whose (5, 9, G) slab is
+    past the opt-in shared memory, so `p2g` runs in column bands; all taps
+    inside the grid.  Also a random 7-channel grid for the tent `g2p`."""
+    rng = np.random.default_rng(seed)
+    r, k, g = 48, 1024, 2049
+    counts = rng.integers(0, k + 1, r)
+    counts[::7] = 0
+    counts[3] = k
+    rel = rng.integers(-1, 2, (r, k))
+    gx0 = np.arange(r)[:, None] + rel + 0.5 + rng.random((r, k)) * 0.999
+    gx1 = rng.uniform(0.5, g - 1.51, (r, k))
+    live = np.arange(k)[None, :] < counts[:, None]
+    mass = rng.uniform(1e-4, 2e-4, (r, k))
+    vals = np.concatenate([
+        mass * rng.normal(0.0, 1.0, (2, r, k)), mass * rng.normal(0.0, 50.0, (4, r, k)),
+        rng.normal(0.0, 1e-2, (4, r, k)), mass[None], rng.uniform(1e-7, 2e-7, (4, r, k)),
+    ]) * live
+    pdata = np.concatenate([gx0[None], gx1[None], vals]).transpose(1, 0, 2)
+    pdata2 = np.stack([gx0, gx1, live], axis=1)
+    grid = rng.normal(0.0, 1.0, (r, 7, g))
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device).contiguous()
+    return t(pdata), t(pdata2), t(counts, torch.int32), t(grid), g
 
 
 def host_checks(tag, sim, n0, p0_mass, card):
@@ -413,7 +503,8 @@ def compare_kernels3d(tag, planes, counts, mask, state, kw, dinv, card):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
-                    help="write torch.profiler tables of the 2D bench and the 8M slab here")
+                    help="write torch.profiler tables of the 2D bench, stab1M, drop1M "
+                    "and the 8M slab here")
     args = ap.parse_args(argv)
 
     # ---- 1. device --------------------------------------------------------
@@ -462,7 +553,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     say(f"[kernels:2d] bench state: {p_big.n} particles, grid {cfg.num_grids}^2, "
         f"buckets {tuple(b.shape)}, 20 substeps in {time.perf_counter() - t0:.2f} s")
-    sdata, pdata2, counts = fast2d.transfer_inputs(b, cfg)
+    sdata, pdata2, counts = fast2d.transfer_inputs(b, scene_big)
     p_args = fast2d.p2g_args(scene_big)
     dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
     grid_bench = fast2d._grid_update2d(
@@ -529,7 +620,8 @@ def main(argv=None) -> int:
             check(got[name] == n_frames * n_sub == sim.stats.substeps,
                   f"{name} launched {got[name]} times for {n_frames * n_sub} substeps")
             launches[name] = got[name]
-        check(got["p2g3d_grid"] == got["g2p3d"] == 0, "a 3D kernel ran on the 2D path")
+        check(got["p2g"] == got["p2g3d_grid"] == got["g2p3d"] == 0,
+              "p2g or a 3D kernel ran on the fused 2D path")
         host_checks("dam2d_flip98", sim, p_ref.n, mass_ref, card)
         if io_ok:
             frames = sorted(os.listdir(sim.frame_dir)), sorted(os.listdir(sim.vtk_dir))
@@ -549,6 +641,7 @@ def main(argv=None) -> int:
         say("[main:bench] timers\n" + sim_big.timers.summary())
         for name in ("p2g_fused", "g2p"):
             check(launches_big[name] == 200, f"bench: {name} launched {launches_big[name]} times")
+        check(launches_big["p2g"] == 0, "bench: p2g ran on the fused path")
         host_checks("bench", sim_big, p_big.n, mass_big, card)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -566,7 +659,157 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     say(f"[timing] 2D phases done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 6. main:dam3d ------------------------------------------------------
+    # ---- 6. kernels:2dp -----------------------------------------------------
+    # The prepped-P2G branch at the bench scale: stab1M is the stabilized
+    # switch set on the bench dam break, drop1M elastic_drop_2d with the
+    # same config (a 244^2 neo-Hookean block in the 1M-particle column).
+    cfg_stab = MPMConfig(**BENCH, **STAB, transfer=TransferKind.PIC)
+    builds = {
+        "stab1M": scenes.dam_break_2d(cfg_stab, dtype=np.float32),
+        "drop1M": scenes.elastic_drop_2d(cfg_stab, dtype=np.float32),
+    }
+    states = {}
+    for tag, (p, scene) in builds.items():
+        t0 = time.perf_counter()
+        spec = fast2d.FastSpec.for_particles(cfg_stab, p)
+        states[tag] = fast2d.run(fast2d.from_particles(p, cfg_stab, spec, dev), scene, spec, 20)
+        torch.cuda.synchronize()
+        check(not fast2d.uses_fused(scene), f"{tag} took the fused branch")
+        say(f"[kernels:2dp] {tag}: {p.n} particles, materials {scene.materials_present}, "
+            f"buckets {tuple(states[tag].shape)}, 20 substeps in {time.perf_counter() - t0:.2f} s")
+    p_stab, scene_stab = builds["stab1M"]
+    pdata, pdata2, counts = fast2d.transfer_inputs(states["stab1M"], scene_stab)
+    args_p = fast2d.p2g_args(scene_stab)
+    grid7 = fast2d._grid_update2d(tk.fold_rows(tk.p2g(pdata, counts, **args_p)), scene_stab)
+    err["p2g"], err["g2p_ext"] = compare_prepped(
+        "stab1M", pdata, pdata2, counts, grid7, args_p, dinv, card)
+    # drop1M's state through the same scene without F-bar and mixing: the
+    # 6-channel prepped rows of a two-material scene.
+    p_drop, scene_drop = builds["drop1M"]
+    scene6 = dataclasses.replace(scene_drop, cfg=dataclasses.replace(
+        cfg_stab, use_fbar=False, pressure_mixing_ratio=0.0))
+    d6, d2, dc = fast2d.transfer_inputs(states["drop1M"], scene6)
+    args6 = fast2d.p2g_args(scene6)
+    grid4 = fast2d._grid_update2d(tk.fold_rows(tk.p2g(d6, dc, **args6)), scene6)
+    compare_prepped("drop1M", d6, d2, dc, grid4, args6, dinv, card)
+    del d6, d2, dc, grid4
+    rp, rp2, rc, rgrid, rg = ragged_prepped(dev)
+    rargs = dict(g=rg, dx=0.4375 / (rg - 5), tent=True, apic=False)
+    _, err["g2p_tent"] = compare_prepped("ragged tent", rp, rp2, rc, rgrid, rargs, 1.0, card)
+    del rp, rp2, rc, rgrid
+
+    dx2 = args_p["dx"]
+    kernel_ms["p2g"] = cuda_ms(lambda: tk.p2g(pdata, counts, **args_p))
+    plain_ms["p2g"] = cuda_ms(lambda: tk.p2g_plain(pdata, counts, **args_p), reps=5, warm=1)
+    kernel_ms["g2p_ext"] = cuda_ms(lambda: tk.g2p(pdata2, counts, grid7, dx2, dinv))
+    plain_ms["g2p_ext"] = cuda_ms(
+        lambda: tk.g2p_plain(pdata2, counts, grid7, dx2, dinv), reps=5, warm=1)
+    r2, nrows, k2 = pdata.shape
+    nch = nrows - 8
+    live2 = int(counts.sum())
+    bounds["p2g"] = bound(
+        # live slots' 8 + nch rows + counts in; (R, 5, nch, G) out; 9 taps x
+        # nch channels of multiply-adds per live slot.
+        4 * ((8 + nch) * live2 + r2 + 5 * nch * r2 * g2d), live2 * 9 * nch * 2)
+    bounds["g2p_ext"] = bound(
+        # live slots' [gx0, gx1, mask] + counts + the 7-channel grid in;
+        # every slot's 11 channels out; 9 taps x 11 sums per live slot.
+        4 * (3 * live2 + r2 + 7 * r2 * g2d + 11 * r2 * k2), live2 * 9 * 11 * 2)
+    for name, label in (("p2g", f"p2g ({nch} channels)"), ("g2p_ext", "g2p (7-channel grid)")):
+        say(f"[kernels:2dp] {label} at stab1M shapes (buckets {r2}x{k2}, {live2} live): kernel "
+            f"{kernel_ms[name]:.4f} ms (CUDA events, 20 calls), plain {plain_ms[name]:.4f} ms "
+            f"(5 calls), bound {bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
+    # The tent modes at the same shapes: stab1M's rows with hat taps (no
+    # ported scene runs the tent kernel at this scale).
+    args_t = {**args_p, "tent": True}
+    kernel_ms["p2g_tent"] = cuda_ms(lambda: tk.p2g(pdata, counts, **args_t))
+    kernel_ms["g2p_tent"] = cuda_ms(lambda: tk.g2p(pdata2, counts, grid7, dx2, 1.0, True))
+    say(f"[kernels:2dp] tent taps at stab1M shapes: p2g {kernel_ms['p2g_tent']:.4f} ms, "
+        f"g2p (7-channel grid) {kernel_ms['g2p_tent']:.4f} ms (CUDA events, 20 calls)  [{card}]")
+    pd_d, _, cnt_d = fast2d.transfer_inputs(states["drop1M"], scene_drop)
+    args_d = fast2d.p2g_args(scene_drop)
+    live_d = int(cnt_d.sum())
+    bound_d = bound(4 * (pd_d.shape[1] * live_d + r2 + 5 * nch * r2 * g2d), live_d * 9 * nch * 2)
+    say(f"[kernels:2dp] p2g at drop1M shapes (pdata {tuple(pd_d.shape)}, "
+        f"{pd_d.numel() * 4} bytes, {live_d} live): kernel "
+        f"{cuda_ms(lambda: tk.p2g(pd_d, cnt_d, **args_d)):.4f} ms, bound {bound_d[0]:.4f} ms "
+        f"({bound_d[1]})  [{card}]")
+    del pdata, pdata2, counts, grid7, pd_d, cnt_d, states
+
+    # ---- 7. main:elastic_drop -------------------------------------------------
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        n_frames, n_sub = 2, 200
+        argv_cli = [
+            "--scenario", "elastic_drop", "--path", "fast", "--frames", str(n_frames),
+            "--substeps", str(n_sub), "--no-gif", "--out", out_dir, "--device", "cuda",
+        ]
+        p_ref, _ = driver.SCENARIOS["elastic_drop"]()
+        mass_ref = float(p_ref.mass.to(torch.float32).double().sum())
+        reset_all()
+        t0 = time.perf_counter()
+        if io_ok:
+            sim = driver.main(argv_cli)
+        else:
+            p, scene = driver.SCENARIOS["elastic_drop"]()
+            sim = driver.Simulation(p, scene, out_dir=out_dir, device=dev)
+            sim.run(n_frames, n_sub, gif=False, write_frames=False)
+        torch.cuda.synchronize()
+        got = counts_now()
+        say(f"[main:elastic_drop] {'CLI ' + ' '.join(argv_cli) if io_ok else 'Simulation'} in "
+            f"{time.perf_counter() - t0:.2f} s: launches {got}, substeps {sim.stats.substeps}, "
+            f"buckets {tuple(sim.state.shape)}")
+        for name in ("p2g", "g2p"):
+            check(got[name] == n_frames * n_sub == sim.stats.substeps,
+                  f"{name} launched {got[name]} times for {n_frames * n_sub} substeps")
+        launches["p2g"] = got["p2g"]
+        check(got["p2g_fused"] == got["p2g3d_grid"] == got["g2p3d"] == 0,
+              "p2g_fused or a 3D kernel ran on the prepped 2D path")
+        host_checks("elastic_drop", sim, p_ref.n, mass_ref, card)
+        if io_ok:
+            frames = sorted(os.listdir(sim.frame_dir)), sorted(os.listdir(sim.vtk_dir))
+            check(len(frames[0]) == len(frames[1]) == n_frames, "frame files missing")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del sim
+
+    # ---- 8. main:stab1M, main:drop1M ----------------------------------------
+    sims = {}
+    for tag, (p, scene) in builds.items():
+        mass0 = float(p.mass.to(torch.float32).double().sum())
+        sim = driver.Simulation(p, scene, out_dir=tempfile.gettempdir(), device=dev)
+        reset_all()
+        t0 = time.perf_counter()
+        sim.run(2, 100, gif=False, verbose=False, write_frames=False)
+        torch.cuda.synchronize()
+        got = counts_now()
+        say(f"[main:{tag}] Simulation 2 frames x 100 substeps in {time.perf_counter() - t0:.2f} s, "
+            f"launches {got}, buckets {tuple(sim.state.shape)}")
+        for name in ("p2g", "g2p"):
+            check(got[name] == 200, f"{tag}: {name} launched {got[name]} times")
+        check(got["p2g_fused"] == 0, f"{tag}: p2g_fused ran on the prepped path")
+        host_checks(tag, sim, p.n, mass0, card)
+        if tag == "stab1M":
+            jh = fast2d.to_host(sim.state)["J"]
+            say(f"[main:stab1M] J range [{float(jh.min())!r}, {float(jh.max())!r}] "
+                f"(bound |J - 1| < 0.1)")
+            check(float(np.abs(jh - 1.0).max()) < 0.1, "stab1M: J left [0.9, 1.1]")
+        sims[tag] = sim
+
+    # ---- 9. timing:2dp --------------------------------------------------------
+    for tag, sim in sims.items():
+        scene, n_part = sim.scene, builds[tag][0].n
+        step = lambda s, scene=scene: fast2d.substep(s, scene)
+        wall = time_paths(tag, fast2d, sim.state, scene, sim.spec, step, n_part,
+                          cfg_stab.stencil_size, 100, 3, card)
+        if args.profile:
+            profile_window(os.path.join(args.profile, f"profile_{tag}_20_substeps.txt"),
+                           fast2d, sim.state, scene, sim.spec, 20, 1e3 * wall, tag, card)
+    del sims, sim, builds, p_stab, p_drop
+    torch.cuda.empty_cache()
+    say(f"[timing] 2D prepped phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 10. main:dam3d ------------------------------------------------------
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         n_frames, n_sub = 2, 100
@@ -593,7 +836,7 @@ def main(argv=None) -> int:
             check(got[name] == n_frames * n_sub == sim.stats.substeps,
                   f"{name} launched {got[name]} times for {n_frames * n_sub} substeps")
             launches[name] = got[name]
-        check(got["p2g_fused"] == got["g2p"] == 0, "a 2D kernel ran on the 3D path")
+        check(got["p2g_fused"] == got["p2g"] == got["g2p"] == 0, "a 2D kernel ran on the 3D path")
         host_checks("dam3d", sim, p_ref.n, mass_ref, card)
         if io_ok:
             frames = sorted(os.listdir(sim.frame_dir)), sorted(os.listdir(sim.vtk_dir))
@@ -603,7 +846,7 @@ def main(argv=None) -> int:
         shutil.rmtree(out_dir, ignore_errors=True)
     del sim
 
-    # ---- 7. main:slab8M -----------------------------------------------------
+    # ---- 11. main:slab8M -----------------------------------------------------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -637,7 +880,7 @@ def main(argv=None) -> int:
         f"(torch.cuda.max_memory_allocated)  [{card}]")
     del b8
 
-    # ---- 8. kernels:3d --------------------------------------------------------
+    # ---- 12. kernels:3d --------------------------------------------------------
     b = sim8.state
     cfg8, spec8 = scene8.cfg, sim8.spec
     planes, counts, mask, state = fast3d.transfer_inputs(b, spec8, cfg8)
@@ -678,7 +921,7 @@ def main(argv=None) -> int:
             f"({bounds[name][1]})  [{card}]")
     del planes, state, mask, counts, grid8, g2p_in
 
-    # ---- 9. timing:3d ---------------------------------------------------------
+    # ---- 13. timing:3d ---------------------------------------------------------
     step8 = lambda s: fast3d.substep(s, scene8, spec8)
     wall8 = time_paths("3d 8M/256^3", fast3d, b, scene8, spec8, step8, p8.n, 27, 20, 3,
                        card, plain=False)
@@ -704,6 +947,15 @@ def main(argv=None) -> int:
          "library_ms": None}
         for name, (src, tpu) in TPU_KERNELS.items()
     ]
+    # g2p's 7-channel mode beside its base (4-channel) numbers, and the tent
+    # mode's error on the ragged case.
+    next(k for k in kernels if k["name"] == "g2p").update({
+        "ext_max_abs_err": err["g2p_ext"], "ext_ms": kernel_ms["g2p_ext"],
+        "ext_plain_ms": plain_ms["g2p_ext"], "ext_bound_ms": bounds["g2p_ext"][0],
+        "ext_bound_by": bounds["g2p_ext"][1], "tent_max_abs_err": err["g2p_tent"],
+        "tent_ms": kernel_ms["g2p_tent"],
+    })
+    next(k for k in kernels if k["name"] == "p2g")["tent_ms"] = kernel_ms["p2g_tent"]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

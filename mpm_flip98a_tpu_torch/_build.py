@@ -39,7 +39,11 @@ SIGNATURES = {
     "mpm_p2g_fused": (
         _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _P,
     ),
-    "mpm_g2p": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
+    # pdata, counts, out, R, K, G, nch, dx, apic, tent, stream
+    "mpm_p2g": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # pdata2, counts, grid, out, R, K, G, grid channels, tent, dx, dinv,
+    # dinv dx, stream
+    "mpm_g2p": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # planes, pencil strides, counts, raw, out, R0, R1, K, G2, dx, apic,
     # tait, kb, kb/gamma, gamma, 2 mu, fa, dt g (3), floor, lo, hi, wall,
     # dt beta, stream

@@ -2,62 +2,82 @@
 //
 // Replaces the Pallas TPU kernel `g2p` in
 // mpm_flip98a_tpu/ops/pallas/transfer2d.py (def :843, pallas_call :893,
-// body _g2p_chunk :755) in its update=False, 4-channel form.  The TPU
-// kernel multiplies the grid rows by a dense (G, K) one-hot weight matrix
-// on the MXU; here each slot reads its 3x3 nodes directly.
+// body _g2p_chunk :755) in its update=False form, with the 4- or
+// 7-channel grid and B-spline or tent taps.  The TPU kernel multiplies
+// the grid rows by a dense (G, K) one-hot weight matrix on the MXU; here
+// each slot reads its 3x3 nodes directly.
 //
 // Contract (same as the TPU kernel):
 //   pdata2 (R, 3, K) f32 = [gx0, gx1, mask], counts (R,) i32
-//   grid   (R, 4, G) f32 = [v_new0, v_new1, v_old0, v_old1], row-leading,
-//          unpadded: rows outside [0, R) read as zero
-//   out    (R, 8, K) f32 = [vpic0, vpic1, vold0, vold1, C00, C01, C10, C11]
-// with vpic = sum w v_new, vold = sum w v_old, C_a0 = D^-1 sum w v_new_a rdp,
-// C_a1 = D^-1 dx sum w v_new_a (c - gx1), D^-1 = 4 / dx^2.  Slots past the
-// count, with mask 0 or outside the +-1-row margin get zeros; taps on
-// columns outside [0, G) are dropped.
+//   grid   (R, kCh, G) f32 = [v_new0, v_new1, v_old0, v_old1(, Jbar, p,
+//          div)], row-leading, unpadded: rows outside [0, R) read as zero
+//   out    (R, 8 + kCh - 4, K) f32 = [vpic0, vpic1, vold0, vold1, C00,
+//          C01, C10, C11(, Jbar, p, div)]
+// with vpic = sum w v_new, vold = sum w v_old, C_a0 = dinv sum w v_new_a
+// rdp, C_a1 = dinv dx sum w v_new_a (c - gx1), and the extended channels
+// sum w grid_e.  B-spline callers pass dinv = 4 / dx^2; tent callers pass
+// 1 and invert the per-particle D themselves (models/fast2d.py).  Slots
+// past the count, with mask 0 or outside the +-1-row margin get zeros;
+// taps on columns outside [0, G) are dropped.
 //
 // Design: one thread per slot, blocks of 256 slots along K and one grid
 // row of blocks per bucket row.  Each thread sums its 9 taps in a fixed
-// order (rows, then columns), so the result is deterministic.
+// order (rows, then columns), so the result is deterministic.  The
+// channel count and the kernel shape are template parameters: four
+// instantiations, chosen by the host entry point.
 //
 // What bounds it on the H100: bytes.  A slot reads 12 bytes of slot data
-// and 36 grid floats (mostly L2 hits: neighbouring slots share nodes) and
-// writes 32 bytes, for ~20 flops per tap.  Reads of the slot planes and
-// writes of the 8 output planes are coalesced along K.
+// and 9 kCh grid floats (mostly L2 hits: neighbouring slots share nodes)
+// and writes 4 (8 + kCh - 4) bytes, for ~2 (4 + kCh) flops per tap.
+// Reads of the slot planes and writes of the output planes are coalesced
+// along K.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kCh = 4;
-constexpr int kOut = 8;
 constexpr int kThreads = 256;
 
+template <bool kTent>
 __device__ __forceinline__ float col_weight(float d) {
   const float a = fabsf(d);
+  if (kTent) return fmaxf(1.0f - a, 0.0f);
   const float t1 = fmaxf(1.5f - a, 0.0f);
   const float t2 = fmaxf(0.5f - a, 0.0f);
   return 0.5f * t1 * t1 - 1.5f * t2 * t2;
 }
 
+template <bool kTent>
+__device__ __forceinline__ void row_weights(float fx, float* w) {
+  if (kTent) {  // transfer2d.py:132-140
+    w[0] = fmaxf(0.0f, 1.0f - fx);
+    w[1] = 1.0f - fabsf(fx - 1.0f);
+    w[2] = fmaxf(0.0f, fx - 1.0f);
+  } else {      // transfer2d.py:123-129
+    w[0] = 0.5f * (1.5f - fx) * (1.5f - fx);
+    w[1] = 0.75f - (fx - 1.0f) * (fx - 1.0f);
+    w[2] = 0.5f * (fx - 0.5f) * (fx - 0.5f);
+  }
+}
+
+template <int kCh, bool kTent>
 __global__ void __launch_bounds__(kThreads)
 g2p_kernel(const float* __restrict__ pdata2, const int* __restrict__ counts,
            const float* __restrict__ grid, float* __restrict__ out, int R, int K,
            int G, float dx, float dinv, float dinv_dx) {
+  constexpr int kOut = 8 + (kCh - 4);
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y;
   if (k >= K) return;
   const float* pd = pdata2 + static_cast<size_t>(i) * 3 * K;
-  float acc[kOut] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float acc[kOut] = {};
   if (k < counts[i]) {
     const float gx0 = pd[k], gx1 = pd[K + k], mask = pd[2 * K + k];
     const float base0 = floorf(gx0 - 0.5f);
     const float rel = base0 - static_cast<float>(i);
     if (mask > 0.0f && rel >= -1.0f && rel <= 1.0f) {
-      const float fx0 = gx0 - base0;
-      const float w0[3] = {0.5f * (1.5f - fx0) * (1.5f - fx0),
-                           0.75f - (fx0 - 1.0f) * (fx0 - 1.0f),
-                           0.5f * (fx0 - 0.5f) * (fx0 - 0.5f)};
+      float w0[3];
+      row_weights<kTent>(gx0 - base0, w0);
       const float base1 = floorf(gx1 - 0.5f);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
@@ -71,18 +91,19 @@ g2p_kernel(const float* __restrict__ pdata2, const int* __restrict__ counts,
           if (!(cf >= 0.0f && cf < static_cast<float>(G))) continue;
           const int c = static_cast<int>(cf);
           const float d = cf - gx1;
-          const float w = w0[j] * col_weight(d);
+          const float w = w0[j] * col_weight<kTent>(d);
           const float vn0 = gr[c], vn1 = gr[G + c];
-          const float vo0 = gr[2 * G + c], vo1 = gr[3 * G + c];
           acc[0] += w * vn0;
           acc[1] += w * vn1;
-          acc[2] += w * vo0;
-          acc[3] += w * vo1;
+          acc[2] += w * gr[2 * G + c];
+          acc[3] += w * gr[3 * G + c];
           const float wr = w * rdp, wd = w * d;
           acc[4] += wr * vn0;
           acc[5] += wd * vn0;
           acc[6] += wr * vn1;
           acc[7] += wd * vn1;
+#pragma unroll
+          for (int e = 4; e < kCh; ++e) acc[4 + e] += w * gr[e * G + c];
         }
       }
       acc[4] *= dinv;
@@ -96,15 +117,29 @@ g2p_kernel(const float* __restrict__ pdata2, const int* __restrict__ counts,
   for (int ch = 0; ch < kOut; ++ch) o[static_cast<size_t>(ch) * K] = acc[ch];
 }
 
+template <int kCh, bool kTent>
+void launch(const float* pdata2, const int* counts, const float* grid, float* out,
+            int R, int K, int G, float dx, float dinv, float dinv_dx,
+            cudaStream_t stream) {
+  const dim3 blocks((K + kThreads - 1) / kThreads, R);
+  g2p_kernel<kCh, kTent><<<blocks, kThreads, 0, stream>>>(
+      pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx);
+}
+
 }  // namespace
 
+// ch: grid channels (4 or 7); tent: 0 B-spline, 1 tent.  Returns the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue for another ch.
 extern "C" int mpm_g2p(const float* pdata2, const int* counts, const float* grid,
-                       float* out, int R, int K, int G, float dx, float dinv,
-                       float dinv_dx, void* stream) {
+                       float* out, int R, int K, int G, int ch, int tent, float dx,
+                       float dinv, float dinv_dx, void* stream) {
+  if (ch != 4 && ch != 7) return static_cast<int>(cudaErrorInvalidValue);
   if (R > 0 && K > 0) {
-    const dim3 blocks((K + kThreads - 1) / kThreads, R);
-    g2p_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (ch == 4 && !tent) launch<4, false>(pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx, s);
+    if (ch == 4 && tent) launch<4, true>(pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx, s);
+    if (ch == 7 && !tent) launch<7, false>(pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx, s);
+    if (ch == 7 && tent) launch<7, true>(pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,12 +6,15 @@ Reference: exec.py — the outer frame loop with 10,000 substeps per frame
 
 The port runs the fast path on one device (`--device`, default `cuda`),
 routed by the scene's dimension as the JAX driver does: `models/fast2d`
-for `dam2d` and `dam2d_flip98`, `models/fast3d` for `dam3d`.  The general
+for `dam2d`, `dam2d_flip98` and `elastic_drop`, `models/fast3d` for
+`dam3d`.  The general
 path, other scenarios, several devices and checkpoints raise
 NotImplementedError naming their ROADMAP item.
 
 CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
           --frames 2 --substeps 100 --no-gif
+      python -m mpm_flip98a_tpu_torch --scenario elastic_drop --path fast \
+          --frames 2 --substeps 200 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam3d --path fast \
           --frames 2 --substeps 100 --no-gif
 """
@@ -46,13 +49,13 @@ SCENARIOS = {
             MPMConfig(), flip_blend=0.98, transfer=TransferKind.PIC
         )
     ),
+    "elastic_drop": lambda: scenes.elastic_drop_2d(),
     "dam3d": lambda: scenes.dam_break_3d(),
 }
 
 # Scenarios of the JAX package that this port does not run yet, with the
 # ROADMAP queue 1 item that ports them.
 UNPORTED_SCENARIOS = {
-    "elastic_drop": 8,
     "dam2d_incompressible": 8,
     "snow2d": 8,
     "sand2d": 8,

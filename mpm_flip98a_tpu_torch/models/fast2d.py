@@ -1,10 +1,21 @@
 """Fast 2D fluid solver on the hand-written CUDA transfer kernels.
 
-Counterpart of `mpm_flip98a_tpu/models/fast2d.py`, restricted to the
-single-device fused branch: one weakly-compressible fluid (linear or Tait
-EOS), PIC or APIC transfer with the FLIP blend, slip or sticky walls.  Per
-substep: `p2g_fused` (kernel) -> `fold_rows` -> `_grid_update2d` -> `g2p`
-(kernel) -> the particle update, all on float32 tensors on one device.
+Counterpart of `mpm_flip98a_tpu/models/fast2d.py` on one device, routed
+as fast2d.py:537-542 does (`uses_fused`):
+
+- one weakly-compressible fluid without F-bar or pressure mixing, on the
+  B-spline: `p2g_fused` (kernel, stress inside) -> `fold_rows` ->
+  `_grid_update2d` -> `g2p` (kernel) -> the particle update;
+- every other ported config (fluid, neo-Hookean and fixed-corotated
+  solids mixed per slot; F-bar and pressure mixing with the lag
+  correction; the tent kernel; penalty EBC): the stress prepped in torch
+  into `pdata` -> `p2g` (kernel) -> `fold_rows` -> `_grid_update2d` (with
+  the nodal Jbar, p and div under F-bar or mixing) -> `g2p` (kernel, 7
+  grid channels and tent taps as needed) -> the tent's per-particle D^-1
+  -> the particle update.
+
+PIC or APIC with the FLIP blend, linear or Tait EOS, slip or sticky walls
+or the penalty EBC; all on float32 tensors on one device.
 
 State lives in the row-bucketed (R, K) slot layout; `rebucket` re-sorts it
 when a particle nears the kernels' +-1-row margin.  `run` keeps the
@@ -59,7 +70,9 @@ class FluidBuckets:
     vol0: torch.Tensor
     mat: torch.Tensor       # int32 material id
     Jp: torch.Tensor        # plastic volume ratio (SNOW state)
-    jbar_s: torch.Tensor    # fused-stabilization state (not used by this slice)
+    # F-bar / mixing state: the nodal Jbar, p and div that the last G2P
+    # gathered (one-substep lag; unused without F-bar or mixing).
+    jbar_s: torch.Tensor
     p_s: torch.Tensor
     div_s: torch.Tensor
     mask: torch.Tensor      # f32 0/1
@@ -185,27 +198,43 @@ def to_host(b: FluidBuckets) -> dict:
     return {n: out[n] for n in HOST_FIELDS}
 
 
+PORTED_MATERIALS = (mat.WEAKLY_COMPRESSIBLE_FLUID, mat.NEO_HOOKEAN, mat.FIXED_COROTATED)
+
+
 def check_supported(scene: Scene) -> None:
     """Raise NotImplementedError for configs outside the ported slice."""
     cfg = scene.cfg
     gaps = [
         (cfg.dim != 2, "3D (fast3d)", 9),
-        (cfg.use_penalty_ebc, "penalty EBC", 8),
         (cfg.surface_tension > 0.0, "CSF surface tension", 8),
         (cfg.incompressible, "the incompressible projection", 8),
         (bool(scene.colliders), "rigid SDF colliders", 8),
-        (cfg.use_fbar or cfg.pressure_mixing_ratio > 0.0,
-         "F-bar / pressure mixing (extended channels)", 8),
-        (cfg.kernel == KernelKind.TENT, "the tent kernel", 8),
-        (scene.materials_present != (mat.WEAKLY_COMPRESSIBLE_FLUID,),
-         "materials other than one weakly-compressible fluid", 8),
-        (scene.params.plastic, "plasticity", 8),
+        (any(m not in PORTED_MATERIALS for m in scene.materials_present),
+         "snow and sand (mathx.svd, plastic_update)", 8),
+        (scene.params.plastic and mat.FIXED_COROTATED in scene.materials_present,
+         "corotated plasticity (plastic_update)", 8),
     ]
     for bad, what, item in gaps:
         if bad:
             raise NotImplementedError(
                 f"fast2d port: {what} is not ported yet (ROADMAP queue 1, item {item})"
             )
+
+
+def _ext(cfg: MPMConfig) -> bool:
+    """F-bar or pressure mixing: the extended (9-channel) transfers."""
+    return bool(cfg.use_fbar or cfg.pressure_mixing_ratio > 0.0)
+
+
+def uses_fused(scene: Scene) -> bool:
+    """The branch of fast2d.py:537-542: one weakly-compressible fluid, no
+    F-bar or pressure mixing and the B-spline kernel take `p2g_fused`;
+    every other config preps `pdata` for `p2g`."""
+    return (
+        scene.materials_present == (mat.WEAKLY_COMPRESSIBLE_FLUID,)
+        and not _ext(scene.cfg)
+        and scene.cfg.kernel != KernelKind.TENT
+    )
 
 
 def _axis_bands2d(cfg: MPMConfig, nrows: int, ncols: int, device):
@@ -221,9 +250,11 @@ def _axis_bands2d(cfg: MPMConfig, nrows: int, ncols: int, device):
 
 
 def _grid_update2d(gridsum: torch.Tensor, scene: Scene) -> torch.Tensor:
-    """Grid momentum update on the row-leading (R, 5, G) fold output:
-    mass floor, gravity, slip or sticky walls.  Returns grid4 (R, 4, G) =
-    [v_new (2), v_old (2)] for g2p."""
+    """Grid momentum update on the row-leading (R, 5 or 6 or 9, G) fold
+    output (fast2d.py:258-398 without CSF, colliders and the projection):
+    mass floor, gravity, then slip or sticky walls or the penalty EBC.
+    Returns the grid (R, 4, G) = [v_new (2), v_old (2)] for g2p, plus the
+    nodal averages [Jbar, p, div] (R, 7, G) under F-bar or mixing."""
     cfg = scene.cfg
     dt = np.float32(cfg.dt)
     g_m = gridsum[:, 4]
@@ -235,28 +266,54 @@ def _grid_update2d(gridsum: torch.Tensor, scene: Scene) -> torch.Tensor:
     low0, high0, low1, high1 = _axis_bands2d(
         cfg, gridsum.shape[0], gridsum.shape[-1], gridsum.device
     )
-    hasf = has.to(torch.float32)
-    vx = torch.where(has, gridsum[:, 2] / safe, 0.0) + float(dt * grav[0]) * hasf
-    vy = torch.where(has, gridsum[:, 3] / safe, 0.0) + float(dt * grav[1]) * hasf
-    if scene.wall.kind == "sticky":
-        anyband = low0 | high0 | low1 | high1
-        vx = torch.where(anyband, 0.0, vx)
-        vy = torch.where(anyband, 0.0, vy)
-    else:  # slip: clamp the outgoing normal component per axis band
-        vx = torch.where(low0, vx.clamp(min=0.0), vx)
-        vx = torch.where(high0, vx.clamp(max=0.0), vx)
-        vy = torch.where(low1, vy.clamp(min=0.0), vy)
-        vy = torch.where(high1, vy.clamp(max=0.0), vy)
-    return torch.stack([vx, vy, v0x, v0y], dim=1)
+    if cfg.use_penalty_ebc:
+        # Implicit normal-velocity penalty (m I + dt beta n n^T) v = m v* +
+        # dt m g; the box's penalty matrix is diagonal, so the solve is a
+        # divide by the mass plus dt beta on the axis's wall band.
+        dt_beta = float(dt * np.float32(cfg.penalty_parameter(scene.physics)))
+        pen0 = (low0 | high0).to(torch.float32)
+        pen1 = (low1 | high1).to(torch.float32)
+        rhs_x = gridsum[:, 2] + float(dt * grav[0]) * g_m
+        rhs_y = gridsum[:, 3] + float(dt * grav[1]) * g_m
+        vx = torch.where(has, rhs_x / (g_m + dt_beta * pen0), 0.0)
+        vy = torch.where(has, rhs_y / (g_m + dt_beta * pen1), 0.0)
+    else:
+        hasf = has.to(torch.float32)
+        vx = torch.where(has, gridsum[:, 2] / safe, 0.0) + float(dt * grav[0]) * hasf
+        vy = torch.where(has, gridsum[:, 3] / safe, 0.0) + float(dt * grav[1]) * hasf
+        if scene.wall.kind == "sticky":
+            anyband = low0 | high0 | low1 | high1
+            vx = torch.where(anyband, 0.0, vx)
+            vy = torch.where(anyband, 0.0, vy)
+        else:  # slip: clamp the outgoing normal component per axis band
+            vx = torch.where(low0, vx.clamp(min=0.0), vx)
+            vx = torch.where(high0, vx.clamp(max=0.0), vx)
+            vy = torch.where(low1, vy.clamp(min=0.0), vy)
+            vy = torch.where(high1, vy.clamp(max=0.0), vy)
+    gch = [vx, vy, v0x, v0y]
+    if _ext(cfg):
+        # Nodal averages for the next substep's stress: Jbar, p, div, with
+        # 1 / 0 / 0 where no volume landed.
+        v0sum = gridsum[:, 6]
+        has_v = v0sum > 0
+        safe_v = torch.where(has_v, v0sum, 1.0)
+        gch.append(torch.where(has_v, gridsum[:, 5] / safe_v, 1.0))
+        gch.append(torch.where(has_v, gridsum[:, 7] / safe_v, 0.0))
+        gch.append(torch.where(has_v, gridsum[:, 8] / safe_v, 0.0))
+    return torch.stack(gch, dim=1)
 
 
 def p2g_args(scene: Scene) -> dict:
-    """Keyword arguments of `p2g_fused` for the scene (fast2d.py:585-592)."""
+    """Keyword arguments of the scene's P2G wrapper: `p2g_fused`
+    (fast2d.py:585-592) or `p2g` (:775), as `uses_fused` picks."""
     cfg = scene.cfg
+    apic = cfg.transfer == TransferKind.APIC
+    if not uses_fused(scene):
+        return dict(g=cfg.num_grids, dx=float(cfg.dx),
+                    tent=cfg.kernel == KernelKind.TENT, apic=apic)
     dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
     return dict(
-        g=cfg.num_grids, dx=float(cfg.dx),
-        apic=cfg.transfer == TransferKind.APIC,
+        g=cfg.num_grids, dx=float(cfg.dx), apic=apic,
         eos="linear" if scene.params.eos == EOSKind.LINEAR else "tait",
         kb=float(scene.params.bulk_modulus),
         mu=float(scene.params.dynamic_viscosity),
@@ -265,51 +322,212 @@ def p2g_args(scene: Scene) -> dict:
     )
 
 
-def transfer_inputs(b: FluidBuckets, cfg: MPMConfig):
-    """(sdata (R, 11, K), pdata2 (R, 3, K), counts (R,)) for the kernels.
+def _stress(b: FluidBuckets, scene: Scene):
+    """Component-form V0-scaled Kirchhoff stress per slot (fast2d.py:
+    620-714), the models of models/materials.py on (R, K) planes.
+
+    F-bar and pressure mixing read the nodal averages that the last
+    substep's G2P gathered (jbar_s, p_s, div_s), advanced over the
+    one-substep lag by their local rates (dJ/dt = J div, dp/dt = dp/dJ J
+    div with div = tr C).  Neo-Hookean solids get the neo-Hookean stress
+    of materials.neo_hookean_tau_hat: the reference's fast2d dispatch
+    lacks that branch and gives them the corotated one (ROADMAP queue 3).
+    Returns ((tau00, tau01, tau10, tau11), p_point, vj): p_point is the
+    fluid's pointwise pressure on every slot, solids included (zero
+    without a fluid); vj = V0 J_eff on every slot."""
+    cfg, params = scene.cfg, scene.params
+    dt = _f32(cfg.dt)
+    ratio = float(cfg.pressure_mixing_ratio)
+    div_lag = b.C00 + b.C11
+    jbar_adv = b.jbar_s * (1.0 + dt * div_lag) if _ext(cfg) else b.jbar_s
+    jeff = jbar_adv if cfg.use_fbar else b.J
+    vj = b.vol0 * jeff
+    p_point_out = torch.zeros_like(b.J)
+    tau = (torch.zeros_like(b.J),) * 4
+    mu_s, lam_s = _f32(params.mu), _f32(params.lam)
+    for mid in scene.materials_present:
+        if mid == mat.WEAKLY_COMPRESSIBLE_FLUID:
+            kb = np.float32(params.bulk_modulus)
+            mu = _f32(params.dynamic_viscosity)
+            if params.eos == EOSKind.LINEAR:
+                p_point = float(-kb) * (jeff - 1.0)
+            else:
+                gamma = np.float32(params.tait_gamma)
+                j_safe = jeff.clamp(min=_f32(1e-3))
+                p_point = float(kb / gamma) * ((1.0 / j_safe) ** float(gamma) - 1.0)
+            p_point_out = p_point
+            if ratio > 0.0:
+                if params.eos == EOSKind.LINEAR:
+                    dp_dt = float(-kb) * jeff * div_lag
+                else:
+                    dp_dt = float(-kb) * (1.0 / j_safe) ** float(gamma) * div_lag
+                pressure = ratio * (b.p_s + dt * dp_dt) + (1.0 - ratio) * p_point
+            else:
+                pressure = p_point
+            div = b.C00 + b.C11
+            t00 = vj * (-pressure + 2.0 * mu * (b.C00 - 0.5 * div))
+            t11 = vj * (-pressure + 2.0 * mu * (b.C11 - 0.5 * div))
+            t01 = vj * (2.0 * mu * 0.5 * (b.C01 + b.C10))
+            t10 = t01
+        elif mid == mat.NEO_HOOKEAN:
+            # V0 (mu (F F^T - I) + lam log(J) I), J floored at 1e-6.
+            jf = (b.F00 * b.F11 - b.F01 * b.F10).clamp(min=_f32(1e-6))
+            lj = lam_s * torch.log(jf)
+            t00 = b.vol0 * (mu_s * (b.F00 ** 2 + b.F01 ** 2 - 1.0) + lj)
+            t11 = b.vol0 * (mu_s * (b.F10 ** 2 + b.F11 ** 2 - 1.0) + lj)
+            t01 = b.vol0 * mu_s * (b.F00 * b.F10 + b.F01 * b.F11)
+            t10 = t01
+        else:  # FIXED_COROTATED: V0 (2 mu (F - R) F^T + lam (J - 1) J I)
+            jf = b.F00 * b.F11 - b.F01 * b.F10
+            px = b.F00 + b.F11
+            py = b.F10 - b.F01
+            # The floor guards the polar normalisation against a collapsed F.
+            sc = 1.0 / torch.sqrt((px * px + py * py).clamp(min=_f32(1e-12)))
+            rc, rs = px * sc, py * sc
+            d00, d01 = b.F00 - rc, b.F01 + rs
+            d10, d11 = b.F10 - rs, b.F11 - rc
+            lj = lam_s * (jf - 1.0) * jf
+            t00 = b.vol0 * (2 * mu_s * (d00 * b.F00 + d01 * b.F01) + lj)
+            t01 = b.vol0 * (2 * mu_s * (d00 * b.F10 + d01 * b.F11))
+            t10 = b.vol0 * (2 * mu_s * (d10 * b.F00 + d11 * b.F01))
+            t11 = b.vol0 * (2 * mu_s * (d10 * b.F10 + d11 * b.F11) + lj)
+        if len(scene.materials_present) == 1:
+            tau = (t00, t01, t10, t11)
+        else:
+            sel = b.mat == mid
+            tau = tuple(torch.where(sel, t, acc) for t, acc in zip((t00, t01, t10, t11), tau))
+    return tau, p_point_out, vj
+
+
+def _prep(b: FluidBuckets, scene: Scene, gx0, gx1) -> torch.Tensor:
+    """pdata (R, 14 or 17, K) for `p2g` (fast2d.py:716-739): [gx0, gx1,
+    m v (2), P (4), Q (4), m] + [V] or, under F-bar or mixing, [V0 J, V0,
+    V0 p, V0 div]; every value row masked.  P = m C under APIC (else 0),
+    Q = P - dt D^-1 tau."""
+    cfg = scene.cfg
+    (tau00, tau01, tau10, tau11), p_point, vj = _stress(b, scene)
+    fa = float(-np.float32(cfg.dt) * np.float32(4.0 * cfg.inv_dx * cfg.inv_dx))
+    if cfg.transfer == TransferKind.APIC:
+        p00, p01, p10, p11 = b.mass * b.C00, b.mass * b.C01, b.mass * b.C10, b.mass * b.C11
+    else:
+        p00 = p01 = p10 = p11 = torch.zeros_like(b.C00)
+    q00, q01 = p00 + fa * tau00, p01 + fa * tau01
+    q10, q11 = p10 + fa * tau10, p11 + fa * tau11
+    m = b.mass * b.mask
+    rows = [
+        gx0, gx1, m * b.v0, m * b.v1,
+        *(a * b.mask for a in (p00, p01, p10, p11, q00, q01, q10, q11)),
+        m,
+    ]
+    if _ext(cfg):
+        v0m = b.vol0 * b.mask
+        rows += [v0m * b.J, v0m, v0m * p_point, v0m * (b.C00 + b.C11)]
+    else:
+        rows += [vj * b.mask]
+    return torch.stack(rows, dim=1)
+
+
+def transfer_inputs(b: FluidBuckets, scene: Scene):
+    """(data, pdata2 (R, 3, K), counts (R,)) for the kernels, where data is
+    `p2g_fused`'s sdata (R, 11, K) or `p2g`'s prepped pdata (R, 14 or 17,
+    K), as `uses_fused` picks.
 
     P2G and G2P read one precomputed transfer coordinate gx = x / dx + PAD
     (docs/KERNELS.md:57-60): computed twice, it could round a knife-edge
     particle into different cells in the two transfers."""
-    inv_dx = _f32(cfg.inv_dx)
+    inv_dx = _f32(scene.cfg.inv_dx)
     gx0 = b.x0 * inv_dx + PAD
     gx1 = b.x1 * inv_dx + PAD
     counts = (b.mask > 0).sum(dim=1).to(torch.int32)
-    sdata = torch.stack(
-        [gx0, gx1, b.v0, b.v1, b.C00, b.C01, b.C10, b.C11, b.J, b.mass, b.vol0],
-        dim=1,
-    )
-    return sdata, torch.stack([gx0, gx1, b.mask], dim=1), counts
+    if uses_fused(scene):
+        data = torch.stack(
+            [gx0, gx1, b.v0, b.v1, b.C00, b.C01, b.C10, b.C11, b.J, b.mass, b.vol0],
+            dim=1,
+        )
+    else:
+        data = _prep(b, scene, gx0, gx1)
+    return data, torch.stack([gx0, gx1, b.mask], dim=1), counts
+
+
+def _tent_inverse_d(gx0, gx1, dx: float):
+    """(i00, i01, i11) of the per-particle D^-1 for the tent kernel
+    (fast2d.py:797-816): D = sum w dpos dpos^T from the hat taps alone,
+    regularised by 1e-12 on the diagonal."""
+    dxf = _f32(dx)
+
+    def axis_d(gx):
+        base = torch.floor(gx - 0.5)
+        fx = gx - base
+        w = tk._axis_weights_tent(fx)
+        s1 = sum(w[i] * (i - fx) for i in range(3)) * dxf       # ~0
+        s2 = sum(w[i] * (i - fx) ** 2 for i in range(3)) * dxf * dxf
+        return s1, s2
+
+    s0_1, d00 = axis_d(gx0)
+    s1_1, d11 = axis_d(gx1)
+    d01 = s0_1 * s1_1
+    eps = _f32(1e-12)
+    d00, d11 = d00 + eps, d11 + eps
+    det = d00 * d11 - d01 * d01
+    return d11 / det, -d01 / det, d00 / det
 
 
 def substep(b: FluidBuckets, scene: Scene, plain: bool = False) -> FluidBuckets:
-    """One fast substep (fast2d.py:479-875, fused branch).
+    """One fast substep (fast2d.py:479-875).
 
+    `uses_fused` configs take `p2g_fused`; the others prep `pdata` and
+    take `p2g`, the extended grid channels under F-bar or mixing and the
+    tent kernel's per-particle D^-1.  Then `g2p` and the particle update.
     `plain=True` calls the kernels' plain PyTorch versions even on a card:
     it exists to time the plain path against the kernel path."""
     check_supported(scene)
     cfg = scene.cfg
     dt = _f32(cfg.dt)
+    dx = float(cfg.dx)
     dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
-    p2g, g2p = (tk.p2g_fused_plain, tk.g2p_plain) if plain else (tk.p2g_fused, tk.g2p)
+    tent = cfg.kernel == KernelKind.TENT
+    ext = _ext(cfg)
+    fused = uses_fused(scene)
+    if plain:
+        p2g, g2p = (tk.p2g_fused_plain if fused else tk.p2g_plain), tk.g2p_plain
+    else:
+        p2g, g2p = (tk.p2g_fused if fused else tk.p2g), tk.g2p
 
-    sdata, pdata2, counts = transfer_inputs(b, cfg)
-    grid4 = _grid_update2d(tk.fold_rows(p2g(sdata, counts, **p2g_args(scene))), scene)
-    out8 = g2p(pdata2, counts, grid4, float(cfg.dx), dinv)
-    vpic0, vpic1 = out8[:, 0], out8[:, 1]
-    vold0, vold1 = out8[:, 2], out8[:, 3]
-    c00, c01, c10, c11 = out8[:, 4], out8[:, 5], out8[:, 6], out8[:, 7]
+    data, pdata2, counts = transfer_inputs(b, scene)
+    grid = _grid_update2d(tk.fold_rows(p2g(data, counts, **p2g_args(scene))), scene)
+    out = g2p(pdata2, counts, grid, dx, 1.0 if tent else dinv, tent=tent)
+    vpic0, vpic1 = out[:, 0], out[:, 1]
+    vold0, vold1 = out[:, 2], out[:, 3]
+    c00, c01, c10, c11 = out[:, 4], out[:, 5], out[:, 6], out[:, 7]
+    if tent:
+        # G2P returned the raw B = sum w v dpos^T (dinv = 1): C = B D^-1.
+        i00, i01, i11 = _tent_inverse_d(pdata2[:, 0], pdata2[:, 1], dx)
+        c00, c01 = c00 * i00 + c01 * i01, c00 * i01 + c01 * i11
+        c10, c11 = c10 * i00 + c11 * i01, c10 * i01 + c11 * i11
 
     # Particle update (fast2d.py:818-875): FLIP blend, advection, F and J.
     alpha = _f32(cfg.flip_blend)
     one_m_alpha = float(np.float32(1.0) - np.float32(alpha))
     nv0 = alpha * (b.v0 + vpic0 - vold0) + one_m_alpha * vpic0
     nv1 = alpha * (b.v1 + vpic1 - vold1) + one_m_alpha * vpic1
+    div_new = c00 + c11
+    ratio = float(cfg.pressure_mixing_ratio)
+    if ratio > 0.0:
+        # The mixed divergence drives the volumetric update (one-substep lag).
+        div_for_j = ratio * b.div_s + (1.0 - ratio) * div_new
+    else:
+        div_for_j = div_new
+    on = b.mask > 0
+    if ext:
+        jbar_new = torch.where(on, out[:, 8], 1.0)
+        p_new = out[:, 9] * b.mask
+        div_s_new = out[:, 10] * b.mask
+    else:
+        jbar_new, p_new, div_s_new = b.jbar_s, b.p_s, b.div_s
     f00 = (1 + dt * c00) * b.F00 + dt * c01 * b.F10
     f01 = (1 + dt * c00) * b.F01 + dt * c01 * b.F11
     f10 = dt * c10 * b.F00 + (1 + dt * c11) * b.F10
     f11 = dt * c10 * b.F01 + (1 + dt * c11) * b.F11
-    on = b.mask > 0
     return dataclasses.replace(
         b,
         x0=b.x0 + dt * vpic0 * b.mask,
@@ -318,7 +536,8 @@ def substep(b: FluidBuckets, scene: Scene, plain: bool = False) -> FluidBuckets:
         v1=nv1 * b.mask,
         C00=c00, C01=c01, C10=c10, C11=c11,
         F00=f00, F01=f01, F10=f10, F11=f11,
-        J=torch.where(on, b.J * (1.0 + dt * (c00 + c11)), 1.0),
+        J=torch.where(on, b.J * (1.0 + dt * div_for_j), 1.0),
+        jbar_s=jbar_new, p_s=p_new, div_s=div_s_new,
     )
 
 

@@ -1,14 +1,26 @@
-"""Material ids and constants (counterpart of `mpm_flip98a_tpu/models/materials.py`).
+"""Material models (counterpart of `mpm_flip98a_tpu/models/materials.py`).
 
-Only what the fast 2D fluid path needs: the per-particle material ids and
-`MaterialParams`.  The fused P2G kernel computes the weakly-compressible
-fluid stress itself, so the stress functions and the plasticity updates
-wait for the full switch matrix (ROADMAP queue 1, item 8).
+All stresses are the V0-scaled Kirchhoff stress
+    tau_hat = V0 * P(F) F^T = V0 * J * sigma_cauchy        (shape (N, d, d))
+that the MLS-MPM force term consumes (reference:
+cpp_validation/mls-mpm88-explained.cpp:79-89).
+
+Ported: the material ids, `MaterialParams`, the weakly-compressible fluid
+(`fluid_pressure`, `fluid_tau_hat`), `neo_hookean_tau_hat`,
+`fixed_corotated_tau_hat` (2D: the closed-form polar of
+mpm_flip98a_tpu/ops/mathx.py:64-82) and the `tau_hat` dispatch.  The fast
+2D path computes the same stresses in component form
+(`models/fast2d._stress`); these matrix forms are its yardstick in the
+tests.  Snow, sand and `plastic_update` need the SVD and wait for ROADMAP
+queue 1, items 7-8.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
+
+import torch
 
 from mpm_flip98a_tpu_torch.config import EOSKind
 
@@ -42,3 +54,122 @@ class MaterialParams:
     jp_clamp_hi: float = 20.0
     # SAND Drucker-Prager friction angle [degrees]
     friction_angle: float = 35.0
+
+
+def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+def _eye(d: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(d, dtype=like.dtype, device=like.device)
+
+
+def _det(f: torch.Tensor) -> torch.Tensor:
+    if f.shape[-1] == 2:
+        return f[..., 0, 0] * f[..., 1, 1] - f[..., 0, 1] * f[..., 1, 0]
+    return torch.linalg.det(f)
+
+
+def _polar_rotation_2d(f: torch.Tensor) -> torch.Tensor:
+    """R of the closed-form 2D polar decomposition F = R S, from the
+    trace/skew pair (reference: taichi.h:8375-8385)."""
+    if f.shape[-1] != 2:
+        raise NotImplementedError(
+            "the 3D polar decomposition (ops/mathx) is not ported yet "
+            "(ROADMAP queue 1, item 7)"
+        )
+    x = f[..., 0, 0] + f[..., 1, 1]
+    y = f[..., 1, 0] - f[..., 0, 1]
+    scale = 1.0 / torch.sqrt(x * x + y * y)
+    c, s = x * scale, y * scale
+    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+
+
+def fluid_pressure(params: MaterialParams, j_bar: torch.Tensor) -> torch.Tensor:
+    """EOS pressure from the volume ratio: LINEAR p = -K (J - 1); TAIT
+    p = (K / gamma) ((1/J)^gamma - 1), with J floored at 1e-3 as the
+    kernels do."""
+    k = _scalar(params.bulk_modulus, j_bar)
+    if params.eos == EOSKind.LINEAR:
+        return -k * (j_bar - 1.0)
+    g = _scalar(params.tait_gamma, j_bar)
+    j_safe = torch.clamp(j_bar, min=1e-3)
+    return (k / g) * (torch.pow(1.0 / j_safe, g) - 1.0)
+
+
+def fluid_tau_hat(
+    params: MaterialParams,
+    volume0: torch.Tensor,
+    j_bar: torch.Tensor,
+    pressure: torch.Tensor,
+    strain_rate: torch.Tensor,
+) -> torch.Tensor:
+    """Weakly-compressible viscous fluid: V0 J (-p I + 2 mu dev(eps_dot))."""
+    d = strain_rate.shape[-1]
+    eye = _eye(d, strain_rate)
+    mu = _scalar(params.dynamic_viscosity, strain_rate)
+    tr = strain_rate.diagonal(dim1=-2, dim2=-1).sum(-1)
+    dev = strain_rate - (tr / d)[..., None, None] * eye
+    sigma = (-pressure)[..., None, None] * eye + 2.0 * mu * dev
+    return (volume0 * j_bar)[..., None, None] * sigma
+
+
+def fixed_corotated_tau_hat(
+    params: MaterialParams, volume0: torch.Tensor, f: torch.Tensor
+) -> torch.Tensor:
+    """V0 (2 mu (F - R) F^T + lambda (J - 1) J I)
+    (reference: mls-mpm88-explained.cpp:81)."""
+    d = f.shape[-1]
+    j = _det(f)
+    r = _polar_rotation_2d(f)
+    mu, lam = _scalar(params.mu, f), _scalar(params.lam, f)
+    pf = 2.0 * mu * ((f - r) @ f.transpose(-1, -2)) + (
+        (lam * (j - 1.0) * j)[..., None, None] * _eye(d, f)
+    )
+    return volume0[..., None, None] * pf
+
+
+def neo_hookean_tau_hat(
+    params: MaterialParams, volume0: torch.Tensor, f: torch.Tensor
+) -> torch.Tensor:
+    """V0 (mu (F F^T - I) + lambda log(J) I), J floored at 1e-6."""
+    d = f.shape[-1]
+    eye = _eye(d, f)
+    j = torch.clamp(_det(f), min=1e-6)
+    mu, lam = _scalar(params.mu, f), _scalar(params.lam, f)
+    b = f @ f.transpose(-1, -2)
+    return volume0[..., None, None] * (
+        mu * (b - eye) + (lam * torch.log(j))[..., None, None] * eye
+    )
+
+
+def tau_hat(
+    params: MaterialParams,
+    material: torch.Tensor,
+    volume0: torch.Tensor,
+    f: torch.Tensor,
+    j_bar: torch.Tensor,
+    pressure: torch.Tensor,
+    strain_rate: torch.Tensor,
+    materials_present: Tuple[int, ...] = (WEAKLY_COMPRESSIBLE_FLUID,),
+) -> torch.Tensor:
+    """Dispatch on the per-particle material id; only the branches of
+    `materials_present` are evaluated."""
+
+    def branch(mid):
+        if mid == WEAKLY_COMPRESSIBLE_FLUID:
+            return fluid_tau_hat(params, volume0, j_bar, pressure, strain_rate)
+        if mid == NEO_HOOKEAN:
+            return neo_hookean_tau_hat(params, volume0, f)
+        if mid == FIXED_COROTATED:
+            return fixed_corotated_tau_hat(params, volume0, f)
+        raise NotImplementedError(
+            f"material {mid} (snow / sand) is not ported yet (ROADMAP queue 1, item 8)"
+        )
+
+    if len(materials_present) == 1:
+        return branch(materials_present[0])
+    out = torch.zeros_like(f)
+    for mid in materials_present:
+        out = torch.where((material == mid)[..., None, None], branch(mid), out)
+    return out

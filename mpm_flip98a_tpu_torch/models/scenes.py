@@ -5,8 +5,10 @@ lattice filling a 0.057 x 0.114 m fluid column against the left wall of a
 0.4375 m box (reference: config.py:30-35), 105^2 grid with 4 padding
 cells (config.py:37-39).  The lattice is built in float64 numpy and cast
 to the requested dtype, exactly as the JAX builder does, so both packages
-start from the same bits.  The other scenes wait for the full switch
-matrix, 3D and colliders (ROADMAP queue 1, items 8 and 9).
+start from the same bits.  `elastic_drop_2d` adds an elastic block to that
+column (BASELINE.json configs[2]); `dam_break_3d` and `slab_3d` are the 3D
+scenes.  Snow, sand and the collider scenes wait for ROADMAP queue 1,
+item 8.
 """
 
 from __future__ import annotations
@@ -60,6 +62,65 @@ def dam_break_2d(
         bulk_modulus=physics.bulk_modulus,
         dynamic_viscosity=physics.dynamic_viscosity,
     ), mass_floor=_floor_of(p))
+    return p, scene
+
+
+def elastic_drop_2d(
+    cfg: Optional[MPMConfig] = None,
+    physics: Physics = Physics(),
+    dtype=np.float64,
+    block_frac: float = 0.12,
+    drop_height_frac: float = 0.55,
+    block_material: int = mat.NEO_HOOKEAN,
+    plastic: bool = False,
+) -> Tuple[Particles, Scene]:
+    """An elastic block (neo-Hookean by default, E = 5e4 Pa, nu = 0.3,
+    400 kg/m^3) dropped into the fluid column (BASELINE.json configs[2],
+    the `elastic_drop` scenario)."""
+    cfg = cfg or MPMConfig(dtype=np.dtype(dtype).name)
+    fluid_x = _lattice(
+        (cfg.num_particles_x, cfg.num_particles_y),
+        (0.0, 0.0),
+        (cfg.fluid_width, cfg.fluid_height),
+        dtype,
+    )
+    l = cfg.domain_length
+    side = block_frac * l
+    nb = max(8, int(side / (cfg.fluid_width / cfg.num_particles_x)))
+    block_x = _lattice((nb, nb), (0.45 * l, drop_height_frac * l), (side, side), dtype)
+    x = np.concatenate([fluid_x, block_x], axis=0)
+    material = np.concatenate([
+        np.full(len(fluid_x), mat.WEAKLY_COMPRESSIBLE_FLUID, np.int32),
+        np.full(len(block_x), block_material, np.int32),
+    ])
+    vol_b = (side * side) / len(block_x)
+    volume0 = np.concatenate(
+        [np.full(len(fluid_x), cfg.initial_particle_volume), np.full(len(block_x), vol_b)]
+    ).astype(dtype)
+    rho_block = 400.0  # light elastic block (floats)
+    density = np.concatenate(
+        [np.full(len(fluid_x), physics.particle_density), np.full(len(block_x), rho_block)]
+    ).astype(dtype)
+    p = Particles.init(
+        torch.from_numpy(x),
+        volume0=torch.from_numpy(volume0),
+        density=torch.from_numpy(density),
+        material=torch.from_numpy(material),
+    )
+    e_block, nu_block = 5e4, 0.3
+    scene = Scene(
+        cfg=cfg,
+        physics=physics,
+        params=mat.MaterialParams(
+            bulk_modulus=physics.bulk_modulus,
+            dynamic_viscosity=physics.dynamic_viscosity,
+            mu=e_block / (2 * (1 + nu_block)),
+            lam=e_block * nu_block / ((1 + nu_block) * (1 - 2 * nu_block)),
+            plastic=plastic,
+        ),
+        materials_present=(mat.WEAKLY_COMPRESSIBLE_FLUID, block_material),
+        mass_floor=_floor_of(p),
+    )
     return p, scene
 
 

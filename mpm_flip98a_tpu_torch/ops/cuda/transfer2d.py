@@ -8,29 +8,39 @@ for the MXU; on the GPU each particle simply touches its 3x3 nodes:
   (transfer2d.py:412, pallas_call :433): fluid stress computed per slot,
   then the quadratic B-spline scatter of [m v0, m v1, m v0 + f0, m v1 + f1,
   m] to the 5 candidate target rows of each bucket row.
+- `p2g` (csrc/p2g.cu) replaces the Pallas `p2g` (transfer2d.py:304,
+  pallas_call :323): the same scatter of stress prepped outside the
+  kernel (`pdata`), 6 or 9 channels, B-spline or tent taps.
 - `g2p` (csrc/g2p.cu) replaces the Pallas `g2p` (transfer2d.py:843,
-  pallas_call :893) in its `update=False`, 4-channel form: vpic, the
-  gathered pre-force velocity and C = D^-1 sum w v (x_node - x_p)^T.
+  pallas_call :893) in its `update=False` form: vpic, the gathered
+  pre-force velocity, C = D^-1 sum w v (x_node - x_p)^T and, with the
+  7-channel grid, the gathered Jbar, p and div; B-spline or tent taps.
 
 Each kernel has a plain PyTorch version with the same contract beside it
-(`p2g_fused_plain`, `g2p_plain`).  A wrapper takes the plain version only
-for tensors on the CPU; for CUDA tensors it launches its kernel or raises.
-`LAUNCHES` counts kernel launches per wrapper, so a run can show that its
-main path went through the kernels.
+(`p2g_fused_plain`, `p2g_plain`, `g2p_plain`).  A wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches its
+kernel or raises.  `LAUNCHES` counts kernel launches per wrapper, so a run
+can show that its main path went through the kernels.
 
 Layouts are the JAX package's, so the two compare at this boundary:
-  P2G in  : sdata (R, 11, K) = [gx0, gx1, v0, v1, C00, C01, C10, C11,
-            J, mass, vol0], counts (R,) int32
-  P2G out : (R, 5, 5, G), target row t of bucket i is grid row i + t - 1
-  G2P in  : pdata2 (R, 3, K) = [gx0, gx1, mask], counts, grid4 (R, 4, G)
-            = [v_new0, v_new1, v_old0, v_old1] (unpadded)
-  G2P out : (R, 8, K) = [vpic0, vpic1, vold0, vold1, C00, C01, C10, C11]
+  P2G fused in : sdata (R, 11, K) = [gx0, gx1, v0, v1, C00, C01, C10, C11,
+                 J, mass, vol0], counts (R,) int32
+  P2G in       : pdata (R, 8 + nch, K) = [gx0, gx1, m v0, m v1, P (4),
+                 Q (4), *plain], plain = [m, V] (nch 6) or [m, V0 J, V0,
+                 V0 p, V0 div] (nch 9), every value row pre-masked
+  P2G out      : (R, 5, nch, G) (nch 5 fused), target row t of bucket i
+                 is grid row i + t - 1; channels [m v (2), m v + f (2),
+                 *plain]
+  G2P in       : pdata2 (R, 3, K) = [gx0, gx1, mask], counts, grid
+                 (R, 4 or 7, G) = [v_new (2), v_old (2)(, Jbar, p, div)]
+                 (unpadded: rows outside [0, R) read as zero)
+  G2P out      : (R, 8 or 11, K) = [vpic (2), vold (2), C00, C01, C10,
+                 C11(, Jbar, p, div)]
 
 Semantics kept from the TPU kernels: a slot contributes only when its
 base row is within +-1 of its bucket row; taps on columns outside [0, G)
-are dropped; P2G and G2P read the same precomputed gx.  The tent kernel,
-the extended (F-bar / mixing) channels, G2P's update mode and the
-prepadded grid are not on the ported path (ROADMAP queue 2).
+are dropped; P2G and G2P read the same precomputed gx.  G2P's update mode
+and the prepadded grid are not on a ported path (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -43,12 +53,15 @@ from mpm_flip98a_tpu_torch import _build
 
 NT = 5             # candidate target rows: bucket_row - 1 .. bucket_row + 3
 P2G_CH_FUSED = 5   # [m v0, m v1, m v0 + f0, m v1 + f1, m]
+P2G_CH = 6         # + V
+P2G_CH_EXT = 9     # + [V0 J, V0, V0 p, V0 div] in place of V
 G2P_CH = 4         # [v_new0, v_new1, v_old0, v_old1]
+G2P_CH_EXT = 7     # + [Jbar, p, div]
 G2P_OUT = 8        # [vpic0, vpic1, vold0, vold1, C00, C01, C10, C11]
 EOS_CODES = {"linear": 0, "tait": 1}
 
 # Kernel launches per wrapper (the plain versions do not count).
-LAUNCHES = {"p2g_fused": 0, "g2p": 0}
+LAUNCHES = {"p2g_fused": 0, "p2g": 0, "g2p": 0}
 
 
 def reset_launches() -> None:
@@ -65,11 +78,24 @@ def _axis_weights(fx):
     )
 
 
-def _col_weights(d):
+def _axis_weights_tent(fx):
+    """Linear hat taps on the same 3-node stencil, fx in [0.5, 1.5)
+    (transfer2d.py:132-140)."""
+    return ((1.0 - fx).clamp(min=0.0), 1.0 - (fx - 1.0).abs(), (fx - 1.0).clamp(min=0.0))
+
+
+def _taps(fx, tent: bool):
+    return _axis_weights_tent(fx) if tent else _axis_weights(fx)
+
+
+def _col_weights(d, tent: bool = False):
     """Column weight as a function of the signed distance d = col - gx1:
-    0.5 (1.5-|d|)+^2 - 1.5 (0.5-|d|)+^2, the same piecewise values as
-    `_axis_weights` (the formula the TPU kernels use)."""
+    the B-spline's 0.5 (1.5-|d|)+^2 - 1.5 (0.5-|d|)+^2 (the same piecewise
+    values as `_axis_weights`) or the tent's (1-|d|)+, the formulas the
+    TPU kernels use (transfer2d.py:147-159)."""
     a = d.abs()
+    if tent:
+        return (1.0 - a).clamp(min=0.0)
     t1 = (1.5 - a).clamp(min=0.0)
     t2 = (0.5 - a).clamp(min=0.0)
     return 0.5 * t1 * t1 - 1.5 * t2 * t2
@@ -122,10 +148,61 @@ def _raise_on(rc: int, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _scatter_plain(gx0, gx1, counts, mv, p_aff, q_aff, plain, g, dx, tent, apic):
+    """Shared plain P2G body (the counterpart of `_p2g_core`,
+    transfer2d.py:210-277): channels [m v (2), m v + f (2), *plain] of the
+    (R, K) slot planes, one `index_add_` per stencil tap into a flat
+    (R * 5 * nch * G) view.  Sequential and deterministic on the CPU; on a
+    card `index_add_` sums with atomics in no fixed order."""
+    r, k = gx0.shape
+    dev = gx0.device
+    nch = 4 + len(plain)
+    base0 = torch.floor(gx0 - 0.5)
+    rel = base0 - _row_ids(r, dev)
+    live = _live(counts, k) & (rel >= -1.0) & (rel <= 1.0)
+    w0 = _taps(gx0 - base0, tent)
+    base1 = torch.floor(gx1 - 0.5)
+    rows = torch.arange(r, device=dev)[:, None]
+    chan = torch.arange(nch, device=dev)[:, None]
+
+    out = torch.zeros(r * NT * nch * g, dtype=gx0.dtype, device=dev)
+    for j in range(3):
+        t = torch.where(live, rel, 0.0).long() + (j + 1)   # target row 0..4
+        rdp = (base0 + float(j) - gx0) * dx
+        if apic:
+            row0 = mv[0] + p_aff[0] * rdp
+            row1 = mv[1] + p_aff[2] * rdp
+        row2 = mv[0] + q_aff[0] * rdp
+        row3 = mv[1] + q_aff[2] * rdp
+        for jc in range(3):
+            c = base1 + float(jc)
+            ok = live & (c >= 0.0) & (c < g)
+            d = c - gx1
+            cd = d * dx
+            w = w0[j] * _col_weights(d, tent)
+            if apic:
+                ch0 = w * (row0 + p_aff[1] * cd)
+                ch1 = w * (row1 + p_aff[3] * cd)
+            else:
+                ch0 = w * mv[0]
+                ch1 = w * mv[1]
+            vals = torch.stack([
+                ch0, ch1,
+                w * (row2 + q_aff[1] * cd),
+                w * (row3 + q_aff[3] * cd),
+                *(w * e for e in plain),
+            ])  # (nch, R, K)
+            col = torch.where(ok, c, 0.0).long()
+            base = ((rows * NT + t) * nch) * g + col               # (R, K)
+            idx = base[None] + chan[:, :, None] * g                # (nch, R, K)
+            out.index_add_(0, idx[:, ok].reshape(-1), vals[:, ok].reshape(-1))
+    return out.view(r, NT, nch, g)
+
+
 def _fluid_affine(sdata, apic, eos, kb, mu, gamma, fa):
     """Per-slot fluid stress and affine matrices, as transfer2d.py:376-401.
 
-    Returns (mv0, mv1, mass, P or None, Q) on (R, K) planes."""
+    Returns (mv, mass, P or None, Q) on (R, K) planes."""
     gx0, gx1, v0, v1, c00, c01, c10, c11, jj, mass, vol0 = sdata.unbind(1)
     if eos == "linear":
         pressure = -kb * (jj - 1.0)
@@ -146,7 +223,7 @@ def _fluid_affine(sdata, apic, eos, kb, mu, gamma, fa):
     else:
         p_aff = None
         q_aff = (fa * t00, fa * t01, fa * t01, fa * t11)
-    return mass * v0, mass * v1, mass, p_aff, q_aff
+    return (mass * v0, mass * v1), mass, p_aff, q_aff
 
 
 def p2g_fused_plain(
@@ -161,54 +238,12 @@ def p2g_fused_plain(
     gamma: float,
     fa: float,
 ) -> torch.Tensor:
-    """Plain PyTorch version of `p2g_fused`: one `index_add_` per stencil
-    tap into a flat (R * 5 * 5 * G) view.  Sequential and deterministic on
-    the CPU; on a card `index_add_` sums with atomics in no fixed order."""
-    r, _, k = sdata.shape
-    dev = sdata.device
-    gx0, gx1 = sdata[:, 0], sdata[:, 1]
-    mv0, mv1, mass, p_aff, q_aff = _fluid_affine(sdata, apic, eos, kb, mu, gamma, fa)
-
-    base0 = torch.floor(gx0 - 0.5)
-    rel = base0 - _row_ids(r, dev)
-    live = _live(counts, k) & (rel >= -1.0) & (rel <= 1.0)
-    w0 = _axis_weights(gx0 - base0)
-    base1 = torch.floor(gx1 - 0.5)
-    rows = torch.arange(r, device=dev)[:, None]
-    chan = torch.arange(P2G_CH_FUSED, device=dev)[:, None]
-
-    out = torch.zeros(r * NT * P2G_CH_FUSED * g, dtype=sdata.dtype, device=dev)
-    for j in range(3):
-        t = torch.where(live, rel, 0.0).long() + (j + 1)   # target row 0..4
-        rdp = (base0 + float(j) - gx0) * dx
-        if apic:
-            row0 = mv0 + p_aff[0] * rdp
-            row1 = mv1 + p_aff[2] * rdp
-        row2 = mv0 + q_aff[0] * rdp
-        row3 = mv1 + q_aff[2] * rdp
-        for jc in range(3):
-            c = base1 + float(jc)
-            ok = live & (c >= 0.0) & (c < g)
-            d = c - gx1
-            cd = d * dx
-            w = w0[j] * _col_weights(d)
-            if apic:
-                ch0 = w * (row0 + p_aff[1] * cd)
-                ch1 = w * (row1 + p_aff[3] * cd)
-            else:
-                ch0 = w * mv0
-                ch1 = w * mv1
-            vals = torch.stack([
-                ch0, ch1,
-                w * (row2 + q_aff[1] * cd),
-                w * (row3 + q_aff[3] * cd),
-                w * mass,
-            ])  # (5, R, K)
-            col = torch.where(ok, c, 0.0).long()
-            base = ((rows * NT + t) * P2G_CH_FUSED) * g + col     # (R, K)
-            idx = base[None] + chan[:, :, None] * g                # (5, R, K)
-            out.index_add_(0, idx[:, ok].reshape(-1), vals[:, ok].reshape(-1))
-    return out.view(r, NT, P2G_CH_FUSED, g)
+    """Plain PyTorch version of `p2g_fused`: the fluid stress, then the
+    shared plain scatter."""
+    mv, mass, p_aff, q_aff = _fluid_affine(sdata, apic, eos, kb, mu, gamma, fa)
+    return _scatter_plain(
+        sdata[:, 0], sdata[:, 1], counts, mv, p_aff, q_aff, [mass], g, dx, False, apic
+    )
 
 
 def p2g_fused(
@@ -245,6 +280,60 @@ def p2g_fused(
     return out
 
 
+def _nch(pdata: torch.Tensor) -> int:
+    nch = pdata.shape[1] - 8
+    if nch not in (P2G_CH, P2G_CH_EXT):
+        raise ValueError(f"pdata: expected 14 or 17 rows, got {pdata.shape[1]}")
+    return nch
+
+
+def p2g_plain(
+    pdata: torch.Tensor,
+    counts: torch.Tensor,
+    g: int,
+    dx: float,
+    tent: bool = False,
+    apic: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of `p2g`: the shared plain scatter of the
+    prepped rows (PIC ignores the P rows, as transfer2d.py:244-249 does)."""
+    nch = _nch(pdata)
+    rows = pdata.unbind(1)
+    return _scatter_plain(
+        rows[0], rows[1], counts, rows[2:4], rows[4:8], rows[8:12],
+        list(rows[12 : 8 + nch]), g, dx, tent, apic,
+    )
+
+
+def p2g(
+    pdata: torch.Tensor,
+    counts: torch.Tensor,
+    g: int,
+    dx: float,
+    tent: bool = False,
+    apic: bool = True,
+) -> torch.Tensor:
+    """P2G of prepped slot data.
+
+    pdata (R, 8 + nch, K) f32 with nch = 6 or 9, counts (R,) int32 ->
+    (R, 5, nch, G) f32.  Slots at or past counts[i] are skipped."""
+    r, f, k = pdata.shape
+    nch = _nch(pdata)
+    _check("pdata", pdata, (r, f, k), torch.float32)
+    _check("counts", counts, (r,), torch.int32)
+    if _route(pdata, counts) == "cpu":
+        return p2g_plain(pdata, counts, g, dx, tent, apic)
+    lib = _build.load().lib
+    out = torch.empty((r, NT, nch, g), dtype=torch.float32, device=pdata.device)
+    rc = lib.mpm_p2g(
+        _ptr(pdata), _ptr(counts), _ptr(out), r, k, g, nch, dx, int(apic), int(tent),
+        _stream(pdata),
+    )
+    LAUNCHES["p2g"] += 1
+    _raise_on(rc, "p2g")
+    return out
+
+
 def fold_rows(expanded: torch.Tensor) -> torch.Tensor:
     """(R, 5, ch, G) -> (R, ch, G): grid[row, ch] = sum_t expanded[row+1-t, t].
 
@@ -265,25 +354,27 @@ def fold_rows(expanded: torch.Tensor) -> torch.Tensor:
 def g2p_plain(
     pdata2: torch.Tensor,
     counts: torch.Tensor,
-    grid4: torch.Tensor,
+    grid: torch.Tensor,
     dx: float,
     dinv: float,
+    tent: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of `g2p`: per stencil tap, one clamped gather
-    of the 4 grid channels, summed in the kernel's order (rows, then
+    of the grid channels, summed in the kernel's order (rows, then
     columns)."""
     r, _, k = pdata2.shape
-    g = grid4.shape[2]
+    gch, g = grid.shape[1], grid.shape[2]
     dev = pdata2.device
     gx0, gx1, mask = pdata2.unbind(1)
     base0 = torch.floor(gx0 - 0.5)
     rel = base0 - _row_ids(r, dev)
     valid = _live(counts, k) & (mask > 0) & (rel >= -1.0) & (rel <= 1.0)
-    w0 = _axis_weights(gx0 - base0)
+    w0 = _taps(gx0 - base0, tent)
     base1 = torch.floor(gx1 - 0.5)
-    flat = grid4.reshape(-1)
+    flat = grid.reshape(-1)
     zero = torch.zeros_like(gx0)
     vp0, vp1, vo0, vo1, b00, b01, b10, b11 = (zero,) * 8
+    extra = [zero] * (gch - G2P_CH)
     for j in range(3):
         row = base0 + float(j)
         rdp = (row - gx0) * dx
@@ -292,9 +383,9 @@ def g2p_plain(
             c = base1 + float(jc)
             ok = rin & (c >= 0.0) & (c < g)
             d = c - gx1
-            w = torch.where(ok, w0[j] * _col_weights(d), 0.0)
-            at = (torch.where(ok, row, 0.0).long() * G2P_CH) * g + torch.where(ok, c, 0.0).long()
-            vn0, vn1, vo0_, vo1_ = (flat[at + e * g] for e in range(G2P_CH))
+            w = torch.where(ok, w0[j] * _col_weights(d, tent), 0.0)
+            at = (torch.where(ok, row, 0.0).long() * gch) * g + torch.where(ok, c, 0.0).long()
+            vn0, vn1, vo0_, vo1_, *ext = (flat[at + e * g] for e in range(gch))
             vp0 = vp0 + w * vn0
             vp1 = vp1 + w * vn1
             vo0 = vo0 + w * vo0_
@@ -304,9 +395,10 @@ def g2p_plain(
             b01 = b01 + wd * vn0
             b10 = b10 + wr * vn1
             b11 = b11 + wd * vn1
+            extra = [a + w * e for a, e in zip(extra, ext)]
     dinv_dx = dinv * dx
     return torch.stack(
-        [vp0, vp1, vo0, vo1, dinv * b00, dinv_dx * b01, dinv * b10, dinv_dx * b11],
+        [vp0, vp1, vo0, vo1, dinv * b00, dinv_dx * b01, dinv * b10, dinv_dx * b11, *extra],
         dim=1,
     )
 
@@ -314,26 +406,31 @@ def g2p_plain(
 def g2p(
     pdata2: torch.Tensor,
     counts: torch.Tensor,
-    grid4: torch.Tensor,
+    grid: torch.Tensor,
     dx: float,
     dinv: float,
+    tent: bool = False,
 ) -> torch.Tensor:
-    """pdata2 (R, 3, K), counts (R,) int32, grid4 (R, 4, G) -> (R, 8, K).
+    """pdata2 (R, 3, K), counts (R,) int32, grid (R, 4 or 7, G) ->
+    (R, 8 or 11, K).
 
     Dead slots (past the count, mask 0, or outside the +-1-row margin)
     get zeros.  Grid rows outside [0, R) read as zero, like the TPU
-    kernel's zero-padded grid."""
+    kernel's zero-padded grid.  The tent kernel takes dinv as given (the
+    caller passes 1 and inverts the per-particle D itself)."""
     r, _, k = pdata2.shape
-    g = grid4.shape[2]
+    gch, g = grid.shape[1], grid.shape[2]
+    if gch not in (G2P_CH, G2P_CH_EXT):
+        raise ValueError(f"grid: expected 4 or 7 channels, got {gch}")
     _check("pdata2", pdata2, (r, 3, k), torch.float32)
     _check("counts", counts, (r,), torch.int32)
-    _check("grid4", grid4, (r, G2P_CH, g), torch.float32)
-    if _route(pdata2, counts, grid4) == "cpu":
-        return g2p_plain(pdata2, counts, grid4, dx, dinv)
+    _check("grid", grid, (r, gch, g), torch.float32)
+    if _route(pdata2, counts, grid) == "cpu":
+        return g2p_plain(pdata2, counts, grid, dx, dinv, tent)
     lib = _build.load().lib
-    out = torch.empty((r, G2P_OUT, k), dtype=torch.float32, device=pdata2.device)
+    out = torch.empty((r, G2P_OUT + gch - G2P_CH, k), dtype=torch.float32, device=pdata2.device)
     rc = lib.mpm_g2p(
-        _ptr(pdata2), _ptr(counts), _ptr(grid4), _ptr(out), r, k, g,
+        _ptr(pdata2), _ptr(counts), _ptr(grid), _ptr(out), r, k, g, gch, int(tent),
         dx, dinv, dinv * dx, _stream(pdata2),
     )
     LAUNCHES["g2p"] += 1

@@ -12,6 +12,8 @@ queue 1, item 7).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import torch
 
 
@@ -57,21 +59,34 @@ class Particles:
         return self.x.shape[1]
 
     @staticmethod
-    def init(x: torch.Tensor, *, volume0, density) -> "Particles":
-        """Particles at rest with F = I, J = 1, material 0 (fluid)."""
+    def init(
+        x: torch.Tensor,
+        *,
+        volume0,
+        density,
+        material: Optional[torch.Tensor] = None,
+        v: Optional[torch.Tensor] = None,
+    ) -> "Particles":
+        """Particles with F = I, J = 1 (reference state.py:120).
+
+        `volume0` and `density` are scalars or per-particle arrays, cast to
+        x's dtype; `material` defaults to 0 (fluid), `v` to rest."""
         n, d = x.shape
         dt, dev = x.dtype, x.device
-        full = lambda val: torch.full((n,), float(val), dtype=dt, device=dev)
+        per_particle = lambda val: torch.as_tensor(val, dtype=dt, device=dev).expand(n).clone()
         zeros = lambda *s: torch.zeros((n,) + s, dtype=dt, device=dev)
-        volume0, density = full(volume0), full(density)
+        volume0, density = per_particle(volume0), per_particle(density)
         return Particles(
             x=x,
-            v=zeros(d),
+            v=zeros(d) if v is None else v.to(dtype=dt, device=dev),
             C=zeros(d, d),
             F=torch.eye(d, dtype=dt, device=dev).expand(n, d, d).clone(),
             J=torch.ones((n,), dtype=dt, device=dev),
             stress=zeros(d, d),
-            material=torch.zeros((n,), dtype=torch.int32, device=dev),
+            material=(
+                torch.zeros((n,), dtype=torch.int32, device=dev) if material is None
+                else torch.as_tensor(material, device=dev).to(torch.int32)
+            ),
             volume0=volume0,
             mass=volume0 * density,
             density=density,

@@ -99,6 +99,55 @@ def test_g2p_kernel_matches_plain(dev, shape):
     _close(got, tk.g2p_plain(pdata2, counts, grid4, dx, 4.0 / dx**2), axis=1)
 
 
+def _pdata(r, k, g, nch, seed, device):
+    """Prepped P2G rows [gx0, gx1, m v (2), P (4), Q (4), *plain], masked,
+    on the ragged slots of `_inputs`."""
+    sdata, _, counts, _ = _inputs(r, k, g, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    live = (torch.arange(k, device=device)[None, :] < counts[:, None]).float()
+    extra = torch.as_tensor(rng.normal(0.0, 5.0, (r, 4 + nch - 6, k)), dtype=torch.float32,
+                            device=device)
+    mass, vol0 = sdata[:, 9:10], sdata[:, 10:11]
+    rows = [sdata[:, :2], mass * sdata[:, 2:4], mass * sdata[:, 4:8], extra[:, :4] * live[:, None],
+            mass, vol0, extra[:, 4:] * vol0]
+    return torch.cat(rows, dim=1).contiguous(), counts
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 37), (40, 1024, 513), (24, 512, 2049)],
+                         ids=["small", "g513", "g2049_bands"])
+@pytest.mark.parametrize("nch", [6, 9])
+@pytest.mark.parametrize("apic,tent", [(False, False), (True, False), (False, True)],
+                         ids=["pic", "apic", "tent"])
+def test_p2g_kernel_matches_plain(dev, shape, nch, apic, tent):
+    """At G = 2049 the 9-channel slab (369 KB) exceeds the opt-in shared
+    memory, so the kernel runs in column bands."""
+    r, k, g = shape
+    pdata, counts = _pdata(r, k, g, nch, seed=r + nch, device=dev)
+    dx = 0.4375 / (g - 5)
+    n0 = tk.LAUNCHES["p2g"]
+    got = tk.p2g(pdata, counts, g, dx, tent, apic)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["p2g"] == n0 + 1
+    _close(got, tk.p2g_plain(pdata, counts, g, dx, tent, apic), axis=2)
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 37), (40, 1024, 513)], ids=["small", "g513"])
+@pytest.mark.parametrize("gch,tent", [(7, False), (4, True), (7, True)],
+                         ids=["ext", "tent", "ext_tent"])
+def test_g2p_extended_and_tent_kernel_match_plain(dev, shape, gch, tent):
+    r, k, g = shape
+    _, pdata2, counts, _ = _inputs(r, k, g, seed=9, device=dev)
+    grid = torch.randn((r, gch, g), generator=torch.Generator().manual_seed(3)).to(dev)
+    dx = 0.4375 / (g - 5)
+    dinv = 1.0 if tent else 4.0 / dx**2
+    n0 = tk.LAUNCHES["g2p"]
+    got = tk.g2p(pdata2, counts, grid, dx, dinv, tent)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["g2p"] == n0 + 1
+    assert got.shape == (r, 8 + gch - 4, k)
+    _close(got, tk.g2p_plain(pdata2, counts, grid, dx, dinv, tent), axis=1)
+
+
 def test_kernel_wrappers_reject_bad_inputs(dev):
     sdata, pdata2, counts, grid4 = _inputs(8, 128, 37, seed=1, device=dev)
     args = dict(g=37, dx=0.01, apic=False, eos="linear", kb=KB, mu=MU, gamma=GAMMA, fa=-1.0)
@@ -122,13 +171,40 @@ def test_substeps_on_the_card_track_the_cpu(dev):
     tk.reset_launches()
     stats = fast2d.RunStats()
     out = fast2d.run(b_gpu, scene, spec, 100, stats)
-    assert tk.LAUNCHES == {"p2g_fused": 100, "g2p": 100} and stats.substeps == 100
+    assert tk.LAUNCHES == {"p2g_fused": 100, "p2g": 0, "g2p": 100} and stats.substeps == 100
     ref = fast2d.run(b_cpu, scene, spec, 100)
     for f in dataclasses.fields(out):
         if f.name in ("x0", "x1"):
             np.testing.assert_allclose(
                 getattr(out, f.name).cpu().numpy(), getattr(ref, f.name).numpy(), atol=1e-5
             )
+    assert int(out.overflow) == 0
+
+
+def test_stabilized_substeps_on_the_card_track_the_cpu(dev):
+    """The full stabilized switch set (F-bar, penalty, mixing 1.0, PIC +
+    FLIP 0.98) through p2g and the extended g2p, 20 substeps."""
+    cfg = MPMConfig(
+        dtype="float32", num_grids=37, dt=2e-5, num_particles_x=16,
+        num_particles_y=32, flip_blend=0.98, transfer=TransferKind.PIC,
+        use_fbar=True, use_penalty_ebc=True, pressure_mixing_ratio=1.0,
+    )
+    p, scene = scenes.dam_break_2d(cfg, dtype=np.float32)
+    spec = fast2d.FastSpec.for_particles(cfg, p, headroom=2.0)
+    tk.reset_launches()
+    out = fast2d.run(fast2d.from_particles(p, cfg, spec, dev), scene, spec, 20)
+    assert tk.LAUNCHES == {"p2g_fused": 0, "p2g": 20, "g2p": 20}
+    ref = fast2d.run(fast2d.from_particles(p, cfg, spec), scene, spec, 20)
+    for name in ("x0", "x1"):
+        np.testing.assert_allclose(
+            getattr(out, name).cpu().numpy(), getattr(ref, name).numpy(), atol=1e-6
+        )
+    # The gathered Jbar to 1e-5 (80 float32 ulps near 1, 20 substeps of
+    # reordered sums); the gathered pressure is K (1 - J), so one ulp of J
+    # is K 2^-23 = 0.24 Pa: it gets the same bound in J, 1e-5 K.
+    np.testing.assert_allclose(out.jbar_s.cpu().numpy(), ref.jbar_s.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(out.p_s.cpu().numpy(), ref.p_s.numpy(), rtol=0,
+                               atol=1e-5 * scene.params.bulk_modulus)
     assert int(out.overflow) == 0
 
 

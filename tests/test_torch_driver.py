@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from mpm_flip98a_tpu_torch import driver
+from mpm_flip98a_tpu_torch.models import fast2d
 from mpm_flip98a_tpu_torch.utils import io_vtk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,6 +63,25 @@ def test_cli_runs_dam3d_on_cpu(tmp_path):
     assert os.path.exists(os.path.join(sim.frame_dir, "00001.png"))
     pts = io_vtk.read_vtk_points(os.path.join(sim.vtk_dir, "00001.vtk"))
     np.testing.assert_allclose(pts, x, rtol=1e-6)
+
+
+def test_cli_runs_elastic_drop_on_cpu(tmp_path):
+    """The JAX driver's elastic_drop scenario (fluid + neo-Hookean block,
+    APIC, 105^2): the prepped-P2G branch through the CLI."""
+    assert "elastic_drop" in driver.SCENARIOS
+    assert "elastic_drop" not in driver.UNPORTED_SCENARIOS
+    sim = driver.main([
+        "--scenario", "elastic_drop", "--path", "fast", "--frames", "1",
+        "--substeps", "5", "--no-gif", "--sync-io", "--out", str(tmp_path),
+        "--device", "cpu",
+    ])
+    assert not fast2d.uses_fused(sim.scene)
+    assert sim.stats.substeps == sim.stats.host_reads == 5
+    assert sim.frame_count == 1 and int(sim.state.overflow) == 0
+    x = sim.positions()
+    assert x.shape == (11931, 2) and np.isfinite(x).all()
+    assert len(np.unique(sim.material_colors(), axis=0)) == 2   # fluid and block
+    assert os.path.exists(os.path.join(sim.frame_dir, "00001.png"))
 
 
 def test_unported_entry_points_raise(tmp_path):

@@ -22,6 +22,7 @@ from mpm_flip98a_tpu_torch import convert
 from mpm_flip98a_tpu_torch.config import MPMConfig as MPMConfig_t
 from mpm_flip98a_tpu_torch.config import TransferKind as TransferKind_t
 from mpm_flip98a_tpu_torch.models import fast2d
+from mpm_flip98a_tpu_torch.models import materials as mat
 from mpm_flip98a_tpu_torch.models import scenes
 
 _FAST_KW = dict(  # tests/test_fast2d.py:17-25
@@ -123,14 +124,23 @@ def test_run_across_rebuckets_matches_jax_statistically():
 
 
 def test_unported_configs_raise():
+    """What the port still lacks raises, naming its ROADMAP item: the
+    incompressible projection, CSF surface tension, snow, sand, corotated
+    plasticity and colliders (queue 1, item 8)."""
     (scene, spec, b), (scene_t, spec_t, b_t) = _setup()
-    for change in (
-        dict(use_penalty_ebc=True), dict(use_fbar=True),
-        dict(pressure_mixing_ratio=0.5), dict(incompressible=True),
-        dict(surface_tension=0.07),
-    ):
-        bad = dataclasses.replace(scene_t, cfg=dataclasses.replace(scene_t.cfg, **change))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fast2d.substep(b_t, bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fast2d.substep(b_t, dataclasses.replace(scene_t, materials_present=(0, 1)))
+    bad = [
+        dataclasses.replace(scene_t, cfg=dataclasses.replace(scene_t.cfg, **change))
+        for change in (dict(incompressible=True), dict(surface_tension=0.07))
+    ]
+    bad += [
+        dataclasses.replace(scene_t, materials_present=(mat.WEAKLY_COMPRESSIBLE_FLUID, m))
+        for m in (mat.SNOW, mat.SAND)
+    ]
+    bad.append(dataclasses.replace(
+        scene_t, materials_present=(mat.FIXED_COROTATED,),
+        params=dataclasses.replace(scene_t.params, plastic=True),
+    ))
+    bad.append(dataclasses.replace(scene_t, colliders=("a collider",)))
+    for scene_bad in bad:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+            fast2d.substep(b_t, scene_bad)
