@@ -54,13 +54,43 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                / seconds), median of 3 x 20 substeps, for the kernel path
                at 8M / 256^3 and at 1M / 128^3 and the plain path at
                1M / 128^3; each 3D kernel and its plain version by CUDA
-               events at the 8M shapes; the per-substep margin read.
+               events at the 8M shapes; the per-substep margin read;
+14. main:stab3d-8M  the stabilized switch set (F-bar, penalty EBC, mixing
+               1.0; PIC + FLIP 0.98) on the 8M slab through Simulation,
+               2 frames x 10 substeps: p2g3d_grid (prepped mode, 11
+               channels) and g2p3d (gather mode, 9-channel grid) launched
+               once per substep, p2g3d never; the host checks, J within
+               0.1 of 1, the peak device memory;
+15. main:relfloor3d the same scene with mass_floor = 0 (the relative
+               floor): p2g3d and g2p3d once per substep, p2g3d_grid never;
+               x, v and J against phase 14's after the same substeps;
+16. kernels:3dp  on the stab3d-8M state and on a ragged case (uneven
+               counts, out-of-margin slots, slots on the axis-1 and z
+               edges): p2g3d (11 channels PIC, 7 channels APIC, tent)
+               against p2g3d_plain with its mass sum; p2g3d_grid's prepped
+               modes against plain (raw sums and finished grid); g2p3d's
+               gather modes against plain; fold_rows0(p2g3d) against the
+               interior of p2g3d_grid's raw sums; CUDA-event times and
+               bounds at the 8M shapes;
+17. main:drop3d  elastic_drop_3d at 128^3 (3.5M particles, a 51^3
+               neo-Hookean block, APIC) through Simulation, 2 frames x 10
+               substeps: launches and the host checks; then on that state
+               the modes it launched against their plain versions, as in
+               phase 16, with times and bounds: p2g3d_grid's prepped mode
+               on 25 APIC planes (7 raw channels), g2p3d's gather mode on
+               the 6-channel grid, and p2g3d with 7 APIC channels;
+18. timing:3dp   phase 13's timings for stab3d-8M, relfloor3d, drop3d
+               (kernel and plain paths) and the stabilized set at
+               1M / 128^3 (kernel and plain paths).
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
 last lists every kernel with its launches, error, times and bound (g2p
 also with its 7-channel mode's under "ext_*", g2p and p2g with their tent
-modes' under "tent_*"); the last line is
+modes' under "tent_*", p2g3d_grid with its prepped 11-channel mode's under
+"prepped_*", g2p3d with its 9-channel gather mode's under "gather_*", both
+with the modes main:drop3d launched under "drop3d_*", the 3D kernels with
+their tent modes' under "tent_*"); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -95,6 +125,15 @@ BENCH = dict(                # bench.py:179-189, the 1M / 513^2 dam break
 STAB = dict(use_fbar=True, use_penalty_ebc=True, pressure_mixing_ratio=1.0)
 SLAB_8M = dict(num_grids=256, particles_per_axis=(512, 512, 32))   # bench.py:198-205
 SLAB_1M = dict(num_grids=128, particles_per_axis=(256, 256, 16))   # slab_3d()'s defaults
+# elastic_drop_3d at two particles per cell per axis on 128^3: 3,518,251
+# particles; dt by the fluid's sound speed (44.8 m/s: dx / c = 7.9e-5 s).
+DROP_3D = dict(num_grids=128, fluid_particles=(230, 230, 64), block_particles=(51, 51, 51),
+               dt=1e-5)
+# main:relfloor3d against main:stab3d-8M after the same 20 substeps: the
+# two routes differ in the floor's value and in the order of their sums.
+# Read on an NVIDIA H100 80GB HBM3 at 700 W: x 1.9e-9, v 2.2e-6, J 1.2e-7;
+# the bounds are about ten times that.
+ROUTE_TOL = {"x": 2e-8, "v": 2e-5, "J": 1e-6}
 TPU_KERNELS = {
     "p2g_fused": ("mpm_flip98a_tpu_torch/csrc/p2g_fused.cu",
                   "mpm_flip98a_tpu/ops/pallas/transfer2d.py:412"),
@@ -102,6 +141,8 @@ TPU_KERNELS = {
             "mpm_flip98a_tpu/ops/pallas/transfer2d.py:843"),
     "p2g": ("mpm_flip98a_tpu_torch/csrc/p2g.cu",
             "mpm_flip98a_tpu/ops/pallas/transfer2d.py:304"),
+    "p2g3d": ("mpm_flip98a_tpu_torch/csrc/p2g3d.cu",
+              "mpm_flip98a_tpu/ops/pallas/transfer3d.py:349"),
     "p2g3d_grid": ("mpm_flip98a_tpu_torch/csrc/p2g3d_grid.cu",
                    "mpm_flip98a_tpu/ops/pallas/transfer3d.py:622"),
     "g2p3d": ("mpm_flip98a_tpu_torch/csrc/g2p3d.cu",
@@ -430,26 +471,6 @@ def ragged_inputs3d(device, seed=0):
     return planes, t(live), counts, state, g, dx
 
 
-def expected_mass3d(planes, counts, g):
-    """float64 mass the raw P2G sums must hold: the live in-margin slots'
-    mass times the share of their z taps inside [0, g)."""
-    r0, r1, k = planes[0].shape
-    dev = planes[0].device
-    gx0, gx1, gx2 = (p.double() for p in planes[:3])
-    live = torch.arange(k, device=dev) < counts.view(r0, r1, 1)
-    ok = (
-        ((torch.floor(gx0 - 0.5) - torch.arange(r0, device=dev)[:, None, None]).abs() <= 1)
-        & ((torch.floor(gx1 - 0.5) - torch.arange(r1, device=dev)[None, :, None]).abs() <= 1)
-        & live
-    )
-    base2 = torch.floor(gx2 - 0.5)
-    fx = gx2 - base2
-    share = torch.zeros_like(fx)
-    for j, w in enumerate((0.5 * (1.5 - fx) ** 2, 0.75 - (fx - 1) ** 2, 0.5 * (fx - 0.5) ** 2)):
-        share += w * ((base2 + j >= 0) & (base2 + j < g))
-    return float((planes[16].double() * share * ok).sum())
-
-
 def compare_kernels3d(tag, planes, counts, mask, state, kw, dinv, card):
     """Kernel vs plain for both 3D transfers on one set of inputs; returns
     the worst absolute errors of the two outputs (grid, G2P output)."""
@@ -460,11 +481,11 @@ def compare_kernels3d(tag, planes, counts, mask, state, kw, dinv, card):
     args = {n: v for n, v in kw.items() if n != "alpha"}
     scatter = {n: args[n] for n in ("apic", "stress", "kb", "mu", "gamma", "fa")}
     raw = torch.empty((r0 + 4, r1 + 4, tk3.P2G_CH, g2), device=counts.device)
-    got = tk3.p2g3d_grid(planes, counts, r1, raw=raw, **args)
+    got = tk3.p2g3d_grid(planes, counts, r1, raw_out=raw, **args)
     raw_plain = tk3.p2g3d_raw_plain(planes, counts, g2, dx, **scatter)
     want = tk3.p2g3d_grid_plain(planes, counts, r1, **args)
     err_r, rel_r = scaled_errors(raw, raw_plain, axis=2)
-    m_expect = expected_mass3d(planes, counts, g2)
+    m_expect = expected_sum3d(planes[:3], planes[16], counts, g2, False)
     pou = abs(float(raw[:, :, 6].double().sum()) - m_expect) / m_expect
     # The finished grid's velocities are raw sums over the nodal mass: their
     # error is weighted by that mass and scaled by the raw sum's max.
@@ -500,11 +521,394 @@ def compare_kernels3d(tag, planes, counts, mask, state, kw, dinv, card):
     return err_grid, max(err_u), got
 
 
+def ragged_prepped3d(device, apic, ext, seed=2):
+    """Prepped planes on ragged pencils: empty, full and partly filled,
+    live slots outside the +-1 margin on both axes, slots whose taps leave
+    the grid on axis 1 (dropped by p2g3d, kept in p2g3d_grid's pad rows)
+    and along z.  Returns (fields, mask, counts, g, dx)."""
+    planes, live, counts, _, g, dx = ragged_inputs3d(device, seed)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rand = lambda scale: (torch.randn(live.shape, generator=gen) * scale).to(device)
+    mass, vol0 = planes[16], planes[17]
+    fields = [*planes[:3], *(mass * v for v in planes[3:6])]
+    if apic:
+        fields += [mass * c for c in planes[6:15]]
+    fields += [rand(1e-2) * mass for _ in range(9)]
+    fields.append(mass)
+    if ext:
+        fields += [vol0 * planes[15], vol0, vol0 * rand(2e3), vol0 * rand(5.0)]
+    return tuple(f.contiguous() for f in fields), live, counts, g, dx
+
+
+def expected_sum3d(gxs, plane, counts, g2, tent, g1=None):
+    """float64 sum a P2G channel of pure weights must hold: the live
+    in-margin slots' `plane` times the share of their z taps inside
+    [0, g2) and, for p2g3d (`g1` given), of their axis-1 taps in [0, g1).
+    The tap weights are written out here, so a wrong weight in the port
+    does not cancel against itself."""
+    r0, r1, k = gxs[0].shape
+    dev = gxs[0].device
+    gx0, gx1, gx2 = (p.double() for p in gxs)
+    live = torch.arange(k, device=dev) < counts.view(r0, r1, 1)
+    ok = (
+        ((torch.floor(gx0 - 0.5) - torch.arange(r0, device=dev)[:, None, None]).abs() <= 1)
+        & ((torch.floor(gx1 - 0.5) - torch.arange(r1, device=dev)[None, :, None]).abs() <= 1)
+        & live
+    )
+
+    def share(gx, n):
+        base = torch.floor(gx - 0.5)
+        fx = gx - base                                   # in [0.5, 1.5)
+        if tent:    # the hat (1 - |d|)+ at d = fx, fx - 1, fx - 2
+            taps = ((1.0 - fx).clamp(min=0.0), 1.0 - (fx - 1.0).abs(), (fx - 1.0).clamp(min=0.0))
+        else:       # the quadratic B-spline
+            taps = (0.5 * (1.5 - fx) ** 2, 0.75 - (fx - 1.0) ** 2, 0.5 * (fx - 0.5) ** 2)
+        out = torch.zeros_like(gx)
+        for j, w in enumerate(taps):
+            out += w * ((base + j >= 0) & (base + j < n))
+        return out
+
+    total = share(gx2, g2) if g1 is None else share(gx2, g2) * share(gx1, g1)
+    return float((plane.double() * total * ok).sum())
+
+
+def compare_prepped3d(tag, fields, counts, mask, mode, node, g2, dx, card):
+    """Kernel vs plain for the prepped 3D transfers on one set of inputs:
+    p2g3d, p2g3d_grid's prepped mode (raw sums, finished grid), the fold of
+    p2g3d against the interior of those raw sums, and the gather-mode
+    g2p3d on that grid.  Returns the worst absolute errors (p2g3d,
+    p2g3d_grid's grid, g2p3d) and the finished grid."""
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    apic, ext, tent = mode
+    r0, r1, _ = fields[0].shape
+    nch = tk3.P2G_CH_EXT if ext else tk3.P2G_CH
+    label = f"kernels:3dp {tag}] {nch} channels, apic {apic}, tent {tent}"
+    m_plane = fields[tk3.n_prepped(apic, False) - 1]
+
+    got = tk3.p2g3d(fields, counts, r1, g2, dx, apic=apic, ext=ext, tent=tent)
+    want = tk3.p2g3d_plain(fields, counts, r1, g2, dx, apic, ext, tent)
+    err_e, rel_e = scaled_errors(got, want, axis=3)
+    m_expect = expected_sum3d(fields[:3], m_plane, counts, g2, tent, g1=r1)
+    pou_e = abs(float(got[:, :, :, 6].double().sum()) - m_expect) / m_expect
+    del want
+    worst = int(np.argmax(rel_e))
+    say(f"[{label}: p2g3d max_abs_err per channel {['%.3e' % e for e in err_e]}; worst channel "
+        f"{worst}: {rel_e[worst]:.2e} of its max (tol {KERNEL_REL_TOL}); mass sum rel err "
+        f"{pou_e:.3e} (tol {POU_REL_TOL})  [{card}]")
+    check(max(rel_e) <= KERNEL_REL_TOL, f"{tag}: p2g3d disagrees with its plain version")
+    check(pou_e <= POU_REL_TOL, f"{tag}: p2g3d partition of unity")
+    folded = tk3.fold_rows0(got)
+    del got
+
+    raw = torch.empty((r0 + 4, r1 + 4, nch, g2), device=counts.device)
+    grid = tk3.p2g3d_grid(fields, counts, r1, g2, dx, apic=apic, tent=tent, ext=ext,
+                          raw_out=raw, **node)
+    # The two routes' sums agree on the interior rows (the JAX package's
+    # own cross-check, tests/test_p2g_grid.py:168-212).
+    err_f, rel_f = scaled_errors(folded, raw[1 : r0 + 1, 1 : r1 + 1], axis=2)
+    del folded
+    raw_plain = tk3.p2g3d_raw_plain(fields, counts, g2, dx, apic=apic, tent=tent, ext=ext)
+    want = tk3.grid_update3d_plain(raw_plain, r0, ext=ext, **node)
+    err_r, rel_r = scaled_errors(raw, raw_plain, axis=2)
+    m_expect = expected_sum3d(fields[:3], m_plane, counts, g2, tent)
+    pou = abs(float(raw[:, :, 6].double().sum()) - m_expect) / m_expect
+    # Velocities are sums over the nodal mass and the averages sums over
+    # the nodal volume: their error is weighted by that sum and scaled by
+    # the raw channel's max.
+    diff = (grid - want).double().abs()
+    weight = [raw_plain[:, :, 6:7].double()] * 6 + [raw_plain[:, :, 8:9].double()] * (3 * ext)
+    tops = raw_plain[:, :, [3, 4, 5, 0, 1, 2] + [7, 9, 10] * ext].double().abs().amax(dim=(0, 1, 3))
+    rel_g = [
+        float((diff[:, :, ch : ch + 1] * weight[ch]).max() / tops[ch].clamp(min=1e-30))
+        for ch in range(grid.shape[2])
+    ]
+    err_grid = float(diff.max())
+    pads_zero = not bool(grid[0].any()) and not bool(grid[r0 + 1:].any())
+    say(f"[{label}: p2g3d_grid raw sums worst channel {max(rel_r):.2e} of its max, finished "
+        f"grid max_abs_err {err_grid:.3e}, weighted and scaled {['%.2e' % r for r in rel_g]} "
+        f"(tol {KERNEL_REL_TOL}); mass sum rel err {pou:.3e} (tol {POU_REL_TOL}); axis-0 pads "
+        f"zero {pads_zero}; fold_rows0(p2g3d) vs the interior raw sums worst channel "
+        f"{max(rel_f):.2e} of its max  [{card}]")
+    check(max(rel_r) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid raw sums disagree with plain")
+    check(max(rel_g) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid grid disagrees with plain")
+    check(pou <= POU_REL_TOL, f"{tag}: p2g3d_grid partition of unity")
+    check(pads_zero, f"{tag}: p2g3d_grid axis-0 pad rows not zero")
+    check(max(rel_f) <= KERNEL_REL_TOL, f"{tag}: fold_rows0(p2g3d) disagrees with p2g3d_grid")
+    del raw, raw_plain, want, diff, weight
+
+    dinv = 1.0 if tent else 4.0 / dx**2
+    g2p_args = (*fields[:3], mask, counts, grid, dx, dinv)
+    got_g = tk3.g2p3d(*g2p_args, tent=tent)
+    want_g = tk3.g2p3d_plain(*g2p_args, tent=tent)
+    scale = want_g.abs().double().amax(dim=(0, 1, 3))
+    scale[6:15] = dinv * dx * float(grid[:, :, :3].abs().max())    # C: one term's size
+    if ext:
+        scale[15] = max(float(scale[15]), 1.0)                      # Jbar near 1
+    err_u, rel_u = scaled_errors(got_g, want_g, axis=2, scale=scale)
+    worst = int(np.argmax(rel_u))
+    say(f"[{label}: g2p3d gather mode, {grid.shape[2]} grid channels: max_abs_err per channel "
+        f"{['%.2e' % e for e in err_u]}; worst channel {worst}: {rel_u[worst]:.2e} of its scale "
+        f"(tol {KERNEL_REL_TOL})  [{card}]")
+    check(max(rel_u) <= KERNEL_REL_TOL, f"{tag}: g2p3d gather mode disagrees with plain")
+    return max(err_e), err_grid, max(err_u), grid
+
+
+def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, plain_ms,
+                     bounds, launches, t_start):
+    """Phases 14-18: the 3D prepped branch (stab3d-8M, relfloor3d, drop3d)."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import fast3d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    reset_all = lambda: (tk.reset_launches(), tk3.reset_launches())
+    counts_now = lambda: {**tk.LAUNCHES, **tk3.LAUNCHES}
+    tmp = tempfile.gettempdir()
+
+    # ---- 14. main:stab3d-8M ------------------------------------------------
+    scene_stab = dataclasses.replace(
+        scene_fluid, cfg=dataclasses.replace(scene_fluid.cfg, **STAB))
+    mass8 = float(p8.mass.to(torch.float32).double().sum())
+    n_frames, n_sub = 2, 10
+    sims = {}
+    for tag, scene, ran, idle in (
+        ("stab3d-8M", scene_stab, ("p2g3d_grid", "g2p3d"), "p2g3d"),
+        ("relfloor3d", dataclasses.replace(scene_stab, mass_floor=0.0), ("p2g3d", "g2p3d"),
+         "p2g3d_grid"),
+    ):
+        check(not fast3d.uses_fused(scene), f"{tag} took the fused branch")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        sim = driver.Simulation(p8, scene, out_dir=tmp, device=dev)
+        reset_all()
+        t0 = time.perf_counter()
+        sim.run(n_frames, n_sub, gif=False, verbose=False, write_frames=False)
+        torch.cuda.synchronize()
+        got = counts_now()
+        peak = torch.cuda.max_memory_allocated()
+        say(f"[main:{tag}] {p8.n} particles, grid {scene.cfg.num_grids}^3, buckets "
+            f"{tuple(sim.state.shape)}, mass floor {scene.mass_floor!r}; Simulation {n_frames} "
+            f"frames x {n_sub} substeps in {time.perf_counter() - t0:.2f} s, launches {got}; "
+            f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
+            f"of it held by earlier phases)  [{card}]")
+        for name in ran:
+            check(got[name] == n_frames * n_sub == sim.stats.substeps,
+                  f"{tag}: {name} launched {got[name]} times for {n_frames * n_sub} substeps")
+        check(got[idle] == 0, f"{tag}: {idle} ran")
+        check(got["p2g_fused"] == got["p2g"] == got["g2p"] == 0, f"{tag}: a 2D kernel ran")
+        host_checks(tag, sim, p8.n, mass8, card)
+        jh = fast3d.to_host(sim.state)["J"]
+        say(f"[main:{tag}] J range [{float(jh.min())!r}, {float(jh.max())!r}] "
+            f"(bound |J - 1| < 0.1)")
+        check(float(np.abs(jh - 1.0).max()) < 0.1, f"{tag}: J left [0.9, 1.1]")
+        sims[tag] = sim
+        for name in ran:
+            launches[f"{name} on {tag}"] = got[name]
+    launches["p2g3d"] = launches["p2g3d on relfloor3d"]
+
+    # ---- 15. relfloor3d against stab3d-8M ------------------------------------
+    a, b_rel = sims["stab3d-8M"].state, sims["relfloor3d"].state
+    check(a.shape == b_rel.shape and bool((a.mask == b_rel.mask).all()),
+          "relfloor3d: the two routes left different slot layouts")
+    worst = {
+        key: max(float((getattr(a, n) - getattr(b_rel, n)).abs().max()) for n in names)
+        for key, names in (("x", ("x0", "x1", "x2")), ("v", ("v0", "v1", "v2")), ("J", ("J",)))
+    }
+    say(f"[main:relfloor3d] against stab3d-8M after {n_frames * n_sub} substeps from the same "
+        f"state: max abs difference {worst} (tol {ROUTE_TOL})  [{card}]")
+    for key, tol in ROUTE_TOL.items():
+        check(worst[key] <= tol, f"relfloor3d: {key} differs from stab3d-8M by {worst[key]}")
+    del a, b_rel
+
+    # ---- 16. kernels:3dp -------------------------------------------------------
+    sim = sims["stab3d-8M"]
+    cfg8, spec8 = scene_stab.cfg, sim.spec
+    args = fast3d.p2g_args(scene_stab)
+    mode = (args["apic"], args["ext"], args["tent"])
+    node = {n: args[n] for n in ("dt", "grav", "floor", "lo", "hi", "wall", "beta")}
+    g3, dx3 = args["g2"], args["dx"]
+    fields = fast3d.prepped_fields(sim.state, scene_stab, spec8)
+    counts = fast3d.pencil_counts(sim.state)
+    mask = sim.state.mask.view(spec8.rows0, spec8.rows1, spec8.capacity)
+    err["p2g3d"], err["p2g3d_grid_prepped"], err["g2p3d_gather"], grid9 = compare_prepped3d(
+        "stab3d-8M", fields, counts, mask, mode, node, g3, dx3, card)
+    for rmode, key in (((True, False, False), None), ((False, True, True), "tent")):
+        rf, rmask, rcounts, rg, rdx = ragged_prepped3d(dev, rmode[0], rmode[1])
+        rnode = {**node, "hi": rg - 3}
+        e_p, e_g, e_u, _ = compare_prepped3d("ragged", rf, rcounts, rmask, rmode, rnode, rg,
+                                             rdx, card)
+        if key:
+            err["p2g3d_tent"], err["p2g3d_grid_tent"], err["g2p3d_tent"] = e_p, e_g, e_u
+        del rf, rmask, rcounts
+    torch.cuda.empty_cache()
+
+    r0, r1, k3 = mask.shape
+    live3 = int(counts.sum())
+    n_in = len(fields)
+    nch, gch = tk3.P2G_CH_EXT, tk3.G2P_CH_EXT
+    dinv3 = float(4.0 * cfg8.inv_dx * cfg8.inv_dx)
+    p2g3d_kw = dict(apic=mode[0], ext=mode[1])
+    g2p_in = (*fields[:3], mask, counts, grid9, dx3)
+    calls = {
+        "p2g3d": lambda tent=False: tk3.p2g3d(fields, counts, r1, g3, dx3, tent=tent, **p2g3d_kw),
+        "p2g3d_grid_prepped": lambda tent=False: tk3.p2g3d_grid(
+            fields, counts, r1, g3, dx3, tent=tent, **p2g3d_kw, **node),
+        "g2p3d_gather": lambda tent=False: tk3.g2p3d(
+            *g2p_in, 1.0 if tent else dinv3, tent=tent),
+    }
+    plains = {
+        "p2g3d": lambda: tk3.p2g3d_plain(fields, counts, r1, g3, dx3, *mode),
+        "p2g3d_grid_prepped": lambda: tk3.p2g3d_grid_plain(
+            fields, counts, r1, g3, dx3, **p2g3d_kw, **node),
+        "g2p3d_gather": lambda: tk3.g2p3d_plain(*g2p_in, dinv3),
+    }
+    tent_keys = {"p2g3d": "p2g3d_tent", "p2g3d_grid_prepped": "p2g3d_grid_tent",
+                 "g2p3d_gather": "g2p3d_tent"}
+    nodes = (r0 + 4) * (r1 + 4) * g3
+    bounds.update({
+        # live slots' prepped planes + counts in; the expanded (R0, 5, G1,
+        # 11, G2) sums out; 27 taps x 11 channels of multiply-adds a live slot.
+        "p2g3d": bound(4 * (n_in * live3 + r0 * r1 + 5 * nch * r0 * r1 * g3),
+                       live3 * 27 * nch * 2),
+        # the same planes in; the finished 9-channel padded grid out.
+        "p2g3d_grid_prepped": bound(4 * (n_in * live3 + r0 * r1 + gch * nodes),
+                                    live3 * 27 * nch * 2),
+        # live slots' [gx (3), mask] + counts + the 9-channel grid in; every
+        # slot's 18 channels out; 27 taps x (9 + 9) sums per live slot.
+        "g2p3d_gather": bound(4 * (4 * live3 + r0 * r1 + gch * nodes + 18 * r0 * r1 * k3),
+                              live3 * 27 * 18 * 2),
+    })
+    for name, call in calls.items():
+        kernel_ms[name] = cuda_ms(call, reps=10, warm=2)
+        plain_ms[name] = cuda_ms(plains[name], reps=2, warm=1)
+        tent_key = tent_keys[name]
+        kernel_ms[tent_key] = cuda_ms(lambda call=call: call(tent=True), reps=10, warm=2)
+        say(f"[kernels:3dp] {name} at the stab3d-8M shapes ({n_in} planes, buckets "
+            f"{r0}x{r1}x{k3}, {live3} live): kernel {kernel_ms[name]:.4f} ms, with tent taps "
+            f"{kernel_ms[tent_key]:.4f} ms (CUDA events, 10 calls), plain {plain_ms[name]:.4f} "
+            f"ms (2 calls), bound {bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
+    expanded = calls["p2g3d"]()
+    fold_ms = cuda_ms(lambda: tk3.fold_rows0(expanded), reps=5, warm=1)
+    gs = tk3.fold_rows0(expanded)
+    del expanded
+    rel_scene = sims["relfloor3d"].scene
+    upd_ms = cuda_ms(lambda: fast3d._grid_update(gs, rel_scene), reps=5, warm=1)
+    prep_ms = cuda_ms(lambda: fast3d.prepped_fields(sim.state, scene_stab, spec8), reps=5, warm=1)
+    say(f"[kernels:3dp] plain torch beside the kernels at the stab3d-8M shapes: fold_rows0 "
+        f"{fold_ms:.4f} ms, _grid_update {upd_ms:.4f} ms, prepped_fields (the stress prep) "
+        f"{prep_ms:.4f} ms (CUDA events, 5 calls)  [{card}]")
+    del fields, counts, mask, grid9, g2p_in, calls, plains, gs
+    torch.cuda.empty_cache()
+
+    # ---- 18a. timing:3dp at 8M -------------------------------------------------
+    for tag in ("stab3d-8M", "relfloor3d"):
+        sim = sims[tag]
+        step = lambda s, sim=sim: fast3d.substep(s, sim.scene, sim.spec)
+        wall = time_paths(f"3dp {tag}", fast3d, sim.state, sim.scene, sim.spec, step, p8.n, 27,
+                          10, 3, card, plain=False)
+        if profile_dir and tag == "stab3d-8M":
+            profile_window(os.path.join(profile_dir, "profile_stab3d-8M_3_substeps.txt"),
+                           fast3d, sim.state, sim.scene, sim.spec, 3, 1e3 * wall, f"3dp {tag}",
+                           card)
+    del sims, sim
+    torch.cuda.empty_cache()
+
+    # ---- 17. main:drop3d ---------------------------------------------------------
+    t0 = time.perf_counter()
+    p_d, scene_d = scenes.elastic_drop_3d(**DROP_3D)
+    mass_d = float(p_d.mass.to(torch.float32).double().sum())
+    sim_d = driver.Simulation(p_d, scene_d, out_dir=tmp, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    reset_all()
+    t0 = time.perf_counter()
+    sim_d.run(n_frames, n_sub, gif=False, verbose=False, write_frames=False)
+    torch.cuda.synchronize()
+    got = counts_now()
+    say(f"[main:drop3d] elastic_drop_3d {DROP_3D}: {p_d.n} particles, materials "
+        f"{scene_d.materials_present}, transfer {scene_d.cfg.transfer}, buckets "
+        f"{tuple(sim_d.state.shape)}; built in {t_build:.2f} s; Simulation {n_frames} frames x "
+        f"{n_sub} substeps in {time.perf_counter() - t0:.2f} s, launches {got}  [{card}]")
+    for name in ("p2g3d_grid", "g2p3d"):
+        check(got[name] == n_frames * n_sub, f"drop3d: {name} launched {got[name]} times")
+    check(got["p2g3d"] == 0, "drop3d: p2g3d ran with an absolute mass floor")
+    check(len(scene_d.materials_present) == 2, "drop3d: expected two materials")
+    host_checks("drop3d", sim_d, p_d.n, mass_d, card)
+    moved = bool((sim_d.state.F22 != 1.0).any())
+    check(moved, "drop3d: the block's F was never updated")
+    for name in ("p2g3d_grid", "g2p3d"):
+        launches[f"{name} on drop3d"] = got[name]
+
+    # ---- 17b. kernels:3dp at drop3d's shapes ---------------------------------------
+    # The modes main:drop3d launched: p2g3d_grid's prepped mode on 25 APIC
+    # planes (7 raw channels) and g2p3d's gather mode on the 6-channel grid;
+    # p2g3d with 7 APIC channels beside them.
+    spec_d = sim_d.spec
+    args_d = fast3d.p2g_args(scene_d)
+    mode_d = (args_d["apic"], args_d["ext"], args_d["tent"])
+    check(mode_d == (True, False, False), f"drop3d: unexpected transfer mode {mode_d}")
+    node_d = {n: args_d[n] for n in ("dt", "grav", "floor", "lo", "hi", "wall", "beta")}
+    gd, dxd = args_d["g2"], args_d["dx"]
+    fields_d = fast3d.prepped_fields(sim_d.state, scene_d, spec_d)
+    counts_d = fast3d.pencil_counts(sim_d.state)
+    mask_d = sim_d.state.mask.view(spec_d.rows0, spec_d.rows1, spec_d.capacity)
+    err["p2g3d_apic7"], err["p2g3d_grid_drop3d"], err["g2p3d_drop3d"], grid6 = (
+        compare_prepped3d("drop3d", fields_d, counts_d, mask_d, mode_d, node_d, gd, dxd, card))
+    r0, r1, k3 = mask_d.shape
+    live_d, n_in = int(counts_d.sum()), len(fields_d)
+    nodes = (r0 + 4) * (r1 + 4) * gd
+    dinv_d = float(4.0 * scene_d.cfg.inv_dx * scene_d.cfg.inv_dx)
+    g2p_d = (*fields_d[:3], mask_d, counts_d, grid6, dxd, dinv_d)
+    bounds.update({
+        # live slots' 25 planes + counts in; the finished 6-channel padded
+        # grid out; 27 taps x 7 channels of multiply-adds per live slot.
+        "p2g3d_grid_drop3d": bound(4 * (n_in * live_d + r0 * r1 + tk3.G2P_CH * nodes),
+                                   live_d * 27 * tk3.P2G_CH * 2),
+        # live slots' [gx (3), mask] + counts + the 6-channel grid in; every
+        # slot's 15 channels out; 27 taps x 15 sums per live slot.
+        "g2p3d_drop3d": bound(
+            4 * (4 * live_d + r0 * r1 + tk3.G2P_CH * nodes + 15 * r0 * r1 * k3),
+            live_d * 27 * 15 * 2),
+    })
+    pairs = {
+        "p2g3d_grid_drop3d": (
+            lambda: tk3.p2g3d_grid(fields_d, counts_d, r1, **args_d),
+            lambda: tk3.p2g3d_grid_plain(fields_d, counts_d, r1, **args_d)),
+        "g2p3d_drop3d": (lambda: tk3.g2p3d(*g2p_d), lambda: tk3.g2p3d_plain(*g2p_d)),
+    }
+    for name, (call, plain_call) in pairs.items():
+        kernel_ms[name] = cuda_ms(call, reps=10, warm=2)
+        plain_ms[name] = cuda_ms(plain_call, reps=2, warm=1)
+        say(f"[kernels:3dp] {name} ({n_in} planes, {grid6.shape[2]}-channel grid, buckets "
+            f"{r0}x{r1}x{k3}, {live_d} live): kernel {kernel_ms[name]:.4f} ms (CUDA events, 10 "
+            f"calls), plain {plain_ms[name]:.4f} ms (2 calls), bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})  [{card}]")
+    del fields_d, counts_d, mask_d, grid6, g2p_d, pairs
+    torch.cuda.empty_cache()
+
+    # ---- 18b. timing:3dp, drop3d and the stabilized set at 1M ---------------------
+    step_d = lambda s: fast3d.substep(s, scene_d, sim_d.spec)
+    time_paths("3dp drop3d", fast3d, sim_d.state, scene_d, sim_d.spec, step_d, p_d.n, 27, 5, 3,
+               card)
+    del sim_d, p_d
+    torch.cuda.empty_cache()
+    p1, scene1 = scenes.slab_3d(**SLAB_1M)
+    scene1 = dataclasses.replace(scene1, cfg=dataclasses.replace(scene1.cfg, **STAB))
+    spec1 = fast3d.FastSpec3D.for_particles(scene1.cfg, p1)
+    b1 = fast3d.from_particles(p1, scene1.cfg, spec1, dev)
+    step1 = lambda s: fast3d.substep(s, scene1, spec1)
+    say(f"[timing:3dp stab3d 1M/128^3] {p1.n} particles, buckets {tuple(b1.shape)}")
+    time_paths("3dp stab3d 1M/128^3", fast3d, b1, scene1, spec1, step1, p1.n, 27, 10, 3, card)
+    say(f"[timing] 3D prepped phases done at {time.perf_counter() - t_start:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
-                    help="write torch.profiler tables of the 2D bench, stab1M, drop1M "
-                    "and the 8M slab here")
+                    help="write torch.profiler tables of the 2D bench, stab1M, drop1M, "
+                    "the 8M slab and stab3d-8M here")
     args = ap.parse_args(argv)
 
     # ---- 1. device --------------------------------------------------------
@@ -928,7 +1332,7 @@ def main(argv=None) -> int:
     if args.profile:
         profile_window(os.path.join(args.profile, "profile_slab8M_5_substeps.txt"),
                        fast3d, b, scene8, spec8, 5, 1e3 * wall8, "3d 8M/256^3", card)
-    del sim8, b, p8
+    del sim8, b
     torch.cuda.empty_cache()
     p1, scene1 = scenes.slab_3d(**SLAB_1M)
     spec1 = fast3d.FastSpec3D.for_particles(scene1.cfg, p1)
@@ -936,6 +1340,14 @@ def main(argv=None) -> int:
     step1 = lambda s: fast3d.substep(s, scene1, spec1)
     say(f"[timing:3d 1M/128^3] slab_3d(): {p1.n} particles, buckets {tuple(b1.shape)}")
     time_paths("3d 1M/128^3", fast3d, b1, scene1, spec1, step1, p1.n, 27, 20, 3, card)
+    del b1, p1
+    torch.cuda.empty_cache()
+    say(f"[timing] 3D fused phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 14-18. the 3D prepped branch --------------------------------------------
+    prepped3d_phases(dev, card, args.profile, p8, scene8, err, kernel_ms, plain_ms, bounds,
+                     launches, t_start)
+    del p8
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -956,6 +1368,30 @@ def main(argv=None) -> int:
         "tent_ms": kernel_ms["g2p_tent"],
     })
     next(k for k in kernels if k["name"] == "p2g")["tent_ms"] = kernel_ms["p2g_tent"]
+    # The 3D kernels' prepped modes at the stab3d-8M shapes beside their
+    # fused-branch numbers, and the tent modes' errors on the ragged case.
+    by_name = {k["name"]: k for k in kernels}
+    by_name["p2g3d"].update({
+        "tent_max_abs_err": err["p2g3d_tent"], "tent_ms": kernel_ms["p2g3d_tent"],
+        "apic7_max_abs_err": err["p2g3d_apic7"]})
+    for name, mode, key in (("p2g3d_grid", "p2g3d_grid_prepped", "prepped"),
+                            ("g2p3d", "g2p3d_gather", "gather")):
+        by_name[name].update({
+            f"{key}_launches": launches[f"{name} on stab3d-8M"],
+            f"{key}_max_abs_err": err[mode], f"{key}_ms": kernel_ms[mode],
+            f"{key}_plain_ms": plain_ms[mode], f"{key}_bound_ms": bounds[mode][0],
+            f"{key}_bound_by": bounds[mode][1], "tent_max_abs_err": err[f"{name}_tent"],
+            "tent_ms": kernel_ms[f"{name}_tent"],
+        })
+        # The modes main:drop3d launched (25 APIC planes -> 7 raw channels;
+        # gather on the 6-channel grid), at drop3d's shapes.
+        at_drop = f"{name}_drop3d"
+        by_name[name].update({
+            "drop3d_launches": launches[f"{name} on drop3d"],
+            "drop3d_max_abs_err": err[at_drop], "drop3d_ms": kernel_ms[at_drop],
+            "drop3d_plain_ms": plain_ms[at_drop], "drop3d_bound_ms": bounds[at_drop][0],
+            "drop3d_bound_by": bounds[at_drop][1],
+        })
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

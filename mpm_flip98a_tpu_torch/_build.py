@@ -54,6 +54,18 @@ SIGNATURES = {
     # planes, pencil strides, counts, grid, out, R0, R1, K, G2, dx, dinv,
     # alpha, 1 - alpha, dt, stream
     "mpm_g2p3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    # planes (29), pencil strides, counts, out, R0, R1, K, G1, G2, nch, apic,
+    # tent, dx, stream
+    "mpm_p2g3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # planes (29), pencil strides, counts, raw, out, R0, R1, K, G2, nch, apic,
+    # tent, dx, dt g (3), floor, lo, hi, wall, dt beta, stream
+    "mpm_p2g3d_grid_pdata": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+        _I, _I, _I, _F, _P,
+    ),
+    # planes (4), pencil strides, counts, grid, out, R0, R1, K, G2, grid
+    # channels, tent, dx, dinv, stream
+    "mpm_g2p3d_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 

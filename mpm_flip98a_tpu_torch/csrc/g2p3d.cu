@@ -1,13 +1,26 @@
-// Update-mode 3D G2P over pencil-bucketed particles, for Hopper (sm_90a).
+// 3D G2P over pencil-bucketed particles, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `g2p3d` in
 // mpm_flip98a_tpu/ops/pallas/transfer3d.py (def :930, pallas_call :995,
-// body _g2p3d_kernel :770 -> _g2p3d_chunk :831) in its update mode
-// (state given) on a 6-channel grid prepadded on both bucketed axes.  The
-// TPU kernel gathers along z with one-hot MXU products over each of the
-// 25 candidate pencil rows; here each slot reads its 27 nodes directly.
+// body _g2p3d_kernel :770 -> _g2p3d_chunk :831) on a grid prepadded on
+// both bucketed axes (the wrapper pads an unpadded one), in two modes: the
+// update mode (mpm_g2p3d: state given, 6-channel grid, B-spline) and the
+// gather mode (mpm_g2p3d_gather: 6 or 9 grid channels, B-spline or tent
+// taps).  The TPU kernel gathers along z with one-hot MXU products over
+// each of the 25 candidate pencil rows; here each slot reads its 27 nodes
+// directly.
 //
-// Contract (same as the TPU kernel):
+// Contract of the gather mode (same as the TPU kernel):
+//   planes  4 (R0, R1, K) f32 [gx0, gx1, gx2, mask]
+//   grid    (R0 + 4, R1 + 4, 6 or 9, G2) f32 = [v_new (3), v_old (3)
+//           (, Jbar, p, div)]
+//   out     (R0, R1, 15 or 18, K) f32 = [vpic (3), vold (3), C00..C22
+//           (, Jbar, p, div)], the weighted sums of the grid channels and
+//           C_ab = dinv sum w v_new_a (x_node - x_p)_b dx; zeros in slots
+//           past the count, masked off or out of margin.  With tent taps
+//           the caller passes dinv = 1 and gets the raw B matrix.
+//
+// Contract of the update mode (same as the TPU kernel):
 //   planes  11 (R0, R1, K) f32 [gx0, gx1, gx2, mask, v0, v1, v2, J, x0,
 //           x1, x2], each with its own pencil stride (unit along K)
 //   counts  (R0 * R1,) i32 packed pencil counts
@@ -33,6 +46,8 @@
 // writes are coalesced along K.
 
 #include <cuda_runtime.h>
+
+#include "taps.cuh"
 
 namespace {
 
@@ -150,7 +165,121 @@ g2p3d_kernel(Planes in, const int* __restrict__ counts,
   o[15LL * K] = mask > 0.0f ? jprev * (1.0f + dtv * div) : 1.0f;
 }
 
+// Gather mode: the raw gathers of kGch grid channels, no particle update.
+template <int kGch, bool kTent>
+__global__ void __launch_bounds__(kThreads)
+g2p3d_gather_kernel(Planes in, const int* __restrict__ counts,
+                    const float* __restrict__ grid, float* __restrict__ out,
+                    int R1, int K, int kblocks, int G2, float dx, float dinv) {
+  constexpr int kExtra = kGch - kCh;     // Jbar, p, div
+  constexpr int kNout = 15 + kExtra;
+  const long long pencil = blockIdx.x / kblocks;
+  const int k = (blockIdx.x % kblocks) * kThreads + threadIdx.x;
+  if (k >= K) return;
+  float* o = out + pencil * kNout * K + k;
+  float valid = 0.0f, gx0 = 0.0f, gx1 = 0.0f, base0 = 0.0f, base1 = 0.0f;
+  float rel0 = 0.0f, rel1 = 0.0f;
+  const int i0 = static_cast<int>(pencil / R1);
+  const int i1 = static_cast<int>(pencil % R1);
+  if (k < counts[pencil]) {
+    gx0 = in.p[0][pencil * in.stride[0] + k];
+    gx1 = in.p[1][pencil * in.stride[1] + k];
+    base0 = floorf(gx0 - 0.5f);
+    base1 = floorf(gx1 - 0.5f);
+    rel0 = base0 - static_cast<float>(i0);
+    rel1 = base1 - static_cast<float>(i1);
+    const bool margin = rel0 >= -1.0f && rel0 <= 1.0f && rel1 >= -1.0f && rel1 <= 1.0f;
+    valid = margin ? in.p[3][pencil * in.stride[3] + k] : 0.0f;
+  }
+  float sum[kGch], cs[9];
+#pragma unroll
+  for (int e = 0; e < kGch; ++e) sum[e] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) cs[e] = 0.0f;
+  if (valid != 0.0f) {
+    const float gx2 = in.p[2][pencil * in.stride[2] + k];
+    float w0[3], w1[3];
+    taps::axis<kTent>(gx0 - base0, w0);
+    taps::axis<kTent>(gx1 - base1, w1);
+    const float base2 = floorf(gx2 - 0.5f);
+    const long long P1 = R1 + kNT - 1;
+    const long long q0 = i0 + static_cast<int>(rel0) + 1;
+    const long long q1 = i1 + static_cast<int>(rel1) + 1;
+#pragma unroll
+    for (int j0 = 0; j0 < 3; ++j0) {
+      const float rdp0 = (base0 + static_cast<float>(j0) - gx0) * dx;
+#pragma unroll
+      for (int j1 = 0; j1 < 3; ++j1) {
+        const float rdp1 = (base1 + static_cast<float>(j1) - gx1) * dx;
+        const float w01 = w0[j0] * valid * w1[j1];
+        const float* node = grid + ((q0 + j0) * P1 + (q1 + j1)) * kGch * G2;
+#pragma unroll
+        for (int j2 = 0; j2 < 3; ++j2) {
+          const float cf = base2 + static_cast<float>(j2);
+          if (!(cf >= 0.0f && cf < static_cast<float>(G2))) continue;
+          const float d = cf - gx2;
+          const float w = w01 * taps::col<kTent>(d);
+          const float* g = node + static_cast<int>(cf);
+          const float dxs[3] = {rdp0, rdp1, d * dx};
+#pragma unroll
+          for (int e = 0; e < kGch; ++e) {
+            const float ge = g[e * G2];
+            sum[e] += w * ge;
+            if (e < 3) {
+              const float wv = w * ge;
+#pragma unroll
+              for (int b = 0; b < 3; ++b) cs[3 * e + b] += wv * dxs[b];
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kCh; ++e) o[static_cast<long long>(e) * K] = sum[e];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) o[static_cast<long long>(kCh + e) * K] = dinv * cs[e];
+#pragma unroll
+  for (int e = 0; e < kExtra; ++e) o[static_cast<long long>(15 + e) * K] = sum[kCh + e];
+}
+
+template <int kGch, bool kTent>
+void launch_gather(const Planes& in, const int* counts, const float* grid, float* out,
+                   unsigned blocks, int R1, int K, int kblocks, int G2, float dx,
+                   float dinv, cudaStream_t s) {
+  g2p3d_gather_kernel<kGch, kTent><<<blocks, kThreads, 0, s>>>(
+      in, counts, grid, out, R1, K, kblocks, G2, dx, dinv);
+}
+
 }  // namespace
+
+// Gather mode.  planes / strides: [gx0, gx1, gx2, mask]; gch: 6 or 9 grid
+// channels (15 or 18 outputs); tent: 0/1.  Returns a cudaError_t as int.
+extern "C" int mpm_g2p3d_gather(const void* const* planes, const long long* strides,
+                                const int* counts, const float* grid, float* out,
+                                int R0, int R1, int K, int G2, int gch, int tent,
+                                float dx, float dinv, void* stream) {
+  if (gch != 6 && gch != 9) return static_cast<int>(cudaErrorInvalidValue);
+  Planes in = {};
+  for (int e = 0; e < 4; ++e) {
+    in.p[e] = static_cast<const float*>(planes[e]);
+    in.stride[e] = strides[e];
+  }
+  const int kblocks = (K + kThreads - 1) / kThreads;
+  const long long blocks = static_cast<long long>(R0) * R1 * kblocks;
+  if (blocks > 0) {
+    const unsigned nb = static_cast<unsigned>(blocks);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (gch == 6) {
+      if (tent) launch_gather<6, true>(in, counts, grid, out, nb, R1, K, kblocks, G2, dx, dinv, s);
+      else launch_gather<6, false>(in, counts, grid, out, nb, R1, K, kblocks, G2, dx, dinv, s);
+    } else {
+      if (tent) launch_gather<9, true>(in, counts, grid, out, nb, R1, K, kblocks, G2, dx, dinv, s);
+      else launch_gather<9, false>(in, counts, grid, out, nb, R1, K, kblocks, G2, dx, dinv, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int mpm_g2p3d(const void* const* planes, const long long* strides,
                          const int* counts, const float* grid, float* out, int R0,

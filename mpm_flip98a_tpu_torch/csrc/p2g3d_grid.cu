@@ -1,21 +1,30 @@
-// Fused-stress 3D P2G + grid update over pencil-bucketed particles, for
-// Hopper (sm_90a).
+// 3D P2G + grid update over pencil-bucketed particles, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel `p2g3d_grid` in
 // mpm_flip98a_tpu/ops/pallas/transfer3d.py (def :622, pallas_call :709,
-// body _p2g3d_grid_kernel :428 -> _p2g3d_chunk :193) in its stress mode,
-// non-raw, without the extended channels, the tent kernel or colliders.
+// body _p2g3d_grid_kernel :428 -> _p2g3d_chunk :193), non-raw and without
+// colliders, in two modes: the stress mode (mpm_p2g3d_grid: the fluid
+// stress computed per slot, B-spline, 7 raw channels) and the prepped
+// mode (mpm_p2g3d_grid_pdata: stress=None, PIC or APIC, B-spline or tent
+// taps, and with 11 raw channels the nodal Jbar, p and div of `ext`).
 // The TPU kernel scatters along z with one-hot MXU products and carries
 // target rows from one sequential grid step to the next in a rolling
 // 5-slot VMEM scratch; GPU blocks run in no order, so that design does
 // not carry over.
 //
 // Contract (same as the TPU kernel):
-//   planes  18 (R0, R1, K) f32 [gx0, gx1, gx2, v0, v1, v2, C00..C22, J,
-//           mass, vol0], each with its own pencil stride (unit along K)
+//   planes  stress mode: 18 (R0, R1, K) f32 [gx0, gx1, gx2, v0, v1, v2,
+//           C00..C22, J, mass, vol0]; prepped mode: the fields in the
+//           fixed order of taps.cuh [gx (3), m v (3), P (9, APIC only),
+//           Q (9), m (, V0 J, V0, V0 p, V0 div)], value planes pre-masked;
+//           each plane with its own pencil stride (unit along K)
 //   counts  (R0 * R1,) i32 packed pencil counts (active slots first)
-//   out     (R0 + 4, R1 + 4, 6, G2) f32 = [v_new (3), v_old (3)], plane /
-//           row j = target row j - 1 on both bucketed axes
+//   out     (R0 + 4, R1 + 4, 6 or 9, G2) f32 = [v_new (3), v_old (3)
+//           (, Jbar, p, div)], plane / row j = target row j - 1 on both
+//           bucketed axes; Jbar = sum V0 J / sum V0 where volume landed,
+//           else 1 on interior axis-0 rows and 0 on the pad rows; p and
+//           div likewise with 0
 // A slot contributes only when its base row on both axes is within +-1 of
 // its pencil's; z taps outside [0, G2) are dropped.  Axis-0 target rows
 // outside [0, R0) come out zero (the TPU kernel's `interior` crop); the
@@ -28,11 +37,12 @@
 //      x 7 channels [m v pure (3), m v forced (3), m] with float atomics
 //      into a zeroed raw buffer (R0 + 4, R1 + 4, 7, G2).  Every pencil
 //      scatters to 25 target pencils, so a block cannot own its output as
-//      the 2D kernel's does.
+//      the 2D kernel's does.  The prepped mode reads P, Q, m and the ext
+//      fields instead of computing them (7 or 11 channels).
 //   2. update: one thread per node of the padded grid: mass floor,
 //      v_old = pure / m, v_new = forced / m + dt g (or the diagonal
 //      penalty solve), then slip clamps or the sticky zero on the wall
-//      bands of the three axes.
+//      bands of the three axes, then the ext averages.
 // Float atomics add in a run-dependent order: the result is not bitwise
 // deterministic (the JAX kernel is); it agrees with the plain version to
 // fp32 rounding of each node's sum (the tolerance is stated where the two
@@ -40,16 +50,19 @@
 //
 // What bounds it on the H100: the atomics and bytes, not flops.  A live
 // slot reads 72 bytes and issues 189 atomic adds (~30 flops per tap);
-// the update reads 7 and writes 6 floats per node of the padded grid.
+// the update reads 7 and writes 6 floats per node of the padded grid.  The
+// prepped ext mode reads 80 (PIC) or 116 (APIC) bytes per live slot and
+// issues 297 atomic adds; its update reads 11 and writes 9 floats per node.
 
 #include <cuda_runtime.h>
+
+#include "taps.cuh"
 
 namespace {
 
 constexpr int kNT = 5;        // candidate target rows per bucketed axis
-constexpr int kRaw = 7;       // raw channels
-constexpr int kOut = 6;       // finished grid channels
-constexpr int kIn = 18;       // input planes
+constexpr int kRaw = 7;       // raw channels (11 with the ext fields)
+constexpr int kIn = 18;       // input planes of the stress mode
 constexpr int kThreads = 128; // slots per block (K is a multiple of 128)
 
 struct Planes {
@@ -171,6 +184,56 @@ p2g3d_scatter_kernel(Planes in, const int* __restrict__ counts,
   }
 }
 
+// Prepped mode: the same scatter of fields computed outside the kernel.
+template <int kNch, bool kTent>
+__global__ void __launch_bounds__(kThreads)
+p2g3d_scatter_pdata_kernel(taps::Prepped in, const int* __restrict__ counts,
+                           float* __restrict__ raw, int R1, int K, int kblocks,
+                           int G2, float dx, int apic) {
+  const long long pencil = blockIdx.x / kblocks;
+  const int k = (blockIdx.x % kblocks) * kThreads + threadIdx.x;
+  if (k >= K || k >= counts[pencil]) return;
+  const int i0 = static_cast<int>(pencil / R1);
+  const int i1 = static_cast<int>(pencil % R1);
+  const float gx0 = in.at(taps::kGx, pencil, k);
+  const float gx1 = in.at(taps::kGx + 1, pencil, k);
+  const float gx2 = in.at(taps::kGx + 2, pencil, k);
+  const float base0 = floorf(gx0 - 0.5f), base1 = floorf(gx1 - 0.5f);
+  const float rel0 = base0 - static_cast<float>(i0);
+  const float rel1 = base1 - static_cast<float>(i1);
+  if (!(rel0 >= -1.0f && rel0 <= 1.0f && rel1 >= -1.0f && rel1 <= 1.0f)) return;
+
+  const float base2 = floorf(gx2 - 0.5f);
+  taps::Slot<kNch> slot;
+  taps::load_slot<kNch, kTent>(in, pencil, k, apic, gx2, base2, G2, dx, slot);
+  float w0[3], w1[3];
+  taps::axis<kTent>(gx0 - base0, w0);
+  taps::axis<kTent>(gx1 - base1, w1);
+  const long long P1 = R1 + kNT - 1;
+  // Padded plane of tap j: bucket row + rel + j + 1 on each axis.
+  const long long q0 = i0 + static_cast<int>(rel0) + 1;
+  const long long q1 = i1 + static_cast<int>(rel1) + 1;
+#pragma unroll
+  for (int j0 = 0; j0 < 3; ++j0) {
+    const float rdp0 = (base0 + static_cast<float>(j0) - gx0) * dx;
+#pragma unroll
+    for (int j1 = 0; j1 < 3; ++j1) {
+      const float rdp1 = (base1 + static_cast<float>(j1) - gx1) * dx;
+      const float w01 = w0[j0] * w1[j1];
+      float pure[3], forced[3];
+      taps::affine01(slot, rdp0, rdp1, pure, forced);
+      float* node = raw + ((q0 + j0) * P1 + (q1 + j1)) * kNch * G2;
+#pragma unroll
+      for (int j2 = 0; j2 < 3; ++j2) {
+        if (slot.z[j2] < 0) continue;
+        taps::add_tap(slot, pure, forced, j2, w01 * slot.wz[j2], node + slot.z[j2], G2);
+      }
+    }
+  }
+}
+
+// kExt: 11 raw channels in, 9 out (+ the nodal Jbar, p, div); else 7 and 6.
+template <bool kExt>
 __global__ void __launch_bounds__(256)
 p2g3d_update_kernel(const float* __restrict__ raw, float* __restrict__ out,
                     long long nodes, int R0, int P1, int G2, float dtg0,
@@ -178,6 +241,8 @@ p2g3d_update_kernel(const float* __restrict__ raw, float* __restrict__ out,
                     int wall, float dt_beta) {
   const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= nodes) return;
+  constexpr int kRaw = kExt ? 11 : 7;
+  constexpr int kOut = kExt ? 9 : 6;
   const int zc = static_cast<int>(n % G2);
   const long long plane = n / G2;               // p0 * P1 + p1
   const int t0 = static_cast<int>(plane / P1) - 1;   // target rows
@@ -220,6 +285,36 @@ p2g3d_update_kernel(const float* __restrict__ raw, float* __restrict__ out,
     o[a * G2] = v[a];
     o[(3 + a) * G2] = has ? r[a * G2] / safe : 0.0f;
   }
+  if (kExt) {
+    // Nodal averages over the scattered volume (transfer3d.py:574-585).
+    const float v0sum = r[8 * G2];
+    const bool has_v = v0sum > 0.0f && interior;
+    const float safe_v = has_v ? v0sum : 1.0f;
+    o[6 * G2] = has_v ? r[7 * G2] / safe_v : (interior ? 1.0f : 0.0f);
+    o[7 * G2] = has_v ? r[9 * G2] / safe_v : 0.0f;
+    o[8 * G2] = has_v ? r[10 * G2] / safe_v : 0.0f;
+  }
+}
+
+template <bool kExt>
+int launch_update(const float* raw, float* out, long long nodes, int R0, int P1,
+                  int G2, float dtg0, float dtg1, float dtg2, float floor_m, int lo,
+                  int hi, int wall, float dt_beta, cudaStream_t s) {
+  if (nodes > 0) {
+    const long long ublocks = (nodes + 255) / 256;
+    p2g3d_update_kernel<kExt><<<static_cast<unsigned>(ublocks), 256, 0, s>>>(
+        raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2, floor_m, lo, hi, wall,
+        dt_beta);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kNch, bool kTent>
+void launch_pdata_scatter(const taps::Prepped& in, const int* counts, float* raw,
+                          unsigned blocks, int R1, int K, int kblocks, int G2,
+                          float dx, int apic, cudaStream_t s) {
+  p2g3d_scatter_pdata_kernel<kNch, kTent><<<blocks, kThreads, 0, s>>>(
+      in, counts, raw, R1, K, kblocks, G2, dx, apic);
 }
 
 }  // namespace
@@ -250,11 +345,44 @@ extern "C" int mpm_p2g3d_grid(const void* const* planes, const long long* stride
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (nodes > 0) {
-    const long long ublocks = (nodes + 255) / 256;
-    p2g3d_update_kernel<<<static_cast<unsigned>(ublocks), 256, 0, s>>>(
-        raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2, floor_m, lo, hi, wall,
-        dt_beta);
+  return launch_update<false>(raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2,
+                              floor_m, lo, hi, wall, dt_beta, s);
+}
+
+// Prepped mode.  planes / strides: 29 entries in the order of taps.cuh
+// (null where the mode has no such plane); nch: 7, or 11 with the ext
+// fields (then out has 9 channels); apic, tent: 0/1.
+extern "C" int mpm_p2g3d_grid_pdata(const void* const* planes, const long long* strides,
+                                    const int* counts, float* raw, float* out, int R0,
+                                    int R1, int K, int G2, int nch, int apic, int tent,
+                                    float dx, float dtg0, float dtg1, float dtg2,
+                                    float floor_m, int lo, int hi, int wall,
+                                    float dt_beta, void* stream) {
+  if (nch != 7 && nch != 11) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const taps::Prepped in = taps::prepped_from(planes, strides);
+  const int P1 = R1 + kNT - 1;
+  const long long nodes = static_cast<long long>(R0 + kNT - 1) * P1 * G2;
+  cudaError_t err = cudaMemsetAsync(raw, 0, sizeof(float) * nch * nodes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int kblocks = (K + kThreads - 1) / kThreads;
+  const long long blocks = static_cast<long long>(R0) * R1 * kblocks;
+  if (blocks > 0) {
+    const unsigned nb = static_cast<unsigned>(blocks);
+    if (nch == 7) {
+      if (tent) launch_pdata_scatter<7, true>(in, counts, raw, nb, R1, K, kblocks, G2, dx, apic, s);
+      else launch_pdata_scatter<7, false>(in, counts, raw, nb, R1, K, kblocks, G2, dx, apic, s);
+    } else {
+      if (tent) launch_pdata_scatter<11, true>(in, counts, raw, nb, R1, K, kblocks, G2, dx, apic, s);
+      else launch_pdata_scatter<11, false>(in, counts, raw, nb, R1, K, kblocks, G2, dx, apic, s);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (nch == 11) {
+    return launch_update<true>(raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2,
+                               floor_m, lo, hi, wall, dt_beta, s);
+  }
+  return launch_update<false>(raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2,
+                              floor_m, lo, hi, wall, dt_beta, s);
 }

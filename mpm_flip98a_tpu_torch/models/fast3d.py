@@ -1,14 +1,26 @@
-"""Fast 3D fluid solver on the hand-written CUDA transfer kernels.
+"""Fast 3D solver on the hand-written CUDA transfer kernels.
 
-Counterpart of `mpm_flip98a_tpu/models/fast3d.py`, restricted to the
-single-device fused branch (fast3d.py:586-630 and the `grid_pad` branch of
-`_finish_substep`, :454-456, :480-502): one weakly-compressible fluid
-(linear or Tait EOS), PIC or APIC transfer with the FLIP blend, slip,
-sticky or penalty walls, an absolute grid-mass floor.  Per substep:
-`p2g3d_grid` (kernel: stress, scatter, grid update) -> `g2p3d` (kernel:
-gather, FLIP blend, advection, J update), on float32 tensors on one
-device.  No slot-sized pass runs outside the kernels except the transfer
-coordinates and the margin check.
+Counterpart of `mpm_flip98a_tpu/models/fast3d.py` on one device, routed
+as fast3d.py:586-591 and :776-811 do (`uses_fused`, `scene.mass_floor`):
+
+- one weakly-compressible fluid without F-bar, pressure mixing or the
+  tent kernel, with an absolute grid-mass floor (the fused branch,
+  fast3d.py:586-630): `p2g3d_grid` (kernel: stress, scatter, grid update)
+  -> `g2p3d` (kernel: gather, FLIP blend, advection, J update).  No
+  slot-sized pass runs outside the kernels except the transfer
+  coordinates and the margin check;
+- every other ported config (the prepped branch, fast3d.py:646-934:
+  fluid, neo-Hookean and fixed-corotated solids mixed per slot; F-bar and
+  pressure mixing with the lag correction; the tent kernel): the stress
+  prepped in torch into separate planes, then with an absolute mass floor
+  `p2g3d_grid` in its prepped mode (kernel: scatter, grid update, the
+  nodal Jbar, p and div), and with `mass_floor <= 0` (the relative floor,
+  `Scene`'s default) `p2g3d` (kernel) -> `fold_rows0` -> `_grid_update`;
+  then `g2p3d` in gather mode (kernel) -> the tent's per-particle D^-1 ->
+  the particle update.
+
+PIC or APIC with the FLIP blend, linear or Tait EOS, slip or sticky walls
+or the penalty EBC; all on float32 tensors on one device.
 
 State lives in pencil buckets: one bucket of K slots per (axis-0, axis-1)
 grid line, fields (R0 * R1, K).  `run` keeps the reference's order (a
@@ -30,8 +42,8 @@ import torch
 
 from mpm_flip98a_tpu_torch.config import EOSKind, KernelKind, MPMConfig, TransferKind
 from mpm_flip98a_tpu_torch.models import materials as mat
-from mpm_flip98a_tpu_torch.models.fast2d import RunStats, _f32
-from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene
+from mpm_flip98a_tpu_torch.models.fast2d import PORTED_MATERIALS, RunStats, _ext, _f32
+from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene, _mass_floor
 from mpm_flip98a_tpu_torch.ops import binning
 from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
 from mpm_flip98a_tpu_torch.state import Particles
@@ -73,7 +85,9 @@ class FluidBuckets3D:
     vol0: torch.Tensor
     mat: torch.Tensor       # int32 material id
     Jp: torch.Tensor        # plastic volume ratio (SNOW state)
-    jbar_s: torch.Tensor    # fused-stabilization state (not used by this slice)
+    # F-bar / mixing state: the nodal Jbar, p and div that the last G2P
+    # gathered (one-substep lag; unused without F-bar or mixing).
+    jbar_s: torch.Tensor
     p_s: torch.Tensor
     div_s: torch.Tensor
     mask: torch.Tensor      # f32 0/1
@@ -201,21 +215,20 @@ def to_host(b: FluidBuckets3D) -> dict:
 
 
 def check_supported(scene: Scene) -> None:
-    """Raise NotImplementedError for configs outside the ported slice (the
-    single-device fused branch of fast3d.substep)."""
+    """Raise NotImplementedError for configs outside the ported slice."""
     cfg = scene.cfg
     gaps = [
         (cfg.dim != 3, "fast3d needs a 3D config", 9),
-        (cfg.use_fbar or cfg.pressure_mixing_ratio > 0.0,
-         "F-bar / pressure mixing (extended 3D channels, kernel p2g3d)", 9),
-        (cfg.kernel == KernelKind.TENT, "the 3D tent kernel (kernel p2g3d)", 9),
-        (scene.materials_present != (mat.WEAKLY_COMPRESSIBLE_FLUID,),
-         "3D materials other than one weakly-compressible fluid (kernel p2g3d)", 9),
-        (bool(scene.colliders), "rigid SDF colliders", 8),
         (cfg.surface_tension > 0.0, "CSF surface tension", 8),
         (cfg.incompressible, "the incompressible projection", 8),
-        (scene.mass_floor <= 0.0,
-         "the relative mass floor in 3D (kernel p2g3d + the XLA grid update)", 9),
+        (bool(scene.colliders), "rigid SDF colliders", 8),
+        (any(m not in PORTED_MATERIALS for m in scene.materials_present),
+         "snow and sand (mathx.svd, plastic_update)", 8),
+        (scene.params.plastic and mat.FIXED_COROTATED in scene.materials_present,
+         "corotated plasticity (plastic_update)", 8),
+        # fast3d.py:631-645 sends such a scene to p2g3d_grid's raw mode.
+        (cfg.dim == 3 and uses_fused(scene) and scene.mass_floor <= 0.0,
+         "the relative mass floor on the fused branch (p2g3d_grid's raw mode)", 10),
     ]
     for bad, what, item in gaps:
         if bad:
@@ -224,59 +237,93 @@ def check_supported(scene: Scene) -> None:
             )
 
 
-def p2g_args(scene: Scene) -> dict:
-    """Keyword arguments of `p2g3d_grid` for the scene (fast3d.py:608-627)."""
+def uses_fused(scene: Scene) -> bool:
+    """The predicate of fast3d.py:586-591: one weakly-compressible fluid,
+    no F-bar or pressure mixing and the B-spline kernel; every other
+    config preps its fields in torch."""
+    return (
+        scene.materials_present == (mat.WEAKLY_COMPRESSIBLE_FLUID,)
+        and not _ext(scene.cfg)
+        and scene.cfg.kernel != KernelKind.TENT
+    )
+
+
+def _wall_args(scene: Scene) -> dict:
+    """The grid-update arguments of `p2g3d_grid` (fast3d.py:608-627)."""
     cfg = scene.cfg
-    g = cfg.num_grids
-    dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
     penalty = cfg.use_penalty_ebc
     return dict(
-        g2=g, dx=float(cfg.dx),
-        apic=cfg.transfer == TransferKind.APIC,
-        stress="linear" if scene.params.eos == EOSKind.LINEAR else "tait",
-        kb=float(scene.params.bulk_modulus),
-        mu=float(scene.params.dynamic_viscosity),
-        gamma=float(scene.params.tait_gamma),
-        fa=float(-cfg.dt * dinv),
         dt=float(cfg.dt),
         grav=tuple(float(a) for a in cfg.gravity_acceleration(scene.physics)),
         floor=float(scene.mass_floor),
-        lo=int(PAD), hi=g - 1 - int(PAD),
+        lo=int(PAD), hi=cfg.num_grids - 1 - int(PAD),
         wall="penalty" if penalty else scene.wall.kind,
         beta=float(cfg.penalty_parameter(scene.physics)) if penalty else 0.0,
     )
 
 
-def transfer_inputs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig):
-    """(planes, counts, mask, state) for the kernels, as (R0, R1, K) views:
-    the 18 P2G planes [gx (3), v (3), C00..C22, J, mass, vol0], the pencil
-    counts (R0 * R1,), the mask, and G2P's state [v (3), J, x (3)].
+def p2g_args(scene: Scene) -> dict:
+    """Keyword arguments of the scene's P2G wrapper after (fields, counts,
+    g1): the stress mode of `p2g3d_grid` (fast3d.py:608-627) for a
+    `uses_fused` scene; for the others its prepped mode (:797-802) with an
+    absolute mass floor, or `p2g3d` (:805-808) without one."""
+    cfg = scene.cfg
+    apic = cfg.transfer == TransferKind.APIC
+    args = dict(g2=cfg.num_grids, dx=float(cfg.dx), apic=apic)
+    if uses_fused(scene):
+        dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
+        return dict(
+            **args,
+            stress="linear" if scene.params.eos == EOSKind.LINEAR else "tait",
+            kb=float(scene.params.bulk_modulus),
+            mu=float(scene.params.dynamic_viscosity),
+            gamma=float(scene.params.tait_gamma),
+            fa=float(-cfg.dt * dinv),
+            **_wall_args(scene),
+        )
+    args.update(ext=_ext(cfg), tent=cfg.kernel == KernelKind.TENT)
+    if scene.mass_floor > 0.0:
+        args.update(_wall_args(scene))
+    return args
 
-    P2G and G2P read one precomputed gx = x / dx + PAD (fast3d.py:551-560):
-    computed in each kernel, FMA rounding could put a knife-edge particle
-    into different cells in the two transfers."""
-    shaped = lambda a: a.reshape(spec.rows0, spec.rows1, spec.capacity)
+
+def _shaped(a: torch.Tensor, spec: FastSpec3D) -> torch.Tensor:
+    return a.reshape(spec.rows0, spec.rows1, spec.capacity)
+
+
+def _gxs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig):
+    """The transfer coordinates gx = x / dx + PAD as (R0, R1, K) planes.
+
+    P2G and G2P read this one precomputed gx (fast3d.py:551-560): computed
+    in each kernel, FMA rounding could put a knife-edge particle into
+    different cells in the two transfers."""
     invf = _f32(cfg.inv_dx)
-    gxs = tuple(shaped(x * invf + PAD) for x in (b.x0, b.x1, b.x2))
-    counts = (b.mask > 0).sum(dim=1).to(torch.int32)
+    return tuple(_shaped(x * invf + PAD, spec) for x in (b.x0, b.x1, b.x2))
+
+
+def pencil_counts(b: FluidBuckets3D) -> torch.Tensor:
+    """Active slots per pencil, (R0 * R1,) int32 (buckets are packed)."""
+    return (b.mask > 0).sum(dim=1).to(torch.int32)
+
+
+def transfer_inputs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig):
+    """(planes, counts, mask, state) for the fused branch's kernels, as
+    (R0, R1, K) views: the 18 P2G planes [gx (3), v (3), C00..C22, J, mass,
+    vol0], the pencil counts (R0 * R1,), the mask, and G2P's state [v (3),
+    J, x (3)]."""
+    shaped = lambda a: _shaped(a, spec)
     planes = (
-        *gxs,
+        *_gxs(b, spec, cfg),
         *(shaped(getattr(b, n)) for n in ("v0", "v1", "v2")),
         *(shaped(getattr(b, f"C{a}{c}")) for a in range(3) for c in range(3)),
         shaped(b.J), shaped(b.mass), shaped(b.vol0),
     )
     state = tuple(shaped(getattr(b, n)) for n in ("v0", "v1", "v2", "J", "x0", "x1", "x2"))
-    return planes, counts, shaped(b.mask), state
+    return planes, pencil_counts(b), shaped(b.mask), state
 
 
-def substep(
-    b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool = False
-) -> FluidBuckets3D:
-    """One fast substep (fast3d.py:505-630, single-device fused branch).
-
-    `plain=True` calls the kernels' plain PyTorch versions even on a card:
-    it exists to time the plain path against the kernel path."""
-    check_supported(scene)
+def _fused_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool):
+    """The fused branch (fast3d.py:592-630 and `_finish_substep`)."""
     cfg = scene.cfg
     r0, r1 = spec.rows0, spec.rows1
     p2g, g2p = (
@@ -297,6 +344,365 @@ def substep(
         C20=out[:, 12], C21=out[:, 13], C22=out[:, 14],
         J=out[:, 15],
     )
+
+
+# ---------------------------------------------------------------------------
+# The prepped branch (fast3d.py:646-934)
+# ---------------------------------------------------------------------------
+
+
+def _cmat(b: FluidBuckets3D):
+    return [getattr(b, f"C{a}{c}") for a in range(3) for c in range(3)]
+
+
+def _fmat(b: FluidBuckets3D):
+    return [getattr(b, f"F{a}{c}") for a in range(3) for c in range(3)]
+
+
+def _det3(m):
+    return (
+        m[0] * (m[4] * m[8] - m[5] * m[7])
+        - m[1] * (m[3] * m[8] - m[5] * m[6])
+        + m[2] * (m[3] * m[7] - m[4] * m[6])
+    )
+
+
+def _polar3d_rows(f, iters: int = 12):
+    """Component-form 3D polar rotation factor (fast3d.py:256-288): the
+    scaled Newton iteration R <- (gamma R + R^-T / gamma) / 2 on the 9
+    component planes [F00..F22]; returns the 9-list R.  The determinant is
+    guarded with float32's tiny, and dead slots sit at F = I."""
+    r = list(f)
+
+    def cof(m):
+        # Cofactor matrix, row-major: cof / det = m^-T.
+        return [
+            m[4] * m[8] - m[5] * m[7], m[5] * m[6] - m[3] * m[8], m[3] * m[7] - m[4] * m[6],
+            m[2] * m[7] - m[1] * m[8], m[0] * m[8] - m[2] * m[6], m[1] * m[6] - m[0] * m[7],
+            m[1] * m[5] - m[2] * m[4], m[2] * m[3] - m[0] * m[5], m[0] * m[4] - m[1] * m[3],
+        ]
+
+    tiny = float(np.finfo(np.float32).tiny)
+    for _ in range(iters):
+        c = cof(r)
+        det = r[0] * c[0] + r[1] * c[1] + r[2] * c[2]
+        inv_det = 1.0 / torch.where(det.abs() > tiny, det, 1.0)
+        rit = [ci * inv_det for ci in c]
+        a = sum(x * x for x in rit)
+        bb = sum(x * x for x in r)
+        gamma = torch.sqrt(torch.sqrt(a / bb.clamp(min=tiny)))
+        inv_g = 1.0 / gamma
+        r = [0.5 * (gamma * r[i] + inv_g * rit[i]) for i in range(9)]
+    return r
+
+
+def _stress(b: FluidBuckets3D, scene: Scene):
+    """Component-form V0-scaled Kirchhoff stress per slot (fast3d.py:
+    646-744), the models of models/materials.py on (R0 * R1, K) planes.
+
+    F-bar and pressure mixing read the nodal averages that the last
+    substep's G2P gathered (jbar_s, p_s, div_s), advanced over the
+    one-substep lag by their local rates (dJ/dt = J div, dp/dt = dp/dJ J
+    div with div = tr C).  Scalars combine in float32 where the reference
+    holds float32 values and as Python floats where it keeps weak types.
+    Returns (tau, p_point, div_lag): the 9-list tau00..tau22, the fluid's
+    pointwise pressure on every slot (zero without a fluid), and tr C."""
+    cfg, params = scene.cfg, scene.params
+    dt = _f32(cfg.dt)
+    ratio = float(cfg.pressure_mixing_ratio)
+    cm, fm = _cmat(b), _fmat(b)
+    div_lag = cm[0] + cm[4] + cm[8]
+    jbar_adv = b.jbar_s * (1.0 + dt * div_lag) if _ext(cfg) else b.jbar_s
+    jeff = jbar_adv if cfg.use_fbar else b.J
+    p_point_out = torch.zeros_like(b.J)
+    tau = [torch.zeros_like(b.J)] * 9
+    mu_s, lam_s = _f32(params.mu), _f32(params.lam)
+    diag = (0, 4, 8)
+    for mid in scene.materials_present:
+        if mid == mat.WEAKLY_COMPRESSIBLE_FLUID:
+            kb = np.float32(params.bulk_modulus)
+            two_mu = 2.0 * _f32(params.dynamic_viscosity)
+            vj = b.vol0 * jeff
+            if params.eos == EOSKind.LINEAR:
+                p_point = float(-kb) * (jeff - 1.0)
+            else:
+                gamma = np.float32(params.tait_gamma)
+                j_safe = jeff.clamp(min=_f32(1e-3))
+                p_point = float(kb / gamma) * ((1.0 / j_safe) ** float(gamma) - 1.0)
+            p_point_out = p_point
+            if ratio > 0.0:
+                if params.eos == EOSKind.LINEAR:
+                    dp_dt = float(-kb) * jeff * div_lag
+                else:
+                    dp_dt = float(-kb) * (1.0 / j_safe) ** float(gamma) * div_lag
+                pressure = ratio * (b.p_s + dt * dp_dt) + (1.0 - ratio) * p_point
+            else:
+                pressure = p_point
+            third = div_lag / 3.0
+            tl = []
+            for a in range(3):
+                for c in range(3):
+                    dev = 0.5 * (cm[3 * a + c] + cm[3 * c + a])
+                    if a == c:
+                        tl.append(vj * (-pressure + two_mu * (dev - third)))
+                    elif c < a:
+                        tl.append(tl[3 * c + a])    # symmetric
+                    else:
+                        tl.append(vj * (two_mu * dev))
+        elif mid == mat.NEO_HOOKEAN:
+            # V0 (mu (F F^T - I) + lam log(J) I), J floored at 1e-6.
+            lj = lam_s * torch.log(_det3(fm).clamp(min=_f32(1e-6)))
+            tl = []
+            for a in range(3):
+                for c in range(3):
+                    if c < a:
+                        tl.append(tl[3 * c + a])
+                        continue
+                    ffr = sum(fm[3 * a + e] * fm[3 * c + e] for e in range(3))
+                    tl.append(b.vol0 * (mu_s * (ffr - 1.0) + lj) if a == c
+                              else b.vol0 * (mu_s * ffr))
+        else:  # FIXED_COROTATED: V0 (2 mu (F - R) F^T + lam (J - 1) J I)
+            rrot = _polar3d_rows(fm)
+            jf = _det3(fm)
+            lj = lam_s * (jf - 1.0) * jf
+            two_mu_s = 2.0 * mu_s
+            df = [fm[i] - rrot[i] for i in range(9)]
+            tl = []
+            for a in range(3):
+                for c in range(3):
+                    dfr = sum(df[3 * a + e] * fm[3 * c + e] for e in range(3))
+                    tl.append(b.vol0 * (two_mu_s * dfr + lj) if a == c
+                              else b.vol0 * (two_mu_s * dfr))
+        if len(scene.materials_present) == 1:
+            tau = tl
+        else:
+            sel = b.mat == mid
+            tau = [torch.where(sel, t, acc) for t, acc in zip(tl, tau)]
+    return tau, p_point_out, div_lag
+
+
+def prepped_fields(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D):
+    """The prepped P2G planes (fast3d.py:746-773), each a separate (R0, R1,
+    K) tensor: [gx (3), m v (3), P (9, APIC only), Q (9), m] + [V0 J, V0,
+    V0 p, V0 div] under F-bar or mixing; every value plane masked.
+    P = m C, Q = P - dt D^-1 tau."""
+    cfg = scene.cfg
+    shaped = lambda a: _shaped(a, spec)
+    tau, p_point, div_lag = _stress(b, scene)
+    fa = float(-np.float32(cfg.dt) * np.float32(4.0 * cfg.inv_dx * cfg.inv_dx))
+    m = b.mass * b.mask
+    if cfg.transfer == TransferKind.APIC:
+        p_aff = [b.mass * c * b.mask for c in _cmat(b)]
+        q_aff = [p + fa * t * b.mask for p, t in zip(p_aff, tau)]
+    else:
+        p_aff = []
+        q_aff = [fa * t * b.mask for t in tau]
+    fields = [*_gxs(b, spec, cfg), *(shaped(m * v) for v in (b.v0, b.v1, b.v2)),
+              *map(shaped, p_aff), *map(shaped, q_aff), shaped(m)]
+    if _ext(cfg):
+        v0m = b.vol0 * b.mask
+        fields += [shaped(v0m * b.J), shaped(v0m), shaped(v0m * p_point), shaped(v0m * div_lag)]
+    return tuple(fields)
+
+
+def _axis_bands(cfg: MPMConfig, device):
+    """(low, high) wall-band masks per axis, broadcastable against (G0, G1,
+    G2) planes: box faces at PAD / G-1-PAD (fast3d.py:200-217)."""
+    g = cfg.num_grids
+    lo, hi = int(PAD), g - 1 - int(PAD)
+    idx = torch.arange(g, device=device)
+    shapes = ((g, 1, 1), (1, g, 1), (1, 1, g))
+    return [((idx <= lo).view(s), (idx >= hi).view(s)) for s in shapes]
+
+
+def _grid_update(gs: torch.Tensor, scene: Scene) -> torch.Tensor:
+    """Grid momentum update on the fold's (G0, G1, 7 or 11, G2) layout
+    (fast3d.py:291-430 without CSF, colliders and the projection): mass
+    floor (relative when `scene.mass_floor <= 0`: a device-side max),
+    gravity, then slip or sticky walls (`_wall_bc_ch`) or the penalty EBC
+    (`_wall_normal_diag_ch`: the box's penalty matrix is diagonal).
+    Returns the unpadded (G0, G1, 6 or 9, G2) grid = [v_new (3), v_old
+    (3)] + the nodal [Jbar, p, div] under F-bar or mixing."""
+    cfg = scene.cfg
+    dt = np.float32(cfg.dt)
+    g_m = gs[:, :, 6]
+    has = g_m > _mass_floor(scene, g_m)
+    safe = torch.where(has, g_m, 1.0)
+    v_old = [torch.where(has, gs[:, :, a] / safe, 0.0) for a in range(3)]
+    grav = np.asarray(cfg.gravity_acceleration(scene.physics), np.float32)
+    bands = _axis_bands(cfg, gs.device)
+    if cfg.use_penalty_ebc:
+        dt_beta = float(dt * np.float32(cfg.penalty_parameter(scene.physics)))
+        dtm = float(dt) * g_m
+        v = [
+            torch.where(
+                has,
+                (gs[:, :, 3 + a] + dtm * float(grav[a]))
+                / (g_m + dt_beta * (low | high).to(g_m.dtype)),
+                0.0,
+            )
+            for a, (low, high) in enumerate(bands)
+        ]
+    else:
+        hasf = has.to(g_m.dtype)
+        v = [
+            torch.where(has, gs[:, :, 3 + a] / safe, 0.0) + float(dt * grav[a]) * hasf
+            for a in range(3)
+        ]
+        if scene.wall.kind == "sticky":
+            anyband = torch.zeros((), dtype=torch.bool, device=gs.device)
+            for low, high in bands:
+                anyband = anyband | low | high
+            v = [torch.where(anyband, 0.0, va) for va in v]
+        else:   # slip: clamp the outgoing normal component per axis band
+            for a, (low, high) in enumerate(bands):
+                v[a] = torch.where(low, v[a].clamp(min=0.0), v[a])
+                v[a] = torch.where(high, v[a].clamp(max=0.0), v[a])
+    gch = v + v_old
+    if gs.shape[2] == tk3.P2G_CH_EXT:
+        # Nodal averages for the next substep's stress: Jbar, p, div, with
+        # 1 / 0 / 0 where no volume landed.
+        v0sum = gs[:, :, 8]
+        has_v = v0sum > 0
+        safe_v = torch.where(has_v, v0sum, 1.0)
+        gch.append(torch.where(has_v, gs[:, :, 7] / safe_v, 1.0))
+        gch.append(torch.where(has_v, gs[:, :, 9] / safe_v, 0.0))
+        gch.append(torch.where(has_v, gs[:, :, 10] / safe_v, 0.0))
+    return torch.stack(gch, dim=2)
+
+
+def _tent_inverse_d(gxs, dx: float):
+    """The 6 distinct entries (00, 01, 02, 11, 12, 22) of the symmetric
+    per-particle D^-1 for the tent kernel (fast3d.py:823-859): D = sum w
+    dpos dpos^T is separable for a tensor-product kernel, D_aa = s2(gx_a),
+    D_ab = s1(gx_a) s1(gx_b), regularised by 1e-12 on the diagonal."""
+    dxf = _f32(dx)
+
+    def axis_d(gx):
+        base = torch.floor(gx - 0.5)
+        fx = gx - base
+        w = tk3._taps(fx, True)
+        s1 = sum(w[i] * (i - fx) for i in range(3)) * dxf
+        s2 = sum(w[i] * (i - fx) ** 2 for i in range(3)) * dxf * dxf
+        return s1, s2
+
+    (s0, d00), (s1, d11), (s2, d22) = (axis_d(gx) for gx in gxs)
+    eps = _f32(1e-12)
+    d00, d11, d22 = d00 + eps, d11 + eps, d22 + eps
+    d01, d02, d12 = s0 * s1, s0 * s2, s1 * s2
+    co00 = d11 * d22 - d12 * d12
+    co01 = d02 * d12 - d01 * d22
+    co02 = d01 * d12 - d02 * d11
+    co11 = d00 * d22 - d02 * d02
+    co12 = d01 * d02 - d00 * d12
+    co22 = d00 * d11 - d01 * d01
+    det = d00 * co00 + d01 * co01 + d02 * co02
+    return tuple(co / det for co in (co00, co01, co02, co11, co12, co22))
+
+
+def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool):
+    """The prepped branch (fast3d.py:646-934): stress prep, P2G by the
+    mass floor's route, gather-mode G2P, the particle update."""
+    cfg = scene.cfg
+    r0, r1, k = spec.rows0, spec.rows1, spec.capacity
+    dt = _f32(cfg.dt)
+    dx = float(cfg.dx)
+    tent = cfg.kernel == KernelKind.TENT
+    ext = _ext(cfg)
+    fields = prepped_fields(b, scene, spec)
+    counts = pencil_counts(b)
+    args = p2g_args(scene)
+    if scene.mass_floor > 0.0:
+        # Absolute floor: scatter, fold and grid update in one wrapper; the
+        # grid comes out padded on both axes.
+        p2g = tk3.p2g3d_grid_plain if plain else tk3.p2g3d_grid
+        grid = p2g(fields, counts, r1, **args)
+    else:
+        p2g = tk3.p2g3d_plain if plain else tk3.p2g3d
+        grid = _grid_update(tk3.fold_rows0(p2g(fields, counts, r1, **args)), scene)
+    gxs = fields[:3]
+    del fields
+    g2p = tk3.g2p3d_plain if plain else tk3.g2p3d
+    dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
+    out = g2p(
+        *gxs, _shaped(b.mask, spec), counts, grid, dx, 1.0 if tent else dinv, tent=tent,
+    ).view(r0 * r1, -1, k)
+    del grid
+    vpic = [out[:, a] for a in range(3)]
+    vold = [out[:, 3 + a] for a in range(3)]
+    c_new = [out[:, 6 + i] for i in range(9)]
+    if tent:
+        # G2P returned the raw B = sum w v dpos^T (dinv = 1): C = B D^-1.
+        i00, i01, i02, i11, i12, i22 = _tent_inverse_d(
+            [gx.reshape(r0 * r1, k) for gx in gxs], dx)
+        dinv_m = ((i00, i01, i02), (i01, i11, i12), (i02, i12, i22))
+        c_new = [
+            sum(c_new[3 * a + e] * dinv_m[e][c] for e in range(3))
+            for a in range(3) for c in range(3)
+        ]
+
+    # Particle update (fast3d.py:867-934): FLIP blend, advection, F and J.
+    alpha = _f32(cfg.flip_blend)
+    one_m_alpha = float(np.float32(1.0) - np.float32(alpha))
+    nv = [
+        alpha * (vv + vp - vo) + one_m_alpha * vp
+        for vv, vp, vo in zip((b.v0, b.v1, b.v2), vpic, vold)
+    ]
+    div_new = c_new[0] + c_new[4] + c_new[8]
+    ratio = float(cfg.pressure_mixing_ratio)
+    if ratio > 0.0:
+        # The mixed divergence drives the volumetric update (one-substep lag).
+        div_for_j = ratio * b.div_s + (1.0 - ratio) * div_new
+    else:
+        div_for_j = div_new
+    on = b.mask > 0
+    if ext:
+        jbar_new = torch.where(on, out[:, 15], 1.0)
+        p_new = out[:, 16] * b.mask
+        div_s_new = out[:, 17] * b.mask
+    else:
+        jbar_new, p_new, div_s_new = b.jbar_s, b.p_s, b.div_s
+    fm = _fmat(b)
+    if scene.materials_present != (mat.WEAKLY_COMPRESSIBLE_FLUID,):
+        # F <- (I + dt C) F; the fluid's stress never reads F, so a
+        # fluid-only scene leaves it alone.
+        fm = [
+            sum(
+                ((1.0 + dt * c_new[3 * a + e]) if a == e else dt * c_new[3 * a + e])
+                * fm[3 * e + c]
+                for e in range(3)
+            )
+            for a in range(3) for c in range(3)
+        ]
+    return dataclasses.replace(
+        b,
+        x0=b.x0 + dt * vpic[0] * b.mask,
+        x1=b.x1 + dt * vpic[1] * b.mask,
+        x2=b.x2 + dt * vpic[2] * b.mask,
+        v0=nv[0] * b.mask, v1=nv[1] * b.mask, v2=nv[2] * b.mask,
+        **{f"C{a}{c}": c_new[3 * a + c] for a in range(3) for c in range(3)},
+        **{f"F{a}{c}": fm[3 * a + c] for a in range(3) for c in range(3)},
+        J=torch.where(on, b.J * (1.0 + dt * div_for_j), 1.0),
+        jbar_s=jbar_new, p_s=p_new, div_s=div_s_new,
+    )
+
+
+def substep(
+    b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool = False
+) -> FluidBuckets3D:
+    """One fast substep (fast3d.py:505-934, single device).
+
+    `uses_fused` configs compute the stress inside `p2g3d_grid` and update
+    the particles inside `g2p3d` (absolute mass floor only); the others
+    prep their fields in torch and take `p2g3d_grid`'s prepped mode or,
+    without an absolute mass floor, `p2g3d`, then the gather-mode `g2p3d`
+    and the particle update.
+    `plain=True` calls the kernels' plain PyTorch versions even on a card:
+    it exists to time the plain path against the kernel path."""
+    check_supported(scene)
+    if uses_fused(scene):
+        return _fused_substep(b, scene, spec, plain)
+    return _prepped_substep(b, scene, spec, plain)
 
 
 def _needs_rebucket(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torch.Tensor:

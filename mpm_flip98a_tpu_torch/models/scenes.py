@@ -6,9 +6,9 @@ lattice filling a 0.057 x 0.114 m fluid column against the left wall of a
 cells (config.py:37-39).  The lattice is built in float64 numpy and cast
 to the requested dtype, exactly as the JAX builder does, so both packages
 start from the same bits.  `elastic_drop_2d` adds an elastic block to that
-column (BASELINE.json configs[2]); `dam_break_3d` and `slab_3d` are the 3D
-scenes.  Snow, sand and the collider scenes wait for ROADMAP queue 1,
-item 8.
+column (BASELINE.json configs[2]); `dam_break_3d`, `slab_3d` and
+`elastic_drop_3d` are the 3D scenes.  Snow, sand and the collider scenes
+wait for ROADMAP queue 1, item 8.
 """
 
 from __future__ import annotations
@@ -187,3 +187,63 @@ def dam_break_3d(
     vol = (w * h * w) / len(x)
     p = Particles.init(torch.from_numpy(x), volume0=vol, density=physics.particle_density)
     return p, _fluid_scene(cfg, physics, p)
+
+
+def elastic_drop_3d(
+    num_grids: int = 16,
+    fluid_particles: Tuple[int, int, int] = (8, 8, 4),
+    block_particles: Tuple[int, int, int] = (4, 4, 4),
+    physics: Physics = Physics(),
+    dtype=np.float32,
+    dt: float = 2e-5,
+    block_material: int = mat.NEO_HOOKEAN,
+    plastic: bool = False,
+    **cfg_kwargs,
+) -> Tuple[Particles, Scene]:
+    """3D mixed-material scene: an elastic block (E = 5e4 Pa, nu = 0.3,
+    400 kg/m^3) dropped onto a fluid slab, the 3D analogue of
+    `elastic_drop_2d` / BASELINE.json configs[2].  Extra kwargs go to
+    MPMConfig."""
+    cfg = MPMConfig(
+        dim=3, dtype=np.dtype(dtype).name, num_grids=num_grids, dt=dt, **cfg_kwargs,
+    )
+    l = cfg.domain_length
+    fsize = (0.9 * l, 0.9 * l, 0.25 * l)
+    fluid_x = _lattice(fluid_particles, (0.0, 0.0, 0.0), fsize, dtype)
+    side = 0.2 * l
+    block_x = _lattice(block_particles, (0.4 * l, 0.4 * l, 0.55 * l), (side,) * 3, dtype)
+    x = np.concatenate([fluid_x, block_x], axis=0)
+    material = np.concatenate([
+        np.full(len(fluid_x), mat.WEAKLY_COMPRESSIBLE_FLUID, np.int32),
+        np.full(len(block_x), block_material, np.int32),
+    ])
+    vol_f = fsize[0] * fsize[1] * fsize[2] / len(fluid_x)
+    vol_b = side**3 / len(block_x)
+    volume0 = np.concatenate(
+        [np.full(len(fluid_x), vol_f), np.full(len(block_x), vol_b)]
+    ).astype(dtype)
+    density = np.concatenate(
+        [np.full(len(fluid_x), physics.particle_density), np.full(len(block_x), 400.0)]
+    ).astype(dtype)
+    p = Particles.init(
+        torch.from_numpy(x),
+        volume0=torch.from_numpy(volume0),
+        density=torch.from_numpy(density),
+        material=torch.from_numpy(material),
+    )
+    e_block, nu_block = 5e4, 0.3
+    scene = Scene(
+        cfg=cfg,
+        physics=physics,
+        params=mat.MaterialParams(
+            bulk_modulus=physics.bulk_modulus,
+            dynamic_viscosity=physics.dynamic_viscosity,
+            mu=e_block / (2 * (1 + nu_block)),
+            lam=e_block * nu_block / ((1 + nu_block) * (1 - 2 * nu_block)),
+            plastic=plastic,
+        ),
+        materials_present=(mat.WEAKLY_COMPRESSIBLE_FLUID, block_material),
+        wall=WallBC("slip"),
+        mass_floor=_floor_of(p),
+    )
+    return p, scene

@@ -9,42 +9,59 @@ gather into one-hot matrix products and, for P2G, carry target rows
 between consecutive grid steps in a rolling VMEM scratch.  Blocks on a GPU
 run in no order, so here each slot touches its 27 nodes directly:
 
+- `p2g3d` (csrc/p2g3d.cu) replaces the Pallas `p2g3d` (transfer3d.py:349,
+  pallas_call :408): the scatter of prepped fields [m v, P, Q, m (, V0 J,
+  V0, V0 p, V0 div)] into the expanded (R0, 5, G1, nch, G2) layout that
+  `fold_rows0` folds; one block per (source axis-0 row, target axis-1
+  row) owns its (5, nch, G2) slab in shared memory.
 - `p2g3d_grid` (csrc/p2g3d_grid.cu) replaces the Pallas `p2g3d_grid`
-  (transfer3d.py:622, pallas_call :709) in its stress mode: per-slot fluid
-  stress, the scatter of [m v (pure, 3), m v + f (forced, 3), m] with
-  float atomics into a raw padded buffer, then one thread per node for
-  the grid update (mass floor, gravity, slip / sticky walls or the
-  diagonal penalty solve) -> the finished G2P-ready padded grid.
+  (transfer3d.py:622, pallas_call :709): the scatter with float atomics
+  into a raw padded buffer, of the per-slot fluid stress (stress mode) or
+  of prepped fields (`stress=None`, with `ext` and `tent`), then one
+  thread per node for the grid update (mass floor, gravity, slip / sticky
+  walls or the diagonal penalty solve, the nodal Jbar, p and div under
+  `ext`) -> the finished G2P-ready padded grid.
 - `g2p3d` (csrc/g2p3d.cu) replaces the Pallas `g2p3d` (transfer3d.py:930,
-  pallas_call :995) in its update mode on a grid prepadded on both axes:
-  the 27-node gather, C = D^-1 sum w v (x_node - x_p)^T, the FLIP blend,
-  advection of x and the J update.
+  pallas_call :995): the 27-node gather and C = D^-1 sum w v (x_node -
+  x_p)^T, then either the particle update (update mode: FLIP blend,
+  advection, J) or the raw gathers (gather mode, 15 outputs, 18 with the
+  extended grid; B-spline or tent taps).
 
 Each kernel has a plain PyTorch version with the same contract beside it
-(`p2g3d_grid_plain`, `g2p3d_plain`).  A wrapper takes the plain version
-only for tensors on the CPU; for CUDA tensors it launches its kernel or
-raises.  `LAUNCHES` counts kernel launches per wrapper.
+(`p2g3d_plain`, `p2g3d_grid_plain`, `g2p3d_plain`).  A wrapper takes the
+plain version only for tensors on the CPU; for CUDA tensors it launches
+its kernel or raises.  `LAUNCHES` counts kernel launches per wrapper.
 
 Layouts are the JAX package's, so the two compare at this boundary:
-  P2G in  : 18 (R0, R1, K) f32 planes [gx0, gx1, gx2, v0, v1, v2,
-            C00..C22, J, mass, vol0], counts (R0 * R1,) int32
-  P2G out : (R0 + 4, R1 + 4, 6, G2) = [v_new (3), v_old (3)]; plane/row j
-            is target row j - 1 on both bucketed axes
-  G2P in  : gx0..2, mask, v0..2, J, x0..2 as (R0, R1, K), counts, that
-            padded grid
-  G2P out : (R0, R1, 16, K) = [x (3), v (3), C00..C22, J]
+  P2G in  : stress mode: 18 (R0, R1, K) f32 planes [gx0, gx1, gx2, v0, v1,
+            v2, C00..C22, J, mass, vol0]; prepped: [gx (3), m v (3),
+            P00..P22 (APIC only), Q00..Q22, m (, V0 J, V0, V0 p, V0 div)],
+            16 to 29 planes; counts (R0 * R1,) int32
+  P2G out : `p2g3d`: (R0, 5, G1, nch, G2), nch = 7 or 11 = [m v pure (3),
+            m v forced (3), m (, ext 4)]; [i0, t0, row] is bucket row
+            i0's share of target rows (i0 + t0 - 1, row).  `p2g3d_grid`:
+            (R0 + 4, R1 + 4, 6 or 9, G2) = [v_new (3), v_old (3) (, Jbar,
+            p, div)]; plane/row j is target row j - 1 on both axes
+  G2P in  : gx0..2 and mask (R0, R1, K), counts, a grid of 6 or 9
+            channels: padded on both axes, on axis 0 only, or unpadded
+            (then zero-padded here, as the JAX function pads in XLA);
+            update mode also v0..2, J, x0..2
+  G2P out : update mode (R0, R1, 16, K) = [x (3), v (3), C00..C22, J];
+            gather mode (R0, R1, 15 or 18, K) = [vpic (3), v_old (3),
+            C00..C22 (, Jbar, p, div)]
 A plane may be a channel slice of a larger tensor (the previous G2P
 output): the kernels take each plane's pencil stride, so the state needs
 no copy between substeps.
 
-Semantics kept from the TPU kernels: axis-0 target rows outside [0, R0)
-come out zero; the axis-1 pad rows keep what is scattered there (the TPU
-kernel crops axis 0 only, and G2P reads those rows back); z taps outside
-[0, G2) are dropped; P2G and G2P read the same precomputed gx.  Slots past
-a pencil's count are skipped by P2G and get the dead fill in G2P: x passed
-through, v = C = 0, J = 1.  The tent kernel, the extended channels, the
-prepped-pdata and raw (sharded) modes, in-kernel colliders, G2P's gather
-mode and one-axis prepadding are not on the ported path (ROADMAP queue 2).
+Semantics kept from the TPU kernels: `p2g3d_grid`'s axis-0 target rows
+outside [0, R0) come out zero while its axis-1 pad rows keep what is
+scattered there (the TPU kernel crops axis 0 only, and G2P reads those
+rows back); `p2g3d` drops taps whose axis-1 row is outside [0, G1); z
+taps outside [0, G2) are dropped; P2G and G2P read the same precomputed
+gx.  Slots past a pencil's count are skipped by P2G; G2P gives them the
+dead fill in update mode (x passed through, v = C = 0, J = 1) and zeros
+in gather mode.  The sharded modes (`raw`, `halo1`), in-kernel colliders
+and `p2g3d`'s stress mode are not ported (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -55,19 +72,23 @@ import torch
 
 from mpm_flip98a_tpu_torch import _build
 from mpm_flip98a_tpu_torch.ops.cuda.transfer2d import (
-    EOS_CODES, _axis_weights, _check, _col_weights, _ptr, _raise_on, _route, _stream,
+    EOS_CODES, _check, _col_weights, _ptr, _raise_on, _route, _stream, _taps,
 )
 
-NT = 5          # candidate target rows per bucketed axis: bucket row - 1 .. + 3
-P2G_CH = 7      # raw sums: m v pure (3), m v forced (3), m
-G2P_CH = 6      # finished grid: v_new (3), v_old (3)
-G2P_UPD = 16    # update-mode output: x (3), v (3), C (9), J
-N_P2G_IN = 18
-N_G2P_IN = 11
+NT = 5            # candidate target rows per bucketed axis: bucket row - 1 .. + 3
+P2G_CH = 7        # raw sums: m v pure (3), m v forced (3), m
+P2G_CH_EXT = 11   # + V0 J, V0, V0 p, V0 div
+G2P_CH = 6        # finished grid: v_new (3), v_old (3)
+G2P_CH_EXT = 9    # + Jbar, p, div
+G2P_OUT = 15      # gather-mode output: vpic (3), v_old (3), C (9)
+G2P_OUT_EXT = 18  # + Jbar, p, div
+G2P_UPD = 16      # update-mode output: x (3), v (3), C (9), J
+N_P2G_IN = 18     # stress-mode input planes
+N_PREPPED_MAX = 29
 WALL_CODES = {"slip": 0, "sticky": 1, "penalty": 2}
 
 # Kernel launches per wrapper (the plain versions do not count).
-LAUNCHES = {"p2g3d_grid": 0, "g2p3d": 0}
+LAUNCHES = {"p2g3d": 0, "p2g3d_grid": 0, "g2p3d": 0}
 
 
 def reset_launches() -> None:
@@ -89,10 +110,11 @@ def _check_plane(name: str, t: torch.Tensor, shape) -> int:
 
 
 def _plane_args(planes, strides):
-    """Host arrays of plane pointers and pencil strides for the C entry."""
+    """Host arrays of plane pointers and pencil strides for the C entry; a
+    None plane (one the mode does not read) goes in as a null pointer."""
     n = len(planes)
     return (
-        (ctypes.c_void_p * n)(*(p.data_ptr() for p in planes)),
+        (ctypes.c_void_p * n)(*(None if p is None else p.data_ptr() for p in planes)),
         (ctypes.c_longlong * n)(*strides),
     )
 
@@ -118,13 +140,13 @@ def _margin(gx0, gx1, i0, i1):
 
 
 # ---------------------------------------------------------------------------
-# P2G + grid update
+# P2G
 # ---------------------------------------------------------------------------
 
 
 def _fluid_affine(fields, apic, stress, kb, mu, gamma, fa):
     """Per-slot m v, P = m C (APIC) and Q = P + fa tau, as _p2g3d_chunk
-    (transfer3d.py:208-236).  Returns (mv, P or None, Q, mass)."""
+    (transfer3d.py:208-236).  Returns (mv, P or None, Q, [mass])."""
     v3 = fields[3:6]
     cm = fields[6:15]
     jj, mass, vol0 = fields[15], fields[16], fields[17]
@@ -147,13 +169,47 @@ def _fluid_affine(fields, apic, stress, kb, mu, gamma, fa):
             else:
                 tau = vj * ((2.0 * mu) * dev)
             q_aff.append(p_aff[3 * a + c] + fa * tau if apic else fa * tau)
-    return mv, p_aff, q_aff, mass
+    return mv, p_aff, q_aff, [mass]
 
 
-def p2g3d_raw_plain(fields, counts, g2, dx, apic, stress, kb, mu, gamma, fa):
-    """The scatter half of `p2g3d_grid_plain`: raw sums (R0 + 4, R1 + 4, 7,
-    G2) = [m v pure (3), m v forced (3), m], plane/row j = target j - 1.
-    One `index_add_` per stencil tap over the live in-margin slots."""
+def n_prepped(apic: bool, ext: bool) -> int:
+    """Planes of the prepped P2G input: gx (3), m v (3), P (9, APIC only),
+    Q (9), m and, with `ext`, V0 J, V0, V0 p, V0 div."""
+    return 3 + 3 + (9 if apic else 0) + 9 + 1 + (4 if ext else 0)
+
+
+def _split_prepped(fields, apic: bool, ext: bool):
+    """(mv, P or None, Q, [m, *ext]) of the prepped planes
+    (transfer3d.py:239-248)."""
+    if len(fields) != n_prepped(apic, ext):
+        raise ValueError(
+            f"fields: expected {n_prepped(apic, ext)} prepped planes "
+            f"(apic={apic}, ext={ext}), got {len(fields)}"
+        )
+    qb = 15 if apic else 6
+    p_aff = fields[6:15] if apic else None
+    return fields[3:6], p_aff, fields[qb : qb + 9], list(fields[qb + 9 :])
+
+
+def _slot_values(fields, apic, stress, kb, mu, gamma, fa, ext):
+    if stress is None:
+        return _split_prepped(fields, apic, ext)
+    if ext or len(fields) != N_P2G_IN:
+        raise ValueError(
+            f"stress mode takes {N_P2G_IN} planes and no ext, got {len(fields)} (ext={ext})"
+        )
+    return _fluid_affine(fields, apic, stress, kb, mu, gamma, fa)
+
+
+def _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=None):
+    """Shared plain P2G body: channels [m v pure (3), m v forced (3),
+    *plain] of the live in-margin slots, one `index_add_` per stencil tap.
+
+    With `g1` the target is the expanded (R0, 5, G1, nch, G2) layout of
+    `p2g3d` (taps on axis-1 rows outside [0, G1) dropped); without, the
+    raw padded (R0 + 4, R1 + 4, nch, G2) sums of `p2g3d_grid` (plane/row
+    j = target j - 1; the axis-1 pad rows keep their taps).  `values` maps
+    the slot-selected planes to (mv, P or None, Q, plain)."""
     r0, r1, k = fields[0].shape
     dev = fields[0].device
     live, i0, i1 = _live_slots(counts, r0, r1, k)
@@ -161,21 +217,31 @@ def p2g3d_raw_plain(fields, counts, g2, dx, apic, stress, kb, mu, gamma, fa):
     fields = [f[live][ok] for f in fields]
     gx0, gx1, gx2 = fields[:3]
     base0, base1, base2 = base0[ok], base1[ok], torch.floor(gx2 - 0.5)
-    mv, p_aff, q_aff, mass = _fluid_affine(fields, apic, stress, kb, mu, gamma, fa)
-    w0 = _axis_weights(gx0 - base0)
-    w1 = _axis_weights(gx1 - base1)
-    # Padded plane of tap (j0, j1): bucket row + rel + j + 1 on each axis.
-    p0 = (i0 + rel0)[ok].long() + 1
-    p1 = (i1 + rel1)[ok].long() + 1
-    pl1 = r1 + NT - 1
-    out = torch.zeros((r0 + NT - 1) * pl1 * P2G_CH * g2, dtype=gx0.dtype, device=dev)
-    chan = torch.arange(P2G_CH, device=dev)[:, None] * g2
+    mv, p_aff, q_aff, plain = values(fields)
+    apic = p_aff is not None
+    nch = 6 + len(plain)
+    w0 = _taps(gx0 - base0, tent)
+    w1 = _taps(gx1 - base1, tent)
+    i0, rel0, rel1 = i0[ok].long(), rel0[ok].long(), rel1[ok].long()
+    row1 = i1[ok].long() + rel1          # target axis-1 row of tap j1 = 0
+    if g1 is None:
+        pl1 = r1 + NT - 1
+        out = torch.zeros((r0 + NT - 1, pl1, nch, g2), dtype=gx0.dtype, device=dev)
+    else:
+        out = torch.zeros((r0, NT, g1, nch, g2), dtype=gx0.dtype, device=dev)
+    flat = out.view(-1)
+    chan = torch.arange(nch, device=dev)[:, None] * g2
     for j0 in range(3):
         rdp0 = (base0 + float(j0) - gx0) * dx
         for j1 in range(3):
             rdp1 = (base1 + float(j1) - gx1) * dx
             w01 = w0[j0] * w1[j1]
-            row = ((p0 + j0) * pl1 + (p1 + j1)) * P2G_CH * g2
+            if g1 is None:
+                in1 = None
+                row = ((i0 + rel0 + (j0 + 1)) * pl1 + (row1 + (j1 + 1))) * nch * g2
+            else:
+                in1 = (row1 + j1 >= 0) & (row1 + j1 < g1)
+                row = ((i0 * NT + rel0 + (j0 + 1)) * g1 + (row1 + j1).clamp(0, g1 - 1)) * nch * g2
             # In-plane affine parts, shared by the three z taps.
             forced = [mv[a] + q_aff[3 * a] * rdp0 + q_aff[3 * a + 1] * rdp1 for a in range(3)]
             if apic:
@@ -183,24 +249,111 @@ def p2g3d_raw_plain(fields, counts, g2, dx, apic, stress, kb, mu, gamma, fa):
             for j2 in range(3):
                 c = base2 + float(j2)
                 inz = (c >= 0.0) & (c < g2)
+                if in1 is not None:
+                    inz = inz & in1
                 d = c - gx2
                 cd = d * dx
-                w = w01 * _col_weights(d)
+                w = w01 * _col_weights(d, tent)
                 if apic:
                     ch_pure = [w * (pure[a] + p_aff[3 * a + 2] * cd) for a in range(3)]
                 else:
                     ch_pure = [w * mv[a] for a in range(3)]
                 ch_forced = [w * (forced[a] + q_aff[3 * a + 2] * cd) for a in range(3)]
-                vals = torch.stack([*ch_pure, *ch_forced, w * mass])   # (7, n)
+                vals = torch.stack([*ch_pure, *ch_forced, *(w * e for e in plain)])   # (nch, n)
                 idx = (row + torch.where(inz, c, 0.0).long())[None, :] + chan
-                out.index_add_(0, idx[:, inz].reshape(-1), vals[:, inz].reshape(-1))
-    return out.view(r0 + NT - 1, pl1, P2G_CH, g2)
+                flat.index_add_(0, idx[:, inz].reshape(-1), vals[:, inz].reshape(-1))
+    return out
 
 
-def grid_update3d_plain(raw, r0, dt, grav, floor, lo, hi, wall, beta):
+def p2g3d_plain(fields, counts, g1, g2, dx, apic=True, ext=False, tent=False):
+    """Plain PyTorch version of `p2g3d`: `index_add_` tap by tap into the
+    expanded (R0, 5, G1, nch, G2) layout.  Sequential and deterministic on
+    the CPU; on a card `index_add_` sums with atomics in no fixed order."""
+    values = lambda sel: _split_prepped(sel, apic, ext)
+    return _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=g1)
+
+
+def _check_fields(fields, n_in: int):
+    if len(fields) != n_in:
+        raise ValueError(f"fields: expected {n_in} planes, got {len(fields)}")
+    r0, r1, k = fields[0].shape
+    return r0, r1, k, [_check_plane(f"fields[{i}]", f, (r0, r1, k)) for i, f in enumerate(fields)]
+
+
+def _prepped_plane_args(fields, strides, apic: bool, ext: bool):
+    """The prepped planes in the kernels' fixed 29-entry order [gx (3),
+    m v (3), P (9), Q (9), m, ext (4)], null where the mode has none."""
+    planes, pstr = [None] * N_PREPPED_MAX, [0] * N_PREPPED_MAX
+    at = [*range(6), *(range(6, 15) if apic else ()), *range(15, 25),
+          *(range(25, 29) if ext else ())]
+    for slot, f, s in zip(at, fields, strides):
+        planes[slot], pstr[slot] = f, s
+    return _plane_args(planes, pstr)
+
+
+def p2g3d(
+    fields, counts, g1, g2, dx, apic=True, ext=False, stress=None, tent=False, halo1=False,
+):
+    """Expanded P2G of prepped fields (the arguments of the JAX `p2g3d`):
+    `n_prepped(apic, ext)` (R0, R1, K) planes, counts (R0 * R1,) int32 ->
+    (R0, 5, G1, nch, G2), nch = 11 with `ext` else 7, for `fold_rows0`.
+
+    The stress mode has no single-device caller and `halo1` serves
+    two-axis sharding: both raise NotImplementedError."""
+    if stress is not None:
+        raise NotImplementedError(
+            "p2g3d's stress mode is not ported (no single-device caller: ROADMAP queue 2)"
+        )
+    if halo1:
+        raise NotImplementedError(
+            "p2g3d's halo1 mode is not ported yet (ROADMAP queue 1, item 10)"
+        )
+    r0, r1, k, strides = _check_fields(fields, n_prepped(apic, ext))
+    _check("counts", counts, (r0 * r1,), torch.int32)
+    if _route(counts, *fields) == "cpu":
+        return p2g3d_plain(fields, counts, g1, g2, dx, apic, ext, tent)
+    lib = _build.load().lib
+    nch = P2G_CH_EXT if ext else P2G_CH
+    out = torch.empty((r0, NT, g1, nch, g2), dtype=torch.float32, device=counts.device)
+    ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)
+    rc = lib.mpm_p2g3d(
+        ptrs, pstr, _ptr(counts), _ptr(out), r0, r1, k, g1, g2, nch, int(apic), int(tent),
+        dx, _stream(counts),
+    )
+    LAUNCHES["p2g3d"] += 1
+    _raise_on(rc, "p2g3d")
+    return out
+
+
+def fold_rows0(expanded: torch.Tensor) -> torch.Tensor:
+    """(R0, 5, G1, ch, G2) -> (G0, G1, ch, G2): grid row g = sum_t
+    expanded[g + 1 - t, t].  Plain torch (the JAX package leaves it to XLA
+    too): five shifted adds in the reference's order (transfer3d.py:
+    736-749), so the result is bit-identical."""
+    r, nt, g1, ch, g2 = expanded.shape
+    buf = torch.zeros((r + nt - 1, g1, ch, g2), dtype=expanded.dtype, device=expanded.device)
+    for t in range(nt):
+        buf[t : t + r] += expanded[:, t]
+    return buf[1 : r + 1]
+
+
+def p2g3d_raw_plain(
+    fields, counts, g2, dx, apic=True, stress=None, kb=0.0, mu=0.0, gamma=7.0, fa=0.0,
+    tent=False, ext=False,
+):
+    """The scatter half of `p2g3d_grid_plain`: raw sums (R0 + 4, R1 + 4,
+    7 or 11, G2) = [m v pure (3), m v forced (3), m (, V0 J, V0, V0 p,
+    V0 div)], plane/row j = target j - 1."""
+    values = lambda sel: _slot_values(sel, apic, stress, kb, mu, gamma, fa, ext)
+    return _scatter3d_plain(fields, counts, values, g2, dx, tent)
+
+
+def grid_update3d_plain(raw, r0, dt, grav, floor, lo, hi, wall, beta, ext=False):
     """The node half of `p2g3d_grid_plain`, as _emit_and_roll
-    (transfer3d.py:491-547): raw (R0 + 4, R1 + 4, 7, G2) sums -> the
-    finished (R0 + 4, R1 + 4, 6, G2) grid; axis-0 pad rows come out 0."""
+    (transfer3d.py:491-585): raw (R0 + 4, R1 + 4, 7 or 11, G2) sums -> the
+    finished (R0 + 4, R1 + 4, 6 or 9, G2) grid; axis-0 pad rows come out
+    0.  With `ext` the nodal Jbar = sum V0 J / sum V0 (1 on interior rows
+    where no volume landed), p and div (0 there)."""
     pr0, pl1, _, g2 = raw.shape
     dev = raw.device
     t0r = torch.arange(pr0, device=dev)[:, None, None] - 1      # target rows
@@ -232,91 +385,152 @@ def grid_update3d_plain(raw, r0, dt, grav, floor, lo, hi, wall, beta):
             for a, (low, high) in enumerate(((a0l, a0h), (a1l, a1h), (a2l, a2h))):
                 v[a] = torch.where(low, v[a].clamp(min=0.0), v[a])
                 v[a] = torch.where(high, v[a].clamp(max=0.0), v[a])
-    return torch.stack(v + v_old, dim=2)
+    extra = []
+    if ext:
+        v0sum = raw[:, :, 8]
+        has_v = (v0sum > 0) & interior
+        safe_v = torch.where(has_v, v0sum, 1.0)
+        extra = [
+            torch.where(has_v, raw[:, :, 7] / safe_v, interior.to(raw.dtype)),
+            torch.where(has_v, raw[:, :, 9] / safe_v, 0.0),
+            torch.where(has_v, raw[:, :, 10] / safe_v, 0.0),
+        ]
+    return torch.stack(v + v_old + extra, dim=2)
 
 
 def p2g3d_grid_plain(
-    fields, counts, g1, g2, dx, apic, stress, kb, mu, gamma, fa,
-    *, dt, grav, floor, lo, hi, wall, beta=0.0,
+    fields, counts, g1, g2, dx, apic=True, stress=None, kb=0.0, mu=0.0, gamma=7.0, fa=0.0,
+    tent=False, ext=False, *, dt, grav, floor, lo, hi, wall, beta=0.0,
 ):
     """Plain PyTorch version of `p2g3d_grid`: `index_add_` tap by tap into
     the raw padded sums, then the grid update on whole planes.  Sequential
     and deterministic on the CPU; on a card `index_add_` sums with atomics
     in no fixed order."""
-    raw = p2g3d_raw_plain(fields, counts, g2, dx, apic, stress, kb, mu, gamma, fa)
-    return grid_update3d_plain(raw, fields[0].shape[0], dt, grav, floor, lo, hi, wall, beta)
+    raw = p2g3d_raw_plain(fields, counts, g2, dx, apic, stress, kb, mu, gamma, fa, tent, ext)
+    return grid_update3d_plain(raw, fields[0].shape[0], dt, grav, floor, lo, hi, wall, beta, ext)
 
 
 def p2g3d_grid(
-    fields, counts, g1, g2, dx, apic, stress, kb, mu, gamma, fa,
-    *, dt, grav, floor, lo, hi, wall, beta=0.0, raw=None,
+    fields, counts, g1, g2, dx, apic=True, stress=None, kb=0.0, mu=0.0, gamma=7.0, fa=0.0,
+    tent=False, ext=False, raw=False,
+    *, dt, grav, floor, lo, hi, wall, beta=0.0, raw_out=None,
 ):
-    """Single-device fused P2G + grid update, stress mode (the arguments
-    of the JAX `p2g3d_grid`): 18 (R0, R1, K) planes, counts (R0 * R1,)
-    int32 -> the finished (R0 + 4, R1 + 4, 6, G2) grid.
+    """Single-device fused P2G + grid update (the arguments of the JAX
+    `p2g3d_grid`): counts (R0 * R1,) int32 and either 18 (R0, R1, K)
+    state planes with `stress` "linear" or "tait" (B-spline, no ext), or
+    `n_prepped(apic, ext)` prepped planes with `stress=None` -> the
+    finished (R0 + 4, R1 + 4, 6 or 9, G2) grid.
 
-    `raw`, a CUDA tensor (R0 + 4, R1 + 4, 7, G2) f32, is the kernel's
-    scratch for the raw sums; pass one to read them after the call."""
-    if len(fields) != N_P2G_IN:
-        raise ValueError(f"fields: expected {N_P2G_IN} planes, got {len(fields)}")
-    r0, r1, k = fields[0].shape
+    `raw_out`, a CUDA tensor (R0 + 4, R1 + 4, 7 or 11, G2) f32, is the
+    kernel's scratch for the raw sums; pass one to read them after the
+    call.  `raw=True` (raw halo sums for sharded runs) is not ported."""
+    if raw:
+        raise NotImplementedError(
+            "p2g3d_grid's raw mode is not ported yet (ROADMAP queue 1, item 10)"
+        )
+    if stress is None:
+        n_in = n_prepped(apic, ext)
+    elif stress not in EOS_CODES:
+        raise ValueError(f"unknown stress {stress!r}")
+    elif ext or tent:
+        raise ValueError("stress mode has no ext or tent form: prep the fields (stress=None)")
+    else:
+        n_in = N_P2G_IN
+    r0, r1, k, strides = _check_fields(fields, n_in)
     if g1 != r1:
         raise ValueError(f"g1 ({g1}) must equal the pencil rows R1 ({r1})")
-    strides = [_check_plane(f"fields[{i}]", f, (r0, r1, k)) for i, f in enumerate(fields)]
     _check("counts", counts, (r0 * r1,), torch.int32)
-    if stress not in EOS_CODES:
-        raise ValueError(f"unknown stress {stress!r}")
     if wall not in WALL_CODES:
         raise ValueError(f"unknown wall {wall!r}")
     kw = dict(dt=dt, grav=grav, floor=floor, lo=lo, hi=hi, wall=wall, beta=beta)
     if _route(counts, *fields) == "cpu":
-        return p2g3d_grid_plain(fields, counts, g1, g2, dx, apic, stress, kb, mu, gamma, fa, **kw)
+        return p2g3d_grid_plain(
+            fields, counts, g1, g2, dx, apic, stress, kb, mu, gamma, fa, tent, ext, **kw
+        )
     lib = _build.load().lib
     dev = counts.device
-    if raw is None:
-        raw = torch.empty((r0 + NT - 1, r1 + NT - 1, P2G_CH, g2), dtype=torch.float32, device=dev)
-    _check("raw", raw, (r0 + NT - 1, r1 + NT - 1, P2G_CH, g2), torch.float32)
-    _route(counts, raw)
-    out = torch.empty((r0 + NT - 1, r1 + NT - 1, G2P_CH, g2), dtype=torch.float32, device=dev)
-    ptrs, pstr = _plane_args(fields, strides)
-    rc = lib.mpm_p2g3d_grid(
-        ptrs, pstr, _ptr(counts), _ptr(raw), _ptr(out), r0, r1, k, g2, dx,
-        int(apic), EOS_CODES[stress], kb, kb / gamma, gamma, 2.0 * mu, fa,
-        *(dt * g for g in grav), floor, lo, hi, WALL_CODES[wall], dt * beta,
-        _stream(counts),
+    nch = P2G_CH_EXT if ext else P2G_CH
+    raw_shape = (r0 + NT - 1, r1 + NT - 1, nch, g2)
+    if raw_out is None:
+        raw_out = torch.empty(raw_shape, dtype=torch.float32, device=dev)
+    _check("raw_out", raw_out, raw_shape, torch.float32)
+    _route(counts, raw_out)
+    out = torch.empty(
+        (r0 + NT - 1, r1 + NT - 1, G2P_CH_EXT if ext else G2P_CH, g2),
+        dtype=torch.float32, device=dev,
     )
+    node = (*(dt * g for g in grav), floor, lo, hi, WALL_CODES[wall], dt * beta, _stream(counts))
+    if stress is None:
+        ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)
+        rc = lib.mpm_p2g3d_grid_pdata(
+            ptrs, pstr, _ptr(counts), _ptr(raw_out), _ptr(out), r0, r1, k, g2, nch,
+            int(apic), int(tent), dx, *node,
+        )
+    else:
+        ptrs, pstr = _plane_args(fields, strides)
+        rc = lib.mpm_p2g3d_grid(
+            ptrs, pstr, _ptr(counts), _ptr(raw_out), _ptr(out), r0, r1, k, g2, dx,
+            int(apic), EOS_CODES[stress], kb, kb / gamma, gamma, 2.0 * mu, fa, *node,
+        )
     LAUNCHES["p2g3d_grid"] += 1
     _raise_on(rc, "p2g3d_grid")
     return out
 
 
 # ---------------------------------------------------------------------------
-# G2P (update mode)
+# G2P
 # ---------------------------------------------------------------------------
 
 
-def g2p3d_plain(gx0, gx1, gx2, mask, counts, grid, dx, dinv, state, alpha, dtv):
+def _padded_grid(grid: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """The grid padded to (R0 + 4, R1 + 4, gch, G2), plane/row j = target
+    row j - 1, from a grid padded on both axes (returned as it is), on
+    axis 0 only, or on neither (transfer3d.py:960-975 pads the same way)."""
+    if grid.dim() != 4 or grid.shape[2] not in (G2P_CH, G2P_CH_EXT):
+        raise ValueError(f"grid: expected (rows0, rows1, 6 or 9, G2), got {tuple(grid.shape)}")
+    p0, p1 = r0 + NT - 1, r1 + NT - 1
+    rows = tuple(grid.shape[:2])
+    if rows == (p0, p1):
+        return grid
+    if rows not in ((p0, r1), (r0, r1)):
+        raise ValueError(
+            f"grid: rows {rows} are neither ({r0}, {r1}) nor padded to {p0} on axis 0 "
+            f"or to ({p0}, {p1}) on both"
+        )
+    padded = torch.zeros((p0, p1, *grid.shape[2:]), dtype=grid.dtype, device=grid.device)
+    if rows[0] == p0:
+        padded[:, 1 : r1 + 1] = grid
+    else:
+        padded[1 : r0 + 1, 1 : r1 + 1] = grid
+    return padded
+
+
+def g2p3d_plain(
+    gx0, gx1, gx2, mask, counts, grid, dx, dinv, state=None, alpha=0.0, dtv=0.0, tent=False,
+):
     """Plain PyTorch version of `g2p3d`: over the live slots, per stencil
-    tap one gather of the 6 grid channels, then the particle update; the
-    other slots get the dead fill."""
+    tap one gather of the grid channels, then the particle update (update
+    mode, the other slots get the dead fill) or the raw gathers (gather
+    mode, the other slots zeros)."""
     r0, r1, k = gx0.shape
-    g2 = grid.shape[3]
+    grid = _padded_grid(grid, r0, r1)
+    gch, g2 = grid.shape[2], grid.shape[3]
     pl1 = r1 + NT - 1
     live, i0, i1 = _live_slots(counts, r0, r1, k)
-    # Slots past the count: x passed through, v = C = 0, J = 1.
-    out = torch.cat([
-        torch.stack(state[4:7], dim=2),
-        torch.zeros((r0, r1, 12, k), dtype=gx0.dtype, device=gx0.device),
-        torch.ones((r0, r1, 1, k), dtype=gx0.dtype, device=gx0.device),
-    ], dim=2)
+    if state is None:
+        out = torch.zeros((r0, r1, G2P_OUT + gch - G2P_CH, k), dtype=gx0.dtype, device=gx0.device)
+    else:
+        # Slots past the count: x passed through, v = C = 0, J = 1.
+        out = torch.cat([
+            torch.stack(state[4:7], dim=2),
+            torch.zeros((r0, r1, 12, k), dtype=gx0.dtype, device=gx0.device),
+            torch.ones((r0, r1, 1, k), dtype=gx0.dtype, device=gx0.device),
+        ], dim=2)
     gx0, gx1, gx2, mask = (a[live] for a in (gx0, gx1, gx2, mask))
-    v_prev = [a[live] for a in state[0:3]]
-    j_prev = state[3][live]
-    x_prev = [a[live] for a in state[4:7]]
     base0, base1, rel0, rel1, ok = _margin(gx0, gx1, i0, i1)
-    valid = mask * ok.float()
-    w0 = [w * valid for w in _axis_weights(gx0 - base0)]
-    w1 = _axis_weights(gx1 - base1)
+    valid = mask * ok.to(mask.dtype)
+    w0 = [w * valid for w in _taps(gx0 - base0, tent)]
+    w1 = _taps(gx1 - base1, tent)
     base2 = torch.floor(gx2 - 0.5)
     # Padded row of tap j on each axis: bucket row + rel + j + 1, in range
     # wherever the weight is not zero.
@@ -326,17 +540,18 @@ def g2p3d_plain(gx0, gx1, gx2, mask, counts, grid, dx, dinv, state, alpha, dtv):
     zero = torch.zeros_like(gx0)
     vpic, vold = [zero] * 3, [zero] * 3
     csum = [zero] * 9
+    extra = [zero] * (gch - G2P_CH)
     for j0 in range(3):
         rdp0 = (base0 + float(j0) - gx0) * dx
         for j1 in range(3):
             rdp1 = (base1 + float(j1) - gx1) * dx
             w01 = w0[j0] * w1[j1]
-            row = ((p0 + j0) * pl1 + (p1 + j1)) * G2P_CH * g2
+            row = ((p0 + j0) * pl1 + (p1 + j1)) * gch * g2
             for j2 in range(3):
                 c = base2 + float(j2)
                 inz = (c >= 0.0) & (c < g2)
                 d = c - gx2
-                w = torch.where(inz, w01 * _col_weights(d), 0.0)
+                w = torch.where(inz, w01 * _col_weights(d, tent), 0.0)
                 at = row + torch.where(inz, c, 0.0).long()
                 dxs = (rdp0, rdp1, d * dx)
                 for a in range(3):
@@ -346,7 +561,14 @@ def g2p3d_plain(gx0, gx1, gx2, mask, counts, grid, dx, dinv, state, alpha, dtv):
                     wv = w * vn
                     for bb in range(3):
                         csum[3 * a + bb] = csum[3 * a + bb] + wv * dxs[bb]
+                extra = [acc + w * flat[at + (G2P_CH + e) * g2] for e, acc in enumerate(extra)]
     cmat = [dinv * cs for cs in csum]
+    if state is None:
+        out.permute(0, 1, 3, 2)[live] = torch.stack(vpic + vold + cmat + extra, dim=1)
+        return out
+    v_prev = [a[live] for a in state[0:3]]
+    j_prev = state[3][live]
+    x_prev = [a[live] for a in state[4:7]]
     x_new = [x_prev[a] + dtv * vpic[a] * mask for a in range(3)]
     one_m_alpha = float(1.0 - alpha)
     v_new = [
@@ -359,29 +581,50 @@ def g2p3d_plain(gx0, gx1, gx2, mask, counts, grid, dx, dinv, state, alpha, dtv):
     return out
 
 
-def g2p3d(gx0, gx1, gx2, mask, counts, grid, dx, dinv, state, alpha, dtv):
-    """Update-mode G2P on a grid prepadded on both axes (the arguments of
-    the JAX `g2p3d(..., state=, prepadded0=True, prepadded1=True)`):
-    gx0..2 and mask (R0, R1, K), counts (R0 * R1,) int32, grid (R0 + 4,
-    R1 + 4, 6, G2), state = (v0, v1, v2, J, x0, x1, x2) -> (R0, R1, 16, K)
-    = [x (3), v (3), C00..C22, J]."""
+def g2p3d(
+    gx0, gx1, gx2, mask, counts, grid, dx, dinv, state=None, alpha=0.0, dtv=0.0, tent=False,
+):
+    """G2P of pencil-bucketed slots (the JAX `g2p3d`; its `ext` and
+    `prepadded0/1` flags are read off the grid's shape): gx0..2 and mask
+    (R0, R1, K), counts (R0 * R1,) int32, grid of 6 or 9 channels with
+    (R0 + 4, R1 + 4), (R0 + 4, R1) or (R0, R1) rows.
+
+    Update mode, `state` = (v0, v1, v2, J, x0, x1, x2) with a 6-channel
+    grid and B-spline taps -> (R0, R1, 16, K) = [x (3), v (3), C00..C22,
+    J].  Gather mode, `state=None` -> (R0, R1, 15 or 18, K) = [vpic (3),
+    v_old (3), C00..C22 (, Jbar, p, div)], zeros in slots past the count,
+    masked off or out of margin; with `tent` the caller passes dinv = 1
+    and inverts the per-particle D itself."""
     r0, r1, k = gx0.shape
-    planes = (gx0, gx1, gx2, mask, *state)
-    if len(planes) != N_G2P_IN:
+    update = state is not None
+    planes = (gx0, gx1, gx2, mask, *(state if update else ()))
+    if update and len(state) != 7:
         raise ValueError(f"state: expected 7 planes, got {len(state)}")
     strides = [_check_plane(f"plane[{i}]", p, (r0, r1, k)) for i, p in enumerate(planes)]
     _check("counts", counts, (r0 * r1,), torch.int32)
-    g2 = grid.shape[-1]
-    _check("grid", grid, (r0 + NT - 1, r1 + NT - 1, G2P_CH, g2), torch.float32)
+    if grid.dtype != torch.float32:
+        raise TypeError(f"grid: expected torch.float32, got {grid.dtype}")
+    grid = _padded_grid(grid, r0, r1)
+    gch, g2 = grid.shape[2], grid.shape[3]
+    if update and (gch != G2P_CH or tent):
+        raise ValueError("update mode takes the 6-channel grid and B-spline taps")
+    _check("grid", grid, (r0 + NT - 1, r1 + NT - 1, gch, g2), torch.float32)
     if _route(counts, grid, *planes) == "cpu":
-        return g2p3d_plain(gx0, gx1, gx2, mask, counts, grid, dx, dinv, state, alpha, dtv)
+        return g2p3d_plain(gx0, gx1, gx2, mask, counts, grid, dx, dinv, state, alpha, dtv, tent)
     lib = _build.load().lib
-    out = torch.empty((r0, r1, G2P_UPD, k), dtype=torch.float32, device=counts.device)
+    nout = G2P_UPD if update else G2P_OUT + gch - G2P_CH
+    out = torch.empty((r0, r1, nout, k), dtype=torch.float32, device=counts.device)
     ptrs, pstr = _plane_args(planes, strides)
-    rc = lib.mpm_g2p3d(
-        ptrs, pstr, _ptr(counts), _ptr(grid), _ptr(out), r0, r1, k, g2,
-        dx, dinv, alpha, 1.0 - alpha, dtv, _stream(counts),
-    )
+    if update:
+        rc = lib.mpm_g2p3d(
+            ptrs, pstr, _ptr(counts), _ptr(grid), _ptr(out), r0, r1, k, g2,
+            dx, dinv, alpha, 1.0 - alpha, dtv, _stream(counts),
+        )
+    else:
+        rc = lib.mpm_g2p3d_gather(
+            ptrs, pstr, _ptr(counts), _ptr(grid), _ptr(out), r0, r1, k, g2, gch, int(tent),
+            dx, dinv, _stream(counts),
+        )
     LAUNCHES["g2p3d"] += 1
     _raise_on(rc, "g2p3d")
     return out

@@ -9,7 +9,8 @@ import no JAX, so on a machine without it run them as
 Tolerance: per output channel, 1e-5 of the channel's max.  Both sides sum
 each node's fp32 terms in another order (shared-memory atomics in the 2D
 P2G kernel, global atomics in the 3D one, atomics in the plain
-`index_add_` on the card, FMA contraction in the G2P kernels).  The 3D
+`index_add_` on the card, FMA contraction in the G2P kernels; `p2g3d`
+adds in shared memory like the 2D kernel).  The 3D
 grid's velocities are sums divided by the nodal mass, so their error is
 weighted by that mass and scaled by the raw sum's max; G2P's C by one
 term's size, D^-1 dx |v|max, as its terms cancel.
@@ -251,7 +252,7 @@ def test_p2g3d_grid_kernel_matches_plain(dev, shape, wall):
     kw, dx, _ = _p2g3d_args(g, wall)
     raw = torch.empty((r + 4, r + 4, tk3.P2G_CH, g), device=dev)
     n0 = tk3.LAUNCHES["p2g3d_grid"]
-    got = tk3.p2g3d_grid(planes, counts, r, g, dx, raw=raw, **kw)
+    got = tk3.p2g3d_grid(planes, counts, r, g, dx, raw_out=raw, **kw)
     torch.cuda.synchronize()
     assert tk3.LAUNCHES["p2g3d_grid"] == n0 + 1
     scatter = {n: kw[n] for n in ("apic", "stress", "kb", "mu", "gamma", "fa")}
@@ -292,10 +293,164 @@ def test_3d_substeps_on_the_card_track_the_cpu(dev):
     tk3.reset_launches()
     stats = fast3d.RunStats()
     out = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, dev), scene, spec, 20, stats)
-    assert tk3.LAUNCHES == {"p2g3d_grid": 20, "g2p3d": 20} and stats.substeps == 20
+    assert tk3.LAUNCHES == {"p2g3d": 0, "p2g3d_grid": 20, "g2p3d": 20}
+    assert stats.substeps == 20
     ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec), scene, spec, 20)
     for a in range(3):
         np.testing.assert_allclose(
             getattr(out, f"x{a}").cpu().numpy(), getattr(ref, f"x{a}").numpy(), atol=1e-6
         )
+    assert int(out.overflow) == 0
+
+
+def _prepped3d(r, k, g, apic, ext, seed, device):
+    """Prepped P2G planes [gx (3), m v (3), P (9, APIC), Q (9), m (, ext
+    4)], value planes masked, on the ragged slots of `_inputs3d`."""
+    planes, live, counts = _inputs3d(r, k, g, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    mass, vol0 = planes[16], planes[17]
+    rand = lambda scale: torch.as_tensor(
+        rng.normal(0.0, scale, (r, r, k)), dtype=torch.float32, device=device)
+    fields = [*planes[:3], *(mass * v for v in planes[3:6])]
+    if apic:
+        fields += [mass * c for c in planes[6:15]]
+    fields += [rand(5.0) * live for _ in range(9)]
+    fields.append(mass)
+    if ext:
+        fields += [vol0 * planes[15], vol0, vol0 * rand(2e3), vol0 * rand(5.0)]
+    return tuple(f.contiguous() for f in fields), live, counts
+
+
+PREPPED_MODES = [(False, True, False), (True, False, False), (False, True, True)]
+PREPPED_IDS = ["pic_ext", "apic", "pic_ext_tent"]
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 16), (64, 128, 64), (8, 128, 2049)],
+                         ids=["small", "g64", "g2049_bands"])
+@pytest.mark.parametrize("apic,ext,tent", PREPPED_MODES, ids=PREPPED_IDS)
+def test_p2g3d_kernel_matches_plain(dev, shape, apic, ext, tent):
+    """At G2 = 2049 the 11-channel (5, 11, G2) slab (451 KB) exceeds the
+    opt-in shared memory, so the kernel runs in z bands."""
+    r, k, g = shape
+    fields, _, counts = _prepped3d(r, k, g, apic, ext, seed=r + apic, device=dev)
+    dx = 0.4375 / (g - 5)
+    n0 = tk3.LAUNCHES["p2g3d"]
+    got = tk3.p2g3d(fields, counts, r, g, dx, apic=apic, ext=ext, tent=tent)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["p2g3d"] == n0 + 1
+    assert got.shape == (r, 5, r, 11 if ext else 7, g)
+    want = tk3.p2g3d_plain(fields, counts, r, g, dx, apic, ext, tent)
+    _close(got, want, axis=3)
+    # The fold of the expanded sums is the interior of p2g3d_grid's raw
+    # sums (its axis-1 pad rows hold the taps that p2g3d drops).
+    raw = tk3.p2g3d_raw_plain(fields, counts, g, dx, apic=apic, tent=tent, ext=ext)
+    _close(tk3.fold_rows0(got), raw[1 : r + 1, 1 : r + 1], axis=2)
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 16), (64, 128, 64)], ids=["small", "g64"])
+@pytest.mark.parametrize("apic,ext,tent", PREPPED_MODES, ids=PREPPED_IDS)
+@pytest.mark.parametrize("wall", ["slip", "penalty"])
+def test_p2g3d_grid_prepped_kernel_matches_plain(dev, shape, apic, ext, tent, wall):
+    r, k, g = shape
+    fields, _, counts = _prepped3d(r, k, g, apic, ext, seed=r + ext, device=dev)
+    kw, dx, _ = _p2g3d_args(g, wall)
+    node = {n: kw[n] for n in ("dt", "grav", "floor", "lo", "hi", "wall", "beta")}
+    nch = 11 if ext else 7
+    raw = torch.empty((r + 4, r + 4, nch, g), device=dev)
+    n0 = tk3.LAUNCHES["p2g3d_grid"]
+    got = tk3.p2g3d_grid(fields, counts, r, g, dx, apic=apic, tent=tent, ext=ext,
+                         raw_out=raw, **node)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["p2g3d_grid"] == n0 + 1
+    assert got.shape == (r + 4, r + 4, 9 if ext else 6, g)
+    raw_plain = tk3.p2g3d_raw_plain(fields, counts, g, dx, apic=apic, tent=tent, ext=ext)
+    _close(raw, raw_plain, axis=2)
+    want = tk3.p2g3d_grid_plain(fields, counts, r, g, dx, apic=apic, tent=tent, ext=ext, **node)
+    # Velocities weighted by the nodal mass, the averages by the nodal
+    # volume, each scaled by its raw sum's max.
+    m = raw_plain[:, :, 6:7]
+    err = ((got - want)[:, :, :6].abs() * m).double().amax(dim=(0, 1, 3))
+    top = raw_plain[:, :, [3, 4, 5, 0, 1, 2]].abs().double().amax(dim=(0, 1, 3))
+    assert bool((err <= REL * top).all()), (err / top).tolist()
+    if ext:
+        vol = raw_plain[:, :, 8:9]
+        err = ((got - want)[:, :, 6:].abs() * vol).double().amax(dim=(0, 1, 3))
+        top = raw_plain[:, :, [7, 9, 10]].abs().double().amax(dim=(0, 1, 3))
+        assert bool((err <= REL * top).all()), (err / top).tolist()
+    assert not got[0].any() and not got[r + 1 :].any()
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 16), (64, 128, 64)], ids=["small", "g64"])
+@pytest.mark.parametrize("gch,tent,pad", [(6, False, 2), (9, False, 2), (9, True, 0), (6, True, 1)],
+                         ids=["gather", "ext", "ext_tent_unpadded", "tent_pad0"])
+def test_g2p3d_gather_kernel_matches_plain(dev, shape, gch, tent, pad):
+    """Gather mode on a grid padded on both axes (pad 2), on axis 0 only
+    (1) or on neither (0)."""
+    r, k, g = shape
+    planes, live, counts = _inputs3d(r, k, g, seed=r + gch, device=dev)
+    dx = 0.4375 / (g - 5)
+    dinv = 1.0 if tent else 4.0 / dx**2
+    rows = (r + 4 if pad else r, r + 4 if pad == 2 else r)
+    grid = torch.randn((*rows, gch, g), generator=torch.Generator().manual_seed(5)).to(dev)
+    args = (*planes[:3], live, counts, grid, dx, dinv)
+    n0 = tk3.LAUNCHES["g2p3d"]
+    got = tk3.g2p3d(*args, tent=tent)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["g2p3d"] == n0 + 1
+    assert got.shape == (r, r, 15 + gch - 6, k)
+    want = tk3.g2p3d_plain(*args, tent=tent)
+    err = (got - want).abs().double().amax(dim=(0, 1, 3))
+    scale = want.abs().double().amax(dim=(0, 1, 3))
+    scale[6:15] = dinv * dx * float(grid[:, :, :3].abs().max())
+    assert bool((err <= REL * scale).all()), (err / scale).tolist()
+    dead = ~(live > 0)
+    assert not got.movedim(2, 0)[:, dead].any()
+
+
+@pytest.mark.parametrize("floor", ["absolute", "relative"])
+def test_stabilized_3d_substeps_on_the_card_track_the_cpu(dev, floor):
+    """The stabilized switch set (F-bar, penalty, mixing 1.0, PIC + FLIP
+    0.98) in 3D, 10 substeps: `p2g3d_grid`'s prepped mode with the scene's
+    absolute mass floor, `p2g3d` with the relative one."""
+    p, scene = scenes.dam_break_3d(
+        num_grids=16, particles_per_axis=(6, 6, 10), dt=2e-5, flip_blend=0.98,
+        transfer=TransferKind.PIC, use_fbar=True, use_penalty_ebc=True,
+        pressure_mixing_ratio=1.0,
+    )
+    if floor == "relative":
+        scene = dataclasses.replace(scene, mass_floor=0.0)
+    spec = fast3d.FastSpec3D.for_particles(scene.cfg, p, headroom=2.0)
+    tk3.reset_launches()
+    out = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, dev), scene, spec, 10)
+    want = {"p2g3d": 0, "p2g3d_grid": 10, "g2p3d": 10} if floor == "absolute" else \
+        {"p2g3d": 10, "p2g3d_grid": 0, "g2p3d": 10}
+    assert tk3.LAUNCHES == want
+    ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec), scene, spec, 10)
+    for a in range(3):
+        np.testing.assert_allclose(
+            getattr(out, f"x{a}").cpu().numpy(), getattr(ref, f"x{a}").numpy(), atol=1e-6
+        )
+    # As in 2D: Jbar to 1e-5, the gathered pressure to 1e-5 K.
+    np.testing.assert_allclose(out.jbar_s.cpu().numpy(), ref.jbar_s.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(out.p_s.cpu().numpy(), ref.p_s.numpy(), rtol=0,
+                               atol=1e-5 * scene.params.bulk_modulus)
+    assert int(out.overflow) == 0
+
+
+@pytest.mark.parametrize("block", ["neo_hookean", "corotated"])
+def test_elastic_drop_3d_substeps_on_the_card_track_the_cpu(dev, block):
+    from mpm_flip98a_tpu_torch.models import materials as mat
+
+    material = mat.NEO_HOOKEAN if block == "neo_hookean" else mat.FIXED_COROTATED
+    p, scene = scenes.elastic_drop_3d(block_material=material)
+    spec = fast3d.FastSpec3D.for_particles(scene.cfg, p, headroom=2.0)
+    tk3.reset_launches()
+    out = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, dev), scene, spec, 10)
+    assert tk3.LAUNCHES == {"p2g3d": 0, "p2g3d_grid": 10, "g2p3d": 10}
+    ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec), scene, spec, 10)
+    for name in ("x0", "x1", "x2"):
+        np.testing.assert_allclose(
+            getattr(out, name).cpu().numpy(), getattr(ref, name).numpy(), atol=1e-6
+        )
+    np.testing.assert_allclose(out.F22.cpu().numpy(), ref.F22.numpy(), rtol=0, atol=1e-6)
     assert int(out.overflow) == 0

@@ -146,18 +146,37 @@ def test_run_across_rebuckets_tracks_jax():
 
 
 def test_unported_configs_raise():
+    """What `check_supported` still refuses: CSF, the projection,
+    colliders, snow, sand, corotated plasticity, the fused branch without
+    an absolute mass floor (the reference sends it to `p2g3d_grid`'s raw
+    mode, fast3d.py:631-645) and a 2D config."""
     (_, _, _, _), (scene_t, spec_t, b_t) = _setup()
     cfg = scene_t.cfg
+    plastic = dataclasses.replace(scene_t.params, plastic=True)
     for change in (
-        dict(cfg=dataclasses.replace(cfg, use_fbar=True)),
-        dict(cfg=dataclasses.replace(cfg, pressure_mixing_ratio=0.5)),
-        dict(cfg=dataclasses.replace(cfg, kernel=KernelKind.TENT)),
         dict(cfg=dataclasses.replace(cfg, surface_tension=0.07)),
         dict(cfg=dataclasses.replace(cfg, incompressible=True)),
+        dict(cfg=dataclasses.replace(cfg, incompressible=True, use_fbar=True)),
         dict(cfg=dataclasses.replace(cfg, dim=2)),
-        dict(materials_present=(0, 1)),
         dict(colliders=("sphere",)),
+        dict(colliders=("sphere",), mass_floor=0.0),
         dict(mass_floor=0.0),
+        dict(materials_present=(3,)),            # snow
+        dict(materials_present=(0, 4)),          # fluid + sand
+        dict(materials_present=(0, 2), params=plastic),
+        dict(materials_present=(2,), params=plastic),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fast3d.substep(b_t, dataclasses.replace(scene_t, **change), spec_t)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fast3d.check_supported(dataclasses.replace(scene_t, **change))
+    # The configs the slice now runs pass the check.
+    for change in (
+        dict(cfg=dataclasses.replace(cfg, use_fbar=True, pressure_mixing_ratio=0.5)),
+        dict(cfg=dataclasses.replace(cfg, kernel=KernelKind.TENT)),
+        dict(materials_present=(0, 1)),
+        dict(materials_present=(0, 2)),
+        dict(mass_floor=0.0, cfg=dataclasses.replace(cfg, use_fbar=True)),
+        dict(mass_floor=0.0, materials_present=(0, 1)),
+    ):
+        fast3d.check_supported(dataclasses.replace(scene_t, **change))
