@@ -81,7 +81,36 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                the 6-channel grid, and p2g3d with 7 APIC channels;
 18. timing:3dp   phase 13's timings for stab3d-8M, relfloor3d, drop3d
                (kernel and plain paths) and the stabilized set at
-               1M / 128^3 (kernel and plain paths).
+               1M / 128^3 (kernel and plain paths);
+19. main:sharded   bench 1M and stab1M through Simulation(devices=4) (4
+               slab shards on the card) against Simulation() from the same
+               particles: after 1 substep x to 1e-6, v and C to 1e-5 of
+               their max, J to 1e-6, slot for slot; ensemble mean and std
+               of x after 100 to 5e-4, launches, the host checks; then the
+               sharded runs alone, counted (p2g_grid and the prepadded g2p
+               once per substep);
+20. kernels:sharded2d  on those sharded states: p2g_grid's raw mode (fused
+               at bench 1M, prepped 9 channels at stab1M, one launch for
+               all shards) against p2g_grid_plain and against
+               fold_rows_halo of p2g_fused / p2g per shard, with its mass
+               sum; the prepadded g2p against plain on the halo-synced
+               grid; a ragged tent case at G = 2049 in 4 shards; CUDA-event
+               times, plain times, bounds and halo_sync's time;
+21. timing:sharded  ms per substep of the sharded and the single-device
+               run, interleaved, median of 3 x 100 substeps (2D);
+22. main:sharded migrate37  37^2, dt 4e-5, 8 shards, 3000 substeps against
+               one device: slots migrate between shards, overflow 0, mass
+               constant, ensemble within 5e-4; the CLI with --devices 4 on
+               dam2d_flip98 (2 frames x 100 substeps);
+23-25. main:sharded, kernels:sharded3d, timing:sharded (3D, one axis)
+               slab 8M and stab3d-8M through Simulation(devices=4) against
+               one device (50 and 20 substeps, the checks of phase 19),
+               p2g3d_grid's raw mode (stress; prepped 11 channels) against
+               plain on their states with its mass sum and times, g2p3d on
+               the halo-synced, grid-updated shard windows against plain
+               (update mode; gather mode, 9-channel grid) with its times,
+               halo_sync's time, ms per substep (3 x 10); the CLI with
+               --devices 2 on dam3d.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -90,7 +119,11 @@ also with its 7-channel mode's under "ext_*", g2p and p2g with their tent
 modes' under "tent_*", p2g3d_grid with its prepped 11-channel mode's under
 "prepped_*", g2p3d with its 9-channel gather mode's under "gather_*", both
 with the modes main:drop3d launched under "drop3d_*", the 3D kernels with
-their tent modes' under "tent_*"); the last line is
+their tent modes' under "tent_*", p2g_grid with its prepped and tent modes'
+under "prepped_*" and "tent_*", g2p with its prepadded mode's under
+"prepadded_*", p2g3d_grid with its raw modes' under "raw_*" and
+"raw_prepped_*", g2p3d on the 3D shard windows under "sharded_*" and
+"sharded_gather_*"); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -134,6 +167,11 @@ DROP_3D = dict(num_grids=128, fluid_particles=(230, 230, 64), block_particles=(5
 # Read on an NVIDIA H100 80GB HBM3 at 700 W: x 1.9e-9, v 2.2e-6, J 1.2e-7;
 # the bounds are about ten times that.
 ROUTE_TOL = {"x": 2e-8, "v": 2e-5, "J": 1e-6}
+# The sharded path's migration run: the JAX package's long collapse
+# (tests/test_parallel_fast_domain.py:67-90: 37^2, dt 4e-5, 8 shards, 3000
+# substeps), whose front crosses several slab edges.
+MIGRATE = dict(num_grids=37, dt=4e-5, num_particles_x=16, num_particles_y=32, shards=8,
+               substeps=3000)
 TPU_KERNELS = {
     "p2g_fused": ("mpm_flip98a_tpu_torch/csrc/p2g_fused.cu",
                   "mpm_flip98a_tpu/ops/pallas/transfer2d.py:412"),
@@ -141,6 +179,8 @@ TPU_KERNELS = {
             "mpm_flip98a_tpu/ops/pallas/transfer2d.py:843"),
     "p2g": ("mpm_flip98a_tpu_torch/csrc/p2g.cu",
             "mpm_flip98a_tpu/ops/pallas/transfer2d.py:304"),
+    "p2g_grid": ("mpm_flip98a_tpu_torch/csrc/p2g_grid.cu",
+                 "mpm_flip98a_tpu/ops/pallas/transfer2d.py:597"),
     "p2g3d": ("mpm_flip98a_tpu_torch/csrc/p2g3d.cu",
               "mpm_flip98a_tpu/ops/pallas/transfer3d.py:349"),
     "p2g3d_grid": ("mpm_flip98a_tpu_torch/csrc/p2g3d_grid.cu",
@@ -229,16 +269,17 @@ def compare_kernels(tag, sdata, pdata2, counts, grid4, args, dinv, card):
                                    False, card)
 
 
-def compare_g2p(label, pdata2, counts, grid, dx, dinv, tent, card):
-    """`g2p` against `g2p_plain` (4 or 7 grid channels, B-spline or tent);
-    returns the worst absolute error."""
+def compare_g2p(label, pdata2, counts, grid, dx, dinv, tent, card, prepadded=False):
+    """`g2p` against `g2p_plain` (4 or 7 grid channels, B-spline or tent,
+    an unpadded or a prepadded sharded grid); returns the worst absolute
+    error."""
     from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
 
-    got = tk.g2p(pdata2, counts, grid, dx, dinv, tent)
-    want = tk.g2p_plain(pdata2, counts, grid, dx, dinv, tent)
+    got = tk.g2p(pdata2, counts, grid, dx, dinv, tent, prepadded=prepadded)
+    want = tk.g2p_plain(pdata2, counts, grid, dx, dinv, tent, prepadded=prepadded)
     # C sums +-(x_node - x_p) terms that cancel where the velocity field is
     # smooth, so its channels are scaled by one term's size, dinv dx |v|max.
-    vmax = grid[:, :2].abs().amax(dim=(0, 2)).double()
+    vmax = grid.movedim(-2, 0)[:2].reshape(2, -1).abs().amax(dim=1).double()
     scale = torch.cat([
         want[:, :4].abs().amax(dim=(0, 2)).double(),
         (dinv * dx * vmax).repeat_interleave(2),
@@ -246,11 +287,12 @@ def compare_g2p(label, pdata2, counts, grid, dx, dinv, tent, card):
     ])
     err_g, rel_g = scaled_errors(got, want, axis=1, scale=scale)
     worst = int(np.argmax(rel_g))
-    say(f"[{label}] g2p {grid.shape[1]} grid channels, tent {tent}: max_abs_err per channel "
+    say(f"[{label}] g2p {grid.shape[-2]} grid channels, tent {tent}, prepadded {prepadded}: "
+        f"max_abs_err per channel "
         f"{['%.3e' % e for e in err_g]}; worst channel {worst}: {rel_g[worst]:.2e} of its "
         f"scale (tol {KERNEL_REL_TOL})  [{card}]")
     check(max(rel_g) <= KERNEL_REL_TOL,
-          f"{label}: g2p ({grid.shape[1]} channels, tent {tent}) disagrees with its plain version")
+          f"{label}: g2p ({grid.shape[-2]} channels, tent {tent}) disagrees with its plain version")
     return max(err_g)
 
 
@@ -341,7 +383,7 @@ def host_checks(tag, sim, n0, p0_mass, card):
     cfg = sim.cfg
     names = [f"x{a}" for a in range(dim)] + [f"v{a}" for a in range(dim)] + ["J"]
     finite = all(np.isfinite(h[n]).all() for n in names)
-    overflow = int(sim.state.overflow)
+    overflow = int(sim.state.overflow.sum())    # one count per shard when sharded
     mass = float(h["mass"].astype(np.float64).sum())
     inside = bool(((x > -cfg.dx) & (x < cfg.domain_length + cfg.dx)).all())
     say(f"[main:{tag}] particles {x.shape[0]} finite {finite} overflow {overflow} "
@@ -904,11 +946,516 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
     say(f"[timing] 3D prepped phases done at {time.perf_counter() - t_start:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# The slab-sharded path (--devices N): n slab shards on the one card
+# ---------------------------------------------------------------------------
+
+
+def local_rows(data, shards):
+    """Row 0 (gx0) of (R, F, K) slot data made local to each of `shards`
+    equal slabs of bucket rows, as the sharded path feeds the kernels."""
+    r = data.shape[0]
+    l = r // shards
+    out = data.clone()
+    out[:, 0] -= (torch.arange(r, device=data.device) // l * l).to(data.dtype)[:, None]
+    return out
+
+
+def compare_p2g_grid(tag, data, counts, kw, shards, g, dx, card):
+    """`p2g_grid` raw (one launch for all shards) against `p2g_grid_plain`
+    and against fold_rows_halo of the single-device kernels (`p2g_fused` or
+    `p2g`) per shard, every channel to 1e-5 of its max; the mass channel's
+    sum against the live slots' mass (every tap of these inputs lies in
+    the buffer).  Returns (worst absolute error, the raw sums)."""
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+
+    got = tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw)
+    want = tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw)
+    err, rel = scaled_errors(got, want, axis=2)
+    del want
+    l = data.shape[0] // shards
+    if kw["fused"]:
+        single = lambda d, c: tk.p2g_fused(d, c, g, dx, **{
+            n: kw[n] for n in ("apic", "eos", "kb", "mu", "gamma", "fa")})
+    else:
+        single = lambda d, c: tk.p2g(d, c, g, dx, tent=kw["tent"], apic=kw["apic"])
+    via = torch.stack([tk.fold_rows_halo(single(data[s * l : (s + 1) * l],
+                                                counts[s * l : (s + 1) * l]))
+                       for s in range(shards)])
+    _, rel_via = scaled_errors(got, via, axis=2)
+    del via
+    live = torch.arange(data.shape[2], device=data.device)[None, :] < counts[:, None]
+    m_total = (data[:, 9 if kw["fused"] else 12].double() * live).sum().item()
+    pou = abs(got[:, :, 4].double().sum().item() - m_total) / m_total
+    worst = int(np.argmax(rel))
+    say(f"[kernels:sharded2d {tag}] p2g_grid raw, {shards} shards, {got.shape[2]} channels, "
+        f"tent {kw.get('tent', False)}, G {g}: max_abs_err per channel "
+        f"{['%.3e' % e for e in err]}; worst channel {worst}: {rel[worst]:.2e} of its max "
+        f"(tol {KERNEL_REL_TOL}); against fold_rows_halo of the single-device kernel "
+        f"{max(rel_via):.2e}; mass sum rel err {pou:.3e} (tol {POU_REL_TOL})  [{card}]")
+    check(max(rel) <= KERNEL_REL_TOL, f"{tag}: p2g_grid disagrees with its plain version")
+    check(max(rel_via) <= KERNEL_REL_TOL, f"{tag}: p2g_grid disagrees with the fold of p2g")
+    check(pou <= POU_REL_TOL, f"{tag}: p2g_grid partition of unity")
+    return max(err), got
+
+
+def p2g_grid_bound(data, counts, shards, nch, g):
+    """Live slots' rows + counts in, the raw (n, L + 4, nch, G) sums out;
+    9 taps x nch channels of multiply-adds per live slot."""
+    r, f, _ = data.shape
+    live = int(counts.sum())
+    return bound(4 * (f * live + r + (r + 4 * shards) * nch * g), live * 9 * nch * 2)
+
+
+def ensemble(sim):
+    """(mean, std) of the particle positions, float64."""
+    x = sim.positions().astype(np.float64)
+    return x.mean(axis=0), x.std(axis=0)
+
+
+def state_errors(b, ref, dim):
+    """Worst |b - ref| of the live slots' v and C, each over its group's
+    largest |ref| entry, and of J (near 1: absolute); both layouts list a
+    bucket row's (or pencil's) particles in the same order."""
+    groups = {"v": [f"v{a}" for a in range(dim)],
+              "C": [f"C{a}{c}" for a in range(dim) for c in range(dim)], "J": ["J"]}
+    out = {}
+    for group, names in groups.items():
+        live = lambda s: torch.stack([getattr(s, n)[s.mask > 0] for n in names]).double()
+        have, want = live(b), live(ref)
+        err = float((have - want).abs().max())
+        out[group] = err if group == "J" else err / float(want.abs().max())
+        del have, want
+    return out
+
+
+def sharded_against_single(tag, p, scene, dev, shards, n_sub, card):
+    """`Simulation(devices=shards)` against `Simulation()` from the same
+    particles: one substep slot for slot (the same particles in the same
+    order: both bucket by the global row), x to 1e-6, v and C to
+    KERNEL_REL_TOL of their largest entry and J to 1e-6 (x itself moves by
+    less than its float32 ulp in one substep from rest, so v, C and J are
+    what can see a wrong halo row or shard window); then n_sub - 1 more
+    substeps compared by ensemble mean and std of x to 5e-4 (fp32 sums in
+    another order at the slab edges amplify chaotically), zero overflow,
+    constant mass.  Returns the sharded Simulation and its launches."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    tmp = tempfile.gettempdir()
+    mass0 = float(p.mass.to(torch.float32).double().sum())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = driver.Simulation(p, scene, out_dir=tmp, device=dev, devices=shards)
+    ref = driver.Simulation(p, scene, out_dir=tmp, device=dev)
+    tk.reset_launches()
+    tk3.reset_launches()
+    t0 = time.perf_counter()
+    sim.run(1, 1, gif=False, verbose=False, write_frames=False)
+    ref.run(1, 1, gif=False, verbose=False, write_frames=False)
+    x1 = float(np.abs(sim.positions() - ref.positions()).max())
+    e1 = state_errors(sim.state, ref.state, scene.cfg.dim)
+    sim.run(1, n_sub - 1, gif=False, verbose=False, write_frames=False)
+    ref.run(1, n_sub - 1, gif=False, verbose=False, write_frames=False)
+    torch.cuda.synchronize()
+    got = {**tk.LAUNCHES, **tk3.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    (m, s), (mr, sr) = ensemble(sim), ensemble(ref)
+    d_mean, d_std = float(np.abs(m - mr).max()), float(np.abs(s - sr).max())
+    say(f"[main:sharded {tag}] {p.n} particles, {shards} shards of "
+        f"{sim.spec.rows_per_shard if scene.cfg.dim == 2 else sim.spec.rows_per_shard0} rows, "
+        f"buckets {tuple(sim.state.shape)} against one device's {tuple(ref.state.shape)}; "
+        f"{n_sub} substeps of both in {time.perf_counter() - t0:.2f} s; launches {got}; "
+        f"after 1 substep: x max |diff| {x1:.3e} (tol 1e-6), v {e1['v']:.3e} and C "
+        f"{e1['C']:.3e} of their max (tol {KERNEL_REL_TOL}), J {e1['J']:.3e} (tol 1e-6); "
+        f"after {n_sub}: ensemble mean "
+        f"|diff| {d_mean:.3e}, std |diff| {d_std:.3e} (tol 5e-4); rebuckets "
+        f"{sim.stats.rebuckets} against {ref.stats.rebuckets}; peak device memory {peak} bytes = "
+        f"{peak / 2**30:.3f} GiB (both runs held)  [{card}]")
+    check(x1 <= 1e-6, f"{tag}: sharded and single-device x differ after 1 substep")
+    check(e1["v"] <= KERNEL_REL_TOL and e1["C"] <= KERNEL_REL_TOL and e1["J"] <= 1e-6,
+          f"{tag}: sharded and single-device v, C or J differ after 1 substep: {e1}")
+    check(d_mean <= 5e-4 and d_std <= 5e-4, f"{tag}: sharded run left the single-device ensemble")
+    host_checks(f"sharded {tag}", sim, p.n, mass0, card)
+    return sim, ref, got
+
+
+def time_sharded(tag, sim, ref, n_sub, reps, card):
+    """ms per substep of the sharded and the single-device run (each
+    `run` of n_sub substeps ends in a synchronise), interleaved, median of
+    `reps`; returns (sharded, single) medians."""
+    runs = {"sharded": [], "single": []}
+    for which, s in (("sharded", sim), ("single", ref)):    # warm-up
+        s.step_frame(2)
+    for _ in range(reps):
+        for which, s in (("sharded", sim), ("single", ref)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.step_frame(n_sub)
+            torch.cuda.synchronize()
+            runs[which].append(1e3 * (time.perf_counter() - t0) / n_sub)
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    say(f"[timing:sharded {tag}] {sim.devices} shards {med['sharded']:.4f} ms/substep "
+        f"(median of {reps} x {n_sub}; runs {[round(t, 4) for t in runs['sharded']]}), one "
+        f"device {med['single']:.4f} (runs {[round(t, 4) for t in runs['single']]}): sharding "
+        f"costs {med['sharded'] - med['single']:+.4f} ms/substep on one card  [{card}]")
+    return med["sharded"], med["single"]
+
+
+def profile_sharded(profile_dir, sim, n_sub, wall_ms, tag, card):
+    """torch.profiler over n_sub substeps of a sharded Simulation: the
+    kernel table and the device's busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sim.step_frame(2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.step_frame(n_sub)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    path = os.path.join(profile_dir, f"profile_sharded_{tag}_{n_sub}_substeps.txt")
+    with open(path, "w") as f:
+        f.write(f"{card}\n{events.table(sort_by='cuda_time_total', row_limit=40)}\n")
+    busy_ms = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in events
+        if str(e.device_type).endswith("CUDA")
+    ) / 1e3 / n_sub
+    say(f"[timing:sharded {tag}] profile written to {path}: device busy {busy_ms:.4f} "
+        f"ms/substep against {wall_ms:.4f} ms/substep unprofiled (idle share "
+        f"{1.0 - busy_ms / wall_ms:.3f})  [{card}]")
+
+
+def sharded2d_phases(dev, card, args, err, kernel_ms, plain_ms, bounds, launches):
+    """Phases 19-21 (2D): kernels:sharded2d, main:sharded2d and its
+    timing:sharded rows."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import fast2d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+    from mpm_flip98a_tpu_torch.parallel import fast_domain
+
+    shards = 4
+    cfg = MPMConfig(**BENCH, transfer=TransferKind.PIC)
+    cfg_stab = MPMConfig(**BENCH, **STAB, transfer=TransferKind.PIC)
+    builds = {"bench": scenes.dam_break_2d(cfg, dtype=np.float32),
+              "stab1M": scenes.dam_break_2d(cfg_stab, dtype=np.float32)}
+    timing = {}
+
+    # ---- 19. main:sharded2d: bench 1M and stab1M on 4 shards ----------------
+    sims = {}
+    for tag, (p, scene) in builds.items():
+        sim, ref, got = sharded_against_single(tag, p, scene, dev, shards, 100, card)
+        check(got["p2g_grid"] == 100 and got["g2p"] == 200,
+              f"sharded {tag}: launches {got} for 100 substeps of the sharded and of the "
+              "single-device run")
+        check(got["p2g_fused" if fast2d.uses_fused(scene) else "p2g"] == 100,
+              f"sharded {tag}: the single-device run's P2G count")
+        check(got["p2g3d_grid"] == got["g2p3d"] == 0, f"sharded {tag}: a 3D kernel ran")
+        sims[tag] = (sim, ref)
+    # The sharded run alone, counted: one p2g_grid and one g2p per substep.
+    sim = sims["bench"][0]
+    tk.reset_launches()
+    tk3.reset_launches()
+    sim.step_frame(100)
+    torch.cuda.synchronize()
+    launches["p2g_grid"] = tk.LAUNCHES["p2g_grid"]
+    launches["g2p prepadded"] = tk.LAUNCHES["g2p"]
+    check(launches["p2g_grid"] == launches["g2p prepadded"] == 100 and
+          tk.LAUNCHES["p2g_fused"] == tk.LAUNCHES["p2g"] == 0,
+          f"sharded bench: launches {tk.LAUNCHES} for 100 substeps")
+    sim = sims["stab1M"][0]
+    tk.reset_launches()
+    sim.step_frame(20)
+    torch.cuda.synchronize()
+    launches["p2g_grid prepped"] = tk.LAUNCHES["p2g_grid"]
+    check(tk.LAUNCHES["p2g_grid"] == tk.LAUNCHES["g2p"] == 20 and tk.LAUNCHES["p2g"] == 0,
+          f"sharded stab1M: launches {tk.LAUNCHES} for 20 substeps")
+    say(f"[main:sharded] launches of the sharded runs alone: bench 100 substeps -> "
+        f"p2g_grid {launches['p2g_grid']}, g2p {launches['g2p prepadded']}; stab1M 20 "
+        f"substeps -> p2g_grid {launches['p2g_grid prepped']}")
+
+    # ---- 20. kernels:sharded2d ------------------------------------------------
+    dx = float(cfg.dx)
+    g = cfg.num_grids
+    dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
+    for tag, key in (("bench", "p2g_grid"), ("stab1M", "p2g_grid_prepped")):
+        sim = sims[tag][0]
+        scene = sim.scene
+        ctx = fast_domain.FastDomainCtx(sim.mesh, sim.spec.rows_per_shard)
+        data, pdata2, counts = fast2d.transfer_inputs(sim.state, scene, ctx)
+        kw = {n: v for n, v in fast2d.p2g_args(scene).items() if n not in ("g", "dx")}
+        kw["fused"] = fast2d.uses_fused(scene)
+        err[key], raw = compare_p2g_grid(tag, data, counts, kw, shards, g, dx, card)
+        grid = fast2d._grid_update2d(ctx.halo_sync(raw), scene, ctx.row_index0(dev))
+        gkey = "g2p_prepadded" if tag == "bench" else "g2p_prepadded_ext"
+        err[gkey] = compare_g2p(f"kernels:sharded2d {tag}", pdata2, counts, grid, dx, dinv,
+                                False, card, prepadded=True)
+        kernel_ms[key] = cuda_ms(lambda: tk.p2g_grid(data, counts, g, dx, raw=True,
+                                                     shards=shards, **kw))
+        plain_ms[key] = cuda_ms(lambda: tk.p2g_grid_plain(data, counts, g, dx, shards=shards,
+                                                          **kw), reps=3, warm=1)
+        bounds[key] = p2g_grid_bound(data, counts, shards, raw.shape[2], g)
+        kernel_ms[gkey] = cuda_ms(lambda: tk.g2p(pdata2, counts, grid, dx, dinv,
+                                                 prepadded=True))
+        plain_ms[gkey] = cuda_ms(lambda: tk.g2p_plain(pdata2, counts, grid, dx, dinv,
+                                                      prepadded=True), reps=3, warm=1)
+        r2, k2 = pdata2.shape[0], pdata2.shape[2]
+        live2, gch = int(counts.sum()), grid.shape[2]
+        bounds[gkey] = bound(4 * (3 * live2 + r2 + grid.numel() + (4 + gch) * r2 * k2),
+                             live2 * 9 * (4 + gch) * 2)
+        halo = raw.clone()
+        timing[f"halo {tag}"] = cuda_ms(lambda: ctx.halo_sync(halo))
+        say(f"[kernels:sharded2d {tag}] at {shards} shards (buckets {r2}x{k2}, {live2} live): "
+            f"p2g_grid {kernel_ms[key]:.4f} ms (CUDA events, 20 calls, one launch each), plain "
+            f"{plain_ms[key]:.4f} ms (3 calls), bound {bounds[key][0]:.4f} ms "
+            f"({bounds[key][1]}); g2p prepadded ({gch} channels) {kernel_ms[gkey]:.4f} ms, plain "
+            f"{plain_ms[gkey]:.4f}, bound {bounds[gkey][0]:.4f} ({bounds[gkey][1]}); halo_sync "
+            f"on ({', '.join(map(str, raw.shape))}) {timing[f'halo {tag}']:.4f} ms  [{card}]")
+        del data, pdata2, counts, raw, grid, halo
+    # The ragged tent case at G = 2049 (column bands) in 4 shards of 12 rows.
+    rp, rp2, rc, _, rg = ragged_prepped(dev)
+    rkw = dict(fused=False, tent=True, apic=False)
+    rdx = 0.4375 / (rg - 5)
+    rp = local_rows(rp, shards)
+    err["p2g_grid_tent"], _ = compare_p2g_grid("ragged tent", rp, rc, rkw, shards, rg, rdx,
+                                                card)
+    kernel_ms["p2g_grid_tent"] = cuda_ms(lambda: tk.p2g_grid(rp, rc, rg, rdx, raw=True,
+                                                             shards=shards, **rkw))
+    bounds["p2g_grid_tent"] = p2g_grid_bound(rp, rc, shards, 9, rg)
+    say(f"[kernels:sharded2d ragged tent] p2g_grid {kernel_ms['p2g_grid_tent']:.4f} ms at "
+        f"{tuple(rp.shape)}, G {rg}, bound {bounds['p2g_grid_tent'][0]:.4f} ms  [{card}]")
+    del rp, rp2, rc
+
+    # ---- 21. timing:sharded (2D) ---------------------------------------------
+    for tag, (sim, ref) in sims.items():
+        timing[tag] = time_sharded(tag, sim, ref, 100, 3, card)
+        say(f"[timing:sharded {tag}] halo_sync {timing[f'halo {tag}']:.4f} ms of the "
+            f"{timing[tag][0]:.4f} ms substep  [{card}]")
+        if args.profile:
+            profile_sharded(args.profile, sim, 20, timing[tag][0], tag, card)
+    del sims, sim, ref
+    torch.cuda.empty_cache()
+
+    # ---- 22. main:sharded2d: migration at 37^2 and the CLI --------------------
+    mig = dict(MIGRATE)
+    n_t, n_mig = mig.pop("shards"), mig.pop("substeps")
+    cfg_t = MPMConfig(dtype="float32", flip_blend=0.98, transfer=TransferKind.PIC, **mig)
+    p_t, scene_t = scenes.dam_break_2d(cfg_t, dtype=np.float32)
+    sim = driver.Simulation(p_t, scene_t, out_dir=tempfile.gettempdir(), device=dev,
+                            devices=n_t)
+    ref = driver.Simulation(p_t, scene_t, out_dir=tempfile.gettempdir(), device=dev)
+    live0 = (sim.state.mask.view(n_t, -1) > 0).sum(dim=1).tolist()
+    t0 = time.perf_counter()
+    sim.run(1, n_mig, gif=False, verbose=False, write_frames=False)
+    ref.run(1, n_mig, gif=False, verbose=False, write_frames=False)
+    torch.cuda.synchronize()
+    live1 = (sim.state.mask.view(n_t, -1) > 0).sum(dim=1).tolist()
+    (m, s), (mr, sr) = ensemble(sim), ensemble(ref)
+    d_mean, d_std = float(np.abs(m - mr).max()), float(np.abs(s - sr).max())
+    say(f"[main:sharded migrate37] {p_t.n} particles, {cfg_t.num_grids}^2, dt {cfg_t.dt}, "
+        f"{n_t} shards of {sim.spec.rows_per_shard} rows, {n_mig} substeps of both in "
+        f"{time.perf_counter() - t0:.2f} s; live slots per shard {live0} -> {live1}; "
+        f"rebuckets {sim.stats.rebuckets}; ensemble mean |diff| {d_mean:.3e}, std |diff| "
+        f"{d_std:.3e} (tol 5e-4)  [{card}]")
+    check(live0 != live1, f"migrate37: no slot changed shards in {n_mig} substeps")
+    check(d_mean <= 5e-4 and d_std <= 5e-4, "migrate37: left the single-device ensemble")
+    host_checks("sharded migrate37", sim, p_t.n, float(p_t.mass.to(torch.float32).double().sum()),
+                card)
+    del sim, ref
+
+    run_cli(dev, card, "dam2d_flip98", "4", 2, 100, ("p2g_grid", "g2p"), launches)
+    return timing
+
+
+def run_cli(dev, card, scenario, devices, n_frames, n_sub, ran, launches):
+    """The port's CLI with --devices (Simulation where no frame writer
+    exists); each kernel of `ran` launched once per substep."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        argv = ["--scenario", scenario, "--path", "fast", "--devices", devices, "--frames",
+                str(n_frames), "--substeps", str(n_sub), "--no-gif", "--out", out_dir,
+                "--device", "cuda"]
+        p_ref, scene = driver.SCENARIOS[scenario]()
+        mass = float(p_ref.mass.to(torch.float32).double().sum())
+        tk.reset_launches()
+        tk3.reset_launches()
+        t0 = time.perf_counter()
+        if frame_io_available():
+            sim = driver.main(argv)
+        else:
+            sim = driver.Simulation(p_ref, scene, out_dir=out_dir, device=dev,
+                                    devices=int(devices))
+            sim.run(n_frames, n_sub, gif=False, write_frames=False)
+        torch.cuda.synchronize()
+        got = {**tk.LAUNCHES, **tk3.LAUNCHES}
+        say(f"[main:sharded {scenario}] CLI {' '.join(argv)} in {time.perf_counter() - t0:.2f} s: "
+            f"launches {got}, substeps {sim.stats.substeps}, shards {sim.devices}")
+        check(sim.devices == int(devices), f"{scenario}: {sim.devices} shards")
+        for name in ran:
+            check(got[name] == n_frames * n_sub == sim.stats.substeps,
+                  f"{scenario} --devices {devices}: {name} launched {got[name]} times")
+            launches[f"{name} cli {scenario}"] = got[name]
+        host_checks(f"sharded {scenario}", sim, p_ref.n, mass, card)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def compare_g2p3d_sharded(tag, planes, mask, counts, state, scene, gspec, ctx, err, kernel_ms,
+                          plain_ms, bounds, card):
+    """`g2p3d` on the shard windows (n, L0 + 4, R1 + 4, gch, G2) of the
+    halo-synced, grid-updated raw sums, as the sharded substep feeds it,
+    against `g2p3d_plain` on the same inputs: the update mode with the
+    fused state (`state` given), else the gather mode.  Each output
+    channel to KERNEL_REL_TOL of its max (C: of one term's size, J and
+    Jbar: of 1); then its time, plain time and bound."""
+    from mpm_flip98a_tpu_torch.config import KernelKind
+    from mpm_flip98a_tpu_torch.models import fast3d
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    cfg = scene.cfg
+    tent = cfg.kernel == KernelKind.TENT        # gather mode only: C = B D^-1 after it
+    dx, dinv = float(cfg.dx), 1.0 if tent else float(4.0 * cfg.inv_dx * cfg.inv_dx)
+    grid = fast3d._sharded_grid(planes, counts, scene, gspec, False, ctx)
+    g2p_in = (*planes[:3], mask, counts, grid, dx, dinv)
+    if state is not None:
+        name, g2p_kw = "g2p3d_sharded", {}
+        g2p_in += (state, float(cfg.flip_blend), float(cfg.dt))
+    else:
+        name, g2p_kw = "g2p3d_sharded_gather", dict(tent=tent)
+    got = tk3.g2p3d(*g2p_in, **g2p_kw)
+    want = tk3.g2p3d_plain(*g2p_in, **g2p_kw)
+    scale = want.abs().double().amax(dim=(0, 1, 3))
+    scale[6:15] = dinv * dx * float(grid[:, :, :, :3].abs().max())    # C: one term's size
+    if scale.numel() > 15:
+        scale[15] = max(float(scale[15]), 1.0)                          # J or Jbar near 1
+    err_u, rel_u = scaled_errors(got, want, axis=2, scale=scale)
+    worst = int(np.argmax(rel_u))
+    err[name] = max(err_u)
+    say(f"[kernels:sharded3d {tag}] g2p3d on {grid.shape[0]} shard windows "
+        f"{tuple(grid.shape[1:])}, {got.shape[2]} outputs: max_abs_err per channel "
+        f"{['%.2e' % e for e in err_u]}; worst channel {worst}: {rel_u[worst]:.2e} of its scale "
+        f"(tol {KERNEL_REL_TOL})  [{card}]")
+    check(max(rel_u) <= KERNEL_REL_TOL, f"{tag}: g2p3d on the shard windows disagrees with plain")
+    nout = got.shape[2]
+    del got, want
+    kernel_ms[name] = cuda_ms(lambda: tk3.g2p3d(*g2p_in, **g2p_kw), reps=10)
+    plain_ms[name] = cuda_ms(lambda: tk3.g2p3d_plain(*g2p_in, **g2p_kw), reps=2, warm=1)
+    slots, live = mask.numel(), int(counts.sum())
+    if state is not None:
+        # live slots' 11 planes, dead slots' x (3), counts and the grid in;
+        # every slot's 16 channels out; 27 taps x 15 sums per live slot.
+        bounds[name] = bound(4 * (11 * live + 3 * (slots - live) + counts.numel() + grid.numel()
+                                  + nout * slots), live * 27 * (nout - 1) * 2)
+    else:
+        # live slots' gx (3) + mask, counts and the grid in; every slot's
+        # outputs out; 27 taps x nout sums per live slot.
+        bounds[name] = bound(4 * (4 * live + counts.numel() + grid.numel() + nout * slots),
+                             live * 27 * nout * 2)
+    say(f"[kernels:sharded3d {tag}] g2p3d on the shard windows {kernel_ms[name]:.4f} ms (CUDA "
+        f"events, 10 calls, one launch each), plain {plain_ms[name]:.4f} ms (2 calls), bound "
+        f"{bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
+
+
+def sharded3d_phases(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, launches,
+                     timing):
+    """Phases 23-25 (3D, one axis): main:sharded3d, kernels:sharded3d and
+    the timing:sharded rows of slab 8M and stab3d-8M on 4 shards."""
+    from mpm_flip98a_tpu_torch.config import TransferKind
+    from mpm_flip98a_tpu_torch.models import fast3d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+    from mpm_flip98a_tpu_torch.parallel import fast_domain3d
+
+    shards = 4
+    p8, scene8 = scenes.slab_3d(**SLAB_8M)
+    scene_stab = dataclasses.replace(scene8, cfg=dataclasses.replace(scene8.cfg, **STAB))
+    for tag, scene, key, n_sub in (("slab8M", scene8, "raw", 50),
+                                   ("stab3d-8M", scene_stab, "raw_prepped", 20)):
+        sim, ref, got = sharded_against_single(tag, p8, scene, dev, shards, n_sub, card)
+        check(got["p2g3d_grid"] == got["g2p3d"] == 2 * n_sub and got["p2g3d"] == 0,
+              f"sharded {tag}: launches {got}")
+        check(got["p2g_grid"] == got["p2g_fused"] == got["p2g"] == got["g2p"] == 0,
+              f"sharded {tag}: a 2D kernel ran")
+        tk.reset_launches()
+        tk3.reset_launches()
+        sim.step_frame(5)
+        torch.cuda.synchronize()
+        launches[f"p2g3d_grid {key}"] = tk3.LAUNCHES["p2g3d_grid"]
+        launches[f"g2p3d {key}"] = tk3.LAUNCHES["g2p3d"]
+        check(tk3.LAUNCHES["p2g3d_grid"] == tk3.LAUNCHES["g2p3d"] == 5,
+              f"sharded {tag}: {tk3.LAUNCHES} for 5 substeps")
+
+        # ---- kernels:sharded3d: the raw mode against plain on this state
+        ctx = fast_domain3d.FastDomain3DCtx(sim.mesh, sim.spec.rows_per_shard0,
+                                            rows1=sim.spec.local_spec.rows1)
+        gspec, cfg = sim.spec.global_spec, scene.cfg
+        x0k = sim.state.x0 - ctx.x0_shift(dev, cfg)
+        fused = fast3d.uses_fused(scene)
+        mask, state = fast3d._shaped(sim.state.mask, gspec), None
+        if fused:
+            planes, counts, _, state = fast3d.transfer_inputs(sim.state, gspec, cfg, x0k)
+            m_plane = planes[16] * (torch.arange(gspec.capacity, device=dev)
+                                    < counts.view(*planes[0].shape[:2], 1))
+        else:
+            planes = fast3d.prepped_fields(sim.state, scene, gspec, x0k)
+            counts = fast3d.pencil_counts(sim.state)
+            m_plane = planes[tk3.n_prepped(scene.cfg.transfer == TransferKind.APIC, False) - 1]
+        kw = fast3d.p2g_args(scene, raw=True)
+        g2, dx = kw.pop("g2"), kw.pop("dx")
+        r1 = gspec.rows1
+        got_raw = tk3.p2g3d_grid(planes, counts, r1, g2, dx, raw=True, shards=shards, **kw)
+        want = tk3.p2g3d_raw_plain(planes, counts, g2, dx, shards=shards, **kw)
+        err_r, rel_r = scaled_errors(got_raw, want, axis=3)
+        del want
+        m_total = float(m_plane.double().sum())
+        pou = abs(float(got_raw[:, :, :, 6].double().sum()) - m_total) / m_total
+        err[f"p2g3d_grid_{key}"] = max(err_r)
+        say(f"[kernels:sharded3d {tag}] p2g3d_grid raw, {shards} shards, shape "
+            f"{tuple(got_raw.shape)}: max_abs_err per channel {['%.2e' % e for e in err_r]} "
+            f"scaled {['%.2e' % r for r in rel_r]} (tol {KERNEL_REL_TOL}); mass sum rel err "
+            f"{pou:.3e} (tol {POU_REL_TOL})  [{card}]")
+        check(max(rel_r) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid raw disagrees with plain")
+        check(pou <= POU_REL_TOL, f"{tag}: p2g3d_grid raw partition of unity")
+        name = f"p2g3d_grid_{key}"
+        kernel_ms[name] = cuda_ms(lambda: tk3.p2g3d_grid(planes, counts, r1, g2, dx, raw=True,
+                                                         shards=shards, **kw), reps=10)
+        plain_ms[name] = cuda_ms(lambda: tk3.p2g3d_raw_plain(planes, counts, g2, dx,
+                                                             shards=shards, **kw),
+                                 reps=2, warm=1)
+        live3 = int(counts.sum())
+        bounds[name] = bound(4 * (len(planes) * live3 + counts.numel() + got_raw.numel()),
+                             live3 * 27 * got_raw.shape[3] * 2)
+        halo = got_raw.clone()
+        timing[f"halo {tag}"] = cuda_ms(lambda: ctx.halo_sync(halo), reps=10)
+        say(f"[kernels:sharded3d {tag}] p2g3d_grid raw {kernel_ms[name]:.4f} ms (CUDA events, "
+            f"10 calls, one launch each), plain {plain_ms[name]:.4f} ms (2 calls), bound "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}); halo_sync "
+            f"{timing[f'halo {tag}']:.4f} ms  [{card}]")
+        del got_raw, halo, m_plane
+        compare_g2p3d_sharded(tag, planes, mask, counts, state, scene, gspec, ctx, err,
+                              kernel_ms, plain_ms, bounds, card)
+        del planes, counts, mask, state, x0k
+        timing[tag] = time_sharded(tag, sim, ref, 10, 3, card)
+        say(f"[timing:sharded {tag}] halo_sync {timing[f'halo {tag}']:.4f} ms of the "
+            f"{timing[tag][0]:.4f} ms substep  [{card}]")
+        if profile_dir:
+            profile_sharded(profile_dir, sim, 3, timing[tag][0], tag, card)
+        del sim, ref
+        torch.cuda.empty_cache()
+    del p8
+    run_cli(dev, card, "dam3d", "2", 2, 100, ("p2g3d_grid", "g2p3d"), launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of the 2D bench, stab1M, drop1M, "
-                    "the 8M slab and stab3d-8M here")
+                    "the 8M slab and stab3d-8M, single-device and sharded, here")
     args = ap.parse_args(argv)
 
     # ---- 1. device --------------------------------------------------------
@@ -1024,8 +1571,8 @@ def main(argv=None) -> int:
             check(got[name] == n_frames * n_sub == sim.stats.substeps,
                   f"{name} launched {got[name]} times for {n_frames * n_sub} substeps")
             launches[name] = got[name]
-        check(got["p2g"] == got["p2g3d_grid"] == got["g2p3d"] == 0,
-              "p2g or a 3D kernel ran on the fused 2D path")
+        check(got["p2g"] == got["p2g_grid"] == got["p2g3d_grid"] == got["g2p3d"] == 0,
+              "p2g, p2g_grid or a 3D kernel ran on the fused 2D path")
         host_checks("dam2d_flip98", sim, p_ref.n, mass_ref, card)
         if io_ok:
             frames = sorted(os.listdir(sim.frame_dir)), sorted(os.listdir(sim.vtk_dir))
@@ -1348,6 +1895,16 @@ def main(argv=None) -> int:
     prepped3d_phases(dev, card, args.profile, p8, scene8, err, kernel_ms, plain_ms, bounds,
                      launches, t_start)
     del p8
+    torch.cuda.empty_cache()
+    say(f"[timing] 3D prepped phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 19-22. the slab-sharded path in 2D (--devices N) --------------------------
+    timing = sharded2d_phases(dev, card, args, err, kernel_ms, plain_ms, bounds, launches)
+    say(f"[timing] 2D sharded phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 23-25. the one-axis slab-sharded path in 3D --------------------------------
+    sharded3d_phases(dev, card, args.profile, err, kernel_ms, plain_ms, bounds, launches,
+                     timing)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -1368,6 +1925,28 @@ def main(argv=None) -> int:
         "tent_ms": kernel_ms["g2p_tent"],
     })
     next(k for k in kernels if k["name"] == "p2g")["tent_ms"] = kernel_ms["p2g_tent"]
+    # g2p on the sharded path's prepadded grid (bench 1M in 4 shards; the
+    # 7-channel grid at stab1M), launched once per substep there.
+    next(k for k in kernels if k["name"] == "g2p").update({
+        "prepadded_launches": launches["g2p prepadded"],
+        "prepadded_max_abs_err": err["g2p_prepadded"], "prepadded_ms": kernel_ms["g2p_prepadded"],
+        "prepadded_plain_ms": plain_ms["g2p_prepadded"],
+        "prepadded_bound_ms": bounds["g2p_prepadded"][0],
+        "prepadded_bound_by": bounds["g2p_prepadded"][1],
+        "prepadded_ext_max_abs_err": err["g2p_prepadded_ext"],
+        "prepadded_ext_ms": kernel_ms["g2p_prepadded_ext"],
+    })
+    # p2g_grid's prepped 9-channel mode at stab1M in 4 shards and its tent
+    # mode on the ragged case, beside the fused mode at bench 1M.
+    next(k for k in kernels if k["name"] == "p2g_grid").update({
+        "prepped_launches": launches["p2g_grid prepped"],
+        "prepped_max_abs_err": err["p2g_grid_prepped"], "prepped_ms": kernel_ms["p2g_grid_prepped"],
+        "prepped_plain_ms": plain_ms["p2g_grid_prepped"],
+        "prepped_bound_ms": bounds["p2g_grid_prepped"][0],
+        "prepped_bound_by": bounds["p2g_grid_prepped"][1],
+        "tent_max_abs_err": err["p2g_grid_tent"], "tent_ms": kernel_ms["p2g_grid_tent"],
+        "tent_bound_ms": bounds["p2g_grid_tent"][0], "tent_bound_by": bounds["p2g_grid_tent"][1],
+    })
     # The 3D kernels' prepped modes at the stab3d-8M shapes beside their
     # fused-branch numbers, and the tent modes' errors on the ragged case.
     by_name = {k["name"]: k for k in kernels}
@@ -1391,6 +1970,26 @@ def main(argv=None) -> int:
             "drop3d_max_abs_err": err[at_drop], "drop3d_ms": kernel_ms[at_drop],
             "drop3d_plain_ms": plain_ms[at_drop], "drop3d_bound_ms": bounds[at_drop][0],
             "drop3d_bound_by": bounds[at_drop][1],
+        })
+    # p2g3d_grid's raw mode on the 3D sharded path: slab 8M (stress) and
+    # stab3d-8M (prepped, 11 channels) in 4 shards.
+    for mode, key in (("raw", "raw"), ("raw_prepped", "raw_prepped")):
+        name = f"p2g3d_grid_{key}"
+        by_name["p2g3d_grid"].update({
+            f"{mode}_launches": launches[f"p2g3d_grid {key}"],
+            f"{mode}_max_abs_err": err[name], f"{mode}_ms": kernel_ms[name],
+            f"{mode}_plain_ms": plain_ms[name], f"{mode}_bound_ms": bounds[name][0],
+            f"{mode}_bound_by": bounds[name][1],
+        })
+    # g2p3d on the 3D sharded path's shard windows: the update mode at slab
+    # 8M and the gather mode (9-channel grid) at stab3d-8M in 4 shards.
+    for mode, key in (("sharded", "raw"), ("sharded_gather", "raw_prepped")):
+        name = f"g2p3d_{mode}"
+        by_name["g2p3d"].update({
+            f"{mode}_launches": launches[f"g2p3d {key}"],
+            f"{mode}_max_abs_err": err[name], f"{mode}_ms": kernel_ms[name],
+            f"{mode}_plain_ms": plain_ms[name], f"{mode}_bound_ms": bounds[name][0],
+            f"{mode}_bound_by": bounds[name][1],
         })
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 
 The JAX package stays the reference; this package follows its module
 layout and names, imports neither JAX nor the JAX package, and runs the
-single-device fast path (the 2D and 3D dam breaks, the 3D slab) on an
-NVIDIA H100 through four hand-written CUDA kernels:
+fast path (the 2D and 3D dam breaks, the elastic drops, the 3D slab) on
+an NVIDIA H100, on one device or as N slab shards of it, through seven
+hand-written CUDA kernels:
 
 - `config`, `state`           — configuration and particle state
 - `models`                    — materials ids, scene, scene builders, the
@@ -12,6 +13,9 @@ NVIDIA H100 through four hand-written CUDA kernels:
 - `ops`                       — row and pencil binning;
                                 `ops/cuda/transfer2d.py` and `transfer3d.py`
                                 wrap the P2G / G2P kernels in `csrc/`
+- `parallel`                  — the slab-sharded fast path (`--devices N`):
+                                `SlabMesh` (n shards as a leading tensor
+                                dimension), `fast_domain`, `fast_domain3d`
 - `utils`                     — progress, timing, frame and VTK output
 - `driver`                    — the frame loop and CLI
 - `convert`                   — JAX-package state (as numpy) into this

@@ -41,31 +41,37 @@ SIGNATURES = {
     ),
     # pdata, counts, out, R, K, G, nch, dx, apic, tent, stream
     "mpm_p2g": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-    # pdata2, counts, grid, out, R, K, G, grid channels, tent, dx, dinv,
-    # dinv dx, stream
-    "mpm_g2p": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
-    # planes, pencil strides, counts, raw, out, R0, R1, K, G2, dx, apic,
-    # tait, kb, kb/gamma, gamma, 2 mu, fa, dt g (3), floor, lo, hi, wall,
-    # dt beta, stream
-    "mpm_p2g3d_grid": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F,
-        _F, _F, _F, _F, _I, _I, _I, _F, _P,
+    # data, counts, out, shards, L, K, G, nch, fused, tent, dx, apic, tait,
+    # kb, kb/gamma, gamma, 2 mu, mu, fa, stream
+    "mpm_p2g_grid": (
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F,
+        _F, _P,
     ),
-    # planes, pencil strides, counts, grid, out, R0, R1, K, G2, dx, dinv,
+    # pdata2, counts, grid, out, R, L, pad, K, G, grid channels, tent, dx,
+    # dinv, dinv dx, stream
+    "mpm_g2p": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # planes, pencil strides, counts, raw, out, R0, L0, R1, K, G2, dx, apic,
+    # tait, kb, kb/gamma, gamma, 2 mu, fa, dt g (3), floor, lo, hi, wall,
+    # dt beta, raw only, stream
+    "mpm_p2g3d_grid": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F,
+        _F, _F, _F, _F, _I, _I, _I, _F, _I, _P,
+    ),
+    # planes, pencil strides, counts, grid, out, R0, L0, R1, K, G2, dx, dinv,
     # alpha, 1 - alpha, dt, stream
-    "mpm_g2p3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    "mpm_g2p3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
     # planes (29), pencil strides, counts, out, R0, R1, K, G1, G2, nch, apic,
     # tent, dx, stream
     "mpm_p2g3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # planes (29), pencil strides, counts, raw, out, R0, R1, K, G2, nch, apic,
-    # tent, dx, dt g (3), floor, lo, hi, wall, dt beta, stream
+    # planes (29), pencil strides, counts, raw, out, R0, L0, R1, K, G2, nch,
+    # apic, tent, dx, dt g (3), floor, lo, hi, wall, dt beta, raw only, stream
     "mpm_p2g3d_grid_pdata": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-        _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+        _I, _I, _I, _F, _I, _P,
     ),
-    # planes (4), pencil strides, counts, grid, out, R0, R1, K, G2, grid
+    # planes (4), pencil strides, counts, grid, out, R0, L0, R1, K, G2, grid
     # channels, tent, dx, dinv, stream
-    "mpm_g2p3d_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "mpm_g2p3d_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 

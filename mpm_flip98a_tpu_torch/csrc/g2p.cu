@@ -10,7 +10,10 @@
 // Contract (same as the TPU kernel):
 //   pdata2 (R, 3, K) f32 = [gx0, gx1, mask], counts (R,) i32
 //   grid   (R, kCh, G) f32 = [v_new0, v_new1, v_old0, v_old1(, Jbar, p,
-//          div)], row-leading, unpadded: rows outside [0, R) read as zero
+//          div)], row-leading, unpadded: rows outside [0, R) read as zero;
+//          or prepadded (transfer2d.py:859-863, :879-881): n slab shards
+//          of L bucket rows (n L = R, gx0 local to the shard), grid
+//          (n, L + 4, kCh, G) with row j of shard s its target row j - 1
 //   out    (R, 8 + kCh - 4, K) f32 = [vpic0, vpic1, vold0, vold1, C00,
 //          C01, C10, C11(, Jbar, p, div)]
 // with vpic = sum w v_new, vold = sum w v_old, C_a0 = dinv sum w v_new_a
@@ -21,8 +24,10 @@
 // taps on columns outside [0, G) are dropped.
 //
 // Design: one thread per slot, blocks of 256 slots along K and one grid
-// row of blocks per bucket row.  Each thread sums its 9 taps in a fixed
-// order (rows, then columns), so the result is deterministic.  The
+// row of blocks per bucket row; a prepadded grid is a row offset and a
+// bound per shard window, so one launch covers all shards.  Each thread
+// sums its 9 taps in a fixed order (rows, then columns), so the result is
+// deterministic.  The
 // channel count and the kernel shape are template parameters: four
 // instantiations, chosen by the host entry point.
 //
@@ -34,64 +39,49 @@
 
 #include <cuda_runtime.h>
 
+#include "taps.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kTent>
-__device__ __forceinline__ float col_weight(float d) {
-  const float a = fabsf(d);
-  if (kTent) return fmaxf(1.0f - a, 0.0f);
-  const float t1 = fmaxf(1.5f - a, 0.0f);
-  const float t2 = fmaxf(0.5f - a, 0.0f);
-  return 0.5f * t1 * t1 - 1.5f * t2 * t2;
-}
-
-template <bool kTent>
-__device__ __forceinline__ void row_weights(float fx, float* w) {
-  if (kTent) {  // transfer2d.py:132-140
-    w[0] = fmaxf(0.0f, 1.0f - fx);
-    w[1] = 1.0f - fabsf(fx - 1.0f);
-    w[2] = fmaxf(0.0f, fx - 1.0f);
-  } else {      // transfer2d.py:123-129
-    w[0] = 0.5f * (1.5f - fx) * (1.5f - fx);
-    w[1] = 0.75f - (fx - 1.0f) * (fx - 1.0f);
-    w[2] = 0.5f * (fx - 0.5f) * (fx - 0.5f);
-  }
-}
-
 template <int kCh, bool kTent>
 __global__ void __launch_bounds__(kThreads)
 g2p_kernel(const float* __restrict__ pdata2, const int* __restrict__ counts,
-           const float* __restrict__ grid, float* __restrict__ out, int R, int K,
-           int G, float dx, float dinv, float dinv_dx) {
+           const float* __restrict__ grid, float* __restrict__ out, int L, int pad,
+           int K, int G, float dx, float dinv, float dinv_dx) {
   constexpr int kOut = 8 + (kCh - 4);
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y;
+  const int i = blockIdx.y;              // bucket row
   if (k >= K) return;
+  const int shard = i / L;
+  const int li = i - shard * L;          // row within the shard
+  const int win = L + 4 * pad;           // rows of the shard's grid window
+  const float* gwin = grid + static_cast<size_t>(shard) * win * kCh * G;
   const float* pd = pdata2 + static_cast<size_t>(i) * 3 * K;
   float acc[kOut] = {};
   if (k < counts[i]) {
     const float gx0 = pd[k], gx1 = pd[K + k], mask = pd[2 * K + k];
     const float base0 = floorf(gx0 - 0.5f);
-    const float rel = base0 - static_cast<float>(i);
+    const float rel = base0 - static_cast<float>(li);
     if (mask > 0.0f && rel >= -1.0f && rel <= 1.0f) {
       float w0[3];
-      row_weights<kTent>(gx0 - base0, w0);
+      taps::axis<kTent>(gx0 - base0, w0);
       const float base1 = floorf(gx1 - 0.5f);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         const float rowf = base0 + static_cast<float>(j);
-        if (!(rowf >= 0.0f && rowf < static_cast<float>(R))) continue;
+        const float wrow = rowf + static_cast<float>(pad);  // row in the window
+        if (!(wrow >= 0.0f && wrow < static_cast<float>(win))) continue;
         const float rdp = (rowf - gx0) * dx;
-        const float* gr = grid + static_cast<size_t>(rowf) * kCh * G;
+        const float* gr = gwin + static_cast<size_t>(wrow) * kCh * G;
 #pragma unroll
         for (int jc = 0; jc < 3; ++jc) {
           const float cf = base1 + static_cast<float>(jc);
           if (!(cf >= 0.0f && cf < static_cast<float>(G))) continue;
           const int c = static_cast<int>(cf);
           const float d = cf - gx1;
-          const float w = w0[j] * col_weight<kTent>(d);
+          const float w = w0[j] * taps::col<kTent>(d);
           const float vn0 = gr[c], vn1 = gr[G + c];
           acc[0] += w * vn0;
           acc[1] += w * vn1;
@@ -119,27 +109,31 @@ g2p_kernel(const float* __restrict__ pdata2, const int* __restrict__ counts,
 
 template <int kCh, bool kTent>
 void launch(const float* pdata2, const int* counts, const float* grid, float* out,
-            int R, int K, int G, float dx, float dinv, float dinv_dx,
+            int R, int L, int pad, int K, int G, float dx, float dinv, float dinv_dx,
             cudaStream_t stream) {
   const dim3 blocks((K + kThreads - 1) / kThreads, R);
   g2p_kernel<kCh, kTent><<<blocks, kThreads, 0, stream>>>(
-      pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx);
+      pdata2, counts, grid, out, L, pad, K, G, dx, dinv, dinv_dx);
 }
 
 }  // namespace
 
-// ch: grid channels (4 or 7); tent: 0 B-spline, 1 tent.  Returns the
-// launch's cudaGetLastError(), or cudaErrorInvalidValue for another ch.
+// ch: grid channels (4 or 7); tent: 0 B-spline, 1 tent; L: bucket rows per
+// shard (R for one unpadded grid); pad: 0 unpadded (R, ch, G), 1 prepadded
+// (R / L, L + 4, ch, G).  Returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for another ch or an L that does not divide R.
 extern "C" int mpm_g2p(const float* pdata2, const int* counts, const float* grid,
-                       float* out, int R, int K, int G, int ch, int tent, float dx,
-                       float dinv, float dinv_dx, void* stream) {
-  if (ch != 4 && ch != 7) return static_cast<int>(cudaErrorInvalidValue);
+                       float* out, int R, int L, int pad, int K, int G, int ch, int tent,
+                       float dx, float dinv, float dinv_dx, void* stream) {
+  if ((ch != 4 && ch != 7) || L <= 0 || R % L != 0 || (pad != 0 && pad != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (R > 0 && K > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (ch == 4 && !tent) launch<4, false>(pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx, s);
-    if (ch == 4 && tent) launch<4, true>(pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx, s);
-    if (ch == 7 && !tent) launch<7, false>(pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx, s);
-    if (ch == 7 && tent) launch<7, true>(pdata2, counts, grid, out, R, K, G, dx, dinv, dinv_dx, s);
+    if (ch == 4 && !tent) launch<4, false>(pdata2, counts, grid, out, R, L, pad, K, G, dx, dinv, dinv_dx, s);
+    if (ch == 4 && tent) launch<4, true>(pdata2, counts, grid, out, R, L, pad, K, G, dx, dinv, dinv_dx, s);
+    if (ch == 7 && !tent) launch<7, false>(pdata2, counts, grid, out, R, L, pad, K, G, dx, dinv, dinv_dx, s);
+    if (ch == 7 && tent) launch<7, true>(pdata2, counts, grid, out, R, L, pad, K, G, dx, dinv, dinv_dx, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,10 @@
 // the count get the dead fill (transfer3d.py:795-821): x passed through
 // from the input, v = C = 0, J = 1.
 //
+// Slab shards (the sharded path's axis-0-padded grid): n shards of L0
+// axis-0 rows (n L0 = R0, gx0 local to the shard) read their own window of
+// a grid (n, L0 + 4, R1 + 4, gch, G2); one launch covers all shards.
+//
 // Design: one thread per slot, blocks of kThreads slots inside one pencil.
 // Each thread sums its 27 taps in a fixed order (axis 0, 1, then z), so
 // the result is deterministic.  Offsets are 64-bit: the output alone has
@@ -77,7 +81,7 @@ __device__ __forceinline__ void axis_weights(float fx, float w[3]) {
 
 __global__ void __launch_bounds__(kThreads)
 g2p3d_kernel(Planes in, const int* __restrict__ counts,
-             const float* __restrict__ grid, float* __restrict__ out, int R1,
+             const float* __restrict__ grid, float* __restrict__ out, int L0, int R1,
              int K, int kblocks, int G2, float dx, float dinv, float alpha,
              float one_m_alpha, float dtv) {
   const long long pencil = blockIdx.x / kblocks;
@@ -96,7 +100,8 @@ g2p3d_kernel(Planes in, const int* __restrict__ counts,
     o[15LL * K] = 1.0f;
     return;
   }
-  const int i0 = static_cast<int>(pencil / R1);
+  const int shard = static_cast<int>(pencil / R1) / L0;
+  const int i0 = static_cast<int>(pencil / R1) - shard * L0;  // row in the shard
   const int i1 = static_cast<int>(pencil % R1);
   const float gx0 = in.p[0][pencil * in.stride[0] + k];
   const float gx1 = in.p[1][pencil * in.stride[1] + k];
@@ -116,7 +121,8 @@ g2p3d_kernel(Planes in, const int* __restrict__ counts,
     axis_weights(gx1 - base1, w1);
     const float base2 = floorf(gx2 - 0.5f);
     const long long P1 = R1 + kNT - 1;
-    const long long q0 = i0 + static_cast<int>(rel0) + 1;
+    const long long q0 = static_cast<long long>(shard) * (L0 + kNT - 1) + i0 +
+                         static_cast<int>(rel0) + 1;
     const long long q1 = i1 + static_cast<int>(rel1) + 1;
 #pragma unroll
     for (int j0 = 0; j0 < 3; ++j0) {
@@ -170,7 +176,7 @@ template <int kGch, bool kTent>
 __global__ void __launch_bounds__(kThreads)
 g2p3d_gather_kernel(Planes in, const int* __restrict__ counts,
                     const float* __restrict__ grid, float* __restrict__ out,
-                    int R1, int K, int kblocks, int G2, float dx, float dinv) {
+                    int L0, int R1, int K, int kblocks, int G2, float dx, float dinv) {
   constexpr int kExtra = kGch - kCh;     // Jbar, p, div
   constexpr int kNout = 15 + kExtra;
   const long long pencil = blockIdx.x / kblocks;
@@ -179,7 +185,8 @@ g2p3d_gather_kernel(Planes in, const int* __restrict__ counts,
   float* o = out + pencil * kNout * K + k;
   float valid = 0.0f, gx0 = 0.0f, gx1 = 0.0f, base0 = 0.0f, base1 = 0.0f;
   float rel0 = 0.0f, rel1 = 0.0f;
-  const int i0 = static_cast<int>(pencil / R1);
+  const int shard = static_cast<int>(pencil / R1) / L0;
+  const int i0 = static_cast<int>(pencil / R1) - shard * L0;  // row in the shard
   const int i1 = static_cast<int>(pencil % R1);
   if (k < counts[pencil]) {
     gx0 = in.p[0][pencil * in.stride[0] + k];
@@ -203,7 +210,8 @@ g2p3d_gather_kernel(Planes in, const int* __restrict__ counts,
     taps::axis<kTent>(gx1 - base1, w1);
     const float base2 = floorf(gx2 - 0.5f);
     const long long P1 = R1 + kNT - 1;
-    const long long q0 = i0 + static_cast<int>(rel0) + 1;
+    const long long q0 = static_cast<long long>(shard) * (L0 + kNT - 1) + i0 +
+                         static_cast<int>(rel0) + 1;
     const long long q1 = i1 + static_cast<int>(rel1) + 1;
 #pragma unroll
     for (int j0 = 0; j0 < 3; ++j0) {
@@ -245,21 +253,24 @@ g2p3d_gather_kernel(Planes in, const int* __restrict__ counts,
 
 template <int kGch, bool kTent>
 void launch_gather(const Planes& in, const int* counts, const float* grid, float* out,
-                   unsigned blocks, int R1, int K, int kblocks, int G2, float dx,
+                   unsigned blocks, int L0, int R1, int K, int kblocks, int G2, float dx,
                    float dinv, cudaStream_t s) {
   g2p3d_gather_kernel<kGch, kTent><<<blocks, kThreads, 0, s>>>(
-      in, counts, grid, out, R1, K, kblocks, G2, dx, dinv);
+      in, counts, grid, out, L0, R1, K, kblocks, G2, dx, dinv);
 }
 
 }  // namespace
 
 // Gather mode.  planes / strides: [gx0, gx1, gx2, mask]; gch: 6 or 9 grid
-// channels (15 or 18 outputs); tent: 0/1.  Returns a cudaError_t as int.
+// channels (15 or 18 outputs); tent: 0/1; L0: axis-0 rows per shard (R0
+// for one device).  Returns a cudaError_t as int.
 extern "C" int mpm_g2p3d_gather(const void* const* planes, const long long* strides,
                                 const int* counts, const float* grid, float* out,
-                                int R0, int R1, int K, int G2, int gch, int tent,
+                                int R0, int L0, int R1, int K, int G2, int gch, int tent,
                                 float dx, float dinv, void* stream) {
-  if (gch != 6 && gch != 9) return static_cast<int>(cudaErrorInvalidValue);
+  if ((gch != 6 && gch != 9) || L0 <= 0 || R0 % L0 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Planes in = {};
   for (int e = 0; e < 4; ++e) {
     in.p[e] = static_cast<const float*>(planes[e]);
@@ -271,11 +282,11 @@ extern "C" int mpm_g2p3d_gather(const void* const* planes, const long long* stri
     const unsigned nb = static_cast<unsigned>(blocks);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (gch == 6) {
-      if (tent) launch_gather<6, true>(in, counts, grid, out, nb, R1, K, kblocks, G2, dx, dinv, s);
-      else launch_gather<6, false>(in, counts, grid, out, nb, R1, K, kblocks, G2, dx, dinv, s);
+      if (tent) launch_gather<6, true>(in, counts, grid, out, nb, L0, R1, K, kblocks, G2, dx, dinv, s);
+      else launch_gather<6, false>(in, counts, grid, out, nb, L0, R1, K, kblocks, G2, dx, dinv, s);
     } else {
-      if (tent) launch_gather<9, true>(in, counts, grid, out, nb, R1, K, kblocks, G2, dx, dinv, s);
-      else launch_gather<9, false>(in, counts, grid, out, nb, R1, K, kblocks, G2, dx, dinv, s);
+      if (tent) launch_gather<9, true>(in, counts, grid, out, nb, L0, R1, K, kblocks, G2, dx, dinv, s);
+      else launch_gather<9, false>(in, counts, grid, out, nb, L0, R1, K, kblocks, G2, dx, dinv, s);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -283,8 +294,9 @@ extern "C" int mpm_g2p3d_gather(const void* const* planes, const long long* stri
 
 extern "C" int mpm_g2p3d(const void* const* planes, const long long* strides,
                          const int* counts, const float* grid, float* out, int R0,
-                         int R1, int K, int G2, float dx, float dinv, float alpha,
+                         int L0, int R1, int K, int G2, float dx, float dinv, float alpha,
                          float one_m_alpha, float dtv, void* stream) {
+  if (L0 <= 0 || R0 % L0 != 0) return static_cast<int>(cudaErrorInvalidValue);
   Planes in;
   for (int e = 0; e < kIn; ++e) {
     in.p[e] = static_cast<const float*>(planes[e]);
@@ -295,7 +307,7 @@ extern "C" int mpm_g2p3d(const void* const* planes, const long long* strides,
   if (blocks > 0) {
     g2p3d_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-        in, counts, grid, out, R1, K, kblocks, G2, dx, dinv, alpha, one_m_alpha,
+        in, counts, grid, out, L0, R1, K, kblocks, G2, dx, dinv, alpha, one_m_alpha,
         dtv);
   }
   return static_cast<int>(cudaGetLastError());

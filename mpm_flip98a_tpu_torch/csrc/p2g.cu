@@ -38,41 +38,18 @@
 
 #include <cuda_runtime.h>
 
+#include "taps.cuh"
+
 namespace {
 
 constexpr int kNT = 5;     // candidate target rows
 constexpr int kThreads = 256;
-
-template <bool kTent>
-__device__ __forceinline__ float col_weight(float d) {
-  // B-spline 0.5 (1.5-|d|)+^2 - 1.5 (0.5-|d|)+^2 or tent (1-|d|)+
-  // (transfer2d.py:147-159).
-  const float a = fabsf(d);
-  if (kTent) return fmaxf(1.0f - a, 0.0f);
-  const float t1 = fmaxf(1.5f - a, 0.0f);
-  const float t2 = fmaxf(0.5f - a, 0.0f);
-  return 0.5f * t1 * t1 - 1.5f * t2 * t2;
-}
-
-template <bool kTent>
-__device__ __forceinline__ void row_weights(float fx, float* w) {
-  if (kTent) {  // transfer2d.py:132-140
-    w[0] = fmaxf(0.0f, 1.0f - fx);
-    w[1] = 1.0f - fabsf(fx - 1.0f);
-    w[2] = fmaxf(0.0f, fx - 1.0f);
-  } else {      // transfer2d.py:123-129
-    w[0] = 0.5f * (1.5f - fx) * (1.5f - fx);
-    w[1] = 0.75f - (fx - 1.0f) * (fx - 1.0f);
-    w[2] = 0.5f * (fx - 0.5f) * (fx - 0.5f);
-  }
-}
 
 template <int kNch, bool kTent>
 __global__ void __launch_bounds__(kThreads)
 p2g_kernel(const float* __restrict__ pdata, const int* __restrict__ counts,
            float* __restrict__ out, int K, int G, int band, float dx, int apic) {
   constexpr int kFields = 8 + kNch;
-  constexpr int kPlain = kNch - 4;
   extern __shared__ float slab[];  // [kNT][kNch][band]
   const int i = blockIdx.x;
   const int c0 = blockIdx.y * band;
@@ -94,17 +71,11 @@ p2g_kernel(const float* __restrict__ pdata, const int* __restrict__ counts,
     // The slot's columns base1 .. base1 + 2 must meet this block's band.
     if (base1 + 2.0f < static_cast<float>(c0) ||
         base1 >= static_cast<float>(c0 + width)) continue;
-    const float mv0 = row[2 * K + k], mv1 = row[3 * K + k];
-    const float p00 = apic ? row[4 * K + k] : 0.0f, p01 = apic ? row[5 * K + k] : 0.0f;
-    const float p10 = apic ? row[6 * K + k] : 0.0f, p11 = apic ? row[7 * K + k] : 0.0f;
-    const float q00 = row[8 * K + k], q01 = row[9 * K + k];
-    const float q10 = row[10 * K + k], q11 = row[11 * K + k];
-    float plain[kPlain];
-#pragma unroll
-    for (int e = 0; e < kPlain; ++e) plain[e] = row[(12 + e) * K + k];
+    taps::Slot2d<kNch - 4> slot;
+    taps::load_prepped2d(row, K, k, apic, slot);
 
     float w0[3];
-    row_weights<kTent>(gx0 - base0, w0);
+    taps::axis<kTent>(gx0 - base0, w0);
     float wc[3], cd[3];
     int col[3];
 #pragma unroll
@@ -114,28 +85,20 @@ p2g_kernel(const float* __restrict__ pdata, const int* __restrict__ counts,
       const int cb = in ? static_cast<int>(cf) - c0 : -1;  // column in the band
       const float d = cf - gx1;
       col[jc] = (cb >= 0 && cb < width) ? cb : -1;
-      wc[jc] = col_weight<kTent>(d);
+      wc[jc] = taps::col<kTent>(d);
       cd[jc] = d * dx;
     }
     const int t0 = static_cast<int>(rel) + 1;  // target of row tap j = 0
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const int t = t0 + j;
-      const float rdp = (base0 + static_cast<float>(j) - gx0) * dx;
-      const float r0 = mv0 + p00 * rdp, r1 = mv1 + p10 * rdp;
-      const float r2 = mv0 + q00 * rdp, r3 = mv1 + q10 * rdp;
+      float r[4];
+      taps::row_affine2d(slot, (base0 + static_cast<float>(j) - gx0) * dx, r);
       float* s = slab + t * kNch * band;
 #pragma unroll
       for (int jc = 0; jc < 3; ++jc) {
         if (col[jc] < 0) continue;
-        const float w = w0[j] * wc[jc];
-        float* sc = s + col[jc];
-        atomicAdd(sc, w * (r0 + p01 * cd[jc]));
-        atomicAdd(sc + band, w * (r1 + p11 * cd[jc]));
-        atomicAdd(sc + 2 * band, w * (r2 + q01 * cd[jc]));
-        atomicAdd(sc + 3 * band, w * (r3 + q11 * cd[jc]));
-#pragma unroll
-        for (int e = 0; e < kPlain; ++e) atomicAdd(sc + (4 + e) * band, w * plain[e]);
+        taps::add_tap2d(slot, r, cd[jc], w0[j] * wc[jc], s + col[jc], band);
       }
     }
   }

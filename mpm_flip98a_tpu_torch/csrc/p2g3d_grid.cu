@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel `p2g3d_grid` in
 // mpm_flip98a_tpu/ops/pallas/transfer3d.py (def :622, pallas_call :709,
-// body _p2g3d_grid_kernel :428 -> _p2g3d_chunk :193), non-raw and without
-// colliders, in two modes: the stress mode (mpm_p2g3d_grid: the fluid
+// body _p2g3d_grid_kernel :428 -> _p2g3d_chunk :193), without colliders,
+// in two modes: the stress mode (mpm_p2g3d_grid: the fluid
 // stress computed per slot, B-spline, 7 raw channels) and the prepped
 // mode (mpm_p2g3d_grid_pdata: stress=None, PIC or APIC, B-spline or tent
 // taps, and with 11 raw channels the nodal Jbar, p and div of `ext`).
@@ -25,6 +25,11 @@
 //           bucketed axes; Jbar = sum V0 J / sum V0 where volume landed,
 //           else 1 on interior axis-0 rows and 0 on the pad rows; p and
 //           div likewise with 0
+// Raw mode (transfer3d.py:484-489, the slab-sharded path's): n slab
+// shards of L0 axis-0 rows each (n L0 = R0, gx0 local to the shard); the
+// scatter alone, into the raw sums (n, L0 + 4, R1 + 4, 7 or 11, G2), row
+// j of shard s its local target row j - 1, uncropped on both axes; one
+// launch covers all shards, and the update launch is skipped.
 // A slot contributes only when its base row on both axes is within +-1 of
 // its pencil's; z taps outside [0, G2) are dropped.  Axis-0 target rows
 // outside [0, R0) come out zero (the TPU kernel's `interior` crop); the
@@ -87,14 +92,15 @@ __device__ __forceinline__ void axis_weights(float fx, float w[3]) {
 
 __global__ void __launch_bounds__(kThreads)
 p2g3d_scatter_kernel(Planes in, const int* __restrict__ counts,
-                     float* __restrict__ raw, int R1, int K, int kblocks,
+                     float* __restrict__ raw, int L0, int R1, int K, int kblocks,
                      int G2, float dx, int apic, int tait, float kb,
                      float kb_over_gamma, float gamma, float two_mu,
                      float fa) {
   const long long pencil = blockIdx.x / kblocks;
   const int k = (blockIdx.x % kblocks) * kThreads + threadIdx.x;
   if (k >= K || k >= counts[pencil]) return;
-  const int i0 = static_cast<int>(pencil / R1);
+  const int shard = static_cast<int>(pencil / R1) / L0;
+  const int i0 = static_cast<int>(pencil / R1) - shard * L0;  // row in the shard
   const int i1 = static_cast<int>(pencil % R1);
   float f[kIn];
 #pragma unroll
@@ -151,8 +157,10 @@ p2g3d_scatter_kernel(Planes in, const int* __restrict__ counts,
     cdz[j2] = d * dx;
   }
   const long long P1 = R1 + kNT - 1;
-  // Padded plane of tap j: bucket row + rel + j + 1 on each axis.
-  const long long q0 = i0 + static_cast<int>(rel0) + 1;
+  // Padded plane of tap j: bucket row + rel + j + 1 on each axis, in the
+  // shard's window of L0 + 4 planes.
+  const long long q0 = static_cast<long long>(shard) * (L0 + kNT - 1) + i0 +
+                       static_cast<int>(rel0) + 1;
   const long long q1 = i1 + static_cast<int>(rel1) + 1;
 #pragma unroll
   for (int j0 = 0; j0 < 3; ++j0) {
@@ -188,12 +196,13 @@ p2g3d_scatter_kernel(Planes in, const int* __restrict__ counts,
 template <int kNch, bool kTent>
 __global__ void __launch_bounds__(kThreads)
 p2g3d_scatter_pdata_kernel(taps::Prepped in, const int* __restrict__ counts,
-                           float* __restrict__ raw, int R1, int K, int kblocks,
+                           float* __restrict__ raw, int L0, int R1, int K, int kblocks,
                            int G2, float dx, int apic) {
   const long long pencil = blockIdx.x / kblocks;
   const int k = (blockIdx.x % kblocks) * kThreads + threadIdx.x;
   if (k >= K || k >= counts[pencil]) return;
-  const int i0 = static_cast<int>(pencil / R1);
+  const int shard = static_cast<int>(pencil / R1) / L0;
+  const int i0 = static_cast<int>(pencil / R1) - shard * L0;  // row in the shard
   const int i1 = static_cast<int>(pencil % R1);
   const float gx0 = in.at(taps::kGx, pencil, k);
   const float gx1 = in.at(taps::kGx + 1, pencil, k);
@@ -210,8 +219,10 @@ p2g3d_scatter_pdata_kernel(taps::Prepped in, const int* __restrict__ counts,
   taps::axis<kTent>(gx0 - base0, w0);
   taps::axis<kTent>(gx1 - base1, w1);
   const long long P1 = R1 + kNT - 1;
-  // Padded plane of tap j: bucket row + rel + j + 1 on each axis.
-  const long long q0 = i0 + static_cast<int>(rel0) + 1;
+  // Padded plane of tap j: bucket row + rel + j + 1 on each axis, in the
+  // shard's window of L0 + 4 planes.
+  const long long q0 = static_cast<long long>(shard) * (L0 + kNT - 1) + i0 +
+                       static_cast<int>(rel0) + 1;
   const long long q1 = i1 + static_cast<int>(rel1) + 1;
 #pragma unroll
   for (int j0 = 0; j0 < 3; ++j0) {
@@ -311,21 +322,27 @@ int launch_update(const float* raw, float* out, long long nodes, int R0, int P1,
 
 template <int kNch, bool kTent>
 void launch_pdata_scatter(const taps::Prepped& in, const int* counts, float* raw,
-                          unsigned blocks, int R1, int K, int kblocks, int G2,
+                          unsigned blocks, int L0, int R1, int K, int kblocks, int G2,
                           float dx, int apic, cudaStream_t s) {
   p2g3d_scatter_pdata_kernel<kNch, kTent><<<blocks, kThreads, 0, s>>>(
-      in, counts, raw, R1, K, kblocks, G2, dx, apic);
+      in, counts, raw, L0, R1, K, kblocks, G2, dx, apic);
 }
 
 }  // namespace
 
+// L0: axis-0 rows per shard (R0 for one device); raw_only: 1 stops after
+// the scatter (the raw mode: `out` is unused, R0 / L0 shards), 0 runs the
+// update too (then L0 must be R0).
 extern "C" int mpm_p2g3d_grid(const void* const* planes, const long long* strides,
                               const int* counts, float* raw, float* out, int R0,
-                              int R1, int K, int G2, float dx, int apic, int tait,
+                              int L0, int R1, int K, int G2, float dx, int apic, int tait,
                               float kb, float kb_over_gamma, float gamma,
                               float two_mu, float fa, float dtg0, float dtg1,
                               float dtg2, float floor_m, int lo, int hi, int wall,
-                              float dt_beta, void* stream) {
+                              float dt_beta, int raw_only, void* stream) {
+  if (L0 <= 0 || R0 % L0 != 0 || (!raw_only && L0 != R0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Planes in;
   for (int e = 0; e < kIn; ++e) {
@@ -333,36 +350,41 @@ extern "C" int mpm_p2g3d_grid(const void* const* planes, const long long* stride
     in.stride[e] = strides[e];
   }
   const int P1 = R1 + kNT - 1;
-  const long long nodes = static_cast<long long>(R0 + kNT - 1) * P1 * G2;
+  const long long nodes = static_cast<long long>(R0 / L0) * (L0 + kNT - 1) * P1 * G2;
   cudaError_t err = cudaMemsetAsync(raw, 0, sizeof(float) * kRaw * nodes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int kblocks = (K + kThreads - 1) / kThreads;
   const long long blocks = static_cast<long long>(R0) * R1 * kblocks;
   if (blocks > 0) {
     p2g3d_scatter_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        in, counts, raw, R1, K, kblocks, G2, dx, apic, tait, kb, kb_over_gamma,
+        in, counts, raw, L0, R1, K, kblocks, G2, dx, apic, tait, kb, kb_over_gamma,
         gamma, two_mu, fa);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  if (raw_only) return static_cast<int>(cudaGetLastError());
   return launch_update<false>(raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2,
                               floor_m, lo, hi, wall, dt_beta, s);
 }
 
 // Prepped mode.  planes / strides: 29 entries in the order of taps.cuh
 // (null where the mode has no such plane); nch: 7, or 11 with the ext
-// fields (then out has 9 channels); apic, tent: 0/1.
+// fields (then out has 9 channels); apic, tent: 0/1; L0 and raw_only as
+// in mpm_p2g3d_grid.
 extern "C" int mpm_p2g3d_grid_pdata(const void* const* planes, const long long* strides,
                                     const int* counts, float* raw, float* out, int R0,
-                                    int R1, int K, int G2, int nch, int apic, int tent,
-                                    float dx, float dtg0, float dtg1, float dtg2,
+                                    int L0, int R1, int K, int G2, int nch, int apic,
+                                    int tent, float dx, float dtg0, float dtg1, float dtg2,
                                     float floor_m, int lo, int hi, int wall,
-                                    float dt_beta, void* stream) {
+                                    float dt_beta, int raw_only, void* stream) {
   if (nch != 7 && nch != 11) return static_cast<int>(cudaErrorInvalidValue);
+  if (L0 <= 0 || R0 % L0 != 0 || (!raw_only && L0 != R0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const taps::Prepped in = taps::prepped_from(planes, strides);
   const int P1 = R1 + kNT - 1;
-  const long long nodes = static_cast<long long>(R0 + kNT - 1) * P1 * G2;
+  const long long nodes = static_cast<long long>(R0 / L0) * (L0 + kNT - 1) * P1 * G2;
   cudaError_t err = cudaMemsetAsync(raw, 0, sizeof(float) * nch * nodes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int kblocks = (K + kThreads - 1) / kThreads;
@@ -370,15 +392,16 @@ extern "C" int mpm_p2g3d_grid_pdata(const void* const* planes, const long long* 
   if (blocks > 0) {
     const unsigned nb = static_cast<unsigned>(blocks);
     if (nch == 7) {
-      if (tent) launch_pdata_scatter<7, true>(in, counts, raw, nb, R1, K, kblocks, G2, dx, apic, s);
-      else launch_pdata_scatter<7, false>(in, counts, raw, nb, R1, K, kblocks, G2, dx, apic, s);
+      if (tent) launch_pdata_scatter<7, true>(in, counts, raw, nb, L0, R1, K, kblocks, G2, dx, apic, s);
+      else launch_pdata_scatter<7, false>(in, counts, raw, nb, L0, R1, K, kblocks, G2, dx, apic, s);
     } else {
-      if (tent) launch_pdata_scatter<11, true>(in, counts, raw, nb, R1, K, kblocks, G2, dx, apic, s);
-      else launch_pdata_scatter<11, false>(in, counts, raw, nb, R1, K, kblocks, G2, dx, apic, s);
+      if (tent) launch_pdata_scatter<11, true>(in, counts, raw, nb, L0, R1, K, kblocks, G2, dx, apic, s);
+      else launch_pdata_scatter<11, false>(in, counts, raw, nb, L0, R1, K, kblocks, G2, dx, apic, s);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  if (raw_only) return static_cast<int>(cudaGetLastError());
   if (nch == 11) {
     return launch_update<true>(raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2,
                                floor_m, lo, hi, wall, dt_beta, s);

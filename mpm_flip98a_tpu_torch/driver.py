@@ -7,9 +7,12 @@ Reference: exec.py — the outer frame loop with 10,000 substeps per frame
 The port runs the fast path on one device (`--device`, default `cuda`),
 routed by the scene's dimension as the JAX driver does: `models/fast2d`
 for `dam2d`, `dam2d_flip98` and `elastic_drop`, `models/fast3d` for
-`dam3d`.  The general
-path, other scenarios, several devices and checkpoints raise
-NotImplementedError naming their ROADMAP item.
+`dam3d`.  `--devices N` runs the slab-sharded path (driver.py:138-177):
+N slab shards of the grid's axis 0 on that one device
+(`parallel.SlabMesh`), `parallel/fast_domain` in 2D and the one-axis
+`parallel/fast_domain3d` in 3D.  The general path, other scenarios, the
+two-axis `N0xN1` mesh and checkpoints raise NotImplementedError naming
+their ROADMAP item.
 
 CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
           --frames 2 --substeps 100 --no-gif
@@ -17,6 +20,8 @@ CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
           --frames 2 --substeps 200 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam3d --path fast \
           --frames 2 --substeps 100 --no-gif
+      python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
+          --devices 4 --frames 2 --substeps 100 --no-gif
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
 from mpm_flip98a_tpu_torch.models import fast2d, fast3d, scenes
+from mpm_flip98a_tpu_torch.parallel import SlabMesh, fast_domain, fast_domain3d
 from mpm_flip98a_tpu_torch.utils import io_vtk, native_io, render
 from mpm_flip98a_tpu_torch.utils.progress import create_file_paths, progress_bar
 from mpm_flip98a_tpu_torch.utils.timing import Timers, ThroughputMeter
@@ -69,8 +75,20 @@ def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
+def parse_devices(s: str):
+    """`--devices`: "N" -> N slab shards, "N0xN1" -> (N0, N1), the two-axis
+    3D mesh (driver.py:499-505)."""
+    if "x" in s:
+        n0, n1 = s.split("x")
+        return (int(n0), int(n1))
+    return int(s)
+
+
 class Simulation:
-    """Frame-loop driver around a (particles, scene) pair on one device."""
+    """Frame-loop driver around a (particles, scene) pair on one device.
+
+    `devices` N > 1 runs N slab shards on that device; (N0, N1) is the
+    two-axis 3D mesh, not ported."""
 
     def __init__(
         self,
@@ -82,12 +100,23 @@ class Simulation:
         render_res: int = 512,
         io_async: bool = False,
         device="cuda",
+        devices=1,
     ):
         if path != "fast":
             raise _unported(f"--path {path}", 7)
+        if isinstance(devices, tuple):
+            if scene.cfg.dim != 3:
+                raise ValueError("--devices N0xN1 (two-axis mesh) is 3D-only; "
+                                 "2D shards over a 1D slab mesh")
+            devices = fast_domain3d.as_shards(devices)   # raises for N1 > 1
+        self.devices = devices
         # Dimension routing: pencil buckets in 3D, row buckets in 2D.
-        self._fast = fast3d if scene.cfg.dim == 3 else fast2d
-        self._fast.check_supported(scene)
+        if scene.cfg.dim == 3:
+            self._fast = fast3d
+            fast3d.check_supported(scene, sharded=devices > 1)
+        else:
+            self._fast = fast2d
+            fast2d.check_supported(scene)
         self.scene = scene
         self.cfg = scene.cfg
         self.path = path
@@ -105,9 +134,18 @@ class Simulation:
         self.total_time = 0.0
         self.frame_count = 0
         self._last_respec_frame = 0
-        spec_cls = fast3d.FastSpec3D if self.cfg.dim == 3 else fast2d.FastSpec
-        self.spec = spec_cls.for_particles(self.cfg, particles)
-        self.state = self._fast.from_particles(particles, self.cfg, self.spec, self.device)
+        if devices > 1:
+            # The slab-sharded path (driver.py:138-177) on `devices` shards.
+            dom = fast_domain3d if self.cfg.dim == 3 else fast_domain
+            self.mesh = SlabMesh(devices, self.device)
+            spec_cls = dom.FastDomain3DSpec if self.cfg.dim == 3 else dom.FastDomainSpec
+            self.spec = spec_cls.for_particles(self.cfg, devices, particles)
+            self.state = dom.distribute(particles, self.cfg, self.spec, self.mesh)
+            self._sharded_run = dom.make_run(scene, self.spec, self.mesh)
+        else:
+            spec_cls = fast3d.FastSpec3D if self.cfg.dim == 3 else fast2d.FastSpec
+            self.spec = spec_cls.for_particles(self.cfg, particles)
+            self.state = self._fast.from_particles(particles, self.cfg, self.spec, self.device)
         self.stats = fast2d.RunStats()
         self.meter = ThroughputMeter(particles.n, self.cfg.stencil_size)
 
@@ -143,7 +181,10 @@ class Simulation:
         n = n_substeps or self.cfg.substeps_per_frame
         t0 = time.perf_counter()
         with self.timers.scope("substeps", sync=self.device):
-            self.state = self._fast.run(self.state, self.scene, self.spec, n, self.stats)
+            if self.devices > 1:
+                self.state = self._sharded_run(self.state, n, self.stats)
+            else:
+                self.state = self._fast.run(self.state, self.scene, self.spec, n, self.stats)
         self.meter.update(n, time.perf_counter() - t0)
         self.total_time += n * self.cfg.dt
         self.frame_count += 1
@@ -198,7 +239,10 @@ class Simulation:
         rebucket cost.  Capacity grows at once when the occupancy-sized
         capacity (headroom 1.15) exceeds the current one, so the in-run
         rebucket never overflows; it shrinks for a >= 37.5% reduction at
-        most every 4 frames."""
+        most every 4 frames.  Sharded runs keep their spec (driver.py:
+        326-330)."""
+        if self.devices > 1:
+            return
         h = self._host_state()
         g = self.cfg.num_grids
         rows = [
@@ -297,8 +341,9 @@ def main(argv=None) -> Simulation:
     )
     ap.add_argument("--path", default="fast", choices=["general", "fast"])
     ap.add_argument(
-        "--devices", default="1",
-        help="devices to shard over (only 1 is ported)",
+        "--devices", type=parse_devices, default=1,
+        help="shard the fast path into N slabs on the one device (slab "
+        "decomposition); N0xN1 (the two-axis 3D mesh) is not ported",
     )
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--substeps", type=int, default=None)
@@ -319,14 +364,12 @@ def main(argv=None) -> Simulation:
 
     if args.scenario in UNPORTED_SCENARIOS:
         raise _unported(f"scenario {args.scenario!r}", UNPORTED_SCENARIOS[args.scenario])
-    if args.devices != "1":
-        raise _unported("--devices > 1", 10)
     if args.resume or args.checkpoint or args.checkpoint_every:
         raise _unported("checkpointing", 6)
     p, scene = SCENARIOS[args.scenario]()
     sim = Simulation(
         p, scene, path=args.path, out_dir=args.out, io_async=not args.sync_io,
-        device=args.device,
+        device=args.device, devices=args.devices,
     )
     sim.run(
         n_frames=args.frames,

@@ -23,6 +23,12 @@ reference's order (a rebucket happens before the first substep whose
 state fails the margin check); in eager PyTorch that costs one
 device-to-host read of the check per substep, counted in `RunStats`.
 
+`substep(..., domain=ctx)` runs the same physics on n slab shards of L
+bucket rows (parallel/fast_domain.py, fast2d.py:510-519, 744-793): kernel
+row coordinates local to the shard, `p2g_grid`'s raw halo sums for both
+branches, the halo exchange, the grid update on the L + 4 halo rows with
+global row indices, and `g2p` on the prepadded grid.
+
 Configurations outside this slice raise NotImplementedError naming their
 ROADMAP item.  The TPU lane crop (`kernel_cols`) is not ported: the
 kernels use all G = num_grids columns.
@@ -237,35 +243,40 @@ def uses_fused(scene: Scene) -> bool:
     )
 
 
-def _axis_bands2d(cfg: MPMConfig, nrows: int, ncols: int, device):
-    """Wall-band masks broadcastable against (R, G) planes: box faces at
-    PAD / G-1-PAD, as models/stabilized._apply_wall_bc."""
+def _axis_bands2d(cfg: MPMConfig, idx0: torch.Tensor, ncols: int):
+    """Wall-band masks broadcastable against (..., rows, G) planes: box
+    faces at PAD / G-1-PAD, as models/stabilized._apply_wall_bc.  `idx0`
+    holds the planes' global row indices (fast2d.py:242-255)."""
     lo, hi = int(PAD), cfg.num_grids - 1 - int(PAD)
-    idx0 = torch.arange(nrows, device=device)
-    idx1 = torch.arange(ncols, device=device)
+    idx1 = torch.arange(ncols, device=idx0.device)
     return (
-        (idx0 <= lo)[:, None], (idx0 >= hi)[:, None],
+        (idx0 <= lo)[..., None], (idx0 >= hi)[..., None],
         (idx1 <= lo)[None, :], (idx1 >= hi)[None, :],
     )
 
 
-def _grid_update2d(gridsum: torch.Tensor, scene: Scene) -> torch.Tensor:
+def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None) -> torch.Tensor:
     """Grid momentum update on the row-leading (R, 5 or 6 or 9, G) fold
     output (fast2d.py:258-398 without CSF, colliders and the projection):
     mass floor, gravity, then slip or sticky walls or the penalty EBC.
     Returns the grid (R, 4, G) = [v_new (2), v_old (2)] for g2p, plus the
-    nodal averages [Jbar, p, div] (R, 7, G) under F-bar or mixing."""
+    nodal averages [Jbar, p, div] (R, 7, G) under F-bar or mixing.
+
+    Slab shards pass the halo-synced (n, L + 4, nch, G) sums and their
+    global row indices `row_index0` (n, L + 4).  The relative mass floor is
+    then each shard's own (the reference's _mass_floor on the shard-local
+    sums, fast2d.py:277, takes no pmax; ROADMAP queue 3)."""
     cfg = scene.cfg
     dt = np.float32(cfg.dt)
-    g_m = gridsum[:, 4]
-    has = g_m > _mass_floor(scene, g_m)
+    g_m = gridsum[..., 4, :]
+    has = g_m > _mass_floor(scene, g_m, sharded=gridsum.dim() == 4)
     safe = torch.where(has, g_m, 1.0)
-    v0x = torch.where(has, gridsum[:, 0] / safe, 0.0)     # pre-force
-    v0y = torch.where(has, gridsum[:, 1] / safe, 0.0)
+    v0x = torch.where(has, gridsum[..., 0, :] / safe, 0.0)     # pre-force
+    v0y = torch.where(has, gridsum[..., 1, :] / safe, 0.0)
     grav = np.asarray(cfg.gravity_acceleration(scene.physics), np.float32)
-    low0, high0, low1, high1 = _axis_bands2d(
-        cfg, gridsum.shape[0], gridsum.shape[-1], gridsum.device
-    )
+    if row_index0 is None:
+        row_index0 = torch.arange(gridsum.shape[0], device=gridsum.device)
+    low0, high0, low1, high1 = _axis_bands2d(cfg, row_index0, gridsum.shape[-1])
     if cfg.use_penalty_ebc:
         # Implicit normal-velocity penalty (m I + dt beta n n^T) v = m v* +
         # dt m g; the box's penalty matrix is diagonal, so the solve is a
@@ -273,14 +284,14 @@ def _grid_update2d(gridsum: torch.Tensor, scene: Scene) -> torch.Tensor:
         dt_beta = float(dt * np.float32(cfg.penalty_parameter(scene.physics)))
         pen0 = (low0 | high0).to(torch.float32)
         pen1 = (low1 | high1).to(torch.float32)
-        rhs_x = gridsum[:, 2] + float(dt * grav[0]) * g_m
-        rhs_y = gridsum[:, 3] + float(dt * grav[1]) * g_m
+        rhs_x = gridsum[..., 2, :] + float(dt * grav[0]) * g_m
+        rhs_y = gridsum[..., 3, :] + float(dt * grav[1]) * g_m
         vx = torch.where(has, rhs_x / (g_m + dt_beta * pen0), 0.0)
         vy = torch.where(has, rhs_y / (g_m + dt_beta * pen1), 0.0)
     else:
         hasf = has.to(torch.float32)
-        vx = torch.where(has, gridsum[:, 2] / safe, 0.0) + float(dt * grav[0]) * hasf
-        vy = torch.where(has, gridsum[:, 3] / safe, 0.0) + float(dt * grav[1]) * hasf
+        vx = torch.where(has, gridsum[..., 2, :] / safe, 0.0) + float(dt * grav[0]) * hasf
+        vy = torch.where(has, gridsum[..., 3, :] / safe, 0.0) + float(dt * grav[1]) * hasf
         if scene.wall.kind == "sticky":
             anyband = low0 | high0 | low1 | high1
             vx = torch.where(anyband, 0.0, vx)
@@ -294,13 +305,13 @@ def _grid_update2d(gridsum: torch.Tensor, scene: Scene) -> torch.Tensor:
     if _ext(cfg):
         # Nodal averages for the next substep's stress: Jbar, p, div, with
         # 1 / 0 / 0 where no volume landed.
-        v0sum = gridsum[:, 6]
+        v0sum = gridsum[..., 6, :]
         has_v = v0sum > 0
         safe_v = torch.where(has_v, v0sum, 1.0)
-        gch.append(torch.where(has_v, gridsum[:, 5] / safe_v, 1.0))
-        gch.append(torch.where(has_v, gridsum[:, 7] / safe_v, 0.0))
-        gch.append(torch.where(has_v, gridsum[:, 8] / safe_v, 0.0))
-    return torch.stack(gch, dim=1)
+        gch.append(torch.where(has_v, gridsum[..., 5, :] / safe_v, 1.0))
+        gch.append(torch.where(has_v, gridsum[..., 7, :] / safe_v, 0.0))
+        gch.append(torch.where(has_v, gridsum[..., 8, :] / safe_v, 0.0))
+    return torch.stack(gch, dim=-2)
 
 
 def p2g_args(scene: Scene) -> dict:
@@ -427,17 +438,21 @@ def _prep(b: FluidBuckets, scene: Scene, gx0, gx1) -> torch.Tensor:
     return torch.stack(rows, dim=1)
 
 
-def transfer_inputs(b: FluidBuckets, scene: Scene):
+def transfer_inputs(b: FluidBuckets, scene: Scene, domain=None):
     """(data, pdata2 (R, 3, K), counts (R,)) for the kernels, where data is
     `p2g_fused`'s sdata (R, 11, K) or `p2g`'s prepped pdata (R, 14 or 17,
     K), as `uses_fused` picks.
 
     P2G and G2P read one precomputed transfer coordinate gx = x / dx + PAD
     (docs/KERNELS.md:57-60): computed twice, it could round a knife-edge
-    particle into different cells in the two transfers."""
+    particle into different cells in the two transfers.  On slab shards
+    (`domain`) gx0 is local to the shard: bucket row i of shard s holds
+    global base rows s L + i +- 1 (fast2d.py:510-515)."""
     inv_dx = _f32(scene.cfg.inv_dx)
     gx0 = b.x0 * inv_dx + PAD
     gx1 = b.x1 * inv_dx + PAD
+    if domain is not None:
+        gx0 = gx0 - domain.bucket_row0(b.device)
     counts = (b.mask > 0).sum(dim=1).to(torch.int32)
     if uses_fused(scene):
         data = torch.stack(
@@ -472,12 +487,33 @@ def _tent_inverse_d(gx0, gx1, dx: float):
     return d11 / det, -d01 / det, d00 / det
 
 
-def substep(b: FluidBuckets, scene: Scene, plain: bool = False) -> FluidBuckets:
+def _grid(data, counts, scene: Scene, plain: bool, domain):
+    """P2G, the fold and the grid update -> the g2p grid: (R, 4 or 7, G) on
+    one device; on slab shards `p2g_grid`'s raw halo sums, the halo
+    exchange and the update on the (n, L + 4) halo rows (fast2d.py:744-766)."""
+    fused = uses_fused(scene)
+    if domain is None:
+        if plain:
+            p2g = tk.p2g_fused_plain if fused else tk.p2g_plain
+        else:
+            p2g = tk.p2g_fused if fused else tk.p2g
+        return _grid_update2d(tk.fold_rows(p2g(data, counts, **p2g_args(scene))), scene)
+    kw = dict(fused=fused, shards=domain.n, **p2g_args(scene))
+    raw = tk.p2g_grid_plain(data, counts, **kw) if plain else tk.p2g_grid(
+        data, counts, raw=True, **kw)
+    return _grid_update2d(domain.halo_sync(raw), scene, domain.row_index0(data.device))
+
+
+def substep(
+    b: FluidBuckets, scene: Scene, plain: bool = False, domain=None
+) -> FluidBuckets:
     """One fast substep (fast2d.py:479-875).
 
     `uses_fused` configs take `p2g_fused`; the others prep `pdata` and
     take `p2g`, the extended grid channels under F-bar or mixing and the
     tent kernel's per-particle D^-1.  Then `g2p` and the particle update.
+    `domain` (parallel/fast_domain.FastDomainCtx) runs both branches on
+    its slab shards through `p2g_grid`'s raw mode and the prepadded `g2p`.
     `plain=True` calls the kernels' plain PyTorch versions even on a card:
     it exists to time the plain path against the kernel path."""
     check_supported(scene)
@@ -487,15 +523,12 @@ def substep(b: FluidBuckets, scene: Scene, plain: bool = False) -> FluidBuckets:
     dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
     tent = cfg.kernel == KernelKind.TENT
     ext = _ext(cfg)
-    fused = uses_fused(scene)
-    if plain:
-        p2g, g2p = (tk.p2g_fused_plain if fused else tk.p2g_plain), tk.g2p_plain
-    else:
-        p2g, g2p = (tk.p2g_fused if fused else tk.p2g), tk.g2p
+    g2p = tk.g2p_plain if plain else tk.g2p
 
-    data, pdata2, counts = transfer_inputs(b, scene)
-    grid = _grid_update2d(tk.fold_rows(p2g(data, counts, **p2g_args(scene))), scene)
-    out = g2p(pdata2, counts, grid, dx, 1.0 if tent else dinv, tent=tent)
+    data, pdata2, counts = transfer_inputs(b, scene, domain)
+    grid = _grid(data, counts, scene, plain, domain)
+    out = g2p(pdata2, counts, grid, dx, 1.0 if tent else dinv, tent=tent,
+              prepadded=domain is not None)
     vpic0, vpic1 = out[:, 0], out[:, 1]
     vold0, vold1 = out[:, 2], out[:, 3]
     c00, c01, c10, c11 = out[:, 4], out[:, 5], out[:, 6], out[:, 7]
@@ -541,15 +574,23 @@ def substep(b: FluidBuckets, scene: Scene, plain: bool = False) -> FluidBuckets:
     )
 
 
-def _needs_rebucket(b: FluidBuckets, cfg: MPMConfig) -> torch.Tensor:
-    """True (a 0-dim bool tensor) when any active slot approaches the
-    kernels' +-1-row margin: post-rebucket every slot has gx0 - 0.5 - row
-    in [0, 1); trigger with a 0.2-row safety band before [-1, 2) is left."""
+def _margin_rows(b: FluidBuckets, cfg: MPMConfig) -> torch.Tensor:
+    """(R,) bool: bucket rows with an active slot near the kernels' +-1-row
+    margin: post-rebucket every slot has gx0 - 0.5 - row in [0, 1); trigger
+    with a 0.2-row safety band before [-1, 2) is left.  Rows are global, so
+    on slab shards this is the reference's check with row0 = s L
+    (fast2d.py:877-891)."""
     r, k = b.shape
     gx0 = b.x0 * _f32(cfg.inv_dx) + PAD
     rows = torch.arange(r, dtype=torch.int32, device=b.device)[:, None].to(torch.float32)
     d = torch.where(b.mask > 0, gx0 - 0.5 - rows, 0.5)
-    return ((d <= -0.8) | (d >= 1.8)).any()
+    return ((d <= -0.8) | (d >= 1.8)).any(dim=1)
+
+
+def _needs_rebucket(b: FluidBuckets, cfg: MPMConfig) -> torch.Tensor:
+    """True (a 0-dim bool tensor) when any active slot approaches the
+    kernels' +-1-row margin (`_margin_rows`)."""
+    return _margin_rows(b, cfg).any()
 
 
 @dataclasses.dataclass

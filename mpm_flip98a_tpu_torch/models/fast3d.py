@@ -28,6 +28,13 @@ rebucket happens before the first substep whose state fails the margin
 check on either bucketed axis); in eager PyTorch that costs one
 device-to-host read of the check per substep, counted in `RunStats`.
 
+`substep(..., domain=ctx)` runs either branch on n slab shards of L0
+axis-0 rows (parallel/fast_domain3d.py, one axis; fast3d.py:518-530,
+631-644, 776-784): positions shifted by the slab origin for the kernels,
+`p2g3d_grid`'s raw halo sums, the halo exchange on axis 0, `_grid_update`
+on the halo planes with global row indices, and `g2p3d` on the
+axis-0-padded grid of each shard.
+
 Configurations outside this slice raise NotImplementedError naming their
 ROADMAP item.
 """
@@ -214,7 +221,7 @@ def to_host(b: FluidBuckets3D) -> dict:
     return {n: out[n] for n in HOST_FIELDS}
 
 
-def check_supported(scene: Scene) -> None:
+def check_supported(scene: Scene, sharded: bool = False) -> None:
     """Raise NotImplementedError for configs outside the ported slice."""
     cfg = scene.cfg
     gaps = [
@@ -226,15 +233,19 @@ def check_supported(scene: Scene) -> None:
          "snow and sand (mathx.svd, plastic_update)", 8),
         (scene.params.plastic and mat.FIXED_COROTATED in scene.materials_present,
          "corotated plasticity (plastic_update)", 8),
-        # fast3d.py:631-645 sends such a scene to p2g3d_grid's raw mode.
-        (cfg.dim == 3 and uses_fused(scene) and scene.mass_floor <= 0.0,
-         "the relative mass floor on the fused branch (p2g3d_grid's raw mode)", 10),
     ]
     for bad, what, item in gaps:
         if bad:
             raise NotImplementedError(
                 f"fast3d port: {what} is not ported yet (ROADMAP queue 1, item {item})"
             )
+    if uses_fused(scene) and scene.mass_floor <= 0.0 and not sharded:
+        # fast3d.py:601-645 sends such a scene on one device to the
+        # sharded tail, which calls halo_sync on no domain.
+        raise NotImplementedError(
+            "fast3d port: the relative mass floor on the fused branch has no "
+            "single-device route (the reference's raises; ROADMAP queue 3)"
+        )
 
 
 def uses_fused(scene: Scene) -> bool:
@@ -262,27 +273,27 @@ def _wall_args(scene: Scene) -> dict:
     )
 
 
-def p2g_args(scene: Scene) -> dict:
+def p2g_args(scene: Scene, raw: bool = False) -> dict:
     """Keyword arguments of the scene's P2G wrapper after (fields, counts,
     g1): the stress mode of `p2g3d_grid` (fast3d.py:608-627) for a
     `uses_fused` scene; for the others its prepped mode (:797-802) with an
-    absolute mass floor, or `p2g3d` (:805-808) without one."""
+    absolute mass floor, or `p2g3d` (:805-808) without one.  `raw`: the
+    scatter's arguments alone, for `p2g3d_grid`'s raw mode (slab shards)."""
     cfg = scene.cfg
     apic = cfg.transfer == TransferKind.APIC
     args = dict(g2=cfg.num_grids, dx=float(cfg.dx), apic=apic)
     if uses_fused(scene):
         dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
-        return dict(
-            **args,
+        args.update(
             stress="linear" if scene.params.eos == EOSKind.LINEAR else "tait",
             kb=float(scene.params.bulk_modulus),
             mu=float(scene.params.dynamic_viscosity),
             gamma=float(scene.params.tait_gamma),
             fa=float(-cfg.dt * dinv),
-            **_wall_args(scene),
         )
-    args.update(ext=_ext(cfg), tent=cfg.kernel == KernelKind.TENT)
-    if scene.mass_floor > 0.0:
+    else:
+        args.update(ext=_ext(cfg), tent=cfg.kernel == KernelKind.TENT)
+    if not raw and (uses_fused(scene) or scene.mass_floor > 0.0):
         args.update(_wall_args(scene))
     return args
 
@@ -291,14 +302,16 @@ def _shaped(a: torch.Tensor, spec: FastSpec3D) -> torch.Tensor:
     return a.reshape(spec.rows0, spec.rows1, spec.capacity)
 
 
-def _gxs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig):
+def _gxs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig, x0k=None):
     """The transfer coordinates gx = x / dx + PAD as (R0, R1, K) planes.
 
     P2G and G2P read this one precomputed gx (fast3d.py:551-560): computed
     in each kernel, FMA rounding could put a knife-edge particle into
-    different cells in the two transfers."""
+    different cells in the two transfers.  `x0k` replaces x0: on slab
+    shards, x0 less the slab origin (fast3d.py:518-527)."""
     invf = _f32(cfg.inv_dx)
-    return tuple(_shaped(x * invf + PAD, spec) for x in (b.x0, b.x1, b.x2))
+    x0 = b.x0 if x0k is None else x0k
+    return tuple(_shaped(x * invf + PAD, spec) for x in (x0, b.x1, b.x2))
 
 
 def pencil_counts(b: FluidBuckets3D) -> torch.Tensor:
@@ -306,38 +319,62 @@ def pencil_counts(b: FluidBuckets3D) -> torch.Tensor:
     return (b.mask > 0).sum(dim=1).to(torch.int32)
 
 
-def transfer_inputs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig):
+def transfer_inputs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig, x0k=None):
     """(planes, counts, mask, state) for the fused branch's kernels, as
     (R0, R1, K) views: the 18 P2G planes [gx (3), v (3), C00..C22, J, mass,
     vol0], the pencil counts (R0 * R1,), the mask, and G2P's state [v (3),
-    J, x (3)]."""
+    J, x (3)], x0 replaced by `x0k` on slab shards."""
     shaped = lambda a: _shaped(a, spec)
     planes = (
-        *_gxs(b, spec, cfg),
+        *_gxs(b, spec, cfg, x0k),
         *(shaped(getattr(b, n)) for n in ("v0", "v1", "v2")),
         *(shaped(getattr(b, f"C{a}{c}")) for a in range(3) for c in range(3)),
         shaped(b.J), shaped(b.mass), shaped(b.vol0),
     )
-    state = tuple(shaped(getattr(b, n)) for n in ("v0", "v1", "v2", "J", "x0", "x1", "x2"))
+    x0 = b.x0 if x0k is None else x0k
+    state = (*(shaped(getattr(b, n)) for n in ("v0", "v1", "v2", "J")),
+             shaped(x0), shaped(b.x1), shaped(b.x2))
     return planes, pencil_counts(b), shaped(b.mask), state
 
 
-def _fused_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool):
-    """The fused branch (fast3d.py:592-630 and `_finish_substep`)."""
+def _sharded_grid(fields, counts, scene: Scene, spec: FastSpec3D, plain: bool, domain):
+    """`p2g3d_grid`'s raw halo sums on the slab shards, the axis-0 halo
+    exchange, then `_grid_update` on the (n, L0 + 4, R1 + 4) halo planes
+    with global axis-0 rows and axis-1 plane rows j - 1 (fast3d.py:457-466,
+    776-784) -> each shard's G2P grid (n, L0 + 4, R1 + 4, 6 or 9, G2)."""
+    kw = dict(shards=domain.n, **p2g_args(scene, raw=True))
+    if plain:
+        raw = tk3.p2g3d_raw_plain(fields, counts, **kw)
+    else:
+        raw = tk3.p2g3d_grid(fields, counts, spec.rows1, raw=True, **kw)
+    dev = counts.device
+    return _grid_update(domain.halo_sync(raw), scene, domain.row_index0(dev),
+                        torch.arange(spec.rows1 + tk3.NT - 1, device=dev) - 1)
+
+
+def _fused_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool, domain=None):
+    """The fused branch (fast3d.py:592-644 and `_finish_substep`).  On slab
+    shards the kernels see x0 less the slab origin, and the origin is added
+    back to the advected x0 (dead slots: (0 - a) + a == 0)."""
     cfg = scene.cfg
     r0, r1 = spec.rows0, spec.rows1
-    p2g, g2p = (
-        (tk3.p2g3d_grid_plain, tk3.g2p3d_plain) if plain else (tk3.p2g3d_grid, tk3.g2p3d)
-    )
-    planes, counts, mask, state = transfer_inputs(b, spec, cfg)
-    grid_pad = p2g(planes, counts, r1, **p2g_args(scene))
+    g2p = tk3.g2p3d_plain if plain else tk3.g2p3d
+    x0_shift = None if domain is None else domain.x0_shift(b.device, cfg)
+    planes, counts, mask, state = transfer_inputs(
+        b, spec, cfg, None if domain is None else b.x0 - x0_shift)
+    if domain is None:
+        p2g = tk3.p2g3d_grid_plain if plain else tk3.p2g3d_grid
+        grid_pad = p2g(planes, counts, r1, **p2g_args(scene))
+    else:
+        grid_pad = _sharded_grid(planes, counts, scene, spec, plain, domain)
     out = g2p(
         *planes[:3], mask, counts, grid_pad, float(cfg.dx),
         float(4.0 * cfg.inv_dx * cfg.inv_dx), state, float(cfg.flip_blend), float(cfg.dt),
     ).view(r0 * r1, tk3.G2P_UPD, spec.capacity)
     return dataclasses.replace(
         b,
-        x0=out[:, 0], x1=out[:, 1], x2=out[:, 2],
+        x0=out[:, 0] if domain is None else out[:, 0] + x0_shift,
+        x1=out[:, 1], x2=out[:, 2],
         v0=out[:, 3], v1=out[:, 4], v2=out[:, 5],
         C00=out[:, 6], C01=out[:, 7], C02=out[:, 8],
         C10=out[:, 9], C11=out[:, 10], C12=out[:, 11],
@@ -481,11 +518,11 @@ def _stress(b: FluidBuckets3D, scene: Scene):
     return tau, p_point_out, div_lag
 
 
-def prepped_fields(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D):
+def prepped_fields(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, x0k=None):
     """The prepped P2G planes (fast3d.py:746-773), each a separate (R0, R1,
     K) tensor: [gx (3), m v (3), P (9, APIC only), Q (9), m] + [V0 J, V0,
     V0 p, V0 div] under F-bar or mixing; every value plane masked.
-    P = m C, Q = P - dt D^-1 tau."""
+    P = m C, Q = P - dt D^-1 tau; gx0 from `x0k` on slab shards."""
     cfg = scene.cfg
     shaped = lambda a: _shaped(a, spec)
     tau, p_point, div_lag = _stress(b, scene)
@@ -497,7 +534,7 @@ def prepped_fields(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D):
     else:
         p_aff = []
         q_aff = [fa * t * b.mask for t in tau]
-    fields = [*_gxs(b, spec, cfg), *(shaped(m * v) for v in (b.v0, b.v1, b.v2)),
+    fields = [*_gxs(b, spec, cfg, x0k), *(shaped(m * v) for v in (b.v0, b.v1, b.v2)),
               *map(shaped, p_aff), *map(shaped, q_aff), shaped(m)]
     if _ext(cfg):
         v0m = b.vol0 * b.mask
@@ -505,39 +542,51 @@ def prepped_fields(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D):
     return tuple(fields)
 
 
-def _axis_bands(cfg: MPMConfig, device):
-    """(low, high) wall-band masks per axis, broadcastable against (G0, G1,
-    G2) planes: box faces at PAD / G-1-PAD (fast3d.py:200-217)."""
+def _axis_bands(cfg: MPMConfig, device, row_index0=None, row_index1=None):
+    """(low, high) wall-band masks per axis, broadcastable against (...,
+    G0, G1, G2) planes: box faces at PAD / G-1-PAD (fast3d.py:200-217).
+    `row_index0` / `row_index1` carry the planes' global axis-0 / axis-1
+    node indices (slab shards: (n, L0 + 4) and (R1 + 4,))."""
     g = cfg.num_grids
     lo, hi = int(PAD), g - 1 - int(PAD)
     idx = torch.arange(g, device=device)
-    shapes = ((g, 1, 1), (1, g, 1), (1, 1, g))
-    return [((idx <= lo).view(s), (idx >= hi).view(s)) for s in shapes]
+    idx0 = idx if row_index0 is None else row_index0
+    idx1 = idx if row_index1 is None else row_index1
+    return [
+        ((idx0 <= lo)[..., None, None], (idx0 >= hi)[..., None, None]),
+        ((idx1 <= lo)[:, None], (idx1 >= hi)[:, None]),
+        (idx <= lo, idx >= hi),
+    ]
 
 
-def _grid_update(gs: torch.Tensor, scene: Scene) -> torch.Tensor:
+def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=None) -> torch.Tensor:
     """Grid momentum update on the fold's (G0, G1, 7 or 11, G2) layout
     (fast3d.py:291-430 without CSF, colliders and the projection): mass
     floor (relative when `scene.mass_floor <= 0`: a device-side max),
     gravity, then slip or sticky walls (`_wall_bc_ch`) or the penalty EBC
     (`_wall_normal_diag_ch`: the box's penalty matrix is diagonal).
     Returns the unpadded (G0, G1, 6 or 9, G2) grid = [v_new (3), v_old
-    (3)] + the nodal [Jbar, p, div] under F-bar or mixing."""
+    (3)] + the nodal [Jbar, p, div] under F-bar or mixing.
+
+    Slab shards pass the halo-synced (n, L0 + 4, R1 + 4, nch, G2) sums with
+    their global row indices; the relative floor is then each shard's own
+    (the reference's _mass_floor on shard-local sums takes no pmax; ROADMAP
+    queue 3)."""
     cfg = scene.cfg
     dt = np.float32(cfg.dt)
-    g_m = gs[:, :, 6]
-    has = g_m > _mass_floor(scene, g_m)
+    g_m = gs[..., 6, :]
+    has = g_m > _mass_floor(scene, g_m, sharded=gs.dim() == 5)
     safe = torch.where(has, g_m, 1.0)
-    v_old = [torch.where(has, gs[:, :, a] / safe, 0.0) for a in range(3)]
+    v_old = [torch.where(has, gs[..., a, :] / safe, 0.0) for a in range(3)]
     grav = np.asarray(cfg.gravity_acceleration(scene.physics), np.float32)
-    bands = _axis_bands(cfg, gs.device)
+    bands = _axis_bands(cfg, gs.device, row_index0, row_index1)
     if cfg.use_penalty_ebc:
         dt_beta = float(dt * np.float32(cfg.penalty_parameter(scene.physics)))
         dtm = float(dt) * g_m
         v = [
             torch.where(
                 has,
-                (gs[:, :, 3 + a] + dtm * float(grav[a]))
+                (gs[..., 3 + a, :] + dtm * float(grav[a]))
                 / (g_m + dt_beta * (low | high).to(g_m.dtype)),
                 0.0,
             )
@@ -546,7 +595,7 @@ def _grid_update(gs: torch.Tensor, scene: Scene) -> torch.Tensor:
     else:
         hasf = has.to(g_m.dtype)
         v = [
-            torch.where(has, gs[:, :, 3 + a] / safe, 0.0) + float(dt * grav[a]) * hasf
+            torch.where(has, gs[..., 3 + a, :] / safe, 0.0) + float(dt * grav[a]) * hasf
             for a in range(3)
         ]
         if scene.wall.kind == "sticky":
@@ -559,16 +608,16 @@ def _grid_update(gs: torch.Tensor, scene: Scene) -> torch.Tensor:
                 v[a] = torch.where(low, v[a].clamp(min=0.0), v[a])
                 v[a] = torch.where(high, v[a].clamp(max=0.0), v[a])
     gch = v + v_old
-    if gs.shape[2] == tk3.P2G_CH_EXT:
+    if gs.shape[-2] == tk3.P2G_CH_EXT:
         # Nodal averages for the next substep's stress: Jbar, p, div, with
         # 1 / 0 / 0 where no volume landed.
-        v0sum = gs[:, :, 8]
+        v0sum = gs[..., 8, :]
         has_v = v0sum > 0
         safe_v = torch.where(has_v, v0sum, 1.0)
-        gch.append(torch.where(has_v, gs[:, :, 7] / safe_v, 1.0))
-        gch.append(torch.where(has_v, gs[:, :, 9] / safe_v, 0.0))
-        gch.append(torch.where(has_v, gs[:, :, 10] / safe_v, 0.0))
-    return torch.stack(gch, dim=2)
+        gch.append(torch.where(has_v, gs[..., 7, :] / safe_v, 1.0))
+        gch.append(torch.where(has_v, gs[..., 9, :] / safe_v, 0.0))
+        gch.append(torch.where(has_v, gs[..., 10, :] / safe_v, 0.0))
+    return torch.stack(gch, dim=-2)
 
 
 def _tent_inverse_d(gxs, dx: float):
@@ -600,19 +649,25 @@ def _tent_inverse_d(gxs, dx: float):
     return tuple(co / det for co in (co00, co01, co02, co11, co12, co22))
 
 
-def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool):
+def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool,
+                     domain=None):
     """The prepped branch (fast3d.py:646-934): stress prep, P2G by the
-    mass floor's route, gather-mode G2P, the particle update."""
+    mass floor's route (on slab shards always `p2g3d_grid`'s raw mode),
+    gather-mode G2P, the particle update."""
     cfg = scene.cfg
     r0, r1, k = spec.rows0, spec.rows1, spec.capacity
     dt = _f32(cfg.dt)
     dx = float(cfg.dx)
     tent = cfg.kernel == KernelKind.TENT
     ext = _ext(cfg)
-    fields = prepped_fields(b, scene, spec)
+    x0k = None if domain is None else b.x0 - domain.x0_shift(b.device, cfg)
+    fields = prepped_fields(b, scene, spec, x0k)
+    del x0k
     counts = pencil_counts(b)
     args = p2g_args(scene)
-    if scene.mass_floor > 0.0:
+    if domain is not None:
+        grid = _sharded_grid(fields, counts, scene, spec, plain, domain)
+    elif scene.mass_floor > 0.0:
         # Absolute floor: scatter, fold and grid update in one wrapper; the
         # grid comes out padded on both axes.
         p2g = tk3.p2g3d_grid_plain if plain else tk3.p2g3d_grid
@@ -688,26 +743,30 @@ def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: b
 
 
 def substep(
-    b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool = False
+    b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool = False, domain=None
 ) -> FluidBuckets3D:
-    """One fast substep (fast3d.py:505-934, single device).
+    """One fast substep (fast3d.py:505-934).
 
     `uses_fused` configs compute the stress inside `p2g3d_grid` and update
     the particles inside `g2p3d` (absolute mass floor only); the others
     prep their fields in torch and take `p2g3d_grid`'s prepped mode or,
     without an absolute mass floor, `p2g3d`, then the gather-mode `g2p3d`
-    and the particle update.
+    and the particle update.  `domain`
+    (parallel/fast_domain3d.FastDomain3DCtx) runs both branches on its slab
+    shards through `p2g3d_grid`'s raw mode; `spec` is then the global
+    layout's (n L0 axis-0 rows).
     `plain=True` calls the kernels' plain PyTorch versions even on a card:
     it exists to time the plain path against the kernel path."""
-    check_supported(scene)
+    check_supported(scene, sharded=domain is not None)
     if uses_fused(scene):
-        return _fused_substep(b, scene, spec, plain)
-    return _prepped_substep(b, scene, spec, plain)
+        return _fused_substep(b, scene, spec, plain, domain)
+    return _prepped_substep(b, scene, spec, plain, domain)
 
 
-def _needs_rebucket(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torch.Tensor:
-    """True (a 0-dim bool tensor) when any active slot approaches the
-    kernels' +-1-row margin on either bucketed axis (fast3d.py:937-949)."""
+def _margin_pencils(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torch.Tensor:
+    """(R0 R1,) bool: pencils with an active slot near the kernels' +-1-row
+    margin on either bucketed axis (fast3d.py:937-949).  Rows are global,
+    so on slab shards this is the reference's check with row0 = s L0."""
     s = b.shape[0]
     rows = torch.arange(s, dtype=torch.int32, device=b.device)[:, None]
     r0 = (rows // spec.rows1).to(torch.float32)
@@ -716,7 +775,13 @@ def _needs_rebucket(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torc
     on = b.mask > 0
     d0 = torch.where(on, b.x0 * invf + PAD - 0.5 - r0, 0.5)
     d1 = torch.where(on, b.x1 * invf + PAD - 0.5 - r1, 0.5)
-    return ((d0 <= -0.8) | (d0 >= 1.8) | (d1 <= -0.8) | (d1 >= 1.8)).any()
+    return ((d0 <= -0.8) | (d0 >= 1.8) | (d1 <= -0.8) | (d1 >= 1.8)).any(dim=1)
+
+
+def _needs_rebucket(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torch.Tensor:
+    """True (a 0-dim bool tensor) when any active slot approaches the
+    kernels' +-1-row margin on either bucketed axis (`_margin_pencils`)."""
+    return _margin_pencils(b, cfg, spec).any()
 
 
 def run(

@@ -44,8 +44,13 @@ class Scene:
     mass_floor: float = 0.0
 
 
-def _mass_floor(scene: Scene, g_m: torch.Tensor) -> torch.Tensor:
-    """Grid-mass emptiness threshold (see Scene.mass_floor)."""
+def _mass_floor(scene: Scene, g_m: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+    """Grid-mass emptiness threshold (see Scene.mass_floor).  With
+    `sharded` (g_m with the slab shard as dim 0) the relative floor is each
+    shard's own: the reference takes it on the shard-local sums, no pmax."""
     if scene.mass_floor > 0.0:
         return torch.tensor(scene.mass_floor, dtype=g_m.dtype, device=g_m.device)
-    return torch.tensor(1e-8, dtype=g_m.dtype, device=g_m.device) * g_m.max()
+    tiny = torch.tensor(1e-8, dtype=g_m.dtype, device=g_m.device)
+    if sharded:
+        return tiny * g_m.amax(dim=tuple(range(1, g_m.dim())), keepdim=True)
+    return tiny * g_m.max()

@@ -11,13 +11,18 @@ for the MXU; on the GPU each particle simply touches its 3x3 nodes:
 - `p2g` (csrc/p2g.cu) replaces the Pallas `p2g` (transfer2d.py:304,
   pallas_call :323): the same scatter of stress prepped outside the
   kernel (`pdata`), 6 or 9 channels, B-spline or tent taps.
+- `p2g_grid` (csrc/p2g_grid.cu) replaces the Pallas `p2g_grid`
+  (transfer2d.py:597, pallas_call :666) in its raw mode, the slab-sharded
+  path's: the fused or prepped scatter folded into each shard's raw,
+  uncropped (L + 4, nch, G) halo rows, all shards in one launch.
 - `g2p` (csrc/g2p.cu) replaces the Pallas `g2p` (transfer2d.py:843,
   pallas_call :893) in its `update=False` form: vpic, the gathered
   pre-force velocity, C = D^-1 sum w v (x_node - x_p)^T and, with the
-  7-channel grid, the gathered Jbar, p and div; B-spline or tent taps.
+  7-channel grid, the gathered Jbar, p and div; B-spline or tent taps; on
+  an unpadded grid or, `prepadded`, on each slab shard's halo rows.
 
 Each kernel has a plain PyTorch version with the same contract beside it
-(`p2g_fused_plain`, `p2g_plain`, `g2p_plain`).  A wrapper takes the plain
+(`p2g_fused_plain`, `p2g_plain`, `p2g_grid_plain`, `g2p_plain`).  A wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches its
 kernel or raises.  `LAUNCHES` counts kernel launches per wrapper, so a run
 can show that its main path went through the kernels.
@@ -31,16 +36,21 @@ Layouts are the JAX package's, so the two compare at this boundary:
   P2G out      : (R, 5, nch, G) (nch 5 fused), target row t of bucket i
                  is grid row i + t - 1; channels [m v (2), m v + f (2),
                  *plain]
+  p2g_grid out : n slab shards of L = R / n bucket rows (gx0 local to the
+                 shard): (n, L + 4, nch, G), row j of shard s its target
+                 row j - 1, = fold_rows_halo of P2G out per shard
   G2P in       : pdata2 (R, 3, K) = [gx0, gx1, mask], counts, grid
                  (R, 4 or 7, G) = [v_new (2), v_old (2)(, Jbar, p, div)]
-                 (unpadded: rows outside [0, R) read as zero)
+                 (unpadded: rows outside [0, R) read as zero) or,
+                 prepadded, (n, L + 4, 4 or 7, G) as p2g_grid's out
   G2P out      : (R, 8 or 11, K) = [vpic (2), vold (2), C00, C01, C10,
                  C11(, Jbar, p, div)]
 
 Semantics kept from the TPU kernels: a slot contributes only when its
 base row is within +-1 of its bucket row; taps on columns outside [0, G)
 are dropped; P2G and G2P read the same precomputed gx.  G2P's update mode
-and the prepadded grid are not on a ported path (ROADMAP queue 2).
+and `p2g_grid`'s non-raw mode (in-kernel fold, grid update and colliders)
+are not on a ported path (ROADMAP queue 2, items 2 and 4).
 """
 
 from __future__ import annotations
@@ -61,7 +71,7 @@ G2P_OUT = 8        # [vpic0, vpic1, vold0, vold1, C00, C01, C10, C11]
 EOS_CODES = {"linear": 0, "tait": 1}
 
 # Kernel launches per wrapper (the plain versions do not count).
-LAUNCHES = {"p2g_fused": 0, "p2g": 0, "g2p": 0}
+LAUNCHES = {"p2g_fused": 0, "p2g": 0, "p2g_grid": 0, "g2p": 0}
 
 
 def reset_launches() -> None:
@@ -334,8 +344,9 @@ def p2g(
     return out
 
 
-def fold_rows(expanded: torch.Tensor) -> torch.Tensor:
-    """(R, 5, ch, G) -> (R, ch, G): grid[row, ch] = sum_t expanded[row+1-t, t].
+def fold_rows_halo(expanded: torch.Tensor) -> torch.Tensor:
+    """(R, 5, ch, G) -> (R + 4, ch, G): the uncropped fold, row j = target
+    row j - 1 (transfer2d.py:705-716).
 
     Plain torch (the JAX package leaves it to XLA too): five shifted adds
     in the same order as the reference, so the result is bit-identical."""
@@ -343,12 +354,128 @@ def fold_rows(expanded: torch.Tensor) -> torch.Tensor:
     buf = torch.zeros((r + nt - 1, ch, g), dtype=expanded.dtype, device=expanded.device)
     for t in range(nt):
         buf[t : t + r] += expanded[:, t]
-    return buf[1 : r + 1]
+    return buf
+
+
+def fold_rows(expanded: torch.Tensor) -> torch.Tensor:
+    """(R, 5, ch, G) -> (R, ch, G): grid[row, ch] = sum_t expanded[row+1-t, t],
+    the rows [1, R + 1) of `fold_rows_halo`."""
+    return fold_rows_halo(expanded)[1 : expanded.shape[0] + 1]
+
+
+def _shard_rows(r: int, shards: int) -> int:
+    if shards < 1 or r % shards:
+        raise ValueError(f"{r} bucket rows do not split into {shards} shards")
+    return r // shards
+
+
+def p2g_grid_plain(
+    data: torch.Tensor,
+    counts: torch.Tensor,
+    g: int,
+    dx: float,
+    *,
+    fused: bool,
+    tent: bool = False,
+    apic: bool = True,
+    eos: str = "tait",
+    kb: float = 0.0,
+    mu: float = 0.0,
+    gamma: float = 7.0,
+    fa: float = 0.0,
+    shards: int = 1,
+) -> torch.Tensor:
+    """Plain PyTorch version of `p2g_grid`'s raw mode: per shard,
+    `fold_rows_halo` of `p2g_fused_plain` (fused) or `p2g_plain` (prepped),
+    which is what the TPU kernel's raw output equals (transfer2d.py:
+    637-641)."""
+    l = _shard_rows(data.shape[0], shards)
+    out = []
+    for s in range(shards):
+        d, c = data[s * l : (s + 1) * l], counts[s * l : (s + 1) * l]
+        if fused:
+            expanded = p2g_fused_plain(d, c, g, dx, apic, eos, kb, mu, gamma, fa)
+        else:
+            expanded = p2g_plain(d, c, g, dx, tent, apic)
+        out.append(fold_rows_halo(expanded))
+    return torch.stack(out)
+
+
+def p2g_grid(
+    data: torch.Tensor,
+    counts: torch.Tensor,
+    g: int,
+    dx: float,
+    *,
+    fused: bool,
+    tent: bool = False,
+    apic: bool = True,
+    raw: bool = False,
+    eos: str = "tait",
+    kb: float = 0.0,
+    mu: float = 0.0,
+    gamma: float = 7.0,
+    fa: float = 0.0,
+    shards: int = 1,
+) -> torch.Tensor:
+    """P2G + the five-row fold into raw halo sums (the JAX `p2g_grid` with
+    `raw=True`), batched over slab shards.
+
+    data: sdata (R, 11, K) with `fused` (fluid stress in the kernel,
+    B-spline) or prepped pdata (R, 8 + nch, K), nch 6 or 9; counts (R,)
+    int32; R = shards x L with gx0 local to each shard -> (shards, L + 4,
+    nch, G) f32 (nch 5 fused), row j of shard s its target row j - 1,
+    uncropped.  The non-raw mode (the fold, the grid update and colliders
+    in the kernel, which only MPM_P2G_GRID=1 reaches in JAX) raises."""
+    if not raw:
+        raise NotImplementedError(
+            "p2g_grid's non-raw mode (in-kernel fold, grid update and colliders, "
+            "reached only by MPM_P2G_GRID=1) is not ported (ROADMAP queue 2, item 4)"
+        )
+    r, f, k = data.shape
+    if fused:
+        if f != 11:
+            raise ValueError(f"sdata: expected 11 rows, got {f}")
+        if tent:
+            raise ValueError("the fused mode has B-spline taps only")
+        if eos not in EOS_CODES:
+            raise ValueError(f"unknown eos {eos!r}")
+        nch = P2G_CH_FUSED
+    else:
+        nch = _nch(data)
+    l = _shard_rows(r, shards)
+    _check("data", data, (r, f, k), torch.float32)
+    _check("counts", counts, (r,), torch.int32)
+    kw = dict(fused=fused, tent=tent, apic=apic, eos=eos, kb=kb, mu=mu, gamma=gamma, fa=fa,
+              shards=shards)
+    if _route(data, counts) == "cpu":
+        return p2g_grid_plain(data, counts, g, dx, **kw)
+    lib = _build.load().lib
+    out = torch.empty((shards, l + NT - 1, nch, g), dtype=torch.float32, device=data.device)
+    rc = lib.mpm_p2g_grid(
+        _ptr(data), _ptr(counts), _ptr(out), shards, l, k, g, nch, int(fused), int(tent), dx,
+        int(apic), EOS_CODES[eos], kb, kb / gamma, gamma, 2.0 * mu, mu, fa, _stream(data),
+    )
+    LAUNCHES["p2g_grid"] += 1
+    _raise_on(rc, "p2g_grid")
+    return out
 
 
 # ---------------------------------------------------------------------------
 # G2P
 # ---------------------------------------------------------------------------
+
+
+def _g2p_grid_rows(r: int, grid: torch.Tensor, prepadded: bool):
+    """(rows per shard L, first grid row of each bucket row's window (R, 1)
+    int64, its pad offset, rows per window) of an unpadded (R, gch, G) or
+    a prepadded (n, L + 4, gch, G) grid."""
+    if not prepadded:
+        return r, torch.zeros((r, 1), dtype=torch.long, device=grid.device), 0, r
+    n, win = grid.shape[0], grid.shape[1]
+    l = _shard_rows(r, n)
+    shard = torch.arange(r, device=grid.device)[:, None] // l
+    return l, shard * win, 1, win
 
 
 def g2p_plain(
@@ -358,16 +485,19 @@ def g2p_plain(
     dx: float,
     dinv: float,
     tent: bool = False,
+    prepadded: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of `g2p`: per stencil tap, one clamped gather
     of the grid channels, summed in the kernel's order (rows, then
-    columns)."""
+    columns).  With `prepadded`, bucket row i of shard s = i // L reads row
+    (row + 1) of its window grid[s]."""
     r, _, k = pdata2.shape
-    gch, g = grid.shape[1], grid.shape[2]
+    gch, g = grid.shape[-2], grid.shape[-1]
     dev = pdata2.device
+    l, win0, pad, win = _g2p_grid_rows(r, grid, prepadded)
     gx0, gx1, mask = pdata2.unbind(1)
     base0 = torch.floor(gx0 - 0.5)
-    rel = base0 - _row_ids(r, dev)
+    rel = base0 - (torch.arange(r, device=dev) % l).to(torch.float32)[:, None]
     valid = _live(counts, k) & (mask > 0) & (rel >= -1.0) & (rel <= 1.0)
     w0 = _taps(gx0 - base0, tent)
     base1 = torch.floor(gx1 - 0.5)
@@ -378,13 +508,15 @@ def g2p_plain(
     for j in range(3):
         row = base0 + float(j)
         rdp = (row - gx0) * dx
-        rin = valid & (row >= 0.0) & (row < r)
+        wrow = row + float(pad)              # row in the shard's window
+        rin = valid & (wrow >= 0.0) & (wrow < win)
         for jc in range(3):
             c = base1 + float(jc)
             ok = rin & (c >= 0.0) & (c < g)
             d = c - gx1
             w = torch.where(ok, w0[j] * _col_weights(d, tent), 0.0)
-            at = (torch.where(ok, row, 0.0).long() * gch) * g + torch.where(ok, c, 0.0).long()
+            at = ((win0 + torch.where(ok, wrow, 0.0).long()) * gch) * g \
+                + torch.where(ok, c, 0.0).long()
             vn0, vn1, vo0_, vo1_, *ext = (flat[at + e * g] for e in range(gch))
             vp0 = vp0 + w * vn0
             vp1 = vp1 + w * vn1
@@ -410,28 +542,47 @@ def g2p(
     dx: float,
     dinv: float,
     tent: bool = False,
+    prepadded: bool = False,
+    update: bool = False,
 ) -> torch.Tensor:
     """pdata2 (R, 3, K), counts (R,) int32, grid (R, 4 or 7, G) ->
     (R, 8 or 11, K).
 
     Dead slots (past the count, mask 0, or outside the +-1-row margin)
     get zeros.  Grid rows outside [0, R) read as zero, like the TPU
-    kernel's zero-padded grid.  The tent kernel takes dinv as given (the
-    caller passes 1 and inverts the per-particle D itself)."""
+    kernel's zero-padded grid.  With `prepadded` the grid is the slab
+    shards' halo-synced (n, L + 4, 4 or 7, G), n L = R, gx0 local to each
+    shard (transfer2d.py:859-863).  The tent kernel takes dinv as given
+    (the caller passes 1 and inverts the per-particle D itself).  The
+    fused particle update (`update=True`, only MPM_FUSE2D_G2P=1 reaches
+    it in JAX) raises."""
+    if update:
+        raise NotImplementedError(
+            "g2p's update mode (only MPM_FUSE2D_G2P=1 reaches it) is not ported "
+            "(ROADMAP queue 2, item 2)"
+        )
     r, _, k = pdata2.shape
-    gch, g = grid.shape[1], grid.shape[2]
+    gch, g = grid.shape[-2], grid.shape[-1]
     if gch not in (G2P_CH, G2P_CH_EXT):
         raise ValueError(f"grid: expected 4 or 7 channels, got {gch}")
     _check("pdata2", pdata2, (r, 3, k), torch.float32)
     _check("counts", counts, (r,), torch.int32)
-    _check("grid", grid, (r, gch, g), torch.float32)
+    if prepadded:
+        if grid.dim() != 4:
+            raise ValueError(f"prepadded grid: expected (shards, L + 4, ch, G), got "
+                             f"{tuple(grid.shape)}")
+        l = _shard_rows(r, grid.shape[0])
+        _check("grid", grid, (grid.shape[0], l + NT - 1, gch, g), torch.float32)
+    else:
+        l = r
+        _check("grid", grid, (r, gch, g), torch.float32)
     if _route(pdata2, counts, grid) == "cpu":
-        return g2p_plain(pdata2, counts, grid, dx, dinv, tent)
+        return g2p_plain(pdata2, counts, grid, dx, dinv, tent, prepadded)
     lib = _build.load().lib
     out = torch.empty((r, G2P_OUT + gch - G2P_CH, k), dtype=torch.float32, device=pdata2.device)
     rc = lib.mpm_g2p(
-        _ptr(pdata2), _ptr(counts), _ptr(grid), _ptr(out), r, k, g, gch, int(tent),
-        dx, dinv, dinv * dx, _stream(pdata2),
+        _ptr(pdata2), _ptr(counts), _ptr(grid), _ptr(out), r, l, int(prepadded), k, g, gch,
+        int(tent), dx, dinv, dinv * dx, _stream(pdata2),
     )
     LAUNCHES["g2p"] += 1
     _raise_on(rc, "g2p")

@@ -20,7 +20,9 @@ run in no order, so here each slot touches its 27 nodes directly:
   of prepped fields (`stress=None`, with `ext` and `tent`), then one
   thread per node for the grid update (mass floor, gravity, slip / sticky
   walls or the diagonal penalty solve, the nodal Jbar, p and div under
-  `ext`) -> the finished G2P-ready padded grid.
+  `ext`) -> the finished G2P-ready padded grid; or, `raw=True` (the
+  slab-sharded path's), the scatter alone into each shard's raw halo sums,
+  all shards in one launch.
 - `g2p3d` (csrc/g2p3d.cu) replaces the Pallas `g2p3d` (transfer3d.py:930,
   pallas_call :995): the 27-node gather and C = D^-1 sum w v (x_node -
   x_p)^T, then either the particle update (update mode: FLIP blend,
@@ -42,10 +44,14 @@ Layouts are the JAX package's, so the two compare at this boundary:
             i0's share of target rows (i0 + t0 - 1, row).  `p2g3d_grid`:
             (R0 + 4, R1 + 4, 6 or 9, G2) = [v_new (3), v_old (3) (, Jbar,
             p, div)]; plane/row j is target row j - 1 on both axes
+            `p2g3d_grid(raw=True)` on n slab shards of L0 = R0 / n rows
+            (gx0 local to the shard): (n, L0 + 4, R1 + 4, 7 or 11, G2)
+            raw sums, uncropped on both axes
   G2P in  : gx0..2 and mask (R0, R1, K), counts, a grid of 6 or 9
             channels: padded on both axes, on axis 0 only, or unpadded
-            (then zero-padded here, as the JAX function pads in XLA);
-            update mode also v0..2, J, x0..2
+            (then zero-padded here, as the JAX function pads in XLA), or
+            one padded (L0 + 4, R1 + 4) window per slab shard, (n, L0 + 4,
+            R1 + 4, gch, G2); update mode also v0..2, J, x0..2
   G2P out : update mode (R0, R1, 16, K) = [x (3), v (3), C00..C22, J];
             gather mode (R0, R1, 15 or 18, K) = [vpic (3), v_old (3),
             C00..C22 (, Jbar, p, div)]
@@ -60,8 +66,8 @@ rows back); `p2g3d` drops taps whose axis-1 row is outside [0, G1); z
 taps outside [0, G2) are dropped; P2G and G2P read the same precomputed
 gx.  Slots past a pencil's count are skipped by P2G; G2P gives them the
 dead fill in update mode (x passed through, v = C = 0, J = 1) and zeros
-in gather mode.  The sharded modes (`raw`, `halo1`), in-kernel colliders
-and `p2g3d`'s stress mode are not ported (ROADMAP queue 2).
+in gather mode.  `p2g3d`'s `halo1` mode (two-axis sharding), in-kernel
+colliders and `p2g3d`'s stress mode are not ported (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ import torch
 
 from mpm_flip98a_tpu_torch import _build
 from mpm_flip98a_tpu_torch.ops.cuda.transfer2d import (
-    EOS_CODES, _check, _col_weights, _ptr, _raise_on, _route, _stream, _taps,
+    EOS_CODES, _check, _col_weights, _ptr, _raise_on, _route, _shard_rows, _stream, _taps,
 )
 
 NT = 5            # candidate target rows per bucketed axis: bucket row - 1 .. + 3
@@ -339,13 +345,23 @@ def fold_rows0(expanded: torch.Tensor) -> torch.Tensor:
 
 def p2g3d_raw_plain(
     fields, counts, g2, dx, apic=True, stress=None, kb=0.0, mu=0.0, gamma=7.0, fa=0.0,
-    tent=False, ext=False,
+    tent=False, ext=False, shards=None,
 ):
     """The scatter half of `p2g3d_grid_plain`: raw sums (R0 + 4, R1 + 4,
     7 or 11, G2) = [m v pure (3), m v forced (3), m (, V0 J, V0, V0 p,
-    V0 div)], plane/row j = target j - 1."""
+    V0 div)], plane/row j = target j - 1.  With `shards`, the raw mode's
+    (shards, L0 + 4, R1 + 4, nch, G2): each shard's L0 = R0 / shards rows
+    scattered on their own."""
     values = lambda sel: _slot_values(sel, apic, stress, kb, mu, gamma, fa, ext)
-    return _scatter3d_plain(fields, counts, values, g2, dx, tent)
+    if shards is None:
+        return _scatter3d_plain(fields, counts, values, g2, dx, tent)
+    l0 = _shard_rows(fields[0].shape[0], shards)
+    r1 = fields[0].shape[1]
+    return torch.stack([
+        _scatter3d_plain([f[s * l0 : (s + 1) * l0] for f in fields],
+                         counts[s * l0 * r1 : (s + 1) * l0 * r1], values, g2, dx, tent)
+        for s in range(shards)
+    ])
 
 
 def grid_update3d_plain(raw, r0, dt, grav, floor, lo, hi, wall, beta, ext=False):
@@ -413,7 +429,8 @@ def p2g3d_grid_plain(
 def p2g3d_grid(
     fields, counts, g1, g2, dx, apic=True, stress=None, kb=0.0, mu=0.0, gamma=7.0, fa=0.0,
     tent=False, ext=False, raw=False,
-    *, dt, grav, floor, lo, hi, wall, beta=0.0, raw_out=None,
+    *, dt=None, grav=None, floor=None, lo=None, hi=None, wall=None, beta=0.0,
+    raw_out=None, shards=1,
 ):
     """Single-device fused P2G + grid update (the arguments of the JAX
     `p2g3d_grid`): counts (R0 * R1,) int32 and either 18 (R0, R1, K)
@@ -421,13 +438,19 @@ def p2g3d_grid(
     `n_prepped(apic, ext)` prepped planes with `stress=None` -> the
     finished (R0 + 4, R1 + 4, 6 or 9, G2) grid.
 
-    `raw_out`, a CUDA tensor (R0 + 4, R1 + 4, 7 or 11, G2) f32, is the
-    kernel's scratch for the raw sums; pass one to read them after the
-    call.  `raw=True` (raw halo sums for sharded runs) is not ported."""
-    if raw:
-        raise NotImplementedError(
-            "p2g3d_grid's raw mode is not ported yet (ROADMAP queue 1, item 10)"
-        )
+    `raw=True` (the slab-sharded path's, transfer3d.py:484-489) stops after
+    the scatter: R0 = shards x L0 rows with gx0 local to each shard ->
+    (shards, L0 + 4, R1 + 4, 7 or 11, G2) raw sums, uncropped on both axes;
+    it takes no node arguments, which the grid update needs: dt, grav,
+    floor, lo, hi and wall.  `raw_out`, a CUDA tensor (R0 + 4, R1 + 4, 7
+    or 11, G2) f32, is the non-raw kernel's scratch for the raw sums; pass
+    one to read them after the call."""
+    if raw:     # the scatter alone: the node pass never reads these
+        dt, grav, floor, lo, hi, wall = 0.0, (0.0, 0.0, 0.0), 0.0, 0, 0, "slip"
+    missing = [n for n, v in zip(("dt", "grav", "floor", "lo", "hi", "wall"),
+                                 (dt, grav, floor, lo, hi, wall)) if v is None]
+    if missing:
+        raise TypeError(f"p2g3d_grid: the grid update needs {', '.join(missing)}")
     if stress is None:
         n_in = n_prepped(apic, ext)
     elif stress not in EOS_CODES:
@@ -442,34 +465,44 @@ def p2g3d_grid(
     _check("counts", counts, (r0 * r1,), torch.int32)
     if wall not in WALL_CODES:
         raise ValueError(f"unknown wall {wall!r}")
+    if not raw and shards != 1:
+        raise ValueError("shards split the raw mode only")
+    l0 = _shard_rows(r0, shards)
+    sums = dict(apic=apic, stress=stress, kb=kb, mu=mu, gamma=gamma, fa=fa, tent=tent, ext=ext)
     kw = dict(dt=dt, grav=grav, floor=floor, lo=lo, hi=hi, wall=wall, beta=beta)
     if _route(counts, *fields) == "cpu":
-        return p2g3d_grid_plain(
-            fields, counts, g1, g2, dx, apic, stress, kb, mu, gamma, fa, tent, ext, **kw
-        )
+        if raw:
+            return p2g3d_raw_plain(fields, counts, g2, dx, shards=shards, **sums)
+        return p2g3d_grid_plain(fields, counts, g1, g2, dx, **sums, **kw)
     lib = _build.load().lib
     dev = counts.device
     nch = P2G_CH_EXT if ext else P2G_CH
-    raw_shape = (r0 + NT - 1, r1 + NT - 1, nch, g2)
-    if raw_out is None:
-        raw_out = torch.empty(raw_shape, dtype=torch.float32, device=dev)
-    _check("raw_out", raw_out, raw_shape, torch.float32)
-    _route(counts, raw_out)
-    out = torch.empty(
-        (r0 + NT - 1, r1 + NT - 1, G2P_CH_EXT if ext else G2P_CH, g2),
-        dtype=torch.float32, device=dev,
-    )
-    node = (*(dt * g for g in grav), floor, lo, hi, WALL_CODES[wall], dt * beta, _stream(counts))
+    if raw:
+        raw_out = torch.empty((shards, l0 + NT - 1, r1 + NT - 1, nch, g2),
+                              dtype=torch.float32, device=dev)
+        out = raw_out
+    else:
+        raw_shape = (r0 + NT - 1, r1 + NT - 1, nch, g2)
+        if raw_out is None:
+            raw_out = torch.empty(raw_shape, dtype=torch.float32, device=dev)
+        _check("raw_out", raw_out, raw_shape, torch.float32)
+        _route(counts, raw_out)
+        out = torch.empty(
+            (r0 + NT - 1, r1 + NT - 1, G2P_CH_EXT if ext else G2P_CH, g2),
+            dtype=torch.float32, device=dev,
+        )
+    node = (*(dt * g for g in grav), floor, lo, hi, WALL_CODES[wall], dt * beta, int(raw),
+            _stream(counts))
     if stress is None:
         ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)
         rc = lib.mpm_p2g3d_grid_pdata(
-            ptrs, pstr, _ptr(counts), _ptr(raw_out), _ptr(out), r0, r1, k, g2, nch,
+            ptrs, pstr, _ptr(counts), _ptr(raw_out), _ptr(out), r0, l0, r1, k, g2, nch,
             int(apic), int(tent), dx, *node,
         )
     else:
         ptrs, pstr = _plane_args(fields, strides)
         rc = lib.mpm_p2g3d_grid(
-            ptrs, pstr, _ptr(counts), _ptr(raw_out), _ptr(out), r0, r1, k, g2, dx,
+            ptrs, pstr, _ptr(counts), _ptr(raw_out), _ptr(out), r0, l0, r1, k, g2, dx,
             int(apic), EOS_CODES[stress], kb, kb / gamma, gamma, 2.0 * mu, fa, *node,
         )
     LAUNCHES["p2g3d_grid"] += 1
@@ -485,7 +518,16 @@ def p2g3d_grid(
 def _padded_grid(grid: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
     """The grid padded to (R0 + 4, R1 + 4, gch, G2), plane/row j = target
     row j - 1, from a grid padded on both axes (returned as it is), on
-    axis 0 only, or on neither (transfer3d.py:960-975 pads the same way)."""
+    axis 0 only, or on neither (transfer3d.py:960-975 pads the same way).
+    A slab-sharded grid (n, L0 + 4, R1 + 4, gch, G2), n L0 = R0, is
+    returned as it is."""
+    if grid.dim() == 5 and grid.shape[3] in (G2P_CH, G2P_CH_EXT):
+        n = grid.shape[0]
+        l0 = _shard_rows(r0, n)
+        if tuple(grid.shape[1:3]) != (l0 + NT - 1, r1 + NT - 1):
+            raise ValueError(f"grid: shard windows {tuple(grid.shape[1:3])}, expected "
+                             f"({l0 + NT - 1}, {r1 + NT - 1})")
+        return grid
     if grid.dim() != 4 or grid.shape[2] not in (G2P_CH, G2P_CH_EXT):
         raise ValueError(f"grid: expected (rows0, rows1, 6 or 9, G2), got {tuple(grid.shape)}")
     p0, p1 = r0 + NT - 1, r1 + NT - 1
@@ -514,9 +556,14 @@ def g2p3d_plain(
     mode, the other slots zeros)."""
     r0, r1, k = gx0.shape
     grid = _padded_grid(grid, r0, r1)
-    gch, g2 = grid.shape[2], grid.shape[3]
+    gch, g2 = grid.shape[-2], grid.shape[-1]
     pl1 = r1 + NT - 1
+    # Slab shards: axis-0 row i0 of shard s = i0 // L0 reads plane
+    # s (L0 + 4) + (i0 mod L0) + rel + j + 1 of the stacked windows.
+    l0 = r0 // grid.shape[0] if grid.dim() == 5 else r0
     live, i0, i1 = _live_slots(counts, r0, r1, k)
+    win0 = torch.div(i0, l0, rounding_mode="floor") * (l0 + NT - 1)
+    i0 = torch.remainder(i0, l0)
     if state is None:
         out = torch.zeros((r0, r1, G2P_OUT + gch - G2P_CH, k), dtype=gx0.dtype, device=gx0.device)
     else:
@@ -534,7 +581,7 @@ def g2p3d_plain(
     base2 = torch.floor(gx2 - 0.5)
     # Padded row of tap j on each axis: bucket row + rel + j + 1, in range
     # wherever the weight is not zero.
-    p0 = (i0 + torch.where(ok, rel0, 0.0)).long() + 1
+    p0 = (win0 + i0 + torch.where(ok, rel0, 0.0)).long() + 1
     p1 = (i1 + torch.where(ok, rel1, 0.0)).long() + 1
     flat = grid.reshape(-1)
     zero = torch.zeros_like(gx0)
@@ -587,7 +634,9 @@ def g2p3d(
     """G2P of pencil-bucketed slots (the JAX `g2p3d`; its `ext` and
     `prepadded0/1` flags are read off the grid's shape): gx0..2 and mask
     (R0, R1, K), counts (R0 * R1,) int32, grid of 6 or 9 channels with
-    (R0 + 4, R1 + 4), (R0 + 4, R1) or (R0, R1) rows.
+    (R0 + 4, R1 + 4), (R0 + 4, R1) or (R0, R1) rows, or one padded window
+    per slab shard, (n, L0 + 4, R1 + 4, gch, G2) with n L0 = R0 and gx0
+    local to each shard.
 
     Update mode, `state` = (v0, v1, v2, J, x0, x1, x2) with a 6-channel
     grid and B-spline taps -> (R0, R1, 16, K) = [x (3), v (3), C00..C22,
@@ -605,10 +654,15 @@ def g2p3d(
     if grid.dtype != torch.float32:
         raise TypeError(f"grid: expected torch.float32, got {grid.dtype}")
     grid = _padded_grid(grid, r0, r1)
-    gch, g2 = grid.shape[2], grid.shape[3]
+    gch, g2 = grid.shape[-2], grid.shape[-1]
     if update and (gch != G2P_CH or tent):
         raise ValueError("update mode takes the 6-channel grid and B-spline taps")
-    _check("grid", grid, (r0 + NT - 1, r1 + NT - 1, gch, g2), torch.float32)
+    if grid.dim() == 5:
+        l0 = r0 // grid.shape[0]
+        _check("grid", grid, (grid.shape[0], l0 + NT - 1, r1 + NT - 1, gch, g2), torch.float32)
+    else:
+        l0 = r0
+        _check("grid", grid, (r0 + NT - 1, r1 + NT - 1, gch, g2), torch.float32)
     if _route(counts, grid, *planes) == "cpu":
         return g2p3d_plain(gx0, gx1, gx2, mask, counts, grid, dx, dinv, state, alpha, dtv, tent)
     lib = _build.load().lib
@@ -617,13 +671,13 @@ def g2p3d(
     ptrs, pstr = _plane_args(planes, strides)
     if update:
         rc = lib.mpm_g2p3d(
-            ptrs, pstr, _ptr(counts), _ptr(grid), _ptr(out), r0, r1, k, g2,
+            ptrs, pstr, _ptr(counts), _ptr(grid), _ptr(out), r0, l0, r1, k, g2,
             dx, dinv, alpha, 1.0 - alpha, dtv, _stream(counts),
         )
     else:
         rc = lib.mpm_g2p3d_gather(
-            ptrs, pstr, _ptr(counts), _ptr(grid), _ptr(out), r0, r1, k, g2, gch, int(tent),
-            dx, dinv, _stream(counts),
+            ptrs, pstr, _ptr(counts), _ptr(grid), _ptr(out), r0, l0, r1, k, g2, gch,
+            int(tent), dx, dinv, _stream(counts),
         )
     LAUNCHES["g2p3d"] += 1
     _raise_on(rc, "g2p3d")

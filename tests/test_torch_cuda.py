@@ -172,7 +172,8 @@ def test_substeps_on_the_card_track_the_cpu(dev):
     tk.reset_launches()
     stats = fast2d.RunStats()
     out = fast2d.run(b_gpu, scene, spec, 100, stats)
-    assert tk.LAUNCHES == {"p2g_fused": 100, "p2g": 0, "g2p": 100} and stats.substeps == 100
+    assert tk.LAUNCHES == {"p2g_fused": 100, "p2g": 0, "p2g_grid": 0, "g2p": 100}
+    assert stats.substeps == 100
     ref = fast2d.run(b_cpu, scene, spec, 100)
     for f in dataclasses.fields(out):
         if f.name in ("x0", "x1"):
@@ -194,7 +195,7 @@ def test_stabilized_substeps_on_the_card_track_the_cpu(dev):
     spec = fast2d.FastSpec.for_particles(cfg, p, headroom=2.0)
     tk.reset_launches()
     out = fast2d.run(fast2d.from_particles(p, cfg, spec, dev), scene, spec, 20)
-    assert tk.LAUNCHES == {"p2g_fused": 0, "p2g": 20, "g2p": 20}
+    assert tk.LAUNCHES == {"p2g_fused": 0, "p2g": 20, "p2g_grid": 0, "g2p": 20}
     ref = fast2d.run(fast2d.from_particles(p, cfg, spec), scene, spec, 20)
     for name in ("x0", "x1"):
         np.testing.assert_allclose(
@@ -454,3 +455,133 @@ def test_elastic_drop_3d_substeps_on_the_card_track_the_cpu(dev, block):
         )
     np.testing.assert_allclose(out.F22.cpu().numpy(), ref.F22.numpy(), rtol=0, atol=1e-6)
     assert int(out.overflow) == 0
+
+
+# ---------------------------------------------------------------------------
+# The slab-sharded path: p2g_grid's raw mode, the prepadded g2p, the raw
+# p2g3d_grid and the sharded runs.
+# ---------------------------------------------------------------------------
+
+
+def _local_rows(data, shards):
+    """gx0 of each shard's rows made local to it (row 0 = its origin)."""
+    r = data.shape[0]
+    l = r // shards
+    out = data.clone()
+    out[:, 0] -= (torch.arange(r, device=data.device) // l * l).to(data.dtype)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("mode", ["fused", "ch9", "ch6_tent"])
+def test_p2g_grid_kernel_matches_plain(dev, mode, shards):
+    r, k, g = 32, 512, 513
+    sdata, pdata2, counts, _ = _inputs(r, k, g, seed=40 + shards, device=dev)
+    dx = 0.4375 / (g - 5)
+    if mode == "fused":
+        data = sdata
+        kw = dict(fused=True, apic=True, eos="tait", kb=KB, mu=MU, gamma=GAMMA,
+                  fa=-2e-5 * 4.0 / dx**2)
+    else:
+        nch = 9 if mode == "ch9" else 6
+        rng = np.random.default_rng(7)
+        vals = torch.as_tensor(rng.normal(0.0, 1.0, (r, 6 + nch, k)), dtype=torch.float32,
+                               device=dev) * pdata2[:, 2:3]
+        vals[:, 10] = sdata[:, 9]                  # m
+        data = torch.cat([sdata[:, :2], vals], dim=1).contiguous()
+        kw = dict(fused=False, tent=mode.endswith("tent"), apic=False)
+    data = _local_rows(data, shards)
+    n0 = tk.LAUNCHES["p2g_grid"]
+    got = tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["p2g_grid"] == n0 + 1         # one launch for all shards
+    want = tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw)
+    assert got.shape == want.shape == (shards, r // shards + 4, want.shape[2], g)
+    _close(got, want, axis=2)
+
+
+@pytest.mark.parametrize("gch,tent", [(4, False), (7, True)], ids=["base", "ext_tent"])
+def test_g2p_prepadded_kernel_matches_plain(dev, gch, tent):
+    r, k, g, shards = 32, 512, 513, 4
+    _, pdata2, counts, _ = _inputs(r, k, g, seed=50, device=dev)
+    pdata2 = _local_rows(pdata2, shards)
+    grid = torch.randn((shards, r // shards + 4, gch, g), device=dev)
+    dx = 0.4375 / (g - 5)
+    dinv = 1.0 if tent else 4.0 / dx**2
+    n0 = tk.LAUNCHES["g2p"]
+    got = tk.g2p(pdata2, counts, grid, dx, dinv, tent, prepadded=True)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["g2p"] == n0 + 1
+    want = tk.g2p_plain(pdata2, counts, grid, dx, dinv, tent, prepadded=True)
+    err = (got - want).abs().double().amax(dim=(0, 2))
+    scale = want.abs().double().amax(dim=(0, 2))
+    scale[4:8] = dinv * dx * float(grid[:, :, :2].abs().max())   # C: one term's size
+    assert bool((err <= REL * scale).all()), (err / scale).tolist()
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("stress", ["tait", None], ids=["stress", "prepped11"])
+def test_p2g3d_grid_raw_kernel_matches_plain(dev, stress, shards):
+    r, k, g = 32, 128, 32
+    if stress:
+        fields, _, counts = _inputs3d(r, k, g, seed=60, device=dev)
+        kw = dict(apic=True, stress="tait", kb=KB, mu=MU, gamma=GAMMA, fa=-2e-5 * 4.0)
+    else:
+        fields, _, counts = _prepped3d(r, k, g, False, True, seed=61, device=dev)
+        kw = dict(apic=False, ext=True)
+    l0 = r // shards
+    fields = list(fields)
+    fields[0] = (fields[0] - (torch.arange(r, device=dev) // l0 * l0).to(torch.float32)
+                 [:, None, None]).contiguous()
+    dx = 0.4375 / (g - 5)
+    n0 = tk3.LAUNCHES["p2g3d_grid"]
+    got = tk3.p2g3d_grid(fields, counts, r, g, dx, raw=True, shards=shards, **kw)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["p2g3d_grid"] == n0 + 1
+    want = tk3.p2g3d_raw_plain(fields, counts, g, dx, shards=shards, **kw)
+    assert got.shape == want.shape == (shards, l0 + 4, r + 4, want.shape[3], g)
+    _close(got, want, axis=3)
+
+
+def test_sharded_substeps_on_the_card_track_the_cpu(dev):
+    """20 substeps of the sharded 2D and 3D runs on the card against the
+    CPU's: x to 1e-6, and slot for slot v and C to REL of their group's
+    largest entry and J to 1e-6 (x moves by a few of its float32 ulps)."""
+    from mpm_flip98a_tpu_torch.parallel import SlabMesh
+    from mpm_flip98a_tpu_torch.parallel import fast_domain, fast_domain3d
+
+    cfg = MPMConfig(dtype="float32", num_grids=37, dt=2e-5, num_particles_x=16,
+                    num_particles_y=32, flip_blend=0.98, transfer=TransferKind.PIC)
+    p, scene = scenes.dam_break_2d(cfg, dtype=np.float32)
+    p3, scene3 = scenes.dam_break_3d(num_grids=16, particles_per_axis=(6, 6, 10), dt=2e-5)
+    for dom, (pp, sc), n, names in (
+        (fast_domain, (p, scene), 8, ("x0", "x1")),
+        (fast_domain3d, (p3, scene3), 4, ("x0", "x1", "x2")),
+    ):
+        spec_cls = dom.FastDomain3DSpec if dom is fast_domain3d else dom.FastDomainSpec
+        spec = spec_cls.for_particles(sc.cfg, n, pp)
+        out = {}
+        for where in (dev, torch.device("cpu")):
+            mesh = SlabMesh(n, where)
+            tk.reset_launches()
+            tk3.reset_launches()
+            out[where.type] = dom.make_run(sc, spec, mesh)(
+                dom.distribute(pp, sc.cfg, spec, mesh), 20)
+            if where.type == "cuda":
+                grid = tk3.LAUNCHES["p2g3d_grid"] if dom is fast_domain3d \
+                    else tk.LAUNCHES["p2g_grid"]
+                assert grid == 20 and tk.LAUNCHES["p2g_fused"] == 0
+        for name in names:
+            np.testing.assert_allclose(getattr(out["cuda"], name).cpu().numpy(),
+                                       getattr(out["cpu"], name).numpy(), atol=1e-6)
+        assert int(out["cuda"].overflow.sum()) == 0
+        np.testing.assert_array_equal(out["cuda"].mask.cpu().numpy(), out["cpu"].mask.numpy())
+        dim = len(names)
+        for group, tol in (([f"v{a}" for a in range(dim)], REL),
+                           ([f"C{a}{c}" for a in range(dim) for c in range(dim)], REL),
+                           (["J"], None)):
+            have = torch.stack([getattr(out["cuda"], g).cpu() for g in group]).double()
+            want = torch.stack([getattr(out["cpu"], g) for g in group]).double()
+            err = float((have - want).abs().max())
+            bound = 1e-6 if tol is None else tol * float(want.abs().max())
+            assert err <= bound, (dom.__name__, group, err, bound)

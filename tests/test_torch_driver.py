@@ -89,11 +89,46 @@ def test_unported_entry_points_raise(tmp_path):
     for extra, item in (
         (["--scenario", "dam3d_obstacle"], "item 8"),
         (["--path", "general"], "item 7"),
-        (["--devices", "4"], "item 10"),
+        (["--scenario", "dam3d", "--devices", "2x2"], "item 10"),
         (["--checkpoint", str(tmp_path / "ck.npz")], "item 6"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             driver.main(out + extra)
+
+
+@pytest.mark.parametrize("scenario,devices,substeps", [
+    ("dam2d_flip98", "4", 5), ("dam3d", "2", 2),
+], ids=["2d", "3d"])
+def test_cli_runs_slab_shards_on_cpu(tmp_path, scenario, devices, substeps):
+    """`--devices N`: N slab shards on the one device, through the CLI."""
+    sim = driver.main([
+        "--scenario", scenario, "--path", "fast", "--devices", devices, "--frames", "1",
+        "--substeps", str(substeps), "--no-gif", "--sync-io", "--out", str(tmp_path),
+        "--device", "cpu",
+    ])
+    n = int(devices)
+    assert sim.devices == n and sim.mesh.n == n and sim.spec.n_shards == n
+    assert sim.stats.substeps == sim.stats.host_reads == substeps
+    assert sim.state.overflow.shape == (n,) and int(sim.state.overflow.sum()) == 0
+    p, _ = driver.SCENARIOS[scenario]()
+    x = sim.positions()
+    assert x.shape == (p.n, sim.cfg.dim) and np.isfinite(x).all()
+    assert os.path.exists(os.path.join(sim.frame_dir, "00001.png"))
+
+
+def test_devices_parsing(tmp_path):
+    assert driver.parse_devices("1") == 1
+    assert driver.parse_devices("8") == 8
+    assert driver.parse_devices("2x4") == (2, 4)
+    p, scene = driver.SCENARIOS["dam3d"]()
+    with pytest.raises(NotImplementedError, match="two-axis.*ROADMAP queue 1, item 10"):
+        driver.Simulation(p, scene, devices=(2, 2), device="cpu", out_dir=str(tmp_path))
+    p2, scene2 = driver.SCENARIOS["dam2d_flip98"]()
+    with pytest.raises(ValueError, match="3D-only"):
+        driver.Simulation(p2, scene2, devices=(2, 2), device="cpu", out_dir=str(tmp_path))
+    # One shard along axis 1 is the one-axis slab mesh.
+    sim = driver.Simulation(p, scene, devices=(2, 1), device="cpu", out_dir=str(tmp_path))
+    assert sim.devices == 2 and sim.spec.n_shards0 == 2
 
 
 def test_cuda_device_without_a_card_raises(tmp_path):

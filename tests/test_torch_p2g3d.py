@@ -328,6 +328,19 @@ def test_wrappers_check_their_inputs():
         tk3.g2p3d(*ins, grid.double(), DX, DINV)
 
 
+@pytest.mark.parametrize("gone", ["dt", "floor", "wall"])
+def test_p2g3d_grid_needs_the_node_arguments(gone):
+    """The grid update's arguments are required outside the raw mode,
+    which takes none."""
+    counts = torch.from_numpy(COUNTS)
+    f11 = _t(_fields("pic11"))
+    node = {n: v for n, v in _node_kw("slip").items() if n != gone}
+    with pytest.raises(TypeError, match=f"needs {gone}"):
+        tk3.p2g3d_grid(f11, counts, R, G, DX, apic=False, ext=True, **node)
+    raw = tk3.p2g3d_grid(f11, counts, R, G, DX, apic=False, ext=True, raw=True)
+    assert raw.shape == (1, R + 4, R + 4, tk3.P2G_CH_EXT, G)
+
+
 def test_unported_modes_raise():
     counts = torch.from_numpy(COUNTS)
     f7, f11 = _t(_fields("apic7")), _t(_fields("pic11"))
@@ -335,5 +348,3 @@ def test_unported_modes_raise():
         tk3.p2g3d(f7, counts, R, G, DX, halo1=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tk3.p2g3d(f7[:18], counts, R, G, DX, stress="linear")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk3.p2g3d_grid(f11, counts, R, G, DX, apic=False, ext=True, raw=True, **_node_kw("slip"))
