@@ -110,7 +110,28 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                the halo-synced, grid-updated shard windows against plain
                (update mode; gather mode, 9-channel grid) with its times,
                halo_sync's time, ms per substep (3 x 10); the CLI with
-               --devices 2 on dam3d.
+               --devices 2 on dam3d;
+26. main:colliders  the CLI on dam2d_obstacle and plow2d (2 frames x 200
+               substeps) and dam3d_obstacle (64^3, 27,648 particles; 2
+               frames x 100): launches (in 3D p2g3d_grid's collider mode
+               once per substep), the host checks, and no particle deeper
+               than 1.5 dx inside a collider at its final position;
+27. main:obstacle8M  the 8M slab (phase 11's) cut by dam_break_obstacle_3d's
+               static sphere, then by tests/test_colliders.py's rising
+               sphere from t0 = 0.01 s, through Simulation, 2 frames x 10
+               substeps each: launches, the grid nodes inside the collider,
+               the host checks, the peak device memory;
+28. kernels:colliders  p2g3d_grid's collider mode against plain on the
+               obstacle8M state (both spheres) and on a ragged 32^3 case
+               with a sphere, a sticky moving box and a halfspace spinner
+               (stress, prepped 11 channels, tent): the finished grid per
+               channel (mass-weighted; the empty nodes unweighted), the
+               nodes whose inside flag differs (0), CUDA-event ms of the
+               collider mode and of the same call without colliders, the
+               bound;
+29. timing:colliders  ms per substep of obstacle8M and slab 8M from the
+               same particles, interleaved, median of 3 x 10 (with
+               --profile, obstacle8M's device busy time and idle share).
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -123,7 +144,8 @@ their tent modes' under "tent_*", p2g_grid with its prepped and tent modes'
 under "prepped_*" and "tent_*", g2p with its prepadded mode's under
 "prepadded_*", p2g3d_grid with its raw modes' under "raw_*" and
 "raw_prepped_*", g2p3d on the 3D shard windows under "sharded_*" and
-"sharded_gather_*"); the last line is
+"sharded_gather_*", p2g3d_grid's collider mode under "colliders_*" with
+"colliders_flips"); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -486,11 +508,10 @@ def profile_window(path, mod, b, scene, spec, n_sub, wall_ms, tag, card):
 # ---------------------------------------------------------------------------
 
 
-def ragged_inputs3d(device, seed=0):
+def ragged_inputs3d(device, seed=0, r=64, k=256, g=64):
     """Ragged pencils: empty, full and partly filled, live slots outside
     the +-1 margin on both axes, z taps past both grid edges."""
     rng = np.random.default_rng(seed)
-    r, k, g = 64, 256, 64
     counts = rng.integers(0, k + 1, (r, r))
     counts[::7, ::5] = 0
     counts[3, 3] = k
@@ -563,12 +584,12 @@ def compare_kernels3d(tag, planes, counts, mask, state, kw, dinv, card):
     return err_grid, max(err_u), got
 
 
-def ragged_prepped3d(device, apic, ext, seed=2):
+def ragged_prepped3d(device, apic, ext, seed=2, **size):
     """Prepped planes on ragged pencils: empty, full and partly filled,
     live slots outside the +-1 margin on both axes, slots whose taps leave
     the grid on axis 1 (dropped by p2g3d, kept in p2g3d_grid's pad rows)
     and along z.  Returns (fields, mask, counts, g, dx)."""
-    planes, live, counts, _, g, dx = ragged_inputs3d(device, seed)
+    planes, live, counts, _, g, dx = ragged_inputs3d(device, seed, **size)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     rand = lambda scale: (torch.randn(live.shape, generator=gen) * scale).to(device)
     mass, vol0 = planes[16], planes[17]
@@ -1451,11 +1472,296 @@ def sharded3d_phases(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, l
     run_cli(dev, card, "dam3d", "2", 2, 100, ("p2g3d_grid", "g2p3d"), launches)
 
 
+# ---------------------------------------------------------------------------
+# Rigid SDF colliders
+# ---------------------------------------------------------------------------
+
+
+def penetration(sim):
+    """The deepest particle inside any of the scene's colliders at their
+    final position (signed distance at the particles, float64), in dx."""
+    from mpm_flip98a_tpu_torch.models import colliders
+
+    x = sim.positions().astype(np.float64)
+    coords = [torch.from_numpy(np.ascontiguousarray(x[:, a])) for a in range(x.shape[1])]
+    phi = min(float(colliders.phi_normal(c, coords, sim.total_time)[0].min())
+              for c in sim.scene.colliders)
+    return -phi / sim.cfg.dx
+
+
+def run_collider_cli(dev, card, io_ok, scenario, n_frames, n_sub, ran, idle, launches):
+    """A collider scenario through the CLI (Simulation where no frame
+    writer exists): launches, the host checks, and no particle deeper than
+    1.5 dx inside a collider (tests/test_colliders.py:176-196, 507-512)."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        argv = ["--scenario", scenario, "--path", "fast", "--frames", str(n_frames),
+                "--substeps", str(n_sub), "--no-gif", "--out", out_dir, "--device", "cuda"]
+        p_ref, scene = driver.SCENARIOS[scenario]()
+        mass = float(p_ref.mass.to(torch.float32).double().sum())
+        tk.reset_launches()
+        tk3.reset_launches()
+        t0 = time.perf_counter()
+        if io_ok:
+            sim = driver.main(argv)
+        else:
+            sim = driver.Simulation(p_ref, scene, out_dir=out_dir, device=dev)
+            sim.run(n_frames, n_sub, gif=False, write_frames=False)
+        torch.cuda.synchronize()
+        got = {**tk.LAUNCHES, **tk3.LAUNCHES}
+        depth = penetration(sim)
+        say(f"[main:colliders {scenario}] {'CLI ' + ' '.join(argv) if io_ok else 'Simulation'} "
+            f"in {time.perf_counter() - t0:.2f} s: launches {got}, substeps "
+            f"{sim.stats.substeps}, colliders {sim.scene.colliders}, deepest particle inside "
+            f"a collider {depth:.3f} dx (bound 1.5)  [{card}]")
+        for name in ran:
+            check(got[name] == n_frames * n_sub == sim.stats.substeps,
+                  f"{scenario}: {name} launched {got[name]} times")
+            launches[f"{name} cli {scenario}"] = got[name]
+        for name in idle:
+            check(got[name] == 0, f"{scenario}: {name} ran")
+        check(depth < 1.5, f"{scenario}: a particle {depth:.3f} dx inside a collider")
+        host_checks(f"colliders {scenario}", sim, p_ref.n, mass, card)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def collider_set3d(g, dx):
+    """The ragged case's colliders: a slip sphere, a sticky box with a
+    surface velocity and a moving center, a halfspace spinner about its
+    normal (node x = (idx - 2) dx)."""
+    from mpm_flip98a_tpu_torch.models.colliders import Collider
+
+    l = (g - 5) * dx
+    n = np.array([0.15, -0.1, 1.0])
+    return (
+        Collider(kind="sphere", center=(0.45 * l, 0.5 * l, 0.35 * l), radius=0.2 * l),
+        Collider(kind="box", center=(0.7 * l, 0.3 * l, 0.6 * l),
+                 half_extents=(0.12 * l, 0.2 * l, 0.1 * l), sticky=True,
+                 velocity=(0.3, 0.0, -0.2), center_velocity=(0.5, 0.0, 0.0)),
+        Collider(kind="halfspace", center=(0.0, 0.0, 0.15 * l), normal=tuple(n),
+                 angular=tuple(5.0 * n / np.linalg.norm(n))),
+    )
+
+
+def inside_flips(call, colliders, r0, r1):
+    """Nodes whose inside flag differs between the kernel and the plain
+    version.  Each collider made sticky with a sentinel surface velocity
+    (1000 (i + 1) m/s, no spin) pins the nodes inside it to exactly that
+    value in both; `call(colliders, kernel)` returns the finished grid.
+    Returns (flips, nodes inside) over the interior rows."""
+    probes = tuple(dataclasses.replace(c, sticky=True, angular=(), velocity=(1e3 * (i + 1),) * 3)
+                   for i, c in enumerate(colliders))
+    marks = torch.tensor([float(np.float32(1e3 * (i + 1))
+                                + np.float32((c.center_velocity or (0.0,))[0]))
+                          for i, c in enumerate(probes)])
+    flags = [torch.isin(call(probes, kernel)[1 : r0 + 1, 1 : r1 + 1, 0].cpu(), marks)
+             for kernel in (True, False)]
+    return int((flags[0] != flags[1]).sum()), int(flags[1].sum())
+
+
+def compare_colliders3d(tag, fields, counts, kw, colliders, tcol, card):
+    """`p2g3d_grid`'s collider mode against `p2g3d_grid_plain` on one set
+    of inputs: the finished grid weighted by the nodal mass (volume for the
+    ext averages) per channel as a fraction of that weighted channel's max,
+    the nodes no mass reached (where the colliders write the surface
+    velocity) unweighted as a fraction of the channel max, the axis-0 pad
+    rows, and the nodes whose inside flag differs.  Returns (worst abs err,
+    flips)."""
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    r0, r1, _ = fields[0].shape
+    g2, dx = kw["g2"], kw["dx"]
+    args = {n: v for n, v in kw.items() if n not in ("g2", "dx")}
+
+    def call(cols, kernel):
+        fn = tk3.p2g3d_grid if kernel else tk3.p2g3d_grid_plain
+        return fn(fields, counts, r1, g2, dx, **args, colliders=cols, tcol=tcol)
+
+    got, want, free = call(colliders, True), call(colliders, False), call((), False)
+    scatter = {n: args[n] for n in ("apic", "stress", "kb", "mu", "gamma", "fa", "tent", "ext")
+               if n in args}
+    raw = tk3.p2g3d_raw_plain(fields, counts, g2, dx, **scatter)
+    ext = got.shape[2] == tk3.G2P_CH_EXT
+    diff = (got - want).double().abs()
+    weight = [raw[:, :, 6:7].double()] * 6 + [raw[:, :, 8:9].double()] * (3 * ext)
+    # Scaled by the weighted finished channel's max, not the raw sum's: a
+    # collider gives nodes velocities the sums never had (the rising
+    # sphere's 2 m/s in a slab at rest), and the slip projection turns the
+    # roundoff of the pressure-balanced v_z into v_x and v_y.
+    tops = [max(float((want[:, :, ch : ch + 1].double().abs() * weight[ch]).max()), 1e-30)
+            for ch in range(got.shape[2])]
+    rel_w = [float((diff[:, :, ch : ch + 1] * weight[ch]).max()) / tops[ch]
+             for ch in range(got.shape[2])]
+    empty = raw[:, :, 6] == 0
+    rel_e = [float(diff[:, :, a][empty].max() / want[:, :, a].double().abs().max().clamp(min=1e-30))
+             for a in range(3)] if bool(empty.any()) else [0.0]
+    acted = float((want[:, :, :3] - free[:, :, :3]).abs().max())
+    pads_zero = not bool(got[0].any()) and not bool(got[r0 + 1:].any())
+    flips, inside = inside_flips(call, colliders, r0, r1)
+    say(f"[kernels:colliders {tag}] p2g3d_grid, {len(colliders)} colliders, tcol {tcol}: "
+        f"finished grid mass-weighted scaled {['%.2e' % r for r in rel_w]}, empty nodes "
+        f"scaled {['%.2e' % r for r in rel_e]} (tol {KERNEL_REL_TOL}); max |v| change by "
+        f"the colliders {acted:.3e}; axis-0 pads zero {pads_zero}; inside-flag flips {flips} "
+        f"of {inside} inside nodes  [{card}]")
+    check(max(rel_w + rel_e) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid colliders disagree with plain")
+    check(acted > 0.0 and inside > 0, f"{tag}: the colliders never acted")
+    check(pads_zero, f"{tag}: p2g3d_grid axis-0 pad rows not zero")
+    check(flips == 0, f"{tag}: {flips} nodes flip inside/outside between kernel and plain")
+    return float(diff.max()), flips
+
+
+def collider_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_ms, bounds, launches):
+    """Phases 26-29: main:colliders (the collider scenarios' CLIs),
+    main:obstacle8M (the 8M slab cut by a static and by a rising sphere),
+    kernels:colliders and timing:colliders.  Returns the count of nodes
+    whose inside flag differs between kernel and plain, over every case."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import colliders, fast3d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    # ---- 26. main:colliders ------------------------------------------------
+    for scenario, n_sub, ran, idle in (
+        ("dam2d_obstacle", 200, ("p2g_fused", "g2p"), ("p2g3d_grid", "g2p3d")),
+        ("plow2d", 200, ("p2g_fused", "g2p"), ("p2g3d_grid", "g2p3d")),
+        ("dam3d_obstacle", 100, ("p2g3d_grid", "g2p3d"), ("p2g_fused", "g2p", "p2g3d")),
+    ):
+        run_collider_cli(dev, card, io_ok, scenario, 2, n_sub, ran, idle, launches)
+
+    # ---- 27. main:obstacle8M ------------------------------------------------
+    p8, scene8 = scenes.slab_3d(**SLAB_8M)
+    l = scene8.cfg.domain_length
+    mass8 = float(p8.mass.to(torch.float32).double().sum())
+    cases = {
+        # dam_break_obstacle_3d's sphere (scenes.py): it cuts the 0.125 l slab.
+        "static": ((colliders.Collider(kind="sphere", center=(0.55 * l, 0.50 * l, 0.12 * l),
+                                       radius=0.10 * l),), None),
+        # tests/test_colliders.py:594-601's rising sphere, from t0 = 0.01 s.
+        "rising": ((colliders.Collider(kind="sphere", center=(0.5 * l, 0.5 * l, -0.10 * l),
+                                       radius=0.12 * l, center_velocity=(0.0, 0.0, 2.0)),), 0.01),
+    }
+    n_frames, n_sub = 2, 10
+    g = scene8.cfg.num_grids
+    idx = torch.arange(g, device=dev)
+    coords = colliders.node_coords(scene8.cfg, [idx[:, None, None], idx[:, None], idx])
+    states = {}
+    for tag, (cols, t0) in cases.items():
+        scene = dataclasses.replace(scene8, colliders=cols)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sim = driver.Simulation(p8, scene, out_dir=tempfile.gettempdir(), device=dev)
+        if t0 is not None:
+            sim.total_time = t0          # the run's t0: the frame loop's clock
+        ts = (None,) if t0 is None else (t0, t0 + (n_frames * n_sub - 1) * scene.cfg.dt)
+        inside = [int(colliders.inside_any(coords, cols, t).sum()) for t in ts]
+        tk.reset_launches()
+        tk3.reset_launches()
+        t_0 = time.perf_counter()
+        sim.run(n_frames, n_sub, gif=False, verbose=False, write_frames=False)
+        torch.cuda.synchronize()
+        got = {**tk.LAUNCHES, **tk3.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        say(f"[main:obstacle8M {tag}] {p8.n} particles, grid {g}^3, buckets "
+            f"{tuple(sim.state.shape)}, colliders {cols}, t0 {t0}: grid nodes inside the "
+            f"collider {inside} (at the first and the last substep); Simulation {n_frames} "
+            f"frames x {n_sub} substeps in {time.perf_counter() - t_0:.2f} s, launches {got}; "
+            f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB  [{card}]")
+        for name in ("p2g3d_grid", "g2p3d"):
+            check(got[name] == n_frames * n_sub == sim.stats.substeps,
+                  f"obstacle8M {tag}: {name} launched {got[name]} times")
+            launches[f"{name} obstacle8M {tag}"] = got[name]
+        check(got["p2g3d"] == got["p2g_fused"] == got["g2p"] == 0, f"obstacle8M {tag}: launches")
+        check(min(inside) > 0, f"obstacle8M {tag}: no grid node inside the collider")
+        host_checks(f"obstacle8M {tag}", sim, p8.n, mass8, card)
+        states[tag] = (sim.state, scene, sim.spec, t0)
+        del sim
+    launches["p2g3d_grid colliders"] = launches["p2g3d_grid obstacle8M static"]
+
+    # ---- 28. kernels:colliders ---------------------------------------------
+    b, scene, spec, _ = states["static"]
+    planes, counts, _, _ = fast3d.transfer_inputs(b, spec, scene.cfg)
+    kw = fast3d.p2g_args(scene)
+    flips = []
+    for tag, (_, sc, _, t0) in states.items():
+        kw_t = {**fast3d.p2g_args(sc)}
+        cols = kw_t.pop("colliders")
+        e, f = compare_colliders3d(f"obstacle8M {tag}", planes, counts, kw_t, cols, t0, card)
+        err[f"p2g3d_grid_colliders_{tag}"] = e
+        flips.append(f)
+    r0, r1, k3 = planes[0].shape
+    call = lambda cols: tk3.p2g3d_grid(planes, counts, r1, **{**kw, "colliders": cols})
+    kernel_ms["p2g3d_grid_colliders"] = cuda_ms(lambda: call(kw["colliders"]))
+    kernel_ms["p2g3d_grid_colliders_free"] = cuda_ms(lambda: call(()))
+    plain_ms["p2g3d_grid_colliders"] = cuda_ms(
+        lambda: tk3.p2g3d_grid_plain(planes, counts, r1, **kw), reps=3, warm=1)
+    live3 = int(counts.sum())
+    nodes = (r0 + 4) * (r1 + 4) * kw["g2"]
+    # The stress mode's bytes (colliders add none): live slots' 18 planes +
+    # counts in, the finished 6-channel grid out; 27 x 7 multiply-adds per
+    # live slot and some 30 flops per node for the projection.
+    bounds["p2g3d_grid_colliders"] = bound(
+        4 * (18 * live3 + r0 * r1 + 6 * nodes), live3 * 27 * 7 * 2 + 30 * nodes)
+    say(f"[kernels:colliders] p2g3d_grid at the obstacle8M shapes (buckets {r0}x{r1}x{k3}, "
+        f"{live3} live): collider mode {kernel_ms['p2g3d_grid_colliders']:.4f} ms, the same "
+        f"call with colliders=() {kernel_ms['p2g3d_grid_colliders_free']:.4f} ms (CUDA events, "
+        f"20 calls), plain {plain_ms['p2g3d_grid_colliders']:.4f} ms (3 calls), bound "
+        f"{bounds['p2g3d_grid_colliders'][0]:.4f} ms ({bounds['p2g3d_grid_colliders'][1]})  "
+        f"[{card}]")
+    del planes, counts
+    torch.cuda.empty_cache()
+    rplanes, _, rcounts, _, rg, rdx = ragged_inputs3d(dev, seed=5, r=32, k=128, g=32)
+    node = {n: kw[n] for n in ("dt", "grav", "floor", "lo", "wall", "beta")}
+    node["hi"] = rg - 3
+    cols = collider_set3d(rg, rdx)
+    stress = {"apic": False, "stress": "tait", "kb": kw["kb"], "mu": kw["mu"],
+              "gamma": kw["gamma"], "fa": -kw["dt"] * 4.0 / rdx**2}
+    e, f = compare_colliders3d("ragged stress", rplanes, rcounts,
+                               {**stress, **node, "g2": rg, "dx": rdx}, cols, 0.05, card)
+    errs = [e]
+    flips.append(f)
+    for tag, tent in (("ragged prepped11", False), ("ragged tent", True)):
+        fields, _, fcounts, _, _ = ragged_prepped3d(dev, False, True, seed=6, r=32, k=128, g=32)
+        e, f = compare_colliders3d(tag, fields, fcounts, {
+            "apic": False, "ext": True, "tent": tent, **node, "g2": rg, "dx": rdx}, cols, 0.05,
+            card)
+        errs.append(e)
+        flips.append(f)
+    err["p2g3d_grid_colliders"] = max(errs + [err[f"p2g3d_grid_colliders_{t}"] for t in states])
+    del rplanes, rcounts
+
+    # ---- 29. timing:colliders -----------------------------------------------
+    scene_free = dataclasses.replace(scene, colliders=())
+    runs = {"slab 8M": [], "obstacle8M": []}
+    for sc in (scene_free, scene):
+        time_run(fast3d, b, sc, spec, 3, False)
+    n_time = 10
+    for _ in range(3):    # interleaved: slab, obstacle, slab, obstacle ...
+        for name, sc in (("slab 8M", scene_free), ("obstacle8M", scene)):
+            runs[name].append(1e3 * time_run(fast3d, b, sc, spec, n_time, False) / n_time)
+    med = {name: float(np.median(ts)) for name, ts in runs.items()}
+    say(f"[timing:colliders] from the same 8M particles: obstacle8M {med['obstacle8M']:.4f} "
+        f"ms/substep, slab 8M {med['slab 8M']:.4f} ms/substep (median of 3 x {n_time}; runs "
+        f"{ {k: [round(t, 4) for t in v] for k, v in runs.items()} }), ratio "
+        f"{med['obstacle8M'] / med['slab 8M']:.4f}  [{card}]")
+    if profile_dir:
+        profile_window(os.path.join(profile_dir, "profile_obstacle8M_5_substeps.txt"), fast3d,
+                       b, scene, spec, 5, med["obstacle8M"], "colliders obstacle8M", card)
+    del states, b
+    torch.cuda.empty_cache()
+    return sum(flips)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of the 2D bench, stab1M, drop1M, "
-                    "the 8M slab and stab3d-8M, single-device and sharded, here")
+                    "the 8M slab and stab3d-8M, single-device and sharded, and "
+                    "obstacle8M here")
     args = ap.parse_args(argv)
 
     # ---- 1. device --------------------------------------------------------
@@ -1905,6 +2211,11 @@ def main(argv=None) -> int:
     # ---- 23-25. the one-axis slab-sharded path in 3D --------------------------------
     sharded3d_phases(dev, card, args.profile, err, kernel_ms, plain_ms, bounds, launches,
                      timing)
+    say(f"[timing] 3D sharded phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 26-29. rigid SDF colliders ------------------------------------------------
+    flips = collider_phases(dev, card, io_ok, args.profile, err, kernel_ms, plain_ms, bounds,
+                            launches)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -1991,6 +2302,20 @@ def main(argv=None) -> int:
             f"{mode}_plain_ms": plain_ms[name], f"{mode}_bound_ms": bounds[name][0],
             f"{mode}_bound_by": bounds[name][1],
         })
+    # p2g3d_grid's collider mode: launched on the obstacle8M run, held to
+    # plain there and on the ragged cases (stress, prepped 11 channels,
+    # tent), timed at the obstacle8M shapes beside the same call without
+    # colliders; the nodes whose inside flag differs, summed over the cases.
+    by_name["p2g3d_grid"].update({
+        "colliders_launches": launches["p2g3d_grid colliders"],
+        "colliders_max_abs_err": err["p2g3d_grid_colliders"],
+        "colliders_ms": kernel_ms["p2g3d_grid_colliders"],
+        "colliders_free_ms": kernel_ms["p2g3d_grid_colliders_free"],
+        "colliders_plain_ms": plain_ms["p2g3d_grid_colliders"],
+        "colliders_bound_ms": bounds["p2g3d_grid_colliders"][0],
+        "colliders_bound_by": bounds["p2g3d_grid_colliders"][1],
+        "colliders_flips": flips,
+    })
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ mirror of the reference's ``config.py:4-46``): physical constants, the
 feature switches and the derived grid geometry, as frozen dataclasses.
 The only change is `torch_dtype` in place of the JAX `jnp_dtype`.
 `MLS88Config` (the validation solver's config) is not ported yet
-(ROADMAP queue 1, item 7).
+(ROADMAP queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ class MPMConfig:
     pressure_mixing_ratio: float = 0.0            # 1=mixed, 0=pointwise, config.py:28
     eos: EOSKind = EOSKind.LINEAR
     # Extensions beyond the reference switch set (not ported yet:
-    # ROADMAP queue 1, item 8): CSF surface tension and the
+    # ROADMAP queue 1, item 6): CSF surface tension and the
     # incompressible projection.
     surface_tension: float = 0.0
     incompressible: bool = False

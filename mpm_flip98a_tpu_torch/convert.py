@@ -25,6 +25,7 @@ import torch
 from mpm_flip98a_tpu_torch.config import (
     EOSKind, KernelKind, MPMConfig, Physics, TransferKind,
 )
+from mpm_flip98a_tpu_torch.models.colliders import Collider
 from mpm_flip98a_tpu_torch.models.fast2d import FluidBuckets
 from mpm_flip98a_tpu_torch.models.fast3d import FluidBuckets3D
 from mpm_flip98a_tpu_torch.models.materials import MaterialParams
@@ -64,11 +65,8 @@ def _enum(cls, v):
 
 
 def scene_from_fields(fields: Mapping) -> Scene:
-    """`dataclasses.asdict` of a JAX `Scene` -> the port's `Scene`."""
-    if fields.get("colliders"):
-        raise NotImplementedError(
-            "colliders are not ported yet (ROADMAP queue 1, item 8)"
-        )
+    """`dataclasses.asdict` of a JAX `Scene` -> the port's `Scene`; its
+    colliders (a tuple of dicts) become the port's `Collider`s."""
     c = dict(fields["cfg"])
     c["transfer"] = _enum(TransferKind, c["transfer"])
     c["kernel"] = _enum(KernelKind, c["kernel"])
@@ -81,5 +79,10 @@ def scene_from_fields(fields: Mapping) -> Scene:
         params=MaterialParams(**params),
         materials_present=tuple(int(m) for m in fields["materials_present"]),
         wall=WallBC(**fields["wall"]),
+        colliders=tuple(
+            Collider(**{n: tuple(v) if isinstance(v, (list, tuple)) else v
+                        for n, v in col.items()})
+            for col in fields.get("colliders", ())
+        ),
         mass_floor=float(fields["mass_floor"]),
     )

@@ -3,11 +3,12 @@
 //
 // Replaces the Pallas TPU kernel `p2g3d_grid` in
 // mpm_flip98a_tpu/ops/pallas/transfer3d.py (def :622, pallas_call :709,
-// body _p2g3d_grid_kernel :428 -> _p2g3d_chunk :193), without colliders,
-// in two modes: the stress mode (mpm_p2g3d_grid: the fluid
-// stress computed per slot, B-spline, 7 raw channels) and the prepped
-// mode (mpm_p2g3d_grid_pdata: stress=None, PIC or APIC, B-spline or tent
-// taps, and with 11 raw channels the nodal Jbar, p and div of `ext`).
+// body _p2g3d_grid_kernel :428 -> _p2g3d_chunk :193), in two modes: the
+// stress mode (mpm_p2g3d_grid: the fluid stress computed per slot,
+// B-spline, 7 raw channels) and the prepped mode (mpm_p2g3d_grid_pdata:
+// stress=None, PIC or APIC, B-spline or tent taps, and with 11 raw channels
+// the nodal Jbar, p and div of `ext`); both with the rigid SDF colliders of
+// the TPU kernel's node pass (transfer3d.py:548-570), static or kinematic.
 // The TPU kernel scatters along z with one-hot MXU products and carries
 // target rows from one sequential grid step to the next in a rolling
 // 5-slot VMEM scratch; GPU blocks run in no order, so that design does
@@ -47,7 +48,20 @@
 //   2. update: one thread per node of the padded grid: mass floor,
 //      v_old = pure / m, v_new = forced / m + dt g (or the diagonal
 //      penalty solve), then slip clamps or the sticky zero on the wall
-//      bands of the three axes, then the ext averages.
+//      bands of the three axes, then the colliders' projection of v_new
+//      (models/colliders.project) on interior rows, then the ext averages.
+// Colliders: at most kMaxColliders, passed by value in the update launch's
+// parameters as a __grid_constant__ struct (no device buffer, no copy).
+// The inside test phi <= 0 is a discontinuity: a node whose phi rounds to
+// the other side of 0 differs from the plain version by a whole velocity.
+// So phi, the normal and the kinematic center are computed with
+// round-to-nearest intrinsics (no FMA contraction), one rounding per
+// operation in the order of the reference's expressions
+// (colliders.py:94-204), as PyTorch's elementwise ops round them.  `kin` =
+// 0 (no moving collider, or no time) leaves every center where the host
+// put it, bit for bit a time-free build; the host casts the constants to
+// float32 as JAX does.  The projection costs about 30 flops and no bytes
+// per node.
 // Float atomics add in a run-dependent order: the result is not bitwise
 // deterministic (the JAX kernel is); it agrees with the plain version to
 // fp32 rounding of each node's sum (the tolerance is stated where the two
@@ -69,6 +83,30 @@ constexpr int kNT = 5;        // candidate target rows per bucketed axis
 constexpr int kRaw = 7;       // raw channels (11 with the ext fields)
 constexpr int kIn = 18;       // input planes of the stress mode
 constexpr int kThreads = 128; // slots per block (K is a multiple of 128)
+constexpr int kMaxColliders = 8;
+constexpr int kColF = 19;     // floats per collider in the host arrays
+constexpr int kColI = 4;      // ints per collider in the host arrays
+
+struct Collider {
+  int kind;          // 0 sphere, 1 box, 2 halfspace
+  int sticky;
+  int moving;        // center advances by cvel * t in a kinematic launch
+  int spin;          // the angular velocity applies
+  float center[3];
+  float cvel[3];
+  float radius;
+  float half[3];     // box half-extents
+  float normal[3];   // halfspace unit normal (normalised in float64)
+  float vsurf[3];    // f32(velocity) + f32(center_velocity)
+  float omega[3];    // (wx, wy, wz)
+};
+
+struct Colliders {
+  int n;             // 0: the node pass has no projection
+  int kin;           // 1: moving centers at time t
+  float t;
+  Collider c[kMaxColliders];
+};
 
 struct Planes {
   const float* p[kIn];
@@ -243,13 +281,96 @@ p2g3d_scatter_pdata_kernel(taps::Prepped in, const int* __restrict__ counts,
   }
 }
 
+// colliders.project at node x, one collider after the other: phi (sphere,
+// box, halfspace) and, for phi <= 0, the slip or sticky projection relative
+// to the surface velocity (+ omega x r).  The outward normal is computed
+// only where a slip surface needs it: the same values as the reference's,
+// which computes it everywhere and discards it outside.
+__device__ __forceinline__ void project_colliders(const Colliders& cs, const float x[3],
+                                                  float v[3]) {
+  for (int i = 0; i < cs.n; ++i) {
+    const Collider& c = cs.c[i];
+    float diff[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float ctr = (cs.kin && c.moving) ? __fadd_rn(c.center[a], __fmul_rn(c.cvel[a], cs.t))
+                                             : c.center[a];
+      diff[a] = __fsub_rn(x[a], ctr);
+    }
+    float phi, r = 0.0f, q[3], qp[3], out_len = 0.0f, qmax = 0.0f;
+    if (c.kind == 0) {  // sphere
+      r = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(diff[0], diff[0]), __fmul_rn(diff[1], diff[1])),
+                               __fmul_rn(diff[2], diff[2])));
+      phi = __fsub_rn(r, c.radius);
+    } else if (c.kind == 1) {  // axis-aligned box, exact SDF
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        q[a] = __fsub_rn(fabsf(diff[a]), c.half[a]);
+        qp[a] = fmaxf(q[a], 0.0f);
+      }
+      out_len = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(qp[0], qp[0]), __fmul_rn(qp[1], qp[1])),
+                                     __fmul_rn(qp[2], qp[2])));
+      qmax = fmaxf(fmaxf(q[0], q[1]), q[2]);
+      phi = __fadd_rn(out_len, fminf(qmax, 0.0f));
+    } else {  // halfspace: phi = n . (x - p)
+      phi = __fadd_rn(__fadd_rn(__fmul_rn(c.normal[0], diff[0]), __fmul_rn(c.normal[1], diff[1])),
+                      __fmul_rn(c.normal[2], diff[2]));
+    }
+    if (!(phi <= 0.0f)) continue;
+    float vs[3] = {c.vsurf[0], c.vsurf[1], c.vsurf[2]};
+    if (c.spin) {  // v_surface += omega x (x - center(t)); diff is x - center(t)
+      const float* w = c.omega;
+      vs[0] = __fsub_rn(__fadd_rn(vs[0], __fmul_rn(w[1], diff[2])), __fmul_rn(w[2], diff[1]));
+      vs[1] = __fsub_rn(__fadd_rn(vs[1], __fmul_rn(w[2], diff[0])), __fmul_rn(w[0], diff[2]));
+      vs[2] = __fsub_rn(__fadd_rn(vs[2], __fmul_rn(w[0], diff[1])), __fmul_rn(w[1], diff[0]));
+    }
+    if (c.sticky) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) v[a] = vs[a];
+      continue;
+    }
+    float n[3];
+    if (c.kind == 0) {
+      const float r_safe = fmaxf(r, 1e-12f);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) n[a] = __fdiv_rn(diff[a], r_safe);
+    } else if (c.kind == 1) {
+      // Inside: the nearest face's axis (one-hot on argmax q, ties at edges
+      // share it); outside: from the closest surface point.
+      const bool inside = qmax <= 0.0f;
+      const float safe_out = fmaxf(out_len, 1e-12f);
+      float face[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) face[a] = q[a] >= qmax ? 1.0f : 0.0f;
+      const float face_n = __fsqrt_rn(face[0] + face[1] + face[2]);  // sqrt(1 | 2 | 3)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float sgn = diff[a] >= 0.0f ? 1.0f : -1.0f;
+        n[a] = inside ? __fdiv_rn(sgn * face[a], face_n) : __fdiv_rn(sgn * qp[a], safe_out);
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) n[a] = c.normal[a];
+    }
+    float vrel[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) vrel[a] = __fsub_rn(v[a], vs[a]);
+    const float vn = __fadd_rn(__fadd_rn(__fmul_rn(vrel[0], n[0]), __fmul_rn(vrel[1], n[1])),
+                               __fmul_rn(vrel[2], n[2]));
+    const float approach = fminf(vn, 0.0f);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) v[a] = __fadd_rn(__fsub_rn(vrel[a], __fmul_rn(approach, n[a])), vs[a]);
+  }
+}
+
 // kExt: 11 raw channels in, 9 out (+ the nodal Jbar, p, div); else 7 and 6.
 template <bool kExt>
 __global__ void __launch_bounds__(256)
 p2g3d_update_kernel(const float* __restrict__ raw, float* __restrict__ out,
                     long long nodes, int R0, int P1, int G2, float dtg0,
                     float dtg1, float dtg2, float floor_m, int lo, int hi,
-                    int wall, float dt_beta) {
+                    int wall, float dt_beta, float dx,
+                    const __grid_constant__ Colliders cols) {
   const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (n >= nodes) return;
   constexpr int kRaw = kExt ? 11 : 7;
@@ -291,6 +412,16 @@ p2g3d_update_kernel(const float* __restrict__ raw, float* __restrict__ out,
       if (hi2) v[2] = fminf(v[2], 0.0f);
     }
   }
+  // Colliders, after the walls; the axis-1 pad rows and the rows outside
+  // [0, R0) keep the wall result (transfer3d.py:567-570's `keep`).
+  if (cols.n > 0 && interior && t1 >= 0 && t1 < P1 - (kNT - 1)) {
+    const float x[3] = {
+        __fmul_rn(__fsub_rn(static_cast<float>(t0), static_cast<float>(lo)), dx),
+        __fmul_rn(__fsub_rn(static_cast<float>(t1), static_cast<float>(lo)), dx),
+        __fmul_rn(__fsub_rn(static_cast<float>(zc), static_cast<float>(lo)), dx),
+    };
+    project_colliders(cols, x, v);
+  }
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     o[a * G2] = v[a];
@@ -310,14 +441,48 @@ p2g3d_update_kernel(const float* __restrict__ raw, float* __restrict__ out,
 template <bool kExt>
 int launch_update(const float* raw, float* out, long long nodes, int R0, int P1,
                   int G2, float dtg0, float dtg1, float dtg2, float floor_m, int lo,
-                  int hi, int wall, float dt_beta, cudaStream_t s) {
+                  int hi, int wall, float dt_beta, float dx, const Colliders& cols,
+                  cudaStream_t s) {
   if (nodes > 0) {
     const long long ublocks = (nodes + 255) / 256;
     p2g3d_update_kernel<kExt><<<static_cast<unsigned>(ublocks), 256, 0, s>>>(
         raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2, floor_m, lo, hi, wall,
-        dt_beta);
+        dt_beta, dx, cols);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The host arrays of the C entry points -> the launch's Colliders: per
+// collider kColF floats [center (3), center velocity (3), radius,
+// half-extents (3), unit normal (3), surface velocity (3), omega (3)] and
+// kColI ints [kind, sticky, moving, spin].  False when n is out of range.
+bool unpack_colliders(const float* col_f, const int* col_i, int n, int kin, float t,
+                      Colliders* cols) {
+  if (n < 0 || n > kMaxColliders || (n > 0 && (col_f == nullptr || col_i == nullptr))) {
+    return false;
+  }
+  cols->n = n;
+  cols->kin = kin;
+  cols->t = t;
+  for (int i = 0; i < n; ++i) {
+    const float* f = col_f + i * kColF;
+    const int* k = col_i + i * kColI;
+    Collider& c = cols->c[i];
+    c.kind = k[0];
+    c.sticky = k[1];
+    c.moving = k[2];
+    c.spin = k[3];
+    for (int a = 0; a < 3; ++a) {
+      c.center[a] = f[a];
+      c.cvel[a] = f[3 + a];
+      c.half[a] = f[7 + a];
+      c.normal[a] = f[10 + a];
+      c.vsurf[a] = f[13 + a];
+      c.omega[a] = f[16 + a];
+    }
+    c.radius = f[6];
+  }
+  return true;
 }
 
 template <int kNch, bool kTent>
@@ -332,15 +497,20 @@ void launch_pdata_scatter(const taps::Prepped& in, const int* counts, float* raw
 
 // L0: axis-0 rows per shard (R0 for one device); raw_only: 1 stops after
 // the scatter (the raw mode: `out` is unused, R0 / L0 shards), 0 runs the
-// update too (then L0 must be R0).
+// update too (then L0 must be R0).  col_f, col_i: host arrays of ncol
+// colliders (see unpack_colliders; the raw mode takes none); kin: 1 puts
+// the moving ones at time tcol.
 extern "C" int mpm_p2g3d_grid(const void* const* planes, const long long* strides,
                               const int* counts, float* raw, float* out, int R0,
                               int L0, int R1, int K, int G2, float dx, int apic, int tait,
                               float kb, float kb_over_gamma, float gamma,
                               float two_mu, float fa, float dtg0, float dtg1,
                               float dtg2, float floor_m, int lo, int hi, int wall,
-                              float dt_beta, int raw_only, void* stream) {
-  if (L0 <= 0 || R0 % L0 != 0 || (!raw_only && L0 != R0)) {
+                              float dt_beta, const float* col_f, const int* col_i,
+                              int ncol, int kin, float tcol, int raw_only, void* stream) {
+  Colliders cols{};
+  if (L0 <= 0 || R0 % L0 != 0 || (!raw_only && L0 != R0) || (raw_only && ncol != 0) ||
+      !unpack_colliders(col_f, col_i, ncol, kin, tcol, &cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -364,21 +534,25 @@ extern "C" int mpm_p2g3d_grid(const void* const* planes, const long long* stride
   }
   if (raw_only) return static_cast<int>(cudaGetLastError());
   return launch_update<false>(raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2,
-                              floor_m, lo, hi, wall, dt_beta, s);
+                              floor_m, lo, hi, wall, dt_beta, dx, cols, s);
 }
 
 // Prepped mode.  planes / strides: 29 entries in the order of taps.cuh
 // (null where the mode has no such plane); nch: 7, or 11 with the ext
-// fields (then out has 9 channels); apic, tent: 0/1; L0 and raw_only as
-// in mpm_p2g3d_grid.
+// fields (then out has 9 channels); apic, tent: 0/1; L0, the colliders and
+// raw_only as in mpm_p2g3d_grid.
 extern "C" int mpm_p2g3d_grid_pdata(const void* const* planes, const long long* strides,
                                     const int* counts, float* raw, float* out, int R0,
                                     int L0, int R1, int K, int G2, int nch, int apic,
                                     int tent, float dx, float dtg0, float dtg1, float dtg2,
                                     float floor_m, int lo, int hi, int wall,
-                                    float dt_beta, int raw_only, void* stream) {
+                                    float dt_beta, const float* col_f, const int* col_i,
+                                    int ncol, int kin, float tcol, int raw_only,
+                                    void* stream) {
   if (nch != 7 && nch != 11) return static_cast<int>(cudaErrorInvalidValue);
-  if (L0 <= 0 || R0 % L0 != 0 || (!raw_only && L0 != R0)) {
+  Colliders cols{};
+  if (L0 <= 0 || R0 % L0 != 0 || (!raw_only && L0 != R0) || (raw_only && ncol != 0) ||
+      !unpack_colliders(col_f, col_i, ncol, kin, tcol, &cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -404,8 +578,8 @@ extern "C" int mpm_p2g3d_grid_pdata(const void* const* planes, const long long* 
   if (raw_only) return static_cast<int>(cudaGetLastError());
   if (nch == 11) {
     return launch_update<true>(raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2,
-                               floor_m, lo, hi, wall, dt_beta, s);
+                               floor_m, lo, hi, wall, dt_beta, dx, cols, s);
   }
   return launch_update<false>(raw, out, nodes, R0, P1, G2, dtg0, dtg1, dtg2,
-                              floor_m, lo, hi, wall, dt_beta, s);
+                              floor_m, lo, hi, wall, dt_beta, dx, cols, s);
 }

@@ -6,19 +6,26 @@ Reference: exec.py — the outer frame loop with 10,000 substeps per frame
 
 The port runs the fast path on one device (`--device`, default `cuda`),
 routed by the scene's dimension as the JAX driver does: `models/fast2d`
-for `dam2d`, `dam2d_flip98` and `elastic_drop`, `models/fast3d` for
-`dam3d`.  `--devices N` runs the slab-sharded path (driver.py:138-177):
-N slab shards of the grid's axis 0 on that one device
-(`parallel.SlabMesh`), `parallel/fast_domain` in 2D and the one-axis
-`parallel/fast_domain3d` in 3D.  The general path, other scenarios, the
-two-axis `N0xN1` mesh and checkpoints raise NotImplementedError naming
-their ROADMAP item.
+for `dam2d`, `dam2d_flip98`, `elastic_drop`, `dam2d_obstacle` (a rigid
+cylinder in the run-out) and `plow2d` (a cylinder sweeping through the
+pool), `models/fast3d` for `dam3d` and `dam3d_obstacle` (a rigid sphere).
+Kinematic colliders see the simulation time: `step_frame` passes
+`total_time` as the run's t0 when one of them moves (driver.py:233-250).
+`--devices N` runs the slab-sharded path (driver.py:138-177): N slab
+shards of the grid's axis 0 on that one device (`parallel.SlabMesh`),
+`parallel/fast_domain` in 2D and the one-axis `parallel/fast_domain3d` in
+3D.  The general path, the other scenarios, the two-axis `N0xN1` mesh and
+checkpoints raise NotImplementedError naming their ROADMAP item.
 
 CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
           --frames 2 --substeps 100 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario elastic_drop --path fast \
           --frames 2 --substeps 200 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam3d --path fast \
+          --frames 2 --substeps 100 --no-gif
+      python -m mpm_flip98a_tpu_torch --scenario plow2d --path fast \
+          --frames 2 --substeps 200 --no-gif
+      python -m mpm_flip98a_tpu_torch --scenario dam3d_obstacle --path fast \
           --frames 2 --substeps 100 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
           --devices 4 --frames 2 --substeps 100 --no-gif
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
-from mpm_flip98a_tpu_torch.models import fast2d, fast3d, scenes
+from mpm_flip98a_tpu_torch.models import colliders, fast2d, fast3d, scenes
 from mpm_flip98a_tpu_torch.parallel import SlabMesh, fast_domain, fast_domain3d
 from mpm_flip98a_tpu_torch.utils import io_vtk, native_io, render
 from mpm_flip98a_tpu_torch.utils.progress import create_file_paths, progress_bar
@@ -57,17 +64,22 @@ SCENARIOS = {
     ),
     "elastic_drop": lambda: scenes.elastic_drop_2d(),
     "dam3d": lambda: scenes.dam_break_3d(),
+    # Rigid SDF collider: dam break splitting around a cylinder in the
+    # run-out path.
+    "dam2d_obstacle": lambda: scenes.dam_break_obstacle_2d(),
+    # Kinematic collider: a cylinder sweeping through the pool at constant
+    # velocity (center_velocity BC).
+    "plow2d": lambda: scenes.plow_2d(),
+    # 3D variant of the rigid-obstacle dam break.
+    "dam3d_obstacle": lambda: scenes.dam_break_obstacle_3d(),
 }
 
 # Scenarios of the JAX package that this port does not run yet, with the
 # ROADMAP queue 1 item that ports them.
 UNPORTED_SCENARIOS = {
-    "dam2d_incompressible": 8,
-    "snow2d": 8,
-    "sand2d": 8,
-    "dam2d_obstacle": 8,
-    "plow2d": 8,
-    "dam3d_obstacle": 8,
+    "dam2d_incompressible": 6,
+    "snow2d": 4,
+    "sand2d": 4,
 }
 
 
@@ -103,7 +115,7 @@ class Simulation:
         devices=1,
     ):
         if path != "fast":
-            raise _unported(f"--path {path}", 7)
+            raise _unported(f"--path {path}", 3)
         if isinstance(devices, tuple):
             if scene.cfg.dim != 3:
                 raise ValueError("--devices N0xN1 (two-axis mesh) is 3D-only; "
@@ -180,11 +192,15 @@ class Simulation:
     def step_frame(self, n_substeps: Optional[int] = None) -> None:
         n = n_substeps or self.cfg.substeps_per_frame
         t0 = time.perf_counter()
+        # Kinematic colliders see simulation time: total_time is the
+        # substep-count clock (driver.py:233-250).
+        sim_t0 = self.total_time if colliders.any_moving(self.scene.colliders) else None
         with self.timers.scope("substeps", sync=self.device):
             if self.devices > 1:
-                self.state = self._sharded_run(self.state, n, self.stats)
+                self.state = self._sharded_run(self.state, n, self.stats, t0=sim_t0)
             else:
-                self.state = self._fast.run(self.state, self.scene, self.spec, n, self.stats)
+                self.state = self._fast.run(self.state, self.scene, self.spec, n, self.stats,
+                                            t0=sim_t0)
         self.meter.update(n, time.perf_counter() - t0)
         self.total_time += n * self.cfg.dt
         self.frame_count += 1
@@ -365,7 +381,7 @@ def main(argv=None) -> Simulation:
     if args.scenario in UNPORTED_SCENARIOS:
         raise _unported(f"scenario {args.scenario!r}", UNPORTED_SCENARIOS[args.scenario])
     if args.resume or args.checkpoint or args.checkpoint_every:
-        raise _unported("checkpointing", 6)
+        raise _unported("checkpointing", 2)
     p, scene = SCENARIOS[args.scenario]()
     sim = Simulation(
         p, scene, path=args.path, out_dir=args.out, io_async=not args.sync_io,

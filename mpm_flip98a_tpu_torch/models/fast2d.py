@@ -15,7 +15,8 @@ as fast2d.py:537-542 does (`uses_fused`):
   -> the particle update.
 
 PIC or APIC with the FLIP blend, linear or Tait EOS, slip or sticky walls
-or the penalty EBC; all on float32 tensors on one device.
+or the penalty EBC, rigid SDF colliders (static or kinematic, applied in
+`_grid_update2d`); all on float32 tensors on one device.
 
 State lives in the row-bucketed (R, K) slot layout; `rebucket` re-sorts it
 when a particle nears the kernels' +-1-row margin.  `run` keeps the
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch.config import EOSKind, KernelKind, MPMConfig, TransferKind
+from mpm_flip98a_tpu_torch.models import colliders
 from mpm_flip98a_tpu_torch.models import materials as mat
 from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene, _mass_floor
 from mpm_flip98a_tpu_torch.ops import binning
@@ -163,7 +165,7 @@ def rebucket(b: FluidBuckets, cfg: MPMConfig, spec: FastSpec) -> FluidBuckets:
 
 
 def from_particles(
-    p: Particles, cfg: MPMConfig, spec: FastSpec, device="cpu"
+    p: Particles, cfg: MPMConfig, spec: FastSpec, device="cuda"
 ) -> FluidBuckets:
     """Dense Particles -> bucketed fast-path state (float32 on `device`)."""
     n = p.n
@@ -208,17 +210,20 @@ PORTED_MATERIALS = (mat.WEAKLY_COMPRESSIBLE_FLUID, mat.NEO_HOOKEAN, mat.FIXED_CO
 
 
 def check_supported(scene: Scene) -> None:
-    """Raise NotImplementedError for configs outside the ported slice."""
+    """Raise for configs outside the ported slice: NotImplementedError
+    naming the ROADMAP item that ports them."""
     cfg = scene.cfg
+    if cfg.dim != 2:
+        raise ValueError("fast2d runs 2D configs; a 3D config takes models/fast3d")
     gaps = [
-        (cfg.dim != 2, "3D (fast3d)", 9),
-        (cfg.surface_tension > 0.0, "CSF surface tension", 8),
-        (cfg.incompressible, "the incompressible projection", 8),
-        (bool(scene.colliders), "rigid SDF colliders", 8),
+        # Colliders with either also wait for item 6 (the projection's
+        # collider solid mask, col_solid).
+        (cfg.surface_tension > 0.0, "CSF surface tension", 6),
+        (cfg.incompressible, "the incompressible projection", 6),
         (any(m not in PORTED_MATERIALS for m in scene.materials_present),
-         "snow and sand (mathx.svd, plastic_update)", 8),
+         "snow and sand (mathx.svd, plastic_update)", 4),
         (scene.params.plastic and mat.FIXED_COROTATED in scene.materials_present,
-         "corotated plasticity (plastic_update)", 8),
+         "corotated plasticity (plastic_update)", 4),
     ]
     for bad, what, item in gaps:
         if bad:
@@ -255,15 +260,17 @@ def _axis_bands2d(cfg: MPMConfig, idx0: torch.Tensor, ncols: int):
     )
 
 
-def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None) -> torch.Tensor:
+def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None, t=None) -> torch.Tensor:
     """Grid momentum update on the row-leading (R, 5 or 6 or 9, G) fold
-    output (fast2d.py:258-398 without CSF, colliders and the projection):
-    mass floor, gravity, then slip or sticky walls or the penalty EBC.
+    output (fast2d.py:258-398 without CSF and the projection): mass floor,
+    gravity, slip or sticky walls or the penalty EBC, then the scene's
+    rigid colliders at simulation time `t` (None: static geometry).
     Returns the grid (R, 4, G) = [v_new (2), v_old (2)] for g2p, plus the
     nodal averages [Jbar, p, div] (R, 7, G) under F-bar or mixing.
 
     Slab shards pass the halo-synced (n, L + 4, nch, G) sums and their
-    global row indices `row_index0` (n, L + 4).  The relative mass floor is
+    global row indices `row_index0` (n, L + 4), which also place the
+    colliders' node coordinates.  The relative mass floor is
     then each shard's own (the reference's _mass_floor on the shard-local
     sums, fast2d.py:277, takes no pmax; ROADMAP queue 3)."""
     cfg = scene.cfg
@@ -301,6 +308,11 @@ def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None) -> torc
             vx = torch.where(high0, vx.clamp(max=0.0), vx)
             vy = torch.where(low1, vy.clamp(min=0.0), vy)
             vy = torch.where(high1, vy.clamp(max=0.0), vy)
+    if scene.colliders:
+        # Pointwise, after the wall or penalty BC (fast2d.py:345-359).
+        idx1 = torch.arange(gridsum.shape[-1], device=gridsum.device)
+        coords = colliders.node_coords(cfg, [row_index0[..., None], idx1], vx.dtype)
+        vx, vy = colliders.project([vx, vy], coords, scene.colliders, t)
     gch = [vx, vy, v0x, v0y]
     if _ext(cfg):
         # Nodal averages for the next substep's stress: Jbar, p, div, with
@@ -487,27 +499,29 @@ def _tent_inverse_d(gx0, gx1, dx: float):
     return d11 / det, -d01 / det, d00 / det
 
 
-def _grid(data, counts, scene: Scene, plain: bool, domain):
-    """P2G, the fold and the grid update -> the g2p grid: (R, 4 or 7, G) on
-    one device; on slab shards `p2g_grid`'s raw halo sums, the halo
-    exchange and the update on the (n, L + 4) halo rows (fast2d.py:744-766)."""
+def _grid(data, counts, scene: Scene, plain: bool, domain, t=None):
+    """P2G, the fold and the grid update at time `t` -> the g2p grid: (R, 4
+    or 7, G) on one device; on slab shards `p2g_grid`'s raw halo sums, the
+    halo exchange and the update on the (n, L + 4) halo rows
+    (fast2d.py:744-766)."""
     fused = uses_fused(scene)
     if domain is None:
         if plain:
             p2g = tk.p2g_fused_plain if fused else tk.p2g_plain
         else:
             p2g = tk.p2g_fused if fused else tk.p2g
-        return _grid_update2d(tk.fold_rows(p2g(data, counts, **p2g_args(scene))), scene)
+        return _grid_update2d(tk.fold_rows(p2g(data, counts, **p2g_args(scene))), scene, t=t)
     kw = dict(fused=fused, shards=domain.n, **p2g_args(scene))
     raw = tk.p2g_grid_plain(data, counts, **kw) if plain else tk.p2g_grid(
         data, counts, raw=True, **kw)
-    return _grid_update2d(domain.halo_sync(raw), scene, domain.row_index0(data.device))
+    return _grid_update2d(domain.halo_sync(raw), scene, domain.row_index0(data.device), t)
 
 
 def substep(
-    b: FluidBuckets, scene: Scene, plain: bool = False, domain=None
+    b: FluidBuckets, scene: Scene, plain: bool = False, domain=None, t=None
 ) -> FluidBuckets:
-    """One fast substep (fast2d.py:479-875).
+    """One fast substep (fast2d.py:479-875); `t` (simulation seconds, a
+    host scalar) advects kinematic colliders.
 
     `uses_fused` configs take `p2g_fused`; the others prep `pdata` and
     take `p2g`, the extended grid channels under F-bar or mixing and the
@@ -526,7 +540,7 @@ def substep(
     g2p = tk.g2p_plain if plain else tk.g2p
 
     data, pdata2, counts = transfer_inputs(b, scene, domain)
-    grid = _grid(data, counts, scene, plain, domain)
+    grid = _grid(data, counts, scene, plain, domain, t)
     out = g2p(pdata2, counts, grid, dx, 1.0 if tent else dinv, tent=tent,
               prepadded=domain is not None)
     vpic0, vpic1 = out[:, 0], out[:, 1]
@@ -602,19 +616,32 @@ class RunStats:
     host_reads: int = 0   # device->host reads of the margin flag
 
 
+def substep_times(scene: Scene, t0, n_substeps: int):
+    """The simulation time of each of `n_substeps` substeps from `t0`, as
+    fast2d.py:905-985 forms it on the device: t = f32(t0) + f32(j) f32(dt)
+    with j the run's substep counter (a rebucket does not reset it).  None
+    for every substep when `t0` is None or no collider moves."""
+    if t0 is None or not colliders.any_moving(scene.colliders):
+        return [None] * n_substeps
+    t0f, dtf = np.float32(t0), np.float32(scene.cfg.dt)
+    return [float(t0f + np.float32(j) * dtf) for j in range(n_substeps)]
+
+
 def run(
     b: FluidBuckets, scene: Scene, spec: FastSpec, n_substeps: int,
-    stats: RunStats = None, plain: bool = False,
+    stats: RunStats = None, plain: bool = False, t0=None,
 ) -> FluidBuckets:
     """Advance n_substeps with adaptive rebucketing: before each substep,
     rebucket if the state fails the margin check (the order of
-    fast2d.py:936-987).  Reading the flag is one host sync per substep."""
+    fast2d.py:936-987).  Reading the flag is one host sync per substep.
+    `t0` (simulation seconds at entry) drives kinematic colliders: substep
+    j sees t = t0 + j dt (`substep_times`)."""
     stats = RunStats() if stats is None else stats
-    for _ in range(n_substeps):
+    for t in substep_times(scene, t0, n_substeps):
         stats.host_reads += 1
         if bool(_needs_rebucket(b, scene.cfg)):
             b = rebucket(b, scene.cfg, spec)
             stats.rebuckets += 1
-        b = substep(b, scene, plain=plain)
+        b = substep(b, scene, plain=plain, t=t)
         stats.substeps += 1
     return b

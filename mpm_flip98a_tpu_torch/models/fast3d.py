@@ -20,7 +20,9 @@ as fast3d.py:586-591 and :776-811 do (`uses_fused`, `scene.mass_floor`):
   the particle update.
 
 PIC or APIC with the FLIP blend, linear or Tait EOS, slip or sticky walls
-or the penalty EBC; all on float32 tensors on one device.
+or the penalty EBC, rigid SDF colliders (static or kinematic: inside
+`p2g3d_grid`'s node pass, or in `_grid_update` on the relative-floor and
+sharded routes); all on float32 tensors on one device.
 
 State lives in pencil buckets: one bucket of K slots per (axis-0, axis-1)
 grid line, fields (R0 * R1, K).  `run` keeps the reference's order (a
@@ -48,8 +50,11 @@ import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch.config import EOSKind, KernelKind, MPMConfig, TransferKind
+from mpm_flip98a_tpu_torch.models import colliders
 from mpm_flip98a_tpu_torch.models import materials as mat
-from mpm_flip98a_tpu_torch.models.fast2d import PORTED_MATERIALS, RunStats, _ext, _f32
+from mpm_flip98a_tpu_torch.models.fast2d import (
+    PORTED_MATERIALS, RunStats, _ext, _f32, substep_times,
+)
 from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene, _mass_floor
 from mpm_flip98a_tpu_torch.ops import binning
 from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
@@ -178,7 +183,7 @@ def rebucket(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> FluidBucket
 
 
 def from_particles(
-    p: Particles, cfg: MPMConfig, spec: FastSpec3D, device="cpu"
+    p: Particles, cfg: MPMConfig, spec: FastSpec3D, device="cuda"
 ) -> FluidBuckets3D:
     """Dense Particles -> bucketed fast-path state (float32 on `device`)."""
     n = p.n
@@ -222,17 +227,20 @@ def to_host(b: FluidBuckets3D) -> dict:
 
 
 def check_supported(scene: Scene, sharded: bool = False) -> None:
-    """Raise NotImplementedError for configs outside the ported slice."""
+    """Raise for configs outside the ported slice: NotImplementedError
+    naming the ROADMAP item that ports them."""
     cfg = scene.cfg
+    if cfg.dim != 3:
+        raise ValueError("fast3d runs 3D configs; a 2D config takes models/fast2d")
     gaps = [
-        (cfg.dim != 3, "fast3d needs a 3D config", 9),
-        (cfg.surface_tension > 0.0, "CSF surface tension", 8),
-        (cfg.incompressible, "the incompressible projection", 8),
-        (bool(scene.colliders), "rigid SDF colliders", 8),
+        # Colliders with either also wait for item 6 (the projection's
+        # collider solid mask, col_solid).
+        (cfg.surface_tension > 0.0, "CSF surface tension", 6),
+        (cfg.incompressible, "the incompressible projection", 6),
         (any(m not in PORTED_MATERIALS for m in scene.materials_present),
-         "snow and sand (mathx.svd, plastic_update)", 8),
+         "snow and sand (mathx.svd, plastic_update)", 4),
         (scene.params.plastic and mat.FIXED_COROTATED in scene.materials_present,
-         "corotated plasticity (plastic_update)", 8),
+         "corotated plasticity (plastic_update)", 4),
     ]
     for bad, what, item in gaps:
         if bad:
@@ -260,7 +268,8 @@ def uses_fused(scene: Scene) -> bool:
 
 
 def _wall_args(scene: Scene) -> dict:
-    """The grid-update arguments of `p2g3d_grid` (fast3d.py:608-627)."""
+    """The grid-update arguments of `p2g3d_grid` (fast3d.py:608-627), the
+    scene's colliders included; the caller adds `tcol`."""
     cfg = scene.cfg
     penalty = cfg.use_penalty_ebc
     return dict(
@@ -270,6 +279,7 @@ def _wall_args(scene: Scene) -> dict:
         lo=int(PAD), hi=cfg.num_grids - 1 - int(PAD),
         wall="penalty" if penalty else scene.wall.kind,
         beta=float(cfg.penalty_parameter(scene.physics)) if penalty else 0.0,
+        colliders=tuple(scene.colliders),
     )
 
 
@@ -337,11 +347,12 @@ def transfer_inputs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig, x0k=Non
     return planes, pencil_counts(b), shaped(b.mask), state
 
 
-def _sharded_grid(fields, counts, scene: Scene, spec: FastSpec3D, plain: bool, domain):
+def _sharded_grid(fields, counts, scene: Scene, spec: FastSpec3D, plain: bool, domain, t=None):
     """`p2g3d_grid`'s raw halo sums on the slab shards, the axis-0 halo
-    exchange, then `_grid_update` on the (n, L0 + 4, R1 + 4) halo planes
-    with global axis-0 rows and axis-1 plane rows j - 1 (fast3d.py:457-466,
-    776-784) -> each shard's G2P grid (n, L0 + 4, R1 + 4, 6 or 9, G2)."""
+    exchange, then `_grid_update` at time `t` on the (n, L0 + 4, R1 + 4)
+    halo planes with global axis-0 rows and axis-1 plane rows j - 1
+    (fast3d.py:457-466, 776-784) -> each shard's G2P grid (n, L0 + 4,
+    R1 + 4, 6 or 9, G2)."""
     kw = dict(shards=domain.n, **p2g_args(scene, raw=True))
     if plain:
         raw = tk3.p2g3d_raw_plain(fields, counts, **kw)
@@ -349,10 +360,11 @@ def _sharded_grid(fields, counts, scene: Scene, spec: FastSpec3D, plain: bool, d
         raw = tk3.p2g3d_grid(fields, counts, spec.rows1, raw=True, **kw)
     dev = counts.device
     return _grid_update(domain.halo_sync(raw), scene, domain.row_index0(dev),
-                        torch.arange(spec.rows1 + tk3.NT - 1, device=dev) - 1)
+                        torch.arange(spec.rows1 + tk3.NT - 1, device=dev) - 1, t)
 
 
-def _fused_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool, domain=None):
+def _fused_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool, domain=None,
+                   t=None):
     """The fused branch (fast3d.py:592-644 and `_finish_substep`).  On slab
     shards the kernels see x0 less the slab origin, and the origin is added
     back to the advected x0 (dead slots: (0 - a) + a == 0)."""
@@ -364,9 +376,9 @@ def _fused_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: boo
         b, spec, cfg, None if domain is None else b.x0 - x0_shift)
     if domain is None:
         p2g = tk3.p2g3d_grid_plain if plain else tk3.p2g3d_grid
-        grid_pad = p2g(planes, counts, r1, **p2g_args(scene))
+        grid_pad = p2g(planes, counts, r1, **p2g_args(scene), tcol=t)
     else:
-        grid_pad = _sharded_grid(planes, counts, scene, spec, plain, domain)
+        grid_pad = _sharded_grid(planes, counts, scene, spec, plain, domain, t)
     out = g2p(
         *planes[:3], mask, counts, grid_pad, float(cfg.dx),
         float(4.0 * cfg.inv_dx * cfg.inv_dx), state, float(cfg.flip_blend), float(cfg.dt),
@@ -559,12 +571,14 @@ def _axis_bands(cfg: MPMConfig, device, row_index0=None, row_index1=None):
     ]
 
 
-def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=None) -> torch.Tensor:
+def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=None,
+                 t=None) -> torch.Tensor:
     """Grid momentum update on the fold's (G0, G1, 7 or 11, G2) layout
-    (fast3d.py:291-430 without CSF, colliders and the projection): mass
-    floor (relative when `scene.mass_floor <= 0`: a device-side max),
-    gravity, then slip or sticky walls (`_wall_bc_ch`) or the penalty EBC
-    (`_wall_normal_diag_ch`: the box's penalty matrix is diagonal).
+    (fast3d.py:291-430 without CSF and the projection): mass floor
+    (relative when `scene.mass_floor <= 0`: a device-side max), gravity,
+    slip or sticky walls (`_wall_bc_ch`) or the penalty EBC
+    (`_wall_normal_diag_ch`: the box's penalty matrix is diagonal), then
+    the scene's rigid colliders at simulation time `t` (fast3d.py:371-393).
     Returns the unpadded (G0, G1, 6 or 9, G2) grid = [v_new (3), v_old
     (3)] + the nodal [Jbar, p, div] under F-bar or mixing.
 
@@ -607,6 +621,15 @@ def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=Non
             for a, (low, high) in enumerate(bands):
                 v[a] = torch.where(low, v[a].clamp(min=0.0), v[a])
                 v[a] = torch.where(high, v[a].clamp(max=0.0), v[a])
+    if scene.colliders:
+        # Pointwise, after the wall or penalty BC, at global node indices.
+        dev = gs.device
+        idx0 = torch.arange(gs.shape[-4], device=dev) if row_index0 is None else row_index0
+        idx1 = torch.arange(gs.shape[-3], device=dev) if row_index1 is None else row_index1
+        idx2 = torch.arange(gs.shape[-1], device=dev)
+        coords = colliders.node_coords(
+            cfg, [idx0[..., :, None, None], idx1[:, None], idx2], g_m.dtype)
+        v = colliders.project(v, coords, scene.colliders, t)
     gch = v + v_old
     if gs.shape[-2] == tk3.P2G_CH_EXT:
         # Nodal averages for the next substep's stress: Jbar, p, div, with
@@ -650,7 +673,7 @@ def _tent_inverse_d(gxs, dx: float):
 
 
 def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool,
-                     domain=None):
+                     domain=None, t=None):
     """The prepped branch (fast3d.py:646-934): stress prep, P2G by the
     mass floor's route (on slab shards always `p2g3d_grid`'s raw mode),
     gather-mode G2P, the particle update."""
@@ -666,15 +689,15 @@ def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: b
     counts = pencil_counts(b)
     args = p2g_args(scene)
     if domain is not None:
-        grid = _sharded_grid(fields, counts, scene, spec, plain, domain)
+        grid = _sharded_grid(fields, counts, scene, spec, plain, domain, t)
     elif scene.mass_floor > 0.0:
         # Absolute floor: scatter, fold and grid update in one wrapper; the
         # grid comes out padded on both axes.
         p2g = tk3.p2g3d_grid_plain if plain else tk3.p2g3d_grid
-        grid = p2g(fields, counts, r1, **args)
+        grid = p2g(fields, counts, r1, **args, tcol=t)
     else:
         p2g = tk3.p2g3d_plain if plain else tk3.p2g3d
-        grid = _grid_update(tk3.fold_rows0(p2g(fields, counts, r1, **args)), scene)
+        grid = _grid_update(tk3.fold_rows0(p2g(fields, counts, r1, **args)), scene, t=t)
     gxs = fields[:3]
     del fields
     g2p = tk3.g2p3d_plain if plain else tk3.g2p3d
@@ -743,9 +766,11 @@ def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: b
 
 
 def substep(
-    b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool = False, domain=None
+    b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool = False, domain=None,
+    t=None,
 ) -> FluidBuckets3D:
-    """One fast substep (fast3d.py:505-934).
+    """One fast substep (fast3d.py:505-934); `t` (simulation seconds, a
+    host scalar) advects kinematic colliders.
 
     `uses_fused` configs compute the stress inside `p2g3d_grid` and update
     the particles inside `g2p3d` (absolute mass floor only); the others
@@ -759,8 +784,8 @@ def substep(
     it exists to time the plain path against the kernel path."""
     check_supported(scene, sharded=domain is not None)
     if uses_fused(scene):
-        return _fused_substep(b, scene, spec, plain, domain)
-    return _prepped_substep(b, scene, spec, plain, domain)
+        return _fused_substep(b, scene, spec, plain, domain, t)
+    return _prepped_substep(b, scene, spec, plain, domain, t)
 
 
 def _margin_pencils(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torch.Tensor:
@@ -786,17 +811,19 @@ def _needs_rebucket(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torc
 
 def run(
     b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, n_substeps: int,
-    stats: RunStats = None, plain: bool = False,
+    stats: RunStats = None, plain: bool = False, t0=None,
 ) -> FluidBuckets3D:
     """Advance n_substeps with adaptive rebucketing: before each substep,
     rebucket if the state fails the margin check (the order of
-    fast3d.py:952-1008).  Reading the flag is one host sync per substep."""
+    fast3d.py:952-1008).  Reading the flag is one host sync per substep.
+    `t0` drives kinematic colliders: substep j sees t = t0 + j dt
+    (`fast2d.substep_times`)."""
     stats = RunStats() if stats is None else stats
-    for _ in range(n_substeps):
+    for t in substep_times(scene, t0, n_substeps):
         stats.host_reads += 1
         if bool(_needs_rebucket(b, scene.cfg, spec)):
             b = rebucket(b, scene.cfg, spec)
             stats.rebuckets += 1
-        b = substep(b, scene, spec, plain=plain)
+        b = substep(b, scene, spec, plain=plain, t=t)
         stats.substeps += 1
     return b

@@ -11,8 +11,8 @@ Ported: the material ids, `MaterialParams`, the weakly-compressible fluid
 3D polar of mpm_flip98a_tpu/ops/mathx.py:64-82, :131-150) and the
 `tau_hat` dispatch.  The fast paths compute the same stresses in
 component form (`models/fast2d._stress`, `models/fast3d._stress`); these
-matrix forms are their yardstick in the tests.  Snow, sand and `plastic_update` need the SVD and wait for ROADMAP
-queue 1, items 7-8.
+matrix forms are their yardstick in the tests.  Snow, sand and
+`plastic_update` need the SVD and wait for ROADMAP queue 1, items 3-4.
 """
 
 from __future__ import annotations
@@ -176,7 +176,7 @@ def tau_hat(
         if mid == FIXED_COROTATED:
             return fixed_corotated_tau_hat(params, volume0, f)
         raise NotImplementedError(
-            f"material {mid} (snow / sand) is not ported yet (ROADMAP queue 1, item 8)"
+            f"material {mid} (snow / sand) is not ported yet (ROADMAP queue 1, item 4)"
         )
 
     if len(materials_present) == 1:

@@ -7,12 +7,14 @@ cells (config.py:37-39).  The lattice is built in float64 numpy and cast
 to the requested dtype, exactly as the JAX builder does, so both packages
 start from the same bits.  `elastic_drop_2d` adds an elastic block to that
 column (BASELINE.json configs[2]); `dam_break_3d`, `slab_3d` and
-`elastic_drop_3d` are the 3D scenes.  Snow, sand and the collider scenes
-wait for ROADMAP queue 1, item 8.
+`elastic_drop_3d` are the 3D scenes.  `dam_break_obstacle_2d`, `plow_2d`
+and `dam_break_obstacle_3d` add rigid colliders (models/colliders.py).
+Snow and sand wait for ROADMAP queue 1, item 4.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from mpm_flip98a_tpu_torch.config import MPMConfig, Physics, TransferKind
 from mpm_flip98a_tpu_torch.models import materials as mat
+from mpm_flip98a_tpu_torch.models.colliders import Collider
 from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
 from mpm_flip98a_tpu_torch.state import Particles
 
@@ -122,6 +125,49 @@ def elastic_drop_2d(
         mass_floor=_floor_of(p),
     )
     return p, scene
+
+
+def dam_break_obstacle_2d(
+    cfg: Optional[MPMConfig] = None,
+    physics: Physics = Physics(),
+    dtype=np.float64,
+    sticky: bool = False,
+    center_frac: Tuple[float, float] = (0.55, 0.10),
+    radius_frac: float = 0.08,
+) -> Tuple[Particles, Scene]:
+    """Dam break over a rigid cylinder in the run-out path (the
+    `dam2d_obstacle` scenario): the collapsing column hits it and splits."""
+    p, scene = dam_break_2d(cfg, physics=physics, dtype=dtype)
+    l = scene.cfg.domain_length
+    sphere = Collider(
+        kind="sphere",
+        center=(center_frac[0] * l, center_frac[1] * l),
+        radius=radius_frac * l,
+        sticky=sticky,
+    )
+    return p, dataclasses.replace(scene, colliders=(sphere,))
+
+
+def plow_2d(
+    cfg: Optional[MPMConfig] = None,
+    physics: Physics = Physics(),
+    dtype=np.float64,
+    speed_frac: float = 0.25,
+    sticky: bool = True,
+) -> Tuple[Particles, Scene]:
+    """A kinematic collider (the `plow2d` scenario): a rigid cylinder sweeps
+    horizontally through the pool at constant velocity, `speed_frac` of
+    the domain length per second, plowing material ahead of it."""
+    p, scene = dam_break_2d(cfg, physics=physics, dtype=dtype)
+    l = scene.cfg.domain_length
+    plow = Collider(
+        kind="sphere",
+        center=(0.80 * l, 0.10 * l),
+        radius=0.08 * l,
+        sticky=sticky,
+        center_velocity=(-speed_frac * l, 0.0),
+    )
+    return p, dataclasses.replace(scene, colliders=(plow,))
 
 
 def _fluid_scene(cfg: MPMConfig, physics: Physics, p: Particles) -> Scene:
@@ -247,3 +293,25 @@ def elastic_drop_3d(
         mass_floor=_floor_of(p),
     )
     return p, scene
+
+
+def dam_break_obstacle_3d(
+    num_grids: int = 64,
+    particles_per_axis: Tuple[int, int, int] = (24, 24, 48),
+    physics: Physics = Physics(),
+    dtype=np.float32,
+    dt: float = 1e-5,
+    center_frac: Tuple[float, float, float] = (0.55, 0.50, 0.12),
+    radius_frac: float = 0.10,
+    **cfg_kwargs,
+) -> Tuple[Particles, Scene]:
+    """3D dam break around a rigid sphere in the run-out path (the
+    `dam3d_obstacle` scenario)."""
+    p, scene = dam_break_3d(num_grids, particles_per_axis, physics, dtype, dt, **cfg_kwargs)
+    l = scene.cfg.domain_length
+    sphere = Collider(
+        kind="sphere",
+        center=tuple(c * l for c in center_frac),
+        radius=radius_frac * l,
+    )
+    return p, dataclasses.replace(scene, colliders=(sphere,))

@@ -2,7 +2,7 @@
 
 Only the pieces the fast path shares with the general solver: the grid
 padding `PAD`, `WallBC`, `Scene` and the grid-mass floor.  The general
-stabilized solver itself is not ported yet (ROADMAP queue 1, item 7).
+stabilized solver itself is not ported yet (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ class Scene:
     params: mat.MaterialParams = mat.MaterialParams()
     materials_present: Tuple[int, ...] = (mat.WEAKLY_COMPRESSIBLE_FLUID,)
     wall: WallBC = WallBC()
-    # Rigid SDF colliders (not ported yet: ROADMAP queue 1, item 8).
+    # Rigid SDF colliders (models/colliders.Collider), applied to the grid
+    # velocities after the wall BC.
     colliders: tuple = ()
     # Absolute grid-mass floor (kg): nodes below it count as empty in the
     # grid update.  Scene builders set 1e-8 x the lightest particle mass;

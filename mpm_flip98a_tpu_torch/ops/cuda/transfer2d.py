@@ -50,7 +50,7 @@ Semantics kept from the TPU kernels: a slot contributes only when its
 base row is within +-1 of its bucket row; taps on columns outside [0, G)
 are dropped; P2G and G2P read the same precomputed gx.  G2P's update mode
 and `p2g_grid`'s non-raw mode (in-kernel fold, grid update and colliders)
-are not on a ported path (ROADMAP queue 2, items 2 and 4).
+are not on a ported path (ROADMAP queue 2, items 2 and 3).
 """
 
 from __future__ import annotations
@@ -430,7 +430,7 @@ def p2g_grid(
     if not raw:
         raise NotImplementedError(
             "p2g_grid's non-raw mode (in-kernel fold, grid update and colliders, "
-            "reached only by MPM_P2G_GRID=1) is not ported (ROADMAP queue 2, item 4)"
+            "reached only by MPM_P2G_GRID=1) is not ported (ROADMAP queue 2, item 3)"
         )
     r, f, k = data.shape
     if fused:

@@ -19,8 +19,9 @@ run in no order, so here each slot touches its 27 nodes directly:
   into a raw padded buffer, of the per-slot fluid stress (stress mode) or
   of prepped fields (`stress=None`, with `ext` and `tent`), then one
   thread per node for the grid update (mass floor, gravity, slip / sticky
-  walls or the diagonal penalty solve, the nodal Jbar, p and div under
-  `ext`) -> the finished G2P-ready padded grid; or, `raw=True` (the
+  walls or the diagonal penalty solve, the rigid SDF colliders of
+  `models/colliders` at kinematic time `tcol`, the nodal Jbar, p and div
+  under `ext`) -> the finished G2P-ready padded grid; or, `raw=True` (the
   slab-sharded path's), the scatter alone into each shard's raw halo sums,
   all shards in one launch.
 - `g2p3d` (csrc/g2p3d.cu) replaces the Pallas `g2p3d` (transfer3d.py:930,
@@ -66,17 +67,22 @@ rows back); `p2g3d` drops taps whose axis-1 row is outside [0, G1); z
 taps outside [0, G2) are dropped; P2G and G2P read the same precomputed
 gx.  Slots past a pencil's count are skipped by P2G; G2P gives them the
 dead fill in update mode (x passed through, v = C = 0, J = 1) and zeros
-in gather mode.  `p2g3d`'s `halo1` mode (two-axis sharding), in-kernel
-colliders and `p2g3d`'s stress mode are not ported (ROADMAP queue 2).
+in gather mode.  The colliders' projection leaves the axis-1 pad rows and
+the rows outside [0, R0) as the walls left them (transfer3d.py:567-570).
+`p2g3d`'s stress mode and `halo1` mode are not ported (ROADMAP queue 2,
+items 4 and 5).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch import _build
+from mpm_flip98a_tpu_torch.models import colliders as col
 from mpm_flip98a_tpu_torch.ops.cuda.transfer2d import (
     EOS_CODES, _check, _col_weights, _ptr, _raise_on, _route, _shard_rows, _stream, _taps,
 )
@@ -92,6 +98,8 @@ G2P_UPD = 16      # update-mode output: x (3), v (3), C (9), J
 N_P2G_IN = 18     # stress-mode input planes
 N_PREPPED_MAX = 29
 WALL_CODES = {"slip": 0, "sticky": 1, "penalty": 2}
+MAX_COLLIDERS = 8     # csrc/p2g3d_grid.cu's kMaxColliders
+COLLIDER_KINDS = {"sphere": 0, "box": 1, "halfspace": 2}
 
 # Kernel launches per wrapper (the plain versions do not count).
 LAUNCHES = {"p2g3d": 0, "p2g3d_grid": 0, "g2p3d": 0}
@@ -304,15 +312,16 @@ def p2g3d(
     `n_prepped(apic, ext)` (R0, R1, K) planes, counts (R0 * R1,) int32 ->
     (R0, 5, G1, nch, G2), nch = 11 with `ext` else 7, for `fold_rows0`.
 
-    The stress mode has no single-device caller and `halo1` serves
-    two-axis sharding: both raise NotImplementedError."""
+    The stress mode has no single-device caller and no path reaches
+    `halo1`: both raise NotImplementedError."""
     if stress is not None:
         raise NotImplementedError(
-            "p2g3d's stress mode is not ported (no single-device caller: ROADMAP queue 2)"
+            "p2g3d's stress mode is not ported (no single-device caller: ROADMAP queue 2, "
+            "item 4)"
         )
     if halo1:
         raise NotImplementedError(
-            "p2g3d's halo1 mode is not ported yet (ROADMAP queue 1, item 10)"
+            "p2g3d's halo1 mode is not ported yet (ROADMAP queue 2, item 5)"
         )
     r0, r1, k, strides = _check_fields(fields, n_prepped(apic, ext))
     _check("counts", counts, (r0 * r1,), torch.int32)
@@ -364,12 +373,15 @@ def p2g3d_raw_plain(
     ])
 
 
-def grid_update3d_plain(raw, r0, dt, grav, floor, lo, hi, wall, beta, ext=False):
+def grid_update3d_plain(raw, r0, dt, grav, floor, lo, hi, wall, beta, ext=False,
+                        colliders=(), tcol=None, dx=0.0):
     """The node half of `p2g3d_grid_plain`, as _emit_and_roll
     (transfer3d.py:491-585): raw (R0 + 4, R1 + 4, 7 or 11, G2) sums -> the
     finished (R0 + 4, R1 + 4, 6 or 9, G2) grid; axis-0 pad rows come out
-    0.  With `ext` the nodal Jbar = sum V0 J / sum V0 (1 on interior rows
-    where no volume landed), p and div (0 there)."""
+    0.  After the walls, `colliders.project` at node x = (idx - lo) dx and
+    time `tcol` on the interior rows of both axes.  With `ext` the nodal
+    Jbar = sum V0 J / sum V0 (1 on interior rows where no volume landed),
+    p and div (0 there)."""
     pr0, pl1, _, g2 = raw.shape
     dev = raw.device
     t0r = torch.arange(pr0, device=dev)[:, None, None] - 1      # target rows
@@ -401,6 +413,12 @@ def grid_update3d_plain(raw, r0, dt, grav, floor, lo, hi, wall, beta, ext=False)
             for a, (low, high) in enumerate(((a0l, a0h), (a1l, a1h), (a2l, a2h))):
                 v[a] = torch.where(low, v[a].clamp(min=0.0), v[a])
                 v[a] = torch.where(high, v[a].clamp(max=0.0), v[a])
+    if colliders:
+        dxc = col.rounded(dx, raw.dtype)
+        coords = [(i.to(raw.dtype) - lo) * dxc for i in (t0r, idx1, idx2)]
+        vp = col.project(v, coords, colliders, tcol)
+        keep = interior & (idx1 >= 0) & (idx1 < pl1 - (NT - 1))
+        v = [torch.where(keep, vp[a], v[a]) for a in range(3)]
     extra = []
     if ext:
         v0sum = raw[:, :, 8]
@@ -416,21 +434,49 @@ def grid_update3d_plain(raw, r0, dt, grav, floor, lo, hi, wall, beta, ext=False)
 
 def p2g3d_grid_plain(
     fields, counts, g1, g2, dx, apic=True, stress=None, kb=0.0, mu=0.0, gamma=7.0, fa=0.0,
-    tent=False, ext=False, *, dt, grav, floor, lo, hi, wall, beta=0.0,
+    tent=False, ext=False, *, dt, grav, floor, lo, hi, wall, beta=0.0, colliders=(),
+    tcol=None,
 ):
     """Plain PyTorch version of `p2g3d_grid`: `index_add_` tap by tap into
     the raw padded sums, then the grid update on whole planes.  Sequential
     and deterministic on the CPU; on a card `index_add_` sums with atomics
     in no fixed order."""
     raw = p2g3d_raw_plain(fields, counts, g2, dx, apic, stress, kb, mu, gamma, fa, tent, ext)
-    return grid_update3d_plain(raw, fields[0].shape[0], dt, grav, floor, lo, hi, wall, beta, ext)
+    return grid_update3d_plain(raw, fields[0].shape[0], dt, grav, floor, lo, hi, wall, beta, ext,
+                               colliders, tcol, dx)
+
+
+@functools.lru_cache(maxsize=32)
+def collider_arrays(colliders: tuple):
+    """The kernel's host arrays of 3D `colliders` (csrc/p2g3d_grid.cu,
+    unpack_colliders): per collider 19 float32 [center, center velocity,
+    radius, half-extents, unit normal, surface velocity, omega] and 4 int32
+    [kind, sticky, moving, spin], rounded as `colliders.project` rounds
+    them.  Built once per scene (the tuple is the cache key)."""
+    if len(colliders) > MAX_COLLIDERS:
+        raise ValueError(f"p2g3d_grid takes at most {MAX_COLLIDERS} colliders, got {len(colliders)}")
+    f32 = np.float32
+    fl, it = [], []
+    for c in colliders:
+        if len(c.center) != 3:
+            raise ValueError(f"p2g3d_grid takes 3D colliders, got {c}")
+        zero = (0.0, 0.0, 0.0)
+        vel, cvel = c.velocity or zero, c.center_velocity or zero
+        normal = col.halfspace_normal(c) if c.kind == "halfspace" else zero
+        fl += [*c.center, *cvel, c.radius, *(c.half_extents or zero), *normal,
+               *(f32(vel[a]) + f32(cvel[a]) for a in range(3)), *(c.angular or zero)]
+        it += [COLLIDER_KINDS[c.kind], int(c.sticky), int(c.moving), int(bool(c.angular))]
+    n = len(colliders)
+    # float32 first, so the C floats hold the values numpy rounded.
+    return ((ctypes.c_float * max(n * 19, 1))(*np.asarray(fl, np.float32).tolist()),
+            (ctypes.c_int * max(n * 4, 1))(*it), n)
 
 
 def p2g3d_grid(
     fields, counts, g1, g2, dx, apic=True, stress=None, kb=0.0, mu=0.0, gamma=7.0, fa=0.0,
     tent=False, ext=False, raw=False,
     *, dt=None, grav=None, floor=None, lo=None, hi=None, wall=None, beta=0.0,
-    raw_out=None, shards=1,
+    colliders=(), tcol=None, raw_out=None, shards=1,
 ):
     """Single-device fused P2G + grid update (the arguments of the JAX
     `p2g3d_grid`): counts (R0 * R1,) int32 and either 18 (R0, R1, K)
@@ -442,9 +488,14 @@ def p2g3d_grid(
     the scatter: R0 = shards x L0 rows with gx0 local to each shard ->
     (shards, L0 + 4, R1 + 4, 7 or 11, G2) raw sums, uncropped on both axes;
     it takes no node arguments, which the grid update needs: dt, grav,
-    floor, lo, hi and wall.  `raw_out`, a CUDA tensor (R0 + 4, R1 + 4, 7
-    or 11, G2) f32, is the non-raw kernel's scratch for the raw sums; pass
-    one to read them after the call."""
+    floor, lo, hi and wall.  `colliders` (3D `models/colliders.Collider`s,
+    at most 8) project v_new after the walls, the moving ones at simulation
+    time `tcol` (None: every collider where its center says); the raw mode
+    takes none (the sharded grid update applies them).  `raw_out`, a CUDA
+    tensor (R0 + 4, R1 + 4, 7 or 11, G2) f32, is the non-raw kernel's
+    scratch for the raw sums; pass one to read them after the call."""
+    if raw and colliders:
+        raise ValueError("p2g3d_grid's raw mode takes no colliders: the grid update applies them")
     if raw:     # the scatter alone: the node pass never reads these
         dt, grav, floor, lo, hi, wall = 0.0, (0.0, 0.0, 0.0), 0.0, 0, 0, "slip"
     missing = [n for n, v in zip(("dt", "grav", "floor", "lo", "hi", "wall"),
@@ -468,8 +519,11 @@ def p2g3d_grid(
     if not raw and shards != 1:
         raise ValueError("shards split the raw mode only")
     l0 = _shard_rows(r0, shards)
+    colliders = tuple(colliders)
+    col_f, col_i, ncol = collider_arrays(colliders)
     sums = dict(apic=apic, stress=stress, kb=kb, mu=mu, gamma=gamma, fa=fa, tent=tent, ext=ext)
-    kw = dict(dt=dt, grav=grav, floor=floor, lo=lo, hi=hi, wall=wall, beta=beta)
+    kw = dict(dt=dt, grav=grav, floor=floor, lo=lo, hi=hi, wall=wall, beta=beta,
+              colliders=colliders, tcol=tcol)
     if _route(counts, *fields) == "cpu":
         if raw:
             return p2g3d_raw_plain(fields, counts, g2, dx, shards=shards, **sums)
@@ -491,7 +545,9 @@ def p2g3d_grid(
             (r0 + NT - 1, r1 + NT - 1, G2P_CH_EXT if ext else G2P_CH, g2),
             dtype=torch.float32, device=dev,
         )
-    node = (*(dt * g for g in grav), floor, lo, hi, WALL_CODES[wall], dt * beta, int(raw),
+    kin = tcol is not None and col.any_moving(colliders)
+    node = (*(dt * g for g in grav), floor, lo, hi, WALL_CODES[wall], dt * beta,
+            col_f, col_i, ncol, int(kin), float(np.float32(tcol)) if kin else 0.0, int(raw),
             _stream(counts))
     if stress is None:
         ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)

@@ -210,23 +210,25 @@ def needs_rebucket(b: FluidBuckets, cfg: MPMConfig, n: int) -> torch.Tensor:
 
 
 def make_run(scene: Scene, spec: FastDomainSpec, mesh: SlabMesh):
-    """`run(b, n_substeps, stats=None, plain=False)`: the sharded stepper
-    with the collective rebucket decision of fast_domain.py:216-229 (any
-    shard near the margin migrates every shard) before each substep; the
-    decision is one host read per substep, counted in `stats`."""
+    """`run(b, n_substeps, stats=None, plain=False, t0=None)`: the sharded
+    stepper with the collective rebucket decision of fast_domain.py:216-229
+    (any shard near the margin migrates every shard) before each substep;
+    the decision is one host read per substep, counted in `stats`.  Every
+    shard's substep j sees the same time t0 + j dt for kinematic colliders
+    (fast_domain.py:235-247, `fast2d.substep_times`)."""
     cfg = scene.cfg
     fast2d.check_supported(scene)
     ctx = FastDomainCtx(mesh, spec.rows_per_shard)
 
     def run(b: FluidBuckets, n_substeps: int, stats: RunStats = None,
-            plain: bool = False) -> FluidBuckets:
+            plain: bool = False, t0=None) -> FluidBuckets:
         stats = RunStats() if stats is None else stats
-        for _ in range(n_substeps):
+        for t in fast2d.substep_times(scene, t0, n_substeps):
             stats.host_reads += 1
             if bool(mesh.any(needs_rebucket(b, cfg, mesh.n))):
                 b = rebucket_migrate(b, scene, spec, mesh)
                 stats.rebuckets += 1
-            b = fast2d.substep(b, scene, plain=plain, domain=ctx)
+            b = fast2d.substep(b, scene, plain=plain, domain=ctx, t=t)
             stats.substeps += 1
         return b
 

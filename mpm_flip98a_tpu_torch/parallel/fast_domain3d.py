@@ -8,9 +8,13 @@ rebucket events.  Both branches of `fast3d.substep` run on the shards'
 local windows (`domain=...`), through `p2g3d_grid`'s raw mode.
 
 The reference's two-axis mode (slabs x pencil columns, `--devices
-N0xN1`) needs `p2g3d`'s `halo1` mode and is not ported (ROADMAP queue 1,
-item 10): it raises NotImplementedError.  State keeps the JAX package's
-one-axis (n L0 R1, K) layout, and the collectives are `SlabMesh`'s.
+N0xN1`) is not ported (ROADMAP queue 1, item 7): it raises
+NotImplementedError.  The reference runs it through `p2g3d_grid`'s raw
+mode on (L0, L1) windows (fast3d.py:631-641, 776-784), whose halo buffer
+already carries the axis-1 halo, so it needs the axis-1 exchange and
+migration legs, not `p2g3d`'s `halo1` mode.  State keeps the JAX
+package's one-axis (n L0 R1, K) layout, and the collectives are
+`SlabMesh`'s.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ def as_shards(n_shards: Union[int, Tuple[int, int]]) -> int:
     n0, n1 = (n_shards, 1) if isinstance(n_shards, int) else map(int, n_shards)
     if n1 != 1:
         raise NotImplementedError(
-            f"two-axis 3D sharding ({n0}x{n1}: slabs x pencil columns, p2g3d's halo1 "
-            "mode) is not ported yet (ROADMAP queue 1, item 10)"
+            f"two-axis 3D sharding ({n0}x{n1}: slabs x pencil columns, the axis-1 halo "
+            "and migration legs) is not ported yet (ROADMAP queue 1, item 7)"
         )
     return n0
 
@@ -144,24 +148,25 @@ def rebucket_migrate(b: FluidBuckets3D, scene: Scene, spec: FastDomain3DSpec,
 
 
 def make_run(scene: Scene, spec: FastDomain3DSpec, mesh: SlabMesh):
-    """`run(b, n_substeps, stats=None, plain=False)`: the sharded 3D
-    stepper with the collective rebucket decision of fast_domain3d.py:
-    317-333 before each substep (one host read per substep)."""
+    """`run(b, n_substeps, stats=None, plain=False, t0=None)`: the sharded
+    3D stepper with the collective rebucket decision of fast_domain3d.py:
+    317-333 before each substep (one host read per substep); substep j of
+    every shard sees t0 + j dt (fast_domain3d.py:332-345)."""
     cfg = scene.cfg
     fast3d.check_supported(scene, sharded=True)
     gspec = spec.global_spec
     ctx = FastDomain3DCtx(mesh, spec.rows_per_shard0, rows1=spec.local_spec.rows1)
 
     def run(b: FluidBuckets3D, n_substeps: int, stats: RunStats = None,
-            plain: bool = False) -> FluidBuckets3D:
+            plain: bool = False, t0=None) -> FluidBuckets3D:
         stats = RunStats() if stats is None else stats
-        for _ in range(n_substeps):
+        for t in fast3d.substep_times(scene, t0, n_substeps):
             stats.host_reads += 1
             flags = fast3d._margin_pencils(b, cfg, gspec).view(mesh.n, -1).any(dim=1)
             if bool(mesh.any(flags)):
                 b = rebucket_migrate(b, scene, spec, mesh)
                 stats.rebuckets += 1
-            b = fast3d.substep(b, scene, gspec, plain=plain, domain=ctx)
+            b = fast3d.substep(b, scene, gspec, plain=plain, domain=ctx, t=t)
             stats.substeps += 1
         return b
 

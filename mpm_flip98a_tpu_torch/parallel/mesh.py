@@ -16,7 +16,7 @@ operations along it:
 The sharded solvers (`fast_domain`, `fast_domain3d`) reach the shards only
 through these methods, so a mesh of one rank per card over
 `torch.distributed` can take its place without touching them (ROADMAP
-queue 1, item 10).
+queue 1, item 7).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Scene builders make it on the host in the scene's dtype (float64 by
 default); the fast path casts to float32 and moves it to its device in
 `models/fast2d.from_particles`.  `Grid` and `MLS88Particles` belong to
 the general path and the validation model, not ported yet (ROADMAP
-queue 1, item 7).
+queue 1, item 3).
 """
 
 from __future__ import annotations

@@ -168,7 +168,7 @@ def test_substeps_on_the_card_track_the_cpu(dev):
     p, scene = scenes.dam_break_2d(cfg, dtype=np.float32)
     spec = fast2d.FastSpec.for_particles(cfg, p, headroom=2.0)
     b_gpu = fast2d.from_particles(p, cfg, spec, dev)
-    b_cpu = fast2d.from_particles(p, cfg, spec)
+    b_cpu = fast2d.from_particles(p, cfg, spec, device="cpu")
     tk.reset_launches()
     stats = fast2d.RunStats()
     out = fast2d.run(b_gpu, scene, spec, 100, stats)
@@ -196,7 +196,7 @@ def test_stabilized_substeps_on_the_card_track_the_cpu(dev):
     tk.reset_launches()
     out = fast2d.run(fast2d.from_particles(p, cfg, spec, dev), scene, spec, 20)
     assert tk.LAUNCHES == {"p2g_fused": 0, "p2g": 20, "p2g_grid": 0, "g2p": 20}
-    ref = fast2d.run(fast2d.from_particles(p, cfg, spec), scene, spec, 20)
+    ref = fast2d.run(fast2d.from_particles(p, cfg, spec, device="cpu"), scene, spec, 20)
     for name in ("x0", "x1"):
         np.testing.assert_allclose(
             getattr(out, name).cpu().numpy(), getattr(ref, name).numpy(), atol=1e-6
@@ -296,7 +296,7 @@ def test_3d_substeps_on_the_card_track_the_cpu(dev):
     out = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, dev), scene, spec, 20, stats)
     assert tk3.LAUNCHES == {"p2g3d": 0, "p2g3d_grid": 20, "g2p3d": 20}
     assert stats.substeps == 20
-    ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec), scene, spec, 20)
+    ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, device="cpu"), scene, spec, 20)
     for a in range(3):
         np.testing.assert_allclose(
             getattr(out, f"x{a}").cpu().numpy(), getattr(ref, f"x{a}").numpy(), atol=1e-6
@@ -426,7 +426,7 @@ def test_stabilized_3d_substeps_on_the_card_track_the_cpu(dev, floor):
     want = {"p2g3d": 0, "p2g3d_grid": 10, "g2p3d": 10} if floor == "absolute" else \
         {"p2g3d": 10, "p2g3d_grid": 0, "g2p3d": 10}
     assert tk3.LAUNCHES == want
-    ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec), scene, spec, 10)
+    ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, device="cpu"), scene, spec, 10)
     for a in range(3):
         np.testing.assert_allclose(
             getattr(out, f"x{a}").cpu().numpy(), getattr(ref, f"x{a}").numpy(), atol=1e-6
@@ -448,7 +448,7 @@ def test_elastic_drop_3d_substeps_on_the_card_track_the_cpu(dev, block):
     tk3.reset_launches()
     out = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, dev), scene, spec, 10)
     assert tk3.LAUNCHES == {"p2g3d": 0, "p2g3d_grid": 10, "g2p3d": 10}
-    ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec), scene, spec, 10)
+    ref = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, device="cpu"), scene, spec, 10)
     for name in ("x0", "x1", "x2"):
         np.testing.assert_allclose(
             getattr(out, name).cpu().numpy(), getattr(ref, name).numpy(), atol=1e-6
@@ -585,3 +585,101 @@ def test_sharded_substeps_on_the_card_track_the_cpu(dev):
             err = float((have - want).abs().max())
             bound = 1e-6 if tol is None else tol * float(want.abs().max())
             assert err <= bound, (dom.__name__, group, err, bound)
+
+
+def _colliders3d(g, dx):
+    """A slip sphere, a sticky box with a surface velocity and a moving
+    center, and a halfspace spinner about its normal, over the grid of
+    `_inputs3d` (node x = (idx - 2) dx)."""
+    from mpm_flip98a_tpu_torch.models.colliders import Collider
+
+    l = (g - 5) * dx
+    n = np.array([0.15, -0.1, 1.0])
+    return (
+        Collider(kind="sphere", center=(0.45 * l, 0.5 * l, 0.35 * l), radius=0.2 * l),
+        Collider(kind="box", center=(0.7 * l, 0.3 * l, 0.6 * l),
+                 half_extents=(0.12 * l, 0.2 * l, 0.1 * l), sticky=True,
+                 velocity=(0.3, 0.0, -0.2), center_velocity=(0.5, 0.0, 0.0)),
+        Collider(kind="halfspace", center=(0.0, 0.0, 0.15 * l), normal=tuple(n),
+                 angular=tuple(5.0 * n / np.linalg.norm(n))),
+    )
+
+
+def _inside_flips(call, colliders, r):
+    """Nodes whose inside flag differs between the kernel and the plain
+    version: each collider made sticky with a sentinel surface velocity
+    (1000 (i + 1) m/s, no spin) pins the nodes inside it to exactly that
+    velocity in both.  `call(colliders, kernel)` returns the finished grid.
+    Returns (flips, nodes inside) over the interior rows."""
+    probes = tuple(dataclasses.replace(c, sticky=True, angular=(), velocity=(1e3 * (i + 1),) * 3)
+                   for i, c in enumerate(colliders))
+    marks = torch.tensor([float(np.float32(1e3 * (i + 1)) + np.float32((c.center_velocity or
+                                                                        (0.0,))[0]))
+                          for i, c in enumerate(probes)])
+    flags = [torch.isin(call(probes, kernel)[1 : r + 1, 1 : r + 1, 0].cpu(), marks)
+             for kernel in (True, False)]
+    return int((flags[0] != flags[1]).sum()), int(flags[1].sum())
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 16), (64, 128, 64)], ids=["small", "g64"])
+@pytest.mark.parametrize("mode", ["stress", "prepped11", "tent"])
+@pytest.mark.parametrize("tcol", [None, 0.05], ids=["static", "moving"])
+def test_p2g3d_grid_collider_kernel_matches_plain(dev, shape, mode, tcol):
+    """The node pass's collider projection against the plain version: the
+    finished grid weighted by the nodal mass (as the collider-free modes)
+    to REL of that weighted channel's max, the nodes that no mass reached
+    to REL of their scale unweighted, and no node whose inside flag
+    differs."""
+    r, k, g = shape
+    kw, dx, _ = _p2g3d_args(g, "slip")
+    if mode == "stress":
+        fields, _, counts = _inputs3d(r, k, g, seed=r + 5, device=dev)
+    else:
+        fields, _, counts = _prepped3d(r, k, g, False, True, seed=r + 6, device=dev)
+        kw = dict({n: kw[n] for n in ("dt", "grav", "floor", "lo", "hi", "wall", "beta")},
+                  apic=False, ext=True, tent=mode == "tent")
+    cols = _colliders3d(g, dx)
+
+    def call(colliders, kernel):
+        fn = tk3.p2g3d_grid if kernel else tk3.p2g3d_grid_plain
+        return fn(fields, counts, r, g, dx, **kw, colliders=colliders, tcol=tcol)
+
+    n0 = tk3.LAUNCHES["p2g3d_grid"]
+    got = call(cols, True)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["p2g3d_grid"] == n0 + 1
+    want = call(cols, False)
+    free = call((), False)
+    assert float((want[:, :, :3] - free[:, :, :3]).abs().max()) > 0.1   # the colliders act
+    raw_plain = tk3.p2g3d_raw_plain(fields, counts, g, dx, **{
+        n: kw[n] for n in ("apic", "stress", "kb", "mu", "gamma", "fa", "ext", "tent") if n in kw})
+    # Scaled by the mass-weighted finished channel's max: the colliders give
+    # nodes velocities that the raw sums never had.
+    m = raw_plain[:, :, 6:7]
+    err = ((got - want)[:, :, :6].abs() * m).double().amax(dim=(0, 1, 3))
+    top = (want[:, :, :6].abs() * m).double().amax(dim=(0, 1, 3))
+    assert bool((err <= REL * top).all()), (err / top).tolist()
+    empty = (m == 0).expand_as(got[:, :, :3])
+    err0 = float((got - want)[:, :, :3][empty].abs().max())
+    assert err0 <= REL * float(want[:, :, :3][empty].abs().max()), err0
+    assert not got[0].any() and not got[r + 1 :].any()
+    flips, inside = _inside_flips(call, cols, r)
+    assert flips == 0 and inside > 0, (flips, inside)
+
+
+def test_cli_runs_dam3d_obstacle_on_the_card(dev, tmp_path):
+    """The `dam3d_obstacle` scenario through the CLI on the card: the
+    collider mode of p2g3d_grid and g2p3d once per substep."""
+    from mpm_flip98a_tpu_torch import driver
+
+    tk.reset_launches()
+    tk3.reset_launches()
+    sim = driver.main(["--scenario", "dam3d_obstacle", "--frames", "2", "--substeps", "10",
+                       "--no-gif", "--sync-io", "--out", str(tmp_path)])
+    assert sim.device.type == "cuda"
+    assert tk3.LAUNCHES == {"p2g3d": 0, "p2g3d_grid": 20, "g2p3d": 20}
+    x = sim.positions()
+    assert np.isfinite(x).all() and int(sim.state.overflow) == 0
+    c = sim.scene.colliders[0]
+    phi = np.sqrt(((x - np.asarray(c.center)) ** 2).sum(-1)) - c.radius
+    assert phi.min() > -1.5 * sim.cfg.dx

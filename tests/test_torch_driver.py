@@ -87,10 +87,10 @@ def test_cli_runs_elastic_drop_on_cpu(tmp_path):
 def test_unported_entry_points_raise(tmp_path):
     out = ["--out", str(tmp_path), "--device", "cpu", "--frames", "1", "--substeps", "1"]
     for extra, item in (
-        (["--scenario", "dam3d_obstacle"], "item 8"),
-        (["--path", "general"], "item 7"),
-        (["--scenario", "dam3d", "--devices", "2x2"], "item 10"),
-        (["--checkpoint", str(tmp_path / "ck.npz")], "item 6"),
+        (["--scenario", "snow2d"], "item 4"),
+        (["--path", "general"], "item 3"),
+        (["--scenario", "dam3d", "--devices", "2x2"], "item 7"),
+        (["--checkpoint", str(tmp_path / "ck.npz")], "item 2"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             driver.main(out + extra)
@@ -121,7 +121,7 @@ def test_devices_parsing(tmp_path):
     assert driver.parse_devices("8") == 8
     assert driver.parse_devices("2x4") == (2, 4)
     p, scene = driver.SCENARIOS["dam3d"]()
-    with pytest.raises(NotImplementedError, match="two-axis.*ROADMAP queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="two-axis.*ROADMAP queue 1, item 7"):
         driver.Simulation(p, scene, devices=(2, 2), device="cpu", out_dir=str(tmp_path))
     p2, scene2 = driver.SCENARIOS["dam2d_flip98"]()
     with pytest.raises(ValueError, match="3D-only"):

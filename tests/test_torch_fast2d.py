@@ -22,6 +22,7 @@ from mpm_flip98a_tpu_torch import convert
 from mpm_flip98a_tpu_torch.config import MPMConfig as MPMConfig_t
 from mpm_flip98a_tpu_torch.config import TransferKind as TransferKind_t
 from mpm_flip98a_tpu_torch.models import fast2d
+from mpm_flip98a_tpu_torch.models.colliders import Collider
 from mpm_flip98a_tpu_torch.models import materials as mat
 from mpm_flip98a_tpu_torch.models import scenes
 
@@ -125,22 +126,26 @@ def test_run_across_rebuckets_matches_jax_statistically():
 
 def test_unported_configs_raise():
     """What the port still lacks raises, naming its ROADMAP item: the
-    incompressible projection, CSF surface tension, snow, sand, corotated
-    plasticity and colliders (queue 1, item 8)."""
+    incompressible projection and CSF surface tension, alone or with
+    colliders (queue 1, item 6); snow, sand and corotated plasticity
+    (item 4)."""
     (scene, spec, b), (scene_t, spec_t, b_t) = _setup()
+    sphere = Collider(kind="sphere", center=(0.2, 0.1), radius=0.03)
     bad = [
-        dataclasses.replace(scene_t, cfg=dataclasses.replace(scene_t.cfg, **change))
+        (dataclasses.replace(scene_t, cfg=dataclasses.replace(scene_t.cfg, **change),
+                             colliders=cols), 6)
         for change in (dict(incompressible=True), dict(surface_tension=0.07))
+        for cols in ((), (sphere,))
     ]
     bad += [
-        dataclasses.replace(scene_t, materials_present=(mat.WEAKLY_COMPRESSIBLE_FLUID, m))
+        (dataclasses.replace(scene_t, materials_present=(mat.WEAKLY_COMPRESSIBLE_FLUID, m)), 4)
         for m in (mat.SNOW, mat.SAND)
     ]
-    bad.append(dataclasses.replace(
+    bad.append((dataclasses.replace(
         scene_t, materials_present=(mat.FIXED_COROTATED,),
         params=dataclasses.replace(scene_t.params, plastic=True),
-    ))
-    bad.append(dataclasses.replace(scene_t, colliders=("a collider",)))
-    for scene_bad in bad:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+    ), 4))
+    for scene_bad, item in bad:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
             fast2d.substep(b_t, scene_bad)
+    fast2d.check_supported(dataclasses.replace(scene_t, colliders=(sphere,)))

@@ -21,6 +21,7 @@ from mpm_flip98a_tpu.models.stabilized import run as run_ref_jax
 from mpm_flip98a_tpu_torch import convert
 from mpm_flip98a_tpu_torch.config import KernelKind
 from mpm_flip98a_tpu_torch.models import fast3d, scenes
+from mpm_flip98a_tpu_torch.models.colliders import Collider
 from mpm_flip98a_tpu_torch.models.fast2d import RunStats
 
 SMALL = dict(num_grids=16, particles_per_axis=(6, 6, 10), dt=2e-5, dtype=np.float32)
@@ -85,7 +86,7 @@ def test_from_particles_and_rebucket_bit_exact(capacity):
     p_t, _ = scenes.dam_break_3d(**SMALL)
     spec_t2 = fast3d.FastSpec3D.for_particles(scene_t.cfg, p_t, headroom=2.0)
     assert spec_t2 == spec_t
-    b_t = fast3d.from_particles(p_t, scene_t.cfg, spec_t)
+    b_t = fast3d.from_particles(p_t, scene_t.cfg, spec_t, device="cpu")
     _assert_bits_equal(_t(b_t), _fields(b))
     shift = np.float32(0.6 * scene.cfg.dx)
     moved = dataclasses.replace(b, x0=b.x0 + shift, x1=b.x1 - shift)
@@ -132,7 +133,8 @@ def test_run_across_rebuckets_tracks_jax():
     p_t = dataclasses.replace(p_t, v=torch.from_numpy(v))
     spec_t = fast3d.FastSpec3D.for_particles(scene_t.cfg, p_t, headroom=2.0)
     stats = RunStats()
-    out = fast3d.run(fast3d.from_particles(p_t, scene_t.cfg, spec_t), scene_t, spec_t, 80, stats)
+    out = fast3d.run(fast3d.from_particles(p_t, scene_t.cfg, spec_t, device="cpu"), scene_t,
+                     spec_t, 80, stats)
     ref = np.asarray(run_ref_jax(p, scene, 80).x)
     assert stats.rebuckets >= 1 and stats.substeps == stats.host_reads == 80
     h = fast3d.to_host(out)
@@ -146,20 +148,24 @@ def test_run_across_rebuckets_tracks_jax():
 
 
 def test_unported_configs_raise():
-    """What `check_supported` still refuses: CSF, the projection,
-    colliders, snow, sand, corotated plasticity, the fused branch without
-    an absolute mass floor (the reference sends it to `p2g3d_grid`'s raw
-    mode, fast3d.py:631-645) and a 2D config."""
+    """What `check_supported` still refuses: CSF and the projection (with
+    or without colliders), snow, sand, corotated plasticity and the fused
+    branch without an absolute mass floor (the reference sends it to
+    `p2g3d_grid`'s raw mode, fast3d.py:631-645), colliders or not; a 2D
+    config is a ValueError."""
     (_, _, _, _), (scene_t, spec_t, b_t) = _setup()
     cfg = scene_t.cfg
     plastic = dataclasses.replace(scene_t.params, plastic=True)
+    sphere = Collider(kind="sphere", center=(0.2, 0.2, 0.1), radius=0.05)
+    with pytest.raises(ValueError, match="3D"):
+        fast3d.check_supported(dataclasses.replace(scene_t, cfg=dataclasses.replace(cfg, dim=2)))
     for change in (
         dict(cfg=dataclasses.replace(cfg, surface_tension=0.07)),
         dict(cfg=dataclasses.replace(cfg, incompressible=True)),
         dict(cfg=dataclasses.replace(cfg, incompressible=True, use_fbar=True)),
-        dict(cfg=dataclasses.replace(cfg, dim=2)),
-        dict(colliders=("sphere",)),
-        dict(colliders=("sphere",), mass_floor=0.0),
+        dict(cfg=dataclasses.replace(cfg, incompressible=True), colliders=(sphere,)),
+        dict(cfg=dataclasses.replace(cfg, surface_tension=0.07), colliders=(sphere,)),
+        dict(colliders=(sphere,), mass_floor=0.0),
         dict(mass_floor=0.0),
         dict(materials_present=(3,)),            # snow
         dict(materials_present=(0, 4)),          # fluid + sand
@@ -178,5 +184,7 @@ def test_unported_configs_raise():
         dict(materials_present=(0, 2)),
         dict(mass_floor=0.0, cfg=dataclasses.replace(cfg, use_fbar=True)),
         dict(mass_floor=0.0, materials_present=(0, 1)),
+        dict(colliders=(sphere,)),
+        dict(colliders=(sphere,), mass_floor=0.0, cfg=dataclasses.replace(cfg, use_fbar=True)),
     ):
         fast3d.check_supported(dataclasses.replace(scene_t, **change))

@@ -238,7 +238,7 @@ def test_one_substep_matches_the_single_device_port(switches):
     float32 the displacement is a few ulps of x)."""
     _, (p_t, scene_t, mesh_t, spec_t, b_t) = _setup(switches)
     spec1 = fast2d.FastSpec.for_particles(scene_t.cfg, p_t, headroom=2.0)
-    b1 = fast2d.from_particles(p_t, scene_t.cfg, spec1)
+    b1 = fast2d.from_particles(p_t, scene_t.cfg, spec1, device="cpu")
     ref = fast2d.run(b1, scene_t, spec1, 1)
     run = fd.make_run(scene_t, spec_t, mesh_t)
     got = run(b_t, 1)

@@ -255,7 +255,7 @@ def test_sharded_run_tracks_the_single_device_port(n, switches):
     assert fast3d.uses_fused(scene_t) == (not switches)
     spec1 = fast3d.FastSpec3D.for_particles(scene_t.cfg, p_t, headroom=2.0)
     assert spec1 == spec_t.global_spec
-    b1 = fast3d.from_particles(p_t, scene_t.cfg, spec1)
+    b1 = fast3d.from_particles(p_t, scene_t.cfg, spec1, device="cpu")
     run = fd3.make_run(scene_t, spec_t, mesh_t)
     for steps, tol in ((1, 1e-7), (20, 1e-5)):
         stats = fast2d.RunStats()
@@ -277,7 +277,7 @@ def test_sharded_run_tracks_the_single_device_port(n, switches):
 
 def test_two_axis_and_relative_floor_routes():
     p_t, scene_t, mesh_t, spec_t, b_t = _setup(2)
-    with pytest.raises(NotImplementedError, match="two-axis.*ROADMAP queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="two-axis.*ROADMAP queue 1, item 7"):
         fd3.FastDomain3DSpec.for_particles(scene_t.cfg, (2, 2), p_t)
     # The fused branch with the relative floor: no single-device route (the
     # reference's raises), but slab shards run it, the floor per shard.

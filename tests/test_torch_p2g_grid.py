@@ -235,7 +235,7 @@ def test_g2p_prepadded_reads_each_shards_window():
 def test_p2g_grid_and_g2p_wrappers_check_their_inputs():
     data, counts, kw = _inputs("pic_tait")
     d, c = torch.from_numpy(data), torch.from_numpy(counts)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 3"):
         tk.p2g_grid(d, c, G, DX, **kw)                  # non-raw mode
     with pytest.raises(ValueError):                     # the fused mode has no tent
         tk.p2g_grid(d, c, G, DX, raw=True, **{**kw, "tent": True})

@@ -197,7 +197,8 @@ def test_elastic_drop_tracks_the_jax_general_path():
     p_t, scene_t = scenes.elastic_drop_2d(cfg_t, dtype=np.float32)
     spec = fast2d.FastSpec.for_particles(cfg_t, p_t, headroom=2.0)
     stats = fast2d.RunStats()
-    out_t = fast2d.run(fast2d.from_particles(p_t, cfg_t, spec), scene_t, spec, 50, stats)
+    out_t = fast2d.run(fast2d.from_particles(p_t, cfg_t, spec, device="cpu"), scene_t, spec, 50,
+                       stats)
     ref = run_general_jax(p, scene, 50)
     h = fast2d.to_host(out_t)
     x_t, v_t = _dense_xy(h["x0"], h["x1"], h["v0"], h["v1"])

@@ -225,7 +225,7 @@ def test_fused_predicate_and_relative_floor_fallback():
         scene, cfg=dataclasses.replace(scene.cfg, kernel=KernelKind_t.TENT)))
     assert not fast3d.uses_fused(dataclasses.replace(scene, materials_present=(0, 1)))
     spec = fast3d.FastSpec3D.for_particles(scene.cfg, p, headroom=2.0)
-    b = fast3d.from_particles(p, scene.cfg, spec)
+    b = fast3d.from_particles(p, scene.cfg, spec, device="cpu")
     assert "stress" in fast3d.p2g_args(scene)
     rel = dataclasses.replace(scene, mass_floor=0.0)
     assert fast3d.uses_fused(rel)
