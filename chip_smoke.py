@@ -46,10 +46,14 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
 11. main:slab8M the 3D bench and BASELINE.json configs[3] slab (8.4M
                particles, 256^3: bench.py:198-205) through Simulation,
                2 frames x 25 substeps, then one forced rebucket: the host
-               checks and the peak device memory;
+               checks and the peak device memory (beside the reading with
+               the earlier atomic-scatter p2g3d_grid);
 12. kernels:3d p2g3d_grid and g2p3d against their plain versions on that
                state and on a ragged synthetic case: P2G's raw sums per
                channel, its mass sum, the finished grid, G2P's outputs;
+               p2g3d_grid's tile plan (at every timed shape of the later
+               phases too) and whether two reruns of its stress mode at
+               the 8M state are bitwise equal;
 13. timing:3d  ms per substep and transfer ops/s (n * 27 * 2 * substeps
                / seconds), median of 3 x 20 substeps, for the kernel path
                at 8M / 256^3 and at 1M / 128^3 and the plain path at
@@ -145,7 +149,8 @@ under "prepped_*" and "tent_*", g2p with its prepadded mode's under
 "prepadded_*", p2g3d_grid with its raw modes' under "raw_*" and
 "raw_prepped_*", g2p3d on the 3D shard windows under "sharded_*" and
 "sharded_gather_*", p2g3d_grid's collider mode under "colliders_*" with
-"colliders_flips"); the last line is
+"colliders_flips", its tile plans under "plans" and "rerun_bitwise_equal");
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -165,8 +170,8 @@ import numpy as np
 import torch
 
 # Kernel-against-plain bound, per output channel, scaled by the channel's
-# max: both sides sum each node's fp32 terms in another order (shared or
-# global atomics in the P2G kernels, atomics in the plain index_add_, FMA
+# max: both sides sum each node's fp32 terms in another order (shared-memory
+# atomics in the P2G kernels, atomics in the plain index_add_, FMA
 # contraction in the kernels).
 KERNEL_REL_TOL = 1e-5
 POU_REL_TOL = 1e-6           # P2G mass channel vs total particle mass
@@ -254,6 +259,31 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# p2g3d_grid's tile plan at each timed shape and whether reruns of its
+# stress mode at the slab 8M state are bitwise equal (kernels line).
+PLANS = {}
+RERUNS = {}
+# Peak device memory read on the same lines with the earlier p2g3d_grid,
+# an atomic scatter into a raw buffer and a second launch for the nodes
+# (PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+PEAK_BEFORE_GIB = {"slab8M": 18.563, "obstacle8M static": 11.637,
+                   "obstacle8M rising": 18.512}
+
+
+def plan_line(tag, key, nch, g2, r0, r1, card, shards=1):
+    """Prints and keeps the tile plan p2g3d_grid's wrapper takes at these
+    shapes (ops/cuda/transfer3d.plan_p2g3d_grid)."""
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    plan = tk3.plan_p2g3d_grid(nch, g2, r0, r1, shards)
+    PLANS[key] = {"tile": [plan.t0, plan.t1], "band": plan.band, "smem": plan.smem,
+                  "blocks": plan.blocks}
+    say(f"[{tag}] p2g3d_grid plan at buckets {r0}x{r1}, G2 {g2}, {nch} raw channels, {shards} "
+        f"shard(s): tile {plan.t0}x{plan.t1} target pencils, z band {plan.band} of {g2} "
+        f"columns, {plan.smem} shared bytes a block, {plan.blocks} blocks in one launch  "
+        f"[{card}]")
 
 
 def bound(nbytes: float, flops: float):
@@ -852,6 +882,7 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
             f"{r0}x{r1}x{k3}, {live3} live): kernel {kernel_ms[name]:.4f} ms, with tent taps "
             f"{kernel_ms[tent_key]:.4f} ms (CUDA events, 10 calls), plain {plain_ms[name]:.4f} "
             f"ms (2 calls), bound {bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
+    plan_line("kernels:3dp", "prepped", nch, g3, r0, r1, card)
     expanded = calls["p2g3d"]()
     fold_ms = cuda_ms(lambda: tk3.fold_rows0(expanded), reps=5, warm=1)
     gs = tk3.fold_rows0(expanded)
@@ -948,6 +979,7 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
             f"{r0}x{r1}x{k3}, {live_d} live): kernel {kernel_ms[name]:.4f} ms (CUDA events, 10 "
             f"calls), plain {plain_ms[name]:.4f} ms (2 calls), bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})  [{card}]")
+    plan_line("kernels:3dp", "drop3d", tk3.P2G_CH, gd, r0, r1, card)
     del fields_d, counts_d, mask_d, grid6, g2p_d, pairs
     torch.cuda.empty_cache()
 
@@ -1457,6 +1489,8 @@ def sharded3d_phases(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, l
             f"10 calls, one launch each), plain {plain_ms[name]:.4f} ms (2 calls), bound "
             f"{bounds[name][0]:.4f} ms ({bounds[name][1]}); halo_sync "
             f"{timing[f'halo {tag}']:.4f} ms  [{card}]")
+        plan_line(f"kernels:sharded3d {tag}", key, got_raw.shape[3], g2, planes[0].shape[0], r1,
+                  card, shards)
         del got_raw, halo, m_plane
         compare_g2p3d_sharded(tag, planes, mask, counts, state, scene, gspec, ctx, err,
                               kernel_ms, plain_ms, bounds, card)
@@ -1670,7 +1704,9 @@ def collider_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_ms, bou
             f"{tuple(sim.state.shape)}, colliders {cols}, t0 {t0}: grid nodes inside the "
             f"collider {inside} (at the first and the last substep); Simulation {n_frames} "
             f"frames x {n_sub} substeps in {time.perf_counter() - t_0:.2f} s, launches {got}; "
-            f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB  [{card}]")
+            f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB "
+            f"({PEAK_BEFORE_GIB[f'obstacle8M {tag}']} GiB with the atomic-scatter p2g3d_grid)  "
+            f"[{card}]")
         for name in ("p2g3d_grid", "g2p3d"):
             check(got[name] == n_frames * n_sub == sim.stats.substeps,
                   f"obstacle8M {tag}: {name} launched {got[name]} times")
@@ -1712,6 +1748,7 @@ def collider_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_ms, bou
         f"20 calls), plain {plain_ms['p2g3d_grid_colliders']:.4f} ms (3 calls), bound "
         f"{bounds['p2g3d_grid_colliders'][0]:.4f} ms ({bounds['p2g3d_grid_colliders'][1]})  "
         f"[{card}]")
+    plan_line("kernels:colliders", "colliders", tk3.P2G_CH, kw["g2"], r0, r1, card)
     del planes, counts
     torch.cuda.empty_cache()
     rplanes, _, rcounts, _, rg, rdx = ragged_inputs3d(dev, seed=5, r=32, k=128, g=32)
@@ -2134,7 +2171,8 @@ def main(argv=None) -> int:
     peak = torch.cuda.max_memory_allocated()
     say(f"[main:slab8M] one forced rebucket {1e3 * t_reb:.2f} ms; peak device memory "
         f"(state build, 50 substeps, rebucket) {peak} bytes = {peak / 2**30:.3f} GiB "
-        f"(torch.cuda.max_memory_allocated)  [{card}]")
+        f"(torch.cuda.max_memory_allocated; {PEAK_BEFORE_GIB['slab8M']} GiB with the "
+        f"atomic-scatter p2g3d_grid and its raw buffer)  [{card}]")
     del b8
 
     # ---- 12. kernels:3d --------------------------------------------------------
@@ -2176,6 +2214,14 @@ def main(argv=None) -> int:
             f"kernel {kernel_ms[name]:.4f} ms (CUDA events, 20 calls), plain "
             f"{plain_ms[name]:.4f} ms (3 calls), bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})  [{card}]")
+    plan_line("kernels:3d", "stress", tk3.P2G_CH, g3, r0, r1, card)
+    first = tk3.p2g3d_grid(planes, counts, spec8.rows1, **args8)
+    RERUNS["p2g3d_grid"] = all(
+        torch.equal(first, tk3.p2g3d_grid(planes, counts, spec8.rows1, **args8))
+        for _ in range(2))
+    say(f"[kernels:3d] p2g3d_grid stress mode at the slab 8M state: two reruns bitwise equal "
+        f"to the first: {RERUNS['p2g3d_grid']}  [{card}]")
+    del first
     del planes, state, mask, counts, grid8, g2p_in
 
     # ---- 13. timing:3d ---------------------------------------------------------
@@ -2315,6 +2361,9 @@ def main(argv=None) -> int:
         "colliders_bound_ms": bounds["p2g3d_grid_colliders"][0],
         "colliders_bound_by": bounds["p2g3d_grid_colliders"][1],
         "colliders_flips": flips,
+        # The tile plan at each timed shape; stress-mode reruns at slab 8M.
+        "plans": PLANS,
+        "rerun_bitwise_equal": RERUNS["p2g3d_grid"],
     })
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -157,9 +157,9 @@ inline Prepped prepped_from(const void* const* planes, const long long* strides)
   return in;
 }
 
-// One slot's prepped values and z taps, as both prepped P2G kernels use
-// them: only the target of their adds differs (a shared slab in p2g3d.cu,
-// the global raw buffer in p2g3d_grid.cu).
+// One slot's P2G values and z taps, as the 3D P2G kernels use them: the
+// prepped fields (load_slot) or, in p2g3d_grid.cu's stress mode, the
+// fluid stress computed from the state.  The adds go to a shared slab.
 template <int kNch>
 struct Slot {
   static constexpr int kPlain = kNch - 6;  // m (+ the 4 ext fields)
@@ -167,6 +167,20 @@ struct Slot {
   float wz[3], cdz[3];  // z taps: weight, (node - particle) dx
   int z[3];             // z taps: column, -1 outside [0, G2)
 };
+
+// The z taps of a slot at gx2 with base column base2 = floor(gx2 - 0.5).
+template <int kNch, bool kTent>
+__device__ __forceinline__ void z_taps(float gx2, float base2, int G2, float dx,
+                                       Slot<kNch>& s) {
+#pragma unroll
+  for (int j2 = 0; j2 < 3; ++j2) {
+    const float cf = base2 + static_cast<float>(j2);
+    const float d = cf - gx2;
+    s.z[j2] = (cf >= 0.0f && cf < static_cast<float>(G2)) ? static_cast<int>(cf) : -1;
+    s.wz[j2] = col<kTent>(d);
+    s.cdz[j2] = d * dx;
+  }
+}
 
 template <int kNch, bool kTent>
 __device__ __forceinline__ void load_slot(const Prepped& in, long long pencil, int k,
@@ -181,37 +195,32 @@ __device__ __forceinline__ void load_slot(const Prepped& in, long long pencil, i
   }
 #pragma unroll
   for (int e = 0; e < Slot<kNch>::kPlain; ++e) s.plain[e] = in.at(kM + e, pencil, k);
-#pragma unroll
-  for (int j2 = 0; j2 < 3; ++j2) {
-    const float cf = base2 + static_cast<float>(j2);
-    const float d = cf - gx2;
-    s.z[j2] = (cf >= 0.0f && cf < static_cast<float>(G2)) ? static_cast<int>(cf) : -1;
-    s.wz[j2] = col<kTent>(d);
-    s.cdz[j2] = d * dx;
-  }
+  z_taps<kNch, kTent>(gx2, base2, G2, dx, s);
 }
 
 // Momentum of the tap at (rdp0, rdp1) on the bucketed axes, before its z
 // term: m v_a + A_a0 rdp0 + A_a1 rdp1 with A = P (pure) or Q (forced).
-template <int kNch>
+// kApic = false drops P (zero under PIC) at compile time.
+template <int kNch, bool kApic = true>
 __device__ __forceinline__ void affine01(const Slot<kNch>& s, float rdp0, float rdp1,
                                          float pure[3], float forced[3]) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    pure[a] = s.mv[a] + s.p[3 * a] * rdp0 + s.p[3 * a + 1] * rdp1;
+    pure[a] = kApic ? s.mv[a] + s.p[3 * a] * rdp0 + s.p[3 * a + 1] * rdp1 : s.mv[a];
     forced[a] = s.mv[a] + s.q[3 * a] * rdp0 + s.q[3 * a + 1] * rdp1;
   }
 }
 
 // Adds the kNch channel values of z tap j2, weight w = w0 w1 wz, at
-// at[ch * cs]: [m v pure (3), m v forced (3), m (, V0 J, V0, V0 p, V0 div)].
-template <int kNch>
+// at[ch * cs] with shared-memory atomics: [m v pure (3), m v forced (3), m
+// (, V0 J, V0, V0 p, V0 div)].  kApic as in affine01.
+template <int kNch, bool kApic = true>
 __device__ __forceinline__ void add_tap(const Slot<kNch>& s, const float pure[3],
                                         const float forced[3], int j2, float w,
                                         float* at, int cs) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    atomicAdd(at + a * cs, w * (pure[a] + s.p[3 * a + 2] * s.cdz[j2]));
+    atomicAdd(at + a * cs, kApic ? w * (pure[a] + s.p[3 * a + 2] * s.cdz[j2]) : w * pure[a]);
     atomicAdd(at + (3 + a) * cs, w * (forced[a] + s.q[3 * a + 2] * s.cdz[j2]));
   }
 #pragma unroll

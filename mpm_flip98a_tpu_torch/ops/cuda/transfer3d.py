@@ -7,7 +7,8 @@ slot contributes only when its base row on both bucketed axes is within
 target pencils around it.  The TPU kernels turn the z (axis-2) scatter and
 gather into one-hot matrix products and, for P2G, carry target rows
 between consecutive grid steps in a rolling VMEM scratch.  Blocks on a GPU
-run in no order, so here each slot touches its 27 nodes directly:
+run in no order, so here a P2G block owns its output and pulls the taps
+of its source pencils' slots, and G2P gathers each slot's 27 nodes:
 
 - `p2g3d` (csrc/p2g3d.cu) replaces the Pallas `p2g3d` (transfer3d.py:349,
   pallas_call :408): the scatter of prepped fields [m v, P, Q, m (, V0 J,
@@ -15,15 +16,15 @@ run in no order, so here each slot touches its 27 nodes directly:
   `fold_rows0` folds; one block per (source axis-0 row, target axis-1
   row) owns its (5, nch, G2) slab in shared memory.
 - `p2g3d_grid` (csrc/p2g3d_grid.cu) replaces the Pallas `p2g3d_grid`
-  (transfer3d.py:622, pallas_call :709): the scatter with float atomics
-  into a raw padded buffer, of the per-slot fluid stress (stress mode) or
-  of prepped fields (`stress=None`, with `ext` and `tent`), then one
-  thread per node for the grid update (mass floor, gravity, slip / sticky
-  walls or the diagonal penalty solve, the rigid SDF colliders of
-  `models/colliders` at kinematic time `tcol`, the nodal Jbar, p and div
-  under `ext`) -> the finished G2P-ready padded grid; or, `raw=True` (the
-  slab-sharded path's), the scatter alone into each shard's raw halo sums,
-  all shards in one launch.
+  (transfer3d.py:622, pallas_call :709) in one launch: a block owns a tile
+  of target pencils, pulls the taps of its source pencils' slots (the
+  per-slot fluid stress in stress mode, or prepped fields with `ext` and
+  `tent`) into a shared slab, and finishes its nodes there (mass floor,
+  gravity, slip / sticky walls or the diagonal penalty solve, the rigid
+  SDF colliders of `models/colliders` at kinematic time `tcol`, the nodal
+  Jbar, p and div under `ext`) -> the finished G2P-ready padded grid; or,
+  `raw=True` (the slab-sharded path's), each shard's raw halo sums, all
+  shards in one launch.  `plan_p2g3d_grid` sizes the tiles.
 - `g2p3d` (csrc/g2p3d.cu) replaces the Pallas `g2p3d` (transfer3d.py:930,
   pallas_call :995): the 27-node gather and C = D^-1 sum w v (x_node -
   x_p)^T, then either the particle update (update mode: FLIP blend,
@@ -76,6 +77,7 @@ items 4 and 5).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -100,6 +102,20 @@ N_PREPPED_MAX = 29
 WALL_CODES = {"slip": 0, "sticky": 1, "penalty": 2}
 MAX_COLLIDERS = 8     # csrc/p2g3d_grid.cu's kMaxColliders
 COLLIDER_KINDS = {"sphere": 0, "box": 1, "halfspace": 2}
+# p2g3d_grid's tiles.  BLOCKS_PER_SM blocks share an SM (csrc/p2g3d_grid.cu's
+# kBlocksPerSM, the register cap of its __launch_bounds__) and so its 228 KB
+# of shared memory, less 1 KB the system reserves and the kernel's static
+# arrays (1,160 bytes, SMEM_STATIC with room for rounding) per block.  The
+# planner takes the first of TILES (target pencils on each axis; at most
+# kMaxSrc = 144 source pencils, (8 + 4)^2) whose slab holds MIN_BAND z
+# columns, or all of G2 if fewer.
+BLOCKS_PER_SM = 4
+SMEM_SM = 233_472
+SMEM_STATIC = 1_280
+SMEM_BLOCK = SMEM_SM // BLOCKS_PER_SM - 1_024 - SMEM_STATIC
+TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+MAX_SOURCES = 144
+MIN_BAND = 32
 
 # Kernel launches per wrapper (the plain versions do not count).
 LAUNCHES = {"p2g3d": 0, "p2g3d_grid": 0, "g2p3d": 0}
@@ -472,6 +488,63 @@ def collider_arrays(colliders: tuple):
             (ctypes.c_int * max(n * 4, 1))(*it), n)
 
 
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """`p2g3d_grid`'s launch plan: tiles of t0 x t1 target pencils (padded
+    planes) over each of `shards` windows of (L0 + 4, R1 + 4) planes, and
+    a shared slab of `band` z columns, nch band + 1 floats per pencil."""
+
+    t0: int
+    t1: int
+    band: int
+    smem: int        # dynamic shared bytes of one block
+    shards: int
+    l0: int
+    r1: int
+    g2: int
+
+    @property
+    def nt0(self) -> int:
+        return -(-(self.l0 + NT - 1) // self.t0)
+
+    @property
+    def nt1(self) -> int:
+        return -(-(self.r1 + NT - 1) // self.t1)
+
+    @property
+    def blocks(self) -> int:
+        return self.shards * self.nt0 * self.nt1
+
+    def tile(self, block: int):
+        """(shard, window planes [q0lo, q0hi), [q1lo, q1hi)) of a block, as
+        the kernel decodes blockIdx.x: the tile column fastest."""
+        tiles = self.nt0 * self.nt1
+        shard, t = divmod(block, tiles)
+        q0, q1 = (t // self.nt1) * self.t0, (t % self.nt1) * self.t1
+        return (shard, q0, min(q0 + self.t0, self.l0 + NT - 1),
+                q1, min(q1 + self.t1, self.r1 + NT - 1))
+
+    def sources(self, block: int):
+        """The shard-local source rows [lo, hi] on each axis that a block
+        walks: plane q takes rows q - 4 .. q inside the shard."""
+        _, q0lo, q0hi, q1lo, q1hi = self.tile(block)
+        return ((max(q0lo - (NT - 1), 0), min(q0hi - 1, self.l0 - 1)),
+                (max(q1lo - (NT - 1), 0), min(q1hi - 1, self.r1 - 1)))
+
+
+def plan_p2g3d_grid(nch: int, g2: int, r0: int, r1: int, shards: int = 1) -> TilePlan:
+    """The largest of `TILES` (cut to the window) whose slab of nch band + 1
+    floats per pencil holds min(G2, MIN_BAND) z columns in SMEM_BLOCK
+    bytes, and the widest such band: all of G2 where it fits, else the
+    kernel sums the z range its sources reach band by band."""
+    l0 = _shard_rows(r0, shards)
+    for tile in TILES:
+        t0, t1 = min(tile[0], l0 + NT - 1), min(tile[1], r1 + NT - 1)
+        band = min(g2, (SMEM_BLOCK // 4 - t0 * t1) // (t0 * t1 * nch))
+        if band >= min(g2, MIN_BAND) or tile == TILES[-1]:
+            return TilePlan(t0, t1, band, 4 * t0 * t1 * (nch * band + 1), shards, l0, r1, g2)
+
+
 def p2g3d_grid(
     fields, counts, g1, g2, dx, apic=True, stress=None, kb=0.0, mu=0.0, gamma=7.0, fa=0.0,
     tent=False, ext=False, raw=False,
@@ -491,9 +564,13 @@ def p2g3d_grid(
     floor, lo, hi and wall.  `colliders` (3D `models/colliders.Collider`s,
     at most 8) project v_new after the walls, the moving ones at simulation
     time `tcol` (None: every collider where its center says); the raw mode
-    takes none (the sharded grid update applies them).  `raw_out`, a CUDA
-    tensor (R0 + 4, R1 + 4, 7 or 11, G2) f32, is the non-raw kernel's
-    scratch for the raw sums; pass one to read them after the call."""
+    takes none (the sharded grid update applies them).
+
+    One launch, planned by `plan_p2g3d_grid` (tiles of target pencils, a z
+    band that fits the shared memory); no raw buffer is allocated.
+    `raw_out`, a CUDA tensor (R0 + 4, R1 + 4, 7 or 11, G2) f32 that only a
+    checking caller passes, receives the raw sums of the non-raw mode as
+    well, uncropped."""
     if raw and colliders:
         raise ValueError("p2g3d_grid's raw mode takes no colliders: the grid update applies them")
     if raw:     # the scatter alone: the node pass never reads these
@@ -531,16 +608,15 @@ def p2g3d_grid(
     lib = _build.load().lib
     dev = counts.device
     nch = P2G_CH_EXT if ext else P2G_CH
+    plan = plan_p2g3d_grid(nch, g2, r0, r1, shards)
     if raw:
         raw_out = torch.empty((shards, l0 + NT - 1, r1 + NT - 1, nch, g2),
                               dtype=torch.float32, device=dev)
         out = raw_out
     else:
-        raw_shape = (r0 + NT - 1, r1 + NT - 1, nch, g2)
-        if raw_out is None:
-            raw_out = torch.empty(raw_shape, dtype=torch.float32, device=dev)
-        _check("raw_out", raw_out, raw_shape, torch.float32)
-        _route(counts, raw_out)
+        if raw_out is not None:
+            _check("raw_out", raw_out, (r0 + NT - 1, r1 + NT - 1, nch, g2), torch.float32)
+            _route(counts, raw_out)
         out = torch.empty(
             (r0 + NT - 1, r1 + NT - 1, G2P_CH_EXT if ext else G2P_CH, g2),
             dtype=torch.float32, device=dev,
@@ -548,17 +624,18 @@ def p2g3d_grid(
     kin = tcol is not None and col.any_moving(colliders)
     node = (*(dt * g for g in grav), floor, lo, hi, WALL_CODES[wall], dt * beta,
             col_f, col_i, ncol, int(kin), float(np.float32(tcol)) if kin else 0.0, int(raw),
-            _stream(counts))
+            plan.t0, plan.t1, plan.band, _stream(counts))
+    raw_ptr = None if raw_out is None else _ptr(raw_out)
     if stress is None:
         ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)
         rc = lib.mpm_p2g3d_grid_pdata(
-            ptrs, pstr, _ptr(counts), _ptr(raw_out), _ptr(out), r0, l0, r1, k, g2, nch,
+            ptrs, pstr, _ptr(counts), raw_ptr, _ptr(out), r0, l0, r1, k, g2, nch,
             int(apic), int(tent), dx, *node,
         )
     else:
         ptrs, pstr = _plane_args(fields, strides)
         rc = lib.mpm_p2g3d_grid(
-            ptrs, pstr, _ptr(counts), _ptr(raw_out), _ptr(out), r0, l0, r1, k, g2, dx,
+            ptrs, pstr, _ptr(counts), raw_ptr, _ptr(out), r0, l0, r1, k, g2, dx,
             int(apic), EOS_CODES[stress], kb, kb / gamma, gamma, 2.0 * mu, fa, *node,
         )
     LAUNCHES["p2g3d_grid"] += 1

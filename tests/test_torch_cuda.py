@@ -7,10 +7,9 @@ import no JAX, so on a machine without it run them as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: per output channel, 1e-5 of the channel's max.  Both sides sum
-each node's fp32 terms in another order (shared-memory atomics in the 2D
-P2G kernel, global atomics in the 3D one, atomics in the plain
-`index_add_` on the card, FMA contraction in the G2P kernels; `p2g3d`
-adds in shared memory like the 2D kernel).  The 3D
+each node's fp32 terms in another order (shared-memory atomics in the P2G
+kernels, atomics in the plain `index_add_` on the card, FMA contraction in
+the G2P kernels).  The 3D
 grid's velocities are sums divided by the nodal mass, so their error is
 weighted by that mass and scaled by the raw sum's max; G2P's C by one
 term's size, D^-1 dx |v|max, as its terms cancel.
@@ -308,10 +307,15 @@ def _prepped3d(r, k, g, apic, ext, seed, device):
     """Prepped P2G planes [gx (3), m v (3), P (9, APIC), Q (9), m (, ext
     4)], value planes masked, on the ragged slots of `_inputs3d`."""
     planes, live, counts = _inputs3d(r, k, g, seed, device)
+    return _prep_planes(planes, live, apic, ext, seed, device), live, counts
+
+
+def _prep_planes(planes, live, apic, ext, seed, device):
+    """The prepped planes of `_prepped3d` from state planes and their mask."""
     rng = np.random.default_rng(seed + 1)
     mass, vol0 = planes[16], planes[17]
     rand = lambda scale: torch.as_tensor(
-        rng.normal(0.0, scale, (r, r, k)), dtype=torch.float32, device=device)
+        rng.normal(0.0, scale, tuple(live.shape)), dtype=torch.float32, device=device)
     fields = [*planes[:3], *(mass * v for v in planes[3:6])]
     if apic:
         fields += [mass * c for c in planes[6:15]]
@@ -319,7 +323,7 @@ def _prepped3d(r, k, g, apic, ext, seed, device):
     fields.append(mass)
     if ext:
         fields += [vol0 * planes[15], vol0, vol0 * rand(2e3), vol0 * rand(5.0)]
-    return tuple(f.contiguous() for f in fields), live, counts
+    return tuple(f.contiguous() for f in fields)
 
 
 PREPPED_MODES = [(False, True, False), (True, False, False), (False, True, True)]
@@ -683,3 +687,141 @@ def test_cli_runs_dam3d_obstacle_on_the_card(dev, tmp_path):
     c = sim.scene.colliders[0]
     phi = np.sqrt(((x - np.asarray(c.center)) ** 2).sum(-1)) - c.radius
     assert phi.min() > -1.5 * sim.cfg.dx
+
+
+# ---------------------------------------------------------------------------
+# p2g3d_grid's tiles: the shapes a tile of target pencils, its source
+# window and its z bands can get wrong (ops/cuda/transfer3d.plan_p2g3d_grid
+# gives 4 x 8 tiles past G2 = 31 whose slab holds 63 z columns at 7
+# channels and 40 at 11).
+# ---------------------------------------------------------------------------
+
+
+def _edge_inputs3d(r0, r1, k, g, seed, device, rel=(-1, 0, 0, 1, 2), z=None, empty=None):
+    """State planes on an (r0, r1) bucket grid: base rows at `rel` from the
+    pencil's on both axes (2: outside the margin), gx2 uniform in `z`
+    (default past both grid edges), every fourth pencil empty, and no slot
+    in the pencils of `empty` (a pair of slices)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, k + 1, (r0, r1))
+    counts[::4, ::3] = 0
+    if empty is not None:
+        counts[empty] = 0
+    shape = (r0, r1, k)
+    gx0 = np.arange(r0)[:, None, None] + rng.choice(rel, size=shape) + 0.5 + rng.random(shape)
+    gx1 = np.arange(r1)[None, :, None] + rng.choice(rel, size=shape) + 0.5 + rng.random(shape)
+    gx2 = rng.uniform(*(z or (-1.0, g + 1.0)), shape)
+    live = np.arange(k) < counts[..., None]
+    v = rng.normal(0.0, 1.0, (3, *shape))
+    c = rng.normal(0.0, 5.0, (9, *shape))
+    j = np.where(live, rng.uniform(0.9, 1.1, shape), 1.0)
+    mass = np.where(live, rng.uniform(0.5, 1.5, shape), 0.0)
+    vol0 = np.where(live, rng.uniform(0.5e-3, 1.5e-3, shape), 0.0)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+    planes = tuple(t(a) for a in (gx0, gx1, gx2, *v, *c, j, mass, vol0))
+    return planes, t(live), torch.as_tensor(counts.reshape(-1), dtype=torch.int32, device=device)
+
+
+EDGE_SHAPES = {
+    # R0, R1 not multiples of the tile (17 x 25 padded planes), G2 not of 32.
+    "ragged_rows_g37": dict(r0=13, r1=21, k=64, g=37),
+    # The sources of whole tiles empty: no slot in pencils [0, 14) x [0, 14).
+    "empty_tiles": dict(r0=28, r1=20, k=64, g=32, empty=(slice(0, 14), slice(0, 14))),
+    # Every slot's base row at -1 or +1 of its pencil's on both axes.
+    "margin_edges": dict(r0=12, r1=12, k=64, g=24, rel=(-1, 1)),
+    # A thin layer in a deep grid: the summed z range in bands, the other
+    # columns through the node pass with zero sums.
+    "thin_z_g256": dict(r0=12, r1=12, k=64, g=256, z=(40.0, 52.0)),
+    # A G2 that splits the 11-channel slab into z bands over the full depth.
+    "bands_g128": dict(r0=10, r1=10, k=64, g=128),
+}
+
+
+def _check_grid(got, raw, raw_plain, want, ext, r0):
+    """Raw sums per channel; velocities weighted by the nodal mass, the ext
+    averages by the nodal volume, each scaled by its raw sum's max; the
+    axis-0 pad rows zero."""
+    _close(raw, raw_plain, axis=2)
+    weight = [raw_plain[:, :, 6:7]] * 6 + [raw_plain[:, :, 8:9]] * (3 * ext)
+    tops = raw_plain[:, :, [3, 4, 5, 0, 1, 2] + [7, 9, 10] * ext].abs().double().amax(dim=(0, 1, 3))
+    for ch in range(got.shape[2]):
+        err = float(((got - want)[:, :, ch : ch + 1].abs() * weight[ch]).double().max())
+        assert err <= REL * float(tops[ch]), (ch, err / float(tops[ch]))
+    assert not got[0].any() and not got[r0 + 1 :].any()
+
+
+@pytest.mark.parametrize("mode", ["stress", "prepped11", "tent7"])
+@pytest.mark.parametrize("case", list(EDGE_SHAPES))
+def test_p2g3d_grid_tiles_match_plain(dev, case, mode):
+    """The single-device modes against plain on shapes the tiling can get
+    wrong: the raw sums and the finished grid, one launch, and the plan the
+    wrapper took."""
+    size = dict(EDGE_SHAPES[case])
+    r0, r1, k, g = (size.pop(n) for n in ("r0", "r1", "k", "g"))
+    seed = 70 + list(EDGE_SHAPES).index(case)
+    planes, live, counts = _edge_inputs3d(r0, r1, k, g, seed, dev, **size)
+    kw, dx, _ = _p2g3d_args(g, "penalty" if mode == "tent7" else "slip")
+    node = {n: kw[n] for n in ("dt", "grav", "floor", "lo", "hi", "wall", "beta")}
+    if mode == "stress":
+        fields, sums, nch = planes, {n: kw[n] for n in ("apic", "stress", "kb", "mu", "gamma", "fa")}, 7
+    else:
+        ext = mode == "prepped11"
+        fields = _prep_planes(planes, live, not ext, ext, seed, dev)
+        sums, nch = dict(apic=not ext, ext=ext, tent=mode == "tent7"), 11 if ext else 7
+    plan = tk3.plan_p2g3d_grid(nch, g, r0, r1)
+    if case in ("thin_z_g256", "bands_g128"):
+        assert plan.band < g
+    raw = torch.empty((r0 + 4, r1 + 4, nch, g), device=dev)
+    n0 = tk3.LAUNCHES["p2g3d_grid"]
+    got = tk3.p2g3d_grid(fields, counts, r1, g, dx, raw_out=raw, **sums, **node)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["p2g3d_grid"] == n0 + 1
+    raw_plain = tk3.p2g3d_raw_plain(fields, counts, g, dx, **sums)
+    want = tk3.p2g3d_grid_plain(fields, counts, r1, g, dx, **sums, **node)
+    _check_grid(got, raw, raw_plain, want, nch == 11, r0)
+
+
+@pytest.mark.parametrize("stress", ["linear", None], ids=["stress", "prepped11"])
+@pytest.mark.parametrize("shards,r1,g", [(3, 13, 37), (4, 9, 64)], ids=["l5_g37", "l4_g64"])
+def test_p2g3d_grid_raw_tiles_match_plain(dev, stress, shards, r1, g):
+    """The raw mode on shard windows of L0 + 4 = 9 planes (L0 = 5, which
+    the 4-plane tile does not divide) or 8, a shard with no slot at all,
+    and, at 11 channels and G2 = 64, z bands."""
+    r0 = 5 * shards if g == 37 else 4 * shards
+    l0 = r0 // shards
+    planes, live, counts = _edge_inputs3d(r0, r1, 64, g, 80 + shards, dev,
+                                          empty=(slice(l0, 2 * l0), slice(None)))
+    if stress:
+        fields = planes
+        kw = dict(apic=False, stress="linear", kb=KB, mu=MU, gamma=GAMMA, fa=-2e-5 * 4.0)
+    else:
+        fields = _prep_planes(planes, live, False, True, 80 + shards, dev)
+        kw = dict(apic=False, ext=True)
+    fields = list(fields)
+    fields[0] = (fields[0] - (torch.arange(r0, device=dev) // l0 * l0).to(torch.float32)
+                 [:, None, None]).contiguous()
+    dx = 0.4375 / (g - 5)
+    n0 = tk3.LAUNCHES["p2g3d_grid"]
+    got = tk3.p2g3d_grid(fields, counts, r1, g, dx, raw=True, shards=shards, **kw)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["p2g3d_grid"] == n0 + 1
+    want = tk3.p2g3d_raw_plain(fields, counts, g, dx, shards=shards, **kw)
+    assert got.shape == want.shape == (shards, l0 + 4, r1 + 4, want.shape[3], g)
+    _close(got, want, axis=3)
+    assert not got[1].any()
+
+
+def test_p2g3d_grid_allocates_no_raw_buffer(dev):
+    """Without `raw_out` the call allocates its finished grid and nothing
+    of the size of the raw sums (7/6 of it)."""
+    r, k, g = 64, 128, 64
+    planes, _, counts = _inputs3d(r, k, g, seed=90, device=dev)
+    kw, dx, _ = _p2g3d_args(g, "slip")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = tk3.p2g3d_grid(planes, counts, r, g, dx, **kw)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    out_bytes = got.numel() * got.element_size()
+    assert out_bytes <= grown < out_bytes + (1 << 20), (grown, out_bytes)
