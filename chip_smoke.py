@@ -32,7 +32,10 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                9 tent channels on a ragged case at G = 2049 (column
                bands), with its mass sum; g2p with the 7-channel grid and
                with tent taps against g2p_plain; CUDA-event times and
-               bounds of p2g and the 7-channel g2p at stab1M;
+               bounds of p2g and the 7-channel g2p at stab1M; p2g's time at
+               drop1M, its achieved bytes per second against the memory
+               rate, and two reruns bitwise equal to a first (p2g sums in
+               a fixed order) at stab1M (B-spline and tent) and drop1M;
 7. main:elastic_drop  the CLI on elastic_drop (11,931 particles, 105^2;
                2 frames x 200 substeps): p2g and g2p launched once per
                substep, p2g_fused never, and the host checks of phase 4;
@@ -75,7 +78,9 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                modes against plain (raw sums and finished grid); g2p3d's
                gather modes against plain; fold_rows0(p2g3d) against the
                interior of p2g3d_grid's raw sums; CUDA-event times and
-               bounds at the 8M shapes;
+               bounds at the 8M shapes; p2g3d's plan and achieved bytes per
+               second, and two reruns bitwise equal to a first there
+               (B-spline and tent) and on relfloor3d's state;
 17. main:drop3d  elastic_drop_3d at 128^3 (3.5M particles, a 51^3
                neo-Hookean block, APIC) through Simulation, 2 frames x 10
                substeps: launches and the host checks; then on that state
@@ -85,7 +90,8 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                the 6-channel grid, and p2g3d with 7 APIC channels;
 18. timing:3dp   phase 13's timings for stab3d-8M, relfloor3d, drop3d
                (kernel and plain paths) and the stabilized set at
-               1M / 128^3 (kernel and plain paths);
+               1M / 128^3 (kernel and plain paths); with --profile,
+               stab3d-8M's and relfloor3d's device time;
 19. main:sharded   bench 1M and stab1M through Simulation(devices=4) (4
                slab shards on the card) against Simulation() from the same
                particles: after 1 substep x to 1e-6, v and C to 1e-5 of
@@ -139,7 +145,8 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
-last lists every kernel with its launches, error, times and bound (g2p
+last lists every kernel with its launches, error, times and bound (p2g
+and p2g3d with "rerun_bitwise_equal", p2g with its drop1M time; g2p
 also with its 7-channel mode's under "ext_*", g2p and p2g with their tent
 modes' under "tent_*", p2g3d_grid with its prepped 11-channel mode's under
 "prepped_*", g2p3d with its 9-channel gather mode's under "gather_*", both
@@ -171,8 +178,9 @@ import torch
 
 # Kernel-against-plain bound, per output channel, scaled by the channel's
 # max: both sides sum each node's fp32 terms in another order (shared-memory
-# atomics in the P2G kernels, atomics in the plain index_add_, FMA
-# contraction in the kernels).
+# atomics in p2g_fused, p2g_grid and p2g3d_grid, a fixed order of their own
+# in p2g and p2g3d, atomics in the plain index_add_, FMA contraction in the
+# kernels).
 KERNEL_REL_TOL = 1e-5
 POU_REL_TOL = 1e-6           # P2G mass channel vs total particle mass
 BENCH = dict(                # bench.py:179-189, the 1M / 513^2 dam break
@@ -262,9 +270,30 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
 
 
 # p2g3d_grid's tile plan at each timed shape and whether reruns of its
-# stress mode at the slab 8M state are bitwise equal (kernels line).
+# stress mode at the slab 8M state are bitwise equal (kernels line); p2g
+# and p2g3d sum in a fixed order: their reruns at every timed shape must be
+# bitwise equal (rerun_equal), and a false fails the run.
 PLANS = {}
 RERUNS = {}
+
+
+def rerun_equal(tag, name, call, card):
+    """Two reruns of `call` bitwise equal to a first call; kept in RERUNS
+    under `name` (all tags together) and printed."""
+    first = call()
+    same = all(torch.equal(first, call()) for _ in range(2))
+    RERUNS[name] = RERUNS.get(name, True) and same
+    say(f"[{tag}] {name}: two reruns bitwise equal to the first: {same}  [{card}]")
+    check(same, f"{tag}: {name} reruns differ (its sums have a fixed order)")
+
+
+def achieved(name, nbytes, ms, card):
+    """Prints the bytes a kernel must move over its time, against the
+    card's memory rate."""
+    rate = nbytes / (ms * 1e-3)
+    say(f"[achieved] {name}: {nbytes} bytes in + out in {ms:.4f} ms = {rate / 1e9:.1f} GB/s, "
+        f"{rate / PEAK_BYTES_PER_S:.3f} of {PEAK_BYTES_PER_S / 1e12:.2f} TB/s  [{card}]")
+    return rate
 # Peak device memory read on the same lines with the earlier p2g3d_grid,
 # an atomic scatter into a raw buffer and a second launch for the nodes
 # (PERF.md; NVIDIA H100 80GB HBM3, 700 W).
@@ -860,11 +889,11 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
     tent_keys = {"p2g3d": "p2g3d_tent", "p2g3d_grid_prepped": "p2g3d_grid_tent",
                  "g2p3d_gather": "g2p3d_tent"}
     nodes = (r0 + 4) * (r1 + 4) * g3
+    p2g3d_bytes = 4 * (n_in * live3 + r0 * r1 + 5 * nch * r0 * r1 * g3)
     bounds.update({
         # live slots' prepped planes + counts in; the expanded (R0, 5, G1,
         # 11, G2) sums out; 27 taps x 11 channels of multiply-adds a live slot.
-        "p2g3d": bound(4 * (n_in * live3 + r0 * r1 + 5 * nch * r0 * r1 * g3),
-                       live3 * 27 * nch * 2),
+        "p2g3d": bound(p2g3d_bytes, live3 * 27 * nch * 2),
         # the same planes in; the finished 9-channel padded grid out.
         "p2g3d_grid_prepped": bound(4 * (n_in * live3 + r0 * r1 + gch * nodes),
                                     live3 * 27 * nch * 2),
@@ -883,6 +912,19 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
             f"{kernel_ms[tent_key]:.4f} ms (CUDA events, 10 calls), plain {plain_ms[name]:.4f} "
             f"ms (2 calls), bound {bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
     plan_line("kernels:3dp", "prepped", nch, g3, r0, r1, card)
+    plan3 = tk3.plan_p2g3d(nch, g3, k3, mode[0])
+    say(f"[kernels:3dp] p2g3d plan at buckets {r0}x{r1}x{k3}, G2 {g3}, {nch} channels: z band "
+        f"{plan3.band}, {plan3.cap} records of {plan3.rec} bytes a window, {plan3.smem} shared "
+        f"bytes a block, {r0 * r1 * plan3.bands} blocks  [{card}]")
+    achieved("p2g3d at the stab3d-8M shapes", p2g3d_bytes, kernel_ms["p2g3d"], card)
+    rerun_equal("kernels:3dp stab3d-8M", "p2g3d", calls["p2g3d"], card)
+    rerun_equal("kernels:3dp stab3d-8M tent", "p2g3d", lambda: calls["p2g3d"](tent=True), card)
+    rel_sim = sims["relfloor3d"]
+    rel_fields = fast3d.prepped_fields(rel_sim.state, rel_sim.scene, rel_sim.spec)
+    rel_counts = fast3d.pencil_counts(rel_sim.state)
+    rerun_equal("kernels:3dp relfloor3d", "p2g3d", lambda: tk3.p2g3d(
+        rel_fields, rel_counts, r1, g3, dx3, **p2g3d_kw), card)
+    del rel_fields, rel_counts
     expanded = calls["p2g3d"]()
     fold_ms = cuda_ms(lambda: tk3.fold_rows0(expanded), reps=5, warm=1)
     gs = tk3.fold_rows0(expanded)
@@ -902,8 +944,8 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
         step = lambda s, sim=sim: fast3d.substep(s, sim.scene, sim.spec)
         wall = time_paths(f"3dp {tag}", fast3d, sim.state, sim.scene, sim.spec, step, p8.n, 27,
                           10, 3, card, plain=False)
-        if profile_dir and tag == "stab3d-8M":
-            profile_window(os.path.join(profile_dir, "profile_stab3d-8M_3_substeps.txt"),
+        if profile_dir:
+            profile_window(os.path.join(profile_dir, f"profile_{tag}_3_substeps.txt"),
                            fast3d, sim.state, sim.scene, sim.spec, 3, 1e3 * wall, f"3dp {tag}",
                            card)
     del sims, sim
@@ -2001,10 +2043,11 @@ def main(argv=None) -> int:
     r2, nrows, k2 = pdata.shape
     nch = nrows - 8
     live2 = int(counts.sum())
+    p2g_bytes = 4 * ((8 + nch) * live2 + r2 + 5 * nch * r2 * g2d)
     bounds["p2g"] = bound(
         # live slots' 8 + nch rows + counts in; (R, 5, nch, G) out; 9 taps x
         # nch channels of multiply-adds per live slot.
-        4 * ((8 + nch) * live2 + r2 + 5 * nch * r2 * g2d), live2 * 9 * nch * 2)
+        p2g_bytes, live2 * 9 * nch * 2)
     bounds["g2p_ext"] = bound(
         # live slots' [gx0, gx1, mask] + counts + the 7-channel grid in;
         # every slot's 11 channels out; 9 taps x 11 sums per live slot.
@@ -2020,14 +2063,20 @@ def main(argv=None) -> int:
     kernel_ms["g2p_tent"] = cuda_ms(lambda: tk.g2p(pdata2, counts, grid7, dx2, 1.0, True))
     say(f"[kernels:2dp] tent taps at stab1M shapes: p2g {kernel_ms['p2g_tent']:.4f} ms, "
         f"g2p (7-channel grid) {kernel_ms['g2p_tent']:.4f} ms (CUDA events, 20 calls)  [{card}]")
+    achieved("p2g at stab1M", p2g_bytes, kernel_ms["p2g"], card)
+    rerun_equal("kernels:2dp stab1M", "p2g", lambda: tk.p2g(pdata, counts, **args_p), card)
+    rerun_equal("kernels:2dp stab1M tent", "p2g", lambda: tk.p2g(pdata, counts, **args_t), card)
     pd_d, _, cnt_d = fast2d.transfer_inputs(states["drop1M"], scene_drop)
     args_d = fast2d.p2g_args(scene_drop)
     live_d = int(cnt_d.sum())
-    bound_d = bound(4 * (pd_d.shape[1] * live_d + r2 + 5 * nch * r2 * g2d), live_d * 9 * nch * 2)
+    bytes_d = 4 * (pd_d.shape[1] * live_d + r2 + 5 * nch * r2 * g2d)
+    bound_d = bound(bytes_d, live_d * 9 * nch * 2)
+    kernel_ms["p2g_drop1M"] = cuda_ms(lambda: tk.p2g(pd_d, cnt_d, **args_d))
     say(f"[kernels:2dp] p2g at drop1M shapes (pdata {tuple(pd_d.shape)}, "
-        f"{pd_d.numel() * 4} bytes, {live_d} live): kernel "
-        f"{cuda_ms(lambda: tk.p2g(pd_d, cnt_d, **args_d)):.4f} ms, bound {bound_d[0]:.4f} ms "
-        f"({bound_d[1]})  [{card}]")
+        f"{pd_d.numel() * 4} bytes, {live_d} live): kernel {kernel_ms['p2g_drop1M']:.4f} ms, "
+        f"bound {bound_d[0]:.4f} ms ({bound_d[1]})  [{card}]")
+    achieved("p2g at drop1M", bytes_d, kernel_ms["p2g_drop1M"], card)
+    rerun_equal("kernels:2dp drop1M", "p2g", lambda: tk.p2g(pd_d, cnt_d, **args_d), card)
     del pdata, pdata2, counts, grid7, pd_d, cnt_d, states
 
     # ---- 7. main:elastic_drop -------------------------------------------------
@@ -2281,7 +2330,11 @@ def main(argv=None) -> int:
         "ext_bound_by": bounds["g2p_ext"][1], "tent_max_abs_err": err["g2p_tent"],
         "tent_ms": kernel_ms["g2p_tent"],
     })
-    next(k for k in kernels if k["name"] == "p2g")["tent_ms"] = kernel_ms["p2g_tent"]
+    # p2g and p2g3d sum in a fixed order: reruns at every timed shape are
+    # bitwise equal (checked above), and p2g's time at drop1M.
+    next(k for k in kernels if k["name"] == "p2g").update({
+        "tent_ms": kernel_ms["p2g_tent"], "drop1M_ms": kernel_ms["p2g_drop1M"],
+        "rerun_bitwise_equal": RERUNS["p2g"]})
     # g2p on the sharded path's prepadded grid (bench 1M in 4 shards; the
     # 7-channel grid at stab1M), launched once per substep there.
     next(k for k in kernels if k["name"] == "g2p").update({
@@ -2309,7 +2362,7 @@ def main(argv=None) -> int:
     by_name = {k["name"]: k for k in kernels}
     by_name["p2g3d"].update({
         "tent_max_abs_err": err["p2g3d_tent"], "tent_ms": kernel_ms["p2g3d_tent"],
-        "apic7_max_abs_err": err["p2g3d_apic7"]})
+        "apic7_max_abs_err": err["p2g3d_apic7"], "rerun_bitwise_equal": RERUNS["p2g3d"]})
     for name, mode, key in (("p2g3d_grid", "p2g3d_grid_prepped", "prepped"),
                             ("g2p3d", "g2p3d_gather", "gather")):
         by_name[name].update({

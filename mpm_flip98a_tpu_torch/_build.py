@@ -39,8 +39,8 @@ SIGNATURES = {
     "mpm_p2g_fused": (
         _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _P,
     ),
-    # pdata, counts, out, R, K, G, nch, dx, apic, tent, stream
-    "mpm_p2g": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # pdata, counts, out, R, K, G, nch, dx, apic, tent, band, cap, stream
+    "mpm_p2g": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
     # data, counts, out, shards, L, K, G, nch, fused, tent, dx, apic, tait,
     # kb, kb/gamma, gamma, 2 mu, mu, fa, stream
     "mpm_p2g_grid": (
@@ -62,8 +62,8 @@ SIGNATURES = {
     # alpha, 1 - alpha, dt, stream
     "mpm_g2p3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
     # planes (29), pencil strides, counts, out, R0, R1, K, G1, G2, nch, apic,
-    # tent, dx, stream
-    "mpm_p2g3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # tent, dx, band, cap, stream
+    "mpm_p2g3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # planes (29), pencil strides, counts, raw (or null), out, R0, L0, R1, K,
     # G2, nch, apic, tent, dx, dt g (3), floor, lo, hi, wall, dt beta,
     # collider floats, collider ints, colliders, kin, tcol, raw only, tile

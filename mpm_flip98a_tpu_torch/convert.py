@@ -33,7 +33,7 @@ from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
 from mpm_flip98a_tpu_torch.state import Particles
 
 
-def _tensor(a, device="cpu") -> torch.Tensor:
+def _tensor(a, device="cuda") -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -43,17 +43,17 @@ def _names(cls) -> list:
 
 def particles_from_numpy(fields: Mapping[str, np.ndarray]) -> Particles:
     """The JAX `Particles` fields (numpy) -> the port's `Particles` (CPU)."""
-    return Particles(**{n: _tensor(fields[n]) for n in _names(Particles)})
+    return Particles(**{n: _tensor(fields[n], "cpu") for n in _names(Particles)})
 
 
-def buckets_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> FluidBuckets:
+def buckets_from_numpy(fields: Mapping[str, np.ndarray], device="cuda") -> FluidBuckets:
     """The JAX `FluidBuckets` fields (numpy) -> the port's `FluidBuckets`."""
     out = {n: _tensor(fields[n], device) for n in _names(FluidBuckets)}
     out["overflow"] = out["overflow"].to(torch.int32).reshape(())
     return FluidBuckets(**out)
 
 
-def buckets3d_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> FluidBuckets3D:
+def buckets3d_from_numpy(fields: Mapping[str, np.ndarray], device="cuda") -> FluidBuckets3D:
     """The JAX `FluidBuckets3D` fields (numpy) -> the port's `FluidBuckets3D`."""
     out = {n: _tensor(fields[n], device) for n in _names(FluidBuckets3D)}
     out["overflow"] = out["overflow"].to(torch.int32).reshape(())

@@ -4,7 +4,7 @@
 // mpm_flip98a_tpu/ops/pallas/transfer2d.py (def :304, pallas_call :323,
 // body _p2g_kernel :176 -> _p2g_chunk :197 -> _p2g_core :210).  The TPU
 // kernel builds a dense (K, G) one-hot column-weight matrix and scatters
-// with an MXU product; here each particle adds its 3x3 taps directly.
+// with an MXU product; here each node gathers the taps of its slots.
 //
 // Contract (same as the TPU kernel):
 //   pdata  (R, 8 + kNch, K) f32 = [gx0, gx1, m v0, m v1, P00, P01, P10,
@@ -17,24 +17,39 @@
 // Channels 2-3 get w (m v_a + Q_a0 rdp + Q_a1 (c - gx1) dx); under APIC
 // channels 0-1 get the same with P, under PIC w m v_a.  A slot contributes
 // only when its base row floor(gx0 - 0.5) is within +-1 of i; slots at or
-// past counts[i] are skipped; taps on columns outside [0, G) are dropped.
-// Taps are the quadratic B-spline or, with kTent, the linear hat.  The
-// column-affine term is computed per tap, not as the TPU's rank-1 fold.
+// past min(counts[i], K) are skipped; taps on columns outside [0, G) are
+// dropped.  Taps are the quadratic B-spline or, with kTent, the linear hat.
+// The column-affine term is computed per tap, not as the TPU's rank-1 fold.
 //
-// Design: one block per (bucket row, column band).  The block owns its
-// part of out[i] outright, so it accumulates in a (5, kNch, band)
-// shared-memory slab and writes it once, zeros included: no global
-// atomics.  The band is all G columns while the slab fits in the card's
-// opt-in shared memory (92.3 KB at kNch = 9, G = 513); past that (G above
-// ~1290 at kNch = 9) the host splits the columns into equal bands and
-// each block adds only the taps inside its own band.  Each thread walks
-// slots k < counts[i] with a stride of the block size.
+// Design: a fixed-order gather (taps.cuh, namespace gather), no float
+// atomics.  One block of 256 threads per (bucket row, column band); the
+// host's planner (ops/cuda/transfer2d.py, plan_p2g) picks the band (at most
+// 256 columns: 171 at G = 513) and the staging window `cap`.
+//   Walk: the block reads the row's positions once from device memory (8
+//   warps, each a contiguous range, four steps of loads in flight) and tags
+//   in shared memory each slot's base column when it is in the row margin
+//   and its columns meet the band; the band's columns that no slot reaches
+//   are written as zeros.
+//   Sort: two walks of the tags (a counting sort per (bin, warp)) list the
+//   kept slots by base column and, within a column, in slot order.
+//   Sums: one thread per column c that the slots reach, in rounds of 256
+//   columns, sums the slots of base columns c - 2 .. c in the list's order
+//   into its five target rows' kNch channels in registers and writes them
+//   once (neighbouring threads on neighbouring columns).  The slots a round
+//   needs are staged in shared memory in list order, `cap` records at a
+//   time ([t0, gx0 - base0, gx1 - base1, m v, P (APIC), Q, plain] in
+//   float4s), and stay staged for the next round while they are in the
+//   window.  A thread reads each of its slots' records once for all three
+//   of the slot's target rows: shared-memory bandwidth (a float per lane
+//   per cycle) bounds this loop, so the records are short and the taps are
+//   computed, not staged.
+// Every node is written once, and its sum runs in the list's order
+// whatever order the threads ran in: the result is bitwise reproducible.
 //
-// What bounds it on the H100: bytes and shared-memory atomics, not flops.
-// A slot reads 4 (8 + kNch) bytes and issues 9 kNch shared atomic adds;
-// the block writes 5 kNch band floats.  Shared atomics add in a
-// run-dependent order, so the result is not bitwise deterministic: it
-// agrees with the plain version to fp32 rounding of each node's sum.
+// What bounds it on the H100: bytes (each live slot's 8 + kNch rows read,
+// the (5, kNch, G) rows written) and, above them, the latency of each
+// block's walk, sort and staging at three blocks an SM; no
+// compare-and-swap loop.
 
 #include <cuda_runtime.h>
 
@@ -42,116 +57,263 @@
 
 namespace {
 
-constexpr int kNT = 5;     // candidate target rows
+constexpr int kNT = 5;         // candidate target rows
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Blocks resident on an SM: the register cap of __launch_bounds__ (85: a
+// thread holds 5 kNch sums) and the shared-memory budget of the host's
+// planner (transfer2d.py's P2G_BLOCKS_PER_SM) follow it.
+constexpr int kBlocksPerSM = 3;
 
-template <int kNch, bool kTent>
-__global__ void __launch_bounds__(kThreads)
+// Staged record of one slot, in float4s: [t0 (int bits), gx0 - base0,
+// gx1 - base1, m v (2), P (4, APIC only), Q (4), plain (kNch - 4)].
+template <int kNch, bool kApic>
+struct Rec2d {
+  static constexpr int kQ = 5 + (kApic ? 4 : 0);
+  static constexpr int kPlain = kQ + 4;
+  static constexpr int kVec = (kPlain + kNch - 4 + 3) / 4;
+};
+
+template <int kNch, bool kApic>
+__device__ __forceinline__ void make_rec(const float* row, int K, int k, float fi,
+                                         float r[4 * Rec2d<kNch, kApic>::kVec]) {
+  using R = Rec2d<kNch, kApic>;
+  const float gx0 = row[k], gx1 = row[K + k];
+  const float base0 = floorf(gx0 - 0.5f), base1 = floorf(gx1 - 0.5f);
+  r[0] = __int_as_float(static_cast<int>(base0 - fi) + 1);  // target row of row tap 0
+  r[1] = gx0 - base0;
+  r[2] = gx1 - base1;
+  r[3] = row[2 * K + k];
+  r[4] = row[3 * K + k];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (kApic) r[5 + e] = row[(4 + e) * K + k];
+    r[R::kQ + e] = row[(8 + e) * K + k];
+  }
+#pragma unroll
+  for (int e = 0; e < kNch - 4; ++e) r[R::kPlain + e] = row[(12 + e) * K + k];
+#pragma unroll
+  for (int e = R::kPlain + kNch - 4; e < 4 * R::kVec; ++e) r[e] = 0.0f;
+}
+
+// The slot's taps on target rows kT0 .. kT0 + 2 of its column: row tap j
+// has weight w0[j] wc and offset rdp = (base0 + j - gx0) dx; u holds the
+// column parts m v_a + A_a1 cd (A = P for channels 0-1 under APIC, Q for
+// 2-3).
+template <int kNch, bool kApic, int kT0>
+__device__ __forceinline__ void add_rows(const float* r, const float w0[3], float wc,
+                                         const float u[4], float dx, float acc[kNT][kNch]) {
+  using R = Rec2d<kNch, kApic>;
+  const float* q = r + R::kQ;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float w = w0[j] * wc;
+    const float rdp = (static_cast<float>(j) - r[1]) * dx;
+    float* a = acc[kT0 + j];
+    if (kApic) {
+      a[0] += w * (u[0] + r[5] * rdp);
+      a[1] += w * (u[1] + r[7] * rdp);
+    } else {
+      a[0] += w * u[0];
+      a[1] += w * u[1];
+    }
+    a[2] += w * (u[2] + q[0] * rdp);
+    a[3] += w * (u[3] + q[2] * rdp);
+#pragma unroll
+    for (int e = 0; e < kNch - 4; ++e) a[4 + e] += w * r[R::kPlain + e];
+  }
+}
+
+// Adds a staged slot's taps with column tap kJc (column base1 + kJc) to the
+// column's five target rows.
+template <int kNch, bool kTent, bool kApic, int kJc>
+__device__ __forceinline__ void visit(const float4* rec, float dx, float acc[kNT][kNch]) {
+  using R = Rec2d<kNch, kApic>;
+  float r[4 * R::kVec];
+#pragma unroll
+  for (int v = 0; v < R::kVec; ++v) {
+    const float4 f = rec[v];
+    r[4 * v] = f.x;
+    r[4 * v + 1] = f.y;
+    r[4 * v + 2] = f.z;
+    r[4 * v + 3] = f.w;
+  }
+  float w0[3];
+  taps::axis<kTent>(r[1], w0);
+  const float d = static_cast<float>(kJc) - r[2];  // c - gx1
+  const float wc = taps::col<kTent>(d), cd = d * dx;
+  const float* q = r + R::kQ;
+  const float u[4] = {kApic ? r[3] + r[6] * cd : r[3], kApic ? r[4] + r[8] * cd : r[4],
+                      r[3] + q[1] * cd, r[4] + q[3] * cd};
+  const int t0 = __float_as_int(r[0]);
+  if (t0 == 0) {
+    add_rows<kNch, kApic, 0>(r, w0, wc, u, dx, acc);
+  } else if (t0 == 1) {
+    add_rows<kNch, kApic, 1>(r, w0, wc, u, dx, acc);
+  } else {
+    add_rows<kNch, kApic, 2>(r, w0, wc, u, dx, acc);
+  }
+}
+
+template <int kNch, bool kTent, bool kApic>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 p2g_kernel(const float* __restrict__ pdata, const int* __restrict__ counts,
-           float* __restrict__ out, int K, int G, int band, float dx, int apic) {
-  constexpr int kFields = 8 + kNch;
-  extern __shared__ float slab[];  // [kNT][kNch][band]
+           float* __restrict__ out, int K, int G, int band, int cap, float dx) {
+  using R = Rec2d<kNch, kApic>;
+  extern __shared__ float4 smem[];
+  float4* stage = smem;                                              // [cap][kVec]
+  int* cnt = reinterpret_cast<int*>(stage + static_cast<size_t>(cap) * R::kVec);
+  int* bstart = cnt + (band + 2) * kWarps;                           // [band + 3]
+  int* order = bstart + band + 3;                                    // [K]
+  short* tag = reinterpret_cast<short*>(order + K);                  // [K]
+  __shared__ int range[2];
+  __shared__ int tmp[kWarps];
+
   const int i = blockIdx.x;
   const int c0 = blockIdx.y * band;
-  const int width = min(band, G - c0);
-  const int n_slab = kNT * kNch * band;
-  for (int e = threadIdx.x; e < n_slab; e += blockDim.x) slab[e] = 0.0f;
+  const int bw = min(band, G - c0);
+  const int count = max(min(counts[i], K), 0);
+  const float* row = pdata + static_cast<size_t>(i) * (8 + kNch) * K;
+  const float fi = static_cast<float>(i);
+  const float blo = static_cast<float>(c0 - 2), bhi = static_cast<float>(c0 + bw - 1);
+  // Base column of slot k when it is in the row margin and its columns
+  // base1 .. base1 + 2 meet the band.
+  auto classify = [&](int k) {
+    const float gx0 = row[k], gx1 = row[K + k];
+    const float rel = floorf(gx0 - 0.5f) - fi;
+    const float base1 = floorf(gx1 - 0.5f);
+    const bool keep = rel >= -1.0f && rel <= 1.0f && base1 >= blo && base1 <= bhi;
+    return keep ? static_cast<int>(base1) : gather::kNone;
+  };
+  int lo, hi;
+  gather::warp_range<kThreads>(count, lo, hi);
+  gather::tag_range(classify, lo, hi, c0 - 2, tag, range);
+  const int bmin = range[0], bmax = range[1];
+  const int nbins = bmax >= bmin ? bmax - bmin + 1 : 0;
+  // Columns with sums: those the kept slots reach, inside the band.
+  const int zlo = nbins ? max(c0, bmin) : c0;
+  const int zhi = nbins ? min(c0 + bw - 1, bmax + 2) : c0 - 1;
+  float* orow = out + static_cast<size_t>(i) * kNT * kNch * G;
+  gather::zero_outside<kNT, kThreads>(orow, static_cast<long long>(kNch) * G, G, kNch, c0, bw,
+                                      zlo, zhi);
+  if (nbins == 0) return;
+
+  for (int e = threadIdx.x; e < nbins * kWarps; e += kThreads) cnt[e] = 0;
+  __syncthreads();
+  const int tmin = bmin - (c0 - 2);
+  gather::count_bins<kWarps>(tag, lo, hi, tmin, cnt);
+  const int total = gather::exclusive_scan<kThreads>(cnt, nbins * kWarps, tmp);
+  for (int b = threadIdx.x; b <= nbins; b += kThreads) {
+    bstart[b] = b < nbins ? cnt[b * kWarps] : total;
+  }
+  __syncthreads();
+  gather::place<kWarps>(tag, lo, hi, tmin, cnt, order);
   __syncthreads();
 
-  const int count = counts[i];
-  const float* row = pdata + static_cast<size_t>(i) * kFields * K;
-  const float fi = static_cast<float>(i);
-  for (int k = threadIdx.x; k < count; k += blockDim.x) {
-    const float gx0 = row[k];
-    const float base0 = floorf(gx0 - 0.5f);
-    const float rel = base0 - fi;
-    if (!(rel >= -1.0f && rel <= 1.0f)) continue;  // outside the row margin
-    const float gx1 = row[K + k];
-    const float base1 = floorf(gx1 - 0.5f);
-    // The slot's columns base1 .. base1 + 2 must meet this block's band.
-    if (base1 + 2.0f < static_cast<float>(c0) ||
-        base1 >= static_cast<float>(c0 + width)) continue;
-    taps::Slot2d<kNch - 4> slot;
-    taps::load_prepped2d(row, K, k, apic, slot);
-
-    float w0[3];
-    taps::axis<kTent>(gx0 - base0, w0);
-    float wc[3], cd[3];
-    int col[3];
+  // First list position of the slots with base column bmin + b (clamped).
+  auto at = [&](int b) { return bstart[min(max(b, 0), nbins)]; };
+  // One thread per column zlo .. zhi, in rounds of kThreads columns.
+  const int ncols = zhi - zlo + 1;
+  int staged_lo = 0, staged_hi = 0;  // the list window in `stage`
+  for (int r0 = 0; r0 < ncols; r0 += kThreads) {
+    const bool has = r0 + static_cast<int>(threadIdx.x) < ncols;
+    const int c = zlo + min(r0 + static_cast<int>(threadIdx.x), ncols - 1);
+    // This column's slots: base columns c - 2, c - 1, c (column taps 2, 1, 0).
+    const int p0 = at(c - 2 - bmin), p1 = at(c - 1 - bmin), p2 = at(c - bmin);
+    const int p3 = at(c + 1 - bmin);
+    // The round's slots, from its first column's to its last's.
+    const int need_lo = at(zlo + r0 - 2 - bmin);
+    const int need_hi = at(zlo + min(r0 + kThreads, ncols) - bmin);
+    float acc[kNT][kNch];
 #pragma unroll
-    for (int jc = 0; jc < 3; ++jc) {
-      const float cf = base1 + static_cast<float>(jc);
-      const bool in = cf >= 0.0f && cf < static_cast<float>(G);
-      const int cb = in ? static_cast<int>(cf) - c0 : -1;  // column in the band
-      const float d = cf - gx1;
-      col[jc] = (cb >= 0 && cb < width) ? cb : -1;
-      wc[jc] = taps::col<kTent>(d);
-      cd[jc] = d * dx;
+    for (int t = 0; t < kNT; ++t) {
+#pragma unroll
+      for (int ch = 0; ch < kNch; ++ch) acc[t][ch] = 0.0f;
     }
-    const int t0 = static_cast<int>(rel) + 1;  // target of row tap j = 0
+    for (int sub = need_lo; sub < need_hi;) {
+      if (sub < staged_lo || sub >= staged_hi) {
+        __syncthreads();  // every column is done with the old window
+        staged_lo = sub;
+        staged_hi = min(total, sub + cap);
+        gather::stage_window<kThreads, R::kVec>(
+            staged_lo, staged_hi, stage, [&](int p, float* r) {
+              make_rec<kNch, kApic>(row, K, order[p], fi, r);
+            });
+        __syncthreads();
+      }
+      const int end = min(need_hi, staged_hi);
+      if (has) {
+        for (int p = max(p0, sub); p < min(p1, end); ++p) {
+          visit<kNch, kTent, kApic, 2>(stage + (p - staged_lo) * R::kVec, dx, acc);
+        }
+        for (int p = max(p1, sub); p < min(p2, end); ++p) {
+          visit<kNch, kTent, kApic, 1>(stage + (p - staged_lo) * R::kVec, dx, acc);
+        }
+        for (int p = max(p2, sub); p < min(p3, end); ++p) {
+          visit<kNch, kTent, kApic, 0>(stage + (p - staged_lo) * R::kVec, dx, acc);
+        }
+      }
+      sub = end;
+    }
+    if (has) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int t = t0 + j;
-      float r[4];
-      taps::row_affine2d(slot, (base0 + static_cast<float>(j) - gx0) * dx, r);
-      float* s = slab + t * kNch * band;
+      for (int t = 0; t < kNT; ++t) {
 #pragma unroll
-      for (int jc = 0; jc < 3; ++jc) {
-        if (col[jc] < 0) continue;
-        taps::add_tap2d(slot, r, cd[jc], w0[j] * wc[jc], s + col[jc], band);
+        for (int ch = 0; ch < kNch; ++ch) {
+          orow[(static_cast<size_t>(t) * kNch + ch) * G + c] = acc[t][ch];
+        }
       }
     }
   }
-  __syncthreads();
-  // Rows (t, ch) of the slab go to out[i, t, ch, c0 : c0 + width].
-  float* o = out + static_cast<size_t>(i) * kNT * kNch * G + c0;
-  const int n_out = kNT * kNch * width;
-  for (int e = threadIdx.x; e < n_out; e += blockDim.x) {
-    const int r = e / width, c = e - r * width;
-    o[static_cast<size_t>(r) * G + c] = slab[r * band + c];
-  }
 }
 
-template <int kNch, bool kTent>
-int launch(const float* pdata, const int* counts, float* out, int R, int K, int G,
-           int band, float dx, int apic, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kNT * kNch * static_cast<size_t>(band);
-  cudaError_t err = cudaFuncSetAttribute(
-      p2g_kernel<kNch, kTent>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 blocks(R, (G + band - 1) / band);
-  p2g_kernel<kNch, kTent><<<blocks, kThreads, smem, stream>>>(
-      pdata, counts, out, K, G, band, dx, apic);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// nch: 6 or 9; apic, tent: 0/1.  Returns a cudaError_t as int (0 on
-// success): cudaErrorInvalidValue for another nch, else the attribute
-// call's or the launch's error.
-extern "C" int mpm_p2g(const float* pdata, const int* counts, float* out, int R,
-                       int K, int G, int nch, float dx, int apic, int tent,
-                       void* stream) {
-  if (nch != 6 && nch != 9) return static_cast<int>(cudaErrorInvalidValue);
-  if (R <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
+template <int kNch, bool kTent, bool kApic>
+int launch(const float* pdata, const int* counts, float* out, int R, int K, int G, int band,
+           int cap, float dx, cudaStream_t stream) {
+  using Rc = Rec2d<kNch, kApic>;
+  const size_t smem = sizeof(float4) * Rc::kVec * static_cast<size_t>(cap) +
+                      sizeof(int) * ((band + 2) * static_cast<size_t>(kWarps) + band + 3 + K) +
+                      sizeof(short) * ((K + 1) / 2 * 2);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // Widest equal column bands whose slab fits the opt-in shared memory.
-  const long long per_col = static_cast<long long>(sizeof(float)) * kNT * nch;
-  const int max_cols = static_cast<int>(optin / per_col);
-  if (max_cols < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int n_bands = (G + max_cols - 1) / max_cols;
-  const int band = (G + n_bands - 1) / n_bands;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nch == 6) {
-    return tent ? launch<6, true>(pdata, counts, out, R, K, G, band, dx, apic, s)
-                : launch<6, false>(pdata, counts, out, R, K, G, band, dx, apic, s);
+  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(p2g_kernel<kNch, kTent, kApic>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 blocks(R, (G + band - 1) / band);
+  p2g_kernel<kNch, kTent, kApic><<<blocks, kThreads, smem, stream>>>(pdata, counts, out, K, G,
+                                                                      band, cap, dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kNch>
+int launch_nch(const float* pdata, const int* counts, float* out, int R, int K, int G,
+               int band, int cap, float dx, int apic, int tent, cudaStream_t s) {
+  if (tent) {
+    return apic ? launch<kNch, true, true>(pdata, counts, out, R, K, G, band, cap, dx, s)
+                : launch<kNch, true, false>(pdata, counts, out, R, K, G, band, cap, dx, s);
   }
-  return tent ? launch<9, true>(pdata, counts, out, R, K, G, band, dx, apic, s)
-              : launch<9, false>(pdata, counts, out, R, K, G, band, dx, apic, s);
+  return apic ? launch<kNch, false, true>(pdata, counts, out, R, K, G, band, cap, dx, s)
+              : launch<kNch, false, false>(pdata, counts, out, R, K, G, band, cap, dx, s);
+}
+
+}  // namespace
+
+// nch: 6 or 9; apic, tent: 0/1; band, cap: the plan (transfer2d.py's
+// plan_p2g: columns a block owns, slots staged at a time).  Returns a
+// cudaError_t as int (0 on success): cudaErrorInvalidValue for another
+// nch, a plan out of range or one whose shared memory exceeds the card's
+// opt-in limit, else the attribute call's or the launch's error.
+extern "C" int mpm_p2g(const float* pdata, const int* counts, float* out, int R, int K, int G,
+                       int nch, float dx, int apic, int tent, int band, int cap,
+                       void* stream) {
+  if (nch != 6 && nch != 9) return static_cast<int>(cudaErrorInvalidValue);
+  if (R <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
+  if (K < 0 || band <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return nch == 6 ? launch_nch<6>(pdata, counts, out, R, K, G, band, cap, dx, apic, tent, s)
+                  : launch_nch<9>(pdata, counts, out, R, K, G, band, cap, dx, apic, tent, s);
 }

@@ -9,7 +9,7 @@
 // products, one program per batch of 8 source pencils, accumulating into
 // an output block that stays in VMEM across the sequential axis-1 grid
 // steps; GPU blocks run in no order, so here the block is turned round: it
-// owns one target and pulls from the sources.
+// owns one target and gathers from the sources.
 //
 // Contract (same as the TPU kernel):
 //   planes  the prepped fields in the fixed order of taps.cuh: gx (3),
@@ -23,26 +23,48 @@
 // Forced momentum gets w (m v_a + Q_a0 rdp0 + Q_a1 rdp1 + Q_a2 (c - gx2)
 // dx); pure momentum the same with P under APIC and w m v_a under PIC.  A
 // slot contributes only when its base row on both bucketed axes is within
-// +-1 of its pencil's; slots at or past the count are skipped; taps whose
-// axis-1 row is outside [0, G1) or whose z column is outside [0, G2) are
-// dropped.
+// +-1 of its pencil's; slots at or past min(count, K) are skipped; taps
+// whose axis-1 row is outside [0, G1) or whose z column is outside [0, G2)
+// are dropped.
 //
-// Design: one block per (i0, target axis-1 row, z band).  The block owns
-// out[i0, :, row, :, band] outright, so it accumulates in a (5, kNch,
-// band) shared-memory slab and writes it once, zeros included: no global
-// atomics, no memset of the 3.7 GB output at 256^3.  It walks the slots of
-// the five source pencils i1 = row - 3 .. row + 1 and adds, for each slot
-// whose stencil has an axis-1 tap on `row`, that tap's 3 x 3 (axis 0, z)
-// nodes.  The band is all G2 columns while the slab fits the card's opt-in
-// shared memory (56 KB at kNch = 11, G2 = 256); past that the host splits
-// z into equal bands.  Offsets into the output are 64-bit.
+// Design: a fixed-order gather (taps.cuh, namespace gather), no float
+// atomics.  One block of 256 threads per (i0, target axis-1 row, z band);
+// the host's planner (ops/cuda/transfer3d.py, plan_p2g3d) picks the band
+// (all of G2 up to 512 columns) and the staging window `cap`.  The block
+// owns out[i0, :, row, :, band] outright.
+//   Walk: the slots of its five source pencils i1 = row + 1 - t1 (t1 = 0 ..
+//   4) form one sequence, each warp a contiguous range of it.  When the
+//   sequence fits kSteps steps a warp (640 slots at the 8M slab), every
+//   thread loads its slots' fields into registers at once; then the block
+//   writes its whole output as zeros (streaming float4 stores that drain
+//   while it works; the columns with sums are written again at the end),
+//   and tags in shared memory, by base z column, the slots whose axis-1
+//   tap j1 = t1 - 1 - rel1 lands on `row`, inside the axis-0 margin, with
+//   z columns meeting the band.
+//   Sort: two walks of the tags (a counting sort per (bin, warp)) give each
+//   kept slot its list position, by base z column and, within a column, in
+//   (source pencil, slot) order.  Each thread writes its kept slots'
+//   records straight from its registers to their positions in shared
+//   memory.  A record holds what the slot's one axis-1 tap on the row
+//   leaves: [t0, gx0 - base0, gx2 - base2, w1, the affine terms with that
+//   tap's offset folded in (Rec3d)].
+//   Sums: kSplit = 4 threads per z column that the slots reach (a thin
+//   layer reaches some 34): thread s sums the column's slots at list
+//   positions p0 + s, p0 + s + 4, ... (base columns c - 2 .. c) into the
+//   column's five axis-0 targets' kNch channels in registers, reading each
+//   record once for all three of the slot's targets; a fixed butterfly
+//   adds the four shares, and the column's threads write its 5 kNch sums.
+//   Longer sequences, or more kept slots than `cap`, take the windowed
+//   path: the walk reads the positions alone, the list holds sequence
+//   indices, and the records are staged from device memory `cap` at a time.
+//   The order of every sum is the list's, whatever order the threads ran
+//   in: the result is bitwise reproducible.
 //
-// What bounds it on the H100: bytes and shared-memory atomics, not flops.
-// Every live slot is read by up to 5 blocks (3 of them use it: 9 kNch
-// shared atomic adds each) and each block writes 5 kNch band floats, most
-// of them zeros where the particles fill a thin layer.  Shared atomics add
-// in a run-dependent order, so the result is not bitwise deterministic: it
-// agrees with the plain version to fp32 rounding of each node's sum.
+// What bounds it on the H100: the (R0, 5, G1, kNch, G2) output, written
+// once (3.7 GB at 256^3 with 11 channels, most of it zeros where the
+// particles fill a thin layer: 1.12 ms at 3.3 TB/s), then the latency of
+// each block's walk and sort (each pencil is walked by the five rows it
+// reaches) at two blocks an SM, and the butterfly and sums.
 
 #include <cuda_runtime.h>
 
@@ -50,136 +72,429 @@
 
 namespace {
 
-constexpr int kNT = 5;      // candidate target rows per bucketed axis
+constexpr int kNT = 5;         // candidate target rows per bucketed axis
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Blocks resident on an SM: the register cap of __launch_bounds__ (128:
+// a thread holds 5 kNch sums) and the shared-memory budget of the host's
+// planner (transfer3d.py's P2G3D_BLOCKS_PER_SM) follow it.
+constexpr int kBlocksPerSM = 2;
+// Threads a z column: thread s sums the column's slots at list positions
+// p0 + s, p0 + s + kSplit, ...; the kSplit partial sums are then added in
+// a fixed butterfly.  kCols columns a round.
+constexpr int kSplit = 4;
+constexpr int kCols = kThreads / kSplit;
+// Walk steps a warp whose slots' fields a thread keeps in registers (the
+// five pencils of the 8M slab hold some 640 slots: 3 steps of 256).
+constexpr int kSteps = 3;
 
-// Four blocks per SM (64 registers a thread): four 56 KB slabs fill the
-// shared memory at kNch = 11, G2 = 256, and the tent instantiation would
-// otherwise take 74 registers and run three.
-template <int kNch, bool kTent>
-__global__ void __launch_bounds__(kThreads, 4)
-p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts,
-             float* __restrict__ out, int R1, int G1, int G2, int band,
-             float dx, int apic) {
-  extern __shared__ float slab[];   // [kNT][kNch][band]
+// Staged record of one slot, in float4s: [t0 (int bits), gx0 - base0,
+// gx2 - base2, w1 (the slot's axis-1 tap on the block's row), pure (9
+// APIC: m v + P_a1 rdp1, P_a0, P_a2; 3 PIC: m v), forced (9: m v + Q_a1
+// rdp1, Q_a0, Q_a2), plain (kNch - 6)].
+template <int kNch, bool kApic>
+struct Rec3d {
+  static constexpr int kQ = 4 + (kApic ? 9 : 3);
+  static constexpr int kPlain = kQ + 9;
+  static constexpr int kVec = (kPlain + kNch - 6 + 3) / 4;
+};
+
+// A slot's input fields as loaded: [gx (3), m v (3), P (9, APIC only),
+// Q (9), plain (kNch - 6)].
+template <int kNch, bool kApic>
+struct Fields3d {
+  static constexpr int kQ = 6 + (kApic ? 9 : 0);
+  static constexpr int kN = kQ + 9 + kNch - 6;
+};
+
+template <int kNch, bool kApic>
+__device__ __forceinline__ void load_fields(const taps::Prepped& in, long long pencil, int k,
+                                            float f[Fields3d<kNch, kApic>::kN]) {
+  using F = Fields3d<kNch, kApic>;
+#pragma unroll
+  for (int e = 0; e < 6; ++e) f[e] = in.at(taps::kGx + e, pencil, k);  // gx, m v
+#pragma unroll
+  for (int e = 0; e < 9; ++e) {
+    if (kApic) f[6 + e] = in.at(taps::kP + e, pencil, k);
+    f[F::kQ + e] = in.at(taps::kQ + e, pencil, k);
+  }
+#pragma unroll
+  for (int e = 0; e < kNch - 6; ++e) f[F::kQ + 9 + e] = in.at(taps::kM + e, pencil, k);
+}
+
+// Base z column base2 of a slot of source t1 (pencil row fi1) with fields
+// f when it is in the margin on both axes, its axis-1 tap lands on the
+// block's row and base2 is in [blo, bhi] (its columns meet the band).
+__device__ __forceinline__ int classify(const float* f, int t1, float fi0, float fi1, float blo,
+                                        float bhi) {
+  const float rel0 = floorf(f[0] - 0.5f) - fi0;
+  const float rel1 = floorf(f[1] - 0.5f) - fi1;
+  const float base2 = floorf(f[2] - 0.5f);
+  const int j1 = t1 - 1 - static_cast<int>(fminf(fmaxf(rel1, -2.0f), 2.0f));
+  const bool keep = rel1 >= -1.0f && rel1 <= 1.0f && j1 >= 0 && j1 <= 2 && rel0 >= -1.0f &&
+                    rel0 <= 1.0f && base2 >= blo && base2 <= bhi;
+  return keep ? static_cast<int>(base2) : gather::kNone;
+}
+
+// The staged record of a kept slot from its fields.
+template <int kNch, bool kTent, bool kApic>
+__device__ __forceinline__ void rec_from(const float* f, int t1, int i0, int i1, float dx,
+                                         float r[4 * Rec3d<kNch, kApic>::kVec]) {
+  using R = Rec3d<kNch, kApic>;
+  using F = Fields3d<kNch, kApic>;
+  const float gx0 = f[0], gx1 = f[1], gx2 = f[2];
+  const float base0 = floorf(gx0 - 0.5f), base1 = floorf(gx1 - 0.5f);
+  const float base2 = floorf(gx2 - 0.5f);
+  const int j1 = t1 - 1 - static_cast<int>(base1 - static_cast<float>(i1));
+  float w1[3];
+  taps::axis<kTent>(gx1 - base1, w1);
+  const float rdp1 = (base1 + static_cast<float>(j1) - gx1) * dx;
+  r[0] = __int_as_float(static_cast<int>(base0 - static_cast<float>(i0)) + 1);
+  r[1] = gx0 - base0;
+  r[2] = gx2 - base2;
+  r[3] = j1 == 0 ? w1[0] : (j1 == 1 ? w1[1] : w1[2]);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float mv = f[3 + a];
+    if (kApic) {
+      r[4 + a] = mv + f[6 + 3 * a + 1] * rdp1;
+      r[7 + a] = f[6 + 3 * a];
+      r[10 + a] = f[6 + 3 * a + 2];
+    } else {
+      r[4 + a] = mv;
+    }
+    r[R::kQ + a] = mv + f[F::kQ + 3 * a + 1] * rdp1;
+    r[R::kQ + 3 + a] = f[F::kQ + 3 * a];
+    r[R::kQ + 6 + a] = f[F::kQ + 3 * a + 2];
+  }
+#pragma unroll
+  for (int e = 0; e < kNch - 6; ++e) r[R::kPlain + e] = f[F::kQ + 9 + e];
+#pragma unroll
+  for (int e = R::kPlain + kNch - 6; e < 4 * R::kVec; ++e) r[e] = 0.0f;
+}
+
+template <int kVec>
+__device__ __forceinline__ void put_rec(const float r[4 * kVec], float4* rec) {
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    rec[v] = make_float4(r[4 * v], r[4 * v + 1], r[4 * v + 2], r[4 * v + 3]);
+  }
+}
+
+// The slot's taps on axis-0 targets kT0 .. kT0 + 2 of its z column: axis-0
+// tap j0 has weight w0[j0] w1 wz and offset rdp0 = (base0 + j0 - gx0) dx;
+// u and f hold the z parts of pure (APIC) and forced momentum.
+template <int kNch, bool kApic, int kT0>
+__device__ __forceinline__ void add_rows(const float* r, const float w0[3], float wz,
+                                         const float u[3], const float f[3], float dx,
+                                         float acc[kNT][kNch]) {
+  using R = Rec3d<kNch, kApic>;
+#pragma unroll
+  for (int j0 = 0; j0 < 3; ++j0) {
+    const float w = (w0[j0] * r[3]) * wz;
+    const float rdp0 = (static_cast<float>(j0) - r[1]) * dx;
+    float* a = acc[kT0 + j0];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      a[c] += kApic ? w * (u[c] + r[7 + c] * rdp0) : w * r[4 + c];
+      a[3 + c] += w * (f[c] + r[R::kQ + 3 + c] * rdp0);
+    }
+#pragma unroll
+    for (int e = 0; e < kNch - 6; ++e) a[6 + e] += w * r[R::kPlain + e];
+  }
+}
+
+// Adds a staged slot's taps with z tap jz (column base2 + jz) to the
+// column's five axis-0 targets.
+template <int kNch, bool kTent, bool kApic>
+__device__ __forceinline__ void visit(const float4* rec, float jz, float dx,
+                                      float acc[kNT][kNch]) {
+  using R = Rec3d<kNch, kApic>;
+  float r[4 * R::kVec];
+#pragma unroll
+  for (int v = 0; v < R::kVec; ++v) {
+    const float4 f = rec[v];
+    r[4 * v] = f.x;
+    r[4 * v + 1] = f.y;
+    r[4 * v + 2] = f.z;
+    r[4 * v + 3] = f.w;
+  }
+  float w0[3];
+  taps::axis<kTent>(r[1], w0);
+  const float d = jz - r[2];  // c - gx2
+  const float wz = taps::col<kTent>(d), cdz = d * dx;
+  float u[3], f[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    u[c] = kApic ? r[4 + c] + r[10 + c] * cdz : 0.0f;
+    f[c] = r[R::kQ + c] + r[R::kQ + 6 + c] * cdz;
+  }
+  const int t0 = __float_as_int(r[0]);
+  if (t0 == 0) {
+    add_rows<kNch, kApic, 0>(r, w0, wz, u, f, dx, acc);
+  } else if (t0 == 1) {
+    add_rows<kNch, kApic, 1>(r, w0, wz, u, f, dx, acc);
+  } else {
+    add_rows<kNch, kApic, 2>(r, w0, wz, u, f, dx, acc);
+  }
+}
+
+template <int kNch, bool kTent, bool kApic>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict__ out,
+             int R1, int K, int G1, int G2, int band, int cap, float dx) {
+  using R = Rec3d<kNch, kApic>;
+  extern __shared__ float4 smem[];
+  float4* stage = smem;                                              // [cap][kVec]
+  int* cnt = reinterpret_cast<int*>(stage + static_cast<size_t>(cap) * R::kVec);
+  int* bstart = cnt + (band + 2) * kWarps;                           // [band + 3]
+  int* order = bstart + band + 3;                                    // [5 K]
+  short* tag = reinterpret_cast<short*>(order + kNT * K);            // [5 K]
+  __shared__ int range[2];
+  __shared__ int tmp[kWarps];
+  __shared__ int pre[kNT + 1];  // the source pencils' live slots, running sum
+
   const int i0 = blockIdx.x / G1;
-  const int row = blockIdx.x % G1;
-  const int c0 = blockIdx.y * band;
-  const int width = min(band, G2 - c0);
-  const int n_slab = kNT * kNch * band;
-  for (int e = threadIdx.x; e < n_slab; e += blockDim.x) slab[e] = 0.0f;
+  const int row = blockIdx.x - i0 * G1;
+  const int zb = blockIdx.y * band;
+  const int bw = min(band, G2 - zb);
+  if (threadIdx.x < kNT) {
+    // Source pencil i1 puts its axis-1 tap t1 - 1 - rel1 on row i1 + t1 - 1.
+    const int i1 = row + 1 - static_cast<int>(threadIdx.x);
+    const int n = (i1 >= 0 && i1 < R1) ? counts[static_cast<long long>(i0) * R1 + i1] : 0;
+    pre[threadIdx.x + 1] = max(min(n, K), 0);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    pre[0] = 0;
+    for (int t1 = 0; t1 < kNT; ++t1) pre[t1 + 1] += pre[t1];
+    range[0] = INT_MAX;
+    range[1] = INT_MIN;
+  }
+  __syncthreads();
+  const int nsrc = pre[kNT];
+  const float fi0 = static_cast<float>(i0);
+  const float blo = static_cast<float>(zb - 2), bhi = static_cast<float>(zb + bw - 1);
+  // Sequence slot v -> source t1 and slot k.
+  auto locate = [&](int v, int& t1, int& k) {
+    t1 = 0;
+    while (t1 < kNT - 1 && v >= pre[t1 + 1]) ++t1;
+    k = v - pre[t1];
+  };
+  auto pencil_of = [&](int t1) { return static_cast<long long>(i0) * R1 + row + 1 - t1; };
+  const long long ts = static_cast<long long>(G1) * kNch * G2;  // between axis-0 targets
+  float* obase = out + (static_cast<long long>(i0) * kNT * G1 + row) * kNch * G2;
+  int lo, hi;
+  gather::warp_range<kThreads>(nsrc, lo, hi);
+  const int lane = threadIdx.x & 31;
+  // With at most kSteps steps a warp, each thread keeps its slots' fields
+  // in registers from the walk to the placement, and the records go
+  // straight to their list positions; else the walk reads the positions
+  // alone and the records are staged from device memory window by window.
+  const bool in_regs = nsrc <= kSteps * kThreads;
+  using F = Fields3d<kNch, kApic>;
+  float f[kSteps][F::kN];
+  if (in_regs) {
+    // Every load of the walk goes out first, then the block's whole output
+    // as zeros (the columns with sums are written again at the end), then
+    // the tags.
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      int t1 = 0, k = 0;
+      if (lo < hi) locate(min(lo + 32 * j + lane, hi - 1), t1, k);
+      if (lo < hi) load_fields<kNch, kApic>(in, pencil_of(t1), k, f[j]);
+    }
+    gather::zero_outside<kNT, kThreads>(obase, ts, G2, kNch, zb, bw, zb + bw, zb + bw);
+    int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int v = lo + 32 * j + lane;
+      if (v >= hi) continue;
+      int t1, k;
+      locate(v, t1, k);
+      const int b = classify(f[j], t1, fi0, static_cast<float>(row + 1 - t1), blo, bhi);
+      tag[v] = static_cast<short>(b == gather::kNone ? -1 : b - (zb - 2));
+      if (b != gather::kNone) {
+        mn = min(mn, b);
+        mx = max(mx, b);
+      }
+    }
+    gather::reduce_range(mn, mx, range);
+  } else {
+    gather::zero_outside<kNT, kThreads>(obase, ts, G2, kNch, zb, bw, zb + bw, zb + bw);
+    auto classify_v = [&](int v) {
+      int t1, k;
+      locate(v, t1, k);
+      float g[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) g[e] = in.at(taps::kGx + e, pencil_of(t1), k);
+      return classify(g, t1, fi0, static_cast<float>(row + 1 - t1), blo, bhi);
+    };
+    gather::tag_range(classify_v, lo, hi, zb - 2, tag, range);
+  }
+  const int bmin = range[0], bmax = range[1];
+  const int nbins = bmax >= bmin ? bmax - bmin + 1 : 0;
+  // z columns with sums: those the kept slots reach, inside the band.
+  const int zlo = nbins ? max(zb, bmin) : zb;
+  const int zhi = nbins ? min(zb + bw - 1, bmax + 2) : zb - 1;
+  if (nbins == 0) return;
+
+  for (int e = threadIdx.x; e < nbins * kWarps; e += kThreads) cnt[e] = 0;
+  __syncthreads();
+  const int tmin = bmin - (zb - 2);
+  gather::count_bins<kWarps>(tag, lo, hi, tmin, cnt);
+  const int total = gather::exclusive_scan<kThreads>(cnt, nbins * kWarps, tmp);
+  for (int b = threadIdx.x; b <= nbins; b += kThreads) {
+    bstart[b] = b < nbins ? cnt[b * kWarps] : total;
+  }
+  __syncthreads();
+  int staged_lo = 0, staged_hi = 0;  // the list window in `stage`
+  if (in_regs && total <= cap) {
+    // Each kept slot's record from its fields, at its list position.
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int pos = gather::place_step<kWarps>(tag, lo + 32 * j, hi, tmin, cnt);
+      if (pos >= 0) {
+        int t1, k;
+        const int v = lo + 32 * j + lane;
+        locate(v, t1, k);
+        float r[4 * R::kVec];
+        rec_from<kNch, kTent, kApic>(f[j], t1, i0, row + 1 - t1, dx, r);
+        put_rec<R::kVec>(r, stage + static_cast<size_t>(pos) * R::kVec);
+      }
+    }
+    staged_hi = total;
+  } else {
+    gather::place<kWarps>(tag, lo, hi, tmin, cnt, order);
+  }
   __syncthreads();
 
-  const float fi0 = static_cast<float>(i0);
-  for (int t1 = 0; t1 < kNT; ++t1) {
-    // Source pencil i1 puts its target slot t1 on row i1 + t1 - 1.
-    const int i1 = row + 1 - t1;
-    if (i1 < 0 || i1 >= R1) continue;
-    const long long pencil = static_cast<long long>(i0) * R1 + i1;
-    const int count = counts[pencil];
-    const float fi1 = static_cast<float>(i1);
-    for (int k = threadIdx.x; k < count; k += blockDim.x) {
-      const float gx1 = in.at(taps::kGx + 1, pencil, k);
-      const float base1 = floorf(gx1 - 0.5f);
-      const float rel1 = base1 - fi1;
-      if (!(rel1 >= -1.0f && rel1 <= 1.0f)) continue;  // outside the margin
-      const int j1 = t1 - 1 - static_cast<int>(rel1);  // the tap that hits `row`
-      if (j1 < 0 || j1 > 2) continue;
-      const float gx0 = in.at(taps::kGx, pencil, k);
-      const float base0 = floorf(gx0 - 0.5f);
-      const float rel0 = base0 - fi0;
-      if (!(rel0 >= -1.0f && rel0 <= 1.0f)) continue;
-      const float gx2 = in.at(taps::kGx + 2, pencil, k);
-      const float base2 = floorf(gx2 - 0.5f);
-      // The slot's columns base2 .. base2 + 2 must meet this block's band.
-      if (base2 + 2.0f < static_cast<float>(c0) ||
-          base2 >= static_cast<float>(c0 + width)) continue;
-
-      taps::Slot<kNch> slot;
-      taps::load_slot<kNch, kTent>(in, pencil, k, apic, gx2, base2, G2, dx, slot);
-      float w0[3], w1[3];
-      taps::axis<kTent>(gx0 - base0, w0);
-      taps::axis<kTent>(gx1 - base1, w1);
-      const float w1j = j1 == 0 ? w1[0] : (j1 == 1 ? w1[1] : w1[2]);
-      const float rdp1 = (base1 + static_cast<float>(j1) - gx1) * dx;
-      int col[3];  // the z taps' columns in this block's band, -1 outside
+  // First list position of the slots with base column bmin + b (clamped).
+  auto at = [&](int b) { return bstart[min(max(b, 0), nbins)]; };
+  // kSplit threads per z column zlo .. zhi, in rounds of kCols columns.
+  const int ncols = zhi - zlo + 1;
+  const int share = threadIdx.x % kSplit;
+  for (int r0 = 0; r0 < ncols; r0 += kCols) {
+    const int col = r0 + static_cast<int>(threadIdx.x) / kSplit;
+    const bool has = col < ncols;
+    const int c = zlo + min(col, ncols - 1);
+    // This column's slots: base columns c - 2, c - 1, c (z taps 2, 1, 0).
+    const int p0 = at(c - 2 - bmin), p1 = at(c - 1 - bmin), p2 = at(c - bmin);
+    const int p3 = at(c + 1 - bmin);
+    // The round's slots, from its first column's to its last's.
+    const int need_lo = at(zlo + r0 - 2 - bmin);
+    const int need_hi = at(zlo + min(r0 + kCols, ncols) - bmin);
+    float acc[kNT][kNch];
 #pragma unroll
-      for (int j2 = 0; j2 < 3; ++j2) {
-        const int cb = slot.z[j2] < 0 ? -1 : slot.z[j2] - c0;
-        col[j2] = (cb >= 0 && cb < width) ? cb : -1;
+    for (int t = 0; t < kNT; ++t) {
+#pragma unroll
+      for (int ch = 0; ch < kNch; ++ch) acc[t][ch] = 0.0f;
+    }
+    for (int sub = need_lo; sub < need_hi;) {
+      if (sub < staged_lo || sub >= staged_hi) {
+        __syncthreads();  // every column is done with the old window
+        staged_lo = sub;
+        staged_hi = min(total, sub + cap);
+        gather::stage_window<kThreads, R::kVec>(
+            staged_lo, staged_hi, stage, [&](int p, float* r) {
+              int t1, k;
+              locate(order[p], t1, k);
+              float g[F::kN];
+              load_fields<kNch, kApic>(in, pencil_of(t1), k, g);
+              rec_from<kNch, kTent, kApic>(g, t1, i0, row + 1 - t1, dx, r);
+            });
+        __syncthreads();
       }
-      const int t0 = static_cast<int>(rel0) + 1;  // target slot of axis-0 tap j0 = 0
+      const int end = min(min(need_hi, staged_hi), p3);
+      if (has) {
+        // This thread's share of the column's slots in [sub, end).
+        const int q = max(p0, sub);
+        for (int p = q + (share - (q - p0) % kSplit + kSplit) % kSplit; p < end; p += kSplit) {
+          const float jz = p < p1 ? 2.0f : (p < p2 ? 1.0f : 0.0f);
+          visit<kNch, kTent, kApic>(stage + (p - staged_lo) * R::kVec, jz, dx, acc);
+        }
+      }
+      sub = min(need_hi, staged_hi);
+    }
+    // The shares of a column, added in a fixed order: s + (s ^ 1), then
+    // with (s ^ 2)'s; every thread of the column ends with the same sums.
 #pragma unroll
-      for (int j0 = 0; j0 < 3; ++j0) {
-        const float rdp0 = (base0 + static_cast<float>(j0) - gx0) * dx;
-        const float w01 = w0[j0] * w1j;
-        float pure[3], forced[3];
-        taps::affine01(slot, rdp0, rdp1, pure, forced);
-        float* s = slab + (t0 + j0) * kNch * band;
+    for (int o = 1; o < kSplit; o <<= 1) {
 #pragma unroll
-        for (int j2 = 0; j2 < 3; ++j2) {
-          if (col[j2] < 0) continue;
-          taps::add_tap(slot, pure, forced, j2, w01 * slot.wz[j2], s + col[j2], band);
+      for (int t = 0; t < kNT; ++t) {
+#pragma unroll
+        for (int ch = 0; ch < kNch; ++ch) acc[t][ch] += __shfl_xor_sync(0xffffffffu, acc[t][ch], o);
+      }
+    }
+    if (has) {
+#pragma unroll
+      for (int t = 0; t < kNT; ++t) {
+#pragma unroll
+        for (int ch = 0; ch < kNch; ++ch) {
+          if (ch % kSplit != share) continue;
+          obase[t * ts + static_cast<long long>(ch) * G2 + c] = acc[t][ch];
         }
       }
     }
   }
-  __syncthreads();
-  // Slab rows (t0, ch) go to out[i0, t0, row, ch, c0 : c0 + width].
-  const int n_out = kNT * kNch * width;
-  for (int e = threadIdx.x; e < n_out; e += blockDim.x) {
-    const int r = e / width, c = e - r * width;
-    const int t0 = r / kNch, ch = r - t0 * kNch;
-    const long long at =
-        (((static_cast<long long>(i0) * kNT + t0) * G1 + row) * kNch + ch) * G2 + c0 + c;
-    out[at] = slab[r * band + c];
-  }
 }
 
-template <int kNch, bool kTent>
-int launch(const taps::Prepped& in, const int* counts, float* out, int R0, int R1,
-           int G1, int G2, int band, float dx, int apic, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kNT * kNch * static_cast<size_t>(band);
-  cudaError_t err = cudaFuncSetAttribute(
-      p2g3d_kernel<kNch, kTent>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 blocks(static_cast<unsigned>(R0) * G1, (G2 + band - 1) / band);
-  p2g3d_kernel<kNch, kTent><<<blocks, kThreads, smem, stream>>>(
-      in, counts, out, R1, G1, G2, band, dx, apic);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// planes / strides: 29 entries in the order of taps.cuh (null where the
-// mode has no such plane).  nch: 7 or 11; apic, tent: 0/1.  Returns a
-// cudaError_t as int (0 on success): cudaErrorInvalidValue for another nch,
-// else the attribute call's or the launch's error.
-extern "C" int mpm_p2g3d(const void* const* planes, const long long* strides,
-                         const int* counts, float* out, int R0, int R1, int K,
-                         int G1, int G2, int nch, int apic, int tent, float dx,
-                         void* stream) {
-  (void)K;  // slots are addressed through counts and the pencil strides
-  if (nch != 7 && nch != 11) return static_cast<int>(cudaErrorInvalidValue);
-  if (R0 <= 0 || G1 <= 0 || G2 <= 0) return static_cast<int>(cudaGetLastError());
+template <int kNch, bool kTent, bool kApic>
+int launch(const taps::Prepped& in, const int* counts, float* out, int R0, int R1, int K, int G1,
+           int G2, int band, int cap, float dx, cudaStream_t stream) {
+  using Rc = Rec3d<kNch, kApic>;
+  const size_t smem = sizeof(float4) * Rc::kVec * static_cast<size_t>(cap) +
+                      sizeof(int) * ((band + 2) * static_cast<size_t>(kWarps) + band + 3 +
+                                     static_cast<size_t>(kNT) * K) +
+                      sizeof(short) * ((static_cast<size_t>(kNT) * K + 1) / 2 * 2);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // Widest equal z bands whose slab fits the opt-in shared memory.
-  const long long per_col = static_cast<long long>(sizeof(float)) * kNT * nch;
-  const int max_cols = static_cast<int>(optin / per_col);
-  if (max_cols < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int n_bands = (G2 + max_cols - 1) / max_cols;
-  const int band = (G2 + n_bands - 1) / n_bands;
+  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(p2g3d_kernel<kNch, kTent, kApic>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 blocks(static_cast<unsigned>(R0) * G1, (G2 + band - 1) / band);
+  p2g3d_kernel<kNch, kTent, kApic><<<blocks, kThreads, smem, stream>>>(in, counts, out, R1, K,
+                                                                        G1, G2, band, cap, dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kNch>
+int launch_nch(const taps::Prepped& in, const int* counts, float* out, int R0, int R1, int K,
+               int G1, int G2, int band, int cap, float dx, int apic, int tent, cudaStream_t s) {
+  if (tent) {
+    return apic ? launch<kNch, true, true>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, s)
+                : launch<kNch, true, false>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, s);
+  }
+  return apic ? launch<kNch, false, true>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, s)
+              : launch<kNch, false, false>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, s);
+}
+
+}  // namespace
+
+// planes / strides: 29 entries in the order of taps.cuh (null where the
+// mode has no such plane).  nch: 7 or 11; apic, tent: 0/1; band, cap: the
+// plan (transfer3d.py's plan_p2g3d: z columns a block owns, slots staged
+// at a time).  Returns a cudaError_t as int (0 on success):
+// cudaErrorInvalidValue for another nch, a plan out of range or one whose
+// shared memory exceeds the card's opt-in limit, else the attribute call's
+// or the launch's error.
+extern "C" int mpm_p2g3d(const void* const* planes, const long long* strides,
+                         const int* counts, float* out, int R0, int R1, int K,
+                         int G1, int G2, int nch, int apic, int tent, float dx, int band,
+                         int cap, void* stream) {
+  if (nch != 7 && nch != 11) return static_cast<int>(cudaErrorInvalidValue);
+  if (R0 <= 0 || G1 <= 0 || G2 <= 0) return static_cast<int>(cudaGetLastError());
+  if (K < 0 || band <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(R0) * G1 > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const taps::Prepped in = taps::prepped_from(planes, strides);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nch == 7) {
-    return tent ? launch<7, true>(in, counts, out, R0, R1, G1, G2, band, dx, apic, s)
-                : launch<7, false>(in, counts, out, R0, R1, G1, G2, band, dx, apic, s);
-  }
-  return tent ? launch<11, true>(in, counts, out, R0, R1, G1, G2, band, dx, apic, s)
-              : launch<11, false>(in, counts, out, R0, R1, G1, G2, band, dx, apic, s);
+  return nch == 7
+             ? launch_nch<7>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, apic, tent, s)
+             : launch_nch<11>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, apic, tent, s);
 }

@@ -3,11 +3,14 @@
 // on the same 3-node stencil, in the two forms the TPU kernels use
 // (mpm_flip98a_tpu/ops/pallas/transfer2d.py:123-159): per-tap weights of
 // the fractional offset on the bucketed axes, and a weight of the signed
-// distance along the last axis.  The 2D P2G kernels (p2g_fused.cu, p2g.cu,
+// distance along the last axis.  The 2D P2G kernels (p2g_fused.cu,
 // p2g_grid.cu) share the slot loaders and the tap adds of `Slot2d`; the 3D
 // ones (p2g3d.cu, p2g3d_grid.cu, g2p3d.cu) the prepped-plane block and
-// `Slot`.
+// `Slot`.  The fixed-order gathers (p2g.cu, p2g3d.cu) share the sort and
+// the stores of namespace `gather` at the end.
 #pragma once
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -228,3 +231,239 @@ __device__ __forceinline__ void add_tap(const Slot<kNch>& s, const float pure[3]
 }
 
 }  // namespace taps
+
+// ---- Fixed-order gathers ---------------------------------------------------
+//
+// p2g.cu and p2g3d.cu sum each node over its slots in a fixed order, with
+// no float atomics.  A block owns a band of output columns (z in 3D) and
+// walks its source slots as one sequence (the bucket row's slots in 2D; the
+// five source pencils' one after the other in 3D), each warp a contiguous
+// range of it, in steps of 32.  `classify(v)` gives the base column of
+// sequence slot v when its stencil reaches the band, else kNone; it reads
+// the slot's positions unconditionally, so that the unrolled steps of the
+// first walk keep their loads in flight together.  Three walks:
+//   1. tag_range: each slot's tag (base column - tag0, or -1) into shared
+//      memory, and the least and greatest base column kept; the columns
+//      outside what they reach are written as zeros (zero_outside);
+//   2. count_bins: the kept slots per (bin = tag - tmin, warp), bin-major,
+//      so that an exclusive scan (exclusive_scan) gives every (bin, warp)
+//      its first position;
+//   3. place: each kept slot's position, its (bin, warp)'s first position
+//      plus the kept slots of its bin that come before it in the warp's
+//      range (integer shared adds by one leader per bin and step, ranks
+//      from __match_any_sync), into `order`.
+// Walks 2 and 3 read only the tags.  So `order` lists the kept slots by
+// base column and, within a column, in sequence order, whatever order the
+// warps ran in.  The kernels stage the slots' records into shared memory
+// in that order (stage_window, or in p2g3d.cu straight from the walk's
+// registers by place_step) and sum each output column over the slots of
+// base columns c - 2 .. c in it.
+namespace gather {
+
+constexpr int kNone = INT_MIN;
+constexpr int kUnroll = 4;  // steps of walk 1 in flight together
+
+// The warp's contiguous range [lo, hi) of a sequence of n slots: whole
+// steps of 32, warp w taking the w-th.
+template <int kThreads>
+__device__ __forceinline__ void warp_range(int n, int& lo, int& hi) {
+  const int span = (n + kThreads - 1) / kThreads * 32;
+  lo = min(n, (static_cast<int>(threadIdx.x) >> 5) * span);
+  hi = min(n, lo + span);
+}
+
+// The block's least and greatest kept base column from each thread's mn
+// and mx into range[0], range[1] (set to INT_MAX, INT_MIN before, and the
+// block synchronised since).  Ends with the block synchronised.
+__device__ __forceinline__ void reduce_range(int mn, int mx, int* range) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  if ((threadIdx.x & 31) == 0 && mn <= mx) {
+    atomicMin(range, mn);
+    atomicMax(range + 1, mx);
+  }
+  __syncthreads();
+}
+
+// Walk 1: tag[v] = classify(v) - tag0 (-1 for kNone); range[0] = least,
+// range[1] = greatest kept base column (INT_MAX, INT_MIN when no slot is
+// kept).  Ends with the block synchronised.
+template <typename Classify>
+__device__ __forceinline__ void tag_range(Classify classify, int lo, int hi, int tag0,
+                                          short* tag, int* range) {
+  if (threadIdx.x == 0) {
+    range[0] = INT_MAX;
+    range[1] = INT_MIN;
+  }
+  __syncthreads();
+  int mn = INT_MAX, mx = INT_MIN;
+  for (int s = lo + (threadIdx.x & 31); s < hi; s += 32 * kUnroll) {
+    int b[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) b[u] = classify(min(s + 32 * u, hi - 1));
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int v = s + 32 * u;
+      if (v >= hi) continue;
+      tag[v] = static_cast<short>(b[u] == kNone ? -1 : b[u] - tag0);
+      if (b[u] != kNone) {
+        mn = min(mn, b[u]);
+        mx = max(mx, b[u]);
+      }
+    }
+  }
+  reduce_range(mn, mx, range);
+}
+
+// Walk 2: cnt[(tag - tmin) kWarps + warp] += the warp's kept slots of that
+// tag.  cnt zeroed before; the caller synchronises after.
+template <int kWarps>
+__device__ __forceinline__ void count_bins(const short* tag, int lo, int hi, int tmin, int* cnt) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int s = lo; s < hi; s += 32) {
+    const int v = s + lane;
+    const int b = v < hi ? tag[v] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, b);
+    if (b >= 0 && lane == __ffs(peers) - 1) cnt[(b - tmin) * kWarps + warp] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+// Walk 3, one step of 32 slots s .. s + 31 (< hi) of the warp's range:
+// the list position of this lane's slot (-1 when it is not kept), its
+// (bin, warp)'s next position in cnt plus the kept slots of its bin before
+// it in the step; cnt is advanced past the step's slots.
+template <int kWarps>
+__device__ __forceinline__ int place_step(const short* tag, int s, int hi, int tmin, int* cnt) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int v = s + lane;
+  const int b = v < hi ? tag[v] : -1;
+  const unsigned peers = __match_any_sync(0xffffffffu, b);
+  const int leader = __ffs(peers) - 1;
+  int first = 0;
+  if (b >= 0 && lane == leader) {
+    int* at = cnt + (b - tmin) * kWarps + warp;
+    first = *at;
+    *at = first + __popc(peers);
+  }
+  first = __shfl_sync(0xffffffffu, first, leader);
+  __syncwarp();
+  return b >= 0 ? first + __popc(peers & ((1u << lane) - 1u)) : -1;
+}
+
+// Walk 3: order[position] = v for every kept slot, cnt holding each (bin,
+// warp)'s first position (it is advanced past the warp's slots).
+template <int kWarps>
+__device__ __forceinline__ void place(const short* tag, int lo, int hi, int tmin, int* cnt,
+                                      int* order) {
+  for (int s = lo; s < hi; s += 32) {
+    const int pos = place_step<kWarps>(tag, s, hi, tmin, cnt);
+    if (pos >= 0) order[pos] = s + (threadIdx.x & 31);
+  }
+}
+// Stages list entries [lo, hi) into stage[p - lo] (kVec float4s each) by
+// the whole block: make(p, r) fills the record's 4 kVec floats.
+template <int kThreads, int kVec, typename Make>
+__device__ __forceinline__ void stage_window(int lo, int hi, float4* stage, Make make) {
+  for (int p = lo + threadIdx.x; p < hi; p += kThreads) {
+    float r[4 * kVec];
+    make(p, r);
+    float4* rec = stage + static_cast<size_t>(p - lo) * kVec;
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      rec[v] = make_float4(r[4 * v], r[4 * v + 1], r[4 * v + 2], r[4 * v + 3]);
+    }
+  }
+}
+
+// Exclusive prefix sum of a[0, n) in place by the whole block; returns the
+// total.  tmp: kThreads / 32 ints of shared memory.  Synchronises on entry
+// and on exit.
+template <int kThreads>
+__device__ __forceinline__ int exclusive_scan(int* a, int n, int* tmp) {
+  constexpr int kWarps = kThreads / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per = (n + kThreads - 1) / kThreads;
+  const int lo = min(n, static_cast<int>(threadIdx.x) * per), hi = min(n, lo + per);
+  __syncthreads();
+  int sum = 0;
+  for (int e = lo; e < hi; ++e) sum += a[e];
+  int x = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) tmp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? tmp[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < kWarps) tmp[lane] = w;
+  }
+  __syncthreads();
+  int run = x - sum + (warp > 0 ? tmp[warp - 1] : 0);
+  const int total = tmp[kWarps - 1];
+  for (int e = lo; e < hi; ++e) {
+    const int c = a[e];
+    a[e] = run;
+    run += c;
+  }
+  __syncthreads();
+  return total;
+}
+
+// Zeros out[t ts + ch cs + z] for t < kNT, ch < nch and z in [zb, zb + bw)
+// outside [zlo, zhi], by the whole block, with streaming stores and no
+// division per store.  When every column is zero and the band spans whole
+// rows (bw == cs), each target's nch rows are one contiguous run, stored
+// as float4s where it is 16-byte aligned; else each warp takes whole rows
+// (t, ch) in turn, float4 stores where a row allows them.
+template <int kNT, int kThreads>
+__device__ __forceinline__ void zero_outside(float* out, long long ts, int cs, int nch, int zb,
+                                             int bw, int zlo, int zhi) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const bool all = zlo > zhi || zlo >= zb + bw || zhi < zb;
+  const bool aligned = (reinterpret_cast<size_t>(out) & 15) == 0 && ((ts | cs | zb) & 3) == 0;
+  if (all && bw == cs && aligned) {
+    const int n4 = nch * cs / 4;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t) {
+      float4* seg = reinterpret_cast<float4*>(out + t * ts);
+      for (int e = threadIdx.x; e < n4; e += kThreads) __stcs(seg + e, zero);
+    }
+    return;
+  }
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const bool vec = aligned && (bw & 3) == 0;
+  for (int r = threadIdx.x >> 5; r < kNT * nch; r += kWarps) {
+    const int t = r / nch, ch = r - t * nch;
+    float* row = out + t * ts + static_cast<long long>(ch) * cs;
+    if (vec) {
+      for (int z = zb + 4 * lane; z < zb + bw; z += 128) {
+        if (z + 3 < zlo || z > zhi) {
+          __stcs(reinterpret_cast<float4*>(row + z), zero);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (z + q < zlo || z + q > zhi) __stcs(row + z + q, 0.0f);
+          }
+        }
+      }
+    } else {
+      for (int z = zb + lane; z < zb + bw; z += 32) {
+        if (z < zlo || z > zhi) __stcs(row + z, 0.0f);
+      }
+    }
+  }
+}
+
+}  // namespace gather

@@ -9,8 +9,10 @@ for the MXU; on the GPU each particle simply touches its 3x3 nodes:
   then the quadratic B-spline scatter of [m v0, m v1, m v0 + f0, m v1 + f1,
   m] to the 5 candidate target rows of each bucket row.
 - `p2g` (csrc/p2g.cu) replaces the Pallas `p2g` (transfer2d.py:304,
-  pallas_call :323): the same scatter of stress prepped outside the
-  kernel (`pdata`), 6 or 9 channels, B-spline or tent taps.
+  pallas_call :323): the same transfer of stress prepped outside the
+  kernel (`pdata`), 6 or 9 channels, B-spline or tent taps, as a
+  fixed-order gather (no float atomics; reruns are bitwise equal);
+  `plan_p2g` sizes its column bands and staging window.
 - `p2g_grid` (csrc/p2g_grid.cu) replaces the Pallas `p2g_grid`
   (transfer2d.py:597, pallas_call :666) in its raw mode, the slab-sharded
   path's: the fused or prepped scatter folded into each shard's raw,
@@ -56,6 +58,7 @@ are not on a ported path (ROADMAP queue 2, items 2 and 3).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -69,6 +72,21 @@ G2P_CH = 4         # [v_new0, v_new1, v_old0, v_old1]
 G2P_CH_EXT = 7     # + [Jbar, p, div]
 G2P_OUT = 8        # [vpic0, vpic1, vold0, vold1, C00, C01, C10, C11]
 EOS_CODES = {"linear": 0, "tait": 1}
+
+# The fixed-order gathers' plans (csrc/p2g.cu, csrc/p2g3d.cu; transfer3d's
+# plan_p2g3d too).  P2G_WARPS warps a block (p2g.cu's kWarps);
+# P2G_BLOCKS_PER_SM blocks share an SM (its kBlocksPerSM, the register cap
+# of its __launch_bounds__) and so its 228 KB of shared memory, less the
+# 1 KB the system reserves and the kernel's static arrays (SMEM_STATIC,
+# with room for rounding) per block.  A block owns at most P2G_MAX_BAND
+# columns.
+SMEM_SM = 233_472
+SMEM_OPTIN = 232_448      # Hopper's opt-in limit per block
+SMEM_STATIC = 128
+MIN_CAP = 64
+P2G_WARPS = 8
+P2G_BLOCKS_PER_SM = 3
+P2G_MAX_BAND = 256
 
 # Kernel launches per wrapper (the plain versions do not count).
 LAUNCHES = {"p2g_fused": 0, "p2g": 0, "p2g_grid": 0, "g2p": 0}
@@ -290,6 +308,61 @@ def p2g_fused(
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """A fixed-order gather's launch plan: blocks of `band` output columns
+    (z in 3D) over `g`, `cap` slot records of `rec` bytes staged at a time,
+    `smem` dynamic shared bytes a block: the records, the (band + 2) x
+    warps sort counters, band + 3 bin starts and `order` list entries and
+    as many 2-byte tags (the sources' slots)."""
+
+    band: int
+    cap: int
+    rec: int
+    order: int
+    smem: int
+    g: int
+
+    @property
+    def bands(self) -> int:
+        return -(-self.g // self.band)
+
+    def columns(self, by: int):
+        """[c0, c1) of the block at blockIdx.y = by, as the kernels decode
+        it: c0 = by band, c1 = min(c0 + band, g)."""
+        c0 = by * self.band
+        return c0, min(c0 + self.band, self.g)
+
+
+def plan_gather(g: int, rec_floats: int, order: int, max_band: int, warps: int,
+                blocks_per_sm: int) -> GatherPlan:
+    """Equal bands of at most `max_band` columns, and the most records
+    (at least MIN_CAP or all `order` slots, at most `order`) that let
+    `blocks_per_sm` blocks share an SM.  Raises when even MIN_CAP records pass the opt-in limit
+    (some hundred thousand bytes of `order`: far more slots a bucket than
+    any scene holds)."""
+    if g <= 0 or order < 0:
+        raise ValueError(f"bad gather shape: g {g}, {order} source slots")
+    band = -(-g // -(-g // max_band))
+    rec = 16 * -(-rec_floats // 4)
+    fixed = 4 * ((band + 2) * warps + band + 3 + order) + 2 * (order + order % 2)
+    budget = SMEM_SM // blocks_per_sm - 1_024 - SMEM_STATIC
+    cap = min(max(order, 1), max(MIN_CAP, (budget - fixed) // rec))
+    smem = fixed + cap * rec
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"{order} source slots a block need {smem} bytes of shared memory, "
+                         f"past the card's {SMEM_OPTIN}")
+    return GatherPlan(band, cap, rec, order, smem, g)
+
+
+def plan_p2g(nch: int, g: int, k: int, apic: bool) -> GatherPlan:
+    """`p2g`'s plan: a block per (bucket row, band); the K slots of its
+    row may all be listed; a record is [t0, gx0 - base0, gx1 - base1, m v
+    (2), P (4, APIC), Q (4), plain (nch - 4)]."""
+    return plan_gather(g, 5 + 4 * apic + 4 + nch - 4, k, P2G_MAX_BAND, P2G_WARPS,
+                       P2G_BLOCKS_PER_SM)
+
+
 def _nch(pdata: torch.Tensor) -> int:
     nch = pdata.shape[1] - 8
     if nch not in (P2G_CH, P2G_CH_EXT):
@@ -326,18 +399,23 @@ def p2g(
     """P2G of prepped slot data.
 
     pdata (R, 8 + nch, K) f32 with nch = 6 or 9, counts (R,) int32 ->
-    (R, 5, nch, G) f32.  Slots at or past counts[i] are skipped."""
+    (R, 5, nch, G) f32.  Slots at or past counts[i] are skipped.  On the
+    card every node sums its slots in a fixed order: two calls on the
+    same inputs give bitwise equal outputs.  A block lists a bucket row's
+    slots in shared memory, so K is at most some 36,000 there
+    (`plan_p2g` raises past it; the scenes use 4,096-5,376)."""
     r, f, k = pdata.shape
     nch = _nch(pdata)
     _check("pdata", pdata, (r, f, k), torch.float32)
     _check("counts", counts, (r,), torch.int32)
     if _route(pdata, counts) == "cpu":
         return p2g_plain(pdata, counts, g, dx, tent, apic)
+    plan = plan_p2g(nch, g, k, apic)
     lib = _build.load().lib
     out = torch.empty((r, NT, nch, g), dtype=torch.float32, device=pdata.device)
     rc = lib.mpm_p2g(
         _ptr(pdata), _ptr(counts), _ptr(out), r, k, g, nch, dx, int(apic), int(tent),
-        _stream(pdata),
+        plan.band, plan.cap, _stream(pdata),
     )
     LAUNCHES["p2g"] += 1
     _raise_on(rc, "p2g")

@@ -11,10 +11,11 @@ run in no order, so here a P2G block owns its output and pulls the taps
 of its source pencils' slots, and G2P gathers each slot's 27 nodes:
 
 - `p2g3d` (csrc/p2g3d.cu) replaces the Pallas `p2g3d` (transfer3d.py:349,
-  pallas_call :408): the scatter of prepped fields [m v, P, Q, m (, V0 J,
+  pallas_call :408): the transfer of prepped fields [m v, P, Q, m (, V0 J,
   V0, V0 p, V0 div)] into the expanded (R0, 5, G1, nch, G2) layout that
   `fold_rows0` folds; one block per (source axis-0 row, target axis-1
-  row) owns its (5, nch, G2) slab in shared memory.
+  row) gathers its nodes' taps in a fixed order (no float atomics; reruns
+  are bitwise equal); `plan_p2g3d` sizes its z bands and staging window.
 - `p2g3d_grid` (csrc/p2g3d_grid.cu) replaces the Pallas `p2g3d_grid`
   (transfer3d.py:622, pallas_call :709) in one launch: a block owns a tile
   of target pencils, pulls the taps of its source pencils' slots (the
@@ -86,7 +87,8 @@ import torch
 from mpm_flip98a_tpu_torch import _build
 from mpm_flip98a_tpu_torch.models import colliders as col
 from mpm_flip98a_tpu_torch.ops.cuda.transfer2d import (
-    EOS_CODES, _check, _col_weights, _ptr, _raise_on, _route, _shard_rows, _stream, _taps,
+    EOS_CODES, GatherPlan, _check, _col_weights, _ptr, _raise_on, _route, _shard_rows, _stream,
+    _taps, plan_gather,
 )
 
 NT = 5            # candidate target rows per bucketed axis: bucket row - 1 .. + 3
@@ -116,6 +118,12 @@ SMEM_BLOCK = SMEM_SM // BLOCKS_PER_SM - 1_024 - SMEM_STATIC
 TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
 MAX_SOURCES = 144
 MIN_BAND = 32
+# p2g3d's gather (csrc/p2g3d.cu): P2G3D_WARPS warps a block (its kWarps),
+# P2G3D_BLOCKS_PER_SM blocks an SM (its kBlocksPerSM), at most
+# P2G3D_MAX_BAND z columns a block.
+P2G3D_WARPS = 8
+P2G3D_BLOCKS_PER_SM = 2
+P2G3D_MAX_BAND = 512
 
 # Kernel launches per wrapper (the plain versions do not count).
 LAUNCHES = {"p2g3d": 0, "p2g3d_grid": 0, "g2p3d": 0}
@@ -303,6 +311,15 @@ def p2g3d_plain(fields, counts, g1, g2, dx, apic=True, ext=False, tent=False):
     return _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=g1)
 
 
+def plan_p2g3d(nch: int, g2: int, k: int, apic: bool) -> GatherPlan:
+    """`p2g3d`'s plan: a block per (i0, axis-1 row, z band); the slots of
+    its five source pencils (5 K) may all be listed; a record is [t0, gx0 -
+    base0, gx2 - base2, w1, pure (9 APIC, 3 PIC), forced (9), plain (nch -
+    6)]."""
+    return plan_gather(g2, 4 + (9 if apic else 3) + 9 + nch - 6, NT * k, P2G3D_MAX_BAND,
+                       P2G3D_WARPS, P2G3D_BLOCKS_PER_SM)
+
+
 def _check_fields(fields, n_in: int):
     if len(fields) != n_in:
         raise ValueError(f"fields: expected {n_in} planes, got {len(fields)}")
@@ -327,6 +344,10 @@ def p2g3d(
     """Expanded P2G of prepped fields (the arguments of the JAX `p2g3d`):
     `n_prepped(apic, ext)` (R0, R1, K) planes, counts (R0 * R1,) int32 ->
     (R0, 5, G1, nch, G2), nch = 11 with `ext` else 7, for `fold_rows0`.
+    On the card every node sums its slots in a fixed order: two calls on
+    the same inputs give bitwise equal outputs.  A block lists its five
+    source pencils' slots in shared memory, so K is at most some 7,000
+    there (`plan_p2g3d` raises past it; the scenes use 512-1,280).
 
     The stress mode has no single-device caller and no path reaches
     `halo1`: both raise NotImplementedError."""
@@ -343,13 +364,14 @@ def p2g3d(
     _check("counts", counts, (r0 * r1,), torch.int32)
     if _route(counts, *fields) == "cpu":
         return p2g3d_plain(fields, counts, g1, g2, dx, apic, ext, tent)
-    lib = _build.load().lib
     nch = P2G_CH_EXT if ext else P2G_CH
+    plan = plan_p2g3d(nch, g2, k, apic)
+    lib = _build.load().lib
     out = torch.empty((r0, NT, g1, nch, g2), dtype=torch.float32, device=counts.device)
     ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)
     rc = lib.mpm_p2g3d(
         ptrs, pstr, _ptr(counts), _ptr(out), r0, r1, k, g1, g2, nch, int(apic), int(tent),
-        dx, _stream(counts),
+        dx, plan.band, plan.cap, _stream(counts),
     )
     LAUNCHES["p2g3d"] += 1
     _raise_on(rc, "p2g3d")

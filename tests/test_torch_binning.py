@@ -105,7 +105,7 @@ def test_rebucket_bit_exact(scale):
     drift = rng.uniform(-2.0, 2.0, b.x0.shape).astype(np.float32) * np.float32(FAST.dx)
     b = dataclasses.replace(b, x0=b.x0 + jnp.asarray(drift) * b.mask)
     fields = {f.name: np.asarray(getattr(b, f.name)) for f in dataclasses.fields(b)}
-    b_t = convert.buckets_from_numpy(fields)
+    b_t = convert.buckets_from_numpy(fields, device="cpu")
     _assert_buckets_equal(b_t, b)
     new = dataclasses.replace(spec, capacity=int(spec.capacity * scale))
     out_j = fast2d_jax.rebucket(b, FAST, new)

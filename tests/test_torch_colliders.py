@@ -199,7 +199,7 @@ def _setup(name):
     fields = {f.name: np.asarray(getattr(b, f.name)) for f in dataclasses.fields(b)}
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
     spec_t = fast2d.FastSpec(spec.rows, spec.capacity)
-    return (p, scene, spec, b), (scene_t, spec_t, convert.buckets_from_numpy(fields))
+    return (p, scene, spec, b), (scene_t, spec_t, convert.buckets_from_numpy(fields, device="cpu"))
 
 
 def _np(b, name):

@@ -202,7 +202,8 @@ def _states(kind):
     fields = {f.name: np.asarray(getattr(b, f.name)) for f in dataclasses.fields(b)}
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
     spec_t = fast3d.FastSpec3D(spec.rows0, spec.rows1, spec.capacity)
-    return (p, scene, spec, b, t0), (scene_t, spec_t, convert.buckets3d_from_numpy(fields))
+    b_t = convert.buckets3d_from_numpy(fields, device="cpu")
+    return (p, scene, spec, b, t0), (scene_t, spec_t, b_t)
 
 
 def _assert_tracks(got, want, what):

@@ -825,3 +825,102 @@ def test_p2g3d_grid_allocates_no_raw_buffer(dev):
     grown = torch.cuda.max_memory_allocated() - base
     out_bytes = got.numel() * got.element_size()
     assert out_bytes <= grown < out_bytes + (1 << 20), (grown, out_bytes)
+
+
+# ---------------------------------------------------------------------------
+# p2g and p2g3d sum every node over its slots in a fixed order (csrc/p2g.cu,
+# csrc/p2g3d.cu: a counting sort by base column, then a gather): two calls
+# on the same inputs are bitwise equal, also where one column holds a whole
+# bucket's slots (more than the staging window) and where slots sit on the
+# edges of the column bands.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 37), (40, 1024, 513), (24, 512, 2049)],
+                         ids=["small", "g513", "g2049_bands"])
+@pytest.mark.parametrize("nch", [6, 9])
+@pytest.mark.parametrize("apic,tent", [(False, False), (True, False), (False, True)],
+                         ids=["pic", "apic", "tent"])
+def test_p2g_reruns_are_bitwise_equal(dev, shape, nch, apic, tent):
+    r, k, g = shape
+    pdata, counts = _pdata(r, k, g, nch, seed=r + nch, device=dev)
+    dx = 0.4375 / (g - 5)
+    first = tk.p2g(pdata, counts, g, dx, tent, apic)
+    assert torch.equal(first, tk.p2g(pdata, counts, g, dx, tent, apic))
+
+
+def _p2g_edge_case(case, dev):
+    """Prepped rows with one full bucket row whose slots all sit in one
+    column ("crowded": 2048 slots, past the staging window), or with every
+    slot's columns within 2.5 of a column band's edge at G = 2049
+    ("band_edges")."""
+    if case == "crowded":
+        r, k, g = 8, 2048, 64
+        pdata, counts = _pdata(r, k, g, 9, seed=31, device=dev)
+        u = torch.rand((k,), generator=torch.Generator().manual_seed(32)).to(dev)
+        pdata[1, 1] = 20.5 + 0.999 * u          # counts[1] = K: base column 20
+        assert int(counts[1]) == k
+        assert tk.plan_p2g(9, g, k, False).cap < k
+    else:
+        r, k, g = 24, 512, 2049
+        pdata, counts = _pdata(r, k, g, 9, seed=33, device=dev)
+        band = tk.plan_p2g(9, g, k, False).band
+        assert band < g
+        gen = torch.Generator().manual_seed(34)
+        edge = band * torch.randint(1, -(-g // band), (r, k), generator=gen)
+        pdata[:, 1] = (edge + 5.0 * torch.rand((r, k), generator=gen) - 2.5).to(dev)
+    return pdata, counts, g, 0.4375 / (g - 5)
+
+
+@pytest.mark.parametrize("case", ["crowded", "band_edges"])
+@pytest.mark.parametrize("apic,tent", [(False, False), (True, True)], ids=["pic", "apic_tent"])
+def test_p2g_edge_cases_match_plain_and_rerun_equal(dev, case, apic, tent):
+    pdata, counts, g, dx = _p2g_edge_case(case, dev)
+    got = tk.p2g(pdata, counts, g, dx, tent, apic)
+    _close(got, tk.p2g_plain(pdata, counts, g, dx, tent, apic), axis=2)
+    assert torch.equal(got, tk.p2g(pdata, counts, g, dx, tent, apic))
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 16), (64, 128, 64), (8, 128, 2049)],
+                         ids=["small", "g64", "g2049_bands"])
+@pytest.mark.parametrize("apic,ext,tent", PREPPED_MODES, ids=PREPPED_IDS)
+def test_p2g3d_reruns_are_bitwise_equal(dev, shape, apic, ext, tent):
+    r, k, g = shape
+    fields, _, counts = _prepped3d(r, k, g, apic, ext, seed=r + apic, device=dev)
+    dx = 0.4375 / (g - 5)
+    first = tk3.p2g3d(fields, counts, r, g, dx, apic=apic, ext=ext, tent=tent)
+    assert torch.equal(first, tk3.p2g3d(fields, counts, r, g, dx, apic=apic, ext=ext, tent=tent))
+
+
+def _p2g3d_edge_case(case, apic, ext, dev):
+    """Prepped planes with one full pencil whose slots all sit in one z
+    column ("crowded": 1024 slots, past the staging window with its
+    neighbours), or with every slot's z columns within 2.5 of a z band's
+    edge at G2 = 2049 ("band_edges")."""
+    nch = tk3.P2G_CH_EXT if ext else tk3.P2G_CH
+    if case == "crowded":
+        r, k, g = 8, 1024, 32
+        fields, _, counts = _prepped3d(r, k, g, apic, ext, seed=35, device=dev)
+        u = torch.rand((k,), generator=torch.Generator().manual_seed(36)).to(dev)
+        fields[2][1, 1] = 12.5 + 0.999 * u     # counts[1, 1] = K: base z column 12
+        assert int(counts[r + 1]) == k
+        assert tk3.plan_p2g3d(nch, g, k, apic).cap < k
+    else:
+        r, k, g = 8, 128, 2049
+        fields, _, counts = _prepped3d(r, k, g, apic, ext, seed=37, device=dev)
+        band = tk3.plan_p2g3d(nch, g, k, apic).band
+        assert band < g
+        gen = torch.Generator().manual_seed(38)
+        edge = band * torch.randint(1, -(-g // band), (r, r, k), generator=gen)
+        fields[2].copy_((edge + 5.0 * torch.rand((r, r, k), generator=gen) - 2.5).to(dev))
+    return fields, counts, r, g, 0.4375 / (g - 5)
+
+
+@pytest.mark.parametrize("case", ["crowded", "band_edges"])
+@pytest.mark.parametrize("apic,ext,tent", [(True, False, False), (False, True, True)],
+                         ids=["apic7", "pic_ext_tent"])
+def test_p2g3d_edge_cases_match_plain_and_rerun_equal(dev, case, apic, ext, tent):
+    fields, counts, r, g, dx = _p2g3d_edge_case(case, apic, ext, dev)
+    got = tk3.p2g3d(fields, counts, r, g, dx, apic=apic, ext=ext, tent=tent)
+    _close(got, tk3.p2g3d_plain(fields, counts, r, g, dx, apic, ext, tent), axis=3)
+    assert torch.equal(got, tk3.p2g3d(fields, counts, r, g, dx, apic=apic, ext=ext, tent=tent))

@@ -62,7 +62,8 @@ def _setup(v=None, **kw):
     b = fast3d_jax.from_particles(p, scene.cfg, spec)
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
     spec_t = fast3d.FastSpec3D(spec.rows0, spec.rows1, spec.capacity)
-    return (p, scene, spec, b), (scene_t, spec_t, convert.buckets3d_from_numpy(_fields(b)))
+    b_t = convert.buckets3d_from_numpy(_fields(b), device="cpu")
+    return (p, scene, spec, b), (scene_t, spec_t, b_t)
 
 
 @pytest.mark.parametrize("scene", ["dam_break_3d", "slab_3d"])

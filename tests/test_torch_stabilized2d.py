@@ -123,7 +123,7 @@ def _states(variant, perturb=True):
         b = dataclasses.replace(b, **{n: jnp.asarray(a) for n, a in fields.items()
                                       if n != "overflow"})
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
-    return (scene, spec, b), (scene_t, convert.buckets_from_numpy(fields))
+    return (scene, spec, b), (scene_t, convert.buckets_from_numpy(fields, device="cpu"))
 
 
 def _np(b, name):
@@ -272,7 +272,7 @@ def test_stresses_at_finite_strain_match_jax_materials():
     scene_fast = dataclasses.replace(
         convert.scene_from_fields(dataclasses.asdict(scene)), params=params_t,
         materials_present=present)
-    tau, _, _ = fast2d._stress(convert.buckets_from_numpy(fields), scene_fast)
+    tau, _, _ = fast2d._stress(convert.buckets_from_numpy(fields, device="cpu"), scene_fast)
     got["fast2d"] = torch.stack(tau, -1).reshape(n, 2, 2).numpy()
     want["fast2d"] = want["mixed"]
     for key in want:

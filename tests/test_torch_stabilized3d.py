@@ -115,7 +115,7 @@ def _states(variant, perturb=True):
             b, **{n: jnp.asarray(a) for n, a in fields.items() if n != "overflow"})
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
     spec_t = fast3d.FastSpec3D(spec.rows0, spec.rows1, spec.capacity)
-    return (scene, spec, b), (scene_t, spec_t, convert.buckets3d_from_numpy(fields))
+    return (scene, spec, b), (scene_t, spec_t, convert.buckets3d_from_numpy(fields, device="cpu"))
 
 
 def _np(b, name):
@@ -166,7 +166,8 @@ def test_stabilized_run_across_a_rebucket_tracks_jax():
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
     spec_t = fast3d.FastSpec3D(spec.rows0, spec.rows1, spec.capacity)
     stats = fast3d.RunStats()
-    out_t = fast3d.run(convert.buckets3d_from_numpy(_np_fields(b)), scene_t, spec_t, 25, stats)
+    b_t = convert.buckets3d_from_numpy(_np_fields(b), device="cpu")
+    out_t = fast3d.run(b_t, scene_t, spec_t, 25, stats)
     out = fast3d_jax.run(b, scene, spec, 25)
     assert stats.rebuckets >= 1 and stats.substeps == 25
     np.testing.assert_array_equal(_np(out_t, "mask"), _np(out, "mask"))
@@ -303,7 +304,7 @@ def test_stresses_at_finite_strain_match_jax_materials():
     scene_fast = dataclasses.replace(
         convert.scene_from_fields(dataclasses.asdict(scene)), params=params_t,
         materials_present=present)
-    tau, p_point, _ = fast3d._stress(convert.buckets3d_from_numpy(fields), scene_fast)
+    tau, p_point, _ = fast3d._stress(convert.buckets3d_from_numpy(fields, device="cpu"), scene_fast)
     got["fast3d"] = torch.stack(tau, -1).reshape(n, 3, 3).numpy()
     want["fast3d"] = want["mixed"]
     for key in want:
