@@ -13,7 +13,10 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                the 2D main path's inputs at the bench scale (1M particles,
                513^2 grid, dt = 2e-6: bench.py:179-189) after 20
                substeps, plus P2G's partition of unity there and on a
-               ragged synthetic case;
+               ragged synthetic case (PIC linear, and APIC Tait);
+               p2g_fused's achieved bytes per second and two reruns
+               bitwise equal to a first (it sums in a fixed order) at
+               bench 1M and on the ragged APIC Tait case;
 4. main:2d     the CLI on dam2d_flip98 (2 frames x 200 substeps), then
                the same Simulation at the bench scale (2 frames x 100
                substeps): launch counters, finite state, no overflow,
@@ -100,12 +103,15 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                sharded runs alone, counted (p2g_grid and the prepadded g2p
                once per substep);
 20. kernels:sharded2d  on those sharded states: p2g_grid's raw mode (fused
-               at bench 1M, prepped 9 channels at stab1M, one launch for
-               all shards) against p2g_grid_plain and against
-               fold_rows_halo of p2g_fused / p2g per shard, with its mass
+               at bench 1M, prepped 9 channels at stab1M, one call for all
+               shards: the gather and the fold) against p2g_grid_plain and
+               against fold_rows_halo of p2g_fused / p2g per shard (within
+               1e-5, and whether bitwise equal: "equal_to_fold"), with its mass
                sum; the prepadded g2p against plain on the halo-synced
                grid; a ragged tent case at G = 2049 in 4 shards; CUDA-event
-               times, plain times, bounds and halo_sync's time;
+               times, plain times, bounds, p2g_grid's achieved bytes per
+               second and two reruns bitwise equal to a first at the three
+               shapes; halo_sync's time;
 21. timing:sharded  ms per substep of the sharded and the single-device
                run, interleaved, median of 3 x 100 substeps (2D);
 22. main:sharded migrate37  37^2, dt 4e-5, 8 shards, 3000 substeps against
@@ -145,8 +151,10 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
-last lists every kernel with its launches, error, times and bound (p2g
-and p2g3d with "rerun_bitwise_equal", p2g with its drop1M time; g2p
+last lists every kernel with its launches, error, times and bound (p2g,
+p2g_fused, p2g_grid and p2g3d with "rerun_bitwise_equal", p2g_fused and
+p2g_grid with "achieved_bytes_per_s", p2g_grid with "equal_to_fold" and
+"fold_max_abs_diff", p2g with its drop1M time; g2p
 also with its 7-channel mode's under "ext_*", g2p and p2g with their tent
 modes' under "tent_*", p2g3d_grid with its prepped 11-channel mode's under
 "prepped_*", g2p3d with its 9-channel gather mode's under "gather_*", both
@@ -178,9 +186,9 @@ import torch
 
 # Kernel-against-plain bound, per output channel, scaled by the channel's
 # max: both sides sum each node's fp32 terms in another order (shared-memory
-# atomics in p2g_fused, p2g_grid and p2g3d_grid, a fixed order of their own
-# in p2g and p2g3d, atomics in the plain index_add_, FMA contraction in the
-# kernels).
+# atomics in p2g3d_grid, a fixed order of their own in p2g, p2g_fused,
+# p2g_grid and p2g3d, atomics in the plain index_add_, FMA contraction in
+# the kernels).
 KERNEL_REL_TOL = 1e-5
 POU_REL_TOL = 1e-6           # P2G mass channel vs total particle mass
 BENCH = dict(                # bench.py:179-189, the 1M / 513^2 dam break
@@ -208,13 +216,13 @@ ROUTE_TOL = {"x": 2e-8, "v": 2e-5, "J": 1e-6}
 MIGRATE = dict(num_grids=37, dt=4e-5, num_particles_x=16, num_particles_y=32, shards=8,
                substeps=3000)
 TPU_KERNELS = {
-    "p2g_fused": ("mpm_flip98a_tpu_torch/csrc/p2g_fused.cu",
+    "p2g_fused": ("mpm_flip98a_tpu_torch/csrc/p2g.cu",
                   "mpm_flip98a_tpu/ops/pallas/transfer2d.py:412"),
     "g2p": ("mpm_flip98a_tpu_torch/csrc/g2p.cu",
             "mpm_flip98a_tpu/ops/pallas/transfer2d.py:843"),
     "p2g": ("mpm_flip98a_tpu_torch/csrc/p2g.cu",
             "mpm_flip98a_tpu/ops/pallas/transfer2d.py:304"),
-    "p2g_grid": ("mpm_flip98a_tpu_torch/csrc/p2g_grid.cu",
+    "p2g_grid": ("mpm_flip98a_tpu_torch/csrc/p2g.cu",
                  "mpm_flip98a_tpu/ops/pallas/transfer2d.py:597"),
     "p2g3d": ("mpm_flip98a_tpu_torch/csrc/p2g3d.cu",
               "mpm_flip98a_tpu/ops/pallas/transfer3d.py:349"),
@@ -270,11 +278,15 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
 
 
 # p2g3d_grid's tile plan at each timed shape and whether reruns of its
-# stress mode at the slab 8M state are bitwise equal (kernels line); p2g
-# and p2g3d sum in a fixed order: their reruns at every timed shape must be
-# bitwise equal (rerun_equal), and a false fails the run.
+# stress mode at the slab 8M state are bitwise equal (kernels line); p2g,
+# p2g_fused, p2g_grid and p2g3d sum in a fixed order: their reruns at every
+# timed shape must be bitwise equal (rerun_equal), and a false fails the
+# run.  p2g_grid against fold_rows_halo of the single-device kernel: all
+# bitwise equal, and the largest difference (kernels line).
 PLANS = {}
 RERUNS = {}
+FOLD = {"equal": True, "max_abs_diff": 0.0}
+ACHIEVED = {}                # bytes per second of the timed kernels, by key
 
 
 def rerun_equal(tag, name, call, card):
@@ -1057,7 +1069,7 @@ def local_rows(data, shards):
 
 
 def compare_p2g_grid(tag, data, counts, kw, shards, g, dx, card):
-    """`p2g_grid` raw (one launch for all shards) against `p2g_grid_plain`
+    """`p2g_grid` raw (one call for all shards) against `p2g_grid_plain`
     and against fold_rows_halo of the single-device kernels (`p2g_fused` or
     `p2g`) per shard, every channel to 1e-5 of its max; the mass channel's
     sum against the live slots' mass (every tap of these inputs lies in
@@ -1078,6 +1090,10 @@ def compare_p2g_grid(tag, data, counts, kw, shards, g, dx, card):
                                                 counts[s * l : (s + 1) * l]))
                        for s in range(shards)])
     _, rel_via = scaled_errors(got, via, axis=2)
+    equal = torch.equal(got, via)
+    diff = float((got - via).abs().max())
+    FOLD["equal"] = FOLD["equal"] and equal
+    FOLD["max_abs_diff"] = max(FOLD["max_abs_diff"], diff)
     del via
     live = torch.arange(data.shape[2], device=data.device)[None, :] < counts[:, None]
     m_total = (data[:, 9 if kw["fused"] else 12].double() * live).sum().item()
@@ -1087,19 +1103,25 @@ def compare_p2g_grid(tag, data, counts, kw, shards, g, dx, card):
         f"tent {kw.get('tent', False)}, G {g}: max_abs_err per channel "
         f"{['%.3e' % e for e in err]}; worst channel {worst}: {rel[worst]:.2e} of its max "
         f"(tol {KERNEL_REL_TOL}); against fold_rows_halo of the single-device kernel "
-        f"{max(rel_via):.2e}; mass sum rel err {pou:.3e} (tol {POU_REL_TOL})  [{card}]")
+        f"{max(rel_via):.2e}, bitwise equal {equal} (max |diff| {diff:.3e}); mass sum rel err "
+        f"{pou:.3e} (tol {POU_REL_TOL})  [{card}]")
     check(max(rel) <= KERNEL_REL_TOL, f"{tag}: p2g_grid disagrees with its plain version")
     check(max(rel_via) <= KERNEL_REL_TOL, f"{tag}: p2g_grid disagrees with the fold of p2g")
     check(pou <= POU_REL_TOL, f"{tag}: p2g_grid partition of unity")
     return max(err), got
 
 
-def p2g_grid_bound(data, counts, shards, nch, g):
-    """Live slots' rows + counts in, the raw (n, L + 4, nch, G) sums out;
-    9 taps x nch channels of multiply-adds per live slot."""
+def p2g_grid_bytes(data, counts, shards, nch, g):
+    """Live slots' rows + counts in, the raw (n, L + 4, nch, G) sums out."""
     r, f, _ = data.shape
-    live = int(counts.sum())
-    return bound(4 * (f * live + r + (r + 4 * shards) * nch * g), live * 9 * nch * 2)
+    return 4 * (f * int(counts.sum()) + r + (r + 4 * shards) * nch * g)
+
+
+def p2g_grid_bound(data, counts, shards, nch, g):
+    """p2g_grid_bytes against 9 taps x nch channels of multiply-adds per
+    live slot."""
+    return bound(p2g_grid_bytes(data, counts, shards, nch, g),
+                 int(counts.sum()) * 9 * nch * 2)
 
 
 def ensemble(sim):
@@ -1288,6 +1310,11 @@ def sharded2d_phases(dev, card, args, err, kernel_ms, plain_ms, bounds, launches
                                 False, card, prepadded=True)
         kernel_ms[key] = cuda_ms(lambda: tk.p2g_grid(data, counts, g, dx, raw=True,
                                                      shards=shards, **kw))
+        rerun_equal(f"kernels:sharded2d {tag}", "p2g_grid", lambda: tk.p2g_grid(
+            data, counts, g, dx, raw=True, shards=shards, **kw), card)
+        ACHIEVED[key] = achieved(f"p2g_grid at {tag} in {shards} shards",
+                                 p2g_grid_bytes(data, counts, shards, raw.shape[2], g),
+                                 kernel_ms[key], card)
         plain_ms[key] = cuda_ms(lambda: tk.p2g_grid_plain(data, counts, g, dx, shards=shards,
                                                           **kw), reps=3, warm=1)
         bounds[key] = p2g_grid_bound(data, counts, shards, raw.shape[2], g)
@@ -1302,7 +1329,7 @@ def sharded2d_phases(dev, card, args, err, kernel_ms, plain_ms, bounds, launches
         halo = raw.clone()
         timing[f"halo {tag}"] = cuda_ms(lambda: ctx.halo_sync(halo))
         say(f"[kernels:sharded2d {tag}] at {shards} shards (buckets {r2}x{k2}, {live2} live): "
-            f"p2g_grid {kernel_ms[key]:.4f} ms (CUDA events, 20 calls, one launch each), plain "
+            f"p2g_grid {kernel_ms[key]:.4f} ms (CUDA events, 20 calls: gather + fold), plain "
             f"{plain_ms[key]:.4f} ms (3 calls), bound {bounds[key][0]:.4f} ms "
             f"({bounds[key][1]}); g2p prepadded ({gch} channels) {kernel_ms[gkey]:.4f} ms, plain "
             f"{plain_ms[gkey]:.4f}, bound {bounds[gkey][0]:.4f} ({bounds[gkey][1]}); halo_sync "
@@ -1318,6 +1345,11 @@ def sharded2d_phases(dev, card, args, err, kernel_ms, plain_ms, bounds, launches
     kernel_ms["p2g_grid_tent"] = cuda_ms(lambda: tk.p2g_grid(rp, rc, rg, rdx, raw=True,
                                                              shards=shards, **rkw))
     bounds["p2g_grid_tent"] = p2g_grid_bound(rp, rc, shards, 9, rg)
+    rerun_equal("kernels:sharded2d ragged tent", "p2g_grid", lambda: tk.p2g_grid(
+        rp, rc, rg, rdx, raw=True, shards=shards, **rkw), card)
+    ACHIEVED["p2g_grid_tent"] = achieved("p2g_grid on the ragged tent case",
+                                         p2g_grid_bytes(rp, rc, shards, 9, rg),
+                                         kernel_ms["p2g_grid_tent"], card)
     say(f"[kernels:sharded2d ragged tent] p2g_grid {kernel_ms['p2g_grid_tent']:.4f} ms at "
         f"{tuple(rp.shape)}, G {rg}, bound {bounds['p2g_grid_tent'][0]:.4f} ms  [{card}]")
     del rp, rp2, rc
@@ -1901,6 +1933,12 @@ def main(argv=None) -> int:
     )
     rs, rp, rc, rgrid, rg = ragged_inputs(dev)
     compare_kernels("ragged", rs, rp, rc, rgrid, {**p_args, "g": rg}, dinv, card)
+    args_at = {**p_args, "g": rg, "apic": True, "eos": "tait"}
+    compare_kernels("ragged apic tait", rs, rp, rc, rgrid, args_at, dinv, card)
+    rerun_equal("kernels:2d bench", "p2g_fused", lambda: tk.p2g_fused(sdata, counts, **p_args),
+                card)
+    rerun_equal("kernels:2d ragged apic tait", "p2g_fused",
+                lambda: tk.p2g_fused(rs, rc, **args_at), card)
     kernel_ms = {
         "p2g_fused": cuda_ms(lambda: tk.p2g_fused(sdata, counts, **p_args)),
         "g2p": cuda_ms(lambda: tk.g2p(pdata2, counts, grid_bench, p_args["dx"], dinv)),
@@ -1924,6 +1962,9 @@ def main(argv=None) -> int:
         say(f"[kernels:2d] {name} at bench shapes: kernel {kernel_ms[name]:.4f} ms, "
             f"plain {plain_ms[name]:.4f} ms (CUDA events, 20 calls), bound "
             f"{bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
+    ACHIEVED["p2g_fused"] = achieved("p2g_fused at bench 1M",
+                                     4 * (11 * live2 + r2 + r2 * 25 * g2d),
+                                     kernel_ms["p2g_fused"], card)
     del b, sdata, pdata2, counts, grid_bench, rs, rp, rc, rgrid
 
     # ---- 4. main:2d ---------------------------------------------------------
@@ -2348,7 +2389,18 @@ def main(argv=None) -> int:
     })
     # p2g_grid's prepped 9-channel mode at stab1M in 4 shards and its tent
     # mode on the ragged case, beside the fused mode at bench 1M.
+    # p2g_fused and p2g_grid sum in a fixed order too (reruns checked above
+    # at every timed shape); p2g_grid against fold_rows_halo of p2g_fused /
+    # p2g per shard.
+    next(k for k in kernels if k["name"] == "p2g_fused").update({
+        "rerun_bitwise_equal": RERUNS["p2g_fused"],
+        "achieved_bytes_per_s": ACHIEVED["p2g_fused"]})
     next(k for k in kernels if k["name"] == "p2g_grid").update({
+        "rerun_bitwise_equal": RERUNS["p2g_grid"], "equal_to_fold": FOLD["equal"],
+        "fold_max_abs_diff": FOLD["max_abs_diff"],
+        "achieved_bytes_per_s": ACHIEVED["p2g_grid"],
+        "prepped_achieved_bytes_per_s": ACHIEVED["p2g_grid_prepped"],
+        "tent_achieved_bytes_per_s": ACHIEVED["p2g_grid_tent"],
         "prepped_launches": launches["p2g_grid prepped"],
         "prepped_max_abs_err": err["p2g_grid_prepped"], "prepped_ms": kernel_ms["p2g_grid_prepped"],
         "prepped_plain_ms": plain_ms["p2g_grid_prepped"],

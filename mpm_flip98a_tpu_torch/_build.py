@@ -36,16 +36,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu).  Without argtypes ctypes
 # passes every pointer as a 32-bit int.
 SIGNATURES = {
+    # sdata, counts, out, R, K, G, dx, apic, tait, kb, kb/gamma, gamma, 2 mu,
+    # mu, fa, band, cap, stream
     "mpm_p2g_fused": (
-        _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _P,
+        _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P,
     ),
     # pdata, counts, out, R, K, G, nch, dx, apic, tent, band, cap, stream
     "mpm_p2g": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
-    # data, counts, out, shards, L, K, G, nch, fused, tent, dx, apic, tait,
-    # kb, kb/gamma, gamma, 2 mu, mu, fa, stream
+    # data, counts, expanded scratch, ranges scratch, out, shards, L, K, G,
+    # nch, fused, tent, dx, apic, tait, kb, kb/gamma, gamma, 2 mu, mu, fa,
+    # band, cap, stream
     "mpm_p2g_grid": (
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F,
-        _F, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F,
+        _F, _F, _F, _I, _I, _P,
     ),
     # pdata2, counts, grid, out, R, L, pad, K, G, grid channels, tent, dx,
     # dinv, dinv dx, stream

@@ -1,30 +1,49 @@
-// P2G of prepped slot data over row-bucketed particles, for Hopper (sm_90a).
+// P2G over row-bucketed particles, for Hopper (sm_90a): prepped slot data
+// (`p2g`), the fused fluid stress (`p2g_fused`), and either of them folded
+// into the raw halo rows of slab shards (`p2g_grid`), one gather kernel.
 //
-// Replaces the Pallas TPU kernel `p2g` in
-// mpm_flip98a_tpu/ops/pallas/transfer2d.py (def :304, pallas_call :323,
-// body _p2g_kernel :176 -> _p2g_chunk :197 -> _p2g_core :210).  The TPU
-// kernel builds a dense (K, G) one-hot column-weight matrix and scatters
-// with an MXU product; here each node gathers the taps of its slots.
+// Replaces three Pallas TPU kernels in mpm_flip98a_tpu/ops/pallas/transfer2d.py:
+//   `p2g`       (def :304, pallas_call :323, body _p2g_kernel :176 ->
+//               _p2g_chunk :197 -> _p2g_core :210);
+//   `p2g_fused` (def :412, pallas_call :433, body _p2g_fused_chunk :367
+//               -> _p2g_core :210);
+//   `p2g_grid`  (def :597, pallas_call :666, body _p2g_grid_kernel :456) in
+//               its raw mode, the one the slab-sharded path runs
+//               (mpm_flip98a_tpu/models/fast2d.py:744-762).
+// The TPU kernels build a dense (K, G) one-hot column-weight matrix and
+// scatter with an MXU product, `p2g_grid` folding the five candidate target
+// rows in a rolling VMEM scratch carried across its sequential grid; here
+// each node gathers the taps of its slots, and GPU blocks, which run in no
+// order, leave the fold to a second, elementwise launch.
 //
-// Contract (same as the TPU kernel):
+// Contract (same as the TPU kernels):
 //   pdata  (R, 8 + kNch, K) f32 = [gx0, gx1, m v0, m v1, P00, P01, P10,
 //          P11, Q00, Q01, Q10, Q11, *plain] with plain = [m, V] (kNch 6)
 //          or [m, V0 J, V0, V0 p, V0 div] (kNch 9); every value row
 //          pre-masked (zeros in dead slots)
+//   or sdata (R, 11, K) f32 = [gx0, gx1, v0, v1, C00, C01, C10, C11, J,
+//          mass, vol0] (fused, kNch 5, plain = [m]): the fluid stress tau
+//          (linear or Tait EOS plus viscosity) per slot, Q = fa tau, + P =
+//          m C under APIC (transfer2d.py:376-401)
 //   counts (R,) i32 packed bucket counts (active slots first)
 //   out    (R, 5, kNch, G) f32: for bucket row i, target row t (grid row
-//          i + t - 1), channels [m v0, m v1, m v0 + f0, m v1 + f1, *plain].
+//          i + t - 1), channels [m v0, m v1, m v0 + f0, m v1 + f1, *plain];
+//          p2g_grid: R = n L rows of n slab shards, gx0 local to each shard,
+//          and out (n, L + 4, kNch, G), row j of shard s its local target
+//          row j - 1: fold_rows_halo of the (L, 5, kNch, G) sums per shard.
 // Channels 2-3 get w (m v_a + Q_a0 rdp + Q_a1 (c - gx1) dx); under APIC
 // channels 0-1 get the same with P, under PIC w m v_a.  A slot contributes
-// only when its base row floor(gx0 - 0.5) is within +-1 of i; slots at or
-// past min(counts[i], K) are skipped; taps on columns outside [0, G) are
-// dropped.  Taps are the quadratic B-spline or, with kTent, the linear hat.
-// The column-affine term is computed per tap, not as the TPU's rank-1 fold.
+// only when its base row floor(gx0 - 0.5) is within +-1 of i (of i mod L
+// on shards); slots at or past min(counts[i], K) are skipped; taps on
+// columns outside [0, G) are dropped.  Taps are the quadratic B-spline or,
+// with kTent (prepped only), the linear hat.  The column-affine term is
+// computed per tap, not as the TPU's rank-1 fold.
 //
 // Design: a fixed-order gather (taps.cuh, namespace gather), no float
 // atomics.  One block of 256 threads per (bucket row, column band); the
-// host's planner (ops/cuda/transfer2d.py, plan_p2g) picks the band (at most
-// 256 columns: 171 at G = 513) and the staging window `cap`.
+// host's planner (ops/cuda/transfer2d.py, plan_p2g / plan_p2g_fused)
+// picks the band (at most 256 columns: 171 at G = 513) and the staging
+// window `cap`.
 //   Walk: the block reads the row's positions once from device memory (8
 //   warps, each a contiguous range, four steps of loads in flight) and tags
 //   in shared memory each slot's base column when it is in the row margin
@@ -38,18 +57,29 @@
 //   once (neighbouring threads on neighbouring columns).  The slots a round
 //   needs are staged in shared memory in list order, `cap` records at a
 //   time ([t0, gx0 - base0, gx1 - base1, m v, P (APIC), Q, plain] in
-//   float4s), and stay staged for the next round while they are in the
+//   float4s; the fused record gets its stress when it is staged, from
+//   sdata), and stay staged for the next round while they are in the
 //   window.  A thread reads each of its slots' records once for all three
 //   of the slot's target rows: shared-memory bandwidth (a float per lane
 //   per cycle) bounds this loop, so the records are short and the taps are
 //   computed, not staged.
+//   Fold (p2g_grid): the gather writes every shard's (L, 5, kNch, G) sums
+//   into the caller's scratch buffer, only the columns each block has sums
+//   for (their range beside, in place of the zeros), then fold_halo_kernel
+//   adds each halo node's five terms from 0.0f in fold_rows_halo's order
+//   (target t = 0 .. 4 of bucket row j - t; 0.0f outside the ranges), a
+//   thread a halo column for all its channels.
 // Every node is written once, and its sum runs in the list's order
-// whatever order the threads ran in: the result is bitwise reproducible.
+// whatever order the threads ran in: the result is bitwise reproducible,
+// and p2g_grid's halo rows equal fold_rows_halo of p2g / p2g_fused per
+// shard bit for bit (the same kernel computes the sums; the sharded and
+// the single-device paths round alike).
 //
-// What bounds it on the H100: bytes (each live slot's 8 + kNch rows read,
-// the (5, kNch, G) rows written) and, above them, the latency of each
-// block's walk, sort and staging at three blocks an SM; no
-// compare-and-swap loop.
+// What bounds it on the H100: bytes (each live slot's 8 + kNch or 11 rows
+// read, the (5, kNch, G) rows written; p2g_grid writes the columns with
+// sums, and its fold reads them back and writes (L + 4, kNch, G) a shard)
+// and, above them, the latency of each block's walk, sort and staging at
+// three blocks an SM; no compare-and-swap loop.
 
 #include <cuda_runtime.h>
 
@@ -65,8 +95,15 @@ constexpr int kWarps = kThreads / 32;
 // planner (transfer2d.py's P2G_BLOCKS_PER_SM) follow it.
 constexpr int kBlocksPerSM = 3;
 
+// Fluid constants of the fused-stress record (transfer2d.py:376-401).
+struct Fluid2d {
+  int tait;
+  float kb, kb_over_gamma, gamma, two_mu, mu, fa;
+};
+
 // Staged record of one slot, in float4s: [t0 (int bits), gx0 - base0,
-// gx1 - base1, m v (2), P (4, APIC only), Q (4), plain (kNch - 4)].
+// gx1 - base1, m v (2), P (4, APIC only), Q (4), plain (kNch - 4)]; the
+// fused record (kNch 5) has plain = [m].
 template <int kNch, bool kApic>
 struct Rec2d {
   static constexpr int kQ = 5 + (kApic ? 4 : 0);
@@ -74,8 +111,14 @@ struct Rec2d {
   static constexpr int kVec = (kPlain + kNch - 4 + 3) / 4;
 };
 
-template <int kNch, bool kApic>
+// Slot k's record from the bucket row at `row` (stride K).  Prepped
+// (kFused false): the pdata rows as they are; PIC ignores P.  Fused: from
+// the sdata rows, the weakly-compressible fluid stress tau (linear or Tait
+// EOS plus viscosity), P = m C (APIC only), Q = P + fa tau (fa tau under
+// PIC), plain = [m].
+template <int kNch, bool kApic, bool kFused>
 __device__ __forceinline__ void make_rec(const float* row, int K, int k, float fi,
+                                         const Fluid2d& f,
                                          float r[4 * Rec2d<kNch, kApic>::kVec]) {
   using R = Rec2d<kNch, kApic>;
   const float gx0 = row[k], gx1 = row[K + k];
@@ -83,15 +126,50 @@ __device__ __forceinline__ void make_rec(const float* row, int K, int k, float f
   r[0] = __int_as_float(static_cast<int>(base0 - fi) + 1);  // target row of row tap 0
   r[1] = gx0 - base0;
   r[2] = gx1 - base1;
-  r[3] = row[2 * K + k];
-  r[4] = row[3 * K + k];
+  if constexpr (kFused) {
+    static_assert(kNch == 5, "the fused record has 5 channels");
+    const float v0 = row[2 * K + k], v1 = row[3 * K + k];
+    const float c00 = row[4 * K + k], c01 = row[5 * K + k];
+    const float c10 = row[6 * K + k], c11 = row[7 * K + k];
+    const float jj = row[8 * K + k], mass = row[9 * K + k];
+    const float vol0 = row[10 * K + k];
+    float pressure;
+    if (f.tait) {
+      const float j_safe = fmaxf(jj, 1e-3f);
+      pressure = f.kb_over_gamma * (powf(1.0f / j_safe, f.gamma) - 1.0f);
+    } else {
+      pressure = -f.kb * (jj - 1.0f);
+    }
+    const float div = c00 + c11;
+    const float vj = vol0 * jj;
+    const float t00 = vj * (-pressure + f.two_mu * (c00 - 0.5f * div));
+    const float t11 = vj * (-pressure + f.two_mu * (c11 - 0.5f * div));
+    const float t01 = vj * (f.mu * (c01 + c10));
+    const float tau[4] = {t00, t01, t01, t11};
+    const float c[4] = {c00, c01, c10, c11};
+    r[3] = mass * v0;
+    r[4] = mass * v1;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    if (kApic) r[5 + e] = row[(4 + e) * K + k];
-    r[R::kQ + e] = row[(8 + e) * K + k];
+    for (int e = 0; e < 4; ++e) {
+      if (kApic) {
+        r[5 + e] = mass * c[e];
+        r[R::kQ + e] = r[5 + e] + f.fa * tau[e];
+      } else {
+        r[R::kQ + e] = f.fa * tau[e];
+      }
+    }
+    r[R::kPlain] = mass;
+  } else {
+    r[3] = row[2 * K + k];
+    r[4] = row[3 * K + k];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kApic) r[5 + e] = row[(4 + e) * K + k];
+      r[R::kQ + e] = row[(8 + e) * K + k];
+    }
+#pragma unroll
+    for (int e = 0; e < kNch - 4; ++e) r[R::kPlain + e] = row[(12 + e) * K + k];
   }
-#pragma unroll
-  for (int e = 0; e < kNch - 4; ++e) r[R::kPlain + e] = row[(12 + e) * K + k];
 #pragma unroll
   for (int e = R::kPlain + kNch - 4; e < 4 * R::kVec; ++e) r[e] = 0.0f;
 }
@@ -155,11 +233,18 @@ __device__ __forceinline__ void visit(const float4* rec, float dx, float acc[kNT
   }
 }
 
-template <int kNch, bool kTent, bool kApic>
+// Bucket row i of a launch over R = n L rows is row i mod L of its shard
+// (L = R on one device).  With `ranges` (p2g_grid's gather) the block
+// writes only its columns with sums, all five target rows of them, and
+// their first and last column to ranges[(i, blockIdx.y)] (first > last
+// when it has none), in place of the zeros around them.
+template <int kNch, bool kTent, bool kApic, bool kFused>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-p2g_kernel(const float* __restrict__ pdata, const int* __restrict__ counts,
-           float* __restrict__ out, int K, int G, int band, int cap, float dx) {
+p2g_kernel(const float* __restrict__ data, const int* __restrict__ counts,
+           float* __restrict__ out, int* __restrict__ ranges, int L, int K, int G, int band,
+           int cap, float dx, Fluid2d fluid) {
   using R = Rec2d<kNch, kApic>;
+  constexpr int kFields = kFused ? 11 : 8 + kNch;
   extern __shared__ float4 smem[];
   float4* stage = smem;                                              // [cap][kVec]
   int* cnt = reinterpret_cast<int*>(stage + static_cast<size_t>(cap) * R::kVec);
@@ -173,8 +258,8 @@ p2g_kernel(const float* __restrict__ pdata, const int* __restrict__ counts,
   const int c0 = blockIdx.y * band;
   const int bw = min(band, G - c0);
   const int count = max(min(counts[i], K), 0);
-  const float* row = pdata + static_cast<size_t>(i) * (8 + kNch) * K;
-  const float fi = static_cast<float>(i);
+  const float* row = data + static_cast<size_t>(i) * kFields * K;
+  const float fi = static_cast<float>(i % L);
   const float blo = static_cast<float>(c0 - 2), bhi = static_cast<float>(c0 + bw - 1);
   // Base column of slot k when it is in the row margin and its columns
   // base1 .. base1 + 2 meet the band.
@@ -194,8 +279,14 @@ p2g_kernel(const float* __restrict__ pdata, const int* __restrict__ counts,
   const int zlo = nbins ? max(c0, bmin) : c0;
   const int zhi = nbins ? min(c0 + bw - 1, bmax + 2) : c0 - 1;
   float* orow = out + static_cast<size_t>(i) * kNT * kNch * G;
-  gather::zero_outside<kNT, kThreads>(orow, static_cast<long long>(kNch) * G, G, kNch, c0, bw,
-                                      zlo, zhi);
+  if (ranges == nullptr) {
+    gather::zero_outside<kNT, kThreads>(orow, static_cast<long long>(kNch) * G, G, kNch, c0, bw,
+                                        zlo, zhi);
+  } else if (threadIdx.x == 0) {
+    int* at = ranges + 2 * (static_cast<size_t>(i) * gridDim.y + blockIdx.y);
+    at[0] = zlo;
+    at[1] = zhi;
+  }
   if (nbins == 0) return;
 
   for (int e = threadIdx.x; e < nbins * kWarps; e += kThreads) cnt[e] = 0;
@@ -237,7 +328,7 @@ p2g_kernel(const float* __restrict__ pdata, const int* __restrict__ counts,
         staged_hi = min(total, sub + cap);
         gather::stage_window<kThreads, R::kVec>(
             staged_lo, staged_hi, stage, [&](int p, float* r) {
-              make_rec<kNch, kApic>(row, K, order[p], fi, r);
+              make_rec<kNch, kApic, kFused>(row, K, order[p], fi, fluid, r);
             });
         __syncthreads();
       }
@@ -267,9 +358,49 @@ p2g_kernel(const float* __restrict__ pdata, const int* __restrict__ counts,
   }
 }
 
-template <int kNch, bool kTent, bool kApic>
-int launch(const float* pdata, const int* counts, float* out, int R, int K, int G, int band,
-           int cap, float dx, cudaStream_t stream) {
+// out[s, j, ch, c] = the terms expanded[s L + j - t, t, ch, c] of the
+// bucket rows 0 <= j - t < L of shard s, added from 0.0f for t = 0 .. 4:
+// fold_rows_halo's order (ops/cuda/transfer2d.py).  A term outside the
+// columns its gather block wrote (ranges, per bucket row and band of
+// `band` columns) is 0.0f, as the single-device gather writes it.  One
+// thread a column c of halo row (s, j) = blockIdx.x, for all nch channels:
+// which of its five terms were written is worked out once, so the loop
+// over channels is loads and adds only (neighbouring threads on
+// neighbouring columns).
+__global__ void __launch_bounds__(kThreads)
+fold_halo_kernel(const float* __restrict__ expanded, const int2* __restrict__ ranges,
+                 float* __restrict__ out, int L, int nch, int G, int band) {
+  const int c = blockIdx.y * kThreads + threadIdx.x;
+  if (c >= G) return;
+  const int sj = blockIdx.x;  // s (L + 4) + j
+  const int s = sj / (L + kNT - 1), j = sj - s * (L + kNT - 1);
+  const int bands = (G + band - 1) / band, b = c / band;
+  const size_t cs = static_cast<size_t>(nch) * G;  // one target row of a bucket row
+  const float* term[kNT];
+  bool wrote[kNT];
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) {
+    const int i = j - t;
+    const bool in = i >= 0 && i < L;
+    const int bucket = s * L + (in ? i : 0);
+    const int2 r = ranges[bucket * bands + b];
+    term[t] = expanded + (static_cast<size_t>(bucket) * kNT + t) * cs + c;
+    wrote[t] = in && c >= r.x && c <= r.y;
+  }
+  float* o = out + static_cast<size_t>(sj) * cs + c;
+  for (int ch = 0; ch < nch; ++ch) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t) {
+      if (j - t >= 0 && j - t < L) acc = __fadd_rn(acc, wrote[t] ? term[t][ch * G] : 0.0f);
+    }
+    o[ch * G] = acc;
+  }
+}
+
+template <int kNch, bool kTent, bool kApic, bool kFused>
+int launch(const float* data, const int* counts, float* out, int* ranges, int R, int L, int K,
+           int G, int band, int cap, float dx, const Fluid2d& fluid, cudaStream_t stream) {
   using Rc = Rec2d<kNch, kApic>;
   const size_t smem = sizeof(float4) * Rc::kVec * static_cast<size_t>(cap) +
                       sizeof(int) * ((band + 2) * static_cast<size_t>(kWarps) + band + 3 + K) +
@@ -280,24 +411,37 @@ int launch(const float* pdata, const int* counts, float* out, int R, int K, int 
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(p2g_kernel<kNch, kTent, kApic>,
+  err = cudaFuncSetAttribute(p2g_kernel<kNch, kTent, kApic, kFused>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 blocks(R, (G + band - 1) / band);
-  p2g_kernel<kNch, kTent, kApic><<<blocks, kThreads, smem, stream>>>(pdata, counts, out, K, G,
-                                                                      band, cap, dx);
+  p2g_kernel<kNch, kTent, kApic, kFused><<<blocks, kThreads, smem, stream>>>(
+      data, counts, out, ranges, L, K, G, band, cap, dx, fluid);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kNch>
-int launch_nch(const float* pdata, const int* counts, float* out, int R, int K, int G,
-               int band, int cap, float dx, int apic, int tent, cudaStream_t s) {
-  if (tent) {
-    return apic ? launch<kNch, true, true>(pdata, counts, out, R, K, G, band, cap, dx, s)
-                : launch<kNch, true, false>(pdata, counts, out, R, K, G, band, cap, dx, s);
-  }
-  return apic ? launch<kNch, false, true>(pdata, counts, out, R, K, G, band, cap, dx, s)
-              : launch<kNch, false, false>(pdata, counts, out, R, K, G, band, cap, dx, s);
+// The gather in every mode: nch 5 (fused: B-spline only) or 6 / 9
+// (prepped); apic, tent 0/1; ranges as p2g_kernel's (null: every column).
+int launch_mode(const float* data, const int* counts, float* out, int* ranges, int R, int L,
+                int K, int G, int nch, int fused, int apic, int tent, int band, int cap,
+                float dx, const Fluid2d& f, cudaStream_t s) {
+#define MPM_P2G_LAUNCH(NCH, TENT, FUSED)                                                       \
+  (apic ? launch<NCH, TENT, true, FUSED>(data, counts, out, ranges, R, L, K, G, band, cap, dx, \
+                                         f, s)                                                 \
+        : launch<NCH, TENT, false, FUSED>(data, counts, out, ranges, R, L, K, G, band, cap, dx, \
+                                          f, s))
+  if (fused) return MPM_P2G_LAUNCH(5, false, true);
+  if (nch == 6) return tent ? MPM_P2G_LAUNCH(6, true, false) : MPM_P2G_LAUNCH(6, false, false);
+  return tent ? MPM_P2G_LAUNCH(9, true, false) : MPM_P2G_LAUNCH(9, false, false);
+#undef MPM_P2G_LAUNCH
+}
+
+// cudaErrorInvalidValue for an nch / mode the kernel has no form of or a
+// plan out of range, else 0.
+int check_args(int K, int nch, int fused, int tent, int band, int cap) {
+  const bool mode = fused ? nch == 5 && !tent : nch == 6 || nch == 9;
+  const bool plan = K >= 0 && band > 0 && cap > 0;
+  return mode && plan ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -310,10 +454,49 @@ int launch_nch(const float* pdata, const int* counts, float* out, int R, int K, 
 extern "C" int mpm_p2g(const float* pdata, const int* counts, float* out, int R, int K, int G,
                        int nch, float dx, int apic, int tent, int band, int cap,
                        void* stream) {
-  if (nch != 6 && nch != 9) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int bad = check_args(K, nch, 0, tent, band, cap)) return bad;
   if (R <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
-  if (K < 0 || band <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mode(pdata, counts, out, nullptr, R, R, K, G, nch, 0, apic, tent, band, cap, dx,
+                     Fluid2d{}, static_cast<cudaStream_t>(stream));
+}
+
+// The fused-stress form: sdata (R, 11, K), 5 channels, B-spline taps; apic,
+// tait: 0/1; the fluid constants kb, kb / gamma, gamma, 2 mu, mu and fa;
+// band, cap: the plan (transfer2d.py's plan_p2g_fused).  Returns a
+// cudaError_t as int, as mpm_p2g.
+extern "C" int mpm_p2g_fused(const float* sdata, const int* counts, float* out, int R, int K,
+                             int G, float dx, int apic, int tait, float kb, float kb_over_gamma,
+                             float gamma, float two_mu, float mu, float fa, int band, int cap,
+                             void* stream) {
+  if (const int bad = check_args(K, 5, 1, 0, band, cap)) return bad;
+  if (R <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
+  const Fluid2d fluid = {tait, kb, kb_over_gamma, gamma, two_mu, mu, fa};
+  return launch_mode(sdata, counts, out, nullptr, R, R, K, G, 5, 1, apic, 0, band, cap, dx,
+                     fluid, static_cast<cudaStream_t>(stream));
+}
+
+// p2g_grid's raw mode: n shards of L bucket rows (gx0 local to each
+// shard); nch 5 (fused, B-spline only), 6 or 9 (prepped); fused, apic,
+// tent: 0/1; the fluid constants are read in the fused mode only; band,
+// cap: the plan (transfer2d.py's plan_p2g).  expanded, ranges: the
+// caller's scratch for the gather's sums, (n L, 5, nch, G) f32, and the
+// columns each of its blocks wrote, (n L, bands, 2) i32; out: (n, L + 4,
+// nch, G).  Two launches on the stream, the gather and the fold.  Returns
+// a cudaError_t as int, as mpm_p2g.
+extern "C" int mpm_p2g_grid(const float* data, const int* counts, float* expanded, int* ranges,
+                            float* out, int n, int L, int K, int G, int nch, int fused, int tent,
+                            float dx, int apic, int tait, float kb, float kb_over_gamma,
+                            float gamma, float two_mu, float mu, float fa, int band, int cap,
+                            void* stream) {
+  if (const int bad = check_args(K, nch, fused, tent, band, cap)) return bad;
+  if (n <= 0 || L <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
+  const Fluid2d fluid = {tait, kb, kb_over_gamma, gamma, two_mu, mu, fa};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return nch == 6 ? launch_nch<6>(pdata, counts, out, R, K, G, band, cap, dx, apic, tent, s)
-                  : launch_nch<9>(pdata, counts, out, R, K, G, band, cap, dx, apic, tent, s);
+  const int err = launch_mode(data, counts, expanded, ranges, n * L, L, K, G, nch, fused, apic,
+                              tent, band, cap, dx, fluid, s);
+  if (err != 0) return err;
+  const dim3 blocks(n * (L + kNT - 1), (G + kThreads - 1) / kThreads);
+  fold_halo_kernel<<<blocks, kThreads, 0, s>>>(expanded, reinterpret_cast<const int2*>(ranges),
+                                              out, L, nch, G, band);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,11 +3,10 @@
 // on the same 3-node stencil, in the two forms the TPU kernels use
 // (mpm_flip98a_tpu/ops/pallas/transfer2d.py:123-159): per-tap weights of
 // the fractional offset on the bucketed axes, and a weight of the signed
-// distance along the last axis.  The 2D P2G kernels (p2g_fused.cu,
-// p2g_grid.cu) share the slot loaders and the tap adds of `Slot2d`; the 3D
-// ones (p2g3d.cu, p2g3d_grid.cu, g2p3d.cu) the prepped-plane block and
-// `Slot`.  The fixed-order gathers (p2g.cu, p2g3d.cu) share the sort and
-// the stores of namespace `gather` at the end.
+// distance along the last axis.  The 3D kernels (p2g3d.cu, p2g3d_grid.cu,
+// g2p3d.cu) share the prepped-plane block and `Slot`; the fixed-order
+// gathers (p2g.cu, p2g3d.cu) the sort and the stores of namespace `gather`
+// at the end.
 #pragma once
 
 #include <climits>
@@ -37,97 +36,6 @@ __device__ __forceinline__ void axis(float fx, float w[3]) {
     w[1] = 0.75f - (fx - 1.0f) * (fx - 1.0f);
     w[2] = 0.5f * (fx - 0.5f) * (fx - 0.5f);
   }
-}
-
-// ---- 2D ---------------------------------------------------------------
-//
-// One slot's P2G values on a row-bucketed (R, fields, K) input: m v, the
-// affine matrices P (pure momentum, APIC only) and Q (forced), each as
-// [00, 01, 10, 11], and the plain channels [m (, V or V0 J, V0, V0 p,
-// V0 div)].  Channels [m v0, m v1, m v0 + f0, m v1 + f1, *plain].
-template <int kPlain>
-struct Slot2d {
-  float mv[2], p[4], q[4], plain[kPlain];
-};
-
-// Fluid constants of the fused-stress scatter (transfer2d.py:376-401).
-struct Fluid2d {
-  int tait;
-  float kb, kb_over_gamma, gamma, two_mu, mu, fa;
-};
-
-// Fused mode: sdata rows [gx0, gx1, v0, v1, C00, C01, C10, C11, J, mass,
-// vol0] at `row` (stride K); the weakly-compressible fluid stress (linear
-// or Tait EOS plus viscosity) in registers, Q = P + fa tau.
-__device__ __forceinline__ void load_fused2d(const float* row, int K, int k, int apic,
-                                             const Fluid2d& f, Slot2d<1>& s) {
-  const float v0 = row[2 * K + k], v1 = row[3 * K + k];
-  const float c00 = row[4 * K + k], c01 = row[5 * K + k];
-  const float c10 = row[6 * K + k], c11 = row[7 * K + k];
-  const float jj = row[8 * K + k], mass = row[9 * K + k];
-  const float vol0 = row[10 * K + k];
-  float pressure;
-  if (f.tait) {
-    const float j_safe = fmaxf(jj, 1e-3f);
-    pressure = f.kb_over_gamma * (powf(1.0f / j_safe, f.gamma) - 1.0f);
-  } else {
-    pressure = -f.kb * (jj - 1.0f);
-  }
-  const float div = c00 + c11;
-  const float vj = vol0 * jj;
-  const float t00 = vj * (-pressure + f.two_mu * (c00 - 0.5f * div));
-  const float t11 = vj * (-pressure + f.two_mu * (c11 - 0.5f * div));
-  const float t01 = vj * (f.mu * (c01 + c10));
-  s.p[0] = apic ? mass * c00 : 0.0f;
-  s.p[1] = apic ? mass * c01 : 0.0f;
-  s.p[2] = apic ? mass * c10 : 0.0f;
-  s.p[3] = apic ? mass * c11 : 0.0f;
-  s.q[0] = s.p[0] + f.fa * t00;
-  s.q[1] = s.p[1] + f.fa * t01;
-  s.q[2] = s.p[2] + f.fa * t01;
-  s.q[3] = s.p[3] + f.fa * t11;
-  s.mv[0] = mass * v0;
-  s.mv[1] = mass * v1;
-  s.plain[0] = mass;
-}
-
-// Prepped mode: pdata rows [gx0, gx1, m v0, m v1, P (4), Q (4), *plain] at
-// `row` (stride K), every value row pre-masked; PIC ignores P.
-template <int kPlain>
-__device__ __forceinline__ void load_prepped2d(const float* row, int K, int k, int apic,
-                                               Slot2d<kPlain>& s) {
-  s.mv[0] = row[2 * K + k];
-  s.mv[1] = row[3 * K + k];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    s.p[e] = apic ? row[(4 + e) * K + k] : 0.0f;
-    s.q[e] = row[(8 + e) * K + k];
-  }
-#pragma unroll
-  for (int e = 0; e < kPlain; ++e) s.plain[e] = row[(12 + e) * K + k];
-}
-
-// The row part of the four momentum channels at row offset rdp = (node -
-// particle) dx: m v_a + A_a0 rdp with A = P (channels 0-1) or Q (2-3).
-template <int kPlain>
-__device__ __forceinline__ void row_affine2d(const Slot2d<kPlain>& s, float rdp, float r[4]) {
-  r[0] = s.mv[0] + s.p[0] * rdp;
-  r[1] = s.mv[1] + s.p[2] * rdp;
-  r[2] = s.mv[0] + s.q[0] * rdp;
-  r[3] = s.mv[1] + s.q[2] * rdp;
-}
-
-// Adds the 4 + kPlain channel values of one tap, weight w and column offset
-// cd = (c - gx1) dx, at at[ch * cs] (shared-memory atomics).
-template <int kPlain>
-__device__ __forceinline__ void add_tap2d(const Slot2d<kPlain>& s, const float r[4], float cd,
-                                          float w, float* at, int cs) {
-  atomicAdd(at, w * (r[0] + s.p[1] * cd));
-  atomicAdd(at + cs, w * (r[1] + s.p[3] * cd));
-  atomicAdd(at + 2 * cs, w * (r[2] + s.q[1] * cd));
-  atomicAdd(at + 3 * cs, w * (r[3] + s.q[3] * cd));
-#pragma unroll
-  for (int e = 0; e < kPlain; ++e) atomicAdd(at + (4 + e) * cs, w * s.plain[e]);
 }
 
 // ---- 3D ---------------------------------------------------------------

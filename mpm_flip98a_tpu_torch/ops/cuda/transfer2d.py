@@ -4,19 +4,23 @@ Counterpart of `mpm_flip98a_tpu/ops/pallas/transfer2d.py`.  The TPU
 kernels turn the column scatter/gather into dense one-hot matrix products
 for the MXU; on the GPU each particle simply touches its 3x3 nodes:
 
-- `p2g_fused` (csrc/p2g_fused.cu) replaces the Pallas `p2g_fused`
+- `p2g_fused` (csrc/p2g.cu) replaces the Pallas `p2g_fused`
   (transfer2d.py:412, pallas_call :433): fluid stress computed per slot,
-  then the quadratic B-spline scatter of [m v0, m v1, m v0 + f0, m v1 + f1,
-  m] to the 5 candidate target rows of each bucket row.
+  then the quadratic B-spline transfer of [m v0, m v1, m v0 + f0, m v1 +
+  f1, m] to the 5 candidate target rows of each bucket row.
 - `p2g` (csrc/p2g.cu) replaces the Pallas `p2g` (transfer2d.py:304,
   pallas_call :323): the same transfer of stress prepped outside the
-  kernel (`pdata`), 6 or 9 channels, B-spline or tent taps, as a
-  fixed-order gather (no float atomics; reruns are bitwise equal);
-  `plan_p2g` sizes its column bands and staging window.
-- `p2g_grid` (csrc/p2g_grid.cu) replaces the Pallas `p2g_grid`
+  kernel (`pdata`), 6 or 9 channels, B-spline or tent taps.
+- `p2g_grid` (csrc/p2g.cu) replaces the Pallas `p2g_grid`
   (transfer2d.py:597, pallas_call :666) in its raw mode, the slab-sharded
-  path's: the fused or prepped scatter folded into each shard's raw,
-  uncropped (L + 4, nch, G) halo rows, all shards in one launch.
+  path's: the fused or prepped transfer of every shard's rows in one
+  launch of the same kernel, then a fold launch into each shard's raw,
+  uncropped (L + 4, nch, G) halo rows.
+One fixed-order gather with no float atomics computes the three: reruns
+are bitwise equal, and `p2g_grid`'s output equals `fold_rows_halo` of
+`p2g` / `p2g_fused` per shard bit for bit.  `plan_p2g` (and
+`plan_p2g_fused` for the fused record) sizes its column bands and staging
+window.
 - `g2p` (csrc/g2p.cu) replaces the Pallas `g2p` (transfer2d.py:843,
   pallas_call :893) in its `update=False` form: vpic, the gathered
   pre-force velocity, C = D^-1 sum w v (x_node - x_p)^T and, with the
@@ -289,7 +293,11 @@ def p2g_fused(
     """Fused-stress P2G for the single-fluid config.
 
     sdata (R, 11, K) f32, counts (R,) int32 -> (R, 5, 5, G) f32.  Slots at
-    or past counts[i] are skipped (buckets are packed, actives first)."""
+    or past counts[i] are skipped (buckets are packed, actives first).  On
+    the card the stress is computed per slot in the kernel and every node
+    sums its slots in a fixed order (`p2g`'s kernel): two calls on the same
+    inputs give bitwise equal outputs; `plan_p2g_fused` raises past its K
+    limit."""
     r, f, k = sdata.shape
     _check("sdata", sdata, (r, 11, k), torch.float32)
     _check("counts", counts, (r,), torch.int32)
@@ -297,11 +305,13 @@ def p2g_fused(
         raise ValueError(f"unknown eos {eos!r}")
     if _route(sdata, counts) == "cpu":
         return p2g_fused_plain(sdata, counts, g, dx, apic, eos, kb, mu, gamma, fa)
+    plan = plan_p2g_fused(g, k, apic)
     lib = _build.load().lib
     out = torch.empty((r, NT, P2G_CH_FUSED, g), dtype=torch.float32, device=sdata.device)
     rc = lib.mpm_p2g_fused(
         _ptr(sdata), _ptr(counts), _ptr(out), r, k, g, dx, int(apic),
-        EOS_CODES[eos], kb, kb / gamma, gamma, 2.0 * mu, mu, fa, _stream(sdata),
+        EOS_CODES[eos], kb, kb / gamma, gamma, 2.0 * mu, mu, fa, plan.band, plan.cap,
+        _stream(sdata),
     )
     LAUNCHES["p2g_fused"] += 1
     _raise_on(rc, "p2g_fused")
@@ -356,11 +366,19 @@ def plan_gather(g: int, rec_floats: int, order: int, max_band: int, warps: int,
 
 
 def plan_p2g(nch: int, g: int, k: int, apic: bool) -> GatherPlan:
-    """`p2g`'s plan: a block per (bucket row, band); the K slots of its
-    row may all be listed; a record is [t0, gx0 - base0, gx1 - base1, m v
-    (2), P (4, APIC), Q (4), plain (nch - 4)]."""
+    """The 2D gather's plan (`p2g`; `p2g_grid` on the sharded path's
+    buckets, 25% wider than one device's): a block per (bucket row, band);
+    the K slots of its row may all be listed; a record is [t0, gx0 -
+    base0, gx1 - base1, m v (2), P (4, APIC), Q (4), plain (nch - 4)]."""
     return plan_gather(g, 5 + 4 * apic + 4 + nch - 4, k, P2G_MAX_BAND, P2G_WARPS,
                        P2G_BLOCKS_PER_SM)
+
+
+def plan_p2g_fused(g: int, k: int, apic: bool) -> GatherPlan:
+    """`p2g_fused`'s plan: `p2g`'s kernel on the 5-channel fused record
+    (10 floats under PIC, 14 under APIC, the stress computed when it is
+    staged)."""
+    return plan_p2g(P2G_CH_FUSED, g, k, apic)
 
 
 def _nch(pdata: torch.Tensor) -> int:
@@ -503,8 +521,14 @@ def p2g_grid(
     B-spline) or prepped pdata (R, 8 + nch, K), nch 6 or 9; counts (R,)
     int32; R = shards x L with gx0 local to each shard -> (shards, L + 4,
     nch, G) f32 (nch 5 fused), row j of shard s its target row j - 1,
-    uncropped.  The non-raw mode (the fold, the grid update and colliders
-    in the kernel, which only MPM_P2G_GRID=1 reaches in JAX) raises."""
+    uncropped.  On the card `p2g`'s gather sums every shard's rows into a
+    (R, 5, nch, G) scratch buffer (the columns with sums only, their
+    ranges beside) and a second launch folds it in `fold_rows_halo`'s
+    order: the output equals `fold_rows_halo` of `p2g_fused` / `p2g` per
+    shard bit for bit, and two calls on the same inputs are bitwise equal;
+    `plan_p2g` raises past its K limit.  The non-raw mode (the fold, the
+    grid update and colliders in the kernel, which only MPM_P2G_GRID=1
+    reaches in JAX) raises."""
     if not raw:
         raise NotImplementedError(
             "p2g_grid's non-raw mode (in-kernel fold, grid update and colliders, "
@@ -528,11 +552,15 @@ def p2g_grid(
               shards=shards)
     if _route(data, counts) == "cpu":
         return p2g_grid_plain(data, counts, g, dx, **kw)
+    plan = plan_p2g(nch, g, k, apic)
     lib = _build.load().lib
+    expanded = torch.empty((r, NT, nch, g), dtype=torch.float32, device=data.device)
+    ranges = torch.empty((r, plan.bands, 2), dtype=torch.int32, device=data.device)
     out = torch.empty((shards, l + NT - 1, nch, g), dtype=torch.float32, device=data.device)
     rc = lib.mpm_p2g_grid(
-        _ptr(data), _ptr(counts), _ptr(out), shards, l, k, g, nch, int(fused), int(tent), dx,
-        int(apic), EOS_CODES[eos], kb, kb / gamma, gamma, 2.0 * mu, mu, fa, _stream(data),
+        _ptr(data), _ptr(counts), _ptr(expanded), _ptr(ranges), _ptr(out), shards, l, k, g, nch,
+        int(fused), int(tent), dx, int(apic), EOS_CODES[eos], kb, kb / gamma, gamma, 2.0 * mu,
+        mu, fa, plan.band, plan.cap, _stream(data),
     )
     LAUNCHES["p2g_grid"] += 1
     _raise_on(rc, "p2g_grid")

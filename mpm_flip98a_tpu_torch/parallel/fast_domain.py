@@ -3,7 +3,7 @@
 The grid's row axis is cut into n slabs of L bucket rows, and because the
 fast path's bucket axis is the grid row axis, shard s owns the bucket rows
 [s L, (s + 1) L).  The transfer kernels run on each shard's local window
-(all shards in one launch); only two things cross shards, both O(halo):
+(all shards in one kernel call); only two things cross shards, both O(halo):
 
   1. the grid halo exchange, once per substep: `p2g_grid`'s raw fold keeps
      its edge target rows (1 below the slab, 3 above: the +-1-bucket drift

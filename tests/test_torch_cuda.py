@@ -7,9 +7,9 @@ import no JAX, so on a machine without it run them as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: per output channel, 1e-5 of the channel's max.  Both sides sum
-each node's fp32 terms in another order (shared-memory atomics in the P2G
-kernels, atomics in the plain `index_add_` on the card, FMA contraction in
-the G2P kernels).  The 3D
+each node's fp32 terms in another order (shared-memory atomics in
+`p2g3d_grid`, a fixed order of their own in the other P2G kernels, atomics
+in the plain `index_add_` on the card, FMA contraction in the kernels).  The 3D
 grid's velocities are sums divided by the nodal mass, so their error is
 weighted by that mass and scaled by the raw sum's max; G2P's C by one
 term's size, D^-1 dx |v|max, as its terms cancel.
@@ -498,7 +498,7 @@ def test_p2g_grid_kernel_matches_plain(dev, mode, shards):
     n0 = tk.LAUNCHES["p2g_grid"]
     got = tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["p2g_grid"] == n0 + 1         # one launch for all shards
+    assert tk.LAUNCHES["p2g_grid"] == n0 + 1         # one call for all shards
     want = tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw)
     assert got.shape == want.shape == (shards, r // shards + 4, want.shape[2], g)
     _close(got, want, axis=2)
@@ -924,3 +924,143 @@ def test_p2g3d_edge_cases_match_plain_and_rerun_equal(dev, case, apic, ext, tent
     got = tk3.p2g3d(fields, counts, r, g, dx, apic=apic, ext=ext, tent=tent)
     _close(got, tk3.p2g3d_plain(fields, counts, r, g, dx, apic, ext, tent), axis=3)
     assert torch.equal(got, tk3.p2g3d(fields, counts, r, g, dx, apic=apic, ext=ext, tent=tent))
+
+
+# ---------------------------------------------------------------------------
+# p2g_fused and p2g_grid run p2g's fixed-order gather (csrc/p2g.cu;
+# p2g_grid over every shard's rows, then a fold in fold_rows_halo's
+# order): reruns are bitwise equal, and p2g_grid's raw halo rows equal
+# fold_rows_halo of the single-device kernel per shard.
+# ---------------------------------------------------------------------------
+
+
+def _fused_args(g, apic, eos):
+    dx = 0.4375 / (g - 5)
+    return dict(g=g, dx=dx, apic=apic, eos=eos, kb=KB, mu=MU, gamma=GAMMA,
+                fa=-2e-5 * 4.0 / dx**2)
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 37), (40, 1024, 513), (24, 512, 2049)],
+                         ids=["small", "g513", "g2049_bands"])
+@pytest.mark.parametrize("apic,eos", [(False, "linear"), (True, "tait")],
+                         ids=["pic_linear", "apic_tait"])
+def test_p2g_fused_reruns_are_bitwise_equal(dev, shape, apic, eos):
+    r, k, g = shape
+    sdata, _, counts, _ = _inputs(r, k, g, seed=60 + r, device=dev)
+    args = _fused_args(g, apic, eos)
+    first = tk.p2g_fused(sdata, counts, **args)
+    _close(first, tk.p2g_fused_plain(sdata, counts, **args), axis=2)
+    assert torch.equal(first, tk.p2g_fused(sdata, counts, **args))
+    assert torch.equal(first, tk.p2g_fused(sdata, counts, **args))
+
+
+def _fused_edge_case(case, dev):
+    """sdata with one full bucket row whose slots all sit in one column
+    ("crowded": 2048 slots, past the staging window), with every slot's
+    columns within 2.5 of a column band's edge at G = 2049 ("band_edges"),
+    or with slots on columns 0 and G - 1, empty rows and counts above K
+    ("grid_edges")."""
+    if case == "crowded":
+        r, k, g = 8, 2048, 64
+        sdata, _, counts, _ = _inputs(r, k, g, seed=71, device=dev)
+        u = torch.rand((k,), generator=torch.Generator().manual_seed(72)).to(dev)
+        sdata[1, 1] = 20.5 + 0.999 * u          # counts[1] = K: base column 20
+        assert int(counts[1]) == k
+        assert tk.plan_p2g_fused(g, k, True).cap < k
+    elif case == "band_edges":
+        r, k, g = 24, 512, 2049
+        sdata, _, counts, _ = _inputs(r, k, g, seed=73, device=dev)
+        band = tk.plan_p2g_fused(g, k, False).band
+        assert band < g
+        gen = torch.Generator().manual_seed(74)
+        edge = band * torch.randint(1, -(-g // band), (r, k), generator=gen)
+        sdata[:, 1] = (edge + 5.0 * torch.rand((r, k), generator=gen) - 2.5).to(dev)
+    else:
+        r, k, g = 16, 256, 37
+        sdata, _, counts, _ = _inputs(r, k, g, seed=75, device=dev)
+        gen = torch.Generator().manual_seed(76)
+        side = torch.rand((r, k), generator=gen)
+        sdata[:, 1] = torch.where(side < 0.5, 0.5 + 0.6 * side, g - 1.6 + 0.6 * side).to(dev)
+        counts[2] = k + 7                       # past K: the K slots count
+        counts[3:6] = 0
+    return sdata, counts, g
+
+
+@pytest.mark.parametrize("case", ["crowded", "band_edges", "grid_edges"])
+@pytest.mark.parametrize("apic,eos", [(False, "linear"), (True, "tait")],
+                         ids=["pic_linear", "apic_tait"])
+def test_p2g_fused_edge_cases_match_plain_and_rerun_equal(dev, case, apic, eos):
+    sdata, counts, g = _fused_edge_case(case, dev)
+    args = _fused_args(g, apic, eos)
+    got = tk.p2g_fused(sdata, counts, **args)
+    _close(got, tk.p2g_fused_plain(sdata, counts, **args), axis=2)
+    assert torch.equal(got, tk.p2g_fused(sdata, counts, **args))
+
+
+def _grid_case(mode, shards, dev, case="ragged"):
+    """(data, counts, g, dx, kw) for p2g_grid in `mode` (fused, ch9 APIC,
+    ch6_tent PIC) on `shards` slab shards: the ragged slots of `_inputs`,
+    or an edge case of `_fused_edge_case`."""
+    if case == "ragged":
+        sdata, _, counts, _ = _inputs(32, 512, 513, seed=80 + shards, device=dev)
+        g = 513
+    else:
+        sdata, counts, g = _fused_edge_case(case, dev)
+    r, _, k = sdata.shape
+    assert r % shards == 0
+    dx = 0.4375 / (g - 5)
+    if mode == "fused":
+        data = sdata
+        kw = dict(fused=True, apic=True, eos="tait", kb=KB, mu=MU, gamma=GAMMA,
+                  fa=-2e-5 * 4.0 / dx**2)
+    else:
+        nch = 9 if mode == "ch9" else 6
+        rng = np.random.default_rng(8)
+        live = (torch.arange(k, device=dev)[None, :] < counts[:, None]).float()[:, None]
+        vals = torch.as_tensor(rng.normal(0.0, 1.0, (r, 6 + nch, k)), dtype=torch.float32,
+                               device=dev) * live
+        vals[:, 10] = sdata[:, 9]                  # m
+        data = torch.cat([sdata[:, :2], vals], dim=1).contiguous()
+        kw = dict(fused=False, tent=mode.endswith("tent"), apic=mode == "ch9")
+    return _local_rows(data, shards), counts, g, dx, kw
+
+
+def _fold_of_single(data, counts, g, dx, kw, shards):
+    """fold_rows_halo of p2g_fused / p2g (the kernels) per shard."""
+    l = data.shape[0] // shards
+    if kw["fused"]:
+        single = lambda d, c: tk.p2g_fused(d, c, g, dx, **{
+            n: kw[n] for n in ("apic", "eos", "kb", "mu", "gamma", "fa")})
+    else:
+        single = lambda d, c: tk.p2g(d, c, g, dx, kw["tent"], kw["apic"])
+    return torch.stack([tk.fold_rows_halo(single(data[s * l:(s + 1) * l],
+                                                 counts[s * l:(s + 1) * l]))
+                        for s in range(shards)])
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("mode", ["fused", "ch9", "ch6_tent"])
+def test_p2g_grid_reruns_and_equals_the_fold_of_the_single_device_kernel(dev, mode, shards):
+    data, counts, g, dx, kw = _grid_case(mode, shards, dev)
+    got = tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw)
+    _close(got, tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw), axis=2)
+    assert torch.equal(got, tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw))
+    assert torch.equal(got, tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw))
+    via = _fold_of_single(data, counts, g, dx, kw, shards)
+    _close(got, via, axis=2)
+    diff = float((got - via).abs().max())
+    assert torch.equal(got, via), f"max |p2g_grid - fold_rows_halo(single)| = {diff:.3e}"
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("case", ["crowded", "band_edges", "grid_edges"])
+@pytest.mark.parametrize("mode", ["fused", "ch9"])
+def test_p2g_grid_edge_cases_match_plain_and_rerun_equal(dev, mode, case, shards):
+    data, counts, g, dx, kw = _grid_case(mode, shards, dev, case)
+    got = tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw)
+    _close(got, tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw), axis=2)
+    assert torch.equal(got, tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw))
+    via = _fold_of_single(data, counts, g, dx, kw, shards)
+    _close(got, via, axis=2)
+    diff = float((got - via).abs().max())
+    assert torch.equal(got, via), f"max |p2g_grid - fold_rows_halo(single)| = {diff:.3e}"

@@ -1,10 +1,13 @@
 """The launch plans of the fixed-order P2G gathers, on the CPU.
 
-`p2g` (csrc/p2g.cu) launches one block per (bucket row, column band) and
-`p2g3d` (csrc/p2g3d.cu) one per (i0, axis-1 row, z band); the planners
-(`ops/cuda/transfer2d.plan_p2g`, `transfer3d.plan_p2g3d`) pick the band and
-the number of slot records a block stages at a time, and `GatherPlan.columns`
-decodes blockIdx.y as the kernels do.  These tests hold the plans to what
+`p2g`, `p2g_fused` and `p2g_grid` (csrc/p2g.cu, one gather on the
+prepped, the fused or either of them over every shard's bucket rows)
+launch one block per (bucket row, column band), and `p2g3d`
+(csrc/p2g3d.cu) one per (i0, axis-1 row, z band); the planners
+(`ops/cuda/transfer2d.plan_p2g`, `plan_p2g_fused`,
+`transfer3d.plan_p2g3d`) pick the band and the number of slot records a
+block stages at a time, and `GatherPlan.columns` decodes blockIdx.y as the
+kernels do.  These tests hold the plans to what
 the kernels rely on: every output column owned by exactly one band, the
 bands as the kernels cut them, and the shared memory that the kernels'
 launch asks for within Hopper's opt-in limit and, with the staging window
@@ -24,6 +27,11 @@ RESERVED = 1_024       # the system's share per block
 # column-band case at G = 2049 and a narrow grid with crowded rows.
 SHAPES_2D = [(513, 4096), (513, 5376), (37, 256), (513, 1024), (2049, 512), (64, 2048),
              (1, 16)]
+# (G, K) of p2g_grid: bench 1M's shape on one device and in 4 shards (the
+# sharded path's buckets are 25% wider: 5120 slots), stab1M's 4 shards
+# alike, the ragged card-test shapes, the tent case at G = 2049 and a
+# narrow grid.
+SHAPES_GRID = [(513, 4096), (513, 5120), (513, 512), (2049, 1024), (2049, 5120), (37, 256)]
 # (G2, K): the 8M slab and drop3d pencils, the ragged test shapes, the z
 # bands at G2 = 2049 and a crowded pencil.
 SHAPES_3D = [(256, 512), (128, 1280), (16, 128), (64, 128), (2049, 128), (32, 1024), (1, 8)]
@@ -35,6 +43,19 @@ def _plans():
             for apic in (False, True):
                 rec = 4 * -(-(5 + 4 * apic + 4 + nch - 4) // 4)
                 yield ("2d", g, k, nch, apic), tk.plan_p2g(nch, g, k, apic), dict(
+                    rec=rec, order=k, warps=tk.P2G_WARPS, blocks=tk.P2G_BLOCKS_PER_SM,
+                    max_band=tk.P2G_MAX_BAND)
+    for g, k in SHAPES_2D:
+        for apic in (False, True):
+            rec = 4 * -(-(5 + 4 * apic + 4 + 1) // 4)
+            yield ("fused", g, k, tk.P2G_CH_FUSED, apic), tk.plan_p2g_fused(g, k, apic), dict(
+                rec=rec, order=k, warps=tk.P2G_WARPS, blocks=tk.P2G_BLOCKS_PER_SM,
+                max_band=tk.P2G_MAX_BAND)
+    for g, k in SHAPES_GRID:
+        for nch in (tk.P2G_CH_FUSED, tk.P2G_CH, tk.P2G_CH_EXT):
+            for apic in (False, True):
+                rec = 4 * -(-(5 + 4 * apic + 4 + nch - 4) // 4)
+                yield ("grid", g, k, nch, apic), tk.plan_p2g(nch, g, k, apic), dict(
                     rec=rec, order=k, warps=tk.P2G_WARPS, blocks=tk.P2G_BLOCKS_PER_SM,
                     max_band=tk.P2G_MAX_BAND)
     for g, k in SHAPES_3D:
@@ -105,6 +126,29 @@ def test_a_bucket_too_large_for_the_shared_memory_raises():
         tk.plan_p2g(tk.P2G_CH_EXT, 513, 60_000, True)
     with pytest.raises(ValueError, match="shared memory"):
         tk3.plan_p2g3d(tk3.P2G_CH_EXT, 256, 12_000, True)
+
+
+@pytest.mark.parametrize("plan", [
+    lambda k: tk.plan_p2g_fused(513, k, False),
+    lambda k: tk.plan_p2g_fused(513, k, True),
+    lambda k: tk.plan_p2g(tk.P2G_CH_EXT, 513, k, True),
+    lambda k: tk.plan_p2g(tk.P2G_CH_EXT, 2049, k, False),
+], ids=["fused_pic", "fused_apic", "ch9_apic", "ch9_g2049"])
+def test_the_fused_and_grid_plans_raise_past_their_k_limit(plan):
+    """A bucket row's K slots are listed in shared memory: the largest K
+    that fits plans, the next multiple of 128 past the limit raises and
+    names its slots."""
+    k = 128
+    while True:
+        try:
+            plan(k + 128)
+        except ValueError:
+            break
+        k += 128
+    assert k >= 30_000                    # far past the scenes' 4,096-5,376
+    assert plan(k).smem <= SMEM_OPTIN
+    with pytest.raises(ValueError, match=f"{k + 128} source slots.*shared memory"):
+        plan(k + 128)
 
 
 def test_the_3d_main_path_stages_every_kept_slot_at_once():
