@@ -147,7 +147,31 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                bound;
 29. timing:colliders  ms per substep of obstacle8M and slab 8M from the
                same particles, interleaved, median of 3 x 10 (with
-               --profile, obstacle8M's device busy time and idle share).
+               --profile, obstacle8M's device busy time and idle share);
+30. main:general2d  the reference workload (dam2d: 8,450 particles, 105^2,
+               dt 1e-6, float64) through the CLI's default path, 3 frames
+               x 10,000 substeps: centre of mass, std x and front after
+               each frame within 1e-5 of the golden statistics
+               (tests/test_golden_reference.py), diagnostics.check, ms per
+               substep; then elastic_drop and dam2d_obstacle on the general
+               path (1 frame x 200): the host checks, no kernel launched;
+31. main:general_vs_cpu  one general substep on the card (twice) and on
+               the CPU from the same state: the reference scene after
+               1,000 substeps (float64, every field within 1e-12 of its
+               scale) and the stab1M switch set at 37^2 after 200 (float32,
+               the carried fields within 1e-6);
+32. main:general_vs_fast  bench 1M and stab1M from the same particles at
+               t = 0: one substep of the general path against the fast
+               path (kernels on), x within 1e-7 and v within 1e-4 slot for
+               slot; ms per substep of both (median of 3 x 20) and their
+               peak device memory;
+33. main:general3d  the dam3d CLI on the general path (2 frames x 100), the
+               host checks; slab 1M / 128^3 general against fast3d as in
+               phase 32 (3 x 5 substeps timed);
+34. main:mls88 the validation model at MLS88Config(): one float32 substep
+               on the card against the CPU from warm-ups 0, 50 and 200
+               (1e-5), 300 float64 substeps (5e-4), ms per substep; then
+               the {"general": {...}} line.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -554,11 +578,18 @@ def time_paths(label, mod, b, scene, spec, step, n_part, stencil, n_sub, reps, c
 
 
 def profile_window(path, mod, b, scene, spec, n_sub, wall_ms, tag, card):
+    return profile_calls(path, lambda n: mod.run(b, scene, spec, n), n_sub, wall_ms, tag, card)
+
+
+def profile_calls(path, run_n, n_sub, wall_ms, tag, card):
+    """torch.profiler over `run_n(n_sub)` (after `run_n(2)`): the table by
+    device time to `path`, the device busy time per substep and the idle
+    share against the unprofiled `wall_ms` per substep."""
     from torch.profiler import ProfilerActivity, profile
 
-    mod.run(b, scene, spec, 2)
+    run_n(2)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        mod.run(b, scene, spec, n_sub)
+        run_n(n_sub)
         torch.cuda.synchronize()
     events = prof.key_averages()
     table = events.table(sort_by="cuda_time_total", row_limit=40)
@@ -572,6 +603,7 @@ def profile_window(path, mod, b, scene, spec, n_sub, wall_ms, tag, card):
     say(f"[timing:{tag}] profile written to {path}: device busy "
         f"{busy_ms:.4f} ms/substep against {wall_ms:.4f} ms/substep unprofiled "
         f"(idle share {1.0 - busy_ms / wall_ms:.3f})  [{card}]")
+    return busy_ms
 
 
 # ---------------------------------------------------------------------------
@@ -796,8 +828,7 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
     from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
     from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
 
-    reset_all = lambda: (tk.reset_launches(), tk3.reset_launches())
-    counts_now = lambda: {**tk.LAUNCHES, **tk3.LAUNCHES}
+    reset_all, counts_now = reset_counts, kernel_counts
     tmp = tempfile.gettempdir()
 
     # ---- 14. main:stab3d-8M ------------------------------------------------
@@ -815,7 +846,7 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        sim = driver.Simulation(p8, scene, out_dir=tmp, device=dev)
+        sim = driver.Simulation(p8, scene, path="fast", out_dir=tmp, device=dev)
         reset_all()
         t0 = time.perf_counter()
         sim.run(n_frames, n_sub, gif=False, verbose=False, write_frames=False)
@@ -967,7 +998,7 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
     t0 = time.perf_counter()
     p_d, scene_d = scenes.elastic_drop_3d(**DROP_3D)
     mass_d = float(p_d.mass.to(torch.float32).double().sum())
-    sim_d = driver.Simulation(p_d, scene_d, out_dir=tmp, device=dev)
+    sim_d = driver.Simulation(p_d, scene_d, path="fast", out_dir=tmp, device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     reset_all()
@@ -1164,8 +1195,8 @@ def sharded_against_single(tag, p, scene, dev, shards, n_sub, card):
     mass0 = float(p.mass.to(torch.float32).double().sum())
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    sim = driver.Simulation(p, scene, out_dir=tmp, device=dev, devices=shards)
-    ref = driver.Simulation(p, scene, out_dir=tmp, device=dev)
+    sim = driver.Simulation(p, scene, path="fast", out_dir=tmp, device=dev, devices=shards)
+    ref = driver.Simulation(p, scene, path="fast", out_dir=tmp, device=dev)
     tk.reset_launches()
     tk3.reset_launches()
     t0 = time.perf_counter()
@@ -1369,9 +1400,9 @@ def sharded2d_phases(dev, card, args, err, kernel_ms, plain_ms, bounds, launches
     n_t, n_mig = mig.pop("shards"), mig.pop("substeps")
     cfg_t = MPMConfig(dtype="float32", flip_blend=0.98, transfer=TransferKind.PIC, **mig)
     p_t, scene_t = scenes.dam_break_2d(cfg_t, dtype=np.float32)
-    sim = driver.Simulation(p_t, scene_t, out_dir=tempfile.gettempdir(), device=dev,
+    sim = driver.Simulation(p_t, scene_t, path="fast", out_dir=tempfile.gettempdir(), device=dev,
                             devices=n_t)
-    ref = driver.Simulation(p_t, scene_t, out_dir=tempfile.gettempdir(), device=dev)
+    ref = driver.Simulation(p_t, scene_t, path="fast", out_dir=tempfile.gettempdir(), device=dev)
     live0 = (sim.state.mask.view(n_t, -1) > 0).sum(dim=1).tolist()
     t0 = time.perf_counter()
     sim.run(1, n_mig, gif=False, verbose=False, write_frames=False)
@@ -1415,7 +1446,7 @@ def run_cli(dev, card, scenario, devices, n_frames, n_sub, ran, launches):
         if frame_io_available():
             sim = driver.main(argv)
         else:
-            sim = driver.Simulation(p_ref, scene, out_dir=out_dir, device=dev,
+            sim = driver.Simulation(p_ref, scene, path="fast", out_dir=out_dir, device=dev,
                                     devices=int(devices))
             sim.run(n_frames, n_sub, gif=False, write_frames=False)
         torch.cuda.synchronize()
@@ -1617,7 +1648,7 @@ def run_collider_cli(dev, card, io_ok, scenario, n_frames, n_sub, ran, idle, lau
         if io_ok:
             sim = driver.main(argv)
         else:
-            sim = driver.Simulation(p_ref, scene, out_dir=out_dir, device=dev)
+            sim = driver.Simulation(p_ref, scene, path="fast", out_dir=out_dir, device=dev)
             sim.run(n_frames, n_sub, gif=False, write_frames=False)
         torch.cuda.synchronize()
         got = {**tk.LAUNCHES, **tk3.LAUNCHES}
@@ -1762,7 +1793,7 @@ def collider_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_ms, bou
         scene = dataclasses.replace(scene8, colliders=cols)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        sim = driver.Simulation(p8, scene, out_dir=tempfile.gettempdir(), device=dev)
+        sim = driver.Simulation(p8, scene, path="fast", out_dir=tempfile.gettempdir(), device=dev)
         if t0 is not None:
             sim.total_time = t0          # the run's t0: the frame loop's clock
         ts = (None,) if t0 is None else (t0, t0 + (n_frames * n_sub - 1) * scene.cfg.dt)
@@ -1867,6 +1898,380 @@ def collider_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_ms, bou
     return sum(flips)
 
 
+# ---------------------------------------------------------------------------
+# The general path (models/stabilized.py) and the MLS-MPM validation model
+# ---------------------------------------------------------------------------
+
+# The reference workload's golden statistics: deterministic float64 CPU
+# values of the JAX general path (tests/test_golden_reference.py:27-36;
+# 105^2, dt 1e-6, 8,450 particles, APIC + B-spline), and their bound.
+GOLDEN_REFERENCE = {
+    10000: dict(com_x=0.02861624, com_y=0.05665837, std_x=0.01651807, front=0.05723588),
+    20000: dict(com_x=0.02898977, com_y=0.05567413, std_x=0.01672892, front=0.05909730),
+    30000: dict(com_x=0.02964613, com_y=0.05408680, std_x=0.01711508, front=0.06209041),
+}
+GOLDEN_TOL = 1e-5
+# One general substep on the card against the CPU (and against a second
+# card run), per field as a share of its scale.  The card's index_add_
+# adds with atomics in no fixed order.  float64: every field 1e-12.
+# float32: the state a substep carries on; v and C are sums over nodes
+# whose force terms cancel (read on an H100: 2.4e-6 and 1.1e-5 card vs
+# CPU, 2.0e-6 and 8.8e-6 between two card runs, stab1M set at 37^2), so
+# they are held at 1e-4, the rest at 1e-6.  Pressure, stress and div_v
+# (K (J - 1): one float32 ulp of J is 0.12 Pa) are printed only.
+GENERAL_TOL = {torch.float64: 1e-12, torch.float32: 1e-6}
+CARRIED = {"x": 1e-6, "v": 1e-4, "C": 1e-4, "F": 1e-6, "J": 1e-6, "density": 1e-6,
+           "Jp": 1e-6}
+# general against fast after one substep (tests/test_fast2d.py:56-57).
+VS_FAST_TOL = {"x": 1e-7, "v": 1e-4}
+# The stab1M switch set cut to 37^2: the bench column and dt, 128 x 64
+# particles (four a cell per axis, as at 513^2).
+STAB37 = dict(BENCH, **STAB, num_grids=37, num_particles_x=128, num_particles_y=64)
+# The validation model (tests/test_mls_mpm_vs_oracle.py:42-55): one
+# substep from each warm-up, card against CPU, within 1e-5.  That file's
+# warm-ups 50 and 200 run in float64 (the oracle's step promotes the
+# state), where C reaches 522 (a float32 ulp there is 6.1e-5): float32 is
+# held to 1e-5 of each field's scale, float64 to 1e-5 absolute.  300
+# float64 substeps within the trajectory bound of that file (:73-76).
+MLS_WARMUPS = (0, 50, 200)
+MLS_TOL = 1e-5
+MLS_TRAJ_TOL = 5e-4
+GENERAL = {}                 # the {"general": ...} line
+
+
+def golden_stats(x: np.ndarray) -> dict:
+    x = x.astype(np.float64)
+    return dict(com_x=float(x[:, 0].mean()), com_y=float(x[:, 1].mean()),
+                std_x=float(x[:, 0].std()), front=float(x[:, 0].max()))
+
+
+def kernel_counts():
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    return {**tk.LAUNCHES, **tk3.LAUNCHES}
+
+
+def reset_counts():
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    tk.reset_launches()
+    tk3.reset_launches()
+
+
+def general_host_checks(tag, sim, n0, mass0, card):
+    """Finite state, the particle count, constant mass (diagnostics.check,
+    rtol 1e-9), every particle inside the box, no transfer kernel launched
+    (the general path runs none)."""
+    from mpm_flip98a_tpu_torch.utils import diagnostics
+
+    st, cfg = sim.state, sim.cfg
+    finite = all(bool(torch.isfinite(t).all()) for t in (st.x, st.v, st.C, st.F, st.J))
+    x = sim.positions()
+    inside = bool(((x > -cfg.dx) & (x < cfg.domain_length + cfg.dx)).all())
+    summary = diagnostics.check(st, mass0)
+    counts = kernel_counts()
+    say(f"[main:{tag}] general path, {x.shape[0]} particles, {st.x.dtype}, finite {finite}, "
+        f"inside box {inside}, summary {summary}, kernel launches {counts}  [{card}]")
+    check(sim.path == "general", f"{tag}: ran the {sim.path} path")
+    check(finite, f"{tag}: non-finite state")
+    check(x.shape[0] == n0, f"{tag}: {x.shape[0]} particles, expected {n0}")
+    check(inside, f"{tag}: particle outside the box")
+    check(not any(counts.values()), f"{tag}: a transfer kernel ran on the general path")
+    return summary
+
+
+def general_cli(dev, card, io_ok, scenario, n_frames, n_sub):
+    """A scenario through the CLI with the default (general) path, or
+    through Simulation stepping frame by frame where no frame writer exists.
+    Returns (sim, seconds, x after each frame)."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.utils import io_vtk
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    frames = []
+    try:
+        argv = ["--scenario", scenario, "--frames", str(n_frames), "--substeps", str(n_sub),
+                "--no-gif", "--out", out_dir, "--device", "cuda"]
+        reset_counts()
+        t0 = time.perf_counter()
+        if io_ok:
+            sim = driver.main(argv)
+            frames = [io_vtk.read_vtk_points(os.path.join(sim.vtk_dir, f"{k:05d}.vtk"))
+                      for k in range(1, n_frames + 1)]
+        else:
+            p, scene = driver.SCENARIOS[scenario]()
+            sim = driver.Simulation(p, scene, out_dir=out_dir, device=dev)
+            for _ in range(n_frames):
+                sim.step_frame(n_sub)
+                frames.append(sim.positions())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    n = n_frames * n_sub
+    say(f"[main:general {scenario}] {'CLI ' + ' '.join(argv) if io_ok else 'Simulation'} in "
+        f"{secs:.2f} s: {sim.stats.substeps} substeps, path {sim.path}, substeps timer "
+        f"{1e3 * sim.timers.total['substeps'] / n:.4f} ms/substep (host clock, synchronised; "
+        f"CUDA events {1e3 * sim.timers.device_total['substeps'] / n:.4f})  [{card}]")
+    check(sim.stats.substeps == n, f"{scenario}: {sim.stats.substeps} substeps")
+    return sim, secs, [f[:, :sim.cfg.dim] for f in frames]
+
+
+def field_errors(got, want, names=None) -> dict:
+    """Per field of two Particles (`want` on any device): max |got - want|
+    over the field's largest |want| (the consistency diagnostic, a position
+    error, over x's)."""
+    names = names or [f.name for f in dataclasses.fields(want)]
+    x_scale = float(want.x.abs().max())
+    out = {}
+    for n in names:
+        g = getattr(got, n).to(torch.float64).cpu()
+        w = getattr(want, n).to(torch.float64).cpu()
+        diff = float((g - w).abs().max())
+        scale = x_scale if n == "consistency" else float(w.abs().max())
+        out[n] = diff / scale if diff else 0.0
+    return out
+
+
+def ms_runs(call, n_sub, reps=3):
+    """Median ms per substep of `reps` synchronised runs of `call()`
+    (n_sub substeps each), and the runs."""
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0) / n_sub)
+    return float(np.median(runs)), runs
+
+
+def slot_ids(fast_mod, p, cfg, spec, dev):
+    """Particle index of each live slot of `fast_mod.from_particles(p)`,
+    in `to_host` order: the same bucketing of a copy whose Jp carries the
+    index (exact in float32 below 2^24)."""
+    tagged = dataclasses.replace(p, Jp=torch.arange(p.n, dtype=torch.float64))
+    b = fast_mod.from_particles(tagged, cfg, spec, dev)
+    return fast_mod.to_host(b)["Jp"].astype(np.int64)
+
+
+def general_vs_fast(tag, p, scene, dev, card, n_time=20, profile_dir=None):
+    """One substep of the general path and of the fast path (kernels on)
+    from the same particles at t = 0: x and v slot for slot; then ms per
+    substep of both (median of 3 x n_time) and their peak device memory;
+    with `profile_dir`, the general path's device busy time."""
+    from mpm_flip98a_tpu_torch.models import fast2d, fast3d, stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    cfg = scene.cfg
+    mod = fast3d if cfg.dim == 3 else fast2d
+    spec_cls = fast3d.FastSpec3D if cfg.dim == 3 else fast2d.FastSpec
+    spec = spec_cls.for_particles(cfg, p)
+    pg = to_device(p, dev)
+    g1 = stabilized.substep(pg, scene)
+    b = mod.from_particles(p, cfg, spec, dev)
+    run = (lambda s, n: fast3d.run(s, scene, spec, n)) if cfg.dim == 3 else (
+        lambda s, n: fast2d.run(s, scene, spec, n))
+    reset_counts()
+    b1 = run(b, 1)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    h = mod.to_host(b1)
+    ids = slot_ids(mod, p, cfg, spec, dev)
+    d = cfg.dim
+    xg, vg = g1.x.cpu().numpy()[ids], g1.v.cpu().numpy()[ids]
+    xf = np.stack([h[f"x{a}"] for a in range(d)], -1)
+    vf = np.stack([h[f"v{a}"] for a in range(d)], -1)
+    err = {"x": float(np.abs(xf.astype(np.float64) - xg).max()),
+           "v": float(np.abs(vf.astype(np.float64) - vg).max())}
+    say(f"[main:general_vs_fast {tag}] {p.n} particles, grid {cfg.num_grids}^{d}, "
+        f"{p.x.dtype}: one substep general vs fast (kernels {launched}): max |dx| "
+        f"{err['x']!r} (bound {VS_FAST_TOL['x']}), max |dv| {err['v']!r} (bound "
+        f"{VS_FAST_TOL['v']})  [{card}]")
+    check(len(ids) == p.n and sorted(ids.tolist()) == list(range(p.n)), f"{tag}: slot ids")
+    check(bool(launched), f"{tag}: the fast path launched no kernel")
+    for k in err:
+        check(err[k] <= VS_FAST_TOL[k], f"{tag}: general vs fast {k} {err[k]:.3e}")
+    del b1, g1
+    out = {"x_err": err["x"], "v_err": err["v"]}
+    for path, call in (("general", lambda: stabilized.run(pg, scene, n_time)),
+                       ("fast", lambda: run(b, n_time))):
+        call()                       # warm-up (and the first rebucket check)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms, runs = ms_runs(call, n_time)
+        peak = torch.cuda.max_memory_allocated()
+        say(f"[timing:general_vs_fast {tag}] {path} path: {ms:.4f} ms/substep (median of 3 x "
+            f"{n_time}; runs {[round(r, 4) for r in runs]}), peak device memory {peak} bytes = "
+            f"{peak / 2**30:.3f} GiB  [{card}]")
+        out[f"{path}_ms"], out[f"{path}_peak_bytes"] = ms, peak
+    if profile_dir:
+        out["general_busy_ms"] = profile_calls(
+            os.path.join(profile_dir, f"profile_general_{tag}.txt"),
+            lambda n: stabilized.run(pg, scene, n), n_time, out["general_ms"],
+            f"general {tag}", card)
+    return out
+
+
+def card_vs_cpu(tag, state, scene, bounds, card):
+    """One general substep from `state` (on the card) on the card twice and
+    on the CPU: the card against the CPU and the two card runs, each field
+    of `bounds` within its share of its scale."""
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    a = stabilized.substep(state, scene)
+    b = stabilized.substep(state, scene)
+    c = stabilized.substep(to_device(state, "cpu"), scene)
+    e_cpu, e_rerun = field_errors(a, c), field_errors(b, a)
+    over = {n: (e_cpu[n], e_rerun[n]) for n, tol in bounds.items()
+            if max(e_cpu[n], e_rerun[n]) > tol}
+    say(f"[main:general_vs_cpu {tag}] {state.n} particles, {state.x.dtype}: one substep, card "
+        f"vs CPU per field {e_cpu}; card rerun vs card {e_rerun}; bounds {bounds}  [{card}]")
+    check(not over, f"{tag}: card vs CPU or rerun over the bound: {over}")
+    return {"cpu_err": e_cpu, "rerun_err": e_rerun,
+            "rerun_bitwise_equal": all(torch.equal(getattr(a, n), getattr(b, n)) for n in bounds)}
+
+
+def mls88_phase(dev, card):
+    """The validation model on the card against the port on the CPU: one
+    substep from each warm-up state (float32), then 300 float64 substeps;
+    ms per substep."""
+    from mpm_flip98a_tpu_torch.config import MLS88Config
+    from mpm_flip98a_tpu_torch.models import mls_mpm
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    cfg = MLS88Config()
+    errs = {}
+    reset_counts()
+    for dtype in (torch.float32, torch.float64):
+        s = mls_mpm.init_dam_break(cfg=cfg, dtype=dtype, device="cpu")
+        done = 0
+        for w in MLS_WARMUPS:
+            s = mls_mpm.run(s, cfg, w - done)
+            done = w
+            got = mls_mpm.substep(to_device(s, dev), cfg)
+            want = mls_mpm.substep(s, cfg)
+            for k in ("x", "v", "F", "C", "Jp"):
+                g, t = getattr(got, k).cpu().double(), getattr(want, k).double()
+                scale = float(t.abs().max()) if dtype == torch.float32 else 1.0
+                errs[f"{str(dtype)[6:]} w{w} {k}"] = float((g - t).abs().max()) / scale
+    p64 = mls_mpm.init_dam_break(cfg=cfg, dtype=torch.float64, device="cpu")
+    t0 = time.perf_counter()
+    got = mls_mpm.run(to_device(p64, dev), cfg, 300)
+    torch.cuda.synchronize()
+    traj_s = time.perf_counter() - t0
+    want = mls_mpm.run(p64, cfg, 300)
+    traj = max(float((getattr(got, k).cpu() - getattr(want, k)).abs().max()) for k in ("x", "v"))
+    p32 = to_device(mls_mpm.init_dam_break(cfg=cfg, device="cpu"), dev)
+    mls_mpm.run(p32, cfg, 10)
+    ms32, runs32 = ms_runs(lambda: mls_mpm.run(p32, cfg, 200), 200)
+    p64 = to_device(p64, dev)
+    ms64, runs64 = ms_runs(lambda: mls_mpm.run(p64, cfg, 200), 200)
+    say(f"[main:mls88] MLS88Config(), init_dam_break ({s.n} particles, {cfg.num_nodes}^2 "
+        f"nodes): one substep card vs CPU after warm-ups {MLS_WARMUPS}, float32 (share of each "
+        f"field's scale) and float64 (absolute): {errs} (bound {MLS_TOL}); 300 float64 "
+        f"substeps in {traj_s:.2f} s, card vs CPU x, v {traj!r} (bound {MLS_TRAJ_TOL}); {ms32:.4f} ms/substep float32, {ms64:.4f} float64 "
+        f"(median of 3 x 200; runs {[round(r, 4) for r in runs32]}, "
+        f"{[round(r, 4) for r in runs64]})  [{card}]")
+    check(max(errs.values()) <= MLS_TOL, f"mls88: card vs CPU {errs}")
+    check(traj <= MLS_TRAJ_TOL, f"mls88: float64 trajectory {traj:.3e}")
+    check(not any(kernel_counts().values()), "mls88: a transfer kernel ran")
+    return {"substep_err": errs, "trajectory300_f64_err": traj, "ms_f32": ms32, "ms_f64": ms64}
+
+
+def general_phases(dev, card, io_ok, profile_dir=None):
+    """main:general2d, main:general_vs_cpu, main:general_vs_fast,
+    main:general3d, main:mls88; fills GENERAL.  With `profile_dir`, the
+    general path's device busy time on the reference scene (after its
+    30,000 substeps), bench 1M, stab1M and slab 1M."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import fast3d, scenes, stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    # ---- main:general2d: the reference workload through the CLI ----------
+    p_ref, _ = driver.SCENARIOS["dam2d"]()
+    mass0 = float(p_ref.mass.sum())
+    n_frames, frame = len(GOLDEN_REFERENCE), min(GOLDEN_REFERENCE)
+    sim, secs, frames = general_cli(dev, card, io_ok, "dam2d", n_frames, frame)
+    worst = 0.0
+    for (steps, want), x in zip(sorted(GOLDEN_REFERENCE.items()), frames):
+        got = golden_stats(x)
+        dev_ = {k: abs(got[k] - v) for k, v in want.items()}
+        worst = max(worst, *dev_.values())
+        say(f"[main:general2d] after {steps} substeps: {got} against the golden {want}: "
+            f"|diff| {dev_} (bound {GOLDEN_TOL})  [{card}]")
+        check(max(dev_.values()) < GOLDEN_TOL, f"general2d: golden statistics at {steps}")
+    final = golden_stats(sim.state.x.cpu().numpy())
+    last = golden_stats(frames[-1])
+    check(all(abs(final[k] - last[k]) < 1e-7 for k in final), "general2d: last frame's file")
+    summary = general_host_checks("general2d", sim, p_ref.n, mass0, card)
+    n_sub = n_frames * frame
+    GENERAL["general2d"] = {
+        "substeps": n_sub, "dtype": str(sim.state.x.dtype), "golden_worst_abs_diff": worst,
+        "ms_per_substep": 1e3 * sim.timers.total["substeps"] / n_sub,
+        "device_ms_per_substep": 1e3 * sim.timers.device_total["substeps"] / n_sub,
+        "seconds": secs, "j_min": summary["j_min"], "j_max": summary["j_max"]}
+    if profile_dir:
+        GENERAL["general2d"]["busy_ms"] = profile_calls(
+            os.path.join(profile_dir, "profile_general_reference.txt"),
+            lambda n: stabilized.run(sim.state, sim.scene, n), 200,
+            GENERAL["general2d"]["ms_per_substep"], "general reference", card)
+    state_1k = stabilized.run(to_device(p_ref, dev), sim.scene, 1000)
+    del sim
+    for scenario in ("elastic_drop", "dam2d_obstacle"):
+        p0, _ = driver.SCENARIOS[scenario]()
+        sim, secs, _ = general_cli(dev, card, io_ok, scenario, 1, 200)
+        general_host_checks(f"general {scenario}", sim, p0.n, float(p0.mass.sum()), card)
+        entry = {"ms_per_substep": 1e3 * sim.timers.total["substeps"] / 200}
+        if sim.scene.colliders:
+            depth = penetration(sim)
+            say(f"[main:general {scenario}] deepest particle inside a collider {depth:.3f} dx "
+                f"(bound 1.5)  [{card}]")
+            check(depth < 1.5, f"general {scenario}: a particle {depth:.3f} dx inside")
+            entry["collider_depth_dx"] = depth
+        GENERAL[scenario] = entry
+    say("[timing] general 2D phases done")
+
+    # ---- main:general_vs_cpu --------------------------------------------------
+    every = {f.name: GENERAL_TOL[torch.float64] for f in dataclasses.fields(state_1k)}
+    GENERAL["vs_cpu_reference_1000"] = card_vs_cpu("reference after 1000", state_1k,
+                                                   driver.SCENARIOS["dam2d"]()[1], every, card)
+    cfg37 = MPMConfig(**STAB37, transfer=TransferKind.PIC)
+    p37, scene37 = scenes.dam_break_2d(cfg37, dtype=np.float32)
+    s37 = stabilized.run(to_device(p37, dev), scene37, 200)
+    GENERAL["vs_cpu_stab37"] = card_vs_cpu("stab1M set at 37^2 after 200", s37, scene37,
+                                           CARRIED, card)
+    del state_1k, s37
+
+    # ---- main:general_vs_fast -----------------------------------------------
+    for tag, cfg in (("bench1M", MPMConfig(**BENCH, transfer=TransferKind.PIC)),
+                     ("stab1M", MPMConfig(**BENCH, **STAB, transfer=TransferKind.PIC))):
+        p, scene = scenes.dam_break_2d(cfg, dtype=np.float32)
+        GENERAL[f"vs_fast_{tag}"] = general_vs_fast(tag, p, scene, dev, card,
+                                                    profile_dir=profile_dir)
+        torch.cuda.empty_cache()
+
+    # ---- main:general3d ---------------------------------------------------------
+    p3, _ = driver.SCENARIOS["dam3d"]()
+    sim, secs, _ = general_cli(dev, card, io_ok, "dam3d", 2, 100)
+    general_host_checks("general dam3d", sim, p3.n, float(p3.mass.sum()), card)
+    GENERAL["dam3d"] = {"ms_per_substep": 1e3 * sim.timers.total["substeps"] / 200}
+    del sim
+    p1, scene1 = scenes.slab_3d(**SLAB_1M)
+    GENERAL["vs_fast_slab1M"] = general_vs_fast("slab1M", p1, scene1, dev, card, n_time=5,
+                                                profile_dir=profile_dir)
+    del p1
+    torch.cuda.empty_cache()
+
+    # ---- main:mls88 ---------------------------------------------------------------
+    GENERAL["mls88"] = mls88_phase(dev, card)
+    say(json.dumps({"general": GENERAL}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -1898,8 +2303,7 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]} devices {torch.cuda.device_count()} "
         f"name {torch.cuda.get_device_name(0)} capability {torch.cuda.get_device_capability(0)}")
     t_start = time.perf_counter()
-    reset_all = lambda: (tk.reset_launches(), tk3.reset_launches())
-    counts_now = lambda: {**tk.LAUNCHES, **tk3.LAUNCHES}
+    reset_all, counts_now = reset_counts, kernel_counts
 
     # ---- 2. build ---------------------------------------------------------
     build = _build.load()
@@ -1987,7 +2391,7 @@ def main(argv=None) -> int:
             sim = driver.main(argv_cli)
         else:
             p, scene = driver.SCENARIOS["dam2d_flip98"]()
-            sim = driver.Simulation(p, scene, out_dir=out_dir, device=dev)
+            sim = driver.Simulation(p, scene, path="fast", out_dir=out_dir, device=dev)
             sim.run(n_frames, n_sub, gif=False, write_frames=False)
         torch.cuda.synchronize()
         got = counts_now()
@@ -2006,7 +2410,7 @@ def main(argv=None) -> int:
             check(len(frames[0]) == len(frames[1]) == n_frames, "frame files missing")
 
         mass_big = float(p_big.mass.to(torch.float32).double().sum())
-        sim_big = driver.Simulation(p_big, scene_big, out_dir=out_dir, device=dev)
+        sim_big = driver.Simulation(p_big, scene_big, path="fast", out_dir=out_dir, device=dev)
         reset_all()
         t0 = time.perf_counter()
         sim_big.run(2, 100, gif=False, verbose=False, write_frames=io_ok)
@@ -2136,7 +2540,7 @@ def main(argv=None) -> int:
             sim = driver.main(argv_cli)
         else:
             p, scene = driver.SCENARIOS["elastic_drop"]()
-            sim = driver.Simulation(p, scene, out_dir=out_dir, device=dev)
+            sim = driver.Simulation(p, scene, path="fast", out_dir=out_dir, device=dev)
             sim.run(n_frames, n_sub, gif=False, write_frames=False)
         torch.cuda.synchronize()
         got = counts_now()
@@ -2161,7 +2565,7 @@ def main(argv=None) -> int:
     sims = {}
     for tag, (p, scene) in builds.items():
         mass0 = float(p.mass.to(torch.float32).double().sum())
-        sim = driver.Simulation(p, scene, out_dir=tempfile.gettempdir(), device=dev)
+        sim = driver.Simulation(p, scene, path="fast", out_dir=tempfile.gettempdir(), device=dev)
         reset_all()
         t0 = time.perf_counter()
         sim.run(2, 100, gif=False, verbose=False, write_frames=False)
@@ -2209,7 +2613,7 @@ def main(argv=None) -> int:
             sim = driver.main(argv_cli)
         else:
             p, scene = driver.SCENARIOS["dam3d"]()
-            sim = driver.Simulation(p, scene, out_dir=out_dir, device=dev)
+            sim = driver.Simulation(p, scene, path="fast", out_dir=out_dir, device=dev)
             sim.run(n_frames, n_sub, gif=False, write_frames=False)
         torch.cuda.synchronize()
         got = counts_now()
@@ -2236,7 +2640,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     p8, scene8 = scenes.slab_3d(**SLAB_8M)
     mass8 = float(p8.mass.to(torch.float32).double().sum())
-    sim8 = driver.Simulation(p8, scene8, out_dir=tempfile.gettempdir(), device=dev)
+    sim8 = driver.Simulation(p8, scene8, path="fast", out_dir=tempfile.gettempdir(), device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     reset_all()
@@ -2352,6 +2756,10 @@ def main(argv=None) -> int:
     # ---- 26-29. rigid SDF colliders ------------------------------------------------
     flips = collider_phases(dev, card, io_ok, args.profile, err, kernel_ms, plain_ms, bounds,
                             launches)
+    say(f"[timing] collider phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 30-34. the general path and the validation model --------------------------
+    general_phases(dev, card, io_ok, args.profile)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [

@@ -4,8 +4,7 @@ The same parameter surface as `mpm_flip98a_tpu/config.py` (itself a
 mirror of the reference's ``config.py:4-46``): physical constants, the
 feature switches and the derived grid geometry, as frozen dataclasses.
 The only change is `torch_dtype` in place of the JAX `jnp_dtype`.
-`MLS88Config` (the validation solver's config) is not ported yet
-(ROADMAP queue 1, item 2).
+`MLS88Config` configures the C++ validation solver (`models/mls_mpm.py`).
 """
 
 from __future__ import annotations
@@ -15,7 +14,15 @@ import enum
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
+
+
+def np_float(dtype: torch.dtype):
+    """The numpy float type of a torch float dtype.  A Python constant
+    rounded through it meets a tensor of that dtype as JAX's
+    `jnp.asarray(c, dtype)` does, without a tensor made on the host."""
+    return np.float64 if dtype == torch.float64 else np.float32
 
 
 class TransferKind(str, enum.Enum):
@@ -192,3 +199,49 @@ class MPMConfig:
 
     def gravity_acceleration(self, physics: Physics) -> Tuple[float, ...]:
         return (0.0,) * (self.dim - 1) + (physics.gravity,)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLS88Config:
+    """Configuration of the C++ validation solver
+    (reference: cpp_validation/mls-mpm88-explained.cpp:8-26): fixed
+    corotated with snow plasticity, the per-substep ground truth of the
+    tests."""
+
+    num_grid: int = 80            # cells per axis (nodes = num_grid + 1), :9
+    dt: float = 1e-4              # :11
+    frame_dt: float = 1e-3        # :12
+    mass_p: float = 1.0           # :17
+    vol_p: float = 1.0            # :18
+    hardening: float = 1.0        # :19
+    youngs_modulus: float = 1e2   # :20
+    poissons_ratio: float = 0.499 # :21
+    plastic: bool = True          # :22
+    gravity: float = -200.0       # :113
+    boundary: float = 0.05        # :116
+    dim: int = 2
+
+    @property
+    def dx(self) -> float:        # :13
+        return 1.0 / self.num_grid
+
+    @property
+    def inv_dx(self) -> float:    # :14
+        return 1.0 * self.num_grid
+
+    @property
+    def mu_0(self) -> float:      # :25
+        return self.youngs_modulus / (2.0 * (1.0 + self.poissons_ratio))
+
+    @property
+    def lambda_0(self) -> float:  # :26
+        e, nu = self.youngs_modulus, self.poissons_ratio
+        return e * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
+
+    @property
+    def num_nodes(self) -> int:
+        return self.num_grid + 1
+
+    @property
+    def grid_shape(self) -> Tuple[int, ...]:
+        return (self.num_nodes,) * self.dim

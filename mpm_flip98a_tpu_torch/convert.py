@@ -5,7 +5,8 @@ and static configuration.  Each function takes plain Python / numpy data
 (the JAX package's dataclasses as `dataclasses.asdict`, arrays as numpy),
 so this module imports neither JAX nor the JAX package:
 
-    particles_from_numpy({f.name: np.asarray(getattr(p, f.name)) ...})
+    particles_from_numpy({f.name: np.asarray(getattr(p, f.name)) ...}, device)
+    mls88_particles_from_numpy({... the same for an MLS88Particles ...}, device)
     buckets_from_numpy({f.name: np.asarray(getattr(b, f.name)) ...}, device)
     buckets3d_from_numpy(... the same for a 3D FluidBuckets3D ...)
     scene_from_fields(dataclasses.asdict(scene))
@@ -30,7 +31,7 @@ from mpm_flip98a_tpu_torch.models.fast2d import FluidBuckets
 from mpm_flip98a_tpu_torch.models.fast3d import FluidBuckets3D
 from mpm_flip98a_tpu_torch.models.materials import MaterialParams
 from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
-from mpm_flip98a_tpu_torch.state import Particles
+from mpm_flip98a_tpu_torch.state import MLS88Particles, Particles
 
 
 def _tensor(a, device="cuda") -> torch.Tensor:
@@ -41,9 +42,14 @@ def _names(cls) -> list:
     return [f.name for f in dataclasses.fields(cls)]
 
 
-def particles_from_numpy(fields: Mapping[str, np.ndarray]) -> Particles:
-    """The JAX `Particles` fields (numpy) -> the port's `Particles` (CPU)."""
-    return Particles(**{n: _tensor(fields[n], "cpu") for n in _names(Particles)})
+def particles_from_numpy(fields: Mapping[str, np.ndarray], device="cuda") -> Particles:
+    """The JAX `Particles` fields (numpy) -> the port's `Particles`."""
+    return Particles(**{n: _tensor(fields[n], device) for n in _names(Particles)})
+
+
+def mls88_particles_from_numpy(fields: Mapping[str, np.ndarray], device="cuda") -> MLS88Particles:
+    """The JAX `MLS88Particles` fields (numpy) -> the port's `MLS88Particles`."""
+    return MLS88Particles(**{n: _tensor(fields[n], device) for n in _names(MLS88Particles)})
 
 
 def buckets_from_numpy(fields: Mapping[str, np.ndarray], device="cuda") -> FluidBuckets:

@@ -4,20 +4,26 @@ Reference: exec.py — the outer frame loop with 10,000 substeps per frame
 (exec.py:20-26), `progressBar` (:28), `post_process` writing frames + VTK
 (:29) and the end-of-run `Run Time` print (:31-32).
 
-The port runs the fast path on one device (`--device`, default `cuda`),
-routed by the scene's dimension as the JAX driver does: `models/fast2d`
-for `dam2d`, `dam2d_flip98`, `elastic_drop`, `dam2d_obstacle` (a rigid
+The port runs on one device (`--device`, default `cuda`) by either path,
+as the JAX driver does.  `--path general` (the default) is the stabilized
+solver `models/stabilized.run` on a `Particles` state in the scene's
+dtype (float64 for `dam2d`, the reference workload), 2D or 3D.
+`--path fast` is routed by the scene's dimension: `models/fast2d` for
+`dam2d`, `dam2d_flip98`, `elastic_drop`, `dam2d_obstacle` (a rigid
 cylinder in the run-out) and `plow2d` (a cylinder sweeping through the
 pool), `models/fast3d` for `dam3d` and `dam3d_obstacle` (a rigid sphere).
 Kinematic colliders see the simulation time: `step_frame` passes
 `total_time` as the run's t0 when one of them moves (driver.py:233-250).
-`--devices N` runs the slab-sharded path (driver.py:138-177): N slab
-shards of the grid's axis 0 on that one device (`parallel.SlabMesh`),
-`parallel/fast_domain` in 2D and the one-axis `parallel/fast_domain3d` in
-3D.  The general path, the other scenarios, the two-axis `N0xN1` mesh and
-checkpoints raise NotImplementedError naming their ROADMAP item.
+`--devices N` runs the fast path's slab-sharded form (driver.py:138-177):
+N slab shards of the grid's axis 0 on that one device
+(`parallel.SlabMesh`), `parallel/fast_domain` in 2D and the one-axis
+`parallel/fast_domain3d` in 3D; the general path takes one device only
+and raises ValueError otherwise, as in JAX.  The other scenarios, the
+two-axis `N0xN1` mesh and checkpoints raise NotImplementedError naming
+their ROADMAP item.
 
-CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
+CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d --frames 1 --no-gif
+      python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
           --frames 2 --substeps 100 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario elastic_drop --path fast \
           --frames 2 --substeps 200 --no-gif
@@ -41,8 +47,9 @@ import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
-from mpm_flip98a_tpu_torch.models import colliders, fast2d, fast3d, scenes
+from mpm_flip98a_tpu_torch.models import colliders, fast2d, fast3d, scenes, stabilized
 from mpm_flip98a_tpu_torch.parallel import SlabMesh, fast_domain, fast_domain3d
+from mpm_flip98a_tpu_torch.state import to_device
 from mpm_flip98a_tpu_torch.utils import io_vtk, native_io, render
 from mpm_flip98a_tpu_torch.utils.progress import create_file_paths, progress_bar
 from mpm_flip98a_tpu_torch.utils.timing import Timers, ThroughputMeter
@@ -99,14 +106,16 @@ def parse_devices(s: str):
 class Simulation:
     """Frame-loop driver around a (particles, scene) pair on one device.
 
-    `devices` N > 1 runs N slab shards on that device; (N0, N1) is the
-    two-axis 3D mesh, not ported."""
+    `path` "general" steps the `Particles` with `stabilized.run`; "fast"
+    buckets them for `fast2d` / `fast3d`.  On the fast path `devices`
+    N > 1 runs N slab shards on that device; (N0, N1) is the two-axis 3D
+    mesh, not ported."""
 
     def __init__(
         self,
         particles,
         scene,
-        path: str = "fast",
+        path: str = "general",
         out_dir: str = "out",
         tag: Optional[str] = None,
         render_res: int = 512,
@@ -114,8 +123,10 @@ class Simulation:
         device="cuda",
         devices=1,
     ):
-        if path != "fast":
-            raise _unported(f"--path {path}", 3)
+        if path not in ("general", "fast"):
+            raise ValueError(f"path must be 'general' or 'fast', got {path!r}")
+        if path == "general" and devices != 1:
+            raise ValueError("--devices > 1 requires --path fast")
         if isinstance(devices, tuple):
             if scene.cfg.dim != 3:
                 raise ValueError("--devices N0xN1 (two-axis mesh) is 3D-only; "
@@ -123,11 +134,12 @@ class Simulation:
             devices = fast_domain3d.as_shards(devices)   # raises for N1 > 1
         self.devices = devices
         # Dimension routing: pencil buckets in 3D, row buckets in 2D.
-        if scene.cfg.dim == 3:
-            self._fast = fast3d
+        self._fast = fast3d if scene.cfg.dim == 3 else fast2d
+        if path == "general":
+            stabilized.check_supported(scene)
+        elif scene.cfg.dim == 3:
             fast3d.check_supported(scene, sharded=devices > 1)
         else:
-            self._fast = fast2d
             fast2d.check_supported(scene)
         self.scene = scene
         self.cfg = scene.cfg
@@ -146,7 +158,12 @@ class Simulation:
         self.total_time = 0.0
         self.frame_count = 0
         self._last_respec_frame = 0
-        if devices > 1:
+        if path == "general":
+            # The particles as they are (dtype kept) on the device
+            # (driver.py:178-179).
+            self.spec = None
+            self.state = to_device(particles, self.device)
+        elif devices > 1:
             # The slab-sharded path (driver.py:138-177) on `devices` shards.
             dom = fast_domain3d if self.cfg.dim == 3 else fast_domain
             self.mesh = SlabMesh(devices, self.device)
@@ -171,13 +188,18 @@ class Simulation:
         return self._host_cache[1]
 
     def positions(self) -> np.ndarray:
+        if self.path == "general":
+            return self.state.x.cpu().numpy()
         h = self._host_state()
         return np.stack([h[f"x{a}"] for a in range(self.cfg.dim)], axis=-1)
 
     def material_colors(self) -> np.ndarray:
         """Per-particle RGB by material id (fluid blue, solids in the
         reference's impact-block palette, mls-mpm88-explained.cpp:194,199)."""
-        mats = self._host_state()["mat"].astype(np.int64)
+        if self.path == "general":
+            mats = self.state.material.cpu().numpy().astype(np.int64)
+        else:
+            mats = self._host_state()["mat"].astype(np.int64)
         palette = np.array(
             [
                 render._hex_rgb(c)
@@ -196,7 +218,10 @@ class Simulation:
         # substep-count clock (driver.py:233-250).
         sim_t0 = self.total_time if colliders.any_moving(self.scene.colliders) else None
         with self.timers.scope("substeps", sync=self.device):
-            if self.devices > 1:
+            if self.path == "general":
+                self.state = stabilized.run(self.state, self.scene, n, t0=sim_t0)
+                self.stats.substeps += n
+            elif self.devices > 1:
                 self.state = self._sharded_run(self.state, n, self.stats, t0=sim_t0)
             else:
                 self.state = self._fast.run(self.state, self.scene, self.spec, n, self.stats,
@@ -255,9 +280,9 @@ class Simulation:
         rebucket cost.  Capacity grows at once when the occupancy-sized
         capacity (headroom 1.15) exceeds the current one, so the in-run
         rebucket never overflows; it shrinks for a >= 37.5% reduction at
-        most every 4 frames.  Sharded runs keep their spec (driver.py:
-        326-330)."""
-        if self.devices > 1:
+        most every 4 frames.  Sharded runs and the general path keep their
+        layout (driver.py:326-330)."""
+        if self.path != "fast" or self.devices > 1:
             return
         h = self._host_state()
         g = self.cfg.num_grids
@@ -355,11 +380,12 @@ def main(argv=None) -> Simulation:
         "--scenario", default="dam2d_flip98",
         choices=sorted({**SCENARIOS, **UNPORTED_SCENARIOS}),
     )
-    ap.add_argument("--path", default="fast", choices=["general", "fast"])
+    ap.add_argument("--path", default="general", choices=["general", "fast"])
     ap.add_argument(
         "--devices", type=parse_devices, default=1,
         help="shard the fast path into N slabs on the one device (slab "
-        "decomposition); N0xN1 (the two-axis 3D mesh) is not ported",
+        "decomposition; requires --path fast); N0xN1 (the two-axis 3D mesh) "
+        "is not ported",
     )
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--substeps", type=int, default=None)

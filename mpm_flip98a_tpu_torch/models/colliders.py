@@ -30,9 +30,9 @@ import dataclasses
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
+from mpm_flip98a_tpu_torch.config import np_float
 from mpm_flip98a_tpu_torch.models.stabilized import PAD
 
 
@@ -87,20 +87,16 @@ class Collider:
         return bool(self.center_velocity) and any(v != 0.0 for v in self.center_velocity)
 
 
-def _np_dtype(dtype: torch.dtype):
-    return np.float64 if dtype == torch.float64 else np.float32
-
-
 def rounded(v, dtype: torch.dtype) -> float:
     """v rounded to `dtype`, as a Python float (exact in that dtype): how
     the reference casts a constant before it meets a tensor."""
-    return float(_np_dtype(dtype)(v))
+    return float(np_float(dtype)(v))
 
 
 def _center_at(c: Collider, dtype: torch.dtype, t):
     """Per-axis effective center at simulation time t (a host scalar, or
     None = 0), computed in `dtype`: center + center_velocity * t."""
-    nd = _np_dtype(dtype)
+    nd = np_float(dtype)
     if t is None or not c.moving:
         return [float(nd(x)) for x in c.center]
     tt = nd(float(t))
@@ -167,7 +163,7 @@ def project(vs, coords, colliders: Tuple[Collider, ...], t=None):
     velocity joins the surface velocity."""
     d = len(vs)
     dt_ = vs[0].dtype
-    nd = _np_dtype(dt_)
+    nd = np_float(dt_)
     for c in colliders:
         phi, n = phi_normal(c, coords, t)
         inside = phi <= 0

@@ -1,12 +1,12 @@
 """Particle state of the port (counterpart of `mpm_flip98a_tpu/state.py`).
 
-A frozen dataclass of tensors, structure-of-arrays with the particle
-index leading and small per-particle matrices trailing (..., d, d).
-Scene builders make it on the host in the scene's dtype (float64 by
-default); the fast path casts to float32 and moves it to its device in
-`models/fast2d.from_particles`.  `Grid` and `MLS88Particles` belong to
-the general path and the validation model, not ported yet (ROADMAP
-queue 1, item 3).
+Frozen dataclasses of tensors, structure-of-arrays with the particle (or
+grid node) index leading and small per-particle matrices trailing
+(..., d, d).  Scene builders make `Particles` on the host in the scene's
+dtype (float64 by default); the general path moves it to its device as it
+is (`to_device`), the fast path casts it to float32 in
+`models/fast2d.from_particles`.  `Grid` is the general path's post-update
+grid, `MLS88Particles` the validation model's state.
 """
 
 from __future__ import annotations
@@ -15,6 +15,52 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+
+def to_device(state, device):
+    """A copy of the dataclass of tensors `state` with every field on `device`."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).to(device) for f in dataclasses.fields(state)
+    })
+
+
+@dataclasses.dataclass(frozen=True)
+class MLS88Particles:
+    """Particle state of the validation model
+    (reference: cpp_validation/mls-mpm88-explained.cpp:28-42).
+
+    x : (N, d)    position
+    v : (N, d)    velocity
+    F : (N, d, d) deformation gradient
+    C : (N, d, d) APIC affine velocity matrix
+    Jp: (N,)      plastic volume ratio
+    """
+
+    x: torch.Tensor
+    v: torch.Tensor
+    F: torch.Tensor
+    C: torch.Tensor
+    Jp: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.x.shape[1]
+
+    @staticmethod
+    def init(x: torch.Tensor, v: Optional[torch.Tensor] = None) -> "MLS88Particles":
+        n, d = x.shape
+        dt, dev = x.dtype, x.device
+        return MLS88Particles(
+            x=x,
+            v=torch.zeros((n, d), dtype=dt, device=dev) if v is None else v.to(dtype=dt, device=dev),
+            F=torch.eye(d, dtype=dt, device=dev).expand(n, d, d).clone(),
+            C=torch.zeros((n, d, d), dtype=dt, device=dev),
+            Jp=torch.ones((n,), dtype=dt, device=dev),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +142,21 @@ class Particles:
             consistency=zeros(d),
             Jp=torch.ones((n,), dtype=dt, device=dev),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """Grid state of the stabilized solver (reference: fields.py:24-30).
+
+    v       : (G..., d)     nodal velocity
+    v0      : (G..., d)     pre-force velocity for the FLIP delta
+    m       : (G..., d, d)  matrix-valued nodal mass
+    volume  : (G...,)       nodal volume
+    pressure: (G...,)       nodal pressure
+    """
+
+    v: torch.Tensor
+    v0: torch.Tensor
+    m: torch.Tensor
+    volume: torch.Tensor
+    pressure: torch.Tensor

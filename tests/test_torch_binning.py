@@ -88,7 +88,7 @@ def _port_cfg(scene):
 def test_from_particles_bit_exact():
     p, scene, spec, b = _jax_state()
     p_t = convert.particles_from_numpy(
-        {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}
+        {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}, device="cpu"
     )
     cfg = _port_cfg(scene)
     spec_t = fast2d.FastSpec.for_particles(cfg, p_t, headroom=2.0)

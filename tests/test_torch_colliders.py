@@ -287,7 +287,7 @@ def test_kinematic_sharded_matches_single_device():
     substeps in float64 through the plain versions to 1e-9."""
     (p, _, _, _), (scene_t, _, _) = _setup("plow")
     p_t = convert.particles_from_numpy(
-        {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)})
+        {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}, device="cpu")
     mesh = SlabMesh(4, "cpu")
     spec = fd.FastDomainSpec.for_particles(scene_t.cfg, 4, p_t, headroom=2.0)
     b = fd.distribute(p_t, scene_t.cfg, spec, mesh)
@@ -329,7 +329,8 @@ def test_cli_runs_collider_scenarios_on_cpu(tmp_path, monkeypatch, scenario):
         monkeypatch.setattr(mod, "run", lambda *a, _r=real, **k: (seen.append(k["t0"]),
                                                                    _r(*a, **k))[1])
     sim = driver.main([
-        "--scenario", scenario, "--frames", "2", "--substeps", "1", "--no-gif", "--sync-io",
+        "--scenario", scenario, "--path", "fast", "--frames", "2", "--substeps", "1", "--no-gif",
+        "--sync-io",
         "--out", str(tmp_path), "--device", "cpu",
     ])
     assert sim.stats.substeps == sim.stats.host_reads == 2 and sim.frame_count == 2

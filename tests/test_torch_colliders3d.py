@@ -251,7 +251,7 @@ def test_3d_sharded_matches_single_device():
     J 4.9e-7, displacement 2.2e-7; without the collider 1e-10)."""
     (p, _, _, _, t0), (scene_t, spec1, _) = _states("kinematic")
     p_t = convert.particles_from_numpy(
-        {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)})
+        {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}, device="cpu")
     mesh = SlabMesh(2, "cpu")
     spec = fd3.FastDomain3DSpec.for_particles(scene_t.cfg, 2, p_t, headroom=2.0)
     b = fd3.distribute(p_t, scene_t.cfg, spec, mesh)

@@ -678,8 +678,8 @@ def test_cli_runs_dam3d_obstacle_on_the_card(dev, tmp_path):
 
     tk.reset_launches()
     tk3.reset_launches()
-    sim = driver.main(["--scenario", "dam3d_obstacle", "--frames", "2", "--substeps", "10",
-                       "--no-gif", "--sync-io", "--out", str(tmp_path)])
+    sim = driver.main(["--scenario", "dam3d_obstacle", "--path", "fast", "--frames", "2",
+                       "--substeps", "10", "--no-gif", "--sync-io", "--out", str(tmp_path)])
     assert sim.device.type == "cuda"
     assert tk3.LAUNCHES == {"p2g3d": 0, "p2g3d_grid": 20, "g2p3d": 20}
     x = sim.positions()
@@ -1064,3 +1064,80 @@ def test_p2g_grid_edge_cases_match_plain_and_rerun_equal(dev, mode, case, shards
     _close(got, via, axis=2)
     diff = float((got - via).abs().max())
     assert torch.equal(got, via), f"max |p2g_grid - fold_rows_halo(single)| = {diff:.3e}"
+
+
+# ---------------------------------------------------------------------------
+# The general path and the validation model (plain torch, no kernel of
+# their own), on the card against the CPU.  The card's index_add_ adds with
+# atomics in no fixed order: float64 within 1e-12 of each field's scale
+# after 1 substep and 1e-9 after 20, float32 x within 1e-7 and v 1e-4
+# (absolute) after 1; the validation model within 1e-5 per substep.
+# ---------------------------------------------------------------------------
+
+
+def _general_errors(got, want):
+    out = {}
+    for f in dataclasses.fields(want):
+        g = getattr(got, f.name).cpu().to(torch.float64)
+        w = getattr(want, f.name).to(torch.float64)
+        scale = float((want.x if f.name == "consistency" else w).abs().max())
+        diff = float((g - w).abs().max())
+        out[f.name] = diff / scale if diff else 0.0
+    return out
+
+
+def _perturbed_dam(dtype, **switches):
+    cfg = MPMConfig(dtype=np.dtype(dtype).name, num_grids=37, dt=2e-5, num_particles_x=16,
+                    num_particles_y=32, **switches)
+    p, scene = scenes.dam_break_2d(cfg, dtype=dtype)
+    rng = np.random.default_rng(0)
+    f = np.eye(2) + 0.01 * rng.standard_normal((p.n, 2, 2))
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype))
+    p = dataclasses.replace(p, v=t(0.1 * rng.standard_normal((p.n, 2))),
+                            C=t(10.0 * rng.standard_normal((p.n, 2, 2))), F=t(f),
+                            J=t(np.linalg.det(f)))
+    return p, scene
+
+
+@pytest.mark.parametrize("switches", [
+    dict(), dict(flip_blend=0.98, transfer=TransferKind.PIC, use_fbar=True,
+                 use_penalty_ebc=True, pressure_mixing_ratio=1.0),
+], ids=["apic", "stabilized"])
+def test_general_substeps_on_the_card_track_the_cpu(dev, switches):
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    p, scene = _perturbed_dam(np.float64, **switches)
+    tk.reset_launches()
+    for n, tol in ((1, 1e-12), (20, 1e-9)):
+        got = stabilized.run(to_device(p, dev), scene, n)
+        assert got.x.device.type == "cuda" and got.x.dtype == torch.float64
+        errs = _general_errors(got, stabilized.run(p, scene, n))
+        assert max(errs.values()) <= tol, (n, errs)
+    assert not any(tk.LAUNCHES.values())       # the general path runs no kernel
+    p32, scene32 = _perturbed_dam(np.float32, **switches)
+    got = stabilized.substep(to_device(p32, dev), scene32)
+    want = stabilized.substep(p32, scene32)
+    np.testing.assert_allclose(got.x.cpu().numpy(), want.x.numpy(), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(got.v.cpu().numpy(), want.v.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_mls88_on_the_card_tracks_the_cpu(dev, dtype):
+    """One substep from warm-ups 0 and 50 within 1e-5: absolute in float64
+    (tests/test_mls_mpm_vs_oracle.py's warm-ups run in float64), of each
+    field's scale in float32 (C reaches 522 there, where an ulp is 6.1e-5)."""
+    from mpm_flip98a_tpu_torch.config import MLS88Config
+    from mpm_flip98a_tpu_torch.models import mls_mpm
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    cfg = MLS88Config()
+    s = mls_mpm.init_dam_break(n=2000, cfg=cfg, dtype=dtype, device="cpu")
+    for warmup in (0, 50):
+        s = mls_mpm.run(s, cfg, warmup)
+        got, want = mls_mpm.substep(to_device(s, dev), cfg), mls_mpm.substep(s, cfg)
+        for k in ("x", "v", "F", "C", "Jp"):
+            w = getattr(want, k).double()
+            scale = float(w.abs().max()) if dtype == torch.float32 else 1.0
+            err = float((getattr(got, k).cpu().double() - w).abs().max()) / scale
+            assert err <= 1e-5, (warmup, k, err)

@@ -88,8 +88,8 @@ def test_unported_entry_points_raise(tmp_path):
     out = ["--out", str(tmp_path), "--device", "cpu", "--frames", "1", "--substeps", "1"]
     for extra, item in (
         (["--scenario", "snow2d"], "item 4"),
-        (["--path", "general"], "item 3"),
-        (["--scenario", "dam3d", "--devices", "2x2"], "item 7"),
+        (["--scenario", "dam2d_incompressible"], "item 6"),
+        (["--scenario", "dam3d", "--path", "fast", "--devices", "2x2"], "item 7"),
         (["--checkpoint", str(tmp_path / "ck.npz")], "item 2"),
     ):
         with pytest.raises(NotImplementedError, match=item):
@@ -122,12 +122,15 @@ def test_devices_parsing(tmp_path):
     assert driver.parse_devices("2x4") == (2, 4)
     p, scene = driver.SCENARIOS["dam3d"]()
     with pytest.raises(NotImplementedError, match="two-axis.*ROADMAP queue 1, item 7"):
-        driver.Simulation(p, scene, devices=(2, 2), device="cpu", out_dir=str(tmp_path))
+        driver.Simulation(p, scene, path="fast", devices=(2, 2), device="cpu",
+                          out_dir=str(tmp_path))
     p2, scene2 = driver.SCENARIOS["dam2d_flip98"]()
     with pytest.raises(ValueError, match="3D-only"):
-        driver.Simulation(p2, scene2, devices=(2, 2), device="cpu", out_dir=str(tmp_path))
+        driver.Simulation(p2, scene2, path="fast", devices=(2, 2), device="cpu",
+                          out_dir=str(tmp_path))
     # One shard along axis 1 is the one-axis slab mesh.
-    sim = driver.Simulation(p, scene, devices=(2, 1), device="cpu", out_dir=str(tmp_path))
+    sim = driver.Simulation(p, scene, path="fast", devices=(2, 1), device="cpu",
+                            out_dir=str(tmp_path))
     assert sim.devices == 2 and sim.spec.n_shards0 == 2
 
 
@@ -167,3 +170,57 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     r = _run_python(["chip_smoke.py"], cwd=cwd)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_cli_default_path_is_general(tmp_path):
+    """`--path` defaults to general, as in the JAX CLI (driver.py:498)."""
+    sim = driver.main(["--scenario", "dam2d", "--device", "cpu", "--frames", "1",
+                       "--substeps", "2", "--no-gif", "--sync-io", "--out", str(tmp_path)])
+    assert sim.path == "general" and sim.stats.substeps == 2
+    assert sim.state.x.dtype == torch.float64 and sim.state.x.shape == (8450, 2)
+    assert os.path.exists(os.path.join(sim.frame_dir, "00001.png"))
+    assert np.array_equal(sim.positions(), sim.state.x.numpy())
+    assert len(np.unique(sim.material_colors(), axis=0)) == 1
+
+
+def test_cli_dam2d_matches_jax_general(tmp_path):
+    """`--scenario dam2d --device cpu --frames 1 --substeps 2` against JAX
+    `Simulation(path="general")` from the same scene: every field within
+    1e-12 of its scale (float64, the reference configuration)."""
+    import dataclasses
+
+    from mpm_flip98a_tpu import driver as driver_jax
+
+    sim = driver.main(["--scenario", "dam2d", "--device", "cpu", "--frames", "1",
+                       "--substeps", "2", "--no-gif", "--sync-io", "--out", str(tmp_path)])
+    p, scene = driver_jax.SCENARIOS["dam2d"]()
+    ref = driver_jax.Simulation(p, scene, path="general", out_dir=str(tmp_path / "jax"))
+    ref.step_frame(2)
+    assert sim.total_time == ref.total_time
+    for f in dataclasses.fields(ref.state):
+        want = np.asarray(getattr(ref.state, f.name))
+        got = getattr(sim.state, f.name).numpy()
+        assert got.dtype == want.dtype, f.name
+        scale = np.abs(np.asarray(ref.state.x)).max() if f.name == "consistency" else (
+            np.abs(want).max())
+        assert np.abs(got - want).max() <= 1e-12 * scale, f.name
+
+
+@pytest.mark.parametrize("scenario", sorted(driver.SCENARIOS))
+def test_general_path_runs_every_ported_scenario(tmp_path, scenario):
+    sim = driver.main(["--scenario", scenario, "--device", "cpu", "--frames", "1",
+                       "--substeps", "1", "--no-gif", "--sync-io", "--out", str(tmp_path)])
+    p, _ = driver.SCENARIOS[scenario]()
+    assert sim.path == "general" and sim.state.x.dtype == p.x.dtype
+    x = sim.positions()
+    assert x.shape == (p.n, sim.cfg.dim) and np.isfinite(x).all()
+
+
+def test_general_path_takes_one_device(tmp_path):
+    p, scene = driver.SCENARIOS["dam2d"]()
+    for devices in (2, (2, 1)):
+        with pytest.raises(ValueError, match="requires --path fast"):
+            driver.Simulation(p, scene, devices=devices, device="cpu", out_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="requires --path fast"):
+        driver.main(["--scenario", "dam2d", "--devices", "2", "--device", "cpu", "--frames",
+                     "1", "--substeps", "1", "--out", str(tmp_path)])

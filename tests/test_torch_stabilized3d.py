@@ -334,7 +334,8 @@ def test_simulation_runs_the_prepped_3d_branch(tmp_path, scene_kind):
             pressure_mixing_ratio=1.0)
     else:
         p, scene = scenes.elastic_drop_3d()
-    sim = driver.Simulation(p, scene, out_dir=str(tmp_path), device="cpu", render_res=64)
+    sim = driver.Simulation(p, scene, path="fast", out_dir=str(tmp_path), device="cpu",
+                            render_res=64)
     sim.run(2, 3, gif=False, verbose=False)
     assert sim.stats.substeps == 6
     h = fast3d.to_host(sim.state)
