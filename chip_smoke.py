@@ -171,7 +171,27 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
 34. main:mls88 the validation model at MLS88Config(): one float32 substep
                on the card against the CPU from warm-ups 0, 50 and 200
                (1e-5), 300 float64 substeps (5e-4), ms per substep; then
-               the {"general": {...}} line.
+               the {"general": {...}} line;
+35. main:plastic  snow and sand: the snow2d and sand2d CLIs on the fast
+               and general paths (2 frames x 200 substeps: p2g and g2p once
+               per substep and p2g_fused never on the fast path, no kernel
+               on the general one; the host checks, Jp in [0.6, 20]); one
+               general substep of each on the card twice and on the CPU
+               after 200 (float64, 1e-12 of scale); snow2k and sand2k (the
+               snow and sand scenes on 2049^2, 640,000 and 851,200
+               particles, float32, dt 1e-6) through Simulation on the fast
+               path, 2 frames x 100: launches, the host checks, peak memory,
+               p2g and g2p against plain on the final state, p2g's reruns,
+               CUDA-event times and bounds, ms per substep (3 x 20), one
+               substep fast against general (x 1e-7, v 1e-4); two
+               100-substep fast runs bitwise equal at sand2k and at bench
+               1M; sanddrop3d (drop3d with a sand block, 2 x 10) with
+               p2g3d_grid's prepped mode and g2p3d's gather mode against
+               plain on its state, ms per substep (3 x 5), fast against
+               general; the friction check of tests/test_sand.py:174-199
+               (37^2, phi 15 and 45 degrees, 4000 substeps each on the
+               fast path: the steeper pile is higher and narrower); then
+               the {"plastic": {...}} line.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -188,8 +208,9 @@ under "prepped_*" and "tent_*", g2p with its prepadded mode's under
 "prepadded_*", p2g3d_grid with its raw modes' under "raw_*" and
 "raw_prepped_*", g2p3d on the 3D shard windows under "sharded_*" and
 "sharded_gather_*", p2g3d_grid's collider mode under "colliders_*" with
-"colliders_flips", its tile plans under "plans" and "rerun_bitwise_equal");
-the last line is
+"colliders_flips", its tile plans under "plans" and "rerun_bitwise_equal";
+p2g and g2p with main:plastic's modes under "snow2k_*" and "sand2k_*",
+p2g3d_grid and g2p3d under "sanddrop3d_*"); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -2019,18 +2040,18 @@ def general_cli(dev, card, io_ok, scenario, n_frames, n_sub):
     return sim, secs, [f[:, :sim.cfg.dim] for f in frames]
 
 
-def field_errors(got, want, names=None) -> dict:
+def field_errors(got, want, names=None, scales=None) -> dict:
     """Per field of two Particles (`want` on any device): max |got - want|
     over the field's largest |want| (the consistency diagnostic, a position
-    error, over x's)."""
+    error, over x's; a field in `scales` over the scale given there)."""
     names = names or [f.name for f in dataclasses.fields(want)]
-    x_scale = float(want.x.abs().max())
+    scales = dict(scales or {}, consistency=float(want.x.abs().max()))
     out = {}
     for n in names:
         g = getattr(got, n).to(torch.float64).cpu()
         w = getattr(want, n).to(torch.float64).cpu()
         diff = float((g - w).abs().max())
-        scale = x_scale if n == "consistency" else float(w.abs().max())
+        scale = scales[n] if n in scales else float(w.abs().max())
         out[n] = diff / scale if diff else 0.0
     return out
 
@@ -2115,17 +2136,17 @@ def general_vs_fast(tag, p, scene, dev, card, n_time=20, profile_dir=None):
     return out
 
 
-def card_vs_cpu(tag, state, scene, bounds, card):
+def card_vs_cpu(tag, state, scene, bounds, card, scales=None):
     """One general substep from `state` (on the card) on the card twice and
     on the CPU: the card against the CPU and the two card runs, each field
-    of `bounds` within its share of its scale."""
+    of `bounds` within its share of its scale (`field_errors`)."""
     from mpm_flip98a_tpu_torch.models import stabilized
     from mpm_flip98a_tpu_torch.state import to_device
 
     a = stabilized.substep(state, scene)
     b = stabilized.substep(state, scene)
     c = stabilized.substep(to_device(state, "cpu"), scene)
-    e_cpu, e_rerun = field_errors(a, c), field_errors(b, a)
+    e_cpu, e_rerun = field_errors(a, c, scales=scales), field_errors(b, a, scales=scales)
     over = {n: (e_cpu[n], e_rerun[n]) for n, tol in bounds.items()
             if max(e_cpu[n], e_rerun[n]) > tol}
     say(f"[main:general_vs_cpu {tag}] {state.n} particles, {state.x.dtype}: one substep, card "
@@ -2270,6 +2291,337 @@ def general_phases(dev, card, io_ok, profile_dir=None):
     # ---- main:mls88 ---------------------------------------------------------------
     GENERAL["mls88"] = mls88_phase(dev, card)
     say(json.dumps({"general": GENERAL}))
+
+
+# ---------------------------------------------------------------------------
+# Plasticity: snow, Drucker-Prager sand and the corotated clamp
+# ---------------------------------------------------------------------------
+
+# The snow and sand scenes at a user's high resolution: the reference's
+# 105^2 grid refined 20x (2049^2), each scene at its own particle spacing
+# (snow 800^2 = 640,000; sand 560 x 1520 = 851,200), float32, dt 1e-6;
+# and drop3d with a sand block.
+PLASTIC_GRID = 2049
+PLASTIC_2K = {"snow2k": dict(particles_per_axis=800),
+              "sand2k": dict(particles_per_axis=(560, 1520))}
+# tests/test_sand.py:174-199: the column at 37^2 (dt 5e-5, 12 x 30
+# particles) settles into a steeper, narrower pile at 45 degrees than at 15.
+FRICTION = dict(num_grids=37, dt=5e-5, particles_per_axis=(12, 30), angles=(15.0, 45.0),
+                substeps=4000)
+PLASTIC = {}                 # the {"plastic": ...} line
+
+
+def plastic_host_checks(tag, sim, n0, mass0, card):
+    """Phase 4's host checks on the fast path, the general path's on the
+    general one, and Jp within the clamp bounds [0.6, 20]."""
+    from mpm_flip98a_tpu_torch.models import fast2d, fast3d
+
+    if sim.path == "general":
+        general_host_checks(tag, sim, n0, mass0, card)
+        jp = sim.state.Jp.double().cpu().numpy()
+    else:
+        host_checks(tag, sim, n0, mass0, card)
+        jp = (fast3d if sim.cfg.dim == 3 else fast2d).to_host(sim.state)["Jp"]
+    lo, hi = sim.scene.params.jp_clamp_lo, sim.scene.params.jp_clamp_hi
+    say(f"[main:{tag}] Jp range [{float(jp.min())!r}, {float(jp.max())!r}] (bounds [{lo}, {hi}]), "
+        f"Jp moved off 1 on {float((np.abs(jp - 1.0) > 1e-6).mean()):.4f} of the particles  "
+        f"[{card}]")
+    check(bool(np.isfinite(jp).all()) and jp.min() >= lo - 1e-6 and jp.max() <= hi + 1e-6,
+          f"{tag}: Jp left [{lo}, {hi}]")
+
+
+def plastic_cli(dev, card, io_ok, scenario, path, n_frames, n_sub):
+    """`scenario` through the CLI on `path` (Simulation where no frame
+    writer exists): on the fast path p2g and g2p once per substep and
+    p2g_fused never, on the general path no kernel; the host checks."""
+    from mpm_flip98a_tpu_torch import driver
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        argv = ["--scenario", scenario, "--path", path, "--frames", str(n_frames), "--substeps",
+                str(n_sub), "--no-gif", "--out", out_dir, "--device", "cuda"]
+        p0, _ = driver.SCENARIOS[scenario]()
+        reset_counts()
+        t0 = time.perf_counter()
+        if io_ok:
+            sim = driver.main(argv)
+        else:
+            p, scene = driver.SCENARIOS[scenario]()
+            sim = driver.Simulation(p, scene, path=path, out_dir=out_dir, device=dev)
+            sim.run(n_frames, n_sub, gif=False, write_frames=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = kernel_counts()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    n = n_frames * n_sub
+    say(f"[main:plastic {scenario} {path}] {'CLI ' + ' '.join(argv) if io_ok else 'Simulation'} "
+        f"in {secs:.2f} s: {sim.stats.substeps} substeps, launches {got}, "
+        f"{1e3 * sim.timers.total['substeps'] / n:.4f} ms/substep (host clock, synchronised)  "
+        f"[{card}]")
+    check(sim.stats.substeps == n, f"{scenario} {path}: {sim.stats.substeps} substeps")
+    if path == "fast":
+        check(got["p2g"] == got["g2p"] == n and got["p2g_fused"] == 0,
+              f"{scenario} fast: launches {got} for {n} substeps")
+        mass0 = float(p0.mass.to(torch.float32).double().sum())
+    else:
+        mass0 = float(p0.mass.sum())
+    plastic_host_checks(f"plastic {scenario} {path}", sim, p0.n, mass0, card)
+    return {"ms_per_substep": 1e3 * sim.timers.total["substeps"] / n, "launches": got}
+
+
+def rerun_bitwise(tag, p, scene, dev, n_sub, card):
+    """Two n_sub-substep fast 2D runs from the same bucket state: every
+    field bitwise equal (every 2D kernel and the glue sum in a fixed
+    order)."""
+    from mpm_flip98a_tpu_torch.models import fast2d
+
+    spec = fast2d.FastSpec.for_particles(scene.cfg, p)
+    b0 = fast2d.from_particles(p, scene.cfg, spec, dev)
+    a = fast2d.run(b0, scene, spec, n_sub)
+    b = fast2d.run(b0, scene, spec, n_sub)
+    differ = [f.name for f in dataclasses.fields(a) if not torch.equal(getattr(a, f.name),
+                                                                        getattr(b, f.name))]
+    say(f"[main:plastic rerun {tag}] {p.n} particles, two {n_sub}-substep fast runs: fields "
+        f"not bitwise equal {differ}  [{card}]")
+    check(not differ, f"{tag}: two fast 2D runs differ in {differ}")
+    return not differ
+
+
+def friction_check(dev, card):
+    """tests/test_sand.py:174-199 on the card through the fast path: the
+    pile at 45 degrees is higher (h > 1.2 h) and narrower (w < 0.8 w) than
+    at 15, after 4000 substeps each; finite, in the box, slumped."""
+    from mpm_flip98a_tpu_torch.config import MPMConfig
+    from mpm_flip98a_tpu_torch.models import fast2d, scenes
+
+    cfg = MPMConfig(dtype="float32", num_grids=FRICTION["num_grids"], dt=FRICTION["dt"])
+    out = {}
+    for phi in FRICTION["angles"]:
+        p, scene = scenes.sand_column_2d(cfg, dtype=np.float32,
+                                         particles_per_axis=FRICTION["particles_per_axis"],
+                                         friction_angle=phi)
+        spec = fast2d.FastSpec.for_particles(cfg, p, headroom=2.0)
+        stats = fast2d.RunStats()
+        t0 = time.perf_counter()
+        b = fast2d.run(fast2d.from_particles(p, cfg, spec, dev), scene, spec,
+                       FRICTION["substeps"], stats)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        h = fast2d.to_host(b)
+        x = np.stack([h["x0"], h["x1"]], -1)
+        l = cfg.domain_length
+        ok = (bool(np.isfinite(x).all()) and bool(((x > -cfg.dx) & (x < l + cfg.dx)).all())
+              and int(b.overflow) == 0 and x.shape[0] == p.n)
+        slumped = float(x[:, 1].max()) < 0.5 * float(p.x[:, 1].max())
+        out[phi] = {"height": float(x[:, 1].max()), "width": float(np.ptp(x[:, 0])),
+                    "ms_per_substep": 1e3 * secs / FRICTION["substeps"]}
+        say(f"[main:plastic friction] phi {phi}: {FRICTION['substeps']} substeps in {secs:.2f} s "
+            f"({stats.rebuckets} rebuckets): pile height {out[phi]['height']!r}, width "
+            f"{out[phi]['width']!r}; finite, in the box, no overflow {ok}; slumped {slumped}  "
+            f"[{card}]")
+        check(ok and slumped, f"friction: phi {phi} state")
+    (lo, hi) = (out[a] for a in FRICTION["angles"])
+    say(f"[main:plastic friction] h45 / h15 = {hi['height'] / lo['height']:.4f} (bound > 1.2), "
+        f"w45 / w15 = {hi['width'] / lo['width']:.4f} (bound < 0.8)  [{card}]")
+    check(hi["height"] > 1.2 * lo["height"], "friction: the 45-degree pile is not steeper")
+    check(hi["width"] < 0.8 * lo["width"], "friction: the 45-degree pile is not narrower")
+    return out
+
+
+def plastic2k(tag, dev, card, err, kernel_ms, plain_ms, bounds, launches):
+    """snow2k or sand2k through Simulation on the fast path (2 frames x 100
+    substeps): launches, host checks, peak memory; p2g and g2p against
+    their plain versions on the final state, p2g's reruns, CUDA-event times
+    and bounds; ms per substep (3 x 20); one substep fast against general;
+    for sand2k two 100-substep runs bitwise equal."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig
+    from mpm_flip98a_tpu_torch.models import fast2d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+
+    cfg = MPMConfig(dtype="float32", num_grids=PLASTIC_GRID)
+    build = scenes.snow_block_2d if tag == "snow2k" else scenes.sand_column_2d
+    p, scene = build(cfg, dtype=np.float32, **PLASTIC_2K[tag])
+    mass0 = float(p.mass.to(torch.float32).double().sum())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = driver.Simulation(p, scene, path="fast", out_dir=tempfile.gettempdir(), device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(2, 100, gif=False, verbose=False, write_frames=False)
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[main:plastic {tag}] {p.n} particles, grid {cfg.num_grids}^2, materials "
+        f"{scene.materials_present}, buckets {tuple(sim.state.shape)}; Simulation 2 frames x "
+        f"100 substeps in {time.perf_counter() - t0:.2f} s, launches {got}, peak device memory "
+        f"{peak} bytes = {peak / 2**30:.3f} GiB  [{card}]")
+    check(got["p2g"] == got["g2p"] == 200 and got["p2g_fused"] == 0,
+          f"{tag}: launches {got} for 200 substeps")
+    for name in ("p2g", "g2p"):
+        launches[f"{tag}_{name}"] = got[name]
+    plastic_host_checks(f"plastic {tag}", sim, p.n, mass0, card)
+
+    pdata, pdata2, counts = fast2d.transfer_inputs(sim.state, scene)
+    args = fast2d.p2g_args(scene)
+    dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
+    grid = fast2d._grid_update2d(tk.fold_rows(tk.p2g(pdata, counts, **args)), scene)
+    err[f"{tag}_p2g"], err[f"{tag}_g2p"] = compare_prepped(
+        tag, pdata, pdata2, counts, grid, args, dinv, card)
+    rerun_equal(f"main:plastic {tag}", "p2g", lambda: tk.p2g(pdata, counts, **args), card)
+    r, nrows, k = pdata.shape
+    nch, live, g = nrows - 8, int(counts.sum()), cfg.num_grids
+    # g2p reads only the grid rows that live slots' taps reach (the block
+    # covers a fifth of the rows at most): count those, not all R.
+    on = (pdata2[:, 2] > 0) & (torch.arange(k, device=dev)[None, :] < counts[:, None])
+    base0 = torch.floor(pdata2[:, 0][on] - 0.5).long()
+    rows = int(torch.unique(torch.cat([base0 + j for j in range(3)]).clamp(0, r - 1)).numel())
+    bounds[f"{tag}_p2g"] = bound(4 * ((8 + nch) * live + r + 5 * nch * r * g), live * 9 * nch * 2)
+    bounds[f"{tag}_g2p"] = bound(4 * (3 * live + r + 4 * rows * g + 8 * r * k), live * 9 * 8 * 2)
+    pairs = {f"{tag}_p2g": (lambda: tk.p2g(pdata, counts, **args),
+                            lambda: tk.p2g_plain(pdata, counts, **args)),
+             f"{tag}_g2p": (lambda: tk.g2p(pdata2, counts, grid, args["dx"], dinv),
+                            lambda: tk.g2p_plain(pdata2, counts, grid, args["dx"], dinv))}
+    for name, (call, plain_call) in pairs.items():
+        kernel_ms[name] = cuda_ms(call)
+        plain_ms[name] = cuda_ms(plain_call, reps=5, warm=1)
+        say(f"[main:plastic {tag}] {name} (buckets {r}x{k}, {live} live, {nch} channels): "
+            f"kernel {kernel_ms[name]:.4f} ms (CUDA events, 20 calls), plain "
+            f"{plain_ms[name]:.4f} ms (5 calls), bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})  [{card}]")
+    del pdata, pdata2, counts, grid, pairs
+    step = lambda s: fast2d.substep(s, scene)
+    wall = time_paths(f"plastic {tag}", fast2d, sim.state, scene, sim.spec, step, p.n,
+                      cfg.stencil_size, 20, 3, card)
+    out = {"particles": p.n, "ms_per_substep": 1e3 * wall, "peak_bytes": peak,
+           "vs_general": general_vs_fast(tag, p, scene, dev, card)}
+    if tag == "sand2k":
+        out["rerun_bitwise_equal"] = rerun_bitwise(tag, p, scene, dev, 100, card)
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def sanddrop3d(dev, card, err, kernel_ms, plain_ms, bounds, launches):
+    """drop3d's scene with a sand block through Simulation (2 frames x 10
+    substeps): launches, host checks, peak memory; p2g3d_grid's prepped
+    mode and g2p3d's gather mode against plain on its state (with p2g3d
+    beside them), times and bounds; ms per substep (3 x 5); one substep
+    fast against general."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import fast3d, materials as mat, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    p, scene = scenes.elastic_drop_3d(**DROP_3D, block_material=mat.SAND)
+    mass0 = float(p.mass.to(torch.float32).double().sum())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = driver.Simulation(p, scene, path="fast", out_dir=tempfile.gettempdir(), device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(2, 10, gif=False, verbose=False, write_frames=False)
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[main:plastic sanddrop3d] elastic_drop_3d {DROP_3D} with a sand block: {p.n} "
+        f"particles, materials {scene.materials_present}, buckets {tuple(sim.state.shape)}; "
+        f"Simulation 2 frames x 10 substeps in {time.perf_counter() - t0:.2f} s, launches {got}, "
+        f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB  [{card}]")
+    check(got["p2g3d_grid"] == got["g2p3d"] == 20 and got["p2g3d"] == 0,
+          f"sanddrop3d: launches {got} for 20 substeps")
+    for name in ("p2g3d_grid", "g2p3d"):
+        launches[f"sanddrop3d_{name}"] = got[name]
+    plastic_host_checks("plastic sanddrop3d", sim, p.n, mass0, card)
+    check(bool((sim.state.F22 != 1.0).any()), "sanddrop3d: F was never updated")
+
+    spec = sim.spec
+    args = fast3d.p2g_args(scene)
+    mode = (args["apic"], args["ext"], args["tent"])
+    node = {n: args[n] for n in ("dt", "grav", "floor", "lo", "hi", "wall", "beta")}
+    fields = fast3d.prepped_fields(sim.state, scene, spec)
+    counts = fast3d.pencil_counts(sim.state)
+    mask = sim.state.mask.view(spec.rows0, spec.rows1, spec.capacity)
+    _, err["sanddrop3d_p2g3d_grid"], err["sanddrop3d_g2p3d"], grid = compare_prepped3d(
+        "sanddrop3d", fields, counts, mask, mode, node, args["g2"], args["dx"], card)
+    r0, r1, k3 = mask.shape
+    live, n_in = int(counts.sum()), len(fields)
+    nodes = (r0 + 4) * (r1 + 4) * args["g2"]
+    dinv = float(4.0 * scene.cfg.inv_dx * scene.cfg.inv_dx)
+    g2p_in = (*fields[:3], mask, counts, grid, args["dx"], dinv)
+    bounds["sanddrop3d_p2g3d_grid"] = bound(4 * (n_in * live + r0 * r1 + tk3.G2P_CH * nodes),
+                                            live * 27 * tk3.P2G_CH * 2)
+    bounds["sanddrop3d_g2p3d"] = bound(
+        4 * (4 * live + r0 * r1 + tk3.G2P_CH * nodes + 15 * r0 * r1 * k3), live * 27 * 15 * 2)
+    pairs = {"sanddrop3d_p2g3d_grid": (lambda: tk3.p2g3d_grid(fields, counts, r1, **args),
+                                       lambda: tk3.p2g3d_grid_plain(fields, counts, r1, **args)),
+             "sanddrop3d_g2p3d": (lambda: tk3.g2p3d(*g2p_in), lambda: tk3.g2p3d_plain(*g2p_in))}
+    for name, (call, plain_call) in pairs.items():
+        kernel_ms[name] = cuda_ms(call, reps=10, warm=2)
+        plain_ms[name] = cuda_ms(plain_call, reps=2, warm=1)
+        say(f"[main:plastic sanddrop3d] {name} ({n_in} planes, buckets {r0}x{r1}x{k3}, {live} "
+            f"live): kernel {kernel_ms[name]:.4f} ms (CUDA events, 10 calls), plain "
+            f"{plain_ms[name]:.4f} ms (2 calls), bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})  [{card}]")
+    del fields, counts, mask, grid, g2p_in, pairs
+    # The plastic update on the live sand slots alone (fast3d._slots_of)
+    # against the same update on every slot, as the reference computes it.
+    st = sim.state
+    fm = fast3d._fmat(st)
+    idx = fast3d._slots_of(st, (mat.SAND,))
+    f_all, f_live = fast3d._fmat3(fm), fast3d._fmat3([f[idx] for f in fm])
+    update = lambda m, f, jp: mat.plastic_update(scene.params, m, f, jp, scene.materials_present)
+    svd_ms = {"all_slots": cuda_ms(lambda: update(st.mat, f_all, st.Jp), reps=3, warm=1),
+              "live_sand_slots": cuda_ms(lambda: update(st.mat[idx], f_live, st.Jp[idx]),
+                                         reps=3, warm=1)}
+    say(f"[main:plastic sanddrop3d] plastic_update on all {f_all.shape[0] * f_all.shape[1]} "
+        f"slots {svd_ms['all_slots']:.4f} ms, on the {f_live.shape[0]} live sand slots "
+        f"{svd_ms['live_sand_slots']:.4f} ms (CUDA events, 3 calls)  [{card}]")
+    del st, fm, idx, f_all, f_live
+    torch.cuda.empty_cache()
+    step = lambda s: fast3d.substep(s, scene, spec)
+    wall = time_paths("plastic sanddrop3d", fast3d, sim.state, scene, spec, step, p.n, 27, 5, 3,
+                      card)
+    del sim
+    torch.cuda.empty_cache()
+    return {"particles": p.n, "ms_per_substep": 1e3 * wall, "peak_bytes": peak,
+            "plastic_update_ms": svd_ms,
+            "vs_general": general_vs_fast("sanddrop3d", p, scene, dev, card, n_time=5)}
+
+
+def plastic_phases(dev, card, io_ok, err, kernel_ms, plain_ms, bounds, launches):
+    """Phase 35, main:plastic; fills PLASTIC and prints its line."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import scenes, stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    t0 = time.perf_counter()
+    for scenario in ("snow2d", "sand2d"):
+        for path in ("fast", "general"):
+            PLASTIC[f"{scenario}_{path}"] = plastic_cli(dev, card, io_ok, scenario, path, 2, 200)
+    for scenario in ("snow2d", "sand2d"):
+        p, scene = driver.SCENARIOS[scenario]()
+        state = stabilized.run(to_device(p, dev), scene, 200)
+        every = {f.name: GENERAL_TOL[torch.float64] for f in dataclasses.fields(state)}
+        # After 200 substeps both bodies still fall as a whole: C and its
+        # trace are rounding residues of sums whose terms are dinv dx |v|
+        # in size, so that is their scale (as g2p's C in compare_g2p).
+        term = 4.0 * float(state.v.abs().max()) / scene.cfg.dx
+        PLASTIC[f"{scenario}_vs_cpu"] = card_vs_cpu(f"{scenario} after 200", state, scene,
+                                                    every, card, {"C": term, "div_v": term})
+    say(f"[timing] plastic CLIs done in {time.perf_counter() - t0:.1f} s")
+    for tag in PLASTIC_2K:
+        PLASTIC[tag] = plastic2k(tag, dev, card, err, kernel_ms, plain_ms, bounds, launches)
+    p, scene = scenes.dam_break_2d(MPMConfig(**BENCH, transfer=TransferKind.PIC), dtype=np.float32)
+    PLASTIC["bench1M_rerun_bitwise_equal"] = rerun_bitwise("bench1M", p, scene, dev, 100, card)
+    del p
+    say(f"[timing] plastic 2D scenes done in {time.perf_counter() - t0:.1f} s")
+    PLASTIC["sanddrop3d"] = sanddrop3d(dev, card, err, kernel_ms, plain_ms, bounds, launches)
+    say(f"[timing] sanddrop3d done in {time.perf_counter() - t0:.1f} s")
+    PLASTIC["friction"] = friction_check(dev, card)
+    say(f"[timing] plastic phases done in {time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"plastic": PLASTIC}))
 
 
 def main(argv=None) -> int:
@@ -2760,6 +3112,10 @@ def main(argv=None) -> int:
 
     # ---- 30-34. the general path and the validation model --------------------------
     general_phases(dev, card, io_ok, args.profile)
+    say(f"[timing] general phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 35. plasticity: snow, sand, the corotated clamp ---------------------------
+    plastic_phases(dev, card, io_ok, err, kernel_ms, plain_ms, bounds, launches)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -2878,6 +3234,18 @@ def main(argv=None) -> int:
         "plans": PLANS,
         "rerun_bitwise_equal": RERUNS["p2g3d_grid"],
     })
+    # The modes main:plastic launched, at its scenes' shapes: p2g and g2p on
+    # snow2k and sand2k, p2g3d_grid's prepped mode and g2p3d's gather mode
+    # on sanddrop3d.
+    for name, tags in (("p2g", ("snow2k", "sand2k")), ("g2p", ("snow2k", "sand2k")),
+                       ("p2g3d_grid", ("sanddrop3d",)), ("g2p3d", ("sanddrop3d",))):
+        for tag in tags:
+            key = f"{tag}_{name}"
+            by_name[name].update({
+                f"{tag}_launches": launches[key], f"{tag}_max_abs_err": err[key],
+                f"{tag}_ms": kernel_ms[key], f"{tag}_plain_ms": plain_ms[key],
+                f"{tag}_bound_ms": bounds[key][0], f"{tag}_bound_by": bounds[key][1],
+            })
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

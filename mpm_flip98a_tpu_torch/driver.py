@@ -9,16 +9,17 @@ as the JAX driver does.  `--path general` (the default) is the stabilized
 solver `models/stabilized.run` on a `Particles` state in the scene's
 dtype (float64 for `dam2d`, the reference workload), 2D or 3D.
 `--path fast` is routed by the scene's dimension: `models/fast2d` for
-`dam2d`, `dam2d_flip98`, `elastic_drop`, `dam2d_obstacle` (a rigid
-cylinder in the run-out) and `plow2d` (a cylinder sweeping through the
-pool), `models/fast3d` for `dam3d` and `dam3d_obstacle` (a rigid sphere).
+`dam2d`, `dam2d_flip98`, `elastic_drop`, `snow2d` (a snow block dropped
+on the floor), `sand2d` (a Drucker-Prager sand column collapsing),
+`dam2d_obstacle` (a rigid cylinder in the run-out) and `plow2d` (a
+cylinder sweeping through the pool), `models/fast3d` for `dam3d` and `dam3d_obstacle` (a rigid sphere).
 Kinematic colliders see the simulation time: `step_frame` passes
 `total_time` as the run's t0 when one of them moves (driver.py:233-250).
 `--devices N` runs the fast path's slab-sharded form (driver.py:138-177):
 N slab shards of the grid's axis 0 on that one device
 (`parallel.SlabMesh`), `parallel/fast_domain` in 2D and the one-axis
 `parallel/fast_domain3d` in 3D; the general path takes one device only
-and raises ValueError otherwise, as in JAX.  The other scenarios, the
+and raises ValueError otherwise, as in JAX.  `dam2d_incompressible`, the
 two-axis `N0xN1` mesh and checkpoints raise NotImplementedError naming
 their ROADMAP item.
 
@@ -29,6 +30,8 @@ CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d --frames 1 --no-gif
           --frames 2 --substeps 200 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam3d --path fast \
           --frames 2 --substeps 100 --no-gif
+      python -m mpm_flip98a_tpu_torch --scenario sand2d --path fast \
+          --frames 2 --substeps 200 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario plow2d --path fast \
           --frames 2 --substeps 200 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam3d_obstacle --path fast \
@@ -71,6 +74,12 @@ SCENARIOS = {
     ),
     "elastic_drop": lambda: scenes.elastic_drop_2d(),
     "dam3d": lambda: scenes.dam_break_3d(),
+    # Snow (materials.SNOW): the corotated stress hardened by the tracked
+    # plastic volume Jp (mls-mpm88-explained.cpp:17-19,67-69,164-177).
+    "snow2d": lambda: scenes.snow_block_2d(),
+    # Drucker-Prager sand (materials.SAND): a column collapsing into an
+    # angle-of-repose pile (Klar et al. 2016).
+    "sand2d": lambda: scenes.sand_column_2d(),
     # Rigid SDF collider: dam break splitting around a cylinder in the
     # run-out path.
     "dam2d_obstacle": lambda: scenes.dam_break_obstacle_2d(),
@@ -85,8 +94,6 @@ SCENARIOS = {
 # ROADMAP queue 1 item that ports them.
 UNPORTED_SCENARIOS = {
     "dam2d_incompressible": 6,
-    "snow2d": 4,
-    "sand2d": 4,
 }
 
 

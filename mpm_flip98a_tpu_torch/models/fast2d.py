@@ -6,13 +6,14 @@ as fast2d.py:537-542 does (`uses_fused`):
 - one weakly-compressible fluid without F-bar or pressure mixing, on the
   B-spline: `p2g_fused` (kernel, stress inside) -> `fold_rows` ->
   `_grid_update2d` -> `g2p` (kernel) -> the particle update;
-- every other ported config (fluid, neo-Hookean and fixed-corotated
-  solids mixed per slot; F-bar and pressure mixing with the lag
-  correction; the tent kernel; penalty EBC): the stress prepped in torch
-  into `pdata` -> `p2g` (kernel) -> `fold_rows` -> `_grid_update2d` (with
-  the nodal Jbar, p and div under F-bar or mixing) -> `g2p` (kernel, 7
-  grid channels and tent taps as needed) -> the tent's per-particle D^-1
-  -> the particle update.
+- every other config (fluid, neo-Hookean, fixed-corotated, snow and
+  Drucker-Prager sand mixed per slot; F-bar and pressure mixing with the
+  lag correction; the tent kernel; penalty EBC): the stress prepped in
+  torch into `pdata` -> `p2g` (kernel) -> `fold_rows` -> `_grid_update2d`
+  (with the nodal Jbar, p and div under F-bar or mixing) -> `g2p` (kernel,
+  7 grid channels and tent taps as needed) -> the tent's per-particle
+  D^-1 -> the particle update, which ends in `materials.plastic_update`
+  for snow, sand and the corotated clamp.
 
 PIC or APIC with the FLIP blend, linear or Tait EOS, slip or sticky walls
 or the penalty EBC, rigid SDF colliders (static or kinematic, applied in
@@ -206,9 +207,6 @@ def to_host(b: FluidBuckets) -> dict:
     return {n: out[n] for n in HOST_FIELDS}
 
 
-PORTED_MATERIALS = (mat.WEAKLY_COMPRESSIBLE_FLUID, mat.NEO_HOOKEAN, mat.FIXED_COROTATED)
-
-
 def check_supported(scene: Scene) -> None:
     """Raise for configs outside the ported slice: NotImplementedError
     naming the ROADMAP item that ports them."""
@@ -220,16 +218,28 @@ def check_supported(scene: Scene) -> None:
         # collider solid mask, col_solid).
         (cfg.surface_tension > 0.0, "CSF surface tension", 6),
         (cfg.incompressible, "the incompressible projection", 6),
-        (any(m not in PORTED_MATERIALS for m in scene.materials_present),
-         "snow and sand (mathx.svd, plastic_update)", 4),
-        (scene.params.plastic and mat.FIXED_COROTATED in scene.materials_present,
-         "corotated plasticity (plastic_update)", 4),
     ]
     for bad, what, item in gaps:
         if bad:
             raise NotImplementedError(
                 f"fast2d port: {what} is not ported yet (ROADMAP queue 1, item {item})"
             )
+
+
+def plastic_materials(scene: Scene) -> Tuple[int, ...]:
+    """The materials whose F (and SNOW's Jp) `materials.plastic_update`
+    changes after the F update (fast2d.py:842-857): SNOW, SAND, and
+    FIXED_COROTATED under `params.plastic`.  Empty: no plastic update."""
+    present = scene.materials_present
+    ids = [m for m in (mat.SNOW, mat.SAND) if m in present]
+    if scene.params.plastic and mat.FIXED_COROTATED in present:
+        ids.append(mat.FIXED_COROTATED)
+    return tuple(ids)
+
+
+def _fmat2(f00, f01, f10, f11) -> torch.Tensor:
+    """Stack four (R, K) planes into (R, K, 2, 2) matrices."""
+    return torch.stack([torch.stack([f00, f01], -1), torch.stack([f10, f11], -1)], -2)
 
 
 def _ext(cfg: MPMConfig) -> bool:
@@ -355,6 +365,12 @@ def _stress(b: FluidBuckets, scene: Scene):
     div with div = tr C).  Neo-Hookean solids get the neo-Hookean stress
     of materials.neo_hookean_tau_hat: the reference's fast2d dispatch
     lacks that branch and gives them the corotated one (ROADMAP queue 3).
+    SNOW is the corotated stress with mu and lam hardened by
+    exp(hardening (1 - Jp)) (fast2d.py:684-690).  SAND takes
+    materials.sand_tau_hat on stacked (R, K, 2, 2) F, as the reference's
+    fast3d does: the reference's fast2d computes it and then overwrites it
+    with the neo-Hookean stress (fast2d.py:657-680; ROADMAP queue 3).
+    Dead slots sit at F = I, where the sand stress is zero.
     Returns ((tau00, tau01, tau10, tau11), p_point, vj): p_point is the
     fluid's pointwise pressure on every slot, solids included (zero
     without a fluid); vj = V0 J_eff on every slot."""
@@ -400,7 +416,16 @@ def _stress(b: FluidBuckets, scene: Scene):
             t11 = b.vol0 * (mu_s * (b.F10 ** 2 + b.F11 ** 2 - 1.0) + lj)
             t01 = b.vol0 * mu_s * (b.F00 * b.F10 + b.F01 * b.F11)
             t10 = t01
-        else:  # FIXED_COROTATED: V0 (2 mu (F - R) F^T + lam (J - 1) J I)
+        elif mid == mat.SAND:
+            tm = mat.sand_tau_hat(params, b.vol0, _fmat2(b.F00, b.F01, b.F10, b.F11))
+            t00, t01, t10, t11 = tm[..., 0, 0], tm[..., 0, 1], tm[..., 1, 0], tm[..., 1, 1]
+        else:  # FIXED_COROTATED / SNOW: V0 (2 mu (F - R) F^T + lam (J - 1) J I)
+            mu_m, lam_m = mu_s, lam_s
+            if mid == mat.SNOW:
+                # Lame parameters hardened by the tracked plastic volume
+                # (mls-mpm88-explained.cpp:67-69).
+                h = torch.exp(_f32(params.hardening) * (1.0 - b.Jp))
+                mu_m, lam_m = mu_s * h, lam_s * h
             jf = b.F00 * b.F11 - b.F01 * b.F10
             px = b.F00 + b.F11
             py = b.F10 - b.F01
@@ -409,11 +434,11 @@ def _stress(b: FluidBuckets, scene: Scene):
             rc, rs = px * sc, py * sc
             d00, d01 = b.F00 - rc, b.F01 + rs
             d10, d11 = b.F10 - rs, b.F11 - rc
-            lj = lam_s * (jf - 1.0) * jf
-            t00 = b.vol0 * (2 * mu_s * (d00 * b.F00 + d01 * b.F01) + lj)
-            t01 = b.vol0 * (2 * mu_s * (d00 * b.F10 + d01 * b.F11))
-            t10 = b.vol0 * (2 * mu_s * (d10 * b.F00 + d11 * b.F01))
-            t11 = b.vol0 * (2 * mu_s * (d10 * b.F10 + d11 * b.F11) + lj)
+            lj = lam_m * (jf - 1.0) * jf
+            t00 = b.vol0 * (2 * mu_m * (d00 * b.F00 + d01 * b.F01) + lj)
+            t01 = b.vol0 * (2 * mu_m * (d00 * b.F10 + d01 * b.F11))
+            t10 = b.vol0 * (2 * mu_m * (d10 * b.F00 + d11 * b.F01))
+            t11 = b.vol0 * (2 * mu_m * (d10 * b.F10 + d11 * b.F11) + lj)
         if len(scene.materials_present) == 1:
             tau = (t00, t01, t10, t11)
         else:
@@ -575,6 +600,14 @@ def substep(
     f01 = (1 + dt * c00) * b.F01 + dt * c01 * b.F11
     f10 = dt * c10 * b.F00 + (1 + dt * c11) * b.F10
     f11 = dt * c10 * b.F01 + (1 + dt * c11) * b.F11
+    jp_new = b.Jp
+    if plastic_materials(scene):
+        # The snow clamp with Jp tracking, or sand's cone projection
+        # (fast2d.py:842-857); dead slots sit at F = I, Jp = 1, which
+        # neither changes.
+        fm, jp_new = mat.plastic_update(scene.params, b.mat, _fmat2(f00, f01, f10, f11),
+                                        b.Jp, scene.materials_present)
+        f00, f01, f10, f11 = fm[..., 0, 0], fm[..., 0, 1], fm[..., 1, 0], fm[..., 1, 1]
     return dataclasses.replace(
         b,
         x0=b.x0 + dt * vpic0 * b.mask,
@@ -583,7 +616,7 @@ def substep(
         v1=nv1 * b.mask,
         C00=c00, C01=c01, C10=c10, C11=c11,
         F00=f00, F01=f01, F10=f10, F11=f11,
-        J=torch.where(on, b.J * (1.0 + dt * div_for_j), 1.0),
+        J=torch.where(on, b.J * (1.0 + dt * div_for_j), 1.0), Jp=jp_new,
         jbar_s=jbar_new, p_s=p_new, div_s=div_s_new,
     )
 

@@ -9,15 +9,16 @@ as fast3d.py:586-591 and :776-811 do (`uses_fused`, `scene.mass_floor`):
   -> `g2p3d` (kernel: gather, FLIP blend, advection, J update).  No
   slot-sized pass runs outside the kernels except the transfer
   coordinates and the margin check;
-- every other ported config (the prepped branch, fast3d.py:646-934:
-  fluid, neo-Hookean and fixed-corotated solids mixed per slot; F-bar and
-  pressure mixing with the lag correction; the tent kernel): the stress
-  prepped in torch into separate planes, then with an absolute mass floor
+- every other config (the prepped branch, fast3d.py:646-934: fluid,
+  neo-Hookean, fixed-corotated, snow and Drucker-Prager sand mixed per
+  slot; F-bar and pressure mixing with the lag correction; the tent
+  kernel): the stress prepped in torch into separate planes, then with an absolute mass floor
   `p2g3d_grid` in its prepped mode (kernel: scatter, grid update, the
   nodal Jbar, p and div), and with `mass_floor <= 0` (the relative floor,
   `Scene`'s default) `p2g3d` (kernel) -> `fold_rows0` -> `_grid_update`;
   then `g2p3d` in gather mode (kernel) -> the tent's per-particle D^-1 ->
-  the particle update.
+  the particle update, which ends in `materials.plastic_update` for snow,
+  sand and the corotated clamp (on the live plastic slots only).
 
 PIC or APIC with the FLIP blend, linear or Tait EOS, slip or sticky walls
 or the penalty EBC, rigid SDF colliders (static or kinematic: inside
@@ -53,7 +54,7 @@ from mpm_flip98a_tpu_torch.config import EOSKind, KernelKind, MPMConfig, Transfe
 from mpm_flip98a_tpu_torch.models import colliders
 from mpm_flip98a_tpu_torch.models import materials as mat
 from mpm_flip98a_tpu_torch.models.fast2d import (
-    PORTED_MATERIALS, RunStats, _ext, _f32, substep_times,
+    RunStats, _ext, _f32, plastic_materials, substep_times,
 )
 from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene, _mass_floor
 from mpm_flip98a_tpu_torch.ops import binning
@@ -237,10 +238,6 @@ def check_supported(scene: Scene, sharded: bool = False) -> None:
         # collider solid mask, col_solid).
         (cfg.surface_tension > 0.0, "CSF surface tension", 6),
         (cfg.incompressible, "the incompressible projection", 6),
-        (any(m not in PORTED_MATERIALS for m in scene.materials_present),
-         "snow and sand (mathx.svd, plastic_update)", 4),
-        (scene.params.plastic and mat.FIXED_COROTATED in scene.materials_present,
-         "corotated plasticity (plastic_update)", 4),
     ]
     for bad, what, item in gaps:
         if bad:
@@ -408,6 +405,24 @@ def _fmat(b: FluidBuckets3D):
     return [getattr(b, f"F{a}{c}") for a in range(3) for c in range(3)]
 
 
+def _fmat3(f) -> torch.Tensor:
+    """Stack the 9-list [F00..F22] of (..., K) planes into (..., K, 3, 3)."""
+    return torch.stack([torch.stack(f[3 * a : 3 * a + 3], -1) for a in range(3)], -2)
+
+
+def _slots_of(b: FluidBuckets3D, ids: Tuple[int, ...]):
+    """Index tensors of the live slots whose material is one of `ids`: the
+    SVD-based sand stress and plastic update run there alone, because a
+    3D layout holds several slots a particle (drop3d: 21M for 3.5M) and
+    the plastic block is a part of the scene.  Reading the count is one
+    device-to-host synchronisation."""
+    sel = b.mask > 0
+    on = b.mat == ids[0]
+    for m in ids[1:]:
+        on = on | (b.mat == m)
+    return torch.nonzero(sel & on, as_tuple=True)
+
+
 def _det3(m):
     return (
         m[0] * (m[4] * m[8] - m[5] * m[7])
@@ -510,11 +525,25 @@ def _stress(b: FluidBuckets3D, scene: Scene):
                     ffr = sum(fm[3 * a + e] * fm[3 * c + e] for e in range(3))
                     tl.append(b.vol0 * (mu_s * (ffr - 1.0) + lj) if a == c
                               else b.vol0 * (mu_s * ffr))
-        else:  # FIXED_COROTATED: V0 (2 mu (F - R) F^T + lam (J - 1) J I)
+        elif mid == mat.SAND:
+            # materials.sand_tau_hat on stacked (..., 3, 3) F (fast3d.py:
+            # 683-695), on the live sand slots only: elsewhere the result
+            # is discarded (another material) or zero (a dead slot, F = I).
+            idx = _slots_of(b, (mat.SAND,))
+            tm = mat.sand_tau_hat(params, b.vol0[idx], _fmat3([f[idx] for f in fm]))
+            zero = torch.zeros_like(b.J)
+            tl = [zero.index_put(idx, tm[:, a, c]) for a in range(3) for c in range(3)]
+        else:  # FIXED_COROTATED / SNOW: V0 (2 mu (F - R) F^T + lam (J - 1) J I)
+            mu_m, lam_m = mu_s, lam_s
+            if mid == mat.SNOW:
+                # Lame parameters hardened by the tracked plastic volume
+                # (mls-mpm88-explained.cpp:67-69; fast3d.py:713-720).
+                h = torch.exp(_f32(params.hardening) * (1.0 - b.Jp))
+                mu_m, lam_m = mu_s * h, lam_s * h
             rrot = _polar3d_rows(fm)
             jf = _det3(fm)
-            lj = lam_s * (jf - 1.0) * jf
-            two_mu_s = 2.0 * mu_s
+            lj = lam_m * (jf - 1.0) * jf
+            two_mu_s = 2.0 * mu_m
             df = [fm[i] - rrot[i] for i in range(9)]
             tl = []
             for a in range(3):
@@ -741,6 +770,7 @@ def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: b
     else:
         jbar_new, p_new, div_s_new = b.jbar_s, b.p_s, b.div_s
     fm = _fmat(b)
+    jp_new = b.Jp
     if scene.materials_present != (mat.WEAKLY_COMPRESSIBLE_FLUID,):
         # F <- (I + dt C) F; the fluid's stress never reads F, so a
         # fluid-only scene leaves it alone.
@@ -752,6 +782,17 @@ def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: b
             )
             for a in range(3) for c in range(3)
         ]
+        if plastic_materials(scene):
+            # The snow clamp with Jp tracking, or sand's cone projection
+            # (fast3d.py:883-910), on the live slots of the plastic
+            # materials: it leaves the others' F and Jp as they are, and
+            # dead slots (F = I, Jp = 1) unchanged.
+            idx = _slots_of(b, plastic_materials(scene))
+            fm3, jp_sub = mat.plastic_update(scene.params, b.mat[idx],
+                                             _fmat3([f[idx] for f in fm]), jp_new[idx],
+                                             scene.materials_present)
+            fm = [f.index_put(idx, fm3[:, i // 3, i % 3]) for i, f in enumerate(fm)]
+            jp_new = jp_new.index_put(idx, jp_sub)
     return dataclasses.replace(
         b,
         x0=b.x0 + dt * vpic[0] * b.mask,
@@ -760,7 +801,7 @@ def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: b
         v0=nv[0] * b.mask, v1=nv[1] * b.mask, v2=nv[2] * b.mask,
         **{f"C{a}{c}": c_new[3 * a + c] for a in range(3) for c in range(3)},
         **{f"F{a}{c}": fm[3 * a + c] for a in range(3) for c in range(3)},
-        J=torch.where(on, b.J * (1.0 + dt * div_for_j), 1.0),
+        J=torch.where(on, b.J * (1.0 + dt * div_for_j), 1.0), Jp=jp_new,
         jbar_s=jbar_new, p_s=p_new, div_s=div_s_new,
     )
 

@@ -5,22 +5,26 @@ All stresses are the V0-scaled Kirchhoff stress
 that the MLS-MPM force term consumes (reference:
 cpp_validation/mls-mpm88-explained.cpp:79-89).
 
-Ported: the material ids, `MaterialParams`, the weakly-compressible fluid
+Every material of the JAX module: the weakly-compressible fluid
 (`fluid_pressure`, `fluid_tau_hat`), `neo_hookean_tau_hat`,
-`fixed_corotated_tau_hat` (the polar decompositions of `ops/mathx`), the
+`fixed_corotated_tau_hat` (the polar decompositions of `ops/mathx`), SNOW
+(`snow_tau_hat`: the corotated stress with Lame parameters hardened by
+the tracked plastic volume Jp) and Drucker-Prager SAND (`sand_tau_hat`:
+St. Venant-Kirchhoff on the Hencky strain; `sand_return`: the return map
+of the log singular values onto the friction cone, Klar et al. 2016), the
 `tau_hat` dispatch and `plastic_update` (the singular-value clamp of
-FIXED_COROTATED under `params.plastic` and of SNOW, with SNOW's Jp).  The
-fast paths compute the same stresses in component form
-(`models/fast2d._stress`, `models/fast3d._stress`); these matrix forms
-are the general path's and the fast paths' yardstick in the tests.  The
-SNOW and SAND stresses and the sand return mapping wait for ROADMAP
-queue 1, item 4.  Constants enter as Python floats rounded to the
-tensors' dtype, so nothing is copied from the host on the card.
+FIXED_COROTATED under `params.plastic` and of SNOW with SNOW's Jp, and
+the cone projection of SAND).  The fast paths compute the fluid and the
+elastic stresses in component form (`models/fast2d._stress`,
+`models/fast3d._stress`) and sand through these matrix forms.  Constants
+enter as Python floats rounded to the tensors' dtype, so nothing is
+copied from the host on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -67,10 +71,6 @@ def _scalar(v: float, like: torch.Tensor) -> float:
 
 def _eye(d: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(d, dtype=like.dtype, device=like.device)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item 4)")
 
 
 def fluid_pressure(params: MaterialParams, j_bar: torch.Tensor) -> torch.Tensor:
@@ -133,6 +133,82 @@ def neo_hookean_tau_hat(
     )
 
 
+def snow_tau_hat(
+    params: MaterialParams, volume0: torch.Tensor, f: torch.Tensor, jp: torch.Tensor
+) -> torch.Tensor:
+    """Fixed corotated with hardening-scaled Lame parameters
+    (mls-mpm88-explained.cpp:67-69,81): h = exp(hardening (1 - Jp)),
+    V0 (2 mu0 h (F - R) F^T + lam0 h (J - 1) J I)."""
+    d = f.shape[-1]
+    h = torch.exp(_scalar(params.hardening, f) * (1.0 - jp))
+    j = mathx.det(f)
+    r, _ = mathx.polar_decomp(f)
+    mu = _scalar(params.mu, f) * h
+    lam = _scalar(params.lam, f) * h
+    pf = 2.0 * mu[..., None, None] * mathx.mm(f - r, mathx.transpose(f)) + (
+        (lam * (j - 1.0) * j)[..., None, None] * _eye(d, f)
+    )
+    return volume0[..., None, None] * pf
+
+
+def sand_alpha(params: MaterialParams) -> float:
+    """Drucker-Prager yield-surface slope from the friction angle
+    (Klar et al. 2016 eq. 28): alpha = sqrt(2/3) 2 sin(phi) / (3 - sin(phi))."""
+    s = math.sin(math.radians(params.friction_angle))
+    return math.sqrt(2.0 / 3.0) * 2.0 * s / (3.0 - s)
+
+
+def _hencky(f: torch.Tensor):
+    """SVD and the log singular values, floored at 1e-4 against collapsed
+    or inverted slots: (U, sig, V, eps)."""
+    u, sig, v = mathx.svd(f)
+    return u, sig, v, torch.log(torch.clamp(sig, min=_scalar(1e-4, f)))
+
+
+def sand_tau_hat(
+    params: MaterialParams, volume0: torch.Tensor, f: torch.Tensor
+) -> torch.Tensor:
+    """Hencky-strain St. Venant-Kirchhoff stress (Klar et al. 2016 eq. 26):
+    V0 U (2 mu eps + lam tr(eps) I) U^T with eps = log(Sigma)."""
+    u, _, _, eps = _hencky(f)
+    mu, lam = _scalar(params.mu, f), _scalar(params.lam, f)
+    diag = 2.0 * mu * eps + (lam * torch.sum(eps, dim=-1))[..., None]
+    tau = mathx.mm(u * diag[..., None, :], mathx.transpose(u))
+    return volume0[..., None, None] * tau
+
+
+def _sand_project_eps(params: MaterialParams, eps: torch.Tensor, d: int) -> torch.Tensor:
+    """Return-map the Hencky strain onto the cohesionless Drucker-Prager
+    cone (Klar et al. 2016, alg. 1): expansion (tr eps > 0) goes to the tip
+    eps = 0; dg <= 0 is elastic and unchanged; otherwise
+    eps - dg dev(eps) / |dev(eps)| with
+    dg = |dev(eps)| + alpha (d lam + 2 mu) / (2 mu) tr(eps), |dev(eps)|
+    floored at 1e-12.  The cone's coefficient is rounded in eps's dtype at
+    each step, as the reference's 0-d arrays are."""
+    nd = np_float(eps.dtype)
+    mu, lam, alpha = nd(params.mu), nd(params.lam), nd(sand_alpha(params))
+    coef = float(alpha * (nd(d) * lam + nd(2.0) * mu) / (nd(2.0) * mu))
+    tr = torch.sum(eps, dim=-1)
+    ehat = eps - (tr / d)[..., None]
+    en = torch.sqrt(torch.sum(ehat * ehat, dim=-1))
+    dg = en + coef * tr
+    en_safe = torch.clamp(en, min=float(nd(1e-12)))
+    eps_proj = eps - (dg / en_safe)[..., None] * ehat
+    eps_new = torch.where((dg > 0)[..., None], eps_proj, eps)
+    return torch.where((tr > 0)[..., None], torch.zeros_like(eps), eps_new)
+
+
+def sand_return(params: MaterialParams, f: torch.Tensor) -> torch.Tensor:
+    """The plastic return map at F-update time: F <- U exp(eps') V^T with
+    eps' the cone-projected Hencky strain.  An elastic state keeps F
+    bitwise: only the projected states are rebuilt."""
+    u, _, v, eps = _hencky(f)
+    eps_new = _sand_project_eps(params, eps, f.shape[-1])
+    changed = torch.any(eps_new != eps, dim=-1)
+    rebuilt = mathx.mm(u * torch.exp(eps_new)[..., None, :], mathx.transpose(v))
+    return torch.where(changed[..., None, None], rebuilt, f)
+
+
 def plastic_update(
     params: MaterialParams,
     material: torch.Tensor,
@@ -147,14 +223,18 @@ def plastic_update(
         Jp <- clamp(Jp det(F_old) / det(F_new), 0.6, 20)    [SNOW only]
 
     for SNOW particles, and for FIXED_COROTATED ones under
-    `params.plastic` (their Jp stays as it is).  A static no-op unless the
-    scene declares such a material.  Returns (F, Jp)."""
+    `params.plastic` (their Jp stays as it is); SAND particles take the
+    Drucker-Prager cone projection (`sand_return`) instead.  A static
+    no-op unless the scene declares such a material.  Returns (F, Jp)."""
     clamp_fc = params.plastic and FIXED_COROTATED in materials_present
     has_snow = SNOW in materials_present
-    if SAND in materials_present:
-        raise _unported("the sand return mapping")
-    if not clamp_fc and not has_snow:
+    has_sand = SAND in materials_present
+    if not clamp_fc and not has_snow and not has_sand:
         return f, jp
+    if has_sand and not clamp_fc and not has_snow:
+        if all(m == SAND for m in materials_present):
+            return sand_return(params, f), jp
+        return torch.where((material == SAND)[..., None, None], sand_return(params, f), f), jp
     nd = np_float(f.dtype)
     u, sig, v = mathx.svd(f)
     sig_c = torch.clamp(sig, min=float(nd(params.sig_clamp_lo)), max=float(nd(params.sig_clamp_hi)))
@@ -171,6 +251,9 @@ def plastic_update(
         )
         clamped = clamped | (material == SNOW)
         jp = torch.where(material == SNOW, jp_c, jp)
+    if has_sand:
+        # Sand beside a clamping material: cone-project the sand slots.
+        f = torch.where((material == SAND)[..., None, None], sand_return(params, f), f)
     if all(m == SNOW or (m == FIXED_COROTATED and clamp_fc) for m in materials_present):
         return f_c, jp
     return torch.where(clamped[..., None, None], f_c, f), jp
@@ -189,16 +272,19 @@ def tau_hat(
 ) -> torch.Tensor:
     """Dispatch on the per-particle material id; only the branches of
     `materials_present` are evaluated.  `jp` (Particles.Jp) is the SNOW
-    branch's hardening state."""
+    branch's hardening state.  An unknown id takes the corotated stress,
+    as in the reference."""
 
     def branch(mid):
         if mid == WEAKLY_COMPRESSIBLE_FLUID:
             return fluid_tau_hat(params, volume0, j_bar, pressure, strain_rate)
         if mid == NEO_HOOKEAN:
             return neo_hookean_tau_hat(params, volume0, f)
-        if mid == FIXED_COROTATED:
-            return fixed_corotated_tau_hat(params, volume0, f)
-        raise _unported(f"the stress of material {mid} (snow / sand)")
+        if mid == SNOW:
+            return snow_tau_hat(params, volume0, f, jp)
+        if mid == SAND:
+            return sand_tau_hat(params, volume0, f)
+        return fixed_corotated_tau_hat(params, volume0, f)
 
     if len(materials_present) == 1:
         return branch(materials_present[0])

@@ -9,7 +9,8 @@ start from the same bits.  `elastic_drop_2d` adds an elastic block to that
 column (BASELINE.json configs[2]); `dam_break_3d`, `slab_3d` and
 `elastic_drop_3d` are the 3D scenes.  `dam_break_obstacle_2d`, `plow_2d`
 and `dam_break_obstacle_3d` add rigid colliders (models/colliders.py).
-Snow and sand wait for ROADMAP queue 1, item 4.
+`snow_block_2d` drops a SNOW block onto the floor and `sand_column_2d`
+collapses a Drucker-Prager SAND column into a pile.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from mpm_flip98a_tpu_torch.config import MPMConfig, Physics, TransferKind
 from mpm_flip98a_tpu_torch.models import materials as mat
 from mpm_flip98a_tpu_torch.models.colliders import Collider
-from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
+from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene, WallBC
 from mpm_flip98a_tpu_torch.state import Particles
 
 
@@ -122,6 +123,87 @@ def elastic_drop_2d(
             plastic=plastic,
         ),
         materials_present=(mat.WEAKLY_COMPRESSIBLE_FLUID, block_material),
+        mass_floor=_floor_of(p),
+    )
+    return p, scene
+
+
+def snow_block_2d(
+    cfg: Optional[MPMConfig] = None,
+    physics: Physics = Physics(),
+    dtype=np.float64,
+    block_frac: float = 0.18,
+    drop_height_frac: float = 0.5,
+    particles_per_axis: int = 40,
+    youngs: float = 1.4e5,
+    poisson: float = 0.2,
+) -> Tuple[Particles, Scene]:
+    """A snow block (400 kg/m^3) dropped onto the floor (the `snow2d`
+    scenario): materials.SNOW, the corotated stress hardened by the
+    tracked plastic volume Jp and clamped at F-update time
+    (mls-mpm88-explained.cpp:17-19,67-69,164-177; E and nu are Stomakhin et
+    al. 2013's snow).  The block compacts on impact instead of bouncing."""
+    cfg = cfg or MPMConfig(dtype=np.dtype(dtype).name)
+    l = cfg.domain_length
+    side = block_frac * l
+    n = particles_per_axis
+    x = _lattice((n, n), (0.5 * (l - side), drop_height_frac * l), (side, side), dtype)
+    p = Particles.init(
+        torch.from_numpy(x),
+        volume0=side * side / (n * n),
+        density=400.0,
+        material=torch.full((len(x),), mat.SNOW, dtype=torch.int32),
+    )
+    scene = Scene(
+        cfg=cfg,
+        physics=physics,
+        params=mat.MaterialParams(
+            mu=youngs / (2 * (1 + poisson)),
+            lam=youngs * poisson / ((1 + poisson) * (1 - 2 * poisson)),
+        ),
+        materials_present=(mat.SNOW,),
+        mass_floor=_floor_of(p),
+    )
+    return p, scene
+
+
+def sand_column_2d(
+    cfg: Optional[MPMConfig] = None,
+    physics: Physics = Physics(),
+    dtype=np.float64,
+    width_frac: float = 0.14,
+    height_frac: float = 0.38,
+    particles_per_axis: Tuple[int, int] = (28, 76),
+    youngs: float = 3.537e5,
+    poisson: float = 0.3,
+    friction_angle: float = 35.0,
+) -> Tuple[Particles, Scene]:
+    """A sand column (2200 kg/m^3) on the floor that collapses into a pile
+    whose slope the friction angle sets (the `sand2d` scenario):
+    materials.SAND with Klar et al. 2016's quartz sand (E = 3.537e5 Pa,
+    nu = 0.3, phi = 35 degrees)."""
+    cfg = cfg or MPMConfig(dtype=np.dtype(dtype).name)
+    l = cfg.domain_length
+    w = width_frac * l
+    h = height_frac * l
+    floor_y = (PAD + 0.55) * cfg.dx  # just above the wall band
+    nx, ny = particles_per_axis
+    x = _lattice((nx, ny), (0.5 * (l - w), floor_y), (w, h), dtype)
+    p = Particles.init(
+        torch.from_numpy(x),
+        volume0=w * h / (nx * ny),
+        density=2200.0,
+        material=torch.full((len(x),), mat.SAND, dtype=torch.int32),
+    )
+    scene = Scene(
+        cfg=cfg,
+        physics=physics,
+        params=mat.MaterialParams(
+            mu=youngs / (2 * (1 + poisson)),
+            lam=youngs * poisson / ((1 + poisson) * (1 - 2 * poisson)),
+            friction_angle=friction_angle,
+        ),
+        materials_present=(mat.SAND,),
         mass_floor=_floor_of(p),
     )
     return p, scene

@@ -128,10 +128,14 @@ def polar_decomp_3d(m: torch.Tensor, iters: int = 12) -> Tuple[torch.Tensor, tor
     return r, 0.5 * (s + transpose(s))
 
 
-def _jacobi_rotation(a: torch.Tensor, v: torch.Tensor, p: int, q: int):
-    """One Jacobi rotation zeroing a[p, q] of the symmetric (..., 3, 3) a;
-    v accumulates the eigenvectors as columns."""
-    app, aqq, apq = a[..., p, p], a[..., q, q], a[..., p, q]
+def _jacobi_rotation(a, v, p: int, q: int) -> None:
+    """One Jacobi rotation zeroing a[p][q] of the symmetric 3 x 3 `a`, in
+    place; `v` accumulates the eigenvectors as columns.  Both are 3-lists of
+    3-lists of (...,) tensors.  A rotation J changes only rows and columns
+    p and q, so J^T a J and v J are formed on those entries alone, each sum
+    in the order of the full product (rows of J^T a first, then its
+    columns), so no 3 x 3 temporaries are made."""
+    app, aqq, apq = a[p][p], a[q][q], a[p][q]
     zero = apq == 0
     tau = (aqq - app) / (2.0 * torch.where(zero, torch.ones_like(apq), apq))
     sign = torch.where(tau >= 0, torch.ones_like(tau), -torch.ones_like(tau))
@@ -139,11 +143,14 @@ def _jacobi_rotation(a: torch.Tensor, v: torch.Tensor, p: int, q: int):
     t = torch.where(zero, torch.zeros_like(t), t)
     c = 1.0 / torch.sqrt(1.0 + t * t)
     s = t * c
-    one, nil = torch.ones_like(c), torch.zeros_like(c)
-    rows = [[one, nil, nil], [nil, one, nil], [nil, nil, one]]
-    rows[p][p], rows[q][q], rows[p][q], rows[q][p] = c, c, s, -s
-    j = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
-    return mm(mm(transpose(j), a), j), mm(v, j)
+    ms = -s
+    for k in range(3):                          # rows p, q of J^T a
+        ap, aq = a[p][k], a[q][k]
+        a[p][k], a[q][k] = c * ap + ms * aq, s * ap + c * aq
+    for m in (a, v):                            # columns p, q of (J^T a) J and v J
+        for i in range(3):
+            mp, mq = m[i][p], m[i][q]
+            m[i][p], m[i][q] = mp * c + mq * ms, mp * s + mq * c
 
 
 def sym_eig_3d(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -152,15 +159,18 @@ def sym_eig_3d(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     JACOBI_SWEEPS ample in float64.  The sweeps run in float64 whatever
     s's dtype: in float32 their 24 rotations would add up to a few ulps
     more error than LAPACK's eigh has."""
-    a = s.to(torch.float64)
-    v = torch.eye(3, dtype=a.dtype, device=a.device).expand(a.shape).clone()
+    s64 = s.to(torch.float64)
+    a = [[s64[..., i, j] for j in range(3)] for i in range(3)]
+    one, nil = torch.ones_like(a[0][0]), torch.zeros_like(a[0][0])
+    v = [[one if i == j else nil for j in range(3)] for i in range(3)]
     for _ in range(JACOBI_SWEEPS):
         for p, q in ((0, 1), (0, 2), (1, 2)):
-            a, v = _jacobi_rotation(a, v, p, q)
-    eigval = torch.diagonal(a, dim1=-2, dim2=-1)
+            _jacobi_rotation(a, v, p, q)
+    eigval = torch.stack([a[i][i] for i in range(3)], dim=-1)
+    vm = torch.stack([torch.stack(row, dim=-1) for row in v], dim=-2)
     eigval, order = torch.sort(eigval, dim=-1, descending=True, stable=True)
-    v = torch.gather(v, -1, order[..., None, :].expand(v.shape))
-    return eigval.to(s.dtype), v.to(s.dtype)
+    vm = torch.gather(vm, -1, order[..., None, :].expand(vm.shape))
+    return eigval.to(s.dtype), vm.to(s.dtype)
 
 
 def svd_3d(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

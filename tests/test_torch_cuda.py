@@ -1124,17 +1124,20 @@ def test_general_substeps_on_the_card_track_the_cpu(dev, switches):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_mls88_on_the_card_tracks_the_cpu(dev, dtype):
-    """One substep from warm-ups 0 and 50 within 1e-5: absolute in float64
-    (tests/test_mls_mpm_vs_oracle.py's warm-ups run in float64), of each
-    field's scale in float32 (C reaches 522 there, where an ulp is 6.1e-5)."""
+    """One substep from warm-ups 0, 50 and 200 within 1e-5: absolute in
+    float64 (tests/test_mls_mpm_vs_oracle.py's warm-ups run in float64), of
+    each field's scale in float32 (C reaches 522 at 200, where an ulp is
+    6.1e-5)."""
     from mpm_flip98a_tpu_torch.config import MLS88Config
     from mpm_flip98a_tpu_torch.models import mls_mpm
     from mpm_flip98a_tpu_torch.state import to_device
 
     cfg = MLS88Config()
     s = mls_mpm.init_dam_break(n=2000, cfg=cfg, dtype=dtype, device="cpu")
-    for warmup in (0, 50):
-        s = mls_mpm.run(s, cfg, warmup)
+    done = 0
+    for warmup in (0, 50, 200):
+        s = mls_mpm.run(s, cfg, warmup - done)
+        done = warmup
         got, want = mls_mpm.substep(to_device(s, dev), cfg), mls_mpm.substep(s, cfg)
         for k in ("x", "v", "F", "C", "Jp"):
             w = getattr(want, k).double()

@@ -127,8 +127,10 @@ def test_run_across_rebuckets_matches_jax_statistically():
 def test_unported_configs_raise():
     """What the port still lacks raises, naming its ROADMAP item: the
     incompressible projection and CSF surface tension, alone or with
-    colliders (queue 1, item 6); snow, sand and corotated plasticity
-    (item 4)."""
+    colliders (queue 1, item 6).  Snow, sand and corotated plasticity (item
+    4) are ported: `check_supported` passes them and they take the prepped
+    branch with the plastic update (tests/test_torch_snow.py, _sand.py,
+    _plasticity.py hold them to JAX)."""
     (scene, spec, b), (scene_t, spec_t, b_t) = _setup()
     sphere = Collider(kind="sphere", center=(0.2, 0.1), radius=0.03)
     bad = [
@@ -137,15 +139,16 @@ def test_unported_configs_raise():
         for change in (dict(incompressible=True), dict(surface_tension=0.07))
         for cols in ((), (sphere,))
     ]
-    bad += [
-        (dataclasses.replace(scene_t, materials_present=(mat.WEAKLY_COMPRESSIBLE_FLUID, m)), 4)
-        for m in (mat.SNOW, mat.SAND)
-    ]
-    bad.append((dataclasses.replace(
-        scene_t, materials_present=(mat.FIXED_COROTATED,),
-        params=dataclasses.replace(scene_t.params, plastic=True),
-    ), 4))
     for scene_bad, item in bad:
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
             fast2d.substep(b_t, scene_bad)
     fast2d.check_supported(dataclasses.replace(scene_t, colliders=(sphere,)))
+    ported = [dataclasses.replace(scene_t, materials_present=(mat.WEAKLY_COMPRESSIBLE_FLUID, m))
+              for m in (mat.SNOW, mat.SAND)]
+    ported.append(dataclasses.replace(
+        scene_t, materials_present=(mat.FIXED_COROTATED,),
+        params=dataclasses.replace(scene_t.params, plastic=True)))
+    for scene_ok in ported:
+        fast2d.check_supported(scene_ok)
+        assert fast2d.plastic_materials(scene_ok) and not fast2d.uses_fused(scene_ok)
+    assert fast2d.plastic_materials(scene_t) == ()

@@ -150,10 +150,10 @@ def test_run_across_rebuckets_tracks_jax():
 
 def test_unported_configs_raise():
     """What `check_supported` still refuses: CSF and the projection (with
-    or without colliders), snow, sand, corotated plasticity and the fused
-    branch without an absolute mass floor (the reference sends it to
-    `p2g3d_grid`'s raw mode, fast3d.py:631-645), colliders or not; a 2D
-    config is a ValueError."""
+    or without colliders) and the fused branch without an absolute mass
+    floor (the reference sends it to `p2g3d_grid`'s raw mode,
+    fast3d.py:631-645), colliders or not; a 2D config is a ValueError.
+    Snow, sand and corotated plasticity (ROADMAP queue 1, item 4) pass."""
     (_, _, _, _), (scene_t, spec_t, b_t) = _setup()
     cfg = scene_t.cfg
     plastic = dataclasses.replace(scene_t.params, plastic=True)
@@ -168,10 +168,6 @@ def test_unported_configs_raise():
         dict(cfg=dataclasses.replace(cfg, surface_tension=0.07), colliders=(sphere,)),
         dict(colliders=(sphere,), mass_floor=0.0),
         dict(mass_floor=0.0),
-        dict(materials_present=(3,)),            # snow
-        dict(materials_present=(0, 4)),          # fluid + sand
-        dict(materials_present=(0, 2), params=plastic),
-        dict(materials_present=(2,), params=plastic),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fast3d.substep(b_t, dataclasses.replace(scene_t, **change), spec_t)
@@ -187,5 +183,9 @@ def test_unported_configs_raise():
         dict(mass_floor=0.0, materials_present=(0, 1)),
         dict(colliders=(sphere,)),
         dict(colliders=(sphere,), mass_floor=0.0, cfg=dataclasses.replace(cfg, use_fbar=True)),
+        dict(materials_present=(3,)),            # snow
+        dict(materials_present=(0, 4)),          # fluid + sand
+        dict(materials_present=(0, 2), params=plastic),
+        dict(materials_present=(2,), params=plastic),
     ):
         fast3d.check_supported(dataclasses.replace(scene_t, **change))

@@ -70,15 +70,40 @@ def test_config_and_init_match():
         np.testing.assert_array_equal(getattr(p, k).numpy(), np.asarray(getattr(want, k)))
 
 
-@pytest.mark.parametrize("warmup", [0, 50])
+@pytest.mark.parametrize("warmup", [0, 50, 200])
 def test_single_substep_matches_oracle_and_jax_fp32(warmup):
-    s, ref = oracle_states(2000, 0, (0, 50))[warmup]
+    """tests/test_mls_mpm_vs_oracle.py:42-55's case: from the float32 fresh
+    state, and from the oracle's state after 50 and 200 substeps (200:
+    boundary contact and plasticity active), which the oracle has promoted
+    to float64, so the substep runs in float64 there; within 1e-5."""
+    s, ref = oracle_states(2000, 0, (0, 50, 200))[warmup]
     ours = mls_mpm.substep(_to_port(s), CFG)
     errs = _max_err(ours, ref)
     assert max(errs.values()) <= 1e-5, f"vs oracle after warmup={warmup}: {errs}"
     p_j = MLS88ParticlesJax(**{k: jnp.asarray(getattr(s, k)) for k in FIELDS})
     errs = _max_err(ours, mls_jax.make_substep(MLS88ConfigJax())(p_j))
     assert max(errs.values()) <= 1e-5, f"vs JAX after warmup={warmup}: {errs}"
+
+
+@pytest.mark.parametrize("warmup", [50, 200])
+def test_mid_collapse_substep_in_float32(warmup):
+    """The mid-collapse states cast back to float32, one substep of the
+    port's float32 model against the oracle (which promotes the cast state
+    to float64: a float64 reference) and against JAX's float32 model, each
+    field within 1e-5 of its scale: C reaches 522 at warm-up 200, where a
+    float32 ulp is 6.1e-5."""
+    s64, _ = oracle_states(2000, 0, (0, 50, 200))[warmup]
+    s = type(s64)(**{k: np.asarray(getattr(s64, k), np.float32) for k in FIELDS})
+    ours = mls_mpm.substep(_to_port(s), CFG)
+    assert ours.x.dtype == torch.float32
+    p_j = MLS88ParticlesJax(**{k: jnp.asarray(getattr(s, k)) for k in FIELDS})
+    for ref in (advance(s, CFG), mls_jax.make_substep(MLS88ConfigJax())(p_j)):
+        errs = {k: float(np.abs(getattr(ours, k).numpy().astype(np.float64)
+                                - np.asarray(getattr(ref, k), np.float64)).max())
+                / float(np.abs(np.asarray(getattr(ref, k), np.float64)).max()) for k in FIELDS}
+        assert max(errs.values()) <= 1e-5, f"warmup={warmup}: {errs}"
+    if warmup == 200:
+        assert float(np.abs(np.asarray(s.C)).max()) > 100.0
 
 
 def test_stages_match_jax_fp64():
