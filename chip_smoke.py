@@ -191,7 +191,32 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                general; the friction check of tests/test_sand.py:174-199
                (37^2, phi 15 and 45 degrees, 4000 substeps each on the
                fast path: the steeper pile is higher and narrower); then
-               the {"plastic": {...}} line.
+               the {"plastic": {...}} line;
+36. main:incompressible  CSF surface tension and the incompressible
+               projection: the dam2d_incompressible CLI (8,450 particles,
+               105^2; 2 frames x 200) on the fast path, the general path
+               and --devices 4 (launches, the host checks, |J - 1| < 5e-4
+               on the fast path, the CG's exit resid); one general
+               substep card against CPU after 200 (float64, 1e-12 of
+               scale); incomp1M (bench 1M with the projection): p2g_fused
+               and g2p against plain on its state with times and bounds,
+               ms per substep of the kernel and plain paths (3 x 20) and
+               with the CG's flag read every iteration, the CG's exit
+               resid, one substep against the general path, two
+               100-substep runs bitwise equal, |J - 1|, peak memory, 4
+               shards against one device (v and C within
+               INCOMP_SHARD_TOL) with p2g_grid and the prepadded g2p
+               against plain; incomp8M (the 8M slab with the projection:
+               p2g3d with 7 channels + fold_rows0 + _grid_update): p2g3d
+               and g2p3d against plain, reruns, ms per substep (3 x 5),
+               peak memory, 4 shards against one device with p2g3d_grid's
+               raw mode and g2p3d on the shard windows, general against
+               fast at slab 1M; csf513 (the zero-gravity 2:1 drop on 513^2,
+               102,152 particles) general against fast and ms per substep;
+               the 41^2 drop on both paths (rounds within 1500 substeps,
+               sigma 0 static over 300); dam2d_obstacle and dam3d_obstacle
+               with the projection, fast against general after 1 and 200
+               (100) substeps; then the {"incompressible": {...}} line.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -210,7 +235,10 @@ under "prepped_*" and "tent_*", g2p with its prepadded mode's under
 "sharded_gather_*", p2g3d_grid's collider mode under "colliders_*" with
 "colliders_flips", its tile plans under "plans" and "rerun_bitwise_equal";
 p2g and g2p with main:plastic's modes under "snow2k_*" and "sand2k_*",
-p2g3d_grid and g2p3d under "sanddrop3d_*"); the last line is
+p2g3d_grid and g2p3d under "sanddrop3d_*"; main:incompressible's inputs
+under "incomp1M_*" (p2g_fused, g2p), "incomp1Mx4_*" (p2g_grid, g2p),
+"incomp8M_*" (p2g3d with 7 channels, g2p3d) and "incomp8Mx4_*"
+(p2g3d_grid raw, g2p3d)); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1198,7 +1226,7 @@ def state_errors(b, ref, dim):
     return out
 
 
-def sharded_against_single(tag, p, scene, dev, shards, n_sub, card):
+def sharded_against_single(tag, p, scene, dev, shards, n_sub, card, vc_tol=KERNEL_REL_TOL):
     """`Simulation(devices=shards)` against `Simulation()` from the same
     particles: one substep slot for slot (the same particles in the same
     order: both bucket by the global row), x to 1e-6, v and C to
@@ -1207,7 +1235,9 @@ def sharded_against_single(tag, p, scene, dev, shards, n_sub, card):
     what can see a wrong halo row or shard window); then n_sub - 1 more
     substeps compared by ensemble mean and std of x to 5e-4 (fp32 sums in
     another order at the slab edges amplify chaotically), zero overflow,
-    constant mass.  Returns the sharded Simulation and its launches."""
+    constant mass.  `vc_tol` replaces v's and C's bound (the projection's
+    cells: INCOMP_SHARD_TOL).  Returns the sharded Simulation and its
+    launches."""
     from mpm_flip98a_tpu_torch import driver
     from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
     from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
@@ -1237,13 +1267,13 @@ def sharded_against_single(tag, p, scene, dev, shards, n_sub, card):
         f"buckets {tuple(sim.state.shape)} against one device's {tuple(ref.state.shape)}; "
         f"{n_sub} substeps of both in {time.perf_counter() - t0:.2f} s; launches {got}; "
         f"after 1 substep: x max |diff| {x1:.3e} (tol 1e-6), v {e1['v']:.3e} and C "
-        f"{e1['C']:.3e} of their max (tol {KERNEL_REL_TOL}), J {e1['J']:.3e} (tol 1e-6); "
+        f"{e1['C']:.3e} of their max (tol {vc_tol}), J {e1['J']:.3e} (tol 1e-6); "
         f"after {n_sub}: ensemble mean "
         f"|diff| {d_mean:.3e}, std |diff| {d_std:.3e} (tol 5e-4); rebuckets "
         f"{sim.stats.rebuckets} against {ref.stats.rebuckets}; peak device memory {peak} bytes = "
         f"{peak / 2**30:.3f} GiB (both runs held)  [{card}]")
     check(x1 <= 1e-6, f"{tag}: sharded and single-device x differ after 1 substep")
-    check(e1["v"] <= KERNEL_REL_TOL and e1["C"] <= KERNEL_REL_TOL and e1["J"] <= 1e-6,
+    check(e1["v"] <= vc_tol and e1["C"] <= vc_tol and e1["J"] <= 1e-6,
           f"{tag}: sharded and single-device v, C or J differ after 1 substep: {e1}")
     check(d_mean <= 5e-4 and d_std <= 5e-4, f"{tag}: sharded run left the single-device ensemble")
     host_checks(f"sharded {tag}", sim, p.n, mass0, card)
@@ -1485,13 +1515,13 @@ def run_cli(dev, card, scenario, devices, n_frames, n_sub, ran, launches):
 
 
 def compare_g2p3d_sharded(tag, planes, mask, counts, state, scene, gspec, ctx, err, kernel_ms,
-                          plain_ms, bounds, card):
+                          plain_ms, bounds, card, key=None):
     """`g2p3d` on the shard windows (n, L0 + 4, R1 + 4, gch, G2) of the
     halo-synced, grid-updated raw sums, as the sharded substep feeds it,
     against `g2p3d_plain` on the same inputs: the update mode with the
     fused state (`state` given), else the gather mode.  Each output
     channel to KERNEL_REL_TOL of its max (C: of one term's size, J and
-    Jbar: of 1); then its time, plain time and bound."""
+    Jbar: of 1); then its time, plain time and bound, under `key` if given."""
     from mpm_flip98a_tpu_torch.config import KernelKind
     from mpm_flip98a_tpu_torch.models import fast3d
     from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
@@ -1506,6 +1536,7 @@ def compare_g2p3d_sharded(tag, planes, mask, counts, state, scene, gspec, ctx, e
         g2p_in += (state, float(cfg.flip_blend), float(cfg.dt))
     else:
         name, g2p_kw = "g2p3d_sharded_gather", dict(tent=tent)
+    name = key or name
     got = tk3.g2p3d(*g2p_in, **g2p_kw)
     want = tk3.g2p3d_plain(*g2p_in, **g2p_kw)
     scale = want.abs().double().amax(dim=(0, 1, 3))
@@ -2624,6 +2655,635 @@ def plastic_phases(dev, card, io_ok, err, kernel_ms, plain_ms, bounds, launches)
     say(json.dumps({"plastic": PLASTIC}))
 
 
+# ---------------------------------------------------------------------------
+# CSF surface tension and the incompressible projection
+# ---------------------------------------------------------------------------
+
+# The zero-gravity 2:1 drop of tests/test_surface_tension.py:19-52 (41^2,
+# 32 x 16 particles, dt 5e-5, sigma 5).  csf513 is that drop on 513^2 at
+# the same particle spacing in cells (32 x 508 / 36 = 452 across) and the
+# bench's dt there.
+DROP41 = dict(num_grids=41, dt=5e-5, particles=(32, 16))
+CSF513 = dict(num_grids=513, dt=2e-6)
+# Shards against one device after one projected substep, v and C over
+# their max.  At 129^2 and 513^2 the CG stops at its 60-iteration cap with
+# |r| about |b| (exit resid 1.12-1.19 on the CPU), so q carries the
+# iteration's rounding: dot products summed per shard and then over the
+# shards move v by 7e-6 to 1.2e-5 and C by 2e-5 to 3.6e-5 of their max
+# (read on the CPU, bench 1M and its 129^2 cut), past KERNEL_REL_TOL.
+# `halo_fault` reads the same gate with one stale halo row in the CG and
+# fails unless that reading is above the bound.
+INCOMP_SHARD_TOL = 1e-4
+# The collider scenes' spheres moved against the column's edge (2D column
+# to 0.129 l, sphere radius 0.08 l; 3D column to 0.245 l, radius 0.1 l).
+TOUCHING = {"dam2d_obstacle": (0.21, 0.10), "dam3d_obstacle": (0.35, 0.12, 0.12)}
+INCOMP = {}                  # the {"incompressible": ...} line
+
+
+class CGProbe:
+    """Inside `with`: every call of models.projection.project_planes keeps
+    its exit residual (a device tensor, read after the window) and, with
+    `check_every`, reads its active flag at that interval
+    (projection.CHECK_EVERY)."""
+
+    def __init__(self, check_every=None):
+        self.check_every, self.resids = check_every, []
+
+    def __enter__(self):
+        from mpm_flip98a_tpu_torch.models import projection
+
+        self.real, self.every = projection.project_planes, projection.CHECK_EVERY
+        if self.check_every is not None:
+            projection.CHECK_EVERY = self.check_every
+
+        def probed(*a, **k):
+            out = self.real(*a, **k)
+            self.resids.append(out[2])
+            return out
+
+        projection.project_planes = probed
+        return self
+
+    def __exit__(self, *exc):
+        from mpm_flip98a_tpu_torch.models import projection
+
+        projection.project_planes, projection.CHECK_EVERY = self.real, self.every
+
+    def read(self):
+        return [float(r) for r in self.resids]
+
+
+def halo_fault(tag, p, scene, dev, shards, card):
+    """The shards-against-one-device gate of `sharded_against_single`
+    with a planted fault: every halo refresh of the projection leaves
+    shard 1's lower halo row stale.  Returns v's and C's errors over their
+    max after one substep; the gate must see them."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import projection
+
+    tmp = tempfile.gettempdir()
+    sim = driver.Simulation(p, scene, path="fast", out_dir=tmp, device=dev, devices=shards)
+    ref = driver.Simulation(p, scene, path="fast", out_dir=tmp, device=dev)
+    real = projection.project_planes
+
+    def faulty(*a, halo=None, **k):
+        def stale(buf):
+            keep = buf[1, 0].clone()
+            halo(buf)
+            buf[1, 0] = keep
+            return buf
+
+        return real(*a, halo=None if halo is None else stale, **k)
+
+    projection.project_planes = faulty
+    try:
+        sim.run(1, 1, gif=False, verbose=False, write_frames=False)
+    finally:
+        projection.project_planes = real
+    ref.run(1, 1, gif=False, verbose=False, write_frames=False)
+    e1 = state_errors(sim.state, ref.state, scene.cfg.dim)
+    say(f"[main:sharded {tag} halo fault] one stale halo row in the CG: after 1 substep v "
+        f"{e1['v']:.3e} and C {e1['C']:.3e} of their max (the gate's tol "
+        f"{INCOMP_SHARD_TOL})  [{card}]")
+    check(min(e1["v"], e1["C"]) > INCOMP_SHARD_TOL,
+          f"{tag}: the shard gate does not see a stale halo row in the CG: {e1}")
+    return {"v": e1["v"], "C": e1["C"]}
+
+
+def incompressible(scene):
+    return dataclasses.replace(scene, cfg=dataclasses.replace(scene.cfg, incompressible=True))
+
+
+def incomp_cli(dev, card, io_ok, path, devices):
+    """dam2d_incompressible through the CLI (2 frames x 200): launches, the
+    host checks, |J - 1| < 5e-4 on the fast path
+    (tests/test_projection.py:189)."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import fast2d
+
+    scenario, n_frames, n_sub = "dam2d_incompressible", 2, 200
+    n = n_frames * n_sub
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        argv = ["--scenario", scenario, "--path", path, "--devices", str(devices), "--frames",
+                str(n_frames), "--substeps", str(n_sub), "--no-gif", "--out", out_dir,
+                "--device", "cuda"]
+        p0, scene = driver.SCENARIOS[scenario]()
+        reset_counts()
+        t0 = time.perf_counter()
+        with CGProbe() as probe:
+            if io_ok:
+                sim = driver.main(argv)
+            else:
+                sim = driver.Simulation(p0, scene, path=path, out_dir=out_dir, device=dev,
+                                        devices=devices)
+                sim.run(n_frames, n_sub, gif=False, write_frames=False)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = kernel_counts()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    resid = probe.read()
+    tag = f"incompressible {scenario} {path} x{devices}"
+    say(f"[main:{tag}] {'CLI ' + ' '.join(argv) if io_ok else 'Simulation'} in {secs:.2f} s: "
+        f"{sim.stats.substeps} substeps, launches {got}, "
+        f"{1e3 * sim.timers.total['substeps'] / n:.4f} ms/substep (host clock, synchronised); "
+        f"CG exit resid over the run: max {max(resid)!r}, median {float(np.median(resid))!r}  "
+        f"[{card}]")
+    check(sim.stats.substeps == n == len(resid), f"{tag}: {sim.stats.substeps} substeps")
+    out = {"ms_per_substep": 1e3 * sim.timers.total["substeps"] / n, "launches": got,
+           "resid_max": max(resid)}
+    if path == "general":
+        general_host_checks(tag, sim, p0.n, float(p0.mass.sum()), card)
+        return out
+    p2g = "p2g_grid" if devices > 1 else "p2g_fused"
+    check(got[p2g] == got["g2p"] == n and sum(got.values()) == 2 * n,
+          f"{tag}: launches {got} for {n} substeps")
+    host_checks(tag, sim, p0.n, float(p0.mass.to(torch.float32).double().sum()), card)
+    j = fast2d.to_host(sim.state)["J"]
+    out["J_dev"] = float(np.abs(j - 1.0).max())
+    say(f"[main:{tag}] max |J - 1| {out['J_dev']!r} (bound 5e-4)  [{card}]")
+    check(out["J_dev"] < 5e-4, f"{tag}: |J - 1| {out['J_dev']}")
+    return out
+
+
+def incomp1m(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, launches):
+    """incomp1M: bench 1M with the projection on the fast path."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import fast2d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.parallel import fast_domain
+
+    cfg = MPMConfig(**BENCH, transfer=TransferKind.PIC, incompressible=True)
+    p, scene = scenes.dam_break_2d(cfg, dtype=np.float32)
+    mass0 = float(p.mass.to(torch.float32).double().sum())
+    tmp = tempfile.gettempdir()
+    sim = driver.Simulation(p, scene, path="fast", out_dir=tmp, device=dev)
+    reset_counts()
+    sim.run(1, 20, gif=False, verbose=False, write_frames=False)
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    check(got["p2g_fused"] == got["g2p"] == 20 and sum(got.values()) == 40,
+          f"incomp1M: launches {got} for 20 substeps")
+    launches["incomp1M_p2g_fused"], launches["incomp1M_g2p"] = got["p2g_fused"], got["g2p"]
+    host_checks("incomp1M", sim, p.n, mass0, card)
+    out = {"particles": p.n}
+
+    # The kernels on its state against their plain versions.
+    dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
+    sdata, pdata2, counts = fast2d.transfer_inputs(sim.state, scene)
+    args = fast2d.p2g_args(scene)
+    grid4 = fast2d._grid_update2d(tk.fold_rows(tk.p2g_fused(sdata, counts, **args)), scene)
+    err["incomp1M_p2g_fused"], err["incomp1M_g2p"] = compare_kernels(
+        "incomp1M", sdata, pdata2, counts, grid4, args, dinv, card)
+    rerun_equal("main:incomp1M", "p2g_fused", lambda: tk.p2g_fused(sdata, counts, **args), card)
+    r2, _, k2 = sdata.shape
+    live2, g = int(counts.sum()), cfg.num_grids
+    bounds["incomp1M_p2g_fused"] = bound(4 * (11 * live2 + r2 + r2 * 25 * g), live2 * 9 * 5 * 2)
+    bounds["incomp1M_g2p"] = bound(4 * (3 * live2 + r2 + r2 * 4 * g + r2 * 8 * k2),
+                                   live2 * 9 * 8 * 2)
+    pairs = {"incomp1M_p2g_fused": (lambda: tk.p2g_fused(sdata, counts, **args),
+                                    lambda: tk.p2g_fused_plain(sdata, counts, **args)),
+             "incomp1M_g2p": (lambda: tk.g2p(pdata2, counts, grid4, args["dx"], dinv),
+                              lambda: tk.g2p_plain(pdata2, counts, grid4, args["dx"], dinv))}
+    for name, (call, plain_call) in pairs.items():
+        kernel_ms[name] = cuda_ms(call)
+        plain_ms[name] = cuda_ms(plain_call, reps=5, warm=1)
+        say(f"[main:incomp1M] {name} (buckets {r2}x{k2}, {live2} live): kernel "
+            f"{kernel_ms[name]:.4f} ms (CUDA events, 20 calls), plain {plain_ms[name]:.4f} ms "
+            f"(5 calls), bound {bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
+    del sdata, pdata2, counts, grid4, pairs
+
+    # ms per substep: the kernel path with the CG's active flag read every
+    # 8 iterations and every iteration, interleaved, then the plain path.
+    b, spec = sim.state, sim.spec
+    run = lambda plain=False: fast2d.run(b, scene, spec, 20, plain=plain)
+    runs = {8: [], 1: []}
+    with CGProbe() as probe:
+        run()
+    resid = probe.read()
+    for _ in range(3):
+        for every in runs:
+            with CGProbe(check_every=every):
+                runs[every].append(ms_runs(run, 20, reps=1)[0])
+    out["ms_per_substep"] = float(np.median(runs[8]))
+    out["read_every_iteration_ms_per_substep"] = float(np.median(runs[1]))
+    out["plain_ms_per_substep"], runs_p = ms_runs(lambda: run(plain=True), 20)
+    out["cg_resid"] = {"max": max(resid), "median": float(np.median(resid)),
+                       "min": min(resid), "substeps": len(resid)}
+    say(f"[timing:incomp1M] kernel path {out['ms_per_substep']:.4f} ms/substep (median of 3 x 20; "
+        f"runs {[round(r, 4) for r in runs[8]]}), the CG's active flag read every iteration "
+        f"instead of every 8 (interleaved with it): "
+        f"{out['read_every_iteration_ms_per_substep']:.4f} "
+        f"(runs {[round(r, 4) for r in runs[1]]}); "
+        f"plain path {out['plain_ms_per_substep']:.4f} (runs {[round(r, 4) for r in runs_p]}); "
+        f"CG exit resid over {len(resid)} substeps (read after them): {out['cg_resid']}  [{card}]")
+    if profile_dir:
+        out["busy_ms"] = profile_calls(
+            os.path.join(profile_dir, "profile_incomp1M.txt"),
+            lambda n: fast2d.run(b, scene, spec, n), 5, out["ms_per_substep"], "incomp1M", card)
+    del sim, b
+    torch.cuda.empty_cache()
+
+    # One substep against the general path, then two 100-substep runs.
+    out["vs_general"] = general_vs_fast("incomp1M", p, scene, dev, card, n_time=3)
+    spec = fast2d.FastSpec.for_particles(cfg, p)
+    b0 = fast2d.from_particles(p, cfg, spec, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a = fast2d.run(b0, scene, spec, 100)
+    c = fast2d.run(b0, scene, spec, 100)
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    differ = [f.name for f in dataclasses.fields(a)
+              if not torch.equal(getattr(a, f.name), getattr(c, f.name))]
+    out["rerun_bitwise_equal"] = not differ
+    out["J_dev_100"] = float((a.J - 1.0).abs().max())
+    say(f"[main:incomp1M rerun] two 100-substep runs: fields not bitwise equal {differ}; max "
+        f"|J - 1| after 100 substeps {out['J_dev_100']!r}; peak device memory "
+        f"{out['peak_bytes']} bytes = {out['peak_bytes'] / 2**30:.3f} GiB  [{card}]")
+    check(not differ, f"incomp1M: two fast runs differ in {differ}")
+    check(out["J_dev_100"] < 5e-4, f"incomp1M: |J - 1| {out['J_dev_100']}")
+    del a, c, b0
+    torch.cuda.empty_cache()
+
+    # 4 slab shards against one device, then p2g_grid on the sharded state.
+    shards = 4
+    sim, ref, got = sharded_against_single("incomp1M", p, scene, dev, shards, 10, card,
+                                           INCOMP_SHARD_TOL)
+    check(got["p2g_grid"] == got["p2g_fused"] == 10 and got["g2p"] == 20,
+          f"sharded incomp1M: launches {got}")
+    # The sharded run alone, counted: one p2g_grid and one g2p per substep.
+    reset_counts()
+    sim.step_frame(10)
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    launches["incomp1Mx4_p2g_grid"], launches["incomp1Mx4_g2p"] = got["p2g_grid"], got["g2p"]
+    say(f"[main:incomp1M x4] the sharded run alone, 10 substeps: launches {got}")
+    check(got["p2g_grid"] == got["g2p"] == 10 and sum(got.values()) == 20,
+          f"sharded incomp1M: launches {got} for 10 substeps of the sharded run alone")
+    out["shard_gate_halo_fault"] = halo_fault("incomp1M", p, scene, dev, shards, card)
+    ctx = fast_domain.FastDomainCtx(sim.mesh, sim.spec.rows_per_shard)
+    data, pdata2, counts = fast2d.transfer_inputs(sim.state, scene, ctx)
+    kw = {n: v for n, v in fast2d.p2g_args(scene).items() if n not in ("g", "dx")}
+    kw["fused"] = True
+    dx = float(cfg.dx)
+    err["incomp1Mx4_p2g_grid"], raw = compare_p2g_grid("incomp1M", data, counts, kw, shards, g,
+                                                       dx, card)
+    name = "incomp1Mx4_p2g_grid"
+    kernel_ms[name] = cuda_ms(lambda: tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards,
+                                                  **kw))
+    plain_ms[name] = cuda_ms(lambda: tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw),
+                             reps=3, warm=1)
+    bounds[name] = p2g_grid_bound(data, counts, shards, raw.shape[2], g)
+    grid = fast2d._grid_update2d(ctx.halo_sync(raw), scene, ctx.row_index0(dev), domain=ctx)
+    err["incomp1Mx4_g2p"] = compare_g2p("main:incomp1M x4", pdata2, counts, grid, dx, dinv,
+                                        False, card, prepadded=True)
+    say(f"[main:incomp1M x4] p2g_grid raw {kernel_ms[name]:.4f} ms (CUDA events, 20 calls), "
+        f"plain {plain_ms[name]:.4f} ms (3 calls), bound {bounds[name][0]:.4f} ms "
+        f"({bounds[name][1]})  [{card}]")
+    del sim, ref, data, pdata2, counts, raw, grid
+    torch.cuda.empty_cache()
+    return out
+
+
+def incomp8m(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, launches):
+    """incomp8M: the 8M slab with the projection (p2g3d + fold_rows0 +
+    _grid_update + the CG + g2p3d), its sharded form, and general against
+    fast at slab 1M."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import TransferKind
+    from mpm_flip98a_tpu_torch.models import fast3d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+    from mpm_flip98a_tpu_torch.parallel import fast_domain3d
+
+    p, scene = scenes.slab_3d(**SLAB_8M)
+    scene = incompressible(scene)
+    check(not fast3d.uses_fused(scene) and not fast3d.kernel_grid(scene),
+          "incomp8M: the projection must leave the fused branch")
+    mass0 = float(p.mass.to(torch.float32).double().sum())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = driver.Simulation(p, scene, path="fast", out_dir=tempfile.gettempdir(), device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(1, 3, gif=False, verbose=False, write_frames=False)
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[main:incomp8M] {p.n} particles, 256^3, buckets {tuple(sim.state.shape)}: 3 substeps "
+        f"in {time.perf_counter() - t0:.2f} s, launches {got}, peak device memory {peak} bytes "
+        f"= {peak / 2**30:.3f} GiB  [{card}]")
+    check(got["p2g3d"] == got["g2p3d"] == 3 and sum(got.values()) == 6,
+          f"incomp8M: launches {got} for 3 substeps")
+    launches["incomp8M_p2g3d"], launches["incomp8M_g2p3d"] = got["p2g3d"], got["g2p3d"]
+    host_checks("incomp8M", sim, p.n, mass0, card)
+    out = {"particles": p.n, "peak_bytes": peak}
+
+    # p2g3d (7 channels) and g2p3d's gather mode against plain on its state.
+    spec = sim.spec
+    args = fast3d.p2g_args(scene)
+    fields = fast3d.prepped_fields(sim.state, scene, spec)
+    counts = fast3d.pencil_counts(sim.state)
+    mask = sim.state.mask.view(spec.rows0, spec.rows1, spec.capacity)
+    r0, r1, k3 = mask.shape
+    got7 = tk3.p2g3d(fields, counts, r1, **args)
+    want7 = tk3.p2g3d_plain(fields, counts, r1, args["g2"], args["dx"], args["apic"],
+                            args["ext"], args["tent"])
+    check(got7.shape[3] == tk3.P2G_CH, f"incomp8M: p2g3d wrote {got7.shape[3]} channels")
+    err7, rel7 = scaled_errors(got7, want7, axis=3)
+    del want7
+    m_total = float((fields[-1].double()).sum())
+    pou = abs(float(got7[:, :, :, 6].double().sum()) - m_total) / m_total
+    err["incomp8M_p2g3d"] = max(err7)
+    say(f"[main:incomp8M] p2g3d {got7.shape[3]} channels: max_abs_err per channel "
+        f"{['%.2e' % e for e in err7]} scaled {['%.2e' % r for r in rel7]} (tol "
+        f"{KERNEL_REL_TOL}); mass sum rel err {pou:.3e} (tol {POU_REL_TOL})  [{card}]")
+    check(max(rel7) <= KERNEL_REL_TOL, "incomp8M: p2g3d disagrees with its plain version")
+    check(pou <= POU_REL_TOL, "incomp8M: p2g3d partition of unity")
+    rerun_equal("main:incomp8M", "p2g3d", lambda: tk3.p2g3d(fields, counts, r1, **args), card)
+    grid = fast3d._grid_update(tk3.fold_rows0(got7), scene)
+    del got7
+    dinv = float(4.0 * scene.cfg.inv_dx * scene.cfg.inv_dx)
+    g2p_in = (*fields[:3], mask, counts, grid, args["dx"], dinv)
+    gg, gw = tk3.g2p3d(*g2p_in), tk3.g2p3d_plain(*g2p_in)
+    scale = gw.abs().double().amax(dim=(0, 1, 3))
+    scale[6:15] = dinv * args["dx"] * float(grid[:, :, :3].abs().max())     # C: one term
+    errg, relg = scaled_errors(gg, gw, axis=2, scale=scale)
+    err["incomp8M_g2p3d"] = max(errg)
+    say(f"[main:incomp8M] g2p3d gather on the {grid.shape[2]}-channel grid: max_abs_err per "
+        f"channel {['%.2e' % e for e in errg]}; worst {max(relg):.2e} of its scale (tol "
+        f"{KERNEL_REL_TOL})  [{card}]")
+    check(max(relg) <= KERNEL_REL_TOL, "incomp8M: g2p3d disagrees with its plain version")
+    del gg, gw
+    live3, n_in, g3 = int(counts.sum()), len(fields), args["g2"]
+    bounds["incomp8M_p2g3d"] = bound(4 * (n_in * live3 + r0 * r1 + 5 * tk3.P2G_CH * r0 * r1 * g3),
+                                     live3 * 27 * tk3.P2G_CH * 2)
+    bounds["incomp8M_g2p3d"] = bound(4 * (4 * live3 + r0 * r1 + grid.numel() + 15 * r0 * r1 * k3),
+                                     live3 * 27 * 15 * 2)
+    pairs = {"incomp8M_p2g3d": (lambda: tk3.p2g3d(fields, counts, r1, **args),
+                                lambda: tk3.p2g3d_plain(fields, counts, r1, args["g2"],
+                                                        args["dx"], args["apic"], args["ext"],
+                                                        args["tent"])),
+             "incomp8M_g2p3d": (lambda: tk3.g2p3d(*g2p_in), lambda: tk3.g2p3d_plain(*g2p_in))}
+    for name, (call, plain_call) in pairs.items():
+        kernel_ms[name] = cuda_ms(call, reps=10, warm=2)
+        plain_ms[name] = cuda_ms(plain_call, reps=2, warm=1)
+        say(f"[main:incomp8M] {name} ({n_in} planes, buckets {r0}x{r1}x{k3}, {live3} live): "
+            f"kernel {kernel_ms[name]:.4f} ms (CUDA events, 10 calls), plain "
+            f"{plain_ms[name]:.4f} ms (2 calls), bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})  [{card}]")
+    del fields, counts, mask, grid, g2p_in, pairs
+    torch.cuda.empty_cache()
+
+    b = sim.state
+    run = lambda: fast3d.run(b, scene, spec, 5)
+    run()
+    with CGProbe() as probe:
+        out["ms_per_substep"], runs = ms_runs(run, 5)
+    resid = probe.read()
+    out["cg_resid"] = {"max": max(resid), "median": float(np.median(resid)),
+                       "min": min(resid), "substeps": len(resid)}
+    say(f"[timing:incomp8M] kernel path {out['ms_per_substep']:.4f} ms/substep (median of 3 x 5; "
+        f"runs {[round(r, 4) for r in runs]}); CG exit resid {out['cg_resid']}  [{card}]")
+    if profile_dir:
+        out["busy_ms"] = profile_calls(
+            os.path.join(profile_dir, "profile_incomp8M.txt"),
+            lambda n: fast3d.run(b, scene, spec, n), 2, out["ms_per_substep"], "incomp8M", card)
+    del sim, b
+    torch.cuda.empty_cache()
+
+    # 4 slab shards against one device; p2g3d_grid's raw mode on that state.
+    shards = 4
+    sim, ref, got = sharded_against_single("incomp8M", p, scene, dev, shards, 3, card,
+                                           INCOMP_SHARD_TOL)
+    check(got["p2g3d_grid"] == got["p2g3d"] == 3 and got["g2p3d"] == 6,
+          f"sharded incomp8M: launches {got}")
+    del ref
+    torch.cuda.empty_cache()
+    # The sharded run alone, counted: one p2g3d_grid and one g2p3d per substep.
+    reset_counts()
+    sim.step_frame(3)
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    launches["incomp8Mx4_p2g3d_grid"], launches["incomp8Mx4_g2p3d"] = (got["p2g3d_grid"],
+                                                                       got["g2p3d"])
+    say(f"[main:incomp8M x4] the sharded run alone, 3 substeps: launches {got}")
+    check(got["p2g3d_grid"] == got["g2p3d"] == 3 and sum(got.values()) == 6,
+          f"sharded incomp8M: launches {got} for 3 substeps of the sharded run alone")
+    ctx = fast_domain3d.FastDomain3DCtx(sim.mesh, sim.spec.rows_per_shard0,
+                                        rows1=sim.spec.local_spec.rows1)
+    gspec = sim.spec.global_spec
+    planes = fast3d.prepped_fields(sim.state, scene, gspec, sim.state.x0 - ctx.x0_shift(dev,
+                                                                                       scene.cfg))
+    counts = fast3d.pencil_counts(sim.state)
+    kw = fast3d.p2g_args(scene, raw=True)
+    g2, dx = kw.pop("g2"), kw.pop("dx")
+    name = "incomp8Mx4_p2g3d_grid"
+    raw = tk3.p2g3d_grid(planes, counts, gspec.rows1, g2, dx, raw=True, shards=shards, **kw)
+    want = tk3.p2g3d_raw_plain(planes, counts, g2, dx, shards=shards, **kw)
+    err_r, rel_r = scaled_errors(raw, want, axis=3)
+    del want
+    err[name] = max(err_r)
+    say(f"[main:incomp8M x4] p2g3d_grid raw on the sharded state: max_abs_err per channel "
+        f"{['%.2e' % e for e in err_r]} scaled {['%.2e' % r for r in rel_r]} (tol "
+        f"{KERNEL_REL_TOL})  [{card}]")
+    check(max(rel_r) <= KERNEL_REL_TOL, "incomp8M x4: p2g3d_grid raw disagrees with plain")
+    kernel_ms[name] = cuda_ms(lambda: tk3.p2g3d_grid(planes, counts, gspec.rows1, g2, dx,
+                                                     raw=True, shards=shards, **kw), reps=5)
+    plain_ms[name] = cuda_ms(lambda: tk3.p2g3d_raw_plain(planes, counts, g2, dx, shards=shards,
+                                                         **kw), reps=2, warm=1)
+    live = int(counts.sum())
+    bounds[name] = bound(4 * (len(planes) * live + counts.numel() + raw.numel()),
+                         live * 27 * raw.shape[3] * 2)
+    say(f"[main:incomp8M x4] p2g3d_grid raw {kernel_ms[name]:.4f} ms (CUDA events, 5 calls), "
+        f"plain {plain_ms[name]:.4f} ms (2 calls), bound {bounds[name][0]:.4f} ms "
+        f"({bounds[name][1]})  [{card}]")
+    del raw, planes, counts
+    torch.cuda.empty_cache()
+    compare_g2p3d_sharded("incomp8M", fast3d.prepped_fields(
+        sim.state, scene, gspec, sim.state.x0 - ctx.x0_shift(dev, scene.cfg)),
+        fast3d._shaped(sim.state.mask, gspec), fast3d.pencil_counts(sim.state), None, scene,
+        gspec, ctx, err, kernel_ms, plain_ms, bounds, card, key="incomp8Mx4_g2p3d")
+    del sim, p
+    torch.cuda.empty_cache()
+
+    p1, scene1 = scenes.slab_3d(**SLAB_1M)
+    out["vs_general_slab1M"] = general_vs_fast("incomp slab1M", p1, incompressible(scene1), dev,
+                                               card, n_time=2)
+    return out
+
+
+def drop_scene(num_grids, sigma, dt, particles, dtype=np.float32):
+    """The zero-gravity 2:1 drop of tests/test_surface_tension.py:19-52:
+    0.22 x 0.11 of the box, centred, `particles` across, sigma, slip walls."""
+    from mpm_flip98a_tpu_torch.config import MPMConfig, Physics
+    from mpm_flip98a_tpu_torch.models import materials as mat
+    from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
+    from mpm_flip98a_tpu_torch.state import Particles
+
+    cfg = MPMConfig(dtype=np.dtype(dtype).name, num_grids=num_grids, dt=dt,
+                    surface_tension=sigma)
+    physics = Physics(gravity=0.0)
+    l = cfg.domain_length
+    size = (0.22 * l, 0.11 * l)
+    axes = [(np.arange(n) + 0.5) * (s / n) + 0.5 * (l - s) for n, s in zip(particles, size)]
+    x = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 2).astype(dtype)
+    p = Particles.init(torch.from_numpy(x), volume0=size[0] * size[1] / len(x),
+                       density=physics.particle_density)
+    return p, Scene(cfg=cfg, physics=physics,
+                    params=mat.MaterialParams(bulk_modulus=physics.bulk_modulus,
+                                              dynamic_viscosity=physics.dynamic_viscosity),
+                    wall=WallBC("slip"), mass_floor=1e-8 * float(p.mass.min()))
+
+
+def anisotropy(x):
+    c = x - x.mean(axis=0)
+    ixx, iyy = (c[:, 0] ** 2).mean(), (c[:, 1] ** 2).mean()
+    return max(ixx, iyy) / max(min(ixx, iyy), 1e-30)
+
+
+def csf_phases(dev, card):
+    """csf513 (the drop on 513^2: fast against general after one substep,
+    ms per substep) and the physics checks at 41^2 on both paths: the drop
+    rounds within 1500 substeps (moment ratio < 0.75 of its start,
+    test_surface_tension.py:55-72) and sigma = 0 stays static to 1e-6 over
+    300 (:75-80)."""
+    from mpm_flip98a_tpu_torch.models import fast2d, stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    from mpm_flip98a_tpu_torch.config import MPMConfig
+
+    out = {}
+    dx41, dx513 = (MPMConfig(num_grids=g).dx for g in (DROP41["num_grids"], CSF513["num_grids"]))
+    across = round(DROP41["particles"][0] * dx41 / dx513)
+    p, scene = drop_scene(CSF513["num_grids"], 5.0, CSF513["dt"], (across, across // 2))
+    out["csf513"] = general_vs_fast("csf513", p, scene, dev, card, n_time=20)
+    out["csf513"]["particles"] = p.n
+    for sigma, n_sub in ((5.0, 1500), (0.0, 300)):
+        p, scene = drop_scene(DROP41["num_grids"], sigma, DROP41["dt"], DROP41["particles"])
+        x0 = p.x.double().numpy()
+        for path in ("general", "fast"):
+            t0 = time.perf_counter()
+            if path == "general":
+                x = stabilized.run(to_device(p, dev), scene, n_sub).x.double().cpu().numpy()
+            else:
+                spec = fast2d.FastSpec.for_particles(scene.cfg, p, headroom=2.0)
+                b = fast2d.run(fast2d.from_particles(p, scene.cfg, spec, dev), scene, spec, n_sub)
+                h = fast2d.to_host(b)
+                x = np.stack([h["x0"], h["x1"]], -1).astype(np.float64)
+                check(int(b.overflow) == 0, f"drop41 {path}: overflow")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(bool(np.isfinite(x).all()) and x.shape == x0.shape, f"drop41 {path}: state")
+            key = f"drop41_sigma{sigma:g}_{path}"
+            if sigma > 0:
+                a0, a1 = anisotropy(x0), anisotropy(x)
+                out[key] = {"moment_ratio_start": float(a0), "moment_ratio_end": float(a1)}
+                say(f"[main:csf drop41 {path}] sigma {sigma}, {n_sub} substeps in {secs:.2f} s: "
+                    f"moment ratio {float(a0)!r} -> {float(a1)!r} (bound < 0.75 x start)  "
+                    f"[{card}]")
+                check(a0 > 3.5 and a1 < 0.75 * a0, f"drop41 {path}: the drop did not round")
+            else:
+                moved = float(np.abs(x - x0).max())
+                out[key] = {"max_displacement": moved}
+                say(f"[main:csf drop41 {path}] sigma 0, {n_sub} substeps in {secs:.2f} s: max "
+                    f"displacement {moved!r} (bound 1e-6)  [{card}]")
+                check(moved <= 1e-6, f"drop41 {path}: the sigma = 0 drop moved {moved}")
+    return out
+
+
+def collider_incomp(dev, card):
+    """dam2d_obstacle and dam3d_obstacle with the projection: one substep
+    fast against general (slot for slot), then 200 (2D) or 100 (3D)
+    substeps of each path: finite, no particle deeper than 1.5 dx inside
+    the collider, ensemble mean and std within 5e-4.  In both scenes the
+    front does not reach the collider in those substeps, so one more
+    substep is compared with the collider moved against the column's edge
+    (`TOUCHING`), where its solid nodes border fluid nodes in the CG."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import scenes
+
+    out = {}
+    for scenario, n_sub in (("dam2d_obstacle", 200), ("dam3d_obstacle", 100)):
+        p, scene = driver.SCENARIOS[scenario]()
+        scene = incompressible(scene)
+        entry = {"vs_general": general_vs_fast(f"incomp {scenario}", p, scene, dev, card,
+                                               n_time=3)}
+        build = scenes.dam_break_obstacle_2d if scene.cfg.dim == 2 else scenes.dam_break_obstacle_3d
+        p_t, scene_t = build(center_frac=TOUCHING[scenario])
+        entry["touching_vs_general"] = general_vs_fast(
+            f"incomp {scenario} touching", p_t, incompressible(scene_t), dev, card, n_time=1)
+        del p_t
+        sims = {}
+        for path in ("general", "fast"):
+            sim = driver.Simulation(p, scene, path=path, out_dir=tempfile.gettempdir(),
+                                    device=dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            sim.run(1, n_sub, gif=False, verbose=False, write_frames=False)
+            torch.cuda.synchronize()
+            got = kernel_counts()
+            depth = penetration(sim)
+            say(f"[main:incomp colliders {scenario} {path}] {n_sub} substeps in "
+                f"{time.perf_counter() - t0:.2f} s, launches {got}, deepest particle inside "
+                f"the collider {depth:.3f} dx (bound 1.5)  [{card}]")
+            if path == "general":
+                general_host_checks(f"incomp {scenario} general", sim, p.n, float(p.mass.sum()),
+                                    card)
+            else:
+                check(sum(got.values()) == 2 * n_sub, f"{scenario}: launches {got}")
+                host_checks(f"incomp {scenario} fast", sim, p.n,
+                            float(p.mass.to(torch.float32).double().sum()), card)
+            check(depth < 1.5, f"incomp {scenario} {path}: a particle {depth:.3f} dx inside")
+            entry[f"{path}_depth_dx"] = depth
+            sims[path] = sim
+        (m, s), (mr, sr) = ensemble(sims["fast"]), ensemble(sims["general"])
+        entry["mean_diff"], entry["std_diff"] = float(np.abs(m - mr).max()), float(
+            np.abs(s - sr).max())
+        say(f"[main:incomp colliders {scenario}] after {n_sub} substeps fast against general: "
+            f"ensemble mean |diff| {entry['mean_diff']:.3e}, std |diff| {entry['std_diff']:.3e} "
+            f"(tol 5e-4)  [{card}]")
+        check(entry["mean_diff"] <= 5e-4 and entry["std_diff"] <= 5e-4,
+              f"incomp {scenario}: fast left the general path's ensemble")
+        out[scenario] = entry
+        del sims
+    return out
+
+
+def incompressible_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_ms, bounds,
+                          launches):
+    """Phase 36, main:incompressible; fills INCOMP and prints its line."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    t0 = time.perf_counter()
+    for path, devices in (("fast", 1), ("general", 1), ("fast", 4)):
+        INCOMP[f"cli_{path}_x{devices}"] = incomp_cli(dev, card, io_ok, path, devices)
+    say(f"[timing] incompressible CLIs done in {time.perf_counter() - t0:.1f} s")
+    # Card against CPU: the general path (float64) after 200 substeps.
+    p, scene = driver.SCENARIOS["dam2d_incompressible"]()
+    state = stabilized.run(to_device(p, dev), scene, 200)
+    every = {f.name: GENERAL_TOL[torch.float64] for f in dataclasses.fields(state)}
+    term = 4.0 * float(state.v.abs().max()) / scene.cfg.dx     # C's terms: as in main:plastic
+    INCOMP["vs_cpu_200"] = card_vs_cpu("dam2d_incompressible after 200", state, scene, every,
+                                       card, {"C": term, "div_v": term})
+    del state
+    INCOMP["incomp1M"] = incomp1m(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds,
+                                  launches)
+    say(f"[timing] incomp1M done in {time.perf_counter() - t0:.1f} s")
+    INCOMP["incomp8M"] = incomp8m(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds,
+                                  launches)
+    say(f"[timing] incomp8M done in {time.perf_counter() - t0:.1f} s")
+    INCOMP["csf"] = csf_phases(dev, card)
+    say(f"[timing] csf done in {time.perf_counter() - t0:.1f} s")
+    INCOMP["colliders"] = collider_incomp(dev, card)
+    say(f"[timing] incompressible phases done in {time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"incompressible": INCOMP}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -3116,6 +3776,11 @@ def main(argv=None) -> int:
 
     # ---- 35. plasticity: snow, sand, the corotated clamp ---------------------------
     plastic_phases(dev, card, io_ok, err, kernel_ms, plain_ms, bounds, launches)
+    say(f"[timing] plastic phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 36. CSF surface tension and the incompressible projection -----------------
+    incompressible_phases(dev, card, io_ok, args.profile, err, kernel_ms, plain_ms, bounds,
+                          launches)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -3246,6 +3911,22 @@ def main(argv=None) -> int:
                 f"{tag}_ms": kernel_ms[key], f"{tag}_plain_ms": plain_ms[key],
                 f"{tag}_bound_ms": bounds[key][0], f"{tag}_bound_by": bounds[key][1],
             })
+    # The kernels on main:incompressible's inputs: p2g_fused and g2p at
+    # incomp1M, p2g_grid and the prepadded g2p at incomp1M in 4 shards, p2g3d
+    # (7 channels) and g2p3d's gather mode at incomp8M, p2g3d_grid's raw mode
+    # and g2p3d on the shard windows at incomp8M in 4 shards.
+    for name, tags in (("p2g_fused", ("incomp1M",)), ("g2p", ("incomp1M", "incomp1Mx4")),
+                       ("p2g_grid", ("incomp1Mx4",)), ("p2g3d", ("incomp8M",)),
+                       ("g2p3d", ("incomp8M", "incomp8Mx4")), ("p2g3d_grid", ("incomp8Mx4",))):
+        for tag in tags:
+            key = f"{tag}_{name}"
+            by_name[name][f"{tag}_max_abs_err"] = err[key]
+            by_name[name][f"{tag}_launches"] = launches[key]
+            if key in kernel_ms:
+                by_name[name].update({
+                    f"{tag}_ms": kernel_ms[key],
+                    f"{tag}_plain_ms": plain_ms[key], f"{tag}_bound_ms": bounds[key][0],
+                    f"{tag}_bound_by": bounds[key][1]})
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

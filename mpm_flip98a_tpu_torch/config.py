@@ -100,9 +100,10 @@ class MPMConfig:
     flip_blend: float = 0.0                       # alpha: 1=FLIP, 0=APIC/PIC, config.py:29
     pressure_mixing_ratio: float = 0.0            # 1=mixed, 0=pointwise, config.py:28
     eos: EOSKind = EOSKind.LINEAR
-    # Extensions beyond the reference switch set (not ported yet:
-    # ROADMAP queue 1, item 6): CSF surface tension and the
-    # incompressible projection.
+    # Extensions beyond the reference switch set: CSF surface tension
+    # (models/stabilized._csf_force) and the incompressible projection
+    # (models/projection.py), with its CG iteration cap and relative
+    # residual exit.
     surface_tension: float = 0.0
     incompressible: bool = False
     pressure_iters: int = 60

@@ -11,17 +11,18 @@ dtype (float64 for `dam2d`, the reference workload), 2D or 3D.
 `--path fast` is routed by the scene's dimension: `models/fast2d` for
 `dam2d`, `dam2d_flip98`, `elastic_drop`, `snow2d` (a snow block dropped
 on the floor), `sand2d` (a Drucker-Prager sand column collapsing),
-`dam2d_obstacle` (a rigid cylinder in the run-out) and `plow2d` (a
-cylinder sweeping through the pool), `models/fast3d` for `dam3d` and `dam3d_obstacle` (a rigid sphere).
+`dam2d_obstacle` (a rigid cylinder in the run-out), `plow2d` (a
+cylinder sweeping through the pool) and `dam2d_incompressible` (the FLIP
+dam break with the incompressible projection, models/projection.py),
+`models/fast3d` for `dam3d` and `dam3d_obstacle` (a rigid sphere).
 Kinematic colliders see the simulation time: `step_frame` passes
 `total_time` as the run's t0 when one of them moves (driver.py:233-250).
 `--devices N` runs the fast path's slab-sharded form (driver.py:138-177):
 N slab shards of the grid's axis 0 on that one device
 (`parallel.SlabMesh`), `parallel/fast_domain` in 2D and the one-axis
 `parallel/fast_domain3d` in 3D; the general path takes one device only
-and raises ValueError otherwise, as in JAX.  `dam2d_incompressible`, the
-two-axis `N0xN1` mesh and checkpoints raise NotImplementedError naming
-their ROADMAP item.
+and raises ValueError otherwise, as in JAX.  The two-axis `N0xN1` mesh
+and checkpoints raise NotImplementedError naming their ROADMAP item.
 
 CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d --frames 1 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
@@ -38,6 +39,8 @@ CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d --frames 1 --no-gif
           --frames 2 --substeps 100 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
           --devices 4 --frames 2 --substeps 100 --no-gif
+      python -m mpm_flip98a_tpu_torch --scenario dam2d_incompressible \
+          --path fast --frames 2 --substeps 200 --no-gif
 """
 
 from __future__ import annotations
@@ -74,6 +77,14 @@ SCENARIOS = {
     ),
     "elastic_drop": lambda: scenes.elastic_drop_2d(),
     "dam3d": lambda: scenes.dam_break_3d(),
+    # The incompressible dam break: the Chorin projection, not the stiff
+    # EOS, carries incompressibility (models/projection.py).
+    "dam2d_incompressible": lambda: scenes.dam_break_2d(
+        dataclasses.replace(
+            MPMConfig(), flip_blend=0.98, transfer=TransferKind.PIC,
+            incompressible=True,
+        )
+    ),
     # Snow (materials.SNOW): the corotated stress hardened by the tracked
     # plastic volume Jp (mls-mpm88-explained.cpp:17-19,67-69,164-177).
     "snow2d": lambda: scenes.snow_block_2d(),
@@ -91,10 +102,8 @@ SCENARIOS = {
 }
 
 # Scenarios of the JAX package that this port does not run yet, with the
-# ROADMAP queue 1 item that ports them.
-UNPORTED_SCENARIOS = {
-    "dam2d_incompressible": 6,
-}
+# ROADMAP queue 1 item that ports them: none left.
+UNPORTED_SCENARIOS = {}
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -142,11 +151,9 @@ class Simulation:
         self.devices = devices
         # Dimension routing: pencil buckets in 3D, row buckets in 2D.
         self._fast = fast3d if scene.cfg.dim == 3 else fast2d
-        if path == "general":
-            stabilized.check_supported(scene)
-        elif scene.cfg.dim == 3:
+        if path == "fast" and scene.cfg.dim == 3:
             fast3d.check_supported(scene, sharded=devices > 1)
-        else:
+        elif path == "fast":
             fast2d.check_supported(scene)
         self.scene = scene
         self.cfg = scene.cfg

@@ -197,7 +197,8 @@ def project(vs, coords, colliders: Tuple[Collider, ...], t=None):
 
 def inside_any(coords, colliders: Tuple[Collider, ...], t=None):
     """Boolean mask of nodes inside ANY collider (phi <= 0): the solid
-    nodes of the incompressible projection (ROADMAP queue 1, item 6)."""
+    nodes of the incompressible projection (`solid_extra` of
+    models/projection.py on every path)."""
     inside = None
     for c in colliders:
         m = phi_normal(c, coords, t)[0] <= 0

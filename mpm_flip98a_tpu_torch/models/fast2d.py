@@ -16,8 +16,9 @@ as fast2d.py:537-542 does (`uses_fused`):
   for snow, sand and the corotated clamp.
 
 PIC or APIC with the FLIP blend, linear or Tait EOS, slip or sticky walls
-or the penalty EBC, rigid SDF colliders (static or kinematic, applied in
-`_grid_update2d`); all on float32 tensors on one device.
+or the penalty EBC, CSF surface tension, rigid SDF colliders (static or
+kinematic) and the incompressible projection, the last three applied in
+`_grid_update2d` in that order; all on float32 tensors on one device.
 
 State lives in the row-bucketed (R, K) slot layout; `rebucket` re-sorts it
 when a particle nears the kernels' +-1-row margin.  `run` keeps the
@@ -29,10 +30,11 @@ device-to-host read of the check per substep, counted in `RunStats`.
 bucket rows (parallel/fast_domain.py, fast2d.py:510-519, 744-793): kernel
 row coordinates local to the shard, `p2g_grid`'s raw halo sums for both
 branches, the halo exchange, the grid update on the L + 4 halo rows with
-global row indices, and `g2p` on the prepadded grid.
+global row indices (CSF and the projection refresh the halo rows with
+`halo_gather_only` and take their maxima and sums over the shards), and
+`g2p` on the prepadded grid.
 
-Configurations outside this slice raise NotImplementedError naming their
-ROADMAP item.  The TPU lane crop (`kernel_cols`) is not ported: the
+The TPU lane crop (`kernel_cols`) is not ported: the
 kernels use all G = num_grids columns.
 """
 
@@ -47,7 +49,9 @@ import torch
 from mpm_flip98a_tpu_torch.config import EOSKind, KernelKind, MPMConfig, TransferKind
 from mpm_flip98a_tpu_torch.models import colliders
 from mpm_flip98a_tpu_torch.models import materials as mat
-from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene, _mass_floor
+from mpm_flip98a_tpu_torch.models.stabilized import (
+    PAD, Scene, _csf_increment, _mass_floor, _project_grid,
+)
 from mpm_flip98a_tpu_torch.ops import binning
 from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
 from mpm_flip98a_tpu_torch.state import Particles
@@ -208,22 +212,10 @@ def to_host(b: FluidBuckets) -> dict:
 
 
 def check_supported(scene: Scene) -> None:
-    """Raise for configs outside the ported slice: NotImplementedError
-    naming the ROADMAP item that ports them."""
-    cfg = scene.cfg
-    if cfg.dim != 2:
+    """Raise ValueError for a config that is not 2D: fast2d runs every
+    switch of a 2D scene."""
+    if scene.cfg.dim != 2:
         raise ValueError("fast2d runs 2D configs; a 3D config takes models/fast3d")
-    gaps = [
-        # Colliders with either also wait for item 6 (the projection's
-        # collider solid mask, col_solid).
-        (cfg.surface_tension > 0.0, "CSF surface tension", 6),
-        (cfg.incompressible, "the incompressible projection", 6),
-    ]
-    for bad, what, item in gaps:
-        if bad:
-            raise NotImplementedError(
-                f"fast2d port: {what} is not ported yet (ROADMAP queue 1, item {item})"
-            )
 
 
 def plastic_materials(scene: Scene) -> Tuple[int, ...]:
@@ -270,19 +262,23 @@ def _axis_bands2d(cfg: MPMConfig, idx0: torch.Tensor, ncols: int):
     )
 
 
-def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None, t=None) -> torch.Tensor:
+def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None, t=None,
+                   domain=None) -> torch.Tensor:
     """Grid momentum update on the row-leading (R, 5 or 6 or 9, G) fold
-    output (fast2d.py:258-398 without CSF and the projection): mass floor,
-    gravity, slip or sticky walls or the penalty EBC, then the scene's
-    rigid colliders at simulation time `t` (None: static geometry).
-    Returns the grid (R, 4, G) = [v_new (2), v_old (2)] for g2p, plus the
-    nodal averages [Jbar, p, div] (R, 7, G) under F-bar or mixing.
+    output (fast2d.py:258-398): mass floor, gravity, CSF surface tension,
+    slip or sticky walls or the penalty EBC, the scene's rigid colliders at
+    simulation time `t` (None: static geometry), then the incompressible
+    projection with the colliders' interiors as solid.  Returns the grid
+    (R, 4, G) = [v_new (2), v_old (2)] for g2p, plus the nodal averages
+    [Jbar, p, div] (R, 7, G) under F-bar or mixing.
 
-    Slab shards pass the halo-synced (n, L + 4, nch, G) sums and their
-    global row indices `row_index0` (n, L + 4), which also place the
-    colliders' node coordinates.  The relative mass floor is
+    Slab shards (`domain`) pass the halo-synced (n, L + 4, nch, G) sums and
+    their global row indices `row_index0` (n, L + 4), which also place the
+    colliders' node coordinates.  The grid update's relative mass floor is
     then each shard's own (the reference's _mass_floor on the shard-local
-    sums, fast2d.py:277, takes no pmax; ROADMAP queue 3)."""
+    sums, fast2d.py:277, takes no pmax; ROADMAP queue 3); the projection's
+    is the max over the shards (fast2d.py:376-380), and CSF and the CG
+    refresh the halo rows with `domain.halo_gather_only`."""
     cfg = scene.cfg
     dt = np.float32(cfg.dt)
     g_m = gridsum[..., 4, :]
@@ -294,6 +290,13 @@ def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None, t=None)
     if row_index0 is None:
         row_index0 = torch.arange(gridsum.shape[0], device=gridsum.device)
     low0, high0, low1, high1 = _axis_bands2d(cfg, row_index0, gridsum.shape[-1])
+    st_x = st_y = None
+    if cfg.surface_tension > 0.0:
+        # CSF on the (R, G) mass plane, the general path's force: the
+        # momentum increment dt F/V (m / rho) joins the sums before the mass
+        # solve and the wall BC (fast2d.py:289-307).
+        st = _csf_increment(g_m, scene, None if domain is None else domain.halo_gather_only)
+        st_x, st_y = st[..., 0], st[..., 1]
     if cfg.use_penalty_ebc:
         # Implicit normal-velocity penalty (m I + dt beta n n^T) v = m v* +
         # dt m g; the box's penalty matrix is diagonal, so the solve is a
@@ -303,12 +306,18 @@ def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None, t=None)
         pen1 = (low1 | high1).to(torch.float32)
         rhs_x = gridsum[..., 2, :] + float(dt * grav[0]) * g_m
         rhs_y = gridsum[..., 3, :] + float(dt * grav[1]) * g_m
+        if st_x is not None:
+            rhs_x, rhs_y = rhs_x + st_x, rhs_y + st_y
         vx = torch.where(has, rhs_x / (g_m + dt_beta * pen0), 0.0)
         vy = torch.where(has, rhs_y / (g_m + dt_beta * pen1), 0.0)
     else:
         hasf = has.to(torch.float32)
         vx = torch.where(has, gridsum[..., 2, :] / safe, 0.0) + float(dt * grav[0]) * hasf
         vy = torch.where(has, gridsum[..., 3, :] / safe, 0.0) + float(dt * grav[1]) * hasf
+        if st_x is not None:
+            # (mv + dt F m/rho) / m == mv / m + (dt F m/rho) / m (:318-336).
+            vx = vx + torch.where(has, st_x / safe, 0.0)
+            vy = vy + torch.where(has, st_y / safe, 0.0)
         if scene.wall.kind == "sticky":
             anyband = low0 | high0 | low1 | high1
             vx = torch.where(anyband, 0.0, vx)
@@ -318,11 +327,18 @@ def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None, t=None)
             vx = torch.where(high0, vx.clamp(max=0.0), vx)
             vy = torch.where(low1, vy.clamp(min=0.0), vy)
             vy = torch.where(high1, vy.clamp(max=0.0), vy)
+    col_solid = None
     if scene.colliders:
         # Pointwise, after the wall or penalty BC (fast2d.py:345-359).
         idx1 = torch.arange(gridsum.shape[-1], device=gridsum.device)
         coords = colliders.node_coords(cfg, [row_index0[..., None], idx1], vx.dtype)
         vx, vy = colliders.project([vx, vy], coords, scene.colliders, t)
+        col_solid = colliders.inside_any(coords, scene.colliders, t)
+    if cfg.incompressible:
+        # The Chorin projection on the velocity planes (fast2d.py:360-389);
+        # slab shards own rows [1, 1 + L) of their L + 4 rows.
+        vx, vy = _project_grid((vx, vy), g_m, scene, col_solid,
+                               row_index0 if domain is not None else None, domain=domain)
     gch = [vx, vy, v0x, v0y]
     if _ext(cfg):
         # Nodal averages for the next substep's stress: Jbar, p, div, with
@@ -539,7 +555,8 @@ def _grid(data, counts, scene: Scene, plain: bool, domain, t=None):
     kw = dict(fused=fused, shards=domain.n, **p2g_args(scene))
     raw = tk.p2g_grid_plain(data, counts, **kw) if plain else tk.p2g_grid(
         data, counts, raw=True, **kw)
-    return _grid_update2d(domain.halo_sync(raw), scene, domain.row_index0(data.device), t)
+    return _grid_update2d(domain.halo_sync(raw), scene, domain.row_index0(data.device), t,
+                          domain)
 
 
 def substep(

@@ -3,8 +3,8 @@
 Counterpart of `mpm_flip98a_tpu/models/fast3d.py` on one device, routed
 as fast3d.py:586-591 and :776-811 do (`uses_fused`, `scene.mass_floor`):
 
-- one weakly-compressible fluid without F-bar, pressure mixing or the
-  tent kernel, with an absolute grid-mass floor (the fused branch,
+- one weakly-compressible fluid without F-bar, pressure mixing, the tent
+  kernel, CSF or the projection, with an absolute grid-mass floor (the fused branch,
   fast3d.py:586-630): `p2g3d_grid` (kernel: stress, scatter, grid update)
   -> `g2p3d` (kernel: gather, FLIP blend, advection, J update).  No
   slot-sized pass runs outside the kernels except the transfer
@@ -12,18 +12,22 @@ as fast3d.py:586-591 and :776-811 do (`uses_fused`, `scene.mass_floor`):
 - every other config (the prepped branch, fast3d.py:646-934: fluid,
   neo-Hookean, fixed-corotated, snow and Drucker-Prager sand mixed per
   slot; F-bar and pressure mixing with the lag correction; the tent
-  kernel): the stress prepped in torch into separate planes, then with an absolute mass floor
+  kernel; CSF surface tension or the incompressible projection, which run
+  on the grid in torch): the stress prepped in torch into separate planes,
+  then with an absolute mass floor and neither CSF nor the projection
   `p2g3d_grid` in its prepped mode (kernel: scatter, grid update, the
-  nodal Jbar, p and div), and with `mass_floor <= 0` (the relative floor,
-  `Scene`'s default) `p2g3d` (kernel) -> `fold_rows0` -> `_grid_update`;
+  nodal Jbar, p and div), else (the relative floor, `Scene`'s default, or
+  a grid-side extension: `ext_grid`, fast3d.py:578-591, :786) `p2g3d`
+  (kernel) -> `fold_rows0` -> `_grid_update`;
   then `g2p3d` in gather mode (kernel) -> the tent's per-particle D^-1 ->
   the particle update, which ends in `materials.plastic_update` for snow,
   sand and the corotated clamp (on the live plastic slots only).
 
 PIC or APIC with the FLIP blend, linear or Tait EOS, slip or sticky walls
-or the penalty EBC, rigid SDF colliders (static or kinematic: inside
-`p2g3d_grid`'s node pass, or in `_grid_update` on the relative-floor and
-sharded routes); all on float32 tensors on one device.
+or the penalty EBC, CSF surface tension, rigid SDF colliders (static or
+kinematic: inside `p2g3d_grid`'s node pass, or in `_grid_update` on the
+`p2g3d` and sharded routes) and the incompressible projection; all on
+float32 tensors on one device.
 
 State lives in pencil buckets: one bucket of K slots per (axis-0, axis-1)
 grid line, fields (R0 * R1, K).  `run` keeps the reference's order (a
@@ -35,11 +39,9 @@ device-to-host read of the check per substep, counted in `RunStats`.
 axis-0 rows (parallel/fast_domain3d.py, one axis; fast3d.py:518-530,
 631-644, 776-784): positions shifted by the slab origin for the kernels,
 `p2g3d_grid`'s raw halo sums, the halo exchange on axis 0, `_grid_update`
-on the halo planes with global row indices, and `g2p3d` on the
+on the halo planes with global row indices (CSF and the projection
+refresh the halo planes with `halo_gather_only`), and `g2p3d` on the
 axis-0-padded grid of each shard.
-
-Configurations outside this slice raise NotImplementedError naming their
-ROADMAP item.
 """
 
 from __future__ import annotations
@@ -56,7 +58,9 @@ from mpm_flip98a_tpu_torch.models import materials as mat
 from mpm_flip98a_tpu_torch.models.fast2d import (
     RunStats, _ext, _f32, plastic_materials, substep_times,
 )
-from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene, _mass_floor
+from mpm_flip98a_tpu_torch.models.stabilized import (
+    PAD, Scene, _csf_increment, _mass_floor, _project_grid,
+)
 from mpm_flip98a_tpu_torch.ops import binning
 from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
 from mpm_flip98a_tpu_torch.state import Particles
@@ -228,22 +232,11 @@ def to_host(b: FluidBuckets3D) -> dict:
 
 
 def check_supported(scene: Scene, sharded: bool = False) -> None:
-    """Raise for configs outside the ported slice: NotImplementedError
-    naming the ROADMAP item that ports them."""
+    """Raise for a config that is not 3D (ValueError) and for the one the
+    reference cannot route (NotImplementedError)."""
     cfg = scene.cfg
     if cfg.dim != 3:
         raise ValueError("fast3d runs 3D configs; a 2D config takes models/fast2d")
-    gaps = [
-        # Colliders with either also wait for item 6 (the projection's
-        # collider solid mask, col_solid).
-        (cfg.surface_tension > 0.0, "CSF surface tension", 6),
-        (cfg.incompressible, "the incompressible projection", 6),
-    ]
-    for bad, what, item in gaps:
-        if bad:
-            raise NotImplementedError(
-                f"fast3d port: {what} is not ported yet (ROADMAP queue 1, item {item})"
-            )
     if uses_fused(scene) and scene.mass_floor <= 0.0 and not sharded:
         # fast3d.py:601-645 sends such a scene on one device to the
         # sharded tail, which calls halo_sync on no domain.
@@ -253,15 +246,29 @@ def check_supported(scene: Scene, sharded: bool = False) -> None:
         )
 
 
+def ext_grid(cfg: MPMConfig) -> bool:
+    """CSF or the projection: grid-side work in torch between the P2G sums
+    and G2P, so no kernel may finish the grid (fast3d.py:578)."""
+    return bool(cfg.incompressible or cfg.surface_tension > 0.0)
+
+
 def uses_fused(scene: Scene) -> bool:
     """The predicate of fast3d.py:586-591: one weakly-compressible fluid,
-    no F-bar or pressure mixing and the B-spline kernel; every other
-    config preps its fields in torch."""
+    no F-bar or pressure mixing, the B-spline kernel and no `ext_grid`;
+    every other config preps its fields in torch."""
     return (
         scene.materials_present == (mat.WEAKLY_COMPRESSIBLE_FLUID,)
         and not _ext(scene.cfg)
         and scene.cfg.kernel != KernelKind.TENT
+        and not ext_grid(scene.cfg)
     )
+
+
+def kernel_grid(scene: Scene) -> bool:
+    """Does `p2g3d_grid` finish the grid on one device (fast3d.py:786)?  The
+    fused branch always; the prepped one with an absolute mass floor and
+    no `ext_grid`, else `p2g3d` + `fold_rows0` + `_grid_update`."""
+    return uses_fused(scene) or (scene.mass_floor > 0.0 and not ext_grid(scene.cfg))
 
 
 def _wall_args(scene: Scene) -> dict:
@@ -283,9 +290,9 @@ def _wall_args(scene: Scene) -> dict:
 def p2g_args(scene: Scene, raw: bool = False) -> dict:
     """Keyword arguments of the scene's P2G wrapper after (fields, counts,
     g1): the stress mode of `p2g3d_grid` (fast3d.py:608-627) for a
-    `uses_fused` scene; for the others its prepped mode (:797-802) with an
-    absolute mass floor, or `p2g3d` (:805-808) without one.  `raw`: the
-    scatter's arguments alone, for `p2g3d_grid`'s raw mode (slab shards)."""
+    `uses_fused` scene; for the others its prepped mode (:797-802) where
+    `kernel_grid`, else `p2g3d` (:805-808).  `raw`: the scatter's arguments
+    alone, for `p2g3d_grid`'s raw mode (slab shards)."""
     cfg = scene.cfg
     apic = cfg.transfer == TransferKind.APIC
     args = dict(g2=cfg.num_grids, dx=float(cfg.dx), apic=apic)
@@ -300,7 +307,7 @@ def p2g_args(scene: Scene, raw: bool = False) -> dict:
         )
     else:
         args.update(ext=_ext(cfg), tent=cfg.kernel == KernelKind.TENT)
-    if not raw and (uses_fused(scene) or scene.mass_floor > 0.0):
+    if not raw and kernel_grid(scene):
         args.update(_wall_args(scene))
     return args
 
@@ -357,7 +364,7 @@ def _sharded_grid(fields, counts, scene: Scene, spec: FastSpec3D, plain: bool, d
         raw = tk3.p2g3d_grid(fields, counts, spec.rows1, raw=True, **kw)
     dev = counts.device
     return _grid_update(domain.halo_sync(raw), scene, domain.row_index0(dev),
-                        torch.arange(spec.rows1 + tk3.NT - 1, device=dev) - 1, t)
+                        torch.arange(spec.rows1 + tk3.NT - 1, device=dev) - 1, t, domain)
 
 
 def _fused_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool, domain=None,
@@ -601,20 +608,23 @@ def _axis_bands(cfg: MPMConfig, device, row_index0=None, row_index1=None):
 
 
 def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=None,
-                 t=None) -> torch.Tensor:
+                 t=None, domain=None) -> torch.Tensor:
     """Grid momentum update on the fold's (G0, G1, 7 or 11, G2) layout
-    (fast3d.py:291-430 without CSF and the projection): mass floor
-    (relative when `scene.mass_floor <= 0`: a device-side max), gravity,
-    slip or sticky walls (`_wall_bc_ch`) or the penalty EBC
-    (`_wall_normal_diag_ch`: the box's penalty matrix is diagonal), then
-    the scene's rigid colliders at simulation time `t` (fast3d.py:371-393).
-    Returns the unpadded (G0, G1, 6 or 9, G2) grid = [v_new (3), v_old
-    (3)] + the nodal [Jbar, p, div] under F-bar or mixing.
+    (fast3d.py:291-430): mass floor (relative when `scene.mass_floor <= 0`:
+    a device-side max), gravity, CSF surface tension, slip or sticky walls
+    (`_wall_bc_ch`) or the penalty EBC (`_wall_normal_diag_ch`: the box's
+    penalty matrix is diagonal), the scene's rigid colliders at simulation
+    time `t` (fast3d.py:371-393), then the incompressible projection with
+    the colliders' interiors as solid.  Returns the unpadded (G0, G1, 6 or
+    9, G2) grid = [v_new (3), v_old (3)] + the nodal [Jbar, p, div] under
+    F-bar or mixing.
 
-    Slab shards pass the halo-synced (n, L0 + 4, R1 + 4, nch, G2) sums with
-    their global row indices; the relative floor is then each shard's own
-    (the reference's _mass_floor on shard-local sums takes no pmax; ROADMAP
-    queue 3)."""
+    Slab shards (`domain`) pass the halo-synced (n, L0 + 4, R1 + 4, nch,
+    G2) sums with their global row indices; the grid update's relative
+    floor is then each shard's own (the reference's _mass_floor on
+    shard-local sums takes no pmax; ROADMAP queue 3), the projection's the
+    max over the shards (fast3d.py:400-403), and CSF and the CG refresh the
+    halo planes with `domain.halo_gather_only` (fast3d.py:319-333)."""
     cfg = scene.cfg
     dt = np.float32(cfg.dt)
     g_m = gs[..., 6, :]
@@ -623,24 +633,30 @@ def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=Non
     v_old = [torch.where(has, gs[..., a, :] / safe, 0.0) for a in range(3)]
     grav = np.asarray(cfg.gravity_acceleration(scene.physics), np.float32)
     bands = _axis_bands(cfg, gs.device, row_index0, row_index1)
+    st = None
+    if cfg.surface_tension > 0.0:
+        # CSF on the (G0, G1, G2) mass field, the general path's force, as
+        # a momentum increment per component (fast3d.py:334-350).
+        st = _csf_increment(g_m, scene,
+                            None if domain is None else domain.halo_gather_only).unbind(-1)
     if cfg.use_penalty_ebc:
         dt_beta = float(dt * np.float32(cfg.penalty_parameter(scene.physics)))
         dtm = float(dt) * g_m
-        v = [
-            torch.where(
-                has,
-                (gs[..., 3 + a, :] + dtm * float(grav[a]))
-                / (g_m + dt_beta * (low | high).to(g_m.dtype)),
-                0.0,
-            )
-            for a, (low, high) in enumerate(bands)
-        ]
+        v = []
+        for a, (low, high) in enumerate(bands):
+            rhs = gs[..., 3 + a, :] + dtm * float(grav[a])
+            if st is not None:
+                rhs = rhs + st[a]
+            v.append(torch.where(has, rhs / (g_m + dt_beta * (low | high).to(g_m.dtype)), 0.0))
     else:
         hasf = has.to(g_m.dtype)
         v = [
             torch.where(has, gs[..., 3 + a, :] / safe, 0.0) + float(dt * grav[a]) * hasf
             for a in range(3)
         ]
+        if st is not None:
+            # (mv + dt F m/rho) / m == mv / m + st / m (fast3d.py:352-369).
+            v = [va + torch.where(has, sa / safe, 0.0) for va, sa in zip(v, st)]
         if scene.wall.kind == "sticky":
             anyband = torch.zeros((), dtype=torch.bool, device=gs.device)
             for low, high in bands:
@@ -650,6 +666,7 @@ def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=Non
             for a, (low, high) in enumerate(bands):
                 v[a] = torch.where(low, v[a].clamp(min=0.0), v[a])
                 v[a] = torch.where(high, v[a].clamp(max=0.0), v[a])
+    col_solid = None
     if scene.colliders:
         # Pointwise, after the wall or penalty BC, at global node indices.
         dev = gs.device
@@ -659,6 +676,11 @@ def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=Non
         coords = colliders.node_coords(
             cfg, [idx0[..., :, None, None], idx1[:, None], idx2], g_m.dtype)
         v = colliders.project(v, coords, scene.colliders, t)
+        col_solid = colliders.inside_any(coords, scene.colliders, t)
+    if cfg.incompressible:
+        # The Chorin projection on the three velocity planes (fast3d.py:
+        # 394-415); slab shards own axis-0 rows [1, 1 + L0) of L0 + 4.
+        v = _project_grid(v, g_m, scene, col_solid, row_index0, row_index1, domain)
     gch = v + v_old
     if gs.shape[-2] == tk3.P2G_CH_EXT:
         # Nodal averages for the next substep's stress: Jbar, p, div, with
@@ -719,9 +741,9 @@ def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: b
     args = p2g_args(scene)
     if domain is not None:
         grid = _sharded_grid(fields, counts, scene, spec, plain, domain, t)
-    elif scene.mass_floor > 0.0:
-        # Absolute floor: scatter, fold and grid update in one wrapper; the
-        # grid comes out padded on both axes.
+    elif kernel_grid(scene):
+        # Absolute floor, no ext_grid: scatter, fold and grid update in one
+        # wrapper; the grid comes out padded on both axes.
         p2g = tk3.p2g3d_grid_plain if plain else tk3.p2g3d_grid
         grid = p2g(fields, counts, r1, **args, tcol=t)
     else:
@@ -816,8 +838,8 @@ def substep(
     `uses_fused` configs compute the stress inside `p2g3d_grid` and update
     the particles inside `g2p3d` (absolute mass floor only); the others
     prep their fields in torch and take `p2g3d_grid`'s prepped mode or,
-    without an absolute mass floor, `p2g3d`, then the gather-mode `g2p3d`
-    and the particle update.  `domain`
+    where not `kernel_grid`, `p2g3d`, then the gather-mode `g2p3d` and the
+    particle update.  `domain`
     (parallel/fast_domain3d.FastDomain3DCtx) runs both branches on its slab
     shards through `p2g3d_grid`'s raw mode; `spec` is then the global
     layout's (n L0 axis-0 rows).

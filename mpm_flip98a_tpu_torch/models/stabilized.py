@@ -29,9 +29,11 @@ its XLA scatter-add is `index_add_` and its gather a plain gather
 serves every transfer.  Constants enter as Python floats rounded to the
 particles' dtype (as JAX's `jnp.asarray(c, dtype)` does), and no value is
 read on the host, so `run` queues its substeps on the card without a
-synchronisation.  One device only: the slab context of
-`parallel/domain.py` and the replicated path wait, and CSF surface tension
-and the incompressible projection raise (ROADMAP queue 1, item 6).
+synchronisation, except the projection's CG (`models/projection.py`),
+which reads its active flag once every 8 iterations.  One device only: the
+slab context of `parallel/domain.py` and the replicated path wait.  The
+fast paths share `_csf_force`, `_csf_increment` and `_project_grid`, and
+their slab shards pass those a halo refresh.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch
 
 from mpm_flip98a_tpu_torch.config import KernelKind, MPMConfig, Physics, TransferKind, np_float
 from mpm_flip98a_tpu_torch.models import materials as mat
+from mpm_flip98a_tpu_torch.models import projection
 from mpm_flip98a_tpu_torch.ops import mathx
 from mpm_flip98a_tpu_torch.ops import transfer
 from mpm_flip98a_tpu_torch.ops import weights as W
@@ -103,17 +106,6 @@ def _mass_floor(scene: Scene, g_m: torch.Tensor, sharded: bool = False):
     if sharded:
         return 1e-8 * g_m.amax(dim=tuple(range(1, g_m.dim())), keepdim=True)
     return 1e-8 * g_m.max()
-
-
-def check_supported(scene: Scene) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for the switches
-    of the JAX general path that the port does not run yet."""
-    if scene.cfg.surface_tension > 0.0:
-        raise NotImplementedError(
-            "CSF surface tension is not ported yet (ROADMAP queue 1, item 6)")
-    if scene.cfg.incompressible:
-        raise NotImplementedError(
-            "the incompressible projection is not ported yet (ROADMAP queue 1, item 6)")
 
 
 def _grid_coords(p_x: torch.Tensor, cfg: MPMConfig) -> torch.Tensor:
@@ -218,13 +210,97 @@ def _apply_wall_bc(v: torch.Tensor, cfg: MPMConfig, wall: WallBC, grid_shape) ->
     return torch.stack(comps, dim=-1)
 
 
+def _roll0(c: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
+    """Shift with zero fill (vacuum outside the buffer): the color field
+    treats everything beyond the padded grid as empty."""
+    r = torch.roll(c, shift, axis)
+    r.select(axis, 0 if shift > 0 else -1).zero_()
+    return r
+
+
+def _cdiff(c: torch.Tensor, axis: int, inv_dx) -> torch.Tensor:
+    """Central difference with zero-extended boundaries: translation
+    invariant, so a slab buffer with valid halo rows reproduces the
+    single-device values on its interior."""
+    return (_roll0(c, -1, axis) - _roll0(c, 1, axis)) * (0.5 * inv_dx)
+
+
+def _csf_force(g_m: torch.Tensor, cfg: MPMConfig, physics: Physics, dtype,
+               halo=None) -> torch.Tensor:
+    """Continuum-surface-force density sigma kappa grad(c~) on the grid
+    (stabilized.py:311-358): the normalised, binomially smoothed nodal mass
+    is the color function c~, n = grad c~, kappa = -div(n / |n|); nodes
+    with |n| below 1% of its max contribute nothing.  Dim-agnostic: the
+    general path's (G...) mass and the fast paths' planes.
+
+    With `halo` (`FastDomainCtx.halo_gather_only`) the planes are slab
+    shards stacked on dim 0: after each radius-1 stage `halo` refreshes
+    their halo rows from the neighbours in place, and the two maxima are
+    taken over every shard (the reference's pmax).  Returns (..., d) in
+    `g_m`'s layout."""
+    lead = 0 if halo is None else 1
+    sync = halo if halo is not None else (lambda x: x)
+    d = g_m.dim() - lead
+    nd = np_float(dtype)
+    inv_dx = float(nd(cfg.inv_dx))
+    c = g_m / torch.clamp(g_m.max(), min=float(nd(1e-30)))
+    # One binomial (1,2,1)/4 pass per axis smooths the deposition ripple.
+    for a in range(lead, lead + d):
+        c = 0.25 * _roll0(c, 1, a) + 0.5 * c + 0.25 * _roll0(c, -1, a)
+    c = sync(c)
+    n = sync(torch.stack([_cdiff(c, lead + a, inv_dx) for a in range(d)], dim=-1))
+    mag = torch.sqrt(torch.sum(n * n, dim=-1))
+    near = mag > 0.01 * mag.max()
+    safe = torch.where(near, mag, 1.0)
+    nhat = torch.where(near[..., None], n / safe[..., None], 0.0)
+    kappa = -sum(_cdiff(nhat[..., a], lead + a, inv_dx) for a in range(d))
+    sigma = float(nd(cfg.surface_tension))
+    force = torch.where(near[..., None], sigma * kappa[..., None] * n, 0.0)
+    # kappa is one-sided on the outermost halo rows: refresh them.
+    return sync(force)
+
+
+def _csf_increment(g_m: torch.Tensor, scene: Scene, halo=None) -> torch.Tensor:
+    """The fast paths' CSF momentum increment dt F/V (m / rho) on their
+    float32 mass planes, (..., d) in `g_m`'s layout (fast2d.py:289-307,
+    fast3d.py:334-350: the scale dt m / rho first, then the force; the
+    general path keeps the reference's dt F (m / rho))."""
+    f_st = _csf_force(g_m, scene.cfg, scene.physics, torch.float32, halo)
+    st_scale = float(np.float32(scene.cfg.dt)) * g_m / float(
+        np.float32(scene.physics.particle_density))
+    return f_st * st_scale[..., None]
+
+
+def _project_grid(vs, g_m: torch.Tensor, scene: Scene, col_solid=None, row_index0=None,
+                  row_index1=None, domain=None):
+    """The nodal Chorin projection of the d velocity planes `vs`
+    (models/projection.py; stabilized.py:525-549, fast2d.py:360-389,
+    fast3d.py:394-415) with the walls and `col_solid` (the colliders'
+    interiors) as solid; returns the projected planes as a list.  Slab
+    shards (`domain`, a FastDomainCtx or FastDomain3DCtx) own axis-0 rows
+    [1, 1 + L) of their L + 4, refresh the halo rows with
+    `halo_gather_only` and take the relative floor over every shard
+    (fast2d.py:376-380, fast3d.py:400-403)."""
+    cfg = scene.cfg
+    own = halo = None
+    if domain is not None:
+        own, halo = domain.own_rows(g_m.device), domain.halo_gather_only
+    out, _, _ = projection.project_planes(
+        tuple(vs), g_m, _mass_floor(scene, g_m),
+        dx=float(cfg.dx), lo=int(PAD), hi=cfg.num_grids - 1 - int(PAD),
+        iters=int(cfg.pressure_iters), tol=float(cfg.pressure_tol),
+        row_index0=row_index0, row_index1=row_index1, shards=domain is not None,
+        halo=halo, own=own, solid_extra=col_solid,
+    )
+    return list(out)
+
+
 def substep_grid(
     p: Particles, scene: Scene, ctx: GridContext = None, t=None
 ) -> Tuple[Particles, Grid]:
     """One substep; returns the new particle state and the post-update grid.
     `t` (simulation seconds, a host float) places kinematic colliders;
     None keeps every collider at its initial position."""
-    check_supported(scene)
     cfg = scene.cfg
     ctx = ctx or GridContext.single(cfg)
     d = cfg.dim
@@ -303,6 +379,13 @@ def substep_grid(
     grav = cfg.gravity_acceleration(scene.physics)
     dt_m = float(dt) * g_m
     rhs = torch.stack([g_mv1[..., a] + dt_m * float(nd(grav[a])) for a in range(d)], dim=-1)
+    if cfg.surface_tension > 0.0:
+        # CSF surface tension (Brackbill et al. 1992) from the nodal mass
+        # as color function: F/V = sigma kappa grad(c~), applied as the
+        # nodal force dt F/V (m / rho) (stabilized.py:479-489).
+        rho = float(nd(scene.physics.particle_density))
+        rhs = rhs + float(dt) * _csf_force(g_m, cfg, scene.physics, dt_) * (
+            g_m / rho)[..., None]
     if cfg.use_penalty_ebc:
         # Matrix nodal mass A = m I + dt beta sum n n^T (diagonal for the
         # axis-aligned box), solved per node (fields.py:28).
@@ -314,6 +397,7 @@ def substep_grid(
         v_new = torch.where(has_mass[..., None], rhs / safe_m[..., None], 0.0)
         v_new = _apply_wall_bc(v_new, cfg, scene.wall, grid_shape)
 
+    col_solid = None
     if scene.colliders:
         # Rigid SDF colliders: a pointwise grid-velocity projection after
         # the wall / penalty BC.
@@ -323,6 +407,15 @@ def substep_grid(
         coords = _col.node_coords(cfg, shaped, dt_)
         comps = _col.project(list(v_new.unbind(-1)), coords, scene.colliders, t)
         v_new = torch.stack([c.expand(grid_shape) for c in comps], dim=-1)
+        # The projection treats collider interiors as solid (Neumann): their
+        # BC velocities stay pinned and source the RHS at fluid neighbours.
+        col_solid = _col.inside_any(coords, scene.colliders, t)
+
+    if cfg.incompressible:
+        # The nodal Chorin projection (models/projection.py,
+        # stabilized.py:525-549): divergence-free grid velocities; wall
+        # nodes keep their BC values.
+        v_new = torch.stack(_project_grid(v_new.unbind(-1), g_m, scene, col_solid), dim=-1)
 
     grid = Grid(
         v=v_new,
@@ -407,7 +500,6 @@ def run(p: Particles, scene: Scene, n_substeps: int, t0=None) -> Particles:
     keeps the colliders static."""
     from mpm_flip98a_tpu_torch.models import colliders as _col
 
-    check_supported(scene)
     moving = t0 is not None and _col.any_moving(scene.colliders)
     for i in range(n_substeps):
         p = substep(p, scene, t=t0 + i * scene.cfg.dt if moving else None)

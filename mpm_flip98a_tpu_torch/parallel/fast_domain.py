@@ -83,6 +83,12 @@ class FastDomainCtx:
         s = torch.arange(self.n, device=device)[:, None]
         return s * l - 1 + torch.arange(l + H_LO + H_HI, device=device)[None, :]
 
+    def own_rows(self, device) -> torch.Tensor:
+        """(n, L + 4) bool: the rows each shard owns, [H_LO, H_LO + L): the
+        grid-side CG's dot products count them alone (fast2d.py:371-373)."""
+        j = torch.arange(self.rows_per_shard + H_LO + H_HI, device=device)
+        return ((j >= H_LO) & (j < H_LO + self.rows_per_shard)).expand(self.n, -1)
+
     def halo_sync(self, buf: torch.Tensor) -> torch.Tensor:
         """(n, L + 4, ...) raw folded sums -> globally complete rows, in place.
 
@@ -101,7 +107,10 @@ class FastDomainCtx:
 
     def halo_gather_only(self, buf: torch.Tensor) -> torch.Tensor:
         """Refresh the halo rows from the neighbours' completed interiors,
-        in place, without the reduce leg (fast_domain.py:112-124)."""
+        in place, without the reduce leg (fast_domain.py:112-124): for the
+        grid-side chains of CSF and the projection, whose inputs are
+        already global sums.  Any (n, L + 4, ...) buffer, channel-less
+        planes included."""
         l = buf.shape[1] - (H_LO + H_HI)
         buf[:, 0:H_LO] = self.mesh.shift_right(buf[:, l : l + H_LO])
         buf[:, l + H_LO :] = self.mesh.shift_left(buf[:, H_LO : H_LO + H_HI])

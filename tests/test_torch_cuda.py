@@ -1144,3 +1144,80 @@ def test_mls88_on_the_card_tracks_the_cpu(dev, dtype):
             scale = float(w.abs().max()) if dtype == torch.float32 else 1.0
             err = float((getattr(got, k).cpu().double() - w).abs().max()) / scale
             assert err <= 1e-5, (warmup, k, err)
+
+
+# ---------------------------------------------------------------------------
+# CSF surface tension and the incompressible projection
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_projection_on_the_card_tracks_the_cpu(dev, d, dtype):
+    """The CG on seeded planes with a collider's solid ball, card against
+    CPU: v and q to 1e-12 of their scale in float64, 1e-5 in float32 (the
+    card's reductions sum in another order); the exit resid likewise."""
+    from mpm_flip98a_tpu_torch.models import projection
+
+    g = 33 if d == 2 else 16
+    rng = np.random.default_rng(d)
+    lo, hi = 2, g - 3
+    m = np.zeros((g,) * d)
+    m[tuple(slice(lo + 1, lo + 1 + (hi - lo) // 2) for _ in range(d))] = 1.0
+    idx = np.indices(m.shape)
+    solid = sum((i - (lo + 1 + (hi - lo) // 4)) ** 2 for i in idx) <= 2.5 ** 2
+    vs = [rng.normal(size=m.shape) * (m > 0) for _ in range(d)]
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    kw = dict(dx=0.01, lo=lo, hi=hi)
+    t = lambda a, device: torch.as_tensor(a, dtype=dtype, device=device)
+    got = projection.project_planes(tuple(t(v, dev) for v in vs), t(m, dev), 0.5, **kw,
+                                    solid_extra=torch.as_tensor(solid, device=dev))
+    want = projection.project_planes(tuple(t(v, "cpu") for v in vs), t(m, "cpu"), 0.5, **kw,
+                                     solid_extra=torch.as_tensor(solid))
+    for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+        assert a.device.type == "cuda"
+        err = float((a.cpu() - b).abs().max())
+        assert err <= tol * float(b.abs().max()), err
+    assert abs(float(got[2]) - float(want[2])) <= tol
+
+
+def test_incompressible_fast2d_rerun_is_bitwise_equal(dev):
+    """tests/test_projection.py:110-117's incompressible column on the
+    fused 2D path (p2g_fused and g2p once per substep): two 50-substep runs
+    are bitwise equal (the kernels and the CG's reductions sum in a fixed
+    order), and the volume stays pinned."""
+    cfg = MPMConfig(
+        dtype="float32", num_grids=33, dt=1e-5, num_particles_x=24, num_particles_y=48,
+        fluid_width=0.105, fluid_height=0.21, flip_blend=0.98, transfer=TransferKind.PIC,
+        incompressible=True, pressure_iters=40,
+    )
+    p, scene = scenes.dam_break_2d(cfg, dtype=np.float32)
+    spec = fast2d.FastSpec.for_particles(cfg, p, headroom=2.0)
+    b0 = fast2d.from_particles(p, cfg, spec, dev)
+    tk.reset_launches()
+    a = fast2d.run(b0, scene, spec, 50)
+    assert tk.LAUNCHES == {"p2g_fused": 50, "p2g": 0, "p2g_grid": 0, "g2p": 50}
+    b = fast2d.run(b0, scene, spec, 50)
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+    assert float((a.J - 1.0).abs().max()) < 5e-4
+
+
+def test_p2g3d_7ch_on_an_incompressible_state_matches_plain(dev):
+    """The projection leaves fast3d's fused branch for p2g3d's 7-channel
+    mode + fold_rows0 + _grid_update (p2g3d_grid never launches): on the
+    state of 5 such substeps, p2g3d against its plain version."""
+    p, scene = scenes.dam_break_3d(num_grids=32, particles_per_axis=(12, 12, 24), dt=2e-5,
+                                   incompressible=True)
+    spec = fast3d.FastSpec3D.for_particles(scene.cfg, p, headroom=2.0)
+    tk3.reset_launches()
+    b = fast3d.run(fast3d.from_particles(p, scene.cfg, spec, dev), scene, spec, 5)
+    assert tk3.LAUNCHES == {"p2g3d": 5, "p2g3d_grid": 0, "g2p3d": 5}
+    args = fast3d.p2g_args(scene)
+    fields = fast3d.prepped_fields(b, scene, spec)
+    counts = fast3d.pencil_counts(b)
+    got = tk3.p2g3d(fields, counts, spec.rows1, **args)
+    assert got.shape[3] == tk3.P2G_CH == 7
+    want = tk3.p2g3d_plain(fields, counts, spec.rows1, args["g2"], args["dx"], args["apic"],
+                           args["ext"], args["tent"])
+    _close(got, want, axis=3)

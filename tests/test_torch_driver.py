@@ -85,12 +85,13 @@ def test_cli_runs_elastic_drop_on_cpu(tmp_path):
 
 
 def test_unported_entry_points_raise(tmp_path):
-    """dam2d_incompressible is the one JAX scenario left unported (snow2d
-    and sand2d run: tests/test_torch_snow.py, _sand.py)."""
-    assert driver.UNPORTED_SCENARIOS == {"dam2d_incompressible": 6}
+    """Every JAX scenario is ported (dam2d_incompressible runs:
+    tests/test_torch_projection.py); the two-axis mesh (item 7) and
+    checkpoints (item 2) still raise, naming their item."""
+    assert driver.UNPORTED_SCENARIOS == {}
+    assert "dam2d_incompressible" in driver.SCENARIOS
     out = ["--out", str(tmp_path), "--device", "cpu", "--frames", "1", "--substeps", "1"]
     for extra, item in (
-        (["--scenario", "dam2d_incompressible"], "item 6"),
         (["--scenario", "dam3d", "--path", "fast", "--devices", "2x2"], "item 7"),
         (["--checkpoint", str(tmp_path / "ck.npz")], "item 2"),
     ):

@@ -125,23 +125,30 @@ def test_run_across_rebuckets_matches_jax_statistically():
 
 
 def test_unported_configs_raise():
-    """What the port still lacks raises, naming its ROADMAP item: the
-    incompressible projection and CSF surface tension, alone or with
-    colliders (queue 1, item 6).  Snow, sand and corotated plasticity (item
-    4) are ported: `check_supported` passes them and they take the prepped
-    branch with the plastic update (tests/test_torch_snow.py, _sand.py,
-    _plasticity.py hold them to JAX)."""
+    """Nothing of fast2d's switch set is left unported: the incompressible
+    projection and CSF surface tension (ROADMAP queue 1, item 6), alone or
+    with a collider, pass `check_supported` and run one substep, finite,
+    the collider's interior solid in the projection
+    (tests/test_torch_projection.py and _surface_tension.py hold them to
+    JAX); a 3D config is a ValueError.  Snow, sand and corotated plasticity
+    (item 4) pass too and take the prepped branch with the plastic update
+    (tests/test_torch_snow.py, _sand.py, _plasticity.py hold them to
+    JAX)."""
     (scene, spec, b), (scene_t, spec_t, b_t) = _setup()
     sphere = Collider(kind="sphere", center=(0.2, 0.1), radius=0.03)
-    bad = [
-        (dataclasses.replace(scene_t, cfg=dataclasses.replace(scene_t.cfg, **change),
-                             colliders=cols), 6)
+    ext = [
+        dataclasses.replace(scene_t, cfg=dataclasses.replace(scene_t.cfg, **change),
+                            colliders=cols)
         for change in (dict(incompressible=True), dict(surface_tension=0.07))
         for cols in ((), (sphere,))
     ]
-    for scene_bad, item in bad:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-            fast2d.substep(b_t, scene_bad)
+    for scene_ext in ext:
+        fast2d.check_supported(scene_ext)
+        got = fast2d.substep(b_t, scene_ext)
+        assert all(bool(torch.isfinite(getattr(got, n)).all()) for n in ("x0", "x1", "v0", "v1"))
+    with pytest.raises(ValueError, match="3D"):
+        fast2d.check_supported(dataclasses.replace(
+            scene_t, cfg=dataclasses.replace(scene_t.cfg, dim=3)))
     fast2d.check_supported(dataclasses.replace(scene_t, colliders=(sphere,)))
     ported = [dataclasses.replace(scene_t, materials_present=(mat.WEAKLY_COMPRESSIBLE_FLUID, m))
               for m in (mat.SNOW, mat.SAND)]

@@ -149,11 +149,13 @@ def test_run_across_rebuckets_tracks_jax():
 
 
 def test_unported_configs_raise():
-    """What `check_supported` still refuses: CSF and the projection (with
-    or without colliders) and the fused branch without an absolute mass
-    floor (the reference sends it to `p2g3d_grid`'s raw mode,
-    fast3d.py:631-645), colliders or not; a 2D config is a ValueError.
-    Snow, sand and corotated plasticity (ROADMAP queue 1, item 4) pass."""
+    """What `check_supported` still refuses: the fused branch without an
+    absolute mass floor (the reference sends it to `p2g3d_grid`'s raw
+    mode, fast3d.py:631-645), colliders or not; a 2D config is a
+    ValueError.  CSF and the projection (ROADMAP queue 1, item 6), with
+    or without colliders, pass and leave the fused branch for `p2g3d` +
+    `fold_rows0` + `_grid_update` (`ext_grid`), also with the relative
+    floor; snow, sand and corotated plasticity (item 4) pass."""
     (_, _, _, _), (scene_t, spec_t, b_t) = _setup()
     cfg = scene_t.cfg
     plastic = dataclasses.replace(scene_t.params, plastic=True)
@@ -161,11 +163,6 @@ def test_unported_configs_raise():
     with pytest.raises(ValueError, match="3D"):
         fast3d.check_supported(dataclasses.replace(scene_t, cfg=dataclasses.replace(cfg, dim=2)))
     for change in (
-        dict(cfg=dataclasses.replace(cfg, surface_tension=0.07)),
-        dict(cfg=dataclasses.replace(cfg, incompressible=True)),
-        dict(cfg=dataclasses.replace(cfg, incompressible=True, use_fbar=True)),
-        dict(cfg=dataclasses.replace(cfg, incompressible=True), colliders=(sphere,)),
-        dict(cfg=dataclasses.replace(cfg, surface_tension=0.07), colliders=(sphere,)),
         dict(colliders=(sphere,), mass_floor=0.0),
         dict(mass_floor=0.0),
     ):
@@ -173,6 +170,19 @@ def test_unported_configs_raise():
             fast3d.substep(b_t, dataclasses.replace(scene_t, **change), spec_t)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fast3d.check_supported(dataclasses.replace(scene_t, **change))
+    for change in (
+        dict(cfg=dataclasses.replace(cfg, surface_tension=0.07)),
+        dict(cfg=dataclasses.replace(cfg, incompressible=True)),
+        dict(cfg=dataclasses.replace(cfg, incompressible=True, use_fbar=True)),
+        dict(cfg=dataclasses.replace(cfg, incompressible=True), colliders=(sphere,)),
+        dict(cfg=dataclasses.replace(cfg, surface_tension=0.07), colliders=(sphere,)),
+        dict(cfg=dataclasses.replace(cfg, incompressible=True), mass_floor=0.0),
+    ):
+        scene_ext = dataclasses.replace(scene_t, **change)
+        fast3d.check_supported(scene_ext)
+        assert not fast3d.uses_fused(scene_ext) and not fast3d.kernel_grid(scene_ext)
+        got = fast3d.substep(b_t, scene_ext, spec_t)
+        assert all(bool(torch.isfinite(getattr(got, n)).all()) for n in ("x0", "v0", "v2"))
     # The configs the slice now runs pass the check.
     for change in (
         dict(cfg=dataclasses.replace(cfg, use_fbar=True, pressure_mixing_ratio=0.5)),

@@ -278,9 +278,10 @@ def test_plastic_update_matches_jax(d):
     ("csf", "item 6"), ("projection", "item 6"), ("snow", "item 4"), ("sand", "item 4"),
 ])
 def test_unported_switches_raise(what, item):
-    """CSF and the projection raise, naming their ROADMAP item; snow and
-    sand (item 4, ported) run: one substep, finite, the material's id kept
-    (tests/test_torch_snow.py and _sand.py hold them to JAX)."""
+    """The switches ROADMAP queue 1 items 6 (CSF, the projection) and 4
+    (snow, sand) ported run on the general path: one substep, finite, the
+    material's id kept (tests/test_torch_projection.py, _surface_tension.py,
+    _snow.py and _sand.py hold them to JAX)."""
     p, scene, _ = _jax_case("apic_bspline")
     p_t, scene_t = _to_port(p, scene)
     if what == "csf":
@@ -294,9 +295,6 @@ def test_unported_switches_raise(what, item):
         p_t = dataclasses.replace(p_t, material=torch.full_like(p_t.material, mid))
         scene_t = dataclasses.replace(scene_t, materials_present=(mid,),
                                       params=dataclasses.replace(scene_t.params, **LAME))
-        got = stabilized.run(p_t, scene_t, 1)
-        assert all(bool(torch.isfinite(t).all()) for t in (got.x, got.v, got.F, got.Jp))
-        assert torch.equal(got.material, p_t.material)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        stabilized.run(p_t, scene_t, 1)
+    got = stabilized.run(p_t, scene_t, 1)
+    assert all(bool(torch.isfinite(t).all()) for t in (got.x, got.v, got.F, got.Jp))
+    assert torch.equal(got.material, p_t.material)
