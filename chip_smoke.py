@@ -216,7 +216,40 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                the 41^2 drop on both paths (rounds within 1500 substeps,
                sigma 0 static over 300); dam2d_obstacle and dam3d_obstacle
                with the projection, fast against general after 1 and 200
-               (100) substeps; then the {"incompressible": {...}} line.
+               (100) substeps; then the {"incompressible": {...}} line;
+37. main:general_determinism  the general path's fixed-order scatter
+               (csrc/scatter.cu): two 100-substep general runs bitwise
+               equal at the 37^2 float32 scene and at bench 1M (scatter
+               launches counted, no transfer kernel); every scatter of one
+               substep of the reference scene and of bench 1M through the
+               kernel bitwise the CPU's index_add_ on the same rows, and
+               rerun equal; card against CPU after 200 float32 substeps at
+               37^2 (v and C within CARRIED_FIXED); the scatter's kernel,
+               plan (stable sort), plain and index_add_ times by CUDA
+               events and its bound at bench 1M and slab 1M;
+38. main:checkpoint  2 frames uninterrupted against 1 frame, a checkpoint,
+               a fresh Simulation restoring it and 1 frame: bench 1M fast
+               (npz) and in 4 shards (a shard directory), the reference
+               scene's general path in float64 (2 x 200) and slab 1M /
+               128^3 on relfloor3d's fixed-order route: bitwise equal;
+               slab 1M on the fused branch: x, v, J within ROUTE_TOL
+               (p2g3d_grid's atomics), beside two uninterrupted runs'
+               difference; write and read seconds and bytes;
+39. main:two_axis  the dam3d CLI with --devices 2x2 (2 frames x 100,
+               --checkpoint to a shard directory, then --resume); slab 8M,
+               stab3d-8M and incomp8M on 2 x 2 windows against one device
+               (sharded_against_single, the two-axis state read in the
+               global order; incomp8M at INCOMP_SHARD_TOL with a stale
+               axis-1 halo column in the CG that must read above it);
+               launches of the 2 x 2 run alone; raw p2g3d_grid and g2p3d
+               on the windows against plain with times and bounds; ms per
+               substep of 2 x 2, 4 x 1 and one device at slab 8M,
+               interleaved, median of 3, and halo_sync over both axes;
+40. kernels:halo1  p2g3d(halo1=True) against p2g3d_plain(halo1=True) on
+               stab3d-8M's 2 x 2 windows and a ragged APIC case (per
+               channel, mass sum), fold_rows0_halo of it per shard against
+               raw p2g3d_grid, reruns bitwise equal, time and bound; then
+               the {"port13": {...}} line.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -238,7 +271,11 @@ p2g and g2p with main:plastic's modes under "snow2k_*" and "sand2k_*",
 p2g3d_grid and g2p3d under "sanddrop3d_*"; main:incompressible's inputs
 under "incomp1M_*" (p2g_fused, g2p), "incomp1Mx4_*" (p2g_grid, g2p),
 "incomp8M_*" (p2g3d with 7 channels, g2p3d) and "incomp8Mx4_*"
-(p2g3d_grid raw, g2p3d)); the last line is
+(p2g3d_grid raw, g2p3d); p2g3d's halo1 mode under "halo1_*",
+p2g3d_grid's raw mode and g2p3d on the two-axis windows under
+"win2_<cell>_*", and "scatter", the general path's fixed-order scatter
+(not a TPU kernel), with "equal_to_cpu", "rerun_bitwise_equal",
+"plan_ms" and its slab 1M numbers under "slab1M_*"); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1226,10 +1263,28 @@ def state_errors(b, ref, dim):
     return out
 
 
+def global_state(sim):
+    """A Simulation's state in the global bucket order: the two-axis
+    mesh's shard-major (s0, s1, l0, l1) reorder undone."""
+    from mpm_flip98a_tpu_torch.parallel import fast_domain3d
+
+    if getattr(sim, "device_grid", None):
+        return fast_domain3d.to_global(sim.state, sim.spec)
+    return sim.state
+
+
+def host_positions(b, dim):
+    from mpm_flip98a_tpu_torch.models import fast2d, fast3d
+
+    h = (fast3d if dim == 3 else fast2d).to_host(b)
+    return np.stack([h[f"x{a}"] for a in range(dim)], -1)
+
+
 def sharded_against_single(tag, p, scene, dev, shards, n_sub, card, vc_tol=KERNEL_REL_TOL):
     """`Simulation(devices=shards)` against `Simulation()` from the same
     particles: one substep slot for slot (the same particles in the same
-    order: both bucket by the global row), x to 1e-6, v and C to
+    order: both bucket by the global row, the two-axis state read in the
+    global order), x to 1e-6, v and C to
     KERNEL_REL_TOL of their largest entry and J to 1e-6 (x itself moves by
     less than its float32 ulp in one substep from rest, so v, C and J are
     what can see a wrong halo row or shard window); then n_sub - 1 more
@@ -1253,8 +1308,9 @@ def sharded_against_single(tag, p, scene, dev, shards, n_sub, card, vc_tol=KERNE
     t0 = time.perf_counter()
     sim.run(1, 1, gif=False, verbose=False, write_frames=False)
     ref.run(1, 1, gif=False, verbose=False, write_frames=False)
-    x1 = float(np.abs(sim.positions() - ref.positions()).max())
-    e1 = state_errors(sim.state, ref.state, scene.cfg.dim)
+    dim = scene.cfg.dim
+    x1 = float(np.abs(host_positions(global_state(sim), dim) - ref.positions()).max())
+    e1 = state_errors(global_state(sim), ref.state, dim)
     sim.run(1, n_sub - 1, gif=False, verbose=False, write_frames=False)
     ref.run(1, n_sub - 1, gif=False, verbose=False, write_frames=False)
     torch.cuda.synchronize()
@@ -1575,11 +1631,9 @@ def sharded3d_phases(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, l
                      timing):
     """Phases 23-25 (3D, one axis): main:sharded3d, kernels:sharded3d and
     the timing:sharded rows of slab 8M and stab3d-8M on 4 shards."""
-    from mpm_flip98a_tpu_torch.config import TransferKind
-    from mpm_flip98a_tpu_torch.models import fast3d, scenes
+    from mpm_flip98a_tpu_torch.models import scenes
     from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
     from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
-    from mpm_flip98a_tpu_torch.parallel import fast_domain3d
 
     shards = 4
     p8, scene8 = scenes.slab_3d(**SLAB_8M)
@@ -1601,57 +1655,9 @@ def sharded3d_phases(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, l
               f"sharded {tag}: {tk3.LAUNCHES} for 5 substeps")
 
         # ---- kernels:sharded3d: the raw mode against plain on this state
-        ctx = fast_domain3d.FastDomain3DCtx(sim.mesh, sim.spec.rows_per_shard0,
-                                            rows1=sim.spec.local_spec.rows1)
-        gspec, cfg = sim.spec.global_spec, scene.cfg
-        x0k = sim.state.x0 - ctx.x0_shift(dev, cfg)
-        fused = fast3d.uses_fused(scene)
-        mask, state = fast3d._shaped(sim.state.mask, gspec), None
-        if fused:
-            planes, counts, _, state = fast3d.transfer_inputs(sim.state, gspec, cfg, x0k)
-            m_plane = planes[16] * (torch.arange(gspec.capacity, device=dev)
-                                    < counts.view(*planes[0].shape[:2], 1))
-        else:
-            planes = fast3d.prepped_fields(sim.state, scene, gspec, x0k)
-            counts = fast3d.pencil_counts(sim.state)
-            m_plane = planes[tk3.n_prepped(scene.cfg.transfer == TransferKind.APIC, False) - 1]
-        kw = fast3d.p2g_args(scene, raw=True)
-        g2, dx = kw.pop("g2"), kw.pop("dx")
-        r1 = gspec.rows1
-        got_raw = tk3.p2g3d_grid(planes, counts, r1, g2, dx, raw=True, shards=shards, **kw)
-        want = tk3.p2g3d_raw_plain(planes, counts, g2, dx, shards=shards, **kw)
-        err_r, rel_r = scaled_errors(got_raw, want, axis=3)
-        del want
-        m_total = float(m_plane.double().sum())
-        pou = abs(float(got_raw[:, :, :, 6].double().sum()) - m_total) / m_total
-        err[f"p2g3d_grid_{key}"] = max(err_r)
-        say(f"[kernels:sharded3d {tag}] p2g3d_grid raw, {shards} shards, shape "
-            f"{tuple(got_raw.shape)}: max_abs_err per channel {['%.2e' % e for e in err_r]} "
-            f"scaled {['%.2e' % r for r in rel_r]} (tol {KERNEL_REL_TOL}); mass sum rel err "
-            f"{pou:.3e} (tol {POU_REL_TOL})  [{card}]")
-        check(max(rel_r) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid raw disagrees with plain")
-        check(pou <= POU_REL_TOL, f"{tag}: p2g3d_grid raw partition of unity")
-        name = f"p2g3d_grid_{key}"
-        kernel_ms[name] = cuda_ms(lambda: tk3.p2g3d_grid(planes, counts, r1, g2, dx, raw=True,
-                                                         shards=shards, **kw), reps=10)
-        plain_ms[name] = cuda_ms(lambda: tk3.p2g3d_raw_plain(planes, counts, g2, dx,
-                                                             shards=shards, **kw),
-                                 reps=2, warm=1)
-        live3 = int(counts.sum())
-        bounds[name] = bound(4 * (len(planes) * live3 + counts.numel() + got_raw.numel()),
-                             live3 * 27 * got_raw.shape[3] * 2)
-        halo = got_raw.clone()
-        timing[f"halo {tag}"] = cuda_ms(lambda: ctx.halo_sync(halo), reps=10)
-        say(f"[kernels:sharded3d {tag}] p2g3d_grid raw {kernel_ms[name]:.4f} ms (CUDA events, "
-            f"10 calls, one launch each), plain {plain_ms[name]:.4f} ms (2 calls), bound "
-            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}); halo_sync "
-            f"{timing[f'halo {tag}']:.4f} ms  [{card}]")
-        plan_line(f"kernels:sharded3d {tag}", key, got_raw.shape[3], g2, planes[0].shape[0], r1,
-                  card, shards)
-        del got_raw, halo, m_plane
-        compare_g2p3d_sharded(tag, planes, mask, counts, state, scene, gspec, ctx, err,
-                              kernel_ms, plain_ms, bounds, card)
-        del planes, counts, mask, state, x0k
+        timing[f"halo {tag}"] = windows_against_plain(
+            tag, sim, scene, f"p2g3d_grid_{key}", None, err, kernel_ms, plain_ms, bounds, card,
+            plan_key=key)
         timing[tag] = time_sharded(tag, sim, ref, 10, 3, card)
         say(f"[timing:sharded {tag}] halo_sync {timing[f'halo {tag}']:.4f} ms of the "
             f"{timing[tag][0]:.4f} ms substep  [{card}]")
@@ -2713,11 +2719,12 @@ class CGProbe:
         return [float(r) for r in self.resids]
 
 
-def halo_fault(tag, p, scene, dev, shards, card):
+def halo_fault(tag, p, scene, dev, shards, card, axis=0):
     """The shards-against-one-device gate of `sharded_against_single`
     with a planted fault: every halo refresh of the projection leaves
-    shard 1's lower halo row stale.  Returns v's and C's errors over their
-    max after one substep; the gate must see them."""
+    shard 1's lower halo row (`axis` 1: its lower axis-1 halo column, on
+    the two-axis mesh) stale.  Returns v's and C's errors over their max
+    after one substep; the gate must see them."""
     from mpm_flip98a_tpu_torch import driver
     from mpm_flip98a_tpu_torch.models import projection
 
@@ -2728,9 +2735,10 @@ def halo_fault(tag, p, scene, dev, shards, card):
 
     def faulty(*a, halo=None, **k):
         def stale(buf):
-            keep = buf[1, 0].clone()
+            at = (1, 0) if axis == 0 else (1, slice(None), 0)
+            keep = buf[at].clone()
             halo(buf)
-            buf[1, 0] = keep
+            buf[at] = keep
             return buf
 
         return real(*a, halo=None if halo is None else stale, **k)
@@ -2741,8 +2749,9 @@ def halo_fault(tag, p, scene, dev, shards, card):
     finally:
         projection.project_planes = real
     ref.run(1, 1, gif=False, verbose=False, write_frames=False)
-    e1 = state_errors(sim.state, ref.state, scene.cfg.dim)
-    say(f"[main:sharded {tag} halo fault] one stale halo row in the CG: after 1 substep v "
+    e1 = state_errors(global_state(sim), ref.state, scene.cfg.dim)
+    say(f"[main:sharded {tag} halo fault] one stale axis-{axis} halo row in the CG: after 1 "
+        f"substep v "
         f"{e1['v']:.3e} and C {e1['C']:.3e} of their max (the gate's tol "
         f"{INCOMP_SHARD_TOL})  [{card}]")
     check(min(e1["v"], e1["C"]) > INCOMP_SHARD_TOL,
@@ -3284,6 +3293,555 @@ def incompressible_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_m
     say(json.dumps({"incompressible": INCOMP}))
 
 
+# ---------------------------------------------------------------------------
+# The general path's fixed-order scatter, checkpoints, the two-axis mesh and
+# p2g3d's halo1 mode
+# ---------------------------------------------------------------------------
+
+SCATTER = {}                 # the kernels line's "scatter" entry
+# The general path in float32, card against CPU after 200 substeps at 37^2:
+# v and C within this share of their scale (1e-4 while the scatter added in
+# atomic order; with the fixed-order scatter the card read v 0.0 and C
+# 4.4e-7 on an H100 80GB HBM3 at 700 W; the rest of CARRIED's bounds as
+# they were).
+CARRIED_FIXED = dict(CARRIED, v=1e-6, C=1e-6)
+
+
+def scatter_calls(call):
+    """The (values, flat, nodes) of every `scatter_add` that `call()`
+    makes, in order."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    seen, real = [], scatter.scatter_add
+
+    def spy(values, flat, nodes, plan=None):
+        seen.append((values.clone(), flat.clone(), nodes))
+        return real(values, flat, nodes, plan)
+
+    scatter.scatter_add = spy
+    try:
+        call()
+    finally:
+        scatter.scatter_add = real
+    return seen
+
+
+def general_reruns(tag, p, scene, dev, n_sub, card):
+    """Two n_sub-substep general runs from the same particles on the card:
+    every field bitwise equal.  Returns (equal, scatter launches of one
+    run)."""
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    start = to_device(p, dev)
+    scatter.reset_launches()
+    reset_counts()
+    t0 = time.perf_counter()
+    a = stabilized.run(start, scene, n_sub)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_launch = scatter.LAUNCHES["scatter"]
+    b = stabilized.run(start, scene, n_sub)
+    differ = [f.name for f in dataclasses.fields(a) if not torch.equal(getattr(a, f.name),
+                                                                        getattr(b, f.name))]
+    say(f"[main:general_determinism {tag}] {p.n} particles, {a.x.dtype}: two {n_sub}-substep "
+        f"general runs on the card, fields not bitwise equal {differ}; {n_launch} scatter "
+        f"launches a run, transfer kernels {kernel_counts()}; {1e3 * secs / n_sub:.4f} "
+        f"ms/substep  [{card}]")
+    check(not differ, f"{tag}: two general runs on the card differ in {differ}")
+    check(n_launch >= n_sub and not any(kernel_counts().values()),
+          f"{tag}: the general path did not go through the scatter kernel alone")
+    return not differ, n_launch
+
+
+def scatter_against(tag, calls, card, timed=False):
+    """Each captured scatter through the kernel against the CPU's
+    `index_add_` on the same rows (bitwise) and the plain version on the
+    card; with `timed`, the largest call's kernel, plan (the stable sort),
+    plain and `index_add_` times by CUDA events and its bound."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    equal, worst = True, 0.0
+    for values, flat, nodes in calls:
+        got = scatter.scatter_add(values, flat, nodes)
+        cpu = scatter.scatter_add_plain(values.cpu(), flat.cpu(), nodes)
+        equal = equal and torch.equal(got.cpu(), cpu)
+        worst = max(worst, float((got - scatter.scatter_add_plain(values, flat, nodes))
+                                 .abs().max()))
+    rerun = all(torch.equal(scatter.scatter_add(*c), scatter.scatter_add(*c)) for c in calls)
+    say(f"[main:general_determinism {tag}] {len(calls)} scatters of one substep "
+        f"({[tuple(c[0].shape) for c in calls]} rows into {[c[2] for c in calls]} nodes): "
+        f"kernel bitwise equal to the CPU's index_add_ {equal}, reruns bitwise equal {rerun}, "
+        f"max |kernel - index_add_ on the card| {worst:.3e}  [{card}]")
+    check(equal, f"{tag}: the scatter kernel differs from the CPU's index_add_")
+    check(rerun, f"{tag}: scatter reruns differ")
+    SCATTER["equal_to_cpu"] = SCATTER.get("equal_to_cpu", True) and equal
+    SCATTER["rerun_bitwise_equal"] = SCATTER.get("rerun_bitwise_equal", True) and rerun
+    SCATTER["max_abs_err"] = max(SCATTER.get("max_abs_err", 0.0), worst)
+    if not timed:
+        return
+    values, flat, nodes = max(calls, key=lambda c: c[0].numel())
+    m, c = values.shape
+    plan = scatter.segment_plan(flat, nodes)
+    zero = torch.zeros((nodes, c), dtype=values.dtype, device=values.device)
+    t = {
+        "ms": cuda_ms(lambda: scatter.scatter_add(values, flat, nodes, plan)),
+        "plan_ms": cuda_ms(lambda: scatter.segment_plan(flat, nodes)),
+        # The stable sort on the int64 ids themselves, for the plan's int32 keys.
+        "sort_int64_ms": cuda_ms(lambda: torch.sort(flat, stable=True)),
+        "plain_ms": cuda_ms(lambda: scatter.scatter_add_plain(values, flat, nodes)),
+        "library_ms": cuda_ms(lambda: zero.index_add_(0, flat, values)),
+    }
+    # values and the int64 node ids read once, the sums written once; one
+    # add a row channel.
+    t["bound_ms"], t["bound_by"] = bound(values.element_size() * (m * c + nodes * c) + 8 * m,
+                                         m * c)
+    say(f"[timing:scatter {tag}] {m} rows x {c} channels into {nodes} nodes "
+        f"({values.dtype}): kernel {t['ms']:.4f} ms + the plan (int32 stable sort, "
+        f"bincount, cumsum) {t['plan_ms']:.4f} ms (the sort on int64 keys alone "
+        f"{t['sort_int64_ms']:.4f} ms), plain (index_add_ with its zeros) "
+        f"{t['plain_ms']:.4f} ms, "
+        f"index_add_ alone {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}) (CUDA events, 20 calls)  [{card}]")
+    SCATTER.update(t if tag == "bench1M" else {f"{tag}_{k}": v for k, v in t.items()})
+
+
+def general_determinism(dev, card):
+    """Phase 37, main:general_determinism: bitwise general reruns on the
+    card (the 37^2 float32 scene of tests/test_determinism.py, bench 1M),
+    the scatter kernel bitwise the CPU's index_add_ (the reference scene's
+    and bench 1M's substep inputs), card against CPU after 200 float32
+    substeps at 37^2, and the scatter's time against index_add_ at bench
+    1M and slab 1M."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import scenes, stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    cfg37 = MPMConfig(num_grids=37, dt=2e-5, num_particles_x=16, num_particles_y=32,
+                      dtype="float32")
+    p37, scene37 = scenes.dam_break_2d(cfg37, dtype=np.float32)
+    general_reruns("37^2", p37, scene37, dev, 100, card)
+    p_b, scene_b = scenes.dam_break_2d(MPMConfig(**BENCH, transfer=TransferKind.PIC),
+                                       dtype=np.float32)
+    _, SCATTER["launches"] = general_reruns("bench1M", p_b, scene_b, dev, 100, card)
+    p_ref, scene_ref = driver.SCENARIOS["dam2d"]()
+    ref_state = stabilized.run(to_device(p_ref, dev), scene_ref, 100)
+    scatter_against("reference", scatter_calls(lambda: stabilized.substep(ref_state,
+                                                                          scene_ref)), card)
+    b_state = to_device(p_b, dev)
+    scatter_against("bench1M", scatter_calls(lambda: stabilized.substep(b_state, scene_b)),
+                    card, timed=True)
+    del b_state, ref_state
+    p1, scene1 = scenes.slab_3d(**SLAB_1M)
+    s1 = to_device(p1, dev)
+    scatter_against("slab1M", scatter_calls(lambda: stabilized.substep(s1, scene1)), card,
+                    timed=True)
+    del s1, p1
+    torch.cuda.empty_cache()
+    # main:general_vs_cpu's float32 cell, with the scatter in the CPU's order.
+    p37s, scene37s = scenes.dam_break_2d(MPMConfig(**STAB37, transfer=TransferKind.PIC),
+                                         dtype=np.float32)
+    s37 = stabilized.run(to_device(p37s, dev), scene37s, 200)
+    got = card_vs_cpu("stab1M set at 37^2 after 200, fixed-order scatter", s37, scene37s,
+                      CARRIED_FIXED, card)
+    check(got["rerun_bitwise_equal"], "general_vs_cpu: two card substeps differ")
+    SCATTER["vs_cpu_37_v"], SCATTER["vs_cpu_37_C"] = got["cpu_err"]["v"], got["cpu_err"]["C"]
+
+
+def resume_gate(tag, p, scene, dev, n_sub, path_kw, ck_name, card, spread=False):
+    """2 frames of n_sub substeps uninterrupted against 1 frame, a
+    checkpoint, a fresh Simulation restoring it and 1 more frame: every
+    field bitwise equal; or (`spread`: the fused 3D path, whose
+    `p2g3d_grid` adds with shared-memory atomics) x, v and J within
+    ROUTE_TOL, the bound of two 3D runs whose sums differ in order alone,
+    printed beside the difference of two uninterrupted runs (which is
+    heavy-tailed: 1.8e-7 to 7.4e-6 across runs on an H100 80GB HBM3 at
+    700 W).  Returns the write and read seconds and the checkpoint's
+    bytes."""
+    from mpm_flip98a_tpu_torch import driver
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    try:
+        make = lambda: driver.Simulation(p, scene, out_dir=tmp, device=dev, **path_kw)
+        whole = make()
+        whole.run(2, n_sub, gif=False, verbose=False, write_frames=False)
+        first = make()
+        first.run(1, n_sub, gif=False, verbose=False, write_frames=False)
+        ck = os.path.join(tmp, ck_name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first.save_checkpoint(ck)
+        t_write = time.perf_counter() - t0
+        nbytes = (os.path.getsize(ck) if ck.endswith(".npz") else
+                  sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck)))
+        del first
+        resumed = make()
+        t0 = time.perf_counter()
+        resumed.restore_checkpoint(ck)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        resumed.run(1, n_sub, gif=False, verbose=False, write_frames=False)
+        diff = {f.name: float((getattr(resumed.state, f.name).double()
+                               - getattr(whole.state, f.name).double()).abs().max())
+                for f in dataclasses.fields(whole.state)}
+        equal = all(torch.equal(getattr(resumed.state, f.name), getattr(whole.state, f.name))
+                    for f in dataclasses.fields(whole.state))
+        line = (f"[main:checkpoint {tag}] {p.n} particles, 2 x {n_sub} substeps: resumed "
+                f"(frame {resumed.frame_count}, t {resumed.total_time:.6g} s) against "
+                f"uninterrupted: bitwise equal {equal}, max |diff| {max(diff.values()):.3e}; "
+                f"checkpoint {ck_name} {nbytes} bytes, write {t_write:.3f} s, read "
+                f"{t_read:.3f} s")
+        check(resumed.frame_count == 2, f"{tag}: resumed frame count {resumed.frame_count}")
+        if spread:
+            again = make()
+            again.run(2, n_sub, gif=False, verbose=False, write_frames=False)
+            gap = {f.name: float((getattr(again.state, f.name).double()
+                                  - getattr(whole.state, f.name).double()).abs().max())
+                   for f in dataclasses.fields(whole.state)}
+            groups = (("x", ("x0", "x1", "x2")), ("v", ("v0", "v1", "v2")), ("J", ("J",)))
+            worst = {key: max(diff[n] for n in names) for key, names in groups}
+            say(f"{line}; two uninterrupted runs differ by {max(gap.values()):.3e}; resumed "
+                f"x, v, J {worst} (tol {ROUTE_TOL}); per field resumed {diff}, rerun {gap}  "
+                f"[{card}]")
+            check(all(worst[key] <= tol for key, tol in ROUTE_TOL.items()),
+                  f"{tag}: the resumed run left the uninterrupted one: {worst}")
+        else:
+            say(f"{line}  [{card}]")
+            check(equal, f"{tag}: the resumed run differs from the uninterrupted one: {diff}")
+        return {"equal": equal, "max_abs_diff": max(diff.values()), "write_s": t_write,
+                "read_s": t_read, "bytes": nbytes}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checkpoint_phase(dev, card):
+    """Phase 38, main:checkpoint: resumed against uninterrupted runs on
+    the bench 1M fast path, the reference scene's general path (float64),
+    bench 1M in 4 shards with a directory checkpoint (bitwise) and slab
+    1M / 128^3 (within the spread of two uninterrupted runs)."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import scenes
+
+    out = {}
+    p_b, scene_b = scenes.dam_break_2d(MPMConfig(**BENCH, transfer=TransferKind.PIC),
+                                       dtype=np.float32)
+    out["bench1M"] = resume_gate("bench1M fast", p_b, scene_b, dev, 50, dict(path="fast"),
+                                 "bench.npz", card)
+    out["bench1Mx4"] = resume_gate("bench1M x 4 shards", p_b, scene_b, dev, 50,
+                                   dict(path="fast", devices=4), "bench_dir", card)
+    p_ref, scene_ref = driver.SCENARIOS["dam2d"]()
+    out["reference_general"] = resume_gate("reference general float64", p_ref, scene_ref, dev,
+                                           200, dict(path="general"), "general.npz", card)
+    p1, scene1 = scenes.slab_3d(**SLAB_1M)
+    out["slab1M"] = resume_gate("slab1M fast", p1, scene1, dev, 10, dict(path="fast"),
+                                "slab.npz", card, spread=True)
+    # The 3D fast path through the fixed-order `p2g3d` (the stabilized set
+    # with the relative floor: relfloor3d's route), bitwise, with the
+    # F-bar and mixing state (jbar_s, p_s, div_s) in the checkpoint.
+    rel = dataclasses.replace(scene1, cfg=dataclasses.replace(scene1.cfg, **STAB),
+                              mass_floor=0.0)
+    out["relfloor1M"] = resume_gate("slab1M relfloor3d route", p1, rel, dev, 10,
+                                    dict(path="fast"), "relfloor.npz", card)
+    torch.cuda.empty_cache()
+    return out
+
+
+def windows_against_plain(tag, sim, scene, p2g_key, g2p_key, err, kernel_ms, plain_ms, bounds,
+                          card, plan_key=None):
+    """Raw `p2g3d_grid` and `g2p3d` on a sharded Simulation's windows (the
+    one-axis slabs or the two-axis (L0, L1) windows, positions local to
+    each) against their plain versions: per channel, the raw mass sum,
+    times and bounds under `p2g_key` and `g2p_key` (None:
+    `compare_g2p3d_sharded`'s own), `p2g3d_grid`'s plan under `plan_key`.
+    Returns halo_sync's ms on the raw sums."""
+    from mpm_flip98a_tpu_torch.config import TransferKind
+    from mpm_flip98a_tpu_torch.models import fast3d
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+    from mpm_flip98a_tpu_torch.parallel import fast_domain3d
+
+    ctx = fast_domain3d.context(sim.spec, sim.mesh)
+    gspec, cfg, b = sim.spec.global_spec, scene.cfg, sim.state
+    x0s, x1s = fast3d._shifts(b, cfg, ctx)
+    x0k, x1k = b.x0 - x0s, None if x1s is None else b.x1 - x1s
+    mask, state = fast3d._shaped(b.mask, gspec), None
+    if fast3d.uses_fused(scene):
+        planes, counts, _, state = fast3d.transfer_inputs(b, gspec, cfg, x0k, x1k)
+        m_plane = planes[16] * (torch.arange(gspec.capacity, device=counts.device)
+                                < counts.view(*planes[0].shape[:2], 1))
+    else:
+        planes, counts = fast3d.prepped_fields(b, scene, gspec, x0k, x1k), fast3d.pencil_counts(b)
+        m_plane = planes[tk3.n_prepped(cfg.transfer == TransferKind.APIC, False) - 1]
+    del x0k, x1k
+    kw = fast3d.p2g_args(scene, raw=True)
+    g2, dx = kw.pop("g2"), kw.pop("dx")
+    n, r1 = sim.spec.n_shards, gspec.rows1
+    call = lambda: tk3.p2g3d_grid(planes, counts, r1, g2, dx, raw=True, shards=n, **kw)
+    got = call()
+    want = tk3.p2g3d_raw_plain(planes, counts, g2, dx, shards=n, **kw)
+    err_r, rel_r = scaled_errors(got, want, axis=3)
+    del want
+    m_total = float(m_plane.double().sum())
+    pou = abs(float(got[:, :, :, 6].double().sum()) - m_total) / m_total
+    del m_plane
+    err[p2g_key] = max(err_r)
+    say(f"[kernels:sharded3d {tag}] p2g3d_grid raw, {n} shards, shape {tuple(got.shape)}: "
+        f"max_abs_err per channel {['%.2e' % e for e in err_r]} scaled "
+        f"{['%.2e' % r for r in rel_r]} (tol {KERNEL_REL_TOL}); mass sum rel err {pou:.3e} "
+        f"(tol {POU_REL_TOL})  [{card}]")
+    check(max(rel_r) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid raw disagrees with plain")
+    check(pou <= POU_REL_TOL, f"{tag}: p2g3d_grid raw partition of unity")
+    kernel_ms[p2g_key] = cuda_ms(call, reps=10)
+    plain_ms[p2g_key] = cuda_ms(lambda: tk3.p2g3d_raw_plain(planes, counts, g2, dx, shards=n,
+                                                            **kw), reps=2, warm=1)
+    live = int(counts.sum())
+    bounds[p2g_key] = bound(4 * (len(planes) * live + counts.numel() + got.numel()),
+                            live * 27 * got.shape[3] * 2)
+    halo = got.clone()
+    halo_ms = cuda_ms(lambda: ctx.halo_sync(halo), reps=10)
+    say(f"[kernels:sharded3d {tag}] p2g3d_grid raw {kernel_ms[p2g_key]:.4f} ms (CUDA events, "
+        f"10 calls, one launch each), plain {plain_ms[p2g_key]:.4f} ms (2 calls), bound "
+        f"{bounds[p2g_key][0]:.4f} ms ({bounds[p2g_key][1]}); halo_sync {halo_ms:.4f} ms  "
+        f"[{card}]")
+    if plan_key:
+        plan_line(f"kernels:sharded3d {tag}", plan_key, got.shape[3], g2, planes[0].shape[0], r1,
+                  card, n)
+    del got, halo
+    compare_g2p3d_sharded(tag, planes, mask, counts, state, scene, gspec, ctx, err, kernel_ms,
+                          plain_ms, bounds, card, key=g2p_key)
+    return halo_ms
+
+
+def time_meshes(tag, sims, n_sub, reps, card):
+    """ms per substep of each Simulation in `sims` (name -> sim),
+    interleaved, median of `reps`; returns the medians."""
+    runs = {k: [] for k in sims}
+    for s in sims.values():
+        s.step_frame(2)
+    for _ in range(reps):
+        for k, s in sims.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.step_frame(n_sub)
+            torch.cuda.synchronize()
+            runs[k].append(1e3 * (time.perf_counter() - t0) / n_sub)
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    say(f"[timing:two_axis {tag}] ms/substep, median of {reps} x {n_sub}, interleaved: "
+        + "; ".join(f"{k} {med[k]:.4f} (runs {[round(t, 4) for t in runs[k]]})" for k in sims)
+        + f"  [{card}]")
+    return med, runs
+
+
+def two_axis_phase(dev, card, err, kernel_ms, plain_ms, bounds, launches):
+    """Phase 39, main:two_axis: the dam3d CLI on 2 x 2 windows with a
+    checkpoint and a resume; slab 8M, stab3d-8M and incomp8M on 2 x 2
+    against one device (with an axis-1 halo fault in the CG); the kernels
+    on the windows against plain; launches of the sharded run alone; ms per
+    substep of 2 x 2, 4 x 1 and one device."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import scenes
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_2x2_")
+    try:
+        base = ["--scenario", "dam3d", "--path", "fast", "--devices", "2x2", "--substeps", "100",
+                "--no-gif", "--device", str(dev)]
+        ck = os.path.join(tmp, "ck")
+        reset_counts()
+        t0 = time.perf_counter()
+        sim = driver.main(base + ["--frames", "2", "--out", tmp, "--checkpoint", ck])
+        torch.cuda.synchronize()
+        got = kernel_counts()
+        p3, _ = driver.SCENARIOS["dam3d"]()
+        say(f"[main:two_axis dam3d] CLI --devices 2x2, 2 frames x 100 substeps in "
+            f"{time.perf_counter() - t0:.2f} s: launches {got}, shards {sim.devices}, "
+            f"checkpoint {sorted(os.listdir(ck))}  [{card}]")
+        check(got["p2g3d_grid"] == got["g2p3d"] == 200 and got["p2g3d"] == 0,
+              f"dam3d 2x2: launches {got}")
+        launches["p2g3d_grid win2 cli"] = launches["g2p3d win2 cli"] = got["p2g3d_grid"]
+        host_checks("two_axis dam3d", sim, p3.n, float(p3.mass.to(torch.float32).double().sum()),
+                    card)
+        resumed = driver.main(base + ["--frames", "1", "--out", os.path.join(tmp, "r"),
+                                      "--resume", ck])
+        say(f"[main:two_axis dam3d] --resume: frame {resumed.frame_count}, t "
+            f"{resumed.total_time:.6g} s, {resumed.stats.substeps} substeps  [{card}]")
+        check(resumed.frame_count == 3, "dam3d 2x2: the resumed run's frame count")
+        host_checks("two_axis dam3d resumed", resumed, p3.n,
+                    float(p3.mass.to(torch.float32).double().sum()), card)
+        del sim, resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    p8, scene8 = scenes.slab_3d(**SLAB_8M)
+    scene_stab = dataclasses.replace(scene8, cfg=dataclasses.replace(scene8.cfg, **STAB))
+    scene_inc = incompressible(scene8)
+    for tag, scene, n_sub, tol in (("slab8M", scene8, 20, KERNEL_REL_TOL),
+                                   ("stab3d-8M", scene_stab, 2, KERNEL_REL_TOL),
+                                   ("incomp8M", scene_inc, 2, INCOMP_SHARD_TOL)):
+        sim, ref, _ = sharded_against_single(f"{tag} 2x2", p8, scene, dev, (2, 2), n_sub, card,
+                                             vc_tol=tol)
+        reset_counts()
+        sim.step_frame(3)
+        torch.cuda.synchronize()
+        got = kernel_counts()
+        say(f"[main:two_axis {tag}] the 2x2 run alone, 3 substeps: launches {got}  [{card}]")
+        check(got["p2g3d_grid"] == got["g2p3d"] == 3 and got["p2g3d"] == 0,
+              f"{tag} 2x2: launches {got}")
+        launches[f"p2g3d_grid win2 {tag}"] = launches[f"g2p3d win2 {tag}"] = 3
+        if tag == "incomp8M":
+            del sim, ref
+            torch.cuda.empty_cache()
+            out["incomp8M_axis1_fault"] = halo_fault("incomp8M 2x2", p8, scene, dev, (2, 2),
+                                                     card, axis=1)
+        elif tag == "slab8M":
+            out["halo_ms"] = windows_against_plain(
+                f"{tag} 2x2", sim, scene, f"p2g3d_grid_win2_{tag}", f"g2p3d_win2_{tag}", err,
+                kernel_ms, plain_ms, bounds, card)
+            four = driver.Simulation(p8, scene, path="fast", out_dir=tempfile.gettempdir(),
+                                     device=dev, devices=4)
+            out["ms"], out["runs"] = time_meshes(
+                tag, {"2x2": sim, "4x1": four, "one device": ref}, 10, 3, card)
+            del sim, ref, four
+        else:
+            windows_against_plain(f"{tag} 2x2", sim, scene, f"p2g3d_grid_win2_{tag}",
+                                  f"g2p3d_win2_{tag}", err, kernel_ms, plain_ms, bounds, card)
+            del sim, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def halo1_phase(dev, card, err, kernel_ms, plain_ms, bounds):
+    """Phase 40, kernels:halo1: `p2g3d(halo1=True)` against its plain
+    version on each of stab3d-8M's 2 x 2 windows after 2 substeps (one
+    call a window: the kernel takes a window's (L0, L1) pencils with
+    positions local to it, as JAX's per-shard call does) and on a ragged
+    APIC case (per channel, mass sum); `fold_rows0_halo` of it against raw
+    `p2g3d_grid`'s halo sums of the same window; reruns; time and bound at
+    the window's shape."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import fast3d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+    from mpm_flip98a_tpu_torch.parallel import fast_domain3d
+
+    p8, scene8 = scenes.slab_3d(**SLAB_8M)
+    scene = dataclasses.replace(scene8, cfg=dataclasses.replace(scene8.cfg, **STAB))
+    sim = driver.Simulation(p8, scene, path="fast", out_dir=tempfile.gettempdir(), device=dev,
+                            devices=(2, 2))
+    del p8
+    sim.step_frame(2)
+    ctx = fast_domain3d.context(sim.spec, sim.mesh)
+    gspec, cfg, b = sim.spec.global_spec, scene.cfg, sim.state
+    x0s, x1s = fast3d._shifts(b, cfg, ctx)
+    fields = fast3d.prepped_fields(b, scene, gspec, b.x0 - x0s, b.x1 - x1s)
+    counts = fast3d.pencil_counts(b)
+    n, l0, g1 = sim.spec.n_shards, sim.spec.rows_per_shard0, gspec.rows1
+    del sim, b, x0s, x1s
+    g2, dx = cfg.num_grids, float(cfg.dx)
+    kw = dict(apic=False, ext=True)
+    raw_all = tk3.p2g3d_grid(fields, counts, g1, g2, dx, raw=True, shards=n, **kw)
+    windows = [(f"stab3d-8M 2x2 window {s}",
+                tuple(f[s * l0 : (s + 1) * l0] for f in fields),
+                counts[s * l0 * g1 : (s + 1) * l0 * g1], g1, g2, dx, kw, raw_all[s])
+               for s in range(n)]
+    rf, _, rc, rg, rdx = ragged_prepped3d(dev, True, False, seed=13)
+    rkw = dict(apic=True, ext=False)
+    windows.append(("ragged apic7", rf, rc, rf[0].shape[1], rg, rdx, rkw,
+                    tk3.p2g3d_grid(rf, rc, rf[0].shape[1], rg, rdx, raw=True, **rkw)[0]))
+    worst = {"halo1": 0.0, "halo1_fold": 0.0, "halo1_ragged": 0.0, "halo1_ragged_fold": 0.0}
+    for tag, f, c, gg1, gg2, ddx, kk, raw in windows:
+        call = lambda: tk3.p2g3d(f, c, gg1, gg2, ddx, halo1=True, **kk)
+        got = call()
+        want = tk3.p2g3d_plain(f, c, gg1, gg2, ddx, halo1=True, **kk)
+        err_c, rel_c = scaled_errors(got, want, axis=3)
+        m_total = float(f[tk3.n_prepped(kk["apic"], False) - 1].double().sum())
+        pou = abs(float(got[:, :, :, 6].double().sum())
+                  - float(want[:, :, :, 6].double().sum())) / m_total
+        del want
+        err_f, rel_f = scaled_errors(tk3.fold_rows0_halo(got), raw, axis=2)
+        say(f"[kernels:halo1 {tag}] p2g3d halo1 {tuple(got.shape)}: max_abs_err per channel "
+            f"{['%.2e' % e for e in err_c]} scaled {['%.2e' % r for r in rel_c]} (tol "
+            f"{KERNEL_REL_TOL}); mass sum against plain {pou:.3e} of the slots' mass (tol "
+            f"{POU_REL_TOL}); fold_rows0_halo of it against raw p2g3d_grid "
+            f"{tuple(raw.shape)} scaled {['%.2e' % r for r in rel_f]}  [{card}]")
+        check(max(rel_c) <= KERNEL_REL_TOL, f"{tag}: p2g3d halo1 disagrees with plain")
+        check(pou <= POU_REL_TOL, f"{tag}: p2g3d halo1 mass sum")
+        check(max(rel_f) <= KERNEL_REL_TOL, f"{tag}: halo1's fold differs from raw p2g3d_grid")
+        key = "halo1_ragged" if tag.startswith("ragged") else "halo1"
+        worst[key] = max(worst[key], max(err_c))
+        worst[f"{key}_fold"] = max(worst[f"{key}_fold"], max(err_f))
+        if tag.endswith("window 0") or key == "halo1_ragged":
+            rerun_equal(f"kernels:halo1 {tag}", "p2g3d", call, card)
+        if tag.endswith("window 0"):
+            live = int(c.sum())
+            kernel_ms["p2g3d_halo1"] = cuda_ms(call, reps=10)
+            plain_ms["p2g3d_halo1"] = cuda_ms(
+                lambda: tk3.p2g3d_plain(f, c, gg1, gg2, ddx, halo1=True, **kk), reps=2, warm=1)
+            bounds["p2g3d_halo1"] = bound(4 * (len(f) * live + c.numel() + got.numel()),
+                                          live * 27 * got.shape[3] * 2)
+            say(f"[kernels:halo1 {tag}] p2g3d halo1 at the window's shape "
+                f"{kernel_ms['p2g3d_halo1']:.4f} ms (CUDA events, 10 calls), plain "
+                f"{plain_ms['p2g3d_halo1']:.4f} ms, bound {bounds['p2g3d_halo1'][0]:.4f} ms "
+                f"({bounds['p2g3d_halo1'][1]})  [{card}]")
+        del got
+        torch.cuda.empty_cache()
+    for k, v in worst.items():
+        err[f"p2g3d_{k}"] = v
+
+
+def port_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches):
+    """Phases 37-40's entries of the kernels line: p2g3d's halo1 mode
+    (kernels:halo1; no path of the system runs it), raw p2g3d_grid and
+    g2p3d on the two-axis mesh's (L0, L1) windows, and the scatter."""
+    by_name = {k["name"]: k for k in kernels}
+    by_name["p2g3d"].update({
+        "halo1_max_abs_err": err["p2g3d_halo1"], "halo1_ms": kernel_ms["p2g3d_halo1"],
+        "halo1_plain_ms": plain_ms["p2g3d_halo1"], "halo1_bound_ms": bounds["p2g3d_halo1"][0],
+        "halo1_bound_by": bounds["p2g3d_halo1"][1],
+        "halo1_ragged_max_abs_err": err["p2g3d_halo1_ragged"],
+        "halo1_fold_max_abs_err": err["p2g3d_halo1_fold"],
+        "halo1_rerun_bitwise_equal": RERUNS["p2g3d"]})
+    for name in ("p2g3d_grid", "g2p3d"):
+        for tag in ("slab8M", "stab3d-8M"):
+            key = f"{name}_win2_{tag}"
+            by_name[name].update({
+                f"win2_{tag}_launches": launches[f"{name} win2 {tag}"],
+                f"win2_{tag}_max_abs_err": err[key], f"win2_{tag}_ms": kernel_ms[key],
+                f"win2_{tag}_plain_ms": plain_ms[key], f"win2_{tag}_bound_ms": bounds[key][0],
+                f"win2_{tag}_bound_by": bounds[key][1]})
+        by_name[name]["win2_cli_launches"] = launches[f"{name} win2 cli"]
+    kernels.append({
+        "name": "scatter", "route": "cuda", "source": "mpm_flip98a_tpu_torch/csrc/scatter.cu",
+        "replaces": "mpm_flip98a_tpu/ops/transfer.py:70",
+        "replaces_kind": "XLA scatter-add of the general path (not a Pallas kernel)",
+        **{k: SCATTER[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+        **{k: v for k, v in SCATTER.items() if k not in kernels[0]},
+    })
+
+
+def port_phases(dev, card, err, kernel_ms, plain_ms, bounds, launches):
+    """Phases 37-40; returns the {"checkpoint": ..., "two_axis": ...}
+    readings."""
+    t0 = time.perf_counter()
+    general_determinism(dev, card)
+    say(f"[timing] main:general_determinism done in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    ck = checkpoint_phase(dev, card)
+    say(f"[timing] main:checkpoint done in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    two = two_axis_phase(dev, card, err, kernel_ms, plain_ms, bounds, launches)
+    say(f"[timing] main:two_axis done in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    halo1_phase(dev, card, err, kernel_ms, plain_ms, bounds)
+    say(f"[timing] kernels:halo1 done in {time.perf_counter() - t1:.1f} s; phases 37-40 "
+        f"{time.perf_counter() - t0:.1f} s")
+    readings = {"checkpoint": ck, "two_axis": two, "scatter": SCATTER}
+    say(json.dumps({"port13": readings}))
+    return readings
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -3781,6 +4339,10 @@ def main(argv=None) -> int:
     # ---- 36. CSF surface tension and the incompressible projection -----------------
     incompressible_phases(dev, card, io_ok, args.profile, err, kernel_ms, plain_ms, bounds,
                           launches)
+    say(f"[timing] incompressible phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 37-40. the fixed-order scatter, checkpoints, the two-axis mesh, halo1 --
+    port_phases(dev, card, err, kernel_ms, plain_ms, bounds, launches)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -3927,6 +4489,7 @@ def main(argv=None) -> int:
                     f"{tag}_ms": kernel_ms[key],
                     f"{tag}_plain_ms": plain_ms[key], f"{tag}_bound_ms": bounds[key][0],
                     f"{tag}_bound_by": bounds[key][1]})
+    port_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of the entry points (csrc/*.cu).  Without argtypes ctypes
 # passes every pointer as a 32-bit int.
 SIGNATURES = {
@@ -65,8 +65,8 @@ SIGNATURES = {
     # alpha, 1 - alpha, dt, stream
     "mpm_g2p3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
     # planes (29), pencil strides, counts, out, R0, R1, K, G1, G2, nch, apic,
-    # tent, dx, band, cap, stream
-    "mpm_p2g3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # tent, halo1, dx, band, cap, stream
+    "mpm_p2g3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # planes (29), pencil strides, counts, raw (or null), out, R0, L0, R1, K,
     # G2, nch, apic, tent, dx, dt g (3), floor, lo, hi, wall, dt beta,
     # collider floats, collider ints, colliders, kin, tcol, raw only, tile
@@ -78,6 +78,9 @@ SIGNATURES = {
     # planes (4), pencil strides, counts, grid, out, R0, L0, R1, K, G2, grid
     # channels, tent, dx, dinv, stream
     "mpm_g2p3d_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # values, order, starts, out, nodes, channels, stream
+    "mpm_segment_sum_f32": (_P, _P, _P, _P, _L, _I, _P),
+    "mpm_segment_sum_f64": (_P, _P, _P, _P, _L, _I, _P),
 }
 
 

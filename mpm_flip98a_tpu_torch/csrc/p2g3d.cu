@@ -5,7 +5,7 @@
 // mpm_flip98a_tpu/ops/pallas/transfer3d.py (def :349, pallas_call :408,
 // body _p2g3d_kernel :118 -> _p2g3d_chunk :193) in its prepped mode
 // (stress=None), PIC or APIC, 7 or 11 channels, B-spline or tent taps,
-// without halo1.  The TPU kernel scatters along z with one-hot MXU
+// with or without halo1.  The TPU kernel scatters along z with one-hot MXU
 // products, one program per batch of 8 source pencils, accumulating into
 // an output block that stays in VMEM across the sequential axis-1 grid
 // steps; GPU blocks run in no order, so here the block is turned round: it
@@ -19,16 +19,21 @@
 //   counts  (R0 * R1,) i32 packed pencil counts (active slots first)
 //   out     (R0, 5, G1, kNch, G2) f32: out[i0, t0, row] is bucket row i0's
 //           share of target rows (i0 + t0 - 1, row); channels [m v pure
-//           (3), m v forced (3), m (, V0 J, V0, V0 p, V0 div)].
+//           (3), m v forced (3), m (, V0 J, V0, V0 p, V0 div)].  halo1
+//           (transfer3d.py:366-372): (R0, 5, G1 + 4, kNch, G2), plane row
+//           q is target row q - 1, so the axis-1 taps on rows -1 and G1 ..
+//           G1 + 2 (a shard window's halo) are kept, not dropped.
 // Forced momentum gets w (m v_a + Q_a0 rdp0 + Q_a1 rdp1 + Q_a2 (c - gx2)
 // dx); pure momentum the same with P under APIC and w m v_a under PIC.  A
 // slot contributes only when its base row on both bucketed axes is within
 // +-1 of its pencil's; slots at or past min(count, K) are skipped; taps
-// whose axis-1 row is outside [0, G1) or whose z column is outside [0, G2)
-// are dropped.
+// whose axis-1 row is outside [0, G1) (without halo1) or whose z column is
+// outside [0, G2) are dropped.
 //
 // Design: a fixed-order gather (taps.cuh, namespace gather), no float
-// atomics.  One block of 256 threads per (i0, target axis-1 row, z band);
+// atomics.  One block of 256 threads per (i0, target axis-1 row, z band)
+// (halo1: the G1 + 4 rows -1 .. G1 + 2, the edge rows pulling from the
+// source pencils that exist);
 // the host's planner (ops/cuda/transfer3d.py, plan_p2g3d) picks the band
 // (all of G2 up to 512 columns) and the staging window `cap`.  The block
 // owns out[i0, :, row, :, band] outright.
@@ -242,7 +247,7 @@ __device__ __forceinline__ void visit(const float4* rec, float jz, float dx,
 template <int kNch, bool kTent, bool kApic>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict__ out,
-             int R1, int K, int G1, int G2, int band, int cap, float dx) {
+             int R1, int K, int G1out, int row_off, int G2, int band, int cap, float dx) {
   using R = Rec3d<kNch, kApic>;
   extern __shared__ float4 smem[];
   float4* stage = smem;                                              // [cap][kVec]
@@ -254,8 +259,10 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
   __shared__ int tmp[kWarps];
   __shared__ int pre[kNT + 1];  // the source pencils' live slots, running sum
 
-  const int i0 = blockIdx.x / G1;
-  const int row = blockIdx.x - i0 * G1;
+  // Output plane row q holds target axis-1 row q + row_off.
+  const int i0 = blockIdx.x / G1out;
+  const int q = blockIdx.x - i0 * G1out;
+  const int row = q + row_off;
   const int zb = blockIdx.y * band;
   const int bw = min(band, G2 - zb);
   if (threadIdx.x < kNT) {
@@ -282,8 +289,8 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
     k = v - pre[t1];
   };
   auto pencil_of = [&](int t1) { return static_cast<long long>(i0) * R1 + row + 1 - t1; };
-  const long long ts = static_cast<long long>(G1) * kNch * G2;  // between axis-0 targets
-  float* obase = out + (static_cast<long long>(i0) * kNT * G1 + row) * kNch * G2;
+  const long long ts = static_cast<long long>(G1out) * kNch * G2;  // between axis-0 targets
+  float* obase = out + (static_cast<long long>(i0) * kNT * G1out + q) * kNch * G2;
   int lo, hi;
   gather::warp_range<kThreads>(nsrc, lo, hi);
   const int lane = threadIdx.x & 31;
@@ -440,8 +447,8 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
 }
 
 template <int kNch, bool kTent, bool kApic>
-int launch(const taps::Prepped& in, const int* counts, float* out, int R0, int R1, int K, int G1,
-           int G2, int band, int cap, float dx, cudaStream_t stream) {
+int launch(const taps::Prepped& in, const int* counts, float* out, int R0, int R1, int K,
+           int G1out, int row_off, int G2, int band, int cap, float dx, cudaStream_t stream) {
   using Rc = Rec3d<kNch, kApic>;
   const size_t smem = sizeof(float4) * Rc::kVec * static_cast<size_t>(cap) +
                       sizeof(int) * ((band + 2) * static_cast<size_t>(kWarps) + band + 3 +
@@ -456,27 +463,30 @@ int launch(const taps::Prepped& in, const int* counts, float* out, int R0, int R
   err = cudaFuncSetAttribute(p2g3d_kernel<kNch, kTent, kApic>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 blocks(static_cast<unsigned>(R0) * G1, (G2 + band - 1) / band);
-  p2g3d_kernel<kNch, kTent, kApic><<<blocks, kThreads, smem, stream>>>(in, counts, out, R1, K,
-                                                                        G1, G2, band, cap, dx);
+  const dim3 blocks(static_cast<unsigned>(R0) * G1out, (G2 + band - 1) / band);
+  p2g3d_kernel<kNch, kTent, kApic><<<blocks, kThreads, smem, stream>>>(
+      in, counts, out, R1, K, G1out, row_off, G2, band, cap, dx);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kNch>
 int launch_nch(const taps::Prepped& in, const int* counts, float* out, int R0, int R1, int K,
-               int G1, int G2, int band, int cap, float dx, int apic, int tent, cudaStream_t s) {
+               int G1out, int row_off, int G2, int band, int cap, float dx, int apic, int tent,
+               cudaStream_t s) {
+  const auto go = [&](auto fn) {
+    return fn(in, counts, out, R0, R1, K, G1out, row_off, G2, band, cap, dx, s);
+  };
   if (tent) {
-    return apic ? launch<kNch, true, true>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, s)
-                : launch<kNch, true, false>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, s);
+    return apic ? go(launch<kNch, true, true>) : go(launch<kNch, true, false>);
   }
-  return apic ? launch<kNch, false, true>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, s)
-              : launch<kNch, false, false>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, s);
+  return apic ? go(launch<kNch, false, true>) : go(launch<kNch, false, false>);
 }
 
 }  // namespace
 
 // planes / strides: 29 entries in the order of taps.cuh (null where the
-// mode has no such plane).  nch: 7 or 11; apic, tent: 0/1; band, cap: the
+// mode has no such plane).  nch: 7 or 11; apic, tent, halo1: 0/1 (halo1:
+// G1 + 4 output rows, row q = target row q - 1); band, cap: the
 // plan (transfer3d.py's plan_p2g3d: z columns a block owns, slots staged
 // at a time).  Returns a cudaError_t as int (0 on success):
 // cudaErrorInvalidValue for another nch, a plan out of range or one whose
@@ -484,17 +494,20 @@ int launch_nch(const taps::Prepped& in, const int* counts, float* out, int R0, i
 // or the launch's error.
 extern "C" int mpm_p2g3d(const void* const* planes, const long long* strides,
                          const int* counts, float* out, int R0, int R1, int K,
-                         int G1, int G2, int nch, int apic, int tent, float dx, int band,
-                         int cap, void* stream) {
+                         int G1, int G2, int nch, int apic, int tent, int halo1, float dx,
+                         int band, int cap, void* stream) {
   if (nch != 7 && nch != 11) return static_cast<int>(cudaErrorInvalidValue);
   if (R0 <= 0 || G1 <= 0 || G2 <= 0) return static_cast<int>(cudaGetLastError());
   if (K < 0 || band <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(R0) * G1 > 0x7fffffffLL) {
+  const int g1out = halo1 ? G1 + kNT - 1 : G1;
+  const int row_off = halo1 ? -1 : 0;
+  if (static_cast<long long>(R0) * g1out > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const taps::Prepped in = taps::prepped_from(planes, strides);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return nch == 7
-             ? launch_nch<7>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, apic, tent, s)
-             : launch_nch<11>(in, counts, out, R0, R1, K, G1, G2, band, cap, dx, apic, tent, s);
+  return nch == 7 ? launch_nch<7>(in, counts, out, R0, R1, K, g1out, row_off, G2, band, cap, dx,
+                                  apic, tent, s)
+                  : launch_nch<11>(in, counts, out, R0, R1, K, g1out, row_off, G2, band, cap,
+                                   dx, apic, tent, s);
 }

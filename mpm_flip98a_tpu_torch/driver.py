@@ -19,10 +19,19 @@ Kinematic colliders see the simulation time: `step_frame` passes
 `total_time` as the run's t0 when one of them moves (driver.py:233-250).
 `--devices N` runs the fast path's slab-sharded form (driver.py:138-177):
 N slab shards of the grid's axis 0 on that one device
-(`parallel.SlabMesh`), `parallel/fast_domain` in 2D and the one-axis
-`parallel/fast_domain3d` in 3D; the general path takes one device only
-and raises ValueError otherwise, as in JAX.  The two-axis `N0xN1` mesh
-and checkpoints raise NotImplementedError naming their ROADMAP item.
+(`parallel.SlabMesh`), `parallel/fast_domain` in 2D and
+`parallel/fast_domain3d` in 3D, where `N0xN1` is the two-axis mesh (N0
+slabs x N1 pencil columns; 3D only, ValueError in 2D as in JAX); the
+general path takes one device only and raises ValueError otherwise, as in
+JAX.
+
+Checkpoints (driver.py:402-484): `--checkpoint PATH` writes the state at
+the end, `--checkpoint-every N` writes `<frame dir>/restart.npz` every N
+frames and `--resume PATH` restores one before the run, frame numbering
+and simulation time continuing (`utils/checkpoint.py`).  A path ending in
+`.npz` is one npz file, which either package reads; any other path is a
+directory of one npz per shard (JAX writes Orbax there, which the port
+cannot read).
 
 CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d --frames 1 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
@@ -41,11 +50,16 @@ CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d --frames 1 --no-gif
           --devices 4 --frames 2 --substeps 100 --no-gif
       python -m mpm_flip98a_tpu_torch --scenario dam2d_incompressible \
           --path fast --frames 2 --substeps 200 --no-gif
+      python -m mpm_flip98a_tpu_torch --scenario dam3d --path fast \
+          --devices 2x2 --frames 2 --substeps 100 --no-gif --checkpoint ck
+      python -m mpm_flip98a_tpu_torch --scenario dam3d --path fast \
+          --devices 2x2 --frames 1 --substeps 100 --no-gif --resume ck
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -56,6 +70,7 @@ from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
 from mpm_flip98a_tpu_torch.models import colliders, fast2d, fast3d, scenes, stabilized
 from mpm_flip98a_tpu_torch.parallel import SlabMesh, fast_domain, fast_domain3d
 from mpm_flip98a_tpu_torch.state import to_device
+from mpm_flip98a_tpu_torch.utils import checkpoint as ckpt
 from mpm_flip98a_tpu_torch.utils import io_vtk, native_io, render
 from mpm_flip98a_tpu_torch.utils.progress import create_file_paths, progress_bar
 from mpm_flip98a_tpu_torch.utils.timing import Timers, ThroughputMeter
@@ -110,6 +125,21 @@ def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
+def flip_sweep_scenes(alphas=(0.0, 0.5, 0.95, 0.98, 1.0)):
+    """BASELINE.json configs[1]: the PIC/FLIP/APIC blend sweep on the dam
+    break (driver.py:85-99).  alpha = 0 keeps the APIC affine transfer;
+    alpha > 0 pairs FLIP with the PIC scatter."""
+    return {
+        f"alpha={a}": scenes.dam_break_2d(
+            dataclasses.replace(
+                MPMConfig(), flip_blend=a,
+                transfer=TransferKind.APIC if a == 0.0 else TransferKind.PIC,
+            )
+        )
+        for a in alphas
+    }
+
+
 def parse_devices(s: str):
     """`--devices`: "N" -> N slab shards, "N0xN1" -> (N0, N1), the two-axis
     3D mesh (driver.py:499-505)."""
@@ -125,7 +155,7 @@ class Simulation:
     `path` "general" steps the `Particles` with `stabilized.run`; "fast"
     buckets them for `fast2d` / `fast3d`.  On the fast path `devices`
     N > 1 runs N slab shards on that device; (N0, N1) is the two-axis 3D
-    mesh, not ported."""
+    mesh (N0 N1 shards)."""
 
     def __init__(
         self,
@@ -143,11 +173,14 @@ class Simulation:
             raise ValueError(f"path must be 'general' or 'fast', got {path!r}")
         if path == "general" and devices != 1:
             raise ValueError("--devices > 1 requires --path fast")
+        # (n0, n1): the two-axis 3D mesh, slabs x pencil columns.
+        self.device_grid = None
         if isinstance(devices, tuple):
             if scene.cfg.dim != 3:
                 raise ValueError("--devices N0xN1 (two-axis mesh) is 3D-only; "
                                  "2D shards over a 1D slab mesh")
-            devices = fast_domain3d.as_shards(devices)   # raises for N1 > 1
+            self.device_grid = fast_domain3d.as_shards(devices)
+            devices = self.device_grid[0] * self.device_grid[1]
         self.devices = devices
         # Dimension routing: pencil buckets in 3D, row buckets in 2D.
         self._fast = fast3d if scene.cfg.dim == 3 else fast2d
@@ -180,9 +213,12 @@ class Simulation:
         elif devices > 1:
             # The slab-sharded path (driver.py:138-177) on `devices` shards.
             dom = fast_domain3d if self.cfg.dim == 3 else fast_domain
-            self.mesh = SlabMesh(devices, self.device)
-            spec_cls = dom.FastDomain3DSpec if self.cfg.dim == 3 else dom.FastDomainSpec
-            self.spec = spec_cls.for_particles(self.cfg, devices, particles)
+            n0, n1 = self.device_grid or (devices, 1)
+            self.mesh = SlabMesh(n0, self.device, n1)
+            if self.cfg.dim == 3:
+                self.spec = dom.FastDomain3DSpec.for_particles(self.cfg, (n0, n1), particles)
+            else:
+                self.spec = dom.FastDomainSpec.for_particles(self.cfg, devices, particles)
             self.state = dom.distribute(particles, self.cfg, self.spec, self.mesh)
             self._sharded_run = dom.make_run(scene, self.spec, self.mesh)
         else:
@@ -322,6 +358,48 @@ class Simulation:
         self._last_respec_frame = self.frame_count
         self._host_cache = None  # layout changed (values are identical)
 
+    # -- checkpoints -----------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        """The state and the run clock (driver.py:402-416): a path ending in
+        `.npz` is one npz (`checkpoint.save`), anything else a directory of
+        one npz per shard (`checkpoint.save_sharded`)."""
+        meta = {"total_time": self.total_time, "frame_count": self.frame_count,
+                "path": self.path}
+        if path.endswith(".npz"):
+            ckpt.save(path, self.state, meta=meta)
+        else:
+            ckpt.save_sharded(path, self.state, meta=meta)
+
+    def restore_checkpoint(self, path: str) -> None:
+        """Restore a checkpoint of this scenario's layout (driver.py:
+        418-455).  A shard directory restores onto the running state's
+        layout and device; an npz loads onto the device, dtypes kept (a
+        sharded npz is the mesh's whole shard-major state, so it needs no
+        re-placement).  A single-device fast path takes the restored slot
+        capacity, so a checkpoint written after `_maybe_respec` resumes."""
+        if not path.endswith(".npz") and os.path.isdir(path):
+            self.state = ckpt.load_sharded(path, self.state)
+            meta = ckpt.load_sharded_meta(path)
+        else:
+            state = ckpt.load(path, type(self.state), self.device)
+            if self.devices > 1:
+                for f in dataclasses.fields(state):
+                    got, want = getattr(state, f.name), getattr(self.state, f.name)
+                    if got.shape != want.shape:
+                        raise ValueError(f"checkpoint field {f.name} has shape "
+                                         f"{tuple(got.shape)}, the mesh's state "
+                                         f"{tuple(want.shape)}: another layout")
+            self.state = state
+            meta = ckpt.load_meta(path)
+        self.total_time = meta["total_time"]
+        self.frame_count = meta["frame_count"]
+        if self.path == "fast" and self.devices == 1:
+            k = self.state.x0.shape[-1]
+            if k != self.spec.capacity:
+                self.spec = dataclasses.replace(self.spec, capacity=k)
+        self._host_cache = None   # a restored state invalidates the frame cache
+
     def _submit_io(self, fn) -> None:
         import concurrent.futures as cf
 
@@ -356,9 +434,12 @@ class Simulation:
         gif: bool = True,
         verbose: bool = True,
         write_frames: bool = True,
+        checkpoint_every: Optional[int] = None,
     ) -> None:
         """The reference outer loop (exec.py:20-29) + Run Time print (:31).
-        `write_frames=False` skips the per-frame PNG/VTK output."""
+        `write_frames=False` skips the per-frame PNG/VTK output;
+        `checkpoint_every` frames writes a rolling restart point,
+        `<frame dir>/restart.npz` (driver.py:482-484)."""
         n_frames = n_frames or self.cfg.num_frames
         t_begin = time.time()
         sim_total = n_frames * (substeps_per_frame or self.cfg.substeps_per_frame) * self.cfg.dt
@@ -373,6 +454,8 @@ class Simulation:
             if write_frames:
                 self.post_process(keep_frame=gif)
             self._maybe_respec()
+            if checkpoint_every and self.frame_count % checkpoint_every == 0:
+                self.save_checkpoint(f"{self.frame_dir}/restart.npz")
         with self.timers.scope("post_process"):
             self.drain_io()  # async writes must land inside Run Time
         if gif and self.frames:
@@ -398,14 +481,16 @@ def main(argv=None) -> Simulation:
     ap.add_argument(
         "--devices", type=parse_devices, default=1,
         help="shard the fast path into N slabs on the one device (slab "
-        "decomposition; requires --path fast); N0xN1 (the two-axis 3D mesh) "
-        "is not ported",
+        "decomposition; requires --path fast), or N0xN1 for the two-axis 3D "
+        "mesh (slabs x pencil columns)",
     )
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--substeps", type=int, default=None)
     ap.add_argument("--out", default="out")
-    ap.add_argument("--resume", default=None, help="checkpoint to restore")
-    ap.add_argument("--checkpoint", default=None, help="write checkpoint at end")
+    ap.add_argument("--resume", default=None, help="checkpoint to restore (npz or shard "
+                    "directory)")
+    ap.add_argument("--checkpoint", default=None, help="write checkpoint at end (a path "
+                    "ending in .npz: one file; else a directory of one npz per shard)")
     ap.add_argument(
         "--checkpoint-every", type=int, default=None, help="rolling restart every N frames"
     )
@@ -420,16 +505,19 @@ def main(argv=None) -> Simulation:
 
     if args.scenario in UNPORTED_SCENARIOS:
         raise _unported(f"scenario {args.scenario!r}", UNPORTED_SCENARIOS[args.scenario])
-    if args.resume or args.checkpoint or args.checkpoint_every:
-        raise _unported("checkpointing", 2)
     p, scene = SCENARIOS[args.scenario]()
     sim = Simulation(
         p, scene, path=args.path, out_dir=args.out, io_async=not args.sync_io,
         device=args.device, devices=args.devices,
     )
+    if args.resume:
+        sim.restore_checkpoint(args.resume)
     sim.run(
         n_frames=args.frames,
         substeps_per_frame=args.substeps,
         gif=not args.no_gif,
+        checkpoint_every=args.checkpoint_every,
     )
+    if args.checkpoint:
+        sim.save_checkpoint(args.checkpoint)
     return sim

@@ -35,13 +35,15 @@ rebucket happens before the first substep whose state fails the margin
 check on either bucketed axis); in eager PyTorch that costs one
 device-to-host read of the check per substep, counted in `RunStats`.
 
-`substep(..., domain=ctx)` runs either branch on n slab shards of L0
-axis-0 rows (parallel/fast_domain3d.py, one axis; fast3d.py:518-530,
-631-644, 776-784): positions shifted by the slab origin for the kernels,
-`p2g3d_grid`'s raw halo sums, the halo exchange on axis 0, `_grid_update`
-on the halo planes with global row indices (CSF and the projection
-refresh the halo planes with `halo_gather_only`), and `g2p3d` on the
-axis-0-padded grid of each shard.
+`substep(..., domain=ctx)` runs either branch on the shards of
+parallel/fast_domain3d.py (fast3d.py:518-544, 631-644, 776-784): n0 slabs
+of L0 axis-0 rows, or n0 x n1 windows of (L0, L1) pencils: positions
+shifted by the window's origin for the kernels, `p2g3d_grid`'s raw halo
+sums, the halo exchange (axis 0, then axis 1), `_grid_update` on the halo
+planes with each shard's global row indices on both axes (CSF and the
+projection refresh the halo planes with `halo_gather_only` and count the
+nodes each shard owns on both axes), and `g2p3d` on each shard's padded
+window.
 """
 
 from __future__ import annotations
@@ -316,16 +318,17 @@ def _shaped(a: torch.Tensor, spec: FastSpec3D) -> torch.Tensor:
     return a.reshape(spec.rows0, spec.rows1, spec.capacity)
 
 
-def _gxs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig, x0k=None):
+def _gxs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig, x0k=None, x1k=None):
     """The transfer coordinates gx = x / dx + PAD as (R0, R1, K) planes.
 
     P2G and G2P read this one precomputed gx (fast3d.py:551-560): computed
     in each kernel, FMA rounding could put a knife-edge particle into
-    different cells in the two transfers.  `x0k` replaces x0: on slab
-    shards, x0 less the slab origin (fast3d.py:518-527)."""
+    different cells in the two transfers.  `x0k` / `x1k` replace x0 / x1:
+    on shards, x less the window's origin (fast3d.py:518-544)."""
     invf = _f32(cfg.inv_dx)
     x0 = b.x0 if x0k is None else x0k
-    return tuple(_shaped(x * invf + PAD, spec) for x in (x0, b.x1, b.x2))
+    x1 = b.x1 if x1k is None else x1k
+    return tuple(_shaped(x * invf + PAD, spec) for x in (x0, x1, b.x2))
 
 
 def pencil_counts(b: FluidBuckets3D) -> torch.Tensor:
@@ -333,30 +336,31 @@ def pencil_counts(b: FluidBuckets3D) -> torch.Tensor:
     return (b.mask > 0).sum(dim=1).to(torch.int32)
 
 
-def transfer_inputs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig, x0k=None):
+def transfer_inputs(b: FluidBuckets3D, spec: FastSpec3D, cfg: MPMConfig, x0k=None, x1k=None):
     """(planes, counts, mask, state) for the fused branch's kernels, as
     (R0, R1, K) views: the 18 P2G planes [gx (3), v (3), C00..C22, J, mass,
     vol0], the pencil counts (R0 * R1,), the mask, and G2P's state [v (3),
-    J, x (3)], x0 replaced by `x0k` on slab shards."""
+    J, x (3)], x0 and x1 replaced by `x0k` and `x1k` on shards."""
     shaped = lambda a: _shaped(a, spec)
     planes = (
-        *_gxs(b, spec, cfg, x0k),
+        *_gxs(b, spec, cfg, x0k, x1k),
         *(shaped(getattr(b, n)) for n in ("v0", "v1", "v2")),
         *(shaped(getattr(b, f"C{a}{c}")) for a in range(3) for c in range(3)),
         shaped(b.J), shaped(b.mass), shaped(b.vol0),
     )
     x0 = b.x0 if x0k is None else x0k
+    x1 = b.x1 if x1k is None else x1k
     state = (*(shaped(getattr(b, n)) for n in ("v0", "v1", "v2", "J")),
-             shaped(x0), shaped(b.x1), shaped(b.x2))
+             shaped(x0), shaped(x1), shaped(b.x2))
     return planes, pencil_counts(b), shaped(b.mask), state
 
 
 def _sharded_grid(fields, counts, scene: Scene, spec: FastSpec3D, plain: bool, domain, t=None):
-    """`p2g3d_grid`'s raw halo sums on the slab shards, the axis-0 halo
-    exchange, then `_grid_update` at time `t` on the (n, L0 + 4, R1 + 4)
-    halo planes with global axis-0 rows and axis-1 plane rows j - 1
-    (fast3d.py:457-466, 776-784) -> each shard's G2P grid (n, L0 + 4,
-    R1 + 4, 6 or 9, G2)."""
+    """`p2g3d_grid`'s raw halo sums on the shards' windows, the halo
+    exchange, then `_grid_update` at time `t` on the (n, L0 + 4, L1 + 4)
+    halo planes with each shard's global rows on both axes (fast3d.py:
+    457-466, 776-784) -> each shard's G2P grid (n, L0 + 4, L1 + 4, 6 or 9,
+    G2)."""
     kw = dict(shards=domain.n, **p2g_args(scene, raw=True))
     if plain:
         raw = tk3.p2g3d_raw_plain(fields, counts, **kw)
@@ -364,20 +368,30 @@ def _sharded_grid(fields, counts, scene: Scene, spec: FastSpec3D, plain: bool, d
         raw = tk3.p2g3d_grid(fields, counts, spec.rows1, raw=True, **kw)
     dev = counts.device
     return _grid_update(domain.halo_sync(raw), scene, domain.row_index0(dev),
-                        torch.arange(spec.rows1 + tk3.NT - 1, device=dev) - 1, t, domain)
+                        domain.row_index1(dev), t, domain)
+
+
+def _shifts(b: FluidBuckets3D, cfg: MPMConfig, domain):
+    """The shard windows' (x0, x1) origins per pencil, None where the axis
+    is not sharded."""
+    if domain is None:
+        return None, None
+    return domain.x0_shift(b.device, cfg), domain.x1_shift(b.device, cfg)
 
 
 def _fused_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: bool, domain=None,
                    t=None):
-    """The fused branch (fast3d.py:592-644 and `_finish_substep`).  On slab
-    shards the kernels see x0 less the slab origin, and the origin is added
-    back to the advected x0 (dead slots: (0 - a) + a == 0)."""
+    """The fused branch (fast3d.py:592-644 and `_finish_substep`).  On
+    shards the kernels see x0 (and, on two axes, x1) less the window's
+    origin, and the origin is added back to the advected x (dead slots:
+    (0 - a) + a == 0)."""
     cfg = scene.cfg
     r0, r1 = spec.rows0, spec.rows1
     g2p = tk3.g2p3d_plain if plain else tk3.g2p3d
-    x0_shift = None if domain is None else domain.x0_shift(b.device, cfg)
+    x0_shift, x1_shift = _shifts(b, cfg, domain)
     planes, counts, mask, state = transfer_inputs(
-        b, spec, cfg, None if domain is None else b.x0 - x0_shift)
+        b, spec, cfg, None if x0_shift is None else b.x0 - x0_shift,
+        None if x1_shift is None else b.x1 - x1_shift)
     if domain is None:
         p2g = tk3.p2g3d_grid_plain if plain else tk3.p2g3d_grid
         grid_pad = p2g(planes, counts, r1, **p2g_args(scene), tcol=t)
@@ -389,8 +403,9 @@ def _fused_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: boo
     ).view(r0 * r1, tk3.G2P_UPD, spec.capacity)
     return dataclasses.replace(
         b,
-        x0=out[:, 0] if domain is None else out[:, 0] + x0_shift,
-        x1=out[:, 1], x2=out[:, 2],
+        x0=out[:, 0] if x0_shift is None else out[:, 0] + x0_shift,
+        x1=out[:, 1] if x1_shift is None else out[:, 1] + x1_shift,
+        x2=out[:, 2],
         v0=out[:, 3], v1=out[:, 4], v2=out[:, 5],
         C00=out[:, 6], C01=out[:, 7], C02=out[:, 8],
         C10=out[:, 9], C11=out[:, 10], C12=out[:, 11],
@@ -566,11 +581,12 @@ def _stress(b: FluidBuckets3D, scene: Scene):
     return tau, p_point_out, div_lag
 
 
-def prepped_fields(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, x0k=None):
+def prepped_fields(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, x0k=None, x1k=None):
     """The prepped P2G planes (fast3d.py:746-773), each a separate (R0, R1,
     K) tensor: [gx (3), m v (3), P (9, APIC only), Q (9), m] + [V0 J, V0,
     V0 p, V0 div] under F-bar or mixing; every value plane masked.
-    P = m C, Q = P - dt D^-1 tau; gx0 from `x0k` on slab shards."""
+    P = m C, Q = P - dt D^-1 tau; gx0 and gx1 from `x0k` and `x1k` on
+    shards."""
     cfg = scene.cfg
     shaped = lambda a: _shaped(a, spec)
     tau, p_point, div_lag = _stress(b, scene)
@@ -582,7 +598,7 @@ def prepped_fields(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, x0k=None):
     else:
         p_aff = []
         q_aff = [fa * t * b.mask for t in tau]
-    fields = [*_gxs(b, spec, cfg, x0k), *(shaped(m * v) for v in (b.v0, b.v1, b.v2)),
+    fields = [*_gxs(b, spec, cfg, x0k, x1k), *(shaped(m * v) for v in (b.v0, b.v1, b.v2)),
               *map(shaped, p_aff), *map(shaped, q_aff), shaped(m)]
     if _ext(cfg):
         v0m = b.vol0 * b.mask
@@ -590,21 +606,28 @@ def prepped_fields(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, x0k=None):
     return tuple(fields)
 
 
+def _plane_index(idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """Node indices along grid axis `axis`, broadcastable against (G0, G1,
+    G2) planes, or against (n, ...) shard planes when `idx` is a per-shard
+    (n, rows) table."""
+    shape = [1, 1, 1]
+    shape[axis] = -1
+    if idx.dim() == 2:
+        shape = [idx.shape[0]] + shape
+    return idx.reshape(shape)
+
+
 def _axis_bands(cfg: MPMConfig, device, row_index0=None, row_index1=None):
     """(low, high) wall-band masks per axis, broadcastable against (...,
     G0, G1, G2) planes: box faces at PAD / G-1-PAD (fast3d.py:200-217).
     `row_index0` / `row_index1` carry the planes' global axis-0 / axis-1
-    node indices (slab shards: (n, L0 + 4) and (R1 + 4,))."""
+    node indices (shards: (n, L0 + 4) and (n, L1 + 4))."""
     g = cfg.num_grids
     lo, hi = int(PAD), g - 1 - int(PAD)
     idx = torch.arange(g, device=device)
-    idx0 = idx if row_index0 is None else row_index0
-    idx1 = idx if row_index1 is None else row_index1
-    return [
-        ((idx0 <= lo)[..., None, None], (idx0 >= hi)[..., None, None]),
-        ((idx1 <= lo)[:, None], (idx1 >= hi)[:, None]),
-        (idx <= lo, idx >= hi),
-    ]
+    rows = (idx if row_index0 is None else row_index0, idx if row_index1 is None else row_index1,
+            idx)
+    return [(_plane_index(r, a) <= lo, _plane_index(r, a) >= hi) for a, r in enumerate(rows)]
 
 
 def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=None,
@@ -674,7 +697,7 @@ def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=Non
         idx1 = torch.arange(gs.shape[-3], device=dev) if row_index1 is None else row_index1
         idx2 = torch.arange(gs.shape[-1], device=dev)
         coords = colliders.node_coords(
-            cfg, [idx0[..., :, None, None], idx1[:, None], idx2], g_m.dtype)
+            cfg, [_plane_index(i, a) for a, i in enumerate((idx0, idx1, idx2))], g_m.dtype)
         v = colliders.project(v, coords, scene.colliders, t)
         col_solid = colliders.inside_any(coords, scene.colliders, t)
     if cfg.incompressible:
@@ -734,9 +757,10 @@ def _prepped_substep(b: FluidBuckets3D, scene: Scene, spec: FastSpec3D, plain: b
     dx = float(cfg.dx)
     tent = cfg.kernel == KernelKind.TENT
     ext = _ext(cfg)
-    x0k = None if domain is None else b.x0 - domain.x0_shift(b.device, cfg)
-    fields = prepped_fields(b, scene, spec, x0k)
-    del x0k
+    x0_shift, x1_shift = _shifts(b, cfg, domain)
+    fields = prepped_fields(b, scene, spec, None if x0_shift is None else b.x0 - x0_shift,
+                            None if x1_shift is None else b.x1 - x1_shift)
+    del x0_shift, x1_shift
     counts = pencil_counts(b)
     args = p2g_args(scene)
     if domain is not None:
@@ -851,14 +875,18 @@ def substep(
     return _prepped_substep(b, scene, spec, plain, domain, t)
 
 
-def _margin_pencils(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torch.Tensor:
+def _margin_pencils(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D, row0=0,
+                    row1=0) -> torch.Tensor:
     """(R0 R1,) bool: pencils with an active slot near the kernels' +-1-row
-    margin on either bucketed axis (fast3d.py:937-949).  Rows are global,
-    so on slab shards this is the reference's check with row0 = s L0."""
+    margin on either bucketed axis (fast3d.py:937-949).  A pencil's rows
+    are its row in `spec`'s layout plus `row0` / `row1` (scalars or (R0
+    R1, 1) tensors): the stacked shard windows' offsets to their global
+    rows (`FastDomain3DCtx.pencil_offsets`; 0 on one axis, whose layout is
+    already global)."""
     s = b.shape[0]
     rows = torch.arange(s, dtype=torch.int32, device=b.device)[:, None]
-    r0 = (rows // spec.rows1).to(torch.float32)
-    r1 = (rows % spec.rows1).to(torch.float32)
+    r0 = (row0 + rows // spec.rows1).to(torch.float32)
+    r1 = (row1 + rows % spec.rows1).to(torch.float32)
     invf = _f32(cfg.inv_dx)
     on = b.mask > 0
     d0 = torch.where(on, b.x0 * invf + PAD - 0.5 - r0, 0.5)
@@ -866,10 +894,11 @@ def _margin_pencils(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torc
     return ((d0 <= -0.8) | (d0 >= 1.8) | (d1 <= -0.8) | (d1 >= 1.8)).any(dim=1)
 
 
-def _needs_rebucket(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D) -> torch.Tensor:
+def _needs_rebucket(b: FluidBuckets3D, cfg: MPMConfig, spec: FastSpec3D, row0=0,
+                    row1=0) -> torch.Tensor:
     """True (a 0-dim bool tensor) when any active slot approaches the
     kernels' +-1-row margin on either bucketed axis (`_margin_pencils`)."""
-    return _margin_pencils(b, cfg, spec).any()
+    return _margin_pencils(b, cfg, spec, row0, row1).any()
 
 
 def run(

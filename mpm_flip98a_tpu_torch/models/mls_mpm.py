@@ -6,7 +6,8 @@ grid normalisation, gravity and the sticky / separating box, G2P with the
 APIC C, advection, the MLS F update and the snow plasticity clamp.  The
 BASELINE.json north star holds the JAX model to the NumPy oracle within
 1e-5 per substep in float32; the port's tests hold this one to both.
-Plain torch: the transfers are `ops/transfer.py`'s index_add_ and gather.
+Plain torch: the transfers are `ops/transfer.py`'s scatter (`index_add_` on the CPU,
+the fixed-order scatter kernel on the card) and gather.
 """
 
 from __future__ import annotations

@@ -23,9 +23,10 @@ slip / sticky walls, the rigid colliders), (6) G2P: the FLIP/PIC/APIC
 blend, the general APIC D for the tent, advection, the F and J updates,
 the plasticity clamp and the consistency diagnostics.
 
-Plain torch throughout: the JAX general path reaches no Pallas kernel, so
-its XLA scatter-add is `index_add_` and its gather a plain gather
-(`ops/transfer.py`).  The flat node index is built once a substep and
+Plain torch, but for the scatter: the JAX general path reaches no Pallas
+kernel; its XLA scatter-add is `ops/cuda/scatter.scatter_add` (on the CPU
+`index_add_`, on the card a fixed-order segment sum, so card reruns are
+bitwise equal) and its gather a plain gather (`ops/transfer.py`).  The flat node index is built once a substep and
 serves every transfer.  Constants enter as Python floats rounded to the
 particles' dtype (as JAX's `jnp.asarray(c, dtype)` does), and no value is
 read on the host, so `run` queues its substeps on the card without a
@@ -39,7 +40,7 @@ their slab shards pass those a halo refresh.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +51,7 @@ from mpm_flip98a_tpu_torch.models import projection
 from mpm_flip98a_tpu_torch.ops import mathx
 from mpm_flip98a_tpu_torch.ops import transfer
 from mpm_flip98a_tpu_torch.ops import weights as W
+from mpm_flip98a_tpu_torch.ops.cuda import scatter
 from mpm_flip98a_tpu_torch.state import Grid, Particles
 
 # The physical domain sits PAD cells inside the background grid on every
@@ -145,9 +147,7 @@ def _scatter_cells(values: torch.Tensor, cell: torch.Tensor, shape) -> torch.Ten
     """Nearest-cell scatter-add: values (N, c) by cell (N, d) -> (shape, c)."""
     flat, in_bounds = _flat_cell(cell, shape)
     values = torch.where(in_bounds[..., None], values, 0.0)
-    out = torch.zeros((int(np.prod(shape)), values.shape[-1]), dtype=values.dtype,
-                      device=values.device)
-    out.index_add_(0, flat, values)
+    out = scatter.scatter_add(values, flat, int(np.prod(shape)))
     return out.reshape(tuple(shape) + (values.shape[-1],))
 
 
@@ -490,6 +490,12 @@ def substep_grid(
 
 def substep(p: Particles, scene: Scene, ctx: GridContext = None, t=None) -> Particles:
     return substep_grid(p, scene, ctx, t)[0]
+
+
+def make_substep(scene: Scene) -> Callable[[Particles], Particles]:
+    """A callable taking one substep of `scene` (stabilized.py:643-648;
+    eager, so there is nothing to compile)."""
+    return lambda p: substep(p, scene)
 
 
 def run(p: Particles, scene: Scene, n_substeps: int, t0=None) -> Particles:

@@ -16,6 +16,9 @@ of its source pencils' slots, and G2P gathers each slot's 27 nodes:
   `fold_rows0` folds; one block per (source axis-0 row, target axis-1
   row) gathers its nodes' taps in a fixed order (no float atomics; reruns
   are bitwise equal); `plan_p2g3d` sizes its z bands and staging window.
+  `halo1=True` keeps the axis-1 halo: (R0, 5, G1 + 4, nch, G2), plane row
+  j = target row j - 1 (its blocks cover the G1 + 4 rows), which
+  `fold_rows0_halo` folds into raw `p2g3d_grid`'s halo sums.
 - `p2g3d_grid` (csrc/p2g3d_grid.cu) replaces the Pallas `p2g3d_grid`
   (transfer3d.py:622, pallas_call :709) in one launch: a block owns a tile
   of target pencils, pulls the taps of its source pencils' slots (the
@@ -71,8 +74,7 @@ gx.  Slots past a pencil's count are skipped by P2G; G2P gives them the
 dead fill in update mode (x passed through, v = C = 0, J = 1) and zeros
 in gather mode.  The colliders' projection leaves the axis-1 pad rows and
 the rows outside [0, R0) as the walls left them (transfer3d.py:567-570).
-`p2g3d`'s stress mode and `halo1` mode are not ported (ROADMAP queue 2,
-items 4 and 5).
+`p2g3d`'s stress mode is not ported (ROADMAP queue 2, item 4).
 """
 
 from __future__ import annotations
@@ -239,15 +241,17 @@ def _slot_values(fields, apic, stress, kb, mu, gamma, fa, ext):
     return _fluid_affine(fields, apic, stress, kb, mu, gamma, fa)
 
 
-def _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=None):
+def _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=None, halo1=False):
     """Shared plain P2G body: channels [m v pure (3), m v forced (3),
     *plain] of the live in-margin slots, one `index_add_` per stencil tap.
 
     With `g1` the target is the expanded (R0, 5, G1, nch, G2) layout of
-    `p2g3d` (taps on axis-1 rows outside [0, G1) dropped); without, the
-    raw padded (R0 + 4, R1 + 4, nch, G2) sums of `p2g3d_grid` (plane/row
-    j = target j - 1; the axis-1 pad rows keep their taps).  `values` maps
-    the slot-selected planes to (mv, P or None, Q, plain)."""
+    `p2g3d` (taps on axis-1 rows outside [0, G1) dropped; with `halo1`
+    (R0, 5, G1 + 4, nch, G2), plane row j = target row j - 1, none
+    dropped); without, the raw padded (R0 + 4, R1 + 4, nch, G2) sums of
+    `p2g3d_grid` (plane/row j = target j - 1; the axis-1 pad rows keep
+    their taps).  `values` maps the slot-selected planes to (mv, P or
+    None, Q, plain)."""
     r0, r1, k = fields[0].shape
     dev = fields[0].device
     live, i0, i1 = _live_slots(counts, r0, r1, k)
@@ -266,7 +270,8 @@ def _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=None):
         pl1 = r1 + NT - 1
         out = torch.zeros((r0 + NT - 1, pl1, nch, g2), dtype=gx0.dtype, device=dev)
     else:
-        out = torch.zeros((r0, NT, g1, nch, g2), dtype=gx0.dtype, device=dev)
+        g1out = g1 + NT - 1 if halo1 else g1
+        out = torch.zeros((r0, NT, g1out, nch, g2), dtype=gx0.dtype, device=dev)
     flat = out.view(-1)
     chan = torch.arange(nch, device=dev)[:, None] * g2
     for j0 in range(3):
@@ -277,6 +282,9 @@ def _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=None):
             if g1 is None:
                 in1 = None
                 row = ((i0 + rel0 + (j0 + 1)) * pl1 + (row1 + (j1 + 1))) * nch * g2
+            elif halo1:
+                in1 = None
+                row = ((i0 * NT + rel0 + (j0 + 1)) * g1out + (row1 + (j1 + 1))) * nch * g2
             else:
                 in1 = (row1 + j1 >= 0) & (row1 + j1 < g1)
                 row = ((i0 * NT + rel0 + (j0 + 1)) * g1 + (row1 + j1).clamp(0, g1 - 1)) * nch * g2
@@ -303,12 +311,13 @@ def _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=None):
     return out
 
 
-def p2g3d_plain(fields, counts, g1, g2, dx, apic=True, ext=False, tent=False):
+def p2g3d_plain(fields, counts, g1, g2, dx, apic=True, ext=False, tent=False, halo1=False):
     """Plain PyTorch version of `p2g3d`: `index_add_` tap by tap into the
-    expanded (R0, 5, G1, nch, G2) layout.  Sequential and deterministic on
-    the CPU; on a card `index_add_` sums with atomics in no fixed order."""
+    expanded (R0, 5, G1, nch, G2) layout, or (R0, 5, G1 + 4, nch, G2)
+    with `halo1`.  Sequential and deterministic on the CPU; on a card
+    `index_add_` sums with atomics in no fixed order."""
     values = lambda sel: _split_prepped(sel, apic, ext)
-    return _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=g1)
+    return _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=g1, halo1=halo1)
 
 
 def plan_p2g3d(nch: int, g2: int, k: int, apic: bool) -> GatherPlan:
@@ -343,35 +352,35 @@ def p2g3d(
 ):
     """Expanded P2G of prepped fields (the arguments of the JAX `p2g3d`):
     `n_prepped(apic, ext)` (R0, R1, K) planes, counts (R0 * R1,) int32 ->
-    (R0, 5, G1, nch, G2), nch = 11 with `ext` else 7, for `fold_rows0`.
+    (R0, 5, G1, nch, G2), nch = 11 with `ext` else 7, for `fold_rows0`;
+    `halo1` (transfer3d.py:366-372) -> (R0, 5, G1 + 4, nch, G2), the
+    axis-1 plane uncropped (row j = target row j - 1), for
+    `fold_rows0_halo`.
     On the card every node sums its slots in a fixed order: two calls on
     the same inputs give bitwise equal outputs.  A block lists its five
     source pencils' slots in shared memory, so K is at most some 7,000
     there (`plan_p2g3d` raises past it; the scenes use 512-1,280).
 
-    The stress mode has no single-device caller and no path reaches
-    `halo1`: both raise NotImplementedError."""
+    The stress mode has no single-device caller: it raises
+    NotImplementedError."""
     if stress is not None:
         raise NotImplementedError(
             "p2g3d's stress mode is not ported (no single-device caller: ROADMAP queue 2, "
             "item 4)"
         )
-    if halo1:
-        raise NotImplementedError(
-            "p2g3d's halo1 mode is not ported yet (ROADMAP queue 2, item 5)"
-        )
     r0, r1, k, strides = _check_fields(fields, n_prepped(apic, ext))
     _check("counts", counts, (r0 * r1,), torch.int32)
     if _route(counts, *fields) == "cpu":
-        return p2g3d_plain(fields, counts, g1, g2, dx, apic, ext, tent)
+        return p2g3d_plain(fields, counts, g1, g2, dx, apic, ext, tent, halo1)
     nch = P2G_CH_EXT if ext else P2G_CH
     plan = plan_p2g3d(nch, g2, k, apic)
     lib = _build.load().lib
-    out = torch.empty((r0, NT, g1, nch, g2), dtype=torch.float32, device=counts.device)
+    g1out = g1 + NT - 1 if halo1 else g1
+    out = torch.empty((r0, NT, g1out, nch, g2), dtype=torch.float32, device=counts.device)
     ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)
     rc = lib.mpm_p2g3d(
         ptrs, pstr, _ptr(counts), _ptr(out), r0, r1, k, g1, g2, nch, int(apic), int(tent),
-        dx, plan.band, plan.cap, _stream(counts),
+        int(halo1), dx, plan.band, plan.cap, _stream(counts),
     )
     LAUNCHES["p2g3d"] += 1
     _raise_on(rc, "p2g3d")
@@ -388,6 +397,18 @@ def fold_rows0(expanded: torch.Tensor) -> torch.Tensor:
     for t in range(nt):
         buf[t : t + r] += expanded[:, t]
     return buf[1 : r + 1]
+
+
+def fold_rows0_halo(expanded: torch.Tensor) -> torch.Tensor:
+    """(L, 5, G1, ch, G2) -> (L + 4, G1, ch, G2): `fold_rows0` uncropped,
+    row j = axis-0 target row j - 1 (transfer3d.py:752-763).  Of a
+    `halo1` expanded output it gives raw `p2g3d_grid`'s (L + 4, G1 + 4)
+    halo sums, up to the order of the sums."""
+    r, nt, g1, ch, g2 = expanded.shape
+    buf = torch.zeros((r + nt - 1, g1, ch, g2), dtype=expanded.dtype, device=expanded.device)
+    for t in range(nt):
+        buf[t : t + r] += expanded[:, t]
+    return buf
 
 
 def p2g3d_raw_plain(

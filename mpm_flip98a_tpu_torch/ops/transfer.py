@@ -8,28 +8,37 @@ particles never produce one, since the grid is padded.
 
 The flat index can be built once (`flat_node_index`) and passed to both
 transfers of a substep.  The gather takes whole rows, or single elements
-where the rows are a multiple of 16 bytes.  On the CPU `index_add_` adds the updates in order,
-as XLA's CPU scatter does; on the card it adds with atomics in no fixed
-order, so two runs there agree only to the rounding of the sums.
+where the rows are a multiple of 16 bytes.  The scatter is
+`ops/cuda/scatter.scatter_add`: on the CPU `index_add_`, which adds the
+updates in order, as XLA's CPU scatter does; on the card a kernel that
+sums each node's rows in that same order (a stable sort of the flat index,
+built once in `flat_node_index` and shared by the substep's scatters), so
+card runs are bitwise reproducible and equal to the CPU's sums.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from mpm_flip98a_tpu_torch.ops.cuda import scatter
 from mpm_flip98a_tpu_torch.ops.weights import constant
 
-Index = Tuple[torch.Tensor, torch.Tensor]
+
+class Index(NamedTuple):
+    flat: torch.Tensor          # (N, S) int64 row-major node index, clipped
+    in_bounds: torch.Tensor     # (N, S) bool
+    plan: Optional[scatter.SegmentPlan] = None   # the card's fixed scatter order
 
 
 def flat_node_index(base: torch.Tensor, offsets: np.ndarray, grid_shape) -> Index:
     """Flat node index of every (particle, stencil node) pair.
 
-    base: (N, d) integer base nodes; offsets: (S, d) static.
-    Returns (flat (N, S) int64, in_bounds (N, S) bool)."""
+    base: (N, d) integer base nodes; offsets: (S, d) static.  On the card
+    the index also carries the scatter's `segment_plan` (one stable sort a
+    substep); the CPU's `index_add_` needs none."""
     off = constant(offsets, torch.int64, base.device)
     strides = np.concatenate([np.cumprod(np.asarray(grid_shape[1:], np.int64)[::-1])[::-1], [1]])
     flat, in_bounds = None, None
@@ -39,7 +48,10 @@ def flat_node_index(base: torch.Tensor, offsets: np.ndarray, grid_shape) -> Inde
         term = idx.clamp(0, g - 1) * int(strides[k])
         flat = term if flat is None else flat + term
         in_bounds = ok if in_bounds is None else in_bounds & ok
-    return flat, in_bounds
+    plan = None
+    if flat.is_cuda:
+        plan = scatter.segment_plan(flat, int(np.prod(grid_shape)))
+    return Index(flat, in_bounds, plan)
 
 
 def p2g_scatter(
@@ -52,10 +64,10 @@ def p2g_scatter(
     """Scatter-add weighted per-(particle, stencil node) values (N, S, c)
     onto the grid; returns (G..., c)."""
     c = values.shape[-1]
-    flat, in_bounds = index if index is not None else flat_node_index(base, offsets, grid_shape)
-    values = torch.where(in_bounds[..., None], values, 0.0)
-    out = torch.zeros((int(np.prod(grid_shape)), c), dtype=values.dtype, device=values.device)
-    out.index_add_(0, flat.reshape(-1), values.reshape(-1, c))
+    index = index if index is not None else flat_node_index(base, offsets, grid_shape)
+    values = torch.where(index.in_bounds[..., None], values, 0.0)
+    out = scatter.scatter_add(values.reshape(-1, c), index.flat.reshape(-1),
+                              int(np.prod(grid_shape)), index.plan)
     return out.reshape(tuple(grid_shape) + (c,))
 
 
@@ -69,7 +81,7 @@ def g2p_gather(
     (N, S, c)."""
     grid_shape = grid.shape[:-1]
     c = grid.shape[-1]
-    flat, in_bounds = index if index is not None else flat_node_index(base, offsets, grid_shape)
+    flat, in_bounds, _ = index if index is not None else flat_node_index(base, offsets, grid_shape)
     if c * grid.element_size() % 16:
         vals = grid.reshape(-1, c).index_select(0, flat.reshape(-1)).reshape(flat.shape + (c,))
     else:

@@ -98,12 +98,7 @@ class FastDomainCtx:
         the previous one's result; edge shards receive zeros on both legs
         (no neighbour, no partial sums; the out-of-domain halo rows are
         never read with nonzero weight thanks to the 4-cell padding)."""
-        l = buf.shape[1] - (H_LO + H_HI)
-        # reduce: my bottom row belongs to the left neighbour's interior,
-        # my top 3 rows to the right neighbour's.
-        buf[:, l : l + H_LO] += self.mesh.shift_left(buf[:, 0:H_LO])
-        buf[:, H_LO : H_LO + H_HI] += self.mesh.shift_right(buf[:, l + H_LO :])
-        return self.halo_gather_only(buf)
+        return sync_dim(self.mesh, buf, dim=1, axis=0)
 
     def halo_gather_only(self, buf: torch.Tensor) -> torch.Tensor:
         """Refresh the halo rows from the neighbours' completed interiors,
@@ -111,10 +106,30 @@ class FastDomainCtx:
         grid-side chains of CSF and the projection, whose inputs are
         already global sums.  Any (n, L + 4, ...) buffer, channel-less
         planes included."""
-        l = buf.shape[1] - (H_LO + H_HI)
-        buf[:, 0:H_LO] = self.mesh.shift_right(buf[:, l : l + H_LO])
-        buf[:, l + H_LO :] = self.mesh.shift_left(buf[:, H_LO : H_LO + H_HI])
-        return buf
+        return gather_dim(self.mesh, buf, dim=1, axis=0)
+
+
+def sync_dim(mesh: SlabMesh, buf: torch.Tensor, dim: int, axis: int) -> torch.Tensor:
+    """The reduce legs, then `gather_dim`, on tensor dim `dim` of a halo
+    buffer (L + 4 rows there, row j = target row j - 1) across mesh axis
+    `axis` (`_sync_dim`, fast_domain3d.py:105-121), in place."""
+    l = buf.shape[dim] - (H_LO + H_HI)
+    rows = lambda a, b: buf.narrow(dim, a, b - a)
+    # reduce: my bottom row belongs to the left neighbour's interior, my
+    # top 3 rows to the right neighbour's.
+    rows(l, l + H_LO).add_(mesh.shift_left(rows(0, H_LO), axis))
+    rows(H_LO, H_LO + H_HI).add_(mesh.shift_right(rows(l + H_LO, l + H_LO + H_HI), axis))
+    return gather_dim(mesh, buf, dim, axis)
+
+
+def gather_dim(mesh: SlabMesh, buf: torch.Tensor, dim: int, axis: int) -> torch.Tensor:
+    """The gather legs on tensor dim `dim` across mesh axis `axis`: the
+    halo rows from the neighbours' completed interiors, in place."""
+    l = buf.shape[dim] - (H_LO + H_HI)
+    rows = lambda a, b: buf.narrow(dim, a, b - a)
+    rows(0, H_LO).copy_(mesh.shift_right(rows(l, l + H_LO), axis))
+    rows(l + H_LO, l + H_LO + H_HI).copy_(mesh.shift_left(rows(H_LO, H_LO + H_HI), axis))
+    return buf
 
 
 def distribute(p, cfg: MPMConfig, spec: FastDomainSpec, mesh: SlabMesh) -> FluidBuckets:
@@ -130,10 +145,10 @@ def distribute(p, cfg: MPMConfig, spec: FastDomainSpec, mesh: SlabMesh) -> Fluid
 
 
 def exchange(mesh: SlabMesh, stk: torch.Tensor, act: torch.Tensor, row: torch.Tensor,
-             lo: torch.Tensor, l: int, m: int):
+             lo: torch.Tensor, l: int, m: int, axis: int = 0):
     """Send active slots whose bucket row left [lo, lo + l) to the adjacent
-    shard, in fixed-capacity buffers of m slots per direction
-    (fast_domain.py:141-174, fast_domain3d.py:205-240).
+    shard along mesh axis `axis`, in fixed-capacity buffers of m slots per
+    direction (fast_domain.py:141-174, fast_domain3d.py:200-233).
 
     stk (n, F, S) int32 bit patterns of the F fields, act (n, S) bool,
     row (n, S) int32 global rows, lo (n, 1) -> the stay + arrivals
@@ -151,8 +166,8 @@ def exchange(mesh: SlabMesh, stk: torch.Tensor, act: torch.Tensor, row: torch.Te
     send_l, val_l = pack(go_l)
     send_r, val_r = pack(go_r)
     drop = ((go_l.sum(1) - m).clamp(min=0) + (go_r.sum(1) - m).clamp(min=0)).to(torch.int32)
-    from_right = mesh.shift_left(send_l), mesh.shift_left(val_l)
-    from_left = mesh.shift_right(send_r), mesh.shift_right(val_r)
+    from_right = mesh.shift_left(send_l, axis), mesh.shift_left(val_l, axis)
+    from_left = mesh.shift_right(send_r, axis), mesh.shift_right(val_r, axis)
     stay = act & ~(go_l | go_r)
     cat = torch.cat([stk, from_left[0], from_right[0]], dim=2)
     cat_act = torch.cat([stay, from_left[1], from_right[1]], dim=1)

@@ -1,20 +1,24 @@
-"""Slab-sharded 3D fast path, one axis (counterpart of `mpm_flip98a_tpu/parallel/fast_domain3d.py`).
+"""Slab- and block-sharded 3D fast path (counterpart of `mpm_flip98a_tpu/parallel/fast_domain3d.py`).
 
-The grid's axis 0 is cut into n slabs of L0 pencil-bucket rows; the pencil
-index r0 R1 + r1 is r0-major, so a slab is a contiguous block of pencils.
-Per substep one halo exchange moves the 4 folded edge planes (1 below, 3
-above) between neighbouring shards; particles migrate only on collective
-rebucket events.  Both branches of `fast3d.substep` run on the shards'
-local windows (`domain=...`), through `p2g3d_grid`'s raw mode.
+One axis (`--devices N`): the grid's axis 0 is cut into n0 slabs of L0
+pencil-bucket rows.  Two axes (`--devices N0xN1`, slabs x pencil columns):
+axis 1 is cut into n1 windows of L1 rows as well, and each shard owns an
+(L0 x L1) window of pencils.  State is shard-major: shard s = s0 n1 + s1
+holds the contiguous block of pencils s L0 L1 + l0 L1 + l1 (`distribute`
+reorders the global (s0, l0, s1, l1) order, bit for bit as JAX does; with
+n1 = 1 the two orders are one).  The kernels see the stacked windows as an
+(n L0, L1) pencil layout (`FastDomain3DSpec.global_spec`) and sum each
+shard's window on its own (`p2g3d_grid`'s raw mode, `shards` = n0 n1),
+with positions shifted by the window's origin on both axes.
 
-The reference's two-axis mode (slabs x pencil columns, `--devices
-N0xN1`) is not ported (ROADMAP queue 1, item 7): it raises
-NotImplementedError.  The reference runs it through `p2g3d_grid`'s raw
-mode on (L0, L1) windows (fast3d.py:631-641, 776-784), whose halo buffer
-already carries the axis-1 halo, so it needs the axis-1 exchange and
-migration legs, not `p2g3d`'s `halo1` mode.  State keeps the JAX
-package's one-axis (n L0 R1, K) layout, and the collectives are
-`SlabMesh`'s.
+Per substep one halo exchange per sharded axis moves the 4 folded edge
+planes (1 below, 3 above) between neighbouring shards: axis 0 first, whose
+legs carry the axis-1 halo columns, so the axis-1 legs then complete the
+corner sums of diagonal neighbours (fast_domain3d.py:123-165).  Particles
+migrate only on collective rebucket events: the axis-0 leg, then the
+axis-1 leg, so a corner-crossing particle reaches its diagonal neighbour
+in the same rebucket.  Both branches of `fast3d.substep` run on the
+shards' local windows (`domain=...`).  The collectives are `SlabMesh`'s.
 """
 
 from __future__ import annotations
@@ -30,56 +34,66 @@ from mpm_flip98a_tpu_torch.models.fast2d import RunStats, _f32
 from mpm_flip98a_tpu_torch.models.fast3d import FastSpec3D, FluidBuckets3D, _field_list
 from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene
 from mpm_flip98a_tpu_torch.parallel.fast_domain import (
-    FastDomainCtx, bucket_shards, exchange, stacked_fields, unstack_fields,
+    H_HI, H_LO, FastDomainCtx, bucket_shards, exchange, gather_dim, stacked_fields, sync_dim,
+    unstack_fields,
 )
 from mpm_flip98a_tpu_torch.parallel.mesh import SlabMesh
 
 
-def as_shards(n_shards: Union[int, Tuple[int, int]]) -> int:
-    """The axis-0 shard count of `n_shards` (an int or (n0, n1) with n1 = 1)."""
-    n0, n1 = (n_shards, 1) if isinstance(n_shards, int) else map(int, n_shards)
-    if n1 != 1:
-        raise NotImplementedError(
-            f"two-axis 3D sharding ({n0}x{n1}: slabs x pencil columns, the axis-1 halo "
-            "and migration legs) is not ported yet (ROADMAP queue 1, item 7)"
-        )
-    return n0
+def as_shards(n_shards: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
+    """(n0, n1) of `n_shards`: an int is the one-axis (n, 1)."""
+    if isinstance(n_shards, int):
+        return (n_shards, 1)
+    n0, n1 = n_shards
+    return (int(n0), int(n1))
 
 
 @dataclasses.dataclass(frozen=True)
 class FastDomain3DSpec:
-    """Static decomposition parameters of the one-axis mode: the JAX
-    spec's fields less n_shards1 = 1 and rows_per_shard1 = G."""
+    """Static decomposition parameters (fast_domain3d.py:58-102)."""
 
     n_shards0: int
+    n_shards1: int
     rows_per_shard0: int  # L0: axis-0 bucket rows per shard (n0 L0 >= G)
-    local_spec: FastSpec3D  # rows0 = L0, rows1 = G
+    rows_per_shard1: int  # L1: axis-1 bucket rows per shard (n1 L1 >= G)
+    local_spec: FastSpec3D  # rows0 = L0, rows1 = L1
     mig_cap: int
 
     @property
     def n_shards(self) -> int:
-        return self.n_shards0
+        return self.n_shards0 * self.n_shards1
 
     @property
     def global_spec(self) -> FastSpec3D:
-        """The (n L0, G) pencil layout of the whole state."""
-        return dataclasses.replace(self.local_spec, rows0=self.n_shards0 * self.rows_per_shard0)
+        """The stacked shard windows as the kernels see them: (n L0, L1)
+        pencils in shard-major order; one axis: (n L0, G), the global
+        layout itself."""
+        return dataclasses.replace(self.local_spec,
+                                   rows0=self.n_shards * self.rows_per_shard0)
+
+    @property
+    def bucket_spec(self) -> FastSpec3D:
+        """The global (n0 L0, n1 L1) pencil grid before the shard-major
+        reorder."""
+        return FastSpec3D(rows0=self.n_shards0 * self.rows_per_shard0,
+                          rows1=self.n_shards1 * self.rows_per_shard1,
+                          capacity=self.local_spec.capacity)
 
     @staticmethod
     def for_particles(cfg: MPMConfig, n_shards, p, headroom: float = 2.0) -> "FastDomain3DSpec":
-        """The JAX package's sizing (fast_domain3d.py:79-110): L0 = ceil(G /
-        n0), capacity from the peak pencil occupancy, mig_cap = max(128,
-        2 K)."""
-        n0 = as_shards(n_shards)
+        """The JAX package's sizing (fast_domain3d.py:79-102): L = ceil(G /
+        n) on each axis, capacity from the peak pencil occupancy, mig_cap =
+        max(128, 2 K)."""
+        n0, n1 = as_shards(n_shards)
         g = cfg.num_grids
-        rows0 = -(-g // n0)
-        if rows0 < 4:
+        rows0, rows1 = -(-g // n0), -(-g // n1)
+        if rows0 < 4 or rows1 < 4:
             raise ValueError(f"shard windows must be at least 4 rows for the halo exchange, "
-                             f"got {rows0}")
+                             f"got {rows0}x{rows1}")
         cap = fast3d.FastSpec3D.for_particles(cfg, p, headroom).capacity
         return FastDomain3DSpec(
-            n_shards0=n0, rows_per_shard0=rows0,
-            local_spec=FastSpec3D(rows0=rows0, rows1=g, capacity=cap),
+            n_shards0=n0, n_shards1=n1, rows_per_shard0=rows0, rows_per_shard1=rows1,
+            local_spec=FastSpec3D(rows0=rows0, rows1=rows1, capacity=cap),
             mig_cap=max(128, cap * 2),
         )
 
@@ -87,82 +101,183 @@ class FastDomain3DSpec:
 @dataclasses.dataclass(frozen=True)
 class FastDomain3DCtx(FastDomainCtx):
     """Runtime context handed to fast3d.substep(domain=...): the halo
-    exchange on axis 0 of (n, L0 + 4, R1 + 4, nch, G2) buffers
-    (`_sync_dim` on dim 0 of each shard's buffer, fast_domain3d.py:113-130)
-    is the 2D context's on dim 1 of the stacked shards."""
+    exchange on (n, L0 + 4, L1 + 4, nch, G2) buffers, axis 0 on dim 1 and,
+    with n1 > 1, axis 1 on dim 2 (`_sync_dim`, fast_domain3d.py:105-165);
+    the windows' origins and global row indices."""
 
-    rows1: int = 0
+    rows1: int = 0          # L1 (one axis: G)
+
+    def _pencil(self, device):
+        """Each pencil's shard indices on both axes and local rows."""
+        l0, l1 = self.rows_per_shard, self.rows1
+        pencil = torch.arange(self.n * l0 * l1, device=device)
+        s, loc = pencil // (l0 * l1), pencil % (l0 * l1)
+        return s // self.mesh.n1, s % self.mesh.n1, loc // l1, loc % l1
 
     def x0_shift(self, device, cfg: MPMConfig) -> torch.Tensor:
-        """(n L0 R1, 1) float32 slab origin in metres of each pencil's
-        shard, s L0 dx (fast3d.py:521-525)."""
-        per_shard = self.rows_per_shard * self.rows1
-        pencil = torch.arange(self.n * per_shard, device=device)
-        lo = (pencil // per_shard) * self.rows_per_shard
-        return (lo.to(torch.float32) * _f32(cfg.dx))[:, None]
+        """(n L0 L1, 1) float32 window origin on axis 0 in metres, s0 L0 dx
+        (fast3d.py:518-527)."""
+        s0 = self._pencil(device)[0]
+        return ((s0 * self.rows_per_shard).to(torch.float32) * _f32(cfg.dx))[:, None]
+
+    def x1_shift(self, device, cfg: MPMConfig):
+        """(n L0 L1, 1) float32 window origin on axis 1, s1 L1 dx
+        (fast3d.py:531-544); None on the one-axis mesh."""
+        if self.mesh.n1 == 1:
+            return None
+        s1 = self._pencil(device)[1]
+        return ((s1 * self.rows1).to(torch.float32) * _f32(cfg.dx))[:, None]
+
+    def row_index0(self, device) -> torch.Tensor:
+        """(n, L0 + 4) global axis-0 row of each halo plane: s0 L0 - 1 + j."""
+        l0 = self.rows_per_shard
+        s0 = self.mesh.shard_index(0).to(device)[:, None]
+        return s0 * l0 - 1 + torch.arange(l0 + H_LO + H_HI, device=device)[None, :]
+
+    def row_index1(self, device) -> torch.Tensor:
+        """(n, L1 + 4) global axis-1 row of each halo plane: s1 L1 - 1 + j."""
+        l1 = self.rows1
+        s1 = self.mesh.shard_index(1).to(device)[:, None]
+        return s1 * l1 - 1 + torch.arange(l1 + H_LO + H_HI, device=device)[None, :]
+
+    def pencil_offsets(self, device):
+        """(row0, row1) to add to a pencil's row in the stacked (n L0, L1)
+        layout for its global pencil rows (the reference's row0 / row1 of
+        `_needs_rebucket`, fast3d.py:937-950): 0 on the one-axis mesh,
+        else (n L0 L1, 1) int tensors ((s0 - s) L0, s1 L1)."""
+        if self.mesh.n1 == 1:
+            return 0, 0
+        s0, s1, _, _ = self._pencil(device)
+        s = s0 * self.mesh.n1 + s1
+        return ((s0 - s) * self.rows_per_shard)[:, None], (s1 * self.rows1)[:, None]
+
+    def own_rows(self, device) -> torch.Tensor:
+        """The nodes each shard owns, [1, 1 + L) on each sharded axis: (n,
+        L0 + 4) on one axis, (n, L0 + 4, L1 + 4) on two (fast3d.py:
+        321-331); the CG's dot products count them alone."""
+        own0 = super().own_rows(device)
+        if self.mesh.n1 == 1:
+            return own0
+        j = torch.arange(self.rows1 + H_LO + H_HI, device=device)
+        own1 = (j >= H_LO) & (j < H_LO + self.rows1)
+        return own0[:, :, None] & own1[None, None, :]
+
+    def halo_sync(self, buf: torch.Tensor) -> torch.Tensor:
+        """Folded halo sums -> globally complete planes, in place: axis 0
+        (dim 1), whose legs move whole planes with their axis-1 halo
+        columns, then axis 1 (dim 2), which completes the corner sums."""
+        buf = sync_dim(self.mesh, buf, dim=1, axis=0)
+        if self.mesh.n1 > 1:
+            buf = sync_dim(self.mesh, buf, dim=2, axis=1)
+        return buf
+
+    def halo_gather_only(self, buf: torch.Tensor) -> torch.Tensor:
+        """The halo rows and columns from the neighbours' interiors, in
+        place, without the reduce legs: axis 0 first, so the axis-1 legs
+        also deliver valid corner values.  Any (n, L0 + 4[, L1 + 4], ...)
+        buffer."""
+        buf = gather_dim(self.mesh, buf, dim=1, axis=0)
+        if self.mesh.n1 > 1:
+            buf = gather_dim(self.mesh, buf, dim=2, axis=1)
+        return buf
+
+
+def context(spec: FastDomain3DSpec, mesh: SlabMesh) -> FastDomain3DCtx:
+    if (mesh.n0, mesh.n1) != (spec.n_shards0, spec.n_shards1):
+        raise ValueError(f"spec has {spec.n_shards0}x{spec.n_shards1} shards, "
+                         f"mesh {mesh.n0}x{mesh.n1}")
+    return FastDomain3DCtx(mesh, spec.rows_per_shard0, rows1=spec.rows_per_shard1)
+
+
+def _reorder(a: torch.Tensor, n0: int, n1: int, l0: int, l1: int, to_shards: bool):
+    """A (pencils, K) field between the global (s0, l0, s1, l1) order and
+    the shard-major (s0, s1, l0, l1) one (fast_domain3d.py:184-190)."""
+    src = (n0, l0, n1, l1) if to_shards else (n0, n1, l0, l1)
+    return a.reshape(*src, *a.shape[1:]).transpose(1, 2).reshape(a.shape)
 
 
 def distribute(p, cfg: MPMConfig, spec: FastDomain3DSpec, mesh: SlabMesh) -> FluidBuckets3D:
-    """Bucket by global (r0, r1) pencil into the (n L0 R1, K) layout (shard
-    s owns the pencils of axis-0 rows [s L0, (s + 1) L0)) on the mesh's
-    device; overflow per shard."""
-    n = spec.n_shards
-    if mesh.n != n:
-        raise ValueError(f"spec has {n} shards, mesh {mesh.n}")
-    b = fast3d.from_particles(p, cfg, spec.global_spec, mesh.device)
+    """Bucket by global (r0, r1) pencil into the (n0 L0, n1 L1) grid, then
+    reorder to shard-major (s0, s1, l0, l1) blocks on the mesh's device
+    (fast_domain3d.py:168-197); overflow per shard."""
+    context(spec, mesh)
+    b = fast3d.from_particles(p, cfg, spec.bucket_spec, mesh.device)
     if int(b.overflow) != 0:
         raise ValueError(f"initial bucketing overflowed capacity {spec.local_spec.capacity}")
-    return dataclasses.replace(b, overflow=torch.zeros((n,), dtype=torch.int32, device=mesh.device))
+    b = dataclasses.replace(b, overflow=torch.zeros((spec.n_shards,), dtype=torch.int32,
+                                                    device=mesh.device))
+    return _relayout(b, spec, to_shards=True)
+
+
+def to_global(b: FluidBuckets3D, spec: FastDomain3DSpec) -> FluidBuckets3D:
+    """The shard-major state in the global (n0 L0, n1 L1) pencil order
+    (`distribute`'s reorder undone; the per-shard overflow kept)."""
+    return _relayout(b, spec, to_shards=False)
+
+
+def _relayout(b: FluidBuckets3D, spec: FastDomain3DSpec, to_shards: bool) -> FluidBuckets3D:
+    if spec.n_shards1 == 1:
+        return b
+    dims = (spec.n_shards0, spec.n_shards1, spec.rows_per_shard0, spec.rows_per_shard1)
+    return dataclasses.replace(b, **{
+        f.name: _reorder(getattr(b, f.name), *dims, to_shards)
+        for f in dataclasses.fields(b) if f.name != "overflow"
+    })
 
 
 def rebucket_migrate(b: FluidBuckets3D, scene: Scene, spec: FastDomain3DSpec,
                      mesh: SlabMesh) -> FluidBuckets3D:
-    """Every shard at once: exchange slots that left the slab with the
-    adjacent shards (the axis-0 leg of fast_domain3d.py:243-300), then
-    re-sort survivors and arrivals into local pencil buckets.  Buffer
-    overflow and an arrival outside the shard's window count into
-    `overflow`."""
+    """Every shard at once: exchange slots that left the window with the
+    adjacent shards, the axis-0 leg then the axis-1 leg
+    (fast_domain3d.py:236-288), then re-sort survivors and arrivals into
+    local pencil buckets.  Buffer overflow and an arrival outside the
+    shard's window count into `overflow`."""
     cfg = scene.cfg
-    n, l0, l1 = spec.n_shards, spec.rows_per_shard0, spec.local_spec.rows1
+    n, l0, l1 = spec.n_shards, spec.rows_per_shard0, spec.rows_per_shard1
     k, m = spec.local_spec.capacity, spec.mig_cap
     fields = _field_list(b)
-    stk = stacked_fields(fields, n)
     act = b.mask.reshape(n, -1) > 0
     inv_dx = _f32(cfg.inv_dx)
-    brow = lambda x: torch.floor(x * inv_dx + PAD - 0.5).to(torch.int32)
-    lo0 = (mesh.shard_index() * l0)[:, None].to(torch.int32)
-    cat, cat_act, drop0 = exchange(mesh, stk, act, brow(b.x0.reshape(n, -1)), lo0, l0, m)
+    brow = lambda x: torch.floor(x.reshape(n, -1) * inv_dx + PAD - 0.5).to(torch.int32)
+    lo0 = (mesh.shard_index(0) * l0)[:, None].to(torch.int32)
+    lo1 = (mesh.shard_index(1) * l1)[:, None].to(torch.int32)
+    cat, act, drop = exchange(mesh, stacked_fields(fields, n), act, brow(b.x0), lo0, l0, m)
     flat = unstack_fields(cat, fields)
-    r0a = brow(flat[0].view(n, -1)) - lo0
-    r1a = brow(flat[1].view(n, -1))
+    if spec.n_shards1 > 1:
+        cat, act, drop1 = exchange(mesh, cat, act, brow(flat[1]), lo1, l1, m, axis=1)
+        flat = unstack_fields(cat, fields)
+        drop = drop + drop1
+    r0a = brow(flat[0]) - lo0
+    r1a = brow(flat[1]) - lo1
     # An arrival more than one shard away would be clipped into an edge
     # bucket outside the kernels' +-1-row margin: count it instead.
-    hop_drop = (cat_act & ((r0a < 0) | (r0a >= l0) | (r1a < 0) | (r1a >= l1))).sum(
+    hop_drop = (act & ((r0a < 0) | (r0a >= l0) | (r1a < 0) | (r1a >= l1))).sum(
         dim=1).to(torch.int32)
     pair = r0a.clamp(0, l0 - 1) * l1 + r1a.clamp(0, l1 - 1)
-    out, mask, ovf = bucket_shards(pair, cat_act, flat, n, l0 * l1, k)
+    out, mask, ovf = bucket_shards(pair, act, flat, n, l0 * l1, k)
     return fast3d._safe_dead_slots(
         FluidBuckets3D(*out, mask=mask.to(torch.float32),
-                       overflow=b.overflow + ovf + drop0 + hop_drop)
+                       overflow=b.overflow + ovf + drop + hop_drop)
     )
 
 
 def make_run(scene: Scene, spec: FastDomain3DSpec, mesh: SlabMesh):
     """`run(b, n_substeps, stats=None, plain=False, t0=None)`: the sharded
-    3D stepper with the collective rebucket decision of fast_domain3d.py:
-    317-333 before each substep (one host read per substep); substep j of
-    every shard sees t0 + j dt (fast_domain3d.py:332-345)."""
+    3D stepper with the collective rebucket decision over both mesh axes
+    (fast_domain3d.py:291-350) before each substep (one host read per
+    substep); substep j of every shard sees t0 + j dt."""
     cfg = scene.cfg
     fast3d.check_supported(scene, sharded=True)
     gspec = spec.global_spec
-    ctx = FastDomain3DCtx(mesh, spec.rows_per_shard0, rows1=spec.local_spec.rows1)
+    ctx = context(spec, mesh)
 
     def run(b: FluidBuckets3D, n_substeps: int, stats: RunStats = None,
             plain: bool = False, t0=None) -> FluidBuckets3D:
         stats = RunStats() if stats is None else stats
+        row0, row1 = ctx.pencil_offsets(b.device)
         for t in fast3d.substep_times(scene, t0, n_substeps):
             stats.host_reads += 1
-            flags = fast3d._margin_pencils(b, cfg, gspec).view(mesh.n, -1).any(dim=1)
+            flags = fast3d._margin_pencils(b, cfg, gspec, row0, row1).view(mesh.n, -1).any(dim=1)
             if bool(mesh.any(flags)):
                 b = rebucket_migrate(b, scene, spec, mesh)
                 stats.rebuckets += 1

@@ -121,7 +121,7 @@ def main() -> int:
         cfg = scene.cfg
         x = p.x.to(dev)
         offsets, base, _, _ = stabilized._weights(stabilized._grid_coords(x, cfg), cfg)
-        flat, in_bounds = transfer.flat_node_index(base, offsets, cfg.grid_shape)
+        flat, in_bounds, _ = transfer.flat_node_index(base, offsets, cfg.grid_shape)
         c = 2 * cfg.dim
         grid = torch.rand(cfg.grid_shape + (c,), device=dev,
                           generator=torch.Generator(device=dev).manual_seed(1))

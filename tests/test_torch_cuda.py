@@ -1086,6 +1086,12 @@ def _general_errors(got, want):
     return out
 
 
+# The general path in float32, card against CPU after one substep, v and C
+# to this fraction of their scale.  The scatter kernel adds in the CPU's
+# order; what is left is the elementwise passes and reductions.
+GENERAL_F32_TOL = 1e-6
+
+
 def _perturbed_dam(dtype, **switches):
     cfg = MPMConfig(dtype=np.dtype(dtype).name, num_grids=37, dt=2e-5, num_particles_x=16,
                     num_particles_y=32, **switches)
@@ -1120,6 +1126,10 @@ def test_general_substeps_on_the_card_track_the_cpu(dev, switches):
     want = stabilized.substep(p32, scene32)
     np.testing.assert_allclose(got.x.cpu().numpy(), want.x.numpy(), rtol=0, atol=1e-7)
     np.testing.assert_allclose(got.v.cpu().numpy(), want.v.numpy(), rtol=0, atol=1e-4)
+    # The scatter adds in the CPU's order: v and C to GENERAL_F32_TOL of
+    # their scale (1e-4 while the scatter added with atomics).
+    errs = _general_errors(got, want)
+    assert max(errs["v"], errs["C"]) <= GENERAL_F32_TOL, errs
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -1221,3 +1231,147 @@ def test_p2g3d_7ch_on_an_incompressible_state_matches_plain(dev):
     want = tk3.p2g3d_plain(fields, counts, spec.rows1, args["g2"], args["dx"], args["apic"],
                            args["ext"], args["tent"])
     _close(got, want, axis=3)
+
+
+# ---------------------------------------------------------------------------
+# The general path's fixed-order scatter; p2g3d's halo1 mode; the two-axis
+# mesh's (L0, L1) windows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_scatter_kernel_equals_cpu_index_add(dev, dtype):
+    """The segment sum bitwise the CPU's `index_add_` on the same rows, at
+    the bench scale's node count (513^2, 6 channels, 2M clustered rows),
+    and its reruns bitwise equal."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    rng = np.random.default_rng(7)
+    nodes, m, c = 513 * 513, 2_000_000, 6
+    flat = torch.from_numpy(rng.integers(0, nodes // 7, m) * 7 + rng.integers(0, 3, m))
+    vals = torch.from_numpy(rng.normal(0.0, 1.0, (m, c)) * 10.0 ** rng.uniform(-5, 5, (m, 1)))
+    vals = vals.to(dtype)
+    want = torch.zeros((nodes, c), dtype=dtype).index_add_(0, flat, vals)
+    n0 = scatter.LAUNCHES["scatter"]
+    fd, vd = flat.to(dev), vals.to(dev)
+    got = scatter.scatter_add(vd, fd, nodes)
+    again = scatter.scatter_add(vd, fd, nodes, scatter.segment_plan(fd, nodes))
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter"] == n0 + 2
+    assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+
+
+def test_general_reruns_on_the_card_are_bitwise_equal(dev):
+    """tests/test_determinism.py:22-37 on the card: two 100-substep float32
+    runs of the 37^2 dam break with the stabilized switch set (F-bar's
+    cell sums and the node transfer both scatter) bitwise equal, through
+    the scatter kernel and no transfer kernel."""
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    p, scene = _perturbed_dam(np.float32, flip_blend=0.98, transfer=TransferKind.PIC,
+                              use_fbar=True, pressure_mixing_ratio=1.0)
+    tk.reset_launches()
+    scatter.reset_launches()
+    runs = [stabilized.run(to_device(p, dev), scene, 100) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter"] == 2 * 100 * 3      # cells, projection, momentum
+    assert not any(tk.LAUNCHES.values())
+    for f in dataclasses.fields(runs[0]):
+        assert torch.equal(getattr(runs[0], f.name), getattr(runs[1], f.name)), f.name
+
+
+@pytest.mark.parametrize("apic,ext,tent", PREPPED_MODES, ids=PREPPED_IDS)
+def test_p2g3d_halo1_kernel_matches_plain(dev, apic, ext, tent):
+    """halo1 (G1 + 4 output rows, row j = target row j - 1) against the
+    plain version per channel, reruns bitwise equal, rows 1 .. G1 bitwise
+    the cropped mode's, and `fold_rows0_halo` of it against raw
+    `p2g3d_grid`'s halo sums."""
+    r, k, g = 24, 128, 24
+    fields, _, counts = _prepped3d(r, k, g, apic, ext, seed=70, device=dev)
+    dx = 0.4375 / (g - 5)
+    kw = dict(apic=apic, ext=ext, tent=tent)
+    n0 = tk3.LAUNCHES["p2g3d"]
+    got = tk3.p2g3d(fields, counts, r, g, dx, halo1=True, **kw)
+    again = tk3.p2g3d(fields, counts, r, g, dx, halo1=True, **kw)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["p2g3d"] == n0 + 2
+    want = tk3.p2g3d_plain(fields, counts, r, g, dx, halo1=True, **kw)
+    assert got.shape == want.shape == (r, tk3.NT, g + 4, 11 if ext else 7, g)
+    _close(got, want, axis=3)
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, :, 1 : g + 1], tk3.p2g3d(fields, counts, r, g, dx, **kw))
+    raw = tk3.p2g3d_grid(fields, counts, r, g, dx, raw=True, **kw)[0]
+    _close(tk3.fold_rows0_halo(got), raw, axis=2)
+
+
+@pytest.mark.parametrize("switches,n_sub", [((), 10), (tuple(dict(
+    use_fbar=True, use_penalty_ebc=True, pressure_mixing_ratio=1.0, flip_blend=0.98,
+    transfer=TransferKind.PIC).items()), 1)], ids=["fused", "stabilized"])
+def test_two_axis_windows_match_plain(dev, switches, n_sub):
+    """The 2 x 2 mesh's kernels on its (L0, L1) windows (32^3, 16 x 16
+    pencils a window, positions local to each window on both axes): raw
+    `p2g3d_grid` and `g2p3d` against their plain versions; then n_sub
+    substeps of the two-axis run, card against CPU: x to 1e-6, v and C to
+    REL of their scale, J to 1e-6, slot for slot.  G2P's C is held to one
+    term's size, D^-1 dx |v|max, as its terms cancel (this file's rule).
+    The stabilized set runs one substep: F-bar's nodal Jbar is 1 less a
+    few ulps, so the sums' other order moves the pressure by parts in 1e5
+    a substep (tests/test_torch_fast_domain3d.py says the same of the
+    one-axis shards); an H100 80GB HBM3 at 700 W read v 2.5e-4 of its scale
+    after 10."""
+    from mpm_flip98a_tpu_torch.parallel import SlabMesh
+    from mpm_flip98a_tpu_torch.parallel import fast_domain3d as fd3
+
+    p, scene = scenes.dam_break_3d(num_grids=32, particles_per_axis=(16, 16, 20), dt=2e-5,
+                                   **dict(switches))
+    cfg = scene.cfg
+    spec = fd3.FastDomain3DSpec.for_particles(cfg, (2, 2), p)
+    gspec = spec.global_spec
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        mesh = SlabMesh(2, where, 2)
+        b = fd3.distribute(p, cfg, spec, mesh)
+        if where.type == "cuda":
+            ctx = fd3.context(spec, mesh)
+            x0s, x1s = fast3d._shifts(b, cfg, ctx)
+            x0k, x1k = b.x0 - x0s, b.x1 - x1s
+            if fast3d.uses_fused(scene):
+                fields, counts, mask, state = fast3d.transfer_inputs(b, gspec, cfg, x0k, x1k)
+            else:
+                fields = fast3d.prepped_fields(b, scene, gspec, x0k, x1k)
+                counts, state = fast3d.pencil_counts(b), None
+                mask = fast3d._shaped(b.mask, gspec)
+            kw = dict(shards=4, **fast3d.p2g_args(scene, raw=True))
+            raw = tk3.p2g3d_grid(fields, counts, gspec.rows1, raw=True, **kw)
+            want = tk3.p2g3d_raw_plain(fields, counts, **kw)
+            assert raw.shape == (4, 16 + 4, 16 + 4, want.shape[3], 32)
+            _close(raw, want, axis=3)
+            grid = fast3d._grid_update(ctx.halo_sync(want), scene, ctx.row_index0(where),
+                                       ctx.row_index1(where), None, ctx)
+            dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
+            g2p = [f(*fields[:3], mask, counts, grid, float(cfg.dx), dinv,
+                     *(() if state is None else (state, float(cfg.flip_blend), float(cfg.dt))))
+                   for f in (tk3.g2p3d, tk3.g2p3d_plain)]
+            err = (g2p[0] - g2p[1]).abs().double().amax(dim=(0, 1, 3))
+            scale = g2p[1].abs().double().amax(dim=(0, 1, 3))
+            scale[6:15] = dinv * float(cfg.dx) * float(grid[:, :, :, :3].abs().max())  # C
+            scale[15] = max(float(scale[15]), 1.0)                 # J or Jbar near 1
+            assert bool((err <= REL * scale.clamp(min=1e-30)).all()), (err / scale).tolist()
+            tk3.reset_launches()
+        out[where.type] = fd3.make_run(scene, spec, mesh)(b, n_sub)
+        if where.type == "cuda":
+            assert tk3.LAUNCHES["p2g3d_grid"] == tk3.LAUNCHES["g2p3d"] == n_sub
+    got, want = out["cuda"], out["cpu"]
+    assert int(got.overflow.sum()) == 0
+    np.testing.assert_array_equal(got.mask.cpu().numpy(), want.mask.numpy())
+    for name in ("x0", "x1", "x2"):
+        np.testing.assert_allclose(getattr(got, name).cpu().numpy(), getattr(want, name).numpy(),
+                                   atol=1e-6)
+    for group, tol in ((("v0", "v1", "v2"), REL),
+                       (tuple(f"C{a}{c}" for a in range(3) for c in range(3)), REL),
+                       (("J",), None)):
+        have = torch.stack([getattr(got, g).cpu() for g in group]).double()
+        ref = torch.stack([getattr(want, g) for g in group]).double()
+        bound = 1e-6 if tol is None else tol * float(ref.abs().max())
+        assert float((have - ref).abs().max()) <= bound, group

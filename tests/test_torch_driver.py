@@ -85,18 +85,22 @@ def test_cli_runs_elastic_drop_on_cpu(tmp_path):
 
 
 def test_unported_entry_points_raise(tmp_path):
-    """Every JAX scenario is ported (dam2d_incompressible runs:
-    tests/test_torch_projection.py); the two-axis mesh (item 7) and
-    checkpoints (item 2) still raise, naming their item."""
+    """Every JAX scenario and entry point is ported: dam2d_incompressible
+    runs (tests/test_torch_projection.py), and the two entry points that
+    raised until the two-axis mesh (item 7) and checkpoints (item 2) were
+    ported now run: `--devices 2x2` (dam3d on 2 x 2 windows) and
+    `--checkpoint` (tests/test_torch_checkpoint.py holds them in full)."""
     assert driver.UNPORTED_SCENARIOS == {}
     assert "dam2d_incompressible" in driver.SCENARIOS
-    out = ["--out", str(tmp_path), "--device", "cpu", "--frames", "1", "--substeps", "1"]
-    for extra, item in (
-        (["--scenario", "dam3d", "--path", "fast", "--devices", "2x2"], "item 7"),
-        (["--checkpoint", str(tmp_path / "ck.npz")], "item 2"),
+    out = ["--out", str(tmp_path), "--device", "cpu", "--frames", "1", "--substeps", "1",
+           "--no-gif", "--sync-io"]
+    for extra, check in (
+        (["--scenario", "dam3d", "--path", "fast", "--devices", "2x2"],
+         lambda sim: sim.mesh.n0 == sim.mesh.n1 == 2 and int(sim.state.overflow.sum()) == 0),
+        (["--checkpoint", str(tmp_path / "ck.npz")],
+         lambda sim: os.path.exists(tmp_path / "ck.npz") and sim.frame_count == 1),
     ):
-        with pytest.raises(NotImplementedError, match=item):
-            driver.main(out + extra)
+        assert check(driver.main(out + extra)), extra
 
 
 @pytest.mark.parametrize("scenario,devices,substeps", [
@@ -124,9 +128,11 @@ def test_devices_parsing(tmp_path):
     assert driver.parse_devices("8") == 8
     assert driver.parse_devices("2x4") == (2, 4)
     p, scene = driver.SCENARIOS["dam3d"]()
-    with pytest.raises(NotImplementedError, match="two-axis.*ROADMAP queue 1, item 7"):
-        driver.Simulation(p, scene, path="fast", devices=(2, 2), device="cpu",
-                          out_dir=str(tmp_path))
+    # N0xN1: the two-axis mesh, N0 N1 shards on the one device.
+    sim = driver.Simulation(p, scene, path="fast", devices=(2, 2), device="cpu",
+                            out_dir=str(tmp_path))
+    assert sim.devices == 4 and (sim.mesh.n0, sim.mesh.n1) == (2, 2)
+    assert (sim.spec.n_shards1, sim.spec.rows_per_shard1) == (2, 32)
     p2, scene2 = driver.SCENARIOS["dam2d_flip98"]()
     with pytest.raises(ValueError, match="3D-only"):
         driver.Simulation(p2, scene2, path="fast", devices=(2, 2), device="cpu",

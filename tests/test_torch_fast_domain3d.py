@@ -198,12 +198,12 @@ def _jax_setup(n):
 
 
 def test_spec_and_distribute_match_jax():
-    """The port's spec is the JAX one's less the one-axis constants
-    n_shards1 = 1 and rows_per_shard1 = G."""
+    """The port's spec is the JAX one's, the one-axis constants n_shards1 =
+    1 and rows_per_shard1 = G included."""
     scene, mesh, spec, b = _jax_setup(4)
     _, _, _, spec_t, b_t = _setup(4)
     want = dataclasses.asdict(spec)
-    assert (want.pop("n_shards1"), want.pop("rows_per_shard1")) == (1, SMALL["num_grids"])
+    assert (want["n_shards1"], want["rows_per_shard1"]) == (1, SMALL["num_grids"])
     assert want == dataclasses.asdict(spec_t)
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(b_t, name).numpy(), np.asarray(getattr(b, name)),
@@ -277,8 +277,14 @@ def test_sharded_run_tracks_the_single_device_port(n, switches):
 
 def test_two_axis_and_relative_floor_routes():
     p_t, scene_t, mesh_t, spec_t, b_t = _setup(2)
-    with pytest.raises(NotImplementedError, match="two-axis.*ROADMAP queue 1, item 7"):
-        fd3.FastDomain3DSpec.for_particles(scene_t.cfg, (2, 2), p_t)
+    # The two-axis spec (tests/test_torch_fast_domain3d_2axis.py runs it):
+    # 2 x 2 windows of 8 x 8 pencils; one axis is its n1 = 1 case.
+    spec2 = fd3.FastDomain3DSpec.for_particles(scene_t.cfg, (2, 2), p_t)
+    assert (spec2.n_shards, spec2.rows_per_shard0, spec2.rows_per_shard1) == (4, 8, 8)
+    assert spec2.global_spec == dataclasses.replace(spec2.local_spec, rows0=32)
+    assert fd3.FastDomain3DSpec.for_particles(scene_t.cfg, (2, 1), p_t) == spec_t
+    with pytest.raises(ValueError, match="at least 4 rows"):
+        fd3.FastDomain3DSpec.for_particles(scene_t.cfg, (2, 6), p_t)
     # The fused branch with the relative floor: no single-device route (the
     # reference's raises), but slab shards run it, the floor per shard.
     rel = dataclasses.replace(scene_t, mass_floor=0.0)

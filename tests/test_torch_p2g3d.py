@@ -342,9 +342,53 @@ def test_p2g3d_grid_needs_the_node_arguments(gone):
 
 
 def test_unported_modes_raise():
+    """`halo1` is ported (test_p2g3d_halo1_matches_jax); the stress mode
+    still raises, naming its ROADMAP item."""
     counts = torch.from_numpy(COUNTS)
     f7, f11 = _t(_fields("apic7")), _t(_fields("pic11"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk3.p2g3d(f7, counts, R, G, DX, halo1=True)
+    assert tk3.p2g3d(f7, counts, R, G, DX, halo1=True).shape == (R, tk3.NT, G + 4, 7, G)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tk3.p2g3d(f7[:18], counts, R, G, DX, stress="linear")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_halo1(mode):
+    apic, ext, tent = MODES[mode]
+    return np.array(tk3_jax.p2g3d(
+        _j(_fields(mode)), jnp.asarray(COUNTS), R, G, DX, apic=apic, ext=ext, tent=tent,
+        halo1=True))
+
+
+@pytest.mark.parametrize("mode", ["apic7", "pic11_tent"])
+def test_p2g3d_halo1_matches_jax(mode):
+    """halo1 (transfer3d.py:366-372): the axis-1 plane uncropped, row j =
+    target row j - 1, to 1e-6 of each channel's max; its rows 1 .. G are
+    the cropped mode's output bit for bit, and the edge rows hold the taps
+    that mode drops (this file's slots sit on both axis-1 edges)."""
+    apic, ext, tent = MODES[mode]
+    want = _jax_halo1(mode)
+    args = (_t(_fields(mode)), torch.from_numpy(COUNTS), R, G, DX)
+    kw = dict(apic=apic, ext=ext, tent=tent)
+    got = tk3.p2g3d(*args, **kw, halo1=True).numpy()
+    nch = 11 if ext else 7
+    assert got.shape == want.shape == (R, tk3.NT, G + 4, nch, G)
+    _close_per_channel(got, want, axis=3)
+    np.testing.assert_array_equal(got[:, :, 1 : G + 1], tk3.p2g3d(*args, **kw).numpy())
+    assert np.abs(got[:, :, 0]).sum() > 0 and np.abs(got[:, :, G + 1 :]).sum() > 0
+
+
+@pytest.mark.parametrize("mode", ["apic7", "pic11"])
+def test_fold_rows0_halo_of_halo1_is_raw_p2g3d_grid(mode):
+    """tests/test_p2g_grid.py:150-166's twin: `fold_rows0_halo` of the
+    halo1 expanded sums is raw `p2g3d_grid`'s (R0 + 4, R1 + 4) halo sums,
+    up to the order of the sums (1e-6 of each channel's max)."""
+    apic, ext, _ = MODES[mode]
+    args = (_t(_fields(mode)), torch.from_numpy(COUNTS))
+    folded = tk3.fold_rows0_halo(tk3.p2g3d(*args, R, G, DX, apic=apic, ext=ext, halo1=True))
+    raw = tk3.p2g3d_raw_plain(*args, G, DX, apic=apic, ext=ext)
+    assert folded.shape == raw.shape == (R + 4, R + 4, 11 if ext else 7, G)
+    _close_per_channel(folded.numpy(), raw.numpy(), axis=2)
+    np.testing.assert_array_equal(tk3.fold_rows0_halo(tk3.p2g3d(*args, R, G, DX, apic=apic,
+                                                                ext=ext))[1 : R + 1].numpy(),
+                                  tk3.fold_rows0(tk3.p2g3d(*args, R, G, DX, apic=apic,
+                                                           ext=ext)).numpy())
