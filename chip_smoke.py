@@ -249,7 +249,30 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                stab3d-8M's 2 x 2 windows and a ragged APIC case (per
                channel, mass sum), fold_rows0_halo of it per shard against
                raw p2g3d_grid, reruns bitwise equal, time and bound; then
-               the {"port13": {...}} line.
+               the {"port13": {...}} line;
+41. kernels:fused2d  the fully fused 2D substep's kernel modes against
+               their plain versions: p2g_grid(raw=False) at bench 1M
+               (fused, slip), stab1M (prepped 9 channels, penalty) and on
+               plow2d's state with its paddle (a kinematic collider) in
+               the column (per channel, pad rows exactly 0, against the
+               node pass of its own raw sums, reruns bitwise equal);
+               g2p(update=True) unpadded, prepadded on p2g_grid's grid and
+               on bench 1M's 4 shards (the dead slots' fill exact, reruns);
+               times and bounds;
+42. main:fused2d  bench 1M under MPM_P2G_GRID=1, MPM_FUSE2D_G2P=1 and
+               both, set and restored inside the process: one substep
+               against the default route (x 1e-6; v, C 1e-5 of their max;
+               J 1e-6), 100 with launches and the host checks, F left
+               alone by the fused G2P, reruns bitwise equal, ms per
+               substep of the four routes in turn (median of 3 x 100), with
+               --profile busy time, idle share and device kernels a
+               substep; the dam2d_flip98 and plow2d CLIs with both
+               variables (2 frames x 200); bench 1M in 4 shards with the
+               fused G2P against one device (sharded_against_single);
+43. kernels:stress3d  p2g3d(stress=...) against plain at slab 8M (linear)
+               and on a ragged APIC Tait case, reruns bitwise equal,
+               fold_rows0_halo of its halo1 output against raw p2g3d_grid
+               (stress), time and bound; then the {"fused2d": {...}} line.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -273,7 +296,11 @@ under "incomp1M_*" (p2g_fused, g2p), "incomp1Mx4_*" (p2g_grid, g2p),
 "incomp8M_*" (p2g3d with 7 channels, g2p3d) and "incomp8Mx4_*"
 (p2g3d_grid raw, g2p3d); p2g3d's halo1 mode under "halo1_*",
 p2g3d_grid's raw mode and g2p3d on the two-axis windows under
-"win2_<cell>_*", and "scatter", the general path's fixed-order scatter
+"win2_<cell>_*", p2g_grid's non-raw mode under "finished_*" (with
+"finished_prepped_*" and "finished_colliders_max_abs_err"), g2p's update
+mode under "update_*" (with "update_prepadded_*" and "update_sharded_*"),
+p2g3d's stress mode under "stress_*" (0 launches: no path runs it), and
+"scatter", the general path's fixed-order scatter
 (not a TPU kernel), with "equal_to_cpu", "rerun_bitwise_equal",
 "plan_ms" and its slab 1M numbers under "slab1M_*"); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -282,6 +309,7 @@ p2g3d_grid's raw mode and g2p3d on the two-axis windows under
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1194,7 +1222,7 @@ def compare_p2g_grid(tag, data, counts, kw, shards, g, dx, card):
     from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
 
     got = tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw)
-    want = tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw)
+    want = tk.p2g_grid_plain(data, counts, g, dx, raw=True, shards=shards, **kw)
     err, rel = scaled_errors(got, want, axis=2)
     del want
     l = data.shape[0] // shards
@@ -1453,8 +1481,8 @@ def sharded2d_phases(dev, card, args, err, kernel_ms, plain_ms, bounds, launches
         ACHIEVED[key] = achieved(f"p2g_grid at {tag} in {shards} shards",
                                  p2g_grid_bytes(data, counts, shards, raw.shape[2], g),
                                  kernel_ms[key], card)
-        plain_ms[key] = cuda_ms(lambda: tk.p2g_grid_plain(data, counts, g, dx, shards=shards,
-                                                          **kw), reps=3, warm=1)
+        plain_ms[key] = cuda_ms(lambda: tk.p2g_grid_plain(data, counts, g, dx, raw=True,
+                                                          shards=shards, **kw), reps=3, warm=1)
         bounds[key] = p2g_grid_bound(data, counts, shards, raw.shape[2], g)
         kernel_ms[gkey] = cuda_ms(lambda: tk.g2p(pdata2, counts, grid, dx, dinv,
                                                  prepadded=True))
@@ -1676,13 +1704,14 @@ def sharded3d_phases(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, l
 
 def penetration(sim):
     """The deepest particle inside any of the scene's colliders at their
-    final position (signed distance at the particles, float64), in dx."""
+    final position (signed distance at the particles, float64), in dx;
+    -inf without colliders."""
     from mpm_flip98a_tpu_torch.models import colliders
 
     x = sim.positions().astype(np.float64)
     coords = [torch.from_numpy(np.ascontiguousarray(x[:, a])) for a in range(x.shape[1])]
-    phi = min(float(colliders.phi_normal(c, coords, sim.total_time)[0].min())
-              for c in sim.scene.colliders)
+    phi = min((float(colliders.phi_normal(c, coords, sim.total_time)[0].min())
+               for c in sim.scene.colliders), default=np.inf)
     return -phi / sim.cfg.dx
 
 
@@ -2943,8 +2972,8 @@ def incomp1m(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, launches)
     name = "incomp1Mx4_p2g_grid"
     kernel_ms[name] = cuda_ms(lambda: tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards,
                                                   **kw))
-    plain_ms[name] = cuda_ms(lambda: tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw),
-                             reps=3, warm=1)
+    plain_ms[name] = cuda_ms(lambda: tk.p2g_grid_plain(data, counts, g, dx, raw=True,
+                                                       shards=shards, **kw), reps=3, warm=1)
     bounds[name] = p2g_grid_bound(data, counts, shards, raw.shape[2], g)
     grid = fast2d._grid_update2d(ctx.halo_sync(raw), scene, ctx.row_index0(dev), domain=ctx)
     err["incomp1Mx4_g2p"] = compare_g2p("main:incomp1M x4", pdata2, counts, grid, dx, dinv,
@@ -3842,12 +3871,450 @@ def port_phases(dev, card, err, kernel_ms, plain_ms, bounds, launches):
     return readings
 
 
+# ---------------------------------------------------------------------------
+# The fully fused 2D substep (MPM_P2G_GRID=1, MPM_FUSE2D_G2P=1) and p2g3d's
+# stress mode
+# ---------------------------------------------------------------------------
+
+ROUTE_VARS = ("MPM_P2G_GRID", "MPM_FUSE2D_G2P")
+ROUTES = {"default": ("0", "0"), "p2g_grid": ("1", "0"), "fuse_g2p": ("0", "1"),
+          "both": ("1", "1")}
+FUSED2D = {}                 # the {"fused2d": ...} line
+
+
+@contextlib.contextmanager
+def routes_env(setting):
+    """fast2d's two route variables set to ROUTES[setting] for the block,
+    restored after."""
+    old = {k: os.environ.get(k) for k in ROUTE_VARS}
+    os.environ.update(zip(ROUTE_VARS, ROUTES[setting]))
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def compare_finished(tag, data, counts, kw, card):
+    """`p2g_grid(raw=False)` against its plain version per channel, pad
+    rows exactly zero, reruns bitwise equal, and against the node pass of
+    its own raw sums; returns the worst absolute error."""
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+
+    got = tk.p2g_grid(data, counts, **kw)
+    want = tk.p2g_grid_plain(data, counts, **kw)
+    err, rel = scaled_errors(got, want, axis=1)
+    r = data.shape[0]
+    pads = int(got[0].count_nonzero()) + int(got[r + 1 :].count_nonzero())
+    node = {n: kw[n] for n in ("dt", "gx_", "gy_", "floor", "lo", "hi", "wall", "beta",
+                               "colliders", "tcol")}
+    raw_kw = {n: v for n, v in kw.items() if n not in node}
+    raw = tk.p2g_grid(data, counts, raw=True, **raw_kw)[0]
+    _, rel_raw = scaled_errors(got, tk.grid_update2d_plain(raw, r, **node, dx=kw["dx"]), axis=1)
+    say(f"[kernels:fused2d {tag}] p2g_grid finished grid {tuple(got.shape)}: max_abs_err per "
+        f"channel {['%.3e' % e for e in err]}, scaled {['%.2e' % x for x in rel]} (tol "
+        f"{KERNEL_REL_TOL}); non-zero pad entries {pads} (must be 0); against the node pass "
+        f"of its raw sums {max(rel_raw):.2e}  [{card}]")
+    check(max(rel) <= KERNEL_REL_TOL, f"{tag}: p2g_grid (non-raw) disagrees with its plain version")
+    check(max(rel_raw) <= KERNEL_REL_TOL, f"{tag}: p2g_grid (non-raw) is not its raw sums finished")
+    check(pads == 0, f"{tag}: p2g_grid (non-raw) wrote {pads} non-zero pad entries")
+    rerun_equal(f"kernels:fused2d {tag}", "p2g_grid_finished",
+                lambda: tk.p2g_grid(data, counts, **kw), card)
+    return max(err), got
+
+
+def compare_g2p_update(tag, pdata8, counts, grid, dx, dinv, prepadded, card):
+    """`g2p(update=True)` against its plain version (C scaled by one
+    term, dinv dx |v|max, as compare_g2p does), the dead slots' fill
+    exact, reruns bitwise equal; returns the worst absolute error."""
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+
+    kw = dict(prepadded=prepadded, update=True, alpha=0.98, dtv=BENCH["dt"])
+    got = tk.g2p(pdata8, counts, grid, dx, dinv, **kw)
+    want = tk.g2p_plain(pdata8, counts, grid, dx, dinv, **kw)
+    vmax = grid.movedim(-2, 0)[:2].reshape(2, -1).abs().amax(dim=1).double()
+    scale = want.abs().amax(dim=(0, 2)).double()
+    scale[4:8] = (dinv * dx * vmax).repeat_interleave(2)
+    err, rel = scaled_errors(got, want, axis=1, scale=scale)
+    dead = torch.arange(pdata8.shape[2], device=counts.device)[None, :] >= counts[:, None]
+    fill_ok = (torch.equal(got[:, :2].transpose(0, 1)[:, dead],
+                           pdata8[:, 6:8].transpose(0, 1)[:, dead])
+               and not bool(got[:, 2:8].transpose(0, 1)[:, dead].any())
+               and bool((got[:, 8][dead] == 1.0).all()))
+    say(f"[kernels:fused2d {tag}] g2p update mode, prepadded {prepadded}, grid "
+        f"{tuple(grid.shape)}: max_abs_err per channel {['%.3e' % e for e in err]}, scaled "
+        f"{['%.2e' % x for x in rel]} (tol {KERNEL_REL_TOL}); {int(dead.sum())} dead slots "
+        f"filled exactly {fill_ok}  [{card}]")
+    check(max(rel) <= KERNEL_REL_TOL, f"{tag}: g2p (update) disagrees with its plain version")
+    check(fill_ok, f"{tag}: g2p (update) dead slots not x / 0 / 1")
+    rerun_equal(f"kernels:fused2d {tag}", "g2p_update",
+                lambda: tk.g2p(pdata8, counts, grid, dx, dinv, **kw), card)
+    return max(err)
+
+
+def kernels_fused2d(dev, card, err, kernel_ms, plain_ms, bounds):
+    """Phase 41, kernels:fused2d; returns the bench particles and scene."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import fast2d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.parallel import fast_domain
+
+    cfg = MPMConfig(**BENCH, transfer=TransferKind.PIC)
+    cfg_stab = MPMConfig(**BENCH, **STAB, transfer=TransferKind.PIC)
+    p_big, scene = scenes.dam_break_2d(cfg, dtype=np.float32)
+    spec = fast2d.FastSpec.for_particles(cfg, p_big)
+    b = fast2d.run(fast2d.from_particles(p_big, cfg, spec, dev), scene, spec, 20)
+    g, dx = cfg.num_grids, float(cfg.dx)
+    dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
+    sdata, pdata8, counts = fast2d.transfer_inputs(b, scene, update=True)
+    kw = dict(fused=True, **fast2d.p2g_args(scene), **fast2d.p2g_grid_args(scene))
+    err["p2g_grid_finished"], finished = compare_finished("bench", sdata, counts, kw, card)
+    r, _, k = sdata.shape
+    live = int(counts.sum())
+    nodes = (r + 4) * g
+    kernel_ms["p2g_grid_finished"] = cuda_ms(lambda: tk.p2g_grid(sdata, counts, **kw))
+    plain_ms["p2g_grid_finished"] = cuda_ms(lambda: tk.p2g_grid_plain(sdata, counts, **kw),
+                                            reps=3, warm=1)
+    # Live slots' 11 fields + counts in, the finished (R + 4, 4, G) grid out;
+    # 9 taps x 5 channels of multiply-adds per live slot and ~20 operations
+    # of stress, ~15 per node.
+    bounds["p2g_grid_finished"] = bound(4 * (11 * live + r + 4 * nodes),
+                                        live * (9 * 5 * 2 + 20) + 15 * nodes)
+    # g2p's update mode: unpadded on the default route's grid, prepadded on
+    # p2g_grid's finished grid, and on 4 shards' halo-synced grids.
+    grid4 = fast2d._grid(sdata, counts, scene, False, None)
+    err["g2p_update"] = compare_g2p_update("bench", pdata8, counts, grid4, dx, dinv, False, card)
+    err["g2p_update_prepadded"] = compare_g2p_update("bench", pdata8, counts, finished[None],
+                                                     dx, dinv, True, card)
+    kw_u = dict(update=True, alpha=0.98, dtv=BENCH["dt"])
+    kernel_ms["g2p_update"] = cuda_ms(lambda: tk.g2p(pdata8, counts, grid4, dx, dinv, **kw_u))
+    plain_ms["g2p_update"] = cuda_ms(
+        lambda: tk.g2p_plain(pdata8, counts, grid4, dx, dinv, **kw_u), reps=3, warm=1)
+    kernel_ms["g2p_update_prepadded"] = cuda_ms(
+        lambda: tk.g2p(pdata8, counts, finished[None], dx, dinv, prepadded=True, **kw_u))
+    # Live slots' 8 rows, dead slots' x (2) + counts + the grid in; every
+    # slot's 9 rows out; 9 taps x 8 sums and ~15 operations of update per
+    # live slot.
+    bounds["g2p_update"] = bound(
+        4 * (8 * live + 2 * (r * k - live) + r + 4 * r * g + 9 * r * k), live * (9 * 8 * 2 + 15))
+    sim4 = driver.Simulation(p_big, scene, path="fast", out_dir=tempfile.gettempdir(),
+                             device=dev, devices=4)
+    sim4.step_frame(20)
+    ctx = fast_domain.FastDomainCtx(sim4.mesh, sim4.spec.rows_per_shard)
+    b4 = sim4.state
+    d4, pdata8_s, c4 = fast2d.transfer_inputs(b4, scene, ctx, update=True)
+    grid_s = fast2d._grid(d4, c4, scene, False, ctx)
+    err["g2p_update_sharded"] = compare_g2p_update("bench x4", pdata8_s, c4, grid_s, dx, dinv,
+                                                   True, card)
+    kernel_ms["g2p_update_sharded"] = cuda_ms(
+        lambda: tk.g2p(pdata8_s, c4, grid_s, dx, dinv, prepadded=True, **kw_u))
+    del sim4, b4, d4, c4, grid_s, pdata8_s, grid4, finished, pdata8
+
+    # stab1M: the prepped 9-channel branch with the penalty EBC.
+    p_s, scene_s = scenes.dam_break_2d(cfg_stab, dtype=np.float32)
+    spec_s = fast2d.FastSpec.for_particles(cfg_stab, p_s)
+    b_s = fast2d.run(fast2d.from_particles(p_s, cfg_stab, spec_s, dev), scene_s, spec_s, 20)
+    pdata, _, counts_s = fast2d.transfer_inputs(b_s, scene_s)
+    kw_s = dict(fused=False, **fast2d.p2g_args(scene_s), **fast2d.p2g_grid_args(scene_s))
+    check(kw_s["wall"] == "penalty" and pdata.shape[1] == 17, "stab1M: not the prepped penalty")
+    err["p2g_grid_finished_prepped"], _ = compare_finished("stab1M", pdata, counts_s, kw_s, card)
+    kernel_ms["p2g_grid_finished_prepped"] = cuda_ms(lambda: tk.p2g_grid(pdata, counts_s, **kw_s))
+    live_s = int(counts_s.sum())
+    bounds["p2g_grid_finished_prepped"] = bound(
+        4 * (17 * live_s + r + 7 * nodes), live_s * 9 * 9 * 2 + 25 * nodes)
+    del p_s, b_s, pdata, counts_s
+
+    # plow2d after 200 substeps, its paddle (a kinematic sticky cylinder
+    # sweeping at 0.25 l/s from x = 0.8 l) placed by tcol = 2.4 s at 0.2 l,
+    # inside the column.
+    p_p, scene_p = driver.SCENARIOS["plow2d"]()
+    cfg_p = scene_p.cfg
+    spec_p = fast2d.FastSpec.for_particles(cfg_p, p_p)
+    b_p = fast2d.run(fast2d.from_particles(p_p, cfg_p, spec_p, dev), scene_p, spec_p, 200, t0=0.0)
+    tcol = float(np.float32(2.4))
+    dp, _, cp = fast2d.transfer_inputs(b_p, scene_p)
+    kw_p = dict(fused=fast2d.uses_fused(scene_p), **fast2d.p2g_args(scene_p),
+                **fast2d.p2g_grid_args(scene_p, tcol))
+    check(kw_p["tcol"] == tcol and len(kw_p["colliders"]) == 1, "plow2d: no moving collider")
+    err["p2g_grid_finished_colliders"], got_p = compare_finished(
+        "plow2d paddle", dp, cp, kw_p, card)
+    free = tk.p2g_grid(dp, cp, **{**kw_p, "colliders": ()})
+    moved = int((free[:, :2] != got_p[:, :2]).any(dim=1).sum())
+    say(f"[kernels:fused2d plow2d paddle] nodes whose v_new the paddle changed at t = {tcol!r}: "
+        f"{moved}  [{card}]")
+    check(moved > 0, "plow2d: the paddle changed no node")
+    del b_p, dp, cp, free, got_p
+    for name in ("p2g_grid_finished", "p2g_grid_finished_prepped", "g2p_update"):
+        say(f"[kernels:fused2d] {name}: kernel {kernel_ms[name]:.4f} ms (CUDA events, 20 calls)"
+            f"{', plain %.4f ms (3 calls)' % plain_ms[name] if name in plain_ms else ''}, bound "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
+    say(f"[kernels:fused2d] g2p update prepadded {kernel_ms['g2p_update_prepadded']:.4f} ms, on "
+        f"4 shards {kernel_ms['g2p_update_sharded']:.4f} ms  [{card}]")
+    torch.cuda.empty_cache()
+    return p_big, scene
+
+
+def profile_route(path, run_n, n_sub, wall_ms, tag, card):
+    """profile_calls, and the device kernels a substep from the same trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    busy = profile_calls(path, run_n, n_sub, wall_ms, tag, card)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_n(n_sub)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    say(f"[timing:{tag}] device kernels (and copies) a substep: {n / n_sub:.1f}  [{card}]")
+    return busy, n / n_sub
+
+
+def main_fused2d(dev, card, io_ok, profile_dir, p_big, scene, launches):
+    """Phase 42, main:fused2d."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.models import fast2d
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    tmp = tempfile.gettempdir()
+    mass0 = float(p_big.mass.to(torch.float32).double().sum())
+    sims, one = {}, {}
+    for setting in ROUTES:
+        with routes_env(setting):
+            sims[setting] = sim = driver.Simulation(p_big, scene, path="fast", out_dir=tmp,
+                                                    device=dev)
+            check(fast2d.routes(scene) == tuple(v == "1" for v in ROUTES[setting]),
+                  f"{setting}: fast2d.routes reads {fast2d.routes(scene)}")
+            reset_counts()
+            sim.run(1, 1, gif=False, verbose=False, write_frames=False)
+            one[setting] = dataclasses.replace(sim.state)
+            sim.run(1, 99, gif=False, verbose=False, write_frames=False)
+            torch.cuda.synchronize()
+            got = {**kernel_counts(), **tk3.MODE_LAUNCHES}
+        grid, fuse = (v == "1" for v in ROUTES[setting])
+        check(got["p2g_grid"] == (100 if grid else 0) and got["g2p"] == 100
+              and got["p2g_fused"] == (0 if grid else 100) and got["p2g"] == 0,
+              f"{setting}: launches {got} for 100 substeps")
+        launches[f"fused2d {setting}"] = got
+        if setting != "default":
+            ref = one["default"]
+            x1 = float(max((getattr(one[setting], n) - getattr(ref, n)).abs().max()
+                           for n in ("x0", "x1")))
+            e1 = state_errors(one[setting], ref, 2)
+            say(f"[main:fused2d {setting}] bench 1M, 1 substep against the default route: x "
+                f"{x1:.3e} (tol 1e-6), v {e1['v']:.3e}, C {e1['C']:.3e} of their max (tol "
+                f"{KERNEL_REL_TOL}), J {e1['J']:.3e} (tol 1e-6); launches of 100 substeps "
+                f"{got}  [{card}]")
+            check(x1 <= 1e-6 and e1["v"] <= KERNEL_REL_TOL and e1["C"] <= KERNEL_REL_TOL
+                  and e1["J"] <= 1e-6, f"{setting}: left the default route after 1 substep")
+        host_checks(f"fused2d {setting}", sim, p_big.n, mass0, card)
+        if fuse:
+            f00 = sim.state.F00[sim.state.mask > 0]
+            check(bool((f00 == 1.0).all()), f"{setting}: the fused G2P changed F")
+    del one
+    # Reruns: 2 substeps twice from the same state under each route.
+    b0, spec = sims["default"].state, sims["default"].spec
+    for setting in ("p2g_grid", "fuse_g2p", "both"):
+        with routes_env(setting):
+            first = fast2d.run(b0, scene, spec, 2)
+            again = fast2d.run(b0, scene, spec, 2)
+        same = all(torch.equal(getattr(first, f.name), getattr(again, f.name))
+                   for f in dataclasses.fields(first))
+        say(f"[main:fused2d {setting}] two runs of 2 substeps from one state bitwise equal: "
+            f"{same}  [{card}]")
+        check(same, f"{setting}: reruns differ")
+    # ms per substep: 3 x 100 substeps from one state, the four routes in turn.
+    runs = {s: [] for s in ROUTES}
+    for setting in ROUTES:
+        with routes_env(setting):
+            time_run(fast2d, b0, scene, spec, 3, False)
+    for _ in range(3):
+        for setting in ROUTES:
+            with routes_env(setting):
+                runs[setting].append(time_run(fast2d, b0, scene, spec, 100, False))
+    ms = {s: 1e3 * float(np.median(t)) / 100 for s, t in runs.items()}
+    for setting, t in runs.items():
+        say(f"[timing:fused2d {setting}] bench 1M: {ms[setting]:.4f} ms/substep (median of 3 x "
+            f"100, the four routes in turn; runs {[round(10 * x, 4) for x in t]} ms/substep)"
+            f"  [{card}]")
+    FUSED2D["ms_per_substep"] = ms
+    if profile_dir:
+        FUSED2D["busy_ms"], FUSED2D["kernels_per_substep"] = {}, {}
+        for setting in ROUTES:
+            with routes_env(setting):
+                FUSED2D["busy_ms"][setting], FUSED2D["kernels_per_substep"][setting] = (
+                    profile_route(os.path.join(profile_dir, f"profile_fused2d_{setting}.txt"),
+                                  lambda n: fast2d.run(b0, scene, spec, n), 20, ms[setting],
+                                  f"fused2d {setting}", card))
+    del sims, b0
+    torch.cuda.empty_cache()
+    # The CLIs with both variables; bench 1M in 4 shards with the fused G2P.
+    say(f"[main:fused2d] the dam2d_flip98 and plow2d CLIs with MPM_P2G_GRID=1 "
+        f"MPM_FUSE2D_G2P=1  [{card}]")
+    with routes_env("both"):
+        for scenario in ("dam2d_flip98", "plow2d"):
+            run_collider_cli(dev, card, io_ok, scenario, 2, 200, ("p2g_grid", "g2p"),
+                             ("p2g_fused", "p2g"), {})
+    with routes_env("fuse_g2p"):
+        sim, ref, got = sharded_against_single("bench fused g2p", p_big, scene, dev, 4, 100,
+                                               card)
+        del ref
+        # The sharded run alone, counted: one raw p2g_grid and one update-mode
+        # g2p per substep, no p2g_fused.
+        reset_counts()
+        sim.step_frame(20)
+        torch.cuda.synchronize()
+        got = kernel_counts()
+        launches["fused2d fuse_g2p x4"] = got
+        say(f"[main:fused2d fuse_g2p x4] the sharded run alone, 20 substeps: launches {got}"
+            f"  [{card}]")
+        check(got["p2g_grid"] == got["g2p"] == 20 and sum(got.values()) == 40,
+              f"sharded fused g2p: launches {got} for 20 substeps of the sharded run alone")
+        f00 = sim.state.F00[sim.state.mask > 0]
+        check(bool((f00 == 1.0).all()), "sharded fused g2p: F changed")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def kernels_stress3d(dev, card, err, kernel_ms, plain_ms, bounds, launches):
+    """Phase 43, kernels:stress3d.  Its 5 substeps of the 8M slab on the
+    3D fused path are a main-path window for p2g3d's stress mode."""
+    from mpm_flip98a_tpu_torch.models import fast3d, scenes
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+    p8, scene8 = scenes.slab_3d(**SLAB_8M)
+    cfg8 = scene8.cfg
+    spec8 = fast3d.FastSpec3D.for_particles(cfg8, p8)
+    b8 = fast3d.from_particles(p8, cfg8, spec8, dev)
+    reset_counts()
+    b8 = fast3d.run(b8, scene8, spec8, 5)
+    torch.cuda.synchronize()
+    got = launches["slab8M 5 substeps"] = {**kernel_counts(), **tk3.MODE_LAUNCHES}
+    say(f"[kernels:stress3d slab8M] launches of 5 substeps on the 3D fused path: {got}  [{card}]")
+    check(got["p2g3d_grid"] == got["g2p3d"] == 5, f"slab8M: launches {got} for 5 substeps")
+    del p8
+    planes, counts, _, _ = fast3d.transfer_inputs(b8, spec8, cfg8)
+    a = fast3d.p2g_args(scene8, raw=True)
+    g2, dx = a.pop("g2"), a.pop("dx")
+    r0, r1, k = planes[0].shape
+    check(a["stress"] == "linear", f"slab 8M: stress {a['stress']}")
+    got = tk3.p2g3d(planes, counts, r1, g2, dx, **a)
+    want = tk3.p2g3d_plain(planes, counts, r1, g2, dx, stress=a["stress"], apic=a["apic"],
+                           **{n: a[n] for n in ("kb", "mu", "gamma", "fa")})
+    e, rel = scaled_errors(got, want, axis=3)
+    del want
+    say(f"[kernels:stress3d slab8M] p2g3d stress mode ({a['stress']}, apic {a['apic']}) "
+        f"{tuple(got.shape)}: max_abs_err per channel {['%.3e' % x for x in e]}, scaled "
+        f"{['%.2e' % x for x in rel]} (tol {KERNEL_REL_TOL})  [{card}]")
+    check(max(rel) <= KERNEL_REL_TOL, "slab8M: p2g3d (stress) disagrees with its plain version")
+    err["p2g3d_stress"] = max(e)
+    del got
+    rerun_equal("kernels:stress3d slab8M", "p2g3d", lambda: tk3.p2g3d(
+        planes, counts, r1, g2, dx, **a), card)
+    kernel_ms["p2g3d_stress"] = cuda_ms(lambda: tk3.p2g3d(planes, counts, r1, g2, dx, **a),
+                                        reps=5, warm=1)
+    plain_ms["p2g3d_stress"] = cuda_ms(lambda: tk3.p2g3d_plain(
+        planes, counts, r1, g2, dx, stress=a["stress"], apic=a["apic"],
+        **{n: a[n] for n in ("kb", "mu", "gamma", "fa")}), reps=1, warm=0)
+    live = int(counts.sum())
+    # Live slots' 18 planes + counts in, the (R0, 5, G1, 7, G2) expanded
+    # sums out; 27 taps x 7 channels of multiply-adds and ~60 operations of
+    # stress per live slot.
+    bounds["p2g3d_stress"] = bound(4 * (18 * live + r0 * r1 + r0 * 5 * r1 * 7 * g2),
+                                   live * (27 * 7 * 2 + 60))
+    # Its fold against p2g3d_grid's stress mode: fold_rows0_halo of the
+    # halo1 output is raw p2g3d_grid's (R0 + 4, R1 + 4) halo sums.
+    halo = tk3.fold_rows0_halo(tk3.p2g3d(planes, counts, r1, g2, dx, halo1=True, **a))
+    raw = tk3.p2g3d_grid(planes, counts, r1, g2, dx, raw=True, **a)[0]
+    _, rel_f = scaled_errors(halo, raw, axis=2)
+    err["p2g3d_stress_fold"] = float((halo - raw).abs().max())
+    say(f"[kernels:stress3d slab8M] fold_rows0_halo of p2g3d(stress, halo1) against raw "
+        f"p2g3d_grid (stress): max_abs_err {err['p2g3d_stress_fold']:.3e}, worst channel "
+        f"{max(rel_f):.2e} of its max (tol {KERNEL_REL_TOL}); p2g3d "
+        f"{kernel_ms['p2g3d_stress']:.4f} ms, plain {plain_ms['p2g3d_stress']:.4f} ms, bound "
+        f"{bounds['p2g3d_stress'][0]:.4f} ms ({bounds['p2g3d_stress'][1]})  [{card}]")
+    check(max(rel_f) <= KERNEL_REL_TOL, "slab8M: p2g3d's stress fold is not p2g3d_grid's")
+    del halo, raw, planes, counts, b8
+    torch.cuda.empty_cache()
+    # A ragged APIC Tait case.
+    rplanes, _, rcounts, _, rg, rdx = ragged_inputs3d(dev)
+    ra = dict(apic=True, stress="tait", kb=a["kb"], mu=a["mu"], gamma=a["gamma"],
+              fa=-cfg8.dt * 4.0 / rdx**2)
+    rr1 = rplanes[0].shape[1]
+    got = tk3.p2g3d(rplanes, rcounts, rr1, rg, rdx, **ra)
+    want = tk3.p2g3d_plain(rplanes, rcounts, rr1, rg, rdx, **ra)
+    e, rel = scaled_errors(got, want, axis=3)
+    say(f"[kernels:stress3d ragged apic tait] p2g3d {tuple(got.shape)}: scaled "
+        f"{['%.2e' % x for x in rel]} (tol {KERNEL_REL_TOL})  [{card}]")
+    check(max(rel) <= KERNEL_REL_TOL, "ragged: p2g3d (stress, APIC Tait) disagrees with plain")
+    err["p2g3d_stress_ragged"] = max(e)
+    rerun_equal("kernels:stress3d ragged apic tait", "p2g3d",
+                lambda: tk3.p2g3d(rplanes, rcounts, rr1, rg, rdx, **ra), card)
+
+
+def fused2d_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_ms, bounds, launches):
+    """Phases 41-43; returns the {"fused2d": ...} readings."""
+    t0 = time.perf_counter()
+    p_big, scene = kernels_fused2d(dev, card, err, kernel_ms, plain_ms, bounds)
+    say(f"[timing] kernels:fused2d done in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    main_fused2d(dev, card, io_ok, profile_dir, p_big, scene, launches)
+    say(f"[timing] main:fused2d done in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    kernels_stress3d(dev, card, err, kernel_ms, plain_ms, bounds, launches)
+    say(f"[timing] kernels:stress3d done in {time.perf_counter() - t1:.1f} s; phases 41-43 "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"fused2d": FUSED2D}))
+    return FUSED2D
+
+
+def fused2d_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches):
+    """Phases 41-43's entries of the kernels line: p2g_grid's non-raw mode,
+    g2p's update mode (launched on main:fused2d's routes) and p2g3d's
+    stress mode (no path of the system runs it: its launches are counted
+    on main:fused2d's four routes and kernels:stress3d's 5 slab substeps)."""
+    by_name = {k["name"]: k for k in kernels}
+    for name, mode, ran in (("p2g_grid", "p2g_grid_finished", ("p2g_grid", "both")),
+                            ("g2p", "g2p_update", ("g2p", "fuse_g2p"))):
+        by_name[name].update({
+            f"{mode[len(name) + 1:]}_{key}": val for key, val in (
+                ("launches", launches[f"fused2d {ran[1]}"][ran[0]]),
+                ("max_abs_err", err[mode]), ("ms", kernel_ms[mode]),
+                ("plain_ms", plain_ms[mode]), ("bound_ms", bounds[mode][0]),
+                ("bound_by", bounds[mode][1]))})
+    by_name["p2g_grid"].update({
+        "finished_rerun_bitwise_equal": RERUNS["p2g_grid_finished"],
+        "finished_prepped_max_abs_err": err["p2g_grid_finished_prepped"],
+        "finished_prepped_ms": kernel_ms["p2g_grid_finished_prepped"],
+        "finished_prepped_bound_ms": bounds["p2g_grid_finished_prepped"][0],
+        "finished_prepped_bound_by": bounds["p2g_grid_finished_prepped"][1],
+        "finished_colliders_max_abs_err": err["p2g_grid_finished_colliders"]})
+    by_name["g2p"].update({
+        "update_rerun_bitwise_equal": RERUNS["g2p_update"],
+        "update_prepadded_max_abs_err": err["g2p_update_prepadded"],
+        "update_prepadded_ms": kernel_ms["g2p_update_prepadded"],
+        "update_sharded_max_abs_err": err["g2p_update_sharded"],
+        "update_sharded_ms": kernel_ms["g2p_update_sharded"],
+        "update_sharded_launches": launches["fused2d fuse_g2p x4"]["g2p"]})
+    by_name["p2g3d"].update({
+        "stress_launches": sum(launches[w]["p2g3d_stress"] for w in (
+            *(f"fused2d {s}" for s in ROUTES), "slab8M 5 substeps")),
+        "stress_on_a_path": False,
+        "stress_max_abs_err": err["p2g3d_stress"], "stress_ms": kernel_ms["p2g3d_stress"],
+        "stress_plain_ms": plain_ms["p2g3d_stress"],
+        "stress_bound_ms": bounds["p2g3d_stress"][0],
+        "stress_bound_by": bounds["p2g3d_stress"][1],
+        "stress_fold_max_abs_err": err["p2g3d_stress_fold"],
+        "stress_ragged_max_abs_err": err["p2g3d_stress_ragged"]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of the 2D bench, stab1M, drop1M, "
-                    "the 8M slab and stab3d-8M, single-device and sharded, and "
-                    "obstacle8M here")
+                    "the 8M slab and stab3d-8M, single-device and sharded, "
+                    "obstacle8M and the fused 2D routes here")
     args = ap.parse_args(argv)
 
     # ---- 1. device --------------------------------------------------------
@@ -4343,6 +4810,10 @@ def main(argv=None) -> int:
 
     # ---- 37-40. the fixed-order scatter, checkpoints, the two-axis mesh, halo1 --
     port_phases(dev, card, err, kernel_ms, plain_ms, bounds, launches)
+    say(f"[timing] port13 phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 41-43. the fully fused 2D substep, p2g3d's stress mode ------------------
+    fused2d_phases(dev, card, io_ok, args.profile, err, kernel_ms, plain_ms, bounds, launches)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -4490,6 +4961,7 @@ def main(argv=None) -> int:
                     f"{tag}_plain_ms": plain_ms[key], f"{tag}_bound_ms": bounds[key][0],
                     f"{tag}_bound_by": bounds[key][1]})
     port_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches)
+    fused2d_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

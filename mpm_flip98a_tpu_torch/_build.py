@@ -45,14 +45,17 @@ SIGNATURES = {
     "mpm_p2g": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
     # data, counts, expanded scratch, ranges scratch, out, shards, L, K, G,
     # nch, fused, tent, dx, apic, tait, kb, kb/gamma, gamma, 2 mu, mu, fa,
-    # band, cap, stream
+    # band, cap, raw, dt g (2), floor, lo, hi, wall, dt beta, collider
+    # floats, collider ints, colliders, kin, tcol, stream
     "mpm_p2g_grid": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F,
-        _F, _F, _F, _I, _I, _P,
+        _F, _F, _F, _I, _I, _I, _F, _F, _F, _I, _I, _I, _F, _P, _P, _I, _I, _F, _P,
     ),
     # pdata2, counts, grid, out, R, L, pad, K, G, grid channels, tent, dx,
-    # dinv, dinv dx, stream
-    "mpm_g2p": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # dinv, dinv dx, update, alpha, 1 - alpha, dtv, stream
+    "mpm_g2p": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _F, _F, _F, _P,
+    ),
     # planes, pencil strides, counts, raw (or null), out, R0, L0, R1, K, G2,
     # dx, apic, tait, kb, kb/gamma, gamma, 2 mu, fa, dt g (3), floor, lo, hi,
     # wall, dt beta, collider floats, collider ints, colliders, kin, tcol, raw
@@ -65,8 +68,12 @@ SIGNATURES = {
     # alpha, 1 - alpha, dt, stream
     "mpm_g2p3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P),
     # planes (29), pencil strides, counts, out, R0, R1, K, G1, G2, nch, apic,
-    # tent, halo1, dx, band, cap, stream
-    "mpm_p2g3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # tent, halo1, dx, stress (0 prepped, 1 linear, 2 Tait), kb, kb/gamma,
+    # gamma, 2 mu, fa, band, cap, stream
+    "mpm_p2g3d": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F, _F, _I,
+        _I, _P,
+    ),
     # planes (29), pencil strides, counts, raw (or null), out, R0, L0, R1, K,
     # G2, nch, apic, tent, dx, dt g (3), floor, lo, hi, wall, dt beta,
     # collider floats, collider ints, colliders, kin, tcol, raw only, tile

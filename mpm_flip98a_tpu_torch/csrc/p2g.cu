@@ -1,6 +1,7 @@
 // P2G over row-bucketed particles, for Hopper (sm_90a): prepped slot data
 // (`p2g`), the fused fluid stress (`p2g_fused`), and either of them folded
-// into the raw halo rows of slab shards (`p2g_grid`), one gather kernel.
+// into the raw halo rows of slab shards or, on one device, into the
+// finished g2p-ready grid (`p2g_grid`), one gather kernel.
 //
 // Replaces three Pallas TPU kernels in mpm_flip98a_tpu/ops/pallas/transfer2d.py:
 //   `p2g`       (def :304, pallas_call :323, body _p2g_kernel :176 ->
@@ -8,13 +9,16 @@
 //   `p2g_fused` (def :412, pallas_call :433, body _p2g_fused_chunk :367
 //               -> _p2g_core :210);
 //   `p2g_grid`  (def :597, pallas_call :666, body _p2g_grid_kernel :456) in
-//               its raw mode, the one the slab-sharded path runs
-//               (mpm_flip98a_tpu/models/fast2d.py:744-762).
+//               both modes: raw, the one the slab-sharded path runs
+//               (mpm_flip98a_tpu/models/fast2d.py:744-762), and non-raw,
+//               the fold, grid update, walls and colliders in the kernel
+//               (MPM_P2G_GRID=1, fast2d.py:563-581, :767-770).
 // The TPU kernels build a dense (K, G) one-hot column-weight matrix and
 // scatter with an MXU product, `p2g_grid` folding the five candidate target
-// rows in a rolling VMEM scratch carried across its sequential grid; here
-// each node gathers the taps of its slots, and GPU blocks, which run in no
-// order, leave the fold to a second, elementwise launch.
+// rows in a rolling VMEM scratch carried across its sequential grid and
+// finishing each target row there; here each node gathers the taps of its
+// slots, and GPU blocks, which run in no order, leave the fold (and the
+// node pass) to a second, elementwise launch.
 //
 // Contract (same as the TPU kernels):
 //   pdata  (R, 8 + kNch, K) f32 = [gx0, gx1, m v0, m v1, P00, P01, P10,
@@ -30,7 +34,10 @@
 //          i + t - 1), channels [m v0, m v1, m v0 + f0, m v1 + f1, *plain];
 //          p2g_grid: R = n L rows of n slab shards, gx0 local to each shard,
 //          and out (n, L + 4, kNch, G), row j of shard s its local target
-//          row j - 1: fold_rows_halo of the (L, 5, kNch, G) sums per shard.
+//          row j - 1: fold_rows_halo of the (L, 5, kNch, G) sums per shard;
+//          non-raw (one device): (R + 4, 4 or 7, G) = [v_new (2), v_old (2)
+//          (, Jbar, p, div)], row j its target row j - 1, rows 0 and R + 1
+//          .. R + 3 zero.
 // Channels 2-3 get w (m v_a + Q_a0 rdp + Q_a1 (c - gx1) dx); under APIC
 // channels 0-1 get the same with P, under PIC w m v_a.  A slot contributes
 // only when its base row floor(gx0 - 0.5) is within +-1 of i (of i mod L
@@ -68,7 +75,11 @@
 //   for (their range beside, in place of the zeros), then fold_halo_kernel
 //   adds each halo node's five terms from 0.0f in fold_rows_halo's order
 //   (target t = 0 .. 4 of bucket row j - t; 0.0f outside the ranges), a
-//   thread a halo column for all its channels.
+//   thread a halo column for all its channels.  The non-raw mode's
+//   fold_finish_kernel folds the same way and finishes the node from its
+//   sums in registers (finish_node2d: mass floor, gravity, walls or the
+//   penalty solve, colliders.cuh's projection, the ext averages), writing
+//   the (R + 4, 4 or 7, G) grid once, pad rows 0.
 // Every node is written once, and its sum runs in the list's order
 // whatever order the threads ran in: the result is bitwise reproducible,
 // and p2g_grid's halo rows equal fold_rows_halo of p2g / p2g_fused per
@@ -83,6 +94,7 @@
 
 #include <cuda_runtime.h>
 
+#include "colliders.cuh"
 #include "taps.cuh"
 
 namespace {
@@ -99,6 +111,16 @@ constexpr int kBlocksPerSM = 3;
 struct Fluid2d {
   int tait;
   float kb, kb_over_gamma, gamma, two_mu, mu, fa;
+};
+
+// Node-pass constants of p2g_grid's non-raw mode (transfer2d.py:476-560).
+struct Node2d {
+  float dtg0, dtg1;  // dt g per axis, rounded to float32 once from double
+  float floor_m;     // the absolute grid-mass floor
+  int lo, hi, wall;  // wall bands: rows and columns <= lo or >= hi; wall: 0
+                     // slip, 1 sticky, 2 penalty
+  float dt_beta;     // dt beta of the penalty, rounded once from double
+  float dx;
 };
 
 // Staged record of one slot, in float4s: [t0 (int bits), gx0 - base0,
@@ -358,15 +380,34 @@ p2g_kernel(const float* __restrict__ data, const int* __restrict__ counts,
   }
 }
 
+// The fold's five terms of halo node (s, j) at column c:
+// term[t] = &expanded[s L + j - t, t, 0, c], in[t] whether j - t is a
+// bucket row of shard s, wrote[t] whether its gather block wrote column c
+// (ranges, per bucket row and band of `band` columns; a term it did not
+// write is 0.0f, as the single-device gather writes it).
+__device__ __forceinline__ void fold_terms(const float* expanded, const int2* ranges, int s,
+                                           int j, int c, int L, int nch, int G, int band,
+                                           const float* term[kNT], bool in[kNT],
+                                           bool wrote[kNT]) {
+  const int bands = (G + band - 1) / band, b = c / band;
+  const size_t cs = static_cast<size_t>(nch) * G;  // one target row of a bucket row
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) {
+    const int i = j - t;
+    in[t] = i >= 0 && i < L;
+    const int bucket = s * L + (in[t] ? i : 0);
+    const int2 r = ranges[bucket * bands + b];
+    term[t] = expanded + (static_cast<size_t>(bucket) * kNT + t) * cs + c;
+    wrote[t] = in[t] && c >= r.x && c <= r.y;
+  }
+}
+
 // out[s, j, ch, c] = the terms expanded[s L + j - t, t, ch, c] of the
 // bucket rows 0 <= j - t < L of shard s, added from 0.0f for t = 0 .. 4:
-// fold_rows_halo's order (ops/cuda/transfer2d.py).  A term outside the
-// columns its gather block wrote (ranges, per bucket row and band of
-// `band` columns) is 0.0f, as the single-device gather writes it.  One
-// thread a column c of halo row (s, j) = blockIdx.x, for all nch channels:
-// which of its five terms were written is worked out once, so the loop
-// over channels is loads and adds only (neighbouring threads on
-// neighbouring columns).
+// fold_rows_halo's order (ops/cuda/transfer2d.py).  One thread a column c
+// of halo row (s, j) = blockIdx.x, for all nch channels: which of its five
+// terms were written is worked out once, so the loop over channels is
+// loads and adds only (neighbouring threads on neighbouring columns).
 __global__ void __launch_bounds__(kThreads)
 fold_halo_kernel(const float* __restrict__ expanded, const int2* __restrict__ ranges,
                  float* __restrict__ out, int L, int nch, int G, int band) {
@@ -374,28 +415,120 @@ fold_halo_kernel(const float* __restrict__ expanded, const int2* __restrict__ ra
   if (c >= G) return;
   const int sj = blockIdx.x;  // s (L + 4) + j
   const int s = sj / (L + kNT - 1), j = sj - s * (L + kNT - 1);
-  const int bands = (G + band - 1) / band, b = c / band;
-  const size_t cs = static_cast<size_t>(nch) * G;  // one target row of a bucket row
   const float* term[kNT];
-  bool wrote[kNT];
-#pragma unroll
-  for (int t = 0; t < kNT; ++t) {
-    const int i = j - t;
-    const bool in = i >= 0 && i < L;
-    const int bucket = s * L + (in ? i : 0);
-    const int2 r = ranges[bucket * bands + b];
-    term[t] = expanded + (static_cast<size_t>(bucket) * kNT + t) * cs + c;
-    wrote[t] = in && c >= r.x && c <= r.y;
-  }
+  bool in[kNT], wrote[kNT];
+  fold_terms(expanded, ranges, s, j, c, L, nch, G, band, term, in, wrote);
+  const size_t cs = static_cast<size_t>(nch) * G;
   float* o = out + static_cast<size_t>(sj) * cs + c;
   for (int ch = 0; ch < nch; ++ch) {
     float acc = 0.0f;
 #pragma unroll
     for (int t = 0; t < kNT; ++t) {
-      if (j - t >= 0 && j - t < L) acc = __fadd_rn(acc, wrote[t] ? term[t][ch * G] : 0.0f);
+      if (in[t]) acc = __fadd_rn(acc, wrote[t] ? term[t][ch * G] : 0.0f);
     }
     o[ch * G] = acc;
   }
+}
+
+// The node pass of target node (t0, c) from its folded sums r (the JAX
+// kernel's, transfer2d.py:476-560) -> o = [v_new (2), v_old (2) (, Jbar, p,
+// div)]: the absolute mass floor, v_old = pure / m, v_new = forced / m + dt
+// g (or the diagonal penalty solve (forced + dt g m) / (m + dt beta pen)
+// with pen 1 on the axis's wall band), the slip clamps or the sticky zero
+// on the wall bands, the colliders' projection of v_new at node x = ((t0 -
+// lo) dx, (c - lo) dx), and with kNch = 9 the nodal averages (Jbar 1, p
+// and div 0 where no volume landed).  Rows outside [0, R) are all zeros.
+// Each operation is rounded as the plain version's PyTorch op is (no FMA
+// contraction), so the two differ only by the sums they start from.
+template <int kNch>
+__device__ __forceinline__ void finish_node2d(const float r[kNch], int t0, int c, int R,
+                                              const Node2d& nd,
+                                              const colliders::Colliders& cols, float o[]) {
+  constexpr int kOut = kNch == 9 ? 7 : 4;
+  if (t0 < 0 || t0 >= R) {
+#pragma unroll
+    for (int ch = 0; ch < kOut; ++ch) o[ch] = 0.0f;
+    return;
+  }
+  const float m = r[4];
+  const bool has = m > nd.floor_m;
+  const float safe = has ? m : 1.0f;
+  const bool lo0 = t0 <= nd.lo, hi0 = t0 >= nd.hi, lo1 = c <= nd.lo, hi1 = c >= nd.hi;
+  float v[2];
+  if (nd.wall == 2) {  // penalty: (m I + dt beta n(x)n) v = m v* + dt m g, diagonal
+    const float pen0 = lo0 || hi0 ? 1.0f : 0.0f, pen1 = lo1 || hi1 ? 1.0f : 0.0f;
+    v[0] = has ? __fdiv_rn(__fadd_rn(r[2], __fmul_rn(nd.dtg0, m)),
+                           __fadd_rn(m, __fmul_rn(nd.dt_beta, pen0)))
+               : 0.0f;
+    v[1] = has ? __fdiv_rn(__fadd_rn(r[3], __fmul_rn(nd.dtg1, m)),
+                           __fadd_rn(m, __fmul_rn(nd.dt_beta, pen1)))
+               : 0.0f;
+  } else {
+    const float hasf = has ? 1.0f : 0.0f;
+    v[0] = __fadd_rn(has ? __fdiv_rn(r[2], safe) : 0.0f, __fmul_rn(nd.dtg0, hasf));
+    v[1] = __fadd_rn(has ? __fdiv_rn(r[3], safe) : 0.0f, __fmul_rn(nd.dtg1, hasf));
+    if (nd.wall == 1) {  // sticky
+      if (lo0 || hi0 || lo1 || hi1) v[0] = v[1] = 0.0f;
+    } else {             // slip: clamp the outgoing normal component per band
+      if (lo0) v[0] = fmaxf(v[0], 0.0f);
+      if (hi0) v[0] = fminf(v[0], 0.0f);
+      if (lo1) v[1] = fmaxf(v[1], 0.0f);
+      if (hi1) v[1] = fminf(v[1], 0.0f);
+    }
+  }
+  if (cols.n > 0) {  // after the walls (transfer2d.py:527-551)
+    const float x[2] = {
+        __fmul_rn(__fsub_rn(static_cast<float>(t0), static_cast<float>(nd.lo)), nd.dx),
+        __fmul_rn(__fsub_rn(static_cast<float>(c), static_cast<float>(nd.lo)), nd.dx),
+    };
+    colliders::project<2>(cols, x, v);
+  }
+  o[0] = v[0];
+  o[1] = v[1];
+  o[2] = has ? __fdiv_rn(r[0], safe) : 0.0f;
+  o[3] = has ? __fdiv_rn(r[1], safe) : 0.0f;
+  if constexpr (kNch == 9) {
+    // Nodal averages over the scattered volume, for the next substep.
+    const float v0sum = r[6];
+    const bool has_v = v0sum > 0.0f;
+    const float safe_v = has_v ? v0sum : 1.0f;
+    o[4] = has_v ? __fdiv_rn(r[5], safe_v) : 1.0f;
+    o[5] = has_v ? __fdiv_rn(r[7], safe_v) : 0.0f;
+    o[6] = has_v ? __fdiv_rn(r[8], safe_v) : 0.0f;
+  }
+}
+
+// p2g_grid's non-raw mode on one device: the fold of fold_halo_kernel
+// (halo row j = target row j - 1 of the R = L bucket rows), then the node
+// pass, into the g2p-ready (R + 4, 4 or 7, G) grid.  One thread a node,
+// its kNch folded sums in registers.
+template <int kNch>
+__global__ void __launch_bounds__(kThreads)
+fold_finish_kernel(const float* __restrict__ expanded, const int2* __restrict__ ranges,
+                   float* __restrict__ out, int L, int G, int band, Node2d nd,
+                   const __grid_constant__ colliders::Colliders cols) {
+  constexpr int kOut = kNch == 9 ? 7 : 4;
+  const int c = blockIdx.y * kThreads + threadIdx.x;
+  if (c >= G) return;
+  const int j = blockIdx.x;
+  const float* term[kNT];
+  bool in[kNT], wrote[kNT];
+  fold_terms(expanded, ranges, 0, j, c, L, kNch, G, band, term, in, wrote);
+  float r[kNch];
+#pragma unroll
+  for (int ch = 0; ch < kNch; ++ch) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int t = 0; t < kNT; ++t) {
+      if (in[t]) acc = __fadd_rn(acc, wrote[t] ? term[t][ch * G] : 0.0f);
+    }
+    r[ch] = acc;
+  }
+  float o[kOut];
+  finish_node2d<kNch>(r, j - 1, c, L, nd, cols, o);
+  float* at = out + static_cast<size_t>(j) * kOut * G + c;
+#pragma unroll
+  for (int ch = 0; ch < kOut; ++ch) at[ch * G] = o[ch];
 }
 
 template <int kNch, bool kTent, bool kApic, bool kFused>
@@ -475,20 +608,32 @@ extern "C" int mpm_p2g_fused(const float* sdata, const int* counts, float* out, 
                      fluid, static_cast<cudaStream_t>(stream));
 }
 
-// p2g_grid's raw mode: n shards of L bucket rows (gx0 local to each
-// shard); nch 5 (fused, B-spline only), 6 or 9 (prepped); fused, apic,
-// tent: 0/1; the fluid constants are read in the fused mode only; band,
-// cap: the plan (transfer2d.py's plan_p2g).  expanded, ranges: the
-// caller's scratch for the gather's sums, (n L, 5, nch, G) f32, and the
-// columns each of its blocks wrote, (n L, bands, 2) i32; out: (n, L + 4,
-// nch, G).  Two launches on the stream, the gather and the fold.  Returns
-// a cudaError_t as int, as mpm_p2g.
+// p2g_grid: n shards of L bucket rows (gx0 local to each shard); nch 5
+// (fused, B-spline only), 6 or 9 (prepped); fused, apic, tent: 0/1; the
+// fluid constants are read in the fused mode only; band, cap: the plan
+// (transfer2d.py's plan_p2g).  expanded, ranges: the caller's scratch for
+// the gather's sums, (n L, 5, nch, G) f32, and the columns each of its
+// blocks wrote, (n L, bands, 2) i32.  raw 1: out (n, L + 4, nch, G), the
+// raw halo sums.  raw 0 (one device, n = 1): out (L + 4, 4 or 7, G), the
+// finished grid, from the node constants dtg0, dtg1 (f32 of dt g), floor_m,
+// lo, hi, wall (0 slip, 1 sticky, 2 penalty), dt_beta and the colliders
+// (col_f, col_i: host arrays of ncol, as colliders::unpack reads them; kin
+// 1 puts the moving ones at time tcol).  Two launches on the stream, the
+// gather and the fold (with the node pass when not raw).  Returns a
+// cudaError_t as int, as mpm_p2g.
 extern "C" int mpm_p2g_grid(const float* data, const int* counts, float* expanded, int* ranges,
                             float* out, int n, int L, int K, int G, int nch, int fused, int tent,
                             float dx, int apic, int tait, float kb, float kb_over_gamma,
                             float gamma, float two_mu, float mu, float fa, int band, int cap,
-                            void* stream) {
+                            int raw, float dtg0, float dtg1, float floor_m, int lo, int hi,
+                            int wall, float dt_beta, const float* col_f, const int* col_i,
+                            int ncol, int kin, float tcol, void* stream) {
   if (const int bad = check_args(K, nch, fused, tent, band, cap)) return bad;
+  colliders::Colliders cols{};
+  if ((!raw && (n != 1 || wall < 0 || wall > 2)) || (raw && ncol != 0) ||
+      !colliders::unpack(col_f, col_i, ncol, kin, tcol, &cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n <= 0 || L <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
   const Fluid2d fluid = {tait, kb, kb_over_gamma, gamma, two_mu, mu, fa};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -496,7 +641,18 @@ extern "C" int mpm_p2g_grid(const float* data, const int* counts, float* expande
                               tent, band, cap, dx, fluid, s);
   if (err != 0) return err;
   const dim3 blocks(n * (L + kNT - 1), (G + kThreads - 1) / kThreads);
-  fold_halo_kernel<<<blocks, kThreads, 0, s>>>(expanded, reinterpret_cast<const int2*>(ranges),
-                                              out, L, nch, G, band);
+  const int2* rg = reinterpret_cast<const int2*>(ranges);
+  if (raw) {
+    fold_halo_kernel<<<blocks, kThreads, 0, s>>>(expanded, rg, out, L, nch, G, band);
+  } else {
+    const Node2d nd = {dtg0, dtg1, floor_m, lo, hi, wall, dt_beta, dx};
+    if (nch == 5) {
+      fold_finish_kernel<5><<<blocks, kThreads, 0, s>>>(expanded, rg, out, L, G, band, nd, cols);
+    } else if (nch == 6) {
+      fold_finish_kernel<6><<<blocks, kThreads, 0, s>>>(expanded, rg, out, L, G, band, nd, cols);
+    } else {
+      fold_finish_kernel<9><<<blocks, kThreads, 0, s>>>(expanded, rg, out, L, G, band, nd, cols);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }

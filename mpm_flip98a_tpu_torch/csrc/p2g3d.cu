@@ -3,19 +3,24 @@
 //
 // Replaces the Pallas TPU kernel `p2g3d` in
 // mpm_flip98a_tpu/ops/pallas/transfer3d.py (def :349, pallas_call :408,
-// body _p2g3d_kernel :118 -> _p2g3d_chunk :193) in its prepped mode
-// (stress=None), PIC or APIC, 7 or 11 channels, B-spline or tent taps,
-// with or without halo1.  The TPU kernel scatters along z with one-hot MXU
-// products, one program per batch of 8 source pencils, accumulating into
-// an output block that stays in VMEM across the sequential axis-1 grid
-// steps; GPU blocks run in no order, so here the block is turned round: it
-// owns one target and gathers from the sources.
+// body _p2g3d_kernel :118 -> _p2g3d_chunk :193) in both modes: prepped
+// (stress=None: PIC or APIC, 7 or 11 channels, B-spline or tent taps) and
+// stress (the fluid stress made from the 18 state planes when a slot's
+// fields are loaded, as p2g3d_grid.cu's stress mode does: linear or Tait
+// EOS, PIC or APIC, 7 channels, B-spline), each with or without halo1.
+// The TPU kernel scatters along z with one-hot MXU products, one program
+// per batch of 8 source pencils, accumulating into an output block that
+// stays in VMEM across the sequential axis-1 grid steps; GPU blocks run in
+// no order, so here the block is turned round: it owns one target and
+// gathers from the sources.
 //
 // Contract (same as the TPU kernel):
 //   planes  the prepped fields in the fixed order of taps.cuh: gx (3),
 //           m v (3), P (9, APIC only), Q (9), m, and with kNch = 11
 //           [V0 J, V0, V0 p, V0 div]; each (R0, R1, K) f32 with its own
-//           pencil stride, value planes pre-masked (zeros in dead slots)
+//           pencil stride, value planes pre-masked (zeros in dead slots);
+//           or the stress mode's [gx (3), v (3), C00..C22, J, mass, vol0]
+//           (dead slots neutral: mass = vol0 = 0)
 //   counts  (R0 * R1,) i32 packed pencil counts (active slots first)
 //   out     (R0, 5, G1, kNch, G2) f32: out[i0, t0, row] is bucket row i0's
 //           share of target rows (i0 + t0 - 1, row); channels [m v pure
@@ -112,10 +117,22 @@ struct Fields3d {
   static constexpr int kN = kQ + 9 + kNch - 6;
 };
 
-template <int kNch, bool kApic>
+// The stress mode (kStress, kNch 7) computes the same fields from the 18
+// state planes: the fluid stress of taps::fluid_affine.
+template <int kNch, bool kApic, bool kStress>
 __device__ __forceinline__ void load_fields(const taps::Prepped& in, long long pencil, int k,
+                                            const taps::Fluid& fl,
                                             float f[Fields3d<kNch, kApic>::kN]) {
   using F = Fields3d<kNch, kApic>;
+  if constexpr (kStress) {
+    static_assert(kNch == 7, "the stress mode has 7 channels");
+    float pic_p[9];  // P = 0 under PIC, which the fields do not hold
+#pragma unroll
+    for (int e = 0; e < 3; ++e) f[e] = in.at(taps::kGx + e, pencil, k);
+    taps::fluid_affine<kApic>(in, pencil, k, fl, f + 3, kApic ? f + 6 : pic_p, f + F::kQ,
+                              f[F::kQ + 9]);
+    return;
+  }
 #pragma unroll
   for (int e = 0; e < 6; ++e) f[e] = in.at(taps::kGx + e, pencil, k);  // gx, m v
 #pragma unroll
@@ -244,10 +261,11 @@ __device__ __forceinline__ void visit(const float4* rec, float jz, float dx,
   }
 }
 
-template <int kNch, bool kTent, bool kApic>
+template <int kNch, bool kTent, bool kApic, bool kStress>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict__ out,
-             int R1, int K, int G1out, int row_off, int G2, int band, int cap, float dx) {
+             int R1, int K, int G1out, int row_off, int G2, int band, int cap, float dx,
+             taps::Fluid fl) {
   using R = Rec3d<kNch, kApic>;
   extern __shared__ float4 smem[];
   float4* stage = smem;                                              // [cap][kVec]
@@ -309,7 +327,7 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
     for (int j = 0; j < kSteps; ++j) {
       int t1 = 0, k = 0;
       if (lo < hi) locate(min(lo + 32 * j + lane, hi - 1), t1, k);
-      if (lo < hi) load_fields<kNch, kApic>(in, pencil_of(t1), k, f[j]);
+      if (lo < hi) load_fields<kNch, kApic, kStress>(in, pencil_of(t1), k, fl, f[j]);
     }
     gather::zero_outside<kNT, kThreads>(obase, ts, G2, kNch, zb, bw, zb + bw, zb + bw);
     int mn = INT_MAX, mx = INT_MIN;
@@ -407,7 +425,7 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
               int t1, k;
               locate(order[p], t1, k);
               float g[F::kN];
-              load_fields<kNch, kApic>(in, pencil_of(t1), k, g);
+              load_fields<kNch, kApic, kStress>(in, pencil_of(t1), k, fl, g);
               rec_from<kNch, kTent, kApic>(g, t1, i0, row + 1 - t1, dx, r);
             });
         __syncthreads();
@@ -446,9 +464,10 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
   }
 }
 
-template <int kNch, bool kTent, bool kApic>
+template <int kNch, bool kTent, bool kApic, bool kStress>
 int launch(const taps::Prepped& in, const int* counts, float* out, int R0, int R1, int K,
-           int G1out, int row_off, int G2, int band, int cap, float dx, cudaStream_t stream) {
+           int G1out, int row_off, int G2, int band, int cap, float dx, const taps::Fluid& fl,
+           cudaStream_t stream) {
   using Rc = Rec3d<kNch, kApic>;
   const size_t smem = sizeof(float4) * Rc::kVec * static_cast<size_t>(cap) +
                       sizeof(int) * ((band + 2) * static_cast<size_t>(kWarps) + band + 3 +
@@ -460,12 +479,12 @@ int launch(const taps::Prepped& in, const int* counts, float* out, int R0, int R
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(p2g3d_kernel<kNch, kTent, kApic>,
+  err = cudaFuncSetAttribute(p2g3d_kernel<kNch, kTent, kApic, kStress>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 blocks(static_cast<unsigned>(R0) * G1out, (G2 + band - 1) / band);
-  p2g3d_kernel<kNch, kTent, kApic><<<blocks, kThreads, smem, stream>>>(
-      in, counts, out, R1, K, G1out, row_off, G2, band, cap, dx);
+  p2g3d_kernel<kNch, kTent, kApic, kStress><<<blocks, kThreads, smem, stream>>>(
+      in, counts, out, R1, K, G1out, row_off, G2, band, cap, dx, fl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,30 +492,38 @@ template <int kNch>
 int launch_nch(const taps::Prepped& in, const int* counts, float* out, int R0, int R1, int K,
                int G1out, int row_off, int G2, int band, int cap, float dx, int apic, int tent,
                cudaStream_t s) {
+  const taps::Fluid fl{};
   const auto go = [&](auto fn) {
-    return fn(in, counts, out, R0, R1, K, G1out, row_off, G2, band, cap, dx, s);
+    return fn(in, counts, out, R0, R1, K, G1out, row_off, G2, band, cap, dx, fl, s);
   };
   if (tent) {
-    return apic ? go(launch<kNch, true, true>) : go(launch<kNch, true, false>);
+    return apic ? go(launch<kNch, true, true, false>) : go(launch<kNch, true, false, false>);
   }
-  return apic ? go(launch<kNch, false, true>) : go(launch<kNch, false, false>);
+  return apic ? go(launch<kNch, false, true, false>) : go(launch<kNch, false, false, false>);
 }
 
 }  // namespace
 
 // planes / strides: 29 entries in the order of taps.cuh (null where the
-// mode has no such plane).  nch: 7 or 11; apic, tent, halo1: 0/1 (halo1:
-// G1 + 4 output rows, row q = target row q - 1); band, cap: the
-// plan (transfer3d.py's plan_p2g3d: z columns a block owns, slots staged
-// at a time).  Returns a cudaError_t as int (0 on success):
-// cudaErrorInvalidValue for another nch, a plan out of range or one whose
-// shared memory exceeds the card's opt-in limit, else the attribute call's
-// or the launch's error.
+// mode has no such plane), or in the stress mode the 18 state planes
+// [gx (3), v (3), C00..C22, J, mass, vol0] first.  nch: 7 or 11; apic,
+// tent, halo1: 0/1 (halo1: G1 + 4 output rows, row q = target row q - 1);
+// stress: 0 prepped, 1 linear, 2 Tait EOS (nch 7, B-spline), with the
+// fluid constants kb, kb / gamma, gamma, 2 mu and fa (read only then);
+// band, cap: the plan (transfer3d.py's plan_p2g3d: z columns a block owns,
+// slots staged at a time).  Returns a cudaError_t as int (0 on success):
+// cudaErrorInvalidValue for another nch or mode, a plan out of range or one
+// whose shared memory exceeds the card's opt-in limit, else the attribute
+// call's or the launch's error.
 extern "C" int mpm_p2g3d(const void* const* planes, const long long* strides,
                          const int* counts, float* out, int R0, int R1, int K,
                          int G1, int G2, int nch, int apic, int tent, int halo1, float dx,
-                         int band, int cap, void* stream) {
+                         int stress, float kb, float kb_over_gamma, float gamma, float two_mu,
+                         float fa, int band, int cap, void* stream) {
   if (nch != 7 && nch != 11) return static_cast<int>(cudaErrorInvalidValue);
+  if (stress < 0 || stress > 2 || (stress && (nch != 7 || tent))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (R0 <= 0 || G1 <= 0 || G2 <= 0) return static_cast<int>(cudaGetLastError());
   if (K < 0 || band <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int g1out = halo1 ? G1 + kNT - 1 : G1;
@@ -506,6 +533,13 @@ extern "C" int mpm_p2g3d(const void* const* planes, const long long* strides,
   }
   const taps::Prepped in = taps::prepped_from(planes, strides);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stress) {
+    const taps::Fluid fl{stress == 2, kb, kb_over_gamma, gamma, two_mu, fa};
+    const auto go = [&](auto fn) {
+      return fn(in, counts, out, R0, R1, K, g1out, row_off, G2, band, cap, dx, fl, s);
+    };
+    return apic ? go(launch<7, false, true, true>) : go(launch<7, false, false, true>);
+  }
   return nch == 7 ? launch_nch<7>(in, counts, out, R0, R1, K, g1out, row_off, G2, band, cap, dx,
                                   apic, tent, s)
                   : launch_nch<11>(in, counts, out, R0, R1, K, g1out, row_off, G2, band, cap,

@@ -71,18 +71,13 @@
 //   kBlocksPerSM slabs fit an SM's shared memory; tiles go in raster
 //   order, axis 1 fastest, so neighbouring blocks share source pencils in
 //   L2.
-// Colliders: at most kMaxColliders, passed by value in the launch's
-// parameters as a __grid_constant__ struct (no device buffer, no copy).
-// The inside test phi <= 0 is a discontinuity: a node whose phi rounds to
-// the other side of 0 differs from the plain version by a whole velocity.
-// So phi, the normal and the kinematic center are computed with
-// round-to-nearest intrinsics (no FMA contraction), one rounding per
-// operation in the order of the reference's expressions
-// (colliders.py:94-204), as PyTorch's elementwise ops round them.  `kin` =
-// 0 (no moving collider, or no time) leaves every center where the host
-// put it, bit for bit a time-free build; the host casts the constants to
-// float32 as JAX does.  The projection costs about 30 flops and no bytes
-// per node.
+// Colliders: at most colliders::kMax, passed by value in the launch's
+// parameters (colliders.cuh, shared with p2g.cu's 2D node pass, which
+// computes the inside test with round-to-nearest intrinsics so that it
+// agrees with PyTorch's bit for bit).  `kin` = 0 (no moving collider, or no
+// time) leaves every center where the host put it, bit for bit a time-free
+// build; the host casts the constants to float32 as JAX does.  The
+// projection costs about 30 flops and no bytes per node.
 // Shared-memory atomics add in a run-dependent order: the result is not
 // bitwise deterministic (the JAX kernel is); it agrees with the plain
 // version to fp32 rounding of each node's sum (the tolerance is stated
@@ -99,9 +94,12 @@
 
 #include <cuda_runtime.h>
 
+#include "colliders.cuh"
 #include "taps.cuh"
 
 namespace {
+
+using colliders::Colliders;
 
 constexpr int kHalo = 4;      // a target plane takes source rows q - 4 .. q
 constexpr int kThreads = 256;
@@ -109,38 +107,7 @@ constexpr int kThreads = 256;
 // and the shared-memory budget of the host's planner (transfer3d.py's
 // BLOCKS_PER_SM) follow it.
 constexpr int kBlocksPerSM = 4;
-constexpr int kStressIn = 18; // input planes of the stress mode
 constexpr int kMaxSrc = 144;  // source pencils of an 8 x 8 tile, (8 + 4)^2
-constexpr int kMaxColliders = 8;
-constexpr int kColF = 19;     // floats per collider in the host arrays
-constexpr int kColI = 4;      // ints per collider in the host arrays
-
-struct Collider {
-  int kind;          // 0 sphere, 1 box, 2 halfspace
-  int sticky;
-  int moving;        // center advances by cvel * t in a kinematic launch
-  int spin;          // the angular velocity applies
-  float center[3];
-  float cvel[3];
-  float radius;
-  float half[3];     // box half-extents
-  float normal[3];   // halfspace unit normal (normalised in float64)
-  float vsurf[3];    // f32(velocity) + f32(center_velocity)
-  float omega[3];    // (wx, wy, wz)
-};
-
-struct Colliders {
-  int n;             // 0: the node pass has no projection
-  int kin;           // 1: moving centers at time t
-  float t;
-  Collider c[kMaxColliders];
-};
-
-// Weakly-compressible fluid constants of the stress mode.
-struct Fluid {
-  int tait;
-  float kb, kb_over_gamma, gamma, two_mu, fa;
-};
 
 // Shapes and the host's tile plan.
 struct Plan {
@@ -158,45 +125,13 @@ struct Node {
   float dt_beta, dx;
 };
 
-// Stress mode: the fluid stress of the slot (transfer3d.py:208-236) from
-// the 18 state planes, as a 7-channel slot [m v, P = m C (APIC), Q = P +
-// fa tau, m].
+// Stress mode: the fluid stress of the slot (taps::fluid_affine) as a
+// 7-channel slot [m v, P = m C (APIC), Q = P + fa tau, m].
 template <bool kApic>
 __device__ __forceinline__ void load_stress(const taps::Prepped& in, long long pencil, int k,
-                                            const Fluid& fl, float gx2, float base2,
+                                            const taps::Fluid& fl, float gx2, float base2,
                                             int G2, float dx, taps::Slot<7>& s) {
-  float c[9];
-#pragma unroll
-  for (int e = 0; e < 9; ++e) c[e] = in.at(6 + e, pencil, k);
-  const float jj = in.at(15, pencil, k), mass = in.at(16, pencil, k);
-  const float vol0 = in.at(17, pencil, k);
-  float pressure;
-  if (fl.tait) {
-    const float j_safe = fmaxf(jj, 1e-3f);
-    pressure = fl.kb_over_gamma * (powf(1.0f / j_safe, fl.gamma) - 1.0f);
-  } else {
-    pressure = -fl.kb * (jj - 1.0f);
-  }
-  const float divc = c[0] + c[4] + c[8];
-  const float vj = vol0 * jj;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    s.mv[a] = mass * in.at(3 + a, pencil, k);
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      float dev = 0.5f * (c[3 * a + b] + c[3 * b + a]);
-      float tau;
-      if (a == b) {
-        dev -= divc / 3.0f;
-        tau = vj * (-pressure + fl.two_mu * dev);
-      } else {
-        tau = vj * (fl.two_mu * dev);
-      }
-      s.p[3 * a + b] = kApic ? mass * c[3 * a + b] : 0.0f;
-      s.q[3 * a + b] = s.p[3 * a + b] + fl.fa * tau;
-    }
-  }
-  s.plain[0] = mass;
+  taps::fluid_affine<kApic>(in, pencil, k, fl, s.mv, s.p, s.q, s.plain[0]);
   taps::z_taps<7, false>(gx2, base2, G2, dx, s);
 }
 
@@ -227,88 +162,6 @@ __device__ __forceinline__ bool slot_rows(const taps::Prepped& in, long long pen
   r.j1lo = max(0, -r.qb1);
   r.j1hi = min(2, h1 - 1 - r.qb1);
   return r.j0lo <= r.j0hi && r.j1lo <= r.j1hi;
-}
-
-// colliders.project at node x, one collider after the other: phi (sphere,
-// box, halfspace) and, for phi <= 0, the slip or sticky projection relative
-// to the surface velocity (+ omega x r).  The outward normal is computed
-// only where a slip surface needs it: the same values as the reference's,
-// which computes it everywhere and discards it outside.
-__device__ __forceinline__ void project_colliders(const Colliders& cs, const float x[3],
-                                                  float v[3]) {
-  for (int i = 0; i < cs.n; ++i) {
-    const Collider& c = cs.c[i];
-    float diff[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float ctr = (cs.kin && c.moving) ? __fadd_rn(c.center[a], __fmul_rn(c.cvel[a], cs.t))
-                                             : c.center[a];
-      diff[a] = __fsub_rn(x[a], ctr);
-    }
-    float phi, r = 0.0f, q[3], qp[3], out_len = 0.0f, qmax = 0.0f;
-    if (c.kind == 0) {  // sphere
-      r = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(diff[0], diff[0]), __fmul_rn(diff[1], diff[1])),
-                               __fmul_rn(diff[2], diff[2])));
-      phi = __fsub_rn(r, c.radius);
-    } else if (c.kind == 1) {  // axis-aligned box, exact SDF
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        q[a] = __fsub_rn(fabsf(diff[a]), c.half[a]);
-        qp[a] = fmaxf(q[a], 0.0f);
-      }
-      out_len = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(qp[0], qp[0]), __fmul_rn(qp[1], qp[1])),
-                                     __fmul_rn(qp[2], qp[2])));
-      qmax = fmaxf(fmaxf(q[0], q[1]), q[2]);
-      phi = __fadd_rn(out_len, fminf(qmax, 0.0f));
-    } else {  // halfspace: phi = n . (x - p)
-      phi = __fadd_rn(__fadd_rn(__fmul_rn(c.normal[0], diff[0]), __fmul_rn(c.normal[1], diff[1])),
-                      __fmul_rn(c.normal[2], diff[2]));
-    }
-    if (!(phi <= 0.0f)) continue;
-    float vs[3] = {c.vsurf[0], c.vsurf[1], c.vsurf[2]};
-    if (c.spin) {  // v_surface += omega x (x - center(t)); diff is x - center(t)
-      const float* w = c.omega;
-      vs[0] = __fsub_rn(__fadd_rn(vs[0], __fmul_rn(w[1], diff[2])), __fmul_rn(w[2], diff[1]));
-      vs[1] = __fsub_rn(__fadd_rn(vs[1], __fmul_rn(w[2], diff[0])), __fmul_rn(w[0], diff[2]));
-      vs[2] = __fsub_rn(__fadd_rn(vs[2], __fmul_rn(w[0], diff[1])), __fmul_rn(w[1], diff[0]));
-    }
-    if (c.sticky) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) v[a] = vs[a];
-      continue;
-    }
-    float n[3];
-    if (c.kind == 0) {
-      const float r_safe = fmaxf(r, 1e-12f);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) n[a] = __fdiv_rn(diff[a], r_safe);
-    } else if (c.kind == 1) {
-      // Inside: the nearest face's axis (one-hot on argmax q, ties at edges
-      // share it); outside: from the closest surface point.
-      const bool inside = qmax <= 0.0f;
-      const float safe_out = fmaxf(out_len, 1e-12f);
-      float face[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) face[a] = q[a] >= qmax ? 1.0f : 0.0f;
-      const float face_n = __fsqrt_rn(face[0] + face[1] + face[2]);  // sqrt(1 | 2 | 3)
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float sgn = diff[a] >= 0.0f ? 1.0f : -1.0f;
-        n[a] = inside ? __fdiv_rn(sgn * face[a], face_n) : __fdiv_rn(sgn * qp[a], safe_out);
-      }
-    } else {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) n[a] = c.normal[a];
-    }
-    float vrel[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) vrel[a] = __fsub_rn(v[a], vs[a]);
-    const float vn = __fadd_rn(__fadd_rn(__fmul_rn(vrel[0], n[0]), __fmul_rn(vrel[1], n[1])),
-                               __fmul_rn(vrel[2], n[2]));
-    const float approach = fminf(vn, 0.0f);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) v[a] = __fadd_rn(__fsub_rn(vrel[a], __fmul_rn(approach, n[a])), vs[a]);
-  }
 }
 
 // The node pass of one node from its raw sums r (transfer3d.py:491-585):
@@ -357,7 +210,7 @@ __device__ __forceinline__ void finish_node(const float r[kNch], int t0, int t1,
         __fmul_rn(__fsub_rn(static_cast<float>(t1), static_cast<float>(lo)), nd.dx),
         __fmul_rn(__fsub_rn(static_cast<float>(zc), static_cast<float>(lo)), nd.dx),
     };
-    project_colliders(cols, x, v);
+    colliders::project<3>(cols, x, v);
   }
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -405,7 +258,7 @@ __device__ __forceinline__ void emit(const float r[kNch], int shard, int q0, int
 template <int kNch, bool kTent, bool kStress, bool kApic>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 p2g3d_grid_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict__ out,
-                  float* __restrict__ raw, Plan pl, Fluid fl, Node nd, float dx,
+                  float* __restrict__ raw, Plan pl, taps::Fluid fl, Node nd, float dx,
                   const __grid_constant__ Colliders cols) {
   extern __shared__ float slab[];  // [t0 t1][pencil = kNch band + 1]
   __shared__ int zrange[2];
@@ -581,42 +434,9 @@ p2g3d_grid_kernel(taps::Prepped in, const int* __restrict__ counts, float* __res
   }
 }
 
-// The host arrays of the C entry points -> the launch's Colliders: per
-// collider kColF floats [center (3), center velocity (3), radius,
-// half-extents (3), unit normal (3), surface velocity (3), omega (3)] and
-// kColI ints [kind, sticky, moving, spin].  False when n is out of range.
-bool unpack_colliders(const float* col_f, const int* col_i, int n, int kin, float t,
-                      Colliders* cols) {
-  if (n < 0 || n > kMaxColliders || (n > 0 && (col_f == nullptr || col_i == nullptr))) {
-    return false;
-  }
-  cols->n = n;
-  cols->kin = kin;
-  cols->t = t;
-  for (int i = 0; i < n; ++i) {
-    const float* f = col_f + i * kColF;
-    const int* k = col_i + i * kColI;
-    Collider& c = cols->c[i];
-    c.kind = k[0];
-    c.sticky = k[1];
-    c.moving = k[2];
-    c.spin = k[3];
-    for (int a = 0; a < 3; ++a) {
-      c.center[a] = f[a];
-      c.cvel[a] = f[3 + a];
-      c.half[a] = f[7 + a];
-      c.normal[a] = f[10 + a];
-      c.vsurf[a] = f[13 + a];
-      c.omega[a] = f[16 + a];
-    }
-    c.radius = f[6];
-  }
-  return true;
-}
-
 template <int kNch, bool kTent, bool kStress>
 int launch(const taps::Prepped& in, const int* counts, float* out, float* raw, const Plan& pl,
-           const Fluid& fl, const Node& nd, float dx, int apic, const Colliders& cols,
+           const taps::Fluid& fl, const Node& nd, float dx, int apic, const Colliders& cols,
            unsigned blocks, size_t smem, cudaStream_t s) {
   auto kernel = apic ? p2g3d_grid_kernel<kNch, kTent, kStress, true>
                      : p2g3d_grid_kernel<kNch, kTent, kStress, false>;
@@ -639,7 +459,7 @@ int prepare(float* raw, float* out, int R0, int L0, int R1, int K, int G2, int n
   if (L0 <= 0 || R0 % L0 != 0 || R1 <= 0 || K < 0 || G2 <= 0 || t0 <= 0 || t1 <= 0 ||
       (t0 + kHalo) * (t1 + kHalo) > kMaxSrc || band <= 0 || (!raw_only && (L0 != R0 || out == nullptr)) ||
       (raw_only && (ncol != 0 || raw == nullptr)) ||
-      !unpack_colliders(col_f, col_i, ncol, kin, tcol, cols)) {
+      !colliders::unpack(col_f, col_i, ncol, kin, tcol, cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   pl->R0 = R0;
@@ -705,11 +525,11 @@ extern "C" int mpm_p2g3d_grid(const void* const* planes, const long long* stride
   if (rc != 0) return rc;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
   taps::Prepped in{};
-  for (int e = 0; e < kStressIn; ++e) {
+  for (int e = 0; e < taps::kStressIn; ++e) {
     in.p[e] = static_cast<const float*>(planes[e]);
     in.stride[e] = strides[e];
   }
-  const Fluid fl{tait, kb, kb_over_gamma, gamma, two_mu, fa};
+  const taps::Fluid fl{tait, kb, kb_over_gamma, gamma, two_mu, fa};
   return launch<7, false, true>(in, counts, raw_only ? nullptr : out, raw, pl, fl, nd, dx,
                                 apic, cols, blocks, smem, static_cast<cudaStream_t>(stream));
 }
@@ -739,7 +559,7 @@ extern "C" int mpm_p2g3d_grid_pdata(const void* const* planes, const long long* 
   if (rc != 0) return rc;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
   const taps::Prepped in = taps::prepped_from(planes, strides);
-  const Fluid fl{};
+  const taps::Fluid fl{};
   float* o = raw_only ? nullptr : out;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nch == 7) {

@@ -79,6 +79,56 @@ struct Slot {
   int z[3];             // z taps: column, -1 outside [0, G2)
 };
 
+// Weakly-compressible fluid constants of the 3D stress modes (p2g3d.cu,
+// p2g3d_grid.cu): Tait (tait 1) or linear EOS, and the viscosity.
+struct Fluid {
+  int tait;
+  float kb, kb_over_gamma, gamma, two_mu, fa;
+};
+
+// The stress modes' state planes: [gx (3), v (3), C00..C22, J, mass, vol0].
+constexpr int kStressIn = 18;
+
+// The fluid stress of a slot (transfer3d.py:208-236) from the state planes:
+// mv = m v, P = m C (APIC, else 0), Q = P + fa tau and the mass.
+template <bool kApic>
+__device__ __forceinline__ void fluid_affine(const Prepped& in, long long pencil, int k,
+                                             const Fluid& fl, float mv[3], float p[9],
+                                             float q[9], float& mass_out) {
+  float c[9];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) c[e] = in.at(6 + e, pencil, k);
+  const float jj = in.at(15, pencil, k), mass = in.at(16, pencil, k);
+  const float vol0 = in.at(17, pencil, k);
+  float pressure;
+  if (fl.tait) {
+    const float j_safe = fmaxf(jj, 1e-3f);
+    pressure = fl.kb_over_gamma * (powf(1.0f / j_safe, fl.gamma) - 1.0f);
+  } else {
+    pressure = -fl.kb * (jj - 1.0f);
+  }
+  const float divc = c[0] + c[4] + c[8];
+  const float vj = vol0 * jj;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    mv[a] = mass * in.at(3 + a, pencil, k);
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      float dev = 0.5f * (c[3 * a + b] + c[3 * b + a]);
+      float tau;
+      if (a == b) {
+        dev -= divc / 3.0f;
+        tau = vj * (-pressure + fl.two_mu * dev);
+      } else {
+        tau = vj * (fl.two_mu * dev);
+      }
+      p[3 * a + b] = kApic ? mass * c[3 * a + b] : 0.0f;
+      q[3 * a + b] = p[3 * a + b] + fl.fa * tau;
+    }
+  }
+  mass_out = mass;
+}
+
 // The z taps of a slot at gx2 with base column base2 = floor(gx2 - 0.5).
 template <int kNch, bool kTent>
 __device__ __forceinline__ void z_taps(float gx2, float base2, int G2, float dx,

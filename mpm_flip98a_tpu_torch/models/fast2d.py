@@ -34,6 +34,16 @@ global row indices (CSF and the projection refresh the halo rows with
 `halo_gather_only` and take their maxima and sums over the shards), and
 `g2p` on the prepadded grid.
 
+`routes` reads the JAX package's two route variables (fast2d.py:543,
+:563-567), off by default as there: `MPM_P2G_GRID=1` (one device, an
+absolute mass floor, no projection or CSF) runs P2G, the fold and the grid
+update with walls and colliders in one `p2g_grid(raw=False)` call on either
+branch, whose padded grid feeds the prepadded `g2p`; `MPM_FUSE2D_G2P=1`
+(the fused branch, one device or slab shards) runs the FLIP blend,
+advection and the J update inside `g2p(update=True)`, leaving F and Jp as
+they are (fast2d.py:437-476).  With both, a substep is two transfer
+kernels.
+
 The TPU lane crop (`kernel_cols`) is not ported: the
 kernels use all G = num_grids columns.
 """
@@ -41,6 +51,7 @@ kernels use all G = num_grids columns.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import numpy as np
@@ -250,6 +261,25 @@ def uses_fused(scene: Scene) -> bool:
     )
 
 
+def routes(scene: Scene, domain=None) -> Tuple[bool, bool]:
+    """(p2g_grid, fuse_g2p): the routes fast2d.py:536-599 reads from the
+    environment, with JAX's defaults ("0") and conditions.
+    `MPM_P2G_GRID=1` on one device with an absolute mass floor and no
+    grid-side extension (the incompressible projection or CSF surface
+    tension) runs P2G, the fold and the grid update (walls, colliders) in
+    one `p2g_grid(raw=False)` call on either branch; `MPM_FUSE2D_G2P=1` on
+    the fused branch (`uses_fused`), on one device or on slab shards, runs
+    the particle update inside `g2p(update=True)`."""
+    cfg = scene.cfg
+    p2g_grid = (
+        domain is None and scene.mass_floor > 0.0
+        and not (cfg.incompressible or cfg.surface_tension > 0.0)
+        and os.environ.get("MPM_P2G_GRID", "0") == "1"
+    )
+    fuse_g2p = uses_fused(scene) and os.environ.get("MPM_FUSE2D_G2P", "0") == "1"
+    return p2g_grid, fuse_g2p
+
+
 def _axis_bands2d(cfg: MPMConfig, idx0: torch.Tensor, ncols: int):
     """Wall-band masks broadcastable against (..., rows, G) planes: box
     faces at PAD / G-1-PAD, as models/stabilized._apply_wall_bc.  `idx0`
@@ -368,6 +398,24 @@ def p2g_args(scene: Scene) -> dict:
         mu=float(scene.params.dynamic_viscosity),
         gamma=float(scene.params.tait_gamma),
         fa=float(-cfg.dt * dinv),
+    )
+
+
+def p2g_grid_args(scene: Scene, t=None) -> dict:
+    """The node arguments of `p2g_grid`'s non-raw mode for the scene
+    (fast2d.py:401-434): gravity, the absolute mass floor, the wall bands
+    and BC (the penalty's beta under the penalty EBC), the colliders and,
+    when one moves, their time `t`."""
+    cfg = scene.cfg
+    grav = np.asarray(cfg.gravity_acceleration(scene.physics), np.float32)
+    penalty = cfg.use_penalty_ebc
+    moving = bool(scene.colliders) and colliders.any_moving(scene.colliders)
+    return dict(
+        dt=float(cfg.dt), gx_=float(grav[0]), gy_=float(grav[1]),
+        floor=float(scene.mass_floor), lo=int(PAD), hi=cfg.num_grids - 1 - int(PAD),
+        wall="penalty" if penalty else scene.wall.kind,
+        beta=float(cfg.penalty_parameter(scene.physics)) if penalty else 0.0,
+        colliders=tuple(scene.colliders), tcol=t if moving else None,
     )
 
 
@@ -491,10 +539,11 @@ def _prep(b: FluidBuckets, scene: Scene, gx0, gx1) -> torch.Tensor:
     return torch.stack(rows, dim=1)
 
 
-def transfer_inputs(b: FluidBuckets, scene: Scene, domain=None):
+def transfer_inputs(b: FluidBuckets, scene: Scene, domain=None, update=False):
     """(data, pdata2 (R, 3, K), counts (R,)) for the kernels, where data is
     `p2g_fused`'s sdata (R, 11, K) or `p2g`'s prepped pdata (R, 14 or 17,
-    K), as `uses_fused` picks.
+    K), as `uses_fused` picks.  With `update` pdata2 is g2p's update-mode
+    input (R, 8, K) = [gx0, gx1, mask, v0, v1, J, x0, x1].
 
     P2G and G2P read one precomputed transfer coordinate gx = x / dx + PAD
     (docs/KERNELS.md:57-60): computed twice, it could round a knife-edge
@@ -514,7 +563,8 @@ def transfer_inputs(b: FluidBuckets, scene: Scene, domain=None):
         )
     else:
         data = _prep(b, scene, gx0, gx1)
-    return data, torch.stack([gx0, gx1, b.mask], dim=1), counts
+    rows = [gx0, gx1, b.mask, b.v0, b.v1, b.J, b.x0, b.x1] if update else [gx0, gx1, b.mask]
+    return data, torch.stack(rows, dim=1), counts
 
 
 def _tent_inverse_d(gx0, gx1, dx: float):
@@ -540,21 +590,25 @@ def _tent_inverse_d(gx0, gx1, dx: float):
     return d11 / det, -d01 / det, d00 / det
 
 
-def _grid(data, counts, scene: Scene, plain: bool, domain, t=None):
+def _grid(data, counts, scene: Scene, plain: bool, domain, t=None, p2g_grid=False):
     """P2G, the fold and the grid update at time `t` -> the g2p grid: (R, 4
-    or 7, G) on one device; on slab shards `p2g_grid`'s raw halo sums, the
-    halo exchange and the update on the (n, L + 4) halo rows
-    (fast2d.py:744-766)."""
+    or 7, G) on one device; with `p2g_grid` the one-launch
+    `p2g_grid(raw=False)`, whose (R + 4, 4 or 7, G) padded grid is returned
+    as one shard (1, R + 4, ..) for the prepadded `g2p` (fast2d.py:401-434);
+    on slab shards `p2g_grid`'s raw halo sums, the halo exchange and the
+    update on the (n, L + 4) halo rows (fast2d.py:744-766)."""
     fused = uses_fused(scene)
+    if p2g_grid:
+        call = tk.p2g_grid_plain if plain else tk.p2g_grid
+        return call(data, counts, fused=fused, **p2g_args(scene), **p2g_grid_args(scene, t))[None]
     if domain is None:
         if plain:
             p2g = tk.p2g_fused_plain if fused else tk.p2g_plain
         else:
             p2g = tk.p2g_fused if fused else tk.p2g
         return _grid_update2d(tk.fold_rows(p2g(data, counts, **p2g_args(scene))), scene, t=t)
-    kw = dict(fused=fused, shards=domain.n, **p2g_args(scene))
-    raw = tk.p2g_grid_plain(data, counts, **kw) if plain else tk.p2g_grid(
-        data, counts, raw=True, **kw)
+    kw = dict(fused=fused, shards=domain.n, raw=True, **p2g_args(scene))
+    raw = (tk.p2g_grid_plain if plain else tk.p2g_grid)(data, counts, **kw)
     return _grid_update2d(domain.halo_sync(raw), scene, domain.row_index0(data.device), t,
                           domain)
 
@@ -570,6 +624,10 @@ def substep(
     tent kernel's per-particle D^-1.  Then `g2p` and the particle update.
     `domain` (parallel/fast_domain.FastDomainCtx) runs both branches on
     its slab shards through `p2g_grid`'s raw mode and the prepadded `g2p`.
+    `routes` reads MPM_P2G_GRID and MPM_FUSE2D_G2P as JAX does: the first
+    puts P2G, the fold and the grid update in one `p2g_grid(raw=False)`,
+    the second the particle update in `g2p(update=True)`, which leaves F,
+    Jp and the lagged nodal fields as they are (fast2d.py:437-476).
     `plain=True` calls the kernels' plain PyTorch versions even on a card:
     it exists to time the plain path against the kernel path."""
     check_supported(scene)
@@ -580,11 +638,19 @@ def substep(
     tent = cfg.kernel == KernelKind.TENT
     ext = _ext(cfg)
     g2p = tk.g2p_plain if plain else tk.g2p
+    use_grid, fuse_g2p = routes(scene, domain)
+    prepadded = use_grid or domain is not None
 
-    data, pdata2, counts = transfer_inputs(b, scene, domain)
-    grid = _grid(data, counts, scene, plain, domain, t)
-    out = g2p(pdata2, counts, grid, dx, 1.0 if tent else dinv, tent=tent,
-              prepadded=domain is not None)
+    data, pdata2, counts = transfer_inputs(b, scene, domain, fuse_g2p)
+    grid = _grid(data, counts, scene, plain, domain, t, use_grid)
+    if fuse_g2p:
+        out = g2p(pdata2, counts, grid, dx, dinv, prepadded=prepadded, update=True,
+                  alpha=float(cfg.flip_blend), dtv=float(cfg.dt))
+        return dataclasses.replace(
+            b, x0=out[:, 0], x1=out[:, 1], v0=out[:, 2], v1=out[:, 3],
+            C00=out[:, 4], C01=out[:, 5], C10=out[:, 6], C11=out[:, 7], J=out[:, 8],
+        )
+    out = g2p(pdata2, counts, grid, dx, 1.0 if tent else dinv, tent=tent, prepadded=prepadded)
     vpic0, vpic1 = out[:, 0], out[:, 1]
     vold0, vold1 = out[:, 2], out[:, 3]
     c00, c01, c10, c11 = out[:, 4], out[:, 5], out[:, 6], out[:, 7]

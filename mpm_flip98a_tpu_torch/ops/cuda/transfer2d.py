@@ -12,20 +12,25 @@ for the MXU; on the GPU each particle simply touches its 3x3 nodes:
   pallas_call :323): the same transfer of stress prepped outside the
   kernel (`pdata`), 6 or 9 channels, B-spline or tent taps.
 - `p2g_grid` (csrc/p2g.cu) replaces the Pallas `p2g_grid`
-  (transfer2d.py:597, pallas_call :666) in its raw mode, the slab-sharded
-  path's: the fused or prepped transfer of every shard's rows in one
-  launch of the same kernel, then a fold launch into each shard's raw,
-  uncropped (L + 4, nch, G) halo rows.
+  (transfer2d.py:597, pallas_call :666) in both modes: raw, the
+  slab-sharded path's (the fused or prepped transfer of every shard's rows
+  in one launch of the same kernel, then a fold launch into each shard's
+  raw, uncropped (L + 4, nch, G) halo rows), and non-raw on one device
+  (MPM_P2G_GRID=1: the fold launch also finishes each node, with the JAX
+  kernel's mass floor, gravity, walls or penalty solve, rigid colliders and
+  nodal averages, into the g2p-ready (R + 4, 4 or 7, G) grid).
 One fixed-order gather with no float atomics computes the three: reruns
-are bitwise equal, and `p2g_grid`'s output equals `fold_rows_halo` of
+are bitwise equal, and `p2g_grid`'s raw output equals `fold_rows_halo` of
 `p2g` / `p2g_fused` per shard bit for bit.  `plan_p2g` (and
 `plan_p2g_fused` for the fused record) sizes its column bands and staging
 window.
 - `g2p` (csrc/g2p.cu) replaces the Pallas `g2p` (transfer2d.py:843,
-  pallas_call :893) in its `update=False` form: vpic, the gathered
-  pre-force velocity, C = D^-1 sum w v (x_node - x_p)^T and, with the
-  7-channel grid, the gathered Jbar, p and div; B-spline or tent taps; on
-  an unpadded grid or, `prepadded`, on each slab shard's halo rows.
+  pallas_call :893): vpic, the gathered pre-force velocity, C = D^-1 sum
+  w v (x_node - x_p)^T and, with the 7-channel grid, the gathered Jbar, p
+  and div; B-spline or tent taps; on an unpadded grid or, `prepadded`, on
+  each slab shard's halo rows (or `p2g_grid`'s finished grid); and with
+  `update` (MPM_FUSE2D_G2P=1) the particle update in the kernel: the FLIP
+  blend, advection and the J update.
 
 Each kernel has a plain PyTorch version with the same contract beside it
 (`p2g_fused_plain`, `p2g_plain`, `p2g_grid_plain`, `g2p_plain`).  A wrapper takes the plain
@@ -42,28 +47,32 @@ Layouts are the JAX package's, so the two compare at this boundary:
   P2G out      : (R, 5, nch, G) (nch 5 fused), target row t of bucket i
                  is grid row i + t - 1; channels [m v (2), m v + f (2),
                  *plain]
-  p2g_grid out : n slab shards of L = R / n bucket rows (gx0 local to the
-                 shard): (n, L + 4, nch, G), row j of shard s its target
-                 row j - 1, = fold_rows_halo of P2G out per shard
+  p2g_grid out : raw: n slab shards of L = R / n bucket rows (gx0 local
+                 to the shard): (n, L + 4, nch, G), row j of shard s its
+                 target row j - 1, = fold_rows_halo of P2G out per shard;
+                 non-raw: (R + 4, 4 or 7, G) = [v_new (2), v_old (2)(,
+                 Jbar, p, div)], row j target row j - 1, pad rows zero
   G2P in       : pdata2 (R, 3, K) = [gx0, gx1, mask], counts, grid
                  (R, 4 or 7, G) = [v_new (2), v_old (2)(, Jbar, p, div)]
                  (unpadded: rows outside [0, R) read as zero) or,
                  prepadded, (n, L + 4, 4 or 7, G) as p2g_grid's out
   G2P out      : (R, 8 or 11, K) = [vpic (2), vold (2), C00, C01, C10,
-                 C11(, Jbar, p, div)]
+                 C11(, Jbar, p, div)]; update mode: pdata2 (R, 8, K) =
+                 [gx0, gx1, mask, v0, v1, J, x0, x1] -> (R, 9, K) = [x (2),
+                 v (2), C (4), J]
 
 Semantics kept from the TPU kernels: a slot contributes only when its
 base row is within +-1 of its bucket row; taps on columns outside [0, G)
-are dropped; P2G and G2P read the same precomputed gx.  G2P's update mode
-and `p2g_grid`'s non-raw mode (in-kernel fold, grid update and colliders)
-are not on a ported path (ROADMAP queue 2, items 2 and 3).
+are dropped; P2G and G2P read the same precomputed gx.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch import _build
@@ -75,7 +84,11 @@ P2G_CH_EXT = 9     # + [V0 J, V0, V0 p, V0 div] in place of V
 G2P_CH = 4         # [v_new0, v_new1, v_old0, v_old1]
 G2P_CH_EXT = 7     # + [Jbar, p, div]
 G2P_OUT = 8        # [vpic0, vpic1, vold0, vold1, C00, C01, C10, C11]
+G2P_UPD = 9        # update mode: [x0, x1, v0, v1, C00, C01, C10, C11, J]
 EOS_CODES = {"linear": 0, "tait": 1}
+WALL_CODES = {"slip": 0, "sticky": 1, "penalty": 2}
+MAX_COLLIDERS = 8     # csrc/colliders.cuh's colliders::kMax
+COLLIDER_KINDS = {"sphere": 0, "box": 1, "halfspace": 2}
 
 # The fixed-order gathers' plans (csrc/p2g.cu, csrc/p2g3d.cu; transfer3d's
 # plan_p2g3d too).  P2G_WARPS warps a block (p2g.cu's kWarps);
@@ -465,6 +478,126 @@ def _shard_rows(r: int, shards: int) -> int:
     return r // shards
 
 
+@functools.lru_cache(maxsize=32)
+def collider_arrays(colliders: tuple, dim: int = 3):
+    """The kernels' host arrays of `dim`-D `colliders` (csrc/colliders.cuh,
+    colliders::unpack; p2g3d_grid takes 3D ones, p2g_grid's non-raw mode
+    2D ones): per collider 19 float32 [center, center velocity, radius,
+    half-extents, unit normal, surface velocity, omega] and 4 int32 [kind,
+    sticky, moving, spin], rounded as `colliders.project` rounds them; a 2D
+    collider's third components are 0 and its omega_z goes first.  Built
+    once per scene (the tuple is the cache key)."""
+    from mpm_flip98a_tpu_torch.models import colliders as col   # it imports this module
+
+    name = "p2g3d_grid" if dim == 3 else "p2g_grid"
+    if len(colliders) > MAX_COLLIDERS:
+        raise ValueError(f"{name} takes at most {MAX_COLLIDERS} colliders, got {len(colliders)}")
+    f32 = np.float32
+    three = lambda v: (*v, *(0.0,) * (3 - len(v)))
+    fl, it = [], []
+    for c in colliders:
+        if len(c.center) != dim:
+            raise ValueError(f"{name} takes {dim}D colliders, got {c}")
+        vel, cvel = three(c.velocity or ()), three(c.center_velocity or ())
+        normal = three(col.halfspace_normal(c) if c.kind == "halfspace" else ())
+        fl += [*three(c.center), *cvel, c.radius, *three(c.half_extents or ()), *normal,
+               *(f32(vel[a]) + f32(cvel[a]) for a in range(3)), *three(c.angular or ())]
+        it += [COLLIDER_KINDS[c.kind], int(c.sticky), int(c.moving), int(bool(c.angular))]
+    n = len(colliders)
+    # float32 first, so the C floats hold the values numpy rounded.
+    return ((ctypes.c_float * max(n * 19, 1))(*np.asarray(fl, np.float32).tolist()),
+            (ctypes.c_int * max(n * 4, 1))(*it), n)
+
+
+def _f32(v) -> float:
+    """v rounded to float32 once, as a Python float (exact in float32)."""
+    return float(np.float32(v))
+
+
+def grid_update2d_plain(raw, r, dt, gx_, gy_, floor, lo, hi, wall, beta, colliders=(),
+                        tcol=None, dx=0.0):
+    """The node pass of `p2g_grid`'s non-raw mode, the JAX kernel's
+    arithmetic (transfer2d.py:476-560): the raw (R + 4, nch, G) halo sums
+    of one device (row j = target row j - 1) -> the finished (R + 4, 4 or
+    7, G) grid [v_new (2), v_old (2) (, Jbar, p, div)].  The absolute mass
+    floor; gravity; slip or sticky walls or the penalty's diagonal solve
+    (p + dt g m) / (m + dt beta pen), pen 1 on the axis's wall band (rows
+    or columns <= lo or >= hi); the colliders projected at node x = ((row -
+    lo) dx, (col - lo) dx) at time `tcol` (None: static), then cropped to
+    the interior rows; with 9 channels the nodal averages (Jbar 1 where no
+    volume landed, on interior rows only).  The scalars dt g and dt beta
+    are rounded to float32 once from their double products, as the JAX
+    kernel's weakly typed constants are.  Rows outside [0, R) are zero."""
+    win, nch, g = raw.shape
+    dev, f32 = raw.device, raw.dtype
+    t0r = torch.arange(win, device=dev)[:, None] - 1               # target rows
+    col_idx = torch.arange(g, device=dev)[None, :]
+    interior = (t0r >= 0) & (t0r < r)
+    m = raw[:, 4]
+    has = (m > _f32(floor)) & interior
+    safe = torch.where(has, m, 1.0)
+    v0x = torch.where(has, raw[:, 0] / safe, 0.0)
+    v0y = torch.where(has, raw[:, 1] / safe, 0.0)
+    low0, high0, low1, high1 = t0r <= lo, t0r >= hi, col_idx <= lo, col_idx >= hi
+    dtg = [_f32(float(dt) * float(a)) for a in (gx_, gy_)]
+    if wall == "penalty":
+        dtb = _f32(float(dt) * float(beta))
+        pen0, pen1 = (low0 | high0).to(f32), (low1 | high1).to(f32)
+        vx = torch.where(has, (raw[:, 2] + dtg[0] * m) / (m + dtb * pen0), 0.0)
+        vy = torch.where(has, (raw[:, 3] + dtg[1] * m) / (m + dtb * pen1), 0.0)
+    else:
+        hasf = has.to(f32)
+        vx = torch.where(has, raw[:, 2] / safe, 0.0) + dtg[0] * hasf
+        vy = torch.where(has, raw[:, 3] / safe, 0.0) + dtg[1] * hasf
+        if wall == "sticky":
+            anyband = low0 | high0 | low1 | high1
+            vx = torch.where(anyband, 0.0, vx)
+            vy = torch.where(anyband, 0.0, vy)
+        else:   # slip: clamp the outgoing normal component per band
+            vx = torch.where(low0, vx.clamp(min=0.0), vx)
+            vx = torch.where(high0, vx.clamp(max=0.0), vx)
+            vy = torch.where(low1, vy.clamp(min=0.0), vy)
+            vy = torch.where(high1, vy.clamp(max=0.0), vy)
+    if colliders:
+        from mpm_flip98a_tpu_torch.models import colliders as col
+
+        dxc = col.rounded(dx, f32)
+        coords = [(t0r.to(f32) - lo) * dxc, (col_idx.to(f32) - lo) * dxc]
+        vx, vy = col.project([vx, vy], coords, colliders, tcol)
+        vx = torch.where(interior, vx, 0.0)
+        vy = torch.where(interior, vy, 0.0)
+    rows = [vx, vy, v0x, v0y]
+    if nch == P2G_CH_EXT:
+        v0sum = raw[:, 6]
+        has_v = (v0sum > 0) & interior
+        safe_v = torch.where(has_v, v0sum, 1.0)
+        rows += [
+            torch.where(has_v, raw[:, 5] / safe_v, interior.to(f32)),
+            torch.where(has_v, raw[:, 7] / safe_v, 0.0),
+            torch.where(has_v, raw[:, 8] / safe_v, 0.0),
+        ]
+    return torch.stack([x.expand(win, g) for x in rows], dim=1)
+
+
+def _node_args(raw, shards, dt, gx_, gy_, floor, lo, hi, wall, colliders):
+    """Checks the node arguments of `p2g_grid`: no colliders with `raw`;
+    without it one device and all of dt, gx_, gy_, floor, lo, hi and wall
+    (TypeError when one is missing)."""
+    if raw:
+        if colliders:
+            raise ValueError("p2g_grid's raw mode takes no colliders: the grid update applies "
+                             "them")
+        return
+    if shards != 1:
+        raise ValueError("p2g_grid's non-raw mode runs on one device (shards = 1)")
+    missing = [n for n, v in zip(("dt", "gx_", "gy_", "floor", "lo", "hi", "wall"),
+                                 (dt, gx_, gy_, floor, lo, hi, wall)) if v is None]
+    if missing:
+        raise TypeError(f"p2g_grid: the grid update needs {', '.join(missing)}")
+    if wall not in WALL_CODES:
+        raise ValueError(f"unknown wall {wall!r}")
+
+
 def p2g_grid_plain(
     data: torch.Tensor,
     counts: torch.Tensor,
@@ -474,17 +607,21 @@ def p2g_grid_plain(
     fused: bool,
     tent: bool = False,
     apic: bool = True,
+    raw: bool = False,
     eos: str = "tait",
     kb: float = 0.0,
     mu: float = 0.0,
     gamma: float = 7.0,
     fa: float = 0.0,
+    dt=None, gx_=None, gy_=None, floor=None, lo=None, hi=None, wall=None, beta=0.0,
+    colliders=(), tcol=None,
     shards: int = 1,
 ) -> torch.Tensor:
-    """Plain PyTorch version of `p2g_grid`'s raw mode: per shard,
-    `fold_rows_halo` of `p2g_fused_plain` (fused) or `p2g_plain` (prepped),
-    which is what the TPU kernel's raw output equals (transfer2d.py:
-    637-641)."""
+    """Plain PyTorch version of `p2g_grid`: per shard, `fold_rows_halo` of
+    `p2g_fused_plain` (fused) or `p2g_plain` (prepped), which is what the
+    TPU kernel's raw output equals (transfer2d.py:637-641); without `raw`,
+    `grid_update2d_plain` of the one device's sums."""
+    _node_args(raw, shards, dt, gx_, gy_, floor, lo, hi, wall, colliders)
     l = _shard_rows(data.shape[0], shards)
     out = []
     for s in range(shards):
@@ -494,7 +631,10 @@ def p2g_grid_plain(
         else:
             expanded = p2g_plain(d, c, g, dx, tent, apic)
         out.append(fold_rows_halo(expanded))
-    return torch.stack(out)
+    if raw:
+        return torch.stack(out)
+    return grid_update2d_plain(out[0], l, dt, gx_, gy_, floor, lo, hi, wall, beta, colliders,
+                               tcol, dx)
 
 
 def p2g_grid(
@@ -512,28 +652,32 @@ def p2g_grid(
     mu: float = 0.0,
     gamma: float = 7.0,
     fa: float = 0.0,
+    dt=None, gx_=None, gy_=None, floor=None, lo=None, hi=None, wall=None, beta=0.0,
+    colliders=(), tcol=None,
     shards: int = 1,
 ) -> torch.Tensor:
-    """P2G + the five-row fold into raw halo sums (the JAX `p2g_grid` with
-    `raw=True`), batched over slab shards.
+    """P2G + the five-row fold (the JAX `p2g_grid`): raw halo sums batched
+    over slab shards, or on one device the finished g2p-ready grid.
 
     data: sdata (R, 11, K) with `fused` (fluid stress in the kernel,
     B-spline) or prepped pdata (R, 8 + nch, K), nch 6 or 9; counts (R,)
-    int32; R = shards x L with gx0 local to each shard -> (shards, L + 4,
-    nch, G) f32 (nch 5 fused), row j of shard s its target row j - 1,
-    uncropped.  On the card `p2g`'s gather sums every shard's rows into a
-    (R, 5, nch, G) scratch buffer (the columns with sums only, their
-    ranges beside) and a second launch folds it in `fold_rows_halo`'s
-    order: the output equals `fold_rows_halo` of `p2g_fused` / `p2g` per
-    shard bit for bit, and two calls on the same inputs are bitwise equal;
-    `plan_p2g` raises past its K limit.  The non-raw mode (the fold, the
-    grid update and colliders in the kernel, which only MPM_P2G_GRID=1
-    reaches in JAX) raises."""
-    if not raw:
-        raise NotImplementedError(
-            "p2g_grid's non-raw mode (in-kernel fold, grid update and colliders, "
-            "reached only by MPM_P2G_GRID=1) is not ported (ROADMAP queue 2, item 3)"
-        )
+    int32.  `raw=True`: R = shards x L with gx0 local to each shard ->
+    (shards, L + 4, nch, G) f32 (nch 5 fused), row j of shard s its target
+    row j - 1, uncropped.  `raw=False` (one device, the JAX default): the
+    node pass of `grid_update2d_plain` with the JAX arguments dt, gx_, gy_
+    (gravity), floor (the absolute mass floor), lo, hi (the wall bands),
+    wall ("slip", "sticky" or "penalty"), beta (the penalty), `colliders`
+    (2D `models/colliders.Collider`s, at most 8) and `tcol` (their time,
+    None: static) -> (R + 4, 4 or 7, G) f32 = [v_new (2), v_old (2) (,
+    Jbar, p, div)], row j its target row j - 1, pad rows zero, for the
+    prepadded `g2p` (as one shard: `out[None]`).
+
+    On the card `p2g`'s gather sums every shard's rows into a (R, 5, nch,
+    G) scratch buffer (the columns with sums only, their ranges beside) and
+    a second launch folds it in `fold_rows_halo`'s order (and, not raw,
+    finishes each node): the raw output equals `fold_rows_halo` of
+    `p2g_fused` / `p2g` per shard bit for bit, and two calls on the same
+    inputs are bitwise equal; `plan_p2g` raises past its K limit."""
     r, f, k = data.shape
     if fused:
         if f != 11:
@@ -546,21 +690,33 @@ def p2g_grid(
     else:
         nch = _nch(data)
     l = _shard_rows(r, shards)
+    _node_args(raw, shards, dt, gx_, gy_, floor, lo, hi, wall, colliders)
     _check("data", data, (r, f, k), torch.float32)
     _check("counts", counts, (r,), torch.int32)
-    kw = dict(fused=fused, tent=tent, apic=apic, eos=eos, kb=kb, mu=mu, gamma=gamma, fa=fa,
-              shards=shards)
+    kw = dict(fused=fused, tent=tent, apic=apic, raw=raw, eos=eos, kb=kb, mu=mu, gamma=gamma,
+              fa=fa, dt=dt, gx_=gx_, gy_=gy_, floor=floor, lo=lo, hi=hi, wall=wall, beta=beta,
+              colliders=colliders, tcol=tcol, shards=shards)
     if _route(data, counts) == "cpu":
         return p2g_grid_plain(data, counts, g, dx, **kw)
     plan = plan_p2g(nch, g, k, apic)
     lib = _build.load().lib
     expanded = torch.empty((r, NT, nch, g), dtype=torch.float32, device=data.device)
     ranges = torch.empty((r, plan.bands, 2), dtype=torch.int32, device=data.device)
-    out = torch.empty((shards, l + NT - 1, nch, g), dtype=torch.float32, device=data.device)
+    if raw:
+        out = torch.empty((shards, l + NT - 1, nch, g), dtype=torch.float32, device=data.device)
+        node = (0.0, 0.0, 0.0, 0, 0, 0, 0.0)
+    else:
+        gch = G2P_CH_EXT if nch == P2G_CH_EXT else G2P_CH
+        out = torch.empty((r + NT - 1, gch, g), dtype=torch.float32, device=data.device)
+        node = (_f32(float(dt) * float(gx_)), _f32(float(dt) * float(gy_)), _f32(floor),
+                int(lo), int(hi), WALL_CODES[wall], _f32(float(dt) * float(beta)))
+    col_f, col_i, ncol = collider_arrays(tuple(colliders), 2)
+    kin = int(tcol is not None and ncol > 0)
     rc = lib.mpm_p2g_grid(
         _ptr(data), _ptr(counts), _ptr(expanded), _ptr(ranges), _ptr(out), shards, l, k, g, nch,
         int(fused), int(tent), dx, int(apic), EOS_CODES[eos], kb, kb / gamma, gamma, 2.0 * mu,
-        mu, fa, plan.band, plan.cap, _stream(data),
+        mu, fa, plan.band, plan.cap, int(raw), *node, col_f, col_i, ncol, kin,
+        float(tcol) if kin else 0.0, _stream(data),
     )
     LAUNCHES["p2g_grid"] += 1
     _raise_on(rc, "p2g_grid")
@@ -584,6 +740,12 @@ def _g2p_grid_rows(r: int, grid: torch.Tensor, prepadded: bool):
     return l, shard * win, 1, win
 
 
+def _update_constants(alpha: float, dtv: float):
+    """(alpha, 1 - alpha, dtv) as float32 values, each rounded once from a
+    double, as the JAX kernel's weakly typed scalars are."""
+    return _f32(alpha), _f32(1.0 - float(alpha)), _f32(dtv)
+
+
 def g2p_plain(
     pdata2: torch.Tensor,
     counts: torch.Tensor,
@@ -592,16 +754,20 @@ def g2p_plain(
     dinv: float,
     tent: bool = False,
     prepadded: bool = False,
+    update: bool = False,
+    alpha: float = 0.0,
+    dtv: float = 0.0,
 ) -> torch.Tensor:
     """Plain PyTorch version of `g2p`: per stencil tap, one clamped gather
     of the grid channels, summed in the kernel's order (rows, then
     columns).  With `prepadded`, bucket row i of shard s = i // L reads row
-    (row + 1) of its window grid[s]."""
+    (row + 1) of its window grid[s].  `update` then applies the particle
+    update of the JAX kernel (transfer2d.py:815-830) to the gathers."""
     r, _, k = pdata2.shape
     gch, g = grid.shape[-2], grid.shape[-1]
     dev = pdata2.device
     l, win0, pad, win = _g2p_grid_rows(r, grid, prepadded)
-    gx0, gx1, mask = pdata2.unbind(1)
+    gx0, gx1, mask = pdata2[:, :3].unbind(1)
     base0 = torch.floor(gx0 - 0.5)
     rel = base0 - (torch.arange(r, device=dev) % l).to(torch.float32)[:, None]
     valid = _live(counts, k) & (mask > 0) & (rel >= -1.0) & (rel <= 1.0)
@@ -635,10 +801,22 @@ def g2p_plain(
             b11 = b11 + wd * vn1
             extra = [a + w * e for a, e in zip(extra, ext)]
     dinv_dx = dinv * dx
-    return torch.stack(
-        [vp0, vp1, vo0, vo1, dinv * b00, dinv_dx * b01, dinv * b10, dinv_dx * b11, *extra],
-        dim=1,
-    )
+    c_out = [dinv * b00, dinv_dx * b01, dinv * b10, dinv_dx * b11]
+    if not update:
+        return torch.stack([vp0, vp1, vo0, vo1, *c_out, *extra], dim=1)
+    a32, oma, dt32 = _update_constants(alpha, dtv)
+    v0, v1, jj, x0, x1 = pdata2[:, 3:].unbind(1)
+    live = _live(counts, k)
+    x_new = [x0 + dt32 * vp0, x1 + dt32 * vp1]
+    v_new = [(a32 * (v + vp - vo) + oma * vp) * mask
+             for v, vp, vo in ((v0, vp0, vo0), (v1, vp1, vo1))]
+    j_new = torch.where(mask > 0, jj * (1.0 + dt32 * (c_out[0] + c_out[3])), 1.0)
+    # Slots past the count: x passes through, v = C = 0, J = 1.
+    outs = [
+        torch.where(live, e, fill)
+        for e, fill in zip([*x_new, *v_new, *c_out, j_new], [x0, x1, *(zero,) * 6, zero + 1.0])
+    ]
+    return torch.stack(outs, dim=1)
 
 
 def g2p(
@@ -650,6 +828,8 @@ def g2p(
     tent: bool = False,
     prepadded: bool = False,
     update: bool = False,
+    alpha: float = 0.0,
+    dtv: float = 0.0,
 ) -> torch.Tensor:
     """pdata2 (R, 3, K), counts (R,) int32, grid (R, 4 or 7, G) ->
     (R, 8 or 11, K).
@@ -658,20 +838,23 @@ def g2p(
     get zeros.  Grid rows outside [0, R) read as zero, like the TPU
     kernel's zero-padded grid.  With `prepadded` the grid is the slab
     shards' halo-synced (n, L + 4, 4 or 7, G), n L = R, gx0 local to each
-    shard (transfer2d.py:859-863).  The tent kernel takes dinv as given
-    (the caller passes 1 and inverts the per-particle D itself).  The
-    fused particle update (`update=True`, only MPM_FUSE2D_G2P=1 reaches
-    it in JAX) raises."""
-    if update:
-        raise NotImplementedError(
-            "g2p's update mode (only MPM_FUSE2D_G2P=1 reaches it) is not ported "
-            "(ROADMAP queue 2, item 2)"
-        )
-    r, _, k = pdata2.shape
+    shard (transfer2d.py:859-863), or one device's `p2g_grid` output as
+    n = 1.  The tent kernel takes dinv as given (the caller passes 1 and
+    inverts the per-particle D itself).
+
+    `update=True` (MPM_FUSE2D_G2P=1's fused particle update,
+    transfer2d.py:815-830): pdata2 (R, 8, K) = [gx0, gx1, mask, v0, v1, J,
+    x0, x1] and the 4-channel grid -> (R, 9, K) = [x0 + dtv vpic, (alpha
+    (v + vpic - vold) + (1 - alpha) vpic) mask, C00, C01, C10, C11, J (1 +
+    dtv (C00 + C11)) where mask > 0 else 1]; slots past the count keep x
+    and get v = C = 0, J = 1."""
+    r, npd, k = pdata2.shape
     gch, g = grid.shape[-2], grid.shape[-1]
     if gch not in (G2P_CH, G2P_CH_EXT):
         raise ValueError(f"grid: expected 4 or 7 channels, got {gch}")
-    _check("pdata2", pdata2, (r, 3, k), torch.float32)
+    if update and gch != G2P_CH:
+        raise ValueError("g2p's update mode takes the 4-channel grid")
+    _check("pdata2", pdata2, (r, 8 if update else 3, k), torch.float32)
     _check("counts", counts, (r,), torch.int32)
     if prepadded:
         if grid.dim() != 4:
@@ -683,12 +866,14 @@ def g2p(
         l = r
         _check("grid", grid, (r, gch, g), torch.float32)
     if _route(pdata2, counts, grid) == "cpu":
-        return g2p_plain(pdata2, counts, grid, dx, dinv, tent, prepadded)
+        return g2p_plain(pdata2, counts, grid, dx, dinv, tent, prepadded, update, alpha, dtv)
     lib = _build.load().lib
-    out = torch.empty((r, G2P_OUT + gch - G2P_CH, k), dtype=torch.float32, device=pdata2.device)
+    n_out = G2P_UPD if update else G2P_OUT + gch - G2P_CH
+    out = torch.empty((r, n_out, k), dtype=torch.float32, device=pdata2.device)
     rc = lib.mpm_g2p(
         _ptr(pdata2), _ptr(counts), _ptr(grid), _ptr(out), r, l, int(prepadded), k, g, gch,
-        int(tent), dx, dinv, dinv * dx, _stream(pdata2),
+        int(tent), dx, dinv, dinv * dx, int(update), *_update_constants(alpha, dtv),
+        _stream(pdata2),
     )
     LAUNCHES["g2p"] += 1
     _raise_on(rc, "g2p")

@@ -12,10 +12,12 @@ of its source pencils' slots, and G2P gathers each slot's 27 nodes:
 
 - `p2g3d` (csrc/p2g3d.cu) replaces the Pallas `p2g3d` (transfer3d.py:349,
   pallas_call :408): the transfer of prepped fields [m v, P, Q, m (, V0 J,
-  V0, V0 p, V0 div)] into the expanded (R0, 5, G1, nch, G2) layout that
-  `fold_rows0` folds; one block per (source axis-0 row, target axis-1
-  row) gathers its nodes' taps in a fixed order (no float atomics; reruns
-  are bitwise equal); `plan_p2g3d` sizes its z bands and staging window.
+  V0, V0 p, V0 div)], or in the stress mode of the 18 state planes with
+  the fluid stress made per slot, into the expanded (R0, 5, G1, nch, G2)
+  layout that `fold_rows0` folds; one block per (source axis-0 row,
+  target axis-1 row) gathers its nodes' taps in a fixed order (no float
+  atomics; reruns are bitwise equal); `plan_p2g3d` sizes its z bands and
+  staging window.
   `halo1=True` keeps the axis-1 halo: (R0, 5, G1 + 4, nch, G2), plane row
   j = target row j - 1 (its blocks cover the G1 + 4 rows), which
   `fold_rows0_halo` folds into raw `p2g3d_grid`'s halo sums.
@@ -74,14 +76,12 @@ gx.  Slots past a pencil's count are skipped by P2G; G2P gives them the
 dead fill in update mode (x passed through, v = C = 0, J = 1) and zeros
 in gather mode.  The colliders' projection leaves the axis-1 pad rows and
 the rows outside [0, R0) as the walls left them (transfer3d.py:567-570).
-`p2g3d`'s stress mode is not ported (ROADMAP queue 2, item 4).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -89,8 +89,8 @@ import torch
 from mpm_flip98a_tpu_torch import _build
 from mpm_flip98a_tpu_torch.models import colliders as col
 from mpm_flip98a_tpu_torch.ops.cuda.transfer2d import (
-    EOS_CODES, GatherPlan, _check, _col_weights, _ptr, _raise_on, _route, _shard_rows, _stream,
-    _taps, plan_gather,
+    EOS_CODES, WALL_CODES, GatherPlan, _check, _col_weights, _ptr, _raise_on, _route,
+    _shard_rows, _stream, _taps, collider_arrays, plan_gather,
 )
 
 NT = 5            # candidate target rows per bucketed axis: bucket row - 1 .. + 3
@@ -103,9 +103,6 @@ G2P_OUT_EXT = 18  # + Jbar, p, div
 G2P_UPD = 16      # update-mode output: x (3), v (3), C (9), J
 N_P2G_IN = 18     # stress-mode input planes
 N_PREPPED_MAX = 29
-WALL_CODES = {"slip": 0, "sticky": 1, "penalty": 2}
-MAX_COLLIDERS = 8     # csrc/p2g3d_grid.cu's kMaxColliders
-COLLIDER_KINDS = {"sphere": 0, "box": 1, "halfspace": 2}
 # p2g3d_grid's tiles.  BLOCKS_PER_SM blocks share an SM (csrc/p2g3d_grid.cu's
 # kBlocksPerSM, the register cap of its __launch_bounds__) and so its 228 KB
 # of shared memory, less 1 KB the system reserves and the kernel's static
@@ -127,13 +124,16 @@ P2G3D_WARPS = 8
 P2G3D_BLOCKS_PER_SM = 2
 P2G3D_MAX_BAND = 512
 
-# Kernel launches per wrapper (the plain versions do not count).
+# Kernel launches per wrapper (the plain versions do not count), and
+# those of p2g3d's stress mode among LAUNCHES["p2g3d"].
 LAUNCHES = {"p2g3d": 0, "p2g3d_grid": 0, "g2p3d": 0}
+MODE_LAUNCHES = {"p2g3d_stress": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, MODE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check_plane(name: str, t: torch.Tensor, shape) -> int:
@@ -311,12 +311,14 @@ def _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=None, halo1=False)
     return out
 
 
-def p2g3d_plain(fields, counts, g1, g2, dx, apic=True, ext=False, tent=False, halo1=False):
+def p2g3d_plain(fields, counts, g1, g2, dx, apic=True, ext=False, tent=False, halo1=False,
+                stress=None, kb=0.0, mu=0.0, gamma=7.0, fa=0.0):
     """Plain PyTorch version of `p2g3d`: `index_add_` tap by tap into the
     expanded (R0, 5, G1, nch, G2) layout, or (R0, 5, G1 + 4, nch, G2)
-    with `halo1`.  Sequential and deterministic on the CPU; on a card
-    `index_add_` sums with atomics in no fixed order."""
-    values = lambda sel: _split_prepped(sel, apic, ext)
+    with `halo1`; with `stress` the per-slot fluid stress first.
+    Sequential and deterministic on the CPU; on a card `index_add_` sums
+    with atomics in no fixed order."""
+    values = lambda sel: _slot_values(sel, apic, stress, kb, mu, gamma, fa, ext)
     return _scatter3d_plain(fields, counts, values, g2, dx, tent, g1=g1, halo1=halo1)
 
 
@@ -349,40 +351,54 @@ def _prepped_plane_args(fields, strides, apic: bool, ext: bool):
 
 def p2g3d(
     fields, counts, g1, g2, dx, apic=True, ext=False, stress=None, tent=False, halo1=False,
+    kb=0.0, mu=0.0, gamma=7.0, fa=0.0,
 ):
-    """Expanded P2G of prepped fields (the arguments of the JAX `p2g3d`):
-    `n_prepped(apic, ext)` (R0, R1, K) planes, counts (R0 * R1,) int32 ->
-    (R0, 5, G1, nch, G2), nch = 11 with `ext` else 7, for `fold_rows0`;
-    `halo1` (transfer3d.py:366-372) -> (R0, 5, G1 + 4, nch, G2), the
-    axis-1 plane uncropped (row j = target row j - 1), for
-    `fold_rows0_halo`.
+    """Expanded P2G (the arguments of the JAX `p2g3d`): counts (R0 * R1,)
+    int32 and either `n_prepped(apic, ext)` prepped (R0, R1, K) planes
+    with `stress=None`, or, with `stress` "linear" or "tait" (B-spline, no
+    ext), the 18 state planes [gx (3), v (3), C00..C22, J, mass, vol0]
+    and the fluid's kb, mu, gamma and fa (the stress of
+    transfer3d.py:208-236 made per slot in the kernel) -> (R0, 5, G1, nch,
+    G2), nch = 11 with `ext` else 7, for `fold_rows0`; `halo1`
+    (transfer3d.py:366-372) -> (R0, 5, G1 + 4, nch, G2), the axis-1 plane
+    uncropped (row j = target row j - 1), for `fold_rows0_halo`.
     On the card every node sums its slots in a fixed order: two calls on
     the same inputs give bitwise equal outputs.  A block lists its five
     source pencils' slots in shared memory, so K is at most some 7,000
-    there (`plan_p2g3d` raises past it; the scenes use 512-1,280).
-
-    The stress mode has no single-device caller: it raises
-    NotImplementedError."""
-    if stress is not None:
-        raise NotImplementedError(
-            "p2g3d's stress mode is not ported (no single-device caller: ROADMAP queue 2, "
-            "item 4)"
-        )
-    r0, r1, k, strides = _check_fields(fields, n_prepped(apic, ext))
+    there (`plan_p2g3d` raises past it; the scenes use 512-1,280)."""
+    if stress is None:
+        n_in = n_prepped(apic, ext)
+    elif stress not in EOS_CODES:
+        raise ValueError(f"unknown stress {stress!r}")
+    elif ext or tent:
+        raise ValueError("p2g3d's stress mode has no ext or tent form: prep the fields "
+                         "(stress=None)")
+    else:
+        n_in = N_P2G_IN
+    r0, r1, k, strides = _check_fields(fields, n_in)
     _check("counts", counts, (r0 * r1,), torch.int32)
     if _route(counts, *fields) == "cpu":
-        return p2g3d_plain(fields, counts, g1, g2, dx, apic, ext, tent, halo1)
+        return p2g3d_plain(fields, counts, g1, g2, dx, apic, ext, tent, halo1, stress, kb, mu,
+                           gamma, fa)
     nch = P2G_CH_EXT if ext else P2G_CH
     plan = plan_p2g3d(nch, g2, k, apic)
     lib = _build.load().lib
     g1out = g1 + NT - 1 if halo1 else g1
     out = torch.empty((r0, NT, g1out, nch, g2), dtype=torch.float32, device=counts.device)
-    ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)
+    if stress is None:
+        ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)
+    else:
+        ptrs, pstr = _plane_args([*fields, *(None,) * (N_PREPPED_MAX - N_P2G_IN)],
+                                 [*strides, *(0,) * (N_PREPPED_MAX - N_P2G_IN)])
+    code = 0 if stress is None else 1 + EOS_CODES[stress]
     rc = lib.mpm_p2g3d(
         ptrs, pstr, _ptr(counts), _ptr(out), r0, r1, k, g1, g2, nch, int(apic), int(tent),
-        int(halo1), dx, plan.band, plan.cap, _stream(counts),
+        int(halo1), dx, code, kb, kb / gamma, gamma, 2.0 * mu, fa, plan.band, plan.cap,
+        _stream(counts),
     )
     LAUNCHES["p2g3d"] += 1
+    if stress is not None:
+        MODE_LAUNCHES["p2g3d_stress"] += 1
     _raise_on(rc, "p2g3d")
     return out
 
@@ -503,32 +519,6 @@ def p2g3d_grid_plain(
     raw = p2g3d_raw_plain(fields, counts, g2, dx, apic, stress, kb, mu, gamma, fa, tent, ext)
     return grid_update3d_plain(raw, fields[0].shape[0], dt, grav, floor, lo, hi, wall, beta, ext,
                                colliders, tcol, dx)
-
-
-@functools.lru_cache(maxsize=32)
-def collider_arrays(colliders: tuple):
-    """The kernel's host arrays of 3D `colliders` (csrc/p2g3d_grid.cu,
-    unpack_colliders): per collider 19 float32 [center, center velocity,
-    radius, half-extents, unit normal, surface velocity, omega] and 4 int32
-    [kind, sticky, moving, spin], rounded as `colliders.project` rounds
-    them.  Built once per scene (the tuple is the cache key)."""
-    if len(colliders) > MAX_COLLIDERS:
-        raise ValueError(f"p2g3d_grid takes at most {MAX_COLLIDERS} colliders, got {len(colliders)}")
-    f32 = np.float32
-    fl, it = [], []
-    for c in colliders:
-        if len(c.center) != 3:
-            raise ValueError(f"p2g3d_grid takes 3D colliders, got {c}")
-        zero = (0.0, 0.0, 0.0)
-        vel, cvel = c.velocity or zero, c.center_velocity or zero
-        normal = col.halfspace_normal(c) if c.kind == "halfspace" else zero
-        fl += [*c.center, *cvel, c.radius, *(c.half_extents or zero), *normal,
-               *(f32(vel[a]) + f32(cvel[a]) for a in range(3)), *(c.angular or zero)]
-        it += [COLLIDER_KINDS[c.kind], int(c.sticky), int(c.moving), int(bool(c.angular))]
-    n = len(colliders)
-    # float32 first, so the C floats hold the values numpy rounded.
-    return ((ctypes.c_float * max(n * 19, 1))(*np.asarray(fl, np.float32).tolist()),
-            (ctypes.c_int * max(n * 4, 1))(*it), n)
 
 
 @dataclasses.dataclass(frozen=True)

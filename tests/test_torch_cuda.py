@@ -499,7 +499,7 @@ def test_p2g_grid_kernel_matches_plain(dev, mode, shards):
     got = tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["p2g_grid"] == n0 + 1         # one call for all shards
-    want = tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw)
+    want = tk.p2g_grid_plain(data, counts, g, dx, raw=True, shards=shards, **kw)
     assert got.shape == want.shape == (shards, r // shards + 4, want.shape[2], g)
     _close(got, want, axis=2)
 
@@ -1043,7 +1043,7 @@ def _fold_of_single(data, counts, g, dx, kw, shards):
 def test_p2g_grid_reruns_and_equals_the_fold_of_the_single_device_kernel(dev, mode, shards):
     data, counts, g, dx, kw = _grid_case(mode, shards, dev)
     got = tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw)
-    _close(got, tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw), axis=2)
+    _close(got, tk.p2g_grid_plain(data, counts, g, dx, raw=True, shards=shards, **kw), axis=2)
     assert torch.equal(got, tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw))
     assert torch.equal(got, tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw))
     via = _fold_of_single(data, counts, g, dx, kw, shards)
@@ -1058,7 +1058,7 @@ def test_p2g_grid_reruns_and_equals_the_fold_of_the_single_device_kernel(dev, mo
 def test_p2g_grid_edge_cases_match_plain_and_rerun_equal(dev, mode, case, shards):
     data, counts, g, dx, kw = _grid_case(mode, shards, dev, case)
     got = tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw)
-    _close(got, tk.p2g_grid_plain(data, counts, g, dx, shards=shards, **kw), axis=2)
+    _close(got, tk.p2g_grid_plain(data, counts, g, dx, raw=True, shards=shards, **kw), axis=2)
     assert torch.equal(got, tk.p2g_grid(data, counts, g, dx, raw=True, shards=shards, **kw))
     via = _fold_of_single(data, counts, g, dx, kw, shards)
     _close(got, via, axis=2)
@@ -1375,3 +1375,144 @@ def test_two_axis_windows_match_plain(dev, switches, n_sub):
         ref = torch.stack([getattr(want, g) for g in group]).double()
         bound = 1e-6 if tol is None else tol * float(ref.abs().max())
         assert float((have - ref).abs().max()) <= bound, group
+
+
+# ---------------------------------------------------------------------------
+# The fully fused 2D substep's modes: p2g_grid(raw=False), g2p(update=True),
+# and p2g3d's stress mode.
+# ---------------------------------------------------------------------------
+
+
+def _colliders2d(g, dx):
+    """A slip sphere, a sticky box moving with a surface velocity and a
+    halfspace spinner over the grid of `_inputs` (node x = (idx - 2) dx)."""
+    from mpm_flip98a_tpu_torch.models.colliders import Collider
+
+    l = (g - 5) * dx
+    return (
+        Collider(kind="sphere", center=(0.3 * l, 0.3 * l), radius=0.2 * l),
+        Collider(kind="box", center=(0.6 * l, 0.6 * l), half_extents=(0.1 * l, 0.2 * l),
+                 sticky=True, velocity=(0.1, -0.2), center_velocity=(0.5, 1.0)),
+        Collider(kind="halfspace", center=(0.0, 0.9 * l), normal=(0.3, 1.0), angular=(3.0,)),
+    )
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 37), (40, 1024, 513)], ids=["small", "g513"])
+@pytest.mark.parametrize("mode", ["fused", "ch9", "ch6_tent"])
+@pytest.mark.parametrize("wall", ["slip", "sticky", "penalty", "colliders"])
+def test_p2g_grid_finished_kernel_matches_plain(dev, shape, mode, wall):
+    """The non-raw mode: one call, two launches, against the plain version
+    per channel; pad rows exactly zero; reruns bitwise equal; the node pass
+    of the kernel's own raw sums (grid_update2d_plain) to REL."""
+    r, k, g = shape
+    sdata, pdata2, counts, _ = _inputs(r, k, g, seed=90 + r, device=dev)
+    dx = 0.4375 / (g - 5)
+    if mode == "fused":
+        data = sdata
+        kw = dict(fused=True, apic=True, eos="tait", kb=KB, mu=MU, gamma=GAMMA,
+                  fa=-2e-5 * 4.0 / dx**2)
+    else:
+        nch = 9 if mode == "ch9" else 6
+        rng = np.random.default_rng(9)
+        vals = torch.as_tensor(rng.normal(0.0, 1.0, (r, 6 + nch, k)), dtype=torch.float32,
+                               device=dev) * pdata2[:, 2:3]
+        vals[:, 10] = sdata[:, 9]                  # m
+        if nch == 9:   # V0 J, V0 > 0: Jbar, p and div are averages over V0
+            vals[:, 11] = sdata[:, 10] * sdata[:, 8]
+            vals[:, 12] = sdata[:, 10]
+            vals[:, 13:15] *= sdata[:, 10:11]
+        data = torch.cat([sdata[:, :2], vals], dim=1).contiguous()
+        kw = dict(fused=False, tent=mode.endswith("tent"), apic=False)
+    node = dict(dt=2e-5, gx_=-9.81, gy_=0.7, floor=1e-3, lo=2, hi=g - 3,
+                wall="slip" if wall == "colliders" else wall,
+                beta=1e6 * 997.5 * dx**2 if wall == "penalty" else 0.0)
+    if wall == "colliders":
+        node.update(colliders=_colliders2d(g, dx), tcol=0.0125)
+    n0 = tk.LAUNCHES["p2g_grid"]
+    got = tk.p2g_grid(data, counts, g, dx, **kw, **node)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["p2g_grid"] == n0 + 1
+    want = tk.p2g_grid_plain(data, counts, g, dx, **kw, **node)
+    assert got.shape == want.shape == (r + 4, 7 if mode == "ch9" else 4, g)
+    assert not got[0].any() and not got[r + 1 :].any()
+    _close(got, want, axis=1)
+    raw = tk.p2g_grid(data, counts, g, dx, raw=True, **kw)[0]
+    _close(got, tk.grid_update2d_plain(raw, r, **node, dx=dx), axis=1)
+    assert torch.equal(got, tk.p2g_grid(data, counts, g, dx, **kw, **node))
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 37), (40, 1024, 513)], ids=["small", "g513"])
+@pytest.mark.parametrize("layout", ["unpadded", "prepadded", "shards4"])
+@pytest.mark.parametrize("tent", [False, True], ids=["bspline", "tent"])
+def test_g2p_update_kernel_matches_plain(dev, shape, layout, tent):
+    r, k, g = shape
+    sdata, pdata2, counts, grid4 = _inputs(r, k, g, seed=95 + r, device=dev)
+    dx = 0.4375 / (g - 5)
+    dinv = 1.0 if tent else 4.0 / dx**2
+    x = torch.rand((2, r, k), device=dev)
+    pdata8 = torch.cat([pdata2, sdata[:, 2:4], sdata[:, 8:9], x.permute(1, 0, 2)], dim=1)
+    if layout == "unpadded":
+        grid, pre = grid4, False
+    else:
+        n = 1 if layout == "prepadded" else 4
+        l = r // n
+        pdata8[:, 0] -= (torch.arange(r, device=dev) // l * l).to(torch.float32)[:, None]
+        grid, pre = torch.randn((n, l + 4, 4, g), device=dev), True
+    pdata8 = pdata8.contiguous()
+    kw = dict(prepadded=pre, update=True, alpha=0.98, dtv=2e-5)
+    n0 = tk.LAUNCHES["g2p"]
+    got = tk.g2p(pdata8, counts, grid, dx, dinv, tent, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["g2p"] == n0 + 1 and got.shape == (r, 9, k)
+    want = tk.g2p_plain(pdata8, counts, grid, dx, dinv, tent, **kw)
+    _close(got, want, axis=1)
+    dead = torch.arange(k, device=dev)[None, :] >= counts[:, None]
+    assert torch.equal(got[:, :2].transpose(0, 1)[:, dead], pdata8[:, 6:8].transpose(0, 1)[:, dead])
+    assert not got[:, 2:8].transpose(0, 1)[:, dead].any()
+    assert bool((got[:, 8][dead] == 1.0).all())
+    assert torch.equal(got, tk.g2p(pdata8, counts, grid, dx, dinv, tent, **kw))
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 16), (64, 128, 64), (8, 128, 2049)],
+                         ids=["small", "g64", "g2049_bands"])
+@pytest.mark.parametrize("apic", [False, True], ids=["pic", "apic"])
+@pytest.mark.parametrize("stress", ["linear", "tait"])
+def test_p2g3d_stress_kernel_matches_plain(dev, shape, apic, stress):
+    r, k, g = shape
+    planes, _, counts = _inputs3d(r, k, g, seed=r + 3 * apic, device=dev)
+    dx = 0.4375 / (g - 5)
+    kw = dict(apic=apic, stress=stress, kb=KB, mu=MU, gamma=GAMMA, fa=-2e-5 * 4.0 / dx**2)
+    n0 = tk3.LAUNCHES["p2g3d"]
+    got = tk3.p2g3d(planes, counts, r, g, dx, **kw)
+    torch.cuda.synchronize()
+    assert tk3.LAUNCHES["p2g3d"] == n0 + 1
+    assert got.shape == (r, 5, r, 7, g)
+    _close(got, tk3.p2g3d_plain(planes, counts, r, g, dx, **kw), axis=3)
+    assert torch.equal(got, tk3.p2g3d(planes, counts, r, g, dx, **kw))
+    halo = tk3.p2g3d(planes, counts, r, g, dx, halo1=True, **kw)
+    raw = tk3.p2g3d_raw_plain(planes, counts, g, dx, **kw)
+    _close(tk3.fold_rows0_halo(halo), raw, axis=2)
+
+
+@pytest.mark.parametrize("setting", [("1", "0"), ("0", "1"), ("1", "1")],
+                         ids=["p2g_grid", "fuse_g2p", "both"])
+def test_fused2d_substeps_on_the_card_track_the_cpu(dev, monkeypatch, setting):
+    """The fully fused 2D routes: 100 substeps on the card against the
+    CPU's under the same variables, x to 1e-5; the kernels launched once a
+    substep, the default route's p2g_fused not at all under P2G_GRID."""
+    monkeypatch.setenv("MPM_P2G_GRID", setting[0])
+    monkeypatch.setenv("MPM_FUSE2D_G2P", setting[1])
+    cfg = MPMConfig(dtype="float32", num_grids=37, dt=2e-5, num_particles_x=16,
+                    num_particles_y=32, flip_blend=0.98, transfer=TransferKind.PIC)
+    p, scene = scenes.dam_break_2d(cfg, dtype=np.float32)
+    spec = fast2d.FastSpec.for_particles(cfg, p, headroom=2.0)
+    tk.reset_launches()
+    out = fast2d.run(fast2d.from_particles(p, cfg, spec, dev), scene, spec, 100)
+    grid = setting[0] == "1"
+    assert tk.LAUNCHES == {"p2g_fused": 0 if grid else 100, "p2g": 0,
+                           "p2g_grid": 100 if grid else 0, "g2p": 100}
+    ref = fast2d.run(fast2d.from_particles(p, cfg, spec, device="cpu"), scene, spec, 100)
+    for name in ("x0", "x1"):
+        np.testing.assert_allclose(getattr(out, name).cpu().numpy(),
+                                   getattr(ref, name).numpy(), atol=1e-5)
+    assert int(out.overflow) == 0

@@ -342,13 +342,15 @@ def test_p2g3d_grid_needs_the_node_arguments(gone):
 
 
 def test_unported_modes_raise():
-    """`halo1` is ported (test_p2g3d_halo1_matches_jax); the stress mode
-    still raises, naming its ROADMAP item."""
+    """Every mode is ported: `halo1` (test_p2g3d_halo1_matches_jax) and the
+    stress mode (tests/test_torch_p2g3d_stress.py) run; the stress mode
+    has no ext or tent form."""
     counts = torch.from_numpy(COUNTS)
     f7, f11 = _t(_fields("apic7")), _t(_fields("pic11"))
     assert tk3.p2g3d(f7, counts, R, G, DX, halo1=True).shape == (R, tk3.NT, G + 4, 7, G)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk3.p2g3d(f7[:18], counts, R, G, DX, stress="linear")
+    assert tk3.p2g3d(f7[:18], counts, R, G, DX, stress="linear").shape == (R, tk3.NT, G, 7, G)
+    with pytest.raises(ValueError, match="no ext or tent"):
+        tk3.p2g3d(f7[:18], counts, R, G, DX, stress="tait", tent=True)
 
 
 @functools.lru_cache(maxsize=None)

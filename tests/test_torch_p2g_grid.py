@@ -235,8 +235,12 @@ def test_g2p_prepadded_reads_each_shards_window():
 def test_p2g_grid_and_g2p_wrappers_check_their_inputs():
     data, counts, kw = _inputs("pic_tait")
     d, c = torch.from_numpy(data), torch.from_numpy(counts)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 3"):
-        tk.p2g_grid(d, c, G, DX, **kw)                  # non-raw mode
+    node = dict(dt=2e-5, gx_=-9.81, gy_=0.0, floor=1e-3, lo=2, hi=G - 3, wall="slip")
+    assert tk.p2g_grid(d, c, G, DX, **kw, **node).shape == (R + 4, 4, G)   # non-raw mode
+    with pytest.raises(TypeError, match="needs floor"):   # ... needs the node arguments
+        tk.p2g_grid(d, c, G, DX, **kw, **{k: v for k, v in node.items() if k != "floor"})
+    with pytest.raises(ValueError):                     # ... on one device
+        tk.p2g_grid(d, c, G, DX, shards=2, **kw, **node)
     with pytest.raises(ValueError):                     # the fused mode has no tent
         tk.p2g_grid(d, c, G, DX, raw=True, **{**kw, "tent": True})
     with pytest.raises(ValueError):
@@ -249,7 +253,9 @@ def test_p2g_grid_and_g2p_wrappers_check_their_inputs():
         tk.p2g_grid(d.double(), c, G, DX, raw=True, **kw)
     pdata2 = torch.zeros((R, 3, K))
     grid = torch.zeros((2, R // 2 + 4, 4, G))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 2"):
+    upd = tk.g2p(torch.zeros((R, 8, K)), c, grid, DX, DINV, prepadded=True, update=True)
+    assert upd.shape == (R, 9, K)                       # the update mode runs ...
+    with pytest.raises(ValueError):                     # ... on [gx0, gx1, mask, v, J, x]
         tk.g2p(pdata2, c, grid, DX, DINV, prepadded=True, update=True)
     with pytest.raises(ValueError):                     # windows of L + 4 rows
         tk.g2p(pdata2, c, grid[:, 1:], DX, DINV, prepadded=True)
