@@ -272,7 +272,36 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
 43. kernels:stress3d  p2g3d(stress=...) against plain at slab 8M (linear)
                and on a ragged APIC Tait case, reruns bitwise equal,
                fold_rows0_halo of its halo1 output against raw p2g3d_grid
-               (stress), time and bound; then the {"fused2d": {...}} line.
+               (stress), time and bound; then the {"fused2d": {...}} line;
+44. main:domain  the general path's slab domain (parallel/domain.py) on
+               ranks of a gloo process group, every rank on this card
+               (RANK_BACKEND; RankMesh stages the blocks through host
+               memory): the reference scene (dam2d, float64) with the
+               stabilized switch set, 5 substeps on 2 and on 4 ranks
+               against one device slot for slot (x 1e-12, v 1e-10), two
+               runs bitwise equal; the migration case (MIGRATE_THROWN, 100
+               substeps on 4 ranks: active particles per rank change,
+               dropped 0, count and mass exact, ensemble of x against one
+               device within ENSEMBLE_TOL, reruns bitwise); two ranks asked
+               for nccl on this one card must raise;
+45. main:domain at scale  bench 1M and slab 1M / 128^3 (float32) on 4
+               ranks: one substep against one device (x 1e-6, v and C 1e-5
+               of their max), 3 x 20 (3 x 5) timed beside one device, the
+               halo and migration ms and bytes per substep per rank, peak
+               memory per rank (with --profile rank 0's device busy time);
+46. main:domain_ext  on 4 ranks against one device: CSF on
+               tests/test_surface_tension.py's drop (200 substeps, x
+               1e-12), the projection on tests/test_projection.py's 33^2
+               column (25 substeps, x 1e-8, v 1e-7), dam2d_obstacle (50
+               substeps, x 1e-12, v 1e-10);
+47. main:replicated  parallel/replicated.py on 4 ranks: 37^2 float64
+               padded to a multiple of 12, 50 substeps against one device
+               (x 1e-10, v 1e-8, J 1e-10); bench 1M one substep against one
+               device and 3 x 20 timed with the all_reduce's ms and bytes;
+               every rank's scatter launches in every run of 44-47 equal
+               the scatters of its window, and no transfer kernel runs;
+48. main:dryrun  mpm_flip98a_tpu_torch.dryrun.dryrun_multichip(4); then
+               the {"ranks": {...}} line.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -302,7 +331,8 @@ mode under "update_*" (with "update_prepadded_*" and "update_sharded_*"),
 p2g3d's stress mode under "stress_*" (0 launches: no path runs it), and
 "scatter", the general path's fixed-order scatter
 (not a TPU kernel), with "equal_to_cpu", "rerun_bitwise_equal",
-"plan_ms" and its slab 1M numbers under "slab1M_*"); the last line is
+"plan_ms" and its slab 1M numbers under "slab1M_*", and each rank's
+launches in every run of phases 44-47 under "ranks_launches"); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -318,6 +348,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -4309,6 +4340,439 @@ def fused2d_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches):
         "stress_ragged_max_abs_err": err["p2g3d_stress_ragged"]})
 
 
+# ---------------------------------------------------------------------------
+# The general path's multi-device strategies on a rank mesh: the slab domain
+# (parallel/domain.py) and the replicated grid (parallel/replicated.py)
+# ---------------------------------------------------------------------------
+
+# Every rank of phases 44-48 computes on cuda:0, the one card; gloo moves the
+# ranks' blocks, staged through host memory by RankMesh.  nccl needs a card
+# per rank (it refuses ranks that share one: checked in main:domain).
+RANK_BACKEND = "gloo"
+RANK_TIMEOUT_S = 120.0
+# The migration case: tests/test_parallel_domain.py's 37^2 dam break at dt
+# 4e-5, its column widened to 32 x 32 particles and thrown at 3 m/s so that
+# particles cross the first slab line within 100 substeps.  The unthrown
+# collapse first migrates after 2,700 substeps at 4 shards (the JAX domain
+# on the CPU), too long for this script.
+MIGRATE_THROWN = dict(num_grids=37, dt=4e-5, num_particles_x=32, num_particles_y=32,
+                      fluid_width=0.11)
+FAST37 = dict(num_grids=37, dt=2e-5, num_particles_x=16, num_particles_y=32)
+RANK_FIELDS = ("x", "v", "C", "J", "mass")
+# Against one device, slot for slot, after the run (x, v absolute; the
+# JAX tests' bounds: tests/test_parallel_domain.py:36-45,
+# tests/test_surface_tension.py:80-97, tests/test_projection.py:125-153,
+# tests/test_parallel_replicated.py:28-38); at scale the sharded gates
+# (x absolute; v, C relative to their max).
+DOMAIN_TOL = {"x": 1e-12, "v": 1e-10}
+EXT_TOL = {"csf": {"x": 1e-12}, "projection": {"x": 1e-8, "v": 1e-7},
+           "obstacle": {"x": 1e-12, "v": 1e-10}}
+REPLICATED_TOL = {"x": 1e-10, "v": 1e-8, "J": 1e-10}
+SCALE_TOL = {"x": 1e-6, "v": KERNEL_REL_TOL, "C": KERNEL_REL_TOL}
+ENSEMBLE_TOL = 1e-10          # float64 mean and std of x after the migration run
+RANKS = {}                    # the {"ranks": ...} line
+
+
+def _traffic(mesh) -> dict:
+    return {tag: [t.calls, t.bytes, t.seconds] for tag, t in mesh.traffic.items()}
+
+
+def rank_jobs(mesh, jobs):
+    """The rank worker of phases 44-47 (one process a rank, started by
+    `launch.run_ranks`; it prints nothing).  Each job (a dict) runs
+    `kind` ("domain" or "replicated") from the host particles `start` for
+    `n` substeps and returns this rank's RANK_FIELDS, `dropped`, the
+    scatter's launches and the transfer kernels' in that run, the traffic
+    by tag; with `rerun`, whether a second run from the same start is
+    bitwise equal; with `timed` (reps, substeps), the ms per substep and
+    the traffic of each timed run (rank 0 under torch.profiler after them
+    with `profile`); the peak device memory."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+    from mpm_flip98a_tpu_torch.parallel import domain, replicated
+    from mpm_flip98a_tpu_torch.state import Particles
+
+    dev, out = mesh.device, []
+    names = [f.name for f in dataclasses.fields(Particles)]
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    for job in jobs:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        p = Particles(**{k: torch.from_numpy(v) for k, v in job["start"].items()})
+        if job["kind"] == "domain":
+            start, _ = domain.distribute(p, job["scene"], job["spec"], mesh)
+            run = domain.make_run(job["scene"], job["spec"], mesh)
+            parts = lambda s: s.particles
+        else:
+            start = replicated.shard_particles(p, mesh)
+            run = replicated.make_run(job["scene"], mesh)
+            parts = lambda s: s
+        del p
+        scatter.reset_launches()
+        reset_counts()
+        mesh.traffic.clear()
+        t0 = time.perf_counter()
+        state = run(start, job["n"])
+        sync()
+        rec = {"seconds": time.perf_counter() - t0, "launches": scatter.LAUNCHES["scatter"],
+               "transfer_launches": sum(kernel_counts().values()), "traffic": _traffic(mesh),
+               **{f: getattr(parts(state), f).cpu().numpy() for f in RANK_FIELDS}}
+        if job["kind"] == "domain":
+            rec["dropped"] = state.dropped.cpu().numpy()
+        if job.get("rerun"):
+            again = run(start, job["n"])
+            rec["rerun_equal"] = all(torch.equal(getattr(parts(state), f), getattr(parts(again), f))
+                                     for f in names)
+            if job["kind"] == "domain":
+                rec["rerun_equal"] &= torch.equal(state.dropped, again.dropped)
+            del again
+        del start
+        if job.get("timed"):
+            reps, n = job["timed"]
+            rec["ms_runs"], rec["traffic_runs"] = [], []
+            for _ in range(reps):
+                mesh.psum(torch.zeros(1, device=dev))      # the ranks start together
+                mesh.traffic.clear()
+                sync()
+                t0 = time.perf_counter()
+                state = run(state, n)
+                sync()
+                rec["ms_runs"].append(1e3 * (time.perf_counter() - t0) / n)
+                rec["traffic_runs"].append(_traffic(mesh))
+            if job.get("profile"):
+                rec["profile"] = profile_rank(mesh, lambda k: run(state, k), 5)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        out.append(rec)
+        del state
+    return out
+
+
+def profile_rank(mesh, run_n, n_sub):
+    """Rank 0 under torch.profiler for `n_sub` substeps while the other
+    ranks run them unprofiled: (device busy ms per substep, the wall ms
+    per substep, the table by device time); None on the other ranks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mesh.psum(torch.zeros(1, device=mesh.device))
+    if mesh.rank:
+        run_n(n_sub)
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_n(n_sub)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / n_sub
+    events = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+               if str(e.device_type).endswith("CUDA")) / 1e3 / n_sub
+    return busy, wall, events.table(sort_by="cuda_time_total", row_limit=30)
+
+
+def host_fields(p) -> dict:
+    return {f.name: getattr(p, f.name).cpu().numpy() for f in dataclasses.fields(p)}
+
+
+def merged(per_rank, j) -> dict:
+    """Job j's fields of every rank, concatenated in rank order."""
+    return {k: np.concatenate([r[j][k] for r in per_rank]) for k in RANK_FIELDS + (
+        ("dropped",) if "dropped" in per_rank[0][j] else ())}
+
+
+def scatters_per_substep(cfg) -> int:
+    """The general substep's scatters: the momentum sums, with F-bar the
+    cell sums, with mixing the projection pass."""
+    return 1 + int(cfg.use_fbar) + int(cfg.pressure_mixing_ratio > 0.0)
+
+
+def slot_errors(got, ref, perm, scaled=()) -> dict:
+    """Worst |got[perm] - ref| per field (over the field's max |ref| for
+    the `scaled` ones)."""
+    out = {}
+    for f, want in ref.items():
+        err = float(np.abs(got[f][perm].astype(np.float64) - want).max())
+        out[f] = err / max(float(np.abs(want).max()), 1e-30) if f in scaled else err
+    return out
+
+
+def rank_summary(tag, per_rank, j, n_sub, cfg, card):
+    """Checks and prints what every rank of job j reported: the scatter
+    launched once per scatter of the window and no transfer kernel, no
+    particle dropped; returns the per-rank launches."""
+    recs = [r[j] for r in per_rank]
+    launches = [r["launches"] for r in recs]
+    want = n_sub * scatters_per_substep(cfg)
+    dropped = [int(r["dropped"].sum()) for r in recs if "dropped" in r]
+    say(f"[ranks {tag}] {len(recs)} ranks, {n_sub} substeps: scatter launches per rank "
+        f"{launches} (want {want} each: {scatters_per_substep(cfg)} a substep), transfer "
+        f"kernels {[r['transfer_launches'] for r in recs]}, dropped {dropped} (bound 0), "
+        f"host s per rank {[round(r['seconds'], 3) for r in recs]}, peak device memory per "
+        f"rank {[r['peak_bytes'] for r in recs]} bytes  [{card}]")
+    check(all(n == want for n in launches), f"{tag}: scatter launches {launches}, want {want}")
+    check(not any(r["transfer_launches"] for r in recs), f"{tag}: a transfer kernel ran")
+    check(not any(dropped), f"{tag}: dropped {dropped}")
+    if "rerun_equal" in recs[0]:
+        equal = all(r["rerun_equal"] for r in recs)
+        say(f"[ranks {tag}] a second run from the same start bitwise equal on every rank: "
+            f"{equal}")
+        check(equal, f"{tag}: two runs on the ranks differ")
+    return launches
+
+
+def rank_timing(tag, per_rank, j, n_sub, ref_ms, card, exchange_tags):
+    """ms per substep of the timed runs (the slowest rank of each run),
+    each rank's exchange ms and bytes per substep, against one device."""
+    recs = [r[j] for r in per_rank]
+    runs = [max(r["ms_runs"][k] for r in recs) for k in range(len(recs[0]["ms_runs"]))]
+    ex_ms = [float(np.median([sum(t[g][2] for g in exchange_tags if g in t)
+                              for t in r["traffic_runs"]])) * 1e3 / n_sub for r in recs]
+    ex_bytes = [sum(r["traffic_runs"][0][g][1] for g in exchange_tags
+                    if g in r["traffic_runs"][0]) / n_sub for r in recs]
+    ex_calls = [sum(r["traffic_runs"][0][g][0] for g in exchange_tags
+                    if g in r["traffic_runs"][0]) / n_sub for r in recs]
+    med = float(np.median(runs))
+    say(f"[timing:ranks {tag}] {len(recs)} ranks on one card: {med:.4f} ms/substep (median of "
+        f"{len(runs)} x {n_sub}, the slowest rank's; runs {[round(x, 4) for x in runs]}) against "
+        f"one device {ref_ms[0]:.4f} (runs {[round(x, 4) for x in ref_ms[1]]}); exchanges "
+        f"({'+'.join(exchange_tags)}) per rank per substep: {[round(x, 4) for x in ex_ms]} ms, "
+        f"{ex_bytes} bytes sent in {ex_calls} calls; peak device memory per rank "
+        f"{[r['peak_bytes'] for r in recs]} bytes  [{card}]")
+    return {"ms": med, "runs": runs, "one_device_ms": ref_ms[0], "one_device_runs": ref_ms[1],
+            "exchange_ms_per_rank": ex_ms, "exchange_bytes_per_rank": ex_bytes,
+            "exchange_calls_per_rank": ex_calls,
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in recs]}
+
+
+def rank_profile(tag, per_rank, j, profile_dir, card):
+    got = per_rank[0][j].get("profile")
+    if not got:
+        return None
+    busy, wall, table = got
+    path = os.path.join(profile_dir, f"profile_ranks_{tag}_rank0.txt")
+    with open(path, "w") as f:
+        f.write(f"{card}\n{table}\n")
+    say(f"[timing:ranks {tag}] rank 0 profile written to {path}: device busy {busy:.4f} "
+        f"ms/substep against {wall:.4f} ms/substep profiled (idle share "
+        f"{1.0 - busy / wall:.3f})  [{card}]")
+    return {"busy_ms": busy, "profiled_wall_ms": wall, "idle_share": 1.0 - busy / wall}
+
+
+def nccl_refusal(dev) -> bool:
+    """Two ranks asked for nccl on this one card: the RankMesh must raise
+    and name gloo, never switch backend itself."""
+    from mpm_flip98a_tpu_torch.parallel import launch
+
+    try:
+        launch.run_ranks(launch.mesh_calls, 2, device=dev, backend="nccl",
+                         timeout_s=RANK_TIMEOUT_S, args=([],))
+        refusal = None
+    except launch.RankError as e:
+        refusal = str(e)
+    ok = refusal is not None and "share one card" in refusal and "backend='gloo'" in refusal
+    say(f"[main:domain] a RankMesh asked for nccl with 2 ranks on this card raises: {ok} "
+        f"({refusal.strip().splitlines()[-1] if refusal else 'no error'})")
+    check(ok, "an nccl mesh of two ranks on one card did not raise")
+    return ok
+
+
+def ranks_phases(dev, card, profile_dir):
+    """Phases 44-48: the general path's slab domain and replicated grid on
+    ranks of a gloo process group, every rank on this card, against the
+    single-device general path; the nccl refusal; the port's dryrun."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.dryrun import dryrun_multichip
+    from mpm_flip98a_tpu_torch.models import scenes, stabilized
+    from mpm_flip98a_tpu_torch.parallel import domain, launch, replicated
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    t_all = time.perf_counter()
+    say(f"[ranks] every rank on {dev} (one card), torch.distributed backend {RANK_BACKEND} "
+        f"(RankMesh stages the exchanged blocks through host memory); nccl needs a card per "
+        f"rank  [{card}]")
+
+    def single(p, scene, n):
+        out = stabilized.run(to_device(p, dev), scene, n)
+        torch.cuda.synchronize()
+        return {f: getattr(out, f).cpu().numpy() for f in RANK_FIELDS}
+
+    def dspec(p, scene, n):
+        return domain.DomainSpec.for_particles(scene.cfg, n, p, headroom=2.0)
+
+    def djob(tag, p, scene, n, spec, **kw):
+        return dict(kind="domain", tag=tag, scene=scene, spec=spec, n=n, start=host_fields(p),
+                    **kw)
+
+    # ---- the cases and their single-device references ----------------------
+    p_ref, scene_ref = driver.SCENARIOS["dam2d"]()
+    scene_stab = dataclasses.replace(scene_ref, cfg=dataclasses.replace(scene_ref.cfg, **STAB))
+    cases = {"dam2d": (p_ref, scene_stab, 5)}
+    p_m, scene_m = scenes.dam_break_2d(MPMConfig(**MIGRATE_THROWN))
+    p_m = dataclasses.replace(p_m, v=p_m.v.clone())
+    p_m.v[:, 0] = 3.0
+    cases["migrate"] = (p_m, scene_m, 100)
+    cases["csf"] = (*drop_scene(41, 5.0, 5e-5, (32, 16), np.float64), 200)
+    cases["projection"] = (*scenes.dam_break_2d(MPMConfig(
+        dtype="float64", num_grids=33, dt=1e-5, num_particles_x=24, num_particles_y=48,
+        fluid_width=0.105, fluid_height=0.21, flip_blend=0.98, transfer=TransferKind.PIC,
+        incompressible=True, pressure_iters=60)), 25)
+    cases["obstacle"] = (*driver.SCENARIOS["dam2d_obstacle"](), 50)
+    refs = {tag: single(*case) for tag, case in cases.items()}
+    p_b, scene_b = scenes.dam_break_2d(MPMConfig(**BENCH, transfer=TransferKind.PIC),
+                                       dtype=np.float32)
+    p_s, scene_s = scenes.slab_3d(**SLAB_1M)
+    refs["bench1M"] = single(p_b, scene_b, 1)
+    refs["slab1M"] = single(p_s, scene_s, 1)
+    ref_ms = {}
+    for tag, p, scene, n in (("bench1M", p_b, scene_b, 20), ("slab1M", p_s, scene_s, 5)):
+        s = to_device(p, dev)
+        ref_ms[tag] = ms_runs(lambda: stabilized.run(s, scene, n), n)
+        del s
+        torch.cuda.empty_cache()
+    p37, scene37 = scenes.dam_break_2d(MPMConfig(**FAST37))
+    p37 = replicated.pad_particles(p37, 12)
+    refs["replicated37"] = single(p37, scene37, 50)
+    torch.cuda.empty_cache()
+    say(f"[ranks] single-device references done at {time.perf_counter() - t_all:.1f} s; "
+        f"one device: bench 1M {ref_ms['bench1M'][0]:.4f} ms/substep, slab 1M "
+        f"{ref_ms['slab1M'][0]:.4f}  [{card}]")
+
+    # ---- 44. main:domain on 2 ranks (and the nccl refusal beside it) ----------
+    specs = {tag: dspec(p, scene, 4) for tag, (p, scene, _) in cases.items()}
+    spec2 = dspec(p_ref, scene_stab, 2)
+    with ThreadPoolExecutor(2) as pool:
+        two = pool.submit(launch.run_ranks, rank_jobs, 2, device=dev, backend=RANK_BACKEND,
+                          timeout_s=RANK_TIMEOUT_S, args=(
+                              [djob("dam2d", p_ref, scene_stab, 5, spec2, rerun=True)],))
+        RANKS["nccl_shared_card_raises"] = nccl_refusal(dev)
+        per_rank2 = two.result()
+
+    # ---- 44-47 on 4 ranks, one launch --------------------------------------------
+    jobs = [djob(tag, p, scene, n, specs[tag], rerun=tag in ("dam2d", "migrate"))
+            for tag, (p, scene, n) in cases.items()]
+    profile = profile_dir is not None
+    for tag, p, scene, timed in (("bench1M", p_b, scene_b, (3, 20)),
+                                 ("slab1M", p_s, scene_s, (3, 5))):
+        jobs.append(djob(tag, p, scene, 1, dspec(p, scene, 4), timed=timed,
+                         profile=profile and tag == "bench1M"))
+    jobs.append(dict(kind="replicated", tag="replicated37", scene=scene37, n=50,
+                     start=host_fields(p37)))
+    jobs.append(dict(kind="replicated", tag="replicated_bench1M", scene=scene_b, n=1,
+                     start=host_fields(p_b), timed=(3, 20), profile=profile))
+    tags = [j["tag"] for j in jobs]
+    t0 = time.perf_counter()
+    per_rank = launch.run_ranks(rank_jobs, 4, device=dev, backend=RANK_BACKEND,
+                                timeout_s=RANK_TIMEOUT_S, args=(jobs,))
+    say(f"[ranks] 4 ranks ran {tags} in {time.perf_counter() - t0:.1f} s (process start "
+        f"included)  [{card}]")
+    launches = {"dam2d x2": rank_summary("dam2d x2", per_rank2, 0, 5, scene_stab.cfg, card)}
+    for j, job in enumerate(jobs):
+        launches[job["tag"]] = rank_summary(job["tag"], per_rank, j, job["n"], job["scene"].cfg,
+                                            card)
+    at = {tag: j for j, tag in enumerate(tags)}
+
+    # ---- 44. main:domain: the reference scene, the migration --------------------
+    for label, pr, j, n_ranks, spec in (("dam2d x2", per_rank2, 0, 2, spec2),
+                                        ("dam2d x4", per_rank, at["dam2d"], 4, specs["dam2d"])):
+        perm = domain.layout(p_ref, scene_stab, spec)[1]
+        errs = slot_errors(merged(pr, j), {f: refs["dam2d"][f] for f in DOMAIN_TOL}, perm)
+        say(f"[main:domain {label}] the reference scene (8,450 particles, 105^2, float64) with "
+            f"the stabilized switch set, 5 substeps on {n_ranks} ranks against one device slot "
+            f"for slot: x {errs['x']:.3e} (bound {DOMAIN_TOL['x']}), v {errs['v']:.3e} (bound "
+            f"{DOMAIN_TOL['v']})  [{card}]")
+        check(all(errs[f] <= DOMAIN_TOL[f] for f in DOMAIN_TOL), f"{label}: {errs}")
+        RANKS[f"{label}_errors"] = errs
+    got = merged(per_rank, at["migrate"])
+    spec_m = specs["migrate"]
+    active = got["mass"] > 0
+    before = np.bincount(domain.layout(p_m, scene_m, spec_m)[1] // spec_m.capacity,
+                         minlength=4)
+    after = active.reshape(4, -1).sum(1)
+    mass0 = float(p_m.mass.double().sum())
+    mass_err = abs(float(got["mass"][active].sum()) - mass0) / mass0
+    x = got["x"][active]
+    ens = np.abs(np.concatenate([x.mean(0) - refs["migrate"]["x"].mean(0),
+                                 x.std(0) - refs["migrate"]["x"].std(0)])).max()
+    say(f"[main:domain migrate] {p_m.n} particles thrown at 3 m/s, 37^2, dt 4e-5, 100 substeps "
+        f"on 4 ranks: active per rank {before.tolist()} -> {after.tolist()}, count "
+        f"{int(active.sum())} (want {p_m.n}), mass relative error {mass_err:.3e} (bound 1e-12), "
+        f"ensemble mean and std of x against one device {ens:.3e} (bound {ENSEMBLE_TOL})  "
+        f"[{card}]")
+    check((after != before).any(), "migrate: no particle changed rank")
+    check(int(active.sum()) == p_m.n, "migrate: particle count changed")
+    check(mass_err <= 1e-12, "migrate: mass changed")
+    check(ens <= ENSEMBLE_TOL, "migrate: ensemble differs from one device")
+    RANKS["migrate"] = {"active_before": before.tolist(), "active_after": after.tolist(),
+                        "mass_rel_err": mass_err, "ensemble_err": float(ens)}
+
+    # ---- 45. main:domain at scale -----------------------------------------------
+    for tag, p, scene in (("bench1M", p_b, scene_b), ("slab1M", p_s, scene_s)):
+        perm = domain.layout(p, scene, dspec(p, scene, 4))[1]
+        errs = slot_errors(merged(per_rank, at[tag]), {f: refs[tag][f] for f in SCALE_TOL},
+                           perm, scaled=("v", "C"))
+        say(f"[main:domain {tag}] {p.n} particles, float32, 1 substep on 4 ranks against one "
+            f"device slot for slot: x {errs['x']:.3e} (bound {SCALE_TOL['x']}), v "
+            f"{errs['v']:.3e} and C {errs['C']:.3e} of their max (bound {KERNEL_REL_TOL})  "
+            f"[{card}]")
+        check(all(errs[f] <= SCALE_TOL[f] for f in SCALE_TOL), f"{tag}: {errs}")
+        RANKS[f"{tag}_errors"] = errs
+        RANKS[f"{tag}_timing"] = rank_timing(
+            tag, per_rank, at[tag], 20 if tag == "bench1M" else 5, ref_ms[tag], card,
+            ("halo", "migrate"))
+        if profile:
+            RANKS[f"{tag}_profile"] = rank_profile(tag, per_rank, at[tag], profile_dir, card)
+
+    # ---- 46. main:domain_ext ------------------------------------------------------
+    for tag in ("csf", "projection", "obstacle"):
+        p, scene, n = cases[tag]
+        perm = domain.layout(p, scene, specs[tag])[1]
+        tol = EXT_TOL[tag]
+        errs = slot_errors(merged(per_rank, at[tag]), {f: refs[tag][f] for f in tol}, perm)
+        say(f"[main:domain_ext {tag}] {p.n} particles, {scene.cfg.num_grids}^2, "
+            f"{scene.cfg.dtype}, {n} substeps on 4 ranks against one device slot for slot: "
+            + ", ".join(f"{f} {errs[f]:.3e} (bound {tol[f]})" for f in tol) + f"  [{card}]")
+        check(all(errs[f] <= tol[f] for f in tol), f"{tag}: {errs}")
+        RANKS[f"{tag}_errors"] = errs
+
+    # ---- 47. main:replicated ------------------------------------------------------
+    ident = np.arange(p37.n)
+    errs = slot_errors(merged(per_rank, at["replicated37"]),
+                       {f: refs["replicated37"][f] for f in REPLICATED_TOL}, ident)
+    say(f"[main:replicated 37^2] {p37.n} particles (padded to a multiple of 12), float64, 50 "
+        f"substeps on 4 ranks against one device: "
+        + ", ".join(f"{f} {errs[f]:.3e} (bound {REPLICATED_TOL[f]})" for f in REPLICATED_TOL)
+        + f"  [{card}]")
+    check(all(errs[f] <= REPLICATED_TOL[f] for f in REPLICATED_TOL), f"replicated37: {errs}")
+    RANKS["replicated37_errors"] = errs
+    errs = slot_errors(merged(per_rank, at["replicated_bench1M"]),
+                       {f: refs["bench1M"][f] for f in SCALE_TOL}, np.arange(p_b.n),
+                       scaled=("v", "C"))
+    say(f"[main:replicated bench1M] 1 substep on 4 ranks against one device: x "
+        f"{errs['x']:.3e} (bound {SCALE_TOL['x']}), v {errs['v']:.3e} and C {errs['C']:.3e} of "
+        f"their max (bound {KERNEL_REL_TOL})  [{card}]")
+    check(all(errs[f] <= SCALE_TOL[f] for f in SCALE_TOL), f"replicated bench1M: {errs}")
+    RANKS["replicated_bench1M_errors"] = errs
+    RANKS["replicated_bench1M_timing"] = rank_timing(
+        "replicated bench1M", per_rank, at["replicated_bench1M"], 20, ref_ms["bench1M"], card,
+        ("psum",))
+    if profile:
+        RANKS["replicated_bench1M_profile"] = rank_profile(
+            "replicated_bench1M", per_rank, at["replicated_bench1M"], profile_dir, card)
+    RANKS["scatter_launches_per_rank"] = launches
+    del per_rank, per_rank2
+
+    # ---- 48. main:dryrun ------------------------------------------------------------
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device=dev)
+    say(f"[main:dryrun] dryrun_multichip(4) on {dev}: the general domain on 4 gloo ranks, "
+        f"fast_domain (and with the projection and CSF), fast_domain3d, the 3D elastic drop, "
+        f"the 2 x 2 mesh: no overflow, in {time.perf_counter() - t0:.1f} s  [{card}]")
+    say(f"[timing] phases 44-48 done in {time.perf_counter() - t_all:.1f} s")
+    say(json.dumps({"ranks": RANKS}))
+    return RANKS
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -4814,6 +5278,10 @@ def main(argv=None) -> int:
 
     # ---- 41-43. the fully fused 2D substep, p2g3d's stress mode ------------------
     fused2d_phases(dev, card, io_ok, args.profile, err, kernel_ms, plain_ms, bounds, launches)
+    say(f"[timing] fused2d phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 44-48. the general path's slab domain and replicated grid on ranks --
+    ranks_phases(dev, card, args.profile)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -4962,6 +5430,10 @@ def main(argv=None) -> int:
                     f"{tag}_bound_by": bounds[key][1]})
     port_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches)
     fused2d_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches)
+    # The scatter on the ranks of phases 44-47: each rank's launches in each
+    # run, one a scatter of the window (checked there).
+    next(k for k in kernels if k["name"] == "scatter")["ranks_launches"] = (
+        RANKS["scatter_launches_per_rank"])
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

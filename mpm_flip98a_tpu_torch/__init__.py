@@ -22,12 +22,18 @@ hand-written CUDA kernels:
                                 in `csrc/`
 - `parallel`                  — the slab-sharded fast path (`--devices N`):
                                 `SlabMesh` (n shards as a leading tensor
-                                dimension), `fast_domain`, `fast_domain3d`
+                                dimension), `fast_domain`, `fast_domain3d`;
+                                the general path's `domain` (slab
+                                decomposition) and `replicated` (a psum-
+                                merged grid) on `RankMesh`, one shard per
+                                rank of a `torch.distributed` group that
+                                `launch.run_ranks` starts
 - `utils`                     — progress, timing, diagnostics, frame and
                                 VTK output
 - `driver`                    — the frame loop and CLI
 - `convert`                   — JAX-package state (as numpy) into this
                                 package's types, for the comparison tests
+- `dryrun`                    — every multi-device strategy on tiny shapes
 - `_build`                    — builds `csrc/*.cu` with nvcc at first use
 """
 

@@ -10,6 +10,7 @@ so this module imports neither JAX nor the JAX package:
     buckets_from_numpy({f.name: np.asarray(getattr(b, f.name)) ...}, device)
     buckets3d_from_numpy(... the same for a 3D FluidBuckets3D ...)
     scene_from_fields(dataclasses.asdict(scene))
+    domain_state_from_numpy({... a domain state's particles ...}, dropped, rank, n, device)
 
 Arrays keep their dtype and bits; the tests use this to feed both
 packages the same state.
@@ -31,6 +32,7 @@ from mpm_flip98a_tpu_torch.models.fast2d import FluidBuckets
 from mpm_flip98a_tpu_torch.models.fast3d import FluidBuckets3D
 from mpm_flip98a_tpu_torch.models.materials import MaterialParams
 from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
+from mpm_flip98a_tpu_torch.parallel.domain import DomainState
 from mpm_flip98a_tpu_torch.state import MLS88Particles, Particles
 
 
@@ -64,6 +66,20 @@ def buckets3d_from_numpy(fields: Mapping[str, np.ndarray], device="cuda") -> Flu
     out = {n: _tensor(fields[n], device) for n in _names(FluidBuckets3D)}
     out["overflow"] = out["overflow"].to(torch.int32).reshape(())
     return FluidBuckets3D(**out)
+
+
+def domain_state_from_numpy(fields: Mapping[str, np.ndarray], dropped, rank: int, n: int,
+                            device="cuda") -> DomainState:
+    """Rank `rank`'s shard of a JAX `DomainState` of n shards: its
+    particles' fields (numpy, (n capacity, ...) in shard order) and its
+    (n,) `dropped`, as the port's `parallel.domain.DomainState`."""
+    cap = len(fields["x"]) // n
+    mine = slice(rank * cap, (rank + 1) * cap)
+    return DomainState(
+        particles=Particles(**{f: _tensor(np.asarray(fields[f])[mine], device)
+                               for f in _names(Particles)}),
+        dropped=_tensor(np.asarray(dropped, np.int32)[rank:rank + 1], device),
+    )
 
 
 def _enum(cls, v):

@@ -33,8 +33,15 @@ Slab shards (`shards=True`): every tensor carries the shard as dim 0 and
 its d grid dims after it.  The CG's dot products sum each shard's owned
 rows (`own`) and then the shards, and the caller's `halo` refreshes the
 halo rows of `p` once per iteration and of q and each v_a at the end
-(projection.py:187, :228, :240).  Plain torch throughout: the JAX module
-reaches no Pallas kernel.
+(projection.py:187, :228, :240).  A rank's slab of the general path's
+domain decomposition (`mesh`, a `parallel.mesh.RankMesh`) is the JAX
+module's `axis` form: the planes are this rank's (L + 4, ...) buffers,
+`own` (R,), and each dot product is the ranks' psum of the rank's sum
+(the two dot products taken at one point of an iteration share a psum).
+Every host decision (the exit check, and through `active` the breakdown
+and divergence guards) reads only such reduced values, which every rank
+holds bit for bit, so all ranks leave the loop together.  Plain torch
+throughout: the JAX module reaches no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -93,6 +100,7 @@ def project_planes(
     halo=None,
     own: torch.Tensor = None,
     solid_extra: torch.Tensor = None,
+    mesh=None,
 ):
     """Plane-form core: `vs` holds the d velocity components, each shaped
     like `g_m` (grid axis a of the planes is component a's axis).
@@ -104,7 +112,10 @@ def project_planes(
     planes are (n, L + 4, ...) slab buffers: `row_index0` (n, L + 4) holds
     their global axis-0 rows (`row_index1`, (R1 + 4,), the 3D axis-1 pad
     rows), `own` (n, L + 4) bool marks the owned rows and `halo` refreshes
-    the halo rows of a plane in place.
+    the halo rows of a plane in place.  With `mesh` (a RankMesh) the planes
+    are this rank's slab: `row_index0` and `own` are (R,), `halo` refreshes
+    its halo rows from the neighbouring ranks, and the sums run over the
+    ranks.
 
     Returns (vs_projected, q, residual_ratio): q is the scaled pressure
     (p = q rho / dt), residual_ratio = |r| / |b| at exit (a 0-dim tensor).
@@ -116,13 +127,17 @@ def project_planes(
     dev = g_m.device
     nd = np_float(dt_)
     tiny = float(np.finfo(nd).tiny)
-    sync = halo if (shards and halo is not None) else (lambda x: x)
+    sync = halo if ((shards or mesh is not None) and halo is not None) else (lambda x: x)
     ax = lambda a: lead + a     # tensor dim of grid axis a
 
-    def gsum(x):
+    def gsums(*xs):
+        """Each x summed over the grid (and the shards or ranks); on ranks
+        the sums ride one psum together, each still its own element."""
         if shards:
-            return x.sum(dim=tuple(range(1, x.dim()))).sum()
-        return x.sum()
+            return tuple(x.sum(dim=tuple(range(1, x.dim()))).sum() for x in xs)
+        if mesh is not None:
+            return mesh.psum(torch.stack([x.sum() for x in xs])).unbind()
+        return tuple(x.sum() for x in xs)
 
     # ---- masks (global node indices on decomposed axes) -----------------
     per_axis = {0: row_index0, 1: row_index1}
@@ -166,10 +181,9 @@ def project_planes(
     for a in range(d):
         div = div + (vs[a] - _shift(vs[a], ax(a), -1))
     b = owned(-div * float(nd(dx)) * fluid_f)
-    b2 = gsum(b * b)
-    thresh = (tol * tol) * b2
     z0 = precond(b)
-    rho = gsum(owned(b * z0))
+    b2, rho = gsums(b * b, owned(b * z0))
+    thresh = (tol * tol) * b2
 
     q, r, p, rs = b * 0, b, z0, b2
     good = torch.ones((), dtype=torch.bool, device=dev)
@@ -183,18 +197,16 @@ def project_planes(
             break
         p = sync(p)
         ap = owned(lap(p))
-        pap = gsum(owned(p * ap))
         # Breakdown guard (a singular system: fluid enclosed by solid).
-        pp = gsum(owned(p * p))
+        pap, pp = gsums(owned(p * ap), owned(p * p))
         breakdown = pap <= eps_bd * pp
         alpha = torch.where(breakdown, 0.0, rho / torch.clamp(pap, min=tiny))
         q_new = q + alpha * p
         r_new = r - alpha * ap
-        rs_new = gsum(owned(r_new * r_new))
+        z = precond(r_new)
+        rs_new, rho_new = gsums(owned(r_new * r_new), owned(r_new * z))
         # Divergence guard: a blown-up residual drops the whole correction.
         diverged = ~torch.isfinite(rs_new) | (rs_new > big * b2)
-        z = precond(r_new)
-        rho_new = gsum(owned(r_new * z))
         p_new = z + (rho_new / torch.clamp(rho, min=tiny)) * p
         q = torch.where(active, q_new, q)
         r = torch.where(active, r_new, r)

@@ -31,16 +31,23 @@ serves every transfer.  Constants enter as Python floats rounded to the
 particles' dtype (as JAX's `jnp.asarray(c, dtype)` does), and no value is
 read on the host, so `run` queues its substeps on the card without a
 synchronisation, except the projection's CG (`models/projection.py`),
-which reads its active flag once every 8 iterations.  One device only: the
-slab context of `parallel/domain.py` and the replicated path wait.  The
-fast paths share `_csf_force`, `_csf_increment` and `_project_grid`, and
-their slab shards pass those a halo refresh.
+which reads its active flag once every 8 iterations.
+
+The physics is written once against a `GridContext` and a `grid_reduce`
+hook applied to every raw P2G sum, as in the JAX module: one device
+(global buffers, no reduce), the replicated grid of
+`parallel/replicated.py` (global buffers, reduce = the ranks' psum) and
+the slab domain of `parallel/domain.py` (slab buffers, global rows in
+`row_index0`, reduce = halo reduce + gather between neighbouring ranks,
+and the CSF chain and the projection taking their maxima and dot products
+over the ranks).  The fast paths share `_csf_force`, `_csf_increment` and
+`_project_grid`, and their slab shards pass those a halo refresh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,18 +91,42 @@ class Scene:
     mass_floor: float = 0.0
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class GridContext:
-    """Where the grid buffers live: global node and cell shapes on one
-    device (the JAX context's `single`; its slab and replicated forms
-    belong to parallel/domain.py and parallel/replicated.py)."""
+    """Where the grid buffers live (stabilized.py:119-155).
+
+    - one device, and the replicated grid: global buffers (`single`);
+    - a slab of the domain decomposition (parallel/domain.py): slab
+      buffers; `base_shift` maps global stencil bases into them,
+      `row_index0` holds the global node row of each local axis-0 row (for
+      the walls and colliders), and the slab hooks of the grid-side chains
+      (CSF, the projection): `mesh` (a `parallel.mesh.RankMesh`) for their
+      maxima and dot products over the ranks, `halo_exchange` to refresh
+      the axis-0 halo rows from the neighbours, `own_rows` the rows this
+      rank owns.
+    """
 
     node_shape: Tuple[int, ...]
     cell_shape: Tuple[int, ...]
+    base_shift: Optional[torch.Tensor] = None   # (d,) int64, subtracted from global bases
+    row_index0: Optional[torch.Tensor] = None   # (R,) global node row of each local row
+    mesh: object = None
+    halo_exchange: Optional[Callable] = None
+    own_rows: Optional[torch.Tensor] = None     # (R,) bool
 
     @staticmethod
     def single(cfg: MPMConfig) -> "GridContext":
         return GridContext(node_shape=cfg.grid_shape, cell_shape=(cfg.num_cells,) * cfg.dim)
+
+    def localize(self, idx: torch.Tensor) -> torch.Tensor:
+        return idx if self.base_shift is None else idx - self.base_shift
+
+
+def _live(p: Particles, ctx: GridContext):
+    """On a slab, the particles whose rows the card's scatter plans keep:
+    the slab's inert slots, all parked at its centre, have mass 0 and rows
+    of +-0, which would only make one thread a node walk them all."""
+    return p.mass > 0 if ctx.base_shift is not None else None
 
 
 def _mass_floor(scene: Scene, g_m: torch.Tensor, sharded: bool = False):
@@ -143,24 +174,33 @@ def _flat_cell(cell: torch.Tensor, shape) -> Tuple[torch.Tensor, torch.Tensor]:
     return flat, in_bounds
 
 
-def _scatter_cells(values: torch.Tensor, cell: torch.Tensor, shape) -> torch.Tensor:
-    """Nearest-cell scatter-add: values (N, c) by cell (N, d) -> (shape, c)."""
+def _scatter_cells(values: torch.Tensor, cell: torch.Tensor, shape, keep=None) -> torch.Tensor:
+    """Nearest-cell scatter-add: values (N, c) by cell (N, d) -> (shape, c);
+    on the card the rows where `keep` is False (all +-0) stay out of the
+    plan (`transfer.flat_node_index`)."""
     flat, in_bounds = _flat_cell(cell, shape)
     values = torch.where(in_bounds[..., None], values, 0.0)
-    out = scatter.scatter_add(values, flat, int(np.prod(shape)))
+    n = int(np.prod(shape))
+    plan = scatter.segment_plan(flat, n, keep) if keep is not None and flat.is_cuda else None
+    out = scatter.scatter_add(values, flat, n, plan)
     return out.reshape(tuple(shape) + (values.shape[-1],))
 
 
-def fbar_jbar(p: Particles, scene: Scene, ctx: GridContext = None) -> torch.Tensor:
+def fbar_jbar(p: Particles, scene: Scene, ctx: GridContext = None, *,
+              grid_reduce: Callable = None) -> torch.Tensor:
     """Cell-averaged volume ratio (overline-F stabilization, reference:
     config.py:19, fields.py:33-36): Jbar_c = sum V0 J / sum V0 over the
     particles of the cell, gathered back; the particle's J where the cell
-    is empty."""
+    is empty.  `grid_reduce` completes the raw cell sums (see
+    `substep_grid`)."""
     cfg = scene.cfg
     ctx = ctx or GridContext.single(cfg)
-    cell = _cell_index(_grid_coords(p.x, cfg), cfg)
+    cell = ctx.localize(_cell_index(_grid_coords(p.x, cfg), cfg))
     vals = torch.stack([p.volume0 * p.J, p.volume0], dim=-1)
-    cells = _scatter_cells(vals, cell, ctx.cell_shape).reshape(-1, 2)
+    cells = _scatter_cells(vals, cell, ctx.cell_shape, _live(p, ctx))
+    if grid_reduce is not None:
+        cells = grid_reduce(cells)
+    cells = cells.reshape(-1, 2)
     flat, in_bounds = _flat_cell(cell, ctx.cell_shape)
     back = cells[flat]
     num = torch.where(in_bounds, back[:, 0], 0.0)
@@ -168,9 +208,13 @@ def fbar_jbar(p: Particles, scene: Scene, ctx: GridContext = None) -> torch.Tens
     return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), p.J)
 
 
-def _axis_indices(grid_shape, device):
-    """Per-axis node indices of the grid buffer."""
-    return [torch.arange(s, device=device) for s in grid_shape]
+def _axis_indices(grid_shape, device, row_index0=None):
+    """Per-axis global node indices of the grid buffer: `row_index0` takes
+    axis 0's on a slab buffer (parallel/domain.py)."""
+    idx = [torch.arange(s, device=device) for s in grid_shape]
+    if row_index0 is not None:
+        idx[0] = row_index0
+    return idx
 
 
 def _axis_band(idx: torch.Tensor, a: int, d: int) -> torch.Tensor:
@@ -179,27 +223,28 @@ def _axis_band(idx: torch.Tensor, a: int, d: int) -> torch.Tensor:
     return idx.reshape(shape)
 
 
-def _wall_normal_diag(cfg: MPMConfig, dtype, grid_shape, device) -> torch.Tensor:
+def _wall_normal_diag(cfg: MPMConfig, dtype, grid_shape, device, row_index0=None) -> torch.Tensor:
     """sum over walls of n (x) n at every node, as its diagonal (the walls
     are axis-aligned): 1 on an axis's wall band, else 0.  (G..., d).  The
     walls are the physical box faces, node index PAD and G-1-PAD
     (PenaltyMethodFields, fields.py:46-51)."""
     lo, hi = int(PAD), cfg.num_grids - 1 - int(PAD)
     diag = []
-    for a, idx in enumerate(_axis_indices(grid_shape, device)):
+    for a, idx in enumerate(_axis_indices(grid_shape, device, row_index0)):
         on_wall = _axis_band((idx <= lo) | (idx >= hi), a, cfg.dim)
         diag.append(on_wall.expand(grid_shape))
     return torch.stack(diag, dim=-1).to(dtype)
 
 
-def _apply_wall_bc(v: torch.Tensor, cfg: MPMConfig, wall: WallBC, grid_shape) -> torch.Tensor:
+def _apply_wall_bc(v: torch.Tensor, cfg: MPMConfig, wall: WallBC, grid_shape,
+                   row_index0=None) -> torch.Tensor:
     """Slip / sticky walls on the padded band (the non-penalty path): slip
     clamps the outgoing normal component at nodes on or outside the box
     faces, sticky zeroes every component there (the C++ analogue:
     mls-mpm88-explained.cpp:122-128)."""
     lo, hi = int(PAD), cfg.num_grids - 1 - int(PAD)
     comps = list(v.unbind(-1))
-    for a, idx in enumerate(_axis_indices(grid_shape, v.device)):
+    for a, idx in enumerate(_axis_indices(grid_shape, v.device, row_index0)):
         low = _axis_band(idx <= lo, a, cfg.dim)
         high = _axis_band(idx >= hi, a, cfg.dim)
         if wall.kind == "sticky":
@@ -226,7 +271,7 @@ def _cdiff(c: torch.Tensor, axis: int, inv_dx) -> torch.Tensor:
 
 
 def _csf_force(g_m: torch.Tensor, cfg: MPMConfig, physics: Physics, dtype,
-               halo=None) -> torch.Tensor:
+               halo=None, mesh=None) -> torch.Tensor:
     """Continuum-surface-force density sigma kappa grad(c~) on the grid
     (stabilized.py:311-358): the normalised, binomially smoothed nodal mass
     is the color function c~, n = grad c~, kappa = -div(n / |n|); nodes
@@ -236,21 +281,24 @@ def _csf_force(g_m: torch.Tensor, cfg: MPMConfig, physics: Physics, dtype,
     With `halo` (`FastDomainCtx.halo_gather_only`) the planes are slab
     shards stacked on dim 0: after each radius-1 stage `halo` refreshes
     their halo rows from the neighbours in place, and the two maxima are
-    taken over every shard (the reference's pmax).  Returns (..., d) in
-    `g_m`'s layout."""
-    lead = 0 if halo is None else 1
+    taken over every shard (the reference's pmax).  With `mesh` as well (a
+    `RankMesh`; `halo` = the domain's `halo_gather`) `g_m` is this rank's
+    slab and the maxima are the ranks' pmax (stabilized.py:332-345).
+    Returns (..., d) in `g_m`'s layout."""
+    lead = 1 if halo is not None and mesh is None else 0
     sync = halo if halo is not None else (lambda x: x)
+    gmax = (lambda x: x.max()) if mesh is None else (lambda x: mesh.pmax(x.max()))
     d = g_m.dim() - lead
     nd = np_float(dtype)
     inv_dx = float(nd(cfg.inv_dx))
-    c = g_m / torch.clamp(g_m.max(), min=float(nd(1e-30)))
+    c = g_m / torch.clamp(gmax(g_m), min=float(nd(1e-30)))
     # One binomial (1,2,1)/4 pass per axis smooths the deposition ripple.
     for a in range(lead, lead + d):
         c = 0.25 * _roll0(c, 1, a) + 0.5 * c + 0.25 * _roll0(c, -1, a)
     c = sync(c)
     n = sync(torch.stack([_cdiff(c, lead + a, inv_dx) for a in range(d)], dim=-1))
     mag = torch.sqrt(torch.sum(n * n, dim=-1))
-    near = mag > 0.01 * mag.max()
+    near = mag > 0.01 * gmax(mag)
     safe = torch.where(near, mag, 1.0)
     nhat = torch.where(near[..., None], n / safe[..., None], 0.0)
     kappa = -sum(_cdiff(nhat[..., a], lead + a, inv_dx) for a in range(d))
@@ -272,7 +320,7 @@ def _csf_increment(g_m: torch.Tensor, scene: Scene, halo=None) -> torch.Tensor:
 
 
 def _project_grid(vs, g_m: torch.Tensor, scene: Scene, col_solid=None, row_index0=None,
-                  row_index1=None, domain=None):
+                  row_index1=None, domain=None, ctx: GridContext = None):
     """The nodal Chorin projection of the d velocity planes `vs`
     (models/projection.py; stabilized.py:525-549, fast2d.py:360-389,
     fast3d.py:394-415) with the walls and `col_solid` (the colliders'
@@ -280,29 +328,43 @@ def _project_grid(vs, g_m: torch.Tensor, scene: Scene, col_solid=None, row_index
     shards (`domain`, a FastDomainCtx or FastDomain3DCtx) own axis-0 rows
     [1, 1 + L) of their L + 4, refresh the halo rows with
     `halo_gather_only` and take the relative floor over every shard
-    (fast2d.py:376-380, fast3d.py:400-403)."""
+    (fast2d.py:376-380, fast3d.py:400-403).  A rank's slab (`ctx` with a
+    mesh) takes the relative floor's pmax over the ranks
+    (stabilized.py:533-538) and runs the CG's rank form."""
     cfg = scene.cfg
-    own = halo = None
+    own = halo = mesh = None
+    floor = _mass_floor(scene, g_m)
     if domain is not None:
         own, halo = domain.own_rows(g_m.device), domain.halo_gather_only
+    elif ctx is not None and ctx.mesh is not None:
+        own, halo, mesh, row_index0 = ctx.own_rows, ctx.halo_exchange, ctx.mesh, ctx.row_index0
+        if scene.mass_floor <= 0.0:
+            # Halo rows must classify fluid and air alike on both owners.
+            floor = mesh.pmax(floor)
     out, _, _ = projection.project_planes(
-        tuple(vs), g_m, _mass_floor(scene, g_m),
+        tuple(vs), g_m, floor,
         dx=float(cfg.dx), lo=int(PAD), hi=cfg.num_grids - 1 - int(PAD),
         iters=int(cfg.pressure_iters), tol=float(cfg.pressure_tol),
         row_index0=row_index0, row_index1=row_index1, shards=domain is not None,
-        halo=halo, own=own, solid_extra=col_solid,
+        halo=halo, own=own, solid_extra=col_solid, mesh=mesh,
     )
     return list(out)
 
 
 def substep_grid(
-    p: Particles, scene: Scene, ctx: GridContext = None, t=None
+    p: Particles, scene: Scene, ctx: GridContext = None, t=None, *,
+    grid_reduce: Callable = None,
 ) -> Tuple[Particles, Grid]:
     """One substep; returns the new particle state and the post-update grid.
     `t` (simulation seconds, a host float) places kinematic colliders;
-    None keeps every collider at its initial position."""
+    None keeps every collider at its initial position.  `ctx` describes
+    the grid buffers (global by default); `grid_reduce` completes every raw
+    P2G sum before it is read (stabilized.py:419-423): none on one device,
+    the ranks' psum on the replicated grid, the halo reduce and gather on
+    a slab."""
     cfg = scene.cfg
     ctx = ctx or GridContext.single(cfg)
+    reduce = grid_reduce if grid_reduce is not None else (lambda g: g)
     d = cfg.dim
     dt_ = p.x.dtype
     dev = p.x.device
@@ -311,9 +373,10 @@ def substep_grid(
     dinv = nd(4.0) * inv_dx * inv_dx
     eye = torch.eye(d, dtype=dt_, device=dev)
 
-    offsets, base, fx, wst = _weights(_grid_coords(p.x, cfg), cfg)
+    offsets, base_global, fx, wst = _weights(_grid_coords(p.x, cfg), cfg)
+    base = ctx.localize(base_global)
     grid_shape = ctx.node_shape
-    index = transfer.flat_node_index(base, offsets, grid_shape)
+    index = transfer.flat_node_index(base, offsets, grid_shape, _live(p, ctx))
 
     # ---- strain rate and pointwise divergence from last step's C ------
     eps = 0.5 * (p.C + mathx.transpose(p.C))
@@ -321,14 +384,14 @@ def substep_grid(
 
     # ---- projection pass: volume / pressure / divergence to the grid --
     ratio = cfg.pressure_mixing_ratio
-    jbar = fbar_jbar(p, scene, ctx) if cfg.use_fbar else p.J
+    jbar = fbar_jbar(p, scene, ctx, grid_reduce=grid_reduce) if cfg.use_fbar else p.J
     p_point = mat.fluid_pressure(scene.params, jbar)
     p_grid = None
     if ratio > 0.0:
         vol_n = p.volume0 * jbar
         proj_vals = wst[..., None] * torch.stack(
             [vol_n, vol_n * p_point, vol_n * div_point], dim=-1)[:, None, :]
-        proj = transfer.p2g_scatter(proj_vals, base, offsets, grid_shape, index)
+        proj = reduce(transfer.p2g_scatter(proj_vals, base, offsets, grid_shape, index))
         den = proj[..., 0]
         safe = torch.where(den > 0, den, 1.0)
         p_grid = torch.where(den > 0, proj[..., 1] / safe, 0.0)
@@ -365,7 +428,8 @@ def substep_grid(
               out=channels[..., d : 2 * d])
     channels[..., 2 * d] = p.mass[:, None]
     channels[..., 2 * d + 1] = (p.volume0 * jbar)[:, None]
-    g_out = transfer.p2g_scatter(wst[..., None] * channels, base, offsets, grid_shape, index)
+    g_out = reduce(transfer.p2g_scatter(wst[..., None] * channels, base, offsets, grid_shape,
+                                        index))
     g_mv0 = g_out[..., 0:d]
     g_mv1 = g_out[..., d : 2 * d]
     g_m = g_out[..., 2 * d]
@@ -384,18 +448,18 @@ def substep_grid(
         # as color function: F/V = sigma kappa grad(c~), applied as the
         # nodal force dt F/V (m / rho) (stabilized.py:479-489).
         rho = float(nd(scene.physics.particle_density))
-        rhs = rhs + float(dt) * _csf_force(g_m, cfg, scene.physics, dt_) * (
-            g_m / rho)[..., None]
+        rhs = rhs + float(dt) * _csf_force(g_m, cfg, scene.physics, dt_, ctx.halo_exchange,
+                                           ctx.mesh) * (g_m / rho)[..., None]
     if cfg.use_penalty_ebc:
         # Matrix nodal mass A = m I + dt beta sum n n^T (diagonal for the
         # axis-aligned box), solved per node (fields.py:28).
         dt_beta = float(dt * nd(cfg.penalty_parameter(scene.physics)))
-        pen_diag = _wall_normal_diag(cfg, dt_, grid_shape, dev)
+        pen_diag = _wall_normal_diag(cfg, dt_, grid_shape, dev, ctx.row_index0)
         a_mat = g_m[..., None, None] * eye + (dt_beta * pen_diag)[..., None] * eye
         v_new = torch.where(has_mass[..., None], mathx.solve(a_mat, rhs), 0.0)
     else:
         v_new = torch.where(has_mass[..., None], rhs / safe_m[..., None], 0.0)
-        v_new = _apply_wall_bc(v_new, cfg, scene.wall, grid_shape)
+        v_new = _apply_wall_bc(v_new, cfg, scene.wall, grid_shape, ctx.row_index0)
 
     col_solid = None
     if scene.colliders:
@@ -403,7 +467,8 @@ def substep_grid(
         # the wall / penalty BC.
         from mpm_flip98a_tpu_torch.models import colliders as _col
 
-        shaped = [_axis_band(idx, a, d) for a, idx in enumerate(_axis_indices(grid_shape, dev))]
+        shaped = [_axis_band(idx, a, d)
+                  for a, idx in enumerate(_axis_indices(grid_shape, dev, ctx.row_index0))]
         coords = _col.node_coords(cfg, shaped, dt_)
         comps = _col.project(list(v_new.unbind(-1)), coords, scene.colliders, t)
         v_new = torch.stack([c.expand(grid_shape) for c in comps], dim=-1)
@@ -415,7 +480,8 @@ def substep_grid(
         # The nodal Chorin projection (models/projection.py,
         # stabilized.py:525-549): divergence-free grid velocities; wall
         # nodes keep their BC values.
-        v_new = torch.stack(_project_grid(v_new.unbind(-1), g_m, scene, col_solid), dim=-1)
+        v_new = torch.stack(_project_grid(v_new.unbind(-1), g_m, scene, col_solid, ctx=ctx),
+                            dim=-1)
 
     grid = Grid(
         v=v_new,
@@ -463,7 +529,8 @@ def substep_grid(
     # Kernel-consistency diagnostics (fields.py:15-18): partition of unity
     # and linear-field reproduction sum_i w_i x_i - x_p.
     pou = torch.sum(wst, dim=1)
-    node_pos = (base[:, None, :].to(dt_) + W.constant(offsets, dt_, dev)[None] - PAD) * float(dx)
+    node_pos = (base_global[:, None, :].to(dt_) + W.constant(offsets, dt_, dev)[None]
+                - PAD) * float(dx)
     cons = torch.sum(wst[..., None] * node_pos, dim=1) - p.x
 
     return (
@@ -488,8 +555,9 @@ def substep_grid(
     )
 
 
-def substep(p: Particles, scene: Scene, ctx: GridContext = None, t=None) -> Particles:
-    return substep_grid(p, scene, ctx, t)[0]
+def substep(p: Particles, scene: Scene, ctx: GridContext = None, t=None, *,
+            grid_reduce: Callable = None) -> Particles:
+    return substep_grid(p, scene, ctx, t, grid_reduce=grid_reduce)[0]
 
 
 def make_substep(scene: Scene) -> Callable[[Particles], Particles]:

@@ -8,7 +8,11 @@ the rows in their order, as XLA's CPU scatter does.  On the card
 sorts the rows' node ids once (`segment_plan`: a stable `torch.sort`, so a
 node's rows stay in ascending position) and `segment_sum` sums each node's
 run in that order from zero.  On the same inputs the card's sums are
-bitwise equal to the CPU's, and two card runs are bitwise equal.
+bitwise equal to the CPU's, and two card runs are bitwise equal.  A plan
+may leave out rows that are all +-0 (`keep`): a sum that starts from +0
+never is -0, so adding +-0 leaves it unchanged bit for bit, and the
+slab domain's inert slots, all parked at one point, would otherwise make
+one thread walk hundreds of thousands of zero rows.
 
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  `LAUNCHES["scatter"]` counts
@@ -39,16 +43,22 @@ class SegmentPlan(NamedTuple):
     starts: torch.Tensor   # (nodes + 1,) int64
 
 
-def segment_plan(flat: torch.Tensor, nodes: int) -> SegmentPlan:
+def segment_plan(flat: torch.Tensor, nodes: int, keep: Optional[torch.Tensor] = None
+                 ) -> SegmentPlan:
     """Stable sort of the (M,) int64 node ids `flat` (each in [0, nodes)),
     and each node's run start: built once per substep and shared by the
     scatters over the same index.  Ids below 2^31 are sorted as int32: the
-    same permutation, from a radix sort over 32 key bits instead of 64."""
+    same permutation, from a radix sort over 32 key bits instead of 64.
+    Rows where the (M,) bool `keep` is False (rows of +-0 only) sort after
+    every kept row, under the id `nodes`, and belong to no run."""
     flat = flat.reshape(-1)
-    keys = flat.to(torch.int32) if nodes <= 2**31 else flat
+    ids, bins = flat, nodes
+    if keep is not None:
+        ids, bins = torch.where(keep.reshape(-1), flat, nodes), nodes + 1
+    keys = ids.to(torch.int32) if bins <= 2**31 else ids
     order = torch.sort(keys, stable=True).indices
     starts = torch.zeros((nodes + 1,), dtype=torch.int64, device=flat.device)
-    torch.cumsum(torch.bincount(flat, minlength=nodes), 0, out=starts[1:])
+    torch.cumsum(torch.bincount(ids, minlength=bins)[:nodes], 0, out=starts[1:])
     return SegmentPlan(order, starts)
 
 

@@ -33,12 +33,15 @@ class Index(NamedTuple):
     plan: Optional[scatter.SegmentPlan] = None   # the card's fixed scatter order
 
 
-def flat_node_index(base: torch.Tensor, offsets: np.ndarray, grid_shape) -> Index:
+def flat_node_index(base: torch.Tensor, offsets: np.ndarray, grid_shape,
+                    keep: Optional[torch.Tensor] = None) -> Index:
     """Flat node index of every (particle, stencil node) pair.
 
     base: (N, d) integer base nodes; offsets: (S, d) static.  On the card
     the index also carries the scatter's `segment_plan` (one stable sort a
-    substep); the CPU's `index_add_` needs none."""
+    substep), which leaves out the rows of particles where the (N,) bool
+    `keep` is False (particles whose every contribution is +-0: the sums
+    are the same bit for bit); the CPU's `index_add_` needs none."""
     off = constant(offsets, torch.int64, base.device)
     strides = np.concatenate([np.cumprod(np.asarray(grid_shape[1:], np.int64)[::-1])[::-1], [1]])
     flat, in_bounds = None, None
@@ -50,7 +53,8 @@ def flat_node_index(base: torch.Tensor, offsets: np.ndarray, grid_shape) -> Inde
         in_bounds = ok if in_bounds is None else in_bounds & ok
     plan = None
     if flat.is_cuda:
-        plan = scatter.segment_plan(flat, int(np.prod(grid_shape)))
+        rows = None if keep is None else keep[:, None].expand(flat.shape)
+        plan = scatter.segment_plan(flat, int(np.prod(grid_shape)), rows)
     return Index(flat, in_bounds, plan)
 
 

@@ -1,4 +1,4 @@
-"""Slab shards on one device (counterpart of `mpm_flip98a_tpu/parallel/mesh.py`).
+"""Slab meshes: shards on one device, or one shard per rank (counterpart of `mpm_flip98a_tpu/parallel/mesh.py`).
 
 The JAX package runs one shard per chip on a 1D `jax.sharding.Mesh`
 (`make_mesh`) or a two-axis (n0 x n1) one (`make_mesh2`, mesh.py:26-37:
@@ -19,17 +19,36 @@ along it:
 - `psum` reduces over every shard, and `any` is its `psum > 0` of 0/1
   flags.
 
-n1 = 1 is the one-axis slab mesh.  The sharded solvers (`fast_domain`,
-`fast_domain3d`) reach the shards only through these methods, so a mesh
-of one rank per card over `torch.distributed` can take its place without
-touching them (ROADMAP queue 1, item 7).
+n1 = 1 is the one-axis slab mesh.  The sharded fast paths (`fast_domain`,
+`fast_domain3d`) reach the shards only through these methods.
+
+`RankMesh(device, backend)` is the one-axis mesh of the JAX package's
+`shard_map` proper: one shard per rank of the default `torch.distributed`
+process group (`parallel/launch.run_ranks` starts the ranks), each rank
+holding its own block and running the whole substep on it, as a chip runs
+its shard in `shard_map`.  It gives the same collectives on the rank's
+block: `shift_left` / `shift_right` are point-to-point sends to the one or
+two neighbours (`batch_isend_irecv`), so the bytes stay O(halo);
+`psum`, `pmax` and `any` are `all_reduce`s.  The general path's
+`parallel/domain.py` and `parallel/replicated.py` run on it.
+
+The backend is the caller's choice and the mesh never changes it: `nccl`
+for ranks that each hold their own card (it refuses ranks that share
+one), `gloo` on the CPU and for several ranks on one card, where the mesh
+stages every exchanged tensor through host memory itself.  The compute
+stays on `device` whichever backend moves the blocks.  Each rank counts
+its collectives' calls, bytes sent and seconds in `traffic`, by tag.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import socket
+import time
+from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,3 +107,139 @@ class SlabMesh:
         """True where any shard's flag is set: the reference's psum > 0 of
         the 0/1 flags (fast_domain.py:220-222)."""
         return self.psum(x.to(torch.int32)) > 0
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amax(dim=0)
+
+
+@dataclasses.dataclass
+class Traffic:
+    """A rank's collectives of one tag: calls, bytes this rank sent, and
+    host seconds from the start of the transfer to the result on the
+    rank's device (with gloo staging that includes the copies through host
+    memory and the wait for the neighbours; with nccl only the launch)."""
+
+    calls: int = 0
+    bytes: int = 0
+    seconds: float = 0.0
+
+
+def shared_cards(cards) -> list:
+    """The ranks whose card key (host and card UUID) another rank holds
+    too, in rank order."""
+    return [r for r, c in enumerate(cards) if cards.count(c) > 1]
+
+
+class RankMesh:
+    """One slab shard per rank of the default process group; every tensor
+    is this rank's block.  `rank` is the shard's `axis_index`, `n` the
+    shard count."""
+
+    def __init__(self, device="cuda", backend: str = "nccl"):
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+        if not dist.is_initialized():
+            raise RuntimeError("RankMesh needs an initialised process group "
+                               "(parallel/launch.run_ranks starts one per rank)")
+        if dist.get_backend() != backend:
+            raise ValueError(f"the process group runs {dist.get_backend()!r}, "
+                             f"the mesh was asked for {backend!r}")
+        self.device = torch.device(device)
+        self.backend = backend
+        self.rank = dist.get_rank()
+        self.n = dist.get_world_size()
+        self.traffic: Dict[str, Traffic] = {}
+        if backend == "nccl":
+            if self.device.type != "cuda":
+                raise ValueError("nccl moves CUDA tensors only: pass backend='gloo' on the CPU")
+            cards = [None] * self.n
+            key = f"{socket.gethostname()}:{torch.cuda.get_device_properties(self.device).uuid}"
+            dist.all_gather_object(cards, key, group=dist.new_group(backend="gloo"))
+            shared = shared_cards(cards)
+            if shared:
+                raise ValueError(
+                    f"ranks {shared} share one card, and nccl needs a card per rank: "
+                    "pass backend='gloo' to run several ranks on one card")
+        # gloo moves host tensors: CUDA blocks go through host memory.
+        self._host = backend == "gloo" and self.device.type == "cuda"
+
+    def _outgoing(self, x: torch.Tensor) -> torch.Tensor:
+        """A contiguous copy of x where the backend reads it."""
+        if self._host:
+            return x.detach().to("cpu", copy=True).contiguous()
+        return x.detach().contiguous().clone()
+
+    def _timed(self, tag: str, nbytes: int, call):
+        if self._host:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = call()
+        rec = self.traffic.setdefault(tag, Traffic())
+        rec.calls += 1
+        rec.bytes += nbytes
+        rec.seconds += time.perf_counter() - t0
+        return out
+
+    def _shift(self, x: torch.Tensor, down: bool, rows: Optional[int], tag: str):
+        def call():
+            send = self._outgoing(x)
+            shape = tuple(x.shape) if rows is None else (rows,) + tuple(x.shape[1:])
+            recv = torch.zeros(shape, dtype=x.dtype, device=send.device)
+            dst, src = (self.rank - 1, self.rank + 1) if down else (self.rank + 1, self.rank - 1)
+            ops = []
+            if 0 <= dst < self.n and send.numel():
+                ops.append(dist.P2POp(dist.isend, send, dst))
+            if 0 <= src < self.n and recv.numel():
+                ops.append(dist.P2POp(dist.irecv, recv, src))
+            for work in dist.batch_isend_irecv(ops) if ops else ():
+                work.wait()
+            return recv.to(self.device)
+
+        sends = 0 <= (self.rank - 1 if down else self.rank + 1) < self.n
+        return self._timed(tag, x.numel() * x.element_size() if sends else 0, call)
+
+    def shift_left(self, x: torch.Tensor, axis: int = 0, rows: Optional[int] = None,
+                   tag: str = "shift") -> torch.Tensor:
+        """`ppermute` with `_perm_left`: rank i receives rank i + 1's block,
+        the last rank zeros.  With `rows`, the received block has that many
+        leading rows (the sender's own count; 0 sends nothing)."""
+        if axis != 0:
+            raise ValueError("a RankMesh has one axis")
+        return self._shift(x, True, rows, tag)
+
+    def shift_right(self, x: torch.Tensor, axis: int = 0, rows: Optional[int] = None,
+                    tag: str = "shift") -> torch.Tensor:
+        """`ppermute` with `_perm_right`: rank i receives rank i - 1's block,
+        rank 0 zeros; `rows` as in `shift_left`."""
+        if axis != 0:
+            raise ValueError("a RankMesh has one axis")
+        return self._shift(x, False, rows, tag)
+
+    def _all_reduce(self, x: torch.Tensor, op, tag: str) -> torch.Tensor:
+        def call():
+            buf = self._outgoing(x.reshape(-1))
+            dist.all_reduce(buf, op=op)
+            return buf.to(self.device).reshape(x.shape)
+
+        return self._timed(tag, x.numel() * x.element_size(), call)
+
+    def psum(self, x: torch.Tensor, tag: str = "psum") -> torch.Tensor:
+        """The sum of every rank's x (every rank gets the same bits)."""
+        return self._all_reduce(x, dist.ReduceOp.SUM, tag)
+
+    def pmax(self, x: torch.Tensor, tag: str = "pmax") -> torch.Tensor:
+        return self._all_reduce(x, dist.ReduceOp.MAX, tag)
+
+    def any(self, x: torch.Tensor, tag: str = "any") -> torch.Tensor:
+        """True where any rank's flag is set (psum > 0 of the 0/1 flags)."""
+        return self.psum(x.to(torch.int32), tag) > 0
+
+    def all_gather(self, x: torch.Tensor, tag: str = "all_gather") -> torch.Tensor:
+        """(n,) + x.shape: every rank's block, in rank order."""
+        def call():
+            send = self._outgoing(x)
+            out = [torch.empty_like(send) for _ in range(self.n)]
+            dist.all_gather(out, send)
+            return torch.stack(out).to(self.device)
+
+        return self._timed(tag, x.numel() * x.element_size(), call)

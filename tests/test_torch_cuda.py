@@ -1260,6 +1260,27 @@ def test_scatter_kernel_equals_cpu_index_add(dev, dtype):
     assert torch.equal(got.cpu(), want) and torch.equal(again, got)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_scatter_plan_without_zero_rows_equals_cpu_index_add(dev, dtype):
+    """A plan that leaves out rows of +-0 (the slab domain's inert slots:
+    250,000 particles' zero rows on one node here) sums the rest to the
+    CPU's `index_add_` over every row, bit for bit."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    rng = np.random.default_rng(8)
+    nodes, m, c = 513 * 513, 2_000_000, 6
+    flat = torch.from_numpy(rng.integers(0, nodes // 7, m) * 7 + rng.integers(0, 3, m))
+    vals = torch.from_numpy(rng.normal(0.0, 1.0, (m, c)) * 10.0 ** rng.uniform(-5, 5, (m, 1)))
+    zero = torch.zeros(m, dtype=torch.bool)
+    zero[rng.choice(m, 250_000, replace=False)] = True
+    flat = torch.where(zero, nodes // 2, flat)
+    vals = torch.where(zero[:, None], -0.0, vals).to(dtype)
+    want = torch.zeros((nodes, c), dtype=dtype).index_add_(0, flat, vals)
+    fd, vd = flat.to(dev), vals.to(dev)
+    got = scatter.scatter_add(vd, fd, nodes, scatter.segment_plan(fd, nodes, ~zero.to(dev)))
+    assert torch.equal(got.cpu(), want)
+
+
 def test_general_reruns_on_the_card_are_bitwise_equal(dev):
     """tests/test_determinism.py:22-37 on the card: two 100-substep float32
     runs of the 37^2 dam break with the stabilized switch set (F-bar's

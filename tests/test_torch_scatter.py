@@ -75,6 +75,33 @@ def test_segment_plan_gives_the_cpu_order(dtype):
     assert not torch.equal(backwards, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_plan_leaves_out_zero_rows(dtype):
+    """A plan that leaves out rows of +-0 (the slab domain's inert slots,
+    many at one node) runs over the other rows alone, in ascending
+    position, and its sums from zero are `index_add_` over every row bit
+    for bit."""
+    vals, flat, nodes = _rows(dtype, seed=4)
+    rng = np.random.default_rng(5)
+    zero = torch.from_numpy(rng.random(len(flat)) < 0.4)
+    hot = torch.from_numpy(rng.random(len(flat)) < 0.3) & zero
+    flat = torch.where(hot, 7, flat)                  # a node under many zero rows
+    sign = torch.from_numpy(np.where(rng.random((len(flat), 1)) < 0.5, -1.0, 1.0)).to(dtype)
+    vals = torch.where(zero[:, None], 0.0 * sign, vals)
+    plan = scatter.segment_plan(flat, nodes, ~zero)
+    assert plan.starts[-1] == int((~zero).sum()) and plan.order.shape == flat.shape
+    want = torch.zeros((nodes, vals.shape[1]), dtype=dtype).index_add_(0, flat, vals)
+    got = torch.zeros_like(want)
+    for n in range(nodes):
+        run = plan.order[plan.starts[n]:plan.starts[n + 1]]
+        assert (flat[run] == n).all() and not zero[run].any() and (run[1:] > run[:-1]).all()
+        acc = torch.zeros(vals.shape[1], dtype=dtype)
+        for r in run:
+            acc = acc + vals[r]
+        got[n] = acc
+    assert torch.equal(got, want) and not torch.signbit(want).logical_and(want == 0).any()
+
+
 def test_scatter_add_checks_its_inputs():
     vals, flat, nodes = _rows(torch.float32)
     with pytest.raises(TypeError):
