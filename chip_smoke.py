@@ -194,7 +194,7 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                the {"plastic": {...}} line;
 36. main:incompressible  CSF surface tension and the incompressible
                projection: the dam2d_incompressible CLI (8,450 particles,
-               105^2; 2 frames x 200) on the fast path, the general path
+               105^2; 2 frames x 100) on the fast path, the general path
                and --devices 4 (launches, the host checks, |J - 1| < 5e-4
                on the fast path, the CG's exit resid); one general
                substep card against CPU after 200 (float64, 1e-12 of
@@ -300,8 +300,44 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                device and 3 x 20 timed with the all_reduce's ms and bytes;
                every rank's scatter launches in every run of 44-47 equal
                the scatters of its window, and no transfer kernel runs;
-48. main:dryrun  mpm_flip98a_tpu_torch.dryrun.dryrun_multichip(4); then
-               the {"ranks": {...}} line.
+48. main:dryrun  mpm_flip98a_tpu_torch.dryrun.dryrun_multichip(4) (every
+               multi-device leg on 4 gloo ranks, the 2 x 2 mesh among
+               them); then the {"ranks": {...}} line;
+49. main:fast_ranks bench1M  the 2D fast path one shard per rank
+               (parallel/fast_domain.py on RankMesh, 4 gloo ranks on this
+               card, one launch for phases 49-50) against SlabMesh(4) run
+               by rank 0 from the same particles: each rank's rows of the
+               layout bitwise, 1 substep slot for slot (the shard gates;
+               every field bitwise equal expected), 100 (reported, the
+               ensemble gate 5e-4), `p2g_grid` and `g2p` once a substep on
+               every rank and no other kernel, overflow 0, 3 x 20 timed
+               interleaved with SlabMesh(4) and one device (each rank's
+               halo and migration ms, bytes and calls, peak memory); then
+               `p2g_grid` raw and the prepadded `g2p` on each rank's own
+               window (rank 1's origin 129 rows up) against plain, reruns
+               bitwise, rank 1's times;
+50. main:fast_ranks slab8M, slab8M 2x2, stab3d-8M, replicated  slab 8M on
+               4 ranks (one axis) and on the 2 x 2 rank grid against
+               SlabMesh of that shape: 1 substep by the shard gates, 20 by
+               the ensemble gate, `p2g3d_grid` and `g2p3d` once a substep,
+               3 x 10 timed with SlabMesh in turn; raw `p2g3d_grid` and
+               `g2p3d` on each rank's window against plain (g2p3d's reruns
+               bitwise); stab3d-8M (raw prepped 11 channels) 1 substep;
+               fast_replicated at bench 1M against one device: 20
+               substeps by the ensemble gate, `p2g_fused` and `g2p` once a
+               substep, one all_reduce of the folded grid a substep with
+               its bytes and ms, 3 x 10 timed; and with the stabilized
+               set (stab1M: `p2g` prepped 9 channels, 7-channel `g2p`) 5
+               substeps;
+51. main:fast_ranks_cli  `--devices 4 --ranks --backend gloo` on
+               dam2d_flip98 (2 frames x 100 substeps) and
+               dam2d_incompressible (2 x 10), frames from rank 0 alone;
+               dam3d `--devices 2x2
+               --ranks` with a checkpoint after one frame, resumed on ranks
+               and on SlabMesh(2, 2), each against the uninterrupted
+               SlabMesh(2, 2) run within ROUTE_TOL; `--backend nccl` with 2
+               ranks on this card must raise; then the {"fast_ranks": ...}
+               line.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -332,7 +368,13 @@ p2g3d's stress mode under "stress_*" (0 launches: no path runs it), and
 "scatter", the general path's fixed-order scatter
 (not a TPU kernel), with "equal_to_cpu", "rerun_bitwise_equal",
 "plan_ms" and its slab 1M numbers under "slab1M_*", and each rank's
-launches in every run of phases 44-47 under "ranks_launches"); the last line is
+launches in every run of phases 44-47 under "ranks_launches"); the fast
+paths on ranks (phases 49-50): each rank's launches under "ranks_launches"
+(p2g_grid, g2p at bench 1M; p2g3d_grid, g2p3d at slab 8M, with
+"ranks_2x2_launches" and "ranks_stab3d_launches"), p2g_fused's and g2p's
+under "replicated_ranks_launches", p2g's and g2p's at stab1M under
+"replicated_stab1M_ranks_launches", and p2g_grid, g2p, p2g3d_grid and
+g2p3d on a rank's own window under "ranks_*"; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -2824,13 +2866,13 @@ def incompressible(scene):
 
 
 def incomp_cli(dev, card, io_ok, path, devices):
-    """dam2d_incompressible through the CLI (2 frames x 200): launches, the
+    """dam2d_incompressible through the CLI (2 frames x 100): launches, the
     host checks, |J - 1| < 5e-4 on the fast path
     (tests/test_projection.py:189)."""
     from mpm_flip98a_tpu_torch import driver
     from mpm_flip98a_tpu_torch.models import fast2d
 
-    scenario, n_frames, n_sub = "dam2d_incompressible", 2, 200
+    scenario, n_frames, n_sub = "dam2d_incompressible", 2, 100
     n = n_frames * n_sub
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4765,12 +4807,836 @@ def ranks_phases(dev, card, profile_dir):
     # ---- 48. main:dryrun ------------------------------------------------------------
     t0 = time.perf_counter()
     dryrun_multichip(4, device=dev)
-    say(f"[main:dryrun] dryrun_multichip(4) on {dev}: the general domain on 4 gloo ranks, "
-        f"fast_domain (and with the projection and CSF), fast_domain3d, the 3D elastic drop, "
-        f"the 2 x 2 mesh: no overflow, in {time.perf_counter() - t0:.1f} s  [{card}]")
+    say(f"[main:dryrun] dryrun_multichip(4) on {dev}: on 4 gloo ranks in one launch the "
+        f"general domain, fast_domain (and with the projection and CSF), fast_domain3d and "
+        f"the 2 x 2 rank grid; the 3D elastic drop on one device: no overflow, in "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
     say(f"[timing] phases 44-48 done in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"ranks": RANKS}))
     return RANKS
+
+
+# ---------------------------------------------------------------------------
+# The fast paths on a rank mesh, one shard per rank: fast_domain (2D),
+# fast_domain3d on one axis and on the 2 x 2 rank grid, fast_replicated
+# ---------------------------------------------------------------------------
+
+# Phases 49-52 run every rank on cuda:0 under gloo, as phases 44-48.  Rank 0
+# also runs the references (the same shards on SlabMesh, one device) in its
+# own process while the other ranks wait at a barrier, so the timed runs
+# interleave on the one card.
+FAST_RANK_TIMEOUT_S = 300.0
+# After one substep, slot for slot against SlabMesh: the sharded gates (x
+# absolute; v and C of their max; J absolute).
+SHARD_GATES = {"x": 1e-6, "v": KERNEL_REL_TOL, "C": KERNEL_REL_TOL, "J": 1e-6}
+ENSEMBLE_GATE = 5e-4         # float64 mean and std of x over the live slots
+FAST_RANKS = {}              # the {"fast_ranks": ...} line
+BENCH_RANK_STEPS = 100       # bench 1M on 4 ranks: 1 + 99 substeps
+SLAB_RANK_STEPS = 20         # slab 8M on 4 and on 2 x 2 ranks: 1 + 19
+REPLICATED_RANK_STEPS = 20   # fast_replicated at bench 1M
+CLI3D_STEPS = 20             # dam3d on 2 x 2 ranks: 2 frames, checkpoint after the first
+# dam2d_incompressible on 4 ranks: 2 frames of this many substeps.  Its CG
+# takes 0.7-1.3 s a substep there (3 collectives an iteration through host
+# memory; 2 x 100 substeps took 166.5 s and 2 x 20, beside the other CLIs,
+# 52.6 s on an H100 80GB HBM3, 700 W).
+CLI_INCOMP_STEPS = 10
+
+
+def _groups(dim):
+    return {"x": [f"x{a}" for a in range(dim)], "v": [f"v{a}" for a in range(dim)],
+            "C": [f"C{a}{c}" for a in range(dim) for c in range(dim)], "J": ["J"]}
+
+
+def gather_blocks(mesh, b, names):
+    """Rank 0: each field of `names` with every rank's block concatenated
+    in rank order (SlabMesh's shard-major layout), on rank 0's device; the
+    other ranks send theirs and get None (`dist.gather` through host
+    memory)."""
+    import torch.distributed as dist
+
+    out = {}
+    for name in names:
+        t = getattr(b, name).detach().to("cpu").contiguous()
+        parts = [torch.empty_like(t) for _ in range(mesh.n)] if mesh.rank == 0 else None
+        dist.gather(t, parts, dst=0)
+        if parts is not None:
+            out[name] = torch.cat(parts).to(mesh.device)
+    return out if mesh.rank == 0 else None
+
+
+def gate_errors(got, ref, dim) -> dict:
+    """Gathered rank blocks against a SlabMesh state, slot for slot: x and
+    J absolute, v and C over their max |ref|; the live slots equal; every
+    gathered field bitwise equal."""
+    out = {}
+    for g, names in _groups(dim).items():
+        a = torch.stack([got[n] for n in names]).double()
+        w = torch.stack([getattr(ref, n) for n in names]).double()
+        e = float((a - w).abs().max())
+        out[g] = e / max(float(w.abs().max()), 1e-30) if g in ("v", "C") else e
+    out["mask_equal"] = torch.equal(got["mask"], ref.mask)
+    out["bitwise"] = all(torch.equal(got[n], getattr(ref, n)) for n in got)
+    if not out["bitwise"]:
+        out["first_differing"] = next(n for n in got if not torch.equal(got[n], getattr(ref, n)))
+    return out
+
+
+def ensemble_sums(b, dim, mesh=None) -> np.ndarray:
+    """(count, mean and std of x per axis) of the live slots in float64;
+    over every rank with `mesh` (one psum of the sums)."""
+    on = b.mask > 0
+    xs = torch.stack([getattr(b, f"x{a}")[on].double() for a in range(dim)], 1)
+    s = torch.cat([on.sum().double().reshape(1), xs.sum(0), (xs * xs).sum(0)])
+    if mesh is not None:
+        s = mesh.psum(s, tag="stats")
+    s = s.cpu().numpy()
+    mean = s[1:1 + dim] / s[0]
+    return np.concatenate([[s[0]], mean, np.sqrt(np.maximum(s[1 + dim:] / s[0] - mean ** 2, 0))])
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def interleaved(mesh, run_ranks, refs, reps, n_sub):
+    """`reps` x `n_sub` substeps of the ranks (`run_ranks(n)`, every rank
+    at once after a barrier; ms per substep on each rank and its traffic),
+    each followed on rank 0 by each reference of `refs` (name ->
+    `f(n)`), the other ranks waiting at a barrier.  Warms each up first."""
+    dev = mesh.device
+    run_ranks(2)
+    for f in refs.values():
+        f(2)
+    out = {"ms_runs": [], "traffic_runs": [], "ref_runs": {k: [] for k in refs}}
+    for _ in range(reps):
+        _sync(dev)
+        mesh.barrier()
+        mesh.traffic.clear()
+        t0 = time.perf_counter()
+        run_ranks(n_sub)
+        _sync(dev)
+        out["ms_runs"].append(1e3 * (time.perf_counter() - t0) / n_sub)
+        out["traffic_runs"].append(_traffic(mesh))
+        mesh.barrier()
+        for k, f in refs.items():
+            _sync(dev)
+            t0 = time.perf_counter()
+            f(n_sub)
+            _sync(dev)
+            out["ref_runs"][k].append(1e3 * (time.perf_counter() - t0) / n_sub)
+        mesh.barrier()
+    return out
+
+
+def _timed_ms(dev, fn, reps=10, warm=2):
+    """ms per call of fn on `dev` (CUDA events on a card)."""
+    if dev.type == "cuda":
+        return cuda_ms(fn, reps=reps, warm=warm)
+    for _ in range(warm):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def g2p_scale(want, grid, dx, dinv):
+    """compare_g2p's per-channel scale: the outputs' max, C by one term's
+    size dinv dx |v|max."""
+    vmax = grid.movedim(-2, 0)[:2].reshape(2, -1).abs().amax(dim=1).double()
+    return torch.cat([want[:, :4].abs().amax(dim=(0, 2)).double(),
+                      (dinv * dx * vmax).repeat_interleave(2),
+                      want[:, 8:].abs().amax(dim=(0, 2)).double()])
+
+
+def origin_kernels2d(mesh, b, scene, spec):
+    """`p2g_grid` (raw, one shard) and the prepadded `g2p` on this rank's
+    window, its origin s L rows from the grid's, against their plain
+    versions on the same inputs (every channel over its scale), two
+    reruns bitwise equal; then rank 1 alone times kernel and plain."""
+    from mpm_flip98a_tpu_torch.models import fast2d
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
+    from mpm_flip98a_tpu_torch.parallel import fast_domain as fd
+
+    dev, cfg = mesh.device, scene.cfg
+    ctx = fd.FastDomainCtx(mesh, spec.rows_per_shard)
+    data, pdata2, counts = fast2d.transfer_inputs(b, scene, ctx)
+    kw = dict(fused=fast2d.uses_fused(scene), shards=1, raw=True, **fast2d.p2g_args(scene))
+    p2g = lambda: tk.p2g_grid(data, counts, **kw)
+    raw = p2g()
+    err_p, rel_p = scaled_errors(raw, tk.p2g_grid_plain(data, counts, **kw), axis=2)
+    rerun_p = all(torch.equal(raw, p2g()) for _ in range(2))
+    grid = fast2d._grid_update2d(ctx.halo_sync(raw.clone()), scene, ctx.row_index0(dev), None,
+                                 ctx)
+    dx, dinv = float(cfg.dx), float(4.0 * cfg.inv_dx * cfg.inv_dx)
+    g2p = lambda: tk.g2p(pdata2, counts, grid, dx, dinv, prepadded=True)
+    out = g2p()
+    want = tk.g2p_plain(pdata2, counts, grid, dx, dinv, prepadded=True)
+    err_g, rel_g = scaled_errors(out, want, axis=1, scale=g2p_scale(want, grid, dx, dinv))
+    rerun_g = all(torch.equal(out, g2p()) for _ in range(2))
+    nch, g, live = raw.shape[2], raw.shape[3], int(counts.sum())
+    rec = {"origin_row": int(ctx.bucket_row0(dev)[0, 0]), "rows": int(data.shape[0]),
+           "live": live,
+           "p2g_grid": {"max_abs_err": max(err_p), "rel": max(rel_p), "rerun_equal": rerun_p,
+                        "bound": p2g_grid_bound(data, counts, 1, nch, g)},
+           "g2p": {"max_abs_err": max(err_g), "rel": max(rel_g), "rerun_equal": rerun_g,
+                   "bound": bound(4 * (3 * live + counts.numel() + grid.numel() + out.numel()),
+                                  live * 9 * grid.shape[2] * 2)}}
+    mesh.barrier()
+    if mesh.rank == 1:
+        for name, call, plain in (
+                ("p2g_grid", p2g, lambda: tk.p2g_grid_plain(data, counts, **kw)),
+                ("g2p", g2p, lambda: tk.g2p_plain(pdata2, counts, grid, dx, dinv,
+                                                  prepadded=True))):
+            rec[name]["ms"] = _timed_ms(dev, call)
+            rec[name]["plain_ms"] = _timed_ms(dev, plain, reps=2, warm=1)
+    mesh.barrier()
+    return rec
+
+
+def origin_kernels3d(mesh, b, scene, spec):
+    """Raw `p2g3d_grid` (one shard) and `g2p3d` (update mode) on this
+    rank's window, positions less its origin, against their plain versions
+    (every channel over its scale); g2p3d's reruns bitwise equal (a
+    fixed-order gather; p2g3d_grid adds with shared-memory atomics); rank 1
+    alone times kernel and plain."""
+    from mpm_flip98a_tpu_torch.models import fast3d
+    from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+    from mpm_flip98a_tpu_torch.parallel import fast_domain3d as fd3
+
+    dev, cfg = mesh.device, scene.cfg
+    ctx = fd3.context(spec, mesh)
+    lspec = spec.stacked(mesh.blocks)
+    x0s, x1s = fast3d._shifts(b, cfg, ctx)
+    planes, counts, mask, state = fast3d.transfer_inputs(
+        b, lspec, cfg, b.x0 - x0s, None if x1s is None else b.x1 - x1s)
+    kw = fast3d.p2g_args(scene, raw=True)
+    g2, dx = kw.pop("g2"), kw.pop("dx")
+    p2g = lambda: tk3.p2g3d_grid(planes, counts, lspec.rows1, g2, dx, raw=True, shards=1, **kw)
+    plain_p2g = lambda: tk3.p2g3d_raw_plain(planes, counts, g2, dx, shards=1, **kw)
+    raw = p2g()
+    err_p, rel_p = scaled_errors(raw, plain_p2g(), axis=3)
+    nch, raw_numel = raw.shape[3], raw.numel()
+    del raw
+    grid = fast3d._sharded_grid(planes, counts, scene, lspec, False, ctx)
+    dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
+    g2p_in = (*planes[:3], mask, counts, grid, dx, dinv, state, float(cfg.flip_blend),
+              float(cfg.dt))
+    g2p = lambda: tk3.g2p3d(*g2p_in)
+    out = g2p()
+    want = tk3.g2p3d_plain(*g2p_in)
+    scale = want.abs().double().amax(dim=(0, 1, 3))
+    scale[6:15] = dinv * dx * float(grid[..., :3, :].abs().max())
+    scale[15] = max(float(scale[15]), 1.0)
+    err_g, rel_g = scaled_errors(out, want, axis=2, scale=scale)
+    del want
+    rerun_g = all(torch.equal(out, g2p()) for _ in range(2))
+    slots, live, nout = mask.numel(), int(counts.sum()), out.shape[2]
+    del out
+    rec = {"origin": [float(x0s[0, 0]), 0.0 if x1s is None else float(x1s[0, 0])],
+           "pencils": int(counts.numel()), "live": live,
+           "p2g3d_grid": {"max_abs_err": max(err_p), "rel": max(rel_p),
+                          "bound": bound(4 * (len(planes) * live + counts.numel() + raw_numel),
+                                         live * 27 * nch * 2)},
+           "g2p3d": {"max_abs_err": max(err_g), "rel": max(rel_g), "rerun_equal": rerun_g,
+                     "bound": bound(4 * (11 * live + 3 * (slots - live) + counts.numel()
+                                         + grid.numel() + nout * slots),
+                                    live * 27 * (nout - 1) * 2)}}
+    mesh.barrier()
+    if mesh.rank == 1:
+        for name, call, plain in (("p2g3d_grid", p2g, plain_p2g),
+                                  ("g2p3d", g2p, lambda: tk3.g2p3d_plain(*g2p_in))):
+            rec[name]["ms"] = _timed_ms(dev, call)
+            rec[name]["plain_ms"] = _timed_ms(dev, plain, reps=2, warm=1)
+    mesh.barrier()
+    return rec
+
+
+def profile_fast_rank(mesh, run_n, n_sub, logdir):
+    """Rank 0 under `utils.timing.profiler_trace` (a Chrome trace into
+    `logdir`) for `n_sub` substeps while the other ranks run them
+    unprofiled: (device busy ms per substep, wall ms per substep, the
+    table by device time); None on the other ranks."""
+    from mpm_flip98a_tpu_torch.utils.timing import profiler_trace
+
+    _sync(mesh.device)
+    mesh.barrier()
+    if mesh.rank:
+        run_n(n_sub)
+        _sync(mesh.device)
+        return None
+    with profiler_trace(logdir, device=mesh.device) as prof:
+        t0 = time.perf_counter()
+        run_n(n_sub)
+        _sync(mesh.device)
+        wall = 1e3 * (time.perf_counter() - t0) / n_sub
+    events = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+               if str(e.device_type).endswith("CUDA")) / 1e3 / n_sub
+    return busy, wall, events.table(sort_by="cuda_time_total", row_limit=30)
+
+
+def trace_dir(job) -> str:
+    """Where rank 0 writes a job's Chrome trace under the profile dir."""
+    return os.path.join(job["profile"], "trace_fast_" + job["tag"].replace(" ", "_"))
+
+
+def _peak(dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _fresh(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def rank_bench2d(mesh, job):
+    """bench 1M on the ranks (`fast_domain`) against SlabMesh(n) on rank
+    0: the layout, 1 substep and 100 slot for slot, the launches, 3 x 20
+    timed interleaved with SlabMesh and one device, the kernels on this
+    rank's window."""
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import fast2d, scenes
+    from mpm_flip98a_tpu_torch.parallel import SlabMesh
+    from mpm_flip98a_tpu_torch.parallel import fast_domain as fd
+
+    dev, lead = mesh.device, mesh.rank == 0
+    _fresh(dev)
+    p, scene = scenes.dam_break_2d(MPMConfig(**BENCH, transfer=TransferKind.PIC),
+                                   dtype=np.float32)
+    cfg = scene.cfg
+    spec = fd.FastDomainSpec.for_particles(cfg, mesh.n, p, headroom=2.0)
+    b = fd.distribute(p, cfg, spec, mesh)
+    run = fd.make_run(scene, spec, mesh)
+    rec = {"particles": p.n, "rows_per_shard": spec.rows_per_shard, "block": list(b.shape)}
+    if lead:
+        slab = SlabMesh(mesh.n, dev)
+        ref, ref_run = fd.distribute(p, cfg, spec, slab), fd.make_run(scene, spec, slab)
+        one_spec = fast2d.FastSpec.for_particles(cfg, p, headroom=2.0)
+        one = [fast2d.from_particles(p, cfg, one_spec, dev)]
+    del p
+    names = [f.name for f in dataclasses.fields(b)]
+    got = gather_blocks(mesh, b, names)
+    if lead:
+        rec["layout_bitwise"] = all(torch.equal(got[n], getattr(ref, n)) for n in names)
+    del got
+    # The references run on rank 0 after the ranks' counts are read: the
+    # launch counters are per process.
+    reset_counts()
+    stats = fast2d.RunStats()
+    b = run(b, 1, stats)
+    _sync(dev)
+    got1 = gather_blocks(mesh, b, names)
+    b = run(b, BENCH_RANK_STEPS - 1, stats)
+    _sync(dev)
+    rec.update(launches=kernel_counts(), substeps=stats.substeps, rebuckets=stats.rebuckets,
+               overflow=int(b.overflow.sum()), traffic=_traffic(mesh), num_grids=cfg.num_grids)
+    ens = ensemble_sums(b, 2, mesh)
+    got = gather_blocks(mesh, b, names)
+    if lead:
+        ref = ref_run(ref, 1)
+        rec["after1"] = gate_errors(got1, ref, 2)
+        ref = ref_run(ref, BENCH_RANK_STEPS - 1)
+        rec["after100"] = gate_errors(got, ref, 2)
+        rec["ensemble"] = (ens, ensemble_sums(ref, 2))
+    del got, got1
+    state = [b]
+
+    def ranks_n(k):
+        state[0] = run(state[0], k)
+
+    refs = {}
+    if lead:
+        hold = [ref]
+
+        def slab_n(k):
+            hold[0] = ref_run(hold[0], k)
+
+        def one_n(k):
+            one[0] = fast2d.run(one[0], scene, one_spec, k)
+
+        refs = {"slab_mesh": slab_n, "one_device": one_n}
+    rec["timing"] = interleaved(mesh, ranks_n, refs, 3, 20)
+    refs.clear()
+    if job.get("profile"):
+        rec["profile"] = profile_fast_rank(mesh, ranks_n, 5, trace_dir(job))
+    rec["kernels"] = origin_kernels2d(mesh, state[0], scene, spec)
+    rec["peak_bytes"] = _peak(dev)
+    return rec
+
+
+def rank_slab3d(mesh, job):
+    """slab 8M (job["stab"]: the stabilized set) on the ranks, one axis
+    or job["grid"] = (n0, n1), against SlabMesh of that shape on rank 0: 1
+    substep by the shard gates, job["n"] by the ensemble gate, the
+    launches, 3 x 10 timed interleaved with SlabMesh, with job["kernels"]
+    the kernels on this rank's window."""
+    from mpm_flip98a_tpu_torch.models import fast2d, scenes
+    from mpm_flip98a_tpu_torch.parallel import RankMesh, SlabMesh
+    from mpm_flip98a_tpu_torch.parallel import fast_domain3d as fd3
+
+    grid = job.get("grid")
+    m = mesh if grid is None else RankMesh(mesh.device, mesh.backend, grid=grid)
+    dev, lead = m.device, m.rank == 0
+    _fresh(dev)
+    p, scene = scenes.slab_3d(**SLAB_8M)
+    if job.get("stab"):
+        scene = dataclasses.replace(scene, cfg=dataclasses.replace(scene.cfg, **STAB))
+    cfg = scene.cfg
+    spec = fd3.FastDomain3DSpec.for_particles(cfg, (m.n0, m.n1), p)
+    b = fd3.distribute(p, cfg, spec, m)
+    run = fd3.make_run(scene, spec, m)
+    rec = {"particles": p.n, "windows": [spec.rows_per_shard0, spec.rows_per_shard1],
+           "block": list(b.shape)}
+    if lead:
+        slab = SlabMesh(m.n0, dev, m.n1)
+        ref, ref_run = fd3.distribute(p, cfg, spec, slab), fd3.make_run(scene, spec, slab)
+    del p
+    names = [n for ns in _groups(3).values() for n in ns] + ["mask"]
+    reset_counts()
+    stats = fast2d.RunStats()
+    b = run(b, 1, stats)
+    _sync(dev)
+    got = gather_blocks(m, b, names)
+    n = job["n"]
+    if n > 1:
+        b = run(b, n - 1, stats)
+        _sync(dev)
+    rec.update(launches=kernel_counts(), substeps=stats.substeps, rebuckets=stats.rebuckets,
+               overflow=int(b.overflow.sum()), traffic=_traffic(m), num_grids=cfg.num_grids)
+    ens = ensemble_sums(b, 3, m)
+    if lead:      # after the counts: rank 0's references launch kernels too
+        ref = ref_run(ref, 1)
+        rec["after1"] = gate_errors(got, ref, 3)
+        del got
+        if n > 1:
+            ref = ref_run(ref, n - 1)
+        rec["ensemble"] = (ens, ensemble_sums(ref, 3))
+    else:
+        del got
+    if job.get("timed"):
+        state = [b]
+
+        def ranks_n(k):
+            state[0] = run(state[0], k)
+
+        refs = {}
+        if lead:
+            hold = [ref]
+
+            def slab_n(k):
+                hold[0] = ref_run(hold[0], k)
+
+            refs = {"slab_mesh": slab_n}
+        rec["timing"] = interleaved(m, ranks_n, refs, *job["timed"])
+        refs.clear()
+        b = state[0]
+    if lead:
+        del ref
+    if job.get("profile"):
+        rec["profile"] = profile_fast_rank(m, ranks_n, 5, trace_dir(job))
+    if job.get("kernels"):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec["kernels"] = origin_kernels3d(m, b, scene, spec)
+    rec["peak_bytes"] = _peak(dev)
+    return rec
+
+
+def rank_replicated(mesh, job):
+    """fast_replicated at bench 1M (job["stab"]: the stabilized set, the
+    prepped branch) on the ranks against one device on rank 0: the
+    ensemble after job["n"] substeps, the overflow, one all_reduce of the
+    folded grid a substep, the launches; with job["timed"] that many
+    substeps timed interleaved with one device."""
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import fast2d, scenes
+    from mpm_flip98a_tpu_torch.parallel import fast_replicated as fr
+
+    dev, lead = mesh.device, mesh.rank == 0
+    _fresh(dev)
+    p, scene = scenes.dam_break_2d(MPMConfig(**BENCH, transfer=TransferKind.PIC,
+                                             **(STAB if job.get("stab") else {})),
+                                   dtype=np.float32)
+    cfg = scene.cfg
+    b, spec = fr.distribute(p, cfg, mesh)
+    run = fr.make_run(scene, spec, mesh)
+    rec = {"particles": p.n, "block": list(b.shape)}
+    if lead:
+        one_spec = fast2d.FastSpec.for_particles(cfg, p, headroom=2.0)
+        one = [fast2d.from_particles(p, cfg, one_spec, dev)]
+    del p
+    reset_counts()
+    mesh.traffic.clear()
+    stats = fast2d.RunStats()
+    n = job["n"]
+    b = run(b, n, stats)
+    _sync(dev)
+    rec.update(launches=kernel_counts(), substeps=stats.substeps, rebuckets=stats.rebuckets,
+               overflow=int(b.overflow.sum()), traffic=_traffic(mesh), num_grids=cfg.num_grids)
+    ens = ensemble_sums(b, 2, mesh)
+    if lead:
+        one[0] = fast2d.run(one[0], scene, one_spec, n)
+        rec["ensemble"] = (ens, ensemble_sums(one[0], 2))
+    state = [b]
+
+    def ranks_n(k):
+        state[0] = run(state[0], k)
+
+    refs = {}
+    if lead:
+        def one_n(k):
+            one[0] = fast2d.run(one[0], scene, one_spec, k)
+
+        refs = {"one_device": one_n}
+    if job.get("timed"):
+        rec["timing"] = interleaved(mesh, ranks_n, refs, *job["timed"])
+    refs.clear()
+    rec["peak_bytes"] = _peak(dev)
+    return rec
+
+
+def fast_rank_jobs(mesh, jobs):
+    """The rank worker of phases 49-51 (one process a rank, started by
+    `launch.run_ranks`; it prints nothing): each job of `jobs` by its
+    kind, its record of host data with its seconds on this rank."""
+    kinds = {"bench2d": rank_bench2d, "slab3d": rank_slab3d, "replicated": rank_replicated}
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        rec = kinds[job["kind"]](mesh, job)
+        rec["seconds"] = time.perf_counter() - t0
+        out.append(rec)
+    return out
+
+
+def _per_rank(per_rank, j):
+    return [r[j] for r in per_rank]
+
+
+def report_gates(tag, rec, what, card, gated=True):
+    """Prints the slot-for-slot errors against SlabMesh; with `gated`
+    checks the shard gates and the live slots."""
+    e = rec[what]
+    line = (f"x {e['x']:.3e} (bound {SHARD_GATES['x']}), v {e['v']:.3e} and C {e['C']:.3e} of "
+            f"their max (bound {KERNEL_REL_TOL}), J {e['J']:.3e} (bound {SHARD_GATES['J']}), "
+            f"live slots equal {e['mask_equal']}, every field bitwise equal {e['bitwise']}"
+            + (f" (first differing field {e['first_differing']})" if not e["bitwise"] else ""))
+    say(f"[main:fast_ranks {tag}] {what} against SlabMesh slot for slot: {line}"
+        + ("" if gated else " (reported; the ensemble gate holds it)") + f"  [{card}]")
+    if gated:
+        check(e["mask_equal"], f"{tag} {what}: the live slots differ from SlabMesh's")
+        check(all(e[g] <= tol for g, tol in SHARD_GATES.items()),
+              f"{tag} {what}: outside the shard gates: {e}")
+    return e
+
+
+def report_ensemble(tag, rec, n_particles, card, against):
+    got, want = (np.asarray(a) for a in rec["ensemble"])
+    diff = float(np.abs(got[1:] - want[1:]).max())
+    say(f"[main:fast_ranks {tag}] after {rec['substeps']} substeps: live slots {int(got[0])} "
+        f"(want {n_particles}), ensemble mean and std of x against {against} {diff:.3e} "
+        f"(bound {ENSEMBLE_GATE}), overflow per rank {rec['overflow_per_rank']} (bound 0), "
+        f"rebuckets per rank {rec['rebuckets_per_rank']}  [{card}]")
+    check(int(got[0]) == n_particles, f"{tag}: {int(got[0])} live slots")
+    check(diff <= ENSEMBLE_GATE, f"{tag}: the ensemble left {against}'s")
+    check(not any(rec["overflow_per_rank"]), f"{tag}: overflow {rec['overflow_per_rank']}")
+    return diff
+
+
+def report_launches(tag, recs, want, card):
+    """Each rank's launches in its main run: each kernel of `want`
+    (name -> count) exactly, every other transfer kernel 0."""
+    per = [r["launches"] for r in recs]
+    say(f"[main:fast_ranks {tag}] launches per rank {per} (want {want}, the others 0)  [{card}]")
+    for r, got in enumerate(per):
+        for name, count in got.items():
+            check(count == want.get(name, 0),
+                  f"{tag}: rank {r} launched {name} {count} times, want {want.get(name, 0)}")
+    return {name: [got[name] for got in per] for name in want}
+
+
+def report_timing(tag, recs, n_sub, card, exchange_tags):
+    """ms per substep (median of the slowest rank's runs) against each
+    reference rank 0 ran in turn; each rank's exchange ms, bytes and calls
+    per substep; peak memory per rank."""
+    runs = [max(r["timing"]["ms_runs"][k] for r in recs)
+            for k in range(len(recs[0]["timing"]["ms_runs"]))]
+    refs = recs[0]["timing"]["ref_runs"]
+    per = lambda r, i: sum(r["timing"]["traffic_runs"][0].get(t, [0, 0, 0.0])[i]
+                           for t in exchange_tags)
+    ex_ms = [float(np.median([sum(tr.get(t, [0, 0, 0.0])[2] for t in exchange_tags)
+                              for tr in r["timing"]["traffic_runs"]])) * 1e3 / n_sub
+             for r in recs]
+    out = {"ms": float(np.median(runs)), "runs": runs,
+           **{f"{k}_ms": float(np.median(v)) for k, v in refs.items()},
+           **{f"{k}_runs": v for k, v in refs.items()},
+           "exchange_ms_per_rank": ex_ms,
+           "exchange_bytes_per_rank": [per(r, 1) / n_sub for r in recs],
+           "exchange_calls_per_rank": [per(r, 0) / n_sub for r in recs],
+           "peak_bytes_per_rank": [r["peak_bytes"] for r in recs]}
+    say(f"[timing:fast_ranks {tag}] {len(recs)} ranks on one card under gloo: {out['ms']:.4f} "
+        f"ms/substep (median of {len(runs)} x {n_sub}, the slowest rank's; runs "
+        f"{[round(x, 4) for x in runs]}); in turn on rank 0: "
+        + "; ".join(f"{k} {out[k + '_ms']:.4f} (runs {[round(x, 4) for x in v]})"
+                    for k, v in refs.items())
+        + f"; exchanges ({'+'.join(exchange_tags)}) per rank per substep "
+        f"{[round(x, 4) for x in ex_ms]} ms, {out['exchange_bytes_per_rank']} bytes in "
+        f"{out['exchange_calls_per_rank']} calls; peak device memory per rank "
+        f"{out['peak_bytes_per_rank']} bytes  [{card}]")
+    return out
+
+
+def report_origin(tag, recs, names, card, err, kernel_ms, plain_ms, bounds):
+    """The kernels on each rank's window against plain (every rank),
+    rank 1's times; kept under "<name>_ranks" for the kernels line."""
+    for name in names:
+        rels = [r["kernels"][name]["rel"] for r in recs]
+        reruns = [r["kernels"][name].get("rerun_equal") for r in recs]
+        one = recs[1]["kernels"][name]
+        key = f"{name}_ranks"
+        err[key] = max(r["kernels"][name]["max_abs_err"] for r in recs)
+        kernel_ms[key], plain_ms[key], bounds[key] = one["ms"], one["plain_ms"], one["bound"]
+        where = recs[1]["kernels"].get("origin_row", recs[1]["kernels"].get("origin"))
+        say(f"[kernels:fast_ranks {tag}] {name} on each rank's own window (rank 1's origin "
+            f"{where}) against its plain version: worst channel over its scale per rank "
+            f"{['%.2e' % x for x in rels]} (tol {KERNEL_REL_TOL}), max_abs_err {err[key]:.3e}, "
+            f"reruns bitwise equal per rank {reruns}; rank 1 alone: {one['ms']:.4f} ms (CUDA "
+            f"events, 10 calls), plain {one['plain_ms']:.4f} ms, bound {one['bound'][0]:.4f} ms "
+            f"({one['bound'][1]})  [{card}]")
+        check(max(rels) <= KERNEL_REL_TOL, f"{tag}: {name} on a rank's window disagrees with "
+              f"its plain version: {rels}")
+        check(all(x is not False for x in reruns), f"{tag}: {name} reruns differ on a rank")
+
+
+def fast_rank_clis(dev, card):
+    """Phase 51, main:fast_ranks_cli: the CLIs with --ranks --backend gloo
+    (dam2d_flip98 on 4 ranks, 2 frames x 100 substeps, dam2d_incompressible
+    2 x CLI_INCOMP_STEPS; dam3d on 2 x 2 ranks with a checkpoint, resumed
+    on ranks and on SlabMesh(2, 2) against the uninterrupted SlabMesh run),
+    and the nccl refusal through the CLI."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.parallel import launch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    out = {}
+    try:
+        def cli(name, scenario, devices, frames, n_sub, *extra):
+            argv = ["--scenario", scenario, "--path", "fast", "--devices", devices, "--ranks",
+                    "--backend", "gloo", "--frames", str(frames), "--substeps", str(n_sub),
+                    "--no-gif", "--out", os.path.join(tmp, name), "--device", str(dev),
+                    *extra]
+            t0 = time.perf_counter()
+            got = driver.main(argv)
+            return argv, got, time.perf_counter() - t0
+
+        def refusal():
+            try:
+                driver.main(["--scenario", "dam2d_flip98", "--path", "fast", "--devices", "2",
+                             "--ranks", "--backend", "nccl", "--frames", "1", "--substeps", "1",
+                             "--no-gif", "--out", os.path.join(tmp, "nccl"),
+                             "--device", str(dev)])
+            except launch.RankError as e:
+                return str(e)
+            return None
+
+        ck1, ck2 = os.path.join(tmp, "ck1"), os.path.join(tmp, "ck2")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            runs = {
+                "dam2d_flip98": pool.submit(cli, "2d", "dam2d_flip98", "4", 2, 100),
+                "dam2d_incompressible": pool.submit(cli, "inc", "dam2d_incompressible", "4", 2,
+                                                    CLI_INCOMP_STEPS),
+                "dam3d 2x2": pool.submit(cli, "3d", "dam3d", "2x2", 1, CLI3D_STEPS,
+                                         "--checkpoint", ck1),
+            }
+            nccl = pool.submit(refusal)
+            runs = {k: f.result() for k, f in runs.items()}
+            nccl = nccl.result()
+        resumed = cli("3dr", "dam3d", "2x2", 1, CLI3D_STEPS, "--resume", ck1, "--checkpoint",
+                      ck2)
+        say(f"[main:fast_ranks_cli] three CLIs and the nccl refusal at once, then the resume, "
+            f"in {time.perf_counter() - t0:.1f} s (process starts included)  [{card}]")
+        for name, (argv, got, seconds) in list(runs.items()) + [("dam3d 2x2 resumed", resumed)]:
+            frames = sorted(os.listdir(got[0]["frame_dir"]))
+            say(f"[main:fast_ranks_cli {name}] {' '.join(argv)} in {seconds:.1f} s: per rank "
+                f"frame count {[r['frame_count'] for r in got]}, substeps "
+                f"{[r['substeps'] for r in got]}, rebuckets {[r['rebuckets'] for r in got]}, "
+                f"overflow {[r['overflow'] for r in got]}, frames written "
+                f"{[r['frames_written'] for r in got]}; rank 0's frame dir {frames}  [{card}]")
+            n_frames = int(argv[argv.index("--frames") + 1])
+            check(all(r["overflow"] == 0 for r in got), f"{name}: overflow")
+            check([r["frames_written"] for r in got] == [n_frames] + [0] * (len(got) - 1),
+                  f"{name}: frames not written by rank 0 alone")
+            check(len([f for f in frames if f.endswith(".png")]) == n_frames,
+                  f"{name}: {frames}")
+            out[name] = {"seconds": seconds, "frames": frames,
+                         "substeps_per_rank": [r["substeps"] for r in got]}
+        check(resumed[1][0]["frame_count"] == 2, "dam3d resumed on ranks: frame count")
+        ok = nccl is not None and "share one card" in nccl and "backend='gloo'" in nccl
+        say(f"[main:fast_ranks_cli] --ranks --backend nccl with 2 ranks on this card raises: "
+            f"{ok} ({nccl.strip().splitlines()[-1] if nccl else 'no error'})  [{card}]")
+        check(ok, "the CLI's nccl ranks on one card did not raise")
+        out["nccl_shared_card_raises"] = ok
+        # The resumed runs against the uninterrupted one, all on SlabMesh(2, 2)
+        # in this process: ck2 (ranks resumed ck1), SlabMesh resuming ck1.
+        p, scene = driver.SCENARIOS["dam3d"]()
+        make = lambda: driver.Simulation(p, scene, path="fast", devices=(2, 2), device=dev,
+                                         out_dir=os.path.join(tmp, "slab"))
+        whole = make()
+        whole.run(2, CLI3D_STEPS, gif=False, verbose=False, write_frames=False)
+        on_slab = make()
+        on_slab.restore_checkpoint(ck1)
+        on_slab.run(1, CLI3D_STEPS, gif=False, verbose=False, write_frames=False)
+        from_ranks = make()
+        from_ranks.restore_checkpoint(ck2)
+        groups = (("x", ("x0", "x1", "x2")), ("v", ("v0", "v1", "v2")), ("J", ("J",)))
+        for label, sim in (("resumed on ranks", from_ranks), ("resumed on SlabMesh", on_slab)):
+            worst = {key: max(float((getattr(sim.state, n).double()
+                                     - getattr(whole.state, n).double()).abs().max())
+                              for n in names) for key, names in groups}
+            equal = torch.equal(sim.state.mask, whole.state.mask)
+            say(f"[main:fast_ranks_cli dam3d 2x2] {label} (frame {sim.frame_count}) against "
+                f"the uninterrupted SlabMesh(2, 2) run: live slots equal {equal}, x, v, J "
+                f"{worst} (tol {ROUTE_TOL})  [{card}]")
+            check(sim.frame_count == 2, f"dam3d {label}: frame count {sim.frame_count}")
+            check(all(worst[k] <= tol for k, tol in ROUTE_TOL.items()),
+                  f"dam3d {label}: left the uninterrupted run: {worst}")
+            out[f"dam3d {label}"] = worst
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def fast_ranks_phases(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, launches):
+    """Phases 49-51: the fast paths one shard per rank (4 gloo ranks on
+    this card, one launch for every case: bench 1M, slab 8M on 4 and on 2
+    x 2 ranks, stab3d-8M, fast_replicated), each against SlabMesh of its
+    shape or one device run by rank 0; the kernels on a rank's window;
+    then the --ranks CLIs."""
+    from mpm_flip98a_tpu_torch.parallel import launch
+
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    prof = {} if profile_dir is None else {"profile": os.path.abspath(profile_dir)}
+    jobs = [
+        dict(kind="bench2d", tag="bench1M", **prof),
+        dict(kind="slab3d", tag="slab8M", n=SLAB_RANK_STEPS, timed=(3, 10), kernels=True, **prof),
+        dict(kind="slab3d", tag="slab8M 2x2", grid=(2, 2), n=SLAB_RANK_STEPS, timed=(3, 10),
+             **prof),
+        dict(kind="slab3d", tag="stab3d-8M", stab=True, n=1),
+        dict(kind="replicated", tag="replicated bench1M", n=REPLICATED_RANK_STEPS,
+             timed=(3, 10)),
+        dict(kind="replicated", tag="replicated stab1M", stab=True, n=5),
+    ]
+    per_rank = launch.run_ranks(fast_rank_jobs, 4, device=dev, backend=RANK_BACKEND,
+                                timeout_s=FAST_RANK_TIMEOUT_S, args=(jobs,))
+    say(f"[fast_ranks] 4 ranks ran {[j['tag'] for j in jobs]} in "
+        f"{time.perf_counter() - t_all:.1f} s (process start included); seconds per job on "
+        f"rank 0 {[round(r['seconds'], 1) for r in per_rank[0]]}  [{card}]")
+    for j, job in enumerate(jobs):
+        recs = _per_rank(per_rank, j)
+        recs[0]["overflow_per_rank"] = [r["overflow"] for r in recs]
+        recs[0]["rebuckets_per_rank"] = [r["rebuckets"] for r in recs]
+    # ---- 49. main:fast_ranks bench 1M --------------------------------------------
+    recs = _per_rank(per_rank, 0)
+    r0 = recs[0]
+    say(f"[main:fast_ranks bench1M] {r0['particles']} particles, {r0['num_grids']}^2, 4 ranks of "
+        f"{r0['rows_per_shard']} rows, blocks {r0['block']}: each rank's rows of the global "
+        f"layout bitwise SlabMesh(4)'s: {r0['layout_bitwise']}  [{card}]")
+    check(r0["layout_bitwise"], "bench1M: the ranks' layout differs from SlabMesh's")
+    FAST_RANKS["bench1M_after1"] = report_gates("bench1M", r0, "after1", card)
+    FAST_RANKS["bench1M_after100"] = report_gates("bench1M", r0, "after100", card, gated=False)
+    FAST_RANKS["bench1M_ensemble"] = report_ensemble("bench1M", r0, r0["particles"], card,
+                                                     "SlabMesh(4)")
+    launches["p2g_grid ranks"] = report_launches(
+        "bench1M", recs, {"p2g_grid": BENCH_RANK_STEPS, "g2p": BENCH_RANK_STEPS}, card)["p2g_grid"]
+    launches["g2p ranks"] = [r["launches"]["g2p"] for r in recs]
+    FAST_RANKS["bench1M_timing"] = report_timing("bench1M", recs, 20, card, ("halo", "migrate"))
+    if profile_dir:
+        FAST_RANKS["bench1M_profile"] = rank_profile("fast_bench1M", per_rank, 0, profile_dir,
+                                                     card)
+    report_origin("bench1M", recs, ("p2g_grid", "g2p"), card, err, kernel_ms, plain_ms, bounds)
+    # ---- 50. main:fast_ranks slab 8M, 2 x 2, stab3d-8M ----------------------------
+    for j, tag in ((1, "slab8M"), (2, "slab8M 2x2"), (3, "stab3d-8M")):
+        recs = _per_rank(per_rank, j)
+        r0 = recs[0]
+        say(f"[main:fast_ranks {tag}] {r0['particles']} particles, {r0['num_grids']}^3, windows "
+            f"{r0['windows']}, blocks {r0['block']}  [{card}]")
+        FAST_RANKS[f"{tag}_after1"] = report_gates(tag, r0, "after1", card)
+        want = {"p2g3d_grid": r0["substeps"], "g2p3d": r0["substeps"]}
+        got = report_launches(tag, recs, want, card)
+        launches[f"p2g3d_grid ranks {tag}"] = got["p2g3d_grid"]
+        launches[f"g2p3d ranks {tag}"] = got["g2p3d"]
+        if r0["substeps"] > 1:
+            FAST_RANKS[f"{tag}_ensemble"] = report_ensemble(
+                tag, r0, r0["particles"], card, "SlabMesh")
+        if "timing" in r0:
+            FAST_RANKS[f"{tag}_timing"] = report_timing(tag, recs, jobs[j]["timed"][1], card,
+                                                        ("halo", "migrate"))
+        if profile_dir and "profile" in r0:
+            FAST_RANKS[f"{tag}_profile"] = rank_profile(f"fast_{tag.replace(' ', '_')}",
+                                                        per_rank, j, profile_dir, card)
+        if "kernels" in r0:
+            report_origin(tag, recs, ("p2g3d_grid", "g2p3d"), card, err, kernel_ms, plain_ms,
+                          bounds)
+    # ---- 50. main:fast_ranks fast_replicated (fused and prepped) ------------------
+    for j, tag, ran in ((4, "replicated bench1M", "p2g_fused"), (5, "replicated stab1M", "p2g")):
+        recs = _per_rank(per_rank, j)
+        r0 = recs[0]
+        n = r0["substeps"]
+        got = report_launches(tag, recs, {ran: n, "g2p": n}, card)
+        launches[f"{ran} {tag} ranks"] = got[ran]
+        launches[f"g2p {tag} ranks"] = got["g2p"]
+        FAST_RANKS[f"{tag}_ensemble"] = report_ensemble(tag, r0, r0["particles"], card,
+                                                        "one device")
+        psum = [r["traffic"]["grid_psum"] for r in recs]
+        say(f"[main:fast_ranks {tag}] the folded grid's all_reduce per rank: "
+            f"{[c for c, _, _ in psum]} calls in {n} substeps (want {n}), "
+            f"{[b / max(c, 1) for c, b, _ in psum]} bytes and "
+            f"{[round(1e3 * s / max(c, 1), 4) for c, _, s in psum]} ms a call  [{card}]")
+        check(all(c == n for c, _, _ in psum), f"{tag}: not one all_reduce a substep")
+        FAST_RANKS[f"{tag}_psum"] = {"calls": [c for c, _, _ in psum],
+                                     "bytes_per_call": [b / max(c, 1) for c, b, _ in psum],
+                                     "ms_per_call": [1e3 * s / max(c, 1) for c, _, s in psum]}
+        if "timing" in r0:
+            FAST_RANKS[f"{tag}_timing"] = report_timing(tag, recs, jobs[j]["timed"][1], card,
+                                                        ("grid_psum",))
+    del per_rank
+    say(f"[timing] main:fast_ranks done in {time.perf_counter() - t_all:.1f} s")
+    # ---- 51. main:fast_ranks_cli ---------------------------------------------------
+    t0 = time.perf_counter()
+    FAST_RANKS["cli"] = fast_rank_clis(dev, card)
+    say(f"[timing] main:fast_ranks_cli done in {time.perf_counter() - t0:.1f} s; phases 49-51 "
+        f"{time.perf_counter() - t_all:.1f} s")
+    say(json.dumps({"fast_ranks": FAST_RANKS}))
+    return FAST_RANKS
+
+
+def fast_ranks_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches):
+    """The kernels of phases 49-50 on the ranks: each rank's launches in
+    its main run under "ranks_launches*" and the kernels on a rank's own
+    window (rank 1: a nonzero origin) under "ranks_*"."""
+    by_name = {k["name"]: k for k in kernels}
+    by_name["p2g_grid"]["ranks_launches"] = launches["p2g_grid ranks"]
+    by_name["g2p"]["ranks_launches"] = launches["g2p ranks"]
+    by_name["g2p"]["replicated_ranks_launches"] = launches["g2p replicated bench1M ranks"]
+    by_name["g2p"]["replicated_stab1M_ranks_launches"] = launches["g2p replicated stab1M ranks"]
+    by_name["p2g_fused"]["replicated_ranks_launches"] = launches[
+        "p2g_fused replicated bench1M ranks"]
+    by_name["p2g"]["replicated_stab1M_ranks_launches"] = launches["p2g replicated stab1M ranks"]
+    for tag, key in (("slab8M", "ranks_launches"), ("slab8M 2x2", "ranks_2x2_launches"),
+                     ("stab3d-8M", "ranks_stab3d_launches")):
+        by_name["p2g3d_grid"][key] = launches[f"p2g3d_grid ranks {tag}"]
+        by_name["g2p3d"][key] = launches[f"g2p3d ranks {tag}"]
+    for name in ("p2g_grid", "g2p", "p2g3d_grid", "g2p3d"):
+        key = f"{name}_ranks"
+        by_name[name].update({
+            "ranks_max_abs_err": err[key], "ranks_ms": kernel_ms[key],
+            "ranks_plain_ms": plain_ms[key], "ranks_bound_ms": bounds[key][0],
+            "ranks_bound_by": bounds[key][1]})
 
 
 def main(argv=None) -> int:
@@ -5282,6 +6148,10 @@ def main(argv=None) -> int:
 
     # ---- 44-48. the general path's slab domain and replicated grid on ranks --
     ranks_phases(dev, card, args.profile)
+    say(f"[timing] general ranks phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 49-51. the fast paths one shard per rank, the --ranks CLIs -----------
+    fast_ranks_phases(dev, card, args.profile, err, kernel_ms, plain_ms, bounds, launches)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -5434,6 +6304,7 @@ def main(argv=None) -> int:
     # run, one a scatter of the window (checked there).
     next(k for k in kernels if k["name"] == "scatter")["ranks_launches"] = (
         RANKS["scatter_launches_per_rank"])
+    fast_ranks_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -23,7 +23,13 @@ N slab shards of the grid's axis 0 on that one device
 `parallel/fast_domain3d` in 3D, where `N0xN1` is the two-axis mesh (N0
 slabs x N1 pencil columns; 3D only, ValueError in 2D as in JAX); the
 general path takes one device only and raises ValueError otherwise, as in
-JAX.
+JAX.  `--ranks` runs the same shards one per process instead, as JAX runs
+one per chip (`parallel.RankMesh`, started by `parallel/launch.run_ranks`
+with `--backend`, nccl by default, which needs a card per rank; several
+ranks on one card take `--backend gloo`, asked for by name).  Rank r
+holds shard r only; rank 0 alone prints and writes frames, from the
+gathered state, and every rank writes its own shard file of a checkpoint
+directory.
 
 Checkpoints (driver.py:402-484): `--checkpoint PATH` writes the state at
 the end, `--checkpoint-every N` writes `<frame dir>/restart.npz` every N
@@ -54,6 +60,8 @@ CLI:  python -m mpm_flip98a_tpu_torch --scenario dam2d --frames 1 --no-gif
           --devices 2x2 --frames 2 --substeps 100 --no-gif --checkpoint ck
       python -m mpm_flip98a_tpu_torch --scenario dam3d --path fast \
           --devices 2x2 --frames 1 --substeps 100 --no-gif --resume ck
+      python -m mpm_flip98a_tpu_torch --scenario dam2d_flip98 --path fast \
+          --devices 4 --ranks --backend gloo --frames 2 --substeps 100 --no-gif
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ import torch
 
 from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
 from mpm_flip98a_tpu_torch.models import colliders, fast2d, fast3d, scenes, stabilized
-from mpm_flip98a_tpu_torch.parallel import SlabMesh, fast_domain, fast_domain3d
+from mpm_flip98a_tpu_torch.parallel import SlabMesh, fast_domain, fast_domain3d, launch
 from mpm_flip98a_tpu_torch.state import to_device
 from mpm_flip98a_tpu_torch.utils import checkpoint as ckpt
 from mpm_flip98a_tpu_torch.utils import io_vtk, native_io, render
@@ -155,7 +163,10 @@ class Simulation:
     `path` "general" steps the `Particles` with `stabilized.run`; "fast"
     buckets them for `fast2d` / `fast3d`.  On the fast path `devices`
     N > 1 runs N slab shards on that device; (N0, N1) is the two-axis 3D
-    mesh (N0 N1 shards)."""
+    mesh (N0 N1 shards).  Given `mesh`, a `parallel.RankMesh` of that
+    shape, the Simulation is this rank's shard of the run: every rank
+    builds one and steps it, and the frame and checkpoint calls are
+    collective (rank 0 alone writes the frames)."""
 
     def __init__(
         self,
@@ -168,6 +179,7 @@ class Simulation:
         io_async: bool = False,
         device="cuda",
         devices=1,
+        mesh=None,
     ):
         if path not in ("general", "fast"):
             raise ValueError(f"path must be 'general' or 'fast', got {path!r}")
@@ -182,6 +194,10 @@ class Simulation:
             self.device_grid = fast_domain3d.as_shards(devices)
             devices = self.device_grid[0] * self.device_grid[1]
         self.devices = devices
+        if mesh is not None and (path != "fast" or (mesh.n0, mesh.n1) != (
+                self.device_grid or (devices, 1))):
+            raise ValueError(f"a {mesh.n0}x{mesh.n1} rank mesh runs --path fast with "
+                             f"--devices {mesh.n0 if mesh.n1 == 1 else f'{mesh.n0}x{mesh.n1}'}")
         # Dimension routing: pencil buckets in 3D, row buckets in 2D.
         self._fast = fast3d if scene.cfg.dim == 3 else fast2d
         if path == "fast" and scene.cfg.dim == 3:
@@ -191,13 +207,14 @@ class Simulation:
         self.scene = scene
         self.cfg = scene.cfg
         self.path = path
-        self.device = torch.device(device)
+        self.device = torch.device(device if mesh is None else mesh.device)
         self.timers = Timers()
         mix = "mixed" if self.cfg.pressure_mixing_ratio > 0 else "pointwise"
         self.tag = tag or f"dt{self.cfg.dt:g}_{mix}"
         self.frame_dir, self.vtk_dir = create_file_paths(self.tag, out_dir)
         self.render_res = render_res
         self.frames = []
+        self.frames_written = 0
         self.io_async = io_async
         self._io_pool = None
         self._io_futures = []
@@ -214,7 +231,7 @@ class Simulation:
             # The slab-sharded path (driver.py:138-177) on `devices` shards.
             dom = fast_domain3d if self.cfg.dim == 3 else fast_domain
             n0, n1 = self.device_grid or (devices, 1)
-            self.mesh = SlabMesh(n0, self.device, n1)
+            self.mesh = SlabMesh(n0, self.device, n1) if mesh is None else mesh
             if self.cfg.dim == 3:
                 self.spec = dom.FastDomain3DSpec.for_particles(self.cfg, (n0, n1), particles)
             else:
@@ -230,11 +247,28 @@ class Simulation:
 
     # -- state access ----------------------------------------------------
 
+    @property
+    def ranked(self) -> bool:
+        """One shard per process (a RankMesh): frames and checkpoints are
+        collective."""
+        return self.devices > 1 and self.path == "fast" and self.mesh.distributed
+
+    @property
+    def lead(self) -> bool:
+        """This process prints and writes frames: rank 0 on ranks, else
+        the one process."""
+        return not self.ranked or self.mesh.rank == 0
+
+    def global_state(self):
+        """The fast path's whole bucket state: on ranks every rank's block
+        gathered (collective), shard-major as SlabMesh holds it."""
+        return fast_domain.collect(self.state, self.mesh) if self.ranked else self.state
+
     def _host_state(self) -> dict:
         """Per-frame cached host pull of the bucket state (positions() and
-        material_colors() both need it every frame)."""
+        material_colors() both need it every frame); collective on ranks."""
         if self._host_cache is None or self._host_cache[0] != self.frame_count:
-            self._host_cache = (self.frame_count, self._fast.to_host(self.state))
+            self._host_cache = (self.frame_count, self._fast.to_host(self.global_state()))
         return self._host_cache[1]
 
     def positions(self) -> np.ndarray:
@@ -289,10 +323,13 @@ class Simulation:
         next frame's substeps.  The host pull stays on the main thread."""
         with self.timers.scope("post_process"):
             x = self.positions()
+            colors = self.material_colors()
+            if not self.lead:
+                return
+            self.frames_written += 1
             # Keep the gravity axis (the last) vertical: (x0, x1) in 2D,
             # the (x0, x2) side view in 3D.
             x2 = x[:, [0, x.shape[1] - 1]]
-            colors = self.material_colors()
             png_path = f"{self.frame_dir}/{self.frame_count:05d}.png"
             vtk_path = f"{self.vtk_dir}/{self.frame_count:05d}.vtk"
             res, extent = self.render_res, self.cfg.domain_length
@@ -363,11 +400,17 @@ class Simulation:
     def save_checkpoint(self, path: str) -> None:
         """The state and the run clock (driver.py:402-416): a path ending in
         `.npz` is one npz (`checkpoint.save`), anything else a directory of
-        one npz per shard (`checkpoint.save_sharded`)."""
+        one npz per shard (`checkpoint.save_sharded`).  On ranks both are
+        collective: rank 0 writes the npz of the gathered state, and every
+        rank its own shard file of the directory (`save_rank_shard`)."""
         meta = {"total_time": self.total_time, "frame_count": self.frame_count,
                 "path": self.path}
-        if path.endswith(".npz"):
-            ckpt.save(path, self.state, meta=meta)
+        if self.ranked and not path.endswith(".npz"):
+            ckpt.save_rank_shard(path, self.state, self.mesh, meta=meta)
+        elif path.endswith(".npz"):
+            state = self.global_state()
+            if self.lead:
+                ckpt.save(path, state, meta=meta)
         else:
             ckpt.save_sharded(path, self.state, meta=meta)
 
@@ -376,13 +419,21 @@ class Simulation:
         418-455).  A shard directory restores onto the running state's
         layout and device; an npz loads onto the device, dtypes kept (a
         sharded npz is the mesh's whole shard-major state, so it needs no
-        re-placement).  A single-device fast path takes the restored slot
-        capacity, so a checkpoint written after `_maybe_respec` resumes."""
+        re-placement; on ranks each keeps its own block).  A single-device
+        fast path takes the restored slot capacity, so a checkpoint written
+        after `_maybe_respec` resumes."""
         if not path.endswith(".npz") and os.path.isdir(path):
-            self.state = ckpt.load_sharded(path, self.state)
+            if self.ranked:
+                self.state = ckpt.load_rank_shard(path, self.state, self.mesh)
+            else:
+                self.state = ckpt.load_sharded(path, self.state)
             meta = ckpt.load_sharded_meta(path)
         else:
-            state = ckpt.load(path, type(self.state), self.device)
+            state = ckpt.load(path, type(self.state), "cpu" if self.ranked else self.device)
+            if self.ranked:
+                state = fast_domain.own_block(state, self.mesh.rank, self.mesh.n, self.device)
+                state = dataclasses.replace(state, overflow=state.overflow[
+                    self.mesh.rank:self.mesh.rank + 1].to(self.device))
             if self.devices > 1:
                 for f in dataclasses.fields(state):
                     got, want = getattr(state, f.name), getattr(self.state, f.name)
@@ -443,6 +494,7 @@ class Simulation:
         n_frames = n_frames or self.cfg.num_frames
         t_begin = time.time()
         sim_total = n_frames * (substeps_per_frame or self.cfg.substeps_per_frame) * self.cfg.dt
+        verbose = verbose and self.lead
         for _ in range(n_frames):
             self.step_frame(substeps_per_frame)
             if verbose:
@@ -469,7 +521,37 @@ class Simulation:
             print(self.timers.summary())
 
 
-def main(argv=None) -> Simulation:
+def _run(sim: Simulation, args) -> Simulation:
+    """--resume, the frames and --checkpoint of one Simulation (one per
+    rank under --ranks)."""
+    if args.resume:
+        sim.restore_checkpoint(args.resume)
+    sim.run(
+        n_frames=args.frames,
+        substeps_per_frame=args.substeps,
+        gif=not args.no_gif,
+        checkpoint_every=args.checkpoint_every,
+    )
+    if args.checkpoint:
+        sim.save_checkpoint(args.checkpoint)
+    return sim
+
+
+def _rank_cli(mesh, args) -> dict:
+    """One rank of `--ranks` (`launch.run_ranks`' worker): this rank's
+    Simulation on `mesh`, run as the CLI asked; returns its counts."""
+    p, scene = SCENARIOS[args.scenario]()
+    sim = _run(Simulation(p, scene, path=args.path, out_dir=args.out,
+                          io_async=not args.sync_io, devices=args.devices, mesh=mesh), args)
+    return {"rank": mesh.rank, "frame_count": sim.frame_count, "total_time": sim.total_time,
+            "substeps": sim.stats.substeps, "rebuckets": sim.stats.rebuckets,
+            "overflow": int(sim.state.overflow.sum()), "frames_written": sim.frames_written,
+            "frame_dir": sim.frame_dir}
+
+
+def main(argv=None):
+    """The CLI: the Simulation it ran, or under --ranks each rank's counts
+    (`_rank_cli`), in rank order."""
     import argparse
 
     ap = argparse.ArgumentParser(description="MPM driver (PyTorch/CUDA port)")
@@ -483,6 +565,16 @@ def main(argv=None) -> Simulation:
         help="shard the fast path into N slabs on the one device (slab "
         "decomposition; requires --path fast), or N0xN1 for the two-axis 3D "
         "mesh (slabs x pencil columns)",
+    )
+    ap.add_argument(
+        "--ranks", action="store_true",
+        help="run the --devices shards one per process (torch.distributed), "
+        "not all on one device",
+    )
+    ap.add_argument(
+        "--backend", default="nccl", choices=["nccl", "gloo"],
+        help="the ranks' torch.distributed backend: nccl needs a card per rank; "
+        "gloo runs on the CPU and several ranks on one card",
     )
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--substeps", type=int, default=None)
@@ -505,19 +597,17 @@ def main(argv=None) -> Simulation:
 
     if args.scenario in UNPORTED_SCENARIOS:
         raise _unported(f"scenario {args.scenario!r}", UNPORTED_SCENARIOS[args.scenario])
+    if args.ranks:
+        if args.path != "fast" or args.devices == 1:
+            raise ValueError("--ranks runs the fast path's shards: pass --path fast and "
+                             "--devices N (or N0xN1)")
+        grid = args.devices if isinstance(args.devices, tuple) else None
+        n = grid[0] * grid[1] if grid else args.devices
+        return launch.run_ranks(_rank_cli, n, args=(args,), device=args.device,
+                                backend=args.backend, grid=grid, timeout_s=600.0)
     p, scene = SCENARIOS[args.scenario]()
     sim = Simulation(
         p, scene, path=args.path, out_dir=args.out, io_async=not args.sync_io,
         device=args.device, devices=args.devices,
     )
-    if args.resume:
-        sim.restore_checkpoint(args.resume)
-    sim.run(
-        n_frames=args.frames,
-        substeps_per_frame=args.substeps,
-        gif=not args.no_gif,
-        checkpoint_every=args.checkpoint_every,
-    )
-    if args.checkpoint:
-        sim.save_checkpoint(args.checkpoint)
-    return sim
+    return _run(sim, args)

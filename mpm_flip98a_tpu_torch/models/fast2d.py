@@ -261,18 +261,19 @@ def uses_fused(scene: Scene) -> bool:
     )
 
 
-def routes(scene: Scene, domain=None) -> Tuple[bool, bool]:
+def routes(scene: Scene, domain=None, grid_reduce=None) -> Tuple[bool, bool]:
     """(p2g_grid, fuse_g2p): the routes fast2d.py:536-599 reads from the
     environment, with JAX's defaults ("0") and conditions.
-    `MPM_P2G_GRID=1` on one device with an absolute mass floor and no
-    grid-side extension (the incompressible projection or CSF surface
-    tension) runs P2G, the fold and the grid update (walls, colliders) in
-    one `p2g_grid(raw=False)` call on either branch; `MPM_FUSE2D_G2P=1` on
+    `MPM_P2G_GRID=1` on one device, with no `grid_reduce` to merge the
+    folded sums (fast2d.py:564), an absolute mass floor and no grid-side
+    extension (the incompressible projection or CSF surface tension) runs
+    P2G, the fold and the grid update (walls, colliders) in one
+    `p2g_grid(raw=False)` call on either branch; `MPM_FUSE2D_G2P=1` on
     the fused branch (`uses_fused`), on one device or on slab shards, runs
     the particle update inside `g2p(update=True)`."""
     cfg = scene.cfg
     p2g_grid = (
-        domain is None and scene.mass_floor > 0.0
+        domain is None and grid_reduce is None and scene.mass_floor > 0.0
         and not (cfg.incompressible or cfg.surface_tension > 0.0)
         and os.environ.get("MPM_P2G_GRID", "0") == "1"
     )
@@ -325,7 +326,7 @@ def _grid_update2d(gridsum: torch.Tensor, scene: Scene, row_index0=None, t=None,
         # CSF on the (R, G) mass plane, the general path's force: the
         # momentum increment dt F/V (m / rho) joins the sums before the mass
         # solve and the wall BC (fast2d.py:289-307).
-        st = _csf_increment(g_m, scene, None if domain is None else domain.halo_gather_only)
+        st = _csf_increment(g_m, scene, domain)
         st_x, st_y = st[..., 0], st[..., 1]
     if cfg.use_penalty_ebc:
         # Implicit normal-velocity penalty (m I + dt beta n n^T) v = m v* +
@@ -590,9 +591,11 @@ def _tent_inverse_d(gx0, gx1, dx: float):
     return d11 / det, -d01 / det, d00 / det
 
 
-def _grid(data, counts, scene: Scene, plain: bool, domain, t=None, p2g_grid=False):
+def _grid(data, counts, scene: Scene, plain: bool, domain, t=None, p2g_grid=False,
+          grid_reduce=None):
     """P2G, the fold and the grid update at time `t` -> the g2p grid: (R, 4
-    or 7, G) on one device; with `p2g_grid` the one-launch
+    or 7, G) on one device, `grid_reduce` applied to the folded sums
+    before the update (fast2d.py:776-780); with `p2g_grid` the one-launch
     `p2g_grid(raw=False)`, whose (R + 4, 4 or 7, G) padded grid is returned
     as one shard (1, R + 4, ..) for the prepadded `g2p` (fast2d.py:401-434);
     on slab shards `p2g_grid`'s raw halo sums, the halo exchange and the
@@ -606,15 +609,18 @@ def _grid(data, counts, scene: Scene, plain: bool, domain, t=None, p2g_grid=Fals
             p2g = tk.p2g_fused_plain if fused else tk.p2g_plain
         else:
             p2g = tk.p2g_fused if fused else tk.p2g
-        return _grid_update2d(tk.fold_rows(p2g(data, counts, **p2g_args(scene))), scene, t=t)
-    kw = dict(fused=fused, shards=domain.n, raw=True, **p2g_args(scene))
+        gridsum = tk.fold_rows(p2g(data, counts, **p2g_args(scene)))
+        if grid_reduce is not None:
+            gridsum = grid_reduce(gridsum)
+        return _grid_update2d(gridsum, scene, t=t)
+    kw = dict(fused=fused, shards=domain.blocks, raw=True, **p2g_args(scene))
     raw = (tk.p2g_grid_plain if plain else tk.p2g_grid)(data, counts, **kw)
     return _grid_update2d(domain.halo_sync(raw), scene, domain.row_index0(data.device), t,
                           domain)
 
 
 def substep(
-    b: FluidBuckets, scene: Scene, plain: bool = False, domain=None, t=None
+    b: FluidBuckets, scene: Scene, plain: bool = False, domain=None, t=None, grid_reduce=None
 ) -> FluidBuckets:
     """One fast substep (fast2d.py:479-875); `t` (simulation seconds, a
     host scalar) advects kinematic colliders.
@@ -624,7 +630,10 @@ def substep(
     tent kernel's per-particle D^-1.  Then `g2p` and the particle update.
     `domain` (parallel/fast_domain.FastDomainCtx) runs both branches on
     its slab shards through `p2g_grid`'s raw mode and the prepadded `g2p`.
-    `routes` reads MPM_P2G_GRID and MPM_FUSE2D_G2P as JAX does: the first
+    `grid_reduce` merges the folded (G, nch, G) sums of every particle
+    share before the grid update (parallel/fast_replicated.py passes the
+    mesh's psum; fast2d.py:776-780).  `routes` reads MPM_P2G_GRID and
+    MPM_FUSE2D_G2P as JAX does: the first
     puts P2G, the fold and the grid update in one `p2g_grid(raw=False)`,
     the second the particle update in `g2p(update=True)`, which leaves F,
     Jp and the lagged nodal fields as they are (fast2d.py:437-476).
@@ -638,11 +647,13 @@ def substep(
     tent = cfg.kernel == KernelKind.TENT
     ext = _ext(cfg)
     g2p = tk.g2p_plain if plain else tk.g2p
-    use_grid, fuse_g2p = routes(scene, domain)
+    if grid_reduce is not None and domain is not None:
+        raise ValueError("grid_reduce merges one device's grid; slab shards exchange halos")
+    use_grid, fuse_g2p = routes(scene, domain, grid_reduce)
     prepadded = use_grid or domain is not None
 
     data, pdata2, counts = transfer_inputs(b, scene, domain, fuse_g2p)
-    grid = _grid(data, counts, scene, plain, domain, t, use_grid)
+    grid = _grid(data, counts, scene, plain, domain, t, use_grid, grid_reduce)
     if fuse_g2p:
         out = g2p(pdata2, counts, grid, dx, dinv, prepadded=prepadded, update=True,
                   alpha=float(cfg.flip_blend), dtv=float(cfg.dt))
@@ -704,15 +715,17 @@ def substep(
     )
 
 
-def _margin_rows(b: FluidBuckets, cfg: MPMConfig) -> torch.Tensor:
+def _margin_rows(b: FluidBuckets, cfg: MPMConfig, rows=None) -> torch.Tensor:
     """(R,) bool: bucket rows with an active slot near the kernels' +-1-row
     margin: post-rebucket every slot has gx0 - 0.5 - row in [0, 1); trigger
-    with a 0.2-row safety band before [-1, 2) is left.  Rows are global, so
-    on slab shards this is the reference's check with row0 = s L
-    (fast2d.py:877-891)."""
+    with a 0.2-row safety band before [-1, 2) is left.  `rows` (R,) holds
+    each bucket row's global row (default: its index); on slab shards this
+    is the reference's check with row0 = s L (fast2d.py:877-891)."""
     r, k = b.shape
     gx0 = b.x0 * _f32(cfg.inv_dx) + PAD
-    rows = torch.arange(r, dtype=torch.int32, device=b.device)[:, None].to(torch.float32)
+    if rows is None:
+        rows = torch.arange(r, dtype=torch.int32, device=b.device)
+    rows = rows.to(torch.int32)[:, None].to(torch.float32)
     d = torch.where(b.mask > 0, gx0 - 0.5 - rows, 0.5)
     return ((d <= -0.8) | (d >= 1.8)).any(dim=1)
 

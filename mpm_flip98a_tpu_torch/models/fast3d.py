@@ -361,7 +361,7 @@ def _sharded_grid(fields, counts, scene: Scene, spec: FastSpec3D, plain: bool, d
     halo planes with each shard's global rows on both axes (fast3d.py:
     457-466, 776-784) -> each shard's G2P grid (n, L0 + 4, L1 + 4, 6 or 9,
     G2)."""
-    kw = dict(shards=domain.n, **p2g_args(scene, raw=True))
+    kw = dict(shards=domain.blocks, **p2g_args(scene, raw=True))
     if plain:
         raw = tk3.p2g3d_raw_plain(fields, counts, **kw)
     else:
@@ -660,8 +660,7 @@ def _grid_update(gs: torch.Tensor, scene: Scene, row_index0=None, row_index1=Non
     if cfg.surface_tension > 0.0:
         # CSF on the (G0, G1, G2) mass field, the general path's force, as
         # a momentum increment per component (fast3d.py:334-350).
-        st = _csf_increment(g_m, scene,
-                            None if domain is None else domain.halo_gather_only).unbind(-1)
+        st = _csf_increment(g_m, scene, domain).unbind(-1)
     if cfg.use_penalty_ebc:
         dt_beta = float(dt * np.float32(cfg.penalty_parameter(scene.physics)))
         dtm = float(dt) * g_m

@@ -115,7 +115,8 @@ def project_planes(
     the halo rows of a plane in place.  With `mesh` (a RankMesh) the planes
     are this rank's slab: `row_index0` and `own` are (R,), `halo` refreshes
     its halo rows from the neighbouring ranks, and the sums run over the
-    ranks.
+    ranks; with `shards` as well they are this rank's (1, L + 4, ...)
+    block of a fast path's slab buffers.
 
     Returns (vs_projected, q, residual_ratio): q is the scaled pressure
     (p = q rho / dt), residual_ratio = |r| / |b| at exit (a 0-dim tensor).
@@ -134,10 +135,12 @@ def project_planes(
         """Each x summed over the grid (and the shards or ranks); on ranks
         the sums ride one psum together, each still its own element."""
         if shards:
-            return tuple(x.sum(dim=tuple(range(1, x.dim()))).sum() for x in xs)
+            sums = tuple(x.sum(dim=tuple(range(1, x.dim()))).sum() for x in xs)
+        else:
+            sums = tuple(x.sum() for x in xs)
         if mesh is not None:
-            return mesh.psum(torch.stack([x.sum() for x in xs])).unbind()
-        return tuple(x.sum() for x in xs)
+            return mesh.psum(torch.stack(sums)).unbind()
+        return sums
 
     # ---- masks (global node indices on decomposed axes) -----------------
     per_axis = {0: row_index0, 1: row_index1}

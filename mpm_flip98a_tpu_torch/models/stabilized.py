@@ -271,7 +271,7 @@ def _cdiff(c: torch.Tensor, axis: int, inv_dx) -> torch.Tensor:
 
 
 def _csf_force(g_m: torch.Tensor, cfg: MPMConfig, physics: Physics, dtype,
-               halo=None, mesh=None) -> torch.Tensor:
+               halo=None, mesh=None, lead=None) -> torch.Tensor:
     """Continuum-surface-force density sigma kappa grad(c~) on the grid
     (stabilized.py:311-358): the normalised, binomially smoothed nodal mass
     is the color function c~, n = grad c~, kappa = -div(n / |n|); nodes
@@ -284,8 +284,11 @@ def _csf_force(g_m: torch.Tensor, cfg: MPMConfig, physics: Physics, dtype,
     taken over every shard (the reference's pmax).  With `mesh` as well (a
     `RankMesh`; `halo` = the domain's `halo_gather`) `g_m` is this rank's
     slab and the maxima are the ranks' pmax (stabilized.py:332-345).
-    Returns (..., d) in `g_m`'s layout."""
-    lead = 1 if halo is not None and mesh is None else 0
+    `lead` (default: 1 with `halo` and no `mesh`) is the count of leading
+    block dims: a fast path's planes on ranks keep their (1, ...) block
+    dim and pass `mesh` too.  Returns (..., d) in `g_m`'s layout."""
+    if lead is None:
+        lead = 1 if halo is not None and mesh is None else 0
     sync = halo if halo is not None else (lambda x: x)
     gmax = (lambda x: x.max()) if mesh is None else (lambda x: mesh.pmax(x.max()))
     d = g_m.dim() - lead
@@ -308,12 +311,18 @@ def _csf_force(g_m: torch.Tensor, cfg: MPMConfig, physics: Physics, dtype,
     return sync(force)
 
 
-def _csf_increment(g_m: torch.Tensor, scene: Scene, halo=None) -> torch.Tensor:
+def _csf_increment(g_m: torch.Tensor, scene: Scene, domain=None) -> torch.Tensor:
     """The fast paths' CSF momentum increment dt F/V (m / rho) on their
     float32 mass planes, (..., d) in `g_m`'s layout (fast2d.py:289-307,
     fast3d.py:334-350: the scale dt m / rho first, then the force; the
-    general path keeps the reference's dt F (m / rho))."""
-    f_st = _csf_force(g_m, scene.cfg, scene.physics, torch.float32, halo)
+    general path keeps the reference's dt F (m / rho)).  On shards
+    (`domain`, a FastDomainCtx) the halos refresh through its
+    `halo_gather_only`, and on ranks its `rank_mesh` takes the maxima."""
+    if domain is None:
+        f_st = _csf_force(g_m, scene.cfg, scene.physics, torch.float32)
+    else:
+        f_st = _csf_force(g_m, scene.cfg, scene.physics, torch.float32,
+                          domain.halo_gather_only, domain.rank_mesh, lead=1)
     st_scale = float(np.float32(scene.cfg.dt)) * g_m / float(
         np.float32(scene.physics.particle_density))
     return f_st * st_scale[..., None]
@@ -328,14 +337,17 @@ def _project_grid(vs, g_m: torch.Tensor, scene: Scene, col_solid=None, row_index
     shards (`domain`, a FastDomainCtx or FastDomain3DCtx) own axis-0 rows
     [1, 1 + L) of their L + 4, refresh the halo rows with
     `halo_gather_only` and take the relative floor over every shard
-    (fast2d.py:376-380, fast3d.py:400-403).  A rank's slab (`ctx` with a
-    mesh) takes the relative floor's pmax over the ranks
-    (stabilized.py:533-538) and runs the CG's rank form."""
+    (fast2d.py:376-380, fast3d.py:400-403), over the ranks on a RankMesh.
+    A rank's slab (`ctx` with a mesh) takes the relative floor's pmax over
+    the ranks (stabilized.py:533-538) and runs the CG's rank form."""
     cfg = scene.cfg
     own = halo = mesh = None
     floor = _mass_floor(scene, g_m)
     if domain is not None:
         own, halo = domain.own_rows(g_m.device), domain.halo_gather_only
+        mesh = domain.rank_mesh
+        if mesh is not None and scene.mass_floor <= 0.0:
+            floor = mesh.pmax(floor)   # the max over every shard, as one device takes it
     elif ctx is not None and ctx.mesh is not None:
         own, halo, mesh, row_index0 = ctx.own_rows, ctx.halo_exchange, ctx.mesh, ctx.row_index0
         if scene.mass_floor <= 0.0:

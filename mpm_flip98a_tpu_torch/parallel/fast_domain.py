@@ -14,14 +14,21 @@ fast path's bucket axis is the grid row axis, shard s owns the bucket rows
      are re-bucketed together with the local slots (`rebucket_migrate`).
 
 State keeps the JAX package's (n L, K) layout; viewed as (n, L, ...) its
-leading dimension is the shard.  The collectives are `SlabMesh`'s
-(parallel/mesh.py): n shards on one device here, the same `ppermute` and
-`psum` semantics as the JAX package's shard_map over n chips.
+leading dimension is the shard.  The collectives are the mesh's
+(parallel/mesh.py), with the JAX package's `ppermute` and `psum`
+semantics: on `SlabMesh` all n shards live on one device as that leading
+dimension; on `RankMesh` each rank holds its own (L, K) block, one shard,
+and runs the kernels on it alone, as a chip runs its shard in
+`shard_map`.  Shapes follow the blocks a process holds (`mesh.blocks`),
+origins the shards' global indices (`mesh.shard_index`).  `distribute`
+gives each rank its rows of the global layout, `collect` gathers the
+blocks back into it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 
@@ -30,7 +37,7 @@ from mpm_flip98a_tpu_torch.models import fast2d
 from mpm_flip98a_tpu_torch.models.fast2d import FluidBuckets, RunStats, _f32, _field_list
 from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene
 from mpm_flip98a_tpu_torch.ops import binning
-from mpm_flip98a_tpu_torch.parallel.mesh import SlabMesh
+from mpm_flip98a_tpu_torch.parallel.mesh import RankMesh, SlabMesh
 
 # Halo rows of the folded P2G output: bucket row r scatters to target rows
 # r - 1 .. r + 3 (rel in {-1, 0, 1} drift x 3-tap stencil), so a slab's
@@ -63,31 +70,45 @@ class FastDomainSpec:
 class FastDomainCtx:
     """Runtime context handed to fast2d.substep(domain=...)."""
 
-    mesh: SlabMesh
+    mesh: Union[SlabMesh, RankMesh]
     rows_per_shard: int
 
     @property
-    def n(self) -> int:
-        return self.mesh.n
+    def blocks(self) -> int:
+        """The shard blocks this process holds (the kernels' `shards`)."""
+        return self.mesh.blocks
+
+    @property
+    def rank_mesh(self):
+        """The mesh when its shards span processes (the grid-side chains'
+        maxima and dot products then reduce over the ranks), else None."""
+        return self.mesh if self.mesh.distributed else None
+
+    def bucket_rows(self, device) -> torch.Tensor:
+        """(blocks L,) int64: the global row of each local bucket row, s L +
+        i for local row i of shard s."""
+        l = self.rows_per_shard
+        rows = torch.arange(self.blocks * l, device=device)
+        return self.mesh.shard_index().to(device)[rows // l] * l + rows % l
 
     def bucket_row0(self, device) -> torch.Tensor:
-        """(n L, 1) float32: the global row of each bucket row's shard
+        """(blocks L, 1) float32: the global row of each bucket row's shard
         origin, s L (the reference's `axis_index * r`)."""
         l = self.rows_per_shard
-        rows = torch.arange(self.n * l, device=device)
-        return ((rows // l) * l).to(torch.float32)[:, None]
+        return ((self.bucket_rows(device) // l) * l).to(torch.float32)[:, None]
 
     def row_index0(self, device) -> torch.Tensor:
-        """(n, L + 4) global row index of each halo row: s L - 1 + j."""
+        """(blocks, L + 4) global row index of each halo row: s L - 1 + j."""
         l = self.rows_per_shard
-        s = torch.arange(self.n, device=device)[:, None]
+        s = self.mesh.shard_index().to(device)[:, None]
         return s * l - 1 + torch.arange(l + H_LO + H_HI, device=device)[None, :]
 
     def own_rows(self, device) -> torch.Tensor:
-        """(n, L + 4) bool: the rows each shard owns, [H_LO, H_LO + L): the
-        grid-side CG's dot products count them alone (fast2d.py:371-373)."""
+        """(blocks, L + 4) bool: the rows each shard owns, [H_LO, H_LO + L):
+        the grid-side CG's dot products count them alone (fast2d.py:
+        371-373)."""
         j = torch.arange(self.rows_per_shard + H_LO + H_HI, device=device)
-        return ((j >= H_LO) & (j < H_LO + self.rows_per_shard)).expand(self.n, -1)
+        return ((j >= H_LO) & (j < H_LO + self.rows_per_shard)).expand(self.blocks, -1)
 
     def halo_sync(self, buf: torch.Tensor) -> torch.Tensor:
         """(n, L + 4, ...) raw folded sums -> globally complete rows, in place.
@@ -109,7 +130,7 @@ class FastDomainCtx:
         return gather_dim(self.mesh, buf, dim=1, axis=0)
 
 
-def sync_dim(mesh: SlabMesh, buf: torch.Tensor, dim: int, axis: int) -> torch.Tensor:
+def sync_dim(mesh, buf: torch.Tensor, dim: int, axis: int) -> torch.Tensor:
     """The reduce legs, then `gather_dim`, on tensor dim `dim` of a halo
     buffer (L + 4 rows there, row j = target row j - 1) across mesh axis
     `axis` (`_sync_dim`, fast_domain3d.py:105-121), in place."""
@@ -117,43 +138,71 @@ def sync_dim(mesh: SlabMesh, buf: torch.Tensor, dim: int, axis: int) -> torch.Te
     rows = lambda a, b: buf.narrow(dim, a, b - a)
     # reduce: my bottom row belongs to the left neighbour's interior, my
     # top 3 rows to the right neighbour's.
-    rows(l, l + H_LO).add_(mesh.shift_left(rows(0, H_LO), axis))
-    rows(H_LO, H_LO + H_HI).add_(mesh.shift_right(rows(l + H_LO, l + H_LO + H_HI), axis))
+    rows(l, l + H_LO).add_(mesh.shift_left(rows(0, H_LO), axis, tag="halo"))
+    rows(H_LO, H_LO + H_HI).add_(mesh.shift_right(rows(l + H_LO, l + H_LO + H_HI), axis,
+                                                  tag="halo"))
     return gather_dim(mesh, buf, dim, axis)
 
 
-def gather_dim(mesh: SlabMesh, buf: torch.Tensor, dim: int, axis: int) -> torch.Tensor:
+def gather_dim(mesh, buf: torch.Tensor, dim: int, axis: int) -> torch.Tensor:
     """The gather legs on tensor dim `dim` across mesh axis `axis`: the
     halo rows from the neighbours' completed interiors, in place."""
     l = buf.shape[dim] - (H_LO + H_HI)
     rows = lambda a, b: buf.narrow(dim, a, b - a)
-    rows(0, H_LO).copy_(mesh.shift_right(rows(l, l + H_LO), axis))
-    rows(l + H_LO, l + H_LO + H_HI).copy_(mesh.shift_left(rows(H_LO, H_LO + H_HI), axis))
+    rows(0, H_LO).copy_(mesh.shift_right(rows(l, l + H_LO), axis, tag="halo"))
+    rows(l + H_LO, l + H_LO + H_HI).copy_(mesh.shift_left(rows(H_LO, H_LO + H_HI), axis,
+                                                          tag="halo"))
     return buf
 
 
-def distribute(p, cfg: MPMConfig, spec: FastDomainSpec, mesh: SlabMesh) -> FluidBuckets:
+def distribute(p, cfg: MPMConfig, spec: FastDomainSpec, mesh) -> FluidBuckets:
     """Bucket particles by global row into the (n L, K) layout (shard s
-    owns rows [s L, (s + 1) L)) on the mesh's device; overflow per shard."""
+    owns rows [s L, (s + 1) L)) on the mesh's device; overflow per shard.
+    On a RankMesh the global layout is bucketed on the host and each rank
+    keeps its own L rows, bit for bit SlabMesh's shard `rank`."""
     n, l, k = spec.n_shards, spec.rows_per_shard, spec.capacity
     if mesh.n != n:
         raise ValueError(f"spec has {n} shards, mesh {mesh.n}")
-    b = fast2d.from_particles(p, cfg, fast2d.FastSpec(rows=n * l, capacity=k), mesh.device)
+    where = "cpu" if mesh.distributed else mesh.device
+    b = fast2d.from_particles(p, cfg, fast2d.FastSpec(rows=n * l, capacity=k), where)
     if int(b.overflow) != 0:
         raise ValueError(f"initial bucketing overflowed capacity {k}")
-    return dataclasses.replace(b, overflow=torch.zeros((n,), dtype=torch.int32, device=mesh.device))
+    if mesh.distributed:
+        b = own_block(b, mesh.rank, n, mesh.device)
+    return dataclasses.replace(b, overflow=torch.zeros((mesh.blocks,), dtype=torch.int32,
+                                                       device=mesh.device))
 
 
-def exchange(mesh: SlabMesh, stk: torch.Tensor, act: torch.Tensor, row: torch.Tensor,
+def own_block(b, s: int, n: int, device):
+    """Shard s's contiguous block of a global shard-major (n ..., K) state
+    (every field but `overflow`), on `device`."""
+    return dataclasses.replace(b, **{
+        f.name: getattr(b, f.name).reshape(n, -1, *getattr(b, f.name).shape[1:])[s]
+        .to(device).contiguous()
+        for f in dataclasses.fields(b) if f.name != "overflow"})
+
+
+def collect(b, mesh):
+    """The global shard-major state from every rank's block (an
+    `all_gather` of each field, on every rank, on its device), per-shard
+    overflow (n,) included; on SlabMesh the state as it is."""
+    if not mesh.distributed:
+        return b
+    return dataclasses.replace(b, **{
+        f.name: mesh.all_gather(getattr(b, f.name), tag="collect").flatten(0, 1)
+        for f in dataclasses.fields(b)})
+
+
+def exchange(mesh, stk: torch.Tensor, act: torch.Tensor, row: torch.Tensor,
              lo: torch.Tensor, l: int, m: int, axis: int = 0):
     """Send active slots whose bucket row left [lo, lo + l) to the adjacent
     shard along mesh axis `axis`, in fixed-capacity buffers of m slots per
     direction (fast_domain.py:141-174, fast_domain3d.py:200-233).
 
-    stk (n, F, S) int32 bit patterns of the F fields, act (n, S) bool,
-    row (n, S) int32 global rows, lo (n, 1) -> the stay + arrivals
-    (n, F, S + 2 m), their activity (n, S + 2 m) and the dropped movers
-    (n,) int32.  Movers are packed by a stable sort, so they keep their
+    stk (n, F, S) int32 bit patterns of the F fields of the n blocks this
+    process holds, act (n, S) bool, row (n, S) int32 global rows, lo (n,
+    1) -> the stay + arrivals (n, F, S + 2 m), their activity (n, S + 2 m)
+    and the dropped movers (n,) int32.  Movers are packed by a stable sort, so they keep their
     slot order, as the reference's argsort does."""
     go_l = act & (row < lo)
     go_r = act & (row >= lo + l)
@@ -166,8 +215,10 @@ def exchange(mesh: SlabMesh, stk: torch.Tensor, act: torch.Tensor, row: torch.Te
     send_l, val_l = pack(go_l)
     send_r, val_r = pack(go_r)
     drop = ((go_l.sum(1) - m).clamp(min=0) + (go_r.sum(1) - m).clamp(min=0)).to(torch.int32)
-    from_right = mesh.shift_left(send_l, axis), mesh.shift_left(val_l, axis)
-    from_left = mesh.shift_right(send_r, axis), mesh.shift_right(val_r, axis)
+    from_right = (mesh.shift_left(send_l, axis, tag="migrate"),
+                  mesh.shift_left(val_l, axis, tag="migrate"))
+    from_left = (mesh.shift_right(send_r, axis, tag="migrate"),
+                 mesh.shift_right(val_r, axis, tag="migrate"))
     stay = act & ~(go_l | go_r)
     cat = torch.cat([stk, from_left[0], from_right[0]], dim=2)
     cat_act = torch.cat([stay, from_left[1], from_right[1]], dim=1)
@@ -199,9 +250,9 @@ def bucket_shards(key_local, act, fields, n: int, rows: int, k: int):
     return fields_out, mask, ovf
 
 
-def rebucket_migrate(b: FluidBuckets, scene: Scene, spec: FastDomainSpec, mesh: SlabMesh) -> FluidBuckets:
+def rebucket_migrate(b: FluidBuckets, scene: Scene, spec: FastDomainSpec, mesh) -> FluidBuckets:
     """Every shard at once: exchange slots whose base row left the slab
-    with the adjacent shards, then re-sort the survivors and arrivals into
+    with the adjacent shard, then re-sort the survivors and arrivals into
     local row buckets (fast_domain.py:127-202).
 
     A particle can only ever need the adjacent shard (CFL << 1 and the
@@ -209,13 +260,13 @@ def rebucket_migrate(b: FluidBuckets, scene: Scene, spec: FastDomainSpec, mesh: 
     still outside [0, L) (`hop_drop`) are counted into `overflow`, never
     silent."""
     cfg = scene.cfg
-    n, l, k, m = spec.n_shards, spec.rows_per_shard, spec.capacity, spec.mig_cap
+    n, l, k, m = mesh.blocks, spec.rows_per_shard, spec.capacity, spec.mig_cap
     fields = _field_list(b)
     stk = stacked_fields(fields, n)
     act = b.mask.reshape(n, -1) > 0
     inv_dx = _f32(cfg.inv_dx)
     brow = lambda x: torch.floor(x * inv_dx + PAD - 0.5).to(torch.int32)
-    lo = (mesh.shard_index() * l)[:, None].to(torch.int32)
+    lo = (mesh.shard_index().to(b.device) * l)[:, None].to(torch.int32)
     cat, cat_act, mig_drop = exchange(mesh, stk, act, brow(b.x0.reshape(n, -1)), lo, l, m)
     flat = unstack_fields(cat, fields)
     row_local = brow(flat[0].view(n, -1)) - lo
@@ -227,13 +278,13 @@ def rebucket_migrate(b: FluidBuckets, scene: Scene, spec: FastDomainSpec, mesh: 
     )
 
 
-def needs_rebucket(b: FluidBuckets, cfg: MPMConfig, n: int) -> torch.Tensor:
-    """(n,) per-shard margin flags (the reference's `_needs_rebucket` with
-    row0 = s L: the layout's rows are already global)."""
-    return fast2d._margin_rows(b, cfg).view(n, -1).any(dim=1)
+def needs_rebucket(b: FluidBuckets, cfg: MPMConfig, ctx: FastDomainCtx) -> torch.Tensor:
+    """(blocks,) per-shard margin flags (the reference's `_needs_rebucket`
+    with row0 = s L), each bucket row at its global row."""
+    return fast2d._margin_rows(b, cfg, ctx.bucket_rows(b.device)).view(ctx.blocks, -1).any(dim=1)
 
 
-def make_run(scene: Scene, spec: FastDomainSpec, mesh: SlabMesh):
+def make_run(scene: Scene, spec: FastDomainSpec, mesh):
     """`run(b, n_substeps, stats=None, plain=False, t0=None)`: the sharded
     stepper with the collective rebucket decision of fast_domain.py:216-229
     (any shard near the margin migrates every shard) before each substep;
@@ -242,6 +293,8 @@ def make_run(scene: Scene, spec: FastDomainSpec, mesh: SlabMesh):
     (fast_domain.py:235-247, `fast2d.substep_times`)."""
     cfg = scene.cfg
     fast2d.check_supported(scene)
+    if mesh.n != spec.n_shards:
+        raise ValueError(f"spec has {spec.n_shards} shards, mesh {mesh.n}")
     ctx = FastDomainCtx(mesh, spec.rows_per_shard)
 
     def run(b: FluidBuckets, n_substeps: int, stats: RunStats = None,
@@ -249,7 +302,7 @@ def make_run(scene: Scene, spec: FastDomainSpec, mesh: SlabMesh):
         stats = RunStats() if stats is None else stats
         for t in fast2d.substep_times(scene, t0, n_substeps):
             stats.host_reads += 1
-            if bool(mesh.any(needs_rebucket(b, cfg, mesh.n))):
+            if bool(mesh.any(needs_rebucket(b, cfg, ctx))):
                 b = rebucket_migrate(b, scene, spec, mesh)
                 stats.rebuckets += 1
             b = fast2d.substep(b, scene, plain=plain, domain=ctx, t=t)

@@ -18,7 +18,11 @@ corner sums of diagonal neighbours (fast_domain3d.py:123-165).  Particles
 migrate only on collective rebucket events: the axis-0 leg, then the
 axis-1 leg, so a corner-crossing particle reaches its diagonal neighbour
 in the same rebucket.  Both branches of `fast3d.substep` run on the
-shards' local windows (`domain=...`).  The collectives are `SlabMesh`'s.
+shards' local windows (`domain=...`).  The collectives are the mesh's:
+`SlabMesh` stacks every shard on one device, `RankMesh` (with grid=(n0,
+n1) on two axes) gives each rank its own (L0 L1, K) block, so the kernels
+see one window there (`FastDomain3DSpec.stacked(mesh.blocks)`), shifted by
+that rank's origin.
 """
 
 from __future__ import annotations
@@ -34,10 +38,9 @@ from mpm_flip98a_tpu_torch.models.fast2d import RunStats, _f32
 from mpm_flip98a_tpu_torch.models.fast3d import FastSpec3D, FluidBuckets3D, _field_list
 from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene
 from mpm_flip98a_tpu_torch.parallel.fast_domain import (
-    H_HI, H_LO, FastDomainCtx, bucket_shards, exchange, gather_dim, stacked_fields, sync_dim,
-    unstack_fields,
+    H_HI, H_LO, FastDomainCtx, bucket_shards, exchange, gather_dim, own_block, stacked_fields,
+    sync_dim, unstack_fields,
 )
-from mpm_flip98a_tpu_torch.parallel.mesh import SlabMesh
 
 
 def as_shards(n_shards: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
@@ -68,8 +71,13 @@ class FastDomain3DSpec:
         """The stacked shard windows as the kernels see them: (n L0, L1)
         pencils in shard-major order; one axis: (n L0, G), the global
         layout itself."""
-        return dataclasses.replace(self.local_spec,
-                                   rows0=self.n_shards * self.rows_per_shard0)
+        return self.stacked(self.n_shards)
+
+    def stacked(self, blocks: int) -> FastSpec3D:
+        """`blocks` shard windows stacked on axis 0, (blocks L0, L1): what a
+        process holds (`mesh.blocks`: every shard on SlabMesh, one on a
+        rank)."""
+        return dataclasses.replace(self.local_spec, rows0=blocks * self.rows_per_shard0)
 
     @property
     def bucket_spec(self) -> FastSpec3D:
@@ -108,20 +116,23 @@ class FastDomain3DCtx(FastDomainCtx):
     rows1: int = 0          # L1 (one axis: G)
 
     def _pencil(self, device):
-        """Each pencil's shard indices on both axes and local rows."""
+        """Each local pencil's shard indices on both axes, its block and its
+        local rows."""
         l0, l1 = self.rows_per_shard, self.rows1
-        pencil = torch.arange(self.n * l0 * l1, device=device)
-        s, loc = pencil // (l0 * l1), pencil % (l0 * l1)
-        return s // self.mesh.n1, s % self.mesh.n1, loc // l1, loc % l1
+        pencil = torch.arange(self.blocks * l0 * l1, device=device)
+        blk, loc = pencil // (l0 * l1), pencil % (l0 * l1)
+        s0 = self.mesh.shard_index(0).to(device)[blk]
+        s1 = self.mesh.shard_index(1).to(device)[blk]
+        return s0, s1, blk, loc // l1, loc % l1
 
     def x0_shift(self, device, cfg: MPMConfig) -> torch.Tensor:
-        """(n L0 L1, 1) float32 window origin on axis 0 in metres, s0 L0 dx
-        (fast3d.py:518-527)."""
+        """(blocks L0 L1, 1) float32 window origin on axis 0 in metres, s0
+        L0 dx (fast3d.py:518-527)."""
         s0 = self._pencil(device)[0]
         return ((s0 * self.rows_per_shard).to(torch.float32) * _f32(cfg.dx))[:, None]
 
     def x1_shift(self, device, cfg: MPMConfig):
-        """(n L0 L1, 1) float32 window origin on axis 1, s1 L1 dx
+        """(blocks L0 L1, 1) float32 window origin on axis 1, s1 L1 dx
         (fast3d.py:531-544); None on the one-axis mesh."""
         if self.mesh.n1 == 1:
             return None
@@ -141,15 +152,15 @@ class FastDomain3DCtx(FastDomainCtx):
         return s1 * l1 - 1 + torch.arange(l1 + H_LO + H_HI, device=device)[None, :]
 
     def pencil_offsets(self, device):
-        """(row0, row1) to add to a pencil's row in the stacked (n L0, L1)
-        layout for its global pencil rows (the reference's row0 / row1 of
-        `_needs_rebucket`, fast3d.py:937-950): 0 on the one-axis mesh,
-        else (n L0 L1, 1) int tensors ((s0 - s) L0, s1 L1)."""
-        if self.mesh.n1 == 1:
+        """(row0, row1) to add to a pencil's row in the stacked (blocks L0,
+        L1) layout for its global pencil rows (the reference's row0 / row1
+        of `_needs_rebucket`, fast3d.py:937-950): 0 where every shard of a
+        one-axis mesh is stacked (the layout is the global one), else
+        (blocks L0 L1, 1) int tensors ((s0 - block) L0, s1 L1)."""
+        if self.mesh.n1 == 1 and self.blocks == self.mesh.n:
             return 0, 0
-        s0, s1, _, _ = self._pencil(device)
-        s = s0 * self.mesh.n1 + s1
-        return ((s0 - s) * self.rows_per_shard)[:, None], (s1 * self.rows1)[:, None]
+        s0, s1, blk, _, _ = self._pencil(device)
+        return ((s0 - blk) * self.rows_per_shard)[:, None], (s1 * self.rows1)[:, None]
 
     def own_rows(self, device) -> torch.Tensor:
         """The nodes each shard owns, [1, 1 + L) on each sharded axis: (n,
@@ -182,7 +193,7 @@ class FastDomain3DCtx(FastDomainCtx):
         return buf
 
 
-def context(spec: FastDomain3DSpec, mesh: SlabMesh) -> FastDomain3DCtx:
+def context(spec: FastDomain3DSpec, mesh) -> FastDomain3DCtx:
     if (mesh.n0, mesh.n1) != (spec.n_shards0, spec.n_shards1):
         raise ValueError(f"spec has {spec.n_shards0}x{spec.n_shards1} shards, "
                          f"mesh {mesh.n0}x{mesh.n1}")
@@ -196,17 +207,22 @@ def _reorder(a: torch.Tensor, n0: int, n1: int, l0: int, l1: int, to_shards: boo
     return a.reshape(*src, *a.shape[1:]).transpose(1, 2).reshape(a.shape)
 
 
-def distribute(p, cfg: MPMConfig, spec: FastDomain3DSpec, mesh: SlabMesh) -> FluidBuckets3D:
+def distribute(p, cfg: MPMConfig, spec: FastDomain3DSpec, mesh) -> FluidBuckets3D:
     """Bucket by global (r0, r1) pencil into the (n0 L0, n1 L1) grid, then
     reorder to shard-major (s0, s1, l0, l1) blocks on the mesh's device
-    (fast_domain3d.py:168-197); overflow per shard."""
+    (fast_domain3d.py:168-197); overflow per shard.  On a RankMesh the
+    global layout is built on the host and each rank keeps its own (L0 L1,
+    K) block, bit for bit SlabMesh's shard `rank`."""
     context(spec, mesh)
-    b = fast3d.from_particles(p, cfg, spec.bucket_spec, mesh.device)
+    where = "cpu" if mesh.distributed else mesh.device
+    b = fast3d.from_particles(p, cfg, spec.bucket_spec, where)
     if int(b.overflow) != 0:
         raise ValueError(f"initial bucketing overflowed capacity {spec.local_spec.capacity}")
-    b = dataclasses.replace(b, overflow=torch.zeros((spec.n_shards,), dtype=torch.int32,
-                                                    device=mesh.device))
-    return _relayout(b, spec, to_shards=True)
+    b = _relayout(b, spec, to_shards=True)
+    if mesh.distributed:
+        b = own_block(b, mesh.rank, spec.n_shards, mesh.device)
+    return dataclasses.replace(b, overflow=torch.zeros((mesh.blocks,), dtype=torch.int32,
+                                                       device=mesh.device))
 
 
 def to_global(b: FluidBuckets3D, spec: FastDomain3DSpec) -> FluidBuckets3D:
@@ -226,21 +242,21 @@ def _relayout(b: FluidBuckets3D, spec: FastDomain3DSpec, to_shards: bool) -> Flu
 
 
 def rebucket_migrate(b: FluidBuckets3D, scene: Scene, spec: FastDomain3DSpec,
-                     mesh: SlabMesh) -> FluidBuckets3D:
+                     mesh) -> FluidBuckets3D:
     """Every shard at once: exchange slots that left the window with the
     adjacent shards, the axis-0 leg then the axis-1 leg
     (fast_domain3d.py:236-288), then re-sort survivors and arrivals into
     local pencil buckets.  Buffer overflow and an arrival outside the
     shard's window count into `overflow`."""
     cfg = scene.cfg
-    n, l0, l1 = spec.n_shards, spec.rows_per_shard0, spec.rows_per_shard1
+    n, l0, l1 = mesh.blocks, spec.rows_per_shard0, spec.rows_per_shard1
     k, m = spec.local_spec.capacity, spec.mig_cap
     fields = _field_list(b)
     act = b.mask.reshape(n, -1) > 0
     inv_dx = _f32(cfg.inv_dx)
     brow = lambda x: torch.floor(x.reshape(n, -1) * inv_dx + PAD - 0.5).to(torch.int32)
-    lo0 = (mesh.shard_index(0) * l0)[:, None].to(torch.int32)
-    lo1 = (mesh.shard_index(1) * l1)[:, None].to(torch.int32)
+    lo0 = (mesh.shard_index(0).to(b.device) * l0)[:, None].to(torch.int32)
+    lo1 = (mesh.shard_index(1).to(b.device) * l1)[:, None].to(torch.int32)
     cat, act, drop = exchange(mesh, stacked_fields(fields, n), act, brow(b.x0), lo0, l0, m)
     flat = unstack_fields(cat, fields)
     if spec.n_shards1 > 1:
@@ -261,15 +277,15 @@ def rebucket_migrate(b: FluidBuckets3D, scene: Scene, spec: FastDomain3DSpec,
     )
 
 
-def make_run(scene: Scene, spec: FastDomain3DSpec, mesh: SlabMesh):
+def make_run(scene: Scene, spec: FastDomain3DSpec, mesh):
     """`run(b, n_substeps, stats=None, plain=False, t0=None)`: the sharded
     3D stepper with the collective rebucket decision over both mesh axes
     (fast_domain3d.py:291-350) before each substep (one host read per
     substep); substep j of every shard sees t0 + j dt."""
     cfg = scene.cfg
     fast3d.check_supported(scene, sharded=True)
-    gspec = spec.global_spec
     ctx = context(spec, mesh)
+    lspec = spec.stacked(mesh.blocks)
 
     def run(b: FluidBuckets3D, n_substeps: int, stats: RunStats = None,
             plain: bool = False, t0=None) -> FluidBuckets3D:
@@ -277,11 +293,11 @@ def make_run(scene: Scene, spec: FastDomain3DSpec, mesh: SlabMesh):
         row0, row1 = ctx.pencil_offsets(b.device)
         for t in fast3d.substep_times(scene, t0, n_substeps):
             stats.host_reads += 1
-            flags = fast3d._margin_pencils(b, cfg, gspec, row0, row1).view(mesh.n, -1).any(dim=1)
-            if bool(mesh.any(flags)):
+            flags = fast3d._margin_pencils(b, cfg, lspec, row0, row1).view(mesh.blocks, -1)
+            if bool(mesh.any(flags.any(dim=1))):
                 b = rebucket_migrate(b, scene, spec, mesh)
                 stats.rebuckets += 1
-            b = fast3d.substep(b, scene, gspec, plain=plain, domain=ctx, t=t)
+            b = fast3d.substep(b, scene, lspec, plain=plain, domain=ctx, t=t)
             stats.substeps += 1
         return b
 

@@ -3,11 +3,13 @@
     results = run_ranks(fn, n, args=(...), device="cuda", backend="nccl")
 
 runs `fn(mesh, *args)` in n new processes, rank r of an n-rank process
-group each, and returns the n results in rank order.  `fn` is a function
-at module level (the processes start from a fresh import: the `spawn`
-method, the only one that is safe once the parent has touched CUDA), and
-it returns host data (numpy arrays, Python values), which travels back
-pickled through a queue.  `fn` and `args` go to the ranks pickled in one
+group each, and returns the n results in rank order.  `grid=(n0, n1)`
+lays the ranks out on the two-axis mesh (`RankMesh(..., grid=...)`).
+`fn` is a function at module level (the processes start from a fresh
+import: the `spawn` method, the only one that is safe once the parent has
+touched CUDA), and it returns host data (numpy arrays, Python values),
+which travels back pickled through a queue.  `fn` and `args` go to the
+ranks pickled in one
 file, not through the start pipes: a start pipe that fills blocks the
 parent until that child has imported everything, so the ranks would start
 one after another.
@@ -52,7 +54,7 @@ class RankError(RuntimeError):
     """A rank of `run_ranks` raised, or died without a result."""
 
 
-def _rank_main(rank, n, work, device, backend, store, timeout_s, results):
+def _rank_main(rank, n, work, device, backend, grid, store, timeout_s, results):
     try:
         with open(work, "rb") as f:
             fn, args = pickle.load(f)
@@ -69,7 +71,7 @@ def _rank_main(rank, n, work, device, backend, store, timeout_s, results):
         meet.wait([f"started/{r}" for r in range(n)])
         dist.init_process_group(backend, store=meet, rank=rank, world_size=n,
                                 timeout=timedelta(seconds=timeout_s))
-        out = (rank, True, fn(RankMesh(dev, backend), *args))
+        out = (rank, True, fn(RankMesh(dev, backend, grid), *args))
     except BaseException:
         out = (rank, False, traceback.format_exc())
     results.put(out)
@@ -82,7 +84,7 @@ def _rank_main(rank, n, work, device, backend, store, timeout_s, results):
 
 
 def run_ranks(fn, n: int, *, args=(), device="cuda", backend: str = "nccl",
-              timeout_s: float = 60.0, deadline_s: float = None) -> list:
+              timeout_s: float = 60.0, deadline_s: float = None, grid=None) -> list:
     """`fn(mesh, *args)` on n ranks; their results in rank order."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="mpm_ranks_") as tmp:
@@ -92,7 +94,7 @@ def run_ranks(fn, n: int, *, args=(), device="cuda", backend: str = "nccl",
         results = ctx.Queue()
         procs = [
             ctx.Process(target=_rank_main, daemon=True, args=(
-                r, n, work, str(device), backend, os.path.join(tmp, "store"), timeout_s,
+                r, n, work, str(device), backend, grid, os.path.join(tmp, "store"), timeout_s,
                 results))
             for r in range(n)
         ]

@@ -22,15 +22,27 @@ along it:
 n1 = 1 is the one-axis slab mesh.  The sharded fast paths (`fast_domain`,
 `fast_domain3d`) reach the shards only through these methods.
 
-`RankMesh(device, backend)` is the one-axis mesh of the JAX package's
+`RankMesh(device, backend, grid=None)` is the mesh of the JAX package's
 `shard_map` proper: one shard per rank of the default `torch.distributed`
 process group (`parallel/launch.run_ranks` starts the ranks), each rank
 holding its own block and running the whole substep on it, as a chip runs
-its shard in `shard_map`.  It gives the same collectives on the rank's
-block: `shift_left` / `shift_right` are point-to-point sends to the one or
-two neighbours (`batch_isend_irecv`), so the bytes stay O(halo);
-`psum`, `pmax` and `any` are `all_reduce`s.  The general path's
-`parallel/domain.py` and `parallel/replicated.py` run on it.
+its shard in `shard_map`.  `grid=(n0, n1)` lays the ranks out on two axes
+in SlabMesh's shard-major order (rank r sits at (r // n1, r % n1)); the
+default is one axis of all the ranks.  It gives the same collectives on
+the rank's block: `shift_left` / `shift_right` are point-to-point sends to
+the one or two neighbours along the axis (`batch_isend_irecv` on that
+axis's process group), so the bytes stay O(halo); `psum`, `pmax` and
+`any` are `all_reduce`s over every rank.  The general path's
+`parallel/domain.py` and `parallel/replicated.py` and the fast paths'
+`fast_domain`, `fast_domain3d` and `fast_replicated` run on it.
+
+Both meshes say how many shard blocks this process holds on dim 0
+(`blocks`: n for SlabMesh, 1 for RankMesh) and which shards they are
+(`shard_index(axis)`: an (n,) arange's coordinates, or this rank's
+coordinate as a (1,) tensor); `n`, `n0` and `n1` are the global counts.
+`SlabMesh.psum` reduces dim 0, the shards, while `RankMesh.psum` keeps the
+shape: callers reduce their block's own dims first, or use `any` / `pmax`
+only where either shape will do.
 
 The backend is the caller's choice and the mesh never changes it: `nccl`
 for ranks that each hold their own card (it refuses ranks that share
@@ -66,10 +78,18 @@ class SlabMesh:
                 f"a mesh needs at least one shard on each axis, got {self.n0}x{self.n1}")
         object.__setattr__(self, "device", torch.device(self.device))
 
+    # Every shard lives in this process: no collective crosses processes.
+    distributed = False
+
     @property
     def n(self) -> int:
         """Shards in all, the size of dim 0."""
         return self.n0 * self.n1
+
+    @property
+    def blocks(self) -> int:
+        """The shard blocks this process holds on dim 0: all of them."""
+        return self.n
 
     def shard_index(self, axis: int = 0) -> torch.Tensor:
         """(n,) int64: each shard's index along mesh axis `axis` (its
@@ -90,25 +110,26 @@ class SlabMesh:
             out.narrow(axis, 0, grid.shape[axis] - 1).copy_(top)
         return out.view(x.shape)
 
-    def shift_left(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    def shift_left(self, x: torch.Tensor, axis: int = 0, tag: str = "shift") -> torch.Tensor:
         """`ppermute` with `_perm_left` along `axis`: each shard sends to its
-        left neighbour, so index i holds i + 1's block; zeros at the last."""
+        left neighbour, so index i holds i + 1's block; zeros at the last.
+        `tag` names the traffic on a RankMesh; here nothing is counted."""
         return self._shift(x, -1, axis)
 
-    def shift_right(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    def shift_right(self, x: torch.Tensor, axis: int = 0, tag: str = "shift") -> torch.Tensor:
         """`ppermute` with `_perm_right` along `axis`: index i holds i - 1's
         block; zeros at index 0."""
         return self._shift(x, 1, axis)
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
+    def psum(self, x: torch.Tensor, tag: str = "psum") -> torch.Tensor:
         return x.sum(dim=0)
 
-    def any(self, x: torch.Tensor) -> torch.Tensor:
+    def any(self, x: torch.Tensor, tag: str = "any") -> torch.Tensor:
         """True where any shard's flag is set: the reference's psum > 0 of
         the 0/1 flags (fast_domain.py:220-222)."""
         return self.psum(x.to(torch.int32)) > 0
 
-    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+    def pmax(self, x: torch.Tensor, tag: str = "pmax") -> torch.Tensor:
         return x.amax(dim=0)
 
 
@@ -132,10 +153,13 @@ def shared_cards(cards) -> list:
 
 class RankMesh:
     """One slab shard per rank of the default process group; every tensor
-    is this rank's block.  `rank` is the shard's `axis_index`, `n` the
-    shard count."""
+    is this rank's block (`blocks` = 1).  `rank` is the shard's index in
+    shard-major order, `coords` its (s0, s1), `n` the shard count."""
 
-    def __init__(self, device="cuda", backend: str = "nccl"):
+    distributed = True
+    blocks = 1
+
+    def __init__(self, device="cuda", backend: str = "nccl", grid=None):
         if backend not in ("nccl", "gloo"):
             raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
         if not dist.is_initialized():
@@ -148,6 +172,12 @@ class RankMesh:
         self.backend = backend
         self.rank = dist.get_rank()
         self.n = dist.get_world_size()
+        self.n0, self.n1 = (self.n, 1) if grid is None else (int(grid[0]), int(grid[1]))
+        if self.n0 < 1 or self.n1 < 1 or self.n0 * self.n1 != self.n:
+            raise ValueError(f"a {self.n0}x{self.n1} rank grid needs {self.n0 * self.n1} "
+                             f"ranks, the process group has {self.n}")
+        self.coords = (self.rank // self.n1, self.rank % self.n1)
+        self._one_axis = grid is None
         self.traffic: Dict[str, Traffic] = {}
         if backend == "nccl":
             if self.device.type != "cuda":
@@ -160,8 +190,29 @@ class RankMesh:
                 raise ValueError(
                     f"ranks {shared} share one card, and nccl needs a card per rank: "
                     "pass backend='gloo' to run several ranks on one card")
+        # One process group per line of ranks along each axis (the world
+        # when one axis holds every rank).  new_group is collective over the
+        # world: every rank creates every line's group, in the same order.
+        self._groups = {}
+        for axis in (0, 1):
+            for line in self._lines(axis):
+                if len(line) == 1:
+                    continue
+                group = None if len(line) == self.n else dist.new_group(line)
+                if self.rank in line:
+                    self._groups[axis] = group
         # gloo moves host tensors: CUDA blocks go through host memory.
         self._host = backend == "gloo" and self.device.type == "cuda"
+
+    def _lines(self, axis: int) -> list:
+        """The ranks of each line along `axis`, in coordinate order."""
+        if axis == 0:
+            return [[s0 * self.n1 + s1 for s0 in range(self.n0)] for s1 in range(self.n1)]
+        return [[s0 * self.n1 + s1 for s1 in range(self.n1)] for s0 in range(self.n0)]
+
+    def shard_index(self, axis: int = 0) -> torch.Tensor:
+        """(1,) int64: this rank's coordinate along mesh axis `axis`."""
+        return torch.tensor([self.coords[axis]], device=self.device)
 
     def _outgoing(self, x: torch.Tensor) -> torch.Tensor:
         """A contiguous copy of x where the backend reads it."""
@@ -180,40 +231,51 @@ class RankMesh:
         rec.seconds += time.perf_counter() - t0
         return out
 
-    def _shift(self, x: torch.Tensor, down: bool, rows: Optional[int], tag: str):
+    def _peer(self, axis: int, step: int):
+        """The global rank `step` along `axis` from this one; None past the
+        axis's ends."""
+        c = self.coords[axis] + step
+        if not 0 <= c < (self.n0, self.n1)[axis]:
+            return None
+        return self.rank + step * (self.n1 if axis == 0 else 1)
+
+    def _shift(self, x: torch.Tensor, down: bool, rows: Optional[int], tag: str, axis: int):
+        if axis not in (0, 1) or (axis == 1 and self._one_axis):
+            raise ValueError(f"axis {axis} of a {self.n0}x{self.n1} rank grid: a RankMesh has "
+                             "one axis unless it is built with grid=(n0, n1)")
+        dst = self._peer(axis, -1 if down else 1)
+        src = self._peer(axis, 1 if down else -1)
+        group = self._groups.get(axis)
+
         def call():
             send = self._outgoing(x)
             shape = tuple(x.shape) if rows is None else (rows,) + tuple(x.shape[1:])
             recv = torch.zeros(shape, dtype=x.dtype, device=send.device)
-            dst, src = (self.rank - 1, self.rank + 1) if down else (self.rank + 1, self.rank - 1)
             ops = []
-            if 0 <= dst < self.n and send.numel():
-                ops.append(dist.P2POp(dist.isend, send, dst))
-            if 0 <= src < self.n and recv.numel():
-                ops.append(dist.P2POp(dist.irecv, recv, src))
+            # The peers are global ranks, on the axis's group too.
+            if dst is not None and send.numel():
+                ops.append(dist.P2POp(dist.isend, send, dst, group=group))
+            if src is not None and recv.numel():
+                ops.append(dist.P2POp(dist.irecv, recv, src, group=group))
             for work in dist.batch_isend_irecv(ops) if ops else ():
                 work.wait()
             return recv.to(self.device)
 
-        sends = 0 <= (self.rank - 1 if down else self.rank + 1) < self.n
-        return self._timed(tag, x.numel() * x.element_size() if sends else 0, call)
+        return self._timed(tag, x.numel() * x.element_size() if dst is not None else 0, call)
 
     def shift_left(self, x: torch.Tensor, axis: int = 0, rows: Optional[int] = None,
                    tag: str = "shift") -> torch.Tensor:
-        """`ppermute` with `_perm_left`: rank i receives rank i + 1's block,
-        the last rank zeros.  With `rows`, the received block has that many
-        leading rows (the sender's own count; 0 sends nothing)."""
-        if axis != 0:
-            raise ValueError("a RankMesh has one axis")
-        return self._shift(x, True, rows, tag)
+        """`ppermute` with `_perm_left` along `axis`: the rank at index i
+        receives index i + 1's block, the last index zeros.  With `rows`,
+        the received block has that many leading rows (the sender's own
+        count; 0 sends nothing)."""
+        return self._shift(x, True, rows, tag, axis)
 
     def shift_right(self, x: torch.Tensor, axis: int = 0, rows: Optional[int] = None,
                     tag: str = "shift") -> torch.Tensor:
-        """`ppermute` with `_perm_right`: rank i receives rank i - 1's block,
-        rank 0 zeros; `rows` as in `shift_left`."""
-        if axis != 0:
-            raise ValueError("a RankMesh has one axis")
-        return self._shift(x, False, rows, tag)
+        """`ppermute` with `_perm_right` along `axis`: index i receives
+        index i - 1's block, index 0 zeros; `rows` as in `shift_left`."""
+        return self._shift(x, False, rows, tag, axis)
 
     def _all_reduce(self, x: torch.Tensor, op, tag: str) -> torch.Tensor:
         def call():
@@ -233,6 +295,10 @@ class RankMesh:
     def any(self, x: torch.Tensor, tag: str = "any") -> torch.Tensor:
         """True where any rank's flag is set (psum > 0 of the 0/1 flags)."""
         return self.psum(x.to(torch.int32), tag) > 0
+
+    def barrier(self) -> None:
+        """Every rank reaches this point before any leaves it."""
+        dist.barrier()
 
     def all_gather(self, x: torch.Tensor, tag: str = "all_gather") -> torch.Tensor:
         """(n,) + x.shape: every rank's block, in rank order."""

@@ -15,6 +15,10 @@ shard-major state and its `overflow[s]`), beside the JAX package's
 `<path>.meta.json` sidecar; `load_sharded` restores one onto a template
 state's layout and device.  A directory without shard files (an Orbax
 checkpoint) raises ValueError: the port reads npz checkpoints only.
+On a rank mesh (one shard per process) `save_rank_shard` has each rank
+write its own shard file of the same directory format, and
+`load_rank_shard` has each rank read its own: a directory written by n
+shards on one device resumes on n ranks, and the reverse.
 """
 
 from __future__ import annotations
@@ -142,6 +146,47 @@ def load_sharded(path: str, template: Any) -> Any:
         fields[name] = got
     device = getattr(template, dataclasses.fields(template)[0].name).device
     return _build(state_type, fields, device)
+
+
+def save_rank_shard(path: str, state: Any, mesh, meta: dict | None = None) -> None:
+    """`save_sharded`'s directory written by the ranks of `mesh` (a
+    RankMesh; collective): rank 0 clears the old shard files, then every
+    rank writes its own block as shard `mesh.rank`, then rank 0 writes the
+    sidecar once all have written."""
+    path = os.path.abspath(path)
+    if mesh.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        for old in glob.glob(os.path.join(path, "shard-*.npz")):
+            os.remove(old)
+    mesh.barrier()
+    _write(os.path.join(path, SHARD_FILE.format(mesh.rank)), type(state).__name__,
+           _host_fields(state), {**(meta or {}), "shard": mesh.rank, "shards": mesh.n})
+    mesh.barrier()
+    if mesh.rank == 0:
+        with open(path + ".meta.json", "w") as f:
+            json.dump({"type": type(state).__name__, "meta": meta or {}}, f)
+    mesh.barrier()
+
+
+def load_rank_shard(path: str, template: Any, mesh) -> Any:
+    """This rank's shard of a `save_sharded` / `save_rank_shard` directory
+    onto `template`, the rank's running state.  Raises ValueError on
+    another shard count or layout, as `load_sharded` does."""
+    path = os.path.abspath(path)
+    files = sorted(glob.glob(os.path.join(path, "shard-*.npz")))
+    if not files:
+        raise ValueError(f"{path} holds no {SHARD_FILE.format(0)}-style shard files")
+    if len(files) != mesh.n:
+        raise ValueError(f"checkpoint has {len(files)} shards, the rank mesh {mesh.n}")
+    fields = _read(os.path.join(path, SHARD_FILE.format(mesh.rank)), type(template))
+    for name, got in fields.items():
+        want = getattr(template, name)
+        if tuple(got.shape) != tuple(want.shape):
+            raise ValueError(f"checkpoint field {name} has shape {tuple(got.shape)} on rank "
+                             f"{mesh.rank}, the running state {tuple(want.shape)}: another "
+                             "layout")
+    device = getattr(template, dataclasses.fields(template)[0].name).device
+    return _build(type(template), fields, device)
 
 
 def load_sharded_meta(path: str) -> dict:

@@ -4,11 +4,13 @@ PyTorch returns before the card finishes, so a host clock around CUDA
 work measures the enqueue unless the scope synchronises.  `Timers.scope`
 given a CUDA device synchronises at its end and also records CUDA events
 around the block, so each name carries its host time and its device time.
+`profiler_trace(logdir)` writes a Chrome trace of a block (torch.profiler).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -82,3 +84,25 @@ class ThroughputMeter:
     @property
     def transfer_ops_per_sec(self) -> float:
         return self.substeps_per_sec * self.particles * self.stencil * 2
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: str, device=None):
+    """Trace the enclosed block with torch.profiler (the counterpart of
+    timing.py:54-60's Xprof trace): CPU activity, and CUDA activity when
+    `device` is a card (default: when one is available), written as a
+    Chrome trace, `<logdir>/trace-<pid>.json`.  Yields the profiler, whose
+    `key_averages()` sums the block by op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if device is None:
+        on_card = torch.cuda.is_available()
+    else:
+        on_card = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if on_card:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, f"trace-{os.getpid()}.json"))
