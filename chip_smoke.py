@@ -57,9 +57,9 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
 12. kernels:3d p2g3d_grid and g2p3d against their plain versions on that
                state and on a ragged synthetic case: P2G's raw sums per
                channel, its mass sum, the finished grid, G2P's outputs;
-               p2g3d_grid's tile plan (at every timed shape of the later
-               phases too) and whether two reruns of its stress mode at
-               the 8M state are bitwise equal;
+               p2g3d_grid's plan (at every timed shape of the later
+               phases too), two reruns of its stress mode bitwise equal to
+               a first and its raw mode at one shard bitwise its raw_out;
 13. timing:3d  ms per substep and transfer ops/s (n * 27 * 2 * substeps
                / seconds), median of 3 x 20 substeps, for the kernel path
                at 8M / 256^3 and at 1M / 128^3 and the plain path at
@@ -80,10 +80,13 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                against p2g3d_plain with its mass sum; p2g3d_grid's prepped
                modes against plain (raw sums and finished grid); g2p3d's
                gather modes against plain; fold_rows0(p2g3d) against the
-               interior of p2g3d_grid's raw sums; CUDA-event times and
-               bounds at the 8M shapes; p2g3d's plan and achieved bytes per
-               second, and two reruns bitwise equal to a first there
-               (B-spline and tent) and on relfloor3d's state;
+               interior of p2g3d_grid's raw sums (and whether they are
+               bitwise equal: a reading); CUDA-event times and bounds at
+               the 8M shapes; p2g3d's plan and achieved bytes per second;
+               two reruns bitwise equal to a first there (p2g3d B-spline
+               and tent, and on relfloor3d's state; every p2g3d_grid
+               prepped mode, whose raw mode at one shard must equal its
+               raw_out bitwise);
 17. main:drop3d  elastic_drop_3d at 128^3 (3.5M particles, a 51^3
                neo-Hookean block, APIC) through Simulation, 2 frames x 10
                substeps: launches and the host checks; then on that state
@@ -122,7 +125,8 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                slab 8M and stab3d-8M through Simulation(devices=4) against
                one device (50 and 20 substeps, the checks of phase 19),
                p2g3d_grid's raw mode (stress; prepped 11 channels) against
-               plain on their states with its mass sum and times, g2p3d on
+               plain on their states with its mass sum, reruns bitwise
+               equal, and times, g2p3d on
                the halo-synced, grid-updated shard windows against plain
                (update mode; gather mode, 9-channel grid) with its times,
                halo_sync's time, ms per substep (3 x 10); the CLI with
@@ -142,7 +146,8 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                with a sphere, a sticky moving box and a halfspace spinner
                (stress, prepped 11 channels, tent): the finished grid per
                channel (mass-weighted; the empty nodes unweighted), the
-               nodes whose inside flag differs (0), CUDA-event ms of the
+               nodes whose inside flag differs (0), reruns bitwise equal,
+               CUDA-event ms of the
                collider mode and of the same call without colliders, the
                bound;
 29. timing:colliders  ms per substep of obstacle8M and slab 8M from the
@@ -231,10 +236,8 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                a fresh Simulation restoring it and 1 frame: bench 1M fast
                (npz) and in 4 shards (a shard directory), the reference
                scene's general path in float64 (2 x 200) and slab 1M /
-               128^3 on relfloor3d's fixed-order route: bitwise equal;
-               slab 1M on the fused branch: x, v, J within ROUTE_TOL
-               (p2g3d_grid's atomics), beside two uninterrupted runs'
-               difference; write and read seconds and bytes;
+               128^3 on the fused branch and on relfloor3d's route:
+               bitwise equal; write and read seconds and bytes;
 39. main:two_axis  the dam3d CLI with --devices 2x2 (2 frames x 100,
                --checkpoint to a shard directory, then --resume); slab 8M,
                stab3d-8M and incomp8M on 2 x 2 windows against one device
@@ -245,6 +248,8 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                on the windows against plain with times and bounds; ms per
                substep of 2 x 2, 4 x 1 and one device at slab 8M,
                interleaved, median of 3, and halo_sync over both axes;
+               the stabilized set on 2 x 2 windows at 32^3, 10 substeps
+               card against CPU (v's largest difference, a reading);
 40. kernels:halo1  p2g3d(halo1=True) against p2g3d_plain(halo1=True) on
                stab3d-8M's 2 x 2 windows and a ragged APIC case (per
                channel, mass sum), fold_rows0_halo of it per shard against
@@ -335,7 +340,7 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                dam3d `--devices 2x2
                --ranks` with a checkpoint after one frame, resumed on ranks
                and on SlabMesh(2, 2), each against the uninterrupted
-               SlabMesh(2, 2) run within ROUTE_TOL; `--backend nccl` with 2
+               SlabMesh(2, 2) run bitwise; `--backend nccl` with 2
                ranks on this card must raise; then the {"fast_ranks": ...}
                line.
 
@@ -354,7 +359,9 @@ under "prepped_*" and "tent_*", g2p with its prepadded mode's under
 "prepadded_*", p2g3d_grid with its raw modes' under "raw_*" and
 "raw_prepped_*", g2p3d on the 3D shard windows under "sharded_*" and
 "sharded_gather_*", p2g3d_grid's collider mode under "colliders_*" with
-"colliders_flips", its tile plans under "plans" and "rerun_bitwise_equal";
+"colliders_flips", its plans under "plans" and "rerun_bitwise_equal" (by
+mode: stress, each prepped mode, colliders, raw on 4 shards and on 2 x 2
+windows, rank 1's window; each checked);
 p2g and g2p with main:plastic's modes under "snow2k_*" and "sand2k_*",
 p2g3d_grid and g2p3d under "sanddrop3d_*"; main:incompressible's inputs
 under "incomp1M_*" (p2g_fused, g2p), "incomp1Mx4_*" (p2g_grid, g2p),
@@ -396,10 +403,9 @@ import numpy as np
 import torch
 
 # Kernel-against-plain bound, per output channel, scaled by the channel's
-# max: both sides sum each node's fp32 terms in another order (shared-memory
-# atomics in p2g3d_grid, a fixed order of their own in p2g, p2g_fused,
-# p2g_grid and p2g3d, atomics in the plain index_add_, FMA contraction in
-# the kernels).
+# max: both sides sum each node's fp32 terms in another order (a fixed
+# order of its own in each P2G kernel, atomics in the plain index_add_, FMA
+# contraction in the kernels).
 KERNEL_REL_TOL = 1e-5
 POU_REL_TOL = 1e-6           # P2G mass channel vs total particle mass
 BENCH = dict(                # bench.py:179-189, the 1M / 513^2 dam break
@@ -510,6 +516,15 @@ def rerun_equal(tag, name, call, card):
     check(same, f"{tag}: {name} reruns differ (its sums have a fixed order)")
 
 
+def raw_mode_equal(tag, raw_out, call, card):
+    """p2g3d_grid's raw mode at one shard against the `raw_out` of its
+    non-raw mode on the same inputs: the same sums, bitwise."""
+    same = torch.equal(raw_out, call())
+    say(f"[{tag}] p2g3d_grid raw mode (one shard) bitwise equal to the non-raw mode's "
+        f"raw_out: {same}  [{card}]")
+    check(same, f"{tag}: p2g3d_grid's raw mode differs from the non-raw mode's raw sums")
+
+
 def achieved(name, nbytes, ms, card):
     """Prints the bytes a kernel must move over its time, against the
     card's memory rate."""
@@ -524,17 +539,18 @@ PEAK_BEFORE_GIB = {"slab8M": 18.563, "obstacle8M static": 11.637,
                    "obstacle8M rising": 18.512}
 
 
-def plan_line(tag, key, nch, g2, r0, r1, card, shards=1):
-    """Prints and keeps the tile plan p2g3d_grid's wrapper takes at these
-    shapes (ops/cuda/transfer3d.plan_p2g3d_grid)."""
+def plan_line(tag, key, nch, g2, r0, r1, card, shards=1, apic=False):
+    """Prints and keeps the plan p2g3d_grid's wrapper takes at these shapes
+    (ops/cuda/transfer3d.plan_p2g3d_grid)."""
     from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
 
-    plan = tk3.plan_p2g3d_grid(nch, g2, r0, r1, shards)
-    PLANS[key] = {"tile": [plan.t0, plan.t1], "band": plan.band, "smem": plan.smem,
-                  "blocks": plan.blocks}
-    say(f"[{tag}] p2g3d_grid plan at buckets {r0}x{r1}, G2 {g2}, {nch} raw channels, {shards} "
-        f"shard(s): tile {plan.t0}x{plan.t1} target pencils, z band {plan.band} of {g2} "
-        f"columns, {plan.smem} shared bytes a block, {plan.blocks} blocks in one launch  "
+    plan = tk3.plan_p2g3d_grid(nch, g2, r0, r1, shards, apic)
+    PLANS[key] = {"tile": [tk3.NT, tk3.GRID3D_ROWS], "band": plan.band, "chunk": plan.cap,
+                  "smem": plan.smem, "blocks": plan.blocks * plan.bands}
+    say(f"[{tag}] p2g3d_grid plan at buckets {r0}x{r1}, G2 {g2}, {nch} raw channels, apic "
+        f"{apic}, {shards} shard(s): tiles of {tk3.NT} x {tk3.GRID3D_ROWS} target pencils, z band "
+        f"{plan.band} of {g2} columns, chunks of {plan.cap} records of {plan.rec} bytes, "
+        f"{plan.smem} shared bytes a block, {plan.blocks * plan.bands} blocks in one launch  "
         f"[{card}]")
 
 
@@ -857,6 +873,12 @@ def compare_kernels3d(tag, planes, counts, mask, state, kw, dinv, card):
     check(max(rel_m) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid grid disagrees with plain")
     check(pou <= POU_REL_TOL, f"{tag}: p2g3d_grid partition of unity")
     check(pads_zero, f"{tag}: p2g3d_grid axis-0 pad rows not zero")
+    del raw_plain, want
+    raw_mode_equal(f"kernels:{tag}", raw, lambda: tk3.p2g3d_grid(
+        planes, counts, r1, g2, dx, raw=True, **scatter)[0], card)
+    rerun_equal(f"kernels:{tag}", "p2g3d_grid_stress",
+                lambda: tk3.p2g3d_grid(planes, counts, r1, **args), card)
+    del raw
 
     gxs = planes[:3]
     g2p_args = (*gxs, mask, counts, got, dx, dinv, state, kw["alpha"], kw["dt"])
@@ -960,6 +982,7 @@ def compare_prepped3d(tag, fields, counts, mask, mode, node, g2, dx, card):
     # The two routes' sums agree on the interior rows (the JAX package's
     # own cross-check, tests/test_p2g_grid.py:168-212).
     err_f, rel_f = scaled_errors(folded, raw[1 : r0 + 1, 1 : r1 + 1], axis=2)
+    fold_equal = torch.equal(folded, raw[1 : r0 + 1, 1 : r1 + 1])
     del folded
     raw_plain = tk3.p2g3d_raw_plain(fields, counts, g2, dx, apic=apic, tent=tent, ext=ext)
     want = tk3.grid_update3d_plain(raw_plain, r0, ext=ext, **node)
@@ -982,13 +1005,20 @@ def compare_prepped3d(tag, fields, counts, mask, mode, node, g2, dx, card):
         f"grid max_abs_err {err_grid:.3e}, weighted and scaled {['%.2e' % r for r in rel_g]} "
         f"(tol {KERNEL_REL_TOL}); mass sum rel err {pou:.3e} (tol {POU_REL_TOL}); axis-0 pads "
         f"zero {pads_zero}; fold_rows0(p2g3d) vs the interior raw sums worst channel "
-        f"{max(rel_f):.2e} of its max  [{card}]")
+        f"{max(rel_f):.2e} of its max, bitwise equal {fold_equal} (a reading: the two "
+        f"routes sum in different orders)  [{card}]")
     check(max(rel_r) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid raw sums disagree with plain")
     check(max(rel_g) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid grid disagrees with plain")
     check(pou <= POU_REL_TOL, f"{tag}: p2g3d_grid partition of unity")
     check(pads_zero, f"{tag}: p2g3d_grid axis-0 pad rows not zero")
     check(max(rel_f) <= KERNEL_REL_TOL, f"{tag}: fold_rows0(p2g3d) disagrees with p2g3d_grid")
-    del raw, raw_plain, want, diff, weight
+    del raw_plain, want, diff, weight
+    raw_mode_equal(f"kernels:3dp {tag}", raw, lambda: tk3.p2g3d_grid(
+        fields, counts, r1, g2, dx, apic=apic, tent=tent, ext=ext, raw=True)[0], card)
+    del raw
+    mode_name = f"p2g3d_grid_{'apic' if apic else 'pic'}{nch}{'_tent' if tent else ''}"
+    rerun_equal(f"kernels:3dp {tag}", mode_name, lambda: tk3.p2g3d_grid(
+        fields, counts, r1, g2, dx, apic=apic, tent=tent, ext=ext, **node), card)
 
     dinv = 1.0 if tent else 4.0 / dx**2
     g2p_args = (*fields[:3], mask, counts, grid, dx, dinv)
@@ -1251,7 +1281,7 @@ def prepped3d_phases(dev, card, profile_dir, p8, scene_fluid, err, kernel_ms, pl
             f"{r0}x{r1}x{k3}, {live_d} live): kernel {kernel_ms[name]:.4f} ms (CUDA events, 10 "
             f"calls), plain {plain_ms[name]:.4f} ms (2 calls), bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})  [{card}]")
-    plan_line("kernels:3dp", "drop3d", tk3.P2G_CH, gd, r0, r1, card)
+    plan_line("kernels:3dp", "drop3d", tk3.P2G_CH, gd, r0, r1, card, apic=True)
     del fields_d, counts_d, mask_d, grid6, g2p_d, pairs
     torch.cuda.empty_cache()
 
@@ -1911,6 +1941,8 @@ def compare_colliders3d(tag, fields, counts, kw, colliders, tcol, card):
     check(acted > 0.0 and inside > 0, f"{tag}: the colliders never acted")
     check(pads_zero, f"{tag}: p2g3d_grid axis-0 pad rows not zero")
     check(flips == 0, f"{tag}: {flips} nodes flip inside/outside between kernel and plain")
+    rerun_equal(f"kernels:colliders {tag}", "p2g3d_grid_colliders",
+                lambda: call(colliders, True), card)
     return float(diff.max()), flips
 
 
@@ -2013,7 +2045,8 @@ def collider_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_ms, bou
         f"20 calls), plain {plain_ms['p2g3d_grid_colliders']:.4f} ms (3 calls), bound "
         f"{bounds['p2g3d_grid_colliders'][0]:.4f} ms ({bounds['p2g3d_grid_colliders'][1]})  "
         f"[{card}]")
-    plan_line("kernels:colliders", "colliders", tk3.P2G_CH, kw["g2"], r0, r1, card)
+    plan_line("kernels:colliders", "colliders", tk3.P2G_CH, kw["g2"], r0, r1, card,
+              apic=bool(kw["apic"]))
     del planes, counts
     torch.cuda.empty_cache()
     rplanes, _, rcounts, _, rg, rdx = ragged_inputs3d(dev, seed=5, r=32, k=128, g=32)
@@ -3552,16 +3585,11 @@ def general_determinism(dev, card):
     SCATTER["vs_cpu_37_v"], SCATTER["vs_cpu_37_C"] = got["cpu_err"]["v"], got["cpu_err"]["C"]
 
 
-def resume_gate(tag, p, scene, dev, n_sub, path_kw, ck_name, card, spread=False):
+def resume_gate(tag, p, scene, dev, n_sub, path_kw, ck_name, card):
     """2 frames of n_sub substeps uninterrupted against 1 frame, a
     checkpoint, a fresh Simulation restoring it and 1 more frame: every
-    field bitwise equal; or (`spread`: the fused 3D path, whose
-    `p2g3d_grid` adds with shared-memory atomics) x, v and J within
-    ROUTE_TOL, the bound of two 3D runs whose sums differ in order alone,
-    printed beside the difference of two uninterrupted runs (which is
-    heavy-tailed: 1.8e-7 to 7.4e-6 across runs on an H100 80GB HBM3 at
-    700 W).  Returns the write and read seconds and the checkpoint's
-    bytes."""
+    field bitwise equal (every P2G kernel sums in a fixed order).  Returns
+    the write and read seconds and the checkpoint's bytes."""
     from mpm_flip98a_tpu_torch import driver
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ck_")
@@ -3596,22 +3624,8 @@ def resume_gate(tag, p, scene, dev, n_sub, path_kw, ck_name, card, spread=False)
                 f"checkpoint {ck_name} {nbytes} bytes, write {t_write:.3f} s, read "
                 f"{t_read:.3f} s")
         check(resumed.frame_count == 2, f"{tag}: resumed frame count {resumed.frame_count}")
-        if spread:
-            again = make()
-            again.run(2, n_sub, gif=False, verbose=False, write_frames=False)
-            gap = {f.name: float((getattr(again.state, f.name).double()
-                                  - getattr(whole.state, f.name).double()).abs().max())
-                   for f in dataclasses.fields(whole.state)}
-            groups = (("x", ("x0", "x1", "x2")), ("v", ("v0", "v1", "v2")), ("J", ("J",)))
-            worst = {key: max(diff[n] for n in names) for key, names in groups}
-            say(f"{line}; two uninterrupted runs differ by {max(gap.values()):.3e}; resumed "
-                f"x, v, J {worst} (tol {ROUTE_TOL}); per field resumed {diff}, rerun {gap}  "
-                f"[{card}]")
-            check(all(worst[key] <= tol for key, tol in ROUTE_TOL.items()),
-                  f"{tag}: the resumed run left the uninterrupted one: {worst}")
-        else:
-            say(f"{line}  [{card}]")
-            check(equal, f"{tag}: the resumed run differs from the uninterrupted one: {diff}")
+        say(f"{line}  [{card}]")
+        check(equal, f"{tag}: the resumed run differs from the uninterrupted one: {diff}")
         return {"equal": equal, "max_abs_diff": max(diff.values()), "write_s": t_write,
                 "read_s": t_read, "bytes": nbytes}
     finally:
@@ -3621,8 +3635,8 @@ def resume_gate(tag, p, scene, dev, n_sub, path_kw, ck_name, card, spread=False)
 def checkpoint_phase(dev, card):
     """Phase 38, main:checkpoint: resumed against uninterrupted runs on
     the bench 1M fast path, the reference scene's general path (float64),
-    bench 1M in 4 shards with a directory checkpoint (bitwise) and slab
-    1M / 128^3 (within the spread of two uninterrupted runs)."""
+    bench 1M in 4 shards with a directory checkpoint and slab 1M / 128^3
+    on the fused and the relative-floor routes, all bitwise."""
     from mpm_flip98a_tpu_torch import driver
     from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
     from mpm_flip98a_tpu_torch.models import scenes
@@ -3639,7 +3653,7 @@ def checkpoint_phase(dev, card):
                                            200, dict(path="general"), "general.npz", card)
     p1, scene1 = scenes.slab_3d(**SLAB_1M)
     out["slab1M"] = resume_gate("slab1M fast", p1, scene1, dev, 10, dict(path="fast"),
-                                "slab.npz", card, spread=True)
+                                "slab.npz", card)
     # The 3D fast path through the fixed-order `p2g3d` (the stabilized set
     # with the relative floor: relfloor3d's route), bitwise, with the
     # F-bar and mixing state (jbar_s, p_s, div_s) in the checkpoint.
@@ -3695,6 +3709,9 @@ def windows_against_plain(tag, sim, scene, p2g_key, g2p_key, err, kernel_ms, pla
         f"(tol {POU_REL_TOL})  [{card}]")
     check(max(rel_r) <= KERNEL_REL_TOL, f"{tag}: p2g3d_grid raw disagrees with plain")
     check(pou <= POU_REL_TOL, f"{tag}: p2g3d_grid raw partition of unity")
+    two_axis = sim.spec.n_shards1 > 1
+    rerun_equal(f"kernels:sharded3d {tag}",
+                "p2g3d_grid_raw_2x2" if two_axis else f"p2g3d_grid_raw_{n}_shards", call, card)
     kernel_ms[p2g_key] = cuda_ms(call, reps=10)
     plain_ms[p2g_key] = cuda_ms(lambda: tk3.p2g3d_raw_plain(planes, counts, g2, dx, shards=n,
                                                             **kw), reps=2, warm=1)
@@ -3709,7 +3726,7 @@ def windows_against_plain(tag, sim, scene, p2g_key, g2p_key, err, kernel_ms, pla
         f"[{card}]")
     if plan_key:
         plan_line(f"kernels:sharded3d {tag}", plan_key, got.shape[3], g2, planes[0].shape[0], r1,
-                  card, n)
+                  card, n, apic=bool(kw["apic"]))
     del got, halo
     compare_g2p3d_sharded(tag, planes, mask, counts, state, scene, gspec, ctx, err, kernel_ms,
                           plain_ms, bounds, card, key=g2p_key)
@@ -3811,7 +3828,36 @@ def two_axis_phase(dev, card, err, kernel_ms, plain_ms, bounds, launches):
                                   f"g2p3d_win2_{tag}", err, kernel_ms, plain_ms, bounds, card)
             del sim, ref
         torch.cuda.empty_cache()
+    out["stab2x2_vs_cpu"] = stab2x2_drift(dev, card)
     return out
+
+
+def stab2x2_drift(dev, card, n_sub=10):
+    """The stabilized set on 2 x 2 windows at 32^3 (tests/test_torch_cuda.py's
+    two-axis case), n_sub substeps on the card against the CPU: the largest
+    |v| difference over v's max, a reading (F-bar's nodal Jbar is 1 less a
+    few ulps, so the sums' order moves the pressure by parts in 1e5 a
+    substep), not a gate."""
+    from mpm_flip98a_tpu_torch.config import TransferKind
+    from mpm_flip98a_tpu_torch.models import scenes
+    from mpm_flip98a_tpu_torch.parallel import SlabMesh
+    from mpm_flip98a_tpu_torch.parallel import fast_domain3d as fd3
+
+    p, scene = scenes.dam_break_3d(num_grids=32, particles_per_axis=(16, 16, 20), dt=2e-5,
+                                   flip_blend=0.98, transfer=TransferKind.PIC, **STAB)
+    spec = fd3.FastDomain3DSpec.for_particles(scene.cfg, (2, 2), p)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        mesh = SlabMesh(2, where, 2)
+        b = fd3.distribute(p, scene.cfg, spec, mesh)
+        runs[where.type] = fd3.make_run(scene, spec, mesh)(b, n_sub)
+    stack = lambda b: torch.stack([getattr(b, f"v{a}").cpu() for a in range(3)]).double()
+    v, vw = stack(runs[dev.type]), stack(runs["cpu"])
+    rel = float((v - vw).abs().max() / vw.abs().max())
+    say(f"[main:two_axis stab2x2] the stabilized set on 2 x 2 windows at 32^3, {n_sub} "
+        f"substeps, card against CPU: max |v - v_cpu| {rel:.3e} of v's max (a reading)  "
+        f"[{card}]")
+    return rel
 
 
 def halo1_phase(dev, card, err, kernel_ms, plain_ms, bounds):
@@ -4998,9 +5044,8 @@ def origin_kernels2d(mesh, b, scene, spec):
 def origin_kernels3d(mesh, b, scene, spec):
     """Raw `p2g3d_grid` (one shard) and `g2p3d` (update mode) on this
     rank's window, positions less its origin, against their plain versions
-    (every channel over its scale); g2p3d's reruns bitwise equal (a
-    fixed-order gather; p2g3d_grid adds with shared-memory atomics); rank 1
-    alone times kernel and plain."""
+    (every channel over its scale); both kernels' reruns bitwise equal
+    (fixed-order gathers); rank 1 alone times kernel and plain."""
     from mpm_flip98a_tpu_torch.models import fast3d
     from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
     from mpm_flip98a_tpu_torch.parallel import fast_domain3d as fd3
@@ -5018,6 +5063,7 @@ def origin_kernels3d(mesh, b, scene, spec):
     raw = p2g()
     err_p, rel_p = scaled_errors(raw, plain_p2g(), axis=3)
     nch, raw_numel = raw.shape[3], raw.numel()
+    rerun_p = all(torch.equal(raw, p2g()) for _ in range(2))
     del raw
     grid = fast3d._sharded_grid(planes, counts, scene, lspec, False, ctx)
     dinv = float(4.0 * cfg.inv_dx * cfg.inv_dx)
@@ -5036,7 +5082,7 @@ def origin_kernels3d(mesh, b, scene, spec):
     del out
     rec = {"origin": [float(x0s[0, 0]), 0.0 if x1s is None else float(x1s[0, 0])],
            "pencils": int(counts.numel()), "live": live,
-           "p2g3d_grid": {"max_abs_err": max(err_p), "rel": max(rel_p),
+           "p2g3d_grid": {"max_abs_err": max(err_p), "rel": max(rel_p), "rerun_equal": rerun_p,
                           "bound": bound(4 * (len(planes) * live + counts.numel() + raw_numel),
                                          live * 27 * nch * 2)},
            "g2p3d": {"max_abs_err": max(err_g), "rel": max(rel_g), "rerun_equal": rerun_g,
@@ -5409,6 +5455,9 @@ def report_origin(tag, recs, names, card, err, kernel_ms, plain_ms, bounds):
         check(max(rels) <= KERNEL_REL_TOL, f"{tag}: {name} on a rank's window disagrees with "
               f"its plain version: {rels}")
         check(all(x is not False for x in reruns), f"{tag}: {name} reruns differ on a rank")
+        if name == "p2g3d_grid":
+            RERUNS["p2g3d_grid_rank_window"] = RERUNS.get("p2g3d_grid_rank_window", True) and \
+                all(reruns)
 
 
 def fast_rank_clis(dev, card):
@@ -5497,14 +5546,14 @@ def fast_rank_clis(dev, card):
             worst = {key: max(float((getattr(sim.state, n).double()
                                      - getattr(whole.state, n).double()).abs().max())
                               for n in names) for key, names in groups}
-            equal = torch.equal(sim.state.mask, whole.state.mask)
+            equal = all(torch.equal(getattr(sim.state, f.name), getattr(whole.state, f.name))
+                        for f in dataclasses.fields(whole.state))
             say(f"[main:fast_ranks_cli dam3d 2x2] {label} (frame {sim.frame_count}) against "
-                f"the uninterrupted SlabMesh(2, 2) run: live slots equal {equal}, x, v, J "
-                f"{worst} (tol {ROUTE_TOL})  [{card}]")
+                f"the uninterrupted SlabMesh(2, 2) run: every field bitwise equal {equal}, "
+                f"x, v, J max |diff| {worst}  [{card}]")
             check(sim.frame_count == 2, f"dam3d {label}: frame count {sim.frame_count}")
-            check(all(worst[k] <= tol for k, tol in ROUTE_TOL.items()),
-                  f"dam3d {label}: left the uninterrupted run: {worst}")
-            out[f"dam3d {label}"] = worst
+            check(equal, f"dam3d {label}: differs from the uninterrupted run: {worst}")
+            out[f"dam3d {label}"] = {**worst, "bitwise_equal": equal}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -6075,14 +6124,8 @@ def main(argv=None) -> int:
             f"kernel {kernel_ms[name]:.4f} ms (CUDA events, 20 calls), plain "
             f"{plain_ms[name]:.4f} ms (3 calls), bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})  [{card}]")
-    plan_line("kernels:3d", "stress", tk3.P2G_CH, g3, r0, r1, card)
-    first = tk3.p2g3d_grid(planes, counts, spec8.rows1, **args8)
-    RERUNS["p2g3d_grid"] = all(
-        torch.equal(first, tk3.p2g3d_grid(planes, counts, spec8.rows1, **args8))
-        for _ in range(2))
-    say(f"[kernels:3d] p2g3d_grid stress mode at the slab 8M state: two reruns bitwise equal "
-        f"to the first: {RERUNS['p2g3d_grid']}  [{card}]")
-    del first
+    plan_line("kernels:3d", "stress", tk3.P2G_CH, g3, r0, r1, card,
+              apic=bool(args8["apic"]))
     del planes, state, mask, counts, grid8, g2p_in
 
     # ---- 13. timing:3d ---------------------------------------------------------
@@ -6266,9 +6309,11 @@ def main(argv=None) -> int:
         "colliders_bound_ms": bounds["p2g3d_grid_colliders"][0],
         "colliders_bound_by": bounds["p2g3d_grid_colliders"][1],
         "colliders_flips": flips,
-        # The tile plan at each timed shape; stress-mode reruns at slab 8M.
+        # The plan at each timed shape; reruns bitwise equal, every mode
+        # (each checked: a false fails the run).
         "plans": PLANS,
-        "rerun_bitwise_equal": RERUNS["p2g3d_grid"],
+        "rerun_bitwise_equal": {k[len("p2g3d_grid_"):]: v for k, v in RERUNS.items()
+                                if k.startswith("p2g3d_grid_")},
     })
     # The modes main:plastic launched, at its scenes' shapes: p2g and g2p on
     # snow2k and sand2k, p2g3d_grid's prepped mode and g2p3d's gather mode

@@ -59,10 +59,10 @@ SIGNATURES = {
     # planes, pencil strides, counts, raw (or null), out, R0, L0, R1, K, G2,
     # dx, apic, tait, kb, kb/gamma, gamma, 2 mu, fa, dt g (3), floor, lo, hi,
     # wall, dt beta, collider floats, collider ints, colliders, kin, tcol, raw
-    # only, tile rows (2), band, stream
+    # only, band, records a chunk, stream
     "mpm_p2g3d_grid": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F, _F,
-        _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P,
+        _F, _F, _F, _F, _I, _I, _I, _F, _P, _P, _I, _I, _F, _I, _I, _I, _P,
     ),
     # planes, pencil strides, counts, grid, out, R0, L0, R1, K, G2, dx, dinv,
     # alpha, 1 - alpha, dt, stream
@@ -76,11 +76,11 @@ SIGNATURES = {
     ),
     # planes (29), pencil strides, counts, raw (or null), out, R0, L0, R1, K,
     # G2, nch, apic, tent, dx, dt g (3), floor, lo, hi, wall, dt beta,
-    # collider floats, collider ints, colliders, kin, tcol, raw only, tile
-    # rows (2), band, stream
+    # collider floats, collider ints, colliders, kin, tcol, raw only, band,
+    # records a chunk, stream
     "mpm_p2g3d_grid_pdata": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-        _I, _I, _I, _F, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P,
+        _I, _I, _I, _F, _P, _P, _I, _I, _F, _I, _I, _I, _P,
     ),
     # planes (4), pencil strides, counts, grid, out, R0, L0, R1, K, G2, grid
     # channels, tent, dx, dinv, stream

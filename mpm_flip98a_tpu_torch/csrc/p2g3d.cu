@@ -57,7 +57,7 @@
 //   records straight from its registers to their positions in shared
 //   memory.  A record holds what the slot's one axis-1 tap on the row
 //   leaves: [t0, gx0 - base0, gx2 - base2, w1, the affine terms with that
-//   tap's offset folded in (Rec3d)].
+//   tap's offset folded in (rec3d::Rec, taps.cuh)].
 //   Sums: kSplit = 4 threads per z column that the slots reach (a thin
 //   layer reaches some 34): thread s sums the column's slots at list
 //   positions p0 + s, p0 + s + 4, ... (base columns c - 2 .. c) into the
@@ -82,7 +82,7 @@
 
 namespace {
 
-constexpr int kNT = 5;         // candidate target rows per bucketed axis
+using rec3d::kNT;              // candidate target rows per bucketed axis
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // Blocks resident on an SM: the register cap of __launch_bounds__ (128:
@@ -98,52 +98,6 @@ constexpr int kCols = kThreads / kSplit;
 // five pencils of the 8M slab hold some 640 slots: 3 steps of 256).
 constexpr int kSteps = 3;
 
-// Staged record of one slot, in float4s: [t0 (int bits), gx0 - base0,
-// gx2 - base2, w1 (the slot's axis-1 tap on the block's row), pure (9
-// APIC: m v + P_a1 rdp1, P_a0, P_a2; 3 PIC: m v), forced (9: m v + Q_a1
-// rdp1, Q_a0, Q_a2), plain (kNch - 6)].
-template <int kNch, bool kApic>
-struct Rec3d {
-  static constexpr int kQ = 4 + (kApic ? 9 : 3);
-  static constexpr int kPlain = kQ + 9;
-  static constexpr int kVec = (kPlain + kNch - 6 + 3) / 4;
-};
-
-// A slot's input fields as loaded: [gx (3), m v (3), P (9, APIC only),
-// Q (9), plain (kNch - 6)].
-template <int kNch, bool kApic>
-struct Fields3d {
-  static constexpr int kQ = 6 + (kApic ? 9 : 0);
-  static constexpr int kN = kQ + 9 + kNch - 6;
-};
-
-// The stress mode (kStress, kNch 7) computes the same fields from the 18
-// state planes: the fluid stress of taps::fluid_affine.
-template <int kNch, bool kApic, bool kStress>
-__device__ __forceinline__ void load_fields(const taps::Prepped& in, long long pencil, int k,
-                                            const taps::Fluid& fl,
-                                            float f[Fields3d<kNch, kApic>::kN]) {
-  using F = Fields3d<kNch, kApic>;
-  if constexpr (kStress) {
-    static_assert(kNch == 7, "the stress mode has 7 channels");
-    float pic_p[9];  // P = 0 under PIC, which the fields do not hold
-#pragma unroll
-    for (int e = 0; e < 3; ++e) f[e] = in.at(taps::kGx + e, pencil, k);
-    taps::fluid_affine<kApic>(in, pencil, k, fl, f + 3, kApic ? f + 6 : pic_p, f + F::kQ,
-                              f[F::kQ + 9]);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 6; ++e) f[e] = in.at(taps::kGx + e, pencil, k);  // gx, m v
-#pragma unroll
-  for (int e = 0; e < 9; ++e) {
-    if (kApic) f[6 + e] = in.at(taps::kP + e, pencil, k);
-    f[F::kQ + e] = in.at(taps::kQ + e, pencil, k);
-  }
-#pragma unroll
-  for (int e = 0; e < kNch - 6; ++e) f[F::kQ + 9 + e] = in.at(taps::kM + e, pencil, k);
-}
-
 // Base z column base2 of a slot of source t1 (pencil row fi1) with fields
 // f when it is in the margin on both axes, its axis-1 tap lands on the
 // block's row and base2 is in [blo, bhi] (its columns meet the band).
@@ -158,107 +112,16 @@ __device__ __forceinline__ int classify(const float* f, int t1, float fi0, float
   return keep ? static_cast<int>(base2) : gather::kNone;
 }
 
-// The staged record of a kept slot from its fields.
+// The staged record of a kept slot of source t1 (pencil rows i0, i1):
+// its first target t0 = rel0 + 1 and its axis-1 tap on the block's row.
 template <int kNch, bool kTent, bool kApic>
-__device__ __forceinline__ void rec_from(const float* f, int t1, int i0, int i1, float dx,
-                                         float r[4 * Rec3d<kNch, kApic>::kVec]) {
-  using R = Rec3d<kNch, kApic>;
-  using F = Fields3d<kNch, kApic>;
-  const float gx0 = f[0], gx1 = f[1], gx2 = f[2];
-  const float base0 = floorf(gx0 - 0.5f), base1 = floorf(gx1 - 0.5f);
-  const float base2 = floorf(gx2 - 0.5f);
+__device__ __forceinline__ void rec_from_source(const float* f, int t1, int i0, int i1,
+                                                float dx,
+                                                float r[4 * rec3d::Rec<kNch, kApic>::kVec]) {
+  const float base0 = floorf(f[0] - 0.5f), base1 = floorf(f[1] - 0.5f);
+  const int t0 = static_cast<int>(base0 - static_cast<float>(i0)) + 1;
   const int j1 = t1 - 1 - static_cast<int>(base1 - static_cast<float>(i1));
-  float w1[3];
-  taps::axis<kTent>(gx1 - base1, w1);
-  const float rdp1 = (base1 + static_cast<float>(j1) - gx1) * dx;
-  r[0] = __int_as_float(static_cast<int>(base0 - static_cast<float>(i0)) + 1);
-  r[1] = gx0 - base0;
-  r[2] = gx2 - base2;
-  r[3] = j1 == 0 ? w1[0] : (j1 == 1 ? w1[1] : w1[2]);
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float mv = f[3 + a];
-    if (kApic) {
-      r[4 + a] = mv + f[6 + 3 * a + 1] * rdp1;
-      r[7 + a] = f[6 + 3 * a];
-      r[10 + a] = f[6 + 3 * a + 2];
-    } else {
-      r[4 + a] = mv;
-    }
-    r[R::kQ + a] = mv + f[F::kQ + 3 * a + 1] * rdp1;
-    r[R::kQ + 3 + a] = f[F::kQ + 3 * a];
-    r[R::kQ + 6 + a] = f[F::kQ + 3 * a + 2];
-  }
-#pragma unroll
-  for (int e = 0; e < kNch - 6; ++e) r[R::kPlain + e] = f[F::kQ + 9 + e];
-#pragma unroll
-  for (int e = R::kPlain + kNch - 6; e < 4 * R::kVec; ++e) r[e] = 0.0f;
-}
-
-template <int kVec>
-__device__ __forceinline__ void put_rec(const float r[4 * kVec], float4* rec) {
-#pragma unroll
-  for (int v = 0; v < kVec; ++v) {
-    rec[v] = make_float4(r[4 * v], r[4 * v + 1], r[4 * v + 2], r[4 * v + 3]);
-  }
-}
-
-// The slot's taps on axis-0 targets kT0 .. kT0 + 2 of its z column: axis-0
-// tap j0 has weight w0[j0] w1 wz and offset rdp0 = (base0 + j0 - gx0) dx;
-// u and f hold the z parts of pure (APIC) and forced momentum.
-template <int kNch, bool kApic, int kT0>
-__device__ __forceinline__ void add_rows(const float* r, const float w0[3], float wz,
-                                         const float u[3], const float f[3], float dx,
-                                         float acc[kNT][kNch]) {
-  using R = Rec3d<kNch, kApic>;
-#pragma unroll
-  for (int j0 = 0; j0 < 3; ++j0) {
-    const float w = (w0[j0] * r[3]) * wz;
-    const float rdp0 = (static_cast<float>(j0) - r[1]) * dx;
-    float* a = acc[kT0 + j0];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      a[c] += kApic ? w * (u[c] + r[7 + c] * rdp0) : w * r[4 + c];
-      a[3 + c] += w * (f[c] + r[R::kQ + 3 + c] * rdp0);
-    }
-#pragma unroll
-    for (int e = 0; e < kNch - 6; ++e) a[6 + e] += w * r[R::kPlain + e];
-  }
-}
-
-// Adds a staged slot's taps with z tap jz (column base2 + jz) to the
-// column's five axis-0 targets.
-template <int kNch, bool kTent, bool kApic>
-__device__ __forceinline__ void visit(const float4* rec, float jz, float dx,
-                                      float acc[kNT][kNch]) {
-  using R = Rec3d<kNch, kApic>;
-  float r[4 * R::kVec];
-#pragma unroll
-  for (int v = 0; v < R::kVec; ++v) {
-    const float4 f = rec[v];
-    r[4 * v] = f.x;
-    r[4 * v + 1] = f.y;
-    r[4 * v + 2] = f.z;
-    r[4 * v + 3] = f.w;
-  }
-  float w0[3];
-  taps::axis<kTent>(r[1], w0);
-  const float d = jz - r[2];  // c - gx2
-  const float wz = taps::col<kTent>(d), cdz = d * dx;
-  float u[3], f[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    u[c] = kApic ? r[4 + c] + r[10 + c] * cdz : 0.0f;
-    f[c] = r[R::kQ + c] + r[R::kQ + 6 + c] * cdz;
-  }
-  const int t0 = __float_as_int(r[0]);
-  if (t0 == 0) {
-    add_rows<kNch, kApic, 0>(r, w0, wz, u, f, dx, acc);
-  } else if (t0 == 1) {
-    add_rows<kNch, kApic, 1>(r, w0, wz, u, f, dx, acc);
-  } else {
-    add_rows<kNch, kApic, 2>(r, w0, wz, u, f, dx, acc);
-  }
+  rec3d::rec_from<kNch, kTent, kApic>(f, t0, j1, dx, r);
 }
 
 template <int kNch, bool kTent, bool kApic, bool kStress>
@@ -266,7 +129,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict__ out,
              int R1, int K, int G1out, int row_off, int G2, int band, int cap, float dx,
              taps::Fluid fl) {
-  using R = Rec3d<kNch, kApic>;
+  using R = rec3d::Rec<kNch, kApic>;
   extern __shared__ float4 smem[];
   float4* stage = smem;                                              // [cap][kVec]
   int* cnt = reinterpret_cast<int*>(stage + static_cast<size_t>(cap) * R::kVec);
@@ -317,7 +180,7 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
   // straight to their list positions; else the walk reads the positions
   // alone and the records are staged from device memory window by window.
   const bool in_regs = nsrc <= kSteps * kThreads;
-  using F = Fields3d<kNch, kApic>;
+  using F = rec3d::Fields<kNch, kApic>;
   float f[kSteps][F::kN];
   if (in_regs) {
     // Every load of the walk goes out first, then the block's whole output
@@ -327,7 +190,7 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
     for (int j = 0; j < kSteps; ++j) {
       int t1 = 0, k = 0;
       if (lo < hi) locate(min(lo + 32 * j + lane, hi - 1), t1, k);
-      if (lo < hi) load_fields<kNch, kApic, kStress>(in, pencil_of(t1), k, fl, f[j]);
+      if (lo < hi) rec3d::load_fields<kNch, kApic, kStress>(in, pencil_of(t1), k, fl, f[j]);
     }
     gather::zero_outside<kNT, kThreads>(obase, ts, G2, kNch, zb, bw, zb + bw, zb + bw);
     int mn = INT_MAX, mx = INT_MIN;
@@ -384,8 +247,8 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
         const int v = lo + 32 * j + lane;
         locate(v, t1, k);
         float r[4 * R::kVec];
-        rec_from<kNch, kTent, kApic>(f[j], t1, i0, row + 1 - t1, dx, r);
-        put_rec<R::kVec>(r, stage + static_cast<size_t>(pos) * R::kVec);
+        rec_from_source<kNch, kTent, kApic>(f[j], t1, i0, row + 1 - t1, dx, r);
+        rec3d::put_rec<R::kVec>(r, stage + static_cast<size_t>(pos) * R::kVec);
       }
     }
     staged_hi = total;
@@ -425,8 +288,8 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
               int t1, k;
               locate(order[p], t1, k);
               float g[F::kN];
-              load_fields<kNch, kApic, kStress>(in, pencil_of(t1), k, fl, g);
-              rec_from<kNch, kTent, kApic>(g, t1, i0, row + 1 - t1, dx, r);
+              rec3d::load_fields<kNch, kApic, kStress>(in, pencil_of(t1), k, fl, g);
+              rec_from_source<kNch, kTent, kApic>(g, t1, i0, row + 1 - t1, dx, r);
             });
         __syncthreads();
       }
@@ -436,21 +299,14 @@ p2g3d_kernel(taps::Prepped in, const int* __restrict__ counts, float* __restrict
         const int q = max(p0, sub);
         for (int p = q + (share - (q - p0) % kSplit + kSplit) % kSplit; p < end; p += kSplit) {
           const float jz = p < p1 ? 2.0f : (p < p2 ? 1.0f : 0.0f);
-          visit<kNch, kTent, kApic>(stage + (p - staged_lo) * R::kVec, jz, dx, acc);
+          rec3d::visit<kNch, kTent, kApic, 0, 2>(stage + (p - staged_lo) * R::kVec, jz, dx,
+                                                 acc);
         }
       }
       sub = min(need_hi, staged_hi);
     }
-    // The shares of a column, added in a fixed order: s + (s ^ 1), then
-    // with (s ^ 2)'s; every thread of the column ends with the same sums.
-#pragma unroll
-    for (int o = 1; o < kSplit; o <<= 1) {
-#pragma unroll
-      for (int t = 0; t < kNT; ++t) {
-#pragma unroll
-        for (int ch = 0; ch < kNch; ++ch) acc[t][ch] += __shfl_xor_sync(0xffffffffu, acc[t][ch], o);
-      }
-    }
+    // The shares of a column, added in a fixed butterfly.
+    rec3d::butterfly<kNch, kSplit>(acc);
     if (has) {
 #pragma unroll
       for (int t = 0; t < kNT; ++t) {
@@ -468,7 +324,7 @@ template <int kNch, bool kTent, bool kApic, bool kStress>
 int launch(const taps::Prepped& in, const int* counts, float* out, int R0, int R1, int K,
            int G1out, int row_off, int G2, int band, int cap, float dx, const taps::Fluid& fl,
            cudaStream_t stream) {
-  using Rc = Rec3d<kNch, kApic>;
+  using Rc = rec3d::Rec<kNch, kApic>;
   const size_t smem = sizeof(float4) * Rc::kVec * static_cast<size_t>(cap) +
                       sizeof(int) * ((band + 2) * static_cast<size_t>(kWarps) + band + 3 +
                                      static_cast<size_t>(kNT) * K) +

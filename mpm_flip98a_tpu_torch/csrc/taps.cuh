@@ -4,9 +4,10 @@
 // (mpm_flip98a_tpu/ops/pallas/transfer2d.py:123-159): per-tap weights of
 // the fractional offset on the bucketed axes, and a weight of the signed
 // distance along the last axis.  The 3D kernels (p2g3d.cu, p2g3d_grid.cu,
-// g2p3d.cu) share the prepped-plane block and `Slot`; the fixed-order
-// gathers (p2g.cu, p2g3d.cu) the sort and the stores of namespace `gather`
-// at the end.
+// g2p3d.cu) share the prepped-plane block; the fixed-order gathers (p2g.cu,
+// p2g3d.cu, p2g3d_grid.cu) the sort and the stores of namespace `gather`,
+// and the 3D ones the staged record, its sums and their butterfly of
+// namespace `rec3d`, at the end.
 #pragma once
 
 #include <climits>
@@ -68,17 +69,6 @@ inline Prepped prepped_from(const void* const* planes, const long long* strides)
   return in;
 }
 
-// One slot's P2G values and z taps, as the 3D P2G kernels use them: the
-// prepped fields (load_slot) or, in p2g3d_grid.cu's stress mode, the
-// fluid stress computed from the state.  The adds go to a shared slab.
-template <int kNch>
-struct Slot {
-  static constexpr int kPlain = kNch - 6;  // m (+ the 4 ext fields)
-  float mv[3], p[9], q[9], plain[kPlain];
-  float wz[3], cdz[3];  // z taps: weight, (node - particle) dx
-  int z[3];             // z taps: column, -1 outside [0, G2)
-};
-
 // Weakly-compressible fluid constants of the 3D stress modes (p2g3d.cu,
 // p2g3d_grid.cu): Tait (tait 1) or linear EOS, and the viscosity.
 struct Fluid {
@@ -129,74 +119,15 @@ __device__ __forceinline__ void fluid_affine(const Prepped& in, long long pencil
   mass_out = mass;
 }
 
-// The z taps of a slot at gx2 with base column base2 = floor(gx2 - 0.5).
-template <int kNch, bool kTent>
-__device__ __forceinline__ void z_taps(float gx2, float base2, int G2, float dx,
-                                       Slot<kNch>& s) {
-#pragma unroll
-  for (int j2 = 0; j2 < 3; ++j2) {
-    const float cf = base2 + static_cast<float>(j2);
-    const float d = cf - gx2;
-    s.z[j2] = (cf >= 0.0f && cf < static_cast<float>(G2)) ? static_cast<int>(cf) : -1;
-    s.wz[j2] = col<kTent>(d);
-    s.cdz[j2] = d * dx;
-  }
-}
-
-template <int kNch, bool kTent>
-__device__ __forceinline__ void load_slot(const Prepped& in, long long pencil, int k,
-                                          int apic, float gx2, float base2, int G2,
-                                          float dx, Slot<kNch>& s) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) s.mv[a] = in.at(kMv + a, pencil, k);
-#pragma unroll
-  for (int e = 0; e < 9; ++e) {
-    s.p[e] = apic ? in.at(kP + e, pencil, k) : 0.0f;
-    s.q[e] = in.at(kQ + e, pencil, k);
-  }
-#pragma unroll
-  for (int e = 0; e < Slot<kNch>::kPlain; ++e) s.plain[e] = in.at(kM + e, pencil, k);
-  z_taps<kNch, kTent>(gx2, base2, G2, dx, s);
-}
-
-// Momentum of the tap at (rdp0, rdp1) on the bucketed axes, before its z
-// term: m v_a + A_a0 rdp0 + A_a1 rdp1 with A = P (pure) or Q (forced).
-// kApic = false drops P (zero under PIC) at compile time.
-template <int kNch, bool kApic = true>
-__device__ __forceinline__ void affine01(const Slot<kNch>& s, float rdp0, float rdp1,
-                                         float pure[3], float forced[3]) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    pure[a] = kApic ? s.mv[a] + s.p[3 * a] * rdp0 + s.p[3 * a + 1] * rdp1 : s.mv[a];
-    forced[a] = s.mv[a] + s.q[3 * a] * rdp0 + s.q[3 * a + 1] * rdp1;
-  }
-}
-
-// Adds the kNch channel values of z tap j2, weight w = w0 w1 wz, at
-// at[ch * cs] with shared-memory atomics: [m v pure (3), m v forced (3), m
-// (, V0 J, V0, V0 p, V0 div)].  kApic as in affine01.
-template <int kNch, bool kApic = true>
-__device__ __forceinline__ void add_tap(const Slot<kNch>& s, const float pure[3],
-                                        const float forced[3], int j2, float w,
-                                        float* at, int cs) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    atomicAdd(at + a * cs, kApic ? w * (pure[a] + s.p[3 * a + 2] * s.cdz[j2]) : w * pure[a]);
-    atomicAdd(at + (3 + a) * cs, w * (forced[a] + s.q[3 * a + 2] * s.cdz[j2]));
-  }
-#pragma unroll
-  for (int e = 0; e < Slot<kNch>::kPlain; ++e) atomicAdd(at + (6 + e) * cs, w * s.plain[e]);
-}
-
 }  // namespace taps
 
 // ---- Fixed-order gathers ---------------------------------------------------
 //
-// p2g.cu and p2g3d.cu sum each node over its slots in a fixed order, with
-// no float atomics.  A block owns a band of output columns (z in 3D) and
-// walks its source slots as one sequence (the bucket row's slots in 2D; the
-// five source pencils' one after the other in 3D), each warp a contiguous
-// range of it, in steps of 32.  `classify(v)` gives the base column of
+// p2g.cu, p2g3d.cu and p2g3d_grid.cu sum each node over its slots in a
+// fixed order, with no float atomics.  A block owns a band of output
+// columns (z in 3D) and walks its source slots as one sequence (the bucket
+// row's slots in 2D; its source pencils' one after the other in 3D), each
+// warp a contiguous range of it, in steps of 32.  `classify(v)` gives the base column of
 // sequence slot v when its stencil reaches the band, else kNone; it reads
 // the slot's positions unconditionally, so that the unrolled steps of the
 // first walk keep their loads in flight together.  Three walks:
@@ -213,9 +144,9 @@ __device__ __forceinline__ void add_tap(const Slot<kNch>& s, const float pure[3]
 // Walks 2 and 3 read only the tags.  So `order` lists the kept slots by
 // base column and, within a column, in sequence order, whatever order the
 // warps ran in.  The kernels stage the slots' records into shared memory
-// in that order (stage_window, or in p2g3d.cu straight from the walk's
-// registers by place_step) and sum each output column over the slots of
-// base columns c - 2 .. c in it.
+// in that order (stage_window, or in p2g3d.cu and p2g3d_grid.cu straight
+// from the walk's registers by place_step / place_tag) and sum each output
+// column over the slots of base columns c - 2 .. c in it.
 namespace gather {
 
 constexpr int kNone = INT_MIN;
@@ -276,29 +207,34 @@ __device__ __forceinline__ void tag_range(Classify classify, int lo, int hi, int
   reduce_range(mn, mx, range);
 }
 
-// Walk 2: cnt[(tag - tmin) kWarps + warp] += the warp's kept slots of that
-// tag.  cnt zeroed before; the caller synchronises after.
+// Walk 2, one step of the warp's range, every lane with its slot's tag b
+// (-1: not kept, or past the range): cnt[(b - tmin) kWarps + warp] += the
+// step's kept slots of tag b.
+template <int kWarps>
+__device__ __forceinline__ void count_step(int b, int tmin, int* cnt) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(0xffffffffu, b);
+  if (b >= 0 && lane == __ffs(peers) - 1) cnt[(b - tmin) * kWarps + warp] += __popc(peers);
+  __syncwarp();
+}
+
+// Walk 2 over the tags in shared memory.  cnt zeroed before; the caller
+// synchronises after.
 template <int kWarps>
 __device__ __forceinline__ void count_bins(const short* tag, int lo, int hi, int tmin, int* cnt) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int s = lo; s < hi; s += 32) {
-    const int v = s + lane;
-    const int b = v < hi ? tag[v] : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, b);
-    if (b >= 0 && lane == __ffs(peers) - 1) cnt[(b - tmin) * kWarps + warp] += __popc(peers);
-    __syncwarp();
+    const int v = s + (threadIdx.x & 31);
+    count_step<kWarps>(v < hi ? tag[v] : -1, tmin, cnt);
   }
 }
 
-// Walk 3, one step of 32 slots s .. s + 31 (< hi) of the warp's range:
-// the list position of this lane's slot (-1 when it is not kept), its
-// (bin, warp)'s next position in cnt plus the kept slots of its bin before
-// it in the step; cnt is advanced past the step's slots.
+// Walk 3, one step of the warp's range, every lane with its slot's tag b
+// as in count_step: the list position of this lane's slot (-1 when it is
+// not kept), its (bin, warp)'s next position in cnt plus the kept slots of
+// its bin before it in the step; cnt is advanced past the step's slots.
 template <int kWarps>
-__device__ __forceinline__ int place_step(const short* tag, int s, int hi, int tmin, int* cnt) {
+__device__ __forceinline__ int place_tag(int b, int tmin, int* cnt) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int v = s + lane;
-  const int b = v < hi ? tag[v] : -1;
   const unsigned peers = __match_any_sync(0xffffffffu, b);
   const int leader = __ffs(peers) - 1;
   int first = 0;
@@ -310,6 +246,14 @@ __device__ __forceinline__ int place_step(const short* tag, int s, int hi, int t
   first = __shfl_sync(0xffffffffu, first, leader);
   __syncwarp();
   return b >= 0 ? first + __popc(peers & ((1u << lane) - 1u)) : -1;
+}
+
+// Walk 3, one step of 32 slots s .. s + 31 (< hi) over the tags in shared
+// memory.
+template <int kWarps>
+__device__ __forceinline__ int place_step(const short* tag, int s, int hi, int tmin, int* cnt) {
+  const int v = s + (threadIdx.x & 31);
+  return place_tag<kWarps>(v < hi ? tag[v] : -1, tmin, cnt);
 }
 
 // Walk 3: order[position] = v for every kept slot, cnt holding each (bin,
@@ -425,3 +369,191 @@ __device__ __forceinline__ void zero_outside(float* out, long long ts, int cs, i
 }
 
 }  // namespace gather
+
+// ---- The 3D gathers' records and sums --------------------------------------
+//
+// p2g3d.cu and p2g3d_grid.cu stage one record per kept (slot, axis-1 target
+// row), its axis-1 tap folded in, and sum it into the five axis-0 targets a
+// thread holds in registers, acc[kNT][kNch]: the slot's taps land on targets
+// t0, t0 + 1, t0 + 2 (those in [0, kNT)).
+namespace rec3d {
+
+constexpr int kNT = 5;  // axis-0 targets a thread sums
+
+// Staged record of one slot, in float4s: [t0 (int bits), gx0 - base0,
+// gx2 - base2, w1 (the slot's axis-1 tap on the block's row), pure (9
+// APIC: m v + P_a1 rdp1, P_a0, P_a2; 3 PIC: m v), forced (9: m v + Q_a1
+// rdp1, Q_a0, Q_a2), plain (kNch - 6)].
+template <int kNch, bool kApic>
+struct Rec {
+  static constexpr int kQ = 4 + (kApic ? 9 : 3);
+  static constexpr int kPlain = kQ + 9;
+  static constexpr int kVec = (kPlain + kNch - 6 + 3) / 4;
+};
+
+// A slot's input fields as loaded: [gx (3), m v (3), P (9, APIC only),
+// Q (9), plain (kNch - 6)].
+template <int kNch, bool kApic>
+struct Fields {
+  static constexpr int kQ = 6 + (kApic ? 9 : 0);
+  static constexpr int kN = kQ + 9 + kNch - 6;
+};
+
+// The slot's fields from the prepped planes or, in the stress mode
+// (kStress, kNch 7), from the 18 state planes: the fluid stress of
+// taps::fluid_affine.
+template <int kNch, bool kApic, bool kStress>
+__device__ __forceinline__ void load_fields(const taps::Prepped& in, long long pencil, int k,
+                                            const taps::Fluid& fl,
+                                            float f[Fields<kNch, kApic>::kN]) {
+  using F = Fields<kNch, kApic>;
+  if constexpr (kStress) {
+    static_assert(kNch == 7, "the stress mode has 7 channels");
+    float pic_p[9];  // P = 0 under PIC, which the fields do not hold
+#pragma unroll
+    for (int e = 0; e < 3; ++e) f[e] = in.at(taps::kGx + e, pencil, k);
+    taps::fluid_affine<kApic>(in, pencil, k, fl, f + 3, kApic ? f + 6 : pic_p, f + F::kQ,
+                              f[F::kQ + 9]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 6; ++e) f[e] = in.at(taps::kGx + e, pencil, k);  // gx, m v
+#pragma unroll
+    for (int e = 0; e < 9; ++e) {
+      if (kApic) f[6 + e] = in.at(taps::kP + e, pencil, k);
+      f[F::kQ + e] = in.at(taps::kQ + e, pencil, k);
+    }
+#pragma unroll
+    for (int e = 0; e < kNch - 6; ++e) f[F::kQ + 9 + e] = in.at(taps::kM + e, pencil, k);
+  }
+}
+
+// The staged record of a kept slot from its fields: its first axis-0
+// target t0 and its axis-1 tap j1 on the block's row.
+template <int kNch, bool kTent, bool kApic>
+__device__ __forceinline__ void rec_from(const float* f, int t0, int j1, float dx,
+                                         float r[4 * Rec<kNch, kApic>::kVec]) {
+  using R = Rec<kNch, kApic>;
+  using F = Fields<kNch, kApic>;
+  const float gx0 = f[0], gx1 = f[1], gx2 = f[2];
+  const float base0 = floorf(gx0 - 0.5f), base1 = floorf(gx1 - 0.5f);
+  const float base2 = floorf(gx2 - 0.5f);
+  float w1[3];
+  taps::axis<kTent>(gx1 - base1, w1);
+  const float rdp1 = (base1 + static_cast<float>(j1) - gx1) * dx;
+  r[0] = __int_as_float(t0);
+  r[1] = gx0 - base0;
+  r[2] = gx2 - base2;
+  r[3] = j1 == 0 ? w1[0] : (j1 == 1 ? w1[1] : w1[2]);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float mv = f[3 + a];
+    if (kApic) {
+      r[4 + a] = mv + f[6 + 3 * a + 1] * rdp1;
+      r[7 + a] = f[6 + 3 * a];
+      r[10 + a] = f[6 + 3 * a + 2];
+    } else {
+      r[4 + a] = mv;
+    }
+    r[R::kQ + a] = mv + f[F::kQ + 3 * a + 1] * rdp1;
+    r[R::kQ + 3 + a] = f[F::kQ + 3 * a];
+    r[R::kQ + 6 + a] = f[F::kQ + 3 * a + 2];
+  }
+#pragma unroll
+  for (int e = 0; e < kNch - 6; ++e) r[R::kPlain + e] = f[F::kQ + 9 + e];
+#pragma unroll
+  for (int e = R::kPlain + kNch - 6; e < 4 * R::kVec; ++e) r[e] = 0.0f;
+}
+
+template <int kVec>
+__device__ __forceinline__ void put_rec(const float r[4 * kVec], float4* rec) {
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    rec[v] = make_float4(r[4 * v], r[4 * v + 1], r[4 * v + 2], r[4 * v + 3]);
+  }
+}
+
+// The slot's taps on axis-0 targets kT0 .. kT0 + 2 of its z column that
+// lie in [0, kNT): axis-0 tap j0 has weight w0[j0] w1 wz and offset rdp0 =
+// (base0 + j0 - gx0) dx; u and f hold the z parts of pure (APIC) and forced
+// momentum.
+template <int kNch, bool kApic, int kT0>
+__device__ __forceinline__ void add_rows(const float* r, const float w0[3], float wz,
+                                         const float u[3], const float f[3], float dx,
+                                         float acc[kNT][kNch]) {
+  using R = Rec<kNch, kApic>;
+#pragma unroll
+  for (int j0 = 0; j0 < 3; ++j0) {
+    if (kT0 + j0 < 0 || kT0 + j0 >= kNT) continue;
+    const float w = (w0[j0] * r[3]) * wz;
+    const float rdp0 = (static_cast<float>(j0) - r[1]) * dx;
+    float* a = acc[kT0 + j0];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      a[c] += kApic ? w * (u[c] + r[7 + c] * rdp0) : w * r[4 + c];
+      a[3 + c] += w * (f[c] + r[R::kQ + 3 + c] * rdp0);
+    }
+#pragma unroll
+    for (int e = 0; e < kNch - 6; ++e) a[6 + e] += w * r[R::kPlain + e];
+  }
+}
+
+// add_rows at the record's t0, one of kLo .. kHi.
+template <int kNch, bool kApic, int kLo, int kHi>
+__device__ __forceinline__ void add_at(int t0, const float* r, const float w0[3], float wz,
+                                       const float u[3], const float f[3], float dx,
+                                       float acc[kNT][kNch]) {
+  if constexpr (kLo == kHi) {
+    add_rows<kNch, kApic, kLo>(r, w0, wz, u, f, dx, acc);
+  } else {
+    if (t0 == kLo) {
+      add_rows<kNch, kApic, kLo>(r, w0, wz, u, f, dx, acc);
+    } else {
+      add_at<kNch, kApic, kLo + 1, kHi>(t0, r, w0, wz, u, f, dx, acc);
+    }
+  }
+}
+
+// Adds a staged slot's taps with z tap jz (column base2 + jz) to the
+// column's kNT axis-0 targets; its t0 is one of kLo .. kHi.
+template <int kNch, bool kTent, bool kApic, int kLo, int kHi>
+__device__ __forceinline__ void visit(const float4* rec, float jz, float dx,
+                                      float acc[kNT][kNch]) {
+  using R = Rec<kNch, kApic>;
+  float r[4 * R::kVec];
+#pragma unroll
+  for (int v = 0; v < R::kVec; ++v) {
+    const float4 f = rec[v];
+    r[4 * v] = f.x;
+    r[4 * v + 1] = f.y;
+    r[4 * v + 2] = f.z;
+    r[4 * v + 3] = f.w;
+  }
+  float w0[3];
+  taps::axis<kTent>(r[1], w0);
+  const float d = jz - r[2];  // c - gx2
+  const float wz = taps::col<kTent>(d), cdz = d * dx;
+  float u[3], f[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    u[c] = kApic ? r[4 + c] + r[10 + c] * cdz : 0.0f;
+    f[c] = r[R::kQ + c] + r[R::kQ + 6 + c] * cdz;
+  }
+  add_at<kNch, kApic, kLo, kHi>(__float_as_int(r[0]), r, w0, wz, u, f, dx, acc);
+}
+
+// The kSplit threads of a column (consecutive lanes, kSplit a power of
+// two) add their shares in a fixed butterfly: s + (s ^ 1), then with
+// (s ^ 2)'s, ...; every thread of the column ends with the same sums.
+template <int kNch, int kSplit>
+__device__ __forceinline__ void butterfly(float acc[kNT][kNch]) {
+#pragma unroll
+  for (int o = 1; o < kSplit; o <<= 1) {
+#pragma unroll
+    for (int t = 0; t < kNT; ++t) {
+#pragma unroll
+      for (int ch = 0; ch < kNch; ++ch) acc[t][ch] += __shfl_xor_sync(0xffffffffu, acc[t][ch], o);
+    }
+  }
+}
+
+}  // namespace rec3d

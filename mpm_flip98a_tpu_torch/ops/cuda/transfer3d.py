@@ -23,14 +23,15 @@ of its source pencils' slots, and G2P gathers each slot's 27 nodes:
   `fold_rows0_halo` folds into raw `p2g3d_grid`'s halo sums.
 - `p2g3d_grid` (csrc/p2g3d_grid.cu) replaces the Pallas `p2g3d_grid`
   (transfer3d.py:622, pallas_call :709) in one launch: a block owns a tile
-  of target pencils, pulls the taps of its source pencils' slots (the
-  per-slot fluid stress in stress mode, or prepped fields with `ext` and
-  `tent`) into a shared slab, and finishes its nodes there (mass floor,
+  of five target pencils on axis 0, gathers the taps of its source
+  pencils' slots (the per-slot fluid stress in stress mode, or prepped
+  fields with `ext` and `tent`) in a fixed order (no float atomics;
+  reruns are bitwise equal), and finishes its nodes (mass floor,
   gravity, slip / sticky walls or the diagonal penalty solve, the rigid
   SDF colliders of `models/colliders` at kinematic time `tcol`, the nodal
   Jbar, p and div under `ext`) -> the finished G2P-ready padded grid; or,
   `raw=True` (the slab-sharded path's), each shard's raw halo sums, all
-  shards in one launch.  `plan_p2g3d_grid` sizes the tiles.
+  shards in one launch.  `plan_p2g3d_grid` sizes its bands and chunks.
 - `g2p3d` (csrc/g2p3d.cu) replaces the Pallas `g2p3d` (transfer3d.py:930,
   pallas_call :995): the 27-node gather and C = D^-1 sum w v (x_node -
   x_p)^T, then either the particle update (update mode: FLIP blend,
@@ -89,7 +90,7 @@ import torch
 from mpm_flip98a_tpu_torch import _build
 from mpm_flip98a_tpu_torch.models import colliders as col
 from mpm_flip98a_tpu_torch.ops.cuda.transfer2d import (
-    EOS_CODES, WALL_CODES, GatherPlan, _check, _col_weights, _ptr, _raise_on, _route,
+    EOS_CODES, SMEM_SM, WALL_CODES, GatherPlan, _check, _col_weights, _ptr, _raise_on, _route,
     _shard_rows, _stream, _taps, collider_arrays, plan_gather,
 )
 
@@ -103,20 +104,22 @@ G2P_OUT_EXT = 18  # + Jbar, p, div
 G2P_UPD = 16      # update-mode output: x (3), v (3), C (9), J
 N_P2G_IN = 18     # stress-mode input planes
 N_PREPPED_MAX = 29
-# p2g3d_grid's tiles.  BLOCKS_PER_SM blocks share an SM (csrc/p2g3d_grid.cu's
-# kBlocksPerSM, the register cap of its __launch_bounds__) and so its 228 KB
-# of shared memory, less 1 KB the system reserves and the kernel's static
-# arrays (1,160 bytes, SMEM_STATIC with room for rounding) per block.  The
-# planner takes the first of TILES (target pencils on each axis; at most
-# kMaxSrc = 144 source pencils, (8 + 4)^2) whose slab holds MIN_BAND z
-# columns, or all of G2 if fewer.
-BLOCKS_PER_SM = 4
-SMEM_SM = 233_472
-SMEM_STATIC = 1_280
-SMEM_BLOCK = SMEM_SM // BLOCKS_PER_SM - 1_024 - SMEM_STATIC
-TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
-MAX_SOURCES = 144
-MIN_BAND = 32
+# p2g3d_grid's gather (csrc/p2g3d_grid.cu): a block owns a tile of NT
+# target planes on axis 0 and GRID3D_ROWS on axis 1 (its kRows) over a band
+# of at most GRID3D_MAX_BAND z columns, GRID3D_THREADS threads,
+# GRID3D_BLOCKS_PER_SM blocks an SM (its kBlocksPerSM, the register cap of
+# its __launch_bounds__); it keeps the tags of GRID3D_SEQ of its (NT + 4) x
+# (GRID3D_ROWS + 4) source pencils' slots at once (kSeq) and stages `cap`
+# records (one a slot and tile row) a chunk; GRID3D_COLS columns a round
+# (kCols) and the kernel's static arrays (GRID3D_SMEM_STATIC, with room for
+# rounding).
+GRID3D_THREADS = 256
+GRID3D_BLOCKS_PER_SM = 2
+GRID3D_ROWS = 1
+GRID3D_SEQ = 8192
+GRID3D_MAX_BAND = 512
+GRID3D_COLS = 64
+GRID3D_SMEM_STATIC = 1_024
 # p2g3d's gather (csrc/p2g3d.cu): P2G3D_WARPS warps a block (its kWarps),
 # P2G3D_BLOCKS_PER_SM blocks an SM (its kBlocksPerSM), at most
 # P2G3D_MAX_BAND z columns a block.
@@ -521,16 +524,28 @@ def p2g3d_grid_plain(
                                colliders, tcol, dx)
 
 
-@dataclasses.dataclass(frozen=True)
-class TilePlan:
-    """`p2g3d_grid`'s launch plan: tiles of t0 x t1 target pencils (padded
-    planes) over each of `shards` windows of (L0 + 4, R1 + 4) planes, and
-    a shared slab of `band` z columns, nch band + 1 floats per pencil."""
+def grid3d_rec_floats(nch: int, apic: bool) -> int:
+    """Floats of `p2g3d_grid`'s staged record (csrc/taps.cuh, rec3d::Rec):
+    [t0, gx0 - base0, gx2 - base2, w1, pure (9 APIC, 3 PIC), forced (9),
+    plain (nch - 6)], padded to float4s."""
+    return 4 * -(-(4 + (9 if apic else 3) + 9 + nch - 6) // 4)
 
-    t0: int
-    t1: int
+
+@dataclasses.dataclass(frozen=True)
+class GridPlan:
+    """`p2g3d_grid`'s launch plan: blocks (x: shard, axis-0 tile of NT
+    target planes, axis-1 tile of GRID3D_ROWS, the latter fastest; y: z
+    band) over each of `shards` windows of (L0 + 4, R1 + 4) planes; chunks
+    of at most `cap` records of `rec` bytes, which a block stages at once;
+    `smem` dynamic shared bytes a block: the records, the round's sums
+    (GRID3D_ROWS x NT x nch x GRID3D_COLS floats), the sort's counters
+    (GRID3D_ROWS (GRID3D_COLS + 2) keys x warps) and key starts, a first
+    entry for each step of 32 of GRID3D_SEQ slots and their 2-byte tags."""
+
     band: int
-    smem: int        # dynamic shared bytes of one block
+    cap: int
+    rec: int
+    smem: int
     shards: int
     l0: int
     r1: int
@@ -538,24 +553,27 @@ class TilePlan:
 
     @property
     def nt0(self) -> int:
-        return -(-(self.l0 + NT - 1) // self.t0)
+        return -(-(self.l0 + NT - 1) // NT)
 
     @property
     def nt1(self) -> int:
-        return -(-(self.r1 + NT - 1) // self.t1)
+        return -(-(self.r1 + NT - 1) // GRID3D_ROWS)
 
     @property
     def blocks(self) -> int:
         return self.shards * self.nt0 * self.nt1
 
+    @property
+    def bands(self) -> int:
+        return -(-self.g2 // self.band)
+
     def tile(self, block: int):
-        """(shard, window planes [q0lo, q0hi), [q1lo, q1hi)) of a block, as
-        the kernel decodes blockIdx.x: the tile column fastest."""
-        tiles = self.nt0 * self.nt1
-        shard, t = divmod(block, tiles)
-        q0, q1 = (t // self.nt1) * self.t0, (t % self.nt1) * self.t1
-        return (shard, q0, min(q0 + self.t0, self.l0 + NT - 1),
-                q1, min(q1 + self.t1, self.r1 + NT - 1))
+        """(shard, window planes [q0lo, q0hi) on axis 0, [q1lo, q1hi) on
+        axis 1) of blockIdx.x = block, as the kernel decodes it."""
+        shard, rem = divmod(block, self.nt0 * self.nt1)
+        q0lo, q1lo = (rem // self.nt1) * NT, (rem % self.nt1) * GRID3D_ROWS
+        return (shard, q0lo, min(q0lo + NT, self.l0 + NT - 1),
+                q1lo, min(q1lo + GRID3D_ROWS, self.r1 + NT - 1))
 
     def sources(self, block: int):
         """The shard-local source rows [lo, hi] on each axis that a block
@@ -564,18 +582,29 @@ class TilePlan:
         return ((max(q0lo - (NT - 1), 0), min(q0hi - 1, self.l0 - 1)),
                 (max(q1lo - (NT - 1), 0), min(q1hi - 1, self.r1 - 1)))
 
+    def columns(self, by: int):
+        """[c0, c1) of blockIdx.y = by: c0 = by band, c1 = min(c0 + band, G2)."""
+        c0 = by * self.band
+        return c0, min(c0 + self.band, self.g2)
 
-def plan_p2g3d_grid(nch: int, g2: int, r0: int, r1: int, shards: int = 1) -> TilePlan:
-    """The largest of `TILES` (cut to the window) whose slab of nch band + 1
-    floats per pencil holds min(G2, MIN_BAND) z columns in SMEM_BLOCK
-    bytes, and the widest such band: all of G2 where it fits, else the
-    kernel sums the z range its sources reach band by band."""
+
+def plan_p2g3d_grid(nch: int, g2: int, r0: int, r1: int, shards: int = 1,
+                    apic: bool = True) -> GridPlan:
+    """Equal z bands of at most GRID3D_MAX_BAND columns, and the most
+    records a chunk that let GRID3D_BLOCKS_PER_SM blocks share an SM.  A
+    crowded pencil takes more chunks, not more memory."""
     l0 = _shard_rows(r0, shards)
-    for tile in TILES:
-        t0, t1 = min(tile[0], l0 + NT - 1), min(tile[1], r1 + NT - 1)
-        band = min(g2, (SMEM_BLOCK // 4 - t0 * t1) // (t0 * t1 * nch))
-        if band >= min(g2, MIN_BAND) or tile == TILES[-1]:
-            return TilePlan(t0, t1, band, 4 * t0 * t1 * (nch * band + 1), shards, l0, r1, g2)
+    if g2 <= 0 or r1 <= 0:
+        raise ValueError(f"bad grid: r1 {r1}, g2 {g2}")
+    band = -(-g2 // -(-g2 // GRID3D_MAX_BAND))
+    rec = 4 * grid3d_rec_floats(nch, apic)
+    warps = GRID3D_THREADS // 32
+    keys = GRID3D_ROWS * (GRID3D_COLS + 2)
+    fixed = (4 * (GRID3D_ROWS * NT * nch * GRID3D_COLS + keys * warps + keys + 1
+                  + GRID3D_SEQ // 32 + 1) + 2 * GRID3D_SEQ)
+    budget = SMEM_SM // GRID3D_BLOCKS_PER_SM - 1_024 - GRID3D_SMEM_STATIC
+    cap = (budget - fixed) // rec
+    return GridPlan(band, cap, rec, fixed + cap * rec, shards, l0, r1, g2)
 
 
 def p2g3d_grid(
@@ -599,8 +628,12 @@ def p2g3d_grid(
     time `tcol` (None: every collider where its center says); the raw mode
     takes none (the sharded grid update applies them).
 
-    One launch, planned by `plan_p2g3d_grid` (tiles of target pencils, a z
-    band that fits the shared memory); no raw buffer is allocated.
+    One launch, planned by `plan_p2g3d_grid` (tiles of 5 x 1 target
+    pencils, z bands, chunks of records that fit the shared memory); no
+    raw buffer is allocated.  Every node
+    sums its slots in an order fixed by the inputs: two calls on the same
+    inputs give bitwise equal outputs, and the raw mode at one shard equals
+    the non-raw mode's `raw_out` bit for bit.
     `raw_out`, a CUDA tensor (R0 + 4, R1 + 4, 7 or 11, G2) f32 that only a
     checking caller passes, receives the raw sums of the non-raw mode as
     well, uncropped."""
@@ -641,7 +674,7 @@ def p2g3d_grid(
     lib = _build.load().lib
     dev = counts.device
     nch = P2G_CH_EXT if ext else P2G_CH
-    plan = plan_p2g3d_grid(nch, g2, r0, r1, shards)
+    plan = plan_p2g3d_grid(nch, g2, r0, r1, shards, apic)
     if raw:
         raw_out = torch.empty((shards, l0 + NT - 1, r1 + NT - 1, nch, g2),
                               dtype=torch.float32, device=dev)
@@ -657,7 +690,7 @@ def p2g3d_grid(
     kin = tcol is not None and col.any_moving(colliders)
     node = (*(dt * g for g in grav), floor, lo, hi, WALL_CODES[wall], dt * beta,
             col_f, col_i, ncol, int(kin), float(np.float32(tcol)) if kin else 0.0, int(raw),
-            plan.t0, plan.t1, plan.band, _stream(counts))
+            plan.band, plan.cap, _stream(counts))
     raw_ptr = None if raw_out is None else _ptr(raw_out)
     if stress is None:
         ptrs, pstr = _prepped_plane_args(fields, strides, apic, ext)

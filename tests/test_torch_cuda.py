@@ -7,9 +7,9 @@ import no JAX, so on a machine without it run them as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: per output channel, 1e-5 of the channel's max.  Both sides sum
-each node's fp32 terms in another order (shared-memory atomics in
-`p2g3d_grid`, a fixed order of their own in the other P2G kernels, atomics
-in the plain `index_add_` on the card, FMA contraction in the kernels).  The 3D
+each node's fp32 terms in another order (a fixed order of its own in each
+P2G kernel, atomics in the plain `index_add_` on the card, FMA contraction
+in the kernels).  Every P2G kernel's reruns are bitwise equal.  The 3D
 grid's velocities are sums divided by the nodal mass, so their error is
 weighted by that mass and scaled by the raw sum's max; G2P's C by one
 term's size, D^-1 dx |v|max, as its terms cancel.
@@ -264,6 +264,9 @@ def test_p2g3d_grid_kernel_matches_plain(dev, shape, wall):
     mom_max = raw_plain[:, :, [3, 4, 5, 0, 1, 2]].abs().double().amax(dim=(0, 1, 3))
     assert bool((mom_err <= REL * mom_max).all()), (mom_err / mom_max).tolist()
     assert not got[0].any() and not got[r + 1 :].any()
+    raw2 = torch.empty_like(raw)
+    assert torch.equal(got, tk3.p2g3d_grid(planes, counts, r, g, dx, raw_out=raw2, **kw))
+    assert torch.equal(raw, raw2)
 
 
 @pytest.mark.parametrize("shape", [(16, 128, 16), (128, 128, 128)], ids=["small", "g128"])
@@ -383,6 +386,8 @@ def test_p2g3d_grid_prepped_kernel_matches_plain(dev, shape, apic, ext, tent, wa
         top = raw_plain[:, :, [7, 9, 10]].abs().double().amax(dim=(0, 1, 3))
         assert bool((err <= REL * top).all()), (err / top).tolist()
     assert not got[0].any() and not got[r + 1 :].any()
+    assert torch.equal(got, tk3.p2g3d_grid(fields, counts, r, g, dx, apic=apic, tent=tent,
+                                           ext=ext, **node))
 
 
 @pytest.mark.parametrize("shape", [(16, 128, 16), (64, 128, 64)], ids=["small", "g64"])
@@ -545,6 +550,8 @@ def test_p2g3d_grid_raw_kernel_matches_plain(dev, stress, shards):
     want = tk3.p2g3d_raw_plain(fields, counts, g, dx, shards=shards, **kw)
     assert got.shape == want.shape == (shards, l0 + 4, r + 4, want.shape[3], g)
     _close(got, want, axis=3)
+    assert torch.equal(got, tk3.p2g3d_grid(fields, counts, r, g, dx, raw=True, shards=shards,
+                                           **kw))
 
 
 def test_sharded_substeps_on_the_card_track_the_cpu(dev):
@@ -669,6 +676,7 @@ def test_p2g3d_grid_collider_kernel_matches_plain(dev, shape, mode, tcol):
     assert not got[0].any() and not got[r + 1 :].any()
     flips, inside = _inside_flips(call, cols, r)
     assert flips == 0 and inside > 0, (flips, inside)
+    assert torch.equal(got, call(cols, True))
 
 
 def test_cli_runs_dam3d_obstacle_on_the_card(dev, tmp_path):
@@ -690,10 +698,10 @@ def test_cli_runs_dam3d_obstacle_on_the_card(dev, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# p2g3d_grid's tiles: the shapes a tile of target pencils, its source
-# window and its z bands can get wrong (ops/cuda/transfer3d.plan_p2g3d_grid
-# gives 4 x 8 tiles past G2 = 31 whose slab holds 63 z columns at 7
-# channels and 40 at 11).
+# p2g3d_grid's tiles: the shapes a tile of five target planes on axis 0,
+# its source window, its rounds of z columns, its chunks of source slots
+# and its z bands can get wrong (ops/cuda/transfer3d.plan_p2g3d_grid: one
+# band up to G2 = 512, chunks of 768 or 1024 slots).
 # ---------------------------------------------------------------------------
 
 
@@ -729,11 +737,16 @@ EDGE_SHAPES = {
     "empty_tiles": dict(r0=28, r1=20, k=64, g=32, empty=(slice(0, 14), slice(0, 14))),
     # Every slot's base row at -1 or +1 of its pencil's on both axes.
     "margin_edges": dict(r0=12, r1=12, k=64, g=24, rel=(-1, 1)),
-    # A thin layer in a deep grid: the summed z range in bands, the other
+    # A thin layer in a deep grid: one round of its columns, the other
     # columns through the node pass with zero sums.
     "thin_z_g256": dict(r0=12, r1=12, k=64, g=256, z=(40.0, 52.0)),
-    # A G2 that splits the 11-channel slab into z bands over the full depth.
+    # Slots over the full depth: the range summed in two rounds of 64
+    # columns.
     "bands_g128": dict(r0=10, r1=10, k=64, g=128),
+    # Crowded pencils: a tile's sources hold several chunks of slots.
+    "crowded": dict(r0=6, r1=7, k=1536, g=24),
+    # Past 512 columns: two z bands of 300, each its own block.
+    "bands_g600": dict(r0=6, r1=6, k=64, g=600),
 }
 
 
@@ -768,9 +781,10 @@ def test_p2g3d_grid_tiles_match_plain(dev, case, mode):
         ext = mode == "prepped11"
         fields = _prep_planes(planes, live, not ext, ext, seed, dev)
         sums, nch = dict(apic=not ext, ext=ext, tent=mode == "tent7"), 11 if ext else 7
-    plan = tk3.plan_p2g3d_grid(nch, g, r0, r1)
-    if case in ("thin_z_g256", "bands_g128"):
-        assert plan.band < g
+    plan = tk3.plan_p2g3d_grid(nch, g, r0, r1, apic=sums["apic"])
+    assert plan.bands == (2 if g > tk3.GRID3D_MAX_BAND else 1)
+    if case == "crowded":
+        assert int(counts.view(r0, r1)[:5, :5].sum()) > 2 * plan.cap
     raw = torch.empty((r0 + 4, r1 + 4, nch, g), device=dev)
     n0 = tk3.LAUNCHES["p2g3d_grid"]
     got = tk3.p2g3d_grid(fields, counts, r1, g, dx, raw_out=raw, **sums, **node)
@@ -779,6 +793,13 @@ def test_p2g3d_grid_tiles_match_plain(dev, case, mode):
     raw_plain = tk3.p2g3d_raw_plain(fields, counts, g, dx, **sums)
     want = tk3.p2g3d_grid_plain(fields, counts, r1, g, dx, **sums, **node)
     _check_grid(got, raw, raw_plain, want, nch == 11, r0)
+    # Reruns bitwise equal, and the raw mode's sums (one shard) bitwise the
+    # non-raw mode's raw_out.
+    raw2 = torch.empty_like(raw)
+    assert torch.equal(got, tk3.p2g3d_grid(fields, counts, r1, g, dx, raw_out=raw2, **sums,
+                                           **node))
+    assert torch.equal(raw, raw2)
+    assert torch.equal(raw, tk3.p2g3d_grid(fields, counts, r1, g, dx, raw=True, **sums)[0])
 
 
 @pytest.mark.parametrize("stress", ["linear", None], ids=["stress", "prepped11"])
@@ -809,6 +830,35 @@ def test_p2g3d_grid_raw_tiles_match_plain(dev, stress, shards, r1, g):
     assert got.shape == want.shape == (shards, l0 + 4, r1 + 4, want.shape[3], g)
     _close(got, want, axis=3)
     assert not got[1].any()
+    assert torch.equal(got, tk3.p2g3d_grid(fields, counts, r1, g, dx, raw=True, shards=shards,
+                                           **kw))
+
+
+@pytest.mark.parametrize("pos", [(2.7, 2.3, 4.6), (2.2, 3.9, 3.1), (4.6, 0.6, 0.6),
+                                 (0.6, 5.4, 7.4)], ids=["inner", "axis1_taps", "low_edges",
+                                                        "high_edges"])
+def test_p2g3d_grid_one_particle_lands_whole(dev, pos):
+    """One particle of unit mass: its 27 taps (those inside the grid) land
+    with the plain version's weights, across tile edges on both axes and
+    on the z edges, and its mass sums to 1."""
+    r, k, g = 6, 2, 8
+    planes = [torch.zeros((r, r, k)) for _ in range(18)]
+    pen = tuple(int(x - 0.5) for x in pos[:2])
+    for e in range(3):
+        planes[e][pen[0], pen[1], 0] = pos[e]
+    planes[15][...] = 1.0
+    planes[16][pen[0], pen[1], 0] = 1.0
+    planes[17][pen[0], pen[1], 0] = 1e-3
+    counts = torch.zeros(r * r, dtype=torch.int32)
+    counts[pen[0] * r + pen[1]] = 1
+    kw = dict(apic=False, stress="linear", kb=0.0, mu=0.0, gamma=7.0, fa=0.0)
+    want = tk3.p2g3d_raw_plain(planes, counts, g, 0.1, **kw)
+    got = tk3.p2g3d_grid([p.to(dev).contiguous() for p in planes], counts.to(dev), r, g, 0.1,
+                         raw=True, **kw)[0].cpu()
+    _close(got, want, axis=2)
+    inside = float(want[:, :, 6].sum())
+    assert abs(float(got[:, :, 6].sum()) - inside) <= 1e-6
+    assert inside > 0.5
 
 
 def test_p2g3d_grid_allocates_no_raw_buffer(dev):

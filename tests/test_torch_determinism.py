@@ -5,11 +5,15 @@ bit, on the general path and the fast path (37^2, float32, 100 substeps:
 tests/test_determinism.py:22-37).  The port is held the same way there,
 and on the plastic scenes at 37^2: the sand column (dt 5e-5, 12 x 30) and
 the snow block thrown at the floor (dt 2e-5, 24^2 at -2 m/s), whose
-updates run the SVD, the return map and the Jp clamp.  On the CPU every
-sum has a fixed order (`index_add_` is sequential there; the fast path's
-plain kernel versions sum in a fixed order).  On the card, two 100-substep
-2D fast runs must be bitwise equal too (chip_smoke.py, main:plastic);
-the general path's `index_add_` adds with atomics there (ROADMAP queue 3).
+updates run the SVD, the return map and the Jp clamp; and the 3D fast
+path at 16^3 on its fused branch (the fluid stress inside `p2g3d_grid`)
+and its prepped one (the stabilized set), on one device and in two slab
+shards (`SlabMesh(2)`, `p2g3d_grid`'s raw mode).  On the CPU every sum has
+a fixed order (`index_add_` is sequential there; the fast path's plain
+kernel versions sum in a fixed order).  On the card every P2G kernel and
+the general path's scatter sum in a fixed order too, and chip_smoke.py
+holds their reruns bitwise equal (main:plastic, main:checkpoint, the
+kernels' rerun checks).
 """
 
 import dataclasses
@@ -18,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from mpm_flip98a_tpu_torch.config import MPMConfig
-from mpm_flip98a_tpu_torch.models import fast2d, scenes, stabilized
+from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+from mpm_flip98a_tpu_torch.models import fast2d, fast3d, scenes, stabilized
+from mpm_flip98a_tpu_torch.parallel import SlabMesh
+from mpm_flip98a_tpu_torch.parallel import fast_domain3d as fd3
 
 FAST = MPMConfig(dtype="float32", num_grids=37, dt=2e-5, num_particles_x=16,
                  num_particles_y=32)
@@ -67,3 +73,26 @@ def test_fast_path_bit_exact(name):
     for f in dataclasses.fields(a):
         assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
     assert not torch.equal(a.x1, b0.x1)
+
+
+@pytest.mark.parametrize("shards", [1, 2], ids=["one_device", "slab2"])
+@pytest.mark.parametrize("branch", ["fused", "prepped"])
+def test_fast3d_path_bit_exact(branch, shards):
+    stab = dict(use_fbar=True, use_penalty_ebc=True, pressure_mixing_ratio=1.0,
+                flip_blend=0.98, transfer=TransferKind.PIC) if branch == "prepped" else {}
+    p, scene = scenes.dam_break_3d(num_grids=16, particles_per_axis=(6, 6, 10), dt=2e-5,
+                                   dtype=np.float32, **stab)
+    if shards == 1:
+        spec = fast3d.FastSpec3D.for_particles(scene.cfg, p, headroom=2.0)
+        b0 = fast3d.from_particles(p, scene.cfg, spec, "cpu")
+        step = lambda b: fast3d.run(b, scene, spec, 10)
+    else:
+        mesh = SlabMesh(shards, "cpu")
+        spec = fd3.FastDomain3DSpec.for_particles(scene.cfg, shards, p)
+        b0 = fd3.distribute(p, scene.cfg, spec, mesh)
+        step = lambda b: fd3.make_run(scene, spec, mesh)(b, 10)
+    assert fast3d.uses_fused(scene) == (branch == "fused")
+    a, b = step(b0), step(b0)
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+    assert not torch.equal(a.x2, b0.x2)
