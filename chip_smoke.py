@@ -223,15 +223,19 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                with the projection, fast against general after 1 and 200
                (100) substeps; then the {"incompressible": {...}} line;
 37. main:general_determinism  the general path's fixed-order scatter
-               (csrc/scatter.cu): two 100-substep general runs bitwise
-               equal at the 37^2 float32 scene and at bench 1M (scatter
-               launches counted, no transfer kernel); every scatter of one
-               substep of the reference scene and of bench 1M through the
-               kernel bitwise the CPU's index_add_ on the same rows, and
-               rerun equal; card against CPU after 200 float32 substeps at
-               37^2 (v and C within CARRIED_FIXED); the scatter's kernel,
-               plan (stable sort), plain and index_add_ times by CUDA
-               events and its bound at bench 1M and slab 1M;
+               (csrc/scatter.cu on a plan of one key a particle): two
+               100-substep general runs bitwise equal at the 37^2 float32
+               scene and at bench 1M (scatter and key-kernel launches
+               counted, no transfer kernel); every scatter of one substep of the
+               reference scene, bench 1M, slab 1M and a dense node (bench
+               1M with 20,000 particles at one point) through the kernel
+               bitwise the CPU's index_add_ on the same rows, and rerun
+               equal; card against CPU after 200 float32 substeps at 37^2
+               (v and C within CARRIED_FIXED); the scatter's kernel, plan
+               (whole and its stable sort alone), plain and index_add_
+               times by CUDA events (back to back, and on the device
+               alone) and its bound at bench 1M, slab 1M and the dense
+               node; the key kernel against its plain version;
 38. main:checkpoint  2 frames uninterrupted against 1 frame, a checkpoint,
                a fresh Simulation restoring it and 1 frame: bench 1M fast
                (npz) and in 4 shards (a shard directory), the reference
@@ -374,7 +378,10 @@ mode under "update_*" (with "update_prepadded_*" and "update_sharded_*"),
 p2g3d's stress mode under "stress_*" (0 launches: no path runs it), and
 "scatter", the general path's fixed-order scatter
 (not a TPU kernel), with "equal_to_cpu", "rerun_bitwise_equal",
-"plan_ms" and its slab 1M numbers under "slab1M_*", and each rank's
+"plan_ms", "sort_ms", "kernel_plus_plan_ms", the device-only times
+"*_device_ms" and its slab 1M and dense node numbers under "slab1M_*"
+and "dense_*"; "scatter_keys", the plan's key kernel in csrc/scatter.cu;
+and each rank's
 launches in every run of phases 44-47 under "ranks_launches"); the fast
 paths on ranks (phases 49-50): each rank's launches under "ranks_launches"
 (p2g_grid, g2p at bench 1M; p2g3d_grid, g2p3d at slab 8M, with
@@ -486,6 +493,23 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     for _ in range(warm):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Device time a call: the calls queued behind a sleep kernel, so the
+    host's time between launches does not show (for calls of several
+    launches whose device time is below their host time)."""
+    for _ in range(warm):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -3443,22 +3467,43 @@ CARRIED_FIXED = dict(CARRIED, v=1e-6, C=1e-6)
 
 
 def scatter_calls(call):
-    """The (values, flat, nodes) of every `scatter_add` that `call()`
-    makes, in order."""
+    """Every scatter that `call()` makes, in order: ("stencil", values
+    (N, S, c), base, offsets, grid shape) of the node transfers and
+    ("one_tap", values (M, c), flat, nodes) of the F-bar cell sums."""
     from mpm_flip98a_tpu_torch.ops.cuda import scatter
 
-    seen, real = [], scatter.scatter_add
+    seen, real_s, real_a = [], scatter.stencil_add, scatter.scatter_add
 
-    def spy(values, flat, nodes, plan=None):
-        seen.append((values.clone(), flat.clone(), nodes))
-        return real(values, flat, nodes, plan)
+    def stencil(values, base, offsets, grid_shape, plan=None):
+        seen.append(("stencil", values.clone(), base.clone(), offsets, tuple(grid_shape)))
+        return real_s(values, base, offsets, grid_shape, plan)
 
-    scatter.scatter_add = spy
+    def one_tap(values, flat, nodes, plan=None):
+        seen.append(("one_tap", values.clone(), flat.clone(), nodes))
+        return real_a(values, flat, nodes, plan)
+
+    scatter.stencil_add, scatter.scatter_add = stencil, one_tap
     try:
         call()
     finally:
-        scatter.scatter_add = real
+        scatter.stencil_add, scatter.scatter_add = real_s, real_a
     return seen
+
+
+def _scatter_fns(call):
+    """(kernel, plain on the same device, plain on the CPU) of one
+    captured scatter."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    if call[0] == "stencil":
+        _, values, base, offsets, shape = call
+        return (lambda: scatter.stencil_add(values, base, offsets, shape),
+                lambda: scatter.stencil_add_plain(values, base, offsets, shape),
+                lambda: scatter.stencil_add_plain(values.cpu(), base.cpu(), offsets, shape))
+    _, values, flat, nodes = call
+    return (lambda: scatter.scatter_add(values, flat, nodes),
+            lambda: scatter.scatter_add_plain(values, flat, nodes),
+            lambda: scatter.scatter_add_plain(values.cpu(), flat.cpu(), nodes))
 
 
 def general_reruns(tag, p, scene, dev, n_sub, card):
@@ -3477,78 +3522,130 @@ def general_reruns(tag, p, scene, dev, n_sub, card):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     n_launch = scatter.LAUNCHES["scatter"]
+    n_keys = scatter.LAUNCHES["scatter_keys"]
     b = stabilized.run(start, scene, n_sub)
     differ = [f.name for f in dataclasses.fields(a) if not torch.equal(getattr(a, f.name),
                                                                         getattr(b, f.name))]
     say(f"[main:general_determinism {tag}] {p.n} particles, {a.x.dtype}: two {n_sub}-substep "
         f"general runs on the card, fields not bitwise equal {differ}; {n_launch} scatter "
-        f"launches a run, transfer kernels {kernel_counts()}; {1e3 * secs / n_sub:.4f} "
-        f"ms/substep  [{card}]")
+        f"and {n_keys} key-kernel launches a run, transfer kernels {kernel_counts()}; "
+        f"{1e3 * secs / n_sub:.4f} ms/substep  [{card}]")
     check(not differ, f"{tag}: two general runs on the card differ in {differ}")
-    check(n_launch >= n_sub and not any(kernel_counts().values()),
-          f"{tag}: the general path did not go through the scatter kernel alone")
-    return not differ, n_launch
+    check(n_launch >= n_sub and n_keys >= n_sub and not any(kernel_counts().values()),
+          f"{tag}: the general path did not go through the scatter kernels alone")
+    return not differ, n_launch, n_keys
 
 
 def scatter_against(tag, calls, card, timed=False):
     """Each captured scatter through the kernel against the CPU's
     `index_add_` on the same rows (bitwise) and the plain version on the
-    card; with `timed`, the largest call's kernel, plan (the stable sort),
-    plain and `index_add_` times by CUDA events and its bound."""
-    from mpm_flip98a_tpu_torch.ops.cuda import scatter
-
+    card; with `timed`, the largest stencil call's times (`time_stencil`)."""
     equal, worst = True, 0.0
-    for values, flat, nodes in calls:
-        got = scatter.scatter_add(values, flat, nodes)
-        cpu = scatter.scatter_add_plain(values.cpu(), flat.cpu(), nodes)
-        equal = equal and torch.equal(got.cpu(), cpu)
-        worst = max(worst, float((got - scatter.scatter_add_plain(values, flat, nodes))
-                                 .abs().max()))
-    rerun = all(torch.equal(scatter.scatter_add(*c), scatter.scatter_add(*c)) for c in calls)
+    for call in calls:
+        kernel, plain, cpu = _scatter_fns(call)
+        got = kernel()
+        equal = equal and torch.equal(got.cpu(), cpu())
+        worst = max(worst, float((got - plain()).abs().max()))
+    rerun = True
+    for call in calls:
+        kernel = _scatter_fns(call)[0]
+        rerun = rerun and torch.equal(kernel(), kernel())
     say(f"[main:general_determinism {tag}] {len(calls)} scatters of one substep "
-        f"({[tuple(c[0].shape) for c in calls]} rows into {[c[2] for c in calls]} nodes): "
-        f"kernel bitwise equal to the CPU's index_add_ {equal}, reruns bitwise equal {rerun}, "
-        f"max |kernel - index_add_ on the card| {worst:.3e}  [{card}]")
+        f"({[(c[0], tuple(c[1].shape)) for c in calls]}): kernel bitwise equal to the CPU's "
+        f"index_add_ {equal}, reruns bitwise equal {rerun}, max |kernel - index_add_ on the "
+        f"card| {worst:.3e}  [{card}]")
     check(equal, f"{tag}: the scatter kernel differs from the CPU's index_add_")
     check(rerun, f"{tag}: scatter reruns differ")
     SCATTER["equal_to_cpu"] = SCATTER.get("equal_to_cpu", True) and equal
     SCATTER["rerun_bitwise_equal"] = SCATTER.get("rerun_bitwise_equal", True) and rerun
     SCATTER["max_abs_err"] = max(SCATTER.get("max_abs_err", 0.0), worst)
-    if not timed:
-        return
-    values, flat, nodes = max(calls, key=lambda c: c[0].numel())
-    m, c = values.shape
-    plan = scatter.segment_plan(flat, nodes)
+    if timed:
+        time_stencil(tag, max((c for c in calls if c[0] == "stencil"),
+                              key=lambda c: c[1].numel()), card)
+
+
+def time_stencil(tag, call, card):
+    """The stencil scatter's kernel on a given plan, the plan (whole, and
+    its stable sort alone), `index_add_` alone over the clipped rows, the
+    plain version, and the bound: the rows read (the taps in bounds), the
+    order, the starts and the sums, each moved once, one add a row
+    channel.  Back to back by CUDA events (host time between launches
+    shows where it exceeds the device's), and on the device alone
+    (`device_ms`).  Also the plan's key kernel against its plain version."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    _, values, base, offsets, shape = call
+    n, taps, c = values.shape
+    nodes = int(np.prod(shape))
+    plan = scatter.stencil_plan(base, shape)
+    keys, cells = scatter.stencil_keys(base, shape)
+    keys_equal = torch.equal(keys, scatter.stencil_keys_plain(base, shape)[0])
+    check(keys_equal, f"{tag}: the plan's key kernel differs from its plain version")
+    flat, in_bounds = scatter.stencil_flat(base, offsets, shape)
+    rows = torch.where(in_bounds[..., None], values, 0.0).reshape(-1, c)
+    flat = flat.reshape(-1)
     zero = torch.zeros((nodes, c), dtype=values.dtype, device=values.device)
+    kernel = lambda: scatter.stencil_add(values, base, offsets, shape, plan)
+    whole = lambda: scatter.stencil_plan(base, shape)
+    library = lambda: zero.index_add_(0, flat, rows)
     t = {
-        "ms": cuda_ms(lambda: scatter.scatter_add(values, flat, nodes, plan)),
-        "plan_ms": cuda_ms(lambda: scatter.segment_plan(flat, nodes)),
-        # The stable sort on the int64 ids themselves, for the plan's int32 keys.
-        "sort_int64_ms": cuda_ms(lambda: torch.sort(flat, stable=True)),
-        "plain_ms": cuda_ms(lambda: scatter.scatter_add_plain(values, flat, nodes)),
-        "library_ms": cuda_ms(lambda: zero.index_add_(0, flat, values)),
+        "ms": cuda_ms(kernel),
+        "plan_ms": cuda_ms(whole),
+        "sort_ms": cuda_ms(lambda: torch.sort(keys, stable=True)),
+        "plain_ms": cuda_ms(lambda: scatter.stencil_add_plain(values, base, offsets, shape)),
+        "library_ms": cuda_ms(library),
+        "device_ms": device_ms(kernel),
+        "plan_device_ms": device_ms(whole),
+        "library_device_ms": device_ms(library),
+        "keys_ms": cuda_ms(lambda: scatter.stencil_keys(base, shape)),
+        "keys_plain_ms": cuda_ms(lambda: scatter.stencil_keys_plain(base, shape)),
+        "keys_equal": keys_equal,
     }
-    # values and the int64 node ids read once, the sums written once; one
-    # add a row channel.
-    t["bound_ms"], t["bound_by"] = bound(values.element_size() * (m * c + nodes * c) + 8 * m,
-                                         m * c)
-    say(f"[timing:scatter {tag}] {m} rows x {c} channels into {nodes} nodes "
-        f"({values.dtype}): kernel {t['ms']:.4f} ms + the plan (int32 stable sort, "
-        f"bincount, cumsum) {t['plan_ms']:.4f} ms (the sort on int64 keys alone "
-        f"{t['sort_int64_ms']:.4f} ms), plain (index_add_ with its zeros) "
-        f"{t['plain_ms']:.4f} ms, "
-        f"index_add_ alone {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']}) (CUDA events, 20 calls)  [{card}]")
+    read = int(in_bounds.sum())
+    longest = int((plan.starts[1:] - plan.starts[:-1]).max())
+    t["bound_ms"], t["bound_by"] = bound(
+        values.element_size() * (read + nodes) * c + 4 * (int(plan.starts[-1]) + cells + 1),
+        read * c)
+    t["keys_bound_ms"], t["keys_bound_by"] = bound(base.element_size() * base.numel() + 4 * n, 0)
+    t["kernel_plus_plan_ms"] = t["ms"] + t["plan_ms"]
+    t["kernel_plus_plan_device_ms"] = t["device_ms"] + t["plan_device_ms"]
+    say(f"[timing:scatter {tag}] {n} particles x {taps} taps x {c} channels ({values.dtype}) "
+        f"into {nodes} nodes, {read} rows read, longest run {longest}: kernel {t['ms']:.4f} ms "
+        f"+ the plan (key kernel, int32 stable sort of {n} keys, starts by searchsorted) "
+        f"{t['plan_ms']:.4f} ms (its sort alone {t['sort_ms']:.4f} ms) = "
+        f"{t['kernel_plus_plan_ms']:.4f} ms against index_add_ alone over the {n * taps} "
+        f"clipped rows {t['library_ms']:.4f} ms; on the device alone {t['device_ms']:.4f} + "
+        f"{t['plan_device_ms']:.4f} = {t['kernel_plus_plan_device_ms']:.4f} ms against "
+        f"{t['library_device_ms']:.4f}; plain (stencil_add_plain: flat index, mask, index_add_) "
+        f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}); the key "
+        f"kernel {t['keys_ms']:.4f} ms (plain {t['keys_plain_ms']:.4f}, bound "
+        f"{t['keys_bound_ms']:.4f}), equal to its plain version {keys_equal} (CUDA events, 20 "
+        f"calls after 3)  [{card}]")
     SCATTER.update(t if tag == "bench1M" else {f"{tag}_{k}": v for k, v in t.items()})
+
+
+def dense_node(p, scene, dev, card):
+    """Bench 1M with 20,000 of its particles moved to one point (one key
+    cell whose 9 nodes each read all of them): every scatter of a substep
+    bitwise the CPU's index_add_, reruns equal, and the momentum scatter's
+    time beside index_add_'s."""
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    x = p.x.clone()
+    x[np.random.default_rng(0).choice(p.n, 20_000, replace=False)] = x[p.n // 2].clone()
+    state = to_device(dataclasses.replace(p, x=x), dev)
+    scatter_against("dense", scatter_calls(lambda: stabilized.substep(state, scene)), card,
+                    timed=True)
 
 
 def general_determinism(dev, card):
     """Phase 37, main:general_determinism: bitwise general reruns on the
     card (the 37^2 float32 scene of tests/test_determinism.py, bench 1M),
-    the scatter kernel bitwise the CPU's index_add_ (the reference scene's
-    and bench 1M's substep inputs), card against CPU after 200 float32
-    substeps at 37^2, and the scatter's time against index_add_ at bench
-    1M and slab 1M."""
+    the scatter kernel bitwise the CPU's index_add_ (the reference scene's,
+    bench 1M's, slab 1M's and the dense node's substep inputs), card
+    against CPU after 200 float32 substeps at 37^2, and the scatter's time
+    against index_add_ at bench 1M, slab 1M and the dense node."""
     from mpm_flip98a_tpu_torch import driver
     from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
     from mpm_flip98a_tpu_torch.models import scenes, stabilized
@@ -3560,7 +3657,8 @@ def general_determinism(dev, card):
     general_reruns("37^2", p37, scene37, dev, 100, card)
     p_b, scene_b = scenes.dam_break_2d(MPMConfig(**BENCH, transfer=TransferKind.PIC),
                                        dtype=np.float32)
-    _, SCATTER["launches"] = general_reruns("bench1M", p_b, scene_b, dev, 100, card)
+    _, SCATTER["launches"], SCATTER["keys_launches"] = general_reruns("bench1M", p_b, scene_b,
+                                                                      dev, 100, card)
     p_ref, scene_ref = driver.SCENARIOS["dam2d"]()
     ref_state = stabilized.run(to_device(p_ref, dev), scene_ref, 100)
     scatter_against("reference", scatter_calls(lambda: stabilized.substep(ref_state,
@@ -3569,6 +3667,7 @@ def general_determinism(dev, card):
     scatter_against("bench1M", scatter_calls(lambda: stabilized.substep(b_state, scene_b)),
                     card, timed=True)
     del b_state, ref_state
+    dense_node(p_b, scene_b, dev, card)
     p1, scene1 = scenes.slab_3d(**SLAB_1M)
     s1 = to_device(p1, dev)
     scatter_against("slab1M", scatter_calls(lambda: stabilized.substep(s1, scene1)), card,
@@ -3966,6 +4065,15 @@ def port_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches):
         **{k: SCATTER[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms")},
         **{k: v for k, v in SCATTER.items() if k not in kernels[0]},
+    })
+    kernels.append({
+        "name": "scatter_keys", "route": "cuda", "source": "mpm_flip98a_tpu_torch/csrc/scatter.cu",
+        "replaces": "mpm_flip98a_tpu/ops/transfer.py:70",
+        "replaces_kind": "the scatter's plan: one key a particle (not a Pallas kernel)",
+        "launches": SCATTER["keys_launches"], "max_abs_err": 0.0 if SCATTER["keys_equal"] else 1.0,
+        "ms": SCATTER["keys_ms"], "plain_ms": SCATTER["keys_plain_ms"],
+        "bound_ms": SCATTER["keys_bound_ms"], "bound_by": SCATTER["keys_bound_by"],
+        "library_ms": None,
     })
 
 

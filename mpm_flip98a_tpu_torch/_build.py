@@ -85,9 +85,11 @@ SIGNATURES = {
     # planes (4), pencil strides, counts, grid, out, R0, L0, R1, K, G2, grid
     # channels, tent, dx, dinv, stream
     "mpm_g2p3d_gather": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    # values, order, starts, out, nodes, channels, stream
-    "mpm_segment_sum_f32": (_P, _P, _P, _P, _L, _I, _P),
-    "mpm_segment_sum_f64": (_P, _P, _P, _P, _L, _I, _P),
+    # values, order, starts, out, nodes, channels, taps, g1, g2, stream
+    "mpm_segment_sum_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    "mpm_segment_sum_f64": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # base, keep (or null), particles, d, g0, g1, g2, keys, stream
+    "mpm_stencil_keys": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 

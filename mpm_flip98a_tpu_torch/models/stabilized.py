@@ -24,10 +24,12 @@ blend, the general APIC D for the tent, advection, the F and J updates,
 the plasticity clamp and the consistency diagnostics.
 
 Plain torch, but for the scatter: the JAX general path reaches no Pallas
-kernel; its XLA scatter-add is `ops/cuda/scatter.scatter_add` (on the CPU
-`index_add_`, on the card a fixed-order segment sum, so card reruns are
-bitwise equal) and its gather a plain gather (`ops/transfer.py`).  The flat node index is built once a substep and
-serves every transfer.  Constants enter as Python floats rounded to the
+kernel; its XLA scatter-add is `ops/cuda/scatter.stencil_add` for the
+node transfers and `scatter_add` for the cell sums (on the CPU
+`index_add_`, on the card a fixed-order sum in the CPU's order, so card
+reruns are bitwise equal) and its gather a plain gather
+(`ops/transfer.py`).  The flat node index and the scatter's plan are built
+once a substep and serve every transfer.  Constants enter as Python floats rounded to the
 particles' dtype (as JAX's `jnp.asarray(c, dtype)` does), and no value is
 read on the host, so `run` queues its substeps on the card without a
 synchronisation, except the projection's CG (`models/projection.py`),

@@ -9,11 +9,12 @@ particles never produce one, since the grid is padded.
 The flat index can be built once (`flat_node_index`) and passed to both
 transfers of a substep.  The gather takes whole rows, or single elements
 where the rows are a multiple of 16 bytes.  The scatter is
-`ops/cuda/scatter.scatter_add`: on the CPU `index_add_`, which adds the
+`ops/cuda/scatter.stencil_add`: on the CPU `index_add_`, which adds the
 updates in order, as XLA's CPU scatter does; on the card a kernel that
-sums each node's rows in that same order (a stable sort of the flat index,
-built once in `flat_node_index` and shared by the substep's scatters), so
-card runs are bitwise reproducible and equal to the CPU's sums.
+sums each node's rows in that same order (the plan, a stable sort of one
+key a particle, is built once in `flat_node_index` and shared by the
+substep's scatters), so card runs are bitwise reproducible and equal to
+the CPU's sums.
 """
 
 from __future__ import annotations
@@ -38,23 +39,13 @@ def flat_node_index(base: torch.Tensor, offsets: np.ndarray, grid_shape,
     """Flat node index of every (particle, stencil node) pair.
 
     base: (N, d) integer base nodes; offsets: (S, d) static.  On the card
-    the index also carries the scatter's `segment_plan` (one stable sort a
-    substep), which leaves out the rows of particles where the (N,) bool
-    `keep` is False (particles whose every contribution is +-0: the sums
-    are the same bit for bit); the CPU's `index_add_` needs none."""
-    off = constant(offsets, torch.int64, base.device)
-    strides = np.concatenate([np.cumprod(np.asarray(grid_shape[1:], np.int64)[::-1])[::-1], [1]])
-    flat, in_bounds = None, None
-    for k, g in enumerate(grid_shape):
-        idx = base[:, None, k].to(torch.int64) + off[None, :, k]
-        ok = (idx >= 0) & (idx < g)
-        term = idx.clamp(0, g - 1) * int(strides[k])
-        flat = term if flat is None else flat + term
-        in_bounds = ok if in_bounds is None else in_bounds & ok
-    plan = None
-    if flat.is_cuda:
-        rows = None if keep is None else keep[:, None].expand(flat.shape)
-        plan = scatter.segment_plan(flat, int(np.prod(grid_shape)), rows)
+    the index also carries the scatter's `stencil_plan` (one stable sort of
+    one key a particle, a substep), which leaves out the particles where
+    the (N,) bool `keep` is False (particles whose every contribution is
+    +-0: the sums are the same bit for bit); the CPU's `index_add_` needs
+    none."""
+    flat, in_bounds = scatter.stencil_flat(base, offsets, grid_shape)
+    plan = scatter.stencil_plan(base, grid_shape, keep) if flat.is_cuda else None
     return Index(flat, in_bounds, plan)
 
 
@@ -66,12 +57,11 @@ def p2g_scatter(
     index: Optional[Index] = None,
 ) -> torch.Tensor:
     """Scatter-add weighted per-(particle, stencil node) values (N, S, c)
-    onto the grid; returns (G..., c)."""
+    onto the grid; returns (G..., c).  Out-of-bounds stencil nodes add
+    nothing (the CPU's clipped rows are +0; the card never reads them)."""
     c = values.shape[-1]
-    index = index if index is not None else flat_node_index(base, offsets, grid_shape)
-    values = torch.where(index.in_bounds[..., None], values, 0.0)
-    out = scatter.scatter_add(values.reshape(-1, c), index.flat.reshape(-1),
-                              int(np.prod(grid_shape)), index.plan)
+    plan = index.plan if index is not None else None
+    out = scatter.stencil_add(values, base, offsets, grid_shape, plan)
     return out.reshape(tuple(grid_shape) + (c,))
 
 

@@ -1331,6 +1331,82 @@ def test_scatter_plan_without_zero_rows_equals_cpu_index_add(dev, dtype):
     assert torch.equal(got.cpu(), want)
 
 
+def _stencil_rows(dim, dtype, seed, n, dense=0):
+    """(values (N, 3^dim, 5), base (N, dim), grid shape): bases over the
+    grid and past its walls (clipped taps, particles with none in bounds),
+    rows of many magnitudes; `dense` of the particles at one point, spread
+    over the indices."""
+    rng = np.random.default_rng(seed)
+    shape = (257, 257) if dim == 2 else (64, 64, 64)
+    base = np.stack([rng.integers(-3, g + 1, n) for g in shape], axis=1)
+    base[rng.choice(n, dense, replace=False)] = np.asarray(shape) // 2
+    vals = rng.normal(0.0, 1.0, (n, 3**dim, 5)) * 10.0 ** rng.uniform(-5, 5, (n, 1, 1))
+    return torch.from_numpy(vals).to(dtype), torch.from_numpy(base), shape
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_stencil_scatter_kernel_equals_cpu_index_add(dev, dtype, dim):
+    """The stencil form (one key a particle, each node merging its 3^dim
+    runs) bitwise the CPU's `index_add_` over the clipped rows, with a
+    dense node (5,000 particles at one point), and its reruns bitwise
+    equal."""
+    from mpm_flip98a_tpu_torch.ops import weights
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    vals, base, shape = _stencil_rows(dim, dtype, 9 + dim, 300_000, dense=5_000)
+    offsets = weights.stencil_offsets(dim)
+    want = scatter.stencil_add_plain(vals, base, offsets, shape)
+    n0 = scatter.LAUNCHES["scatter"]
+    vd, bd = vals.to(dev), base.to(dev)
+    got = scatter.stencil_add(vd, bd, offsets, shape)
+    again = scatter.stencil_add(vd, bd, offsets, shape, scatter.stencil_plan(bd, shape))
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter"] == n0 + 2
+    assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_stencil_keys_kernel_equals_plain(dev, dim):
+    """The plan's key kernel equal to its plain version, with and without
+    keep, on bases past every wall."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    _, base, shape = _stencil_rows(dim, torch.float32, 39 + dim, 100_000)
+    keep = torch.from_numpy(np.random.default_rng(40).random(len(base)) < 0.8)
+    n0 = scatter.LAUNCHES["scatter_keys"]
+    for k in (None, keep):
+        want, cells = scatter.stencil_keys_plain(base, shape, k)
+        got, got_cells = scatter.stencil_keys(base.to(dev), shape,
+                                              None if k is None else k.to(dev))
+        assert got_cells == cells and torch.equal(got.cpu(), want)
+    assert scatter.LAUNCHES["scatter_keys"] == n0 + 2
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_stencil_scatter_with_keep_equals_cpu_index_add(dev, dtype, dim):
+    """A stencil plan that leaves out particles of +-0 rows (the slab
+    domain's inert slots: 50,000 at one point here) beside a dense node of
+    kept particles: the CPU's `index_add_` over every row, bit for bit."""
+    from mpm_flip98a_tpu_torch.ops import weights
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    vals, base, shape = _stencil_rows(dim, dtype, 19 + dim, 300_000, dense=3_000)
+    rng = np.random.default_rng(29 + dim)
+    inert = torch.zeros(len(base), dtype=torch.bool)
+    inert[rng.choice(len(base), 50_000, replace=False)] = True
+    base = torch.where(inert[:, None], torch.tensor([s // 3 for s in shape]), base)
+    sign = torch.from_numpy(np.where(rng.random((len(base), 1, 1)) < 0.5, -0.0, 0.0))
+    vals = torch.where(inert[:, None, None], sign.to(dtype), vals)
+    offsets = weights.stencil_offsets(dim)
+    want = scatter.stencil_add_plain(vals, base, offsets, shape)
+    vd, bd = vals.to(dev), base.to(dev)
+    got = scatter.stencil_add(vd, bd, offsets, shape,
+                              scatter.stencil_plan(bd, shape, ~inert.to(dev)))
+    assert torch.equal(got.cpu(), want)
+
+
 def test_general_reruns_on_the_card_are_bitwise_equal(dev):
     """tests/test_determinism.py:22-37 on the card: two 100-substep float32
     runs of the 37^2 dam break with the stabilized switch set (F-bar's
