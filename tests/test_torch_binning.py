@@ -7,6 +7,7 @@ a forced overflow and a capacity change.
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -75,10 +76,16 @@ def test_bucket_by_row_bit_exact(capacity):
     assert (int(ot) > 0) == (capacity == 16)
 
 
+# JAX's bucketing and re-sort as one program each: called eagerly they
+# compile each of their operations on its own.
+from_particles_jax = jax.jit(fast2d_jax.from_particles, static_argnames=("cfg", "spec"))
+rebucket_jax = jax.jit(fast2d_jax.rebucket, static_argnames=("cfg", "spec"))
+
+
 def _jax_state():
     p, scene = scenes_jax.dam_break_2d(FAST, dtype=np.float32)
     spec = fast2d_jax.FastSpec.for_particles(FAST, p, headroom=2.0)
-    return p, scene, spec, fast2d_jax.from_particles(p, FAST, spec)
+    return p, scene, spec, from_particles_jax(p, FAST, spec)
 
 
 def _port_cfg(scene):
@@ -108,7 +115,7 @@ def test_rebucket_bit_exact(scale):
     b_t = convert.buckets_from_numpy(fields, device="cpu")
     _assert_buckets_equal(b_t, b)
     new = dataclasses.replace(spec, capacity=int(spec.capacity * scale))
-    out_j = fast2d_jax.rebucket(b, FAST, new)
+    out_j = rebucket_jax(b, FAST, new)
     out_t = fast2d.rebucket(
         b_t, _port_cfg(scene), fast2d.FastSpec(new.rows, new.capacity)
     )

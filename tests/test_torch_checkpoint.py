@@ -16,6 +16,7 @@ import dataclasses
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -65,6 +66,12 @@ def _port_state(kind):
                                  "cpu")
 
 
+# JAX's bucketing as one program each: called eagerly they compile each
+# of their operations on its own, seconds a scene.
+from_particles2d_jax = jax.jit(fast2d_jax.from_particles, static_argnames=("cfg", "spec"))
+from_particles3d_jax = jax.jit(fast3d_jax.from_particles, static_argnames=("cfg", "spec"))
+
+
 def _jax_state(kind):
     """The same state built by the JAX package."""
     if kind == "Particles":
@@ -74,10 +81,9 @@ def _jax_state(kind):
     if kind == "FluidBuckets":
         cfg = MPMConfigJax(**FAST, **FLIP, transfer=TransferKindJax.PIC)
         p, _ = scenes_jax.dam_break_2d(cfg, dtype=np.float32)
-        return fast2d_jax.from_particles(p, cfg, fast2d_jax.FastSpec.for_particles(cfg, p))
+        return from_particles2d_jax(p, cfg, fast2d_jax.FastSpec.for_particles(cfg, p))
     p, scene = scenes_jax.dam_break_3d(**SMALL3D)
-    return fast3d_jax.from_particles(p, scene.cfg,
-                                     fast3d_jax.FastSpec3D.for_particles(scene.cfg, p))
+    return from_particles3d_jax(p, scene.cfg, fast3d_jax.FastSpec3D.for_particles(scene.cfg, p))
 
 
 KINDS = ["Particles", "MLS88Particles", "FluidBuckets", "FluidBuckets3D"]

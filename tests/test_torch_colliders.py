@@ -2,11 +2,13 @@
 
 `models/colliders` (sphere, box and halfspace in 2D and 3D; slip, sticky,
 surface velocity, spinner, kinematic center) against the JAX module on
-seeded points; the 2D fast path on `dam_break_obstacle_2d` and the
-spinning plow against JAX `fast2d.substep` / `fast2d.run`, with the
-kinematic time threaded through `run`; the slab-sharded run against one
-device; the three collider scenarios through the CLI.  The JAX kernels
-run in Pallas interpret mode; the port runs its plain versions.
+seeded points; the 2D fast path on `dam_break_obstacle_2d` against JAX
+`fast2d.substep` / `fast2d.run`.  The spinning plow (the kinematic time
+threaded through `run`) and the three collider scenarios through the CLI
+are in tests/test_torch_colliders_kinematic.py, the slab-sharded plow
+against one device in tests/test_torch_colliders_sharded.py, on this
+module's scenes and setup.  The JAX kernels run in Pallas interpret mode;
+the port runs its plain versions.
 Comparisons are slot by slot.  Tolerances: the module to 1e-6 of each
 quantity's scale; one substep to 1e-7 on x and 1e-4 on v
 (tests/test_fast2d.py:56-57); runs to 1e-5 on x (tests/test_torch_fast2d.py)
@@ -15,8 +17,8 @@ and 1e-5 of max |v| on v.
 
 import dataclasses
 import functools
-import os
 
+import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -26,18 +28,20 @@ from mpm_flip98a_tpu.config import MPMConfig, TransferKind
 from mpm_flip98a_tpu.models import colliders as col_jax
 from mpm_flip98a_tpu.models import fast2d as fast2d_jax
 from mpm_flip98a_tpu.models import scenes as scenes_jax
-from mpm_flip98a_tpu_torch import convert, driver
+from mpm_flip98a_tpu_torch import convert
 from mpm_flip98a_tpu_torch.config import MPMConfig as MPMConfig_t
 from mpm_flip98a_tpu_torch.config import TransferKind as TransferKind_t
 from mpm_flip98a_tpu_torch.models import colliders as col
 from mpm_flip98a_tpu_torch.models import fast2d, scenes
-from mpm_flip98a_tpu_torch.parallel import SlabMesh
-from mpm_flip98a_tpu_torch.parallel import fast_domain as fd
 
 _CFG_KW = dict(dtype="float32", num_grids=37, dt=2e-5, flip_blend=0.98)  # test_colliders.py:22-28
 CFG = MPMConfig(**_CFG_KW, transfer=TransferKind.PIC)
 L = CFG.domain_length
 REL = 1e-6
+# JAX's bucketing and substep, each as one program: called eagerly they
+# compile every operation on its own, several seconds a scene.
+from_particles_jax = jax.jit(fast2d_jax.from_particles, static_argnames=("cfg", "spec"))
+substep_jax = jax.jit(fast2d_jax.substep, static_argnames=("scene",))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -195,7 +199,7 @@ def _setup(name):
     else:   # tests/test_colliders.py:536-537's kinematic plow
         p, scene = _plow_scene(speed=2.0, start=0.28)
     spec = fast2d_jax.FastSpec.for_particles(scene.cfg, p, headroom=2.0)
-    b = fast2d_jax.from_particles(p, scene.cfg, spec)
+    b = from_particles_jax(p, scene.cfg, spec)
     fields = {f.name: np.asarray(getattr(b, f.name)) for f in dataclasses.fields(b)}
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
     spec_t = fast2d.FastSpec(spec.rows, spec.capacity)
@@ -205,6 +209,12 @@ def _setup(name):
 def _np(b, name):
     a = getattr(b, name)
     return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _f64(b):
+    return dataclasses.replace(b, **{f.name: getattr(b, f.name).double()
+                                     for f in dataclasses.fields(b)
+                                     if getattr(b, f.name).is_floating_point()})
 
 
 def _assert_tracks(got, want, x_atol, v_atol=None, v_rel=None):
@@ -236,7 +246,7 @@ def test_collider_scenes_match_jax(builder):
 
 def test_obstacle_substep_and_run_match_jax():
     (_, scene, spec, b), (scene_t, spec_t, b_t) = _setup("obstacle")
-    b1 = fast2d_jax.substep(b, scene)
+    b1 = substep_jax(b, scene)
     b1_t = fast2d.substep(b_t, scene_t)
     _assert_tracks(b1_t, b1, 1e-7, v_atol=1e-4)
     # The obstacle acts: without it the same substep differs by about the
@@ -247,97 +257,3 @@ def test_obstacle_substep_and_run_match_jax():
     out_t = fast2d.run(b_t, scene_t, spec_t, 100)
     _assert_tracks(out_t, out, 1e-5, v_rel=1e-5)
     assert int(out_t.overflow) == int(out.overflow) == 0
-
-
-def test_kinematic_time_threading_matches_jax():
-    """The spinning plow (tests/test_colliders.py:455-493): one substep at
-    t = f32(0.19), where the moved plow overlaps the column, then `run`
-    from t0 = 0.123 over 30 substeps.  The spinner makes the surface
-    velocity linear in the center, so a mis-indexed time errs by
-    O(omega v n dt): a run started one substep late leaves the tolerance."""
-    (_, scene, spec, b), (scene_t, spec_t, b_t) = _setup("spin_plow")
-    t_hit = float(np.float32(0.19))
-    b1 = fast2d_jax.substep(b, scene, t=jnp.float32(t_hit))
-    b1_t = fast2d.substep(b_t, scene_t, t=t_hit)
-    _assert_tracks(b1_t, b1, 1e-7, v_atol=1e-4)
-    static = fast2d.substep(b_t, scene_t)
-    assert np.abs(_np(static, "v0") - _np(b1_t, "v0")).max() > 1.0   # the moved plow hit
-    out = fast2d_jax.run(b, scene, spec, 30, 0.123)
-    out_t = fast2d.run(b_t, scene_t, spec_t, 30, t0=0.123)
-    _assert_tracks(out_t, out, 1e-5, v_rel=1e-5)
-    late = fast2d.run(b_t, scene_t, spec_t, 30, t0=0.123 + CFG.dt)
-    with pytest.raises(AssertionError):
-        _assert_tracks(late, out, 1e-5, v_rel=1e-5)
-    times = fast2d.substep_times(scene_t, 0.123, 3)
-    assert times == [float(np.float32(0.123) + np.float32(j) * np.float32(CFG.dt))
-                     for j in range(3)]
-    assert fast2d.substep_times(dataclasses.replace(scene_t, colliders=()), 0.123, 2) == [None] * 2
-
-
-def _f64(b):
-    return dataclasses.replace(b, **{f.name: getattr(b, f.name).double()
-                                     for f in dataclasses.fields(b)
-                                     if getattr(b, f.name).is_floating_point()})
-
-
-def test_kinematic_sharded_matches_single_device():
-    """tests/test_colliders.py:528-551: the plow in 4 slab shards against
-    one device, 60 substeps from t0 = 0.03, slot for slot: v, C and J to
-    1e-5 of their scale, the displacement to 1e-5 of its own; then 20
-    substeps in float64 through the plain versions to 1e-9."""
-    (p, _, _, _), (scene_t, _, _) = _setup("plow")
-    p_t = convert.particles_from_numpy(
-        {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}, device="cpu")
-    mesh = SlabMesh(4, "cpu")
-    spec = fd.FastDomainSpec.for_particles(scene_t.cfg, 4, p_t, headroom=2.0)
-    b = fd.distribute(p_t, scene_t.cfg, spec, mesh)
-    spec1 = fast2d.FastSpec.for_particles(scene_t.cfg, p_t, headroom=2.0)
-    b1 = fast2d.from_particles(p_t, scene_t.cfg, spec1, device="cpu")
-    run = fd.make_run(scene_t, spec, mesh)
-    for start, single, n, tol, plain in ((b, b1, 60, 1e-5, False),
-                                         (_f64(b), _f64(b1), 20, 1e-9, True)):
-        got = run(start, n, t0=0.03, plain=plain)
-        ref = fast2d.run(single, scene_t, spec1, n, t0=0.03, plain=plain)
-        assert int(got.overflow.sum()) == 0 and int(ref.overflow) == 0
-        live = lambda s, names: torch.stack([getattr(s, k)[s.mask > 0] for k in names]).double()
-        groups = {"v": ("v0", "v1"), "C": ("C00", "C01", "C10", "C11"), "J": ("J",)}
-        pairs = {g: (live(got, k), live(ref, k)) for g, k in groups.items()}
-        pairs["displacement"] = (live(got, ("x0", "x1")) - live(start, ("x0", "x1")),
-                                 live(ref, ("x0", "x1")) - live(single, ("x0", "x1")))
-        for g, (have, want) in pairs.items():
-            scale = float(((want - 1.0) if g == "J" else want).abs().max())
-            assert float((have - want).abs().max()) <= tol * scale, (g, n)
-    # At t0 the plow overlaps the column's edge: its first substep acts.
-    free = fast2d.substep(b1, dataclasses.replace(scene_t, colliders=()))
-    hit = fast2d.substep(b1, scene_t, t=0.03)
-    assert float((free.v0 - hit.v0).abs().max()) > 0.1
-
-
-# ---------------------------------------------------------------------------
-# The CLI
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("scenario", ["dam2d_obstacle", "plow2d", "dam3d_obstacle"])
-def test_cli_runs_collider_scenarios_on_cpu(tmp_path, monkeypatch, scenario):
-    """The JAX driver's collider scenarios through the port's CLI; a moving
-    collider gets the frame's start time as the run's t0."""
-    assert scenario in driver.SCENARIOS and scenario not in driver.UNPORTED_SCENARIOS
-    seen = []
-    for mod in (fast2d, driver.fast3d):
-        real = mod.run
-        monkeypatch.setattr(mod, "run", lambda *a, _r=real, **k: (seen.append(k["t0"]),
-                                                                   _r(*a, **k))[1])
-    sim = driver.main([
-        "--scenario", scenario, "--path", "fast", "--frames", "2", "--substeps", "1", "--no-gif",
-        "--sync-io",
-        "--out", str(tmp_path), "--device", "cpu",
-    ])
-    assert sim.stats.substeps == sim.stats.host_reads == 2 and sim.frame_count == 2
-    assert int(sim.state.overflow) == 0
-    p, _ = driver.SCENARIOS[scenario]()
-    x = sim.positions()
-    assert x.shape == (p.n, sim.cfg.dim) and np.isfinite(x).all()
-    assert os.path.exists(os.path.join(sim.frame_dir, "00002.png"))
-    dt = sim.cfg.dt
-    assert seen == ([0.0, dt] if scenario == "plow2d" else [None, None])

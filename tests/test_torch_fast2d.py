@@ -10,6 +10,7 @@ run in Pallas interpret mode; the port runs its plain versions.
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -32,6 +33,10 @@ _FAST_KW = dict(  # tests/test_fast2d.py:17-25
 )
 FAST = MPMConfig(**_FAST_KW, transfer=TransferKind.PIC)
 FAST_T = MPMConfig_t(**_FAST_KW, transfer=TransferKind_t.PIC)
+# JAX's bucketing and substep, each as one program: called eagerly they
+# compile every operation on its own, several seconds a scene.
+from_particles_jax = jax.jit(fast2d_jax.from_particles, static_argnames=("cfg", "spec"))
+substep_jax = jax.jit(fast2d_jax.substep, static_argnames=("scene",))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -49,7 +54,7 @@ def _setup(cfg=FAST, v0=0.0):
     if v0:
         p = dataclasses.replace(p, v=p.v.at[:, 0].set(v0))
     spec = fast2d_jax.FastSpec.for_particles(cfg, p, headroom=2.0)
-    b = fast2d_jax.from_particles(p, cfg, spec)
+    b = from_particles_jax(p, cfg, spec)
     fields = {f.name: np.asarray(getattr(b, f.name)) for f in dataclasses.fields(b)}
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
     spec_t = fast2d.FastSpec(spec.rows, spec.capacity)
@@ -87,7 +92,7 @@ def test_single_substep_matches_jax(variant):
         # Sticky walls, and mass_floor 0: the floor relative to max grid mass.
         scene = dataclasses.replace(scene, wall=WallBC("sticky"), mass_floor=0.0)
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
-    b1 = fast2d_jax.substep(b, scene)
+    b1 = substep_jax(b, scene)
     b1_t = fast2d.substep(b_t, scene_t)
     np.testing.assert_array_equal(_np(b1_t, "mask"), _np(b1, "mask"))
     for name in ("x0", "x1"):
@@ -110,7 +115,9 @@ def test_run_across_rebuckets_matches_jax_statistically():
     rebucket; the ensemble stays within the fast path's 5e-4 bound."""
     (scene, spec, b), (scene_t, spec_t, b_t) = _setup(v0=2.0)
     stats = fast2d.RunStats()
-    out = fast2d_jax.run(b, scene, spec, 300)
+    out = b
+    for _ in range(3):   # run(300) in three calls: test_hundred_substeps' compile
+        out = fast2d_jax.run(out, scene, spec, 100)
     out_t = fast2d.run(b_t, scene_t, spec_t, 300, stats)
     assert stats.rebuckets > 0
     assert stats.substeps == stats.host_reads == 300

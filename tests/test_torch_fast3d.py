@@ -2,8 +2,8 @@
 
 Both packages build the same scene (bit for bit), bucket it identically,
 and are then compared slot by slot after one substep (the JAX kernels in
-Pallas interpret mode, once: seconds each) and, over 80 substeps across
-rebuckets, by ensemble against the JAX general path (plain XLA).
+Pallas interpret mode, once: seconds each); the rebuckets, bit for bit
+and across runs, are in tests/test_torch_fast3d_rebucket.py.
 Tolerances: the north star's 1e-7 on x and 1e-4 on v after one substep
 (tests/test_fast2d.py:56-57), 1e-6 on J, and tests/test_fast3d.py's 5e-4
 on the ensemble mean.
@@ -17,12 +17,10 @@ import torch
 
 from mpm_flip98a_tpu.models import fast3d as fast3d_jax
 from mpm_flip98a_tpu.models import scenes as scenes_jax
-from mpm_flip98a_tpu.models.stabilized import run as run_ref_jax
 from mpm_flip98a_tpu_torch import convert
 from mpm_flip98a_tpu_torch.config import KernelKind
 from mpm_flip98a_tpu_torch.models import fast3d, scenes
 from mpm_flip98a_tpu_torch.models.colliders import Collider
-from mpm_flip98a_tpu_torch.models.fast2d import RunStats
 
 SMALL = dict(num_grids=16, particles_per_axis=(6, 6, 10), dt=2e-5, dtype=np.float32)
 
@@ -79,28 +77,6 @@ def test_3d_scenes_match_jax(scene):
     assert scene_t.cfg.dim == 3
 
 
-@pytest.mark.parametrize("capacity", ["same", "grown"])
-def test_from_particles_and_rebucket_bit_exact(capacity):
-    """Bucketing and a rebucket after a shift that moves particles across
-    pencils on both bucketed axes, bit for bit (XLA only on the JAX side)."""
-    (p, scene, spec, b), (scene_t, spec_t, _) = _setup()
-    p_t, _ = scenes.dam_break_3d(**SMALL)
-    spec_t2 = fast3d.FastSpec3D.for_particles(scene_t.cfg, p_t, headroom=2.0)
-    assert spec_t2 == spec_t
-    b_t = fast3d.from_particles(p_t, scene_t.cfg, spec_t, device="cpu")
-    _assert_bits_equal(_t(b_t), _fields(b))
-    shift = np.float32(0.6 * scene.cfg.dx)
-    moved = dataclasses.replace(b, x0=b.x0 + shift, x1=b.x1 - shift)
-    moved_t = dataclasses.replace(b_t, x0=b_t.x0 + shift, x1=b_t.x1 - shift)
-    if capacity == "grown":
-        spec = dataclasses.replace(spec, capacity=spec.capacity + 128)
-        spec_t = dataclasses.replace(spec_t, capacity=spec_t.capacity + 128)
-    out = fast3d_jax.rebucket(moved, scene.cfg, spec)
-    out_t = fast3d.rebucket(moved_t, scene_t.cfg, spec_t)
-    _assert_bits_equal(_t(out_t), _fields(out))
-    assert int(out_t.overflow) == 0 and int((out_t.mask > 0).sum()) == p.n
-
-
 def test_single_substep_matches_jax():
     rng = np.random.default_rng(3)
     n = 6 * 6 * 10
@@ -117,35 +93,6 @@ def test_single_substep_matches_jax():
     # Fields the fused substep does not write carry over untouched.
     for name in ("F00", "mass", "vol0", "jbar_s"):
         np.testing.assert_array_equal(got[name], want[name])
-
-
-def test_run_across_rebuckets_tracks_jax():
-    """80 substeps of a column thrown sideways on both bucketed axes and
-    down (tests/test_fast3d.py:131-158 throws it at 1.5 m/s along x only,
-    which drifts 0.6 cells in 80 substeps and never reaches the margin
-    trigger): rebuckets fire, and the ensemble tracks the JAX general
-    path within tests/test_fast3d.py's 5e-4."""
-    kw = dict(SMALL, dt=2e-4)
-    p, scene = scenes_jax.dam_break_3d(**kw)
-    p_t, scene_t = scenes.dam_break_3d(**kw)
-    v = np.zeros((p.n, 3), np.float32)
-    v[:, 0], v[:, 1], v[:, 2] = 3.0, 2.0, -1.0
-    p = dataclasses.replace(p, v=p.v.at[:].set(v))
-    p_t = dataclasses.replace(p_t, v=torch.from_numpy(v))
-    spec_t = fast3d.FastSpec3D.for_particles(scene_t.cfg, p_t, headroom=2.0)
-    stats = RunStats()
-    out = fast3d.run(fast3d.from_particles(p_t, scene_t.cfg, spec_t, device="cpu"), scene_t,
-                     spec_t, 80, stats)
-    ref = np.asarray(run_ref_jax(p, scene, 80).x)
-    assert stats.rebuckets >= 1 and stats.substeps == stats.host_reads == 80
-    h = fast3d.to_host(out)
-    x = np.stack([h["x0"], h["x1"], h["x2"]], -1)
-    cfg = scene_t.cfg
-    assert x.shape == ref.shape and np.isfinite(x).all()
-    assert ((x > -cfg.dx) & (x < cfg.domain_length + cfg.dx)).all()
-    assert int(out.overflow) == 0
-    np.testing.assert_allclose(x.mean(axis=0), ref.mean(axis=0), atol=5e-4)
-    np.testing.assert_allclose(h["mass"].sum(), float(p_t.mass.sum()), rtol=1e-6)
 
 
 def test_unported_configs_raise():

@@ -47,6 +47,10 @@ _FAST_KW = dict(  # tests/test_fast2d.py:17-25, tests/test_determinism.py:16-18
 )
 FAST = MPMConfig(**_FAST_KW, transfer=TransferKind.PIC)
 FAST_T = MPMConfig_t(**_FAST_KW, transfer=TransferKind_t.PIC)
+# JAX's bucketing and substep, each as one program: called eagerly they
+# compile every operation on its own, several seconds a scene.
+from_particles_jax = jax.jit(fast2d_jax.from_particles, static_argnames=("cfg", "spec"))
+substep_jax = jax.jit(fast2d_jax.substep, static_argnames=("scene",))
 SETTINGS = {   # name: (MPM_P2G_GRID, MPM_FUSE2D_G2P)
     "p2g_grid": ("1", "0"),
     "fuse_g2p": ("0", "1"),
@@ -79,7 +83,7 @@ def env(monkeypatch, request):
 def _setup(p, scene):
     """JAX state and the port's copy of it, in identical bucket layouts."""
     spec = fast2d_jax.FastSpec.for_particles(scene.cfg, p, headroom=2.0)
-    b = fast2d_jax.from_particles(p, scene.cfg, spec)
+    b = from_particles_jax(p, scene.cfg, spec)
     fields = {f.name: np.asarray(getattr(b, f.name)) for f in dataclasses.fields(b)}
     scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
     spec_t = fast2d.FastSpec(spec.rows, spec.capacity)
@@ -141,7 +145,7 @@ def test_routes_match_jax(env, setting):
     (scene, spec, b), (scene_t, spec_t, b_t) = _moving()
     use_grid, fuse_g2p = fast2d.routes(scene_t)
     assert (use_grid, fuse_g2p) == tuple(v == "1" for v in SETTINGS[setting])
-    b1 = fast2d_jax.substep(b, scene)
+    b1 = substep_jax(b, scene)
     b1_t = fast2d.substep(b_t, scene_t)
     _tracks(b1_t, b1, 1e-7, 1e-4)
     c_term = 4.0 * float(scene_t.cfg.inv_dx)
@@ -191,7 +195,7 @@ def test_p2g_grid_on_the_prepped_branch_and_colliders_match_jax(env):
     }
     for name, ((scene, _, b), (scene_t, _, b_t)) in cases.items():
         assert fast2d.routes(scene_t) == (True, False), name
-        b1 = fast2d_jax.substep(b, scene)
+        b1 = substep_jax(b, scene)
         b1_t = fast2d.substep(b_t, scene_t)
         _tracks(b1_t, b1, 1e-7, 1e-4)
         np.testing.assert_allclose(_np(b1_t, "J"), _np(b1, "J"), rtol=0, atol=1e-6)

@@ -5,8 +5,14 @@ mode with the extended channels and the tent taps, and `g2p3d` in gather
 mode.  On the CPU the port's wrappers run their plain PyTorch versions
 (the CUDA kernels need the card: tests/test_torch_cuda.py); the JAX
 kernels run in Pallas interpret mode, as the JAX package's own tests run
-them.  Each JAX call costs seconds here, so the file makes eight and
-caches them.  Inputs are random pencil slots from a numpy seed: empty,
+them.  Each JAX call costs seconds on the CPU (a `g2p3d` 20-35 s), so the
+module caches them.  The extended grid with the penalty wall and its
+padded gather are cases of tests/test_torch_stabilized3d.py, on this
+module's slots and checks: that gather is the program the dam's F-bar
+substep compiles, and there the two share one compile.  The tent taps'
+cases are in tests/test_torch_p2g3d_tent.py: none of their JAX compiles
+serves a case here, and each file stays inside its share of the suite's
+time.  Inputs are random pencil slots from a numpy seed: empty,
 partly filled and full pencils, slots outside the +-1 margin on both
 bucketed axes, slots on the axis-1 edges (whose taps `p2g3d` drops and
 `p2g3d_grid` keeps in its pad rows), z past both grid edges.
@@ -24,7 +30,7 @@ from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
 
 R, K, G = 16, 128, 16
 DX = 0.4375 / 11
-DINV = 4.0 / DX**2
+DINV = 4.0 * (1.0 / DX) * (1.0 / DX)   # fast3d's dinv, bit for bit
 DT = 2e-5
 GRAV = (0.0, 0.0, -9.81)
 # fp32 sums in another order: 1e-6 of each channel's max.
@@ -125,8 +131,8 @@ def _close_per_channel(got, want, axis, rel=REL, scale=None):
         assert err <= rel * s, (ch, err, s)
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_p2g3d_matches_jax(mode):
+def check_p2g3d(mode):
+    """`p2g3d` against JAX's, 1e-6 of each channel's max."""
     apic, ext, tent = MODES[mode]
     want = _jax_expanded(mode)
     got = tk3.p2g3d(
@@ -143,6 +149,15 @@ def test_p2g3d_matches_jax(mode):
     assert tk3.LAUNCHES["p2g3d"] == 0   # the CPU runs the plain version
 
 
+# The tent taps' cases of this file are in tests/test_torch_p2g3d_tent.py.
+TENT_MODES = ("pic11_tent",)
+
+
+@pytest.mark.parametrize("mode", [m for m in MODES if m not in TENT_MODES])
+def test_p2g3d_matches_jax(mode):
+    check_p2g3d(mode)
+
+
 def test_p2g3d_against_float64():
     apic, ext, tent = MODES["apic7"]
     counts = torch.from_numpy(COUNTS)
@@ -153,8 +168,9 @@ def test_p2g3d_against_float64():
     _close_per_channel(_jax_expanded("apic7"), exact, axis=3)
 
 
-@pytest.mark.parametrize("case", list(GRID_CASES))
-def test_p2g3d_grid_prepped_matches_jax(case):
+def check_p2g3d_grid_prepped(case):
+    """`p2g3d_grid`'s prepped mode against JAX's (1e-6 of each channel's
+    max) and against its own float64 sums; the pad rows as JAX has them."""
     mode, wall = GRID_CASES[case]
     apic, ext, tent = MODES[mode]
     want = _jax_grid(case)
@@ -196,13 +212,14 @@ def _jax_gather(case):
     grid = _g2p_grid(name)[keep]
     return np.asarray(tk3_jax.g2p3d(
         *_j(GXS), jnp.asarray(LIVE.astype(np.float32)), jnp.asarray(COUNTS), jnp.asarray(grid),
-        DX, 1.0 if tent else DINV, ext=grid.shape[2] == 9, tent=tent,
-        prepadded0=grid.shape[0] == R + 4, prepadded1=grid.shape[1] == R + 4,
+        DX, 1.0 if tent else DINV, ext=grid.shape[2] == 9,
+        prepadded0=grid.shape[0] == R + 4, prepadded1=grid.shape[1] == R + 4, tent=tent,
     ))
 
 
-@pytest.mark.parametrize("case", list(G2P_CASES))
-def test_g2p3d_gather_matches_jax(case):
+def check_g2p3d_gather(case):
+    """`g2p3d`'s gather mode against JAX's and against its own float64
+    gather, per channel; slots past the count are zeros."""
     name, tent, keep = G2P_CASES[case]
     grid = _g2p_grid(name)[keep]
     dinv = 1.0 if tent else DINV
@@ -228,6 +245,13 @@ def test_g2p3d_gather_matches_jax(case):
     assert not np.moveaxis(got, 2, 0)[:, ~LIVE].any()
     assert not np.moveaxis(want, 2, 0)[:, ~LIVE].any()
     assert tk3.LAUNCHES["g2p3d"] == 0
+
+
+# "ext_penalty" and its gather "ext_padded" are in tests/test_torch_stabilized3d.py,
+# "tent_slip" and its gather "ext_tent_padded0" in tests/test_torch_p2g3d_tent.py.
+@pytest.mark.parametrize("case", ["gather_unpadded"])
+def test_g2p3d_gather_matches_jax(case):
+    check_g2p3d_gather(case)
 
 
 def _shares():
@@ -274,8 +298,7 @@ def test_partition_of_unity(route):
         np.testing.assert_allclose(sums[ch], expect, rtol=1e-6)
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_fold_of_expanded_is_interior_of_raw_sums(mode):
+def check_fold_of_expanded(mode):
     """`fold_rows0(p2g3d)` equals `p2g3d_grid`'s raw sums on the interior
     rows of both axes (tests/test_p2g_grid.py:168-212 on the JAX side):
     the routes differ only in the axis-1 pad rows."""
@@ -290,6 +313,11 @@ def test_fold_of_expanded_is_interior_of_raw_sums(mode):
     want = np.asarray(tk3_jax.fold_rows0(jnp.asarray(_jax_expanded(mode))))
     got = tk3.fold_rows0(torch.from_numpy(_jax_expanded(mode))).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", [m for m in MODES if m not in TENT_MODES])
+def test_fold_of_expanded_is_interior_of_raw_sums(mode):
+    check_fold_of_expanded(mode)
 
 
 def test_wrappers_check_their_inputs():
@@ -361,8 +389,7 @@ def _jax_halo1(mode):
         halo1=True))
 
 
-@pytest.mark.parametrize("mode", ["apic7", "pic11_tent"])
-def test_p2g3d_halo1_matches_jax(mode):
+def check_p2g3d_halo1(mode):
     """halo1 (transfer3d.py:366-372): the axis-1 plane uncropped, row j =
     target row j - 1, to 1e-6 of each channel's max; its rows 1 .. G are
     the cropped mode's output bit for bit, and the edge rows hold the taps
@@ -377,6 +404,11 @@ def test_p2g3d_halo1_matches_jax(mode):
     _close_per_channel(got, want, axis=3)
     np.testing.assert_array_equal(got[:, :, 1 : G + 1], tk3.p2g3d(*args, **kw).numpy())
     assert np.abs(got[:, :, 0]).sum() > 0 and np.abs(got[:, :, G + 1 :]).sum() > 0
+
+
+@pytest.mark.parametrize("mode", ["apic7"])
+def test_p2g3d_halo1_matches_jax(mode):
+    check_p2g3d_halo1(mode)
 
 
 @pytest.mark.parametrize("mode", ["apic7", "pic11"])

@@ -24,6 +24,7 @@ import dataclasses
 import functools
 import os
 
+import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -41,6 +42,10 @@ from mpm_flip98a_tpu_torch.parallel import SlabMesh, fast_domain
 CFG = MPMConfig(dtype="float32", num_grids=37, dt=5e-5)          # test_sand.py:106-112
 PARAMS = mat_jax.MaterialParams(mu=1.0e5, lam=1.5e5, friction_angle=30.0)   # :23
 X_TOL = {1: 1e-7, 20: 1e-5, 100: 1e-5}
+# JAX's bucketing and substep, each as one program: called eagerly they
+# compile every operation on its own, several seconds a scene.
+from_particles_jax = jax.jit(fast2d_jax.from_particles, static_argnames=("cfg", "spec"))
+substep_jax = jax.jit(fast2d_jax.substep, static_argnames=("scene",))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,8 +85,16 @@ CASES = {"column": _column, "slab3d": _slab3d, "strained": _strained}
 
 @functools.lru_cache(maxsize=None)
 def jax_general(case, n):
+    """JAX's general path after n substeps: `stabilized.run` one substep a
+    call, so that a case's horizons share one compile (as
+    tests/test_torch_general2d.py's `jax_run` does)."""
+    if n > 1:
+        p, scene, q = jax_general(case, 1)
+        for _ in range(1, n):
+            q = stab_jax.run(q, scene, 1)
+        return p, scene, q
     p, scene = CASES[case]()
-    return p, scene, stab_jax.run(p, scene, n)
+    return p, scene, stab_jax.run(p, scene, 1)
 
 
 def _to_port(p, scene):
@@ -147,8 +160,8 @@ def test_fast2d_meets_jax_fast2d_from_rest():
     slot in identical bucket layouts."""
     p, scene = _column()
     spec = fast2d_jax.FastSpec.for_particles(CFG, p, headroom=2.0)
-    b = fast2d_jax.from_particles(p, CFG, spec)
-    want = fast2d_jax.substep(b, scene)
+    b = from_particles_jax(p, CFG, spec)
+    want = substep_jax(b, scene)
     b_t = convert.buckets_from_numpy(
         {f.name: np.asarray(getattr(b, f.name)) for f in dataclasses.fields(b)}, device="cpu")
     got = fast2d.substep(b_t, convert.scene_from_fields(dataclasses.asdict(scene)))
@@ -168,7 +181,7 @@ def test_jax_fast2d_sand_stress_fault():
     |dF| 9.4e-4; the port 1.8e-6 and 6.2e-6 (float32 over 20 substeps)."""
     p, scene, want = jax_general("strained", 20)
     spec = fast2d_jax.FastSpec.for_particles(CFG, p, headroom=2.0)
-    jf = fast2d_jax.run(fast2d_jax.from_particles(p, CFG, spec), scene, spec, 20)
+    jf = fast2d_jax.run(from_particles_jax(p, CFG, spec), scene, spec, 20)
     h = fast2d_jax.to_host(jf)
     live = np.asarray(jf.mask) > 0
     # The JAX layout matches the port's (tests/test_torch_binning.py), so

@@ -18,6 +18,7 @@ import dataclasses
 import functools
 import os
 
+import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -34,6 +35,10 @@ from mpm_flip98a_tpu_torch.models import fast2d, fast3d, materials as mat, scene
 
 X_TOL = {1: 1e-7, 20: 1e-5, 100: 1e-5}
 JP_TOL = 1e-5
+# JAX's bucketing and substep, each as one program: called eagerly they
+# compile every operation on its own, several seconds a scene.
+from_particles_jax = jax.jit(fast2d_jax.from_particles, static_argnames=("cfg", "spec"))
+substep_jax = jax.jit(fast2d_jax.substep, static_argnames=("scene",))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -92,8 +97,16 @@ CASES = {"impact": _impact, "strained": _strained, "mixed": _mixed, "block3d": _
 
 @functools.lru_cache(maxsize=None)
 def jax_general(case, n):
+    """JAX's general path after n substeps: `stabilized.run` one substep a
+    call, so that a case's horizons share one compile (as
+    tests/test_torch_general2d.py's `jax_run` does)."""
+    if n > 1:
+        p, scene, q = jax_general(case, 1)
+        for _ in range(1, n):
+            q = stab_jax.run(q, scene, 1)
+        return p, scene, q
     p, scene = CASES[case]()
-    return p, scene, stab_jax.run(p, scene, n)
+    return p, scene, stab_jax.run(p, scene, 1)
 
 
 def _to_port(p, scene):
@@ -165,8 +178,8 @@ def test_mixed_scene_meets_jax_fast2d():
     p, scene = _mixed()
     cfg = scene.cfg
     spec = fast2d_jax.FastSpec.for_particles(cfg, p, headroom=2.0)
-    b = fast2d_jax.from_particles(p, cfg, spec)
-    want = fast2d_jax.substep(b, scene)
+    b = from_particles_jax(p, cfg, spec)
+    want = substep_jax(b, scene)
     b_t = convert.buckets_from_numpy(
         {f.name: np.asarray(getattr(b, f.name)) for f in dataclasses.fields(b)}, device="cpu")
     got = fast2d.substep(b_t, convert.scene_from_fields(dataclasses.asdict(scene)))

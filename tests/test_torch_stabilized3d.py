@@ -11,6 +11,18 @@ term and the lag correction act), at the JAX fast path's tolerances
 (tests/test_fast2d.py:56-57: 1e-7 on x, 1e-4 on v) or tighter, stated per
 case.  The JAX kernels run in Pallas interpret mode (seconds per call at
 16^3); the port runs its plain versions.
+
+The module keeps the variants that share JAX's compiled kernels (the
+B-spline ext grid and gather of the dam at 16^3: F-bar with mixing, the
+stabilized set, Tait with F-bar), the routing, and two cases of
+tests/test_torch_p2g3d.py: the extended grid with the penalty wall and its
+padded gather, which is the gather program the F-bar substeps compile, so
+the two share one compile here.  tests/test_torch_stabilized3d_tent_relfloor.py
+holds the tent dam and the relative floor (with the driver's `Simulation`
+runs), tests/test_torch_stabilized3d_drop.py the elastic drops (with the
+stresses at finite strain) and tests/test_torch_fast3d_rebucket.py the
+run across a rebucket: each of their JAX compiles serves no case here, and
+no file outgrows its share of the suite's time.
 """
 
 import dataclasses
@@ -26,12 +38,13 @@ from mpm_flip98a_tpu.config import EOSKind, KernelKind, TransferKind
 from mpm_flip98a_tpu.models import fast3d as fast3d_jax
 from mpm_flip98a_tpu.models import materials as mat_jax
 from mpm_flip98a_tpu.models import scenes as scenes_jax
-from mpm_flip98a_tpu_torch import convert, driver
+from mpm_flip98a_tpu_torch import convert
 from mpm_flip98a_tpu_torch.config import KernelKind as KernelKind_t
 from mpm_flip98a_tpu_torch.config import TransferKind as TransferKind_t
 from mpm_flip98a_tpu_torch.models import fast3d, scenes
-from mpm_flip98a_tpu_torch.models import materials as mat
 from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
+
+from test_torch_p2g3d import check_g2p3d_gather, check_p2g3d_grid_prepped
 
 SMALL = dict(num_grids=16, particles_per_axis=(6, 6, 10), dt=2e-5, dtype=np.float32)
 FLIP = dict(flip_blend=0.98, transfer=TransferKind.PIC)
@@ -123,8 +136,15 @@ def _np(b, name):
     return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
-def test_single_substep_matches_jax(variant):
+# The variants of tests/test_torch_stabilized3d_tent_relfloor.py and _drop.py.
+TENT_RELFLOOR = ("tent", "relative_floor")
+DROP = ("drop_neo_hookean", "drop_corotated")
+
+
+def check_single_substep(variant):
+    """One substep of `variant` from its perturbed state, the port against
+    JAX `fast3d.substep` (called eagerly: the variants that share a kernel
+    configuration then share its compile)."""
     (scene, spec, b), (scene_t, spec_t, b_t) = _states(variant)
     x_atol, v_atol = VARIANTS[variant][2]
     assert not fast3d.uses_fused(scene_t)
@@ -149,33 +169,21 @@ def test_single_substep_matches_jax(variant):
     assert sum(tk3.LAUNCHES.values()) == 0   # the CPU runs the plain versions
 
 
-def test_stabilized_run_across_a_rebucket_tracks_jax():
-    """25 substeps of the stabilized switch set with the column set 1.5
-    cells off the walls (their penalty band would hold it back) and thrown
-    along both bucketed axes, 0.06 and 0.04 cells per substep, so the
-    margin check fires a rebucket on the way: JAX `fast3d.run` and the
-    port rebucket at the same substeps and stay in the same slot layout."""
-    kw = dict(SMALL, dt=2e-4)
-    p, scene = scenes_jax.dam_break_3d(**kw, **STAB)
-    v = np.zeros((p.n, 3), np.float32)
-    v[:, 0], v[:, 1], v[:, 2] = 12.0, 8.0, -1.0
-    off = np.float32(1.5 * scene.cfg.dx)
-    p = dataclasses.replace(p, v=p.v.at[:].set(v), x=p.x.at[:, :2].add(off))
-    spec = fast3d_jax.FastSpec3D.for_particles(scene.cfg, p, headroom=2.0)
-    b = fast3d_jax.from_particles(p, scene.cfg, spec)
-    scene_t = convert.scene_from_fields(dataclasses.asdict(scene))
-    spec_t = fast3d.FastSpec3D(spec.rows0, spec.rows1, spec.capacity)
-    stats = fast3d.RunStats()
-    b_t = convert.buckets3d_from_numpy(_np_fields(b), device="cpu")
-    out_t = fast3d.run(b_t, scene_t, spec_t, 25, stats)
-    out = fast3d_jax.run(b, scene, spec, 25)
-    assert stats.rebuckets >= 1 and stats.substeps == 25
-    np.testing.assert_array_equal(_np(out_t, "mask"), _np(out, "mask"))
-    for a in range(3):
-        np.testing.assert_allclose(_np(out_t, f"x{a}"), _np(out, f"x{a}"), rtol=0, atol=1e-6)
-        np.testing.assert_allclose(_np(out_t, f"v{a}"), _np(out, f"v{a}"), rtol=0, atol=1e-3)
-    np.testing.assert_allclose(_np(out_t, "jbar_s"), _np(out, "jbar_s"), rtol=0, atol=1e-5)
-    assert int(out.overflow) == int(out_t.overflow) == 0
+@pytest.mark.parametrize("variant", [v for v in VARIANTS if v not in TENT_RELFLOOR + DROP])
+def test_single_substep_matches_jax(variant):
+    check_single_substep(variant)
+
+
+# tests/test_torch_p2g3d.py's cases whose JAX gather an F-bar substep above
+# has compiled: the same `g2p3d` arguments, so the same jit cache entry.
+@pytest.mark.parametrize("case", ["ext_penalty"])
+def test_p2g3d_grid_prepped_matches_jax(case):
+    check_p2g3d_grid_prepped(case)
+
+
+@pytest.mark.parametrize("case", ["ext_padded"])
+def test_g2p3d_gather_matches_jax(case):
+    check_g2p3d_gather(case)
 
 
 ROUTES = {   # variant: the P2G wrapper its substep calls
@@ -239,109 +247,3 @@ def test_fused_predicate_and_relative_floor_fallback():
         assert "stress" not in fast3d.p2g_args(rel_fbar)
         fast3d.run(b, rel_fbar, spec, 2)
         assert p2g3d.call_count == 2 and p2g3d_grid.call_count == 0
-
-
-@pytest.mark.parametrize("block", ["neo_hookean", "corotated"])
-def test_elastic_drop_3d_matches_jax(block):
-    """Each package builds the scene itself: same bits (per-particle
-    volume, density and material through `Particles.init`), same scene."""
-    material = mat_jax.NEO_HOOKEAN if block == "neo_hookean" else mat_jax.FIXED_COROTATED
-    kw = dict(num_grids=16, fluid_particles=(9, 8, 4), block_particles=(4, 5, 3),
-              block_material=material, flip_blend=0.98)
-    p_j, scene_j = scenes_jax.elastic_drop_3d(transfer=TransferKind.PIC, **kw)
-    p_t, scene_t = scenes.elastic_drop_3d(transfer=TransferKind_t.PIC, **kw)
-    assert p_t.n == 9 * 8 * 4 + 4 * 5 * 3
-    for f in dataclasses.fields(p_j):
-        want = np.asarray(getattr(p_j, f.name))
-        got = getattr(p_t, f.name).numpy()
-        assert got.dtype == want.dtype, f.name
-        np.testing.assert_array_equal(got, want, err_msg=f.name)
-    assert scene_t == convert.scene_from_fields(dataclasses.asdict(scene_j))
-    assert scene_t.materials_present == (0, material) and scene_t.cfg.dim == 3
-
-
-def test_stresses_at_finite_strain_match_jax_materials():
-    """The port's matrix-form 3D stresses and the component form the fast
-    path preps (`fast3d._stress`, with `_polar3d_rows`) against JAX
-    `materials` at a finite strain, within 1e-6 of the stress scale."""
-    _, scene = _jax_scene("drop_neo_hookean")
-    params = dataclasses.replace(scene.params, lam=3e4)   # log J and J - 1 differ visibly
-    f = np.array([[1.15, 0.05, -0.02], [-0.03, 0.9, 0.04], [0.02, -0.06, 1.05]], np.float32)
-    rng = np.random.default_rng(0)
-    n = 6
-    fs = (f[None] + rng.normal(0.0, 0.02, (n, 3, 3))).astype(np.float32)
-    vol0 = rng.uniform(1e-5, 2e-5, n).astype(np.float32)
-    material = np.array([0, 1, 2, 1, 2, 0], np.int32)
-    j = rng.uniform(0.97, 1.03, n).astype(np.float32)
-    c = rng.normal(0.0, 20.0, (n, 3, 3)).astype(np.float32)
-    strain = 0.5 * (c + c.transpose(0, 2, 1))
-    pressure = (-params.bulk_modulus * (j - 1.0)).astype(np.float32)
-    present = (0, 1, 2)
-    ja = jnp.asarray
-    want = {
-        "neo": np.asarray(mat_jax.neo_hookean_tau_hat(params, ja(vol0), ja(fs))),
-        "corot": np.asarray(mat_jax.fixed_corotated_tau_hat(params, ja(vol0), ja(fs))),
-        "mixed": np.asarray(mat_jax.tau_hat(
-            params, ja(material), ja(vol0), ja(fs), ja(j), ja(pressure), ja(strain), present)),
-    }
-    params_t = convert.scene_from_fields(
-        dataclasses.asdict(dataclasses.replace(scene, params=params))).params
-    t = torch.from_numpy
-    got = {
-        "neo": mat.neo_hookean_tau_hat(params_t, t(vol0), t(fs)).numpy(),
-        "corot": mat.fixed_corotated_tau_hat(params_t, t(vol0), t(fs)).numpy(),
-        "mixed": mat.tau_hat(params_t, t(material), t(vol0), t(fs), t(j), t(pressure),
-                             t(strain), present).numpy(),
-    }
-    # The fast path's component form on a one-pencil bucket of the same slots.
-    ones, zeros = np.ones((1, n), np.float32), np.zeros((1, n), np.float32)
-    fields = {name: zeros for name in (
-        "x0", "x1", "x2", "v0", "v1", "v2", "mass", "p_s", "div_s")}
-    fields.update({f"C{a}{e}": c[None, :, a, e] for a in range(3) for e in range(3)})
-    fields.update({f"F{a}{e}": fs[None, :, a, e] for a in range(3) for e in range(3)})
-    fields.update(J=j[None], jbar_s=j[None], vol0=vol0[None], mat=material[None], Jp=ones,
-                  mask=ones, overflow=np.zeros((), np.int32))
-    scene_fast = dataclasses.replace(
-        convert.scene_from_fields(dataclasses.asdict(scene)), params=params_t,
-        materials_present=present)
-    tau, p_point, _ = fast3d._stress(convert.buckets3d_from_numpy(fields, device="cpu"), scene_fast)
-    got["fast3d"] = torch.stack(tau, -1).reshape(n, 3, 3).numpy()
-    want["fast3d"] = want["mixed"]
-    for key in want:
-        scale = float(np.abs(want[key]).max())
-        assert scale > 0
-        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-6 * scale, err_msg=key)
-    np.testing.assert_allclose(p_point.numpy()[0], pressure, rtol=1e-6)
-    assert np.abs(want["neo"] - want["corot"]).max() > 1e-2 * np.abs(want["neo"]).max()
-    # The component-form polar: a rotation, and F = R S with S symmetric.
-    r = torch.stack(fast3d._polar3d_rows([t(fs[:, a, e]) for a in range(3) for e in range(3)]),
-                    -1).reshape(n, 3, 3).numpy().astype(np.float64)
-    np.testing.assert_allclose(r @ r.transpose(0, 2, 1), np.broadcast_to(np.eye(3), r.shape),
-                               atol=1e-6)
-    s = r.transpose(0, 2, 1) @ fs
-    np.testing.assert_allclose(s, s.transpose(0, 2, 1), atol=1e-6)
-
-
-@pytest.mark.parametrize("scene_kind", ["stabilized", "elastic_drop_3d"])
-def test_simulation_runs_the_prepped_3d_branch(tmp_path, scene_kind):
-    """`driver.Simulation` built from (particles, scene) routes by
-    `cfg.dim` and runs the stabilized switch set and `elastic_drop_3d`,
-    frames and VTK included."""
-    if scene_kind == "stabilized":
-        p, scene = scenes.dam_break_3d(
-            num_grids=16, particles_per_axis=(6, 6, 10), dt=2e-5, flip_blend=0.98,
-            transfer=TransferKind_t.PIC, use_fbar=True, use_penalty_ebc=True,
-            pressure_mixing_ratio=1.0)
-    else:
-        p, scene = scenes.elastic_drop_3d()
-    sim = driver.Simulation(p, scene, path="fast", out_dir=str(tmp_path), device="cpu",
-                            render_res=64)
-    sim.run(2, 3, gif=False, verbose=False)
-    assert sim.stats.substeps == 6
-    h = fast3d.to_host(sim.state)
-    assert h["x0"].shape == (p.n,) and all(np.isfinite(h[n]).all() for n in h)
-    assert np.abs(h["J"] - 1.0).max() < 0.1
-    np.testing.assert_allclose(h["mass"].sum(), float(p.mass.sum()), rtol=1e-6)
-    import os
-
-    assert len(os.listdir(sim.frame_dir)) == 2 and len(os.listdir(sim.vtk_dir)) == 2
