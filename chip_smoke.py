@@ -346,7 +346,23 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                and on SlabMesh(2, 2), each against the uninterrupted
                SlabMesh(2, 2) run bitwise; `--backend nccl` with 2
                ranks on this card must raise; then the {"fast_ranks": ...}
-               line.
+               line;
+52. main:bf16  the JAX package's bf16 mode: the reference scene (8,450
+               particles, 105^2) on bf16 particles through Simulation on
+               the general path, 2 frames x 100 substeps, frames written:
+               every scatter launch the kernel's bf16 instance, the state
+               still bf16, finite, in the box, mass constant; the scatter's
+               bf16 mode bitwise its plain version (the sequential
+               bf16-rounded sum) and reruns bitwise at bench 1M, slab 1M
+               and the dense node, with its times beside its float32
+               instance's, the plain version's and bf16 `index_add_`'s;
+               at bench 1M and slab 1M one bf16 substep card against CPU
+               (scatters bitwise, fields within 1 bf16 ulp of their
+               scale), JAX's bf16 contract against float32
+               (tests/test_dtypes.py:44-66), and bf16 and float32 timed in
+               turns (3 x 20, 3 x 5 in 3D) with peak memory; the fast path
+               from bf16 particles bitwise its float32-cast run; then the
+               {"bf16": ...} line.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -380,7 +396,10 @@ p2g3d's stress mode under "stress_*" (0 launches: no path runs it), and
 (not a TPU kernel), with "equal_to_cpu", "rerun_bitwise_equal",
 "plan_ms", "sort_ms", "kernel_plus_plan_ms", the device-only times
 "*_device_ms" and its slab 1M and dense node numbers under "slab1M_*"
-and "dense_*"; "scatter_keys", the plan's key kernel in csrc/scatter.cu;
+and "dense_*", its bf16 mode under "bf16_*" (launches on main:bf16's
+reference run, "bf16_equal_to_plain", "bf16_rerun_bitwise_equal", times at
+bench 1M and under "bf16_slab1M_*" and "bf16_dense_*");
+"scatter_keys", the plan's key kernel in csrc/scatter.cu;
 and each rank's
 launches in every run of phases 44-47 under "ranks_launches"); the fast
 paths on ranks (phases 49-50): each rank's launches under "ranks_launches"
@@ -5796,6 +5815,304 @@ def fast_ranks_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches):
             "ranks_bound_by": bounds[key][1]})
 
 
+# ---------------------------------------------------------------------------
+# bfloat16: the scatter's bf16 mode and the general path on bf16 particles
+# ---------------------------------------------------------------------------
+
+BF16 = {}                    # the {"bf16": ...} line
+# JAX's own bf16 contract, one substep from the same state against float32
+# (tests/test_dtypes.py:44-66): |x16 - x32| < 4e-3, |v16 - v32| < 0.05 of
+# max(|v32|, 1).
+BF16_X_TOL = 4e-3
+BF16_V_TOL = 0.05
+# Card against CPU, one bf16 substep from the same state: the scatters
+# bitwise (the kernel's bf16 mode is the sequential rounded sum), every
+# field within this many bf16 ulps of its scale (the largest |CPU value|).
+BF16_CARD_ULPS = 1
+BF16_TIMED = {"bench1M": 20, "slab1M": 5}
+
+
+def bf16_ulp(scale: float) -> float:
+    """The spacing of bfloat16 values (8 significant bits) at `scale`."""
+    return 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+def bf16_cast(p, dtype):
+    """p with its bfloat16 fields as `dtype` (exact to float32)."""
+    return dataclasses.replace(p, **{f.name: getattr(p, f.name).to(dtype)
+                                     for f in dataclasses.fields(p)
+                                     if getattr(p, f.name).dtype == torch.bfloat16})
+
+
+def bf16_scatters(tag, calls, card, timed_plain_reps=5):
+    """Each captured bf16 scatter: the kernel bitwise its plain version
+    (the sequential rounded sum) on the card, two kernel calls bitwise
+    equal, every launch the bf16 instance; then the largest stencil call's
+    times: kernel (plan given), its float32 instance on the same rows
+    widened (same plan), plan, plain, `index_add_` in bf16 (float32
+    sums rounded once: not the same function, the yardstick), and the
+    bound (rows read in bounds, order, starts and sums, each once; one
+    add a row channel)."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    equal, rerun, worst = True, True, 0.0
+    scatter.reset_launches()
+    n_calls = 0
+    for call in calls:
+        check(call[1].dtype == torch.bfloat16, f"{tag}: a {call[1].dtype} scatter in a bf16 run")
+        kernel, plain, _ = _scatter_fns(call)
+        got, want = kernel(), plain()
+        n_calls += 1
+        equal = equal and torch.equal(got.view(torch.int16), want.view(torch.int16))
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        again = kernel()
+        n_calls += 1
+        rerun = rerun and torch.equal(got.view(torch.int16), again.view(torch.int16))
+    mode = scatter.MODE_LAUNCHES["bf16"] == scatter.LAUNCHES["scatter"] == n_calls
+    say(f"[main:bf16 {tag}] {len(calls)} bf16 scatters of one substep "
+        f"({[(c[0], tuple(c[1].shape)) for c in calls]}): kernel bitwise its plain version "
+        f"(sequential bf16-rounded sum) {equal}, reruns bitwise {rerun}, max |kernel - plain| "
+        f"{worst!r}, every launch the bf16 instance {mode}  [{card}]")
+    check(equal, f"{tag}: the bf16 scatter kernel differs from its plain version")
+    check(rerun, f"{tag}: bf16 scatter reruns differ")
+    check(mode, f"{tag}: a bf16 scatter did not launch the kernel's bf16 instance")
+    BF16[f"{tag}_scatter_equal"] = equal
+    BF16[f"{tag}_scatter_rerun_bitwise_equal"] = rerun
+    SCATTER["bf16_equal_to_plain"] = SCATTER.get("bf16_equal_to_plain", True) and equal
+    SCATTER["bf16_rerun_bitwise_equal"] = SCATTER.get("bf16_rerun_bitwise_equal", True) and rerun
+    SCATTER["bf16_max_abs_err"] = max(SCATTER.get("bf16_max_abs_err", 0.0), worst)
+
+    _, values, base, offsets, shape = max((c for c in calls if c[0] == "stencil"),
+                                          key=lambda c: c[1].numel())
+    n, taps, c = values.shape
+    nodes = int(np.prod(shape))
+    plan = scatter.stencil_plan(base, shape)
+    flat, in_bounds = scatter.stencil_flat(base, offsets, shape)
+    rows = torch.where(in_bounds[..., None], values, 0.0).reshape(-1, c)
+    flat = flat.reshape(-1)
+    zero = torch.zeros((nodes, c), dtype=values.dtype, device=values.device)
+    kernel = lambda: scatter.stencil_add(values, base, offsets, shape, plan)
+    values32 = values.float()
+    t = {
+        "ms": cuda_ms(kernel),
+        "float32_ms": cuda_ms(lambda: scatter.stencil_add(values32, base, offsets, shape, plan)),
+        "plan_ms": cuda_ms(lambda: scatter.stencil_plan(base, shape)),
+        "plain_ms": cuda_ms(lambda: scatter.stencil_add_plain(values, base, offsets, shape),
+                            reps=timed_plain_reps, warm=1),
+        "library_ms": cuda_ms(lambda: zero.index_add_(0, flat, rows)),
+        "device_ms": device_ms(kernel),
+    }
+    read = int(in_bounds.sum())
+    cells = int(plan.starts.numel()) - 1
+    t["bound_ms"], t["bound_by"] = bound(
+        values.element_size() * (read + nodes) * c + 4 * (int(plan.starts[-1]) + cells + 1),
+        read * c)
+    longest = int((plan.starts[1:] - plan.starts[:-1]).max())
+    say(f"[timing:bf16 scatter {tag}] {n} particles x {taps} taps x {c} bf16 channels into "
+        f"{nodes} nodes, {read} rows read, longest run {longest}: kernel {t['ms']:.4f} ms "
+        f"(device alone {t['device_ms']:.4f}; its float32 instance on the same rows widened "
+        f"{t['float32_ms']:.4f}) + plan {t['plan_ms']:.4f} ms; plain (sequential "
+        f"rounded sum, rank levels) {t['plain_ms']:.4f} ms; index_add_ in bf16 (float32 sums "
+        f"rounded once, not bitwise the function) {t['library_ms']:.4f} ms; bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}) (CUDA events)  [{card}]")
+    SCATTER.update({f"bf16_{tag}_{k}": v for k, v in t.items()})
+    if tag == "bench1M":
+        SCATTER.update({f"bf16_{k}": v for k, v in t.items()})
+
+
+def bf16_card_vs_cpu(tag, state, scene, card):
+    """One bf16 substep from `state` on the card twice and on the CPU:
+    every scatter of the card's substep bitwise the CPU's plain version on
+    the same rows, the reruns bitwise, and every field within
+    BF16_CARD_ULPS bf16 ulps of its scale."""
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    calls = scatter_calls(lambda: stabilized.substep(state, scene))
+    sums_equal = True
+    for call in calls:
+        kernel, _, cpu = _scatter_fns(call)
+        sums_equal = sums_equal and torch.equal(kernel().cpu().view(torch.int16),
+                                                cpu().view(torch.int16))
+    a = stabilized.substep(state, scene)
+    b = stabilized.substep(state, scene)
+    t0 = time.perf_counter()
+    c = stabilized.substep(to_device(state, "cpu"), scene)
+    cpu_s = time.perf_counter() - t0
+    ulps, rerun = {}, True
+    for f in dataclasses.fields(c):
+        got, want = getattr(a, f.name).cpu(), getattr(c, f.name)
+        rerun = rerun and torch.equal(getattr(a, f.name), getattr(b, f.name))
+        if not want.is_floating_point():
+            check(torch.equal(got, want), f"{tag}: {f.name} differs card vs CPU")
+            continue
+        diff = float((got.double() - want.double()).abs().max())
+        ulp = bf16_ulp(float(want.double().abs().max()))
+        ulps[f.name] = diff / ulp if diff else 0.0
+    over = {k: v for k, v in ulps.items() if v > BF16_CARD_ULPS}
+    say(f"[main:bf16 {tag}] one bf16 substep card vs CPU ({cpu_s:.1f} s on the CPU): "
+        f"{len(calls)} scatters bitwise the CPU's {sums_equal}, per field max |card - CPU| in "
+        f"bf16 ulps of the field's scale {ulps} (bound {BF16_CARD_ULPS}), card reruns "
+        f"bitwise {rerun}  [{card}]")
+    check(sums_equal, f"{tag}: a bf16 scatter on the card differs from the CPU's")
+    check(rerun, f"{tag}: two bf16 card substeps differ")
+    check(not over, f"{tag}: bf16 card vs CPU over {BF16_CARD_ULPS} ulp: {over}")
+    BF16[f"{tag}_card_vs_cpu_ulps"] = ulps
+    BF16[f"{tag}_scatters_equal_to_cpu"] = sums_equal
+
+
+def bf16_contract(tag, p16, scene, dev, card):
+    """JAX's bf16 contract (tests/test_dtypes.py:44-66) on the card: one
+    substep from the bf16 particles and from their float32 cast."""
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    s16 = to_device(p16, dev)
+    s32 = to_device(bf16_cast(p16, torch.float32), dev)
+    scene32 = dataclasses.replace(scene, cfg=dataclasses.replace(scene.cfg, dtype="float32"))
+    o16, o32 = stabilized.substep(s16, scene), stabilized.substep(s32, scene32)
+    dx = float((o16.x.float() - o32.x).abs().max())
+    dv = float((o16.v.float() - o32.v).abs().max())
+    v_scale = max(float(o32.v.abs().max()), 1.0)
+    say(f"[main:bf16 {tag}] JAX's bf16 contract, one substep bf16 against float32 from the "
+        f"same particles: max |x16 - x32| {dx!r} (bound {BF16_X_TOL}), max |v16 - v32| {dv!r} "
+        f"(bound {BF16_V_TOL} x {v_scale!r})  [{card}]")
+    check(dx < BF16_X_TOL, f"{tag}: bf16 x off float32 by {dx}")
+    check(dv < BF16_V_TOL * v_scale, f"{tag}: bf16 v off float32 by {dv}")
+    BF16[f"{tag}_contract"] = {"x": dx, "v": dv, "v_scale": v_scale}
+
+
+def bf16_timing(tag, p16, scene, dev, card):
+    """ms per substep of the general path in bf16 and in float32 from the
+    same particles, 3 x n timed substeps each, in turns (ABBA order), and
+    each one's peak device memory."""
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    n = BF16_TIMED[tag]
+    scene32 = dataclasses.replace(scene, cfg=dataclasses.replace(scene.cfg, dtype="float32"))
+    states = {"bf16": (to_device(p16, dev), scene),
+              "float32": (to_device(bf16_cast(p16, torch.float32), dev), scene32)}
+    runs = {"bf16": [], "float32": []}
+    peak = {}
+    for k in states:
+        stabilized.run(*states[k], 1)          # warm-up
+    for order in (("bf16", "float32"), ("float32", "bf16"), ("bf16", "float32")):
+        for k in order:
+            s, sc = states[k]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            stabilized.run(s, sc, n)
+            torch.cuda.synchronize()
+            runs[k].append(1e3 * (time.perf_counter() - t0) / n)
+            peak[k] = max(peak.get(k, 0), torch.cuda.max_memory_allocated() - base)
+    ms = {k: float(np.median(v)) for k, v in runs.items()}
+    say(f"[timing:bf16 {tag}] general path {p16.n} particles: bf16 {ms['bf16']:.4f} ms/substep "
+        f"(runs {[round(r, 4) for r in runs['bf16']]}), float32 {ms['float32']:.4f} "
+        f"(runs {[round(r, 4) for r in runs['float32']]}), 3 x {n} substeps each in turns; "
+        f"peak device memory above the state bf16 {peak['bf16']} bytes, float32 "
+        f"{peak['float32']} bytes  [{card}]")
+    BF16[f"{tag}_ms"] = ms
+    BF16[f"{tag}_runs_ms"] = runs
+    BF16[f"{tag}_peak_bytes"] = peak
+
+
+def bf16_phases(dev, card, io_ok):
+    """Phase 52, main:bf16: the general path on bf16 particles through
+    Simulation (the reference scene, frames written), the scatter kernel's
+    bf16 mode against its plain version at bench 1M, slab 1M and the dense
+    node, card against CPU, JAX's bf16 contract, bf16 and float32 timed in
+    turns, and the fast path from bf16 particles bitwise its float32-cast
+    run."""
+    from mpm_flip98a_tpu_torch import driver
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import fast2d, scenes, stabilized
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+    from mpm_flip98a_tpu_torch.state import to_device
+    from mpm_flip98a_tpu_torch.utils import diagnostics, io_vtk
+
+    t_all = time.perf_counter()
+    # The reference scene (8,450 particles on 105^2) in bf16, 2 frames x 100.
+    p, scene = scenes.dam_break_2d(dtype=torch.bfloat16)
+    mass0 = float(diagnostics.summarize(to_device(p, dev))["total_mass"])
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        sim = driver.Simulation(p, scene, path="general", device=dev, out_dir=out_dir)
+        reset_counts()
+        scatter.reset_launches()
+        t0 = time.perf_counter()
+        sim.run(2, 100, gif=False, verbose=False, write_frames=io_ok)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_scatter, n_bf16 = scatter.LAUNCHES["scatter"], scatter.MODE_LAUNCHES["bf16"]
+        n_keys = scatter.LAUNCHES["scatter_keys"]
+        frames = ([io_vtk.read_vtk_points(os.path.join(sim.vtk_dir, f"{k:05d}.vtk"))
+                   for k in (1, 2)] if io_ok else [])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    say(f"[main:bf16 reference] Simulation(bf16 dam_break_2d, path general) 2 frames x 100 "
+        f"substeps in {secs:.2f} s, frames written {io_ok} ({len(frames)} VTK read back): "
+        f"scatter launches {n_scatter}, of them the bf16 instance {n_bf16}, key kernel "
+        f"{n_keys}, state dtype {sim.state.x.dtype}  [{card}]")
+    check(n_scatter >= 200 and n_bf16 == n_scatter and n_keys >= 200,
+          f"bf16 reference: scatter launches {n_scatter} (bf16 {n_bf16}), keys {n_keys}")
+    check(sim.state.x.dtype == torch.bfloat16, "bf16 reference: the state left bfloat16")
+    check(all(np.isfinite(f).all() and f.shape[0] == p.n for f in frames),
+          "bf16 reference: a frame is not finite or lost particles")
+    general_host_checks("bf16 reference", sim, p.n, mass0, card)
+    BF16["reference"] = {"seconds": secs, "scatter_launches": n_scatter,
+                         "bf16_launches": n_bf16, "key_launches": n_keys,
+                         "frames": len(frames)}
+    SCATTER["bf16_launches"], SCATTER["bf16_keys_launches"] = n_bf16, n_keys
+    say(f"[timing] main:bf16 reference done at {time.perf_counter() - t_all:.1f} s")
+
+    # bench 1M and slab 1M in bf16.
+    p_b, scene_b = scenes.dam_break_2d(MPMConfig(**BENCH, transfer=TransferKind.PIC),
+                                       dtype=torch.bfloat16)
+    p_s, scene_s = scenes.slab_3d(**SLAB_1M, dtype=torch.bfloat16)
+    for tag, p0, sc in (("bench1M", p_b, scene_b), ("slab1M", p_s, scene_s)):
+        state = stabilized.run(to_device(p0, dev), sc, 3)
+        bf16_scatters(tag, scatter_calls(lambda: stabilized.substep(state, sc)), card)
+        bf16_card_vs_cpu(tag, state, sc, card)
+        del state
+        bf16_contract(tag, p0, sc, dev, card)
+        bf16_timing(tag, p0, sc, dev, card)
+        torch.cuda.empty_cache()
+        say(f"[timing] main:bf16 {tag} done at {time.perf_counter() - t_all:.1f} s")
+    del p_s
+
+    # The dense node: 20,000 of bench 1M's particles at one point.
+    x = p_b.x.clone()
+    moved = np.random.default_rng(0).choice(p_b.n, min(20_000, p_b.n // 2), replace=False)
+    x[moved] = x[p_b.n // 2].clone()
+    dense = to_device(dataclasses.replace(p_b, x=x), dev)
+    bf16_scatters("dense", scatter_calls(lambda: stabilized.substep(dense, scene_b)), card,
+                  timed_plain_reps=1)
+    del dense
+    say(f"[timing] main:bf16 dense done at {time.perf_counter() - t_all:.1f} s")
+
+    # The fast path from bf16 particles: bitwise the run from their float32 cast.
+    p32 = bf16_cast(p_b, torch.float32)
+    runs = []
+    for q in (p_b, p32):
+        spec = fast2d.FastSpec.for_particles(scene_b.cfg, q)
+        b = fast2d.from_particles(q, scene_b.cfg, spec, dev)
+        runs.append((spec, fast2d.run(b, scene_b, spec, 20)))
+    same_spec = runs[0][0] == runs[1][0]
+    differ = [f.name for f in dataclasses.fields(runs[0][1])
+              if not torch.equal(getattr(runs[0][1], f.name), getattr(runs[1][1], f.name))]
+    say(f"[main:bf16 fast] fast2d from bf16 bench 1M particles against their float32 cast, "
+        f"20 substeps each: specs equal {same_spec}, fields not bitwise equal {differ}  [{card}]")
+    check(same_spec and not differ, f"bf16 fast path: spec {same_spec}, fields {differ}")
+    BF16["fast_bitwise_float32_cast"] = same_spec and not differ
+    BF16["seconds"] = time.perf_counter() - t_all
+    say(f"[timing] main:bf16 done in {BF16['seconds']:.1f} s")
+    say(json.dumps({"bf16": BF16}))
+    return BF16
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -6303,6 +6620,10 @@ def main(argv=None) -> int:
 
     # ---- 49-51. the fast paths one shard per rank, the --ranks CLIs -----------
     fast_ranks_phases(dev, card, args.profile, err, kernel_ms, plain_ms, bounds, launches)
+    say(f"[timing] fast ranks phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 52. bfloat16: the scatter's bf16 mode, the general path in bf16 -------
+    bf16_phases(dev, card, io_ok)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [

@@ -88,6 +88,7 @@ SIGNATURES = {
     # values, order, starts, out, nodes, channels, taps, g1, g2, stream
     "mpm_segment_sum_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     "mpm_segment_sum_f64": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    "mpm_segment_sum_bf16": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     # base, keep (or null), particles, d, g0, g1, g2, keys, stream
     "mpm_stencil_keys": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
 }

@@ -18,11 +18,58 @@ import numpy as np
 import torch
 
 
+def round_bf16(v) -> float:
+    """v rounded to bfloat16 as JAX rounds a Python constant that meets a
+    bfloat16 array: to float32 first, then to the nearest even bfloat16."""
+    f = np.float32(v)
+    if not np.isfinite(f):
+        return float(f)
+    u = int(f.view(np.uint32))
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return float(np.uint32(u).view(np.float32))
+
+
+class Bf16(float):
+    """A Python float that holds a bfloat16 value and rounds every
+    arithmetic result to bfloat16, as JAX's 0-d bfloat16 arrays do (one
+    rounding an operation; a plain float operand is rounded first, as a
+    weak-typed constant is).  `np_float(torch.bfloat16)`."""
+
+    def __new__(cls, v=0.0):
+        return float.__new__(cls, round_bf16(float(v)))
+
+    def _op(self, other, fn):
+        if not isinstance(other, (int, float)) or isinstance(other, bool):
+            return NotImplemented
+        return Bf16(fn(float(self), float(Bf16(other))))
+
+    def __add__(self, o): return self._op(o, lambda a, b: a + b)
+    def __radd__(self, o): return self._op(o, lambda a, b: b + a)
+    def __sub__(self, o): return self._op(o, lambda a, b: a - b)
+    def __rsub__(self, o): return self._op(o, lambda a, b: b - a)
+    def __mul__(self, o): return self._op(o, lambda a, b: a * b)
+    def __rmul__(self, o): return self._op(o, lambda a, b: b * a)
+    def __truediv__(self, o): return self._op(o, lambda a, b: a / b)
+    def __rtruediv__(self, o): return self._op(o, lambda a, b: b / a)
+    def __neg__(self): return Bf16(-float(self))
+    def __pos__(self): return self
+    def __abs__(self): return Bf16(abs(float(self)))
+
+
 def np_float(dtype: torch.dtype):
-    """The numpy float type of a torch float dtype.  A Python constant
-    rounded through it meets a tensor of that dtype as JAX's
-    `jnp.asarray(c, dtype)` does, without a tensor made on the host."""
+    """The scalar type of a torch float dtype: numpy's float64 or float32,
+    and `Bf16` for bfloat16.  A Python constant rounded through it meets a
+    tensor of that dtype as JAX's `jnp.asarray(c, dtype)` does, and
+    arithmetic among such scalars rounds as JAX's 0-d arrays of that dtype
+    do, without a tensor made on the host."""
+    if dtype == torch.bfloat16:
+        return Bf16
     return np.float64 if dtype == torch.float64 else np.float32
+
+
+def scalar(v, dtype: torch.dtype) -> float:
+    """The Python constant v rounded to `dtype`, as a Python float."""
+    return float(np_float(dtype)(v))
 
 
 class TransferKind(str, enum.Enum):

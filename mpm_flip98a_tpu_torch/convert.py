@@ -13,7 +13,9 @@ so this module imports neither JAX nor the JAX package:
     domain_state_from_numpy({... a domain state's particles ...}, dropped, rank, n, device)
 
 Arrays keep their dtype and bits; the tests use this to feed both
-packages the same state.
+packages the same state.  A JAX bfloat16 array (numpy dtype name
+"bfloat16", from `ml_dtypes`, which this module does not import) becomes
+a torch bfloat16 tensor through its 16-bit patterns (`bf16_tensor`).
 """
 
 from __future__ import annotations
@@ -36,7 +38,21 @@ from mpm_flip98a_tpu_torch.parallel.domain import DomainState
 from mpm_flip98a_tpu_torch.state import MLS88Particles, Particles
 
 
+def is_bf16(a) -> bool:
+    """Whether the numpy array `a` holds bfloat16 values."""
+    return getattr(getattr(a, "dtype", None), "name", None) == "bfloat16"
+
+
+def bf16_tensor(a, device="cpu") -> torch.Tensor:
+    """A numpy bfloat16 array as a torch bfloat16 tensor with the same bits
+    (a 16-bit view: numpy's bfloat16 is `ml_dtypes`' extension type)."""
+    bits = np.array(a, copy=True, order="C").view(np.int16)
+    return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+
+
 def _tensor(a, device="cuda") -> torch.Tensor:
+    if is_bf16(a):
+        return bf16_tensor(a, device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 

@@ -20,8 +20,8 @@
 // one-tap form (S = 1, bare rows) keys the node itself.
 //
 // Contract:
-//   values  (N, S, c) float32 or float64, contiguous; read in place, never
-//           at a tap that is out of bounds
+//   values  (N, S, c) float32, float64 or bfloat16, contiguous; read in
+//           place, never at a tap that is out of bounds
 //   order   (N,) int32, particles sorted stably by key cell
 //   starts  (cells + 1,) int32, cell k's run order[starts[k] .. starts[k+1])
 //   out     (nodes, c), every entry written (+0 where a node has no row)
@@ -47,7 +47,17 @@
 // H100: the gathered row reads (each row once, but a node's rows belong to
 // particles far apart in memory, so sectors are fetched per row) and, in
 // 3D, the merge's instructions (about 2 S + 30 a row).
+//
+// bfloat16 (the JAX package's bf16 mode): XLA's CPU scatter rounds the
+// node's sum to bfloat16 after every add, in update order.  The bf16 mode
+// keeps the same plan and walks and sums each node's rows in float32 from
+// +0, rounding the sum to bfloat16 (`__float2bfloat16_rn`) after every add,
+// so it equals that sequential sum bit for bit (a float32 sum of two
+// bfloat16 values rounds to bfloat16 as their exact sum does: 24 >= 2 x 8 + 2
+// bits).  Rows load 8 bf16 values per 16 bytes (4 per 8, 2 per 4) where the
+// row width allows.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +69,26 @@ constexpr int kCh = 8;             // channels summed per walk
 constexpr int kHeavyRun = 64;      // a node with a longer run is walked by its warp
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNone = 0xffffffffu;
+
+// The sum's type and its one add: float32 and float64 add in their own
+// type; bfloat16 adds in float32 and rounds the sum to bfloat16 every time.
+template <typename T>
+struct Acc {
+  using type = T;
+  __device__ __forceinline__ static T in(T v) { return v; }
+  __device__ __forceinline__ static T add(T a, T b) { return a + b; }
+  __device__ __forceinline__ static T out(T a) { return a; }
+};
+
+template <>
+struct Acc<__nv_bfloat16> {
+  using type = float;
+  __device__ __forceinline__ static float in(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ __forceinline__ static float add(float a, float b) {
+    return __bfloat162float(__float2bfloat16_rn(__fadd_rn(a, b)));
+  }
+  __device__ __forceinline__ static __nv_bfloat16 out(float a) { return __float2bfloat16_rn(a); }
+};
 
 struct Shape {
   long long nodes;
@@ -109,37 +139,42 @@ __device__ __forceinline__ int delta_of(int s, const Shape& g) {
   return (s / 9) * g.k1 + ((s / 3) % 3) * g.k2 + s % 3;
 }
 
-// A row's cw channels into v (the rest +0), in loads of `vec` values: 16
-// or 8 bytes where every row's start and cw allow it (one thread reads a
+// `bytes` bytes of a row as k values, widened to the sum's type.
+template <typename T, typename W, int k>
+__device__ __forceinline__ void load_vec(const T* at, typename Acc<T>::type* v) {
+  const W raw = __ldg(reinterpret_cast<const W*>(at));
+  const T* got = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < k; ++j) v[j] = Acc<T>::in(got[j]);
+}
+
+// A row's cw channels into v (the rest +0), in loads of `vec` values: 16,
+// 8 or 4 bytes where every row's start and cw allow it (one thread reads a
 // whole row; neighbouring threads read rows of other particles).
 template <typename T>
-__device__ __forceinline__ void load_row(const T* row, int cw, int vec, T (&v)[kCh]) {
+__device__ __forceinline__ void load_row(const T* row, int cw, int vec,
+                                         typename Acc<T>::type (&v)[kCh]) {
+  using A = typename Acc<T>::type;
 #pragma unroll
-  for (int ch = 0; ch < kCh; ++ch) v[ch] = T(0);
+  for (int ch = 0; ch < kCh; ++ch) v[ch] = A(0);
   if (vec * sizeof(T) == 16) {
     constexpr int k = 16 / sizeof(T);
 #pragma unroll
-    for (int i = 0; i < kCh; i += k) {
-      if (i < cw) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row + i));
-        const T* got = reinterpret_cast<const T*>(&raw);
+    for (int i = 0; i < kCh; i += k)
+      if (i < cw) load_vec<T, uint4, k>(row + i, v + i);
+  } else if (vec * sizeof(T) == 8 && sizeof(T) <= 4) {
+    constexpr int k = 8 / sizeof(T);
 #pragma unroll
-        for (int j = 0; j < k; ++j) v[i + j] = got[j];
-      }
-    }
-  } else if (vec * sizeof(T) == 8 && sizeof(T) == 4) {
+    for (int i = 0; i < kCh; i += k)
+      if (i < cw) load_vec<T, uint2, k>(row + i, v + i);
+  } else if (vec * sizeof(T) == 4 && sizeof(T) == 2) {
 #pragma unroll
-    for (int i = 0; i < kCh; i += 2) {
-      if (i < cw) {
-        const float2 got = __ldg(reinterpret_cast<const float2*>(row + i));
-        v[i] = got.x;
-        v[i + 1] = got.y;
-      }
-    }
+    for (int i = 0; i < kCh; i += 2)
+      if (i < cw) load_vec<T, unsigned, 2>(row + i, v + i);
   } else {
 #pragma unroll
     for (int ch = 0; ch < kCh; ++ch)
-      if (ch < cw) v[ch] = row[ch];
+      if (ch < cw) v[ch] = Acc<T>::in(row[ch]);
   }
 }
 
@@ -147,6 +182,7 @@ template <typename T, int S>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_kernel(const T* __restrict__ values, const int* __restrict__ order,
                    const int* __restrict__ starts, T* __restrict__ out, Shape g, int c, int vec) {
+  using A = typename Acc<T>::type;
   constexpr int kShift = S > 1 ? 5 : 0;
   __shared__ int s_cur[S][kThreads];
   __shared__ int s_end[S][kThreads];
@@ -176,9 +212,9 @@ segment_sum_kernel(const T* __restrict__ values, const int* __restrict__ order,
     const bool heavy = longest > kHeavyRun;
 
     if (valid && !heavy) {
-      T acc[kCh], pend[kCh];
+      A acc[kCh], pend[kCh];
 #pragma unroll
-      for (int ch = 0; ch < kCh; ++ch) acc[ch] = pend[ch] = T(0);
+      for (int ch = 0; ch < kCh; ++ch) acc[ch] = pend[ch] = A(0);
       while (true) {
         uint32_t m = head[0];
 #pragma unroll
@@ -186,7 +222,7 @@ segment_sum_kernel(const T* __restrict__ values, const int* __restrict__ order,
         if (m == kNone) break;
         const int s = S > 1 ? static_cast<int>(m & 31u) : 0;
         const T* row = values + ((static_cast<long long>(m >> kShift) * S + s) * c + c0);
-        T v[kCh];
+        A v[kCh];
         load_row(row, cw, vec, v);
         const int pos = s_cur[s][tid] + 1;
         s_cur[s][tid] = pos;
@@ -198,13 +234,13 @@ segment_sum_kernel(const T* __restrict__ values, const int* __restrict__ order,
         // bitwise unchanged (0 + 0 is +0).
 #pragma unroll
         for (int ch = 0; ch < kCh; ++ch) {
-          acc[ch] = acc[ch] + pend[ch];
+          acc[ch] = Acc<T>::add(acc[ch], pend[ch]);
           pend[ch] = v[ch];
         }
       }
 #pragma unroll
       for (int ch = 0; ch < kCh; ++ch)
-        if (ch < cw) out[n * c + c0 + ch] = acc[ch] + pend[ch];
+        if (ch < cw) out[n * c + c0 + ch] = Acc<T>::out(Acc<T>::add(acc[ch], pend[ch]));
     }
 
     // The warp's dense nodes, one after another, by the whole warp.
@@ -222,7 +258,7 @@ segment_sum_kernel(const T* __restrict__ values, const int* __restrict__ order,
         end = starts[key + 1];
       }
       uint32_t hd = cur < end ? static_cast<uint32_t>(order[cur]) : kNone;
-      T acc = T(0);
+      A acc = A(0);
       while (true) {
         const uint32_t m1 = __reduce_min_sync(kFull, hd);
         if (m1 == kNone) break;
@@ -245,7 +281,7 @@ segment_sum_kernel(const T* __restrict__ values, const int* __restrict__ order,
         if (lane < cw) {
 #pragma unroll
           for (int j = 0; j < 32; ++j)
-            if (j < k) acc = acc + rows[j * kCh + lane];
+            if (j < k) acc = Acc<T>::add(acc, Acc<T>::in(rows[j * kCh + lane]));
         }
         __syncwarp();
         const uint32_t after = __shfl_sync(kFull, q, k & 31);
@@ -254,7 +290,7 @@ segment_sum_kernel(const T* __restrict__ values, const int* __restrict__ order,
           hd = cur < oe ? (k < 32 ? after : static_cast<uint32_t>(order[cur])) : kNone;
         }
       }
-      if (lane < cw) out[hn * c + c0 + lane] = acc;
+      if (lane < cw) out[hn * c + c0 + lane] = Acc<T>::out(acc);
     }
   }
 }
@@ -286,9 +322,13 @@ int launch_taps(const T* values, const int* order, const int* starts, T* out,
   long long blocks = (g.nodes + kThreads - 1) / kThreads;
   if (S == 27) blocks = static_cast<long long>((g.g0 + 3) / 4) * g.t1 * g.t2;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  // Rows start at multiples of c values: 16- or 8-byte loads where c allows.
+  // Rows start at multiples of c values: 16-, 8- or 4-byte loads where c
+  // allows.
   const int bytes = c * static_cast<int>(sizeof(T));
-  int vec = (bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : static_cast<int>(sizeof(T))) /
+  int vec = (bytes % 16 == 0  ? 16
+             : bytes % 8 == 0 ? 8
+             : bytes % 4 == 0 ? 4
+                              : static_cast<int>(sizeof(T))) /
             static_cast<int>(sizeof(T));
   if (reinterpret_cast<uintptr_t>(values) % (vec * sizeof(T))) vec = 1;
   segment_sum_kernel<T, S><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
@@ -340,6 +380,13 @@ extern "C" int mpm_segment_sum_f64(const double* values, const int* order,
                                    const int* starts, double* out, long long nodes, int c,
                                    int taps, int g1, int g2, void* stream) {
   return launch<double>(values, order, starts, out, nodes, c, taps, g1, g2, stream);
+}
+
+// bfloat16 rows, each node's sum rounded to bfloat16 after every add.
+extern "C" int mpm_segment_sum_bf16(const __nv_bfloat16* values, const int* order,
+                                    const int* starts, __nv_bfloat16* out, long long nodes,
+                                    int c, int taps, int g1, int g2, void* stream) {
+  return launch<__nv_bfloat16>(values, order, starts, out, nodes, c, taps, g1, g2, stream);
 }
 
 // Returns a cudaError_t as int: cudaErrorInvalidValue for d other than 2 or

@@ -77,7 +77,7 @@ import torch
 from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
 from mpm_flip98a_tpu_torch.models import colliders, fast2d, fast3d, scenes, stabilized
 from mpm_flip98a_tpu_torch.parallel import SlabMesh, fast_domain, fast_domain3d, launch
-from mpm_flip98a_tpu_torch.state import to_device
+from mpm_flip98a_tpu_torch.state import host_array, to_device
 from mpm_flip98a_tpu_torch.utils import checkpoint as ckpt
 from mpm_flip98a_tpu_torch.utils import io_vtk, native_io, render
 from mpm_flip98a_tpu_torch.utils.progress import create_file_paths, progress_bar
@@ -273,7 +273,7 @@ class Simulation:
 
     def positions(self) -> np.ndarray:
         if self.path == "general":
-            return self.state.x.cpu().numpy()
+            return host_array(self.state.x)
         h = self._host_state()
         return np.stack([h[f"x{a}"] for a in range(self.cfg.dim)], axis=-1)
 

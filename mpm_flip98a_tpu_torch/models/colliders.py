@@ -32,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from mpm_flip98a_tpu_torch.config import np_float
+from mpm_flip98a_tpu_torch.config import np_float, scalar
 from mpm_flip98a_tpu_torch.models.stabilized import PAD
 
 
@@ -87,12 +87,6 @@ class Collider:
         return bool(self.center_velocity) and any(v != 0.0 for v in self.center_velocity)
 
 
-def rounded(v, dtype: torch.dtype) -> float:
-    """v rounded to `dtype`, as a Python float (exact in that dtype): how
-    the reference casts a constant before it meets a tensor."""
-    return float(np_float(dtype)(v))
-
-
 def _center_at(c: Collider, dtype: torch.dtype, t):
     """Per-axis effective center at simulation time t (a host scalar, or
     None = 0), computed in `dtype`: center + center_velocity * t."""
@@ -126,15 +120,15 @@ def phi_normal(c: Collider, coords, t=None):
     if c.kind == "sphere":
         diff = [coords[a] - ctr[a] for a in range(d)]
         r = torch.sqrt(_sum([x * x for x in diff]))
-        r_safe = r.clamp(min=rounded(1e-12, dt_))
-        return r - rounded(c.radius, dt_), [x / r_safe for x in diff]
+        r_safe = r.clamp(min=scalar(1e-12, dt_))
+        return r - scalar(c.radius, dt_), [x / r_safe for x in diff]
     if c.kind == "box":
         # Exact SDF: q_a = |x_a - c_a| - h_a; phi = |max(q, 0)| + min(max_a
         # q_a, 0).  Outward normal: outside, from the closest surface point;
         # inside, the nearest face's axis (one-hot on argmax q, sign of the
         # offset; ties at edges share it).
         diff = [coords[a] - ctr[a] for a in range(d)]
-        q = [diff[a].abs() - rounded(c.half_extents[a], dt_) for a in range(d)]
+        q = [diff[a].abs() - scalar(c.half_extents[a], dt_) for a in range(d)]
         qp = [x.clamp(min=0.0) for x in q]
         out_len = torch.sqrt(_sum([x * x for x in qp]))
         qmax = q[0]
@@ -142,7 +136,7 @@ def phi_normal(c: Collider, coords, t=None):
             qmax = torch.maximum(qmax, q[a])
         phi = out_len + qmax.clamp(max=0.0)
         sgn = [torch.where(x >= 0, 1.0, -1.0).to(dt_) for x in diff]
-        safe_out = out_len.clamp(min=rounded(1e-12, dt_))
+        safe_out = out_len.clamp(min=scalar(1e-12, dt_))
         face = [(q[a] >= qmax).to(dt_) for a in range(d)]
         face_n = torch.sqrt(_sum([f * f for f in face]))
         inside = qmax <= 0
@@ -151,7 +145,7 @@ def phi_normal(c: Collider, coords, t=None):
             for a in range(d)
         ]
         return phi, n
-    nu = [rounded(x, dt_) for x in halfspace_normal(c)]
+    nu = [scalar(x, dt_) for x in halfspace_normal(c)]
     phi = _sum([nu[a] * (coords[a] - ctr[a]) for a in range(d)])
     return phi, [torch.full_like(phi, nu[a]) for a in range(d)]
 
@@ -175,10 +169,10 @@ def project(vs, coords, colliders: Tuple[Collider, ...], t=None):
             ctr = _center_at(c, dt_, t)
             r = [coords[a] - ctr[a] for a in range(d)]
             if d == 2:
-                w = rounded(c.angular[0], dt_)
+                w = scalar(c.angular[0], dt_)
                 vsurf = [vsurf[0] - w * r[1], vsurf[1] + w * r[0]]
             else:
-                wx, wy, wz = (rounded(w_, dt_) for w_ in c.angular)
+                wx, wy, wz = (scalar(w_, dt_) for w_ in c.angular)
                 vsurf = [
                     vsurf[0] + wy * r[2] - wz * r[1],
                     vsurf[1] + wz * r[0] - wx * r[2],
@@ -216,5 +210,5 @@ def node_coords(cfg, axis_indices, dtype=torch.float32):
     """Physical node positions from grid indices: x = (idx - PAD) dx.
     `axis_indices` are broadcastable per-axis index tensors (global
     indices on sharded windows)."""
-    dx = rounded(cfg.dx, dtype)
+    dx = scalar(cfg.dx, dtype)
     return [(idx.to(dtype) - PAD) * dx for idx in axis_indices]

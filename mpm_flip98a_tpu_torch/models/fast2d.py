@@ -65,7 +65,7 @@ from mpm_flip98a_tpu_torch.models.stabilized import (
 )
 from mpm_flip98a_tpu_torch.ops import binning
 from mpm_flip98a_tpu_torch.ops.cuda import transfer2d as tk
-from mpm_flip98a_tpu_torch.state import Particles
+from mpm_flip98a_tpu_torch.state import Particles, host_array
 
 
 def _f32(v: float) -> float:
@@ -120,7 +120,7 @@ class FastSpec:
 
     @staticmethod
     def for_particles(cfg: MPMConfig, p: Particles, headroom: float = 1.5) -> "FastSpec":
-        x = p.x.cpu().numpy()
+        x = host_array(p.x)
         row = np.floor(x[:, 0] * cfg.inv_dx + PAD - 0.5).astype(np.int64)
         occ = int(np.bincount(np.clip(row, 0, cfg.num_grids - 1), minlength=cfg.num_grids).max())
         return FastSpec(rows=cfg.num_grids, capacity=capacity_for(occ, headroom))

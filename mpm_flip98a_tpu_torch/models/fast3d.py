@@ -65,7 +65,7 @@ from mpm_flip98a_tpu_torch.models.stabilized import (
 )
 from mpm_flip98a_tpu_torch.ops import binning
 from mpm_flip98a_tpu_torch.ops.cuda import transfer3d as tk3
-from mpm_flip98a_tpu_torch.state import Particles
+from mpm_flip98a_tpu_torch.state import Particles, host_array
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +132,7 @@ class FastSpec3D:
     @staticmethod
     def for_particles(cfg: MPMConfig, p: Particles, headroom: float = 1.5) -> "FastSpec3D":
         g = cfg.num_grids
-        x = p.x.cpu().numpy()
+        x = host_array(p.x)
         r0 = np.floor(x[:, 0] * cfg.inv_dx + PAD - 0.5).astype(np.int64)
         r1 = np.floor(x[:, 1] * cfg.inv_dx + PAD - 0.5).astype(np.int64)
         pair = np.clip(r0, 0, g - 1) * g + np.clip(r1, 0, g - 1)

@@ -29,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from mpm_flip98a_tpu_torch.config import EOSKind, np_float
+from mpm_flip98a_tpu_torch.config import EOSKind, np_float, scalar
 from mpm_flip98a_tpu_torch.ops import mathx
 
 # Material ids (per-particle, int32; reference: fields.py:12).
@@ -64,11 +64,6 @@ class MaterialParams:
     friction_angle: float = 35.0
 
 
-def _scalar(v: float, like: torch.Tensor) -> float:
-    """v rounded to like's dtype, as a Python float."""
-    return float(np_float(like.dtype)(v))
-
-
 def _eye(d: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(d, dtype=like.dtype, device=like.device)
 
@@ -77,10 +72,10 @@ def fluid_pressure(params: MaterialParams, j_bar: torch.Tensor) -> torch.Tensor:
     """EOS pressure from the volume ratio: LINEAR p = -K (J - 1); TAIT
     p = (K / gamma) ((1/J)^gamma - 1), with J floored at 1e-3 as the
     kernels do."""
-    k = _scalar(params.bulk_modulus, j_bar)
+    k = scalar(params.bulk_modulus, j_bar.dtype)
     if params.eos == EOSKind.LINEAR:
         return -k * (j_bar - 1.0)
-    g = _scalar(params.tait_gamma, j_bar)
+    g = scalar(params.tait_gamma, j_bar.dtype)
     nd = np_float(j_bar.dtype)
     k_over_g = float(nd(k) / nd(g))
     j_safe = torch.clamp(j_bar, min=1e-3)
@@ -97,8 +92,8 @@ def fluid_tau_hat(
     """Weakly-compressible viscous fluid: V0 J (-p I + 2 mu dev(eps_dot))."""
     d = strain_rate.shape[-1]
     eye = _eye(d, strain_rate)
-    mu = _scalar(params.dynamic_viscosity, strain_rate)
-    tr = strain_rate.diagonal(dim1=-2, dim2=-1).sum(-1)
+    mu = scalar(params.dynamic_viscosity, strain_rate.dtype)
+    tr = mathx.trace(strain_rate)
     dev = strain_rate - (tr / d)[..., None, None] * eye
     sigma = (-pressure)[..., None, None] * eye + 2.0 * mu * dev
     return (volume0 * j_bar)[..., None, None] * sigma
@@ -112,7 +107,7 @@ def fixed_corotated_tau_hat(
     d = f.shape[-1]
     j = mathx.det(f)
     r, _ = mathx.polar_decomp(f)
-    mu, lam = _scalar(params.mu, f), _scalar(params.lam, f)
+    mu, lam = scalar(params.mu, f.dtype), scalar(params.lam, f.dtype)
     pf = 2.0 * mu * mathx.mm(f - r, mathx.transpose(f)) + (
         (lam * (j - 1.0) * j)[..., None, None] * _eye(d, f)
     )
@@ -126,7 +121,7 @@ def neo_hookean_tau_hat(
     d = f.shape[-1]
     eye = _eye(d, f)
     j = torch.clamp(mathx.det(f), min=1e-6)
-    mu, lam = _scalar(params.mu, f), _scalar(params.lam, f)
+    mu, lam = scalar(params.mu, f.dtype), scalar(params.lam, f.dtype)
     b = mathx.mm(f, mathx.transpose(f))
     return volume0[..., None, None] * (
         mu * (b - eye) + (lam * torch.log(j))[..., None, None] * eye
@@ -140,11 +135,11 @@ def snow_tau_hat(
     (mls-mpm88-explained.cpp:67-69,81): h = exp(hardening (1 - Jp)),
     V0 (2 mu0 h (F - R) F^T + lam0 h (J - 1) J I)."""
     d = f.shape[-1]
-    h = torch.exp(_scalar(params.hardening, f) * (1.0 - jp))
+    h = torch.exp(scalar(params.hardening, f.dtype) * (1.0 - jp))
     j = mathx.det(f)
     r, _ = mathx.polar_decomp(f)
-    mu = _scalar(params.mu, f) * h
-    lam = _scalar(params.lam, f) * h
+    mu = scalar(params.mu, f.dtype) * h
+    lam = scalar(params.lam, f.dtype) * h
     pf = 2.0 * mu[..., None, None] * mathx.mm(f - r, mathx.transpose(f)) + (
         (lam * (j - 1.0) * j)[..., None, None] * _eye(d, f)
     )
@@ -162,7 +157,7 @@ def _hencky(f: torch.Tensor):
     """SVD and the log singular values, floored at 1e-4 against collapsed
     or inverted slots: (U, sig, V, eps)."""
     u, sig, v = mathx.svd(f)
-    return u, sig, v, torch.log(torch.clamp(sig, min=_scalar(1e-4, f)))
+    return u, sig, v, torch.log(torch.clamp(sig, min=scalar(1e-4, f.dtype)))
 
 
 def sand_tau_hat(
@@ -171,8 +166,8 @@ def sand_tau_hat(
     """Hencky-strain St. Venant-Kirchhoff stress (Klar et al. 2016 eq. 26):
     V0 U (2 mu eps + lam tr(eps) I) U^T with eps = log(Sigma)."""
     u, _, _, eps = _hencky(f)
-    mu, lam = _scalar(params.mu, f), _scalar(params.lam, f)
-    diag = 2.0 * mu * eps + (lam * torch.sum(eps, dim=-1))[..., None]
+    mu, lam = scalar(params.mu, f.dtype), scalar(params.lam, f.dtype)
+    diag = 2.0 * mu * eps + (lam * mathx.seq_sum(eps, -1))[..., None]
     tau = mathx.mm(u * diag[..., None, :], mathx.transpose(u))
     return volume0[..., None, None] * tau
 
@@ -188,9 +183,9 @@ def _sand_project_eps(params: MaterialParams, eps: torch.Tensor, d: int) -> torc
     nd = np_float(eps.dtype)
     mu, lam, alpha = nd(params.mu), nd(params.lam), nd(sand_alpha(params))
     coef = float(alpha * (nd(d) * lam + nd(2.0) * mu) / (nd(2.0) * mu))
-    tr = torch.sum(eps, dim=-1)
+    tr = mathx.seq_sum(eps, -1)
     ehat = eps - (tr / d)[..., None]
-    en = torch.sqrt(torch.sum(ehat * ehat, dim=-1))
+    en = torch.sqrt(mathx.seq_sum(ehat * ehat, -1))
     dg = en + coef * tr
     en_safe = torch.clamp(en, min=float(nd(1e-12)))
     eps_proj = eps - (dg / en_safe)[..., None] * ehat

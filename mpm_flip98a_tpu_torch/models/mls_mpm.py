@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpm_flip98a_tpu_torch.config import MLS88Config, np_float
+from mpm_flip98a_tpu_torch.config import MLS88Config, np_float, scalar
 from mpm_flip98a_tpu_torch.ops import mathx
 from mpm_flip98a_tpu_torch.ops import transfer
 from mpm_flip98a_tpu_torch.ops import weights as W
@@ -33,8 +33,9 @@ def p2g(p: MLS88Particles, cfg: MLS88Config) -> torch.Tensor:
     """P2G (reference: mls-mpm88-explained.cpp:53-102).  Returns the grid
     (G, G, 3) of [m vx, m vy, m] (:46-47)."""
     nd = np_float(p.x.dtype)
+    sc = lambda c: scalar(c, p.x.dtype)
     offsets, base, fx, wst = _stencil(p, cfg)
-    e = torch.exp(cfg.hardening * (1.0 - p.Jp))                        # :67
+    e = torch.exp(sc(cfg.hardening) * (1.0 - p.Jp))                    # :67
     mu = float(nd(cfg.mu_0)) * e                                       # :68
     lam = float(nd(cfg.lambda_0)) * e                                  # :69
     j = mathx.det2x2(p.F)                                              # :72
@@ -43,11 +44,11 @@ def p2g(p: MLS88Particles, cfg: MLS88Config) -> torch.Tensor:
     eye = torch.eye(cfg.dim, dtype=p.x.dtype, device=p.x.device)
     pf = (2.0 * mu)[:, None, None] * mathx.mm(p.F - r, mathx.transpose(p.F)) + (
         (lam * (j - 1.0) * j)[:, None, None] * eye)                    # :81
-    stress = -(cfg.dt * cfg.vol_p) * (dinv * pf)                       # :84
-    affine = stress + cfg.mass_p * p.C                                 # :89
+    stress = sc(-(cfg.dt * cfg.vol_p)) * (sc(dinv) * pf)               # :84
+    affine = stress + sc(cfg.mass_p) * p.C                             # :89
 
     dpos = W.stencil_dpos(fx, offsets) * float(nd(cfg.dx))             # :94
-    mom = (cfg.mass_p * p.v)[:, None, :] + mathx.mv(affine[:, None], dpos)   # :96-98
+    mom = (sc(cfg.mass_p) * p.v)[:, None, :] + mathx.mv(affine[:, None], dpos)   # :96-98
     mass = torch.full(wst.shape + (1,), cfg.mass_p, dtype=p.x.dtype, device=p.x.device)
     values = wst[..., None] * torch.cat([mom, mass], dim=-1)
     return transfer.p2g_scatter(values, base, offsets, cfg.grid_shape)
@@ -56,14 +57,15 @@ def p2g(p: MLS88Particles, cfg: MLS88Config) -> torch.Tensor:
 def grid_update(grid: torch.Tensor, cfg: MLS88Config) -> torch.Tensor:
     """Normalise by mass, gravity, box boundaries
     (reference: mls-mpm88-explained.cpp:104-131)."""
+    sc = lambda c: scalar(c, grid.dtype)
     m = grid[..., 2:3]
     has_mass = m > 0
     g = torch.where(has_mass, grid / torch.where(has_mass, m, 1.0), 0.0)     # :110
-    vy = g[..., 1] + has_mass[..., 0].to(g.dtype) * (cfg.dt * cfg.gravity)   # :113
+    vy = g[..., 1] + has_mass[..., 0].to(g.dtype) * sc(cfg.dt * cfg.gravity)   # :113
     coords = torch.arange(cfg.num_nodes, dtype=grid.dtype, device=grid.device) / cfg.num_grid
     xg, yg = coords[:, None], coords[None, :]                                # :118-119
-    b = cfg.boundary
-    sticky = (xg < b) | (xg > 1 - b) | (yg > 1 - b)                          # :122-124
+    b, b1 = sc(cfg.boundary), sc(1 - cfg.boundary)
+    sticky = (xg < b) | (xg > b1) | (yg > b1)                                # :122-124
     g = torch.where(sticky[..., None], 0.0, torch.stack([g[..., 0], vy, g[..., 2]], dim=-1))
     vy = torch.where(yg < b, torch.clamp(g[..., 1], min=0.0), g[..., 1])     # :126-128
     return torch.stack([g[..., 0], vy, g[..., 2]], dim=-1)
@@ -72,22 +74,23 @@ def grid_update(grid: torch.Tensor, cfg: MLS88Config) -> torch.Tensor:
 def g2p(p: MLS88Particles, grid: torch.Tensor, cfg: MLS88Config) -> MLS88Particles:
     """G2P, advection, the MLS F update and plasticity
     (reference: mls-mpm88-explained.cpp:133-179)."""
+    sc = lambda c: scalar(c, p.x.dtype)
     offsets, base, fx, wst = _stencil(p, cfg)
     dpos = W.stencil_dpos(fx, offsets)                                 # :149 (grid units)
     gv = transfer.g2p_gather(grid[..., :2], base, offsets)             # :150
     wgv = wst[..., None] * gv
-    new_v = torch.sum(wgv, dim=1)                                      # :153
-    new_c = (4.0 * cfg.inv_dx) * torch.sum(wgv[..., :, None] * dpos[..., None, :], dim=1)  # :154
+    new_v = mathx.seq_sum(wgv, 1)                                      # :153
+    new_c = sc(4.0 * cfg.inv_dx) * mathx.dot_sum(wgv[..., :, None], dpos[..., None, :], 1)  # :154
 
-    new_x = p.x + cfg.dt * new_v                                       # :159
+    new_x = p.x + sc(cfg.dt) * new_v                                   # :159
     eye = torch.eye(cfg.dim, dtype=p.x.dtype, device=p.x.device)
-    f_trial = mathx.mm(eye[None] + cfg.dt * new_c, p.F)                # :162
+    f_trial = mathx.mm(eye[None] + sc(cfg.dt) * new_c, p.F)            # :162
     u, sig, v = mathx.svd_2d(f_trial)                                  # :164-165
     if cfg.plastic:                                                    # :167-170
-        sig = torch.clamp(sig, 1.0 - 2.5e-2, 1.0 + 7.5e-3)
+        sig = torch.clamp(sig, sc(1.0 - 2.5e-2), sc(1.0 + 7.5e-3))
     old_j = mathx.det2x2(f_trial)                                      # :172
     f_new = mathx.mm(u, sig[..., :, None] * mathx.transpose(v))        # :173
-    jp_new = torch.clamp(p.Jp * old_j / mathx.det2x2(f_new), 0.6, 20.0)  # :175-177
+    jp_new = torch.clamp(p.Jp * old_j / mathx.det2x2(f_new), sc(0.6), sc(20.0))  # :175-177
     return MLS88Particles(x=new_x, v=new_v, F=f_new, C=new_c, Jp=jp_new)
 
 

@@ -46,7 +46,6 @@ throughout: the JAX module reaches no Pallas kernel.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch.config import np_float
@@ -127,7 +126,7 @@ def project_planes(
     dt_ = g_m.dtype
     dev = g_m.device
     nd = np_float(dt_)
-    tiny = float(np.finfo(nd).tiny)
+    tiny = float(torch.finfo(dt_).tiny)
     sync = halo if ((shards or mesh is not None) and halo is not None) else (lambda x: x)
     ax = lambda a: lead + a     # tensor dim of grid axis a
 
@@ -186,7 +185,7 @@ def project_planes(
     b = owned(-div * float(nd(dx)) * fluid_f)
     z0 = precond(b)
     b2, rho = gsums(b * b, owned(b * z0))
-    thresh = (tol * tol) * b2
+    thresh = float(nd(tol * tol)) * b2
 
     q, r, p, rs = b * 0, b, z0, b2
     good = torch.ones((), dtype=torch.bool, device=dev)

@@ -5,8 +5,11 @@ lattice filling a 0.057 x 0.114 m fluid column against the left wall of a
 0.4375 m box (reference: config.py:30-35), 105^2 grid with 4 padding
 cells (config.py:37-39).  The lattice is built in float64 numpy and cast
 to the requested dtype, exactly as the JAX builder does, so both packages
-start from the same bits.  `elastic_drop_2d` adds an elastic block to that
-column (BASELINE.json configs[2]); `dam_break_3d`, `slab_3d` and
+start from the same bits: `dtype` is a numpy float type or a torch float
+dtype, and `torch.bfloat16` (or any type named "bfloat16") builds what JAX's
+`dtype=jnp.bfloat16` does, float64 rounded through float32 to bfloat16.
+`elastic_drop_2d` adds an elastic block to that column (BASELINE.json
+configs[2]); `dam_break_3d`, `slab_3d` and
 `elastic_drop_3d` are the 3D scenes.  `dam_break_obstacle_2d`, `plow_2d`
 and `dam_break_obstacle_3d` add rigid colliders (models/colliders.py).
 `snow_block_2d` drops a SNOW block onto the floor and `sand_column_2d`
@@ -28,14 +31,31 @@ from mpm_flip98a_tpu_torch.models.stabilized import PAD, Scene, WallBC
 from mpm_flip98a_tpu_torch.state import Particles
 
 
-def _lattice(counts, origin, size, dtype):
-    """counts particles per axis, cell-centered in a box [origin, origin+size)."""
+def _dtype_name(dtype) -> str:
+    """"float32", "float64" or "bfloat16" of a numpy type or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).rsplit(".", 1)[-1]
+    return np.dtype(dtype).name
+
+
+def _host(a: np.ndarray, dtype) -> torch.Tensor:
+    """The float64 array `a` cast once to `dtype` as a CPU tensor; bfloat16
+    rounds through float32, as numpy's (ml_dtypes') cast from float64 does."""
+    name = _dtype_name(dtype)
+    if name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a.astype(name))
+
+
+def _lattice(counts, origin, size):
+    """counts particles per axis, cell-centered in a box [origin, origin+size),
+    in float64."""
     axes = [
         (np.arange(c, dtype=np.float64) + 0.5) * (s / c) + o
         for c, s, o in zip(counts, size, origin)
     ]
     grids = np.meshgrid(*axes, indexing="ij")
-    return np.stack([g.reshape(-1) for g in grids], axis=-1).astype(dtype)
+    return np.stack([g.reshape(-1) for g in grids], axis=-1)
 
 
 def _floor_of(p: Particles) -> float:
@@ -50,15 +70,13 @@ def dam_break_2d(
 ) -> Tuple[Particles, Scene]:
     """The reference production scene (config.py:30-35): fluid column at the
     left wall; particle mass/volume from the lattice (config.py:36)."""
-    cfg = cfg or MPMConfig(dtype=np.dtype(dtype).name)
+    cfg = cfg or MPMConfig(dtype=_dtype_name(dtype))
     x = _lattice(
         (cfg.num_particles_x, cfg.num_particles_y),
         (0.0, 0.0),
-        (cfg.fluid_width, cfg.fluid_height),
-        dtype,
-    )
+        (cfg.fluid_width, cfg.fluid_height))
     p = Particles.init(
-        torch.from_numpy(x),
+        _host(x, dtype),
         volume0=cfg.initial_particle_volume,
         density=physics.particle_density,
     )
@@ -81,17 +99,15 @@ def elastic_drop_2d(
     """An elastic block (neo-Hookean by default, E = 5e4 Pa, nu = 0.3,
     400 kg/m^3) dropped into the fluid column (BASELINE.json configs[2],
     the `elastic_drop` scenario)."""
-    cfg = cfg or MPMConfig(dtype=np.dtype(dtype).name)
+    cfg = cfg or MPMConfig(dtype=_dtype_name(dtype))
     fluid_x = _lattice(
         (cfg.num_particles_x, cfg.num_particles_y),
         (0.0, 0.0),
-        (cfg.fluid_width, cfg.fluid_height),
-        dtype,
-    )
+        (cfg.fluid_width, cfg.fluid_height))
     l = cfg.domain_length
     side = block_frac * l
     nb = max(8, int(side / (cfg.fluid_width / cfg.num_particles_x)))
-    block_x = _lattice((nb, nb), (0.45 * l, drop_height_frac * l), (side, side), dtype)
+    block_x = _lattice((nb, nb), (0.45 * l, drop_height_frac * l), (side, side))
     x = np.concatenate([fluid_x, block_x], axis=0)
     material = np.concatenate([
         np.full(len(fluid_x), mat.WEAKLY_COMPRESSIBLE_FLUID, np.int32),
@@ -99,16 +115,14 @@ def elastic_drop_2d(
     ])
     vol_b = (side * side) / len(block_x)
     volume0 = np.concatenate(
-        [np.full(len(fluid_x), cfg.initial_particle_volume), np.full(len(block_x), vol_b)]
-    ).astype(dtype)
+        [np.full(len(fluid_x), cfg.initial_particle_volume), np.full(len(block_x), vol_b)])
     rho_block = 400.0  # light elastic block (floats)
     density = np.concatenate(
-        [np.full(len(fluid_x), physics.particle_density), np.full(len(block_x), rho_block)]
-    ).astype(dtype)
+        [np.full(len(fluid_x), physics.particle_density), np.full(len(block_x), rho_block)])
     p = Particles.init(
-        torch.from_numpy(x),
-        volume0=torch.from_numpy(volume0),
-        density=torch.from_numpy(density),
+        _host(x, dtype),
+        volume0=_host(volume0, dtype),
+        density=_host(density, dtype),
         material=torch.from_numpy(material),
     )
     e_block, nu_block = 5e4, 0.3
@@ -143,13 +157,13 @@ def snow_block_2d(
     tracked plastic volume Jp and clamped at F-update time
     (mls-mpm88-explained.cpp:17-19,67-69,164-177; E and nu are Stomakhin et
     al. 2013's snow).  The block compacts on impact instead of bouncing."""
-    cfg = cfg or MPMConfig(dtype=np.dtype(dtype).name)
+    cfg = cfg or MPMConfig(dtype=_dtype_name(dtype))
     l = cfg.domain_length
     side = block_frac * l
     n = particles_per_axis
-    x = _lattice((n, n), (0.5 * (l - side), drop_height_frac * l), (side, side), dtype)
+    x = _lattice((n, n), (0.5 * (l - side), drop_height_frac * l), (side, side))
     p = Particles.init(
-        torch.from_numpy(x),
+        _host(x, dtype),
         volume0=side * side / (n * n),
         density=400.0,
         material=torch.full((len(x),), mat.SNOW, dtype=torch.int32),
@@ -182,15 +196,15 @@ def sand_column_2d(
     whose slope the friction angle sets (the `sand2d` scenario):
     materials.SAND with Klar et al. 2016's quartz sand (E = 3.537e5 Pa,
     nu = 0.3, phi = 35 degrees)."""
-    cfg = cfg or MPMConfig(dtype=np.dtype(dtype).name)
+    cfg = cfg or MPMConfig(dtype=_dtype_name(dtype))
     l = cfg.domain_length
     w = width_frac * l
     h = height_frac * l
     floor_y = (PAD + 0.55) * cfg.dx  # just above the wall band
     nx, ny = particles_per_axis
-    x = _lattice((nx, ny), (0.5 * (l - w), floor_y), (w, h), dtype)
+    x = _lattice((nx, ny), (0.5 * (l - w), floor_y), (w, h))
     p = Particles.init(
-        torch.from_numpy(x),
+        _host(x, dtype),
         volume0=w * h / (nx * ny),
         density=2200.0,
         material=torch.full((len(x),), mat.SAND, dtype=torch.int32),
@@ -280,7 +294,7 @@ def slab_3d(
     128^3; BASELINE.json configs[3] is num_grids=256, (512, 512, 32)."""
     cfg = MPMConfig(
         dim=3,
-        dtype=np.dtype(dtype).name,
+        dtype=_dtype_name(dtype),
         num_grids=num_grids,
         dt=dt,
         flip_blend=flip_blend,
@@ -288,9 +302,9 @@ def slab_3d(
     )
     l = cfg.domain_length
     size = (0.98 * l, 0.98 * l, height_frac * l)
-    x = _lattice(particles_per_axis, (0.0, 0.0, 0.0), size, dtype)
+    x = _lattice(particles_per_axis, (0.0, 0.0, 0.0), size)
     vol = size[0] * size[1] * size[2] / len(x)
-    p = Particles.init(torch.from_numpy(x), volume0=vol, density=physics.particle_density)
+    p = Particles.init(_host(x, dtype), volume0=vol, density=physics.particle_density)
     return p, _fluid_scene(cfg, physics, p)
 
 
@@ -306,14 +320,14 @@ def dam_break_3d(
     quarter of the box wide and half of it tall along the last axis, which
     gravity acts on.  Extra kwargs go to MPMConfig."""
     cfg = MPMConfig(
-        dim=3, dtype=np.dtype(dtype).name, num_grids=num_grids, dt=dt, **cfg_kwargs,
+        dim=3, dtype=_dtype_name(dtype), num_grids=num_grids, dt=dt, **cfg_kwargs,
     )
     l = cfg.domain_length
     w = 0.25 * l
     h = 0.5 * l
-    x = _lattice(particles_per_axis, (0.0, 0.0, 0.0), (w, w, h), dtype)
+    x = _lattice(particles_per_axis, (0.0, 0.0, 0.0), (w, w, h))
     vol = (w * h * w) / len(x)
-    p = Particles.init(torch.from_numpy(x), volume0=vol, density=physics.particle_density)
+    p = Particles.init(_host(x, dtype), volume0=vol, density=physics.particle_density)
     return p, _fluid_scene(cfg, physics, p)
 
 
@@ -333,13 +347,13 @@ def elastic_drop_3d(
     `elastic_drop_2d` / BASELINE.json configs[2].  Extra kwargs go to
     MPMConfig."""
     cfg = MPMConfig(
-        dim=3, dtype=np.dtype(dtype).name, num_grids=num_grids, dt=dt, **cfg_kwargs,
+        dim=3, dtype=_dtype_name(dtype), num_grids=num_grids, dt=dt, **cfg_kwargs,
     )
     l = cfg.domain_length
     fsize = (0.9 * l, 0.9 * l, 0.25 * l)
-    fluid_x = _lattice(fluid_particles, (0.0, 0.0, 0.0), fsize, dtype)
+    fluid_x = _lattice(fluid_particles, (0.0, 0.0, 0.0), fsize)
     side = 0.2 * l
-    block_x = _lattice(block_particles, (0.4 * l, 0.4 * l, 0.55 * l), (side,) * 3, dtype)
+    block_x = _lattice(block_particles, (0.4 * l, 0.4 * l, 0.55 * l), (side,) * 3)
     x = np.concatenate([fluid_x, block_x], axis=0)
     material = np.concatenate([
         np.full(len(fluid_x), mat.WEAKLY_COMPRESSIBLE_FLUID, np.int32),
@@ -347,16 +361,13 @@ def elastic_drop_3d(
     ])
     vol_f = fsize[0] * fsize[1] * fsize[2] / len(fluid_x)
     vol_b = side**3 / len(block_x)
-    volume0 = np.concatenate(
-        [np.full(len(fluid_x), vol_f), np.full(len(block_x), vol_b)]
-    ).astype(dtype)
+    volume0 = np.concatenate([np.full(len(fluid_x), vol_f), np.full(len(block_x), vol_b)])
     density = np.concatenate(
-        [np.full(len(fluid_x), physics.particle_density), np.full(len(block_x), 400.0)]
-    ).astype(dtype)
+        [np.full(len(fluid_x), physics.particle_density), np.full(len(block_x), 400.0)])
     p = Particles.init(
-        torch.from_numpy(x),
-        volume0=torch.from_numpy(volume0),
-        density=torch.from_numpy(density),
+        _host(x, dtype),
+        volume0=_host(volume0, dtype),
+        density=_host(density, dtype),
         material=torch.from_numpy(material),
     )
     e_block, nu_block = 5e4, 0.3

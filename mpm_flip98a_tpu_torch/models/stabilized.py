@@ -54,7 +54,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from mpm_flip98a_tpu_torch.config import KernelKind, MPMConfig, Physics, TransferKind, np_float
+from mpm_flip98a_tpu_torch.config import (KernelKind, MPMConfig, Physics, TransferKind, np_float,
+                                          scalar)
 from mpm_flip98a_tpu_torch.models import materials as mat
 from mpm_flip98a_tpu_torch.models import projection
 from mpm_flip98a_tpu_torch.ops import mathx
@@ -139,8 +140,8 @@ def _mass_floor(scene: Scene, g_m: torch.Tensor, sharded: bool = False):
     if scene.mass_floor > 0.0:
         return float(np_float(g_m.dtype)(scene.mass_floor))
     if sharded:
-        return 1e-8 * g_m.amax(dim=tuple(range(1, g_m.dim())), keepdim=True)
-    return 1e-8 * g_m.max()
+        return scalar(1e-8, g_m.dtype) * g_m.amax(dim=tuple(range(1, g_m.dim())), keepdim=True)
+    return scalar(1e-8, g_m.dtype) * g_m.max()
 
 
 def _grid_coords(p_x: torch.Tensor, cfg: MPMConfig) -> torch.Tensor:
@@ -302,8 +303,8 @@ def _csf_force(g_m: torch.Tensor, cfg: MPMConfig, physics: Physics, dtype,
         c = 0.25 * _roll0(c, 1, a) + 0.5 * c + 0.25 * _roll0(c, -1, a)
     c = sync(c)
     n = sync(torch.stack([_cdiff(c, lead + a, inv_dx) for a in range(d)], dim=-1))
-    mag = torch.sqrt(torch.sum(n * n, dim=-1))
-    near = mag > 0.01 * gmax(mag)
+    mag = torch.sqrt(mathx.seq_sum(n * n, -1))
+    near = mag > float(nd(0.01)) * gmax(mag)
     safe = torch.where(near, mag, 1.0)
     nhat = torch.where(near[..., None], n / safe[..., None], 0.0)
     kappa = -sum(_cdiff(nhat[..., a], lead + a, inv_dx) for a in range(d))
@@ -411,7 +412,7 @@ def substep_grid(
         p_grid = torch.where(den > 0, proj[..., 1] / safe, 0.0)
         div_grid = torch.where(den > 0, proj[..., 2] / safe, 0.0)
         back = transfer.g2p_gather(torch.stack([p_grid, div_grid], dim=-1), base, offsets, index)
-        p_smooth = torch.sum(wst[..., None] * back, dim=1)
+        p_smooth = mathx.seq_sum(wst[..., None] * back, 1)
         r = float(nd(ratio))
         one_r = float(nd(1) - nd(ratio))
         pressure = r * p_smooth[..., 0] + one_r * p_point
@@ -508,18 +509,19 @@ def substep_grid(
     # ---- G2P ----------------------------------------------------------
     both = transfer.g2p_gather(torch.cat([v_new, v0], dim=-1), base, offsets, index)
     wv = wst[..., None] * both
-    v_pic = torch.sum(wv[..., 0:d], dim=1)
-    dv_flip = v_pic - torch.sum(wv[..., d : 2 * d], dim=1)
+    v_pic = mathx.seq_sum(wv[..., 0:d], 1)
+    dv_flip = v_pic - mathx.seq_sum(wv[..., d : 2 * d], 1)
 
     # Velocity gradient: the B-spline's APIC D is (dx^2/4) I
     # (mls-mpm88-explained.cpp:79); other kernels invert the per-particle
     # D = sum w dpos dpos^T in closed form.
-    b_mat = torch.sum(wv[..., 0:d, None] * dpos_phys[..., None, :], dim=1)
+    b_mat = mathx.dot_sum(wv[..., 0:d, None], dpos_phys[..., None, :], 1)
     if cfg.kernel == KernelKind.BSPLINE:
         c_new = float(dinv) * b_mat
     else:
-        d_mat = torch.sum(
-            wst[..., None, None] * dpos_phys[..., :, None] * dpos_phys[..., None, :], dim=1)
+        # JAX's three-operand einsum contracts w with one dpos first.
+        d_mat = mathx.dot_sum((wst[..., None] * dpos_phys)[..., :, None],
+                              dpos_phys[..., None, :], 1)
         d_mat = d_mat + float(nd(1e-12)) * eye
         c_new = mathx.mm(b_mat, mathx.inv(d_mat))
 
@@ -542,10 +544,10 @@ def substep_grid(
 
     # Kernel-consistency diagnostics (fields.py:15-18): partition of unity
     # and linear-field reproduction sum_i w_i x_i - x_p.
-    pou = torch.sum(wst, dim=1)
+    pou = mathx.seq_sum(wst, 1)
     node_pos = (base_global[:, None, :].to(dt_) + W.constant(offsets, dt_, dev)[None]
                 - PAD) * float(dx)
-    cons = torch.sum(wst[..., None] * node_pos, dim=1) - p.x
+    cons = mathx.dot_sum(wst[..., None], node_pos, 1) - p.x
 
     return (
         Particles(

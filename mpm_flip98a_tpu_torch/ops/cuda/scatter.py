@@ -24,10 +24,18 @@ hundreds of thousands of zero rows.  The stencil form reads the rows in
 place and never a tap that is out of bounds (the CPU's clipped taps are
 +0).
 
+bfloat16 (the JAX package's bf16 mode): XLA's CPU scatter rounds each
+node's sum to bfloat16 after every add, in update order, where the CPU's
+`index_add_` sums in float32 and rounds once.  So the bf16 plain version
+is that sequential rounded sum (`sequential_add_bf16`), and the kernel's
+bf16 mode rounds after every add in the same order: the two are bitwise
+equal, and equal to JAX's `.at[].add`.
+
 The wrappers take the plain version only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  `LAUNCHES["scatter"]` counts
-the sum kernel's launches in both forms, `LAUNCHES["scatter_keys"]` the
-stencil plan's key kernel.
+the sum kernel's launches in both forms and every dtype,
+`MODE_LAUNCHES["bf16"]` those of its bfloat16 instance among them,
+`LAUNCHES["scatter_keys"]` the stencil plan's key kernel.
 """
 
 from __future__ import annotations
@@ -42,14 +50,16 @@ from mpm_flip98a_tpu_torch.ops.cuda.transfer2d import _check, _ptr, _raise_on, _
 from mpm_flip98a_tpu_torch.ops.weights import constant, stencil_offsets
 
 LAUNCHES = {"scatter": 0, "scatter_keys": 0}
+MODE_LAUNCHES = {"bf16": 0}
 
 # The kernel packs a particle index with its tap into 32 bits (index x 32 + tap).
 MAX_PARTICLES = 1 << 27
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, MODE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 class SegmentPlan(NamedTuple):
@@ -157,10 +167,12 @@ def _launch(values: torch.Tensor, plan: SegmentPlan, nodes: int, taps: int, g1: 
     values = values.contiguous()
     out = torch.empty((nodes, c), dtype=values.dtype, device=values.device)
     lib = _build.load().lib
-    fn = lib.mpm_segment_sum_f32 if values.dtype == torch.float32 else lib.mpm_segment_sum_f64
+    fn = {torch.float32: lib.mpm_segment_sum_f32, torch.float64: lib.mpm_segment_sum_f64,
+          torch.bfloat16: lib.mpm_segment_sum_bf16}[values.dtype]
     rc = fn(_ptr(values), _ptr(plan.order), _ptr(plan.starts), _ptr(out), nodes, c, taps, g1,
             g2, _stream(values))
     LAUNCHES["scatter"] += 1
+    MODE_LAUNCHES["bf16"] += values.dtype == torch.bfloat16
     _raise_on(rc, "scatter")
     return out
 
@@ -168,12 +180,42 @@ def _launch(values: torch.Tensor, plan: SegmentPlan, nodes: int, taps: int, g1: 
 def _check_values(values: torch.Tensor, dim: int) -> None:
     if values.dim() != dim:
         raise ValueError(f"values: expected {dim} dimensions, got {tuple(values.shape)}")
-    if values.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"values: expected float32 or float64, got {values.dtype}")
+    if values.dtype not in (torch.float32, torch.float64, torch.bfloat16):
+        raise TypeError(f"values: expected float32, float64 or bfloat16, got {values.dtype}")
+
+
+def sequential_add_bf16(values: torch.Tensor, flat: torch.Tensor, nodes: int) -> torch.Tensor:
+    """bfloat16 rows (M, c) added into (nodes, c) one after another in row
+    order from +0, each node's sum rounded to bfloat16 after every add (XLA's
+    CPU `.at[].add` in bfloat16).  Rows of +-0 only are left out (they leave
+    such a sum unchanged bit for bit); the rest go in rank levels: level r
+    adds every node's r-th row at once, so no node appears twice in a level."""
+    out = torch.zeros((nodes, values.shape[-1]), dtype=torch.bfloat16, device=values.device)
+    live = torch.nonzero((values != 0).any(dim=-1)).reshape(-1)
+    if live.numel() == 0:
+        return out
+    ids, order = torch.sort(flat.reshape(-1)[live], stable=True)
+    rows = values[live[order]]
+    pos = torch.arange(ids.numel(), device=ids.device)
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[1:] = ids[1:] != ids[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), dim=0).values
+    by_rank = torch.sort(rank, stable=True).indices
+    at = 0
+    for count in torch.bincount(rank).tolist():
+        sel = by_rank[at : at + count]
+        at += count
+        node = ids[sel]
+        out[node] = out[node] + rows[sel]
+    return out
 
 
 def scatter_add_plain(values: torch.Tensor, flat: torch.Tensor, nodes: int) -> torch.Tensor:
-    """Plain version: rows (M, c) added into (nodes, c) by `index_add_`."""
+    """Plain version: rows (M, c) added into (nodes, c) in row order: by
+    `index_add_` in float32 and float64, by `sequential_add_bf16` in
+    bfloat16."""
+    if values.dtype == torch.bfloat16:
+        return sequential_add_bf16(values, flat, nodes)
     out = torch.zeros((nodes, values.shape[-1]), dtype=values.dtype, device=values.device)
     out.index_add_(0, flat.reshape(-1), values)
     return out
@@ -181,7 +223,7 @@ def scatter_add_plain(values: torch.Tensor, flat: torch.Tensor, nodes: int) -> t
 
 def scatter_add(values: torch.Tensor, flat: torch.Tensor, nodes: int,
                 plan: Optional[SegmentPlan] = None) -> torch.Tensor:
-    """The one-tap form: (M, c) float32 or float64 rows summed by their
+    """The one-tap form: (M, c) float32, float64 or bfloat16 rows summed by their
     node id `flat` (M,) int64 into (nodes, c).  On the card every node adds
     its rows in ascending position from zero (the CPU `index_add_`'s
     order); `plan`, `segment_plan(flat, nodes)`, is built here when not
@@ -223,7 +265,7 @@ def stencil_add_plain(values: torch.Tensor, base: torch.Tensor, offsets: np.ndar
 
 def stencil_add(values: torch.Tensor, base: torch.Tensor, offsets: np.ndarray, grid_shape,
                 plan: Optional[SegmentPlan] = None) -> torch.Tensor:
-    """The stencil form: (N, S, c) float32 or float64 rows, tap s of
+    """The stencil form: (N, S, c) float32, float64 or bfloat16 rows, tap s of
     particle p on node base[p] + offsets[s] of `grid_shape` (2D or 3D),
     summed into (nodes, c); taps out of bounds add nothing.  On the card
     every node adds its rows in ascending (particle, tap) position from

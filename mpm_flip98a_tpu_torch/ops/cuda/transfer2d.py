@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch import _build
+from mpm_flip98a_tpu_torch.config import scalar
 
 NT = 5             # candidate target rows: bucket_row - 1 .. bucket_row + 3
 P2G_CH_FUSED = 5   # [m v0, m v1, m v0 + f0, m v1 + f1, m]
@@ -561,7 +562,7 @@ def grid_update2d_plain(raw, r, dt, gx_, gy_, floor, lo, hi, wall, beta, collide
     if colliders:
         from mpm_flip98a_tpu_torch.models import colliders as col
 
-        dxc = col.rounded(dx, f32)
+        dxc = scalar(dx, f32)
         coords = [(t0r.to(f32) - lo) * dxc, (col_idx.to(f32) - lo) * dxc]
         vx, vy = col.project([vx, vy], coords, colliders, tcol)
         vx = torch.where(interior, vx, 0.0)

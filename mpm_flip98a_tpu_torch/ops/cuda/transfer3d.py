@@ -88,6 +88,7 @@ import numpy as np
 import torch
 
 from mpm_flip98a_tpu_torch import _build
+from mpm_flip98a_tpu_torch.config import scalar
 from mpm_flip98a_tpu_torch.models import colliders as col
 from mpm_flip98a_tpu_torch.ops.cuda.transfer2d import (
     EOS_CODES, SMEM_SM, WALL_CODES, GatherPlan, _check, _col_weights, _ptr, _raise_on, _route,
@@ -492,7 +493,7 @@ def grid_update3d_plain(raw, r0, dt, grav, floor, lo, hi, wall, beta, ext=False,
                 v[a] = torch.where(low, v[a].clamp(min=0.0), v[a])
                 v[a] = torch.where(high, v[a].clamp(max=0.0), v[a])
     if colliders:
-        dxc = col.rounded(dx, raw.dtype)
+        dxc = scalar(dx, raw.dtype)
         coords = [(i.to(raw.dtype) - lo) * dxc for i in (t0r, idx1, idx2)]
         vp = col.project(v, coords, colliders, tcol)
         keep = interior & (idx1 >= 0) & (idx1 < pl1 - (NT - 1))

@@ -5,8 +5,9 @@ grid node) index leading and small per-particle matrices trailing
 (..., d, d).  Scene builders make `Particles` on the host in the scene's
 dtype (float64 by default); the general path moves it to its device as it
 is (`to_device`), the fast path casts it to float32 in
-`models/fast2d.from_particles`.  `Grid` is the general path's post-update
-grid, `MLS88Particles` the validation model's state.
+`models/fast2d.from_particles` (bfloat16 too, as the JAX package does).
+`Grid` is the general path's post-update grid, `MLS88Particles` the
+validation model's state.
 """
 
 from __future__ import annotations
@@ -14,7 +15,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """t as a numpy array on the host; bfloat16, which numpy lacks, widened
+    to float32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def to_device(state, device):

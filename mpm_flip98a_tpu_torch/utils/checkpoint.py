@@ -19,6 +19,12 @@ On a rank mesh (one shard per process) `save_rank_shard` has each rank
 write its own shard file of the same directory format, and
 `load_rank_shard` has each rank read its own: a directory written by n
 shards on one device resumes on n ranks, and the reverse.
+
+bfloat16 fields are stored as the JAX package stores them: numpy has no
+bfloat16, so the npz holds 2-byte records (`|V2`) with the bits, and the
+manifest names the dtype "bfloat16".  The port writes and reads that
+layout through 16-bit views, so either package's file loads bit for bit
+(the JAX package's own `load` cannot turn the records back into an array).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 SHARD_FILE = "shard-{:05d}.npz"
+BF16_RECORD = np.dtype("V2")   # how an npz holds a bfloat16 field
 
 
 def _npz_path(path: str) -> str:
@@ -41,16 +48,34 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A field on the host: bfloat16 as `BF16_RECORD`s of its bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(BF16_RECORD)
+    return t.numpy()
+
+
 def _host_fields(state: Any) -> dict:
-    return {f.name: getattr(state, f.name).detach().cpu().numpy()
-            for f in dataclasses.fields(state)}
+    return {f.name: _host(getattr(state, f.name)) for f in dataclasses.fields(state)}
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == BF16_RECORD else str(a.dtype)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a, order="C")
+    if a.dtype == BF16_RECORD:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _write(path: str, type_name: str, fields: dict, meta: dict) -> None:
     manifest = {
         "type": type_name,
         "meta": meta or {},
-        "fields": {k: [str(v.dtype), list(v.shape)] for k, v in fields.items()},
+        "fields": {k: [_dtype_name(v), list(v.shape)] for k, v in fields.items()},
     }
     np.savez_compressed(path, __manifest__=json.dumps(manifest), **fields)
 
@@ -62,14 +87,18 @@ def _read(path: str, state_type: Type) -> dict:
         if manifest["type"] != state_type.__name__:
             raise ValueError(
                 f"checkpoint holds {manifest['type']}, requested {state_type.__name__}")
-        return {name: z[name] for name in manifest["fields"]}
+        fields = {name: z[name] for name in manifest["fields"]}
+    for name, (dtype, _) in manifest["fields"].items():
+        if dtype == "bfloat16" and fields[name].dtype != BF16_RECORD:
+            raise ValueError(f"checkpoint field {name}: bfloat16 stored as "
+                             f"{fields[name].dtype}, expected 2-byte records")
+    return fields
 
 
 def _build(state_type: Type, fields: dict, device) -> Any:
     """`state_type` of the numpy `fields` on `device`; a checkpoint written
     before `Jp` existed loads with Jp = 1 (checkpoint.py:60-67)."""
-    kwargs = {name: torch.from_numpy(np.array(a, order="C")).to(device)
-              for name, a in fields.items()}
+    kwargs = {name: _tensor(a, device) for name, a in fields.items()}
     missing = {f.name for f in dataclasses.fields(state_type)} - set(kwargs)
     if missing == {"Jp"}:
         kwargs["Jp"] = torch.ones_like(kwargs["J"])

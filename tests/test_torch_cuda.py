@@ -1407,6 +1407,75 @@ def test_stencil_scatter_with_keep_equals_cpu_index_add(dev, dtype, dim):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_bf16_stencil_scatter_kernel_equals_plain(dev, dim):
+    """The scatter's bf16 mode (each node's sum rounded to bf16 after every
+    add) bitwise its plain version on the CPU (the sequential rounded sum,
+    XLA's bf16 `.at[].add`), with a dense node (5,000 particles at one
+    point); reruns bitwise; every launch the bf16 instance."""
+    from mpm_flip98a_tpu_torch.ops import weights
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    vals, base, shape = _stencil_rows(dim, torch.bfloat16, 49 + dim, 100_000, dense=5_000)
+    offsets = weights.stencil_offsets(dim)
+    want = scatter.stencil_add_plain(vals, base, offsets, shape)
+    scatter.reset_launches()
+    vd, bd = vals.to(dev), base.to(dev)
+    got = scatter.stencil_add(vd, bd, offsets, shape)
+    again = scatter.stencil_add(vd, bd, offsets, shape, scatter.stencil_plan(bd, shape))
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter"] == scatter.MODE_LAUNCHES["bf16"] == 2
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    assert torch.equal(again.view(torch.int16), got.view(torch.int16))
+
+
+def test_bf16_scatter_kernel_equals_plain_with_zero_rows(dev):
+    """The one-tap form's bf16 mode with a plan leaving out 50,000 rows of
+    +-0 on one node, beside clustered rows: bitwise the sequential rounded
+    sum over every row."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+
+    rng = np.random.default_rng(48)
+    nodes, m, c = 257 * 257, 500_000, 6
+    flat = torch.from_numpy(rng.integers(0, nodes // 7, m) * 7 + rng.integers(0, 3, m))
+    vals = torch.from_numpy(rng.normal(0.0, 1.0, (m, c)) * 10.0 ** rng.uniform(-5, 5, (m, 1)))
+    zero = torch.zeros(m, dtype=torch.bool)
+    zero[rng.choice(m, 50_000, replace=False)] = True
+    flat = torch.where(zero, nodes // 2, flat)
+    vals = torch.where(zero[:, None], -0.0, vals).to(torch.bfloat16)
+    want = scatter.scatter_add_plain(vals, flat, nodes)
+    fd, vd = flat.to(dev), vals.to(dev)
+    got = scatter.scatter_add(vd, fd, nodes, scatter.segment_plan(fd, nodes, ~zero.to(dev)))
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def test_bf16_general_path_on_the_card_equals_the_cpu(dev):
+    """20 bf16 substeps of the stabilized FLIP set (F-bar's cell sums, the
+    projection and momentum transfers: three scatters a substep) on the
+    card bitwise the CPU's on every field: the scatters by the bf16 mode,
+    the contractions and sums in float32 in a fixed order."""
+    from mpm_flip98a_tpu_torch.models import stabilized
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+    from mpm_flip98a_tpu_torch.state import to_device
+
+    p, scene = _perturbed_dam(np.float32, flip_blend=0.98, transfer=TransferKind.PIC,
+                              use_fbar=True, use_penalty_ebc=True, pressure_mixing_ratio=1.0)
+    p = dataclasses.replace(p, **{f.name: getattr(p, f.name).bfloat16()
+                                  for f in dataclasses.fields(p)
+                                  if getattr(p, f.name).dtype == torch.float32})
+    scatter.reset_launches()
+    got = stabilized.run(to_device(p, dev), scene, 20)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES["scatter"] == scatter.MODE_LAUNCHES["bf16"] == 20 * 3
+    want = stabilized.run(p, scene, 20)
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name).cpu(), getattr(want, f.name)
+        if w.dtype == torch.bfloat16:
+            g, w = g.view(torch.int16), w.view(torch.int16)
+        assert g.dtype == w.dtype and torch.equal(g, w), f.name
+
+
 def test_general_reruns_on_the_card_are_bitwise_equal(dev):
     """tests/test_determinism.py:22-37 on the card: two 100-substep float32
     runs of the 37^2 dam break with the stabilized switch set (F-bar's
