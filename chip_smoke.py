@@ -154,9 +154,9 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                same particles, interleaved, median of 3 x 10 (with
                --profile, obstacle8M's device busy time and idle share);
 30. main:general2d  the reference workload (dam2d: 8,450 particles, 105^2,
-               dt 1e-6, float64) through the CLI's default path, 3 frames
+               dt 1e-6, float64) through the CLI's default path, 1 frame
                x 10,000 substeps: centre of mass, std x and front after
-               each frame within 1e-5 of the golden statistics
+               it within 1e-5 of the golden statistics
                (tests/test_golden_reference.py), diagnostics.check, ms per
                substep; then elastic_drop and dam2d_obstacle on the general
                path (1 frame x 200): the host checks, no kernel launched;
@@ -199,16 +199,16 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                the {"plastic": {...}} line;
 36. main:incompressible  CSF surface tension and the incompressible
                projection: the dam2d_incompressible CLI (8,450 particles,
-               105^2; 2 frames x 100) on the fast path, the general path
+               105^2; 2 frames x 50) on the fast path, the general path
                and --devices 4 (launches, the host checks, |J - 1| < 5e-4
                on the fast path, the CG's exit resid); one general
-               substep card against CPU after 200 (float64, 1e-12 of
+               substep card against CPU after 100 (float64, 1e-12 of
                scale); incomp1M (bench 1M with the projection): p2g_fused
                and g2p against plain on its state with times and bounds,
                ms per substep of the kernel and plain paths (3 x 20) and
                with the CG's flag read every iteration, the CG's exit
                resid, one substep against the general path, two
-               100-substep runs bitwise equal, |J - 1|, peak memory, 4
+               20-substep runs bitwise equal, |J - 1|, peak memory, 4
                shards against one device (v and C within
                INCOMP_SHARD_TOL) with p2g_grid and the prepadded g2p
                against plain; incomp8M (the 8M slab with the projection:
@@ -220,8 +220,8 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                102,152 particles) general against fast and ms per substep;
                the 41^2 drop on both paths (rounds within 1500 substeps,
                sigma 0 static over 300); dam2d_obstacle and dam3d_obstacle
-               with the projection, fast against general after 1 and 200
-               (100) substeps; then the {"incompressible": {...}} line;
+               with the projection, fast against general after 1 and 100
+               (50) substeps; then the {"incompressible": {...}} line;
 37. main:general_determinism  the general path's fixed-order scatter
                (csrc/scatter.cu on a plan of one key a particle): two
                100-substep general runs bitwise equal at the 37^2 float32
@@ -299,9 +299,9 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                halo and migration ms and bytes per substep per rank, peak
                memory per rank (with --profile rank 0's device busy time);
 46. main:domain_ext  on 4 ranks against one device: CSF on
-               tests/test_surface_tension.py's drop (200 substeps, x
+               tests/test_surface_tension.py's drop (100 substeps, x
                1e-12), the projection on tests/test_projection.py's 33^2
-               column (25 substeps, x 1e-8, v 1e-7), dam2d_obstacle (50
+               column (10 substeps, x 1e-8, v 1e-7), dam2d_obstacle (50
                substeps, x 1e-12, v 1e-10);
 47. main:replicated  parallel/replicated.py on 4 ranks: 37^2 float64
                padded to a multiple of 12, 50 substeps against one device
@@ -339,8 +339,8 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                set (stab1M: `p2g` prepped 9 channels, 7-channel `g2p`) 5
                substeps;
 51. main:fast_ranks_cli  `--devices 4 --ranks --backend gloo` on
-               dam2d_flip98 (2 frames x 100 substeps) and
-               dam2d_incompressible (2 x 10), frames from rank 0 alone;
+               dam2d_flip98 (2 frames x 25 substeps) and
+               dam2d_incompressible (2 x 5), frames from rank 0 alone;
                dam3d `--devices 2x2
                --ranks` with a checkpoint after one frame, resumed on ranks
                and on SlabMesh(2, 2), each against the uninterrupted
@@ -362,7 +362,23 @@ Run from the root of a checkout.  It imports nothing of JAX.  Phases:
                (tests/test_dtypes.py:44-66), and bf16 and float32 timed in
                turns (3 x 20, 3 x 5 in 3D) with peak memory; the fast path
                from bf16 particles bitwise its float32-cast run; then the
-               {"bf16": ...} line.
+               {"bf16": ...} line;
+53. main:ranks_bf16  the general path's rank forms on bf16 particles, 4
+               gloo ranks on this card: the slab domain and the replicated
+               grid on bench250k (bench 1M's 513^2 cell at 1000 x 250
+               particles: at bench 1M's spacing the bf16 mode blows up
+               within 5 substeps, in the JAX package too), 1 + 3 x 20
+               substeps in turns with their float32 cast (ms per substep, exchange ms and bytes by tag,
+               peak memory per rank); every scatter launch of the bf16
+               runs the kernel's bf16 instance and none of the float32
+               runs; finite, in the box, mass constant, dropped 0; the
+               reference scene in bf16 (both forms, 5 substeps) on the
+               card ranks against 4 CPU ranks, every field within 1 bf16
+               ulp of its scale; RankMesh.psum of bf16 blocks bitwise its
+               plain ordered sum (float32 in rank order, rounded once) on
+               every rank, the planted partials at 1.015625 and 0 (with
+               --profile, rank 0's device busy time of each timed cell
+               and dtype); then the {"ranks_bf16": ...} line.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device it exits with code 2 before doing anything.  The line before the
@@ -390,7 +406,8 @@ under "incomp1M_*" (p2g_fused, g2p), "incomp1Mx4_*" (p2g_grid, g2p),
 p2g3d_grid's raw mode and g2p3d on the two-axis windows under
 "win2_<cell>_*", p2g_grid's non-raw mode under "finished_*" (with
 "finished_prepped_*" and "finished_colliders_max_abs_err"), g2p's update
-mode under "update_*" (with "update_prepadded_*" and "update_sharded_*"),
+mode under "update_*" (with "update_prepadded_*" and "update_sharded_*", their
+bounds among them),
 p2g3d's stress mode under "stress_*" (0 launches: no path runs it), and
 "scatter", the general path's fixed-order scatter
 (not a TPU kernel), with "equal_to_cpu", "rerun_bitwise_equal",
@@ -401,7 +418,9 @@ reference run, "bf16_equal_to_plain", "bf16_rerun_bitwise_equal", times at
 bench 1M and under "bf16_slab1M_*" and "bf16_dense_*");
 "scatter_keys", the plan's key kernel in csrc/scatter.cu;
 and each rank's
-launches in every run of phases 44-47 under "ranks_launches"); the fast
+launches in every run of phases 44-47 under "ranks_launches", and of
+phase 53's bf16 runs, [all, the bf16 instance], under
+"ranks_bf16_launches"); the fast
 paths on ranks (phases 49-50): each rank's launches under "ranks_launches"
 (p2g_grid, g2p at bench 1M; p2g3d_grid, g2p3d at slab 8M, with
 "ranks_2x2_launches" and "ranks_stab3d_launches"), p2g_fused's and g2p's
@@ -2147,6 +2166,11 @@ GOLDEN_REFERENCE = {
     30000: dict(com_x=0.02964613, com_y=0.05408680, std_x=0.01711508, front=0.06209041),
 }
 GOLDEN_TOL = 1e-5
+# main:general2d runs the reference scene for this many of the golden
+# frames (10,000 substeps each): the golden gate reads the first one.
+# Three frames took 141 s of host-bound substeps on an H100 80GB HBM3 at
+# 700 W, the most of any phase.
+GOLDEN_FRAMES = 1
 # One general substep on the card against the CPU (and against a second
 # card run), per field as a share of its scale.  The card's index_add_
 # adds with atomics in no fixed order.  float64: every field 1e-12.
@@ -2422,7 +2446,7 @@ def general_phases(dev, card, io_ok, profile_dir=None):
     """main:general2d, main:general_vs_cpu, main:general_vs_fast,
     main:general3d, main:mls88; fills GENERAL.  With `profile_dir`, the
     general path's device busy time on the reference scene (after its
-    30,000 substeps), bench 1M, stab1M and slab 1M."""
+    GOLDEN_FRAMES x 10,000 substeps), bench 1M, stab1M and slab 1M."""
     from mpm_flip98a_tpu_torch import driver
     from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
     from mpm_flip98a_tpu_torch.models import fast3d, scenes, stabilized
@@ -2431,10 +2455,10 @@ def general_phases(dev, card, io_ok, profile_dir=None):
     # ---- main:general2d: the reference workload through the CLI ----------
     p_ref, _ = driver.SCENARIOS["dam2d"]()
     mass0 = float(p_ref.mass.sum())
-    n_frames, frame = len(GOLDEN_REFERENCE), min(GOLDEN_REFERENCE)
+    n_frames, frame = GOLDEN_FRAMES, min(GOLDEN_REFERENCE)
     sim, secs, frames = general_cli(dev, card, io_ok, "dam2d", n_frames, frame)
     worst = 0.0
-    for (steps, want), x in zip(sorted(GOLDEN_REFERENCE.items()), frames):
+    for (steps, want), x in zip(sorted(GOLDEN_REFERENCE.items())[:n_frames], frames):
         got = golden_stats(x)
         dev_ = {k: abs(got[k] - v) for k, v in want.items()}
         worst = max(worst, *dev_.values())
@@ -2862,6 +2886,9 @@ INCOMP_SHARD_TOL = 1e-4
 # to 0.129 l, sphere radius 0.08 l; 3D column to 0.245 l, radius 0.1 l).
 TOUCHING = {"dam2d_obstacle": (0.21, 0.10), "dam3d_obstacle": (0.35, 0.12, 0.12)}
 INCOMP = {}                  # the {"incompressible": ...} line
+# incomp1M's two runs from one state, held bitwise equal: a difference in
+# the CG's order would show within its first substep.
+INCOMP_RERUN = 20
 
 
 class CGProbe:
@@ -2942,13 +2969,13 @@ def incompressible(scene):
 
 
 def incomp_cli(dev, card, io_ok, path, devices):
-    """dam2d_incompressible through the CLI (2 frames x 100): launches, the
+    """dam2d_incompressible through the CLI (2 frames x 50): launches, the
     host checks, |J - 1| < 5e-4 on the fast path
     (tests/test_projection.py:189)."""
     from mpm_flip98a_tpu_torch import driver
     from mpm_flip98a_tpu_torch.models import fast2d
 
-    scenario, n_frames, n_sub = "dam2d_incompressible", 2, 100
+    scenario, n_frames, n_sub = "dam2d_incompressible", 2, 50
     n = n_frames * n_sub
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -3073,25 +3100,26 @@ def incomp1m(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds, launches)
     del sim, b
     torch.cuda.empty_cache()
 
-    # One substep against the general path, then two 100-substep runs.
+    # One substep against the general path, then two 20-substep runs.
     out["vs_general"] = general_vs_fast("incomp1M", p, scene, dev, card, n_time=3)
     spec = fast2d.FastSpec.for_particles(cfg, p)
     b0 = fast2d.from_particles(p, cfg, spec, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    a = fast2d.run(b0, scene, spec, 100)
-    c = fast2d.run(b0, scene, spec, 100)
+    a = fast2d.run(b0, scene, spec, INCOMP_RERUN)
+    c = fast2d.run(b0, scene, spec, INCOMP_RERUN)
     torch.cuda.synchronize()
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     differ = [f.name for f in dataclasses.fields(a)
               if not torch.equal(getattr(a, f.name), getattr(c, f.name))]
     out["rerun_bitwise_equal"] = not differ
-    out["J_dev_100"] = float((a.J - 1.0).abs().max())
-    say(f"[main:incomp1M rerun] two 100-substep runs: fields not bitwise equal {differ}; max "
-        f"|J - 1| after 100 substeps {out['J_dev_100']!r}; peak device memory "
+    out["J_dev"] = float((a.J - 1.0).abs().max())
+    say(f"[main:incomp1M rerun] two {INCOMP_RERUN}-substep runs: fields not bitwise equal "
+        f"{differ}; max |J - 1| after {INCOMP_RERUN} substeps {out['J_dev']!r}; peak device "
+        f"memory "
         f"{out['peak_bytes']} bytes = {out['peak_bytes'] / 2**30:.3f} GiB  [{card}]")
     check(not differ, f"incomp1M: two fast runs differ in {differ}")
-    check(out["J_dev_100"] < 5e-4, f"incomp1M: |J - 1| {out['J_dev_100']}")
+    check(out["J_dev"] < 5e-4, f"incomp1M: |J - 1| {out['J_dev']}")
     del a, c, b0
     torch.cuda.empty_cache()
 
@@ -3383,7 +3411,7 @@ def csf_phases(dev, card):
 
 def collider_incomp(dev, card):
     """dam2d_obstacle and dam3d_obstacle with the projection: one substep
-    fast against general (slot for slot), then 200 (2D) or 100 (3D)
+    fast against general (slot for slot), then 100 (2D) or 50 (3D)
     substeps of each path: finite, no particle deeper than 1.5 dx inside
     the collider, ensemble mean and std within 5e-4.  In both scenes the
     front does not reach the collider in those substeps, so one more
@@ -3393,7 +3421,7 @@ def collider_incomp(dev, card):
     from mpm_flip98a_tpu_torch.models import scenes
 
     out = {}
-    for scenario, n_sub in (("dam2d_obstacle", 200), ("dam3d_obstacle", 100)):
+    for scenario, n_sub in (("dam2d_obstacle", 100), ("dam3d_obstacle", 50)):
         p, scene = driver.SCENARIOS[scenario]()
         scene = incompressible(scene)
         entry = {"vs_general": general_vs_fast(f"incomp {scenario}", p, scene, dev, card,
@@ -3450,12 +3478,12 @@ def incompressible_phases(dev, card, io_ok, profile_dir, err, kernel_ms, plain_m
     for path, devices in (("fast", 1), ("general", 1), ("fast", 4)):
         INCOMP[f"cli_{path}_x{devices}"] = incomp_cli(dev, card, io_ok, path, devices)
     say(f"[timing] incompressible CLIs done in {time.perf_counter() - t0:.1f} s")
-    # Card against CPU: the general path (float64) after 200 substeps.
+    # Card against CPU: the general path (float64) after 100 substeps.
     p, scene = driver.SCENARIOS["dam2d_incompressible"]()
-    state = stabilized.run(to_device(p, dev), scene, 200)
+    state = stabilized.run(to_device(p, dev), scene, 100)
     every = {f.name: GENERAL_TOL[torch.float64] for f in dataclasses.fields(state)}
     term = 4.0 * float(state.v.abs().max()) / scene.cfg.dx     # C's terms: as in main:plastic
-    INCOMP["vs_cpu_200"] = card_vs_cpu("dam2d_incompressible after 200", state, scene, every,
+    INCOMP["vs_cpu_100"] = card_vs_cpu("dam2d_incompressible after 100", state, scene, every,
                                        card, {"C": term, "div_v": term})
     del state
     INCOMP["incomp1M"] = incomp1m(dev, card, profile_dir, err, kernel_ms, plain_ms, bounds,
@@ -4201,6 +4229,16 @@ def compare_g2p_update(tag, pdata8, counts, grid, dx, dinv, prepadded, card):
     return max(err)
 
 
+def g2p_update_bound(pdata8, counts, grid):
+    """`bound` of g2p's update mode: live slots' 8 rows, dead slots' x (2),
+    counts and the grid in; every slot's 9 rows out; 9 taps x 8 sums and
+    ~15 operations of update per live slot."""
+    r, _, k = pdata8.shape
+    live = int(counts.sum())
+    return bound(4 * (8 * live + 2 * (r * k - live) + r + grid.numel() + 9 * r * k),
+                 live * (9 * 8 * 2 + 15))
+
+
 def kernels_fused2d(dev, card, err, kernel_ms, plain_ms, bounds):
     """Phase 41, kernels:fused2d; returns the bench particles and scene."""
     from mpm_flip98a_tpu_torch import driver
@@ -4242,11 +4280,8 @@ def kernels_fused2d(dev, card, err, kernel_ms, plain_ms, bounds):
         lambda: tk.g2p_plain(pdata8, counts, grid4, dx, dinv, **kw_u), reps=3, warm=1)
     kernel_ms["g2p_update_prepadded"] = cuda_ms(
         lambda: tk.g2p(pdata8, counts, finished[None], dx, dinv, prepadded=True, **kw_u))
-    # Live slots' 8 rows, dead slots' x (2) + counts + the grid in; every
-    # slot's 9 rows out; 9 taps x 8 sums and ~15 operations of update per
-    # live slot.
-    bounds["g2p_update"] = bound(
-        4 * (8 * live + 2 * (r * k - live) + r + 4 * r * g + 9 * r * k), live * (9 * 8 * 2 + 15))
+    bounds["g2p_update"] = g2p_update_bound(pdata8, counts, grid4)
+    bounds["g2p_update_prepadded"] = g2p_update_bound(pdata8, counts, finished[None])
     sim4 = driver.Simulation(p_big, scene, path="fast", out_dir=tempfile.gettempdir(),
                              device=dev, devices=4)
     sim4.step_frame(20)
@@ -4258,6 +4293,7 @@ def kernels_fused2d(dev, card, err, kernel_ms, plain_ms, bounds):
                                                    True, card)
     kernel_ms["g2p_update_sharded"] = cuda_ms(
         lambda: tk.g2p(pdata8_s, c4, grid_s, dx, dinv, prepadded=True, **kw_u))
+    bounds["g2p_update_sharded"] = g2p_update_bound(pdata8_s, c4, grid_s)
     del sim4, b4, d4, c4, grid_s, pdata8_s, grid4, finished, pdata8
 
     # stab1M: the prepped 9-channel branch with the penalty EBC.
@@ -4298,8 +4334,12 @@ def kernels_fused2d(dev, card, err, kernel_ms, plain_ms, bounds):
         say(f"[kernels:fused2d] {name}: kernel {kernel_ms[name]:.4f} ms (CUDA events, 20 calls)"
             f"{', plain %.4f ms (3 calls)' % plain_ms[name] if name in plain_ms else ''}, bound "
             f"{bounds[name][0]:.4f} ms ({bounds[name][1]})  [{card}]")
-    say(f"[kernels:fused2d] g2p update prepadded {kernel_ms['g2p_update_prepadded']:.4f} ms, on "
-        f"4 shards {kernel_ms['g2p_update_sharded']:.4f} ms  [{card}]")
+    say(f"[kernels:fused2d] g2p update prepadded {kernel_ms['g2p_update_prepadded']:.4f} ms "
+        f"(bound {bounds['g2p_update_prepadded'][0]:.4f} ms, "
+        f"{bounds['g2p_update_prepadded'][1]}), on 4 shards "
+        f"{kernel_ms['g2p_update_sharded']:.4f} ms (bound "
+        f"{bounds['g2p_update_sharded'][0]:.4f} ms, {bounds['g2p_update_sharded'][1]})  "
+        f"[{card}]")
     torch.cuda.empty_cache()
     return p_big, scene
 
@@ -4540,8 +4580,12 @@ def fused2d_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches):
         "update_rerun_bitwise_equal": RERUNS["g2p_update"],
         "update_prepadded_max_abs_err": err["g2p_update_prepadded"],
         "update_prepadded_ms": kernel_ms["g2p_update_prepadded"],
+        "update_prepadded_bound_ms": bounds["g2p_update_prepadded"][0],
+        "update_prepadded_bound_by": bounds["g2p_update_prepadded"][1],
         "update_sharded_max_abs_err": err["g2p_update_sharded"],
         "update_sharded_ms": kernel_ms["g2p_update_sharded"],
+        "update_sharded_bound_ms": bounds["g2p_update_sharded"][0],
+        "update_sharded_bound_by": bounds["g2p_update_sharded"][1],
         "update_sharded_launches": launches["fused2d fuse_g2p x4"]["g2p"]})
     by_name["p2g3d"].update({
         "stress_launches": sum(launches[w]["p2g3d_stress"] for w in (
@@ -4827,11 +4871,11 @@ def ranks_phases(dev, card, profile_dir):
     p_m = dataclasses.replace(p_m, v=p_m.v.clone())
     p_m.v[:, 0] = 3.0
     cases["migrate"] = (p_m, scene_m, 100)
-    cases["csf"] = (*drop_scene(41, 5.0, 5e-5, (32, 16), np.float64), 200)
+    cases["csf"] = (*drop_scene(41, 5.0, 5e-5, (32, 16), np.float64), 100)
     cases["projection"] = (*scenes.dam_break_2d(MPMConfig(
         dtype="float64", num_grids=33, dt=1e-5, num_particles_x=24, num_particles_y=48,
         fluid_width=0.105, fluid_height=0.21, flip_blend=0.98, transfer=TransferKind.PIC,
-        incompressible=True, pressure_iters=60)), 25)
+        incompressible=True, pressure_iters=60)), 10)
     cases["obstacle"] = (*driver.SCENARIOS["dam2d_obstacle"](), 50)
     refs = {tag: single(*case) for tag, case in cases.items()}
     p_b, scene_b = scenes.dam_break_2d(MPMConfig(**BENCH, transfer=TransferKind.PIC),
@@ -5012,7 +5056,10 @@ CLI3D_STEPS = 20             # dam3d on 2 x 2 ranks: 2 frames, checkpoint after 
 # takes 0.7-1.3 s a substep there (3 collectives an iteration through host
 # memory; 2 x 100 substeps took 166.5 s and 2 x 20, beside the other CLIs,
 # 52.6 s on an H100 80GB HBM3, 700 W).
-CLI_INCOMP_STEPS = 10
+CLI_INCOMP_STEPS = 5
+# dam2d_flip98 on 4 ranks: 2 frames of this many substeps (100 took 41.7 s
+# of the phase's 80.3 s beside the other CLIs, same card).
+CLI2D_STEPS = 25
 
 
 def _groups(dim):
@@ -5589,7 +5636,7 @@ def report_origin(tag, recs, names, card, err, kernel_ms, plain_ms, bounds):
 
 def fast_rank_clis(dev, card):
     """Phase 51, main:fast_ranks_cli: the CLIs with --ranks --backend gloo
-    (dam2d_flip98 on 4 ranks, 2 frames x 100 substeps, dam2d_incompressible
+    (dam2d_flip98 on 4 ranks, 2 frames x CLI2D_STEPS, dam2d_incompressible
     2 x CLI_INCOMP_STEPS; dam3d on 2 x 2 ranks with a checkpoint, resumed
     on ranks and on SlabMesh(2, 2) against the uninterrupted SlabMesh run),
     and the nccl refusal through the CLI."""
@@ -5622,7 +5669,7 @@ def fast_rank_clis(dev, card):
         t0 = time.perf_counter()
         with ThreadPoolExecutor(4) as pool:
             runs = {
-                "dam2d_flip98": pool.submit(cli, "2d", "dam2d_flip98", "4", 2, 100),
+                "dam2d_flip98": pool.submit(cli, "2d", "dam2d_flip98", "4", 2, CLI2D_STEPS),
                 "dam2d_incompressible": pool.submit(cli, "inc", "dam2d_incompressible", "4", 2,
                                                     CLI_INCOMP_STEPS),
                 "dam3d 2x2": pool.submit(cli, "3d", "dam3d", "2x2", 1, CLI3D_STEPS,
@@ -6111,6 +6158,296 @@ def bf16_phases(dev, card, io_ok):
     say(f"[timing] main:bf16 done in {BF16['seconds']:.1f} s")
     say(json.dumps({"bf16": BF16}))
     return BF16
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 on ranks: the general path's slab domain and replicated grid
+# ---------------------------------------------------------------------------
+
+RANKS_BF16 = {}              # the {"ranks_bf16": ...} line
+RANKS_BF16_TIMED = 20        # bench250k: 1 substep, then 3 x this many a dtype, in turns
+# The timed bf16 cell: bench 1M's grid (513^2), box, dt and column at half
+# its particle spacing on each axis (1000 x 250 particles).  At bench 1M's
+# own spacing the bf16 mode is unstable: |v| reaches 5600 by the 5th
+# substep and x leaves the box by the 10th on one device and on ranks, on
+# the card and on the CPU alike, and JAX's eager bf16 substep does the same
+# bit for bit on a 200 x 500 strip of that lattice (496 by the 5th); at
+# this spacing both stay finite and in the box (25 substeps of the strip
+# bitwise, 61 of the whole cell on 4 CPU ranks).
+RANKS_BF16_BENCH = dict(BENCH, num_particles_x=1000, num_particles_y=250)
+RANKS_BF16_REF_STEPS = 5     # the reference scene: card ranks against CPU ranks
+# The bf16 psum's blocks, one a rank: 4096 seeded values spread over 1e-3
+# to 300 of either sign, and the planted partials of
+# tests/test_torch_bf16_ranks.py (rounded once 1.015625, after every add
+# 1.0; in rank order in float32 0, another order 2).
+PSUM_PLANTED = {"round_once": [1.0, 2.0 ** -8, 2.0 ** -8, 2.0 ** -8],
+                "rank_order": [2.0 ** 24, 1.0, 1.0, -(2.0 ** 24)]}
+
+
+def bf16_rank_scene(name):
+    """(bf16 particles, scene) of a main:ranks_bf16 case: bench250k
+    (`RANKS_BF16_BENCH`) or the reference scene (8,450 particles, 105^2),
+    built alike in every rank."""
+    from mpm_flip98a_tpu_torch.config import MPMConfig, TransferKind
+    from mpm_flip98a_tpu_torch.models import scenes
+
+    if name == "bench250k":
+        return scenes.dam_break_2d(MPMConfig(**RANKS_BF16_BENCH, transfer=TransferKind.PIC),
+                                   dtype=torch.bfloat16)
+    return scenes.dam_break_2d(dtype=torch.bfloat16)
+
+
+def psum_blocks(n) -> dict:
+    """{case: (n, k) bf16 blocks}, block r for rank r."""
+    rng = np.random.default_rng(21)
+    spread = rng.choice([-1.0, 1.0], (n, 4096)) * 10.0 ** rng.uniform(-3, np.log10(300),
+                                                                    (n, 4096))
+    out = {"spread": torch.from_numpy(spread).bfloat16()}
+    if n == len(PSUM_PLANTED["round_once"]):
+        out.update({k: torch.tensor(v)[:, None].bfloat16() for k, v in PSUM_PLANTED.items()})
+    return out
+
+
+def ranks_bf16_jobs(mesh, jobs):
+    """The rank worker of main:ranks_bf16 (it prints nothing).  A "psum"
+    job returns this rank's `mesh.psum` of each `psum_blocks` case (its
+    bits).  A "domain" or "replicated" job builds its scene in bf16 and
+    runs `n` substeps; with `turns`, the float32 cast of the same
+    particles too: 1 substep of each, then 3 x n of each in turns, each
+    run's ms per substep and traffic, each dtype's peak device memory
+    above its state, and the scatter's launches in the bf16 runs (all,
+    and of the bf16 instance) and in the float32 ones; with `profile`,
+    then 5 more substeps of each dtype with rank 0 under torch.profiler
+    (`profile_rank`).  It returns the bf16 state's fields
+    (`state.host_bits`) and `dropped`."""
+    from mpm_flip98a_tpu_torch.ops.cuda import scatter
+    from mpm_flip98a_tpu_torch.parallel import domain, replicated
+    from mpm_flip98a_tpu_torch.state import host_bits
+
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+    out = []
+    for job in jobs:
+        if job["kind"] == "psum":
+            out.append({name: host_bits(mesh.psum(blocks[mesh.rank].to(dev), tag="bf16_psum"))
+                        for name, blocks in psum_blocks(mesh.n).items()})
+            continue
+        p16, scene16 = bf16_rank_scene(job["scene"])
+        scene32 = dataclasses.replace(scene16, cfg=dataclasses.replace(scene16.cfg,
+                                                                      dtype="float32"))
+        if job["kind"] == "domain":
+            spec = domain.DomainSpec.for_particles(scene16.cfg, mesh.n, p16, headroom=2.0)
+            start = lambda p, sc: domain.distribute(p, sc, spec, mesh)[0]
+            run = lambda s, sc, n: domain.make_run(sc, spec, mesh)(s, n)
+        else:
+            start = lambda p, sc: replicated.shard_particles(
+                replicated.pad_particles(p, mesh.n), mesh)
+            run = lambda s, sc, n: replicated.make_run(sc, mesh)(s, n)
+        cases = {"bf16": (p16, scene16)}
+        if job.get("turns"):
+            cases["float32"] = (bf16_cast(p16, torch.float32), scene32)
+        rec = {"launches": {k: [0, 0] for k in cases}, "ms_runs": {k: [] for k in cases},
+               "traffic_runs": {k: [] for k in cases}, "peak_bytes": {k: 0 for k in cases}}
+        states = {}
+
+        def window(k, n, timed):
+            state = states.get(k)
+            if state is None:
+                state = start(*cases[k])
+            scatter.reset_launches()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            mesh.psum(torch.zeros(1, device=dev))          # the ranks start together
+            mesh.traffic.clear()
+            sync()
+            base = torch.cuda.memory_allocated(dev) if on_card else 0
+            t0 = time.perf_counter()
+            states[k] = run(state, cases[k][1], n)
+            sync()
+            ms = 1e3 * (time.perf_counter() - t0) / n
+            rec["launches"][k][0] += scatter.LAUNCHES["scatter"]
+            rec["launches"][k][1] += scatter.MODE_LAUNCHES["bf16"]
+            if on_card:
+                rec["peak_bytes"][k] = max(rec["peak_bytes"][k],
+                                           torch.cuda.max_memory_allocated(dev) - base)
+            if timed:
+                rec["ms_runs"][k].append(ms)
+                rec["traffic_runs"][k].append(_traffic(mesh))
+
+        for k in cases:
+            window(k, 1 if job.get("turns") else job["n"], False)
+        if job.get("turns"):
+            for order in (("bf16", "float32"), ("float32", "bf16"), ("bf16", "float32")):
+                for k in order:
+                    window(k, job["n"], True)
+        if job.get("profile"):
+            rec["profile"] = {}
+            for k in cases:
+                def run_k(n, k=k):
+                    states[k] = run(states[k], cases[k][1], n)
+                rec["profile"][k] = profile_rank(mesh, run_k, 5)
+        final = states["bf16"]
+        parts = final.particles if job["kind"] == "domain" else final
+        rec["fields"] = {f.name: host_bits(getattr(parts, f.name))
+                         for f in dataclasses.fields(parts)}
+        if job["kind"] == "domain":
+            rec["dropped"] = host_bits(final.dropped)
+        out.append(rec)
+    return out
+
+
+def ranks_bf16_phases(dev, card, profile_dir=None):
+    """Phase 53, main:ranks_bf16: the general path's rank forms on bf16
+    particles, 4 gloo ranks on this card (RankMesh stages the blocks
+    through host memory).  The slab domain and the replicated grid on
+    bench250k, 1 + 3 x RANKS_BF16_TIMED substeps in turns with their
+    float32 cast: ms per substep, exchange ms and bytes by tag, peak
+    memory per rank; every scatter launch of the bf16 runs the kernel's
+    bf16 instance (none in the float32 runs); finite, in the box, mass
+    constant, dropped 0.  The reference scene in bf16, both forms, after
+    RANKS_BF16_REF_STEPS substeps on the card ranks against 4 CPU ranks
+    (within BF16_CARD_ULPS bf16 ulps of each field's scale).  The bf16
+    psum on the card bitwise its plain ordered sum (`mesh.bf16_sum` on
+    the CPU), the planted partials at their values.  With `profile_dir`,
+    rank 0's device busy time and idle share of each timed cell and dtype
+    (its table written there)."""
+    from mpm_flip98a_tpu_torch.parallel import launch
+    from mpm_flip98a_tpu_torch.parallel.mesh import bf16_sum
+    from mpm_flip98a_tpu_torch.state import from_host_bits
+
+    t_all = time.perf_counter()
+    n = 4
+    profile = profile_dir is not None
+    jobs = [dict(kind="domain", tag="bench250k", scene="bench250k", n=RANKS_BF16_TIMED,
+                 turns=True, profile=profile),
+            dict(kind="replicated", tag="replicated_bench250k", scene="bench250k",
+                 n=RANKS_BF16_TIMED, turns=True, profile=profile),
+            dict(kind="domain", tag="reference", scene="reference", n=RANKS_BF16_REF_STEPS),
+            dict(kind="replicated", tag="reference_replicated", scene="reference",
+                 n=RANKS_BF16_REF_STEPS),
+            dict(kind="psum", tag="psum")]
+    ref_jobs = [j for j in jobs if j.get("scene") == "reference"]
+    with ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        on_cpu = pool.submit(launch.run_ranks, ranks_bf16_jobs, n, device="cpu", backend="gloo",
+                             timeout_s=RANK_TIMEOUT_S, args=(ref_jobs,))
+        per_rank = launch.run_ranks(ranks_bf16_jobs, n, device=dev, backend=RANK_BACKEND,
+                                    timeout_s=RANK_TIMEOUT_S, args=(jobs,))
+        card_s = time.perf_counter() - t0
+        cpu_ranks = on_cpu.result()
+        cpu_s = time.perf_counter() - t0
+    say(f"[main:ranks_bf16] 4 ranks on {dev} ran {[j['tag'] for j in jobs]} in {card_s:.1f} s; "
+        f"4 CPU ranks ran {[j['tag'] for j in ref_jobs]} beside them, done at {cpu_s:.1f} s "
+        f"(process starts included)  [{card}]")
+    at = {j["tag"]: i for i, j in enumerate(jobs)}
+    widen = lambda a: from_host_bits(a).double()
+
+    # ---- the state gates and the launches ------------------------------------
+    for job in jobs[:4]:
+        tag, j = job["tag"], at[job["tag"]]
+        recs = [r[j] for r in per_rank]
+        p16, scene16 = bf16_rank_scene(job["scene"])
+        cfg = scene16.cfg
+        fields = {k: torch.cat([from_host_bits(r["fields"][k]) for r in recs]) for k in
+                  ("x", "v", "mass", "J")}
+        active = fields["mass"] > 0
+        x = fields["x"][active].double()
+        finite = all(bool(torch.isfinite(fields[k]).all()) for k in fields)
+        inside = bool(((x > -cfg.dx) & (x < cfg.domain_length + cfg.dx)).all())
+        mass = float(fields["mass"].double().sum())
+        mass0 = float(p16.mass.double().sum())
+        dropped = [int(widen(r["dropped"]).sum()) for r in recs if "dropped" in r]
+        bf16_launches = [r["launches"]["bf16"] for r in recs]
+        f32_launches = [r["launches"].get("float32", [0, 0]) for r in recs]
+        n_sub = RANKS_BF16_REF_STEPS if not job.get("turns") else 1 + 3 * RANKS_BF16_TIMED
+        want = n_sub * scatters_per_substep(cfg)
+        say(f"[main:ranks_bf16 {tag}] {p16.n} bf16 particles, {cfg.num_grids}^2, {job['kind']} "
+            f"on 4 ranks, {n_sub} bf16 substeps: active {int(active.sum())} (want {p16.n}), "
+            f"finite {finite}, inside box {inside}, mass {mass!r} (initial {mass0!r}), dropped "
+            f"{dropped} (bound 0); scatter launches per rank in the bf16 runs [all, bf16 "
+            f"instance] {bf16_launches} (want {want} each, all the bf16 instance), in the "
+            f"float32 runs {f32_launches}  [{card}]")
+        check(int(active.sum()) == p16.n, f"ranks_bf16 {tag}: particle count changed")
+        check(finite and inside, f"ranks_bf16 {tag}: finite {finite}, inside {inside}")
+        check(mass == mass0, f"ranks_bf16 {tag}: mass {mass} against {mass0}")
+        check(not any(dropped), f"ranks_bf16 {tag}: dropped {dropped}")
+        check(all(a == b == want for a, b in bf16_launches),
+              f"ranks_bf16 {tag}: bf16 scatter launches {bf16_launches}, want {want}")
+        check(not job.get("turns") or all(a == want and b == 0 for a, b in f32_launches),
+              f"ranks_bf16 {tag}: float32 runs launched {f32_launches}")
+        RANKS_BF16[f"{tag}_launches_per_rank"] = bf16_launches
+        RANKS_BF16[f"{tag}_peak_bytes_per_rank"] = [r["peak_bytes"] for r in recs]
+
+    # ---- the reference scene: card ranks against CPU ranks --------------------
+    for job in ref_jobs:
+        tag = job["tag"]
+        card_recs = [r[at[tag]] for r in per_rank]
+        cpu_recs = [r[ref_jobs.index(job)] for r in cpu_ranks]
+        ulps = {}
+        for name in card_recs[0]["fields"]:
+            got = torch.cat([from_host_bits(r["fields"][name]) for r in card_recs])
+            want = torch.cat([from_host_bits(r["fields"][name]) for r in cpu_recs])
+            if not want.is_floating_point():
+                check(torch.equal(got, want), f"ranks_bf16 {tag}: {name} differs card vs CPU")
+                continue
+            diff = float((got.double() - want.double()).abs().max())
+            ulps[name] = diff / bf16_ulp(float(want.double().abs().max())) if diff else 0.0
+        over = {k: v for k, v in ulps.items() if v > BF16_CARD_ULPS}
+        say(f"[main:ranks_bf16 {tag}] the reference scene in bf16, {RANKS_BF16_REF_STEPS} "
+            f"substeps on 4 card ranks against 4 CPU ranks: per field max |card - CPU| in bf16 "
+            f"ulps of the field's scale {ulps} (bound {BF16_CARD_ULPS})  [{card}]")
+        check(not over, f"ranks_bf16 {tag}: card vs CPU over {BF16_CARD_ULPS} ulp: {over}")
+        RANKS_BF16[f"{tag}_card_vs_cpu_ulps"] = ulps
+
+    # ---- the bf16 psum ----------------------------------------------------------
+    blocks = psum_blocks(n)
+    equal = {}
+    for name, b in blocks.items():
+        want = bf16_sum(b).view(torch.int16)
+        equal[name] = all(torch.equal(from_host_bits(r[at["psum"]][name]).view(torch.int16),
+                                      want) for r in per_rank)
+    planted = {name: float(from_host_bits(per_rank[0][at["psum"]][name])[0])
+               for name in PSUM_PLANTED}
+    say(f"[main:ranks_bf16 psum] RankMesh.psum of bf16 blocks on the card, every rank bitwise "
+        f"the plain ordered sum (float32 in rank order, rounded once): {equal}; the planted "
+        f"partials {planted} (want 1.015625, 0.0)  [{card}]")
+    check(all(equal.values()), f"ranks_bf16 psum: {equal}")
+    check(planted == {"round_once": 1.015625, "rank_order": 0.0}, f"ranks_bf16 psum: {planted}")
+    RANKS_BF16["psum_bitwise_ordered_sum"] = equal
+
+    # ---- timing: bf16 and float32 in turns ---------------------------------------
+    for job in jobs[:2]:
+        tag, j = job["tag"], at[job["tag"]]
+        recs = [r[j] for r in per_rank]
+        tags = ("halo", "migrate") if job["kind"] == "domain" else ("psum",)
+        entry = {}
+        for k in ("bf16", "float32"):
+            runs = [max(r["ms_runs"][k][i] for r in recs) for i in range(3)]
+            traffic = [r["traffic_runs"][k] for r in recs]
+            ex_ms = [float(np.median([sum(t[g][2] for g in tags if g in t) for t in tr]))
+                     * 1e3 / RANKS_BF16_TIMED for tr in traffic]
+            ex_bytes = {g: [tr[0][g][1] / RANKS_BF16_TIMED if g in tr[0] else 0 for tr in traffic]
+                        for g in tags}
+            entry[k] = {"ms": float(np.median(runs)), "runs": runs, "exchange_ms_per_rank": ex_ms,
+                        "exchange_bytes_per_rank_by_tag": ex_bytes,
+                        "peak_bytes_per_rank": [r["peak_bytes"][k] for r in recs]}
+            say(f"[timing:ranks_bf16 {tag}] {k}: {entry[k]['ms']:.4f} ms/substep (median of "
+                f"3 x {RANKS_BF16_TIMED}, the slowest rank's; runs {[round(x, 4) for x in runs]}, "
+                f"in turns with the other dtype); exchanges ({'+'.join(tags)}) per rank per "
+                f"substep {[round(x, 4) for x in ex_ms]} ms, bytes sent by tag {ex_bytes}; "
+                f"peak device memory above the state per rank "
+                f"{entry[k]['peak_bytes_per_rank']} bytes  [{card}]")
+        if profile:
+            for k in ("bf16", "float32"):
+                rank0 = [[{"profile": per_rank[0][j]["profile"][k]}]]
+                entry[k]["profile"] = rank_profile(f"bf16_{tag}_{k}", rank0, 0, profile_dir, card)
+        RANKS_BF16[f"{tag}_timing"] = entry
+    RANKS_BF16["seconds"] = time.perf_counter() - t_all
+    say(f"[timing] main:ranks_bf16 done in {RANKS_BF16['seconds']:.1f} s")
+    say(json.dumps({"ranks_bf16": RANKS_BF16}))
+    return RANKS_BF16
 
 
 def main(argv=None) -> int:
@@ -6624,6 +6961,10 @@ def main(argv=None) -> int:
 
     # ---- 52. bfloat16: the scatter's bf16 mode, the general path in bf16 -------
     bf16_phases(dev, card, io_ok)
+    say(f"[timing] bf16 phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 53. bfloat16 on ranks: the general domain and the replicated grid ---
+    ranks_bf16_phases(dev, card, args.profile)
     say(f"[timing] all phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -6778,6 +7119,11 @@ def main(argv=None) -> int:
     # run, one a scatter of the window (checked there).
     next(k for k in kernels if k["name"] == "scatter")["ranks_launches"] = (
         RANKS["scatter_launches_per_rank"])
+    # Its bf16 instance on the ranks of phase 53: each rank's launches in
+    # each bf16 run, all of them the bf16 instance (checked there).
+    next(k for k in kernels if k["name"] == "scatter")["ranks_bf16_launches"] = {
+        tag: RANKS_BF16[f"{tag}_launches_per_rank"]
+        for tag in ("bench250k", "replicated_bench250k", "reference", "reference_replicated")}
     fast_ranks_kernel_keys(kernels, err, kernel_ms, plain_ms, bounds, launches)
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -15,7 +15,9 @@ so this module imports neither JAX nor the JAX package:
 Arrays keep their dtype and bits; the tests use this to feed both
 packages the same state.  A JAX bfloat16 array (numpy dtype name
 "bfloat16", from `ml_dtypes`, which this module does not import) becomes
-a torch bfloat16 tensor through its 16-bit patterns (`bf16_tensor`).
+a torch bfloat16 tensor through its 16-bit patterns (`bf16_tensor`), and
+so does an array of the port's own `state.BF16_RECORD`s (`state.host_bits`),
+which is how the rank workers carry bfloat16 fields.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from mpm_flip98a_tpu_torch.models.fast3d import FluidBuckets3D
 from mpm_flip98a_tpu_torch.models.materials import MaterialParams
 from mpm_flip98a_tpu_torch.models.stabilized import Scene, WallBC
 from mpm_flip98a_tpu_torch.parallel.domain import DomainState
-from mpm_flip98a_tpu_torch.state import MLS88Particles, Particles
+from mpm_flip98a_tpu_torch.state import MLS88Particles, Particles, from_host_bits
 
 
 def is_bf16(a) -> bool:
@@ -51,9 +53,12 @@ def bf16_tensor(a, device="cpu") -> torch.Tensor:
 
 
 def _tensor(a, device="cuda") -> torch.Tensor:
+    """A numpy array as a tensor with its bits: `bf16_tensor` for a JAX
+    bfloat16 array, `state.from_host_bits` for the rest (bfloat16 held as
+    `state.BF16_RECORD`s included)."""
     if is_bf16(a):
         return bf16_tensor(a, device)
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return from_host_bits(a, device)
 
 
 def _names(cls) -> list:

@@ -44,7 +44,7 @@ from mpm_flip98a_tpu_torch.models.stabilized import (
     PAD, GridContext, Scene, _grid_coords, substep,
 )
 from mpm_flip98a_tpu_torch.parallel.mesh import RankMesh
-from mpm_flip98a_tpu_torch.state import Particles
+from mpm_flip98a_tpu_torch.state import Particles, from_host_bits, host_array, host_bits
 
 H = 2  # halo width in grid rows = the stencil's reach (config.py:41-43)
 
@@ -84,7 +84,7 @@ class DomainSpec:
         """Capacity from the initial slab occupancy: free-surface scenes
         are skewed (the dam column fills only the left slabs)."""
         rows = -(-cfg.num_grids // n_shards)
-        shard = _owning_shard(p.x.cpu().numpy(), cfg, rows, n_shards)
+        shard = _owning_shard(host_array(p.x), cfg, rows, n_shards)
         occupancy = int(np.bincount(shard, minlength=n_shards).max())
         cap = max(64, int(headroom * occupancy))
         cap = -(-cap // 64) * 64
@@ -93,7 +93,10 @@ class DomainSpec:
 
 def _owning_shard(x: np.ndarray, cfg: MPMConfig, rows: int, n: int) -> np.ndarray:
     """Host-side owning shard of each particle (numpy, as domain.py:98-100
-    and :289-291 compute it)."""
+    and :289-291 compute it).  bfloat16 positions come widened to float32
+    (`state.host_array`): the reference's bfloat16 arrays promote to
+    float32 as they meet a Python float, so this row is taken in float32
+    arithmetic, where `_base_row` takes bfloat16's."""
     row = np.floor(x[:, 0] * cfg.inv_dx + PAD - 0.5).astype(np.int64)
     return np.clip(row // rows, 0, n - 1)
 
@@ -136,7 +139,9 @@ def make_halo_sync(mesh: RankMesh, L: int):
 def _base_row(p: Particles, cfg: MPMConfig) -> torch.Tensor:
     """Global stencil base row in the state's dtype: x inv_dx + PAD, then
     floor(. - 0.5), the order of domain.py:170-173 (another order moves a
-    particle on a slab line to another shard in float32)."""
+    particle on a slab line to another shard in float32).  In bfloat16
+    each operation rounds to bfloat16, inv_dx first (`config.Bf16`), as
+    the reference computes it on the device."""
     return torch.floor(_grid_coords(p.x[:, 0], cfg) - 0.5).to(torch.int64)
 
 
@@ -181,7 +186,10 @@ def _rows_from_bytes(raw: torch.Tensor, like: Particles) -> dict:
     for n in _FIELDS:
         a = getattr(like, n)
         width = int(np.prod(a.shape[1:], dtype=np.int64)) * a.element_size()
-        out[n] = raw[:, at:at + width].contiguous().view(a.dtype).reshape(
+        # A copy: a one-row slice is contiguous but keeps its byte offset,
+        # which a wider dtype's view needs aligned (bfloat16 fields leave
+        # the next field's offset at 2 bytes).
+        out[n] = raw[:, at:at + width].clone().view(a.dtype).reshape(
             (raw.shape[0],) + tuple(a.shape[1:]))
         at += width
     return out
@@ -218,7 +226,9 @@ def migrate(p: Particles, dropped: torch.Tensor, scene: Scene, spec: DomainSpec,
     in_right = mesh.shift_left(_rows_bytes(p, order_l[:k_l]), rows=n_from_right, tag="migrate")
     in_left = mesh.shift_right(_rows_bytes(p, order_r[:k_r]), rows=n_from_left, tag="migrate")
     if k_l or k_r:
-        # Deactivate every departing row locally.
+        # Deactivate every departing row locally.  The centre is rounded
+        # from float64 to the state's dtype as jnp.asarray rounds it
+        # (through float32 for bfloat16, as torch casts).
         slab_center = torch.full((p.dim,), 0.5 * cfg.domain_length, dtype=p.x.dtype,
                                  device=p.x.device)
         slab_center[0] = (lo + L // 2 - PAD) * cfg.dx
@@ -252,17 +262,20 @@ def migrate(p: Particles, dropped: torch.Tensor, scene: Scene, spec: DomainSpec,
 def layout(p: Particles, scene: Scene, spec: DomainSpec) -> Tuple[dict, np.ndarray]:
     """Host-side: the particles bucketed by owning slab, each bucket padded
     to capacity with inert rows, as numpy arrays of (n capacity, ...) in
-    shard order (domain.py:278-336); and perm, perm[i] = the slot of input
-    particle i."""
+    shard order (domain.py:278-336; bfloat16 fields as `state.host_bits`
+    records); and perm, perm[i] = the slot of input particle i.  The
+    padding is made in float64 and cast to each field's dtype as the
+    reference's `astype` casts it (float64 to bfloat16 through float32,
+    as torch casts)."""
     cfg = scene.cfg
     n, L, C = spec.n_shards, spec.rows_per_shard, spec.capacity
-    host = {name: getattr(p, name).cpu().numpy() for name in _FIELDS}
-    shard = _owning_shard(host["x"], cfg, L, n)
-    d = host["x"].shape[1]
+    host = {name: getattr(p, name).detach().cpu() for name in _FIELDS}
+    shard = _owning_shard(host_array(p.x), cfg, L, n)
+    d = p.dim
     fill = dict(v=0.0, C=0.0, J=1.0, stress=0.0, material=0, volume0=0.0, mass=0.0,
                 density=1.0, pressure=0.0, div_v=0.0, pou=0.0, consistency=0.0, Jp=1.0)
 
-    perm = np.zeros(host["x"].shape[0], np.int64)
+    perm = np.zeros(p.n, np.int64)
     chunks = {name: [] for name in _FIELDS}
     for s in range(n):
         idx = np.nonzero(shard == s)[0]
@@ -277,9 +290,10 @@ def layout(p: Particles, scene: Scene, spec: DomainSpec) -> Tuple[dict, np.ndarr
             a = host[name]
             blk = blocks.get(name)
             if blk is None:
-                blk = np.broadcast_to(fill[name], (pad,) + a.shape[1:])
-            chunks[name].append(np.concatenate([a[idx], blk.astype(a.dtype)], axis=0))
-    return {name: np.concatenate(c, axis=0) for name, c in chunks.items()}, perm
+                blk = np.broadcast_to(fill[name], (pad,) + tuple(a.shape[1:]))
+            blk = torch.from_numpy(np.ascontiguousarray(blk)).to(a.dtype)
+            chunks[name].append(torch.cat([a[torch.from_numpy(idx)], blk]))
+    return {name: host_bits(torch.cat(c)) for name, c in chunks.items()}, perm
 
 
 def distribute(p: Particles, scene: Scene, spec: DomainSpec,
@@ -291,7 +305,7 @@ def distribute(p: Particles, scene: Scene, spec: DomainSpec,
     full, perm = layout(p, scene, spec)
     C = spec.capacity
     mine = slice(mesh.rank * C, (mesh.rank + 1) * C)
-    particles = Particles(**{name: torch.from_numpy(np.ascontiguousarray(a[mine])).to(mesh.device)
+    particles = Particles(**{name: from_host_bits(a[mine], mesh.device)
                              for name, a in full.items()})
     dropped = torch.zeros((1,), dtype=torch.int32, device=mesh.device)
     return DomainState(particles, dropped), perm
@@ -350,8 +364,9 @@ def collect(state: DomainState, mesh: RankMesh) -> Particles:
 def run_jobs(mesh: RankMesh, jobs) -> list:
     """A `launch.run_ranks` worker: for each job (scene, spec, n_substeps,
     start), this rank's shard after `make_run`'s n_substeps, as numpy
-    arrays with its `dropped`.
-    `start` is the host particles as a dict of numpy arrays (every rank
+    arrays (`state.host_bits`: bfloat16 as records of its bits) with its
+    `dropped`.
+    `start` is the host particles as a dict of such arrays (every rank
     gets them all and `distribute`s), or a state in the global layout,
     ({field: (n capacity, ...)}, dropped (n,)), taken as it is."""
     from mpm_flip98a_tpu_torch import convert
@@ -361,9 +376,9 @@ def run_jobs(mesh: RankMesh, jobs) -> list:
         if isinstance(start, tuple):
             state = convert.domain_state_from_numpy(*start, mesh.rank, mesh.n, mesh.device)
         else:
-            p = Particles(**{name: torch.from_numpy(start[name]) for name in _FIELDS})
+            p = Particles(**{name: from_host_bits(start[name]) for name in _FIELDS})
             state, _ = distribute(p, scene, spec, mesh)
         state = make_run(scene, spec, mesh)(state, n_substeps)
-        out.append({name: getattr(state.particles, name).cpu().numpy() for name in _FIELDS})
+        out.append({name: host_bits(getattr(state.particles, name)) for name in _FIELDS})
         out[-1]["dropped"] = state.dropped.cpu().numpy()
     return out

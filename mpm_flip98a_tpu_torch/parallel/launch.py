@@ -44,6 +44,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from mpm_flip98a_tpu_torch.parallel.mesh import RankMesh
+from mpm_flip98a_tpu_torch.state import from_host_bits, host_bits
 
 
 # How long a rank waits at the store for the others to start.
@@ -137,9 +138,10 @@ def mesh_calls(mesh: RankMesh, calls) -> list:
     """A `run_ranks` worker that calls RankMesh methods: for each (methods,
     blocks, kwargs), one of each per rank, this rank calls
     `mesh.<methods[rank]>(blocks[rank], **kwargs[rank])` and returns the
-    results as numpy arrays, in order."""
+    results as numpy arrays, in order (bfloat16 blocks and results as
+    `state.host_bits` records)."""
     out = []
     for methods, blocks, kwargs in calls:
-        x = torch.from_numpy(blocks[mesh.rank]).to(mesh.device)
-        out.append(getattr(mesh, methods[mesh.rank])(x, **kwargs[mesh.rank]).cpu().numpy())
+        x = from_host_bits(blocks[mesh.rank], mesh.device)
+        out.append(host_bits(getattr(mesh, methods[mesh.rank])(x, **kwargs[mesh.rank])))
     return out

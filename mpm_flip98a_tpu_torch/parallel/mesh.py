@@ -17,7 +17,8 @@ along it:
   down along `axis` (`_perm_right`, i -> i + 1); the shards at index 0
   receive zeros;
 - `psum` reduces over every shard, and `any` is its `psum > 0` of 0/1
-  flags.
+  flags; a bfloat16 psum sums in float32 in shard order and rounds once,
+  as XLA's does (`bf16_sum`).
 
 n1 = 1 is the one-axis slab mesh.  The sharded fast paths (`fast_domain`,
 `fast_domain3d`) reach the shards only through these methods.
@@ -32,7 +33,8 @@ default is one axis of all the ranks.  It gives the same collectives on
 the rank's block: `shift_left` / `shift_right` are point-to-point sends to
 the one or two neighbours along the axis (`batch_isend_irecv` on that
 axis's process group), so the bytes stay O(halo); `psum`, `pmax` and
-`any` are `all_reduce`s over every rank.  The general path's
+`any` are `all_reduce`s over every rank, but for a bfloat16 `psum`: an
+`all_gather` summed by `bf16_sum`, in rank order.  The general path's
 `parallel/domain.py` and `parallel/replicated.py` and the fast paths'
 `fast_domain`, `fast_domain3d` and `fast_replicated` run on it.
 
@@ -61,6 +63,16 @@ from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
+
+
+def bf16_sum(parts: torch.Tensor) -> torch.Tensor:
+    """parts (n, ...) bfloat16 summed over dim 0 as XLA's `psum` sums
+    bfloat16 blocks: each widened to float32, added in index order 0..n-1,
+    the total rounded to bfloat16 once."""
+    total = parts[0].float()
+    for part in parts[1:]:
+        total = total + part.float()
+    return total.to(torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +134,8 @@ class SlabMesh:
         return self._shift(x, 1, axis)
 
     def psum(self, x: torch.Tensor, tag: str = "psum") -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return bf16_sum(x)
         return x.sum(dim=0)
 
     def any(self, x: torch.Tensor, tag: str = "any") -> torch.Tensor:
@@ -286,7 +300,11 @@ class RankMesh:
         return self._timed(tag, x.numel() * x.element_size(), call)
 
     def psum(self, x: torch.Tensor, tag: str = "psum") -> torch.Tensor:
-        """The sum of every rank's x (every rank gets the same bits)."""
+        """The sum of every rank's x (every rank gets the same bits).  A
+        bfloat16 x is gathered and summed by `bf16_sum` (gloo's all_reduce
+        would round after every add, in its ring's order)."""
+        if x.dtype == torch.bfloat16:
+            return bf16_sum(self.all_gather(x, tag))
         return self._all_reduce(x, dist.ReduceOp.SUM, tag)
 
     def pmax(self, x: torch.Tensor, tag: str = "pmax") -> torch.Tensor:

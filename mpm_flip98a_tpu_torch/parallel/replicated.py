@@ -17,7 +17,7 @@ import torch
 
 from mpm_flip98a_tpu_torch.models.stabilized import Scene, substep
 from mpm_flip98a_tpu_torch.parallel.mesh import RankMesh
-from mpm_flip98a_tpu_torch.state import Particles
+from mpm_flip98a_tpu_torch.state import Particles, from_host_bits, host_bits
 
 
 def pad_particles(p: Particles, multiple: int) -> Particles:
@@ -88,12 +88,13 @@ def collect(p: Particles, mesh: RankMesh) -> Particles:
 def run_jobs(mesh: RankMesh, jobs) -> list:
     """A `launch.run_ranks` worker: for each job (scene, n_substeps,
     fields), `fields` the padded host particles as numpy arrays (every
-    rank gets them all), every rank's slice after `make_run`'s n_substeps
-    (`collect`), as numpy arrays."""
+    rank gets them all; bfloat16 as `state.host_bits` records), every
+    rank's slice after `make_run`'s n_substeps (`collect`), as such
+    arrays."""
     out = []
     for scene, n_substeps, fields in jobs:
-        p = Particles(**{f.name: torch.from_numpy(fields[f.name])
+        p = Particles(**{f.name: from_host_bits(fields[f.name])
                          for f in dataclasses.fields(Particles)})
         q = collect(make_run(scene, mesh)(shard_particles(p, mesh), n_substeps), mesh)
-        out.append({f.name: getattr(q, f.name).numpy() for f in dataclasses.fields(q)})
+        out.append({f.name: host_bits(getattr(q, f.name)) for f in dataclasses.fields(q)})
     return out

@@ -26,6 +26,28 @@ def host_array(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+# How a host array holds bfloat16 values, which numpy lacks: 2-byte records
+# of their bits (the JAX package's checkpoint layout).
+BF16_RECORD = np.dtype("V2")
+
+
+def host_bits(t: torch.Tensor) -> np.ndarray:
+    """t as a numpy array on the host with its bits: bfloat16 as
+    `BF16_RECORD`s, every other dtype as it is."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(BF16_RECORD)
+    return t.numpy()
+
+
+def from_host_bits(a: np.ndarray, device="cpu") -> torch.Tensor:
+    """The tensor of `host_bits`' array `a` (a copy) on `device`."""
+    a = np.array(a, order="C")
+    if a.dtype == BF16_RECORD:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
 def to_device(state, device):
     """A copy of the dataclass of tensors `state` with every field on `device`."""
     return dataclasses.replace(state, **{

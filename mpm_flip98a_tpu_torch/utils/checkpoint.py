@@ -38,8 +38,9 @@ from typing import Any, Type
 import numpy as np
 import torch
 
+from mpm_flip98a_tpu_torch.state import BF16_RECORD, from_host_bits, host_bits
+
 SHARD_FILE = "shard-{:05d}.npz"
-BF16_RECORD = np.dtype("V2")   # how an npz holds a bfloat16 field
 
 
 def _npz_path(path: str) -> str:
@@ -48,27 +49,12 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A field on the host: bfloat16 as `BF16_RECORD`s of its bits."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.contiguous().view(torch.int16).numpy().view(BF16_RECORD)
-    return t.numpy()
-
-
 def _host_fields(state: Any) -> dict:
-    return {f.name: _host(getattr(state, f.name)) for f in dataclasses.fields(state)}
+    return {f.name: host_bits(getattr(state, f.name)) for f in dataclasses.fields(state)}
 
 
 def _dtype_name(a: np.ndarray) -> str:
     return "bfloat16" if a.dtype == BF16_RECORD else str(a.dtype)
-
-
-def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    a = np.array(a, order="C")
-    if a.dtype == BF16_RECORD:
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
 
 
 def _write(path: str, type_name: str, fields: dict, meta: dict) -> None:
@@ -98,7 +84,7 @@ def _read(path: str, state_type: Type) -> dict:
 def _build(state_type: Type, fields: dict, device) -> Any:
     """`state_type` of the numpy `fields` on `device`; a checkpoint written
     before `Jp` existed loads with Jp = 1 (checkpoint.py:60-67)."""
-    kwargs = {name: _tensor(a, device) for name, a in fields.items()}
+    kwargs = {name: from_host_bits(a, device) for name, a in fields.items()}
     missing = {f.name for f in dataclasses.fields(state_type)} - set(kwargs)
     if missing == {"Jp"}:
         kwargs["Jp"] = torch.ones_like(kwargs["J"])
